@@ -1,0 +1,224 @@
+"""DALLE: the joint text+image autoregressive transformer, serving half.
+
+Port of ``dalle_pytorch_tpu/models/dalle.py``: ``DALLEConfig``, the
+embeddings (``embed_prompt``, ``decode_token_embed``, the summed-axial
+``image_pos_emb`` in both ``axial_compat`` modes), ``logits_mask``,
+``to_logits`` (``:47-244``), and the samplers ``top_k_filter``,
+``top_p_filter`` and ``sample_per_slot`` (``:408-514``) without the
+classifier-free-guidance pair arguments, which come with a later slice.
+
+Vocabulary layout ``[0, num_text_tokens) text | image | EOS``. The image
+embedding is TIED to the VAE codebook: ``dalle_init(vae=...)`` copies
+the codebook into ``image_emb``, and the serving path decodes images
+through the VAE with DALLE's copy, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from dalle_pytorch_tpu_torch.device import generator, resolve_device
+from dalle_pytorch_tpu_torch.models import vae as vae_mod
+from dalle_pytorch_tpu_torch.ops import core, prng
+from dalle_pytorch_tpu_torch.ops import transformer as T
+
+
+@dataclasses.dataclass(frozen=True)
+class DALLEConfig:
+    dim: int
+    depth: int
+    vae: vae_mod.VAEConfig
+    num_text_tokens: int = 10000
+    text_seq_len: int = 256
+    heads: int = 8
+    dim_head: int = 64
+    reversible: bool = False
+    sparse_attn: Union[bool, Tuple[bool, ...]] = False
+    moe_experts: int = 0
+    scale_mode: str = "dim"
+    # 'grid' factorizes over the token grid; 'full_image' reproduces the
+    # reference's (image_size, image_size) table quirk
+    axial_compat: str = "grid"
+
+    def __post_init__(self):
+        if self.axial_compat not in ("grid", "full_image"):
+            raise ValueError(f"unknown axial_compat {self.axial_compat!r}")
+        self.transformer        # validates the stack's options
+
+    @property
+    def image_seq_len(self) -> int:
+        return self.vae.image_seq_len
+
+    @property
+    def num_image_tokens(self) -> int:
+        return self.vae.num_tokens
+
+    @property
+    def seq_len(self) -> int:
+        return self.text_seq_len + self.image_seq_len
+
+    @property
+    def total_tokens(self) -> int:
+        return self.num_text_tokens + self.num_image_tokens + 1  # + EOS
+
+    @property
+    def transformer(self) -> T.TransformerConfig:
+        return T.TransformerConfig(
+            dim=self.dim, depth=self.depth, seq_len=self.seq_len,
+            heads=self.heads, dim_head=self.dim_head, causal=True,
+            reversible=self.reversible, sparse_attn=self.sparse_attn,
+            moe_experts=self.moe_experts, scale_mode=self.scale_mode)
+
+
+class DALLE(nn.Module):
+    """Parameters of the JAX ``dalle_init`` tree, as modules."""
+
+    def __init__(self, cfg: DALLEConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        if cfg.axial_compat == "full_image":
+            ax = cfg.vae.image_size
+        else:
+            ax = cfg.vae.grid_size
+        self.text_emb = nn.Embedding(cfg.num_text_tokens, cfg.dim, **kw)
+        self.image_emb = nn.Embedding(cfg.num_image_tokens, cfg.dim, **kw)
+        self.text_pos_emb = nn.Embedding(cfg.text_seq_len, cfg.dim, **kw)
+        self.image_pos_rows = nn.Embedding(ax, cfg.dim, **kw)
+        self.image_pos_cols = nn.Embedding(ax, cfg.dim, **kw)
+        self.transformer = T.Transformer(cfg.transformer, **kw)
+        self.logits_ln = nn.LayerNorm(cfg.dim, **kw)
+        self.logits_proj = nn.Linear(cfg.dim, cfg.total_tokens, **kw)
+
+
+def dalle_init(cfg: DALLEConfig, seed: int = 0, *,
+               vae: Optional[vae_mod.VAEDecoder] = None,
+               dtype=torch.float32, device=None) -> DALLE:
+    """A seeded random DALLE on ``device`` (the card by default). With
+    ``vae`` the image embedding is seeded from its codebook (the tie;
+    requires ``vae.codebook_dim == dim``)."""
+    device = resolve_device(device)
+    model = DALLE(cfg, device=device, dtype=dtype)
+    core.init_params_(model, generator(seed, device))
+    if vae is not None:
+        if cfg.vae.codebook_dim != cfg.dim:
+            raise ValueError(
+                "tied codebook requires vae.codebook_dim == dalle dim "
+                f"({cfg.vae.codebook_dim} != {cfg.dim})")
+        with torch.no_grad():
+            model.image_emb.weight.copy_(vae.codebook.weight)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# embeddings / masks / head
+# ---------------------------------------------------------------------------
+
+def image_pos_emb(model: DALLE, positions: torch.Tensor) -> torch.Tensor:
+    """Summed-axial embedding of flat image positions: 'grid' maps n ->
+    (n // g, n % g); 'full_image' maps over the image_size-wide table."""
+    width = model.image_pos_cols.weight.shape[0]
+    return (model.image_pos_rows.weight[positions // width]
+            + model.image_pos_cols.weight[positions % width])
+
+
+def logits_mask(cfg: DALLEConfig, rows: Optional[torch.Tensor] = None,
+                device=None) -> torch.Tensor:
+    """(seq_len, total_tokens) bool, True = FORBIDDEN — or only the
+    given ``rows`` of it, ``(len(rows), total_tokens)``, which is what a
+    decode step needs (the full table is 15 MB at the north config).
+    Row i governs the token predicted there, i.e. token i+1."""
+    if rows is None:
+        rows = torch.arange(cfg.seq_len, device=device)
+    n, t = cfg.seq_len, cfg.total_tokens
+    seq = rows[:, None]
+    logit = torch.arange(t, device=rows.device)[None, :]
+    text_boundary = cfg.text_seq_len - 1
+    return (((seq >= text_boundary) & (logit < cfg.num_text_tokens))
+            | ((seq < text_boundary) & (logit >= cfg.num_text_tokens))
+            | ((seq != (n - 1)) & (logit >= (t - 1))))
+
+
+def embed_prompt(model: DALLE, text: torch.Tensor) -> torch.Tensor:
+    """Token embeddings of text (b, t) prompts."""
+    t = text.shape[1]
+    return model.text_emb.weight[text] + model.text_pos_emb.weight[None, :t]
+
+
+def decode_token_embed(model: DALLE, cur_tok: torch.Tensor,
+                       pos: torch.Tensor) -> torch.Tensor:
+    """Embedding of the token fed at per-slot position ``pos`` (b,) during
+    KV-cache decoding. ``cur_tok`` holds image ids WITHOUT the text-vocab
+    offset. Ids are clamped into each table so the unselected branch of
+    the select stays in range."""
+    cfg = model.cfg
+    text_e = (model.text_emb.weight[cur_tok.clamp(0, cfg.num_text_tokens - 1)]
+              + model.text_pos_emb.weight[pos.clamp(0, cfg.text_seq_len - 1)])
+    img_pos = (pos - cfg.text_seq_len).clamp(0, cfg.image_seq_len - 1)
+    img_e = (model.image_emb.weight[
+        cur_tok.clamp(0, cfg.num_image_tokens - 1)]
+        + image_pos_emb(model, img_pos))
+    return torch.where((pos < cfg.text_seq_len)[:, None], text_e, img_e)
+
+
+def to_logits(model: DALLE, h: torch.Tensor) -> torch.Tensor:
+    return core.linear(model.logits_proj, core.layernorm(model.logits_ln, h))
+
+
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+def top_k_filter(logits: torch.Tensor, thres: float) -> torch.Tensor:
+    """Keep the top (1-thres)·vocab logits, fill the rest."""
+    k = max(int((1 - thres) * logits.shape[-1]), 1)
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, core.neg_inf(logits.dtype))
+
+
+def top_p_filter(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filter on TEMPERATURE-SCALED logits: keep the smallest
+    prefix of descending-probability tokens whose mass reaches ``p``."""
+    if not 0.0 < p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {p}")
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits.float(), dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cum - probs) < p
+    thresh = torch.where(keep_sorted, sorted_logits, float("inf")).amin(
+        dim=-1, keepdim=True).to(logits.dtype)
+    return logits.masked_fill(logits < thresh, core.neg_inf(logits.dtype))
+
+
+def sample_per_slot(logits: torch.Tensor, pred_pos: torch.Tensor,
+                    keys: torch.Tensor, temp: torch.Tensor,
+                    topk_k: torch.Tensor, top_p: torch.Tensor,
+                    cfg: DALLEConfig) -> torch.Tensor:
+    """Per-slot sampling, every knob a (slots,) tensor: forbidden-position
+    mask, temperature, top-k OR nucleus (``top_p > 0`` selects nucleus),
+    then ``categorical`` under ``fold_in(key, pred_pos)``. Returns ids
+    with the text-vocab offset removed at image positions. Both filters
+    come off one descending sort, as in the JAX program."""
+    forbidden = logits_mask(cfg, pred_pos - 1)
+    lg = logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
+    lg = lg / temp[:, None]         # f32 temp promotes bf16 logits, as JAX
+
+    sorted_desc = torch.sort(lg, dim=-1, descending=True).values
+    kth = torch.gather(sorted_desc, -1, (topk_k - 1).long()[:, None])
+    by_k = lg.masked_fill(lg < kth, core.neg_inf(lg.dtype))
+
+    probs = torch.softmax(sorted_desc.float(), dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cum - probs) < top_p[:, None]
+    thresh = torch.where(keep_sorted, sorted_desc, float("inf")).amin(
+        dim=-1, keepdim=True).to(lg.dtype)
+    by_p = lg.masked_fill(lg < thresh, core.neg_inf(lg.dtype))
+
+    lg = torch.where((top_p > 0)[:, None], by_p, by_k)
+    raw = prng.categorical(prng.fold_in(keys, pred_pos), lg)
+    return torch.where(pred_pos >= cfg.text_seq_len,
+                       raw - cfg.num_text_tokens, raw)

@@ -1,0 +1,194 @@
+"""Ragged paged-decode attention over the KV page pool (kernel K4).
+
+Port of ``dalle_pytorch_tpu/ops/paged_attention.py::paged_decode_attention``
+(Pallas kernel ``_kernel``, ``:88``). ``paged_decode_attention`` launches
+the hand-written CUDA kernel ``csrc/paged_attention.cu`` on a CUDA
+tensor and runs ``paged_decode_attention_plain``, the same function in
+plain PyTorch, only for tensors that lie on the CPU (the tests' path).
+There is no fallback: on the card the kernel launches or the call
+raises.
+
+The contract both implement, taken from the TPU kernel:
+
+* q ``(b, heads, dh)`` in the param dtype; one layer's pools
+  ``(P, heads, page_size, dh)`` in float32 or bfloat16 — or int8 with
+  ``(P, heads, page_size)`` float32 ``k_scales``/``v_scales``;
+  ``block_tables (b, max_pages)`` int32, ``pos (b,)`` int32 and
+  ``allowed (b, L)`` bool (the caller's full row mask, True = attend);
+* returns float32 ``acc (b, heads, dh)``, ``m (b, heads)``,
+  ``l (b, heads)``: the unnormalised exp-weighted V sum, the running max
+  and the exp sum over the cached rows;
+* slot i walks ``ceil(pos[i] / page_size)`` pages — a slot at pos 0
+  walks none, so the trash page is never read, and returns
+  ``(0, FILL, 0)``; masked walked rows score exactly ``FILL`` (finite),
+  so a masked prefix is wiped once a live row arrives; int8 scales
+  apply outside the dot products; scores and sums are float32.
+
+The sparse-read walk of the TPU kernel (``visible``/``visible_cnt``)
+belongs to the ``sparse_reads`` serving option, a later slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from dalle_pytorch_tpu_torch.ops import build
+
+FILL = -torch.finfo(torch.float32).max
+SUPPORTED_DIM_HEADS = (16, 32, 64, 128)
+# dtype codes of the C entry point
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _validate(q, k_pages, v_pages, block_tables, pos, allowed, k_scales,
+              v_scales):
+    from dalle_pytorch_tpu_torch.serve import kv_pool as KV
+    b, heads, dh = q.shape
+    P, heads_p, page_size, dh_p = k_pages.shape
+    KV.validate_page_size(page_size)
+    if (heads_p, dh_p) != (heads, dh) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"pools {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
+    if (k_scales is not None) != (k_pages.dtype == torch.int8):
+        raise ValueError("int8 pages need k_scales/v_scales, and only "
+                         "int8 pages take them")
+    max_pages = block_tables.shape[1]
+    if block_tables.shape[0] != b or pos.shape != (b,) \
+            or allowed.shape[0] != b:
+        raise ValueError("block_tables, pos and allowed need one row per "
+                         "slot of q")
+    if max_pages * page_size < allowed.shape[1]:
+        raise ValueError(
+            f"block tables map {max_pages} pages of {page_size} rows < "
+            f"allowed length {allowed.shape[1]}")
+
+
+def paged_decode_attention_plain(
+        q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        block_tables: torch.Tensor, pos: torch.Tensor,
+        allowed: torch.Tensor, *, scale: float,
+        k_scales: Optional[torch.Tensor] = None,
+        v_scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, one-shot instead of
+    online: gather every mapped page, score, and reduce — with rows past
+    the walked pages left out entirely and masked walked rows at FILL,
+    which gives the online recurrence's (acc, m, l) exactly, up to
+    summation order."""
+    _validate(q, k_pages, v_pages, block_tables, pos, allowed, k_scales,
+              v_scales)
+    b, heads, dh = q.shape
+    page_size = k_pages.shape[2]
+    max_pages = block_tables.shape[1]
+    Lp = max_pages * page_size
+    bt = block_tables.long()
+
+    def rows(buf):            # (P, heads, ps[, dh]) -> (b, heads, Lp[, dh])
+        g = buf[bt].transpose(1, 2)          # (b, heads, mp, ps[, dh])
+        return g.reshape(b, heads, Lp, *g.shape[4:])
+
+    s = torch.einsum("bhd,bhjd->bhj", q.float(), rows(k_pages).float())
+    s = s * scale
+    if k_scales is not None:
+        s = s * rows(k_scales)
+    j = torch.arange(Lp, device=q.device)
+    n_pages = (pos.long() + page_size - 1) // page_size
+    walked = (j[None, :] < (n_pages * page_size)[:, None])[:, None]
+    ok = torch.zeros((b, Lp), dtype=torch.bool, device=q.device)
+    ok[:, :allowed.shape[1]] = allowed.bool()
+    s = torch.where(ok[:, None], s, FILL)
+    s = torch.where(walked, s, float("-inf"))
+    m = torch.clamp(s.amax(dim=-1), min=FILL)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    if v_scales is not None:
+        p = p * rows(v_scales)
+    v = torch.where(walked[..., None], rows(v_pages).float(), 0.0)
+    acc = torch.einsum("bhj,bhjd->bhd", p, v)
+    return acc, m, l
+
+
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = build.load("paged_attention").paged_decode_attention
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_decode_attention(
+        q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        block_tables: torch.Tensor, pos: torch.Tensor,
+        allowed: torch.Tensor, *, scale: float,
+        k_scales: Optional[torch.Tensor] = None,
+        v_scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Online-softmax partials over one layer's paged K/V: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors. Counts
+    its launches in ``paged_decode_attention.launches``."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, block_tables, pos, allowed, scale=scale,
+            k_scales=k_scales, v_scales=v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cuda or cpu "
+                         f"tensors, got {q.device}")
+    _validate(q, k_pages, v_pages, block_tables, pos, allowed, k_scales,
+              v_scales)
+    b, heads, dh = q.shape
+    page_size = k_pages.shape[2]
+    if dh not in SUPPORTED_DIM_HEADS:
+        raise ValueError(f"dim_head {dh} is not one of the kernel's "
+                         f"{SUPPORTED_DIM_HEADS}")
+    q_code = _DTYPE_CODE.get(q.dtype)
+    kv_code = _DTYPE_CODE.get(k_pages.dtype)
+    if q_code not in (0, 1) or kv_code is None \
+            or (kv_code != 2 and kv_code != q_code):
+        raise ValueError(f"unsupported dtypes: q {q.dtype}, pages "
+                         f"{k_pages.dtype} (pages match q, or are int8)")
+    tensors = [q, k_pages, v_pages, block_tables, pos, allowed]
+    if k_scales is not None:
+        tensors += [k_scales, v_scales]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("every input must lie on q's device")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    bt = block_tables.to(torch.int32).contiguous()
+    pos32 = pos.to(torch.int32).contiguous()
+    ok = allowed.to(torch.bool).contiguous()
+    ksc = vsc = None
+    if k_scales is not None:
+        ksc = k_scales.to(torch.float32).contiguous()
+        vsc = v_scales.to(torch.float32).contiguous()
+    acc = torch.empty((b, heads, dh), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, heads), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, heads), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _entry()(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if ksc is None else ksc.data_ptr(),
+        None if vsc is None else vsc.data_ptr(),
+        bt.data_ptr(), pos32.data_ptr(), ok.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, heads, dh, page_size, bt.shape[1], ok.shape[1], float(scale),
+        q_code, kv_code, stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed "
+                           f"with CUDA error {rc}")
+    paged_decode_attention.launches += 1
+    return acc, m, l
+
+
+paged_decode_attention.launches = 0
