@@ -7,8 +7,9 @@ full width of the repo's north DALLE configuration (``bench.py``
 ``build_cfg(tiny=False)``: dim 512, depth 12, 8 heads of 64, text 256 +
 image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
 
-1. build  — compile every CUDA kernel from ``csrc/`` with nvcc (sm_90a);
-   print the card's name and power limit;
+1. build  — compile every CUDA kernel from ``csrc/`` with nvcc (sm_90a),
+   one nvcc per source, all at once; print the card's name and power
+   limit;
 2. kernel — paged-attention kernel K4 against its plain PyTorch version
    at the serving shapes (8 slots, 8 heads, dh 64, page 16, L 1280),
    ragged positions including 0, 1, 15, 16, 17 and 1279, random data in
@@ -27,7 +28,28 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    then the six requests run again (same tokens), and a torch.profiler
    window over a few steady chunks, beside an unprofiled window with the
    same slots live, says where a decode step's time goes (device time
-   per step, K4's share, the device's idle share).
+   per step, K4's share, the device's idle share);
+5. flash  — the flash kernels K1 (forward: out, m, l), K2a (dq) and K2b
+   (dk, dv; split and fused mode) against their plain PyTorch versions
+   at the north training shapes (b 8, h 8, n 1280, d 64, causal,
+   scale 512 ** -0.5), in bfloat16 and float32 (TF32 off), with the
+   all-True mask training uses and with a text-padding mask (fully padded
+   query rows included): float32 to rtol/atol 2e-4, bfloat16 to 2e-2,
+   l to rtol/atol 1e-4 (see ``flash_tolerances``); timed with CUDA
+   events and torch.profiler beside the plain version, the bound, and
+   ``F.scaled_dot_product_attention`` (forward, and forward + backward)
+   as the library yardstick at the all-True mask;
+6. train  — the north config's training step (bfloat16 params, batch 8,
+   ``loss_chunk`` 256, flash attention with the split kernel backward,
+   dropout 0.1, Adam lr 1e-4): random 256 px images through the VAE
+   encoder to ids, then ``make_train_step`` for 6 steps with finite
+   losses, K1, K2a and K2b each launched depth x steps times; ms per
+   step, tokens per second and a profiler window (device time per step,
+   K1's and K2's shares, kernels per step, idle share). Then at depth 2,
+   full width, float32, one step's loss and every parameter's gradient
+   under 'pallas' and 'pallas_fused' against the plain blockwise 'xla'
+   backward: loss to rtol 1e-5, each gradient to 1e-4 of its largest
+   element (f32 sums in other orders, and the fused dq's atomics).
 
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
@@ -49,6 +71,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
+BF16_FLOPS = 989e12              # H100 SXM, bf16 tensor cores, dense
 
 
 class SmokeFailure(AssertionError):
@@ -93,6 +116,36 @@ def device_kernels(prof) -> dict:
     return kernels
 
 
+def top_kernels(kernels: dict, steps: int, n: int = 8,
+                width: int = 90) -> dict:
+    """The ``n`` kernels with the most device time, ms per step, names
+    cut to ``width`` characters (kernels whose cut names coincide are
+    summed, not overwritten)."""
+    out = {}
+    for k, (us, _) in kernels.items():
+        out[k[:width]] = out.get(k[:width], 0.0) + us / 1e3 / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
+
+
+KERNEL_CLASSES = (("flash", ("flash_fwd", "flash_bwd")),
+                  ("paged_decode", ("paged_decode",)),
+                  ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
+                  ("elementwise", ("elementwise",)),
+                  ("reduce", ("reduce",)))
+
+
+def kernel_classes(kernels: dict, steps: int) -> dict:
+    """Device ms per step by kind of kernel, by name: the port's own
+    kernels, matrix products, elementwise passes, reductions, the rest."""
+    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    out["other"] = 0.0
+    for k, (us, _) in kernels.items():
+        kind = next((name for name, keys in KERNEL_CLASSES
+                     if any(key in k for key in keys)), "other")
+        out[kind] += us / 1e3 / steps
+    return out
+
+
 def north_cfg():
     from dalle_pytorch_tpu_torch.models import dalle as D
     from dalle_pytorch_tpu_torch.models import vae as V
@@ -105,7 +158,7 @@ def north_cfg():
 def phase_build() -> str:
     from dalle_pytorch_tpu_torch.ops import build
     t0 = time.perf_counter()
-    libs = {name: build.build(name) for name in build.SOURCES}
+    libs = build.build_all()
     emit(phase="build", ok=True, seconds=time.perf_counter() - t0,
          libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()})
     out = subprocess.run(
@@ -328,7 +381,6 @@ def profile_window(engine, chunks: int) -> dict:
         return out
     k4 = [(us, n) for k, (us, n) in kernels.items() if "paged_decode" in k]
     k4_us = sum(us for us, _ in k4)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     device_ms = total_us / 1e3 / steps
     out.update(device_ms_per_step=device_ms,
                k4_ms_per_step=k4_us / 1e3 / steps,
@@ -340,8 +392,8 @@ def profile_window(engine, chunks: int) -> dict:
                                               / wall_ms),
                kernels_launched_per_step=sum(
                    n for _, n in kernels.values()) / steps,
-               top_kernels_ms_per_step={k[:60]: us / 1e3 / steps
-                                        for k, (us, _) in top})
+               top_kernels_ms_per_step=top_kernels(kernels, steps),
+               kinds_ms_per_step=kernel_classes(kernels, steps))
     return out
 
 
@@ -467,6 +519,369 @@ def phase_engine() -> dict:
     return record
 
 
+# -- flash attention: K1, K2a, K2b --------------------------------------------
+
+FLASH_SCALE = 512 ** -0.5        # the north config's dim ** -0.5
+
+
+def flash_tolerances(dtype) -> tuple:
+    """(rtol, atol) of the kernels' outputs against the plain versions:
+    float32 2e-4 (both accumulate in f32, over 1,280 terms in another
+    order; the fused dq adds its shares with atomics in an order that
+    changes from run to run); bfloat16 2e-2 (one bf16 rounding of the
+    output, 2^-8 relative, on either side)."""
+    return (2e-4, 2e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+
+
+def flash_inputs(dtype, masked: bool, b=8, h=8, n=1280, d=64, seed=0):
+    """North training shapes. ``masked``: text padding as DALLE batches
+    carry it (text lengths 1..256 of the 256 text positions; image
+    positions always kept), so padded text rows are fully padded query
+    rows; otherwise the all-True mask ``train_dalle`` builds."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, h, n, d), generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    if masked:
+        for i, t in enumerate((1, 17, 64, 100, 200, 255, 256, 30)[:b]):
+            mask[i, t:256] = False
+    return q, k, v, do, mask
+
+
+def flash_bound(kind: str, dtype, b, h, n, d) -> tuple:
+    """(least ms, 'bytes' | 'operations') of one causal call: the tile
+    products over the causal pairs only (what this data needs) at the
+    peak rate of the inputs' type, against each input read once and each
+    output written once at the HBM rate."""
+    pairs = n * (n + 1) // 2 * b * h
+    products = {"fwd": 2, "dq": 3, "dkv": 4, "fused": 5}[kind]
+    flops = 2 * d * pairs * products
+    elems = b * h * n * d
+    isz = torch.tensor([], dtype=dtype).element_size()
+    rows = b * h * n * 4                       # one f32 per row
+    nbytes = {"fwd": 4 * elems * isz + 2 * rows,
+              "dq": 5 * elems * isz + 3 * rows,
+              "dkv": 6 * elems * isz + 3 * rows,
+              "fused": 6 * elems * isz + 3 * rows + 4 * elems}[kind]
+    nbytes += b * n                            # the mask
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_ops = flops / rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# which device kernel each flash call launches: (name part, template part)
+FLASH_KERNELS = {"fwd": ("flash_fwd_kernel", ""),
+                 "dq": ("flash_bwd_dq_kernel", ""),
+                 "dkv": ("flash_bwd_dkv_kernel", "false>"),
+                 "fused": ("flash_bwd_dkv_kernel", "true>")}
+
+
+def flash_device_us(calls: dict, iters: int = 8, warm: int = 4,
+                    attempts: int = 3) -> dict:
+    """Each flash kernel's device time per launch from torch.profiler,
+    averaged over the launches a session recorded. A profiler session
+    now and then comes back without the records of its first few
+    milliseconds, so each session opens with ``warm`` launches of every call
+    before ``iters`` more of each, and the calls still unmeasured are
+    profiled again, up to ``attempts`` sessions; what is still missing
+    is reported as not measured."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {kind: "not measured" for kind in calls}
+    for _ in range(attempts):
+        todo = [kind for kind, us in out.items() if isinstance(us, str)]
+        if not todo:
+            break
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm):
+                for kind in todo:
+                    calls[kind][0]()
+            for kind in todo:
+                for _ in range(iters):
+                    calls[kind][0]()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        for kind in todo:
+            name, variant = FLASH_KERNELS[kind]
+            hits = [(us, n) for k, (us, n) in kernels.items()
+                    if name in k and variant in k]
+            n = sum(c for _, c in hits)
+            if n:
+                out[kind] = sum(us for us, _ in hits) / n
+    return out
+
+
+def held(what: str, got, want, rtol, atol) -> float:
+    """Checks got against want elementwise; returns the max abs error."""
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    worst = float(err.max())
+    check(ok, f"{what} differs from its plain version (max abs "
+              f"{worst:.3e}, rtol {rtol}, atol {atol})")
+    return worst
+
+
+def flash_case(dtype, masked: bool, timed: bool) -> dict:
+    from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    q, k, v, do, mask = flash_inputs(dtype, masked)
+    b, h, n, d = q.shape
+    name = f"{str(dtype).split('.')[-1]}/{'pad' if masked else 'all_true'}"
+    rtol, atol = flash_tolerances(dtype)
+    kw = dict(scale=FLASH_SCALE, causal=True, mask=mask)
+    out, m, l = FA.flash_attention_fwd(q, k, v, **kw)
+    out_p, m_p, l_p = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    errs = {"fwd": held(f"K1 {name} out", out, out_p, rtol, atol)}
+    errs["fwd_m"] = held(f"K1 {name} m", m, m_p, rtol, atol)
+    errs["fwd_l"] = held(f"K1 {name} l", l, l_p, 1e-4, 1e-4)
+    dstat = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, m_p, l_p, dstat)
+    dq_p = FA.flash_attention_bwd_dq_plain(*args, **kw)
+    dk_p, dv_p, dq32_p = FA.flash_attention_bwd_dkv_plain(*args, with_dq=True,
+                                                          **kw)
+    dq = FA.flash_attention_bwd_dq(*args, **kw)
+    errs["dq"] = held(f"K2a {name} dq", dq, dq_p, rtol, atol)
+    dk, dv, _ = FA.flash_attention_bwd_dkv(*args, **kw)
+    errs["dkv"] = max(held(f"K2b split {name} dk", dk, dk_p, rtol, atol),
+                      held(f"K2b split {name} dv", dv, dv_p, rtol, atol))
+    dk, dv, dq32 = FA.flash_attention_bwd_dkv(*args, with_dq=True, **kw)
+    errs["fused"] = max(
+        held(f"K2b fused {name} dk", dk, dk_p, rtol, atol),
+        held(f"K2b fused {name} dv", dv, dv_p, rtol, atol),
+        held(f"K2b fused {name} dq", dq32, dq32_p, rtol, atol))
+    torch.cuda.synchronize()
+    del dq_p, dk_p, dv_p, dq32_p
+    record = {"case": name, "rtol": rtol, "atol": atol, "max_abs_err": errs}
+    if not timed:
+        return record
+    calls = {
+        "fwd": (lambda: FA.flash_attention_fwd(q, k, v, **kw),
+                lambda: FA.flash_attention_fwd_plain(q, k, v, **kw)),
+        "dq": (lambda: FA.flash_attention_bwd_dq(*args, **kw),
+               lambda: FA.flash_attention_bwd_dq_plain(*args, **kw)),
+        "dkv": (lambda: FA.flash_attention_bwd_dkv(*args, **kw),
+                lambda: FA.flash_attention_bwd_dkv_plain(*args, **kw)),
+        "fused": (lambda: FA.flash_attention_bwd_dkv(*args, with_dq=True,
+                                                     **kw),
+                  lambda: FA.flash_attention_bwd_dkv_plain(
+                      *args, with_dq=True, **kw)),
+    }
+    device_us = flash_device_us(calls)
+    for kind, (kernel, plain) in calls.items():
+        bms, by = flash_bound(kind, dtype, b, h, n, d)
+        record[kind] = {
+            "ms": cuda_ms(kernel, iters=20, warmup=2),
+            "device_us_per_launch": device_us[kind],
+            "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+            "bound_ms": bms, "bound_by": by}
+    # the library yardstick: one PyTorch call computing the same function
+    # (causal, no padding) — timed here, used nowhere in the port
+    import torch.nn.functional as F
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        q, k, v, is_causal=True, scale=FLASH_SCALE)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           scale=FLASH_SCALE)
+        torch.autograd.grad(o, leaves, do)
+
+    fwd_ms = cuda_ms(sdpa, iters=20, warmup=2)
+    both_ms = cuda_ms(sdpa_fwd_bwd, iters=20, warmup=2)
+    record["library"] = {"sdpa_fwd_ms": fwd_ms, "sdpa_fwd_bwd_ms": both_ms,
+                         "sdpa_bwd_ms": both_ms - fwd_ms}
+    return record
+
+
+def phase_flash() -> dict:
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for masked in (False, True):
+            rec = flash_case(dtype, masked, timed=not masked)
+            results[rec["case"]] = rec
+            emit(phase="flash", ok=True, **rec)
+    return results
+
+
+# -- training -----------------------------------------------------------------
+
+def train_cfg(**kw):
+    import dataclasses
+    base = dict(attn_impl="flash", attn_bwd_impl="pallas", attn_dropout=0.1,
+                ff_dropout=0.1, loss_chunk=256)
+    base.update(kw)
+    return dataclasses.replace(north_cfg(), **base)
+
+
+def train_batch(cfg, b=8, seed=9) -> dict:
+    """Random text ids, the all-True text mask ``train_dalle`` builds, and
+    random images in [-1, 1), made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    size = cfg.vae.image_size
+    return {"text": torch.randint(1, cfg.num_text_tokens,
+                                  (b, cfg.text_seq_len), generator=g,
+                                  device="cuda"),
+            "mask": torch.ones((b, cfg.text_seq_len), dtype=torch.bool,
+                               device="cuda"),
+            "image": torch.rand((b, size, size, 3), generator=g,
+                                device="cuda") * 2 - 1}
+
+
+def flash_counts(reset: bool = False) -> dict:
+    from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    fns = {"k1": FA.flash_attention_fwd, "k2a": FA.flash_attention_bwd_dq,
+           "k2b": FA.flash_attention_bwd_dkv}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def train_profile(step, model, batch, key, steps: int = 2) -> dict:
+    """``steps`` steps unprofiled, then ``steps`` under torch.profiler:
+    device time per step (all kernels; K1's and K2's shares), kernels
+    launched per step, the wall per step of each window, and the device's
+    idle share against the unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(model, batch, key(100 + i))
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3 / steps
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            step(model, batch, key(200 + i))
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = device_kernels(prof)
+    total_us = sum(us for us, _ in kernels.values())
+    out = {"steps": steps, "wall_ms_per_step": plain_wall,
+           "wall_ms_per_step_profiled": wall}
+    if total_us <= 0:
+        out["device_ms_per_step"] = "not measured"
+        return out
+
+    def share(name):
+        return sum(us for k, (us, _) in kernels.items() if name in k)
+
+    k1, k2a, k2b = (share(FLASH_KERNELS[k][0]) for k in ("fwd", "dq", "dkv"))
+    device_ms = total_us / 1e3 / steps
+    out.update(device_ms_per_step=device_ms,
+               k1_ms_per_step=k1 / 1e3 / steps,
+               k2a_ms_per_step=k2a / 1e3 / steps,
+               k2b_ms_per_step=k2b / 1e3 / steps,
+               k1_share_of_device=k1 / total_us,
+               k2_share_of_device=(k2a + k2b) / total_us,
+               kernels_launched_per_step=sum(
+                   n for _, n in kernels.values()) / steps,
+               device_idle_share=max(0.0, 1 - device_ms / plain_wall),
+               device_idle_share_profiled=max(0.0, 1 - device_ms / wall),
+               top_kernels_ms_per_step=top_kernels(kernels, steps, n=12),
+               kinds_ms_per_step=kernel_classes(kernels, steps))
+    return out
+
+
+def train_grads_agree(batch) -> dict:
+    """Depth 2, full width, float32: one step's loss and every gradient
+    under the kernel backwards against the plain blockwise one."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
+    enc = V.vae_encoder_init(north_cfg().vae, seed=7, dtype=torch.float32)
+    key = prng.prng_key(5, device="cuda")
+    got = {}
+    for impl in ("xla", "pallas", "pallas_fused"):
+        model = D.dalle_init(train_cfg(depth=2, attn_bwd_impl=impl), seed=8,
+                             dtype=torch.float32)
+        loss = dalle_loss_fn(enc)(model, batch, key)
+        loss.backward()
+        got[impl] = (float(loss.detach()), {n: p.grad for n, p in
+                                   model.named_parameters()})
+    ref_loss, ref = got["xla"]
+    worst = {}
+    for impl in ("pallas", "pallas_fused"):
+        loss, grads = got[impl]
+        check(math.isfinite(loss) and abs(loss - ref_loss)
+              <= 1e-5 * abs(ref_loss),
+              f"train {impl}: loss {loss} against xla {ref_loss}")
+        rel = 0.0
+        for name, g in grads.items():
+            scale_ = float(ref[name].abs().max())
+            err = float((g - ref[name]).abs().max())
+            check(err <= 1e-4 * max(scale_, 1e-30),
+                  f"train {impl}: grad {name} differs from xla (max abs "
+                  f"{err:.3e}, largest {scale_:.3e})")
+            rel = max(rel, err / max(scale_, 1e-30))
+        worst[impl] = {"loss": loss, "max_grad_err_of_largest": rel}
+    worst["xla_loss"] = ref_loss
+    return worst
+
+
+def phase_train() -> dict:
+    import types
+    from dalle_pytorch_tpu_torch.cli.common import make_optimizer, step_rng
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import (dalle_loss_fn,
+                                                         make_train_step)
+    cfg = train_cfg()
+    enc = V.vae_encoder_init(cfg.vae, seed=7, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=6, dtype=torch.bfloat16)
+    args = types.SimpleNamespace(lr=1e-4, lr_schedule="constant",
+                                 warmup_steps=0, decay_steps=0,
+                                 lr_end_ratio=0.1, n_epochs=1,
+                                 clip_grad_norm=0.0)
+    step = make_train_step(dalle_loss_fn(enc),
+                           make_optimizer(args, model.parameters()))
+    batch = train_batch(cfg)
+    root = prng.prng_key(0, device="cuda")
+
+    def key(i):
+        return step_rng(root, i)
+
+    steps, warmup = 6, 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_counts(reset=True)
+    losses = [step(model, batch, key(i)) for i in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(model, batch, key(i)) for i in range(warmup, steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - warmup)
+    counts = flash_counts()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    for k, n in counts.items():
+        check(n == cfg.depth * steps, f"{k} launched {n} times, expected "
+                                      f"depth x steps = {cfg.depth * steps}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = batch["text"].shape[0] * cfg.seq_len
+    prof = train_profile(step, model, batch, key)
+    # one dropout keep-mask of each shape the step draws (attention output,
+    # GEGLU hidden): threefry in int64, 2 x depth masks a step
+    b, n = batch["text"].shape[0], cfg.seq_len
+    mask_ms = {name: cuda_ms(lambda shape=shape: prng.bernoulli(
+        key(0), 0.9, shape), iters=5, warmup=1)
+        for name, shape in (("attn", (b, n, cfg.dim)),
+                            ("ff", (b, n, cfg.dim * 4)))}
+    mask_ms["per_step"] = cfg.depth * (mask_ms["attn"] + mask_ms["ff"])
+    del model, step
+    torch.cuda.empty_cache()
+    agree = train_grads_agree(batch)
+    record = dict(phase="train", ok=True, steps=steps, losses=losses,
+                  ms_per_step=ms, tokens_per_step=tokens,
+                  tokens_per_s=tokens / ms * 1e3, peak_mem_gib=peak_gib,
+                  launches=counts, profile=prof, dropout_mask_ms=mask_ms,
+                  depth2_f32=agree)
+    emit(**record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -478,8 +893,10 @@ def main() -> int:
     kernel = phase_kernel()
     phase_decode()
     engine = phase_engine()
+    flash = phase_flash()
+    train = phase_train()
     main_case = kernel["bfloat16"]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "paged_decode_attention",
         "route": "cuda",
         "source": "dalle_pytorch_tpu_torch/csrc/paged_attention.cu",
@@ -490,7 +907,26 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}]
+    # the flash kernels at the training main path's case: bfloat16, the
+    # all-True mask; K2b as the split mode the main path launches
+    fc = flash["bfloat16/all_true"]
+    lib = fc["library"]
+    for name, kind, line, count, library_ms in (
+            ("flash_attention_fwd", "fwd", 88, "k1", lib["sdpa_fwd_ms"]),
+            ("flash_attention_bwd_dq", "dq", 322, "k2a", None),
+            ("flash_attention_bwd_dkv", "dkv", 367, "k2b",
+             lib["sdpa_bwd_ms"])):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"dalle_pytorch_tpu/ops/flash_attention.py:{line}",
+            "launches": train["launches"][count],
+            "max_abs_err": fc["max_abs_err"][kind],
+            "ms": fc[kind]["ms"], "plain_ms": fc[kind]["plain_ms"],
+            "bound_ms": fc[kind]["bound_ms"],
+            "bound_by": fc[kind]["bound_by"], "library_ms": library_ms})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

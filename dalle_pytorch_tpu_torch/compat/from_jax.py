@@ -95,6 +95,23 @@ def vae_from_jax(params: Mapping, cfg: vae_mod.VAEConfig, *,
 
 
 @torch.no_grad()
+def vae_encoder_from_jax(params: Mapping, cfg: vae_mod.VAEConfig, *,
+                         dtype=None, device=None) -> vae_mod.VAEEncoder:
+    """The encoder half of a JAX VAE tree (decoder leaves are ignored)."""
+    device = resolve_device(device)
+    dtype = dtype or _dtype_of(params, "enc_out", "w")
+    enc = vae_mod.VAEEncoder(cfg, device=device, dtype=dtype)
+    for m, p in zip(enc.enc_convs, params["enc_convs"], strict=True):
+        _conv(m, p)
+    for m, p in zip(enc.enc_res, params["enc_res"], strict=True):
+        _conv(m.c1, p["c1"])
+        _conv(m.c2, p["c2"])
+        _conv(m.c3, p["c3"])
+    _conv(enc.enc_out, params["enc_out"])
+    return enc
+
+
+@torch.no_grad()
 def dalle_from_jax(params: Mapping, cfg: D.DALLEConfig, *,
                    dtype=None, device=None) -> D.DALLE:
     device = resolve_device(device)

@@ -1,11 +1,13 @@
-"""DALLE: the joint text+image autoregressive transformer, serving half.
+"""DALLE: the joint text+image autoregressive transformer.
 
 Port of ``dalle_pytorch_tpu/models/dalle.py``: ``DALLEConfig``, the
 embeddings (``embed_prompt``, ``decode_token_embed``, the summed-axial
 ``image_pos_emb`` in both ``axial_compat`` modes), ``logits_mask``,
-``to_logits`` (``:47-244``), and the samplers ``top_k_filter``,
-``top_p_filter`` and ``sample_per_slot`` (``:408-514``) without the
-classifier-free-guidance pair arguments, which come with a later slice.
+``to_logits`` (``:47-244``), the forward and training loss
+(``dalle_apply``, ``ce_from_hidden``, ``_nll``, ``_chunked_ce``,
+``:290-401``), and the samplers ``top_k_filter``, ``top_p_filter`` and
+``sample_per_slot`` (``:408-514``) without the classifier-free-guidance
+pair arguments, which come with a later slice.
 
 Vocabulary layout ``[0, num_text_tokens) text | image | EOS``. The image
 embedding is TIED to the VAE codebook: ``dalle_init(vae=...)`` copies
@@ -19,6 +21,7 @@ import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from dalle_pytorch_tpu_torch.device import generator, resolve_device
@@ -37,12 +40,25 @@ class DALLEConfig:
     heads: int = 8
     dim_head: int = 64
     reversible: bool = False
+    attn_dropout: float = 0.0
+    ff_dropout: float = 0.0
     sparse_attn: Union[bool, Tuple[bool, ...]] = False
+    attn_impl: str = "xla"
+    # flash backward: 'xla' | 'pallas' (K2a + K2b split) | 'pallas_fused'
+    attn_bwd_impl: str = "xla"
+    flash_block_q: int = 128
+    flash_block_k: int = 128
     moe_experts: int = 0
     scale_mode: str = "dim"
+    remat: str = "none"
     # 'grid' factorizes over the token grid; 'full_image' reproduces the
     # reference's (image_size, image_size) table quirk
     axial_compat: str = "grid"
+    # 0: CE over the full (b, seq, total_tokens) logits; > 0: the head
+    # and CE run over sequence chunks of this size, each recomputed in
+    # the backward (torch.utils.checkpoint), so only one chunk's logits
+    # are alive at a time
+    loss_chunk: int = 0
 
     def __post_init__(self):
         if self.axial_compat not in ("grid", "full_image"):
@@ -66,12 +82,21 @@ class DALLEConfig:
         return self.num_text_tokens + self.num_image_tokens + 1  # + EOS
 
     @property
+    def eos_token_id(self) -> int:
+        return self.total_tokens - 1
+
+    @property
     def transformer(self) -> T.TransformerConfig:
         return T.TransformerConfig(
             dim=self.dim, depth=self.depth, seq_len=self.seq_len,
             heads=self.heads, dim_head=self.dim_head, causal=True,
+            attn_dropout=self.attn_dropout, ff_dropout=self.ff_dropout,
             reversible=self.reversible, sparse_attn=self.sparse_attn,
-            moe_experts=self.moe_experts, scale_mode=self.scale_mode)
+            attn_impl=self.attn_impl, attn_bwd_impl=self.attn_bwd_impl,
+            flash_block_q=self.flash_block_q,
+            flash_block_k=self.flash_block_k,
+            moe_experts=self.moe_experts, scale_mode=self.scale_mode,
+            remat=self.remat)
 
 
 class DALLE(nn.Module):
@@ -143,10 +168,17 @@ def logits_mask(cfg: DALLEConfig, rows: Optional[torch.Tensor] = None,
             | ((seq != (n - 1)) & (logit >= (t - 1))))
 
 
-def embed_prompt(model: DALLE, text: torch.Tensor) -> torch.Tensor:
-    """Token embeddings of text (b, t) prompts."""
+def embed_prompt(model: DALLE, text: torch.Tensor,
+                 image_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings for [text (b, t)] ++ [image ids (b, n_img)]."""
     t = text.shape[1]
-    return model.text_emb.weight[text] + model.text_pos_emb.weight[None, :t]
+    tok = model.text_emb.weight[text] + model.text_pos_emb.weight[None, :t]
+    if image_ids is not None and image_ids.shape[1] > 0:
+        pos = torch.arange(image_ids.shape[1], device=image_ids.device)
+        img = model.image_emb.weight[image_ids] + image_pos_emb(model,
+                                                                pos)[None]
+        tok = torch.cat([tok, img], dim=1)
+    return tok
 
 
 def decode_token_embed(model: DALLE, cur_tok: torch.Tensor,
@@ -167,6 +199,101 @@ def decode_token_embed(model: DALLE, cur_tok: torch.Tensor,
 
 def to_logits(model: DALLE, h: torch.Tensor) -> torch.Tensor:
     return core.linear(model.logits_proj, core.layernorm(model.logits_ln, h))
+
+
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
+
+def dalle_apply(model: DALLE, text: torch.Tensor,
+                image: Optional[torch.Tensor] = None, *,
+                mask: Optional[torch.Tensor] = None,
+                vae: Optional[vae_mod.VAEEncoder] = None,
+                rng: Optional[torch.Tensor] = None, train: bool = False,
+                return_loss: bool = False) -> torch.Tensor:
+    """Forward (reference DALLE.forward). ``image`` is token ids
+    (b, n_img), raw images (b, H, W, C) tokenised through the frozen VAE
+    encoder ``vae`` with no gradient, or None (text-only prefix). ``mask``
+    (b, t) covers the text; image positions are always kept. Returns the
+    masked logits (b, seq, total_tokens) or the scalar CE loss."""
+    cfg = model.cfg
+    image_ids = None
+    if image is not None:
+        if image.dim() == 4:
+            if vae is None:
+                raise ValueError("raw images need the VAE encoder to "
+                                 "tokenize")
+            image_ids = vae_mod.get_codebook_indices(vae, image)
+        else:
+            image_ids = image
+    tokens = embed_prompt(model, text, image_ids)
+    seq_len = tokens.shape[1]
+    if mask is not None and image_ids is not None:
+        pad = torch.ones((mask.shape[0], image_ids.shape[1]),
+                         dtype=torch.bool, device=mask.device)
+        mask = torch.cat([mask.bool(), pad], dim=1)
+    h = T.transformer_apply(model.transformer, tokens, cfg=cfg.transformer,
+                            mask=mask, rng=rng, train=train)
+    if not return_loss:
+        logits = to_logits(model, h)
+        forbidden = logits_mask(cfg, device=h.device)[:seq_len]
+        return logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
+    if image_ids is None:
+        raise ValueError("when training, image must be supplied")
+    return ce_from_hidden(model, h, text, image_ids)
+
+
+def ce_from_hidden(model: DALLE, h: torch.Tensor, text: torch.Tensor,
+                   image_ids: torch.Tensor) -> torch.Tensor:
+    """Mean CE of the next token: labels [text, image + offset, EOS]
+    shifted left, over the masked logits. Honours ``cfg.loss_chunk``."""
+    cfg = model.cfg
+    eos = torch.full((text.shape[0], 1), cfg.eos_token_id,
+                     dtype=torch.long, device=text.device)
+    labels = torch.cat([text.long(), image_ids.long() + cfg.num_text_tokens,
+                        eos], dim=1)
+    targets = labels[:, 1:]                      # predict token i+1 at row i
+    if cfg.loss_chunk > 0:
+        return _chunked_ce(model, h, targets)
+    logits = to_logits(model, h)
+    forbidden = logits_mask(cfg, device=h.device)[:h.shape[1]]
+    logits = logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
+    return _nll(logits, targets).mean()
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-log_softmax(logits)[targets] as logsumexp minus the gathered
+    logit, in f32; the full log-probability tensor never exists."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0].float()
+    return lse - tgt
+
+
+def _chunked_ce(model: DALLE, h: torch.Tensor,
+                targets: torch.Tensor) -> torch.Tensor:
+    """The dense CE's math over sequence chunks of ``cfg.loss_chunk``
+    rows: each chunk's head, mask and CE run under
+    ``torch.utils.checkpoint``, so its (b, chunk, total_tokens) logits
+    are recomputed in the backward instead of kept. The forbidden mask
+    shapes each chunk's partition function, as in the dense path. A
+    short last chunk stands for JAX's zero-weighted padding."""
+    cfg = model.cfg
+    b, n, _ = h.shape
+    chunk = min(cfg.loss_chunk, n)
+
+    def body(hc, tc, rows):
+        logits = to_logits(model, hc)
+        forbidden = logits_mask(cfg, rows)
+        logits = logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
+        return _nll(logits, tc).sum()
+
+    total = h.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        rows = torch.arange(c0, c1, device=h.device)
+        total = total + torch.utils.checkpoint.checkpoint(
+            body, h[:, c0:c1], targets[:, c0:c1], rows, use_reentrant=False)
+    return total / (b * n)
 
 
 # ---------------------------------------------------------------------------

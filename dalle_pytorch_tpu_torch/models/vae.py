@@ -1,9 +1,11 @@
-"""DiscreteVAE, decode half: image tokens -> codebook rows -> conv decoder.
+"""DiscreteVAE: the conv decoder (image tokens -> images) and the conv
+encoder (images -> token logits -> codebook indices).
 
 Port of ``dalle_pytorch_tpu/models/vae.py`` (``VAEConfig``,
-``decode_embeds`` and ``decode``, ``:39-66,146-225``). The serving path
-needs only the decoder; the encoder, Gumbel relaxation and training
-loss come with the training slice.
+``encode_logits``, ``decode_embeds``, ``get_codebook_indices`` and
+``decode``, ``:39-66,136-225``). Serving needs the decoder, DALLE
+training the encoder, which tokenises raw images with no gradient. The
+Gumbel relaxation and the VAE's own training loss are a later slice.
 
 The convolutions run NCHW (torch's layout) internally, but the public
 functions keep the JAX package's NHWC images and ``(b, h, w, d)``
@@ -80,10 +82,48 @@ class VAEDecoder(nn.Module):
         self.dec_out = nn.Conv2d(dec_chans[-1], cfg.channels, 1, **kw)
 
 
+class VAEEncoder(nn.Module):
+    """The encoder parameters of the JAX ``vae_init`` tree:
+    ``enc_convs`` (Conv 4x4 stride 2), ``enc_res`` and ``enc_out`` (1x1
+    conv to ``num_tokens`` logits)."""
+
+    def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        chans = [cfg.channels] + [cfg.hidden_dim] * cfg.num_layers
+        self.enc_convs = nn.ModuleList(
+            nn.Conv2d(cin, cout, 4, **kw)
+            for cin, cout in zip(chans[:-1], chans[1:]))
+        self.enc_res = nn.ModuleList(
+            ResBlock(chans[-1], **kw) for _ in range(cfg.num_resnet_blocks))
+        self.enc_out = nn.Conv2d(chans[-1], cfg.num_tokens, 1, **kw)
+
+
 def _resblock(p: ResBlock, x: torch.Tensor) -> torch.Tensor:
     h = torch.relu(core.conv2d(p.c1, x, padding=1))
     h = torch.relu(core.conv2d(p.c2, h, padding=1))
     return core.conv2d(p.c3, h) + x
+
+
+def encode_logits(enc: VAEEncoder, images: torch.Tensor) -> torch.Tensor:
+    """images (b, H, W, C) in [-1, 1] -> logits (b, h, w, num_tokens)."""
+    x = images.permute(0, 3, 1, 2)
+    for p in enc.enc_convs:
+        x = torch.relu(core.conv2d(p, x, stride=2, padding=1))
+    for p in enc.enc_res:
+        x = _resblock(p, x)
+    return core.conv2d(enc.enc_out, x).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def get_codebook_indices(enc: VAEEncoder,
+                         images: torch.Tensor) -> torch.Tensor:
+    """(b, H, W, C) -> (b, image_seq_len) token ids (int64, the index
+    dtype of torch; JAX returns int32), argmax over the token axis,
+    row-major over the (h, w) grid. No gradient flows (argmax)."""
+    logits = encode_logits(enc, images)
+    b, h, w, _ = logits.shape
+    return logits.argmax(dim=-1).reshape(b, h * w)
 
 
 def decode_embeds(vae: VAEDecoder, embeds: torch.Tensor) -> torch.Tensor:
@@ -119,3 +159,12 @@ def vae_init(cfg: VAEConfig, seed: int = 0, *, dtype=torch.float32,
     vae = VAEDecoder(cfg, device=device, dtype=dtype)
     core.init_params_(vae, generator(seed, device))
     return vae
+
+
+def vae_encoder_init(cfg: VAEConfig, seed: int = 0, *,
+                     dtype=torch.float32, device=None) -> VAEEncoder:
+    """A seeded random encoder on ``device`` (the card by default)."""
+    device = resolve_device(device)
+    enc = VAEEncoder(cfg, device=device, dtype=dtype)
+    core.init_params_(enc, generator(seed, device))
+    return enc

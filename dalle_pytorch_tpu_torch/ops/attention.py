@@ -1,10 +1,16 @@
 """Multi-head attention: parameters, head layout, projections, dense math.
 
-Port of ``dalle_pytorch_tpu/ops/attention.py`` (``:37-113``): a fused
+Port of ``dalle_pytorch_tpu/ops/attention.py`` (``:37-144``): a fused
 bias-free qkv projection, the scale the caller passes (``dim ** -0.5``
 under the reference's ``scale_mode='dim'``, not ``dim_head ** -0.5``),
 pad masking with the finite ``-finfo.max`` fill and the causal mask
-with ``-inf``, then merge heads and the biased output projection.
+with ``-inf``, then merge heads, the biased output projection and, in
+train mode, dropout on its output (not on the attention weights, so the
+flash kernels take no random numbers).
+
+``impl`` selects the attention: ``'xla'`` the dense einsum here,
+``'flash'`` the flash kernels (``ops/flash_attention.py``, K1 forward
+and the backward ``bwd_impl`` names).
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 from torch import nn
 
 from dalle_pytorch_tpu_torch.ops import core
+from dalle_pytorch_tpu_torch.ops import flash_attention as flash_ops
 
 
 class Attention(nn.Module):
@@ -67,16 +74,36 @@ def dense_attention_weights(q: torch.Tensor, k: torch.Tensor, scale: float,
     return torch.softmax(dots, dim=-1)
 
 
-def output_tail(p: Attention, out: torch.Tensor) -> torch.Tensor:
-    """merge heads -> out projection (eval mode: no dropout)."""
-    return core.linear(p.out, merge_heads(out))
+def output_tail(p: Attention, out: torch.Tensor, *,
+                dropout_rate: float = 0.0,
+                dropout_key: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+    """merge heads -> out projection -> dropout (train mode only)."""
+    out = core.linear(p.out, merge_heads(out))
+    return core.dropout(dropout_key, out, dropout_rate, train)
 
 
 def attention_apply(p: Attention, x: torch.Tensor, *, heads: int,
                     scale: float, causal: bool,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """qkv proj -> dense attention -> out proj (``attention_apply`` with
-    ``impl='xla'``; the flash kernel K1 is a later slice)."""
+                    mask: Optional[torch.Tensor] = None,
+                    dropout_rate: float = 0.0,
+                    dropout_key: Optional[torch.Tensor] = None,
+                    train: bool = False, impl: str = "xla",
+                    bwd_impl: str = "xla", block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """qkv proj -> attention -> out proj (+ dropout). ``bwd_impl`` and
+    ``block_q``/``block_k`` reach the flash path only."""
+    if impl not in ("xla", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}; expected 'xla' "
+                         f"or 'flash'")
     q, k, v = qkv_project(p, x, heads)
-    attn = dense_attention_weights(q, k, scale, mask, causal)
-    return output_tail(p, torch.einsum("bhij,bhjd->bhid", attn, v))
+    if impl == "flash":
+        out = flash_ops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+            causal=causal, mask=mask, bwd_impl=bwd_impl, block_q=block_q,
+            block_k=block_k)
+    else:
+        attn = dense_attention_weights(q, k, scale, mask, causal)
+        out = torch.einsum("bhij,bhjd->bhid", attn, v)
+    return output_tail(p, out, dropout_rate=dropout_rate,
+                       dropout_key=dropout_key, train=train)

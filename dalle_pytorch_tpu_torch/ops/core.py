@@ -11,6 +11,8 @@ package's numerics rather than the modules' own ``forward``:
 * ``layernorm`` normalises in f32 with eps 1e-5 and casts back
   (``core.layernorm``), where ``nn.LayerNorm`` would stay in bf16;
 * ``gelu`` is the exact erf form (``core.gelu``);
+* ``dropout`` draws its keep mask with the port's threefry, so a key
+  drops the same elements as ``core.dropout`` under that key in JAX;
 * the convolutions run NCHW; callers keep NHWC at their public
   functions (``models/vae.py``). ``conv2d_transpose`` with an IOHW
   weight equals the JAX flipped-kernel input-dilated convolution over
@@ -26,6 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dalle_pytorch_tpu_torch.ops import prng
 
 
 def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +50,20 @@ def layernorm(p: nn.LayerNorm, x: torch.Tensor, *,
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
+
+
+def dropout(key, x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
+    """Inverted dropout (``core.dropout``): keep each element with
+    probability ``1 - rate`` (``prng.bernoulli`` under ``key``) and scale
+    the kept ones by ``1 / (1 - rate)``. The divisor is rounded to x's
+    dtype first, as JAX rounds the weakly typed Python float."""
+    if not train or rate == 0.0 or key is None:
+        return x
+    keep = 1.0 - rate
+    mask = prng.bernoulli(key, keep, x.shape)
+    div = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / div, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
 
 
 def embedding(p: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:

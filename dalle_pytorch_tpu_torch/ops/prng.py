@@ -8,11 +8,15 @@ and ``jax/_src/random.py``, jax 0.9 with the default
 * ``prng_key(seed)`` — ``PRNGKey``: a 32-bit seed becomes ``[0, seed]``
   (JAX keeps only the low 32 bits of wider Python ints);
 * ``fold_in(key, data)`` — ``threefry_2x32(key, [0, data])``;
+* ``split(key, shape)`` — the fold-like split: key ``i`` of the flat
+  output is the two words of ``threefry_2x32(key, (i >> 32, i &
+  0xffffffff))``, not XORed;
 * ``random_bits`` — the partitionable layout: element ``i`` of the
   flat output hashes the counter pair ``(i >> 32, i & 0xffffffff)``
   and returns the XOR of the two output words;
-* ``uniform``, ``gumbel`` and ``categorical`` (``argmax(gumbel +
-  logits)``, first maximum on ties, as ``jnp.argmax``).
+* ``uniform``, ``bernoulli`` (``uniform < p`` in float32, mode
+  'low'), ``gumbel`` and ``categorical`` (``argmax(gumbel + logits)``,
+  first maximum on ties, as ``jnp.argmax``).
 
 The bits, keys and uniforms are bit-equal to JAX's. The Gumbel noise
 agrees to within an ulp or two, because XLA's CPU ``log`` is not
@@ -77,17 +81,30 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32-bit random words of ``shape`` for every key in ``key``'s
-    leading axes: (..., *shape) int64 in [0, 2**32)."""
+def _hash_counters(key: torch.Tensor, shape: Sequence[int]):
+    """Both threefry output words for the flat counters of ``shape``,
+    for every key in ``key``'s leading axes: (..., *shape) each."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
     idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
     lead = key.shape[:-1]
     k0 = key[..., 0].reshape(lead + (1,) * len(shape))
     k1 = key[..., 1].reshape(lead + (1,) * len(shape))
-    b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
+    return threefry2x32(k0, k1, idx >> 32, idx & _MASK)
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """32-bit random words of ``shape`` for every key in ``key``'s
+    leading axes: (..., *shape) int64 in [0, 2**32)."""
+    b0, b1 = _hash_counters(key, shape)
     return b0 ^ b1
+
+
+def split(key: torch.Tensor, shape=2) -> torch.Tensor:
+    """``jax.random.split(key, shape)``: (..., *shape, 2) keys."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    b0, b1 = _hash_counters(key, shape)
+    return torch.stack([b0, b1], dim=-1)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
@@ -100,6 +117,14 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def bernoulli(key: torch.Tensor, p: float,
+              shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: bool, True with
+    probability ``p`` (a float32 uniform below float32 ``p``)."""
+    pf = torch.tensor(p, dtype=torch.float32, device=key.device)
+    return uniform(key, shape) < pf
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

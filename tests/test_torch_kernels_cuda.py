@@ -9,6 +9,13 @@ dependencies are installed. Tolerances: float32 rtol/atol 1e-5 and
 bfloat16 1e-2 on m, l and acc / l; the unnormalised acc to the same rtol
 of its summands' magnitude (sum_j p_j |v_j|), because the kernel sums
 up to 1279 signed terms in another order than the plain version.
+
+The flash kernels (K1, K2a, K2b) against their plain versions: float32
+(TF32 off) to rtol/atol 2e-4 — both sides accumulate in f32, over up to
+200 terms in another order, and the fused dq adds its key-tile shares
+with atomics in an order that changes from run to run; bfloat16 to
+rtol/atol 2e-2, one bf16 rounding of the output (2^-8 relative) on
+either side plus the f32 differences.
 """
 
 import numpy as np
@@ -18,6 +25,7 @@ import torch
 from dalle_pytorch_tpu_torch.models import dalle as TD
 from dalle_pytorch_tpu_torch.models import vae as TV
 from dalle_pytorch_tpu_torch.ops import decode as TDEC
+from dalle_pytorch_tpu_torch.ops import flash_attention as FA
 from dalle_pytorch_tpu_torch.ops import paged_attention as PA
 
 SCALE = 512 ** -0.5
@@ -136,3 +144,103 @@ def test_decode_step_kernel_matches_gather_oracle(cuda):
             model.transformer, x, pos, TDEC.paged_view(pool, bt, L),
             cfg=cfg.transformer, key_mask=key_mask, attn_impl="gather")
     torch.testing.assert_close(hk, hg, rtol=1e-4, atol=1e-4)
+
+
+# -- flash attention: K1, K2a, K2b ------------------------------------------
+
+def flash_inputs(cuda, dtype, n, d, masked, seed=0):
+    rs = np.random.RandomState(seed + n + d)
+    b, h = 2, 3
+    q, k, v, do = (torch.tensor(rs.randn(b, h, n, d), dtype=torch.float32)
+                   .to(cuda).to(dtype) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.ones((b, n), dtype=torch.bool)
+        mask[0, :min(5, n)] = False            # fully padded query rows
+        mask[1, n // 2:] = False               # a padded tail
+        mask = mask.to(cuda)
+    return q, k, v, do, mask
+
+
+def flash_tols(dtype):
+    return (2e-4, 2e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+
+
+def assert_flash_close(got, want, dtype):
+    rtol, atol = flash_tols(dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [37, 64, 200])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_match_plain(cuda, dtype, d, n, masked, causal):
+    dtype = getattr(torch, dtype)
+    q, k, v, do, mask = flash_inputs(cuda, dtype, n, d, masked)
+    kw = dict(scale=d ** -0.5, causal=causal, mask=mask)
+    before = (FA.flash_attention_fwd.launches,
+              FA.flash_attention_bwd_dq.launches,
+              FA.flash_attention_bwd_dkv.launches)
+    out, m, l = FA.flash_attention_fwd(q, k, v, **kw)
+    out_p, m_p, l_p = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    assert_flash_close(out, out_p, dtype)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(m, m_p, rtol=flash_tols(dtype)[0],
+                               atol=flash_tols(dtype)[1])
+    if masked and causal:
+        # a fully padded row's max is the finite fill, its l the count of
+        # its causal prefix (uniform over the prefix)
+        fill32 = torch.tensor(FA.FILL, dtype=torch.float32).item()
+        assert float(m[0, 0, 3]) == fill32 and float(l[0, 0, 3]) == 4.0
+    dstat = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, m_p, l_p, dstat)
+    dq = FA.flash_attention_bwd_dq(*args, **kw)
+    dk, dv, none = FA.flash_attention_bwd_dkv(*args, **kw)
+    dk_f, dv_f, dq_f = FA.flash_attention_bwd_dkv(*args, with_dq=True, **kw)
+    dq_p = FA.flash_attention_bwd_dq_plain(*args, **kw)
+    dk_p, dv_p, dq32_p = FA.flash_attention_bwd_dkv_plain(
+        *args, with_dq=True, **kw)
+    torch.cuda.synchronize()
+    assert none is None and dq_f.dtype == torch.float32
+    assert (FA.flash_attention_fwd.launches,
+            FA.flash_attention_bwd_dq.launches,
+            FA.flash_attention_bwd_dkv.launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 2)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p), (dk_f, dk_p),
+                      (dv_f, dv_p)):
+        assert_flash_close(got, want, dtype)
+    torch.testing.assert_close(dq_f, dq32_p, rtol=2e-4 if dtype ==
+                               torch.float32 else 2e-2,
+                               atol=2e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd_impl", ["pallas", "pallas_fused"])
+def test_flash_attention_grads_match_blockwise_on_card(cuda, bwd_impl):
+    q, k, v, do, mask = flash_inputs(cuda, torch.float32, 150, 64, True)
+    grads = {}
+    for impl in ("xla", bwd_impl):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = FA.flash_attention(*leaves, scale=0.125, causal=True,
+                                 mask=mask, bwd_impl=impl)
+        (out * do).sum().backward()
+        grads[impl] = [t.grad for t in leaves]
+    for got, want in zip(grads[bwd_impl], grads["xla"]):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 1, 16, 48), device=cuda)
+    with pytest.raises(ValueError, match="dim_head"):
+        FA.flash_attention_fwd(q, q, q, scale=1.0, causal=True)
+    h = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32"):
+        FA.flash_attention_fwd(h, h, h, scale=1.0, causal=True)
+    t = torch.zeros((1, 1, 64, 16), device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention_fwd(t, t, t, scale=1.0, causal=True)
