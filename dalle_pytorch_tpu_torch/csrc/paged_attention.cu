@@ -10,6 +10,13 @@
 // What it reproduces, line for line with the TPU kernel:
 //   * a slot walks ceil(pos / page_size) pages, so a slot at pos 0 walks
 //     none and never reads the trash page 0;
+//   * the visible walk (the TPU kernel with visible=True; launched as
+//     paged_decode_visible_kernel): trip p reads LOGICAL page
+//     visible[slot][p] for p < visible_cnt[slot], through the same block
+//     table, instead of page p — a sparse layer's pages of its local
+//     window and global blocks, in ascending order. The caller passes the
+//     token-causal count, so a listed page never starts at or past pos;
+//     entries past the count are padding and are never read;
 //   * a masked row gets the finite FILL = -finfo(f32).max, and the
 //     recurrence runs as written: an all-masked slot returns (0, FILL, 0),
 //     a walked all-masked prefix is wiped by alpha = 0 once a live row
@@ -71,13 +78,15 @@ struct Tile {
   static constexpr int kRows = (1024 / DH) < 8 ? 8 : ((1024 / DH) > 32 ? 32 : (1024 / DH));
 };
 
-template <typename TQ, typename TKV, int DH, bool QUANT>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+// the body of both walks; VISIBLE selects the visible-page list
+template <typename TQ, typename TKV, int DH, bool QUANT, bool VISIBLE>
+__device__ __forceinline__ void paged_decode_body(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ pos, const uint8_t* __restrict__ allowed,
-    float* __restrict__ acc_out, float* __restrict__ m_out,
+    const int* __restrict__ visible, const int* __restrict__ visible_cnt,
+    int width, float* __restrict__ acc_out, float* __restrict__ m_out,
     float* __restrict__ l_out, int heads, int page_size, int max_pages, int L,
     float scale) {
   constexpr int E = (DH + 31) / 32;              // dims held per lane
@@ -92,7 +101,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int h = blockIdx.x % heads;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int n_pages = (pos[slot] + page_size - 1) / page_size;
+  const int n_pages = VISIBLE ? visible_cnt[slot]
+                              : (pos[slot] + page_size - 1) / page_size;
+  const int* vis_row =
+      VISIBLE ? visible + static_cast<size_t>(slot) * width : nullptr;
   const int* bt_row = block_tables + static_cast<size_t>(slot) * max_pages;
   const uint8_t* allow_row = allowed + static_cast<size_t>(slot) * L;
   const size_t qh = (static_cast<size_t>(slot) * heads + h) * DH;
@@ -109,9 +121,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float l = 0.f;
 
   for (int p = warp; p < n_pages; p += kWarps) {
+    const int lp = VISIBLE ? vis_row[p] : p;      // logical page of trip p
     // first K/V row of (page, head): the pool is (P, heads, page_size, DH)
     const size_t base =
-        (static_cast<size_t>(bt_row[p]) * heads + h) * page_size;
+        (static_cast<size_t>(bt_row[lp]) * heads + h) * page_size;
     for (int r0 = 0; r0 < page_size; r0 += TR) {
       const int rows = min(TR, page_size - r0);
       for (int i = lane; i < rows * DH; i += 32) {
@@ -135,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         }
         float s = warp_sum(part) * scale;
         if (QUANT) s *= k_scales[base + r0 + r];
-        const int j = p * page_size + r0 + r;
+        const int j = lp * page_size + r0 + r;
         if (j >= L || !allow_row[j]) s = kFill;
         if (lane == r) s_mine = s;
       }
@@ -200,17 +213,52 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
+#define PDA_PARAMS                                                          \
+  const TQ *__restrict__ q, const TKV *__restrict__ k_pages,                \
+      const TKV *__restrict__ v_pages, const float *__restrict__ k_scales,  \
+      const float *__restrict__ v_scales,                                   \
+      const int *__restrict__ block_tables, const int *__restrict__ pos,    \
+      const uint8_t *__restrict__ allowed, const int *__restrict__ visible, \
+      const int *__restrict__ visible_cnt, int width,                       \
+      float *__restrict__ acc_out, float *__restrict__ m_out,               \
+      float *__restrict__ l_out, int heads, int page_size, int max_pages,   \
+      int L, float scale
+#define PDA_ARGS                                                           \
+  q, k_pages, v_pages, k_scales, v_scales, block_tables, pos, allowed,     \
+      visible, visible_cnt, width, acc_out, m_out, l_out, heads, page_size, \
+      max_pages, L, scale
+
+// the prefix walk and the visible walk, as two kernels so that a profile
+// tells them apart
+template <typename TQ, typename TKV, int DH, bool QUANT>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(PDA_PARAMS) {
+  paged_decode_body<TQ, TKV, DH, QUANT, false>(PDA_ARGS);
+}
+
+template <typename TQ, typename TKV, int DH, bool QUANT>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_visible_kernel(PDA_PARAMS) {
+  paged_decode_body<TQ, TKV, DH, QUANT, true>(PDA_ARGS);
+}
+
+#undef PDA_PARAMS
+#undef PDA_ARGS
+
 template <typename TQ, typename TKV, int DH, bool QUANT>
 void launch(const void* q, const void* kp, const void* vp, const void* ksc,
             const void* vsc, const void* bt, const void* pos,
-            const void* allowed, void* acc, void* m, void* l, int b,
-            int heads, int page_size, int max_pages, int L, float scale,
+            const void* allowed, const void* vis, const void* vis_cnt,
+            int width, void* acc, void* m, void* l, int b, int heads,
+            int page_size, int max_pages, int L, float scale,
             cudaStream_t stream) {
-  paged_decode_kernel<TQ, TKV, DH, QUANT><<<b * heads, kThreads, 0, stream>>>(
+  auto kernel = vis ? paged_decode_visible_kernel<TQ, TKV, DH, QUANT>
+                    : paged_decode_kernel<TQ, TKV, DH, QUANT>;
+  kernel<<<b * heads, kThreads, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
       static_cast<const TKV*>(vp), static_cast<const float*>(ksc),
       static_cast<const float*>(vsc), static_cast<const int*>(bt),
       static_cast<const int*>(pos), static_cast<const uint8_t*>(allowed),
+      static_cast<const int*>(vis), static_cast<const int*>(vis_cnt), width,
       static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
       heads, page_size, max_pages, L, scale);
 }
@@ -218,14 +266,15 @@ void launch(const void* q, const void* kp, const void* vp, const void* ksc,
 template <typename TQ, typename TKV, bool QUANT>
 int by_dim(int dh, const void* q, const void* kp, const void* vp,
            const void* ksc, const void* vsc, const void* bt, const void* pos,
-           const void* allowed, void* acc, void* m, void* l, int b, int heads,
+           const void* allowed, const void* vis, const void* vis_cnt,
+           int width, void* acc, void* m, void* l, int b, int heads,
            int page_size, int max_pages, int L, float scale,
            cudaStream_t stream) {
 #define PDA_CASE(D)                                                          \
   case D:                                                                    \
-    launch<TQ, TKV, D, QUANT>(q, kp, vp, ksc, vsc, bt, pos, allowed, acc, m, \
-                              l, b, heads, page_size, max_pages, L, scale,   \
-                              stream);                                       \
+    launch<TQ, TKV, D, QUANT>(q, kp, vp, ksc, vsc, bt, pos, allowed, vis,    \
+                              vis_cnt, width, acc, m, l, b, heads,           \
+                              page_size, max_pages, L, scale, stream);       \
     return 0;
   switch (dh) {
     PDA_CASE(16)
@@ -245,34 +294,42 @@ int by_dim(int dh, const void* q, const void* kp, const void* vp,
 // q (b, heads, dh); k/v pages (P, heads, page_size, dh); scales
 // (P, heads, page_size) float32 (int8 pages only, else null);
 // block_tables (b, max_pages) int32; pos (b,) int32; allowed (b, L) uint8;
-// acc (b, heads, dh), m and l (b, heads) float32. Returns the CUDA error
-// of the launch (0 on success); the launch is asynchronous on `stream`.
+// visible (b, width) int32 logical page ids and visible_cnt (b,) int32,
+// both null for the prefix walk; acc (b, heads, dh), m and l (b, heads)
+// float32. Returns the CUDA error of the launch (0 on success); the
+// launch is asynchronous on `stream`.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* block_tables,
-    const void* pos, const void* allowed, void* acc, void* m, void* l, int b,
-    int heads, int dh, int page_size, int max_pages, int L, float scale,
+    const void* pos, const void* allowed, const void* visible,
+    const void* visible_cnt, void* acc, void* m, void* l, int b, int heads,
+    int dh, int page_size, int max_pages, int L, int width, float scale,
     int q_dtype, int kv_dtype, void* stream) {
+  if ((visible == nullptr) != (visible_cnt == nullptr) ||
+      (visible != nullptr && (width < 1 || width > max_pages)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (q_dtype == 0 && kv_dtype == 0) {
     rc = by_dim<float, float, false>(dh, q, k_pages, v_pages, k_scales,
                                      v_scales, block_tables, pos, allowed,
-                                     acc, m, l, b, heads, page_size, max_pages,
-                                     L, scale, s);
+                                     visible, visible_cnt, width, acc, m, l, b,
+                                     heads, page_size, max_pages, L, scale, s);
   } else if (q_dtype == 1 && kv_dtype == 1) {
     rc = by_dim<__nv_bfloat16, __nv_bfloat16, false>(
         dh, q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
-        allowed, acc, m, l, b, heads, page_size, max_pages, L, scale, s);
+        allowed, visible, visible_cnt, width, acc, m, l, b, heads, page_size,
+        max_pages, L, scale, s);
   } else if (q_dtype == 0 && kv_dtype == 2) {
     rc = by_dim<float, int8_t, true>(dh, q, k_pages, v_pages, k_scales,
                                      v_scales, block_tables, pos, allowed,
-                                     acc, m, l, b, heads, page_size, max_pages,
-                                     L, scale, s);
+                                     visible, visible_cnt, width, acc, m, l, b,
+                                     heads, page_size, max_pages, L, scale, s);
   } else if (q_dtype == 1 && kv_dtype == 2) {
     rc = by_dim<__nv_bfloat16, int8_t, true>(
         dh, q, k_pages, v_pages, k_scales, v_scales, block_tables, pos,
-        allowed, acc, m, l, b, heads, page_size, max_pages, L, scale, s);
+        allowed, visible, visible_cnt, width, acc, m, l, b, heads, page_size,
+        max_pages, L, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -43,11 +43,14 @@ class DALLEConfig:
     attn_dropout: float = 0.0
     ff_dropout: float = 0.0
     sparse_attn: Union[bool, Tuple[bool, ...]] = False
+    sparse_block: int = 16
     attn_impl: str = "xla"
     # flash backward: 'xla' | 'pallas' (K2a + K2b split) | 'pallas_fused'
     attn_bwd_impl: str = "xla"
     flash_block_q: int = 128
     flash_block_k: int = 128
+    # sparse layers: 'ref' | 'windowed' | 'pallas' (kernel K3)
+    sparse_impl: str = "ref"
     moe_experts: int = 0
     scale_mode: str = "dim"
     remat: str = "none"
@@ -92,9 +95,10 @@ class DALLEConfig:
             heads=self.heads, dim_head=self.dim_head, causal=True,
             attn_dropout=self.attn_dropout, ff_dropout=self.ff_dropout,
             reversible=self.reversible, sparse_attn=self.sparse_attn,
-            attn_impl=self.attn_impl, attn_bwd_impl=self.attn_bwd_impl,
+            sparse_block=self.sparse_block, attn_impl=self.attn_impl,
+            attn_bwd_impl=self.attn_bwd_impl,
             flash_block_q=self.flash_block_q,
-            flash_block_k=self.flash_block_k,
+            flash_block_k=self.flash_block_k, sparse_impl=self.sparse_impl,
             moe_experts=self.moe_experts, scale_mode=self.scale_mode,
             remat=self.remat)
 

@@ -4,7 +4,8 @@ Every kernel is a ``csrc/*.cu`` file with a plain C entry point, compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
 at the repository root on first use, and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds, not minutes). The library's
-file name carries a hash of its source, so an edited kernel is rebuilt
+file name carries a hash of its source and of the headers the sources
+share (``csrc/*.cuh``), so an edited kernel is rebuilt
 and a stale one is never loaded. ``build_all`` starts one nvcc per
 source, all at once, and waits for them together. Nothing here runs at
 import time.
@@ -28,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # kernel name -> source file under csrc/
 SOURCES: Dict[str, str] = {"paged_attention": "paged_attention.cu",
-                           "flash_attention": "flash_attention.cu"}
+                           "flash_attention": "flash_attention.cu",
+                           "block_sparse": "block_sparse.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,10 +45,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of kernel ``name``, named by a hash of its source, the
+    shared headers (``csrc/*.cuh``) and the nvcc flags."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

@@ -14,7 +14,16 @@ Port of the serving half of ``dalle_pytorch_tpu/ops/decode.py``:
   ``decode_loop_paged`` (``:833``) — the write-back into the page pool
   and the K-step loop that fills a device-side ``(slots, K)`` emit ring;
 * ``paged_view`` (``:720``) and ``_gather_read`` (``:216``), the dense-view
-  oracle the kernel is held against (tests and ``chip_smoke.py``).
+  oracle the kernel is held against (tests and ``chip_smoke.py``);
+* block-sparse layers: ``_sparse_layout`` (``:154``) in ``prefill`` and in
+  the step's per-slot ``sparse_allowed`` (``:434-472``), so a sparse
+  model computes the model it was trained as; and the sparse reads,
+  ``_decode_step_math_sparse_reads`` (``:520-692``): each sparse layer
+  reads only its statically visible pages (``_sparse_page_visibility``,
+  ``:166``) — through K4's visible walk in ``'kernel'`` mode, or through
+  the trimmed ``kv_pool.visible_table_view`` in ``'gather'`` mode, the
+  oracle — while dense layers read as before. Skipped pages carry
+  exactly zero weight, so the tokens do not change.
 
 Where JAX returns a new pool from each step, the port updates the pool
 IN PLACE (``index_put_``): the pool is the largest buffer on the card,
@@ -25,13 +34,16 @@ layer has read and the kernel only reads rows below each slot's pos.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dalle_pytorch_tpu_torch.ops import attention as attn_ops
 from dalle_pytorch_tpu_torch.ops import core
 from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+from dalle_pytorch_tpu_torch.ops import sparse
 from dalle_pytorch_tpu_torch.ops import transformer as T
 
 Pool = Dict[str, torch.Tensor]
@@ -51,6 +63,49 @@ def _rows(ks: torch.Tensor, vs: torch.Tensor, quantize: bool) -> Pool:
     kq, ksc = _quantize_rows(ks)
     vq, vsc = _quantize_rows(vs)
     return {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+
+
+@functools.lru_cache(maxsize=16)
+def _sparse_layout(cfg: T.TransformerConfig, total_len: int,
+                   device: torch.device) -> torch.Tensor:
+    """(total_len, total_len) token-level allowed mask of the sparse
+    layers, on ``device``. Cached: the decode loop takes its rows every
+    step, and a host-to-card copy there would stall it."""
+    padded = -(-total_len // cfg.sparse_block) * cfg.sparse_block
+    layout = sparse.token_layout_mask(padded, cfg.sparse_block,
+                                      causal=cfg.causal)
+    return torch.from_numpy(np.ascontiguousarray(
+        layout[:total_len, :total_len])).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _sparse_page_visibility(cfg: T.TransformerConfig, total_len: int,
+                            page_size: int, device: torch.device):
+    """``(vis (L, W), cnt (L,), cnt_causal (L,))`` int32 on ``device``:
+    row p's visible page ids ascending with ``cnt[p]`` live entries, and
+    the decode trip count ``cnt_causal[p]`` (``sparse.visible_pages_
+    causal``, the one source). Cached like ``_sparse_layout``."""
+    tables = sparse.visible_pages_causal(total_len, page_size,
+                                         cfg.sparse_block, causal=cfg.causal)
+    return tuple(torch.from_numpy(np.array(a)).to(device) for a in tables)
+
+
+def check_sparse_reads(cfg: T.TransformerConfig) -> None:
+    """Raises ValueError unless sparse reads fit ``cfg``: it has sparse
+    layers (else the flag is a silent no-op) in a periodic pattern (the
+    JAX step resolves the read shapes from one period)."""
+    pattern = cfg.sparse_pattern
+    if not any(pattern):
+        raise ValueError(
+            "sparse_reads on a config with no sparse layers would be a "
+            "silent no-op (every layer reads the full prefix either way) "
+            "— drop the flag")
+    period = T._pattern_period(pattern)
+    if period > T._MAX_UNROLL_PERIOD:
+        raise ValueError(
+            f"sparse_reads needs a periodic dense/sparse pattern (period "
+            f"<= {T._MAX_UNROLL_PERIOD}); pattern {pattern} has period "
+            f"{period}")
 
 
 def _attn_with_kv(layer: T.Layer, h: torch.Tensor, allowed: torch.Tensor,
@@ -76,11 +131,17 @@ def prefill(model: T.Transformer, x: torch.Tensor, *,
     under ``quantize_cache``). JAX returns them inside a full-length
     cache; here the caller scatters them into its pages."""
     t0 = x.shape[1]
-    allowed = torch.ones((t0, t0), dtype=torch.bool,
-                         device=x.device).tril()[None, None]
+    dense_allowed = torch.ones((t0, t0), dtype=torch.bool,
+                               device=x.device).tril()[None, None]
+    sparse_allowed = dense_allowed
+    if any(cfg.sparse_pattern):
+        # the layout's rows and columns [0, t0) are those of the full
+        # sequence's layout: it depends on positions only
+        sparse_allowed = dense_allowed & _sparse_layout(cfg, t0, x.device)
     ks, vs = [], []
     h = x
-    for layer in model.layers:
+    for layer, is_sparse in zip(model.layers, cfg.sparse_pattern):
+        allowed = sparse_allowed if is_sparse else dense_allowed
         a, k, v = _attn_with_kv(layer, h, allowed, cfg)
         h = h + a
         h = h + T.ff_branch(layer, h)
@@ -94,15 +155,19 @@ def _kernel_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  block_tables: torch.Tensor, pos: torch.Tensor,
                  allowed: torch.Tensor, *, scale: float,
                  ksc: Optional[torch.Tensor] = None,
-                 vsc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 vsc: Optional[torch.Tensor] = None,
+                 visible: Optional[torch.Tensor] = None,
+                 visible_cnt: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Kernel K4's partials over the raw pool, completed with the current
     token's self-logit by the two-estimate softmax merge — exactly
     ``softmax(concat([scores, self]))`` up to summation order. q/k/v are
     (b, h, 1, dh); returns the (b, h, 1, dh) output before the out
-    projection."""
+    projection. ``visible``/``visible_cnt`` select K4's visible walk."""
     acc, m, l = PA.paged_decode_attention(
         q[:, :, 0, :].contiguous(), pool_k, pool_v, block_tables, pos,
-        allowed, scale=scale, k_scales=ksc, v_scales=vsc)
+        allowed, scale=scale, k_scales=ksc, v_scales=vsc, visible=visible,
+        visible_cnt=visible_cnt)
     self_s = torch.einsum("bhqd,bhqd->bhq", q, k)[:, :, 0].float() * scale
     m_t = torch.maximum(m, self_s)          # self is finite: m_t too
     alpha = torch.exp(m - m_t)
@@ -153,46 +218,152 @@ def paged_view(pool: Pool, block_tables: torch.Tensor,
     return {name: gather(buf) for name, buf in pool.items()}
 
 
+def _step_masks(cfg: T.TransformerConfig, pos: torch.Tensor,
+                key_mask: torch.Tensor):
+    """(dense_allowed, sparse_allowed), each (b, total_len): the cached
+    rows strictly before each slot's position (self enters as the extra
+    logit) that are not padding, and of those, the ones a sparse layer's
+    layout row allows."""
+    j = torch.arange(key_mask.shape[1], device=pos.device)
+    dense = (j[None, :] < pos[:, None]) & key_mask
+    if not any(cfg.sparse_pattern):
+        return dense, dense
+    layout = _sparse_layout(cfg, key_mask.shape[1], pos.device)
+    return dense, dense & layout[pos.long()]
+
+
+def _run_layers(model: T.Transformer, x_tok: torch.Tensor,
+                cfg: T.TransformerConfig, read: Callable):
+    """The decode step's layer loop; ``read(i, q, k, v)`` gives layer i's
+    (b, h, 1, dh) attention output over the cached rows plus self."""
+    h = x_tok[:, None, :]
+    ks, vs = [], []
+    for i, layer in enumerate(model.layers):
+        p = layer.attn
+        q, k, v = attn_ops.qkv_project(p, core.layernorm(p.ln, h), cfg.heads)
+        h = h + attn_ops.output_tail(p, read(i, q, k, v))
+        h = h + T.ff_branch(layer, h)
+        ks.append(k)
+        vs.append(v)
+    return h[:, 0, :], torch.stack(ks), torch.stack(vs)
+
+
 def _decode_step_math(model: T.Transformer, x_tok: torch.Tensor,
                       pos: torch.Tensor, cache: Pool, *,
                       cfg: T.TransformerConfig, key_mask: torch.Tensor,
                       attn_impl: str = "kernel",
-                      block_tables: Optional[torch.Tensor] = None
+                      block_tables: Optional[torch.Tensor] = None,
+                      sparse_reads: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention over the cached rows plus self for one token per slot,
     without the cache write. x_tok (b, dim); pos (b,) per-slot
     positions; key_mask (b, total_len). ``attn_impl='kernel'`` reads
     ``cache`` as the raw page pool through ``block_tables`` (kernel K4);
     ``'gather'`` reads it as a dense view (``paged_view``), the oracle.
-    Returns (h_out (b, dim), new ks, new vs (depth, b, heads, 1, dh))."""
+    Sparse layers attend to their layout row of each slot's position.
+    ``sparse_reads=True`` hands over to ``_decode_step_math_sparse_reads``
+    (``cache`` is then the raw pool for both impls). Returns (h_out
+    (b, dim), new ks, new vs (depth, b, heads, 1, dh))."""
     if attn_impl not in ("gather", "kernel"):
         raise ValueError(f"attn_impl must be 'gather' or 'kernel', got "
                          f"{attn_impl!r}")
-    if attn_impl == "kernel" and block_tables is None:
-        raise ValueError("attn_impl='kernel' requires block_tables")
-    j = torch.arange(key_mask.shape[1], device=pos.device)
-    # strictly-before rows; self enters as the extra logit
-    allowed = (j[None, :] < pos[:, None]) & key_mask
+    if (attn_impl == "kernel" or sparse_reads) and block_tables is None:
+        raise ValueError(f"attn_impl={attn_impl!r} with sparse_reads="
+                         f"{sparse_reads} requires block_tables")
+    if sparse_reads:
+        return _decode_step_math_sparse_reads(
+            model, x_tok, pos, cache, cfg=cfg, key_mask=key_mask,
+            attn_impl=attn_impl, block_tables=block_tables)
+    dense_allowed, sparse_allowed = _step_masks(cfg, pos, key_mask)
     quantized = "k_scale" in cache
-    h = x_tok[:, None, :]
-    ks, vs = [], []
-    for i, layer in enumerate(model.layers):
-        p = layer.attn
-        q, k, v = attn_ops.qkv_project(p, core.layernorm(p.ln, h), cfg.heads)
+
+    def read(i, q, k, v):
         ksc = cache["k_scale"][i] if quantized else None
         vsc = cache["v_scale"][i] if quantized else None
+        allowed = sparse_allowed if cfg.sparse_pattern[i] else dense_allowed
         if attn_impl == "kernel":
-            out = _kernel_read(q, k, v, cache["k"][i], cache["v"][i],
-                               block_tables, pos, allowed, scale=cfg.scale,
-                               ksc=ksc, vsc=vsc)
-        else:
-            out = _gather_read(q, k, v, cache["k"][i], cache["v"][i],
-                               allowed, scale=cfg.scale, ksc=ksc, vsc=vsc)
-        h = h + attn_ops.output_tail(p, out)
-        h = h + T.ff_branch(layer, h)
-        ks.append(k)
-        vs.append(v)
-    return h[:, 0, :], torch.stack(ks), torch.stack(vs)
+            return _kernel_read(q, k, v, cache["k"][i], cache["v"][i],
+                                block_tables, pos, allowed, scale=cfg.scale,
+                                ksc=ksc, vsc=vsc)
+        return _gather_read(q, k, v, cache["k"][i], cache["v"][i], allowed,
+                            scale=cfg.scale, ksc=ksc, vsc=vsc)
+
+    return _run_layers(model, x_tok, cfg, read)
+
+
+def _decode_step_math_sparse_reads(
+        model: T.Transformer, x_tok: torch.Tensor, pos: torch.Tensor,
+        pool: Pool, *, cfg: T.TransformerConfig, key_mask: torch.Tensor,
+        attn_impl: str, block_tables: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_decode_step_math`` with sparse reads: every sparse layer reads
+    only its statically visible pages, dense layers read as before, and
+    both impls take the RAW page pool through ``block_tables``:
+
+    * ``'kernel'``: sparse layers run K4's visible walk over the
+      per-slot visible-page list with the token-causal count; dense
+      layers its prefix walk;
+    * ``'gather'``: sparse layers gather only the visible slice of the
+      block table (``kv_pool.visible_table_view``) with the row mask
+      remapped onto the trimmed columns; dense layers gather the full
+      view.
+
+    The entry points (``decode_step_paged``, ``decode_loop_paged``, the
+    engine) run ``check_sparse_reads`` once; the per-step math does not."""
+    from dalle_pytorch_tpu_torch.serve import kv_pool as KV
+    b = x_tok.shape[0]
+    total_len = key_mask.shape[1]
+    ps = pool["k"].shape[3]
+    quantized = "k_scale" in pool
+    dev = pos.device
+    pos_l = pos.long()
+    dense_allowed, sparse_allowed = _step_masks(cfg, pos, key_mask)
+    vis, cnt, ccnt = _sparse_page_visibility(cfg, total_len, ps, dev)
+    width = vis.shape[1]
+    vis_rows = vis[pos_l]                                       # (b, W)
+    if attn_impl == "kernel":
+        vis_ccnt = ccnt[pos_l]                                  # (b,)
+    else:
+        bt = block_tables[:, :-(-total_len // ps)].long()  # the view's trim
+        vis_bt = KV.visible_table_view(bt, vis_rows)            # (b, W)
+        # the row mask on the trimmed columns: column w*ps + o is logical
+        # row vis_rows[:, w]*ps + o; columns past the live count are dead
+        # (they would count page 0 again), and so are rows past total_len
+        cols = (vis_rows.long()[:, :, None] * ps
+                + torch.arange(ps, device=dev)).reshape(b, width * ps)
+        pad_ok = (torch.arange(width, device=dev)[None, :]
+                  < cnt[pos_l][:, None]).repeat_interleave(ps, dim=1)
+        vis_allowed = (torch.gather(sparse_allowed, 1,
+                                    cols.clamp(max=total_len - 1))
+                       & pad_ok & (cols < total_len))
+
+    def layer_view(buf, tables, rows_out):
+        """One layer's (P, heads, ps[, dh]) pool gathered through tables
+        (b, w) into (b, heads, rows_out[, dh])."""
+        g = buf[tables].transpose(1, 2)          # (b, heads, w, ps[, dh])
+        g = g.reshape(b, g.shape[1], -1, *g.shape[4:])
+        return g[:, :, :rows_out]
+
+    def read(i, q, k, v):
+        is_sparse = cfg.sparse_pattern[i]
+        ksc = pool["k_scale"][i] if quantized else None
+        vsc = pool["v_scale"][i] if quantized else None
+        if attn_impl == "kernel":
+            return _kernel_read(
+                q, k, v, pool["k"][i], pool["v"][i], block_tables, pos,
+                sparse_allowed if is_sparse else dense_allowed,
+                scale=cfg.scale, ksc=ksc, vsc=vsc,
+                visible=vis_rows if is_sparse else None,
+                visible_cnt=vis_ccnt if is_sparse else None)
+        tables, rows_out, allowed = (
+            (vis_bt, width * ps, vis_allowed) if is_sparse
+            else (bt, total_len, dense_allowed))
+        views = [None if buf is None else layer_view(buf, tables, rows_out)
+                 for buf in (pool["k"][i], pool["v"][i], ksc, vsc)]
+        return _gather_read(q, k, v, views[0], views[1], allowed,
+                            scale=cfg.scale, ksc=views[2], vsc=views[3])
+
+    return _run_layers(model, x_tok, cfg, read)
 
 
 def _store_rows_paged(pool: Pool, ks: torch.Tensor, vs: torch.Tensor,
@@ -222,16 +393,33 @@ def decode_step_paged(model: T.Transformer, x_tok: torch.Tensor,
                       block_tables: torch.Tensor, *,
                       cfg: T.TransformerConfig, key_mask: torch.Tensor,
                       active: torch.Tensor,
-                      attn_impl: str = "kernel") -> torch.Tensor:
+                      attn_impl: str = "kernel",
+                      sparse_reads: bool = False) -> torch.Tensor:
     """One decode step against the pool (updated in place); returns
-    h_out (b, dim). ``attn_impl='gather'`` reads through ``paged_view``."""
-    if attn_impl == "kernel":
+    h_out (b, dim). ``attn_impl='gather'`` reads through ``paged_view``,
+    or, with ``sparse_reads``, through the per-layer trimmed views."""
+    if sparse_reads:
+        check_sparse_reads(cfg)
+    return _decode_step_paged(model, x_tok, pos, pool, block_tables, cfg=cfg,
+                              key_mask=key_mask, active=active,
+                              attn_impl=attn_impl, sparse_reads=sparse_reads)
+
+
+def _decode_step_paged(model: T.Transformer, x_tok: torch.Tensor,
+                       pos: torch.Tensor, pool: Pool,
+                       block_tables: torch.Tensor, *,
+                       cfg: T.TransformerConfig, key_mask: torch.Tensor,
+                       active: torch.Tensor, attn_impl: str = "kernel",
+                       sparse_reads: bool = False) -> torch.Tensor:
+    """``decode_step_paged`` without the sparse-reads check."""
+    if attn_impl == "kernel" or sparse_reads:
         cache = pool
     else:
         cache = paged_view(pool, block_tables, key_mask.shape[1])
     h, ks, vs = _decode_step_math(model, x_tok, pos, cache, cfg=cfg,
                                   key_mask=key_mask, attn_impl=attn_impl,
-                                  block_tables=block_tables)
+                                  block_tables=block_tables,
+                                  sparse_reads=sparse_reads)
     _store_rows_paged(pool, ks, vs, pos, block_tables, active)
     return h
 
@@ -244,25 +432,30 @@ def decode_loop_paged(model: T.Transformer, cur_tok: torch.Tensor,
                       embed_fn: Callable[[torch.Tensor, torch.Tensor],
                                          torch.Tensor],
                       sample_fn: Callable[[torch.Tensor, torch.Tensor],
-                                          torch.Tensor]):
+                                          torch.Tensor],
+                      sparse_reads: bool = False):
     """``steps`` decode steps for every slot, with no host sync: each
     step's emitted token goes into a device-side (b, steps) ring that
     the host reads once per chunk. A slot emits while active; one whose
     position reaches the sequence end deactivates itself and parks at
     (tok 0, pos 0), writing the trash page, until the host notices.
     ``embed_fn(cur_tok, pos) -> (b, dim)`` and ``sample_fn(h, pred_pos)
-    -> (b,)`` are the model-level halves.
+    -> (b,)`` are the model-level halves. ``sparse_reads`` makes the
+    sparse layers read only their visible pages (K4's visible walk).
 
     Returns (cur_tok, pos, active, ring); ring holds -1 where a slot was
     inactive. The pool is updated in place."""
+    if sparse_reads:
+        check_sparse_reads(cfg)
     total_len = key_mask.shape[1]
     ring = torch.empty((cur_tok.shape[0], steps), dtype=torch.int32,
                        device=cur_tok.device)
     for t in range(steps):
         ring[:, t] = torch.where(active, cur_tok, -1)
         x = embed_fn(cur_tok, pos)
-        h = decode_step_paged(model, x, pos, pool, block_tables, cfg=cfg,
-                              key_mask=key_mask, active=active)
+        h = _decode_step_paged(model, x, pos, pool, block_tables, cfg=cfg,
+                               key_mask=key_mask, active=active,
+                               sparse_reads=sparse_reads)
         nxt = sample_fn(h, pos + 1)
         pos = pos + 1
         active = active & (pos < total_len)

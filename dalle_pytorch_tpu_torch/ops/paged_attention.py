@@ -22,10 +22,21 @@ The contract both implement, taken from the TPU kernel:
   walks none, so the trash page is never read, and returns
   ``(0, FILL, 0)``; masked walked rows score exactly ``FILL`` (finite),
   so a masked prefix is wiped once a live row arrives; int8 scales
-  apply outside the dot products; scores and sums are float32.
+  apply outside the dot products; scores and sums are float32;
+* with ``visible`` (b, W) and ``visible_cnt`` (b,) — the visible walk of
+  a sparse layer (``sparse_reads``) — slot i walks only the logical
+  pages ``visible[i, :visible_cnt[i]]`` (ascending; the caller passes
+  the token-causal count, so no listed page starts at or past pos).
+  Every skipped page is fully masked in ``allowed``, so the partials
+  equal the prefix walk's up to summation order. The two walks count
+  their launches apart: ``paged_decode_attention.launches`` and
+  ``paged_decode_attention.visible_launches``.
 
-The sparse-read walk of the TPU kernel (``visible``/``visible_cnt``)
-belongs to the ``sparse_reads`` serving option, a later slice.
+``kv_row_bytes`` is the one byte model of a walked row: the K and V
+bytes of one cached row of one head, with its int8 scales. Both
+``modeled_kv_read_bytes_per_token`` (JAX ``:348-405``; K/V reads per
+decoded token, dense or sparse reads) and the walks' byte bounds in
+``chip_smoke.py`` count rows with it.
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _validate(q, k_pages, v_pages, block_tables, pos, allowed, k_scales,
-              v_scales):
+              v_scales, visible=None, visible_cnt=None):
     from dalle_pytorch_tpu_torch.serve import kv_pool as KV
     b, heads, dh = q.shape
     P, heads_p, page_size, dh_p = k_pages.shape
@@ -68,6 +79,20 @@ def _validate(q, k_pages, v_pages, block_tables, pos, allowed, k_scales,
         raise ValueError(
             f"block tables map {max_pages} pages of {page_size} rows < "
             f"allowed length {allowed.shape[1]}")
+    if (visible is None) != (visible_cnt is None):
+        raise ValueError("visible and visible_cnt come together: the "
+                         "visible-page list is meaningless without its "
+                         "per-slot live count (and vice versa)")
+    if visible is not None:
+        if visible.dim() != 2 or visible.shape[0] != b \
+                or visible_cnt.shape != (b,):
+            raise ValueError(f"visible must be (b, W) and visible_cnt (b,) "
+                             f"for b = {b}, got {tuple(visible.shape)} and "
+                             f"{tuple(visible_cnt.shape)}")
+        if visible.shape[1] > max_pages:
+            raise ValueError(
+                f"visible lists {visible.shape[1]} pages per slot > the "
+                f"{max_pages}-column block tables they index")
 
 
 def paged_decode_attention_plain(
@@ -76,33 +101,46 @@ def paged_decode_attention_plain(
         allowed: torch.Tensor, *, scale: float,
         k_scales: Optional[torch.Tensor] = None,
         v_scales: Optional[torch.Tensor] = None,
+        visible: Optional[torch.Tensor] = None,
+        visible_cnt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, one-shot instead of
-    online: gather every mapped page, score, and reduce — with rows past
-    the walked pages left out entirely and masked walked rows at FILL,
+    online: gather the pages a slot may walk (every mapped page, or only
+    the listed ones given ``visible``), score, and reduce — with rows
+    past the walk left out entirely and masked walked rows at FILL,
     which gives the online recurrence's (acc, m, l) exactly, up to
     summation order."""
     _validate(q, k_pages, v_pages, block_tables, pos, allowed, k_scales,
-              v_scales)
+              v_scales, visible, visible_cnt)
     b, heads, dh = q.shape
     page_size = k_pages.shape[2]
-    max_pages = block_tables.shape[1]
-    Lp = max_pages * page_size
-    bt = block_tables.long()
+    dev = q.device
+    if visible is None:
+        tables = block_tables.long()                     # (b, w)
+        w = tables.shape[1]
+        logical = torch.arange(w, device=dev)[None, :].expand(b, w)
+        trips = (pos.long() + page_size - 1) // page_size
+    else:
+        logical = visible.long()
+        w = logical.shape[1]
+        tables = torch.take_along_dim(block_tables.long(), logical, dim=1)
+        trips = visible_cnt.long()
 
-    def rows(buf):            # (P, heads, ps[, dh]) -> (b, heads, Lp[, dh])
-        g = buf[bt].transpose(1, 2)          # (b, heads, mp, ps[, dh])
-        return g.reshape(b, heads, Lp, *g.shape[4:])
+    def rows(buf):            # (P, heads, ps[, dh]) -> (b, heads, w*ps[, dh])
+        g = buf[tables].transpose(1, 2)          # (b, heads, w, ps[, dh])
+        return g.reshape(b, heads, w * page_size, *g.shape[4:])
 
+    # logical row of each gathered column, and whether its trip is walked
+    col = (logical[:, :, None] * page_size
+           + torch.arange(page_size, device=dev)).reshape(b, w * page_size)
+    walked = (torch.arange(w, device=dev)[None, :] < trips[:, None]) \
+        .repeat_interleave(page_size, dim=1)[:, None]
+    L = allowed.shape[1]
+    ok = torch.gather(allowed.bool(), 1, col.clamp(max=L - 1)) & (col < L)
     s = torch.einsum("bhd,bhjd->bhj", q.float(), rows(k_pages).float())
     s = s * scale
     if k_scales is not None:
         s = s * rows(k_scales)
-    j = torch.arange(Lp, device=q.device)
-    n_pages = (pos.long() + page_size - 1) // page_size
-    walked = (j[None, :] < (n_pages * page_size)[:, None])[:, None]
-    ok = torch.zeros((b, Lp), dtype=torch.bool, device=q.device)
-    ok[:, :allowed.shape[1]] = allowed.bool()
     s = torch.where(ok[:, None], s, FILL)
     s = torch.where(walked, s, float("-inf"))
     m = torch.clamp(s.amax(dim=-1), min=FILL)
@@ -115,7 +153,7 @@ def paged_decode_attention_plain(
     return acc, m, l
 
 
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 \
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -133,19 +171,24 @@ def paged_decode_attention(
         allowed: torch.Tensor, *, scale: float,
         k_scales: Optional[torch.Tensor] = None,
         v_scales: Optional[torch.Tensor] = None,
+        visible: Optional[torch.Tensor] = None,
+        visible_cnt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Online-softmax partials over one layer's paged K/V: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors. Counts
-    its launches in ``paged_decode_attention.launches``."""
+    """Online-softmax partials over one layer's paged K/V, on the prefix
+    walk or, given ``visible``/``visible_cnt``, the visible walk: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Counts its launches in ``paged_decode_attention.launches`` (prefix)
+    and ``paged_decode_attention.visible_launches`` (visible)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, block_tables, pos, allowed, scale=scale,
-            k_scales=k_scales, v_scales=v_scales)
+            k_scales=k_scales, v_scales=v_scales, visible=visible,
+            visible_cnt=visible_cnt)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
     _validate(q, k_pages, v_pages, block_tables, pos, allowed, k_scales,
-              v_scales)
+              v_scales, visible, visible_cnt)
     b, heads, dh = q.shape
     page_size = k_pages.shape[2]
     if dh not in SUPPORTED_DIM_HEADS:
@@ -160,6 +203,8 @@ def paged_decode_attention(
     tensors = [q, k_pages, v_pages, block_tables, pos, allowed]
     if k_scales is not None:
         tensors += [k_scales, v_scales]
+    if visible is not None:
+        tensors += [visible, visible_cnt]
     if any(t.device != q.device for t in tensors):
         raise ValueError("every input must lie on q's device")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
@@ -168,10 +213,13 @@ def paged_decode_attention(
     bt = block_tables.to(torch.int32).contiguous()
     pos32 = pos.to(torch.int32).contiguous()
     ok = allowed.to(torch.bool).contiguous()
-    ksc = vsc = None
+    ksc = vsc = vis = cnt = None
     if k_scales is not None:
         ksc = k_scales.to(torch.float32).contiguous()
         vsc = v_scales.to(torch.float32).contiguous()
+    if visible is not None:
+        vis = visible.to(torch.int32).contiguous()
+        cnt = visible_cnt.to(torch.int32).contiguous()
     acc = torch.empty((b, heads, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((b, heads), dtype=torch.float32, device=q.device)
     l = torch.empty((b, heads), dtype=torch.float32, device=q.device)
@@ -181,14 +229,74 @@ def paged_decode_attention(
         None if ksc is None else ksc.data_ptr(),
         None if vsc is None else vsc.data_ptr(),
         bt.data_ptr(), pos32.data_ptr(), ok.data_ptr(),
+        None if vis is None else vis.data_ptr(),
+        None if cnt is None else cnt.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, heads, dh, page_size, bt.shape[1], ok.shape[1], float(scale),
+        b, heads, dh, page_size, bt.shape[1], ok.shape[1],
+        0 if vis is None else vis.shape[1], float(scale),
         q_code, kv_code, stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
                            f"with CUDA error {rc}")
-    paged_decode_attention.launches += 1
+    if vis is None:
+        paged_decode_attention.launches += 1
+    else:
+        paged_decode_attention.visible_launches += 1
     return acc, m, l
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.visible_launches = 0
+
+
+def kv_row_bytes(dim_head: int, itemsize: int,
+                 quantized: bool = False) -> int:
+    """Bytes a walk reads for one cached row of one head: its K and V
+    vectors, plus one f32 scale each for int8 pages."""
+    return 2 * dim_head * itemsize + (2 * 4 if quantized else 0)
+
+
+def modeled_kv_read_bytes_per_token(*, depth: int, heads: int,
+                                    dim_head: int, total_len: int,
+                                    page_size: int, prompt_len: int,
+                                    itemsize: int, impl: str,
+                                    quantized: bool = False,
+                                    sparse_reads: bool = False,
+                                    sparse_pattern=None,
+                                    sparse_block: int = 16,
+                                    causal: bool = True) -> float:
+    """K/V bytes read per decoded token for one slot, averaged over the
+    decode span ``[prompt_len, total_len)``, K and V both counted (plus
+    one f32 scale per row each for int8 pages). ``impl='gather'`` reads
+    the full ``total_len`` view every step, ``'kernel'`` the
+    ``ceil(pos / page_size)`` mapped pages. With ``sparse_reads`` (and
+    the per-layer ``sparse_pattern``) sparse layers read only their
+    visible pages: the kernel its token-causal visible count per
+    position, the gather the fixed visible width ``W``."""
+    row = kv_row_bytes(dim_head, itemsize, quantized)
+    span = range(int(prompt_len), int(total_len))
+    if impl == "gather":
+        rows = float(total_len)
+    elif impl == "kernel":
+        rows = (sum(-(-p // page_size) for p in span)   # ceil(pos/ps)
+                * page_size / max(len(span), 1))
+    else:
+        raise ValueError(f"impl must be 'gather' or 'kernel', got "
+                         f"{impl!r}")
+    if not sparse_reads:
+        return depth * heads * rows * row
+    if sparse_pattern is None or len(sparse_pattern) != depth:
+        raise ValueError("sparse_reads=True needs the per-layer "
+                         "sparse_pattern (length == depth) to split "
+                         "dense from sparse layer reads")
+    from dalle_pytorch_tpu_torch.ops import sparse as sparse_ops
+    vis, _cnt, cnt_causal = sparse_ops.visible_pages_causal(
+        total_len, page_size, sparse_block, causal=causal)
+    if impl == "gather":
+        rows_sparse = float(vis.shape[1] * page_size)
+    else:
+        rows_sparse = (sum(int(cnt_causal[p]) for p in span)
+                       * page_size / max(len(span), 1))
+    n_sparse = sum(bool(s) for s in sparse_pattern)
+    return heads * row * ((depth - n_sparse) * rows
+                          + n_sparse * rows_sparse)

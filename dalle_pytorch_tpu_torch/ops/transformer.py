@@ -8,9 +8,19 @@ or train mode. In train mode each layer draws its two dropout keys from
 ``split(rng, (depth, 2))`` as ``_layer_keys`` does, so the masks are
 JAX's bit for bit. ``attn_impl='flash'`` runs the flash kernels
 (``ops/flash_attention.py``) with the backward ``attn_bwd_impl`` names.
-Reversible blocks, Mixture-of-Experts, block-sparse layers and
-rematerialisation are later slices; a config asking for them raises
-``NotImplementedError`` instead of silently running a different model.
+
+Block-sparse layers (``sparse_attn``, a bool or one flag per layer) run
+``sparse_impl``: ``'ref'`` the dense oracle and ``'windowed'`` the
+structured path (``ops/sparse.py``), or ``'pallas'`` kernel K3
+(``ops/block_sparse.py``); dense layers keep ``attn_impl``. A sparse
+layer pads its sequence to a ``sparse_block`` multiple, masks the pad
+keys and drops the pad rows (``attn_branch``, JAX ``:187-227``). The
+layers run one after another, so the dense/sparse choice is a Python
+bool per layer; ``_pattern_period`` and ``_MAX_UNROLL_PERIOD`` are kept
+for the serving engine's sparse reads, which need a periodic pattern.
+Reversible blocks, Mixture-of-Experts and rematerialisation are later
+slices; a config asking for them raises ``NotImplementedError`` instead
+of silently running a different model.
 """
 
 from __future__ import annotations
@@ -22,8 +32,12 @@ import torch
 from torch import nn
 
 from dalle_pytorch_tpu_torch.ops import attention as attn_ops
+from dalle_pytorch_tpu_torch.ops import block_sparse as block_sparse_ops
 from dalle_pytorch_tpu_torch.ops import core, prng
 from dalle_pytorch_tpu_torch.ops import flash_attention as flash_ops
+from dalle_pytorch_tpu_torch.ops import sparse as sparse_ops
+
+SPARSE_IMPLS = ("ref", "windowed", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +52,9 @@ class TransformerConfig:
     attn_dropout: float = 0.0
     ff_dropout: float = 0.0
     reversible: bool = False
+    # per-layer dense/sparse selection: a bool or a tuple of len depth
     sparse_attn: Union[bool, Tuple[bool, ...]] = False
+    sparse_block: int = 16
     attn_impl: str = "xla"      # 'xla' | 'flash'
     # flash backward: 'xla' blockwise loop | 'pallas' K2a + K2b split |
     # 'pallas_fused' K2b fused; only read with attn_impl='flash'
@@ -47,6 +63,7 @@ class TransformerConfig:
     # plain blockwise backward walks flash_block_k key columns at a time
     flash_block_q: int = 128
     flash_block_k: int = 128
+    sparse_impl: str = "ref"    # 'ref' | 'windowed' | 'pallas'
     # reference uses dim**-0.5 (transformer.py:57); 'head' gives dim_head**-0.5
     scale_mode: str = "dim"
     remat: str = "none"
@@ -70,10 +87,12 @@ class TransformerConfig:
         if self.moe_experts:
             raise NotImplementedError(
                 "Mixture-of-Experts layers are a later slice of the port")
-        if any(self.sparse_pattern):
-            raise NotImplementedError(
-                "block-sparse layers (kernel K3) are a later slice of the "
-                "port")
+        if self.sparse_impl not in SPARSE_IMPLS:
+            raise ValueError(f"unknown sparse impl {self.sparse_impl!r}; "
+                             f"expected one of {SPARSE_IMPLS}")
+        if len(self.sparse_pattern) != self.depth:
+            raise ValueError(f"sparse_attn has {len(self.sparse_pattern)} "
+                             f"flags for depth {self.depth}")
         if self.scale_mode not in ("dim", "head"):
             raise ValueError(f"scale_mode must be 'dim' or 'head', got "
                              f"{self.scale_mode!r}")
@@ -133,16 +152,68 @@ def ff_branch(layer: Layer, x: torch.Tensor,
     return core.linear(p.w2, h)
 
 
+def sparse_fn(p: attn_ops.Attention, h: torch.Tensor,
+              mask: Optional[torch.Tensor], cfg: TransformerConfig,
+              key: Optional[torch.Tensor] = None,
+              train: bool = False) -> torch.Tensor:
+    """A block-sparse layer's attention on the normed input ``h``: pad to
+    a ``sparse_block`` multiple, mask the pad keys, project, attend with
+    ``cfg.sparse_impl``, drop the pad rows, then the output tail (the
+    reference's SparseAttention padding contract)."""
+    b, n, _ = h.shape
+    block = cfg.sparse_block
+    pad = (-n) % block
+    kp_mask = mask
+    if pad:
+        h = torch.cat([h, h.new_zeros((b, pad, h.shape[2]))], dim=1)
+        if kp_mask is None:
+            kp_mask = torch.ones((b, n), dtype=torch.bool, device=h.device)
+        kp_mask = torch.cat([kp_mask.bool(), kp_mask.new_zeros(
+            (b, pad), dtype=torch.bool)], dim=1)
+    q, k, v = attn_ops.qkv_project(p, h, cfg.heads)
+    kw = dict(scale=cfg.scale, causal=cfg.causal, mask=kp_mask, block=block)
+    if cfg.sparse_impl == "pallas":
+        out = block_sparse_ops.block_sparse_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    elif cfg.sparse_impl == "windowed":
+        out = sparse_ops.sparse_attention_windowed(q, k, v, **kw)
+    else:
+        out = sparse_ops.sparse_attention_ref(q, k, v, **kw)
+    return attn_ops.output_tail(p, out[:, :, :n],
+                                dropout_rate=cfg.attn_dropout,
+                                dropout_key=key, train=train)
+
+
 def attn_branch(layer: Layer, x: torch.Tensor, mask: Optional[torch.Tensor],
                 cfg: TransformerConfig, key: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, *, is_sparse: bool = False
+                ) -> torch.Tensor:
+    """PreNorm attention: the layer's ``sparse_fn`` when ``is_sparse``,
+    else dense attention with ``cfg.attn_impl``."""
     p = layer.attn
+    h = core.layernorm(p.ln, x)
+    if is_sparse:
+        return sparse_fn(p, h, mask, cfg, key, train)
     return attn_ops.attention_apply(
-        p, core.layernorm(p.ln, x), heads=cfg.heads, scale=cfg.scale,
+        p, h, heads=cfg.heads, scale=cfg.scale,
         causal=cfg.causal, mask=mask, dropout_rate=cfg.attn_dropout,
         dropout_key=key, train=train, impl=cfg.attn_impl,
         bwd_impl=cfg.attn_bwd_impl, block_q=cfg.flash_block_q,
         block_k=cfg.flash_block_k)
+
+
+# the largest dense/sparse pattern period the JAX stack unrolls; the
+# serving engine's sparse reads need a pattern at most this periodic
+_MAX_UNROLL_PERIOD = 4
+
+
+def _pattern_period(pattern: Tuple[bool, ...]) -> int:
+    """Smallest p with pattern == pattern[:p] * (len / p)."""
+    depth = len(pattern)
+    for p in range(1, depth + 1):
+        if depth % p == 0 and pattern == pattern[:p] * (depth // p):
+            return p
+    return depth
 
 
 def _layer_keys(rng: Optional[torch.Tensor], depth: int,
@@ -168,7 +239,9 @@ def transformer_apply(model: Transformer, x: torch.Tensor, *,
             "explicit `rng` key")
     keys = (_layer_keys(rng, cfg.depth, x.device) if train
             else [(None, None)] * cfg.depth)
-    for layer, lkeys in zip(model.layers, keys):
-        x = x + attn_branch(layer, x, mask, cfg, lkeys[0], train)
+    for layer, lkeys, is_sparse in zip(model.layers, keys,
+                                       cfg.sparse_pattern):
+        x = x + attn_branch(layer, x, mask, cfg, lkeys[0], train,
+                            is_sparse=is_sparse)
         x = x + ff_branch(layer, x, cfg, lkeys[1], train)
     return x

@@ -25,6 +25,9 @@ slot's block table in place.
 * Admission is gated on free pages for the prompt span, and before each
   chunk ``_map_ahead`` maps every page the K steps could write, so a
   page-boundary crossing never needs a host round trip.
+* ``sparse_reads=True`` (a model with block-sparse layers, in a periodic
+  pattern) makes each sparse layer read only its statically visible
+  pages through K4's visible walk; the tokens do not change.
 
 Equivalence contract (tests/test_torch_engine.py): for the same weights,
 prompt, seed and sampling knobs, a slot's tokens equal the JAX engine's
@@ -33,8 +36,8 @@ embedding, head and per-slot sampler with the same key discipline.
 
 Left for later slices (see ROADMAP.md): eviction (so the pool must hold
 ``num_slots`` full sequences), prefix cache, classifier-free-guidance
-pairs, speculative decode, sparse reads, int8 weights, meshes, live
-migration, profiling and fencing.
+pairs, speculative decode, int8 weights, meshes, live migration,
+profiling and fencing.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import torch
 from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.ops import decode as decode_ops
+from dalle_pytorch_tpu_torch.ops import paged_attention as PA
 from dalle_pytorch_tpu_torch.ops import prng
 from dalle_pytorch_tpu_torch.serve import kv_pool as KV
 from dalle_pytorch_tpu_torch.serve import scheduler as S
@@ -99,6 +103,7 @@ class Engine:
                  page_size: int = 16,
                  num_pages: int = 0,
                  quantize_cache: bool = False,
+                 sparse_reads: bool = False,
                  complete: Optional[Callable] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  device=None):
@@ -129,6 +134,9 @@ class Engine:
                     f"prefill_buckets must be >= 1 and end at "
                     f"text_seq_len ({cfg.text_seq_len}), got {buckets}")
         self.buckets = buckets
+        self.sparse_reads = bool(sparse_reads)
+        if self.sparse_reads:
+            decode_ops.check_sparse_reads(cfg.transformer)
 
         self.total_len = cfg.seq_len
         self.page_size = int(page_size)
@@ -145,6 +153,19 @@ class Engine:
         self.pool = KV.init_page_pool(
             cfg.transformer, self.num_pages, self.page_size, dtype=param.dtype,
             quantized=self.quantize_cache, device=self.device)
+        # modeled K/V read bytes per decoded token (config-static), with
+        # this engine's reads and with dense reads: their ratio is what
+        # sparse reads save
+        tcfg = cfg.transformer
+        self.kv_read_bytes = {sr: PA.modeled_kv_read_bytes_per_token(
+            depth=tcfg.depth, heads=tcfg.heads, dim_head=tcfg.dim_head,
+            total_len=self.total_len, page_size=self.page_size,
+            prompt_len=min(self.buckets),
+            itemsize=self.pool["k"].element_size(), impl="kernel",
+            quantized=self.quantize_cache, sparse_reads=sr,
+            sparse_pattern=tcfg.sparse_pattern if sr else None,
+            sparse_block=tcfg.sparse_block, causal=tcfg.causal)
+            for sr in {False, self.sparse_reads}}
         self.alloc = KV.PageAllocator(self.num_pages)
         self._bt_host = np.zeros((S_, self.slot_max_pages), np.int32)
         self.block_tables = self._put(self._bt_host)
@@ -255,7 +276,8 @@ class Engine:
             model.transformer, self.cur_tok, self.pos, self.active,
             self.pool, self.block_tables, cfg=cfg.transformer,
             key_mask=self.key_mask, steps=self.chunk_steps,
-            embed_fn=embed_fn, sample_fn=sample_fn)
+            embed_fn=embed_fn, sample_fn=sample_fn,
+            sparse_reads=self.sparse_reads)
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -483,4 +505,9 @@ class Engine:
                 "expired": self.expired,
                 "active_slots": self.active_slots(),
                 "pages_in_use": self.alloc.in_use,
-                "pages_peak": self.alloc.peak_in_use}
+                "pages_peak": self.alloc.peak_in_use,
+                "sparse_reads": self.sparse_reads,
+                "kv_read_bytes_per_token":
+                    self.kv_read_bytes[self.sparse_reads],
+                "kv_read_bytes_per_token_dense_reads":
+                    self.kv_read_bytes[False]}

@@ -2,8 +2,9 @@
 
 Port of ``dalle_pytorch_tpu/serve/kv_pool.py``: ``pages_for``
 (``:141``), ``init_page_pool`` (``:146``), the kernel's page-size gate
-``validate_page_size`` with ``PageSizeError`` (``:74-106``), and the
-refcounted ``PageAllocator`` (``:232``).
+``validate_page_size`` with ``PageSizeError`` (``:74-106``),
+``visible_table_view`` (``:165``) and the refcounted ``PageAllocator``
+(``:232``).
 
 The device side is a pool ``(depth, num_pages, heads, page_size,
 dim_head)`` per K and V (int8 plus per-row float32 scale pages when
@@ -101,6 +102,17 @@ def init_page_pool(cfg, num_pages: int, page_size: int, *,
                 "v_scale": torch.zeros(shape[:-1], device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def visible_table_view(block_tables: torch.Tensor,
+                       visible: torch.Tensor) -> torch.Tensor:
+    """Visibility-trimmed block tables: row i lists the PHYSICAL pages
+    behind slot i's visible logical pages ``visible`` (b, W), the
+    per-position list ``ops.sparse.visible_pages`` precomputes, taken at
+    each slot's position. Entries past the visible count map whatever
+    the padding entries map (logical page 0): consumers mask those
+    columns — the view narrows the read, the mask decides attendance."""
+    return torch.take_along_dim(block_tables, visible.long(), dim=1)
 
 
 class PageAllocator:

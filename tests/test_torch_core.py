@@ -188,7 +188,7 @@ def test_transformer_stack_matches_jax(jax_trees, port):
 
 @pytest.mark.parametrize("option", [dict(reversible=True),
                                     dict(moe_experts=4),
-                                    dict(sparse_attn=True)])
+                                    dict(remat="full")])
 def test_later_slice_options_raise(option):
     with pytest.raises(NotImplementedError):
         TD.DALLEConfig(dim=32, depth=2, vae=TVCFG, **option)
@@ -323,3 +323,27 @@ def test_seeded_init_is_deterministic_and_ties_the_codebook():
     assert torch.equal(a.image_emb.weight, vae.codebook.weight)
     c = TD.dalle_init(TCFG, seed=3, device="cpu")
     assert not torch.equal(a.text_emb.weight, c.text_emb.weight)
+
+
+def test_kernel_library_hash_covers_every_shared_header(tmp_path,
+                                                        monkeypatch):
+    """Every quoted include of a kernel source is a ``csrc/*.cuh`` header,
+    and editing such a header renames every kernel's library, so a stale
+    build is never loaded."""
+    import re
+    import shutil
+
+    from dalle_pytorch_tpu_torch.ops import build
+    for src in build.SOURCES.values():
+        for inc in re.findall(r'#include "([^"]+)"',
+                              (build.CSRC / src).read_text()):
+            assert inc.endswith(".cuh") and (build.CSRC / inc).is_file(), inc
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.SOURCES}
+    header = csrc / "tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build.library_path(name) for name in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)
+    assert len(set(after.values())) == len(build.SOURCES)

@@ -16,6 +16,13 @@ The flash kernels (K1, K2a, K2b) against their plain versions: float32
 with atomics in an order that changes from run to run; bfloat16 to
 rtol/atol 2e-2, one bf16 rounding of the output (2^-8 relative) on
 either side plus the f32 differences.
+
+The block-sparse kernel K3 against its plain version with the same
+tolerances as the flash kernels (f32 2e-4, bf16 2e-2; l to 1e-4), its
+gradients through both backward routes against autograd through
+``sparse_attention_ref`` to 2e-4 in f32; K4's visible walk against its
+plain version and against the prefix walk over the same fully masked
+rows, with K4's tolerances.
 """
 
 import numpy as np
@@ -24,9 +31,11 @@ import torch
 
 from dalle_pytorch_tpu_torch.models import dalle as TD
 from dalle_pytorch_tpu_torch.models import vae as TV
+from dalle_pytorch_tpu_torch.ops import block_sparse as BS
 from dalle_pytorch_tpu_torch.ops import decode as TDEC
 from dalle_pytorch_tpu_torch.ops import flash_attention as FA
 from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+from dalle_pytorch_tpu_torch.ops import sparse as SP
 
 SCALE = 512 ** -0.5
 
@@ -244,3 +253,154 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     t = torch.zeros((1, 1, 64, 16), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_attention_fwd(t, t, t, scale=1.0, causal=True)
+
+
+# -- block-sparse attention: K3 ---------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,block", [(48, 16), (200, 16), (256, 16),
+                                     (160, 8)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_kernel_matches_plain(cuda, dtype, d, n, block, masked,
+                                           causal):
+    dtype = getattr(torch, dtype)
+    q, k, v, _, mask = flash_inputs(cuda, dtype, n, d, masked)
+    kw = dict(scale=d ** -0.5, causal=causal, block=block, mask=mask)
+    before = BS.block_sparse_attention_fwd.launches
+    out, m, l = BS.block_sparse_attention_fwd(q, k, v, **kw)
+    assert BS.block_sparse_attention_fwd.launches == before + 1
+    out_p, m_p, l_p = BS.block_sparse_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(out, out_p, dtype)
+    assert_flash_close(m, m_p, dtype)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block_qk", [(256, 128), (160, 128), (256, 96)])
+def test_block_sparse_grads_match_autograd_of_ref(cuda, n, block_qk):
+    """(256, 128) takes the static backward, the others the blockwise
+    scan."""
+    q, k, v, do, mask = flash_inputs(cuda, torch.float32, n, 64, True)
+    mask = torch.ones_like(mask)
+    mask[1, n - 20:] = False                   # pad keys at the tail
+    grads = {}
+    for impl in ("ref", "kernel"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        if impl == "ref":
+            out = SP.sparse_attention_ref(*leaves, scale=0.125, causal=True,
+                                          block=16, mask=mask)
+        else:
+            out = BS.block_sparse_attention(*leaves, scale=0.125, causal=True,
+                                            block=16, mask=mask,
+                                            block_q=block_qk,
+                                            block_k=block_qk)
+        (out * do).sum().backward()
+        grads[impl] = [t.grad for t in leaves]
+    for got, want in zip(grads["kernel"], grads["ref"]):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_block_sparse_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 1, 16, 48), device=cuda)
+    with pytest.raises(ValueError, match="dim_head"):
+        BS.block_sparse_attention_fwd(q, q, q, scale=1.0, causal=True)
+    q = torch.zeros((1, 1, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="global blocks"):
+        BS.block_sparse_attention_fwd(q, q, q, scale=1.0, causal=True,
+                                      global_blocks=tuple(range(9)))
+
+
+# -- K4's visible walk ------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_visible_walk_matches_plain_and_prefix_walk(cuda, dtype):
+    rs = np.random.RandomState(5)
+    page_size, heads, dh, L = 16, 3, 64, 1280
+    mp = L // page_size
+    pos = torch.tensor([0, 1, 15, 16, 17, 63, 64, 65, 1279],
+                       dtype=torch.int32)
+    slots = len(pos)
+    P = slots * mp + 1
+    bt = torch.tensor(rs.permutation(P - 1) + 1).reshape(slots, mp) \
+        .to(torch.int32)
+    vis, _, ccnt = SP.visible_pages_causal(L, page_size, 16)
+    layout = torch.tensor(SP.token_layout_mask(L, 16))
+    allowed = (torch.arange(L)[None] < pos[:, None]) & layout[pos.long()]
+    allowed[4, 3] = False
+    q = torch.tensor(rs.randn(slots, heads, dh), dtype=torch.float32)
+    shape = (P, heads, page_size, dh)
+    kw = {}
+    if dtype == "int8":
+        kp = torch.tensor(rs.randint(-127, 128, shape), dtype=torch.int8)
+        vp = torch.tensor(rs.randint(-127, 128, shape), dtype=torch.int8)
+        kw = {"k_scales": torch.tensor(rs.uniform(0.01, 0.1, shape[:-1]),
+                                       dtype=torch.float32),
+              "v_scales": torch.tensor(rs.uniform(0.01, 0.1, shape[:-1]),
+                                       dtype=torch.float32)}
+        q = q.to(torch.bfloat16)
+    else:
+        dt = getattr(torch, dtype)
+        q = q.to(dt)
+        kp = torch.tensor(rs.randn(*shape), dtype=torch.float32).to(dt)
+        vp = torch.tensor(rs.randn(*shape), dtype=torch.float32).to(dt)
+    args = [t.to(cuda) for t in (q, kp, vp, bt, pos, allowed)]
+    kw = {k: v.to(cuda) for k, v in kw.items()}
+    walk = dict(visible=torch.tensor(vis[pos.numpy()]).to(cuda),
+                visible_cnt=torch.tensor(ccnt[pos.numpy()]).to(cuda))
+    before = (PA.paged_decode_attention.launches,
+              PA.paged_decode_attention.visible_launches)
+    got = PA.paged_decode_attention(*args, scale=SCALE, **kw, **walk)
+    prefix = PA.paged_decode_attention(*args, scale=SCALE, **kw)
+    assert (PA.paged_decode_attention.launches,
+            PA.paged_decode_attention.visible_launches) == (
+                before[0] + 1, before[1] + 1)
+    want = PA.paged_decode_attention_plain(*args, scale=SCALE, **kw, **walk)
+    mag = PA.paged_decode_attention_plain(args[0], args[1], args[2].abs(),
+                                          *args[3:], scale=SCALE, **kw,
+                                          **walk)[0]
+    torch.cuda.synchronize()
+    rtol = 1e-2 if dtype == "bfloat16" else 1e-5
+    atol = {"float32": 1e-5, "bfloat16": 1e-2, "int8": 1e-4}[dtype]
+    check_partials(got, want, mag, rtol, atol)
+    check_partials(prefix, want, mag, rtol, atol)
+    assert float(got[1][0, 0]) == PA.FILL
+    assert float(got[2][0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_sparse_reads_step_kernel_matches_gather_on_card(cuda):
+    vcfg = TV.VAEConfig(image_size=16, num_tokens=32, codebook_dim=32,
+                        num_layers=2, hidden_dim=8)
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
+                         text_seq_len=8, heads=2, dim_head=16,
+                         sparse_attn=(True, False), sparse_block=4)
+    model = TD.dalle_init(cfg, seed=0, device=cuda)
+    L, ps = cfg.seq_len, 8
+    mp = L // ps
+    g = torch.Generator(device=cuda).manual_seed(1)
+    shape = (2, 2 * mp + 1, 2, ps, 16)
+    pool = {"k": torch.randn(shape, generator=g, device=cuda),
+            "v": torch.randn(shape, generator=g, device=cuda)}
+    bt = (torch.arange(2 * mp, device=cuda) + 1).reshape(2, mp) \
+        .to(torch.int32)
+    pos = torch.tensor([L - 1, 17], dtype=torch.int32, device=cuda)
+    x = torch.randn((2, 32), generator=g, device=cuda)
+    key_mask = torch.ones((2, L), dtype=torch.bool, device=cuda)
+    kw = dict(cfg=cfg.transformer, key_mask=key_mask, block_tables=bt,
+              sparse_reads=True)
+    before = PA.paged_decode_attention.visible_launches
+    with torch.no_grad():
+        hk, _, _ = TDEC._decode_step_math(model.transformer, x, pos, pool,
+                                          **kw)
+        hg, _, _ = TDEC._decode_step_math(model.transformer, x, pos, pool,
+                                          attn_impl="gather", **kw)
+    assert PA.paged_decode_attention.visible_launches == before + 1
+    torch.testing.assert_close(hk, hg, rtol=1e-4, atol=1e-4)
