@@ -8,8 +8,9 @@ full width of the repo's north DALLE configuration (``bench.py``
 image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
 
 1. build  — compile every CUDA kernel from ``csrc/`` with nvcc (sm_90a),
-   one nvcc per source, all at once; print the card's name and power
-   limit;
+   one nvcc per source, all at once; print the tensor-core kernels'
+   ``-Xptxas -v`` lines (registers, shared memory, spills) and the
+   card's name and power limit;
 2. kernel — paged-attention kernel K4 against its plain PyTorch version
    at the serving shapes (8 slots, 8 heads, dh 64, page 16, L 1280),
    ragged positions including 0, 1, 15, 16, 17 and 1279, random data in
@@ -35,10 +36,12 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    scale 512 ** -0.5), in bfloat16 and float32 (TF32 off), with the
    all-True mask training uses and with a text-padding mask (fully padded
    query rows included): float32 to rtol/atol 2e-4, bfloat16 to 2e-2,
-   l to rtol/atol 1e-4 (see ``flash_tolerances``); timed with CUDA
-   events and torch.profiler beside the plain version, the bound, and
-   ``F.scaled_dot_product_attention`` (forward, and forward + backward)
-   as the library yardstick at the all-True mask;
+   l to rtol/atol 1e-4 (see ``flash_tolerances``); each record names
+   the body that ran for each call (tensor cores: bfloat16 K1 and K2b
+   split; CUDA cores: the rest), from the kernels the profiler saw;
+   timed with CUDA events and torch.profiler beside the plain version,
+   the bound, and ``F.scaled_dot_product_attention`` (its forward, and
+   its backward alone) as the library yardstick at the all-True mask;
 6. train  — the north config's training step (bfloat16 params, batch 8,
    ``loss_chunk`` 256, flash attention with the split kernel backward,
    dropout 0.1, Adam lr 1e-4): random 256 px images through the VAE
@@ -186,12 +189,26 @@ def north_cfg():
                          text_seq_len=256, heads=8, dim_head=64)
 
 
+def ptxas_lines(log: str, part: str) -> dict:
+    """{kernel: its ``-Xptxas -v`` lines (stack, spills; registers, shared
+    memory)} for the kernels whose (mangled) name holds ``part``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if part in line else None
+        elif name and ("spill" in line or "Used" in line):
+            out.setdefault(name, []).append(line.strip())
+    return out
+
+
 def phase_build() -> str:
     from dalle_pytorch_tpu_torch.ops import build
     t0 = time.perf_counter()
     libs = build.build_all()
     emit(phase="build", ok=True, seconds=time.perf_counter() - t0,
-         libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()})
+         libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()},
+         wgmma_ptxas=ptxas_lines(build.build_log("flash_attention"),
+                                 "wgmma"))
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -639,24 +656,43 @@ def flash_bound(kind: str, dtype, b, h, n, d) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-# which device kernel each flash call launches: (name part, template part)
-FLASH_KERNELS = {"fwd": ("flash_fwd_kernel", ""),
-                 "dq": ("flash_bwd_dq_kernel", ""),
-                 "dkv": ("flash_bwd_dkv_kernel", "false>"),
-                 "fused": ("flash_bwd_dkv_kernel", "true>")}
+# which device kernels each flash call may launch, as (name part,
+# template part): bfloat16 K1 and K2b split run the tensor-core bodies
+# (``*_wgmma_kernel``), every other call a CUDA-core body
+FLASH_KERNELS = {"fwd": (("flash_fwd_wgmma_kernel", ""),
+                         ("flash_fwd_kernel", "")),
+                 "dq": (("flash_bwd_dq_kernel", ""),),
+                 "dkv": (("flash_bwd_dkv_wgmma_kernel", ""),
+                         ("flash_bwd_dkv_kernel", "false>")),
+                 "fused": (("flash_bwd_dkv_kernel", "true>"),)}
+
+
+def is_flash_kernel(kind: str, name: str) -> bool:
+    return any(part in name and variant in name
+               for part, variant in FLASH_KERNELS[kind])
+
+
+def flash_body(names) -> str:
+    """Which body the kernels ``names`` are: tensor cores or CUDA cores."""
+    if not names:
+        return "not measured"
+    return ("tensor cores (wgmma)" if any("wgmma" in k for k in names)
+            else "CUDA cores")
 
 
 def flash_device_us(calls: dict, iters: int = 8, warm: int = 4,
-                    attempts: int = 3) -> dict:
+                    attempts: int = 3) -> tuple:
     """Each flash kernel's device time per launch from torch.profiler,
-    averaged over the launches a session recorded. A profiler session
-    now and then comes back without the records of its first few
-    milliseconds, so each session opens with ``warm`` launches of every call
-    before ``iters`` more of each, and the calls still unmeasured are
-    profiled again, up to ``attempts`` sessions; what is still missing
-    is reported as not measured."""
+    averaged over the launches a session recorded, and the names of the
+    kernels recorded for each call. A profiler session now and then
+    comes back without the records of its first few milliseconds, so
+    each session opens with ``warm`` launches of every call before
+    ``iters`` more of each, and the calls still unmeasured are profiled
+    again, up to ``attempts`` sessions; what is still missing is
+    reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
     out = {kind: "not measured" for kind in calls}
+    names = {kind: [] for kind in calls}
     for _ in range(attempts):
         todo = [kind for kind, us in out.items() if isinstance(us, str)]
         if not todo:
@@ -672,13 +708,34 @@ def flash_device_us(calls: dict, iters: int = 8, warm: int = 4,
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
         for kind in todo:
-            name, variant = FLASH_KERNELS[kind]
-            hits = [(us, n) for k, (us, n) in kernels.items()
-                    if name in k and variant in k]
-            n = sum(c for _, c in hits)
+            hits = [(k, us, n) for k, (us, n) in kernels.items()
+                    if is_flash_kernel(kind, k)]
+            n = sum(c for _, _, c in hits)
             if n:
-                out[kind] = sum(us for us, _ in hits) / n
-    return out
+                out[kind] = sum(us for _, us, _ in hits) / n
+                names[kind] = [k for k, _, _ in hits]
+    return out, names
+
+
+def all_device_us(fn, iters: int = 10, warm: int = 3,
+                  attempts: int = 3) -> float:
+    """Device time of every kernel ``fn`` launches, per call, from
+    torch.profiler: the session's total over the launch count of the
+    call's longest kernel (one a call), so records a session drops at
+    its start drop from both. A session that records nothing is tried
+    again, up to ``attempts``; then "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm + iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if kernels:
+            _, calls = max(kernels.values())
+            return sum(us for us, _ in kernels.values()) / calls
+    return "not measured"
 
 
 def held(what: str, got, want, rtol, atol) -> float:
@@ -721,8 +778,6 @@ def flash_case(dtype, masked: bool, timed: bool) -> dict:
     torch.cuda.synchronize()
     del dq_p, dk_p, dv_p, dq32_p
     record = {"case": name, "rtol": rtol, "atol": atol, "max_abs_err": errs}
-    if not timed:
-        return record
     calls = {
         "fwd": (lambda: FA.flash_attention_fwd(q, k, v, **kw),
                 lambda: FA.flash_attention_fwd_plain(q, k, v, **kw)),
@@ -735,7 +790,10 @@ def flash_case(dtype, masked: bool, timed: bool) -> dict:
                   lambda: FA.flash_attention_bwd_dkv_plain(
                       *args, with_dq=True, **kw)),
     }
-    device_us = flash_device_us(calls)
+    device_us, names = flash_device_us(calls, *((8, 4) if timed else (1, 1)))
+    record["bodies"] = {kind: flash_body(k) for kind, k in names.items()}
+    if not timed:
+        return record
     for kind, (kernel, plain) in calls.items():
         bms, by = flash_bound(kind, dtype, b, h, n, d)
         record[kind] = {
@@ -744,21 +802,22 @@ def flash_case(dtype, masked: bool, timed: bool) -> dict:
             "plain_ms": cuda_ms(plain, iters=3, warmup=1),
             "bound_ms": bms, "bound_by": by}
     # the library yardstick: one PyTorch call computing the same function
-    # (causal, no padding) — timed here, used nowhere in the port
+    # (causal, no padding) — timed here, used nowhere in the port. Its
+    # backward is timed alone: one forward kept with its graph, then only
+    # torch.autograd.grad, again and again
     import torch.nn.functional as F
     sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
         q, k, v, is_causal=True, scale=FLASH_SCALE)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                           scale=FLASH_SCALE)
-        torch.autograd.grad(o, leaves, do)
-
-    fwd_ms = cuda_ms(sdpa, iters=20, warmup=2)
-    both_ms = cuda_ms(sdpa_fwd_bwd, iters=20, warmup=2)
-    record["library"] = {"sdpa_fwd_ms": fwd_ms, "sdpa_fwd_bwd_ms": both_ms,
-                         "sdpa_bwd_ms": both_ms - fwd_ms}
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                       scale=FLASH_SCALE)
+    sdpa_bwd = lambda: torch.autograd.grad(   # noqa: E731
+        o, leaves, do, retain_graph=True)
+    record["library"] = {
+        "sdpa_fwd_ms": cuda_ms(sdpa, iters=20, warmup=2),
+        "sdpa_fwd_device_us": all_device_us(sdpa),
+        "sdpa_bwd_ms": cuda_ms(sdpa_bwd, iters=20, warmup=2),
+        "sdpa_bwd_device_us": all_device_us(sdpa_bwd)}
     return record
 
 
@@ -832,11 +891,12 @@ def train_profile(step, model, batch, key, steps: int = 2) -> dict:
         out["device_ms_per_step"] = "not measured"
         return out
 
-    def share(name):
-        return sum(us for k, (us, _) in kernels.items() if name in k)
+    def share(kind):
+        return sum(us for k, (us, _) in kernels.items()
+                   if is_flash_kernel(kind, k))
 
-    k1, k2a, k2b = (share(FLASH_KERNELS[k][0]) for k in ("fwd", "dq", "dkv"))
-    k3 = share("block_sparse_fwd")
+    k1, k2a, k2b = (share(k) for k in ("fwd", "dq", "dkv"))
+    k3 = sum(us for k, (us, _) in kernels.items() if "block_sparse_fwd" in k)
     device_ms = total_us / 1e3 / steps
     out.update(device_ms_per_step=device_ms,
                k3_ms_per_step=k3 / 1e3 / steps,

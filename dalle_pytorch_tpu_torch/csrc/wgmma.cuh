@@ -1,0 +1,284 @@
+// Tensor-core tile code for Hopper (sm_90a): bf16 tiles staged
+// asynchronously into shared memory in wgmma's 128-byte-swizzled layout,
+// and warpgroup matrix products (wgmma.mma_async) on them, accumulating
+// in f32 registers. Used by the bf16 bodies of flash_attention.cu's K1
+// (forward) and K2b split (dk, dv); the CUDA-core tile code of tile.cuh
+// serves every other body.
+//
+// Layout. A tile is 64 rows of D bf16 values (D = 64 or 128), one row per
+// query or key. It is stored as D / 64 column blocks of 64 rows x 128
+// bytes (8 KB each, 1024-byte aligned); inside a block, row r's 16-byte
+// chunk c lies at r * 128 + ((c ^ (r % 8)) * 16). That is the canonical
+// 128-byte-swizzle layout of wgmma for both operand orientations:
+//   * K-major (the depth, D, contiguous): Q, K, V or dO as the A or B of
+//     a score product (S = Q K^T). A 16-deep step kk reads 32 bytes of
+//     each row: block kk / 4, byte offset (kk % 4) * 32; 8-row groups
+//     1024 bytes apart (SBO).
+//   * MN-major (the output columns, D, contiguous): V, dO or Q as the B
+//     of an output product (O = P V). A 16-deep step reads 16 rows,
+//     2048 bytes on; 8-row groups 1024 bytes apart (SBO); the second
+//     64-column block of D = 128, 8 KB on (LBO).
+//
+// Register fragments (per warpgroup of 128 threads; warp w, lane
+// 4 g + t). A 64 x N f32 accumulator holds, in d[4 j + 2 h + e], row
+// 16 w + g + 8 h and column 8 j + 2 t + e. A 64 x 16 bf16 A operand
+// holds rows 16 w + g (+ 8) and columns 2 t (+ 1) and 2 t + 8 (+ 1) in
+// four 32-bit registers; columns 16 kk .. 16 kk + 15 of an accumulator
+// map onto it register for register (``a_frag``), so a product's f32
+// result becomes the next product's A without leaving registers.
+//
+// ops/build.py hashes this header with every source.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+namespace wg {
+
+constexpr int kRows = 64;                 // rows of a tile and of a wgmma
+constexpr int kThreads = 128;             // one warpgroup
+constexpr uint32_t kBlockBytes = 8192;    // 64 rows x 128 bytes
+
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() { return kRows * D * 2; }
+
+// byte offset of row r's 16-byte chunk c (c < D / 8) inside a tile
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * kBlockBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's shared-memory writes -> visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows [row0, row0 + 64) of one (n, D) bf16 head slice into the tile at
+// shared address dst, by NT threads (tid < NT); rows at or past n are
+// zero-filled
+template <int D, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int n, int tid) {
+  constexpr int kChunks = kRows * D / 8;
+  static_assert(kChunks % NT == 0, "threads must divide the tile");
+#pragma unroll
+  for (int i = 0; i < kChunks / NT; ++i) {
+    const int idx = tid + i * NT;
+    const int r = idx / (D / 8);
+    const int c = idx % (D / 8);
+    const int g = row0 + r;
+    const bool ok = g < n;
+    cp_async16(dst + swizzled(r, c),
+               src + static_cast<size_t>(ok ? g : 0) * D + c * 8, ok);
+  }
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// the tile at `tile` as a K-major operand, 16-deep step kk
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return make_desc(tile + (kk >> 2) * kBlockBytes + (kk & 3) * 32, 16, 1024);
+}
+
+// the tile at `tile` as an MN-major B operand, 16-deep step kk (rows
+// 16 kk .. 16 kk + 15)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 2048, kBlockBytes, 1024);
+}
+
+__device__ __forceinline__ void mma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed product groups are in flight (they complete
+// in order)
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// an asynchronous product that owns it
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64 f32) = A B^T (+ d if accumulate): A (64 x 16) and B
+// (64 x 16) K-major bf16 in shared memory
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += A B: A (64 x 16 bf16) from registers (``a_frag``),
+// B (16 x 64) MN-major in shared memory
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128 f32) += A B: A (64 x 16 bf16) from registers (``a_frag``),
+// B (16 x 128) MN-major in shared memory
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// two f32 -> one register of two bf16 (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// columns 16 kk .. 16 kk + 15 of a 64 x 64 f32 accumulator, rounded to
+// bf16, as the A operand of the next product
+__device__ __forceinline__ void a_frag(const float (&s)[32], int kk,
+                                       uint32_t (&a)[4]) {
+  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// 2^x by the special-function unit (relative error ~2^-22; -inf gives 0,
+// results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// reductions over the 4 lanes (t = 0..3) that share an accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the pad flags of a 64-row window, in two steps so that the loads can be
+// issued a tile ahead: mask_flags gives this lane's two (bit 0: row
+// row0 + lane, bit 1: row0 + 32 + lane; 0 at or past n), mask_bits the
+// warp's 64-bit word (bit c: row row0 + c), the same in every lane
+__device__ __forceinline__ uint32_t mask_flags(const uint8_t* mask_row,
+                                               int row0, int n, int lane) {
+  const int a = row0 + lane, b = row0 + 32 + lane;
+  return (a < n && mask_row[a]) | (b < n && mask_row[b]) << 1;
+}
+__device__ __forceinline__ uint64_t mask_bits(uint32_t flags) {
+  const unsigned lo = __ballot_sync(0xffffffffu, flags & 1);
+  const unsigned hi = __ballot_sync(0xffffffffu, flags & 2);
+  return static_cast<uint64_t>(hi) << 32 | lo;
+}
+
+}  // namespace wg
+}  // namespace

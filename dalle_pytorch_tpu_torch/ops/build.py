@@ -7,8 +7,10 @@ PyTorch headers, so a build takes seconds, not minutes). The library's
 file name carries a hash of its source and of the headers the sources
 share (``csrc/*.cuh``), so an edited kernel is rebuilt
 and a stale one is never loaded. ``build_all`` starts one nvcc per
-source, all at once, and waits for them together. Nothing here runs at
-import time.
+source, all at once, and waits for them together; each library keeps
+its compiler output (``-Xptxas -v``: registers, shared memory and
+spills of every kernel) beside it, for ``build_log``. Nothing here runs
+at import time.
 
     python -m dalle_pytorch_tpu_torch.ops.build     # build every kernel
 """
@@ -32,7 +34,7 @@ SOURCES: Dict[str, str] = {"paged_attention": "paged_attention.cu",
                            "flash_attention": "flash_attention.cu",
                            "block_sparse": "block_sparse.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -80,10 +82,18 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             os.unlink(tmp)
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
+            out[name].with_suffix(".log").write_text(log)
             os.replace(tmp, out[name])    # atomic: a racing build just wins
     if failures:
         raise RuntimeError("kernel build failed: " + "\n".join(failures))
     return out
+
+
+def build_log(name: str) -> str:
+    """The compiler output of kernel ``name``'s library ('' if it was
+    built without one)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(name: str) -> Path:

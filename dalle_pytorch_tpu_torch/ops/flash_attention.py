@@ -33,8 +33,11 @@ What bounds the kernels on the H100: operations. At the north training
 shapes (b 8, h 8, n 1280, d 64, causal) K1 does ~13.4 GFLOP of tile
 products against ~42 MB moved in bf16, above the ~295 flops per byte
 where the tensor cores, not memory, set the limit; K2a and K2b do 1.5x
-and 2x (2.5x fused) K1's products. These first kernels use CUDA-core
-FMAs, not the tensor cores (``csrc/flash_attention.cu`` says how).
+and 2x (2.5x fused) K1's products. In bfloat16, K1 and K2b split run on
+the tensor cores (wgmma over asynchronously staged bf16 tiles); float32,
+K2a and fused K2b run CUDA-core FMAs (``csrc/flash_attention.cu`` says
+how). Like the Pallas bodies, every version rounds p and ds to the
+input dtype before the second product of each pair.
 
 ``D = sum(dout * out)`` stays plain PyTorch, as in JAX (``:476-477``).
 The kernels take their own tile (64 query rows by 64 key columns,
@@ -105,7 +108,9 @@ def flash_attention_fwd_plain(q, k, v, *, scale: float, causal: bool,
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
     l = torch.where(l == 0.0, 1.0, l)
-    out = torch.einsum("bhij,bhjd->bhid", p, v.float()) / l[..., None]
+    # the second product takes p in v's dtype, as the kernels and JAX do
+    out = torch.einsum("bhij,bhjd->bhid", p.to(v.dtype).float(),
+                       v.float()) / l[..., None]
     return out.to(q.dtype), m, l
 
 
@@ -126,7 +131,8 @@ def flash_attention_bwd_dq_plain(q, k, v, dout, m, l, dstat, *,
     _validate(q, k, v, mask, dout, m, l, dstat)
     _, ds = _probs_and_ds(q, k, v, dout, m, l, dstat, scale=scale,
                           causal=causal, mask=mask)
-    return torch.einsum("bhij,bhjd->bhid", ds, k.float()).to(q.dtype)
+    return torch.einsum("bhij,bhjd->bhid", ds.to(k.dtype).float(),
+                        k.float()).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, dout, m, l, dstat, *,
@@ -138,7 +144,9 @@ def flash_attention_bwd_dkv_plain(q, k, v, dout, m, l, dstat, *,
     _validate(q, k, v, mask, dout, m, l, dstat)
     p, ds = _probs_and_ds(q, k, v, dout, m, l, dstat, scale=scale,
                           causal=causal, mask=mask)
-    dv = torch.einsum("bhij,bhid->bhjd", p, dout.float())
+    ds = ds.to(q.dtype).float()
+    dv = torch.einsum("bhij,bhid->bhjd", p.to(dout.dtype).float(),
+                      dout.float())
     dk = torch.einsum("bhij,bhid->bhjd", ds, q.float())
     dq = torch.einsum("bhij,bhjd->bhid", ds, k.float()) if with_dq else None
     return dk.to(k.dtype), dv.to(v.dtype), dq
@@ -238,6 +246,10 @@ def _kernel_args(fn_name, q, k, v, mask, dout=None, stats=()):
         raise ValueError(f"{fn_name}: every input must lie on q's device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn_name}: every input must be contiguous")
+    if any(t.data_ptr() % 16 for t in [q, *same]):
+        raise ValueError(f"{fn_name}: q, k, v (and dout) must start on a "
+                         f"16-byte boundary (the kernels copy 16 bytes at a "
+                         f"time)")
     return code, (None if mask is None else mask.data_ptr())
 
 

@@ -8,9 +8,16 @@ of q, k and v against ``jax.grad`` of ``flash_attention`` under each
 and not; no mask, an all-True mask, and a pad mask with fully padded
 query rows (the uniform-over-the-causal-prefix case); a ragged n (not a
 multiple of the tile), an exact multiple, and n shorter than one tile.
-float32 throughout, rtol/atol 1e-5: both sides are f32 CPU math that
-differs only in summation order (observed differences ~1e-6).
+float32, rtol/atol 1e-5: both sides are f32 CPU math that differs only
+in summation order (observed differences ~1e-6).
+
+bfloat16 (``test_bf16_plain_versions_round_like_the_pallas_kernels``):
+the Pallas kernels round p and ds to the input dtype before the second
+product of each pair; the plain versions must do the same, or a third or
+more of their bf16 outputs come out one rounding away from JAX's.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -135,3 +142,79 @@ def test_flash_attention_rejects_unknown_bwd_impl_and_bad_masks():
         TF.flash_attention(q, q, q, mask=torch.ones((1, 8)))
     with pytest.raises(ValueError, match="shape"):
         TF.flash_attention_fwd(q, q[..., :8], q, scale=1.0, causal=True)
+
+
+# -- bfloat16: where p and ds are rounded ----------------------------------
+
+BF16_N, BF16_D, BF16_TILE = 256, 64, 128
+# Largest share of bf16 outputs allowed to differ from JAX's, and largest
+# difference. Forward: the Pallas kernel rescales its accumulator tile by
+# tile (online softmax over 128-wide tiles) while the plain version
+# normalises once, so some outputs land one bf16 rounding apart (11-19 %
+# here, by at most 2^-9); rounding p before the PV product, as JAX does,
+# is what keeps the share there: with p in f32 it is 28-39 %, by up to
+# 2^-7. Backward: the same products in the same types, so only f32
+# summation order differs (under 0.5 %); with p and ds in f32, 30-44 %.
+BF16_BOUNDS = {"fwd": (0.25, 4e-3), "dq": (0.02, 4e-3), "dkv": (0.02, 4e-3)}
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_case(causal, masked):
+    """Inputs as bf16 numpy-made tensors and JAX's Pallas results
+    (interpret mode): forward (out, m, l), backward (dq, dk, dv)."""
+    rs = np.random.RandomState(0)
+    q, k, v, do = (rs.randn(1, 2, BF16_N, BF16_D).astype(np.float32)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        mask = np.ones((1, BF16_N), bool)
+        mask[0, :5] = False                  # fully padded query rows
+        mask[0, 200:] = False                # a padded tail
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    jm = None if mask is None else jnp.asarray(mask)
+    scale = BF16_D ** -0.5
+    out, (m, l) = JF._flash_fwd(jq, jk, jv, jm, scale, causal, BF16_TILE,
+                                BF16_TILE, True)
+    grads = JF._pallas_attention_bwd(jq, jk, jv, jm, jdo, out, (m, l),
+                                     scale=scale, causal=causal,
+                                     block_q=BF16_TILE, block_k=BF16_TILE,
+                                     interpret=True)
+
+    def f32(x):
+        return np.asarray(jnp.asarray(x, jnp.float32))
+
+    def bf16(x):
+        return torch.tensor(f32(x)).to(torch.bfloat16)
+
+    ins = tuple(bf16(x) for x in (jq, jk, jv, jdo))
+    return (ins, None if mask is None else torch.tensor(mask), scale,
+            (bf16(out), torch.tensor(f32(m)), torch.tensor(f32(l))),
+            tuple(f32(g) for g in grads))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_plain_versions_round_like_the_pallas_kernels(kind, masked,
+                                                           causal):
+    (q, k, v, do), mask, scale, (out, m, l), (dq, dk, dv) = bf16_case(
+        causal, masked)
+    kw = dict(scale=scale, causal=causal, mask=mask)
+    if kind == "fwd":
+        pairs = [(TF.flash_attention_fwd_plain(q, k, v, **kw)[0],
+                  out.float().numpy())]
+    else:
+        dstat = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, m, l, dstat)
+        if kind == "dq":
+            pairs = [(TF.flash_attention_bwd_dq_plain(*args, **kw), dq)]
+        else:
+            got = TF.flash_attention_bwd_dkv_plain(*args, **kw)
+            pairs = [(got[0], dk), (got[1], dv)]
+    share_max, diff_max = BF16_BOUNDS[kind]
+    for got, want in pairs:
+        assert got.dtype == torch.bfloat16
+        diff = np.abs(got.float().numpy() - want)
+        share = float((diff > 0).mean())
+        assert share <= share_max, (kind, share)
+        assert float(diff.max()) <= diff_max, (kind, float(diff.max()))

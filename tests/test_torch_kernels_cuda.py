@@ -12,10 +12,12 @@ up to 1279 signed terms in another order than the plain version.
 
 The flash kernels (K1, K2a, K2b) against their plain versions: float32
 (TF32 off) to rtol/atol 2e-4 — both sides accumulate in f32, over up to
-200 terms in another order, and the fused dq adds its key-tile shares
+1,280 terms in another order, and the fused dq adds its key-tile shares
 with atomics in an order that changes from run to run; bfloat16 to
 rtol/atol 2e-2, one bf16 rounding of the output (2^-8 relative) on
-either side plus the f32 differences.
+either side plus the f32 differences (bfloat16 K1 and K2b split run on
+the tensor cores, and both sides round p and ds to bf16 before the
+second product of each pair; l to 1e-4 in both types).
 
 The block-sparse kernel K3 against its plain version with the same
 tolerances as the flash kernels (f32 2e-4, bf16 2e-2; l to 1e-4), its
@@ -157,16 +159,15 @@ def test_decode_step_kernel_matches_gather_oracle(cuda):
 
 # -- flash attention: K1, K2a, K2b ------------------------------------------
 
-def flash_inputs(cuda, dtype, n, d, masked, seed=0):
+def flash_inputs(cuda, dtype, n, d, masked, seed=0, b=2, h=3):
     rs = np.random.RandomState(seed + n + d)
-    b, h = 2, 3
     q, k, v, do = (torch.tensor(rs.randn(b, h, n, d), dtype=torch.float32)
                    .to(cuda).to(dtype) for _ in range(4))
     mask = None
     if masked:
         mask = torch.ones((b, n), dtype=torch.bool)
         mask[0, :min(5, n)] = False            # fully padded query rows
-        mask[1, n // 2:] = False               # a padded tail
+        mask[-1, n // 2:] = False              # a padded tail
         mask = mask.to(cuda)
     return q, k, v, do, mask
 
@@ -225,6 +226,40 @@ def test_flash_kernels_match_plain(cuda, dtype, d, n, masked, causal):
     torch.testing.assert_close(dq_f, dq32_p, rtol=2e-4 if dtype ==
                                torch.float32 else 2e-2,
                                atol=2e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [37, 1000, 1280])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_fwd_and_split_dkv_match_plain_over_long_walks(
+        cuda, dtype, d, n, masked, causal):
+    """K1 and K2b split, whose bfloat16 bodies run on the tensor cores
+    (float32 on CUDA cores), over walks of one tile (n 37), of 16 tiles
+    with a ragged last one (n 1000) and of 20 full tiles (n 1280, the
+    north length): every stage of the key and query rings, and the whole
+    causal walk."""
+    dtype = getattr(torch, dtype)
+    q, k, v, do, mask = flash_inputs(cuda, dtype, n, d, masked, b=1, h=2)
+    kw = dict(scale=d ** -0.5, causal=causal, mask=mask)
+    rtol, atol = flash_tols(dtype)
+    out, m, l = FA.flash_attention_fwd(q, k, v, **kw)
+    out_p, m_p, l_p = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    dstat = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, m_p, l_p, dstat)
+    dk, dv, _ = FA.flash_attention_bwd_dkv(*args, **kw)
+    dk_p, dv_p, _ = FA.flash_attention_bwd_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(out, out_p, dtype)
+    torch.testing.assert_close(m, m_p, rtol=rtol, atol=atol)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+    if masked and causal:
+        fill32 = torch.tensor(FA.FILL, dtype=torch.float32).item()
+        assert float(m[0, 0, 3]) == fill32 and float(l[0, 0, 3]) == 4.0
+    assert_flash_close(dk, dk_p, dtype)
+    assert_flash_close(dv, dv_p, dtype)
 
 
 @pytest.mark.cuda
