@@ -8,16 +8,19 @@ full width of the repo's north DALLE configuration (``bench.py``
 image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
 
 1. build  — compile every CUDA kernel from ``csrc/`` with nvcc (sm_90a),
-   one nvcc per source, all at once; print the tensor-core kernels'
-   ``-Xptxas -v`` lines (registers, shared memory, spills) and the
-   card's name and power limit;
+   one nvcc per source, all at once; print the ``-Xptxas -v`` lines
+   (registers, shared memory, spills) of the tensor-core kernels (K1,
+   K2b split, K3) and of K4's dh-64 bodies, and the card's name and
+   power limit;
 2. kernel — paged-attention kernel K4 against its plain PyTorch version
    at the serving shapes (8 slots, 8 heads, dh 64, page 16, L 1280),
    ragged positions including 0, 1, 15, 16, 17 and 1279, random data in
    every page including the trash page: float32 (TF32 off) to 1e-5,
    bfloat16 pages to 1e-2, int8 pages to rtol 1e-5 / atol 1e-4 (the
    unnormalised acc relative to its summands' magnitude, m, l and
-   acc / l directly); timed with CUDA events beside the byte bound;
+   acc / l directly); the pos-0 slot's (0, FILL, 0) exactly, through
+   the split walk (one long slot across five blocks beside short ones);
+   timed with CUDA events beside the byte bound;
 3. decode — one full-width float32 decode step through the kernel
    against the dense gather (``paged_view`` + ``_gather_read``): h_out
    to 1e-4, then 64 greedy steps with identical tokens;
@@ -55,10 +58,11 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    element (f32 sums in other orders, and the fused dq's atomics);
 7. sparse_kernels — the block-sparse kernel K3 (out, m, l) against its
    plain version at the north training shapes (b 8, h 8, n 1280, d 64,
-   block 16, causal, scale 512 ** -0.5), bfloat16 and float32, all-True
-   and text-padding masks, with the flash tolerances; timed beside the
-   plain version, the bound and ``F.scaled_dot_product_attention`` with
-   the layout as a boolean mask. The static and the blockwise backward
+   block 16, causal, scale 512 ** -0.5), bfloat16 (tensor cores) and
+   float32 (CUDA cores), all-True and text-padding masks, with the flash
+   tolerances; timed beside the plain version, the bound and
+   ``F.scaled_dot_product_attention`` with the layout as a boolean mask
+   (CUDA events and device time). The static and the blockwise backward
    against autograd through ``sparse_attention_ref`` in float32, each
    gradient to 2e-4 of its largest element. K4's visible walk against
    its plain version and against the prefix walk over the same fully
@@ -208,7 +212,11 @@ def phase_build() -> str:
     emit(phase="build", ok=True, seconds=time.perf_counter() - t0,
          libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()},
          wgmma_ptxas=ptxas_lines(build.build_log("flash_attention"),
-                                 "wgmma"))
+                                 "wgmma"),
+         block_sparse_ptxas=ptxas_lines(build.build_log("block_sparse"),
+                                        "wgmma"),
+         paged_ptxas=ptxas_lines(build.build_log("paged_attention"),
+                                 "Li64E"))
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1073,6 +1081,7 @@ def sparse_case(dtype, masked: bool, timed: bool) -> dict:
             q, k, v, **kw), iters=3, warmup=1),
         bound_ms=bms, bound_by=by,
         sdpa_masked_ms=cuda_ms(sdpa, iters=20, warmup=2),
+        sdpa_masked_device_us=all_device_us(sdpa),
         sdpa_max_abs_diff=float((sdpa().float() - out.float()).abs().max()))
     return record
 

@@ -12,34 +12,63 @@
 //     finite FILL = -3.0e38, queries are never masked (the reference's
 //     key-padding contract); pairs the layout leaves out are -inf;
 //   * the online softmax starts from m = -inf, l = 0 and shifts by 0 while
-//     the running max is not finite; out = acc / l with a zero l taken as
-//     1; m is written as 0 where it is not finite; m and l are f32.
+//     the running max is not finite; p is rounded to the input dtype
+//     before the PV product (the TPU kernel's p.astype(vb.dtype)), l sums
+//     the unrounded p; out = acc / l with a zero l taken as 1; m is
+//     written as 0 where it is not finite; m and l are f32.
 // This contract differs from the flash kernels' (K1): there the max starts
 // at FILL and pad queries are masked too.
 //
 // Bound: bytes. At the north training shapes (b 8, h 8, n 1280, d 64,
 // block 16, window 4 blocks, global block 0, causal) a row sees at most
 // 80 keys: ~61 k allowed pairs per (b, h), ~1.0 GFLOP of products against
-// ~42.6 MB of q, k, v, out, m and l in bf16 — ~24 flops per byte, far below
-// the ~295 at which the tensor cores would set the pace.
+// ~42.6 MB of q, k, v, out, m and l in bf16 (12.7 us at 3.35 TB/s) -- ~24
+// flops per byte, far below the ~295 at which the tensor cores would set
+// the pace. Both bodies visit only the key tiles that the layout makes
+// live for a 64-row query tile (tile_any): at the default layout the
+// global tile 0 and the diagonal tile, 2 of up to 20 (~2,500 tile pairs
+// in all against K1's 13,440), so per-tile latency, not products or
+// bytes, sets the time.
 //
-// Design (simple and correct first; tensor cores, wgmma and TMA come
-// later): one block of 256 threads per (b*h, 64-row query tile), the tile,
-// staging and products of tile.cuh, shared with flash_attention.cu's
-// forward (a 16 x 16 thread grid, each
-// thread owning 4 rows and 4 columns of every 64 x 64 score tile, tiles in
-// shared memory as f32 with a padded row stride, CUDA-core FMAs). The TPU
-// kernel's two schedules (a static global-tiles-then-diagonal list, or a
-// scan that skips tiles) both visit the allowed key tiles in ascending
-// order; here one ascending walk over the key tiles skips every tile that
-// tile_any proves empty for the whole query tile, so at the default layout
-// a query tile reads the global tile 0 and its diagonal tile: 2 of up to
-// 20 tiles. The layout is then applied per element.
+// bf16 (block_sparse_fwd_wgmma_kernel): tensor cores, on wgmma.cuh, one
+// warpgroup of 128 threads per (b*h, 64-row query tile). With the
+// products this cheap, what is left is per-tile work outside them, so:
+//   * the live tiles are computed, not searched for: QueryTile works out
+//     once the key tiles its rows' windows span and jumps from one live
+//     tile to the next (the global tiles, then the window tiles), where a
+//     scan testing the dead tiles between them took 40 % of the time on
+//     an H100;
+//   * copies up front: Q and the K, V tiles of the first kLive = 2 live
+//     key tiles are issued at once as 16-byte cp.async copies into the
+//     128-byte swizzle, so the second tile's copy runs under the first
+//     tile's products (a layout with more live tiles refills a stage as
+//     soon as the product that read it has completed); the pad flags of
+//     each tile are loaded two tiles ahead;
+//   * products: S = Q K^T as wgmma m64n64k16 from shared memory; P rounded
+//     to bf16 in registers is the A operand of O += P V (m64n{d}k16), and
+//     the next tile's S is issued while that product runs;
+//   * the layout test leaves the element loop: tile_mask decides once per
+//     tile which columns every row may see (the global columns of a tile
+//     outside the window, every column of a tile inside the rows' one
+//     window) and whether the causal diagonal, a window boundary (windows
+//     that do not hold the 64-row tile: block 8, or 48-token windows) or
+//     pad keys cut it; a cut tile turns them into one 64-bit mask per row
+//     and applies it with a bit test and a select per element;
+//   * 42 KB of shared memory and at most 128 registers a thread at d 64,
+//     so 4 blocks share an SM and the 1,280 query tiles of the north
+//     shapes run in 2.4 waves (82 KB at d 128).
+// float32 (block_sparse_fwd_kernel): CUDA cores, the tile, staging and
+// products of tile.cuh shared with flash_attention.cu (a 16 x 16 thread
+// grid, each thread owning 4 rows and 4 columns of every 64 x 64 score
+// tile, tiles in shared memory as f32 with a padded row stride, FMAs), so
+// float32 keeps full f32 products; it tests every key tile with tile_any
+// and the layout per element, at a cost that the f32 products dwarf.
 
 #include <math.h>
 #include <stdint.h>
 
 #include "tile.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -180,6 +209,316 @@ __global__ void __launch_bounds__(kThreads) block_sparse_fwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body on the tensor cores (wgmma.cuh)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+using wg::aligned_smem;
+using wg::hold_frags;
+using wg::kLog2e;
+using wg::mma_rs;
+using wg::zero;
+
+// K/V stages in shared memory: the live key tiles issued at once (a query
+// tile of the default layout has two)
+constexpr int kLive = 2;
+static_assert(kLive >= 2, "the copy-group count below needs two stages");
+// blocks an SM: at d 64, 4 (128 registers a thread, 42 KB of shared
+// memory each), which ptxas reaches without spilling; at d 128 the
+// accumulators need more registers than 4 blocks leave
+template <int D>
+constexpr int kBlocksPerSM = D == 64 ? 4 : 1;
+
+// The layout as seen from one 64-row query tile, worked out once per
+// block: the key tokens its rows' windows span, and from them the live
+// key tiles, found without scanning the dead ones between them (a scan
+// calling tile_any for each of up to 19 dead tiles cost more than the
+// tiles' products). Global blocks are read with constant indices, so the
+// layout stays in the kernel's parameters.
+struct QueryTile {
+  int q0, q_hi, n;
+  int win_start, win_end;  // key tokens of the windows of rows q0 .. q_hi
+  bool one_window;         // those rows share one window
+  int tile_lo, tile_hi;    // the key tiles the windows span
+  int num_k;               // key tiles up to the causal diagonal
+
+  __device__ __forceinline__ QueryTile(const Layout& L, int q0_, int n_)
+      : q0(q0_), q_hi(min(q0_ + kTile, n_) - 1), n(n_) {
+    const int w_lo = q0 / L.window, w_hi = q_hi / L.window;
+    one_window = w_lo == w_hi;
+    win_start = w_lo * L.window;
+    win_end = min(w_hi * L.window + L.window, n) - 1;
+    tile_lo = win_start / kTile;
+    tile_hi = win_end / kTile;
+    num_k = L.causal ? q_hi / kTile + 1 : (n + kTile - 1) / kTile;
+  }
+
+  // the first live key tile at or after ik (num_k if none): a window
+  // tile or one holding a global block's tokens (tile_any's tiles)
+  __device__ __forceinline__ int next_live(const Layout& L, int ik) const {
+    int best = ik <= tile_hi ? max(ik, tile_lo) : num_k;
+#pragma unroll
+    for (int g = 0; g < kMaxGlobals; ++g) {
+      if (g >= L.num_globals) break;
+      const int lo = L.globals[g] * L.block;
+      if ((lo + L.block - 1) / kTile >= ik)
+        best = min(best, max(ik, lo / kTile));
+    }
+    return min(best, num_k);
+  }
+};
+
+// bit i of a 64-bit word set for i < count (count in [0, 64])
+__device__ __forceinline__ uint64_t low_bits(int count) {
+  return count >= 64 ? ~0ull : (1ull << count) - 1;
+}
+
+// bits lo .. hi - 1 of a 64-bit word (each end clamped to [0, 64])
+__device__ __forceinline__ uint64_t bit_range(int lo, int hi) {
+  return low_bits(min(max(hi, 0), 64)) & ~low_bits(min(max(lo, 0), 64));
+}
+
+// The layout over one (64-row query tile, 64-column key tile) pair,
+// decided once for the tile (the same in every thread): `cols` holds the
+// columns every row may see (bit c: column k0 + c), `valid` those inside
+// the sequence; a row may also see the columns of its own window where
+// `window_cut` says a window boundary cuts the pair, and none of its
+// future where `causal_cut` says the causal diagonal does.
+struct TileMask {
+  uint64_t cols;
+  uint64_t valid;
+  bool window_cut;
+  bool causal_cut;
+};
+
+__device__ __forceinline__ TileMask tile_mask(const Layout& L,
+                                              const QueryTile& qt, int k0) {
+  const int k_hi = min(k0 + kTile, qt.n) - 1;
+  TileMask tm;
+  tm.valid = low_bits(qt.n - k0);
+  tm.causal_cut = L.causal && k0 + kTile - 1 > qt.q0;
+  if (qt.one_window && k0 >= qt.win_start && k_hi <= qt.win_end) {
+    tm.cols = tm.valid;              // one window holds every pair
+    tm.window_cut = false;
+    return tm;
+  }
+  uint64_t glob = 0;                 // outside the window: global columns
+#pragma unroll
+  for (int g = 0; g < kMaxGlobals; ++g) {
+    if (g >= L.num_globals) break;
+    const int lo = max(L.globals[g] * L.block - k0, 0);
+    const int hi = min(L.globals[g] * L.block + L.block - k0, kTile);
+    if (lo < hi) glob |= low_bits(hi - lo) << lo;
+  }
+  tm.cols = glob & tm.valid;
+  tm.window_cut = k0 <= qt.win_end && k_hi >= qt.win_start;
+  return tm;
+}
+
+// One warpgroup per (b*h, 64-row query tile): Q resident, the live key
+// tiles through kLive stages issued up front. Each tile's S = Q K^T is
+// issued while the last tile's O += P V still runs.
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM<D>)
+    block_sparse_fwd_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ out, float* __restrict__ m_out,
+        float* __restrict__ l_out, int h, int n, float scale,
+        Layout layout) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t kT = wg::tile_bytes<D>();
+  constexpr int kNT = wg::kThreads;
+  const uint32_t sQ = aligned_smem(smem_raw);
+  const uint32_t sK = sQ + kT;                    // kLive tiles
+  const uint32_t sV = sK + kLive * kT;            // kLive tiles
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kTile;
+  const size_t base = static_cast<size_t>(bh) * n * D;
+  const bf16* kh = k + base;
+  const bf16* vh = v + base;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  const QueryTile qt(layout, q0, n);
+  const int num_k = qt.num_k;
+  auto next_live = [&](int ik) { return qt.next_live(layout, ik); };
+  auto load_keys = [&](int ik, int stage) {
+    wg::load_tile<D, kNT>(sK + stage * kT, kh, ik * kTile, n, tid);
+    wg::load_tile<D, kNT>(sV + stage * kT, vh, ik * kTile, n, tid);
+  };
+
+  // copy groups: Q with live tile 0, then live tiles 1 .. kLive - 1 (empty
+  // groups where there are fewer); iteration it >= 1 commits one more
+  wg::load_tile<D, kNT>(sQ, q + base, q0, n, tid);
+  int issue = next_live(0);
+#pragma unroll
+  for (int stage = 0; stage < kLive; ++stage) {
+    if (issue < num_k) {
+      load_keys(issue, stage);
+      issue = next_live(issue + 1);
+    }
+    wg::cp_async_commit();
+  }
+
+  int row[2], win_lo[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = q0 + 16 * warp + g + 8 * hh;
+    win_lo[hh] = row[hh] / layout.window * layout.window;
+  }
+  float o[D / 2];
+  zero(o);
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};  // l_i: lane's
+  uint32_t pa[4][4];                                   // P of the last tile
+  // live tiles ik and ik_next, and their pad flags, loaded two tiles
+  // ahead of their use so that no load waits on the critical path
+  int ik = next_live(0);
+  int ik_next = next_live(ik + 1);
+  auto pad_flags = [&](int it) {
+    return mask_row && it < num_k
+               ? wg::mask_flags(mask_row, it * kTile, n, lane) : 3u;
+  };
+  uint32_t kflags = pad_flags(ik), kflags_next = pad_flags(ik_next);
+
+  for (int it = 0; ik < num_k; ++it) {
+    if (it == 0)
+      wg::cp_async_wait<kLive - 1>();   // Q and live tile 0 have landed
+    else
+      wg::cp_async_wait<kLive - 2>();   // live tile `it` has landed
+    wg::fence_async_shared();
+    __syncthreads();
+    const int stage = it % kLive;
+    const int k0 = ik * kTile;
+    const uint64_t kbits = mask_row ? wg::mask_bits(kflags) : ~0ull;
+    const int ik_after = next_live(ik_next + 1);
+    kflags = kflags_next;
+    kflags_next = pad_flags(ik_after);
+    const uint32_t tK = sK + stage * kT;
+    const uint32_t tV = sV + stage * kT;
+
+    float s[32];
+    zero(s);
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss_n64(s, wg::desc_k(sQ, kk), wg::desc_k(tK, kk), kk > 0);
+    wg::mma_commit();
+    wg::mma_wait<0>();                // S, and the last tile's O += P V
+    wg::hold(s);
+    wg::hold(o);
+    hold_frags(pa);
+    if (it > 0) {                     // live tile it - 1's stage is free
+      if (issue < num_k) {
+        __syncthreads();              // every warp is past its products
+        load_keys(issue, (it - 1) % kLive);
+        issue = next_live(issue + 1);
+      }
+      wg::cp_async_commit();
+    }
+
+    // the layout, decided for the tile; per element only where the
+    // diagonal, a window boundary or a pad key cuts it (warp-uniform)
+    const TileMask tm = tile_mask(layout, qt, k0);
+    const bool pad = mask_row != nullptr && (kbits & tm.valid) != tm.valid;
+    if (tm.cols == ~0ull && !tm.window_cut && !tm.causal_cut && !pad) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale;
+    } else {
+      // this lane's columns 2 t + 8 j + e as bits 8 j + e: the allowed
+      // ones of each of its two rows, and the pad keys, as bit masks
+      const int c0 = k0 + 2 * t;
+      const uint64_t pb = kbits >> (2 * t);
+      uint64_t allow[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        allow[hh] = tm.cols >> (2 * t);
+        if (tm.window_cut)
+          allow[hh] |= (tm.valid >> (2 * t)) &
+                       bit_range(win_lo[hh] - c0,
+                                 win_lo[hh] + layout.window - c0);
+        if (tm.causal_cut) allow[hh] &= bit_range(0, row[hh] - c0 + 1);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int bit = 8 * j + e;
+            float& x = s[4 * j + 2 * hh + e];
+            x = (pb >> bit & 1) ? x * scale : kFill;
+            if (!(allow[hh] >> bit & 1)) x = -INFINITY;
+          }
+    }
+    // online softmax from m = -inf, shifting by 0 while m is not finite;
+    // ex2.approx gives 0 for -inf
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float rmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        rmax = fmaxf(rmax, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      const float m_new = fmaxf(m_i[hh], wg::quad_max(rmax));
+      const float shift = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = wg::exp2_approx((m_i[hh] - shift) * kLog2e);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hh + e];
+          x = wg::exp2_approx((x - shift) * kLog2e);
+          psum += x;
+        }
+      l_i[hh] = l_i[hh] * alpha + psum;
+      m_i[hh] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * hh] *= alpha;
+        o[4 * j + 2 * hh + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P rounded to bf16 in registers as the A operand; waited
+    // for at the next tile's S
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::a_frag(s, kk, pa[kk]);
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs<D>(o, pa[kk], wg::desc_mn(tV, kk));
+    wg::mma_commit();
+    ik = ik_next;
+    ik_next = ik_after;
+  }
+  wg::mma_wait<0>();
+  wg::hold(o);
+  hold_frags(pa);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float l = wg::quad_sum(l_i[hh]);
+    const float l_safe = l == 0.f ? 1.f : l;
+    const float inv = 1.f / l_safe;
+    if (row[hh] >= n) continue;
+    bf16* dst = out + base + static_cast<size_t>(row[hh]) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    if (t == 0) {
+      const size_t at = static_cast<size_t>(bh) * n + row[hh];
+      m_out[at] = m_i[hh] == -INFINITY ? 0.f : m_i[hh];
+      l_out[at] = l_safe;
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mask, void* out, void* m, void* l, int bh,
@@ -198,6 +537,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
       static_cast<T*>(out), static_cast<float*>(m), static_cast<float*>(l), h,
       n, scale, layout);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* mask, void* out, void* m, void* l,
+                         int bh, int h, int n, float scale,
+                         const Layout& layout, cudaStream_t stream) {
+  const size_t smem = (1 + 2 * kLive) * wg::tile_bytes<D>() + 1024;
+  auto kernel = block_sparse_fwd_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (n + kTile - 1) / kTile);
+  kernel<<<grid, wg::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l),
+      h, n, scale, layout);
   return cudaGetLastError();
 }
 
@@ -235,9 +594,9 @@ extern "C" int block_sparse_attention_fwd(
                   : launch<float, 128>(q, k, v, mask, out, m, l, bh, h, n,
                                        scale, layout, s);
   else
-    err = d == 64 ? launch<__nv_bfloat16, 64>(q, k, v, mask, out, m, l, bh,
-                                              h, n, scale, layout, s)
-                  : launch<__nv_bfloat16, 128>(q, k, v, mask, out, m, l, bh,
-                                               h, n, scale, layout, s);
+    err = d == 64 ? launch_wgmma<64>(q, k, v, mask, out, m, l, bh, h, n,
+                                     scale, layout, s)
+                  : launch_wgmma<128>(q, k, v, mask, out, m, l, bh, h, n,
+                                      scale, layout, s);
   return static_cast<int>(err);
 }

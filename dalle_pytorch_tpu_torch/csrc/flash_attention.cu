@@ -440,7 +440,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
+using wg::aligned_smem;
+using wg::hold_frags;
+using wg::kLog2e;
+using wg::mma_rs;
+using wg::zero;
 // warpgroups (64 query or key rows each) a block: at d 64 one, so that
 // more blocks fit an SM; at d 128 two, sharing each staged tile
 template <int D>
@@ -450,34 +454,6 @@ constexpr int groups() { return D == 64 ? 1 : 2; }
 // output product in flight, so kAhead = kStages - 2
 constexpr int kStages = 4;
 constexpr int kAhead = kStages - 2;
-
-template <int D>
-__device__ __forceinline__ void mma_rs(float (&d)[D / 2],
-                                       const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 64)
-    wg::mma_rs_n64(d, a, b);
-  else
-    wg::mma_rs_n128(d, a, b);
-}
-
-__device__ __forceinline__ void hold_frags(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.f;
-}
-
-// 1024-byte aligned start of the dynamic shared memory (the swizzle
-// pattern is a function of the address bits); launchers add 1 KB slack
-__device__ __forceinline__ uint32_t aligned_smem(const uint8_t* raw) {
-  return (wg::smem_addr(raw) + 1023u) & ~1023u;
-}
 
 // K1: G warpgroups of 64 query rows (Q resident); key tiles through the
 // ring. Each warpgroup issues tile it's S = Q K^T while its O += P V of

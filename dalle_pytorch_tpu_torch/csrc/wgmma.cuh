@@ -2,8 +2,9 @@
 // asynchronously into shared memory in wgmma's 128-byte-swizzled layout,
 // and warpgroup matrix products (wgmma.mma_async) on them, accumulating
 // in f32 registers. Used by the bf16 bodies of flash_attention.cu's K1
-// (forward) and K2b split (dk, dv); the CUDA-core tile code of tile.cuh
-// serves every other body.
+// (forward) and K2b split (dk, dv) and of block_sparse.cu's K3; the
+// CUDA-core tile code of tile.cuh serves every other body, and
+// paged_attention.cu (K4) uses only the cp.async copies.
 //
 // Layout. A tile is 64 rows of D bf16 values (D = 64 or 128), one row per
 // query or key. It is stored as D / 64 column blocks of 64 rows x 128
@@ -278,6 +279,38 @@ __device__ __forceinline__ uint64_t mask_bits(uint32_t flags) {
   const unsigned lo = __ballot_sync(0xffffffffu, flags & 1);
   const unsigned hi = __ballot_sync(0xffffffffu, flags & 2);
   return static_cast<uint64_t>(hi) << 32 | lo;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// d (64 x D f32) += A B: A (64 x 16 bf16) from registers, B (16 x D)
+// MN-major in shared memory
+template <int D>
+__device__ __forceinline__ void mma_rs(float (&d)[D / 2],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64)
+    wg::mma_rs_n64(d, a, b);
+  else
+    wg::mma_rs_n128(d, a, b);
+}
+
+__device__ __forceinline__ void hold_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// 1024-byte aligned start of the dynamic shared memory (the swizzle
+// pattern is a function of the address bits); launchers add 1 KB slack
+__device__ __forceinline__ uint32_t aligned_smem(const uint8_t* raw) {
+  return (wg::smem_addr(raw) + 1023u) & ~1023u;
 }
 
 }  // namespace wg

@@ -101,7 +101,10 @@ def block_sparse_attention_fwd_plain(q, k, v, *, scale: float,
     p = torch.exp(s - torch.where(finite, m, 0.0)[..., None])
     l = p.sum(dim=-1)
     l = torch.where(l == 0.0, 1.0, l)
-    out = torch.einsum("bhij,bhjd->bhid", p, v.float()) / l[..., None]
+    # p in v's dtype for the second product, as the TPU kernel rounds it
+    # (p.astype(vb.dtype)); l stays the sum of the unrounded p
+    out = torch.einsum("bhij,bhjd->bhid", p.to(v.dtype).float(),
+                       v.float()) / l[..., None]
     return out.to(q.dtype), torch.where(finite, m, 0.0), l
 
 

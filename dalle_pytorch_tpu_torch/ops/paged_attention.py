@@ -6,7 +6,10 @@ the hand-written CUDA kernel ``csrc/paged_attention.cu`` on a CUDA
 tensor and runs ``paged_decode_attention_plain``, the same function in
 plain PyTorch, only for tensors that lie on the CPU (the tests' path).
 There is no fallback: on the card the kernel launches or the call
-raises.
+raises. The kernel splits each slot's walk into runs of
+``pages_per_split`` pages (``SPLIT_ROWS`` rows), one block each, and
+merges the runs' partials in the same launch; ``combine_partials`` is
+that merge in plain PyTorch, for the tests.
 
 The contract both implement, taken from the TPU kernel:
 
@@ -153,8 +156,41 @@ def paged_decode_attention_plain(
     return acc, m, l
 
 
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 \
+def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Merge the partials of splits of one walk, stacked on a leading
+    split axis (acc ``(S, b, heads, dh)``, m and l ``(S, b, heads)``),
+    into the partials of the whole walk: the two-estimate rescale the
+    kernel's combine applies. A split that walked nothing holds
+    ``(0, FILL, 0)`` and adds nothing; all-masked splits keep weight 1
+    per row unless a live row elsewhere raises the max, which wipes
+    them, as the unsplit recurrence does."""
+    big = torch.clamp(m.amax(dim=0), min=FILL)
+    f = torch.exp(m - big)
+    return (acc * f[..., None]).sum(dim=0), big, (l * f).sum(dim=0)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# rows of the walk one block of the kernel takes (a split): 16 pages of 16
+SPLIT_ROWS = 256
+_COUNTERS = {}           # device -> the kernel's zeroed split counters
+
+
+def pages_per_split(page_size: int) -> int:
+    """Trips of a walk one block of the kernel takes."""
+    return max(1, SPLIT_ROWS // page_size)
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device``, kept for every launch:
+    the kernel's last block of a (slot, head) sets its counter back to
+    zero, so launches ordered on one stream can share them."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,9 +256,23 @@ def paged_decode_attention(
     if visible is not None:
         vis = visible.to(torch.int32).contiguous()
         cnt = visible_cnt.to(torch.int32).contiguous()
+    # the kernel stages 8-row runs of pages and scales by 16-byte copies
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("k_scales", ksc), ("v_scales", vsc)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     acc = torch.empty((b, heads, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((b, heads), dtype=torch.float32, device=q.device)
     l = torch.empty((b, heads), dtype=torch.float32, device=q.device)
+    # the walk's splits, from the tables' width (never from pos: no sync)
+    pps = pages_per_split(page_size)
+    walk = bt.shape[1] if vis is None else vis.shape[1]
+    splits = -(-walk // pps)
+    part = counters = None
+    if splits > 1:
+        part = torch.empty((b, heads, splits, dh + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _counters(q.device, b * heads)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -232,8 +282,10 @@ def paged_decode_attention(
         None if vis is None else vis.data_ptr(),
         None if cnt is None else cnt.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         b, heads, dh, page_size, bt.shape[1], ok.shape[1],
-        0 if vis is None else vis.shape[1], float(scale),
+        0 if vis is None else vis.shape[1], pps, float(scale),
         q_code, kv_code, stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "

@@ -19,12 +19,17 @@ either side plus the f32 differences (bfloat16 K1 and K2b split run on
 the tensor cores, and both sides round p and ds to bf16 before the
 second product of each pair; l to 1e-4 in both types).
 
-The block-sparse kernel K3 against its plain version with the same
-tolerances as the flash kernels (f32 2e-4, bf16 2e-2; l to 1e-4), its
+The block-sparse kernel K3 (bfloat16 on the tensor cores, float32 on
+CUDA cores; both sides round p to the input dtype before the PV product)
+against its plain version with the same tolerances as the flash kernels
+(f32 2e-4, bf16 2e-2; l to 1e-4), over walks of one to twenty query
+tiles and layouts whose windows straddle, nest in or span the tiles; its
 gradients through both backward routes against autograd through
 ``sparse_attention_ref`` to 2e-4 in f32; K4's visible walk against its
 plain version and against the prefix walk over the same fully masked
-rows, with K4's tolerances.
+rows, with K4's tolerances. The prefix walk is split across blocks
+(flash-decoding); its splits are held against the plain version with
+K4's tolerances, and its FILL corner cases exactly.
 """
 
 import numpy as np
@@ -110,6 +115,70 @@ def test_kernel_matches_plain(cuda, page_size, dtype, dh):
     check_partials(got, want, mag, rtol, atol)
     assert float(got[1][0, 0]) == PA.FILL
     assert float(got[2][0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_prefix_walk_across_split_boundaries(cuda, page_size, dtype):
+    """The prefix walk split across blocks (SPLIT_ROWS rows each): one
+    long slot beside short ones, walks that end on a split boundary and
+    one row past it, a slot at pos 0, an all-masked walk over several
+    splits (weight 1 per row: l is the walked row count exactly) and a
+    masked prefix of two and a half splits wiped by the live rows after
+    it. A second launch gives the same bits: the split counters were
+    left zero."""
+    rs = np.random.RandomState(page_size)
+    heads, dh, L = 4, 64, 1280
+    mp = L // page_size
+    pos = torch.tensor([1279, 0, 1, 256, 257, 700, 900, 16, 300],
+                       dtype=torch.int32)
+    slots = len(pos)
+    P = slots * mp + 1
+    bt = torch.tensor(rs.permutation(P - 1) + 1).reshape(slots, mp)
+    need = (pos.long() + page_size - 1) // page_size
+    bt = torch.where(torch.arange(mp)[None] < need[:, None], bt, 0) \
+        .to(torch.int32)
+    allowed = torch.arange(L)[None] < pos[:, None]
+    allowed[5] = False                             # every walked row masked
+    allowed[6, :640] = False                       # a masked prefix
+    allowed[0, 255:258] = False                    # pads across a boundary
+    q = torch.tensor(rs.randn(slots, heads, dh), dtype=torch.float32)
+    shape = (P, heads, page_size, dh)
+    kw = {}
+    if dtype == "int8":
+        kp, vp = (torch.tensor(rs.randint(-127, 128, shape), dtype=torch.int8)
+                  for _ in range(2))
+        kw = {n: torch.tensor(rs.uniform(0.01, 0.1, shape[:-1]),
+                              dtype=torch.float32)
+              for n in ("k_scales", "v_scales")}
+        q = q.to(torch.bfloat16)
+    else:
+        dt = getattr(torch, dtype)
+        q = q.to(dt)
+        kp, vp = (torch.tensor(rs.randn(*shape), dtype=torch.float32).to(dt)
+                  for _ in range(2))
+    args = [t.to(cuda) for t in (q, kp, vp, bt, pos, allowed)]
+    kw = {k: v.to(cuda) for k, v in kw.items()}
+    assert -(-mp // PA.pages_per_split(page_size)) == 5
+    got = PA.paged_decode_attention(*args, scale=SCALE, **kw)
+    again = PA.paged_decode_attention(*args, scale=SCALE, **kw)
+    want = PA.paged_decode_attention_plain(*args, scale=SCALE, **kw)
+    mag = PA.paged_decode_attention_plain(args[0], args[1], args[2].abs(),
+                                          *args[3:], scale=SCALE, **kw)[0]
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    rtol = 1e-2 if dtype == "bfloat16" else 1e-5
+    atol = {"float32": 1e-5, "bfloat16": 1e-2, "int8": 1e-4}[dtype]
+    check_partials(got, want, mag, rtol, atol)
+    acc, m, l = (x.cpu() for x in got)
+    assert float(m[1].max()) == PA.FILL == float(m[1].min())
+    assert float(l[1].abs().max()) == 0.0 == float(acc[1].abs().max())
+    walked = float(-(-700 // page_size) * page_size)
+    assert float(m[5].max()) == PA.FILL and torch.equal(
+        l[5], torch.full_like(l[5], walked))
+    assert float(m[6].min()) > PA.FILL
 
 
 @pytest.mark.cuda
@@ -296,8 +365,9 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("n,block", [(48, 16), (200, 16), (256, 16),
-                                     (160, 8)])
+@pytest.mark.parametrize("n,block", [(37, 16), (48, 16), (200, 16),
+                                     (256, 16), (1000, 16), (1280, 16),
+                                     (160, 8), (200, 8)])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_block_sparse_kernel_matches_plain(cuda, dtype, d, n, block, masked,
@@ -308,6 +378,31 @@ def test_block_sparse_kernel_matches_plain(cuda, dtype, d, n, block, masked,
     before = BS.block_sparse_attention_fwd.launches
     out, m, l = BS.block_sparse_attention_fwd(q, k, v, **kw)
     assert BS.block_sparse_attention_fwd.launches == before + 1
+    out_p, m_p, l_p = BS.block_sparse_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(out, out_p, dtype)
+    assert_flash_close(m, m_p, dtype)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block,local,globals_", [
+    (16, 3, (0,)), (16, 5, (0, 7)), (8, 4, (0, 9)), (32, 4, (1,)),
+    (16, 4, (2, 3))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_kernel_other_layouts(cuda, dtype, block, local,
+                                           globals_, causal):
+    """Windows that straddle the 64-row tiles (48 and 80 tokens), windows
+    that nest inside them (32), a window of two tiles (128) and global
+    blocks off tile 0, with pad keys: every form of the per-tile layout
+    decision (one window, global columns only, a window boundary cutting
+    the pair) against the plain version."""
+    dtype = getattr(torch, dtype)
+    q, k, v, _, mask = flash_inputs(cuda, dtype, 300, 64, True)
+    kw = dict(scale=0.125, causal=causal, block=block,
+              num_local_blocks=local, global_blocks=globals_, mask=mask)
+    out, m, l = BS.block_sparse_attention_fwd(q, k, v, **kw)
     out_p, m_p, l_p = BS.block_sparse_attention_fwd_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert_flash_close(out, out_p, dtype)

@@ -13,6 +13,8 @@ The CUDA kernel itself is held against the same plain version on the
 card by tests/test_torch_kernels_cuda.py.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -125,6 +127,98 @@ def test_masked_prefix_is_wiped_and_all_masked_walk_kept():
     assert not allowed[2, :8].any() and float(m[2, 0]) > PA.FILL
     np.testing.assert_allclose(l[2].numpy(), np.asarray(want[2][2]),
                                rtol=1e-5)
+
+
+# -- split walks (flash-decoding) and their merge ----------------------------
+
+SPLIT_L = 88
+
+
+@functools.lru_cache(maxsize=None)
+def split_case(page_size, quantized):
+    """Five slots over SPLIT_L rows: the last row, parked at pos 0, a
+    fully masked prefix of 24 rows followed by live rows, every walked
+    row masked, and one padded row; and JAX's partials (interpret)."""
+    rs = np.random.RandomState(7 + page_size)
+    mp = KV.pages_for(SPLIT_L, page_size)
+    slots = 5
+    P = slots * mp + 1
+    shape = (P, HEADS, page_size, DH)
+    pos = np.array([SPLIT_L - 1, 0, 40, 33, 20], np.int32)
+    bt = (rs.permutation(P - 1) + 1)[:slots * mp].reshape(slots, mp)
+    need = -(-pos // page_size)
+    bt = np.where(np.arange(mp)[None, :] < need[:, None], bt, 0) \
+        .astype(np.int32)
+    allowed = np.arange(SPLIT_L)[None, :] < pos[:, None]
+    allowed[2, :24] = False
+    allowed[3, :] = False
+    allowed[4, 7] = False
+    q = rs.randn(slots, HEADS, DH).astype(np.float32)
+    sc = {}
+    if quantized:
+        kp, vp = (rs.randint(-127, 128, shape).astype(np.int8)
+                  for _ in range(2))
+        sc = {n: rs.uniform(0.01, 0.1, shape[:-1]).astype(np.float32)
+              for n in ("k_scales", "v_scales")}
+    else:
+        kp, vp = (rs.randn(*shape).astype(np.float32) for _ in range(2))
+    want = JPA.paged_decode_attention(
+        *(jnp.asarray(a) for a in (q, kp, vp, bt, pos, allowed)),
+        scale=SCALE, **{k: jnp.asarray(v) for k, v in sc.items()})
+    return (q, kp, vp, bt, pos, allowed, sc), [np.asarray(w) for w in want]
+
+
+def split_walk(args, sc, pages_per_split):
+    """The prefix walk cut into runs of ``pages_per_split`` pages, each
+    run walked by the plain version (as a visible walk over its pages),
+    stacked on a leading split axis."""
+    q, kp, vp, bt, pos, allowed = args
+    ps, mp = kp.shape[2], bt.shape[1]
+    trips = (pos.long() + ps - 1) // ps
+    parts = []
+    for first in range(0, mp, pages_per_split):
+        pages = torch.arange(first, first + pages_per_split).clamp(max=mp - 1)
+        parts.append(PA.paged_decode_attention_plain(
+            *args, scale=SCALE, **sc,
+            visible=pages[None].expand(len(pos), -1).to(torch.int32),
+            visible_cnt=(trips - first).clamp(0, pages_per_split)))
+    return [torch.stack(x) for x in zip(*parts)]
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 3, 4])
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_split_walk_merged_by_combine_partials(page_size, quantized,
+                                               pages_per_split):
+    """Splits that divide a slot's walk and splits that do not, merged,
+    give the unsplit walk and JAX's kernel; the pos-0 slot's
+    (0, FILL, 0), the wiped masked prefix and the all-masked walk's
+    weight 1 per row come through every split size exactly."""
+    raw, want = split_case(page_size, quantized)
+    args, sc = torch_args(*raw)
+    got = PA.combine_partials(*split_walk(args, sc, pages_per_split))
+    whole = PA.paged_decode_attention_plain(*args, scale=SCALE, **sc)
+    mag = PA.paged_decode_attention_plain(
+        args[0], args[1], args[2].abs(), *args[3:], scale=SCALE, **sc)[0]
+    check_partials([g.numpy() for g in got], [w.numpy() for w in whole],
+                   mag.numpy())
+    check_partials([g.numpy() for g in got], want, mag.numpy())
+    acc, m, l = got
+    assert float(m[1].max()) == PA.FILL == float(m[1].min())
+    assert float(l[1].abs().max()) == 0.0 == float(acc[1].abs().max())
+    assert float(m[3].max()) == PA.FILL
+    walked = -(-33 // page_size) * page_size
+    assert torch.equal(l[3], torch.full_like(l[3], float(walked)))
+    assert float(m[2].min()) > PA.FILL
+
+
+def test_combine_partials_of_one_split_is_identity():
+    raw, _ = split_case(8, False)
+    args, sc = torch_args(*raw)
+    parts = PA.paged_decode_attention_plain(*args, scale=SCALE)
+    got = PA.combine_partials(*(x[None] for x in parts))
+    for g, w in zip(got, parts):
+        assert torch.equal(g, w)
 
 
 def test_wrapper_validates_inputs():
