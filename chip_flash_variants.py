@@ -3,20 +3,30 @@
     python3 chip_flash_variants.py
 
 Builds edited copies of ``dalle_pytorch_tpu_torch/csrc/flash_attention.cu``
-side by side, each with one piece of the bfloat16 K1 (forward) and K2b
-split (dk, dv) bodies taken out, and times K1 and K2b of each copy with
-CUDA events at the north training shapes (b 8, h 8, n 1,280, d 64,
-causal), with the all-True mask training passes and with no mask. A
-copy without a piece computes wrong values: only ``tree`` is checked,
-against the plain versions (bf16, 2e-2). Prints one JSON line per
-variant and mask, then the card's name and power limit. Needs a CUDA
-card; imports nothing of JAX.
+side by side, each with one piece of the bfloat16 K1 (forward), K2a (dq)
+and K2b split (dk, dv) bodies taken out, and times K1, K2a and K2b of
+each copy with CUDA events at the north training shapes (b 8, h 8,
+n 1,280, d 64, causal), with the all-True mask training passes and with
+no mask. A copy without a piece computes wrong values: only ``tree``,
+``stages3`` and ``dq_stages4`` are checked against the plain versions,
+as ``chip_smoke.py`` holds them (``held``: bf16 rtol/atol 2e-2, the
+gradients dq, dk and dv at ``grad_atol``). One copy carries a planted
+fault instead: ``dq_drop_tile``'s K2a leaves key tile 15 out of the
+sums of rows 960 on, and the run fails unless ``chip_smoke.py``'s dq
+check rejects it (its line also says whether the plain 2e-2 atol would
+have). Prints one JSON line per variant and mask, then the card's name
+and power limit. Needs a CUDA card; imports nothing of JAX.
 
 The variants: ``tree`` (the source as it is), ``no_exp`` (exponentials
-replaced by their argument), ``no_score_products`` (S = Q K^T, and K2b's
-S^T and dP^T, not issued), ``no_output_products`` (O += P V, dV and dK
-not issued), ``no_copies`` (no key or query tile copied after the
-first).
+replaced by their argument), ``no_score_products`` (S = Q K^T, K2a's
+dP = dO V^T, and K2b's S^T and dP^T, not issued), ``no_output_products``
+(O += P V, dQ += dS K, dV and dK not issued), ``no_copies`` (no key or
+query tile copied after the first), ``stages3`` (K1's ring of 3 tiles
+filled one ahead instead of 4 filled two ahead: less shared memory, so
+more blocks an SM; K1 only, since K2b shares the constant and takes a
+query tile's 1 / l the iteration before it is used, so needs two tiles
+ahead), ``dq_stages4`` (K2a's ring of 4 tiles filled two ahead, as
+K1's, instead of its own 3 filled one ahead).
 """
 
 from __future__ import annotations
@@ -40,24 +50,47 @@ VARIANTS = {
         ": wg::exp2_approx((x - sm[c]) * kLog2e) *":
             ": ((x - sm[c]) * kLog2e) *",
         "x = wg::exp2_approx((x * scale - mq) * kLog2e) * inv_l;":
-            "x = ((x * scale - mq) * kLog2e) * inv_l;"},
+            "x = ((x * scale - mq) * kLog2e) * inv_l;",
+        "x = keep ? wg::exp2_approx(fmaf(x, sl2, nml2[hh])) * cl[hh]":
+            "x = keep ? fmaf(x, sl2, nml2[hh]) * cl[hh]",
+        "x = wg::exp2_approx(fmaf(x, sl2, nml2[hh])) * cl[hh];":
+            "x = fmaf(x, sl2, nml2[hh]) * cl[hh];"},
     "no_score_products": {
         "wg::mma_ss_n64(s, wg::desc_k(tQ, kk), wg::desc_k(tK, kk), kk > 0);":
             ";",
         "wg::mma_ss_n64(st, wg::desc_k(tK, kk), wg::desc_k(tQ, kk), kk > 0);":
             ";",
         "wg::mma_ss_n64(dpt, wg::desc_k(tV, kk), wg::desc_k(tO, kk), kk > 0);":
+            ";",
+        "wg::mma_ss_n64(dp, wg::desc_k(tO, kk), wg::desc_k(tV, kk), kk > 0);":
             ";"},
     "no_output_products": {
         "for (int kk = 0; kk < 4; ++kk) mma_rs<D>(o, pa[kk], "
         "wg::desc_mn(tV, kk));": "",
         "mma_rs<D>(dv_acc, pa[kk], wg::desc_mn(tO, kk));": ";",
-        "mma_rs<D>(dk_acc, da[kk], wg::desc_mn(tQ, kk));": ";"},
+        "mma_rs<D>(dk_acc, da[kk], wg::desc_mn(tQ, kk));": ";",
+        "for (int kk = 0; kk < 4; ++kk) mma_rs<D>(acc, da[kk], "
+        "wg::desc_mn(tK, kk));": ""},
     "no_copies": {
         "    if (it < num_k) {": "    if (it < 2) {",
         "    if (iq < num_q) {\n      const int q0 = iq * kTile;":
             "    if (iq < iq0 + 2) {\n      const int q0 = iq * kTile;"},
+    "stages3": {"constexpr int kStages = 4;": "constexpr int kStages = 3;"},
+    "dq_stages4": {"constexpr int kDqStages = 3;":
+                   "constexpr int kDqStages = 4;"},
+    "dq_drop_tile": {
+        "    if (!live_group || (causal && k0 > wq0 + wg::kRows - 1)) {\n"
+        "      wg::mma_wait<0>();              // the last dQ += dS K frees":
+        "    if (!live_group || (causal && k0 > wq0 + wg::kRows - 1) ||\n"
+        "        it == 15) {\n"
+        "      wg::mma_wait<0>();              // the last dQ += dS K frees"},
 }
+CHECKED = ("tree", "stages3", "dq_stages4")
+# planted faults K2a's dq check must reject; not timed
+REJECTED = ("dq_drop_tile",)
+# the kernels each variant computes right (if CHECKED) or times at all
+KERNELS = {"stages3": ("k1",), "dq_stages4": ("k2a",),
+           "dq_drop_tile": ("k2a",)}
 
 
 def build_variants(build) -> dict:
@@ -102,12 +135,32 @@ def events_us(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters * 1e3
 
 
+def rejected_by_dq_check(chip_smoke, dq, dq_p) -> dict:
+    """Holds a faulty dq as ``chip_smoke.py`` holds K2a's; fails the run
+    if the check passes it. Also says whether the 2e-2 atol alone would
+    have passed it."""
+    err = (dq.float() - dq_p.float()).abs()
+    atol = chip_smoke.grad_atol(torch.bfloat16, dq_p, 2e-2)
+    try:
+        chip_smoke.held("planted fault dq", dq, dq_p, 2e-2, atol)
+    except chip_smoke.SmokeFailure:
+        pass
+    else:
+        raise SystemExit(f"K2a's dq check passed a planted fault (max abs "
+                         f"{float(err.max()):.3e}, atol {atol:.3e})")
+    bound = 2e-2 + 2e-2 * dq_p.float().abs()
+    return {"max_abs_err": float(err.max()), "dq_atol": atol,
+            "rejected": True,
+            "passes_atol_2e-2": bool((err <= bound).all())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_flash_variants: no CUDA device is visible",
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import chip_smoke
     from dalle_pytorch_tpu_torch.ops import build
     from dalle_pytorch_tpu_torch.ops import flash_attention as FA
     libs = build_variants(build)
@@ -124,30 +177,39 @@ def main() -> int:
             dstat = (do.float() * out_p.float()).sum(-1)
             args = (q, k, v, do, m_p, l_p, dstat)
             dk_p, dv_p, _ = FA.flash_attention_bwd_dkv_plain(*args, **kw)
+            dq_p = FA.flash_attention_bwd_dq_plain(*args, **kw)
             for name, lib in libs.items():
-                for fn in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
+                for fn in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"):
                     getattr(lib, fn).argtypes = FA._ARGTYPES[fn]
                     getattr(lib, fn).restype = ctypes.c_int
                 FA._entry = lambda fn, lib=lib: getattr(lib, fn)
                 record = {"variant": name, "mask": mask_name}
-                if name == "tree":
-                    out = FA.flash_attention_fwd(q, k, v, **kw)[0]
-                    dk, dv, _ = FA.flash_attention_bwd_dkv(*args, **kw)
-                    err = max(float((a.float() - b.float()).abs().max())
-                              for a, b in ((out, out_p), (dk, dk_p),
-                                           (dv, dv_p)))
-                    ok = all(torch.allclose(a.float(), b.float(), rtol=2e-2,
-                                            atol=2e-2)
-                             for a, b in ((out, out_p), (dk, dk_p),
-                                          (dv, dv_p)))
-                    if not ok:
-                        raise SystemExit(f"tree differs from the plain "
-                                         f"versions (max abs {err:.3e})")
-                    record["max_abs_err"] = err
-                record["k1_us"] = events_us(
-                    lambda: FA.flash_attention_fwd(q, k, v, **kw))
-                record["k2b_split_us"] = events_us(
-                    lambda: FA.flash_attention_bwd_dkv(*args, **kw))
+                calls = {
+                    "k1": (lambda: FA.flash_attention_fwd(q, k, v, **kw)[:1],
+                           (out_p,)),
+                    "k2a": (lambda: (FA.flash_attention_bwd_dq(*args, **kw),),
+                            (dq_p,)),
+                    "k2b_split": (
+                        lambda: FA.flash_attention_bwd_dkv(*args, **kw)[:2],
+                        (dk_p, dv_p))}
+                calls = {k_: c for k_, c in calls.items()
+                         if k_ in KERNELS.get(name, calls)}
+                if name in REJECTED:
+                    (dq,) = calls["k2a"][0]()
+                    record.update(rejected_by_dq_check(chip_smoke, dq, dq_p))
+                    print(json.dumps(record), flush=True)
+                    continue
+                if name in CHECKED:
+                    record["max_abs_err"] = max(
+                        chip_smoke.held(
+                            f"{name} {kernel}", got, want, 2e-2,
+                            chip_smoke.grad_atol(torch.bfloat16, want, 2e-2)
+                            if kernel != "k1" else 2e-2)
+                        for kernel, (fn, wants) in calls.items()
+                        for got, want in zip(fn(), wants))
+                for kernel, (fn, _) in calls.items():
+                    record[f"{kernel}_us"] = events_us(fn)
                 print(json.dumps(record), flush=True)
     finally:
         FA._entry = entry

@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernels of dalle_pytorch_tpu/ops/flash_attention.py:
 //   K1  flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
 //       <- _fwd_kernel :88 (launched by _flash_fwd)
-//   K2a flash_bwd_dq_kernel   <- _bwd_dq_kernel :322 (_pallas_attention_bwd)
+//   K2a flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32)
+//       <- _bwd_dq_kernel :322 (launched by _pallas_attention_bwd :548)
 //   K2b <- _bwd_keygrid_kernel :367, both of its launch sites: split mode
 //       (_bwd_dkv_kernel, dk and dv: flash_bwd_dkv_wgmma_kernel in bf16,
 //       flash_bwd_dkv_kernel<float, D, false> in f32) and fused mode
@@ -25,28 +26,33 @@
 //     of each pair (out = p v, dq, dk, dv), as the Pallas bodies round
 //     them (p.astype(v.dtype), ds.astype(k.dtype)); a no-op in f32.
 //   * inputs f32 or bf16, every product accumulated in f32 (the Pallas
-//     bodies' preferred_element_type=f32); d in {64, 128}; mask optional.
+//     bodies' preferred_element_type=f32); mask optional.
+//   * the bodies are compiled for d = 64 and d = 128; the wrappers
+//     (ops/flash_attention.py::at_kernel_dim_head) run any other d up to
+//     128 zero-padded to the next of them and slice out, dq, dk and dv
+//     back: exact, since zero columns add nothing to q . k or dout . v,
+//     and scale still comes from the real d.
 //
 // Bound: operations. At the north training shapes (b 8, h 8, n 1280,
 // d 64, causal) K1 does 13.4 GFLOP of tile products (the causal pairs'
 // S = Q K^T and O = P V) against ~42 MB moved in bf16, some 320 flops per
 // byte: just above the ~295 at which the H100's bf16 tensor cores, not
-// its memory, become the limit (13.6 us at 989 TFLOP/s). K2b split does
-// twice that, 26.9 GFLOP (S^T, dP^T, dV, dK); K2a 1.5x and fused K2b
-// 2.5x K1.
+// its memory, become the limit (13.6 us at 989 TFLOP/s). K2a does 1.5x
+// that, 20.1 GFLOP (S, dP, dQ; 20.4 us); K2b split twice, 26.9 GFLOP
+// (S^T, dP^T, dV, dK); fused K2b 2.5x K1.
 //
 // Two designs:
 //
-// bf16 K1 and bf16 K2b split: tensor cores (wgmma.cuh). What held the
+// bf16 K1, K2a and K2b split: tensor cores (wgmma.cuh). What held the
 // first, CUDA-core bodies to ~2 % of the bound, and what these do:
 //   1. products: every tile product is wgmma.mma_async (m64n64k16 for
 //      scores, m64n{d}k16 for outputs) with f32 accumulators in
 //      registers, instead of CUDA-core FMAs at the 67 TFLOP/s f32 rate;
 //   2. staging: Q, K, V, dO stay bf16 and arrive by 16-byte cp.async
 //      copies (zero-fill past n) into wgmma's 128-byte-swizzled layout,
-//      through a 4-stage ring filled two tiles ahead of the products,
-//      with one block barrier a tile instead of two plus a synchronous
-//      load;
+//      through a 4-stage ring filled two tiles ahead of the products
+//      (K2a's: 3 stages filled one ahead), with one block barrier a tile
+//      instead of two plus a synchronous load;
 //   3. shared memory: a bf16 tile is 8 KB at d 64 (16 at 128) against
 //      16.6 KB in f32 with its padded stride, and P and dS never go
 //      through it: the f32 accumulator layout of a score product is,
@@ -56,13 +62,22 @@
 // sets the time (a warpgroup waits on its own chain; few fit an SM), so
 // only the diagonal, the ragged last and pad-carrying tiles run the
 // per-pair mask tests, exponentials take the special-function unit
-// (ex2.approx), and K2b takes each query tile's 1 / l once.
+// (ex2.approx), K2b takes each query tile's 1 / l once and K2a each
+// row's scale / l once.
 //   K1:  a block of G warpgroups (G = 1 at d 64, 2 at d 128), each 64
 //        query rows (Q resident), walking key tiles up to the block's
 //        causal diagonal; online softmax in registers, row reductions by
 //        shuffles within the quad of lanes that shares a row; a tile's
 //        S product is issued while the last tile's O += P V still runs.
 //        73 KB of shared memory at d 64, so three blocks fit an SM.
+//   K2a: K1's orientation: G warpgroups of 64 query rows (Q and dO
+//        resident, each thread's two rows' m, scale / l and D in
+//        registers, loaded once), walking key tiles up to the diagonal:
+//        S = Q K^T and dP = dO V^T, the exponentials under dP's product,
+//        dS in registers as the A operand of dQ += dS K (K MN-major, as
+//        K1 reads V), whose product runs on under the next tile's S; dq
+//        written once, in bf16. 65 KB at d 64, so three blocks fit an
+//        SM (its ring holds three tiles, filled one ahead).
 //   K2b: G warpgroups, each 64 key rows (K and V resident), walking
 //        query tiles from the diagonal on, in the transposed
 //        orientation: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T per
@@ -70,14 +85,15 @@
 //        dK += dS^T Q with the f32 dK, dV written once; P^T is computed
 //        under dP^T's product, dS^T under dV's. 84 KB at d 64.
 //
-// float32 (all three), K2a and fused K2b: CUDA cores (tile.cuh, shared
-// with block_sparse.cu). 256 threads as a 16 x 16 grid; thread (ty, tx)
+// float32 (all three) and fused K2b: CUDA cores (tile.cuh, shared with
+// block_sparse.cu). K1's and K2a's CUDA-core bodies are float32 only;
+// fused K2b's takes both types. 256 threads as a 16 x 16 grid; thread (ty, tx)
 // owns rows ty + 16 i (i < 4) and columns tx + 16 j of every 64 x 64
 // score tile and every 64 x d accumulator. Tiles are staged through
 // shared memory as f32 with a padded row stride (d + 1); products are
 // CUDA-core FMAs, so float32 keeps full f32 products (TF32 would break
-// its contracts). P and dS go through shared memory, rounded to the
-// input type first, as the tensor-core bodies and JAX round them.
+// its contracts). P and dS go through shared memory; fused K2b rounds
+// them to the input type first, as the tensor-core bodies and JAX do.
 //
 // The TPU's sequential grid becomes a loop inside each block:
 //   K1, K2a: one block per (b*h, query tile), walking key tiles up to
@@ -130,10 +146,11 @@ __device__ __forceinline__ void load_mask(int* sMask, const uint8_t* mask_row,
 // K1: forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ mask, T* __restrict__ out,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const uint8_t* __restrict__ mask,
+    float* __restrict__ out,
     float* __restrict__ m_out, float* __restrict__ l_out, int h, int n,
     float scale, int causal) {
   extern __shared__ float smem[];
@@ -154,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
                                  : nullptr;
 
-  load_tile<T, D>(sQ, q + base, q0, n);
+  load_tile<float, D>(sQ, q + base, q0, n);
   load_mask(sQm, mask_row, q0, n);
 
   float m_i[4], l_i[4], o[4][D / 16];
@@ -170,8 +187,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int ik = 0; ik < num_k; ++ik) {
     const int k0 = ik * kTile;
     __syncthreads();                 // the last tile's readers are done
-    load_tile<T, D>(sK, k + base, k0, n);
-    load_tile<T, D>(sV, v + base, k0, n);
+    load_tile<float, D>(sK, k + base, k0, n);
+    load_tile<float, D>(sV, v + base, k0, n);
     load_mask(sKm, mask_row, k0, n);
     __syncthreads();
 
@@ -207,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int j = 0; j < D / 16; ++j) o[i][j] *= alpha;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        sP[r * kPStride + tx + 16 * j] = to_f(from_f<T>(s[i][j]));
+        sP[r * kPStride + tx + 16 * j] = s[i][j];
     }
     __syncthreads();
     dot_nn<D>(sP, sV, o, ty, tx);
@@ -221,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < D / 16; ++j)
       out[base + static_cast<size_t>(row) * D + tx + 16 * j] =
-          from_f<T>(o[i][j] / l_safe);
+          o[i][j] / l_safe;
     if (tx == 0) {
       m_out[static_cast<size_t>(bh) * n + row] = m_i[i];
       l_out[static_cast<size_t>(bh) * n + row] = l_safe;
@@ -257,13 +274,13 @@ __device__ __forceinline__ void probs_and_ds(
 // K2a: dq over key tiles up to the diagonal
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ m,
-    const float* __restrict__ l, const float* __restrict__ dstat,
-    const uint8_t* __restrict__ mask, T* __restrict__ dq, int h, int n,
-    float scale, int causal) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l,
+    const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+    float* __restrict__ dq, int h, int n, float scale, int causal) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sdO = sQ + kTile * (D + 1);
@@ -284,8 +301,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
                                  : nullptr;
 
-  load_tile<T, D>(sQ, q + base, q0, n);
-  load_tile<T, D>(sdO, dout + base, q0, n);
+  load_tile<float, D>(sQ, q + base, q0, n);
+  load_tile<float, D>(sdO, dout + base, q0, n);
   load_stats(sM, sInvL, sD, sQm, m + sbase, l + sbase, dstat + sbase,
              mask_row, q0, n);
 
@@ -299,8 +316,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int ik = 0; ik < num_k; ++ik) {
     const int k0 = ik * kTile;
     __syncthreads();
-    load_tile<T, D>(sK, k + base, k0, n);
-    load_tile<T, D>(sV, v + base, k0, n);
+    load_tile<float, D>(sK, k + base, k0, n);
+    load_tile<float, D>(sV, v + base, k0, n);
     load_mask(sKm, mask_row, k0, n);
     __syncthreads();
 
@@ -313,8 +330,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        sS[(ty + 16 * i) * kPStride + tx + 16 * j] =
-            to_f(from_f<T>(ds[i][j]));
+        sS[(ty + 16 * i) * kPStride + tx + 16 * j] = ds[i][j];
     __syncthreads();
     dot_nn<D>(sS, sK, acc, ty, tx);
   }
@@ -325,8 +341,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     if (row >= n) continue;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j)
-      dq[base + static_cast<size_t>(row) * D + tx + 16 * j] =
-          from_f<T>(acc[i][j]);
+      dq[base + static_cast<size_t>(row) * D + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -436,7 +451,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
 
 // ---------------------------------------------------------------------------
-// bf16 bodies on the tensor cores (wgmma.cuh): K1 and K2b split
+// bf16 bodies on the tensor cores (wgmma.cuh): K1, K2a and K2b split
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -454,6 +469,11 @@ constexpr int groups() { return D == 64 ? 1 : 2; }
 // output product in flight, so kAhead = kStages - 2
 constexpr int kStages = 4;
 constexpr int kAhead = kStages - 2;
+// K2a's ring, by the same rule: three tiles filled one ahead. At d 64
+// that is 65 KB a block, so three blocks fit an SM against two with
+// four tiles (faster on the H100: chip_flash_variants.py, dq_stages4)
+constexpr int kDqStages = 3;
+constexpr int kDqAhead = kDqStages - 2;
 
 // K1: G warpgroups of 64 query rows (Q resident); key tiles through the
 // ring. Each warpgroup issues tile it's S = Q K^T while its O += P V of
@@ -625,6 +645,192 @@ __global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
       m_out[static_cast<size_t>(bh) * n + row[hh]] = m_i[hh];
       l_out[static_cast<size_t>(bh) * n + row[hh]] = l_safe;
     }
+  }
+}
+
+// K2a: G warpgroups of 64 query rows, Q and dO resident, each thread's
+// two rows' m, 1 / l and D in registers; key tiles (K and V) through the
+// ring. Per tile: S = Q K^T and dP = dO V^T issued back to back; the
+// exponentials taken while dP's product runs; dS = P (dP - D) scale
+// rounded to bf16 in registers as the A operand of dQ += dS K (K read
+// MN-major, as K1 reads V); that product still runs while the next
+// tile's barrier, copies and S are issued. P itself is never needed, so
+// 1 / l and the scale fold into one factor a row, and a pair left out or
+// pad-filled just gets dS = 0.
+template <int D, int G>
+__global__ void __launch_bounds__(G * wg::kThreads) flash_bwd_dq_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l,
+    const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+    bf16* __restrict__ dq, int h, int n, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t kT = wg::tile_bytes<D>();
+  constexpr int kNT = G * wg::kThreads;
+  constexpr int kBlockRows = G * wg::kRows;
+  const uint32_t sQ = aligned_smem(smem_raw);     // G tiles
+  const uint32_t sO = sQ + G * kT;                // G tiles (dO)
+  const uint32_t sK = sO + G * kT;                // kDqStages tiles
+  const uint32_t sV = sK + kDqStages * kT;        // kDqStages tiles
+
+  const int tid = threadIdx.x;
+  const int grp = tid / wg::kThreads;
+  const int warp = tid % wg::kThreads / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  const int num_blocks = (n + kBlockRows - 1) / kBlockRows;
+  const int q0 = (num_blocks - 1 - blockIdx.y) * kBlockRows;  // heavy first
+  const int wq0 = q0 + grp * wg::kRows;
+  const size_t base = static_cast<size_t>(bh) * n * D;
+  const size_t sbase = static_cast<size_t>(bh) * n;
+  const bf16* kh = k + base;
+  const bf16* vh = v + base;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  const int last_row = min(q0 + kBlockRows, n) - 1;
+  const int num_k = causal ? last_row / kTile + 1 : (n + kTile - 1) / kTile;
+
+  auto load_keys = [&](int it) {            // one copy group, maybe empty
+    if (it < num_k) {
+      const uint32_t at = (it % kDqStages) * kT;
+      wg::load_tile<D, kNT>(sK + at, kh, it * kTile, n, tid);
+      wg::load_tile<D, kNT>(sV + at, vh, it * kTile, n, tid);
+    }
+    wg::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    wg::load_tile<D, kNT>(sQ + i * kT, q + base, q0 + i * wg::kRows, n, tid);
+    wg::load_tile<D, kNT>(sO + i * kT, dout + base, q0 + i * wg::kRows, n,
+                          tid);
+  }
+#pragma unroll
+  for (int it = 0; it < kDqAhead; ++it) load_keys(it);
+
+  // this thread's two rows: pad flag, -m log2(e), scale / l and D (rows
+  // past n: 0, 0, 1, 0; they write nothing)
+  const float sl2 = scale * kLog2e;
+  int row[2];
+  bool qm[2];
+  float nml2[2], cl[2], drow[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = wq0 + 16 * warp + g + 8 * hh;
+    const bool ok = row[hh] < n;
+    qm[hh] = ok && (mask_row == nullptr || mask_row[row[hh]]);
+    nml2[hh] = ok ? -m[sbase + row[hh]] * kLog2e : 0.f;
+    cl[hh] = ok ? scale / l[sbase + row[hh]] : 1.f;
+    drow[hh] = ok ? dstat[sbase + row[hh]] : 0.f;
+  }
+  const bool live_group = wq0 < n;
+  const uint32_t tQ = sQ + grp * kT;
+  const uint32_t tO = sO + grp * kT;
+  float acc[D / 2];
+  zero(acc);
+  uint32_t da[4][4];                                   // dS of the last tile
+  uint32_t kflags = mask_row ? wg::mask_flags(mask_row, 0, n, lane) : 3u;
+
+  for (int it = 0; it < num_k; ++it) {
+    wg::cp_async_wait<kDqAhead - 1>();  // key tile `it` has landed
+    wg::fence_async_shared();
+    __syncthreads();                  // ... for all; tile it - 2's stage is free
+    load_keys(it + kDqAhead);
+    const int k0 = it * kTile;
+    const uint64_t kbits = mask_row ? wg::mask_bits(kflags) : ~0ull;
+    if (mask_row) kflags = wg::mask_flags(mask_row, k0 + kTile, n, lane);
+    if (!live_group || (causal && k0 > wq0 + wg::kRows - 1)) {
+      wg::mma_wait<0>();              // the last dQ += dS K frees its K stage
+      continue;
+    }
+    const uint32_t tK = sK + (it % kDqStages) * kT;
+    const uint32_t tV = sV + (it % kDqStages) * kT;
+
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss_n64(s, wg::desc_k(tQ, kk), wg::desc_k(tK, kk), kk > 0);
+    wg::mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss_n64(dp, wg::desc_k(tO, kk), wg::desc_k(tV, kk), kk > 0);
+    wg::mma_commit();
+    wg::mma_wait<1>();                // S, and the last tile's dQ += dS K
+    wg::hold(s);
+    wg::hold(acc);
+    hold_frags(da);
+
+    // P scale = exp(s scale - m) scale / l while dP's product runs. Only
+    // the diagonal tile is causal-tested, only the last tile ragged-tested,
+    // and pad pairs only where a pad is in view (warp-uniform); a pair
+    // left out or pad-filled gets 0, hence dS = 0
+    const bool diag = causal && k0 + kTile - 1 > wq0;
+    const bool ragged = k0 + kTile > n;
+    const bool pad = mask_row != nullptr &&
+                     __any_sync(0xffffffffu, !(qm[0] && qm[1])) |
+                         (kbits != ~0ull);
+    if (diag || ragged || pad) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            float& x = s[4 * j + 2 * hh + e];
+            const bool keep = (!pad || (qm[hh] && (kbits >> c & 1))) &&
+                              k0 + c < n && !(diag && k0 + c > row[hh]);
+            x = keep ? wg::exp2_approx(fmaf(x, sl2, nml2[hh])) * cl[hh]
+                     : 0.f;
+          }
+    } else {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * hh + e];
+            x = wg::exp2_approx(fmaf(x, sl2, nml2[hh])) * cl[hh];
+          }
+    }
+    wg::mma_wait<0>();                // dP
+    wg::hold(dp);
+
+    // dS = P scale (dP - D), rounded to bf16 as the A operand of
+    // dQ += dS K; waited for at the next tile's S
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          dp[i] = s[i] * (dp[i] - drow[hh]);
+        }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::a_frag(dp, kk, da[kk]);
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs<D>(acc, da[kk], wg::desc_mn(tK, kk));
+    wg::mma_commit();
+  }
+  wg::mma_wait<0>();
+  wg::hold(acc);
+  hold_frags(da);
+
+  if (!live_group) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (row[hh] >= n) continue;
+    bf16* dst = dq + base + static_cast<size_t>(row[hh]) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
 }
 
@@ -870,41 +1076,41 @@ constexpr size_t tiles_bytes(int tiles, int p_tiles) {
           static_cast<size_t>(p_tiles) * kTile * kPStride);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* mask, void* out, void* m, void* l, int bh,
                        int h, int n, float scale, int causal,
                        cudaStream_t stream) {
   const size_t smem = tiles_bytes<D>(3, 1);
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (n + kTile - 1) / kTile);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), static_cast<float*>(m), static_cast<float*>(l), h,
-      n, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(l),
+      h, n, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* m, const void* l,
                       const void* dstat, const void* mask, void* dq, int bh,
                       int h, int n, float scale, int causal,
                       cudaStream_t stream) {
   const size_t smem = tiles_bytes<D>(4, 1);
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (n + kTile - 1) / kTile);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(m), static_cast<const float*>(l),
       static_cast<const float*>(dstat), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(dq), h, n, scale, causal);
+      static_cast<float*>(dq), h, n, scale, causal);
   return cudaGetLastError();
 }
 
@@ -945,6 +1151,27 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),
       static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l),
       h, n, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* m, const void* l,
+                            const void* dstat, const void* mask, void* dq,
+                            int bh, int h, int n, float scale, int causal,
+                            cudaStream_t stream) {
+  constexpr int G = groups<D>();
+  const size_t smem = (2 * G + 2 * kDqStages) * wg::tile_bytes<D>() + 1024;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D, G>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (n + G * wg::kRows - 1) / (G * wg::kRows));
+  kernel<<<grid, G * wg::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(dstat), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dq), h, n, scale, causal);
   return cudaGetLastError();
 }
 
@@ -994,10 +1221,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const int bh = b * h;
   cudaError_t err;
   if (dtype == 0)
-    err = d == 64 ? launch_fwd<float, 64>(q, k, v, mask, out, m, l, bh, h, n,
-                                          scale, causal, s)
-                  : launch_fwd<float, 128>(q, k, v, mask, out, m, l, bh, h, n,
-                                           scale, causal, s);
+    err = d == 64 ? launch_fwd<64>(q, k, v, mask, out, m, l, bh, h, n, scale,
+                                   causal, s)
+                  : launch_fwd<128>(q, k, v, mask, out, m, l, bh, h, n, scale,
+                                    causal, s);
   else
     err = d == 64 ? launch_fwd_wgmma<64>(q, k, v, mask, out, m, l, bh, h, n,
                                          scale, causal, s)
@@ -1019,17 +1246,15 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const int bh = b * h;
   cudaError_t err;
   if (dtype == 0)
-    err = d == 64 ? launch_dq<float, 64>(q, k, v, dout, m, l, dstat, mask, dq,
-                                         bh, h, n, scale, causal, s)
-                  : launch_dq<float, 128>(q, k, v, dout, m, l, dstat, mask,
-                                          dq, bh, h, n, scale, causal, s);
+    err = d == 64 ? launch_dq<64>(q, k, v, dout, m, l, dstat, mask, dq, bh, h,
+                                  n, scale, causal, s)
+                  : launch_dq<128>(q, k, v, dout, m, l, dstat, mask, dq, bh,
+                                   h, n, scale, causal, s);
   else
-    err = d == 64
-              ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, m, l, dstat, mask,
-                                             dq, bh, h, n, scale, causal, s)
-              : launch_dq<__nv_bfloat16, 128>(q, k, v, dout, m, l, dstat,
-                                              mask, dq, bh, h, n, scale,
-                                              causal, s);
+    err = d == 64 ? launch_dq_wgmma<64>(q, k, v, dout, m, l, dstat, mask, dq,
+                                        bh, h, n, scale, causal, s)
+                  : launch_dq_wgmma<128>(q, k, v, dout, m, l, dstat, mask,
+                                         dq, bh, h, n, scale, causal, s);
   return static_cast<int>(err);
 }
 

@@ -24,7 +24,14 @@
 //     arrives (and is kept, weight 1 per row, if none ever does);
 //   * int8 pages: the per-row f32 scales apply outside the dot products
 //     (scores times k_scale, weights times v_scale);
-//   * scores and accumulation in f32.
+//   * scores and accumulation in f32;
+//   * any dh from 1 to 128: the body is compiled for dh 16, 32, 64 and
+//     128, and another dh runs on the next of those widths with the real
+//     dh passed at run time (the EXACT = false bodies): rows are read at
+//     stride dh, lanes past dh hold zero, acc is written at width dh. A
+//     chunk's K (or V) rows are one contiguous run of 8 dh elements, so
+//     they still arrive by 16-byte copies when that run's length is a
+//     multiple of 16 bytes, by 8-byte copies otherwise.
 //
 // Bound: bytes. A launch must read the walked pages of K and V, about
 // sum over slots of ceil(pos/16)*16 * heads * dh * 2 * itemsize (6.2 MB,
@@ -77,6 +84,9 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
 
 // the 16 bytes at `p` as 16 / sizeof(T) floats
 template <typename T>
@@ -96,6 +106,22 @@ __device__ __forceinline__ void unpack(const uint8_t* p,
       for (int b = 0; b < 4; ++b)
         f[4 * i + b] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * b)));
     }
+  }
+}
+
+// this lane's piece of a staged row: its 16 bytes (elements sub * N ..
+// sub * N + N - 1) as N = 16 / sizeof(T) floats; with EXACT false the row
+// is dh elements wide, fewer than the width compiled for, and elements at
+// or past dh read as 0
+template <typename T, int N, bool EXACT>
+__device__ __forceinline__ void row_piece(const uint8_t* row, int sub, int dh,
+                                          float (&f)[N]) {
+  if constexpr (EXACT) {
+    unpack<T>(row + 16 * sub, f);
+  } else {
+    const T* p = reinterpret_cast<const T*>(row) + sub * N;
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[e] = sub * N + e < dh ? to_f(p[e]) : 0.f;
   }
 }
 
@@ -130,14 +156,21 @@ struct Args {
   float* l;
   float* part;       // (b * heads, splits, dh + 2) f32 scratch, or null
   int* counters;     // (b * heads,) int32, zero between launches
-  int heads, page_size, max_pages, L, width, pages_per_split;
+  int heads, dh, page_size, max_pages, L, width, pages_per_split;
   float scale;
 };
 
-// the body of both walks; VISIBLE selects the visible-page list
-template <typename TQ, typename TKV, int DH, bool QUANT, bool VISIBLE>
+// the body of both walks; VISIBLE selects the visible-page list. DH is
+// the width compiled for: the head dim itself when EXACT, else the next
+// width up, with the head dim a.dh < DH
+template <typename TQ, typename TKV, int DH, bool QUANT, bool VISIBLE,
+          bool EXACT>
 __device__ __forceinline__ void paged_decode_body(const Args& a) {
   using S = Shape<TKV, DH>;
+  const int dh = EXACT ? DH : a.dh;
+  const int row_bytes = EXACT ? S::kRowBytes
+                              : dh * static_cast<int>(sizeof(TKV));
+  const int kv_bytes = kChunk * row_bytes;     // a chunk's K (or V) rows
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float sAcc[kWarps][DH];
   __shared__ float sM[kWarps];
@@ -164,11 +197,12 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   const int walk_len = VISIBLE ? a.visible_cnt[slot] : a.pos[slot];
   const int sub = lane % S::kLanes;       // this lane's 16 bytes of a row
   const int rg = lane / S::kLanes;        // this lane's row of a pass
-  const size_t qh = (static_cast<size_t>(slot) * a.heads + h) * DH;
+  const size_t qh = (static_cast<size_t>(slot) * a.heads + h) * dh;
   const TQ* q = static_cast<const TQ*>(a.q) + qh + sub * S::kVec;
   float qr[S::kVec];
 #pragma unroll
-  for (int e = 0; e < S::kVec; ++e) qr[e] = to_f(q[e]);
+  for (int e = 0; e < S::kVec; ++e)
+    qr[e] = EXACT || sub * S::kVec + e < dh ? to_f(q[e]) : 0.f;
   const int first = split * pps;
   const int* vis_row =
       VISIBLE ? a.visible + static_cast<size_t>(slot) * a.width : nullptr;
@@ -215,15 +249,23 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   // group, maybe empty
   auto load_chunk = [&](int c, int stage) {
     if (c < nchunks) {
-      // first row of the chunk in the pool (P, heads, page_size, DH)
+      // first row of the chunk in the pool (P, heads, page_size, dh)
       const size_t row0 =
           (static_cast<size_t>(sPage[c / per_page]) * a.heads + h) * ps +
           (c % per_page) * kChunk;
       const uint32_t dst = wg::smem_addr(ring + stage * S::kStageBytes);
-      for (int i = lane; i < S::kKVBytes / 16; i += 32) {
-        wg::cp_async16(dst + 16 * i, kp + row0 * S::kRowBytes + 16 * i, true);
-        wg::cp_async16(dst + S::kKVBytes + 16 * i,
-                       vp + row0 * S::kRowBytes + 16 * i, true);
+      const uint8_t* ksrc = kp + row0 * row_bytes;
+      const uint8_t* vsrc = vp + row0 * row_bytes;
+      if (EXACT || kv_bytes % 16 == 0) {
+        for (int i = lane; i < kv_bytes / 16; i += 32) {
+          wg::cp_async16(dst + 16 * i, ksrc + 16 * i, true);
+          wg::cp_async16(dst + S::kKVBytes + 16 * i, vsrc + 16 * i, true);
+        }
+      } else {                        // 8 dh elements: a multiple of 8 bytes
+        for (int i = lane; i < kv_bytes / 8; i += 32) {
+          wg::cp_async8(dst + 8 * i, ksrc + 8 * i);
+          wg::cp_async8(dst + S::kKVBytes + 8 * i, vsrc + 8 * i);
+        }
       }
       if (QUANT && lane < 4) {
         const float* src = (lane < 2 ? a.k_scales : a.v_scales) + row0 +
@@ -264,7 +306,7 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
       float part = 0.f;
       if (live) {
         float kf[S::kVec];
-        unpack<TKV>(st + r * S::kRowBytes + 16 * sub, kf);
+        row_piece<TKV, S::kVec, EXACT>(st + r * row_bytes, sub, dh, kf);
 #pragma unroll
         for (int e = 0; e < S::kVec; ++e) part += qr[e] * kf[e];
       }
@@ -293,7 +335,8 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
       l += w;
       const float wv = QUANT ? w * ksc[kChunk + r] : w;
       float vf[S::kVec];
-      unpack<TKV>(st + S::kKVBytes + r * S::kRowBytes + 16 * sub, vf);
+      row_piece<TKV, S::kVec, EXACT>(st + S::kKVBytes + r * row_bytes, sub,
+                                     dh, vf);
 #pragma unroll
       for (int e = 0; e < S::kVec; ++e) acc[e] += wv * vf[e];
     }
@@ -340,7 +383,7 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   }
   const size_t so = static_cast<size_t>(slot) * a.heads + h;
   if (nlive == 1) {
-    if (tid < DH) a.acc[qh + tid] = out;
+    if (tid < dh) a.acc[qh + tid] = out;
     if (tid == 0) {
       a.m[so] = big;
       a.l[so] = total;
@@ -351,11 +394,11 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   // several splits: this one's partials to the scratch; the last block of
   // the (slot, head) to finish merges them all
   float* mine = a.part + (static_cast<size_t>(bhid) * splits + split) *
-                             (DH + 2);
-  if (tid < DH) mine[tid] = out;
+                             (dh + 2);
+  if (tid < dh) mine[tid] = out;
   if (tid == 0) {
-    mine[DH] = big;
-    mine[DH + 1] = total;
+    mine[dh] = big;
+    mine[dh + 1] = total;
   }
   __threadfence();
   __syncthreads();
@@ -363,18 +406,18 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   __syncthreads();
   if (!sLast) return;
   __threadfence();
-  const float* all = a.part + static_cast<size_t>(bhid) * splits * (DH + 2);
+  const float* all = a.part + static_cast<size_t>(bhid) * splits * (dh + 2);
   float gbig = kFill;
   for (int sp = 0; sp < nlive; ++sp)
-    gbig = fmaxf(gbig, __ldcg(all + sp * (DH + 2) + DH));
+    gbig = fmaxf(gbig, __ldcg(all + sp * (dh + 2) + dh));
   float gacc = 0.f, gl = 0.f;
   for (int sp = 0; sp < nlive; ++sp) {
-    const float* p = all + sp * (DH + 2);
-    const float fs = expf(__ldcg(p + DH) - gbig);
-    gl += __ldcg(p + DH + 1) * fs;
-    if (tid < DH) gacc += __ldcg(p + tid) * fs;
+    const float* p = all + sp * (dh + 2);
+    const float fs = expf(__ldcg(p + dh) - gbig);
+    gl += __ldcg(p + dh + 1) * fs;
+    if (tid < dh) gacc += __ldcg(p + tid) * fs;
   }
-  if (tid < DH) a.acc[qh + tid] = gacc;
+  if (tid < dh) a.acc[qh + tid] = gacc;
   if (tid == 0) {
     a.m[so] = gbig;
     a.l[so] = gl;
@@ -384,22 +427,23 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
 
 // the prefix walk and the visible walk, as two kernels so that a profile
 // tells them apart
-template <typename TQ, typename TKV, int DH, bool QUANT>
+template <typename TQ, typename TKV, int DH, bool QUANT, bool EXACT>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
-  paged_decode_body<TQ, TKV, DH, QUANT, false>(a);
+  paged_decode_body<TQ, TKV, DH, QUANT, false, EXACT>(a);
 }
 
-template <typename TQ, typename TKV, int DH, bool QUANT>
+template <typename TQ, typename TKV, int DH, bool QUANT, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_visible_kernel(Args a) {
-  paged_decode_body<TQ, TKV, DH, QUANT, true>(a);
+  paged_decode_body<TQ, TKV, DH, QUANT, true, EXACT>(a);
 }
 
-template <typename TQ, typename TKV, int DH, bool QUANT>
+template <typename TQ, typename TKV, int DH, bool QUANT, bool EXACT>
 cudaError_t launch(const Args& a, int b, int splits, cudaStream_t stream) {
   using S = Shape<TKV, DH>;
-  auto kernel = a.visible ? paged_decode_visible_kernel<TQ, TKV, DH, QUANT>
-                          : paged_decode_kernel<TQ, TKV, DH, QUANT>;
+  auto kernel =
+      a.visible ? paged_decode_visible_kernel<TQ, TKV, DH, QUANT, EXACT>
+                : paged_decode_kernel<TQ, TKV, DH, QUANT, EXACT>;
   const size_t smem = kWarps * S::kStages * S::kStageBytes +
                       2 * sizeof(int) * a.pages_per_split +
                       static_cast<size_t>(a.pages_per_split) * a.page_size;
@@ -413,23 +457,31 @@ cudaError_t launch(const Args& a, int b, int splits, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// dh 16, 32, 64 and 128 run their own bodies; any other dh up to 128 the
+// body of the next of those widths, reading rows at stride dh
 template <typename TQ, typename TKV, bool QUANT>
 cudaError_t by_dim(int dh, const Args& a, int b, int splits,
                    cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch<TQ, TKV, 16, QUANT>(a, b, splits, stream);
-    case 32: return launch<TQ, TKV, 32, QUANT>(a, b, splits, stream);
-    case 64: return launch<TQ, TKV, 64, QUANT>(a, b, splits, stream);
-    case 128: return launch<TQ, TKV, 128, QUANT>(a, b, splits, stream);
-    default: return cudaErrorInvalidValue;
+    case 16: return launch<TQ, TKV, 16, QUANT, true>(a, b, splits, stream);
+    case 32: return launch<TQ, TKV, 32, QUANT, true>(a, b, splits, stream);
+    case 64: return launch<TQ, TKV, 64, QUANT, true>(a, b, splits, stream);
+    case 128: return launch<TQ, TKV, 128, QUANT, true>(a, b, splits, stream);
+    default: break;
   }
+  if (dh < 1 || dh > 128) return cudaErrorInvalidValue;
+  if (dh < 16) return launch<TQ, TKV, 16, QUANT, false>(a, b, splits, stream);
+  if (dh < 32) return launch<TQ, TKV, 32, QUANT, false>(a, b, splits, stream);
+  if (dh < 64) return launch<TQ, TKV, 64, QUANT, false>(a, b, splits, stream);
+  return launch<TQ, TKV, 128, QUANT, false>(a, b, splits, stream);
 }
 
 }  // namespace
 
 // dtype codes shared with ops/paged_attention.py: 0 float32, 1 bfloat16,
 // 2 int8. Pointers are device pointers; every array is contiguous:
-// q (b, heads, dh); k/v pages (P, heads, page_size, dh), 16-byte aligned;
+// q (b, heads, dh), 1 <= dh <= 128; k/v pages (P, heads, page_size, dh),
+// 16-byte aligned;
 // scales (P, heads, page_size) float32, 16-byte aligned (int8 pages only,
 // else null); block_tables (b, max_pages) int32; pos (b,) int32; allowed
 // (b, L) uint8; visible (b, width) int32 logical page ids and visible_cnt
@@ -467,7 +519,7 @@ extern "C" int paged_decode_attention(
          static_cast<const int*>(visible),
          static_cast<const int*>(visible_cnt), static_cast<float*>(acc),
          static_cast<float*>(m), static_cast<float*>(l),
-         static_cast<float*>(part), static_cast<int*>(counters), heads,
+         static_cast<float*>(part), static_cast<int*>(counters), heads, dh,
          page_size, max_pages, L, width, pages_per_split, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -2,8 +2,8 @@
 // asynchronously into shared memory in wgmma's 128-byte-swizzled layout,
 // and warpgroup matrix products (wgmma.mma_async) on them, accumulating
 // in f32 registers. Used by the bf16 bodies of flash_attention.cu's K1
-// (forward) and K2b split (dk, dv) and of block_sparse.cu's K3; the
-// CUDA-core tile code of tile.cuh serves every other body, and
+// (forward), K2a (dq) and K2b split (dk, dv) and of block_sparse.cu's K3;
+// the CUDA-core tile code of tile.cuh serves every other body, and
 // paged_attention.cu (K4) uses only the cp.async copies.
 //
 // Layout. A tile is 64 rows of D bf16 values (D = 64 or 128), one row per
@@ -59,6 +59,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
                : "memory");
 }
 

@@ -121,11 +121,13 @@ def _entry():
     return fn
 
 
+@flash_ops.any_dim_head
 def block_sparse_attention_fwd(q, k, v, *, scale: float, causal: bool,
                                block: int = 16, num_local_blocks: int = 4,
                                global_blocks: Tuple[int, ...] = (0,),
                                mask: Optional[torch.Tensor] = None):
-    """K3: (out, m, l). The CUDA kernel for CUDA tensors, the plain
+    """K3: (out, m, l). The CUDA kernel for CUDA tensors (any d up to
+    128, through the flash kernels' ``any_dim_head``), the plain
     version for CPU tensors. Counts launches in
     ``block_sparse_attention_fwd.launches``."""
     if q.device.type == "cpu":

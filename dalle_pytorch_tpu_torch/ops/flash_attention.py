@@ -33,11 +33,21 @@ What bounds the kernels on the H100: operations. At the north training
 shapes (b 8, h 8, n 1280, d 64, causal) K1 does ~13.4 GFLOP of tile
 products against ~42 MB moved in bf16, above the ~295 flops per byte
 where the tensor cores, not memory, set the limit; K2a and K2b do 1.5x
-and 2x (2.5x fused) K1's products. In bfloat16, K1 and K2b split run on
-the tensor cores (wgmma over asynchronously staged bf16 tiles); float32,
-K2a and fused K2b run CUDA-core FMAs (``csrc/flash_attention.cu`` says
-how). Like the Pallas bodies, every version rounds p and ds to the
-input dtype before the second product of each pair.
+and 2x (2.5x fused) K1's products. In bfloat16, K1, K2a and K2b split
+run on the tensor cores (wgmma over asynchronously staged bf16 tiles,
+``csrc/wgmma.cuh``); float32 and fused K2b run CUDA-core FMAs
+(``csrc/flash_attention.cu`` says how). Like the Pallas bodies, every
+version rounds p and ds to the input dtype before the second product of
+each pair.
+
+Head dims: the kernels are compiled for d 64 and 128 (``KERNEL_DIM_HEADS``),
+and each wrapper runs any other d up to 128 through
+``any_dim_head``: q, k, v and dout zero-padded to the next of
+those widths, the kernel launched, out, dq, dk and dv sliced back. That
+is exact (zero columns add nothing to q.k or dout.v), and ``scale``, a
+wrapper argument, still comes from the real d. d 64 and 128 take no
+copy; above 128 the wrappers raise (a 256-wide bf16 tile ring does not
+fit in shared memory as K1 and K2b lay it out).
 
 ``D = sum(dout * out)`` stays plain PyTorch, as in JAX (``:476-477``).
 The kernels take their own tile (64 query rows by 64 key columns,
@@ -58,7 +68,10 @@ from dalle_pytorch_tpu_torch.ops import build
 
 FILL = -3.0e38
 BWD_IMPLS = ("xla", "pallas", "pallas_fused")
-SUPPORTED_DIM_HEADS = (64, 128)
+# the head dims the kernels are compiled for, and the largest d the
+# wrappers take (any other d up to it runs zero-padded: any_dim_head)
+KERNEL_DIM_HEADS = (64, 128)
+MAX_DIM_HEAD = 128
 # dtype codes of the C entry points
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -205,6 +218,63 @@ def blockwise_attention_bwd(q, k, v, mask, dout, out, softmax_stats, *,
 
 
 # ---------------------------------------------------------------------------
+# head dims: any d up to MAX_DIM_HEAD on the kernels' widths
+# ---------------------------------------------------------------------------
+
+def kernel_dim_head(d: int) -> int:
+    """The width the kernels run a d-wide head at: d itself for 64 and
+    128, else the next of them. Raises ``ValueError`` outside 1 ..
+    ``MAX_DIM_HEAD``."""
+    if not 1 <= d <= MAX_DIM_HEAD:
+        raise ValueError(f"dim_head {d}: the kernels take 1 to "
+                         f"{MAX_DIM_HEAD} (a wider bf16 tile ring does not "
+                         f"fit in shared memory)")
+    return next(w for w in KERNEL_DIM_HEADS if d <= w)
+
+
+def at_kernel_dim_head(fn: Callable, q: torch.Tensor, *args, **kw):
+    """``fn(q, *args, **kw)`` at ``kernel_dim_head(d)``: every 4-D tensor
+    argument (q, k, v, dout) zero-padded along its last axis, every 4-D
+    tensor result (out, dq, dk, dv) sliced back to d; m, l, D and the
+    mask pass as they are. Exact, since the zero columns add nothing to
+    q.k or dout.v and the results' padded columns are zero. ``scale``
+    must come from the caller: from the real d, never the padded one.
+    At d 64 and 128 it is ``fn(q, *args, **kw)`` on the tensors given."""
+    d = q.shape[-1]
+    width = kernel_dim_head(d)
+    if width == d:
+        return fn(q, *args, **kw)
+
+    def pad(t):
+        if isinstance(t, torch.Tensor) and t.dim() == 4:
+            return torch.nn.functional.pad(t, (0, width - d))
+        return t
+
+    def cut(t):
+        if isinstance(t, torch.Tensor) and t.dim() == 4:
+            return t[..., :d].contiguous()
+        return t
+
+    res = fn(pad(q), *(pad(a) for a in args), **kw)
+    return tuple(cut(t) for t in res) if isinstance(res, tuple) else cut(res)
+
+
+def any_dim_head(wrapper: Callable) -> Callable:
+    """Lets a kernel wrapper take any d up to ``MAX_DIM_HEAD`` on the card:
+    a CUDA call at another width than ``KERNEL_DIM_HEADS`` runs through
+    ``at_kernel_dim_head``; CPU calls and the kernels' own widths reach
+    ``wrapper`` as they are. Its first argument is q."""
+
+    @functools.wraps(wrapper)
+    def run(q, *args, **kw):
+        if q.device.type == "cuda" and q.shape[-1] not in KERNEL_DIM_HEADS:
+            return at_kernel_dim_head(run, q, *args, **kw)
+        return wrapper(q, *args, **kw)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -238,9 +308,10 @@ def _kernel_args(fn_name, q, k, v, mask, dout=None, stats=()):
                          f"{[str(t.dtype) for t in [q] + same]}")
     if any(t.dtype != torch.float32 for t in stats):
         raise ValueError(f"{fn_name}: m, l and D must be float32")
-    if q.shape[-1] not in SUPPORTED_DIM_HEADS:
+    if q.shape[-1] not in KERNEL_DIM_HEADS:
         raise ValueError(f"{fn_name}: dim_head {q.shape[-1]} is not one of "
-                         f"the kernel's {SUPPORTED_DIM_HEADS}")
+                         f"the kernel's {KERNEL_DIM_HEADS} (the wrappers "
+                         f"pad other widths: any_dim_head)")
     tensors = [q, *same, *stats] + ([] if mask is None else [mask])
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{fn_name}: every input must lie on q's device")
@@ -259,11 +330,12 @@ def _check_rc(fn_name: str, rc: int) -> None:
                            f"error {rc}")
 
 
+@any_dim_head
 def flash_attention_fwd(q, k, v, *, scale: float, causal: bool,
                         mask: Optional[torch.Tensor] = None):
-    """K1: (out, m, l). The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Counts launches in
-    ``flash_attention_fwd.launches``."""
+    """K1: (out, m, l). The CUDA kernel for CUDA tensors (any d up to
+    128, ``any_dim_head``), the plain version for CPU tensors.
+    Counts launches in ``flash_attention_fwd.launches``."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, scale=scale,
                                          causal=causal, mask=mask)
@@ -283,11 +355,13 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool,
     return out, m, l
 
 
+@any_dim_head
 def flash_attention_bwd_dq(q, k, v, dout, m, l, dstat, *, scale: float,
                            causal: bool,
                            mask: Optional[torch.Tensor] = None):
-    """K2a: dq in q's dtype. The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Counts ``flash_attention_bwd_dq.launches``."""
+    """K2a: dq in q's dtype. The CUDA kernel for CUDA tensors (any d up
+    to 128, ``any_dim_head``), the plain version for CPU tensors.
+    Counts ``flash_attention_bwd_dq.launches``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, dout, m, l, dstat,
                                             scale=scale, causal=causal,
@@ -307,6 +381,7 @@ def flash_attention_bwd_dq(q, k, v, dout, m, l, dstat, *, scale: float,
     return dq
 
 
+@any_dim_head
 def flash_attention_bwd_dkv(q, k, v, dout, m, l, dstat, *, scale: float,
                             causal: bool,
                             mask: Optional[torch.Tensor] = None,
@@ -314,8 +389,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, m, l, dstat, *, scale: float,
     """K2b: (dk, dv, dq f32 or None). Split mode (``with_dq=False``) or
     fused mode, where every key-tile block adds its share of dq into one
     f32 buffer with ``atomicAdd`` — so the fused dq's summation order
-    changes from run to run. The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Counts ``flash_attention_bwd_dkv.launches``."""
+    changes from run to run. The CUDA kernel for CUDA tensors (any d up
+    to 128, ``any_dim_head``), the plain version for CPU tensors.
+    Counts ``flash_attention_bwd_dkv.launches``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, dout, m, l, dstat,
                                              scale=scale, causal=causal,

@@ -13,7 +13,8 @@ that merge in plain PyTorch, for the tests.
 
 The contract both implement, taken from the TPU kernel:
 
-* q ``(b, heads, dh)`` in the param dtype; one layer's pools
+* q ``(b, heads, dh)`` in the param dtype, any dh up to 128 on the card
+  (``MAX_DIM_HEAD``); one layer's pools
   ``(P, heads, page_size, dh)`` in float32 or bfloat16 — or int8 with
   ``(P, heads, page_size)`` float32 ``k_scales``/``v_scales``;
   ``block_tables (b, max_pages)`` int32, ``pos (b,)`` int32 and
@@ -51,9 +52,12 @@ from typing import Optional, Tuple
 import torch
 
 from dalle_pytorch_tpu_torch.ops import build
+# the kernel takes any dim_head up to the flash kernels' limit: dh 16, 32,
+# 64 and 128 run their own bodies, any other the next of those, reading
+# rows at stride dh
+from dalle_pytorch_tpu_torch.ops.flash_attention import MAX_DIM_HEAD
 
 FILL = -torch.finfo(torch.float32).max
-SUPPORTED_DIM_HEADS = (16, 32, 64, 128)
 # dtype codes of the C entry point
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -227,9 +231,9 @@ def paged_decode_attention(
               v_scales, visible, visible_cnt)
     b, heads, dh = q.shape
     page_size = k_pages.shape[2]
-    if dh not in SUPPORTED_DIM_HEADS:
-        raise ValueError(f"dim_head {dh} is not one of the kernel's "
-                         f"{SUPPORTED_DIM_HEADS}")
+    if not 1 <= dh <= MAX_DIM_HEAD:
+        raise ValueError(f"dim_head {dh}: the kernel takes 1 to "
+                         f"{MAX_DIM_HEAD}")
     q_code = _DTYPE_CODE.get(q.dtype)
     kv_code = _DTYPE_CODE.get(k_pages.dtype)
     if q_code not in (0, 1) or kv_code is None \
@@ -257,6 +261,7 @@ def paged_decode_attention(
         vis = visible.to(torch.int32).contiguous()
         cnt = visible_cnt.to(torch.int32).contiguous()
     # the kernel stages 8-row runs of pages and scales by 16-byte copies
+    # (8-byte ones for a run whose length is not a multiple of 16)
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("k_scales", ksc), ("v_scales", vsc)):
         if t is not None and t.data_ptr() % 16:

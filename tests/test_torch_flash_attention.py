@@ -218,3 +218,133 @@ def test_bf16_plain_versions_round_like_the_pallas_kernels(kind, masked,
         share = float((diff > 0).mean())
         assert share <= share_max, (kind, share)
         assert float(diff.max()) <= diff_max, (kind, float(diff.max()))
+
+
+# -- head dims other than the kernels' 64 and 128 ----------------------------
+# On the card each wrapper runs such a d through ``at_kernel_dim_head``:
+# q, k, v and dout zero-padded to the next kernel width, the kernel, the
+# results sliced back. The helper is plain PyTorch, so here it wraps the
+# kernels' plain versions: padded and sliced they must give the unpadded
+# plain versions' values. The zero columns add exact zeros to every dot
+# product, so only the summation blocking of the wider products may move
+# an f32 result, by a rounding: rtol 1e-6 (atol 1e-6 for values near 0).
+
+PAD_DIMS = (16, 24, 48, 96)
+PAD_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def pad_inputs(d, dtype, masked, n=40, seed=3):
+    rs = np.random.RandomState(seed + d)
+    q, k, v, do = (torch.tensor(rs.randn(2, 2, n, d), dtype=torch.float32)
+                   .to(dtype) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.ones((2, n), dtype=torch.bool)
+        mask[0, :5] = False           # fully padded leading query rows
+        mask[1, n - 9:] = False       # a padded tail
+    return q, k, v, do, mask
+
+
+def plain_call(kind, q, k, v, do, mask, causal, pad):
+    """One plain version's results, through the padding helper or not."""
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=causal, mask=mask)
+    run = TF.at_kernel_dim_head if pad else \
+        (lambda fn, *a, **k_: fn(*a, **k_))
+    if kind == "fwd":
+        return run(TF.flash_attention_fwd_plain, q, k, v, **kw)
+    out, m, l = TF.flash_attention_fwd_plain(q, k, v, **kw)
+    dstat = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, m, l, dstat)
+    if kind == "dq":
+        return (run(TF.flash_attention_bwd_dq_plain, *args, **kw),)
+    dk, dv, dq = run(TF.flash_attention_bwd_dkv_plain, *args,
+                     with_dq=kind == "dkv_fused", **kw)
+    return (dk, dv) if dq is None else (dk, dv, dq)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", PAD_DIMS)
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv", "dkv_fused"])
+def test_padding_to_kernel_width_is_exact(kind, d, dtype, causal, masked):
+    dtype = getattr(torch, dtype)
+    q, k, v, do, mask = pad_inputs(d, dtype, masked)
+    got = plain_call(kind, q, k, v, do, mask, causal, pad=True)
+    want = plain_call(kind, q, k, v, do, mask, causal, pad=False)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.is_contiguous()
+        torch.testing.assert_close(g.float(), w.float(), **PAD_TOL)
+
+
+@pytest.mark.parametrize("d,width", [(1, 64), (16, 64), (63, 64), (64, 64),
+                                     (65, 128), (96, 128), (128, 128)])
+def test_kernel_dim_head_is_the_next_kernel_width(d, width):
+    assert TF.kernel_dim_head(d) == width
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_padding_helper_takes_no_copy_at_kernel_widths(d):
+    q, k, v, do, mask = pad_inputs(d, torch.float32, True)
+    seen = []
+
+    def spy(*args, **kw):
+        seen.extend(args)
+        return args[0]
+
+    assert TF.at_kernel_dim_head(spy, q, k, v, do, mask=mask) is q
+    assert all(a is b for a, b in zip(seen, (q, k, v, do)))
+
+
+@pytest.mark.parametrize("d", [0, 129, 192])
+def test_padding_helper_names_the_limit_above_128(d):
+    q = torch.zeros((1, 1, 8, d))
+    with pytest.raises(ValueError, match="dim_head .* 1 to 128"):
+        TF.at_kernel_dim_head(TF.flash_attention_fwd_plain, q, q, q,
+                              scale=1.0, causal=True)
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "pad"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 48])
+def test_padded_plain_versions_match_jax_kernels(d, causal, mask_kind):
+    """Padded to the kernel width and sliced back, the plain K1, K2a and
+    K2b (split and fused) against JAX's Pallas kernels at the real d in
+    interpret mode: float32, rtol/atol 1e-5 (the module's tolerance)."""
+    n, tile = 40, 16
+    rs = np.random.RandomState(d)
+    q, k, v, do = (rs.randn(2, 2, n, d).astype(np.float32) for _ in range(4))
+    mask = None
+    if mask_kind == "pad":
+        mask = np.ones((2, n), bool)
+        mask[0, :5] = False
+        mask[1, n - 9:] = False
+    scale = d ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    jm = None if mask is None else jnp.asarray(mask)
+    out, (m, l) = JF._flash_fwd(jq, jk, jv, jm, scale, causal, tile, tile,
+                                True)
+    bwd = {fused: JF._pallas_attention_bwd(
+        jq, jk, jv, jm, jdo, out, (m, l), scale=scale, causal=causal,
+        block_q=tile, block_k=tile, interpret=True, fused=fused)
+        for fused in (False, True)}
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    tm = None if mask is None else torch.tensor(mask)
+    kw = dict(scale=scale, causal=causal, mask=tm)
+    t_out, t_m, t_l = TF.at_kernel_dim_head(TF.flash_attention_fwd_plain,
+                                            tq, tk, tv, **kw)
+    for g, w in ((t_out, out), (t_m, m), (t_l, l)):
+        close(g, w)
+    dstat = (tdo * t_out).sum(-1)
+    args = (tq, tk, tv, tdo, t_m, t_l, dstat)
+    dq = TF.at_kernel_dim_head(TF.flash_attention_bwd_dq_plain, *args, **kw)
+    dk, dv, _ = TF.at_kernel_dim_head(TF.flash_attention_bwd_dkv_plain,
+                                      *args, **kw)
+    for g, w in zip((dq, dk, dv), bwd[False]):
+        close(g, w)
+    dk, dv, dq32 = TF.at_kernel_dim_head(TF.flash_attention_bwd_dkv_plain,
+                                         *args, with_dq=True, **kw)
+    for g, w in zip((dq32, dk, dv), bwd[True]):
+        close(g, w)

@@ -15,9 +15,11 @@ The flash kernels (K1, K2a, K2b) against their plain versions: float32
 1,280 terms in another order, and the fused dq adds its key-tile shares
 with atomics in an order that changes from run to run; bfloat16 to
 rtol/atol 2e-2, one bf16 rounding of the output (2^-8 relative) on
-either side plus the f32 differences (bfloat16 K1 and K2b split run on
-the tensor cores, and both sides round p and ds to bf16 before the
-second product of each pair; l to 1e-4 in both types).
+either side plus the f32 differences (bfloat16 K1, K2a and K2b split run
+on the tensor cores, and both sides round p and ds to bf16 before the
+second product of each pair; l to 1e-4 in both types), the bfloat16
+gradients dq, dk and dv with their atol tightened to 0.05 x their RMS
+where that is below 2e-2 (``assert_grad_close``).
 
 The block-sparse kernel K3 (bfloat16 on the tensor cores, float32 on
 CUDA cores; both sides round p to the input dtype before the PV product)
@@ -71,8 +73,11 @@ def check_partials(got, want, mag, rtol, atol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("page_size", [8, 16])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 17, 24, 32, 48, 64, 128])
 def test_kernel_matches_plain(cuda, page_size, dtype, dh):
+    """dh 16, 32, 64 and 128 run their own bodies; 17, 24 and 48 the
+    bodies of 32 and 64 with the real dh at run time (rows at stride dh;
+    int8 at dh 17 stages its rows by 8-byte copies)."""
     rs = np.random.RandomState(dh + page_size)
     slots, heads, L = 5, 3, 1280
     mp = L // page_size
@@ -183,8 +188,8 @@ def test_prefix_walk_across_split_boundaries(cuda, page_size, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 1, 48), device=cuda)
-    pages = torch.zeros((2, 1, 8, 48), device=cuda)
+    q = torch.zeros((1, 1, 192), device=cuda)
+    pages = torch.zeros((2, 1, 8, 192), device=cuda)
     bt = torch.zeros((1, 3), dtype=torch.int32, device=cuda)
     pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
     allowed = torch.zeros((1, 24), dtype=torch.bool, device=cuda)
@@ -251,11 +256,28 @@ def assert_flash_close(got, want, dtype):
                                atol=atol)
 
 
+def assert_grad_close(got, want, dtype):
+    """A gradient (dq, dk, dv) as ``chip_smoke.py`` holds it: in bfloat16
+    the atol is tightened to 0.05 x its RMS where that is below 2e-2,
+    since a typical |dq| of a long walk's late rows is below 2e-2
+    itself."""
+    rtol, atol = flash_tols(dtype)
+    if dtype == torch.bfloat16:
+        atol = min(atol, 0.05 * float(want.float().square().mean().sqrt()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+# head dims: 64 and 128 are the kernels' own widths, the others run
+# zero-padded to the next of them (at_kernel_dim_head)
+DIM_HEADS = [16, 32, 48, 64, 96, 128]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [37, 64, 200])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", DIM_HEADS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernels_match_plain(cuda, dtype, d, n, masked, causal):
     dtype = getattr(torch, dtype)
@@ -290,11 +312,8 @@ def test_flash_kernels_match_plain(cuda, dtype, d, n, masked, causal):
             FA.flash_attention_bwd_dkv.launches) == (
                 before[0] + 1, before[1] + 1, before[2] + 2)
     for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p), (dk_f, dk_p),
-                      (dv_f, dv_p)):
-        assert_flash_close(got, want, dtype)
-    torch.testing.assert_close(dq_f, dq32_p, rtol=2e-4 if dtype ==
-                               torch.float32 else 2e-2,
-                               atol=2e-4 if dtype == torch.float32 else 2e-2)
+                      (dv_f, dv_p), (dq_f, dq32_p)):
+        assert_grad_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -327,8 +346,8 @@ def test_flash_fwd_and_split_dkv_match_plain_over_long_walks(
     if masked and causal:
         fill32 = torch.tensor(FA.FILL, dtype=torch.float32).item()
         assert float(m[0, 0, 3]) == fill32 and float(l[0, 0, 3]) == 4.0
-    assert_flash_close(dk, dk_p, dtype)
-    assert_flash_close(dv, dv_p, dtype)
+    assert_grad_close(dk, dk_p, dtype)
+    assert_grad_close(dv, dv_p, dtype)
 
 
 @pytest.mark.cuda
@@ -348,8 +367,9 @@ def test_flash_attention_grads_match_blockwise_on_card(cuda, bwd_impl):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
-    q = torch.zeros((1, 1, 16, 48), device=cuda)
-    with pytest.raises(ValueError, match="dim_head"):
+    q = torch.zeros((1, 1, 16, 192), device=cuda)
+    with pytest.raises(ValueError, match="dim_head 192: the kernels take 1 "
+                                         "to 128"):
         FA.flash_attention_fwd(q, q, q, scale=1.0, causal=True)
     h = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32"):
@@ -357,6 +377,97 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     t = torch.zeros((1, 1, 64, 16), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_attention_fwd(t, t, t, scale=1.0, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", ["none", "all_true", "pad"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n", [37, 64, 65, 200, 1280])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_dq_kernel_matches_plain(cuda, d, n, causal, mask_kind):
+    """K2a's bfloat16 body on the tensor cores over walks of one tile
+    (n 37, 64), one tile and one row (65), a ragged fourth tile (200) and
+    the north length (1280, twenty tiles: every stage of the key ring);
+    no mask, the all-True mask training builds, and text padding with
+    fully padded query rows, as DALLE batches carry it."""
+    q, k, v, do, _ = flash_inputs(cuda, torch.bfloat16, n, d, False, b=2,
+                                  h=2)
+    mask = None
+    if mask_kind != "none":
+        mask = torch.ones((2, n), dtype=torch.bool, device=cuda)
+    if mask_kind == "pad":
+        text = min(n, 40)
+        mask[0, 1:text] = False        # caption of one token
+        mask[1, text // 2:text] = False
+    kw = dict(scale=d ** -0.5, causal=causal, mask=mask)
+    out, m, l = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    dstat = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, m, l, dstat)
+    before = FA.flash_attention_bwd_dq.launches
+    dq = FA.flash_attention_bwd_dq(*args, **kw)
+    assert FA.flash_attention_bwd_dq.launches == before + 1
+    dq_p = FA.flash_attention_bwd_dq_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.bfloat16 and bool(torch.isfinite(dq).all())
+    assert_grad_close(dq, dq_p, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_dalle_train_step_on_card_matches_cpu(cuda, dtype):
+    """One training step of ``bench.py``'s tiny DALLE (dim_head 16, a
+    block-sparse layer then a dense one) on the card, through K1, K2a,
+    K2b and K3 at d 16, against the same step on the CPU (the kernels'
+    plain versions), from the same weights and keys. float32 as the smoke
+    holds the depth-2 step: loss rtol 1e-5, each gradient to 1e-4 of its
+    largest element; bfloat16 to the flash kernels' 2e-2 of each."""
+    import copy
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
+    dt = getattr(torch, dtype)
+    vcfg = TV.VAEConfig(image_size=16, num_tokens=32, codebook_dim=32,
+                        num_layers=2, hidden_dim=8)
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
+                         text_seq_len=8, heads=2, dim_head=16,
+                         sparse_attn=(True, False), attn_impl="flash",
+                         attn_bwd_impl="pallas", sparse_impl="pallas")
+    model = TD.dalle_init(cfg, seed=0, dtype=dt, device="cpu")
+    enc = TV.vae_encoder_init(vcfg, seed=1, dtype=dt, device="cpu")
+    rs = np.random.RandomState(3)
+    mask = np.ones((4, 8), bool)
+    mask[1, 5:] = False
+    batch = {"text": torch.tensor(rs.randint(1, 64, (4, 8))),
+             "mask": torch.tensor(mask),
+             "image": torch.tensor(rs.uniform(-1, 1, (4, 16, 16, 3)),
+                                   dtype=torch.float32)}
+    got = {}
+    for dev in ("cpu", cuda):
+        m_ = copy.deepcopy(model).to(dev)
+        e_ = copy.deepcopy(enc).to(dev)
+        b_ = {k: v.to(dev) for k, v in batch.items()}
+        launches = (FA.flash_attention_fwd.launches,
+                    FA.flash_attention_bwd_dq.launches,
+                    FA.flash_attention_bwd_dkv.launches,
+                    BS.block_sparse_attention_fwd.launches)
+        loss = dalle_loss_fn(e_)(m_, b_, prng.prng_key(5, device=dev))
+        loss.backward()
+        ran = tuple(a - b for a, b in zip(
+            (FA.flash_attention_fwd.launches,
+             FA.flash_attention_bwd_dq.launches,
+             FA.flash_attention_bwd_dkv.launches,
+             BS.block_sparse_attention_fwd.launches), launches))
+        assert ran == ((0, 0, 0, 0) if dev == "cpu" else (1, 1, 1, 1))
+        got[str(dev)] = (float(loss.detach()),
+                         {n: p.grad.float().cpu()
+                          for n, p in m_.named_parameters()})
+    (loss_c, grads_c), (loss_g, grads_g) = got["cpu"], got[str(cuda)]
+    rtol = 1e-5 if dtype == "float32" else 2e-2
+    grad_tol = 1e-4 if dtype == "float32" else 2e-2
+    assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= rtol * abs(loss_c)
+    for name, want in grads_c.items():
+        largest = float(want.abs().max())
+        err = float((grads_g[name] - want).abs().max())
+        assert err <= grad_tol * max(largest, 1e-30), (name, err, largest)
 
 
 # -- block-sparse attention: K3 ---------------------------------------------
@@ -368,7 +479,7 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("n,block", [(37, 16), (48, 16), (200, 16),
                                      (256, 16), (1000, 16), (1280, 16),
                                      (160, 8), (200, 8)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", DIM_HEADS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_block_sparse_kernel_matches_plain(cuda, dtype, d, n, block, masked,
                                            causal):
@@ -437,8 +548,9 @@ def test_block_sparse_grads_match_autograd_of_ref(cuda, n, block_qk):
 
 @pytest.mark.cuda
 def test_block_sparse_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 1, 16, 48), device=cuda)
-    with pytest.raises(ValueError, match="dim_head"):
+    q = torch.zeros((1, 1, 16, 192), device=cuda)
+    with pytest.raises(ValueError, match="dim_head 192: the kernels take 1 "
+                                         "to 128"):
         BS.block_sparse_attention_fwd(q, q, q, scale=1.0, causal=True)
     q = torch.zeros((1, 1, 16, 64), device=cuda)
     with pytest.raises(ValueError, match="global blocks"):

@@ -39,14 +39,14 @@ HEADS, DH, L = 2, 16, 24
 SCALE = 32 ** -0.5
 
 
-def make_inputs(page_size, quantized, seed=0, slots=4):
+def make_inputs(page_size, quantized, seed=0, slots=4, dh=DH):
     """A pool with random content everywhere, block tables whose unmapped
     columns point at the trash page, and ragged positions: the last row,
     mid-sequence, three rows into the second page, parked at 0."""
     rs = np.random.RandomState(seed + page_size)
     mp = KV.pages_for(L, page_size)
     P = slots * mp + 1
-    shape = (P, HEADS, page_size, DH)
+    shape = (P, HEADS, page_size, dh)
     pos = np.array([L - 1, 5, page_size + 3, 0][:slots], np.int32)
     bt = (rs.permutation(P - 1) + 1)[:slots * mp].reshape(slots, mp)
     need = -(-pos // page_size)
@@ -55,7 +55,7 @@ def make_inputs(page_size, quantized, seed=0, slots=4):
     allowed = np.arange(L)[None, :] < pos[:, None]
     allowed[1, 1] = False                     # a padded prompt row
     allowed[2, :page_size] = False            # a fully masked walked page
-    q = rs.randn(slots, HEADS, DH).astype(np.float32)
+    q = rs.randn(slots, HEADS, dh).astype(np.float32)
     if quantized:
         kp = rs.randint(-127, 128, shape).astype(np.int8)
         vp = rs.randint(-127, 128, shape).astype(np.int8)
@@ -106,6 +106,30 @@ def test_plain_matches_jax_kernel(page_size, quantized):
     assert float(got[2][3].abs().max()) == 0.0
     assert float(got[0][3].abs().max()) == 0.0
     assert PA.paged_decode_attention.launches == 0     # CPU: no launch
+
+
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dh", [24, 48])
+def test_plain_matches_jax_kernel_at_other_head_dims(dh, quantized,
+                                                     page_size):
+    """Head dims the CUDA kernel runs on the next compiled width (32 and
+    64) with the real dh at run time: the plain version, its yardstick
+    on the card, against the JAX kernel, which takes any dh."""
+    q, kp, vp, bt, pos, allowed, sc = make_inputs(page_size, quantized,
+                                                  seed=dh, dh=dh)
+    want = JPA.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(pos), jnp.asarray(allowed), scale=dh ** -0.5,
+        **{k: jnp.asarray(v) for k, v in sc.items()})
+    args, tsc = torch_args(q, kp, vp, bt, pos, allowed, sc)
+    got = PA.paged_decode_attention(*args, scale=dh ** -0.5, **tsc)
+    mag = PA.paged_decode_attention_plain(
+        args[0], args[1], args[2].abs(), *args[3:], scale=dh ** -0.5,
+        **tsc)[0]
+    assert got[0].shape == (4, HEADS, dh)
+    check_partials([g.numpy() for g in got], want, mag.numpy())
+    assert float(got[1][3, 0]) == PA.FILL == JPA.FILL
 
 
 def test_masked_prefix_is_wiped_and_all_masked_walk_kept():

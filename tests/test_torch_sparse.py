@@ -30,6 +30,7 @@ import torch
 from dalle_pytorch_tpu.ops import block_sparse as JB
 from dalle_pytorch_tpu.ops import sparse as JS
 from dalle_pytorch_tpu_torch.ops import block_sparse as TB
+from dalle_pytorch_tpu_torch.ops import flash_attention as TF
 from dalle_pytorch_tpu_torch.ops import sparse as TS
 
 
@@ -233,3 +234,49 @@ def test_static_tile_schedule_selection():
     for args in ((128, 128, 16, 64, (0,), True), (64, 64, 48, 16, (1,), True),
                  (128, 128, 16, 64, (0, 8), True)):
         assert s(*args) == JB._static_tile_schedule(*args)
+
+
+# -- head dims other than the kernels' 64 and 128 ---------------------------
+# On the card K3's wrapper runs such a d through the flash kernels'
+# ``at_kernel_dim_head`` (zero-padded to the next kernel width, sliced
+# back). Around the plain version the padding must change nothing but
+# the summation blocking of the wider products: rtol/atol 1e-6.
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 24, 48, 96])
+def test_block_sparse_padding_to_kernel_width_is_exact(d, dtype, causal,
+                                                       masked):
+    dtype = getattr(torch, dtype)
+    q, k, v = (t(x).to(dtype) for x in qkv(160, d=d, seed=d))
+    kw = dict(scale=d ** -0.5, causal=causal, block=16,
+              mask=t(key_mask(160)) if masked else None)
+    got = TF.at_kernel_dim_head(TB.block_sparse_attention_fwd_plain, q, k,
+                                v, **kw)
+    want = TB.block_sparse_attention_fwd_plain(q, k, v, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 48])
+def test_block_sparse_padded_plain_matches_jax_kernel(d, causal, masked):
+    """Padded to the kernel width and sliced back, K3's plain version
+    against JAX ``_bs_fwd`` at the real d in interpret mode (float32,
+    the module's forward tolerance)."""
+    n, block = 160, 16
+    q, k, v = qkv(n, d=d, seed=d)
+    mask = key_mask(n) if masked else None
+    out, (m, l) = JB._bs_fwd(j(q), j(k), j(v), j(mask), d ** -0.5, causal,
+                             block, 4, (0,), 128, 128, True)
+    got = TF.at_kernel_dim_head(TB.block_sparse_attention_fwd_plain, t(q),
+                                t(k), t(v), scale=d ** -0.5, causal=causal,
+                                block=block, mask=t(mask))
+    for g, w, what in zip(got, (out, m, l), ("out", "m", "l")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **FWD,
+                                   err_msg=what)
