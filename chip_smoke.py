@@ -10,8 +10,8 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
 1. build  — compile every CUDA kernel from ``csrc/`` with nvcc (sm_90a),
    one nvcc per source, all at once; print the ``-Xptxas -v`` lines
    (registers, shared memory, spills) of the tensor-core kernels (K1,
-   K2a, K2b split, K3) and of K4's dh-64 bodies, and the card's name and
-   power limit;
+   K2a, K2b split, K3), of K4's dh-64 bodies and of the wide bodies (d
+   above 128), and the card's name and power limit;
 2. kernel — paged-attention kernel K4 against its plain PyTorch version
    at the serving shapes (8 slots, 8 heads, dh 64, page 16, L 1280),
    ragged positions including 0, 1, 15, 16, 17 and 1279, random data in
@@ -21,7 +21,9 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    acc / l directly); the pos-0 slot's (0, FILL, 0) exactly, through
    the split walk (one long slot across five blocks beside short ones);
    timed with CUDA events beside the byte bound; then, untimed, dh 48
-   (the dh-64 body reading rows at stride 48) in bfloat16 and int8;
+   (the dh-64 body reading rows at stride 48) in bfloat16 and int8, and
+   dh 192 and 256 (the wide body, slices of 128 acc columns) in bfloat16
+   and int8, bfloat16 dh 256 timed;
 3. decode — one full-width float32 decode step through the kernel
    against the dense gather (``paged_view`` + ``_gather_read``): h_out
    to 1e-4, then 64 greedy steps with identical tokens;
@@ -46,7 +48,10 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    names the body that ran for each call (tensor cores: bfloat16 K1, K2a and
    K2b split, which must run there; CUDA cores: the rest), from the
    kernels the profiler saw. Then, untimed, d 16 and 48 at b 2, h 2,
-   n 300 (zero-padded to the kernels' 64 by the wrappers);
+   n 300 (zero-padded to the kernels' 64 by the wrappers), and d 192 and
+   320 (the wide bodies, which every call there must run) with both
+   masks; then the wide bodies timed at b 8, h 2, n 1280, d 256 (the
+   north width as heads=2, dim_head=256). Each case is
    timed with CUDA events and torch.profiler beside the plain version,
    the bound, and ``F.scaled_dot_product_attention`` (its forward, and
    its backward alone) as the library yardstick at the all-True mask;
@@ -65,8 +70,11 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    plain version at the north training shapes (b 8, h 8, n 1280, d 64,
    block 16, causal, scale 512 ** -0.5), bfloat16 (tensor cores) and
    float32 (CUDA cores), all-True and text-padding masks, with the flash
-   tolerances, and untimed at d 16 and 48 (b 2, h 2, n 300); timed
-   beside the plain version, the bound and
+   tolerances, and untimed at d 16 and 48 (b 2, h 2, n 300) and at d
+   192 and 320 (the wide body), with the wide body timed at b 8, h 2,
+   n 1280, d 256; then ``causal=False`` at the CLIP encoders' shapes (b 8,
+   h 8, d 64: n 256 with caption padding, n 64), bfloat16 timed. Timed
+   cases stand beside the plain version, the bound and
    ``F.scaled_dot_product_attention`` with the layout as a boolean mask
    (CUDA events and device time). The static and the blockwise backward
    against autograd through ``sparse_attention_ref`` in float32, each
@@ -92,7 +100,23 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    then the bfloat16 engine with ``sparse_reads=True`` on the six
    requests of the ``engine`` phase: every result ok, K4's visible walk
    and its prefix walk each launched 6 x decode steps times, every page
-   freed, and the ``engine`` phase's profile windows.
+   freed, and the ``engine`` phase's profile windows;
+10. generate — one-shot generation (``generate_images``) at the north
+   width. A float32 dense-cache decode step against the paged path's
+   gather oracle on the same 17-token prompt (h_out to 1e-4, then 64
+   greedy steps with identical tokens); the reference CLIP at its
+   published defaults (dim 512, 6 + 6 layers of 8 heads, text 256, 256
+   px in 32 px patches, ``sparse_impl='pallas'``: K3 with causal=False
+   in every layer) against ``'ref'`` on the same captions and images,
+   float32 to 1e-4 and bfloat16 to atol 1e-2, K3 launched 12 times a
+   call; then, in bfloat16, 4 full 256-token prompts with guidance 3.0,
+   and int8 weights (``quantize_for_decode``) with an int8 cache on
+   17-token prompts with top-p 0.9: 1024 image ids each in [0, 2048),
+   finite (256, 256, 3) images, finite CLIP rerank scores with K3
+   launched 12 times, the same tokens from a re-run with the same key;
+   wall seconds a call, ms a decode step, images a second, and a
+   profiler window of 16 guided steps (device ms and kernels a step,
+   the device's idle share).
 
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
@@ -222,7 +246,9 @@ def phase_build() -> str:
          block_sparse_ptxas=ptxas_lines(build.build_log("block_sparse"),
                                         "wgmma"),
          paged_ptxas=ptxas_lines(build.build_log("paged_attention"),
-                                 "Li64E"))
+                                 "Li64E"),
+         wide_ptxas={name: ptxas_lines(build.build_log(name), "wide")
+                     for name in build.SOURCES})
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -388,6 +414,40 @@ def phase_kernel() -> dict:
         results[f"{name}/dh48"] = {"max_abs_err": err}
         emit(phase="kernel", case=f"{name}/dh48", ok=True, rtol=rtol,
              atol=atol, max_abs_err=err)
+    # heads above 128: the wide body (slices of 128 acc columns), its
+    # prefix walk split across blocks as the narrow one's is; timed at
+    # bfloat16 dh 256
+    for dh in (192, 256):
+        for name in ("bfloat16", "int8"):
+            dtype, rtol, atol = cases[name]
+            q, kp, vp, bt, pos, allowed, sc = kernel_inputs(dtype, dh=dh)
+            kw = dict(scale=scale, **sc)
+            got = PA.paged_decode_attention(q, kp, vp, bt, pos, allowed,
+                                            **kw)
+            want = PA.paged_decode_attention_plain(q, kp, vp, bt, pos,
+                                                   allowed, **kw)
+            mag = PA.paged_decode_attention_plain(q, kp, vp.abs(), bt, pos,
+                                                  allowed, **kw)[0]
+            torch.cuda.synchronize()
+            check(got[0].shape == (8, 8, dh), f"K4 {name} dh {dh}: acc "
+                                              f"shape {tuple(got[0].shape)}")
+            err = partials_held(f"K4 {name} dh {dh}", got, want, mag, rtol,
+                                atol)
+            rec = {"max_abs_err": err}
+            if dh == 256 and name == "bfloat16":
+                call = lambda: PA.paged_decode_attention(   # noqa: E731
+                    q, kp, vp, bt, pos, allowed, **kw)
+                bms, by = bound_ms(q, kp, pos, sc)
+                rec.update(
+                    ms=cuda_ms(call, iters=100),
+                    device_us_per_launch=named_device_us(
+                        call, "paged_decode_wide", iters=50),
+                    plain_ms=cuda_ms(lambda: PA.paged_decode_attention_plain(
+                        q, kp, vp, bt, pos, allowed, **kw), iters=20),
+                    bound_ms=bms, bound_by=by)
+            results[f"{name}/dh{dh}"] = rec
+            emit(phase="kernel", case=f"{name}/dh{dh}", ok=True, rtol=rtol,
+                 atol=atol, **rec)
     return results
 
 
@@ -640,6 +700,11 @@ def phase_engine() -> dict:
 # -- flash attention: K1, K2a, K2b --------------------------------------------
 
 FLASH_SCALE = 512 ** -0.5        # the north config's dim ** -0.5
+# heads above 128 (the wide bodies): the untimed head dims, and the timed
+# shape: the north width split as heads=2, dim_head=256 (bench.py
+# build_cfg takes heads * dim_head = 512), batch 8, causal
+WIDE_DIMS = (192, 320)
+WIDE_TIMED = dict(b=8, h=2, n=1280, d=256)
 
 
 def flash_tolerances(dtype) -> tuple:
@@ -722,12 +787,16 @@ def flash_bound(kind: str, dtype, b, h, n, d) -> tuple:
 # template part): bfloat16 K1, K2a and K2b split run the tensor-core
 # bodies (``*_wgmma_kernel``), every other call a CUDA-core body
 FLASH_KERNELS = {"fwd": (("flash_fwd_wgmma_kernel", ""),
-                         ("flash_fwd_kernel", "")),
+                         ("flash_fwd_kernel", ""),
+                         ("flash_fwd_wide_kernel", "")),
                  "dq": (("flash_bwd_dq_wgmma_kernel", ""),
-                        ("flash_bwd_dq_kernel", "")),
+                        ("flash_bwd_dq_kernel", ""),
+                        ("flash_bwd_dq_wide_kernel", "")),
                  "dkv": (("flash_bwd_dkv_wgmma_kernel", ""),
-                         ("flash_bwd_dkv_kernel", "false>")),
-                 "fused": (("flash_bwd_dkv_kernel", "true>"),)}
+                         ("flash_bwd_dkv_kernel", "false>"),
+                         ("flash_bwd_dkv_wide_kernel", "false>")),
+                 "fused": (("flash_bwd_dkv_kernel", "true>"),
+                           ("flash_bwd_dkv_wide_kernel", "true>"))}
 
 
 def is_flash_kernel(kind: str, name: str) -> bool:
@@ -736,9 +805,12 @@ def is_flash_kernel(kind: str, name: str) -> bool:
 
 
 def flash_body(names) -> str:
-    """Which body the kernels ``names`` are: tensor cores or CUDA cores."""
+    """Which body the kernels ``names`` are: tensor cores, CUDA cores, or
+    the wide bodies (d > 128, CUDA cores)."""
     if not names:
         return "not measured"
+    if any("wide" in k for k in names):
+        return "wide (CUDA cores)"
     return ("tensor cores (wgmma)" if any("wgmma" in k for k in names)
             else "CUDA cores")
 
@@ -872,11 +944,17 @@ def flash_case(dtype, masked: bool, timed: bool, **shape) -> dict:
     }
     device_us, names = flash_device_us(calls, *((8, 4) if timed else (1, 1)))
     record["bodies"] = {kind: flash_body(k) for kind, k in names.items()}
-    if dtype == torch.bfloat16:
-        for kind in ("fwd", "dq", "dkv"):
-            check(record["bodies"][kind] in ("tensor cores (wgmma)",
-                                             "not measured"),
-                  f"{name}: bfloat16 {kind} ran {record['bodies'][kind]}")
+    # above 128 every call must run a wide body; below, bfloat16 K1, K2a
+    # and K2b split the tensor cores
+    for kind in ("fwd", "dq", "dkv", "fused"):
+        if d > 128:
+            want = "wide (CUDA cores)"
+        elif dtype == torch.bfloat16 and kind != "fused":
+            want = "tensor cores (wgmma)"
+        else:
+            continue
+        check(record["bodies"][kind] in (want, "not measured"),
+              f"{name}: {kind} ran {record['bodies'][kind]}, not {want}")
     if not timed:
         return record
     for kind, (kernel, plain) in calls.items():
@@ -919,6 +997,18 @@ def phase_flash() -> dict:
             rec = flash_case(dtype, True, timed=False, b=2, h=2, n=300, d=d)
             results[rec["case"]] = rec
             emit(phase="flash", ok=True, **rec)
+    # heads above 128: the wide bodies, untimed at d 192 and 320, then
+    # timed at the north width split as heads=2, dim_head=256
+    for d in WIDE_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for masked in (False, True):
+                rec = flash_case(dtype, masked, timed=False, b=2, h=2,
+                                 n=300, d=d)
+                results[rec["case"]] = rec
+                emit(phase="flash", ok=True, **rec)
+    rec = flash_case(torch.bfloat16, False, timed=True, **WIDE_TIMED)
+    results[rec["case"]] = rec
+    emit(phase="flash", ok=True, **rec)
     return results
 
 
@@ -1110,10 +1200,10 @@ def phase_train() -> dict:
 SPARSE_BLOCK = 16
 
 
-def sparse_layout(n, device="cuda"):
+def sparse_layout(n, device="cuda", causal=True):
     """(n, n) bool: the pairs K3 computes (layout and causal triangle)."""
     from dalle_pytorch_tpu_torch.ops import sparse as SP
-    return SP.structural_mask(n, SPARSE_BLOCK, device=device)
+    return SP.structural_mask(n, SPARSE_BLOCK, causal=causal, device=device)
 
 
 def sparse_bound(dtype, b, h, n, d, pairs) -> tuple:
@@ -1130,14 +1220,18 @@ def sparse_bound(dtype, b, h, n, d, pairs) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sparse_case(dtype, masked: bool, timed: bool, **shape) -> dict:
+def sparse_case(dtype, masked: bool, timed: bool, causal: bool = True,
+                **shape) -> dict:
     import torch.nn.functional as F
     from dalle_pytorch_tpu_torch.ops import block_sparse as BS
     q, k, v, _, mask = flash_inputs(dtype, masked, **shape)
     b, h, n, d = q.shape
     name = case_name(dtype, masked, d)
+    if not causal:
+        name = f"{name}/noncausal/n{n}"
     rtol, atol = flash_tolerances(dtype)
-    kw = dict(scale=FLASH_SCALE, causal=True, block=SPARSE_BLOCK, mask=mask)
+    kw = dict(scale=FLASH_SCALE, causal=causal, block=SPARSE_BLOCK,
+              mask=mask)
     out, m, l = BS.block_sparse_attention_fwd(q, k, v, **kw)
     out_p, m_p, l_p = BS.block_sparse_attention_fwd_plain(q, k, v, **kw)
     errs = {"out": held(f"K3 {name} out", out, out_p, rtol, atol),
@@ -1146,13 +1240,15 @@ def sparse_case(dtype, masked: bool, timed: bool, **shape) -> dict:
     record = {"case": name, "rtol": rtol, "atol": atol, "max_abs_err": errs}
     if not timed:
         return record
-    layout = sparse_layout(n)
+    layout = sparse_layout(n, causal=causal)
     pairs = int(layout.sum())
     bms, by = sparse_bound(dtype, b, h, n, d, pairs)
-    # the library yardstick: SDPA with the layout as a boolean mask is the
-    # same function at the all-True key mask
+    # the library yardstick: SDPA with the layout (and the pad keys) as a
+    # boolean mask is the same function while every row sees a live key
+    # (key 0, in the global block, is live in every case here)
+    allowed = layout if not masked else layout & mask[:, None, None, :]
     sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
-        q, k, v, attn_mask=layout, scale=FLASH_SCALE)
+        q, k, v, attn_mask=allowed, scale=FLASH_SCALE)
     record.update(
         allowed_pairs_per_bh=pairs,
         ms=cuda_ms(lambda: BS.block_sparse_attention_fwd(q, k, v, **kw),
@@ -1296,6 +1392,26 @@ def phase_sparse_kernels() -> dict:
     for d in (16, 48):               # padded to the kernel's 64
         for dtype in (torch.bfloat16, torch.float32):
             rec = sparse_case(dtype, True, timed=False, b=2, h=2, n=300, d=d)
+            results["k3"][rec["case"]] = rec
+            emit(phase="sparse_kernels", kernel="K3", ok=True, **rec)
+    # heads above 128: the wide body, untimed at d 192 and 320, timed at
+    # heads=2, dim_head=256
+    for d in WIDE_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for masked in (False, True):
+                rec = sparse_case(dtype, masked, timed=False, b=2, h=2,
+                                  n=300, d=d)
+                results["k3"][rec["case"]] = rec
+                emit(phase="sparse_kernels", kernel="K3", ok=True, **rec)
+    rec = sparse_case(torch.bfloat16, False, timed=True, **WIDE_TIMED)
+    results["k3"][rec["case"]] = rec
+    emit(phase="sparse_kernels", kernel="K3", ok=True, **rec)
+    # causal=False at the CLIP encoders' shapes: the text encoder's 256
+    # tokens with caption padding, the visual encoder's 64 patches
+    for n, masked in ((256, True), (64, False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            rec = sparse_case(dtype, masked, timed=dtype == torch.bfloat16,
+                              causal=False, b=8, h=8, n=n, d=64)
             results["k3"][rec["case"]] = rec
             emit(phase="sparse_kernels", kernel="K3", ok=True, **rec)
     results["k3_backward"] = sparse_bwd_check()
@@ -1556,6 +1672,258 @@ def phase_sparse_engine() -> dict:
     return record
 
 
+# -- one-shot generation: dense KV decode, guidance, int8, the CLIP rerank ---
+
+def dense_decode_check() -> dict:
+    """The dense-cache decode step against the paged path's gather oracle
+    (``decode_step_paged`` with ``attn_impl='gather'``, which reads
+    through ``paged_view``) at full width in float32: a 17-token prompt
+    prefilled into the dense cache, the same rows laid out as a page
+    pool, one step's h_out to 1e-4, then 64 greedy steps with identical
+    tokens, each cache written by its own path."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import decode as decode_ops
+    cfg = north_cfg()
+    tcfg = cfg.transformer
+    model = D.dalle_init(cfg, seed=1, dtype=torch.float32)
+    rows, t0, L, ps = 4, 17, cfg.seq_len, 16
+    mp = L // ps
+    g = torch.Generator(device="cuda").manual_seed(6)
+    text = torch.randint(1, cfg.num_text_tokens, (rows, t0), generator=g,
+                         device="cuda")
+
+    def as_pages(buf):
+        """(depth, rows, heads, L, dh) -> (depth, 1 + rows * mp, heads,
+        ps, dh): slot i's rows on pages 1 + i * mp ..., trash page 0."""
+        d_, r_, hh, _, dh = buf.shape
+        pages = buf.reshape(d_, r_, hh, mp, ps, dh).permute(0, 1, 3, 2, 4, 5)
+        pages = pages.reshape(d_, r_ * mp, hh, ps, dh)
+        return torch.cat([torch.zeros_like(pages[:, :1]), pages], dim=1)
+
+    worst = 0.0
+    with torch.no_grad():
+        h, cache = decode_ops.prefill(model.transformer,
+                                      D.embed_prompt(model, text), cfg=tcfg,
+                                      total_len=L)
+        pool = {k: as_pages(v) for k, v in cache.items()}
+        bt = (torch.arange(rows * mp, device="cuda") + 1).reshape(rows, mp) \
+            .to(torch.int32)
+        key_mask = decode_ops._full_key_mask(None, rows, t0, L, "cuda")
+        active = torch.ones((rows,), dtype=torch.bool, device="cuda")
+
+        def greedy(hh, pos):
+            forbid = D.logits_mask(cfg, torch.full((rows,), pos - 1,
+                                                   device="cuda"))
+            t = D.to_logits(model, hh).masked_fill(forbid, -math.inf) \
+                .argmax(-1)
+            return torch.where(t >= cfg.num_text_tokens,
+                               t - cfg.num_text_tokens, t)
+
+        tok = greedy(h[:, -1], t0)
+        for step in range(64):
+            pos = t0 + step
+            posv = torch.full((rows,), pos, dtype=torch.int32, device="cuda")
+            x = D.decode_token_embed(model, tok, posv)
+            h_d = decode_ops.decode_step(model.transformer, x, pos, cache,
+                                         cfg=tcfg, key_mask=key_mask)
+            h_p = decode_ops.decode_step_paged(
+                model.transformer, x, posv, pool, bt, cfg=tcfg,
+                key_mask=key_mask, active=active, attn_impl="gather")
+            if step == 0:
+                check(torch.allclose(h_d, h_p, rtol=1e-4, atol=1e-4),
+                      f"dense decode step differs from the paged gather "
+                      f"oracle (max abs {float((h_d - h_p).abs().max()):.3e})")
+            worst = max(worst, float((h_d - h_p).abs().max()))
+            t_d, t_p = greedy(h_d, pos + 1), greedy(h_p, pos + 1)
+            check(torch.equal(t_d, t_p),
+                  f"dense decode step {step}: greedy tokens differ")
+            tok = t_d
+    return {"steps": 64, "rows": rows, "prompt_len": t0,
+            "max_abs_h_diff": worst}
+
+
+def clip_check(clip, g) -> dict:
+    """CLIP scores with K3 (``sparse_impl='pallas'``, causal=False in all
+    12 layers) against the dense layout oracle (``'ref'``) on the same
+    captions and images, at the reference's published widths: the
+    rerank's call (no mask) and one with caption padding. float32 to
+    rtol/atol 1e-4 (f32 sums in other orders); bfloat16 to atol 1e-2,
+    a few bf16 roundings (2^-8 relative) of scores bounded by exp(1):
+    twelve layers round on either side, in other places. K3 must launch
+    12 times a call."""
+    import copy
+    import dataclasses
+    from dalle_pytorch_tpu_torch.models import clip as C
+    from dalle_pytorch_tpu_torch.ops import block_sparse as BS
+    cfg = clip.cfg
+    text = torch.randint(1, cfg.num_text_tokens, (4, cfg.text_seq_len),
+                         generator=g, device="cuda")
+    mask = torch.arange(cfg.text_seq_len, device="cuda")[None] < \
+        torch.tensor([[17], [256], [1], [100]], device="cuda")
+    size = cfg.visual_image_size
+    images = torch.rand((4, size, size, 3), generator=g, device="cuda") * 2 \
+        - 1
+    out = {}
+    for dtype, tol in ((torch.float32, dict(rtol=1e-4, atol=1e-4)),
+                       (torch.bfloat16, dict(rtol=0.0, atol=1e-2))):
+        model = clip if dtype == torch.bfloat16 else C.clip_init(
+            cfg, seed=7, dtype=torch.float32)
+        ref = copy.copy(model)
+        ref.cfg = dataclasses.replace(cfg, sparse_impl="ref")
+        name = str(dtype).split(".")[-1]
+        with torch.no_grad():
+            for case, m in (("rerank", None), ("padded", mask)):
+                before = BS.block_sparse_attention_fwd.launches
+                got = C.clip_apply(model, text, images.to(dtype),
+                                   text_mask=m)
+                torch.cuda.synchronize()
+                launched = BS.block_sparse_attention_fwd.launches - before
+                want = C.clip_apply(ref, text, images.to(dtype), text_mask=m)
+                err = float((got.float() - want.float()).abs().max())
+                check(launched == 12, f"CLIP {name} {case}: K3 launched "
+                                      f"{launched} times, not 12")
+                check(bool(torch.isfinite(got).all()) and torch.allclose(
+                    got.float(), want.float(), **tol),
+                    f"CLIP {name} {case}: K3 scores differ from 'ref' (max "
+                    f"abs {err:.3e})")
+                out[f"{name}/{case}"] = {"max_abs_err": err, **tol,
+                                         "scores": got.float().tolist()}
+    return out
+
+
+def generate_profile(model, text, key, opts, window=(300, 16)) -> tuple:
+    """``sample_tokens`` (``generate_images``' loop) run to its end with
+    the same options: its tokens, and from step ``window[0]`` on,
+    ``window[1]`` steps timed without the profiler, then as many under
+    torch.profiler (device ms, kernels per step, the device's idle share
+    against the unprofiled wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    start, n = window
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    toks, marks = [], {}
+    for i, tok in enumerate(D.sample_tokens(model, text, rng=key, **opts)):
+        toks.append(tok)
+        if i in (start, start + n, start + 2 * n):
+            torch.cuda.synchronize()
+            marks[i] = time.perf_counter()
+            if i == start + n:
+                prof.start()
+            elif i == start + 2 * n:
+                prof.stop()
+    wall_ms = (marks[start + n] - marks[start]) * 1e3 / n
+    kernels = device_kernels(prof)
+    total_us = sum(us for us, _ in kernels.values())
+    rec = {"first_step": start, "steps": n, "wall_ms_per_step": wall_ms,
+           "wall_ms_per_step_profiled":
+               (marks[start + 2 * n] - marks[start + n]) * 1e3 / n}
+    if total_us <= 0:
+        rec["device_ms_per_step"] = "not measured"
+    else:
+        device_ms = total_us / 1e3 / n
+        rec.update(device_ms_per_step=device_ms,
+                   device_idle_share=max(0.0, 1 - device_ms / wall_ms),
+                   kernels_launched_per_step=sum(
+                       c for _, c in kernels.values()) / n,
+                   top_kernels_ms_per_step=top_kernels(kernels, n),
+                   kinds_ms_per_step=kernel_classes(kernels, n))
+    return torch.stack(toks, dim=1), rec
+
+
+def phase_generate() -> dict:
+    """One-shot generation at the north width: the dense decode check,
+    the CLIP check, then ``generate_images`` twice: 4 full 256-token
+    prompts with guidance 3.0, and int8 weights with an int8 cache on 17
+    tokens with top-p 0.9. Each: a run returning the image ids (ids in
+    [0, 2048), finite images), a run with the CLIP rerank (K3 12 times,
+    finite scores, the same images), and ``sample_tokens`` with the same
+    key again (identical ids; the guided run's profile window)."""
+    from dalle_pytorch_tpu_torch.models import clip as C
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import block_sparse as BS
+    from dalle_pytorch_tpu_torch.ops import prng
+    record = {"dense_decode": dense_decode_check()}
+    emit(phase="generate", check="dense_decode", ok=True,
+         **record["dense_decode"])
+    cfg = north_cfg()
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+    # the reference CLIP at its published defaults, K3 in every layer
+    clip = C.clip_init(C.CLIPConfig(sparse_impl="pallas"), seed=7,
+                       dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    record["clip"] = clip_check(clip, g)
+    emit(phase="generate", check="clip", ok=True, **record["clip"])
+    runs = {
+        "guided": (model, torch.randint(1, cfg.num_text_tokens, (4, 256),
+                                        generator=g, device="cuda"),
+                   dict(guidance=3.0)),
+        "int8": (D.quantize_for_decode(model),
+                 torch.randint(1, cfg.num_text_tokens, (4, 17), generator=g,
+                               device="cuda"),
+                 dict(top_p=0.9, quantize_cache=True)),
+    }
+    k3_launches = 0
+    for name, (m, text, opts) in runs.items():
+        key = prng.prng_key(11, device="cuda")
+        b, t0 = text.shape
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        images, img_seq = D.generate_images(m, vae, text, rng=key,
+                                            return_img_seq=True, **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        check(img_seq.shape == (b, cfg.image_seq_len)
+              and int(img_seq.min()) >= 0
+              and int(img_seq.max()) < cfg.num_image_tokens,
+              f"generate {name}: bad image tokens")
+        size = cfg.vae.image_size
+        check(images.shape == (b, size, size, 3)
+              and bool(torch.isfinite(images).all()),
+              f"generate {name}: bad images {tuple(images.shape)}")
+        # the main path with the rerank: K3's count from 0
+        BS.block_sparse_attention_fwd.launches = 0
+        t_start = time.perf_counter()
+        images_r, scores = D.generate_images(m, vae, text, rng=key,
+                                             clip=clip, **opts)
+        torch.cuda.synchronize()
+        wall_rerank = time.perf_counter() - t_start
+        launched = BS.block_sparse_attention_fwd.launches
+        k3_launches += launched
+        check(launched == 12, f"generate {name}: K3 launched {launched} "
+                              f"times in the rerank, not 12")
+        check(scores.shape == (b,) and bool(torch.isfinite(scores).all()),
+              f"generate {name}: bad CLIP scores")
+        image_diff = float((images_r.float() - images.float()).abs().max())
+        check(image_diff <= 1e-2, f"generate {name}: the rerank run's "
+                                  f"images differ by {image_diff:.3e}")
+        window = (300, 16) if name == "guided" else None
+        if window:
+            toks, prof = generate_profile(m, text, key, opts, window)
+        else:
+            toks = torch.stack(list(D.sample_tokens(m, text, rng=key,
+                                                    **opts)), dim=1)
+            prof = None
+        check(torch.equal(toks[:b, -cfg.image_seq_len:], img_seq),
+              f"generate {name}: a re-run with the same key gave other "
+              f"tokens")
+        steps = cfg.seq_len - t0
+        rec = {"prompts": b, "prompt_len": t0, **opts,
+               "rows": b * (2 if opts.get("guidance", 0) > 0 else 1),
+               "wall_s_per_call": wall, "wall_s_with_rerank": wall_rerank,
+               "decode_steps": steps, "ms_per_decode_step": wall * 1e3 / steps,
+               "images_per_s": b / wall, "k3_launches_rerank": launched,
+               "scores": scores.float().tolist(),
+               "rerank_image_max_abs_diff": image_diff}
+        if prof is not None:
+            rec["profile"] = prof
+        record[name] = rec
+        emit(phase="generate", run=name, ok=True, **rec)
+    record["k3_launches"] = k3_launches
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1572,6 +1940,7 @@ def main() -> int:
     sparse = phase_sparse_kernels()
     sparse_train = phase_sparse_train()
     sparse_engine = phase_sparse_engine()
+    generate = phase_generate()
     main_case = kernel["bfloat16"]
     rows = [{
         "name": "paged_decode_attention",
@@ -1623,6 +1992,19 @@ def main() -> int:
         "max_abs_err": vis["max_abs_err"], "ms": vis["ms"],
         "plain_ms": vis["plain_ms"], "bound_ms": vis["bound_ms"],
         "bound_by": vis["bound_by"], "library_ms": None}]
+    # K3 without the causal constraint, as the CLIP rerank of the
+    # generate path runs it: the text encoder's case (bfloat16, n 256,
+    # caption padding)
+    k3c = sparse["k3"]["bfloat16/pad/noncausal/n256"]
+    rows.append({
+        "name": "block_sparse_attention_fwd_noncausal", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": generate["k3_launches"],
+        "max_abs_err": max(k3c["max_abs_err"].values()),
+        "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
+        "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
+        "library_ms": k3c["sdpa_masked_ms"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Weight bridge: the JAX package's parameter trees -> the port's modules.
 
 The input is the tree ``dalle_pytorch_tpu.models.dalle.dalle_init`` /
-``models.vae.vae_init`` produce (or a checkpoint restores), as nested
+``models.vae.vae_init`` / ``models.clip.clip_init`` produce (or a
+checkpoint restores), as nested
 dicts and lists of numpy arrays (``jax.device_get`` of the pytree;
 bfloat16 leaves arrive as ml_dtypes arrays). The conversions, each exact:
 
@@ -25,8 +26,10 @@ import torch
 from torch import nn
 
 from dalle_pytorch_tpu_torch.device import resolve_device
+from dalle_pytorch_tpu_torch.models import clip as clip_mod
 from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
+from dalle_pytorch_tpu_torch.ops import transformer as T
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -122,19 +125,42 @@ def dalle_from_jax(params: Mapping, cfg: D.DALLEConfig, *,
     _set(model.text_pos_emb.weight, params["text_pos_emb"]["w"])
     _set(model.image_pos_rows.weight, params["image_pos_emb"]["rows"])
     _set(model.image_pos_cols.weight, params["image_pos_emb"]["cols"])
-    stack = params["transformer"]
+    _transformer(model.transformer, params["transformer"])
+    _layernorm(model.logits_ln, params["to_logits"]["ln"])
+    _linear(model.logits_proj, params["to_logits"]["proj"])
+    return model
+
+
+def _transformer(model: T.Transformer, stack: Mapping) -> None:
+    """A depth-stacked JAX transformer tree into one module per layer."""
     depth = to_tensor(stack["attn"]["ln"]["g"]).shape[0]
-    if depth != cfg.depth:
-        raise ValueError(f"the tree stacks {depth} layers, cfg.depth is "
-                         f"{cfg.depth}")
-    for i, layer in enumerate(model.transformer.layers):
-        at, ff = stack["attn"], stack["ff"]
+    if depth != len(model.layers):
+        raise ValueError(f"the tree stacks {depth} layers, the model has "
+                         f"{len(model.layers)}")
+    at, ff = stack["attn"], stack["ff"]
+    for i, layer in enumerate(model.layers):
         _layernorm(layer.attn.ln, {k: v[i] for k, v in at["ln"].items()})
         _linear(layer.attn.qkv, {k: v[i] for k, v in at["qkv"].items()})
         _linear(layer.attn.out, {k: v[i] for k, v in at["out"].items()})
         _layernorm(layer.ff.ln, {k: v[i] for k, v in ff["ln"].items()})
         _linear(layer.ff.w1, {k: v[i] for k, v in ff["w1"].items()})
         _linear(layer.ff.w2, {k: v[i] for k, v in ff["w2"].items()})
-    _layernorm(model.logits_ln, params["to_logits"]["ln"])
-    _linear(model.logits_proj, params["to_logits"]["proj"])
+
+
+@torch.no_grad()
+def clip_from_jax(params: Mapping, cfg: clip_mod.CLIPConfig, *,
+                  dtype=None, device=None) -> clip_mod.CLIP:
+    """A JAX CLIP tree (``clip_init``) into the port's ``CLIP``."""
+    device = resolve_device(device)
+    dtype = dtype or _dtype_of(params, "text_emb", "w")
+    model = clip_mod.CLIP(cfg, device=device, dtype=dtype)
+    _set(model.text_emb.weight, params["text_emb"]["w"])
+    _set(model.text_pos_emb.weight, params["text_pos_emb"]["w"])
+    _transformer(model.text_transformer, params["text_transformer"])
+    _linear(model.to_text_latent, params["to_text_latent"])
+    _linear(model.to_visual_emb, params["to_visual_emb"])
+    _set(model.visual_pos_emb.weight, params["visual_pos_emb"]["w"])
+    _transformer(model.visual_transformer, params["visual_transformer"])
+    _linear(model.to_visual_latent, params["to_visual_latent"])
+    _set(model.temperature, params["temperature"])
     return model

@@ -57,6 +57,10 @@
 //   * 42 KB of shared memory and at most 128 registers a thread at d 64,
 //     so 4 blocks share an SM and the 1,280 query tiles of the north
 //     shapes run in 2.4 waves (82 KB at d 128).
+// wide heads, d > 128 (block_sparse_fwd_wide_kernel, f32 and bf16): a
+// block owns a slice of at most 128 output columns and streams S over the
+// whole head in 64-column chunks, as the flash kernels' wide bodies do
+// (tile.cuh); the wrapper pads d to a multiple of 64.
 // float32 (block_sparse_fwd_kernel): CUDA cores, the tile, staging and
 // products of tile.cuh shared with flash_attention.cu (a 16 x 16 thread
 // grid, each thread owning 4 rows and 4 columns of every 64 x 64 score
@@ -560,11 +564,136 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// wide heads (d > 128, a multiple of 64): CUDA cores, f32 and bf16
+// ---------------------------------------------------------------------------
+
+// One block per (b*h, 64-row query tile, slice of at most 128 output
+// columns): the live key tiles (tile_any) as the f32 body walks them, S
+// over the whole head in 64-column chunks (tile.cuh), p rounded to T
+// before the product with the slice of V; slice 0 writes m and l. Every
+// slice recomputes S: ceil(d / 128) times the score work.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) block_sparse_fwd_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const uint8_t* __restrict__ mask, T* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int h, int n, int d,
+    float scale, Layout layout) {
+  extern __shared__ float smem[];
+  float* sQ = smem;                         // chunk of Q
+  float* sK = sQ + kChunkFloats;            // chunk of K
+  float* sP = sK + kChunkFloats;            // P, rounded to T
+  float* sV = sP + kChunkFloats;            // slice of V
+  __shared__ int sKm[kTile];
+
+  const int bh = blockIdx.x;
+  const int num_tiles = (n + kTile - 1) / kTile;
+  const int q0 = blockIdx.y * kTile;
+  const int c0 = blockIdx.z * kSliceCols;
+  const int width = min(kSliceCols, d - c0);
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const size_t base = static_cast<size_t>(bh) * n * d;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+
+  float m_i[4], l_i[4], o[4][kSliceCols / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_i[i] = -INFINITY;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSliceCols / 16; ++j) o[i][j] = 0.f;
+  }
+
+  for (int ik = 0; ik < num_tiles; ++ik) {
+    const int k0 = ik * kTile;
+    if (!tile_any(layout, q0, k0, n)) continue;   // the same for the block
+    float s[4][4] = {};
+    for (int c = 0; c < d; c += kChunkCols) {
+      __syncthreads();               // the last readers of every buffer
+      load_chunk<T>(sQ, q + base, d, q0, n, c);
+      load_chunk<T>(sK, k + base, d, k0, n, c);
+      if (c == 0) {
+        load_slice<T>(sV, v + base, d, k0, n, c0, width);
+        for (int j = threadIdx.x; j < kTile; j += kThreads)
+          sKm[j] = k0 + j < n && (mask_row == nullptr || mask_row[k0 + j]);
+      }
+      __syncthreads();
+      dot_nt_chunk(sQ, sK, s, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int row = q0 + r;
+      float rmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (mask_row != nullptr && !sKm[c]) x = kFill;
+        if (!allowed(layout, row, k0 + c, n)) x = -INFINITY;
+        s[i][j] = x;
+        rmax = fmaxf(rmax, x);
+      }
+      const float m_new = fmaxf(m_i[i], row_max(rmax));
+      const float shift = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = m_i[i] == -INFINITY ? 0.f : expf(m_i[i] - shift);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - shift);
+        psum += p;                   // l sums the unrounded p
+        sP[r * kPStride + tx + 16 * j] = to_f(from_f<T>(p));
+      }
+      l_i[i] = l_i[i] * alpha + row_sum(psum);
+      m_i[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kSliceCols / 16; ++j) o[i][j] *= alpha;
+    }
+    __syncthreads();
+    dot_nn<kSliceCols>(sP, sV, o, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= n) continue;
+    const float l_safe = l_i[i] == 0.f ? 1.f : l_i[i];
+    store_slice_row<T>(out + base, o[i], l_safe, row, d, c0, width, tx);
+    if (tx == 0 && blockIdx.z == 0) {
+      m_out[static_cast<size_t>(bh) * n + row] =
+          m_i[i] == -INFINITY ? 0.f : m_i[i];
+      l_out[static_cast<size_t>(bh) * n + row] = l_safe;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const void* mask, void* out, void* m, void* l, int bh,
+                        int h, int n, int d, float scale,
+                        const Layout& layout, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (3 * kChunkFloats + kSliceFloats);
+  auto kernel = block_sparse_fwd_wide_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (n + kTile - 1) / kTile, (d + kSliceCols - 1) / kSliceCols);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<T*>(out), static_cast<float*>(m), static_cast<float*>(l), h,
+      n, d, scale, layout);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes shared with ops/block_sparse.py: 0 float32, 1 bfloat16.
 // q, k, v, out: device pointers to contiguous (b, h, n, d) arrays in that
-// dtype; m, l: (b, h, n) float32; mask: (b, n) uint8 key-padding mask or
+// dtype, d 64, 128 or a multiple of 64 above 128; m, l: (b, h, n) float32; mask: (b, n) uint8 key-padding mask or
 // null. block and window (= num_local_blocks * block) are in tokens;
 // globals: a host array of num_globals (<= 8) global block ids. Returns the
 // CUDA error of the launch (0 on success); the launch is asynchronous on
@@ -574,7 +703,9 @@ extern "C" int block_sparse_attention_fwd(
     void* m, void* l, int b, int h, int n, int d, float scale, int causal,
     int block, int window, const int* globals, int num_globals, int dtype,
     void* stream) {
-  if (b <= 0 || h <= 0 || n <= 0 || (d != 64 && d != 128) || block <= 0 ||
+  if (b <= 0 || h <= 0 || n <= 0 ||
+      (d != 64 && d != 128 && (d <= 128 || d % kChunkCols != 0)) ||
+      block <= 0 ||
       window <= 0 || num_globals < 0 || num_globals > kMaxGlobals ||
       (num_globals > 0 && globals == nullptr) || (dtype != 0 && dtype != 1) ||
       (n + kTile - 1) / kTile > 65535)
@@ -588,7 +719,12 @@ extern "C" int block_sparse_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = b * h;
   cudaError_t err;
-  if (dtype == 0)
+  if (d > 128)
+    err = dtype == 0 ? launch_wide<float>(q, k, v, mask, out, m, l, bh, h, n,
+                                          d, scale, layout, s)
+                     : launch_wide<bf16>(q, k, v, mask, out, m, l, bh, h, n,
+                                         d, scale, layout, s);
+  else if (dtype == 0)
     err = d == 64 ? launch<float, 64>(q, k, v, mask, out, m, l, bh, h, n,
                                       scale, layout, s)
                   : launch<float, 128>(q, k, v, mask, out, m, l, bh, h, n,

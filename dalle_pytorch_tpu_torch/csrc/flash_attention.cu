@@ -27,11 +27,17 @@
 //     them (p.astype(v.dtype), ds.astype(k.dtype)); a no-op in f32.
 //   * inputs f32 or bf16, every product accumulated in f32 (the Pallas
 //     bodies' preferred_element_type=f32); mask optional.
-//   * the bodies are compiled for d = 64 and d = 128; the wrappers
-//     (ops/flash_attention.py::at_kernel_dim_head) run any other d up to
-//     128 zero-padded to the next of them and slice out, dq, dk and dv
-//     back: exact, since zero columns add nothing to q . k or dout . v,
+//   * the narrow bodies are compiled for d = 64 and d = 128, the wide
+//     bodies (end of this file) take any multiple of 64 above 128; the
+//     wrappers (ops/flash_attention.py::at_kernel_dim_head) run any other
+//     d zero-padded to the next of those widths and slice out, dq, dk and
+//     dv back: exact, since zero columns add nothing to q . k or dout . v,
 //     and scale still comes from the real d.
+//   * wide bodies (d > 128): a 64-row bf16 tile of d 256 is 32 KB, so the
+//     rings below do not fit in shared memory at such a d. A wide block
+//     owns a slice of at most 128 output columns and streams the products
+//     over the whole head in 64-column chunks (CUDA cores, f32 and bf16;
+//     tile.cuh), recomputing S (and dP) once a slice.
 //
 // Bound: operations. At the north training shapes (b 8, h 8, n 1280,
 // d 64, causal) K1 does 13.4 GFLOP of tile products (the causal pairs'
@@ -1059,6 +1065,293 @@ __global__ void __launch_bounds__(G * wg::kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// wide heads (d > 128, a multiple of 64): CUDA cores, f32 and bf16
+// ---------------------------------------------------------------------------
+//
+// A block owns one (b*h, 64-row tile) and one slice of at most 128 output
+// columns (blockIdx.z; tile.cuh): S = Q K^T and dP = dO V^T stream through
+// 64-column chunks, then the slice's own product runs against a 64 x 128
+// tile of V (K1), K (K2a) or Q and dO (K2b). Every slice recomputes S and
+// dP, ceil(d / 128) times the narrow bodies' score work; slice 0 writes
+// m and l. The masking contract, the order of the walks and the roundings
+// (p and ds to the input type before the second product) are the narrow
+// bodies'.
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const uint8_t* __restrict__ mask, T* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int h, int n, int d,
+    float scale, int causal) {
+  extern __shared__ float smem[];
+  float* sQ = smem;                         // chunk of Q
+  float* sK = sQ + kChunkFloats;            // chunk of K
+  float* sP = sK + kChunkFloats;            // P, rounded to T
+  float* sV = sP + kChunkFloats;            // slice of V
+  __shared__ int sQm[kTile];
+  __shared__ int sKm[kTile];
+
+  const int bh = blockIdx.x;
+  const int num_tiles = (n + kTile - 1) / kTile;
+  const int iq = num_tiles - 1 - blockIdx.y;          // heavy first
+  const int q0 = iq * kTile;
+  const int c0 = blockIdx.z * kSliceCols;
+  const int width = min(kSliceCols, d - c0);
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const size_t base = static_cast<size_t>(bh) * n * d;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  load_mask(sQm, mask_row, q0, n);
+
+  float m_i[4], l_i[4], o[4][kSliceCols / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_i[i] = kFill;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSliceCols / 16; ++j) o[i][j] = 0.f;
+  }
+
+  const int num_k = causal ? min(num_tiles, iq + 1) : num_tiles;
+  for (int ik = 0; ik < num_k; ++ik) {
+    const int k0 = ik * kTile;
+    float s[4][4] = {};
+    for (int c = 0; c < d; c += kChunkCols) {
+      __syncthreads();               // the last readers of every buffer
+      load_chunk<T>(sQ, q + base, d, q0, n, c);
+      load_chunk<T>(sK, k + base, d, k0, n, c);
+      if (c == 0) {
+        load_slice<T>(sV, v + base, d, k0, n, c0, width);
+        load_mask(sKm, mask_row, k0, n);
+      }
+      __syncthreads();
+      dot_nt_chunk(sQ, sK, s, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int row = q0 + r;
+      float rmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (mask && !(sQm[r] && sKm[tx + 16 * j])) x = kFill;
+        if (col >= n || (causal && col > row)) x = -INFINITY;
+        s[i][j] = x;
+        rmax = fmaxf(rmax, x);
+      }
+      const float m_new = fmaxf(m_i[i], row_max(rmax));
+      const float alpha = expf(m_i[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
+        psum += p;                   // l sums the unrounded p
+        sP[r * kPStride + tx + 16 * j] = to_f(from_f<T>(p));
+      }
+      l_i[i] = l_i[i] * alpha + row_sum(psum);
+      m_i[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kSliceCols / 16; ++j) o[i][j] *= alpha;
+    }
+    __syncthreads();
+    dot_nn<kSliceCols>(sP, sV, o, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= n) continue;
+    const float l_safe = l_i[i] == 0.f ? 1.f : l_i[i];
+    store_slice_row<T>(out + base, o[i], l_safe, row, d, c0, width, tx);
+    if (tx == 0 && blockIdx.z == 0) {
+      m_out[static_cast<size_t>(bh) * n + row] = m_i[i];
+      l_out[static_cast<size_t>(bh) * n + row] = l_safe;
+    }
+  }
+}
+
+// S and dP of one (query tile, key tile) pair over every chunk of d, the
+// four chunk buffers refilled chunk by chunk; `first` runs after the
+// first chunk's loads, before the barrier that publishes them
+template <typename T, typename First>
+__device__ __forceinline__ void scores_wide(
+    float* sQ, float* sO, float* sK, float* sV, const T* q, const T* dout,
+    const T* k, const T* v, int d, int q0, int k0, int n, float s[4][4],
+    float dp[4][4], int ty, int tx, First first) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  for (int c = 0; c < d; c += kChunkCols) {
+    __syncthreads();                 // the last readers of every buffer
+    load_chunk<T>(sQ, q, d, q0, n, c);
+    load_chunk<T>(sO, dout, d, q0, n, c);
+    load_chunk<T>(sK, k, d, k0, n, c);
+    load_chunk<T>(sV, v, d, k0, n, c);
+    if (c == 0) first();
+    __syncthreads();
+    dot_nt_chunk(sQ, sK, s, ty, tx);
+    dot_nt_chunk(sO, sV, dp, ty, tx);
+  }
+}
+
+// K2a wide: per key tile S and dP over the chunks, then the slice of
+// dQ += dS K[:, slice]
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ m,
+    const float* __restrict__ l, const float* __restrict__ dstat,
+    const uint8_t* __restrict__ mask, T* __restrict__ dq, int h, int n, int d,
+    float scale, int causal) {
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sO = sQ + kChunkFloats;
+  float* sK = sO + kChunkFloats;
+  float* sV = sK + kChunkFloats;
+  float* sS = sV + kChunkFloats;            // dS, rounded to T
+  float* sKs = sS + kChunkFloats;           // slice of K
+  __shared__ float sM[kTile], sInvL[kTile], sD[kTile];
+  __shared__ int sQm[kTile], sKm[kTile];
+
+  const int bh = blockIdx.x;
+  const int num_tiles = (n + kTile - 1) / kTile;
+  const int iq = num_tiles - 1 - blockIdx.y;
+  const int q0 = iq * kTile;
+  const int c0 = blockIdx.z * kSliceCols;
+  const int width = min(kSliceCols, d - c0);
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const size_t base = static_cast<size_t>(bh) * n * d;
+  const size_t sbase = static_cast<size_t>(bh) * n;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  load_stats(sM, sInvL, sD, sQm, m + sbase, l + sbase, dstat + sbase,
+             mask_row, q0, n);
+
+  float acc[4][kSliceCols / 16] = {};
+  const int num_k = causal ? min(num_tiles, iq + 1) : num_tiles;
+  for (int ik = 0; ik < num_k; ++ik) {
+    const int k0 = ik * kTile;
+    float s[4][4], ds[4][4];
+    scores_wide<T>(sQ, sO, sK, sV, q + base, dout + base, k + base, v + base,
+                   d, q0, k0, n, s, ds, ty, tx, [&] {
+                     load_slice<T>(sKs, k + base, d, k0, n, c0, width);
+                     load_mask(sKm, mask_row, k0, n);
+                   });
+    probs_and_ds(s, ds, sM, sInvL, sD, sQm, sKm, mask != nullptr, q0, k0, n,
+                 scale, causal, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sS[(ty + 16 * i) * kPStride + tx + 16 * j] = to_f(from_f<T>(ds[i][j]));
+    __syncthreads();
+    dot_nn<kSliceCols>(sS, sKs, acc, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < n) store_slice_row<T>(dq + base, acc[i], 1.f, row, d, c0, width,
+                                    tx);
+  }
+}
+
+// K2b wide: per query tile S and dP over the chunks, then the slices of
+// dV += P^T dO[:, slice] and dK += dS^T Q[:, slice] (fused: and
+// dQ[:, slice] += dS K[:, slice] by atomics)
+template <typename T, bool WITH_DQ>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ m,
+    const float* __restrict__ l, const float* __restrict__ dstat,
+    const uint8_t* __restrict__ mask, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ dq, int h, int n, int d, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sO = sQ + kChunkFloats;
+  float* sK = sO + kChunkFloats;
+  float* sV = sK + kChunkFloats;
+  float* sP = sV + kChunkFloats;            // P, rounded to T
+  float* sS = sP + kChunkFloats;            // dS, rounded to T
+  float* sQs = sS + kChunkFloats;           // slices of Q and dO
+  float* sOs = sQs + kSliceFloats;
+  float* sKs = sOs + kSliceFloats;          // slice of K (fused only)
+  __shared__ float sM[kTile], sInvL[kTile], sD[kTile];
+  __shared__ int sQm[kTile], sKm[kTile];
+
+  const int bh = blockIdx.x;
+  const int num_tiles = (n + kTile - 1) / kTile;
+  const int ik = blockIdx.y;
+  const int k0 = ik * kTile;
+  const int c0 = blockIdx.z * kSliceCols;
+  const int width = min(kSliceCols, d - c0);
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const size_t base = static_cast<size_t>(bh) * n * d;
+  const size_t sbase = static_cast<size_t>(bh) * n;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  load_mask(sKm, mask_row, k0, n);
+  if (WITH_DQ) load_slice<T>(sKs, k + base, d, k0, n, c0, width);
+
+  float dk_acc[4][kSliceCols / 16] = {}, dv_acc[4][kSliceCols / 16] = {};
+  for (int iq = causal ? ik : 0; iq < num_tiles; ++iq) {
+    const int q0 = iq * kTile;
+    float s[4][4], ds[4][4];
+    scores_wide<T>(sQ, sO, sK, sV, q + base, dout + base, k + base, v + base,
+                   d, q0, k0, n, s, ds, ty, tx, [&] {
+                     load_slice<T>(sQs, q + base, d, q0, n, c0, width);
+                     load_slice<T>(sOs, dout + base, d, q0, n, c0, width);
+                     load_stats(sM, sInvL, sD, sQm, m + sbase, l + sbase,
+                                dstat + sbase, mask_row, q0, n);
+                   });
+    // rows: this query tile; columns: this key tile
+    probs_and_ds(s, ds, sM, sInvL, sD, sQm, sKm, mask != nullptr, q0, k0, n,
+                 scale, causal, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sP[(ty + 16 * i) * kPStride + tx + 16 * j] = to_f(from_f<T>(s[i][j]));
+        sS[(ty + 16 * i) * kPStride + tx + 16 * j] =
+            to_f(from_f<T>(ds[i][j]));
+      }
+    __syncthreads();
+    dot_tn<kSliceCols>(sP, sOs, dv_acc, ty, tx);
+    dot_tn<kSliceCols>(sS, sQs, dk_acc, ty, tx);
+    if (WITH_DQ) {
+      float dq_t[4][kSliceCols / 16] = {};
+      dot_nn<kSliceCols>(sS, sKs, dq_t, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
+        if (row >= n) continue;
+#pragma unroll
+        for (int j = 0; j < kSliceCols / 16; ++j) {
+          const int c = tx + 16 * j;
+          if (c < width)
+            atomicAdd(dq + base + static_cast<size_t>(row) * d + c0 + c,
+                      dq_t[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= n) continue;
+    store_slice_row<T>(dk + base, dk_acc[i], 1.f, row, d, c0, width, tx);
+    store_slice_row<T>(dv + base, dv_acc[i], 1.f, row, d, c0, width, tx);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1197,8 +1490,72 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the wide bodies: grid (b*h, 64-row tiles, 128-column slices)
+dim3 wide_grid(int bh, int n, int d) {
+  return dim3(bh, (n + kTile - 1) / kTile, (d + kSliceCols - 1) / kSliceCols);
+}
+
+template <typename T>
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            const void* mask, void* out, void* m, void* l,
+                            int bh, int h, int n, int d, float scale,
+                            int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (3 * kChunkFloats + kSliceFloats);
+  auto kernel = flash_fwd_wide_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<wide_grid(bh, n, d), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<T*>(out), static_cast<float*>(m), static_cast<float*>(l), h,
+      n, d, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
+                           const void* dout, const void* m, const void* l,
+                           const void* dstat, const void* mask, void* dq,
+                           int bh, int h, int n, int d, float scale,
+                           int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (5 * kChunkFloats + kSliceFloats);
+  auto kernel = flash_bwd_dq_wide_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<wide_grid(bh, n, d), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(dstat), static_cast<const uint8_t*>(mask),
+      static_cast<T*>(dq), h, n, d, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, bool WITH_DQ>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v,
+                            const void* dout, const void* m, const void* l,
+                            const void* dstat, const void* mask, void* dk,
+                            void* dv, void* dq, int bh, int h, int n, int d,
+                            float scale, int causal, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (6 * kChunkFloats + (WITH_DQ ? 3 : 2) * kSliceFloats);
+  auto kernel = flash_bwd_dkv_wide_kernel<T, WITH_DQ>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<wide_grid(bh, n, d), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(dstat), static_cast<const uint8_t*>(mask),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dq), h, n,
+      d, scale, causal);
+  return cudaGetLastError();
+}
+
+// d 64 and 128 run the narrow bodies, a wider multiple of 64 the wide ones
 bool shape_ok(int b, int h, int n, int d, int dtype) {
-  return b > 0 && h > 0 && n > 0 && (d == 64 || d == 128) &&
+  return b > 0 && h > 0 && n > 0 &&
+         (d == 64 || d == 128 || (d > 128 && d % kChunkCols == 0)) &&
          (dtype == 0 || dtype == 1) && (n + kTile - 1) / kTile <= 65535;
 }
 
@@ -1220,7 +1577,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = b * h;
   cudaError_t err;
-  if (dtype == 0)
+  if (d > 128)
+    err = dtype == 0 ? launch_fwd_wide<float>(q, k, v, mask, out, m, l, bh, h,
+                                              n, d, scale, causal, s)
+                     : launch_fwd_wide<bf16>(q, k, v, mask, out, m, l, bh, h,
+                                             n, d, scale, causal, s);
+  else if (dtype == 0)
     err = d == 64 ? launch_fwd<64>(q, k, v, mask, out, m, l, bh, h, n, scale,
                                    causal, s)
                   : launch_fwd<128>(q, k, v, mask, out, m, l, bh, h, n, scale,
@@ -1245,7 +1607,13 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = b * h;
   cudaError_t err;
-  if (dtype == 0)
+  if (d > 128)
+    err = dtype == 0
+              ? launch_dq_wide<float>(q, k, v, dout, m, l, dstat, mask, dq,
+                                      bh, h, n, d, scale, causal, s)
+              : launch_dq_wide<bf16>(q, k, v, dout, m, l, dstat, mask, dq, bh,
+                                     h, n, d, scale, causal, s);
+  else if (dtype == 0)
     err = d == 64 ? launch_dq<64>(q, k, v, dout, m, l, dstat, mask, dq, bh, h,
                                   n, scale, causal, s)
                   : launch_dq<128>(q, k, v, dout, m, l, dstat, mask, dq, bh,
@@ -1274,7 +1642,15 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 #define FA_DKV(T, D, F)                                                      \
   launch_dkv<T, D, F>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, bh, h, n, \
                       scale, causal, s)
-  if (dq == nullptr) {
+#define FA_DKV_WIDE(T, F)                                                   \
+  launch_dkv_wide<T, F>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, bh, h, \
+                        n, d, scale, causal, s)
+  if (d > 128) {
+    if (dq == nullptr)
+      err = dtype == 0 ? FA_DKV_WIDE(float, false) : FA_DKV_WIDE(bf16, false);
+    else
+      err = dtype == 0 ? FA_DKV_WIDE(float, true) : FA_DKV_WIDE(bf16, true);
+  } else if (dq == nullptr) {
     if (dtype == 0)
       err = d == 64 ? FA_DKV(float, 64, false) : FA_DKV(float, 128, false);
     else
@@ -1291,5 +1667,6 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                     : FA_DKV(__nv_bfloat16, 128, true);
   }
 #undef FA_DKV
+#undef FA_DKV_WIDE
   return static_cast<int>(err);
 }

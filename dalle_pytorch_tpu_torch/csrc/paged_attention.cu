@@ -31,7 +31,9 @@
 //     stride dh, lanes past dh hold zero, acc is written at width dh. A
 //     chunk's K (or V) rows are one contiguous run of 8 dh elements, so
 //     they still arrive by 16-byte copies when that run's length is a
-//     multiple of 16 bytes, by 8-byte copies otherwise.
+//     multiple of 16 bytes, by 8-byte copies otherwise;
+//   * any dh above 128: the wide body (paged_decode_wide_kernel, below),
+//     on CUDA cores, one slice of 128 acc columns a block.
 //
 // Bound: bytes. A launch must read the walked pages of K and V, about
 // sum over slots of ceil(pos/16)*16 * heads * dh * 2 * itemsize (6.2 MB,
@@ -457,8 +459,191 @@ cudaError_t launch(const Args& a, int b, int splits, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// wide heads (dh > 128): CUDA cores, any dh
+// ---------------------------------------------------------------------------
+//
+// A row wider than 128 elements does not fit the narrow bodies' lanes and
+// merge (one lane's 16 bytes, one thread per output element), and q and
+// acc would grow with dh. So a block owns one (slot x head, split) and a
+// slice of at most kWideSlice acc columns (grid axis z): q waits in shared
+// memory as f32; each warp takes the split's rows round-robin, scores a
+// row over the whole head (lanes striding dh, a warp reduction), runs the
+// online softmax in registers and adds its slice of the V row, 4 columns
+// a lane. The warps merge as the narrow body's do; the splits merge
+// through `part` (b * heads, slices, splits, kWideSlice + 2) with one
+// counter a (slot, head, slice), reset by the last block. Every slice
+// recomputes the scores; slice 0 writes m and l.
+constexpr int kWideSlice = kThreads;         // acc columns a block owns
+
+template <typename TQ, typename TKV, bool QUANT, bool VISIBLE>
+__global__ void __launch_bounds__(kThreads) paged_decode_wide_kernel(Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float sAcc[kWarps][kWideSlice];
+  __shared__ float sM[kWarps];
+  __shared__ float sL[kWarps];
+  __shared__ int sLast;
+
+  const int bhid = blockIdx.x;
+  const int slot = bhid / a.heads;
+  const int h = bhid % a.heads;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int slice = blockIdx.z;
+  const int dh = a.dh;
+  const int c0 = slice * kWideSlice;
+  const int width = min(kWideSlice, dh - c0);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int ps = a.page_size;
+  const int pps = a.pages_per_split;
+
+  const int walk_len = VISIBLE ? a.visible_cnt[slot] : a.pos[slot];
+  const int trips = VISIBLE ? walk_len : (walk_len + ps - 1) / ps;
+  const int nlive = max(1, (trips + pps - 1) / pps);
+  if (split >= nlive) return;                 // past the walk: reads no page
+  const int first = split * pps;
+  const int npages = max(0, min(pps, trips - first));
+
+  float* sq = reinterpret_cast<float*>(smem);             // q, dh floats
+  int* sPage = reinterpret_cast<int*>(sq + dh);            // pps page ids
+  int* sLogical = sPage + pps;
+  const size_t qh = (static_cast<size_t>(slot) * a.heads + h) * dh;
+  const TQ* qp = static_cast<const TQ*>(a.q) + qh;
+  for (int e = tid; e < dh; e += kThreads) sq[e] = to_f(qp[e]);
+  if (tid < npages) {
+    const int lp = VISIBLE ? a.visible[static_cast<size_t>(slot) * a.width +
+                                       first + tid]
+                           : first + tid;
+    sLogical[tid] = lp;
+    sPage[tid] = a.block_tables[static_cast<size_t>(slot) * a.max_pages + lp];
+  }
+  __syncthreads();
+
+  const uint8_t* allow_row = a.allowed + static_cast<size_t>(slot) * a.L;
+  const TKV* kp = static_cast<const TKV*>(a.k_pages);
+  const TKV* vp = static_cast<const TKV*>(a.v_pages);
+  constexpr int kPer = kWideSlice / 32;       // acc columns a lane
+  float acc[kPer];
+#pragma unroll
+  for (int jj = 0; jj < kPer; ++jj) acc[jj] = 0.f;
+  float m = kFill;
+  float l = 0.f;                              // the same in every lane
+  for (int i = warp; i < npages * ps; i += kWarps) {
+    const int pg = i / ps;
+    const int off = i % ps;
+    const int j = sLogical[pg] * ps + off;   // the row's logical position
+    const size_t row0 =
+        (static_cast<size_t>(sPage[pg]) * a.heads + h) * ps + off;
+    const TKV* krow = kp + row0 * dh;
+    float part = 0.f;
+    for (int e = lane; e < dh; e += 32) part += sq[e] * to_f(krow[e]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(kAll, part, o);
+    float x = part * a.scale;
+    if (QUANT) x *= a.k_scales[row0];
+    if (!(j < a.L && allow_row[j])) x = kFill;
+    const float m_new = fmaxf(m, x);
+    const float alpha = expf(m - m_new);
+    const float w = expf(x - m_new);
+    l = l * alpha + w;
+    const float wv = QUANT ? w * a.v_scales[row0] : w;
+    const TKV* vrow = vp + row0 * dh + c0;
+#pragma unroll
+    for (int jj = 0; jj < kPer; ++jj) {
+      const int c = lane + 32 * jj;
+      acc[jj] = acc[jj] * alpha + (c < width ? wv * to_f(vrow[c]) : 0.f);
+    }
+    m = m_new;
+  }
+
+  // merge the warps' partials; a warp that walked nothing holds
+  // (FILL, 0, 0) and contributes nothing
+  if (lane == 0) {
+    sM[warp] = m;
+    sL[warp] = l;
+  }
+#pragma unroll
+  for (int jj = 0; jj < kPer; ++jj) sAcc[warp][lane + 32 * jj] = acc[jj];
+  __syncthreads();
+  float big = kFill;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) big = fmaxf(big, sM[w]);
+  float out = 0.f, total = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float f = expf(sM[w] - big);
+    total += sL[w] * f;
+    out += sAcc[w][tid] * f;
+  }
+  const size_t so = static_cast<size_t>(slot) * a.heads + h;
+  if (nlive == 1) {
+    if (tid < width) a.acc[qh + c0 + tid] = out;
+    if (tid == 0 && slice == 0) {
+      a.m[so] = big;
+      a.l[so] = total;
+    }
+    return;
+  }
+
+  // several splits: this one's partials to the scratch; the last block of
+  // the (slot, head, slice) to finish merges them all
+  const size_t cell = static_cast<size_t>(bhid) * gridDim.z + slice;
+  float* mine = a.part + (cell * splits + split) * (kWideSlice + 2);
+  mine[tid] = out;
+  if (tid == 0) {
+    mine[kWideSlice] = big;
+    mine[kWideSlice + 1] = total;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) sLast = atomicAdd(a.counters + cell, 1) == nlive - 1;
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+  const float* all = a.part + cell * splits * (kWideSlice + 2);
+  float gbig = kFill;
+  for (int sp = 0; sp < nlive; ++sp)
+    gbig = fmaxf(gbig, __ldcg(all + sp * (kWideSlice + 2) + kWideSlice));
+  float gacc = 0.f, gl = 0.f;
+  for (int sp = 0; sp < nlive; ++sp) {
+    const float* p = all + sp * (kWideSlice + 2);
+    const float fs = expf(__ldcg(p + kWideSlice) - gbig);
+    gl += __ldcg(p + kWideSlice + 1) * fs;
+    gacc += __ldcg(p + tid) * fs;
+  }
+  if (tid < width) a.acc[qh + c0 + tid] = gacc;
+  if (tid == 0) {
+    if (slice == 0) {
+      a.m[so] = gbig;
+      a.l[so] = gl;
+    }
+    a.counters[cell] = 0;           // zero again for the next launch
+  }
+}
+
+template <typename TQ, typename TKV, bool QUANT>
+cudaError_t launch_wide(const Args& a, int b, int splits,
+                        cudaStream_t stream) {
+  auto kernel = a.visible ? paged_decode_wide_kernel<TQ, TKV, QUANT, true>
+                          : paged_decode_wide_kernel<TQ, TKV, QUANT, false>;
+  const size_t smem = sizeof(float) * static_cast<size_t>(a.dh) +
+                      2 * sizeof(int) * a.pages_per_split;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int slices = (a.dh + kWideSlice - 1) / kWideSlice;
+  kernel<<<dim3(b * a.heads, splits, slices), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // dh 16, 32, 64 and 128 run their own bodies; any other dh up to 128 the
-// body of the next of those widths, reading rows at stride dh
+// body of the next of those widths, reading rows at stride dh; a wider dh
+// the wide body
 template <typename TQ, typename TKV, bool QUANT>
 cudaError_t by_dim(int dh, const Args& a, int b, int splits,
                    cudaStream_t stream) {
@@ -469,7 +654,8 @@ cudaError_t by_dim(int dh, const Args& a, int b, int splits,
     case 128: return launch<TQ, TKV, 128, QUANT, true>(a, b, splits, stream);
     default: break;
   }
-  if (dh < 1 || dh > 128) return cudaErrorInvalidValue;
+  if (dh < 1) return cudaErrorInvalidValue;
+  if (dh > 128) return launch_wide<TQ, TKV, QUANT>(a, b, splits, stream);
   if (dh < 16) return launch<TQ, TKV, 16, QUANT, false>(a, b, splits, stream);
   if (dh < 32) return launch<TQ, TKV, 32, QUANT, false>(a, b, splits, stream);
   if (dh < 64) return launch<TQ, TKV, 64, QUANT, false>(a, b, splits, stream);
@@ -480,7 +666,7 @@ cudaError_t by_dim(int dh, const Args& a, int b, int splits,
 
 // dtype codes shared with ops/paged_attention.py: 0 float32, 1 bfloat16,
 // 2 int8. Pointers are device pointers; every array is contiguous:
-// q (b, heads, dh), 1 <= dh <= 128; k/v pages (P, heads, page_size, dh),
+// q (b, heads, dh), dh >= 1; k/v pages (P, heads, page_size, dh),
 // 16-byte aligned;
 // scales (P, heads, page_size) float32, 16-byte aligned (int8 pages only,
 // else null); block_tables (b, max_pages) int32; pos (b,) int32; allowed
@@ -488,8 +674,10 @@ cudaError_t by_dim(int dh, const Args& a, int b, int splits,
 // (b,) int32, both null for the prefix walk; acc (b, heads, dh), m and l
 // (b, heads) float32. A split covers pages_per_split trips; the walk
 // takes splits = ceil(max_pages (or width) / pages_per_split) of them,
-// and when that is more than one, part is a (b, heads, splits, dh + 2)
-// float32 scratch and counters a (b, heads) int32 array of zeros, which
+// and when that is more than one, part is a float32 scratch of
+// (b, heads, splits, dh + 2) for dh <= 128, (b, heads, slices, splits, 130)
+// above (slices = ceil(dh / 128)), and counters an int32 array of zeros,
+// (b, heads) or (b, heads, slices), which
 // the launch leaves zero (launches sharing it must be ordered on one
 // stream). Returns the CUDA error of the launch (0 on success); the launch
 // is asynchronous on `stream`.

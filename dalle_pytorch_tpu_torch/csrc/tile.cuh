@@ -122,4 +122,83 @@ __device__ __forceinline__ void dot_tn(const float* P, const float* B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// wide heads (d > 128, a multiple of 64): the wide bodies of
+// flash_attention.cu and block_sparse.cu. A block owns one slice of at
+// most kSliceCols output columns (grid axis z); the products that need
+// the whole head (q . k, dout . v) stream through shared memory in chunks
+// of kChunkCols columns, so the footprint does not grow with d. A slice
+// tile is a 64 x 128 f32 tile (stride 129, the D = 128 layout of the
+// products above); a last slice of 64 columns is zero past them.
+// ---------------------------------------------------------------------------
+
+constexpr int kChunkCols = 64;
+constexpr int kSliceCols = 128;
+constexpr int kChunkFloats = kTile * (kChunkCols + 1);
+constexpr int kSliceFloats = kTile * (kSliceCols + 1);
+
+// rows [row0, row0 + 64), columns [col0, col0 + 64) of a (n, d) head
+// slice into dst[64][65] as f32; rows at or past n read as zeros
+template <typename T>
+__device__ __forceinline__ void load_chunk(float* dst, const T* src, int d,
+                                           int row0, int n, int col0) {
+  for (int i = threadIdx.x; i < kTile * kChunkCols; i += kThreads) {
+    const int r = i / kChunkCols;
+    const int c = i % kChunkCols;
+    const int g = row0 + r;
+    dst[r * (kChunkCols + 1) + c] =
+        g < n ? to_f(src[static_cast<size_t>(g) * d + col0 + c]) : 0.f;
+  }
+}
+
+// rows [row0, row0 + 64), columns [col0, col0 + width) (width 64 or 128)
+// into dst[64][129] as f32; zeros past n and past width
+template <typename T>
+__device__ __forceinline__ void load_slice(float* dst, const T* src, int d,
+                                           int row0, int n, int col0,
+                                           int width) {
+  for (int i = threadIdx.x; i < kTile * kSliceCols; i += kThreads) {
+    const int r = i / kSliceCols;
+    const int c = i % kSliceCols;
+    const int g = row0 + r;
+    dst[r * (kSliceCols + 1) + c] =
+        g < n && c < width
+            ? to_f(src[static_cast<size_t>(g) * d + col0 + c])
+            : 0.f;
+  }
+}
+
+// this thread's columns of a slice accumulator row (acc[j]: column
+// tx + 16 j of [c0, c0 + width)), divided by div, into row `row` of a
+// (n, d) array
+template <typename T>
+__device__ __forceinline__ void store_slice_row(T* dst, const float* acc,
+                                                float div, int row, int d,
+                                                int c0, int width, int tx) {
+#pragma unroll
+  for (int j = 0; j < kSliceCols / 16; ++j) {
+    const int c = tx + 16 * j;
+    if (c < width)
+      dst[static_cast<size_t>(row) * d + c0 + c] = from_f<T>(acc[j] / div);
+  }
+}
+
+// acc[i][j] += sum_c A[ty + 16 i][c] * B[tx + 16 j][c] over one chunk
+__device__ __forceinline__ void dot_nt_chunk(const float* A, const float* B,
+                                             float acc[4][4], int ty,
+                                             int tx) {
+#pragma unroll 8
+  for (int c = 0; c < kChunkCols; ++c) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (kChunkCols + 1) + c];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (kChunkCols + 1) + c];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
 }  // namespace

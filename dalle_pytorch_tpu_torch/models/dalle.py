@@ -5,9 +5,12 @@ embeddings (``embed_prompt``, ``decode_token_embed``, the summed-axial
 ``image_pos_emb`` in both ``axial_compat`` modes), ``logits_mask``,
 ``to_logits`` (``:47-244``), the forward and training loss
 (``dalle_apply``, ``ce_from_hidden``, ``_nll``, ``_chunked_ce``,
-``:290-401``), and the samplers ``top_k_filter``, ``top_p_filter`` and
-``sample_per_slot`` (``:408-514``) without the classifier-free-guidance
-pair arguments, which come with a later slice.
+``:290-401``), the samplers ``top_k_filter``, ``top_p_filter`` and
+``sample_per_slot`` (``:408-514``; its classifier-free-guidance pair
+arguments are the engine's, a later slice), ``quantize_for_decode``
+(``:271``) and one-shot generation, ``generate_images`` (``:517-664``):
+the dense KV cache, classifier-free guidance, int8 caches and the CLIP
+rerank.
 
 Vocabulary layout ``[0, num_text_tokens) text | image | EOS``. The image
 embedding is TIED to the VAE codebook: ``dalle_init(vae=...)`` copies
@@ -17,6 +20,7 @@ through the VAE with DALLE's copy, as the JAX package does.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple, Union
 
@@ -25,8 +29,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 from dalle_pytorch_tpu_torch.device import generator, resolve_device
+from dalle_pytorch_tpu_torch.models import clip as clip_mod
 from dalle_pytorch_tpu_torch.models import vae as vae_mod
-from dalle_pytorch_tpu_torch.ops import core, prng
+from dalle_pytorch_tpu_torch.ops import core, prng, quant
+from dalle_pytorch_tpu_torch.ops import decode as decode_ops
 from dalle_pytorch_tpu_torch.ops import transformer as T
 
 
@@ -353,3 +359,135 @@ def sample_per_slot(logits: torch.Tensor, pred_pos: torch.Tensor,
     raw = prng.categorical(prng.fold_in(keys, pred_pos), lg)
     return torch.where(pred_pos >= cfg.text_seq_len,
                        raw - cfg.num_text_tokens, raw)
+
+
+# ---------------------------------------------------------------------------
+# int8 weights and one-shot generation
+# ---------------------------------------------------------------------------
+
+def quantize_for_decode(model: DALLE) -> DALLE:
+    """A copy of ``model`` with the transformer's linears and the
+    vocabulary head in int8 (``ops/quant.py``); the embedding tables, the
+    layernorms and the tied codebook stay in their stored dtype.
+    Inference only."""
+    out = copy.copy(model)
+    out._modules = dict(model._modules)
+    out.transformer = quant.quantize_module_int8(model.transformer)
+    out.logits_proj = quant.quantize_module_int8(model.logits_proj)
+    return out
+
+
+@torch.no_grad()
+def sample_tokens(model: DALLE, text: torch.Tensor, *, rng: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  filter_thres: float = 0.5, top_p: float = 0.0,
+                  temperature: float = 1.0, guidance: float = 0.0,
+                  quantize_cache: bool = False):
+    """The sampling loop of ``generate_images``, one decode step per item:
+    yields the (rows,) token fed at each position t0 .. seq_len - 1
+    (image ids without the text-vocab offset; rows = 2b under guidance,
+    the conditional stream first), then runs that position's step. The
+    options are ``generate_images``'."""
+    cfg = model.cfg
+    b, t0 = text.shape
+    dev = text.device
+    rng = rng.to(dev)
+    total_len = cfg.seq_len
+    tcfg = cfg.transformer
+    guided = guidance > 0
+    if guided:
+        text = torch.cat([text, torch.zeros_like(text)])
+        if mask is not None:
+            mask = torch.cat([mask, torch.ones_like(mask)])
+    rows = text.shape[0]
+
+    h, cache = decode_ops.prefill(model.transformer, embed_prompt(model, text),
+                                  cfg=tcfg, total_len=total_len,
+                                  prompt_mask=mask,
+                                  quantize_cache=quantize_cache)
+    key_mask = decode_ops._full_key_mask(mask, rows, t0, total_len, dev)
+    uncond_rows = torch.arange(rows, device=dev) >= b
+
+    def sample(logits: torch.Tensor, pred_pos: int) -> torch.Tensor:
+        forbidden = logits_mask(cfg, torch.tensor([pred_pos - 1],
+                                                  device=dev))
+        lg = logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
+        is_image = pred_pos >= cfg.text_seq_len
+        if guided:
+            l_c, l_u = lg[:b].float(), lg[b:].float()
+            lg = (l_u + guidance * (l_c - l_u) if is_image
+                  else l_c).to(lg.dtype)
+        # a Python float divides in the logits' dtype, as JAX's weakly
+        # typed scalar does
+        lg = lg / torch.tensor(temperature, dtype=lg.dtype, device=dev)
+        lg = (top_p_filter(lg, top_p) if top_p > 0
+              else top_k_filter(lg, filter_thres))
+        raw = prng.categorical(prng.fold_in(rng, pred_pos), lg)
+        if guided:
+            raw = raw.repeat(2)          # both streams take the same token
+        return raw - cfg.num_text_tokens if is_image else raw
+
+    cur = sample(to_logits(model, h[:, -1]), t0)
+    for pos in range(t0, total_len):
+        if guided and pos < cfg.text_seq_len:
+            cur = torch.where(uncond_rows, 0, cur)   # the null stream: PAD
+        yield cur
+        x = decode_token_embed(model, cur, torch.full((rows,), pos,
+                                                      device=dev))
+        h_tok = decode_ops.decode_step(model.transformer, x, pos, cache,
+                                       cfg=tcfg, key_mask=key_mask)
+        if pos + 1 < total_len:      # the token past the end is never used
+            cur = sample(to_logits(model, h_tok), pos + 1)
+
+
+@torch.no_grad()
+def generate_images(model: DALLE, vae: vae_mod.VAEDecoder,
+                    text: torch.Tensor, *, rng: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    filter_thres: float = 0.5, top_p: float = 0.0,
+                    temperature: float = 1.0, guidance: float = 0.0,
+                    clip=None, return_img_seq: bool = False,
+                    quantize_cache: bool = False):
+    """Sample the image tokens of ``text`` (b, t0) autoregressively over a
+    dense KV cache and decode them through the VAE with DALLE's tied
+    codebook (``images`` (b, H, W, C)). ``rng`` is a (2,) key; position
+    p's draw uses ``fold_in(rng, p)`` over the whole batch at once, as
+    JAX's one call does.
+
+    Per step the forbidden logits are filled, the ``temperature`` divide
+    (in the logits' dtype) comes first, then nucleus (``top_p > 0``) or
+    top-k (``filter_thres``) filtering. Prompts shorter than the text span
+    complete it first; ``mask`` (b, t0) marks their pad positions.
+    ``guidance > 0`` adds the unconditional stream (the all-PAD caption,
+    all-True mask) in the batch: image tokens sample from
+    ``l_u + guidance * (l_c - l_u)`` mixed in float32 against the
+    ``-finfo.max`` fill, both streams take the same token, and the null
+    stream keeps PAD at text positions. ``quantize_cache`` stores the
+    cache int8. With ``clip`` (a ``models/clip.py::CLIP``) returns
+    (images, CLIP scores of the sampled captions against the images);
+    with ``return_img_seq`` (images, image token ids)."""
+    cfg = model.cfg
+    if clip is not None and clip.cfg.num_text_tokens < cfg.num_text_tokens:
+        # the rerank would gather out-of-range text ids: fail before the
+        # sampling loop
+        raise ValueError(
+            f"CLIP num_text_tokens ({clip.cfg.num_text_tokens}) < "
+            f"DALLE num_text_tokens ({cfg.num_text_tokens}): the rerank "
+            f"would gather out-of-range text ids; train CLIP with a vocab "
+            f"covering the DALLE's")
+    toks = list(sample_tokens(model, text, rng=rng, mask=mask,
+                              filter_thres=filter_thres, top_p=top_p,
+                              temperature=temperature, guidance=guidance,
+                              quantize_cache=quantize_cache))
+    b = text.shape[0]
+    full = torch.cat([text, torch.stack(toks, dim=1)[:b].to(text.dtype)],
+                     dim=1)                      # the conditional stream
+    img_seq = full[:, -cfg.image_seq_len:]
+    images = vae_mod.decode(vae, img_seq, codebook=model.image_emb.weight)
+    if return_img_seq:
+        return images, img_seq
+    if clip is not None:
+        scores = clip_mod.clip_apply(clip, full[:, :cfg.text_seq_len],
+                                     images)
+        return images, scores
+    return images

@@ -126,9 +126,10 @@ def block_sparse_attention_fwd(q, k, v, *, scale: float, causal: bool,
                                block: int = 16, num_local_blocks: int = 4,
                                global_blocks: Tuple[int, ...] = (0,),
                                mask: Optional[torch.Tensor] = None):
-    """K3: (out, m, l). The CUDA kernel for CUDA tensors (any d up to
-    128, through the flash kernels' ``any_dim_head``), the plain
-    version for CPU tensors. Counts launches in
+    """K3: (out, m, l). The CUDA kernel for CUDA tensors (any d, through
+    the flash kernels' ``any_dim_head``: d 64 and 128 on the narrow
+    bodies, wider heads on the wide body), the plain version for CPU
+    tensors. Counts launches in
     ``block_sparse_attention_fwd.launches``."""
     if q.device.type == "cpu":
         return block_sparse_attention_fwd_plain(
@@ -137,7 +138,8 @@ def block_sparse_attention_fwd(q, k, v, *, scale: float, causal: bool,
             mask=mask)
     name = "block_sparse_attention_fwd"
     flash_ops._validate(q, k, v, mask)
-    # the flash kernels' inputs: cuda, f32 or bf16, d 64 or 128, contiguous
+    # the flash kernels' inputs: cuda, f32 or bf16, a kernel width of d,
+    # contiguous
     code, mask_ptr = flash_ops._kernel_args(name, q, k, v, mask)
     if len(global_blocks) > MAX_GLOBAL_BLOCKS or block < 1 \
             or num_local_blocks < 1:

@@ -6,8 +6,10 @@ standard ``torch.nn`` modules (``nn.Linear`` weight ``(out, in)``,
 ``nn.LayerNorm``), and these functions apply them with the JAX
 package's numerics rather than the modules' own ``forward``:
 
-* ``linear`` casts the weight to the activation dtype (``core.linear``,
-  fp path; the int8 ``w_q`` path comes with a later slice);
+* ``linear`` casts the weight to the activation dtype (``core.linear``);
+  given an int8 ``ops/quant.py::QuantLinear`` it runs the JAX int8
+  branch (``:64-66``): the int8 weight cast to the activation dtype,
+  the product, then the per-output-channel scale in that dtype;
 * ``layernorm`` normalises in f32 with eps 1e-5 and casts back
   (``core.layernorm``), where ``nn.LayerNorm`` would stay in bf16;
 * ``gelu`` is the exact erf form (``core.gelu``);
@@ -32,10 +34,14 @@ from torch import nn
 from dalle_pytorch_tpu_torch.ops import prng
 
 
-def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ w.T (+ b), in the activation dtype."""
+def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """y = x @ w.T (+ b), in the activation dtype; ``p`` an ``nn.Linear``
+    or an int8 ``QuantLinear`` (y = (x @ w_q.T) * scale (+ b))."""
     b = None if p.bias is None else p.bias.to(x.dtype)
-    return F.linear(x, p.weight.to(x.dtype), b)
+    if not hasattr(p, "w_q"):
+        return F.linear(x, p.weight.to(x.dtype), b)
+    y = F.linear(x, p.w_q.to(x.dtype)) * p.scale.to(x.dtype)
+    return y if b is None else y + b
 
 
 def layernorm(p: nn.LayerNorm, x: torch.Tensor, *,

@@ -1,11 +1,24 @@
-"""Incremental decoding: prefill, and the paged single-token decode step.
+"""Incremental decoding: prefill, the dense-cache and the paged
+single-token decode steps.
 
-Port of the serving half of ``dalle_pytorch_tpu/ops/decode.py``:
+Port of ``dalle_pytorch_tpu/ops/decode.py``:
 
-* ``_quantize_rows`` (``:73``) — symmetric per-row int8 for the int8 pool;
+* ``_quantize_rows`` (``:73``) — symmetric per-row int8 for the int8
+  caches;
+* ``init_cache`` (``:46``), ``_store_rows`` (``:82``, with
+  ``_store_rows_per_slot``) and ``_full_key_mask`` (``:143``) — the
+  dense (depth, b, heads, total_len, dh) cache of one-shot generation,
+  int8 rows with per-row f32 scales under ``quantized``;
 * ``prefill`` (``:274``) — the prompt through the sequential stack in one
   batched pass, with ``_attn_with_kv``'s explicit matmul and finite-fill
-  softmax (no fused attention call: the reference fill must hold);
+  softmax (no fused attention call: the reference fill must hold); with
+  ``prompt_mask`` pad pairs are left out, and with ``total_len`` it
+  returns the dense cache, as JAX does, else the prompt's rows (the
+  engine's call);
+* ``decode_step`` (``:375``) — one token per row against the dense
+  cache: ``_decode_step_math`` through the gather read (the cached rows
+  plus self under one softmax, the finite ``-finfo.max`` fill), then
+  ``_store_rows``;
 * ``_kernel_read`` (``:183``) — kernel K4's partials merged with the
   current token's self-logit;
 * ``_decode_step_math`` (``:391-517``) — one step's attention over the
@@ -25,11 +38,13 @@ Port of the serving half of ``dalle_pytorch_tpu/ops/decode.py``:
   oracle — while dense layers read as before. Skipped pages carry
   exactly zero weight, so the tokens do not change.
 
-Where JAX returns a new pool from each step, the port updates the pool
-IN PLACE (``index_put_``): the pool is the largest buffer on the card,
-and a copy per step would move it once per token for nothing. Reads of
-a step never see its own write, because the write happens after every
-layer has read and the kernel only reads rows below each slot's pos.
+Where JAX returns a new cache or pool from each step, the port updates
+the dense cache and the page pool IN PLACE (``index_put_``): they are the
+largest buffers on the card, and a copy per step would move them once
+per token for nothing. Reads of a step never see its own write, because
+the write happens after every layer has read, the gather read masks
+rows at and past each row's pos, and the kernel reads only rows below
+it.
 """
 
 from __future__ import annotations
@@ -63,6 +78,54 @@ def _rows(ks: torch.Tensor, vs: torch.Tensor, quantize: bool) -> Pool:
     kq, ksc = _quantize_rows(ks)
     vq, vsc = _quantize_rows(vs)
     return {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+
+
+def init_cache(cfg: T.TransformerConfig, batch: int, total_len: int,
+               dtype=torch.float32, quantized: bool = False,
+               device=None) -> Pool:
+    """Zeroed dense K/V buffers (depth, batch, heads, total_len, dh) in
+    ``dtype`` — or int8 with (depth, batch, heads, total_len) float32
+    scales when ``quantized``."""
+    shape = (cfg.depth, batch, cfg.heads, total_len, cfg.dim_head)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _store_rows(cache: Pool, ks: torch.Tensor, vs: torch.Tensor,
+                pos) -> None:
+    """Write K/V rows (depth, b, heads, rows, dh) into the dense cache
+    from position ``pos`` on, in place, quantizing iff the cache is int8
+    (the one write for prefill and ``decode_step``). ``pos`` may be a
+    (b,) tensor of per-row positions (single rows, ``_store_rows_per_
+    slot``): row i writes cache row ``pos[i]`` of its own batch entry."""
+    rows = _rows(ks, vs, "k_scale" in cache)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        bidx = torch.arange(pos.shape[0], device=pos.device)
+        for name, buf in cache.items():
+            # advanced indices at dims 1 and 3 are apart, so the value is
+            # (b, depth, heads[, dh])
+            buf[:, bidx, :, pos.long()] = rows[name][:, :, :, 0] \
+                .transpose(0, 1).to(buf.dtype)
+        return
+    n = ks.shape[3]
+    for name, buf in cache.items():
+        buf[:, :, :, pos:pos + n] = rows[name].to(buf.dtype)
+
+
+def _full_key_mask(prompt_mask: Optional[torch.Tensor], batch: int,
+                   prompt_len: int, total_len: int,
+                   device=None) -> torch.Tensor:
+    """(batch, total_len) bool: the prompt's pad mask over [0, t0), True
+    beyond (every generated position is kept)."""
+    full = torch.ones((batch, total_len), dtype=torch.bool, device=device)
+    if prompt_mask is not None:
+        full[:, :prompt_len] = prompt_mask.bool()
+    return full
 
 
 @functools.lru_cache(maxsize=16)
@@ -121,18 +184,24 @@ def _attn_with_kv(layer: T.Layer, h: torch.Tensor, allowed: torch.Tensor,
 
 
 def prefill(model: T.Transformer, x: torch.Tensor, *,
-            cfg: T.TransformerConfig, quantize_cache: bool = False
-            ) -> Tuple[torch.Tensor, Pool]:
-    """Run the prompt embeddings x (b, t0, dim) through the stack
-    (unpadded prompts: ``prompt_mask=None``, as the engine calls it).
+            cfg: T.TransformerConfig, quantize_cache: bool = False,
+            prompt_mask: Optional[torch.Tensor] = None,
+            total_len: Optional[int] = None) -> Tuple[torch.Tensor, Pool]:
+    """Run the prompt embeddings x (b, t0, dim) through the stack;
+    ``prompt_mask`` (b, t0) leaves pad pairs out (query and key).
 
-    Returns (h_out (b, t0, dim), the prompt's K/V rows ``{"k", "v"}`` of
-    (depth, b, heads, t0, dh) — int8 plus (depth, b, heads, t0) scales
-    under ``quantize_cache``). JAX returns them inside a full-length
-    cache; here the caller scatters them into its pages."""
-    t0 = x.shape[1]
+    Returns (h_out (b, t0, dim), K/V): with ``total_len``, JAX's dense
+    cache (``init_cache``) with rows [0, t0) filled; without it (the
+    engine's call, which scatters them into its pages) the prompt's rows
+    ``{"k", "v"}`` of (depth, b, heads, t0, dh). Either is int8 plus
+    float32 scales under ``quantize_cache``."""
+    b, t0 = x.shape[:2]
     dense_allowed = torch.ones((t0, t0), dtype=torch.bool,
                                device=x.device).tril()[None, None]
+    if prompt_mask is not None:
+        pm = prompt_mask.bool()
+        dense_allowed = dense_allowed & (pm[:, None, :, None]
+                                         & pm[:, None, None, :])
     sparse_allowed = dense_allowed
     if any(cfg.sparse_pattern):
         # the layout's rows and columns [0, t0) are those of the full
@@ -147,7 +216,13 @@ def prefill(model: T.Transformer, x: torch.Tensor, *,
         h = h + T.ff_branch(layer, h)
         ks.append(k)
         vs.append(v)
-    return h, _rows(torch.stack(ks), torch.stack(vs), quantize_cache)
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    if total_len is None:
+        return h, _rows(ks, vs, quantize_cache)
+    cache = init_cache(cfg, b, total_len, ks.dtype, quantize_cache,
+                       x.device)
+    _store_rows(cache, ks, vs, 0)
+    return h, cache
 
 
 def _kernel_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -289,6 +364,24 @@ def _decode_step_math(model: T.Transformer, x_tok: torch.Tensor,
                             scale=cfg.scale, ksc=ksc, vsc=vsc)
 
     return _run_layers(model, x_tok, cfg, read)
+
+
+def decode_step(model: T.Transformer, x_tok: torch.Tensor, pos,
+                cache: Pool, *, cfg: T.TransformerConfig,
+                key_mask: torch.Tensor) -> torch.Tensor:
+    """Advance one token against the dense cache (updated in place).
+    x_tok (b, dim): the embedding of the token at ``pos`` — an int, or a
+    (b,) tensor of per-row positions; key_mask (b, total_len): the cache
+    rows' validity (rows at and past pos are left out by the causal test
+    either way). Returns h_out (b, dim)."""
+    pos_rows = pos
+    if not (isinstance(pos, torch.Tensor) and pos.dim() == 1):
+        pos_rows = torch.full((x_tok.shape[0],), int(pos), dtype=torch.long,
+                              device=x_tok.device)
+    h, ks, vs = _decode_step_math(model, x_tok, pos_rows, cache, cfg=cfg,
+                                  key_mask=key_mask, attn_impl="gather")
+    _store_rows(cache, ks, vs, pos)
+    return h
 
 
 def _decode_step_math_sparse_reads(

@@ -40,14 +40,17 @@ run on the tensor cores (wgmma over asynchronously staged bf16 tiles,
 version rounds p and ds to the input dtype before the second product of
 each pair.
 
-Head dims: the kernels are compiled for d 64 and 128 (``KERNEL_DIM_HEADS``),
-and each wrapper runs any other d up to 128 through
-``any_dim_head``: q, k, v and dout zero-padded to the next of
+Head dims: any d >= 1, as the JAX kernels take. The narrow bodies are
+compiled for d 64 and 128 (``KERNEL_DIM_HEADS``); above 128 the wide
+bodies take any multiple of ``WIDE_DIM_MULTIPLE`` (64): a block owns a
+slice of at most 128 output columns and streams q.k and dout.v through
+64-column chunks, on CUDA cores (a 256-wide bf16 tile ring does not fit
+in shared memory as K1 and K2b lay it out). Each wrapper runs any other
+d through ``any_dim_head``: q, k, v and dout zero-padded to the next of
 those widths, the kernel launched, out, dq, dk and dv sliced back. That
 is exact (zero columns add nothing to q.k or dout.v), and ``scale``, a
-wrapper argument, still comes from the real d. d 64 and 128 take no
-copy; above 128 the wrappers raise (a 256-wide bf16 tile ring does not
-fit in shared memory as K1 and K2b lay it out).
+wrapper argument, still comes from the real d. A d the kernels take
+runs with no copy.
 
 ``D = sum(dout * out)`` stays plain PyTorch, as in JAX (``:476-477``).
 The kernels take their own tile (64 query rows by 64 key columns,
@@ -68,10 +71,12 @@ from dalle_pytorch_tpu_torch.ops import build
 
 FILL = -3.0e38
 BWD_IMPLS = ("xla", "pallas", "pallas_fused")
-# the head dims the kernels are compiled for, and the largest d the
-# wrappers take (any other d up to it runs zero-padded: any_dim_head)
+# the head dims the narrow bodies are compiled for; above the widest of
+# them the wide bodies take any multiple of WIDE_DIM_MULTIPLE (any other d
+# runs zero-padded: any_dim_head)
 KERNEL_DIM_HEADS = (64, 128)
-MAX_DIM_HEAD = 128
+NARROW_MAX_DIM_HEAD = KERNEL_DIM_HEADS[-1]
+WIDE_DIM_MULTIPLE = 64
 # dtype codes of the C entry points
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -218,17 +223,19 @@ def blockwise_attention_bwd(q, k, v, mask, dout, out, softmax_stats, *,
 
 
 # ---------------------------------------------------------------------------
-# head dims: any d up to MAX_DIM_HEAD on the kernels' widths
+# head dims: any d >= 1 on the kernels' widths
 # ---------------------------------------------------------------------------
 
 def kernel_dim_head(d: int) -> int:
-    """The width the kernels run a d-wide head at: d itself for 64 and
-    128, else the next of them. Raises ``ValueError`` outside 1 ..
-    ``MAX_DIM_HEAD``."""
-    if not 1 <= d <= MAX_DIM_HEAD:
-        raise ValueError(f"dim_head {d}: the kernels take 1 to "
-                         f"{MAX_DIM_HEAD} (a wider bf16 tile ring does not "
-                         f"fit in shared memory)")
+    """The width the kernels run a d-wide head at: up to 128 the next of
+    ``KERNEL_DIM_HEADS`` (the narrow bodies), above it the next multiple
+    of ``WIDE_DIM_MULTIPLE`` (the wide bodies). Raises ``ValueError`` for
+    a d below 1."""
+    if d < 1:
+        raise ValueError(f"dim_head {d}: the kernels take any dim_head of "
+                         f"1 or more")
+    if d > NARROW_MAX_DIM_HEAD:
+        return -(-d // WIDE_DIM_MULTIPLE) * WIDE_DIM_MULTIPLE
     return next(w for w in KERNEL_DIM_HEADS if d <= w)
 
 
@@ -239,7 +246,8 @@ def at_kernel_dim_head(fn: Callable, q: torch.Tensor, *args, **kw):
     mask pass as they are. Exact, since the zero columns add nothing to
     q.k or dout.v and the results' padded columns are zero. ``scale``
     must come from the caller: from the real d, never the padded one.
-    At d 64 and 128 it is ``fn(q, *args, **kw)`` on the tensors given."""
+    At a width the kernels take it is ``fn(q, *args, **kw)`` on the
+    tensors given."""
     d = q.shape[-1]
     width = kernel_dim_head(d)
     if width == d:
@@ -260,14 +268,15 @@ def at_kernel_dim_head(fn: Callable, q: torch.Tensor, *args, **kw):
 
 
 def any_dim_head(wrapper: Callable) -> Callable:
-    """Lets a kernel wrapper take any d up to ``MAX_DIM_HEAD`` on the card:
-    a CUDA call at another width than ``KERNEL_DIM_HEADS`` runs through
-    ``at_kernel_dim_head``; CPU calls and the kernels' own widths reach
-    ``wrapper`` as they are. Its first argument is q."""
+    """Lets a kernel wrapper take any d >= 1 on the card: a CUDA call at
+    a width the kernels do not take runs through ``at_kernel_dim_head``;
+    CPU calls and the kernels' own widths reach ``wrapper`` as they are.
+    Its first argument is q."""
 
     @functools.wraps(wrapper)
     def run(q, *args, **kw):
-        if q.device.type == "cuda" and q.shape[-1] not in KERNEL_DIM_HEADS:
+        if q.device.type == "cuda" and \
+                kernel_dim_head(q.shape[-1]) != q.shape[-1]:
             return at_kernel_dim_head(run, q, *args, **kw)
         return wrapper(q, *args, **kw)
 
@@ -308,10 +317,12 @@ def _kernel_args(fn_name, q, k, v, mask, dout=None, stats=()):
                          f"{[str(t.dtype) for t in [q] + same]}")
     if any(t.dtype != torch.float32 for t in stats):
         raise ValueError(f"{fn_name}: m, l and D must be float32")
-    if q.shape[-1] not in KERNEL_DIM_HEADS:
+    if q.shape[-1] < 1 or kernel_dim_head(q.shape[-1]) != q.shape[-1]:
         raise ValueError(f"{fn_name}: dim_head {q.shape[-1]} is not one of "
-                         f"the kernel's {KERNEL_DIM_HEADS} (the wrappers "
-                         f"pad other widths: any_dim_head)")
+                         f"the kernel's widths ({KERNEL_DIM_HEADS}, or a "
+                         f"multiple of {WIDE_DIM_MULTIPLE} above "
+                         f"{NARROW_MAX_DIM_HEAD}; the wrappers pad other "
+                         f"widths: any_dim_head)")
     tensors = [q, *same, *stats] + ([] if mask is None else [mask])
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{fn_name}: every input must lie on q's device")
@@ -333,8 +344,8 @@ def _check_rc(fn_name: str, rc: int) -> None:
 @any_dim_head
 def flash_attention_fwd(q, k, v, *, scale: float, causal: bool,
                         mask: Optional[torch.Tensor] = None):
-    """K1: (out, m, l). The CUDA kernel for CUDA tensors (any d up to
-    128, ``any_dim_head``), the plain version for CPU tensors.
+    """K1: (out, m, l). The CUDA kernel for CUDA tensors (any d,
+    ``any_dim_head``), the plain version for CPU tensors.
     Counts launches in ``flash_attention_fwd.launches``."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, scale=scale,
@@ -359,8 +370,8 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool,
 def flash_attention_bwd_dq(q, k, v, dout, m, l, dstat, *, scale: float,
                            causal: bool,
                            mask: Optional[torch.Tensor] = None):
-    """K2a: dq in q's dtype. The CUDA kernel for CUDA tensors (any d up
-    to 128, ``any_dim_head``), the plain version for CPU tensors.
+    """K2a: dq in q's dtype. The CUDA kernel for CUDA tensors (any d,
+    ``any_dim_head``), the plain version for CPU tensors.
     Counts ``flash_attention_bwd_dq.launches``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, dout, m, l, dstat,
@@ -389,8 +400,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, m, l, dstat, *, scale: float,
     """K2b: (dk, dv, dq f32 or None). Split mode (``with_dq=False``) or
     fused mode, where every key-tile block adds its share of dq into one
     f32 buffer with ``atomicAdd`` — so the fused dq's summation order
-    changes from run to run. The CUDA kernel for CUDA tensors (any d up
-    to 128, ``any_dim_head``), the plain version for CPU tensors.
+    changes from run to run. The CUDA kernel for CUDA tensors (any d,
+    ``any_dim_head``), the plain version for CPU tensors.
     Counts ``flash_attention_bwd_dkv.launches``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, dout, m, l, dstat,

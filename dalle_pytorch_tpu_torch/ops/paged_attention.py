@@ -13,8 +13,10 @@ that merge in plain PyTorch, for the tests.
 
 The contract both implement, taken from the TPU kernel:
 
-* q ``(b, heads, dh)`` in the param dtype, any dh up to 128 on the card
-  (``MAX_DIM_HEAD``); one layer's pools
+* q ``(b, heads, dh)`` in the param dtype, any dh >= 1 on the card (dh
+  up to ``NARROW_MAX_DIM_HEAD`` on the narrow bodies, wider heads on the
+  wide body, one slice of ``WIDE_SLICE`` acc columns a block); one
+  layer's pools
   ``(P, heads, page_size, dh)`` in float32 or bfloat16 — or int8 with
   ``(P, heads, page_size)`` float32 ``k_scales``/``v_scales``;
   ``block_tables (b, max_pages)`` int32, ``pos (b,)`` int32 and
@@ -52,10 +54,9 @@ from typing import Optional, Tuple
 import torch
 
 from dalle_pytorch_tpu_torch.ops import build
-# the kernel takes any dim_head up to the flash kernels' limit: dh 16, 32,
-# 64 and 128 run their own bodies, any other the next of those, reading
-# rows at stride dh
-from dalle_pytorch_tpu_torch.ops.flash_attention import MAX_DIM_HEAD
+# dh 16, 32, 64 and 128 run their own bodies, any other dh up to 128 the
+# next of those, reading rows at stride dh; a wider dh the wide body
+from dalle_pytorch_tpu_torch.ops.flash_attention import NARROW_MAX_DIM_HEAD
 
 FILL = -torch.finfo(torch.float32).max
 # dtype codes of the C entry point
@@ -178,6 +179,8 @@ _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # rows of the walk one block of the kernel takes (a split): 16 pages of 16
 SPLIT_ROWS = 256
+# acc columns one block of the wide body (dh > 128) owns
+WIDE_SLICE = 128
 _COUNTERS = {}           # device -> the kernel's zeroed split counters
 
 
@@ -231,9 +234,9 @@ def paged_decode_attention(
               v_scales, visible, visible_cnt)
     b, heads, dh = q.shape
     page_size = k_pages.shape[2]
-    if not 1 <= dh <= MAX_DIM_HEAD:
-        raise ValueError(f"dim_head {dh}: the kernel takes 1 to "
-                         f"{MAX_DIM_HEAD}")
+    if dh < 1:
+        raise ValueError(f"dim_head {dh}: the kernel takes any dim_head of "
+                         f"1 or more")
     q_code = _DTYPE_CODE.get(q.dtype)
     kv_code = _DTYPE_CODE.get(k_pages.dtype)
     if q_code not in (0, 1) or kv_code is None \
@@ -275,9 +278,15 @@ def paged_decode_attention(
     splits = -(-walk // pps)
     part = counters = None
     if splits > 1:
-        part = torch.empty((b, heads, splits, dh + 2), dtype=torch.float32,
-                           device=q.device)
-        counters = _counters(q.device, b * heads)
+        if dh > NARROW_MAX_DIM_HEAD:        # the wide body's slices
+            slices = -(-dh // WIDE_SLICE)
+            part = torch.empty((b, heads, slices, splits, WIDE_SLICE + 2),
+                               dtype=torch.float32, device=q.device)
+            counters = _counters(q.device, b * heads * slices)
+        else:
+            part = torch.empty((b, heads, splits, dh + 2),
+                               dtype=torch.float32, device=q.device)
+            counters = _counters(q.device, b * heads)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -13,15 +13,20 @@ and ``jax/_src/random.py``, jax 0.9 with the default
   0xffffffff))``, not XORed;
 * ``random_bits`` — the partitionable layout: element ``i`` of the
   flat output hashes the counter pair ``(i >> 32, i & 0xffffffff)``
-  and returns the XOR of the two output words;
-* ``uniform``, ``bernoulli`` (``uniform < p`` in float32, mode
-  'low'), ``gumbel`` and ``categorical`` (``argmax(gumbel + logits)``,
-  first maximum on ties, as ``jnp.argmax``).
+  and returns the XOR of the two output words; narrower draws keep its
+  low bits (``convert_element_type`` of the word), one counter each;
+* ``uniform`` in float32 (the top 23 of 32 bits as the mantissa) or
+  bfloat16 (JAX draws 8 bits for a type with fewer than 8 mantissa
+  bits, and keeps the top 7 of them: ``random._uniform``),
+  ``bernoulli`` (``uniform < p`` in float32), ``gumbel`` (mode 'low')
+  and ``categorical`` (``argmax(gumbel + logits)`` in the logits'
+  dtype, first maximum on ties, as ``jnp.argmax``).
 
-The bits, keys and uniforms are bit-equal to JAX's. The Gumbel noise
-agrees to within an ulp or two, because XLA's CPU ``log`` is not
+The bits, keys and uniforms are bit-equal to JAX's. The float32 Gumbel
+noise agrees to within an ulp or two, because XLA's CPU ``log`` is not
 correctly rounded and torch's is; a draw can therefore differ only
 where two noisy logits tie to within ~1e-6, which the tests never see.
+The bfloat16 noise rounds each ``log`` to bfloat16, as XLA does.
 That makes a sampled token a pure function of ``(logits, fold_in(key,
 pos))`` — identical to the JAX engine's at the same seed — and keeps the
 replay contract (an evicted or replayed request re-samples exactly the
@@ -93,11 +98,15 @@ def _hash_counters(key: torch.Tensor, shape: Sequence[int]):
     return threefry2x32(k0, k1, idx >> 32, idx & _MASK)
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32-bit random words of ``shape`` for every key in ``key``'s
-    leading axes: (..., *shape) int64 in [0, 2**32)."""
+def random_bits(key: torch.Tensor, shape: Sequence[int],
+                bit_width: int = 32) -> torch.Tensor:
+    """``bit_width``-bit random words (8, 16 or 32) of ``shape`` for every
+    key in ``key``'s leading axes: (..., *shape) int64 in
+    [0, 2**bit_width), the low bits of the 32-bit word."""
+    if bit_width not in (8, 16, 32):
+        raise ValueError(f"bit_width must be 8, 16 or 32, got {bit_width}")
     b0, b1 = _hash_counters(key, shape)
-    return b0 ^ b1
+    return (b0 ^ b1) & ((1 << bit_width) - 1)
 
 
 def split(key: torch.Tensor, shape=2) -> torch.Tensor:
@@ -107,15 +116,24 @@ def split(key: torch.Tensor, shape=2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
+# dtype -> (bits drawn, mantissa bits, the bits of 1.0, the int view)
+_UNIFORM = {torch.float32: (32, 23, 0x3F800000, torch.int32),
+            torch.bfloat16: (8, 7, 0x3F80, torch.int16)}
+
+
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """float32 uniform in [minval, maxval) (``random._uniform``): the top
-    23 bits become the mantissa of a float in [1, 2), minus 1."""
-    bits = random_bits(key, shape)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+            maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+    """Uniform in [minval, maxval) in float32 or bfloat16
+    (``random._uniform``): the top mantissa-width bits of the draw become
+    the mantissa of a float in [1, 2), minus 1, all in ``dtype``."""
+    if dtype not in _UNIFORM:
+        raise TypeError(f"uniform takes float32 or bfloat16, got {dtype}")
+    width, nmant, one, view = _UNIFORM[dtype]
+    bits = random_bits(key, shape, width)
+    fbits = ((bits >> (width - nmant)) | one).to(view)
+    floats = fbits.view(dtype) - 1.0
+    lo = torch.tensor(minval, dtype=dtype, device=key.device)
+    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -127,19 +145,26 @@ def bernoulli(key: torch.Tensor, p: float,
     return uniform(key, shape) < pf
 
 
-def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """float32 standard Gumbel noise (``random._gumbel``, mode 'low')."""
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+def gumbel(key: torch.Tensor, shape: Sequence[int],
+           dtype=torch.float32) -> torch.Tensor:
+    """Standard Gumbel noise in float32 or bfloat16 (``random._gumbel``,
+    mode 'low'), every step in ``dtype``."""
+    tiny = torch.finfo(dtype).tiny
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, dtype)))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """One draw per key over the last axis of float32 ``logits``
-    (key (..., 2), logits (..., V)) — ``jax.random.categorical``. JAX
-    draws the noise in the logits' dtype; the engine's logits are f32
-    after the per-slot temperature divide, and only that is ported."""
-    if logits.dtype != torch.float32:
-        raise TypeError(f"categorical takes float32 logits, got "
-                        f"{logits.dtype}")
-    g = gumbel(key, logits.shape[-1:])
+    """``jax.random.categorical(key, logits, axis=-1)`` for float32 or
+    bfloat16 ``logits``: ``argmax(gumbel + logits)`` with the noise in
+    the logits' dtype. ``key``'s leading axes are batch axes over the
+    logits' leading axes, each key drawing noise of the rest of the
+    shape: one key (2,) draws noise of the logits' full shape, as one
+    JAX call over a (rows, V) batch does (``generate_images``); keys
+    (b, 2) over (b, V) logits draw a (V,) row each, as ``vmap`` of the
+    call does (the engine's per-slot sampling)."""
+    lead = key.dim() - 1
+    if logits.shape[:lead] != key.shape[:-1]:
+        raise ValueError(f"keys {tuple(key.shape)} do not lead logits "
+                         f"{tuple(logits.shape)}")
+    g = gumbel(key, logits.shape[lead:], logits.dtype)
     return torch.argmax(g + logits, dim=-1)

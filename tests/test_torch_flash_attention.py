@@ -280,8 +280,12 @@ def test_padding_to_kernel_width_is_exact(kind, d, dtype, causal, masked):
 
 
 @pytest.mark.parametrize("d,width", [(1, 64), (16, 64), (63, 64), (64, 64),
-                                     (65, 128), (96, 128), (128, 128)])
+                                     (65, 128), (96, 128), (128, 128),
+                                     (129, 192), (130, 192), (192, 192),
+                                     (256, 256), (300, 320), (320, 320)])
 def test_kernel_dim_head_is_the_next_kernel_width(d, width):
+    """Up to 128 the next narrow body's width, above it the next
+    multiple of 64 (the wide bodies)."""
     assert TF.kernel_dim_head(d) == width
 
 
@@ -300,10 +304,55 @@ def test_padding_helper_takes_no_copy_at_kernel_widths(d):
 
 @pytest.mark.parametrize("d", [0, 129, 192])
 def test_padding_helper_names_the_limit_above_128(d):
-    q = torch.zeros((1, 1, 8, d))
-    with pytest.raises(ValueError, match="dim_head .* 1 to 128"):
-        TF.at_kernel_dim_head(TF.flash_attention_fwd_plain, q, q, q,
-                              scale=1.0, causal=True)
+    """Since the wide bodies there is no limit above 128: d 129 runs
+    padded to 192 and d 192 as it is, both exact against the plain
+    version at the real d; only a d below 1 is refused."""
+    if d < 1:
+        q = torch.zeros((1, 1, 8, d))
+        with pytest.raises(ValueError, match="dim_head 0: the kernels take "
+                                             "any dim_head of 1 or more"):
+            TF.at_kernel_dim_head(TF.flash_attention_fwd_plain, q, q, q,
+                                  scale=1.0, causal=True)
+        return
+    q, k, v, _, mask = pad_inputs(d, torch.float32, True, n=16)
+    kw = dict(scale=d ** -0.5, causal=True, mask=mask)
+    got = TF.at_kernel_dim_head(TF.flash_attention_fwd_plain, q, k, v, **kw)
+    want = TF.flash_attention_fwd_plain(q, k, v, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, **PAD_TOL)
+
+
+WIDE_DIMS = (130, 192, 256, 320)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv", "dkv_fused"])
+def test_wide_padding_is_exact(kind, d, dtype, causal, masked):
+    """Above 128 the wrappers hand the wide bodies a multiple of 64: d 130
+    runs zero-padded to 192 and sliced back, exact as below 128; 192,
+    256 and 320 run as they are."""
+    dtype = getattr(torch, dtype)
+    q, k, v, do, mask = pad_inputs(d, dtype, masked, n=24)
+    got = plain_call(kind, q, k, v, do, mask, causal, pad=True)
+    want = plain_call(kind, q, k, v, do, mask, causal, pad=False)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        torch.testing.assert_close(g.float(), w.float(), **PAD_TOL)
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "pad"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [192, 320])
+def test_wide_plain_versions_match_jax_kernels(d, causal, mask_kind):
+    """The plain K1, K2a and K2b (split and fused), the wide bodies'
+    yardsticks on the card, against JAX's Pallas kernels in interpret
+    mode at d 192 and 320, which they take as they are: float32,
+    rtol/atol 1e-5."""
+    check_plain_against_jax_kernels(d, causal, mask_kind)
 
 
 @pytest.mark.parametrize("mask_kind", ["none", "pad"])
@@ -313,6 +362,10 @@ def test_padded_plain_versions_match_jax_kernels(d, causal, mask_kind):
     """Padded to the kernel width and sliced back, the plain K1, K2a and
     K2b (split and fused) against JAX's Pallas kernels at the real d in
     interpret mode: float32, rtol/atol 1e-5 (the module's tolerance)."""
+    check_plain_against_jax_kernels(d, causal, mask_kind)
+
+
+def check_plain_against_jax_kernels(d, causal, mask_kind):
     n, tile = 40, 16
     rs = np.random.RandomState(d)
     q, k, v, do = (rs.randn(2, 2, n, d).astype(np.float32) for _ in range(4))

@@ -73,11 +73,13 @@ def check_partials(got, want, mag, rtol, atol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("page_size", [8, 16])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("dh", [16, 17, 24, 32, 48, 64, 128])
+@pytest.mark.parametrize("dh", [16, 17, 24, 32, 48, 64, 128, 192, 256])
 def test_kernel_matches_plain(cuda, page_size, dtype, dh):
     """dh 16, 32, 64 and 128 run their own bodies; 17, 24 and 48 the
     bodies of 32 and 64 with the real dh at run time (rows at stride dh;
-    int8 at dh 17 stages its rows by 8-byte copies)."""
+    int8 at dh 17 stages its rows by 8-byte copies); 192 and 256 the
+    wide body (two slices of acc columns a head, a walk of five
+    splits)."""
     rs = np.random.RandomState(dh + page_size)
     slots, heads, L = 5, 3, 1280
     mp = L // page_size
@@ -133,8 +135,23 @@ def test_prefix_walk_across_split_boundaries(cuda, page_size, dtype):
     masked prefix of two and a half splits wiped by the live rows after
     it. A second launch gives the same bits: the split counters were
     left zero."""
+    split_walk_case(cuda, page_size, dtype, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [192, 320])
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_wide_prefix_walk_across_split_boundaries(cuda, page_size, dtype,
+                                                  dh):
+    """The same walks through the wide body (dh > 128): its splits merge
+    per slice of acc columns, each slice with its own counter."""
+    split_walk_case(cuda, page_size, dtype, dh)
+
+
+def split_walk_case(cuda, page_size, dtype, dh):
     rs = np.random.RandomState(page_size)
-    heads, dh, L = 4, 64, 1280
+    heads, L = 4, 1280
     mp = L // page_size
     pos = torch.tensor([1279, 0, 1, 256, 257, 700, 900, 16, 300],
                        dtype=torch.int32)
@@ -188,14 +205,18 @@ def test_prefix_walk_across_split_boundaries(cuda, page_size, dtype):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """dh 192 runs (the wide body; a slot at pos 0 returns (0, FILL, 0));
+    another dtype is refused."""
     q = torch.zeros((1, 1, 192), device=cuda)
     pages = torch.zeros((2, 1, 8, 192), device=cuda)
     bt = torch.zeros((1, 3), dtype=torch.int32, device=cuda)
     pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
     allowed = torch.zeros((1, 24), dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match="dim_head"):
-        PA.paged_decode_attention(q, pages, pages, bt, pos, allowed,
-                                  scale=1.0)
+    acc, m, l = PA.paged_decode_attention(q, pages, pages, bt, pos, allowed,
+                                          scale=1.0)
+    torch.cuda.synchronize()
+    assert acc.shape == (1, 1, 192) and float(acc.abs().max()) == 0.0
+    assert float(m[0, 0]) == PA.FILL and float(l[0, 0]) == 0.0
     with pytest.raises(ValueError, match="dtypes"):
         PA.paged_decode_attention(q[..., :32].half(),
                                   pages[..., :32].half(),
@@ -268,16 +289,18 @@ def assert_grad_close(got, want, dtype):
                                atol=atol)
 
 
-# head dims: 64 and 128 are the kernels' own widths, the others run
-# zero-padded to the next of them (at_kernel_dim_head)
+# head dims: 64 and 128 are the narrow bodies' own widths, the others run
+# zero-padded to the next of them (at_kernel_dim_head); above 128 the wide
+# bodies take multiples of 64 (160 runs padded to 192)
 DIM_HEADS = [16, 32, 48, 64, 96, 128]
+WIDE_DIM_HEADS = [160, 192, 256, 320]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [37, 64, 200])
-@pytest.mark.parametrize("d", DIM_HEADS)
+@pytest.mark.parametrize("d", DIM_HEADS + WIDE_DIM_HEADS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernels_match_plain(cuda, dtype, d, n, masked, causal):
     dtype = getattr(torch, dtype)
@@ -367,10 +390,13 @@ def test_flash_attention_grads_match_blockwise_on_card(cuda, bwd_impl):
 
 @pytest.mark.cuda
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    """d 192 runs (the wide body); float16 and a strided q are
+    refused."""
     q = torch.zeros((1, 1, 16, 192), device=cuda)
-    with pytest.raises(ValueError, match="dim_head 192: the kernels take 1 "
-                                         "to 128"):
-        FA.flash_attention_fwd(q, q, q, scale=1.0, causal=True)
+    out, m, l = FA.flash_attention_fwd(q, q, q, scale=1.0, causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and float(out.abs().max()) == 0.0
+    assert torch.equal(l[0, 0].cpu(), torch.arange(1.0, 17.0))
     h = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32"):
         FA.flash_attention_fwd(h, h, h, scale=1.0, causal=True)
@@ -498,6 +524,53 @@ def test_block_sparse_kernel_matches_plain(cuda, dtype, d, n, block, masked,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [37, 200])
+@pytest.mark.parametrize("d", WIDE_DIM_HEADS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_wide_kernel_matches_plain(cuda, dtype, d, n, masked,
+                                                causal):
+    """Heads wider than 128 through K3's wide body (160 padded to 192)."""
+    dtype = getattr(torch, dtype)
+    q, k, v, _, mask = flash_inputs(cuda, dtype, n, d, masked)
+    kw = dict(scale=d ** -0.5, causal=causal, block=16, mask=mask)
+    before = BS.block_sparse_attention_fwd.launches
+    out, m, l = BS.block_sparse_attention_fwd(q, k, v, **kw)
+    assert BS.block_sparse_attention_fwd.launches == before + 1
+    out_p, m_p, l_p = BS.block_sparse_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
+    assert_flash_close(out, out_p, dtype)
+    assert_flash_close(m, m_p, dtype)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,masked", [(256, True), (64, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_noncausal_kernel_at_clip_shapes(cuda, dtype, n,
+                                                      masked):
+    """K3 with causal=False at the CLIP encoders' shapes: the text
+    encoder's 256 tokens with a key-padding mask (captions of 1 to 256
+    tokens), the visual encoder's 64 patches without one; d 64, 8
+    heads."""
+    dtype = getattr(torch, dtype)
+    q, k, v, _, _ = flash_inputs(cuda, dtype, n, 64, False, b=8, h=8)
+    mask = None
+    if masked:
+        lengths = torch.tensor([1, 17, 64, 100, 200, 255, 256, 30])
+        mask = (torch.arange(n)[None] < lengths[:, None]).to(cuda)
+    kw = dict(scale=512 ** -0.5, causal=False, block=16, mask=mask)
+    out, m, l = BS.block_sparse_attention_fwd(q, k, v, **kw)
+    out_p, m_p, l_p = BS.block_sparse_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(out, out_p, dtype)
+    assert_flash_close(m, m_p, dtype)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("block,local,globals_", [
     (16, 3, (0,)), (16, 5, (0, 7)), (8, 4, (0, 9)), (32, 4, (1,)),
     (16, 4, (2, 3))])
@@ -548,10 +621,14 @@ def test_block_sparse_grads_match_autograd_of_ref(cuda, n, block_qk):
 
 @pytest.mark.cuda
 def test_block_sparse_kernel_rejects_what_it_does_not_take(cuda):
+    """d 192 runs (the wide body); more than 8 global blocks are
+    refused."""
     q = torch.zeros((1, 1, 16, 192), device=cuda)
-    with pytest.raises(ValueError, match="dim_head 192: the kernels take 1 "
-                                         "to 128"):
-        BS.block_sparse_attention_fwd(q, q, q, scale=1.0, causal=True)
+    out, m, l = BS.block_sparse_attention_fwd(q, q, q, scale=1.0,
+                                              causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and float(out.abs().max()) == 0.0
+    assert torch.equal(l[0, 0].cpu(), torch.arange(1.0, 17.0))
     q = torch.zeros((1, 1, 16, 64), device=cuda)
     with pytest.raises(ValueError, match="global blocks"):
         BS.block_sparse_attention_fwd(q, q, q, scale=1.0, causal=True,

@@ -110,12 +110,14 @@ def test_plain_matches_jax_kernel(page_size, quantized):
 
 @pytest.mark.parametrize("page_size", [8, 16])
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("dh", [24, 48])
+@pytest.mark.parametrize("dh", [24, 48, 192, 320])
 def test_plain_matches_jax_kernel_at_other_head_dims(dh, quantized,
                                                      page_size):
-    """Head dims the CUDA kernel runs on the next compiled width (32 and
-    64) with the real dh at run time: the plain version, its yardstick
-    on the card, against the JAX kernel, which takes any dh."""
+    """Head dims the CUDA kernel runs on the next compiled width (24 and
+    48 on 32 and 64, with the real dh at run time) or on its wide body
+    (192 and 320: slices of 128 acc columns, the last one partial): the
+    plain version, its yardstick on the card, against the JAX kernel,
+    which takes any dh."""
     q, kp, vp, bt, pos, allowed, sc = make_inputs(page_size, quantized,
                                                   seed=dh, dh=dh)
     want = JPA.paged_decode_attention(

@@ -92,6 +92,37 @@ def test_categorical_draws_equal(vocab):
 
 
 def test_categorical_takes_float32_only():
+    """float32 and bfloat16 logits (the noise is drawn in their dtype);
+    any other dtype is refused, as is a key batch that does not lead the
+    logits."""
     with pytest.raises(TypeError):
         prng.categorical(prng.prng_key(0), torch.zeros(4,
-                                                       dtype=torch.bfloat16))
+                                                       dtype=torch.float16))
+    with pytest.raises(ValueError, match="do not lead"):
+        prng.categorical(prng.prng_key(torch.arange(3)), torch.zeros(2, 4))
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5), (4, 97)])
+def test_narrow_bits_and_bf16_uniform_bit_equal(shape):
+    """16-bit words are the low half of JAX's partitionable 32-bit draw;
+    a bfloat16 uniform takes 8 bits and keeps their top 7 (JAX draws 8
+    bits for a type with fewer than 8 mantissa bits); the bfloat16
+    Gumbel noise rounds each log to bfloat16, as XLA does: all exact."""
+    for s in SEEDS[::4]:
+        kb, ku, kg = (jax.random.fold_in(jax.random.PRNGKey(s), d)
+                      for d in (1, 2, 3))
+        tb, tu, tg = (prng.fold_in(prng.prng_key(s), d) for d in (1, 2, 3))
+        np.testing.assert_array_equal(
+            prng.random_bits(tb, shape, 16).numpy(),
+            np.asarray(jax.random.bits(kb, shape, jnp.uint16)).astype(
+                np.int64))
+        got = prng.uniform(tu, shape, dtype=torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            got.float().numpy(),
+            np.asarray(jax.random.uniform(ku, shape, jnp.bfloat16))
+            .astype(np.float32))
+        np.testing.assert_array_equal(
+            prng.gumbel(tg, shape, torch.bfloat16).float().numpy(),
+            np.asarray(jax.random.gumbel(kg, shape, jnp.bfloat16))
+            .astype(np.float32))

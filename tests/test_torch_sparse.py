@@ -280,3 +280,42 @@ def test_block_sparse_padded_plain_matches_jax_kernel(d, causal, masked):
     for g, w, what in zip(got, (out, m, l), ("out", "m", "l")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **FWD,
                                    err_msg=what)
+
+
+# Heads wider than 128: K3's wrapper hands the wide body a multiple of 64
+# (d 130 zero-padded to 192 and sliced back; 192, 256 and 320 as they
+# are), exact around the plain version (rtol/atol 1e-6); the plain
+# version against JAX's kernel at d 192 and 320 (the module's forward
+# tolerance).
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [130, 192, 256, 320])
+def test_block_sparse_wide_padding_is_exact(d, causal, masked):
+    q, k, v = (t(x) for x in qkv(48, d=d, seed=d))
+    kw = dict(scale=d ** -0.5, causal=causal, block=16,
+              mask=t(key_mask(48)) if masked else None)
+    got = TF.at_kernel_dim_head(TB.block_sparse_attention_fwd_plain, q, k,
+                                v, **kw)
+    want = TB.block_sparse_attention_fwd_plain(q, k, v, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [192, 320])
+def test_block_sparse_wide_plain_matches_jax_kernel(d, causal, masked):
+    n, block = 48, 16
+    q, k, v = qkv(n, d=d, seed=d)
+    mask = key_mask(n) if masked else None
+    out, (m, l) = JB._bs_fwd(j(q), j(k), j(v), j(mask), d ** -0.5, causal,
+                             block, 4, (0,), n, n, True)
+    got = TB.block_sparse_attention_fwd(t(q), t(k), t(v), scale=d ** -0.5,
+                                        causal=causal, block=block,
+                                        mask=t(mask))
+    for g, w, what in zip(got, (out, m, l), ("out", "m", "l")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **FWD,
+                                   err_msg=what)
