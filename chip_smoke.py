@@ -10,8 +10,8 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
 1. build  — compile every CUDA kernel from ``csrc/`` with nvcc (sm_90a),
    one nvcc per source, all at once; print the ``-Xptxas -v`` lines
    (registers, shared memory, spills) of the tensor-core kernels (K1,
-   K2a, K2b split, K3), of K4's dh-64 bodies and of the wide bodies (d
-   above 128), and the card's name and power limit;
+   K2a, K2b split, K3; narrow and wide), of K4's dh-64 bodies and of the
+   wide bodies (d above 128), and the card's name and power limit;
 2. kernel — paged-attention kernel K4 against its plain PyTorch version
    at the serving shapes (8 slots, 8 heads, dh 64, page 16, L 1280),
    ragged positions including 0, 1, 15, 16, 17 and 1279, random data in
@@ -45,13 +45,15 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    the bfloat16 gradients dq, dk and dv to atol 0.05 x their RMS where
    that is tighter (``grad_atol``), l to rtol/atol 1e-4; each
    record gives each output's RMS and the least atol it needed, and
-   names the body that ran for each call (tensor cores: bfloat16 K1, K2a and
-   K2b split, which must run there; CUDA cores: the rest), from the
-   kernels the profiler saw. Then, untimed, d 16 and 48 at b 2, h 2,
-   n 300 (zero-padded to the kernels' 64 by the wrappers), and d 192 and
-   320 (the wide bodies, which every call there must run) with both
-   masks; then the wide bodies timed at b 8, h 2, n 1280, d 256 (the
-   north width as heads=2, dim_head=256). Each case is
+   names the kernel that ran for each call, from the kernels the
+   profiler saw, which must be the one ``FA.kernel_body`` names
+   (bfloat16 K1, K2a and K2b split on the tensor cores up to d 128, K1
+   and K2b split at d 192 and 256 on the wide tensor-core bodies; the
+   rest on CUDA cores). Then, untimed, d 16 and 48 at b 2, h 2, n 300
+   (zero-padded to the kernels' 64 by the wrappers), and d 192 and 320
+   (the wide bodies) with both masks; then the wide bodies timed at
+   b 8, h 2, n 1280, d 256 (the north width as heads=2, dim_head=256).
+   Each case is
    timed with CUDA events and torch.profiler beside the plain version,
    the bound, and ``F.scaled_dot_product_attention`` (its forward, and
    its backward alone) as the library yardstick at the all-True mask;
@@ -66,7 +68,16 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    under 'pallas' and 'pallas_fused' against the plain blockwise 'xla'
    backward: loss to rtol 1e-5, each gradient to 1e-4 of its largest
    element (f32 sums in other orders, and the fused dq's atomics);
-7. sparse_kernels — the block-sparse kernel K3 (out, m, l) against its
+7. wide_train — the same step at the north width split as heads=2,
+   dim_head=256 (``WIDE_TRAIN``), dropout 0: 6 steps with finite
+   losses, K1, K2a and K2b each launched depth x steps = 72 times, the
+   profile naming the kernels that ran (K1 and K2b split the wide
+   tensor-core bodies, K2a its CUDA-core wide body); ms per step,
+   tokens per second, device ms, each kernel's ms per step, the idle
+   share and peak memory. Then a depth-2 copy in bfloat16: loss and
+   every gradient with 'pallas' against the plain blockwise 'xla'
+   backward, to 2e-2 (of each gradient's largest element);
+8. sparse_kernels — the block-sparse kernel K3 (out, m, l) against its
    plain version at the north training shapes (b 8, h 8, n 1280, d 64,
    block 16, causal, scale 512 ** -0.5), bfloat16 (tensor cores) and
    float32 (CUDA cores), all-True and text-padding masks, with the flash
@@ -83,7 +94,7 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    masked rows at the serving shapes (8 heads, dh 64, page 16, L 1280),
    positions 0, 1, 15, 16, 17, 63, 64, 65 and 1279, in float32, bfloat16
    and int8 pages, with K4's tolerances; timed beside its byte bound;
-8. sparse_train — the block-sparse north config at full depth (BASELINE
+9. sparse_train — the block-sparse north config at full depth (BASELINE
    config 4: depth 64, ``sparse_attn=(True, False) * 32``,
    ``sparse_impl='pallas'``, dense layers on the flash kernels with the
    split backward; bfloat16, batch 8, ``loss_chunk`` 256, dropout 0, Adam
@@ -93,7 +104,7 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    backward's time. Then at depth 2, full width, float32: loss and every
    gradient with 'pallas' against 'ref', as the ``train`` phase holds
    them;
-9. sparse_engine — the north width with the sparse pattern at depth 12:
+10. sparse_engine — the north width with the sparse pattern at depth 12:
    one float32 decode step with sparse reads through K4's visible walk
    against the trimmed-gather oracle (h_out to 1e-4), then 64 greedy
    steps with identical tokens, identical with sparse reads off too;
@@ -101,7 +112,7 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    requests of the ``engine`` phase: every result ok, K4's visible walk
    and its prefix walk each launched 6 x decode steps times, every page
    freed, and the ``engine`` phase's profile windows;
-10. generate — one-shot generation (``generate_images``) at the north
+11. generate — one-shot generation (``generate_images``) at the north
    width. A float32 dense-cache decode step against the paged path's
    gather oracle on the same 17-token prompt (h_out to 1e-4, then 64
    greedy steps with identical tokens); the reference CLIP at its
@@ -129,6 +140,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -784,16 +796,17 @@ def flash_bound(kind: str, dtype, b, h, n, d) -> tuple:
 
 
 # which device kernels each flash call may launch, as (name part,
-# template part): bfloat16 K1, K2a and K2b split run the tensor-core
-# bodies (``*_wgmma_kernel``), every other call a CUDA-core body
+# template part); ``FA.kernel_body`` names the one each call runs
 FLASH_KERNELS = {"fwd": (("flash_fwd_wgmma_kernel", ""),
                          ("flash_fwd_kernel", ""),
+                         ("flash_fwd_wide_wgmma_kernel", ""),
                          ("flash_fwd_wide_kernel", "")),
                  "dq": (("flash_bwd_dq_wgmma_kernel", ""),
                         ("flash_bwd_dq_kernel", ""),
                         ("flash_bwd_dq_wide_kernel", "")),
                  "dkv": (("flash_bwd_dkv_wgmma_kernel", ""),
                          ("flash_bwd_dkv_kernel", "false>"),
+                         ("flash_bwd_dkv_wide_wgmma_kernel", ""),
                          ("flash_bwd_dkv_wide_kernel", "false>")),
                  "fused": (("flash_bwd_dkv_kernel", "true>"),
                            ("flash_bwd_dkv_wide_kernel", "true>"))}
@@ -804,15 +817,19 @@ def is_flash_kernel(kind: str, name: str) -> bool:
                for part, variant in FLASH_KERNELS[kind])
 
 
-def flash_body(names) -> str:
-    """Which body the kernels ``names`` are: tensor cores, CUDA cores, or
-    the wide bodies (d > 128, CUDA cores)."""
-    if not names:
-        return "not measured"
-    if any("wide" in k for k in names):
-        return "wide (CUDA cores)"
-    return ("tensor cores (wgmma)" if any("wgmma" in k for k in names)
-            else "CUDA cores")
+def flash_body(names) -> list:
+    """The ``__global__`` functions of the profiler's kernel names
+    ``names`` (namespace and template arguments cut), as
+    ``FA.kernel_body`` names them; [] when none was recorded."""
+    return sorted({fn for k in names
+                   for fn in re.findall(r"(flash_\w+?_kernel)<", k)})
+
+
+def flash_bodies(kernels: dict) -> dict:
+    """{K1 'fwd', K2a 'dq', K2b split 'dkv': the flash functions a
+    profile ``kernels`` recorded for it}."""
+    return {kind: flash_body(k for k in kernels if is_flash_kernel(kind, k))
+            for kind in ("fwd", "dq", "dkv")}
 
 
 def flash_device_us(calls: dict, iters: int = 8, warm: int = 4,
@@ -944,16 +961,13 @@ def flash_case(dtype, masked: bool, timed: bool, **shape) -> dict:
     }
     device_us, names = flash_device_us(calls, *((8, 4) if timed else (1, 1)))
     record["bodies"] = {kind: flash_body(k) for kind, k in names.items()}
-    # above 128 every call must run a wide body; below, bfloat16 K1, K2a
-    # and K2b split the tensor cores
-    for kind in ("fwd", "dq", "dkv", "fused"):
-        if d > 128:
-            want = "wide (CUDA cores)"
-        elif dtype == torch.bfloat16 and kind != "fused":
-            want = "tensor cores (wgmma)"
-        else:
-            continue
-        check(record["bodies"][kind] in (want, "not measured"),
+    # every call runs the body the dispatch names: bfloat16 K1, K2a and
+    # K2b split on the tensor cores up to d 128, K1 and K2b split at d 192
+    # and 256 (the wide tensor-core bodies); the rest on CUDA cores ([]:
+    # the profiler recorded none of the call's launches)
+    for kind in calls:
+        want = FA.kernel_body(kind, dtype, d)
+        check(record["bodies"][kind] in ([want], []),
               f"{name}: {kind} ran {record['bodies'][kind]}, not {want}")
     if not timed:
         return record
@@ -1092,48 +1106,64 @@ def train_profile(step, model, batch, key, steps: int = 2) -> dict:
                device_idle_share=max(0.0, 1 - device_ms / plain_wall),
                device_idle_share_profiled=max(0.0, 1 - device_ms / wall),
                top_kernels_ms_per_step=top_kernels(kernels, steps, n=12),
-               kinds_ms_per_step=kernel_classes(kernels, steps))
+               kinds_ms_per_step=kernel_classes(kernels, steps),
+               flash_bodies=flash_bodies(kernels))
     return out
 
 
-def train_grads_agree(batch) -> dict:
-    """Depth 2, full width, float32: one step's loss and every gradient
-    under the kernel backwards against the plain blockwise one."""
+def train_grads_agree(batch, dtype=torch.float32,
+                      impls=("pallas", "pallas_fused"), **cfg_kw) -> dict:
+    """Depth 2, full width: one step's loss and every gradient under the
+    kernel backwards ``impls`` against the plain blockwise one ('xla'),
+    which shares the forward (K1). float32: loss to rtol 1e-5, each
+    gradient to 1e-4 of its largest element (f32 sums in other orders,
+    and the fused dq's atomics); bfloat16: both to 2e-2, the flash
+    kernels' bf16 tolerance (each side rounds p, ds and every gradient
+    to bf16 at its own places in the sums)."""
     from dalle_pytorch_tpu_torch.models import dalle as D
     from dalle_pytorch_tpu_torch.models import vae as V
     from dalle_pytorch_tpu_torch.ops import prng
     from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
-    enc = V.vae_encoder_init(north_cfg().vae, seed=7, dtype=torch.float32)
+    loss_rtol, grad_rtol = (1e-5, 1e-4) if dtype == torch.float32 else \
+        (2e-2, 2e-2)
+    enc = V.vae_encoder_init(north_cfg().vae, seed=7, dtype=dtype)
     key = prng.prng_key(5, device="cuda")
     got = {}
-    for impl in ("xla", "pallas", "pallas_fused"):
-        model = D.dalle_init(train_cfg(depth=2, attn_bwd_impl=impl), seed=8,
-                             dtype=torch.float32)
+    for impl in ("xla",) + tuple(impls):
+        model = D.dalle_init(train_cfg(depth=2, attn_bwd_impl=impl,
+                                       **cfg_kw), seed=8, dtype=dtype)
         loss = dalle_loss_fn(enc)(model, batch, key)
         loss.backward()
-        got[impl] = (float(loss.detach()), {n: p.grad for n, p in
+        got[impl] = (float(loss.detach()), {n: p.grad.float() for n, p in
                                    model.named_parameters()})
+        del model
     ref_loss, ref = got["xla"]
     worst = {}
-    for impl in ("pallas", "pallas_fused"):
+    for impl in impls:
         loss, grads = got[impl]
         check(math.isfinite(loss) and abs(loss - ref_loss)
-              <= 1e-5 * abs(ref_loss),
+              <= loss_rtol * abs(ref_loss),
               f"train {impl}: loss {loss} against xla {ref_loss}")
         rel = 0.0
         for name, g in grads.items():
             scale_ = float(ref[name].abs().max())
             err = float((g - ref[name]).abs().max())
-            check(err <= 1e-4 * max(scale_, 1e-30),
+            check(err <= grad_rtol * max(scale_, 1e-30),
                   f"train {impl}: grad {name} differs from xla (max abs "
                   f"{err:.3e}, largest {scale_:.3e})")
             rel = max(rel, err / max(scale_, 1e-30))
         worst[impl] = {"loss": loss, "max_grad_err_of_largest": rel}
     worst["xla_loss"] = ref_loss
+    worst["tolerance"] = {"loss_rtol": loss_rtol,
+                          "grad_of_largest": grad_rtol}
     return worst
 
 
-def phase_train() -> dict:
+def train_run(cfg, phase: str, steps: int = 6, warmup: int = 1) -> tuple:
+    """``steps`` training steps of ``cfg`` (bfloat16 params, the smoke's
+    batch, Adam lr 1e-4 through ``make_train_step``), the first a
+    warm-up: finite losses, K1, K2a and K2b each launched depth x steps
+    times; then a profile window. Returns (record, batch, key)."""
     import types
     from dalle_pytorch_tpu_torch.cli.common import make_optimizer, step_rng
     from dalle_pytorch_tpu_torch.models import dalle as D
@@ -1141,7 +1171,6 @@ def phase_train() -> dict:
     from dalle_pytorch_tpu_torch.ops import prng
     from dalle_pytorch_tpu_torch.parallel.train import (dalle_loss_fn,
                                                          make_train_step)
-    cfg = train_cfg()
     enc = V.vae_encoder_init(cfg.vae, seed=7, dtype=torch.bfloat16)
     model = D.dalle_init(cfg, seed=6, dtype=torch.bfloat16)
     args = types.SimpleNamespace(lr=1e-4, lr_schedule="constant",
@@ -1156,7 +1185,6 @@ def phase_train() -> dict:
     def key(i):
         return step_rng(root, i)
 
-    steps, warmup = 6, 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_counts(reset=True)
@@ -1168,13 +1196,27 @@ def phase_train() -> dict:
     ms = (time.perf_counter() - t0) * 1e3 / (steps - warmup)
     counts = flash_counts()
     losses = [float(x) for x in losses]
-    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"{phase} losses {losses}")
     for k, n in counts.items():
-        check(n == cfg.depth * steps, f"{k} launched {n} times, expected "
-                                      f"depth x steps = {cfg.depth * steps}")
+        check(n == cfg.depth * steps, f"{phase}: {k} launched {n} times, "
+                                      f"expected depth x steps = "
+                                      f"{cfg.depth * steps}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = batch["text"].shape[0] * cfg.seq_len
     prof = train_profile(step, model, batch, key)
+    del model, step
+    torch.cuda.empty_cache()
+    record = dict(phase=phase, ok=True, steps=steps, losses=losses,
+                  ms_per_step=ms, tokens_per_step=tokens,
+                  tokens_per_s=tokens / ms * 1e3, peak_mem_gib=peak_gib,
+                  launches=counts, profile=prof)
+    return record, batch, key
+
+
+def phase_train() -> dict:
+    from dalle_pytorch_tpu_torch.ops import prng
+    cfg = train_cfg()
+    record, batch, key = train_run(cfg, "train")
     # one dropout keep-mask of each shape the step draws (attention output,
     # GEGLU hidden): threefry in int64, 2 x depth masks a step
     b, n = batch["text"].shape[0], cfg.seq_len
@@ -1183,14 +1225,33 @@ def phase_train() -> dict:
         for name, shape in (("attn", (b, n, cfg.dim)),
                             ("ff", (b, n, cfg.dim * 4)))}
     mask_ms["per_step"] = cfg.depth * (mask_ms["attn"] + mask_ms["ff"])
-    del model, step
-    torch.cuda.empty_cache()
-    agree = train_grads_agree(batch)
-    record = dict(phase="train", ok=True, steps=steps, losses=losses,
-                  ms_per_step=ms, tokens_per_step=tokens,
-                  tokens_per_s=tokens / ms * 1e3, peak_mem_gib=peak_gib,
-                  launches=counts, profile=prof, dropout_mask_ms=mask_ms,
-                  depth2_f32=agree)
+    record.update(dropout_mask_ms=mask_ms, depth2_f32=train_grads_agree(batch))
+    emit(**record)
+    return record
+
+
+# the north width split as heads=2, dim_head=256 (``bench.py::build_cfg``
+# takes heads * dim_head = 512), dropout 0 (the JAX DALLEConfig default)
+WIDE_TRAIN = dict(heads=2, dim_head=256, attn_dropout=0.0, ff_dropout=0.0)
+
+
+def phase_wide_train() -> dict:
+    """The ``train`` phase's step at ``WIDE_TRAIN``: K1 and K2b split on
+    the wide tensor-core bodies, K2a on its CUDA-core wide body, each
+    launched depth x steps times and named in the profile; then a depth-2
+    copy in bfloat16, where those bodies run, against the plain blockwise
+    backward."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    cfg = train_cfg(**WIDE_TRAIN)
+    record, batch, _ = train_run(cfg, "wide_train")
+    bodies = record["profile"].get("flash_bodies", {})
+    for kind in ("fwd", "dq", "dkv"):
+        want = [FA.kernel_body(kind, torch.bfloat16, cfg.dim_head)]
+        check(bodies.get(kind) == want,
+              f"wide_train: {kind} ran {bodies.get(kind)}, not {want}")
+    record["depth2_bf16"] = train_grads_agree(batch, dtype=torch.bfloat16,
+                                              impls=("pallas",),
+                                              **WIDE_TRAIN)
     emit(**record)
     return record
 
@@ -1937,6 +1998,7 @@ def main() -> int:
     engine = phase_engine()
     flash = phase_flash()
     train = phase_train()
+    wide_train = phase_wide_train()
     sparse = phase_sparse_kernels()
     sparse_train = phase_sparse_train()
     sparse_engine = phase_sparse_engine()
@@ -1972,6 +2034,25 @@ def main() -> int:
             "ms": fc[kind]["ms"], "plain_ms": fc[kind]["plain_ms"],
             "bound_ms": fc[kind]["bound_ms"],
             "bound_by": fc[kind]["bound_by"], "library_ms": library_ms})
+    # the wide bodies at the wide_train path's case (bfloat16, all-True
+    # mask, b 8, h 2, n 1280, d 256): K1 and K2b split on the tensor
+    # cores, K2a on CUDA cores
+    wc = flash[case_name(torch.bfloat16, False, WIDE_TIMED["d"])]
+    for name, kind, line, count, library_ms in (
+            ("flash_attention_fwd_wide_wgmma", "fwd", 88, "k1",
+             wc["library"]["sdpa_fwd_ms"]),
+            ("flash_attention_bwd_dq_wide", "dq", 322, "k2a", None),
+            ("flash_attention_bwd_dkv_wide_wgmma", "dkv", 367, "k2b",
+             wc["library"]["sdpa_bwd_ms"])):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"dalle_pytorch_tpu/ops/flash_attention.py:{line}",
+            "launches": wide_train["launches"][count],
+            "max_abs_err": wc["max_abs_err"][kind],
+            "ms": wc[kind]["ms"], "plain_ms": wc[kind]["plain_ms"],
+            "bound_ms": wc[kind]["bound_ms"],
+            "bound_by": wc[kind]["bound_by"], "library_ms": library_ms})
     # K3 at the sparse training path's case (bfloat16, all-True mask), and
     # K4's visible walk at the serving case (bfloat16 pages)
     k3 = sparse["k3"]["bfloat16/all_true"]

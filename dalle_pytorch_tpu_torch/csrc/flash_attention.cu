@@ -2,14 +2,18 @@
 // for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of dalle_pytorch_tpu/ops/flash_attention.py:
-//   K1  flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
+//   K1  flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32),
+//       flash_fwd_wide_wgmma_kernel (bf16 d 192, 256)
 //       <- _fwd_kernel :88 (launched by _flash_fwd)
 //   K2a flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32)
 //       <- _bwd_dq_kernel :322 (launched by _pallas_attention_bwd :548)
 //   K2b <- _bwd_keygrid_kernel :367, both of its launch sites: split mode
 //       (_bwd_dkv_kernel, dk and dv: flash_bwd_dkv_wgmma_kernel in bf16,
+//       flash_bwd_dkv_wide_wgmma_kernel in bf16 at d 192 and 256,
 //       flash_bwd_dkv_kernel<float, D, false> in f32) and fused mode
 //       (_bwd_fused_kernel, dq too: flash_bwd_dkv_kernel<T, D, true>).
+//   Above d 128 every other call runs a CUDA-core wide body
+//   (*_wide_kernel, end of this file).
 //
 // What they compute, with the TPU kernels' masking contract:
 //   * s = (q . k) * scale in f32; a pad pair (mask[i] & mask[j] false)
@@ -33,11 +37,14 @@
 //     d zero-padded to the next of those widths and slice out, dq, dk and
 //     dv back: exact, since zero columns add nothing to q . k or dout . v,
 //     and scale still comes from the real d.
-//   * wide bodies (d > 128): a 64-row bf16 tile of d 256 is 32 KB, so the
-//     rings below do not fit in shared memory at such a d. A wide block
-//     owns a slice of at most 128 output columns and streams the products
-//     over the whole head in 64-column chunks (CUDA cores, f32 and bf16;
-//     tile.cuh), recomputing S (and dP) once a slice.
+//   * wide heads (d > 128): a 64-row bf16 tile of d 256 is 32 KB, so the
+//     narrow rings do not fit in shared memory at such a d. In bf16 at d
+//     192 and 256, K1 and K2b split run tensor-core bodies with shallower
+//     rings (below). Every other wide call (f32, d above 256 where
+//     wgmma's output width ends, K2a, fused K2b) runs a CUDA-core body in
+//     which a block owns a slice of at most 128 output columns and
+//     streams the products over the whole head in 64-column chunks
+//     (tile.cuh), recomputing S (and dP) once a slice.
 //
 // Bound: operations. At the north training shapes (b 8, h 8, n 1280,
 // d 64, causal) K1 does 13.4 GFLOP of tile products (the causal pairs'
@@ -45,7 +52,9 @@
 // byte: just above the ~295 at which the H100's bf16 tensor cores, not
 // its memory, become the limit (13.6 us at 989 TFLOP/s). K2a does 1.5x
 // that, 20.1 GFLOP (S, dP, dQ; 20.4 us); K2b split twice, 26.9 GFLOP
-// (S^T, dP^T, dV, dK); fused K2b 2.5x K1.
+// (S^T, dP^T, dV, dK); fused K2b 2.5x K1. The same width split as h 2,
+// d 256 does the same products over a quarter of the heads, and moves
+// the same bytes.
 //
 // Two designs:
 //
@@ -90,6 +99,18 @@
 //        (key row, query column) in registers, then dV += P^T dO and
 //        dK += dS^T Q with the f32 dK, dV written once; P^T is computed
 //        under dP^T's product, dS^T under dV's. 84 KB at d 64.
+//   Wide (bf16, d 192 and 256; the same products, m64n{d}k16 for the
+//   outputs):
+//   K1:  K1's body with two warpgroups of 64 query rows over a ring of
+//        two K + V tiles filled one ahead, each O += P V waited for
+//        within its iteration (192 KB at d 256).
+//   K2b: one block of two warpgroups per 64 key rows: a 64 x d f32
+//        accumulator is d / 2 registers a thread, so warpgroup 0 holds
+//        dV and warpgroup 1 dK, each over the whole d; warpgroup 0
+//        computes S^T and hands P^T to warpgroup 1 through shared memory
+//        (the 4 tile products a query tile the gradients need, two a
+//        warpgroup); Q and dO through two stages filled one ahead
+//        (211 KB at d 256).
 //
 // float32 (all three) and fused K2b: CUDA cores (tile.cuh, shared with
 // block_sparse.cu). K1's and K2a's CUDA-core bodies are float32 only;
@@ -481,22 +502,43 @@ constexpr int kAhead = kStages - 2;
 constexpr int kDqStages = 3;
 constexpr int kDqAhead = kDqStages - 2;
 
-// K1: G warpgroups of 64 query rows (Q resident); key tiles through the
-// ring. Each warpgroup issues tile it's S = Q K^T while its O += P V of
-// tile it - 1 is still in flight.
-template <int D, int G>
-__global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
+// the wide K1 (bf16, d 192 and 256): a 64-row K + V stage is 48-64 KB,
+// so two warpgroups share a ring of two tiles filled one ahead (Q and the
+// ring take 192 KB at d 256), each tile's O += P V waited for within its
+// iteration. chip_flash_variants.py times the alternatives, both slower
+// on the H100: wide_fwd_g1 (one warpgroup over three tiles, its O += P V
+// running under the next S: 1.6x the time) and wide_fwd_split_ring (two
+// warpgroups, the K and V rings refilled at two barriers a tile, so that
+// O += P V runs under the next S: 0-2 % slower with the all-True mask,
+// 8-14 % without one)
+constexpr int kWideFwdGroups = 2;
+constexpr int kWideFwdStages = 2;
+constexpr int kWideFwdAhead = 1;
+// the wide K2b split's ring: two Q + dO stages filled one ahead
+constexpr int kWideDkvStages = 2;
+
+// K1: G warpgroups of 64 query rows (Q resident); key tiles through a
+// ring of STAGES tiles filled AHEAD ahead of the products. With
+// STAGES - AHEAD = 2 each warpgroup issues tile it's S = Q K^T while its
+// O += P V of tile it - 1 is still in flight; with 1 it waits for each
+// O += P V within its iteration, since the next copy overwrites that
+// stage. The narrow (d 64, 128) and wide (d 192, 256) kernels below run this
+// body.
+template <int D, int G, int STAGES, int AHEAD>
+__device__ __forceinline__ void fwd_wgmma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
     bf16* __restrict__ out, float* __restrict__ m_out,
     float* __restrict__ l_out, int h, int n, float scale, int causal) {
+  static_assert(STAGES - AHEAD == 1 || STAGES - AHEAD == 2,
+                "the ring holds the tile read and at most one in flight");
   extern __shared__ uint8_t smem_raw[];
   constexpr uint32_t kT = wg::tile_bytes<D>();
   constexpr int kNT = G * wg::kThreads;
   constexpr int kBlockRows = G * wg::kRows;
   const uint32_t sQ = aligned_smem(smem_raw);     // G tiles
-  const uint32_t sK = sQ + G * kT;                // kStages tiles
-  const uint32_t sV = sK + kStages * kT;          // kStages tiles
+  const uint32_t sK = sQ + G * kT;                // STAGES tiles
+  const uint32_t sV = sK + STAGES * kT;           // STAGES tiles
 
   const int tid = threadIdx.x;
   const int grp = tid / wg::kThreads;
@@ -515,9 +557,9 @@ __global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
   const int last_row = min(q0 + kBlockRows, n) - 1;
   const int num_k = causal ? last_row / kTile + 1 : (n + kTile - 1) / kTile;
 
-  auto load_keys = [&](int it) {            // one copy group, maybe empty
+  auto load_keys = [&](int it) {       // one copy group, maybe empty
     if (it < num_k) {
-      const uint32_t at = (it % kStages) * kT;
+      const uint32_t at = (it % STAGES) * kT;
       wg::load_tile<D, kNT>(sK + at, kh, it * kTile, n, tid);
       wg::load_tile<D, kNT>(sV + at, vh, it * kTile, n, tid);
     }
@@ -527,7 +569,7 @@ __global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
   for (int i = 0; i < G; ++i)
     wg::load_tile<D, kNT>(sQ + i * kT, q + base, q0 + i * wg::kRows, n, tid);
 #pragma unroll
-  for (int it = 0; it < kAhead; ++it) load_keys(it);
+  for (int it = 0; it < AHEAD; ++it) load_keys(it);
 
   int row[2];
   bool qm[2];
@@ -545,10 +587,10 @@ __global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
   uint32_t kflags = mask_row ? wg::mask_flags(mask_row, 0, n, lane) : 3u;
 
   for (int it = 0; it < num_k; ++it) {
-    wg::cp_async_wait<kAhead - 1>();  // key tile `it` has landed
+    wg::cp_async_wait<AHEAD - 1>();   // key tile `it` has landed
     wg::fence_async_shared();
-    __syncthreads();                  // ... for all; tile it - 2's stage is free
-    load_keys(it + kAhead);
+    __syncthreads();                  // ... for all; the stage the next
+    load_keys(it + AHEAD);            // copy fills has no reader left
     const int k0 = it * kTile;
     const uint64_t kbits = mask_row ? wg::mask_bits(kflags) : ~0ull;
     if (mask_row) kflags = wg::mask_flags(mask_row, k0 + kTile, n, lane);
@@ -556,8 +598,8 @@ __global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
       wg::mma_wait<0>();              // the last O += P V frees its V stage
       continue;
     }
-    const uint32_t tK = sK + (it % kStages) * kT;
-    const uint32_t tV = sV + (it % kStages) * kT;
+    const uint32_t tK = sK + (it % STAGES) * kT;
+    const uint32_t tV = sV + (it % STAGES) * kT;
 
     float s[32];
     zero(s);
@@ -630,6 +672,11 @@ __global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) mma_rs<D>(o, pa[kk], wg::desc_mn(tV, kk));
     wg::mma_commit();
+    if constexpr (STAGES - AHEAD == 1) {
+      wg::mma_wait<0>();              // frees tile it's V stage
+      wg::hold(o);
+      hold_frags(pa);
+    }
   }
   wg::mma_wait<0>();
   wg::hold(o);
@@ -652,6 +699,29 @@ __global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
       l_out[static_cast<size_t>(bh) * n + row[hh]] = l_safe;
     }
   }
+}
+
+// narrow K1 (d 64, 128): the 4-tile ring filled two ahead
+template <int D, int G>
+__global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+    bf16* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int h, int n, float scale, int causal) {
+  fwd_wgmma<D, G, kStages, kAhead>(q, k, v, mask, out, m_out, l_out, h, n,
+                                   scale, causal);
+}
+
+// wide K1 (d 192, 256): the kWideFwd* ring
+template <int D>
+__global__ void __launch_bounds__(kWideFwdGroups * wg::kThreads)
+    flash_fwd_wide_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ out, float* __restrict__ m_out,
+        float* __restrict__ l_out, int h, int n, float scale, int causal) {
+  fwd_wgmma<D, kWideFwdGroups, kWideFwdStages, kWideFwdAhead>(
+      q, k, v, mask, out, m_out, l_out, h, n, scale, causal);
 }
 
 // K2a: G warpgroups of 64 query rows, Q and dO resident, each thread's
@@ -1061,6 +1131,235 @@ __global__ void __launch_bounds__(G * wg::kThreads)
       *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
           __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
     }
+  }
+}
+
+// K2b split, wide (bf16, d 192 and 256): one block per 64 key rows, K and
+// V resident, walking query tiles from the diagonal on (Q, dO and their
+// rows' m, l, D) through a ring of kWideDkvStages tiles filled one ahead:
+// K, V and two Q + dO stages take 192 KB at d 256, so a third stage does
+// not fit. A 64 x d f32 accumulator is d / 2 registers a thread, too many
+// for one warpgroup to hold both dK and dV at d 256, so the block's two
+// warpgroups split them by gradient, each over the whole d: warpgroup 0
+// computes S^T = K Q^T, P^T and dV += P^T dO; warpgroup 1 dP^T = V dO^T,
+// dS^T and dK += dS^T Q, taking P^T (f32, unrounded) and the pairs' keep
+// bits from warpgroup 0 through shared memory under a named barrier: the
+// two accumulators of one 64 x 64 product share their layout thread for
+// thread, so thread i of warpgroup 0 writes what thread i of warpgroup 1
+// reads. That is the 4 tile products a query tile the gradients need, two
+// a warpgroup (chip_flash_variants.py, wide_dkv_own_scores: warpgroup 1
+// computing S^T and P^T itself, 5, is 2-4 % slower on the H100; splitting
+// the columns instead, each warpgroup computing both scores for its half
+// of dK and dV, takes 6). Each warpgroup's products
+// start and end inside its own branch. 1 / l is taken per column in
+// registers (the narrow ring's tile-ahead inversion needs two tiles
+// landed ahead).
+template <int D>
+__global__ void __launch_bounds__(2 * wg::kThreads)
+    flash_bwd_dkv_wide_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+        const float* __restrict__ m, const float* __restrict__ l,
+        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int n,
+        float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t kT = wg::tile_bytes<D>();
+  constexpr int kNT = 2 * wg::kThreads;
+  constexpr uint32_t kStatBytes = 3 * kTile * sizeof(float);   // m, l, D
+  const uint32_t sK = aligned_smem(smem_raw);
+  const uint32_t sV = sK + kT;
+  const uint32_t sQ = sV + kT;                          // kWideDkvStages
+  const uint32_t sO = sQ + kWideDkvStages * kT;         // tiles each
+  const uint32_t sStat = sO + kWideDkvStages * kT;      // x (m, l, D)
+  float* stat = reinterpret_cast<float*>(
+      smem_raw + (sStat - wg::smem_addr(smem_raw)));
+  // P^T, element i of thread r at [i * 128 + r], then the keep bits, one
+  // word a thread
+  float* shared_p = stat + kWideDkvStages * 3 * kTile;
+  uint32_t* shared_keep = reinterpret_cast<uint32_t*>(
+      shared_p + 32 * wg::kThreads);
+
+  const int tid = threadIdx.x;
+  const bool dk_group = tid >= wg::kThreads;
+  const int warp = tid % wg::kThreads / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  const int kv0 = blockIdx.y * kTile;             // heavy (causal) first
+  const size_t base = static_cast<size_t>(bh) * n * D;
+  const size_t sbase = static_cast<size_t>(bh) * n;
+  const bf16* qh = q + base;
+  const bf16* oh = dout + base;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  const int num_q = (n + kTile - 1) / kTile;
+  const int iq0 = causal ? kv0 / kTile : 0;
+
+  auto load_queries = [&](int iq) {         // one copy group, maybe empty
+    if (iq < num_q) {
+      const int q0 = iq * kTile;
+      const int stage = (iq - iq0) % kWideDkvStages;
+      wg::load_tile<D, kNT>(sQ + stage * kT, qh, q0, n, tid);
+      wg::load_tile<D, kNT>(sO + stage * kT, oh, q0, n, tid);
+      for (int i = tid; i < 3 * kTile; i += kNT) {
+        const float* src = i < kTile ? m : i < 2 * kTile ? l : dstat;
+        const int r = q0 + i % kTile;
+        wg::cp_async4(sStat + stage * kStatBytes + 4 * i,
+                      src + sbase + (r < n ? r : 0), r < n);
+      }
+    }
+    wg::cp_async_commit();
+  };
+  wg::load_tile<D, kNT>(sK, k + base, kv0, n, tid);
+  wg::load_tile<D, kNT>(sV, v + base, kv0, n, tid);
+  load_queries(iq0);                  // one group with K and V
+
+  int krow[2];
+  bool km[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    krow[hh] = kv0 + 16 * warp + g + 8 * hh;
+    km[hh] = krow[hh] < n && (mask_row == nullptr || mask_row[krow[hh]]);
+  }
+  float acc[D / 2];                   // dV (warpgroup 0) or dK (1)
+  zero(acc);
+  uint32_t qflags =
+      mask_row ? wg::mask_flags(mask_row, iq0 * kTile, n, lane) : 3u;
+
+  for (int iq = iq0; iq < num_q; ++iq) {
+    const int stage = (iq - iq0) % kWideDkvStages;
+    wg::cp_async_wait<0>();           // query tile `iq` has landed
+    wg::fence_async_shared();
+    __syncthreads();                  // ... for all; tile iq - 1's stage is free
+    load_queries(iq + 1);
+    const int q0 = iq * kTile;
+    const uint64_t qbits = mask_row ? wg::mask_bits(qflags) : ~0ull;
+    if (mask_row) qflags = wg::mask_flags(mask_row, q0 + kTile, n, lane);
+    const uint32_t tQ = sQ + stage * kT;
+    const uint32_t tO = sO + stage * kT;
+    const float* sm = stat + stage * 3 * kTile;
+
+    // P^T from S^T, as the narrow body computes it (1 / l per column
+    // here); `keep` bit i: pair i is neither left out nor pad-filled
+    // (all set where no pair of the tile is tested)
+    const bool edge = (causal && q0 < kv0 + kTile - 1) || q0 + kTile > n ||
+                      kv0 + kTile > n ||
+                      (mask_row != nullptr &&
+                       __any_sync(0xffffffffu, !(km[0] && km[1])) |
+                           (qbits != ~0ull));
+    auto probs = [&](float (&st)[32]) {
+      uint32_t keep = ~0u;
+      if (edge) {
+        keep = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            const bool qlive = qbits >> c & 1;
+            const float inv_l = 1.f / sm[kTile + c];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int i = 4 * j + 2 * hh + e;
+              const bool live = mask_row == nullptr || (km[hh] && qlive);
+              const bool excl = q0 + c >= n || krow[hh] >= n ||
+                                (causal && q0 + c < krow[hh]);
+              const float x = live ? st[i] * scale : kFill;
+              st[i] = excl ? 0.f
+                           : wg::exp2_approx((x - sm[c]) * kLog2e) * inv_l;
+              keep |= static_cast<uint32_t>(live && !excl) << i;
+            }
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            const float mq = sm[c], inv_l = 1.f / sm[kTile + c];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float& x = st[4 * j + 2 * hh + e];
+              x = wg::exp2_approx((x * scale - mq) * kLog2e) * inv_l;
+            }
+          }
+      }
+      return keep;
+    };
+
+    float st[32], dpt[32];            // S^T, dP^T: rows keys, columns queries
+    uint32_t frag[4][4];              // P^T or dS^T as an A operand
+    zero(st);
+    zero(dpt);
+    if (!dk_group) {
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(st, wg::desc_k(sK, kk), wg::desc_k(tQ, kk), kk > 0);
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::hold(st);
+      const uint32_t keep = probs(st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) shared_p[i * wg::kThreads + tid] = st[i];
+      shared_keep[tid] = keep;
+      wg::bar_arrive(1, 2 * wg::kThreads);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wg::a_frag(st, kk, frag[kk]);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs<D>(acc, frag[kk], wg::desc_mn(tO, kk));    // dV += P^T dO
+      wg::mma_commit();
+      wg::mma_wait<0>();
+    } else {
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(dpt, wg::desc_k(sV, kk), wg::desc_k(tO, kk), kk > 0);
+      wg::mma_commit();
+      wg::bar_sync(1, 2 * wg::kThreads);     // warpgroup 0's P^T is in
+      const int r = tid - wg::kThreads;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = shared_p[i * wg::kThreads + r];
+      const uint32_t keep = shared_keep[r];
+      wg::mma_wait<0>();              // dP^T
+      wg::hold(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float drow = sm[2 * kTile + 8 * j + 2 * t + e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = 4 * j + 2 * hh + e;
+            const float ds = st[i] * (dpt[i] - drow) * scale;
+            dpt[i] = keep >> i & 1 ? ds : 0.f;
+          }
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wg::a_frag(dpt, kk, frag[kk]);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs<D>(acc, frag[kk], wg::desc_mn(tQ, kk));    // dK += dS^T Q
+      wg::mma_commit();
+      wg::mma_wait<0>();
+    }
+    wg::hold(acc);
+    hold_frags(frag);
+  }
+
+  bf16* grad = dk_group ? dk : dv;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (krow[hh] >= n) continue;
+    bf16* dst = grad + base + static_cast<size_t>(krow[hh]) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
 }
 
@@ -1490,7 +1789,53 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the wide bodies: grid (b*h, 64-row tiles, 128-column slices)
+template <int D>
+cudaError_t launch_fwd_wide_wgmma(const void* q, const void* k,
+                                  const void* v, const void* mask, void* out,
+                                  void* m, void* l, int bh, int h, int n,
+                                  float scale, int causal,
+                                  cudaStream_t stream) {
+  constexpr int G = kWideFwdGroups;
+  const size_t smem =
+      (G + 2 * kWideFwdStages) * wg::tile_bytes<D>() + 1024;
+  auto kernel = flash_fwd_wide_wgmma_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (n + G * wg::kRows - 1) / (G * wg::kRows));
+  kernel<<<grid, G * wg::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l),
+      h, n, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wide_wgmma(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* m, const void* l,
+                                  const void* dstat, const void* mask,
+                                  void* dk, void* dv, int bh, int h, int n,
+                                  float scale, int causal,
+                                  cudaStream_t stream) {
+  const size_t smem =
+      (2 + 2 * kWideDkvStages) * wg::tile_bytes<D>() +
+      kWideDkvStages * 3 * kTile * sizeof(float) +
+      33 * wg::kThreads * sizeof(float) + 1024;        // P^T, keep bits
+  auto kernel = flash_bwd_dkv_wide_wgmma_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (n + kTile - 1) / kTile);
+  kernel<<<grid, 2 * wg::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(dstat), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, n, scale, causal);
+  return cudaGetLastError();
+}
+
+// the wide CUDA-core bodies: grid (b*h, 64-row tiles, 128-column slices)
 dim3 wide_grid(int bh, int n, int d) {
   return dim3(bh, (n + kTile - 1) / kTile, (d + kSliceCols - 1) / kSliceCols);
 }
@@ -1565,19 +1910,29 @@ bool shape_ok(int b, int h, int n, int d, int dtype) {
 // Pointers are device pointers to contiguous arrays: q, k, v, dout, out,
 // dq, dk, dv (b, h, n, d) in that dtype; m, l, dstat (b, h, n) float32;
 // mask (b, n) uint8 or null; the fused dq (b, h, n, d) float32, zeroed by
-// the caller. Each returns the CUDA error of its launch (0 on success); the
+// the caller. wide_wgmma (K1 and K2b split): 1 runs the call on the wide
+// tensor-core body, compiled for bf16 at d 192 and 256 only (1 with any
+// other dtype, d or the fused mode is refused); 0 runs every d above 128
+// on the CUDA-core wide bodies. ops/flash_attention.py::wide_tensor_cores
+// chooses. Each returns the CUDA error of its launch (0 on success); the
 // launch is asynchronous on `stream`.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* m,
                                    void* l, int b, int h, int n, int d,
                                    float scale, int causal, int dtype,
-                                   void* stream) {
-  if (!shape_ok(b, h, n, d, dtype))
+                                   int wide_wgmma, void* stream) {
+  if (!shape_ok(b, h, n, d, dtype) ||
+      (wide_wgmma && (dtype != 1 || (d != 192 && d != 256))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = b * h;
   cudaError_t err;
-  if (d > 128)
+  if (wide_wgmma)
+    err = d == 192 ? launch_fwd_wide_wgmma<192>(q, k, v, mask, out, m, l, bh,
+                                                h, n, scale, causal, s)
+                   : launch_fwd_wide_wgmma<256>(q, k, v, mask, out, m, l, bh,
+                                                h, n, scale, causal, s);
+  else if (d > 128)
     err = dtype == 0 ? launch_fwd_wide<float>(q, k, v, mask, out, m, l, bh, h,
                                               n, d, scale, causal, s)
                      : launch_fwd_wide<bf16>(q, k, v, mask, out, m, l, bh, h,
@@ -1633,8 +1988,11 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* dstat, const void* mask,
                                        void* dk, void* dv, void* dq, int b,
                                        int h, int n, int d, float scale,
-                                       int causal, int dtype, void* stream) {
-  if (!shape_ok(b, h, n, d, dtype))
+                                       int causal, int dtype, int wide_wgmma,
+                                       void* stream) {
+  if (!shape_ok(b, h, n, d, dtype) ||
+      (wide_wgmma &&
+       (dq != nullptr || dtype != 1 || (d != 192 && d != 256))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = b * h;
@@ -1645,7 +2003,12 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 #define FA_DKV_WIDE(T, F)                                                   \
   launch_dkv_wide<T, F>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, bh, h, \
                         n, d, scale, causal, s)
-  if (d > 128) {
+#define FA_DKV_WIDE_WGMMA(D)                                              \
+  launch_dkv_wide_wgmma<D>(q, k, v, dout, m, l, dstat, mask, dk, dv, bh, h, \
+                           n, scale, causal, s)
+  if (wide_wgmma) {
+    err = d == 192 ? FA_DKV_WIDE_WGMMA(192) : FA_DKV_WIDE_WGMMA(256);
+  } else if (d > 128) {
     if (dq == nullptr)
       err = dtype == 0 ? FA_DKV_WIDE(float, false) : FA_DKV_WIDE(bf16, false);
     else
@@ -1668,5 +2031,6 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   }
 #undef FA_DKV
 #undef FA_DKV_WIDE
+#undef FA_DKV_WIDE_WGMMA
   return static_cast<int>(err);
 }

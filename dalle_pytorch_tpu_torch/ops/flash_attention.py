@@ -35,20 +35,26 @@ products against ~42 MB moved in bf16, above the ~295 flops per byte
 where the tensor cores, not memory, set the limit; K2a and K2b do 1.5x
 and 2x (2.5x fused) K1's products. In bfloat16, K1, K2a and K2b split
 run on the tensor cores (wgmma over asynchronously staged bf16 tiles,
-``csrc/wgmma.cuh``); float32 and fused K2b run CUDA-core FMAs
+``csrc/wgmma.cuh``; above d 128 K1 and K2b split only, at d 192 and
+256); float32, fused K2b and the other wide calls run CUDA-core FMAs
 (``csrc/flash_attention.cu`` says how). Like the Pallas bodies, every
 version rounds p and ds to the input dtype before the second product of
 each pair.
 
 Head dims: any d >= 1, as the JAX kernels take. The narrow bodies are
 compiled for d 64 and 128 (``KERNEL_DIM_HEADS``); above 128 the wide
-bodies take any multiple of ``WIDE_DIM_MULTIPLE`` (64): a block owns a
-slice of at most 128 output columns and streams q.k and dout.v through
-64-column chunks, on CUDA cores (a 256-wide bf16 tile ring does not fit
-in shared memory as K1 and K2b lay it out). Each wrapper runs any other
-d through ``any_dim_head``: q, k, v and dout zero-padded to the next of
-those widths, the kernel launched, out, dq, dk and dv sliced back. That
-is exact (zero columns add nothing to q.k or dout.v), and ``scale``, a
+bodies take any multiple of ``WIDE_DIM_MULTIPLE`` (64). In bfloat16 at d
+192 and 256 (``WIDE_WGMMA_DIM_HEADS``), K1 and K2b split run wide
+tensor-core bodies (``wide_tensor_cores`` chooses, the wrappers tell the
+C entry points): K1 two warpgroups over a 2-tile K + V ring, K2b
+split two warpgroups, one computing dV and one dK over the whole d. Every
+other wide call (float32, d above 256, K2a, fused K2b) runs a CUDA-core
+body in which a block owns a slice of at most 128 output columns and
+streams q.k and dout.v through 64-column chunks. ``kernel_body`` names
+the kernel each call runs. Each wrapper runs any other d through
+``any_dim_head``: q, k, v and dout zero-padded to the next of those
+widths, the kernel launched, out, dq, dk and dv sliced back. That is
+exact (zero columns add nothing to q.k or dout.v), and ``scale``, a
 wrapper argument, still comes from the real d. A d the kernels take
 runs with no copy.
 
@@ -77,6 +83,11 @@ BWD_IMPLS = ("xla", "pallas", "pallas_fused")
 KERNEL_DIM_HEADS = (64, 128)
 NARROW_MAX_DIM_HEAD = KERNEL_DIM_HEADS[-1]
 WIDE_DIM_MULTIPLE = 64
+# the wide widths whose bfloat16 K1 and K2b split run on the tensor cores
+# (wgmma's output width stops at 256)
+WIDE_WGMMA_DIM_HEADS = (192, 256)
+# K1, K2a, K2b split, K2b fused
+KINDS = ("fwd", "dq", "dkv", "fused")
 # dtype codes of the C entry points
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -239,6 +250,38 @@ def kernel_dim_head(d: int) -> int:
     return next(w for w in KERNEL_DIM_HEADS if d <= w)
 
 
+def wide_tensor_cores(kind: str, dtype: torch.dtype, d: int) -> bool:
+    """Whether a CUDA call of ``kind`` on ``dtype`` tensors at the kernel
+    width ``d`` runs a wide tensor-core body: bfloat16 K1 and K2b split
+    at ``WIDE_WGMMA_DIM_HEADS``. The wrappers pass it to the C entry
+    points (``wide_wgmma``), which run the CUDA-core wide bodies where
+    it is false."""
+    return (dtype == torch.bfloat16 and kind in ("fwd", "dkv")
+            and d in WIDE_WGMMA_DIM_HEADS)
+
+
+def kernel_body(kind: str, dtype: torch.dtype, d: int) -> str:
+    """The ``__global__`` function of ``csrc/flash_attention.cu`` that a
+    CUDA call of ``kind`` (``KINDS``: K1, K2a, K2b split, K2b fused) on
+    ``dtype`` tensors of head dim ``d`` launches, at the width it runs
+    at (``kernel_dim_head``). ``chip_smoke.py`` holds it against the
+    kernels' names in its profiles."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}, not one of {KINDS}")
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernels take float32 or bfloat16, not "
+                         f"{dtype}")
+    width = kernel_dim_head(d)
+    stem = {"fwd": "flash_fwd", "dq": "flash_bwd_dq"}.get(kind,
+                                                          "flash_bwd_dkv")
+    if width <= NARROW_MAX_DIM_HEAD:
+        tensor_cores = dtype == torch.bfloat16 and kind != "fused"
+        return f"{stem}_wgmma_kernel" if tensor_cores else f"{stem}_kernel"
+    if wide_tensor_cores(kind, dtype, width):
+        return f"{stem}_wide_wgmma_kernel"
+    return f"{stem}_wide_kernel"
+
+
 def at_kernel_dim_head(fn: Callable, q: torch.Tensor, *args, **kw):
     """``fn(q, *args, **kw)`` at ``kernel_dim_head(d)``: every 4-D tensor
     argument (q, k, v, dout) zero-padded along its last axis, every 4-D
@@ -289,9 +332,9 @@ def any_dim_head(wrapper: Callable) -> Callable:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "flash_attention_fwd": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P],
+    "flash_attention_fwd": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "flash_attention_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P],
-    "flash_attention_bwd_dkv": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _P],
+    "flash_attention_bwd_dkv": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _I, _P],
 }
 
 
@@ -360,7 +403,8 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool,
     rc = _entry("flash_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
         out.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, n, d,
-        float(scale), int(causal), code, stream)
+        float(scale), int(causal), code,
+        int(wide_tensor_cores("fwd", q.dtype, d)), stream)
     _check_rc("flash_attention_fwd", rc)
     flash_attention_fwd.launches += 1
     return out, m, l
@@ -420,7 +464,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, m, l, dstat, *, scale: float,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         m.data_ptr(), l.data_ptr(), dstat.data_ptr(), mask_ptr,
         dk.data_ptr(), dv.data_ptr(), None if dq is None else dq.data_ptr(),
-        b, h, n, d, float(scale), int(causal), code, stream)
+        b, h, n, d, float(scale), int(causal), code,
+        int(wide_tensor_cores("fused" if with_dq else "dkv", q.dtype, d)),
+        stream)
     _check_rc("flash_attention_bwd_dkv", rc)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv, dq

@@ -289,6 +289,77 @@ def test_kernel_dim_head_is_the_next_kernel_width(d, width):
     assert TF.kernel_dim_head(d) == width
 
 
+# (dtype, d, kind, the kernel csrc/flash_attention.cu launches for it)
+BODY_ROUTES = [
+    # bfloat16 K1 and K2b split at d 192 and 256: the wide tensor-core
+    # bodies, also for a d the wrappers pad to those widths
+    ("bfloat16", 192, "fwd", "flash_fwd_wide_wgmma_kernel"),
+    ("bfloat16", 256, "fwd", "flash_fwd_wide_wgmma_kernel"),
+    ("bfloat16", 130, "fwd", "flash_fwd_wide_wgmma_kernel"),
+    ("bfloat16", 192, "dkv", "flash_bwd_dkv_wide_wgmma_kernel"),
+    ("bfloat16", 256, "dkv", "flash_bwd_dkv_wide_wgmma_kernel"),
+    ("bfloat16", 255, "dkv", "flash_bwd_dkv_wide_wgmma_kernel"),
+    # ... K2a and fused K2b keep their CUDA-core wide bodies
+    ("bfloat16", 256, "dq", "flash_bwd_dq_wide_kernel"),
+    ("bfloat16", 192, "fused", "flash_bwd_dkv_wide_kernel"),
+    # float32 at every wide d, and bfloat16 above 256: CUDA cores
+    ("float32", 192, "fwd", "flash_fwd_wide_kernel"),
+    ("float32", 256, "dkv", "flash_bwd_dkv_wide_kernel"),
+    ("bfloat16", 320, "fwd", "flash_fwd_wide_kernel"),
+    ("bfloat16", 320, "dkv", "flash_bwd_dkv_wide_kernel"),
+    ("bfloat16", 257, "fwd", "flash_fwd_wide_kernel"),
+    # up to 128 the narrow bodies
+    ("bfloat16", 64, "fwd", "flash_fwd_wgmma_kernel"),
+    ("bfloat16", 16, "dq", "flash_bwd_dq_wgmma_kernel"),
+    ("bfloat16", 128, "dkv", "flash_bwd_dkv_wgmma_kernel"),
+    ("bfloat16", 128, "fused", "flash_bwd_dkv_kernel"),
+    ("float32", 64, "fwd", "flash_fwd_kernel"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,kind,kernel", BODY_ROUTES)
+def test_kernel_body_routes_each_call(dtype, d, kind, kernel):
+    """The dispatch helper names the wide tensor-core bodies for bfloat16
+    K1 and K2b split at d 192 and 256 (and the d padded to them), the
+    CUDA-core wide bodies for float32, d 320 and K2a / fused K2b, and the
+    narrow bodies up to 128."""
+    assert TF.kernel_body(kind, getattr(torch, dtype), d) == kernel
+
+
+@pytest.mark.parametrize("dtype,d,kind,kernel", BODY_ROUTES)
+def test_wrappers_ask_for_the_wide_tensor_cores_where_kernel_body_names_them(
+        dtype, d, kind, kernel):
+    """The route the wrappers pass to the C entry points
+    (``wide_tensor_cores`` at the padded width) is the one
+    ``kernel_body`` names."""
+    wide = TF.wide_tensor_cores(kind, getattr(torch, dtype),
+                                TF.kernel_dim_head(d))
+    assert wide == kernel.endswith("_wide_wgmma_kernel")
+
+
+def test_kernel_body_names_kernels_of_the_source():
+    """Every kernel ``kernel_body`` names is a ``__global__`` function of
+    ``csrc/flash_attention.cu``."""
+    import pathlib
+    import re
+    src = (pathlib.Path(TF.__file__).parent.parent / "csrc" /
+           "flash_attention.cu").read_text()
+    kernels = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\)"
+                             r"\s*(\w+)\(", src))
+    named = {TF.kernel_body(kind, dtype, d) for kind in TF.KINDS
+             for dtype in (torch.float32, torch.bfloat16)
+             for d in (16, 64, 128, 192, 256, 320)}
+    assert named <= kernels, named - kernels
+    assert TF.WIDE_WGMMA_DIM_HEADS == (192, 256)
+
+
+def test_kernel_body_rejects_unknown_kinds_and_dtypes():
+    with pytest.raises(ValueError, match="unknown kind"):
+        TF.kernel_body("bwd", torch.bfloat16, 64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TF.kernel_body("fwd", torch.float16, 64)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_padding_helper_takes_no_copy_at_kernel_widths(d):
     q, k, v, do, mask = pad_inputs(d, torch.float32, True)

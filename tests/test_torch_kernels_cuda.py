@@ -34,6 +34,8 @@ rows, with K4's tolerances. The prefix walk is split across blocks
 K4's tolerances, and its FILL corner cases exactly.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -343,15 +345,15 @@ def test_flash_kernels_match_plain(cuda, dtype, d, n, masked, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n", [37, 1000, 1280])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_fwd_and_split_dkv_match_plain_over_long_walks(
         cuda, dtype, d, n, masked, causal):
     """K1 and K2b split, whose bfloat16 bodies run on the tensor cores
-    (float32 on CUDA cores), over walks of one tile (n 37), of 16 tiles
-    with a ragged last one (n 1000) and of 20 full tiles (n 1280, the
-    north length): every stage of the key and query rings, and the whole
-    causal walk."""
+    (float32 on CUDA cores; d 192 and 256 the wide bodies), over walks of
+    one tile (n 37), of 16 tiles with a ragged last one (n 1000) and of
+    20 full tiles (n 1280, the north length): every stage of the key and
+    query rings, and the whole causal walk."""
     dtype = getattr(torch, dtype)
     q, k, v, do, mask = flash_inputs(cuda, dtype, n, d, masked, b=1, h=2)
     kw = dict(scale=d ** -0.5, causal=causal, mask=mask)
@@ -389,6 +391,37 @@ def test_flash_attention_grads_match_blockwise_on_card(cuda, bwd_impl):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 160, 192, 256, 320])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_calls_launch_the_kernel_body_names(cuda, dtype, d):
+    """Each wrapper launches the kernel ``kernel_body`` names, by its
+    name in a torch.profiler trace: bfloat16 K1 and K2b split at d 160
+    (padded to 192), 192 and 256 the wide tensor-core bodies, float32 and
+    d 320 the CUDA-core ones."""
+    from torch.profiler import ProfilerActivity, profile
+    dtype = getattr(torch, dtype)
+    q, k, v, do, mask = flash_inputs(cuda, dtype, 130, d, True)
+    kw = dict(scale=d ** -0.5, causal=True, mask=mask)
+    out, m, l = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    args = (q, k, v, do, m, l, (do.float() * out.float()).sum(-1))
+    calls = {"fwd": lambda: FA.flash_attention_fwd(q, k, v, **kw),
+             "dq": lambda: FA.flash_attention_bwd_dq(*args, **kw),
+             "dkv": lambda: FA.flash_attention_bwd_dkv(*args, **kw),
+             "fused": lambda: FA.flash_attention_bwd_dkv(*args, with_dq=True,
+                                                         **kw)}
+    for kind, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        ran = {name for e in prof.key_averages()
+               for name in re.findall(r"(flash_\w+?_kernel)<", e.key)}
+        assert ran == {FA.kernel_body(kind, dtype, d)}, (kind, ran)
+
+
+@pytest.mark.cuda
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
     """d 192 runs (the wide body); float16 and a strided q are
     refused."""
@@ -403,6 +436,41 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
     t = torch.zeros((1, 1, 64, 16), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_attention_fwd(t, t, t, scale=1.0, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,kind", [("float32", 256, "fwd"),
+                                          ("bfloat16", 320, "fwd"),
+                                          ("bfloat16", 128, "fwd"),
+                                          ("float32", 192, "dkv"),
+                                          ("bfloat16", 320, "dkv"),
+                                          ("bfloat16", 256, "fused")])
+def test_flash_entries_refuse_a_wide_tensor_core_route_without_a_body(
+        cuda, dtype, d, kind):
+    """The C entry points run the wide tensor-core bodies only where they
+    are compiled (bfloat16 K1 and K2b split at d 192 and 256): asked for
+    one anywhere else, they launch nothing and return an error rather
+    than run another body."""
+    dtype = getattr(torch, dtype)
+    b, h, n = 1, 1, 64
+    q = torch.zeros((b, h, n, d), device=cuda, dtype=dtype)
+    stat = torch.ones((b, h, n), device=cuda)
+    st = stat.data_ptr()
+    code = 0 if dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    p = q.data_ptr()
+    if kind == "fwd":
+        rc = FA._entry("flash_attention_fwd")(
+            p, p, p, None, p, st, st, b, h, n, d, 1.0, 1, code, 1, stream)
+    else:
+        dq = torch.zeros((b, h, n, d), device=cuda) if kind == "fused" \
+            else None
+        rc = FA._entry("flash_attention_bwd_dkv")(
+            p, p, p, p, st, st, st, None, p, p,
+            None if dq is None else dq.data_ptr(), b, h, n, d, 1.0, 1, code,
+            1, stream)
+    torch.cuda.synchronize()
+    assert rc != 0
 
 
 @pytest.mark.cuda
@@ -439,14 +507,17 @@ def test_bf16_dq_kernel_matches_plain(cuda, d, n, causal, mask_kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim_head", [16, 192])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tiny_dalle_train_step_on_card_matches_cpu(cuda, dtype):
-    """One training step of ``bench.py``'s tiny DALLE (dim_head 16, a
-    block-sparse layer then a dense one) on the card, through K1, K2a,
-    K2b and K3 at d 16, against the same step on the CPU (the kernels'
-    plain versions), from the same weights and keys. float32 as the smoke
-    holds the depth-2 step: loss rtol 1e-5, each gradient to 1e-4 of its
-    largest element; bfloat16 to the flash kernels' 2e-2 of each."""
+def test_tiny_dalle_train_step_on_card_matches_cpu(cuda, dtype, dim_head):
+    """One training step of ``bench.py``'s tiny DALLE (a block-sparse
+    layer then a dense one) on the card, through K1, K2a, K2b and K3 at
+    dim_head 16 (the narrow bodies, padded) and 192 (the wide ones: in
+    bfloat16 K1 and K2b split on the tensor cores), against the same step
+    on the CPU (the kernels' plain versions), from the same weights and
+    keys. float32 as the smoke holds the depth-2 step: loss rtol 1e-5,
+    each gradient to 1e-4 of its largest element; bfloat16 to the flash
+    kernels' 2e-2 of each."""
     import copy
     from dalle_pytorch_tpu_torch.ops import prng
     from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
@@ -454,7 +525,7 @@ def test_tiny_dalle_train_step_on_card_matches_cpu(cuda, dtype):
     vcfg = TV.VAEConfig(image_size=16, num_tokens=32, codebook_dim=32,
                         num_layers=2, hidden_dim=8)
     cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
-                         text_seq_len=8, heads=2, dim_head=16,
+                         text_seq_len=8, heads=2, dim_head=dim_head,
                          sparse_attn=(True, False), attn_impl="flash",
                          attn_bwd_impl="pallas", sparse_impl="pallas")
     model = TD.dalle_init(cfg, seed=0, dtype=dt, device="cpu")

@@ -7,9 +7,10 @@ Covered: ``split`` and ``bernoulli`` bit-equal to ``jax.random``;
 mode, dense and chunked, for ``attn_impl`` 'xla' and 'flash'; the
 train-mode loss under dropout 0.1 (the masks are bit-equal); the
 gradient of every parameter against ``jax.grad`` of ``dalle_loss_fn``
-for each flash ``bwd_impl``; three steps of ``make_train_step`` with
-``make_optimizer`` (warmup-cosine, clip 1.0) against optax; and
-``grad_accum`` 2. JAX's flash path runs its Pallas kernels in interpret
+for each flash ``bwd_impl``, and the loss and every gradient at heads=2,
+dim_head=192 (the wide kernels' width) under the kernel backwards; three
+steps of ``make_train_step`` with ``make_optimizer`` (warmup-cosine, clip
+1.0) against optax; and ``grad_accum`` 2. JAX's flash path runs its Pallas kernels in interpret
 mode, the port its kernels' plain versions.
 
 float32 throughout. Tolerances: losses and logits rtol/atol 1e-5, and
@@ -204,6 +205,42 @@ def test_gradients_of_every_parameter_match_jax(trees, batch_np, attn_impl,
         dalle, jbatch(batch_np), jax.random.PRNGKey(5))
     loss = TP.dalle_loss_fn(enc)(model, tbatch(batch_np), prng.prng_key(5))
     loss.backward()
+    assert_grads_match(model, jax.device_get(jgrads), tcfg)
+
+
+# heads above 128: dim_head 192 is a width the wide bodies take as it is
+# (in bfloat16 on the card, K1 and K2b split run the wide tensor-core
+# bodies; here the port runs their plain versions)
+WIDE_DALLE_KW = dict(DALLE_KW, dim_head=192)
+
+
+@pytest.fixture(scope="module")
+def wide_trees():
+    key = jax.random.PRNGKey(0)
+    jcfg = JD.DALLEConfig(vae=JV.VAEConfig(**VAE_KW), **WIDE_DALLE_KW)
+    vae = jax.device_get(JV.vae_init(jax.random.fold_in(key, 1), jcfg.vae))
+    return jax.device_get(JD.dalle_init(key, jcfg, vae)), vae
+
+
+@pytest.mark.parametrize("bwd_impl", ["pallas", "pallas_fused"])
+def test_wide_head_loss_and_gradients_match_jax(wide_trees, batch_np,
+                                               bwd_impl):
+    """The tiny DALLE at heads=2, dim_head=192 with attn_impl 'flash': its
+    loss and the gradient of every parameter against ``jax.value_and_grad``
+    of ``dalle_loss_fn`` (JAX's Pallas kernels in interpret mode), with
+    the same tolerances as ``test_gradients_of_every_parameter_match_jax``
+    (loss 1e-5; gradients rtol 1e-4, atol 2e-5)."""
+    kw = dict(attn_impl="flash", attn_bwd_impl=bwd_impl, attn_dropout=0.1,
+              ff_dropout=0.1, loss_chunk=10)
+    jcfg = JD.DALLEConfig(vae=JV.VAEConfig(**VAE_KW), **WIDE_DALLE_KW, **kw)
+    tcfg = TD.DALLEConfig(vae=TV.VAEConfig(**VAE_KW), **WIDE_DALLE_KW, **kw)
+    model, enc = port_of(wide_trees, tcfg)
+    dalle, vae = wide_trees
+    jloss, jgrads = jax.value_and_grad(JP.dalle_loss_fn(jcfg, vae))(
+        dalle, jbatch(batch_np), jax.random.PRNGKey(5))
+    loss = TP.dalle_loss_fn(enc)(model, tbatch(batch_np), prng.prng_key(5))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
     assert_grads_match(model, jax.device_get(jgrads), tcfg)
 
 
