@@ -4,12 +4,14 @@
 
 Builds edited copies of ``dalle_pytorch_tpu_torch/csrc/flash_attention.cu``
 side by side, each with one piece of the bfloat16 tensor-core bodies
-taken out or changed, and times K1 (forward), K2a (dq) and K2b split
-(dk, dv) of each copy with CUDA events and torch.profiler, with the
-all-True mask training passes and with no mask, at two shapes (causal):
-``north`` (b 8, h 8, n 1,280, d 64: the narrow bodies) and ``wide`` (b 8,
-h 2, n 1,280, d 256: the north width split as heads=2, dim_head=256,
-where bfloat16 K1 and K2b split run the wide tensor-core bodies). A copy
+taken out or changed, and times K1 (forward), K2a (dq) and K2b, split
+(dk, dv) and fused (dq too), of each copy with CUDA events and
+torch.profiler, with the all-True mask training passes and with no mask,
+at three shapes (causal): ``north`` (b 8, h 8, n 1,280, d 64: the narrow
+bodies), ``wide`` (b 8, h 2, n 1,280, d 256: the north width split as
+heads=2, dim_head=256, where bfloat16 K1 and K2b run the wide
+tensor-core bodies) and ``d128`` (b 8, h 4, n 1,280, d 128: fused K2b
+only, for its two d 128 designs). A copy
 without a piece computes wrong values: only the ``CHECKED`` variants are
 held against the plain versions, as ``chip_smoke.py`` holds them
 (``held``: bf16 rtol/atol 2e-2, the gradients dq, dk and dv at
@@ -47,7 +49,22 @@ under the next S), ``wide_dkv_own_scores`` (wide K2b's dK warpgroup
 computes S^T and P^T itself instead of taking P^T from the dV
 warpgroup through shared memory: 5 tile products a query tile instead
 of 4). The last two are designs the source left behind; their edits
-write the code back into the copy.
+write the code back into the copy. Fused K2b (north and wide unless
+named): ``fused_cuda_cores`` (its bfloat16 calls sent back to the
+CUDA-core bodies, the narrow ones by an edit of the C entry's dispatch:
+the "before" of the fused redesign), its dQ flush as one scalar
+``atomicAdd`` an element (``dq_flush_scalar``), one
+``red.global.add.v2.f32`` a pair (``dq_flush_v2``), rows staged in
+shared memory and added by the bulk asynchronous reduction
+(``dq_flush_bulk``), or none (``no_dq_flush``, wrong dq: the flush's
+cost), against the shipped 16-byte ``red.global.add.v4.f32`` after the
+lanes' trade; its dQ product's blocks (wide and d128) into two
+accumulators in turn, each block's product issued before the last is
+flushed (``dq_two_accumulators``), or 128 columns wide
+(``dq_block128``), against 64-column blocks one at a time; and at d128
+``fused128_by_gradient`` (the wide body's split by gradient, one
+warpgroup dV and dQ, one dK, against the narrow body's two warpgroups
+each holding both).
 """
 
 from __future__ import annotations
@@ -62,6 +79,32 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "flash_attention.cu"
+MMA128 = """// d (64 x 128 f32) (+)= A B, A and B MN-major in shared memory
+__device__ __forceinline__ void mma_ss_n128_mn(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile("{\\n.reg .pred p;\\nsetp.ne.b32 p, %66, 0;\\nwgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\\n}\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+"""
+# fused K2b's dQ flush as the source has it (add_dq_block's body): the
+# lanes' trade and one red.global.add.v4.f32 per 4 columns of a row
+DQ_FLUSH = """  const bool odd = t & 1;
+  const int r = odd ? row + 8 : row;
+  float* dst = dq + static_cast<size_t>(r) * D + 2 * (t & ~1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float x = __shfl_xor_sync(0xffffffffu,
+                                    odd ? c[4 * j] : c[4 * j + 2], 1);
+    const float y = __shfl_xor_sync(0xffffffffu,
+                                    odd ? c[4 * j + 1] : c[4 * j + 3], 1);
+    if (r >= n) continue;
+    if (odd)
+      wg::red_add_v4(dst + 8 * j, x, y, c[4 * j + 2], c[4 * j + 3]);
+    else
+      wg::red_add_v4(dst + 8 * j, c[4 * j], c[4 * j + 1], x, y);
+  }
+"""
 
 VARIANTS = {
     "tree": {},
@@ -98,7 +141,10 @@ VARIANTS = {
         "for (int kk = 0; kk < 4; ++kk) mma_rs<D>(acc, da[kk], "
         "wg::desc_mn(tK, kk));": "",
         "mma_rs<D>(acc, frag[kk], wg::desc_mn(tO, kk));": ";",
-        "mma_rs<D>(acc, frag[kk], wg::desc_mn(tQ, kk));": ";"},
+        "mma_rs<D>(acc, frag[kk], wg::desc_mn(tQ, kk));": ";",
+        "      wg::mma_ss_n64_mn(acc, wg::desc_mn(tS, kk),\n"
+        "                        wg::desc_mn(tK + c * wg::kBlockBytes, kk), "
+        "kk > 0);": "      ;"},
     "no_copies": {
         "    if (it < num_k) {": "    if (it < 2) {",
         "    if (iq < num_q) {\n      const int q0 = iq * kTile;":
@@ -183,6 +229,191 @@ VARIANTS = {
             "      const uint32_t keep = probs(st);\n",
         "      33 * wg::kThreads * sizeof(float) + 1024;        // P^T, keep "
         "bits": "      1024;"},
+    # fused K2b, the body it replaces: bf16 fused calls back on the
+    # CUDA-core bodies (narrow by this edit of the C entry's dispatch,
+    # wide through ROUTED_TO_CUDA_CORES)
+    "fused_cuda_cores": {
+        "  } else if (dtype == 1) {\n    err = d == 64 ? "
+        "FA_DKV_WGMMA(launch_dkv_wgmma, 64)":
+            "  } else if (dtype == 1 && dq == nullptr) {\n    err = d == 64 ? "
+            "FA_DKV_WGMMA(launch_dkv_wgmma, 64)",
+        "    err = d == 64 ? FA_DKV(float, 64, true) : "
+        "FA_DKV(float, 128, true);":
+            "    err = dtype == 0 ? (d == 64 ? FA_DKV(float, 64, true) : "
+            "FA_DKV(float, 128, true)) : (d == 64 ? FA_DKV(bf16, 64, true) "
+            ": FA_DKV(bf16, 128, true));"},
+    # fused K2b's dQ flush: one scalar atomicAdd an element, or one
+    # red.global.add.v2.f32 a pair without the lanes' trade, against the
+    # shipped v4 reduction after it; none at all (wrong dq: its cost)
+    "dq_flush_scalar": {DQ_FLUSH: """#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        atomicAdd(dq + static_cast<size_t>(r) * D + 8 * j + 2 * t + e,
+                  c[4 * j + 2 * hh + e]);
+  }
+"""},
+    "dq_flush_v2": {DQ_FLUSH: """#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\\n" ::"l"(
+                       dq + static_cast<size_t>(r) * D + 8 * j + 2 * t),
+                   "f"(c[4 * j + 2 * hh]), "f"(c[4 * j + 2 * hh + 1])
+                   : "memory");
+  }
+"""},
+    "no_dq_flush": {"    add_dq_block<D>(dq + 64 * c, acc, row, n, t);\n": ""},
+    # fused K2b's dQ blocks into two accumulators in turn (the spent S^T
+    # and dP^T), block c + 1's product issued before block c is flushed,
+    # against one accumulator and one block at a time
+    "dq_two_accumulators": {
+        "                                       float (&acc)[32], int row, "
+        "int n,\n                                       int t) {\n"
+        "#pragma unroll\n  for (int c = 0; c < D / 64; ++c) {\n"
+        "    wg::mma_fence();\n#pragma unroll\n"
+        "    for (int kk = 0; kk < 4; ++kk)\n"
+        "      wg::mma_ss_n64_mn(acc, wg::desc_mn(tS, kk),\n"
+        "                        wg::desc_mn(tK + c * wg::kBlockBytes, kk), "
+        "kk > 0);\n    wg::mma_commit();\n    wg::mma_wait<0>();\n"
+        "    wg::hold(acc);\n"
+        "    add_dq_block<D>(dq + 64 * c, acc, row, n, t);\n  }\n}\n":
+            """                                       float (&a)[32], float (&b)[32],
+                                       int row, int n, int t) {
+  constexpr int kBlocks = D / 64;
+  auto issue = [&](float (&acc)[32], int c) {
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_ss_n64_mn(acc, wg::desc_mn(tS, kk),
+                        wg::desc_mn(tK + c * wg::kBlockBytes, kk), kk > 0);
+    wg::mma_commit();
+  };
+  issue(a, 0);
+#pragma unroll
+  for (int c = 0; c < kBlocks; ++c) {
+    float (&cur)[32] = c % 2 ? b : a;
+    if (c + 1 < kBlocks) {
+      issue(c % 2 ? a : b, c + 1);
+      wg::mma_wait<1>();
+    } else {
+      wg::mma_wait<0>();
+    }
+    wg::hold(cur);
+    add_dq_block<D>(dq + 64 * c, cur, row, n, t);
+  }
+}
+""",
+        "      add_dq<D>(dq + base, tS, tK, st, q0 + 16 * warp + g, n, t);":
+            "      add_dq<D>(dq + base, tS, tK, st, dpt, q0 + 16 * warp + g, n, "
+            "t);",
+        "        add_dq<D>(dq + base, sS, sK, st, q0 + 16 * warp + g, n, t);":
+            "        add_dq<D>(dq + base, sS, sK, st, dpt, q0 + 16 * warp + g, n, "
+            "t);"},
+    # d 128 fused on the wide body's split by gradient (one warpgroup dV
+    # and dQ, one dK, 64 key rows a block) instead of the narrow body's
+    # two warpgroups of 64 key rows, each holding dK and dV
+    "fused128_by_gradient": {
+        "                  : FA_DKV_WGMMA(launch_dkv_wgmma, 128);":
+            "                  : dq ? FA_DKV_WGMMA(launch_dkv_wide_wgmma, 128)"
+            "\n                       : FA_DKV_WGMMA(launch_dkv_wgmma, 128);"},
+    # fused K2b's dQ flush by the bulk asynchronous reduction (FA3's
+    # dQ): each warp stages its 16 rows of a 64-column block in shared
+    # memory (the narrow body: 16 KB a warpgroup more, so d 128 no longer
+    # fits; the wide body: the P^T hand-off buffer, read by then), and 16
+    # lanes each add one 256-byte row into dq by
+    # cp.reduce.async.bulk ... .add.f32, waited for before the next block
+    "dq_flush_bulk": {
+        "__device__ __forceinline__ void add_dq_block(float* dq, "
+        "const float (&c)[32],\n"
+        "                                             int row, int n, "
+        "int t) {\n":
+            "__device__ __forceinline__ void add_dq_block(float* dq, "
+            "const float (&c)[32],\n"
+            "                                             int row, int n, "
+            "int t, float* stage) {\n",
+        DQ_FLUSH: """  const int lane = threadIdx.x % 32, g = lane / 4;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(stage + (g + 8 * hh) * 64 + 8 * j + 2 * t) =
+          make_float2(c[4 * j + 2 * hh], c[4 * j + 2 * hh + 1]);
+  wg::fence_async_shared();
+  __syncwarp();
+  if (lane < 16) {
+    const int r = row - g + lane;
+    if (r < n)
+      asm volatile(
+          "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+          "[%0], [%1], 256;\\n" ::"l"(dq + static_cast<size_t>(r) * D),
+          "r"(wg::smem_addr(stage + 64 * lane))
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");
+  }
+  __syncwarp();
+""",
+        "                                       float (&acc)[32], int row, "
+        "int n,\n                                       int t) {\n":
+            "                                       float (&acc)[32], int row, "
+            "int n,\n                                       int t, "
+            "float* stage) {\n",
+        "    add_dq_block<D>(dq + 64 * c, acc, row, n, t);\n":
+            "    add_dq_block<D>(dq + 64 * c, acc, row, n, t, stage);\n",
+        "      add_dq<D>(dq + base, tS, tK, st, q0 + 16 * warp + g, n, t);":
+            "      add_dq<D>(dq + base, tS, tK, st, q0 + 16 * warp + g, n, "
+            "t,\n                reinterpret_cast<float*>(smem_raw + (sS + G "
+            "* wg::kBlockBytes - wg::smem_addr(smem_raw))) + (grp * 4 + warp) "
+            "* 1024);",
+        "      sS + (WITH_DQ ? G * wg::kBlockBytes : 0);":
+            "      sS + (WITH_DQ ? G * (wg::kBlockBytes + 16384) : 0);",
+        "                      (dq ? G * wg::kBlockBytes : 0) +":
+            "                      (dq ? G * (wg::kBlockBytes + 16384) : 0) +",
+        "        add_dq<D>(dq + base, sS, sK, st, q0 + 16 * warp + g, n, t);":
+            "        add_dq<D>(dq + base, sS, sK, st, q0 + 16 * warp + g, n, "
+            "t,\n                  shared_p + warp * 1024);"},
+    # fused K2b's dQ in 128-column blocks (one m64n128k16 accumulator of
+    # 64 registers, each block waited for and flushed in turn) at the
+    # widths that are multiples of 128, against 64-column blocks in turn
+    "dq_block128": {
+        "template <int D>\n__device__ __forceinline__ void add_dq(":
+            MMA128 + "template <int D>\n__device__ __forceinline__ void "
+            "add_dq(",
+        "                                       int t) {\n#pragma unroll\n"
+        "  for (int c = 0; c < D / 64; ++c) {\n":
+            """                                       int t) {
+  if constexpr (D % 128 == 0) {
+#pragma unroll
+    for (int c = 0; c < D / 128; ++c) {
+      float w[64], lo[32], hi[32];
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_ss_n128_mn(w, wg::desc_mn(tS, kk),
+                       wg::desc_mn(tK + 2 * c * wg::kBlockBytes, kk), kk > 0);
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::hold(w);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        lo[i] = w[i];
+        hi[i] = w[32 + i];
+      }
+      add_dq_block<D>(dq + 128 * c, lo, row, n, t);
+      add_dq_block<D>(dq + 128 * c + 64, hi, row, n, t);
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+"""},
     "dq_drop_tile": {
         "    if (!live_group || (causal && k0 > wq0 + wg::kRows - 1)) {\n"
         "      wg::mma_wait<0>();              // the last dQ += dS K frees":
@@ -191,27 +422,41 @@ VARIANTS = {
         "      wg::mma_wait<0>();              // the last dQ += dS K frees"},
 }
 CHECKED = ("tree", "wide_tree", "stages3", "dq_stages4", "wide_cuda_cores",
-           "wide_fwd_g1", "wide_fwd_split_ring", "wide_dkv_own_scores")
+           "wide_fwd_g1", "wide_fwd_split_ring", "wide_dkv_own_scores",
+           "fused_cuda_cores", "dq_flush_scalar", "dq_flush_v2",
+           "dq_two_accumulators", "fused128_by_gradient", "dq_flush_bulk",
+           "dq_block128")
 # variants whose wrappers ask the C entry points for the CUDA-core wide
 # bodies where the tree runs the wide tensor-core ones
-ROUTED_TO_CUDA_CORES = ("wide_cuda_cores",)
+ROUTED_TO_CUDA_CORES = ("wide_cuda_cores", "fused_cuda_cores")
 # planted faults K2a's dq check must reject; not timed
 REJECTED = ("dq_drop_tile",)
-# (b, h, n, d) of each shape
-SHAPES = {"north": (8, 8, 1280, 64), "wide": (8, 2, 1280, 256)}
+# (b, h, n, d) of each shape; d128: the north width as heads=4,
+# dim_head=128, for fused K2b's two d 128 designs only
+SHAPES = {"north": (8, 8, 1280, 64), "wide": (8, 2, 1280, 256),
+          "d128": (8, 4, 1280, 128)}
 # the kernels each variant computes right (if CHECKED) or times at all, by
 # shape; at the wide shape K2a runs its CUDA-core body in every variant
 # but wide_cuda_cores, where it stands beside the other two
-DEFAULT_KERNELS = {"north": ("k1", "k2a", "k2b_split"),
-                   "wide": ("k1", "k2b_split")}
-KERNELS = {"tree": {"north": DEFAULT_KERNELS["north"]},
+DEFAULT_KERNELS = {"north": ("k1", "k2a", "k2b_split", "k2b_fused"),
+                   "wide": ("k1", "k2b_split", "k2b_fused")}
+FUSED = ("k2b_fused",)
+KERNELS = {"tree": {"north": DEFAULT_KERNELS["north"], "d128": FUSED},
            "wide_tree": {"wide": DEFAULT_KERNELS["wide"]},
            "stages3": {"north": ("k1",)}, "dq_stages4": {"north": ("k2a",)},
            "dq_drop_tile": {"north": ("k2a",)},
            "wide_cuda_cores": {"wide": ("k1", "k2a", "k2b_split")},
            "wide_fwd_g1": {"wide": ("k1",)},
            "wide_fwd_split_ring": {"wide": ("k1",)},
-           "wide_dkv_own_scores": {"wide": ("k2b_split",)}}
+           "wide_dkv_own_scores": {"wide": ("k2b_split",)},
+           "fused_cuda_cores": {"north": FUSED, "wide": FUSED},
+           "dq_flush_scalar": {"north": FUSED, "wide": FUSED},
+           "dq_flush_v2": {"north": FUSED, "wide": FUSED},
+           "no_dq_flush": {"north": FUSED, "wide": FUSED},
+           "dq_two_accumulators": {"wide": FUSED, "d128": FUSED},
+           "fused128_by_gradient": {"d128": FUSED},
+           "dq_flush_bulk": {"north": FUSED, "wide": FUSED},
+           "dq_block128": {"wide": FUSED, "d128": FUSED}}
 
 
 def build_variants(build) -> dict:
@@ -282,7 +527,8 @@ def library_record(chip_smoke, shape, q, k, v, do) -> dict:
     import torch.nn.functional as F
     b, h, n, d = q.shape
     rec = {"shape": shape, "b": b, "h": h, "n": n, "d": d}
-    for kernel, kind in (("k1", "fwd"), ("k2a", "dq"), ("k2b_split", "dkv")):
+    for kernel, kind in (("k1", "fwd"), ("k2a", "dq"), ("k2b_split", "dkv"),
+                         ("k2b_fused", "fused")):
         ms, by = chip_smoke.flash_bound(kind, torch.bfloat16, b, h, n, d)
         rec[f"{kernel}_bound_us"] = ms * 1e3
         rec[f"{kernel}_bound_by"] = by
@@ -331,7 +577,8 @@ def main() -> int:
                 out_p, m_p, l_p = FA.flash_attention_fwd_plain(q, k, v, **kw)
                 dstat = (do.float() * out_p.float()).sum(-1)
                 args = (q, k, v, do, m_p, l_p, dstat)
-                dk_p, dv_p, _ = FA.flash_attention_bwd_dkv_plain(*args, **kw)
+                dk_p, dv_p, dq32_p = FA.flash_attention_bwd_dkv_plain(
+                    *args, with_dq=True, **kw)
                 dq_p = FA.flash_attention_bwd_dq_plain(*args, **kw)
                 for name, lib in libs.items():
                     kernels = KERNELS.get(name, DEFAULT_KERNELS).get(shape)
@@ -353,7 +600,11 @@ def main() -> int:
                         "k2b_split": (
                             lambda: FA.flash_attention_bwd_dkv(*args,
                                                                **kw)[:2],
-                            (dk_p, dv_p))}
+                            (dk_p, dv_p)),
+                        "k2b_fused": (
+                            lambda: FA.flash_attention_bwd_dkv(
+                                *args, with_dq=True, **kw),
+                            (dk_p, dv_p, dq32_p))}
                     calls = {k_: c for k_, c in calls.items()
                              if k_ in kernels}
                     if name in REJECTED:
@@ -376,7 +627,7 @@ def main() -> int:
                         record[f"{kernel}_device_us"] = \
                             chip_smoke.all_device_us(fn)
                     print(json.dumps(record), flush=True)
-                del dk_p, dv_p, dq_p, out_p
+                del dk_p, dv_p, dq_p, dq32_p, out_p
     finally:
         FA._entry, FA.wide_tensor_cores = entry, wide_tc
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -47,9 +47,9 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    record gives each output's RMS and the least atol it needed, and
    names the kernel that ran for each call, from the kernels the
    profiler saw, which must be the one ``FA.kernel_body`` names
-   (bfloat16 K1, K2a and K2b split on the tensor cores up to d 128, K1
-   and K2b split at d 192 and 256 on the wide tensor-core bodies; the
-   rest on CUDA cores). Then, untimed, d 16 and 48 at b 2, h 2, n 300
+   (bfloat16 K1, K2a and K2b, split and fused, on the tensor cores up to
+   d 128, K1 and K2b at d 192 and 256 on the wide tensor-core bodies;
+   the rest on CUDA cores). Then, untimed, d 16 and 48 at b 2, h 2, n 300
    (zero-padded to the kernels' 64 by the wrappers), and d 192 and 320
    (the wide bodies) with both masks; then the wide bodies timed at
    b 8, h 2, n 1280, d 256 (the north width as heads=2, dim_head=256).
@@ -77,7 +77,17 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    share and peak memory. Then a depth-2 copy in bfloat16: loss and
    every gradient with 'pallas' against the plain blockwise 'xla'
    backward, to 2e-2 (of each gradient's largest element);
-8. sparse_kernels — the block-sparse kernel K3 (out, m, l) against its
+8. fused_train — the ``train`` phase's step with the fused single-pass
+   backward (``attn_bwd_impl='pallas_fused'``) and dropout 0, at the
+   north width as it is (8 heads of 64) and split as heads=2,
+   dim_head=256: 6 steps each with finite losses, K1 and fused K2b each
+   launched depth x steps = 72 times and K2a never, the profile naming
+   the fused tensor-core bodies; ms per step, tokens per second, device
+   ms, each kernel's ms per step, the idle share and peak memory. Then a
+   depth-2 copy in bfloat16 at each width: loss and every gradient with
+   'pallas_fused' against 'xla', to 2e-2 (of each gradient's largest
+   element);
+9. sparse_kernels — the block-sparse kernel K3 (out, m, l) against its
    plain version at the north training shapes (b 8, h 8, n 1280, d 64,
    block 16, causal, scale 512 ** -0.5), bfloat16 (tensor cores) and
    float32 (CUDA cores), all-True and text-padding masks, with the flash
@@ -94,7 +104,7 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    masked rows at the serving shapes (8 heads, dh 64, page 16, L 1280),
    positions 0, 1, 15, 16, 17, 63, 64, 65 and 1279, in float32, bfloat16
    and int8 pages, with K4's tolerances; timed beside its byte bound;
-9. sparse_train — the block-sparse north config at full depth (BASELINE
+10. sparse_train — the block-sparse north config at full depth (BASELINE
    config 4: depth 64, ``sparse_attn=(True, False) * 32``,
    ``sparse_impl='pallas'``, dense layers on the flash kernels with the
    split backward; bfloat16, batch 8, ``loss_chunk`` 256, dropout 0, Adam
@@ -104,7 +114,7 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    backward's time. Then at depth 2, full width, float32: loss and every
    gradient with 'pallas' against 'ref', as the ``train`` phase holds
    them;
-10. sparse_engine — the north width with the sparse pattern at depth 12:
+11. sparse_engine — the north width with the sparse pattern at depth 12:
    one float32 decode step with sparse reads through K4's visible walk
    against the trimmed-gather oracle (h_out to 1e-4), then 64 greedy
    steps with identical tokens, identical with sparse reads off too;
@@ -112,7 +122,7 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    requests of the ``engine`` phase: every result ok, K4's visible walk
    and its prefix walk each launched 6 x decode steps times, every page
    freed, and the ``engine`` phase's profile windows;
-11. generate — one-shot generation (``generate_images``) at the north
+12. generate — one-shot generation (``generate_images``) at the north
    width. A float32 dense-cache decode step against the paged path's
    gather oracle on the same 17-token prompt (h_out to 1e-4, then 64
    greedy steps with identical tokens); the reference CLIP at its
@@ -808,7 +818,9 @@ FLASH_KERNELS = {"fwd": (("flash_fwd_wgmma_kernel", ""),
                          ("flash_bwd_dkv_kernel", "false>"),
                          ("flash_bwd_dkv_wide_wgmma_kernel", ""),
                          ("flash_bwd_dkv_wide_kernel", "false>")),
-                 "fused": (("flash_bwd_dkv_kernel", "true>"),
+                 "fused": (("flash_bwd_fused_wgmma_kernel", ""),
+                           ("flash_bwd_dkv_kernel", "true>"),
+                           ("flash_bwd_fused_wide_wgmma_kernel", ""),
                            ("flash_bwd_dkv_wide_kernel", "true>"))}
 
 
@@ -826,10 +838,10 @@ def flash_body(names) -> list:
 
 
 def flash_bodies(kernels: dict) -> dict:
-    """{K1 'fwd', K2a 'dq', K2b split 'dkv': the flash functions a
-    profile ``kernels`` recorded for it}."""
+    """{K1 'fwd', K2a 'dq', K2b split 'dkv', K2b fused 'fused': the flash
+    functions a profile ``kernels`` recorded for it}."""
     return {kind: flash_body(k for k in kernels if is_flash_kernel(kind, k))
-            for kind in ("fwd", "dq", "dkv")}
+            for kind in ("fwd", "dq", "dkv", "fused")}
 
 
 def flash_device_us(calls: dict, iters: int = 8, warm: int = 4,
@@ -962,9 +974,9 @@ def flash_case(dtype, masked: bool, timed: bool, **shape) -> dict:
     device_us, names = flash_device_us(calls, *((8, 4) if timed else (1, 1)))
     record["bodies"] = {kind: flash_body(k) for kind, k in names.items()}
     # every call runs the body the dispatch names: bfloat16 K1, K2a and
-    # K2b split on the tensor cores up to d 128, K1 and K2b split at d 192
-    # and 256 (the wide tensor-core bodies); the rest on CUDA cores ([]:
-    # the profiler recorded none of the call's launches)
+    # K2b (split and fused) on the tensor cores up to d 128, K1 and K2b at
+    # d 192 and 256 (the wide tensor-core bodies); the rest on CUDA cores
+    # ([]: the profiler recorded none of the call's launches)
     for kind in calls:
         want = FA.kernel_body(kind, dtype, d)
         check(record["bodies"][kind] in ([want], []),
@@ -1090,7 +1102,7 @@ def train_profile(step, model, batch, key, steps: int = 2) -> dict:
         return sum(us for k, (us, _) in kernels.items()
                    if is_flash_kernel(kind, k))
 
-    k1, k2a, k2b = (share(k) for k in ("fwd", "dq", "dkv"))
+    k1, k2a, k2b, fused = (share(k) for k in ("fwd", "dq", "dkv", "fused"))
     k3 = sum(us for k, (us, _) in kernels.items() if "block_sparse_fwd" in k)
     device_ms = total_us / 1e3 / steps
     out.update(device_ms_per_step=device_ms,
@@ -1099,8 +1111,9 @@ def train_profile(step, model, batch, key, steps: int = 2) -> dict:
                k1_ms_per_step=k1 / 1e3 / steps,
                k2a_ms_per_step=k2a / 1e3 / steps,
                k2b_ms_per_step=k2b / 1e3 / steps,
+               k2b_fused_ms_per_step=fused / 1e3 / steps,
                k1_share_of_device=k1 / total_us,
-               k2_share_of_device=(k2a + k2b) / total_us,
+               k2_share_of_device=(k2a + k2b + fused) / total_us,
                kernels_launched_per_step=sum(
                    n for _, n in kernels.values()) / steps,
                device_idle_share=max(0.0, 1 - device_ms / plain_wall),
@@ -1162,8 +1175,10 @@ def train_grads_agree(batch, dtype=torch.float32,
 def train_run(cfg, phase: str, steps: int = 6, warmup: int = 1) -> tuple:
     """``steps`` training steps of ``cfg`` (bfloat16 params, the smoke's
     batch, Adam lr 1e-4 through ``make_train_step``), the first a
-    warm-up: finite losses, K1, K2a and K2b each launched depth x steps
-    times; then a profile window. Returns (record, batch, key)."""
+    warm-up: finite losses, K1 and K2b each launched depth x steps times,
+    K2a as often under the split backward and never under the fused one
+    (``attn_bwd_impl='pallas_fused'``, where K2b's count is of fused
+    launches); then a profile window. Returns (record, batch, key)."""
     import types
     from dalle_pytorch_tpu_torch.cli.common import make_optimizer, step_rng
     from dalle_pytorch_tpu_torch.models import dalle as D
@@ -1197,10 +1212,12 @@ def train_run(cfg, phase: str, steps: int = 6, warmup: int = 1) -> tuple:
     counts = flash_counts()
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses), f"{phase} losses {losses}")
+    fused = cfg.attn_bwd_impl == "pallas_fused"
     for k, n in counts.items():
-        check(n == cfg.depth * steps, f"{phase}: {k} launched {n} times, "
-                                      f"expected depth x steps = "
-                                      f"{cfg.depth * steps}")
+        want = 0 if fused and k == "k2a" else cfg.depth * steps
+        check(n == want, f"{phase}: {k} launched {n} times, expected "
+                         f"{want} (depth {cfg.depth}, {steps} steps, "
+                         f"{cfg.attn_bwd_impl})")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = batch["text"].shape[0] * cfg.seq_len
     prof = train_profile(step, model, batch, key)
@@ -1254,6 +1271,39 @@ def phase_wide_train() -> dict:
                                               **WIDE_TRAIN)
     emit(**record)
     return record
+
+
+# the fused single-pass backward at the north width and at WIDE_TRAIN's
+# split, dropout 0 (the JAX DALLEConfig default) at both
+FUSED_WIDTHS = {"north": dict(attn_dropout=0.0, ff_dropout=0.0),
+                "wide": WIDE_TRAIN}
+
+
+def phase_fused_train() -> dict:
+    """The ``train`` phase's step under ``attn_bwd_impl='pallas_fused'``
+    at both widths of ``FUSED_WIDTHS``: K1 and fused K2b on their
+    tensor-core bodies, each launched depth x steps times and named in
+    the profile, K2a never launched; then a depth-2 copy in bfloat16
+    against the plain blockwise backward."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    records = {}
+    for width, kw in FUSED_WIDTHS.items():
+        cfg = train_cfg(attn_bwd_impl="pallas_fused", **kw)
+        record, batch, _ = train_run(cfg, f"fused_train/{width}")
+        bodies = record["profile"].get("flash_bodies", {})
+        for kind in ("fwd", "fused"):
+            want = [FA.kernel_body(kind, torch.bfloat16, cfg.dim_head)]
+            check(bodies.get(kind) == want, f"fused_train/{width}: {kind} "
+                                            f"ran {bodies.get(kind)}, not "
+                                            f"{want}")
+        for kind in ("dq", "dkv"):
+            check(not bodies.get(kind), f"fused_train/{width}: {kind} ran "
+                                        f"{bodies.get(kind)}")
+        record["depth2_bf16"] = train_grads_agree(
+            batch, dtype=torch.bfloat16, impls=("pallas_fused",), **kw)
+        emit(**record)
+        records[width] = record
+    return records
 
 
 # -- block-sparse attention: K3, and K4's visible walk ------------------------
@@ -1999,6 +2049,7 @@ def main() -> int:
     flash = phase_flash()
     train = phase_train()
     wide_train = phase_wide_train()
+    fused_train = phase_fused_train()
     sparse = phase_sparse_kernels()
     sparse_train = phase_sparse_train()
     sparse_engine = phase_sparse_engine()
@@ -2053,6 +2104,22 @@ def main() -> int:
             "ms": wc[kind]["ms"], "plain_ms": wc[kind]["plain_ms"],
             "bound_ms": wc[kind]["bound_ms"],
             "bound_by": wc[kind]["bound_by"], "library_ms": library_ms})
+    # fused K2b's tensor-core bodies at the fused_train path's cases
+    # (bfloat16, all-True mask; the north width and WIDE_TIMED), beside
+    # SDPA's backward alone, which computes the same dq, dk and dv
+    for name, fc_, width in (
+            ("flash_attention_bwd_fused_wgmma", fc, "north"),
+            ("flash_attention_bwd_fused_wide_wgmma", wc, "wide")):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "dalle_pytorch_tpu/ops/flash_attention.py:367",
+            "launches": fused_train[width]["launches"]["k2b"],
+            "max_abs_err": fc_["max_abs_err"]["fused"],
+            "ms": fc_["fused"]["ms"], "plain_ms": fc_["fused"]["plain_ms"],
+            "bound_ms": fc_["fused"]["bound_ms"],
+            "bound_by": fc_["fused"]["bound_by"],
+            "library_ms": fc_["library"]["sdpa_bwd_ms"]})
     # K3 at the sparse training path's case (bfloat16, all-True mask), and
     # K4's visible walk at the serving case (bfloat16 pages)
     k3 = sparse["k3"]["bfloat16/all_true"]

@@ -11,7 +11,9 @@
 //       (_bwd_dkv_kernel, dk and dv: flash_bwd_dkv_wgmma_kernel in bf16,
 //       flash_bwd_dkv_wide_wgmma_kernel in bf16 at d 192 and 256,
 //       flash_bwd_dkv_kernel<float, D, false> in f32) and fused mode
-//       (_bwd_fused_kernel, dq too: flash_bwd_dkv_kernel<T, D, true>).
+//       (_bwd_fused_kernel, dq too: flash_bwd_fused_wgmma_kernel in bf16,
+//       flash_bwd_fused_wide_wgmma_kernel in bf16 at d 192 and 256,
+//       flash_bwd_dkv_kernel<float, D, true> in f32).
 //   Above d 128 every other call runs a CUDA-core wide body
 //   (*_wide_kernel, end of this file).
 //
@@ -39,9 +41,9 @@
 //     and scale still comes from the real d.
 //   * wide heads (d > 128): a 64-row bf16 tile of d 256 is 32 KB, so the
 //     narrow rings do not fit in shared memory at such a d. In bf16 at d
-//     192 and 256, K1 and K2b split run tensor-core bodies with shallower
-//     rings (below). Every other wide call (f32, d above 256 where
-//     wgmma's output width ends, K2a, fused K2b) runs a CUDA-core body in
+//     192 and 256, K1 and K2b (split and fused) run tensor-core bodies
+//     with shallower rings (below). Every other wide call (f32, d above
+//     256 where wgmma's output width ends, K2a) runs a CUDA-core body in
 //     which a block owns a slice of at most 128 output columns and
 //     streams the products over the whole head in 64-column chunks
 //     (tile.cuh), recomputing S (and dP) once a slice.
@@ -52,13 +54,14 @@
 // byte: just above the ~295 at which the H100's bf16 tensor cores, not
 // its memory, become the limit (13.6 us at 989 TFLOP/s). K2a does 1.5x
 // that, 20.1 GFLOP (S, dP, dQ; 20.4 us); K2b split twice, 26.9 GFLOP
-// (S^T, dP^T, dV, dK); fused K2b 2.5x K1. The same width split as h 2,
-// d 256 does the same products over a quarter of the heads, and moves
-// the same bytes.
+// (S^T, dP^T, dV, dK); fused K2b 2.5x K1 (those four and dQ = dS K, 34.0
+// us). The same width split as h 2, d 256 does the same products over a
+// quarter of the heads, and moves the same bytes.
 //
 // Two designs:
 //
-// bf16 K1, K2a and K2b split: tensor cores (wgmma.cuh). What held the
+// bf16 K1, K2a and K2b (split and fused): tensor cores (wgmma.cuh). What
+// held the
 // first, CUDA-core bodies to ~2 % of the bound, and what these do:
 //   1. products: every tile product is wgmma.mma_async (m64n64k16 for
 //      scores, m64n{d}k16 for outputs) with f32 accumulators in
@@ -98,7 +101,11 @@
 //        orientation: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T per
 //        (key row, query column) in registers, then dV += P^T dO and
 //        dK += dS^T Q with the f32 dK, dV written once; P^T is computed
-//        under dP^T's product, dS^T under dV's. 84 KB at d 64.
+//        under dP^T's product, dS^T under dV's. 84 KB at d 64. Fused:
+//        dS^T also goes to shared memory as a bf16 tile, read back
+//        transposed (MN-major) as the A operand of dQ = dS K in 64-column
+//        blocks of K, under dK's product; each block is added into the
+//        f32 dq by 16-byte vector reductions (92 KB at d 64).
 //   Wide (bf16, d 192 and 256; the same products, m64n{d}k16 for the
 //   outputs):
 //   K1:  K1's body with two warpgroups of 64 query rows over a ring of
@@ -110,17 +117,22 @@
 //        computes S^T and hands P^T to warpgroup 1 through shared memory
 //        (the 4 tile products a query tile the gradients need, two a
 //        warpgroup); Q and dO through two stages filled one ahead
-//        (211 KB at d 256).
+//        (211 KB at d 256). Fused: warpgroup 1 hands dS^T back through a
+//        bf16 tile, and warpgroup 0, done with dV, adds dQ = dS K as the
+//        narrow body does (219 KB).
 //
-// float32 (all three) and fused K2b: CUDA cores (tile.cuh, shared with
-// block_sparse.cu). K1's and K2a's CUDA-core bodies are float32 only;
-// fused K2b's takes both types. 256 threads as a 16 x 16 grid; thread (ty, tx)
+// float32 (all three, split and fused): CUDA cores (tile.cuh, shared with
+// block_sparse.cu). The narrow CUDA-core bodies run float32 only (K2b's
+// bf16 instantiation is chip_flash_variants.py's fused_cuda_cores, the
+// fused mode's body before the tensor cores). 256 threads as a 16 x 16
+// grid; thread (ty, tx)
 // owns rows ty + 16 i (i < 4) and columns tx + 16 j of every 64 x 64
 // score tile and every 64 x d accumulator. Tiles are staged through
 // shared memory as f32 with a padded row stride (d + 1); products are
 // CUDA-core FMAs, so float32 keeps full f32 products (TF32 would break
-// its contracts). P and dS go through shared memory; fused K2b rounds
-// them to the input type first, as the tensor-core bodies and JAX do.
+// its contracts). P and dS go through shared memory, rounded to the
+// input type first (a no-op in f32), as the tensor-core bodies and JAX
+// round them.
 //
 // The TPU's sequential grid becomes a loop inside each block:
 //   K1, K2a: one block per (b*h, query tile), walking key tiles up to
@@ -130,8 +142,9 @@
 //            In fused mode the dq rows of one query tile get a share from
 //            every key-tile block, and those run in parallel, in no order
 //            (the TPU kernel relied on its grid running in order to
-//            revisit one VMEM block): they atomicAdd into an f32 buffer
-//            the caller zeroed and casts afterwards, so the fused dq's
+//            revisit one VMEM block): they add into an f32 buffer the
+//            caller zeroed and casts afterwards (atomicAdd on CUDA cores,
+//            red.global.add.v4.f32 on the tensor cores), so the fused dq's
 //            summation order changes from run to run.
 // Heavy tiles are scheduled first: under causal masking the last query
 // tiles (K1, K2a) and the first key tiles (K2b) walk the most.
@@ -910,22 +923,78 @@ __global__ void __launch_bounds__(G * wg::kThreads) flash_bwd_dq_wgmma_kernel(
   }
 }
 
-// K2b split: G warpgroups of 64 key rows, K and V resident; query tiles
-// (Q, dO and their rows' m, l, D) through the ring. Transposed
-// orientation: S^T = K Q^T and dP^T = V dO^T put P^T and dS^T in the
-// accumulator layout, which is the A operand of dV += P^T dO and
-// dK += dS^T Q. P^T is computed while dP^T's product runs, and dS^T while
-// dV's does. A tile's 1 / l is taken once, by 64 threads, the iteration
-// before the tile is used.
-template <int D, int G>
-__global__ void __launch_bounds__(G * wg::kThreads)
-    flash_bwd_dkv_wgmma_kernel(
-        const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-        const float* __restrict__ m, const float* __restrict__ l,
-        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
-        bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int n,
-        float scale, int causal) {
+// this thread's two rows of a 64 x 64 f32 accumulator (rows row and
+// row + 8, columns 8 j + 2 t (+ 1)) added into the f32 rows of dq (row
+// stride D; rows at or past n skipped): lanes t and t ^ 1 trade one row's
+// pair, so that each adds 4 adjacent columns of one row by one vector
+// reduction (red.global.add.v4.f32), 8 a thread
+template <int D>
+__device__ __forceinline__ void add_dq_block(float* dq, const float (&c)[32],
+                                             int row, int n, int t) {
+  const bool odd = t & 1;
+  const int r = odd ? row + 8 : row;
+  float* dst = dq + static_cast<size_t>(r) * D + 2 * (t & ~1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float x = __shfl_xor_sync(0xffffffffu,
+                                    odd ? c[4 * j] : c[4 * j + 2], 1);
+    const float y = __shfl_xor_sync(0xffffffffu,
+                                    odd ? c[4 * j + 1] : c[4 * j + 3], 1);
+    if (r >= n) continue;
+    if (odd)
+      wg::red_add_v4(dst + 8 * j, x, y, c[4 * j + 2], c[4 * j + 3]);
+    else
+      wg::red_add_v4(dst + 8 * j, c[4 * j], c[4 * j + 1], x, y);
+  }
+}
+
+// fused K2b's fifth product for one query tile: dQ += dS K, dS read from
+// the bf16 tile tS (dS^T as store_frags wrote it: an MN-major A) and K
+// from the resident tile tK (an MN-major B, as K2a reads it), one 64-column
+// block of K at a time into the 64 x 64 accumulator acc, each block's
+// product waited for and added into dq (this thread's rows row, row + 8;
+// add_dq_block) before the next is issued (chip_flash_variants.py times
+// two accumulators in turn, dq_two_accumulators, and 128-column blocks,
+// dq_block128: neither faster on the H100). Product groups issued before
+// are waited for with the first block; none is in flight on return
+template <int D>
+__device__ __forceinline__ void add_dq(float* dq, uint32_t tS, uint32_t tK,
+                                       float (&acc)[32], int row, int n,
+                                       int t) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_ss_n64_mn(acc, wg::desc_mn(tS, kk),
+                        wg::desc_mn(tK + c * wg::kBlockBytes, kk), kk > 0);
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::hold(acc);
+    add_dq_block<D>(dq + 64 * c, acc, row, n, t);
+  }
+}
+
+// K2b: G warpgroups of 64 key rows, K and V resident; query tiles (Q, dO
+// and their rows' m, l, D) through the ring. Transposed orientation:
+// S^T = K Q^T and dP^T = V dO^T put P^T and dS^T in the accumulator
+// layout, which is the A operand of dV += P^T dO and dK += dS^T Q. P^T is
+// computed while dP^T's product runs, and dS^T while dV's does. A tile's
+// 1 / l is taken once, by 64 threads, the iteration before the tile is
+// used. Split mode (flash_bwd_dkv_wgmma_kernel) stops there. Fused mode
+// (flash_bwd_fused_wgmma_kernel) also stores dS^T, rounded to bf16 as for
+// dK, into a 64 x 64 tile of its own (8 KB a warpgroup) and, under dK's
+// product, adds dQ = dS K into the caller-zeroed f32 dq (add_dq): the 5
+// tile products a pair that dq, dk and dv need, against 7 for K2a and
+// K2b split.
+template <int D, int G, bool WITH_DQ>
+__device__ __forceinline__ void dkv_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l,
+    const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq,
+    int h, int n, float scale, int causal) {
   extern __shared__ uint8_t smem_raw[];
   constexpr uint32_t kT = wg::tile_bytes<D>();
   constexpr int kNT = G * wg::kThreads;
@@ -935,7 +1004,9 @@ __global__ void __launch_bounds__(G * wg::kThreads)
   const uint32_t sV = sK + G * kT;                // G tiles
   const uint32_t sQ = sV + G * kT;                // kStages tiles
   const uint32_t sO = sQ + kStages * kT;          // kStages tiles (dO)
-  const uint32_t sStat = sO + kStages * kT;       // kStages x (m, l, D)
+  const uint32_t sS = sO + kStages * kT;          // fused: G dS^T tiles
+  const uint32_t sStat =                          // kStages x (m, l, D)
+      sS + (WITH_DQ ? G * wg::kBlockBytes : 0);
   float* stat = reinterpret_cast<float*>(
       smem_raw + (sStat - wg::smem_addr(smem_raw)));
 
@@ -989,6 +1060,7 @@ __global__ void __launch_bounds__(G * wg::kThreads)
   const bool live_group = wk0 < n;
   const uint32_t tK = sK + grp * kT;
   const uint32_t tV = sV + grp * kT;
+  const uint32_t tS = sS + grp * wg::kBlockBytes;
   float dk_acc[D / 2], dv_acc[D / 2];
   zero(dk_acc);
   zero(dv_acc);
@@ -1106,11 +1178,18 @@ __global__ void __launch_bounds__(G * wg::kThreads)
       }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wg::a_frag(dpt, kk, da[kk]);
+    if constexpr (WITH_DQ) {          // dS^T for dQ, once the group has it
+      wg::store_frags(tS, da, warp, lane);
+      wg::fence_async_shared();
+      wg::bar_sync(1 + grp, wg::kThreads);
+    }
     wg::mma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       mma_rs<D>(dk_acc, da[kk], wg::desc_mn(tQ, kk));   // dK += dS^T Q
     wg::mma_commit();
+    if constexpr (WITH_DQ)            // S^T is spent: dQ's accumulator
+      add_dq<D>(dq + base, tS, tK, st, q0 + 16 * warp + g, n, t);
     wg::mma_wait<0>();
     wg::hold(dv_acc);
     wg::hold(dk_acc);
@@ -1134,6 +1213,34 @@ __global__ void __launch_bounds__(G * wg::kThreads)
   }
 }
 
+// K2b split (d 64, 128): dk and dv
+template <int D, int G>
+__global__ void __launch_bounds__(G * wg::kThreads)
+    flash_bwd_dkv_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+        const float* __restrict__ m, const float* __restrict__ l,
+        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int n,
+        float scale, int causal) {
+  dkv_wgmma<D, G, false>(q, k, v, dout, m, l, dstat, mask, dk, dv, nullptr,
+                         h, n, scale, causal);
+}
+
+// K2b fused (d 64, 128): dk, dv and the f32 dq
+template <int D, int G>
+__global__ void __launch_bounds__(G * wg::kThreads)
+    flash_bwd_fused_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+        const float* __restrict__ m, const float* __restrict__ l,
+        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq,
+        int h, int n, float scale, int causal) {
+  dkv_wgmma<D, G, true>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, h, n,
+                        scale, causal);
+}
+
 // K2b split, wide (bf16, d 192 and 256): one block per 64 key rows, K and
 // V resident, walking query tiles from the diagonal on (Q, dO and their
 // rows' m, l, D) through a ring of kWideDkvStages tiles filled one ahead:
@@ -1153,16 +1260,20 @@ __global__ void __launch_bounds__(G * wg::kThreads)
 // of dK and dV, takes 6). Each warpgroup's products
 // start and end inside its own branch. 1 / l is taken per column in
 // registers (the narrow ring's tile-ahead inversion needs two tiles
-// landed ahead).
-template <int D>
-__global__ void __launch_bounds__(2 * wg::kThreads)
-    flash_bwd_dkv_wide_wgmma_kernel(
-        const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-        const float* __restrict__ m, const float* __restrict__ l,
-        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
-        bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int n,
-        float scale, int causal) {
+// landed ahead). Fused mode (flash_bwd_fused_wide_wgmma_kernel) adds the
+// fifth product, dQ += dS K: warpgroup 1 stores dS^T (bf16, as its dK
+// product takes it) into an 8 KB tile and signals named barrier 2 before
+// its dK product; warpgroup 0, idle once its dV product is done, waits
+// there and adds dQ into the caller-zeroed f32 dq (add_dq), one 64-column
+// block of K at a time, while dK's product runs (219 KB at d 256).
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void dkv_wide_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l,
+    const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq,
+    int h, int n, float scale, int causal) {
   extern __shared__ uint8_t smem_raw[];
   constexpr uint32_t kT = wg::tile_bytes<D>();
   constexpr int kNT = 2 * wg::kThreads;
@@ -1171,7 +1282,9 @@ __global__ void __launch_bounds__(2 * wg::kThreads)
   const uint32_t sV = sK + kT;
   const uint32_t sQ = sV + kT;                          // kWideDkvStages
   const uint32_t sO = sQ + kWideDkvStages * kT;         // tiles each
-  const uint32_t sStat = sO + kWideDkvStages * kT;      // x (m, l, D)
+  const uint32_t sS = sO + kWideDkvStages * kT;         // fused: dS^T
+  const uint32_t sStat =                                // kWideDkvStages
+      sS + (WITH_DQ ? wg::kBlockBytes : 0);             // x (m, l, D)
   float* stat = reinterpret_cast<float*>(
       smem_raw + (sStat - wg::smem_addr(smem_raw)));
   // P^T, element i of thread r at [i * 128 + r], then the keep bits, one
@@ -1313,6 +1426,10 @@ __global__ void __launch_bounds__(2 * wg::kThreads)
         mma_rs<D>(acc, frag[kk], wg::desc_mn(tO, kk));    // dV += P^T dO
       wg::mma_commit();
       wg::mma_wait<0>();
+      if constexpr (WITH_DQ) {
+        wg::bar_sync(2, 2 * wg::kThreads);     // warpgroup 1's dS^T is in
+        add_dq<D>(dq + base, sS, sK, st, q0 + 16 * warp + g, n, t);
+      }
     } else {
       wg::mma_fence();
 #pragma unroll
@@ -1340,6 +1457,11 @@ __global__ void __launch_bounds__(2 * wg::kThreads)
         }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wg::a_frag(dpt, kk, frag[kk]);
+      if constexpr (WITH_DQ) {        // dS^T for warpgroup 0's dQ
+        wg::store_frags(sS, frag, warp, lane);
+        wg::fence_async_shared();
+        wg::bar_arrive(2, 2 * wg::kThreads);
+      }
       wg::mma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -1361,6 +1483,34 @@ __global__ void __launch_bounds__(2 * wg::kThreads)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
+}
+
+// K2b split, wide (d 192, 256): dk and dv
+template <int D>
+__global__ void __launch_bounds__(2 * wg::kThreads)
+    flash_bwd_dkv_wide_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+        const float* __restrict__ m, const float* __restrict__ l,
+        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int n,
+        float scale, int causal) {
+  dkv_wide_wgmma<D, false>(q, k, v, dout, m, l, dstat, mask, dk, dv,
+                           nullptr, h, n, scale, causal);
+}
+
+// K2b fused, wide (d 192, 256): dk, dv and the f32 dq
+template <int D>
+__global__ void __launch_bounds__(2 * wg::kThreads)
+    flash_bwd_fused_wide_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+        const float* __restrict__ m, const float* __restrict__ l,
+        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq,
+        int h, int n, float scale, int causal) {
+  dkv_wide_wgmma<D, true>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, h,
+                          n, scale, causal);
 }
 
 // ---------------------------------------------------------------------------
@@ -1767,25 +1917,42 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// K2b on the tensor cores, d 64 and 128: split mode, or fused (dq not
+// null: flash_bwd_fused_wgmma_kernel, one dS^T tile a warpgroup more)
 template <int D>
 cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
                              const void* dout, const void* m, const void* l,
                              const void* dstat, const void* mask, void* dk,
-                             void* dv, int bh, int h, int n, float scale,
-                             int causal, cudaStream_t stream) {
+                             void* dv, void* dq, int bh, int h, int n,
+                             float scale, int causal, cudaStream_t stream) {
   constexpr int G = groups<D>();
   const size_t smem = (2 * G + 2 * kStages) * wg::tile_bytes<D>() +
+                      (dq ? G * wg::kBlockBytes : 0) +
                       kStages * 3 * kTile * sizeof(float) + 1024;
-  auto kernel = flash_bwd_dkv_wgmma_kernel<D, G>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   dim3 grid(bh, (n + G * wg::kRows - 1) / (G * wg::kRows));
-  kernel<<<grid, G * wg::kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(dstat), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, n, scale, causal);
+  const auto* qb = static_cast<const bf16*>(q);
+  const auto* kb = static_cast<const bf16*>(k);
+  const auto* vb = static_cast<const bf16*>(v);
+  const auto* ob = static_cast<const bf16*>(dout);
+  const auto* ms = static_cast<const float*>(m);
+  const auto* ls = static_cast<const float*>(l);
+  const auto* ds = static_cast<const float*>(dstat);
+  const auto* mk = static_cast<const uint8_t*>(mask);
+  cudaError_t err;
+  if (dq == nullptr) {
+    auto kernel = flash_bwd_dkv_wgmma_kernel<D, G>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, G * wg::kThreads, smem, stream>>>(
+        qb, kb, vb, ob, ms, ls, ds, mk, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), h, n, scale, causal);
+  } else {
+    auto kernel = flash_bwd_fused_wgmma_kernel<D, G>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, G * wg::kThreads, smem, stream>>>(
+        qb, kb, vb, ob, ms, ls, ds, mk, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), static_cast<float*>(dq), h, n, scale,
+        causal);
+  }
   return cudaGetLastError();
 }
 
@@ -1810,28 +1977,45 @@ cudaError_t launch_fwd_wide_wgmma(const void* q, const void* k,
   return cudaGetLastError();
 }
 
+// K2b on the wide tensor-core body, d 192 and 256: split mode, or fused
+// (dq not null: flash_bwd_fused_wide_wgmma_kernel, one dS^T tile more)
 template <int D>
 cudaError_t launch_dkv_wide_wgmma(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* m, const void* l,
                                   const void* dstat, const void* mask,
-                                  void* dk, void* dv, int bh, int h, int n,
-                                  float scale, int causal,
+                                  void* dk, void* dv, void* dq, int bh,
+                                  int h, int n, float scale, int causal,
                                   cudaStream_t stream) {
   const size_t smem =
       (2 + 2 * kWideDkvStages) * wg::tile_bytes<D>() +
+      (dq ? wg::kBlockBytes : 0) +
       kWideDkvStages * 3 * kTile * sizeof(float) +
       33 * wg::kThreads * sizeof(float) + 1024;        // P^T, keep bits
-  auto kernel = flash_bwd_dkv_wide_wgmma_kernel<D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   dim3 grid(bh, (n + kTile - 1) / kTile);
-  kernel<<<grid, 2 * wg::kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<const float*>(dstat), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, n, scale, causal);
+  const auto* qb = static_cast<const bf16*>(q);
+  const auto* kb = static_cast<const bf16*>(k);
+  const auto* vb = static_cast<const bf16*>(v);
+  const auto* ob = static_cast<const bf16*>(dout);
+  const auto* ms = static_cast<const float*>(m);
+  const auto* ls = static_cast<const float*>(l);
+  const auto* ds = static_cast<const float*>(dstat);
+  const auto* mk = static_cast<const uint8_t*>(mask);
+  cudaError_t err;
+  if (dq == nullptr) {
+    auto kernel = flash_bwd_dkv_wide_wgmma_kernel<D>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, 2 * wg::kThreads, smem, stream>>>(
+        qb, kb, vb, ob, ms, ls, ds, mk, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), h, n, scale, causal);
+  } else {
+    auto kernel = flash_bwd_fused_wide_wgmma_kernel<D>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, 2 * wg::kThreads, smem, stream>>>(
+        qb, kb, vb, ob, ms, ls, ds, mk, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), static_cast<float*>(dq), h, n, scale,
+        causal);
+  }
   return cudaGetLastError();
 }
 
@@ -1910,10 +2094,10 @@ bool shape_ok(int b, int h, int n, int d, int dtype) {
 // Pointers are device pointers to contiguous arrays: q, k, v, dout, out,
 // dq, dk, dv (b, h, n, d) in that dtype; m, l, dstat (b, h, n) float32;
 // mask (b, n) uint8 or null; the fused dq (b, h, n, d) float32, zeroed by
-// the caller. wide_wgmma (K1 and K2b split): 1 runs the call on the wide
-// tensor-core body, compiled for bf16 at d 192 and 256 only (1 with any
-// other dtype, d or the fused mode is refused); 0 runs every d above 128
-// on the CUDA-core wide bodies. ops/flash_attention.py::wide_tensor_cores
+// the caller. wide_wgmma (K1 and K2b, split or fused): 1 runs the call on
+// the wide tensor-core body, compiled for bf16 at d 192 and 256 only (1
+// with any other dtype or d is refused); 0 runs every d above 128 on the
+// CUDA-core wide bodies. ops/flash_attention.py::wide_tensor_cores
 // chooses. Each returns the CUDA error of its launch (0 on success); the
 // launch is asynchronous on `stream`.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -1981,7 +2165,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// dq null selects split mode (dk, dv); non-null selects fused mode
+// dq null selects split mode (dk, dv); non-null selects fused mode. bf16
+// at d 64 and 128 runs the tensor-core bodies in either mode
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* m, const void* l,
@@ -1991,8 +2176,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int causal, int dtype, int wide_wgmma,
                                        void* stream) {
   if (!shape_ok(b, h, n, d, dtype) ||
-      (wide_wgmma &&
-       (dq != nullptr || dtype != 1 || (d != 192 && d != 256))))
+      (wide_wgmma && (dtype != 1 || (d != 192 && d != 256))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = b * h;
@@ -2003,34 +2187,27 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 #define FA_DKV_WIDE(T, F)                                                   \
   launch_dkv_wide<T, F>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, bh, h, \
                         n, d, scale, causal, s)
-#define FA_DKV_WIDE_WGMMA(D)                                              \
-  launch_dkv_wide_wgmma<D>(q, k, v, dout, m, l, dstat, mask, dk, dv, bh, h, \
-                           n, scale, causal, s)
+#define FA_DKV_WGMMA(LAUNCH, D)                                             \
+  LAUNCH<D>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, bh, h, n, scale,  \
+            causal, s)
   if (wide_wgmma) {
-    err = d == 192 ? FA_DKV_WIDE_WGMMA(192) : FA_DKV_WIDE_WGMMA(256);
+    err = d == 192 ? FA_DKV_WGMMA(launch_dkv_wide_wgmma, 192)
+                   : FA_DKV_WGMMA(launch_dkv_wide_wgmma, 256);
   } else if (d > 128) {
     if (dq == nullptr)
       err = dtype == 0 ? FA_DKV_WIDE(float, false) : FA_DKV_WIDE(bf16, false);
     else
       err = dtype == 0 ? FA_DKV_WIDE(float, true) : FA_DKV_WIDE(bf16, true);
+  } else if (dtype == 1) {
+    err = d == 64 ? FA_DKV_WGMMA(launch_dkv_wgmma, 64)
+                  : FA_DKV_WGMMA(launch_dkv_wgmma, 128);
   } else if (dq == nullptr) {
-    if (dtype == 0)
-      err = d == 64 ? FA_DKV(float, 64, false) : FA_DKV(float, 128, false);
-    else
-      err = d == 64 ? launch_dkv_wgmma<64>(q, k, v, dout, m, l, dstat, mask,
-                                           dk, dv, bh, h, n, scale, causal, s)
-                    : launch_dkv_wgmma<128>(q, k, v, dout, m, l, dstat, mask,
-                                            dk, dv, bh, h, n, scale, causal,
-                                            s);
+    err = d == 64 ? FA_DKV(float, 64, false) : FA_DKV(float, 128, false);
   } else {
-    if (dtype == 0)
-      err = d == 64 ? FA_DKV(float, 64, true) : FA_DKV(float, 128, true);
-    else
-      err = d == 64 ? FA_DKV(__nv_bfloat16, 64, true)
-                    : FA_DKV(__nv_bfloat16, 128, true);
+    err = d == 64 ? FA_DKV(float, 64, true) : FA_DKV(float, 128, true);
   }
 #undef FA_DKV
 #undef FA_DKV_WIDE
-#undef FA_DKV_WIDE_WGMMA
+#undef FA_DKV_WGMMA
   return static_cast<int>(err);
 }

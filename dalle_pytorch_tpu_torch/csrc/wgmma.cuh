@@ -2,8 +2,8 @@
 // asynchronously into shared memory in wgmma's 128-byte-swizzled layout,
 // and warpgroup matrix products (wgmma.mma_async) on them, accumulating
 // in f32 registers. Used by the bf16 bodies of flash_attention.cu's K1
-// (forward), K2a (dq) and K2b split (dk, dv), narrow (d 64, 128) and
-// wide (K1 and K2b split at d 192, 256), and of block_sparse.cu's K3;
+// (forward), K2a (dq) and K2b (dk, dv; fused, dq too), narrow (d 64, 128)
+// and wide (K1 and K2b at d 192, 256), and of block_sparse.cu's K3;
 // the CUDA-core tile code of tile.cuh serves every other body, and
 // paged_attention.cu (K4) uses only the cp.async copies.
 //
@@ -20,7 +20,8 @@
 //   * MN-major (the output columns, D, contiguous): V, dO or Q as the B
 //     of an output product (O = P V). A 16-deep step reads 16 rows,
 //     2048 bytes on; 8-row groups 1024 bytes apart (SBO); each further
-//     64-column block of D, 8 KB on (LBO).
+//     64-column block of D, 8 KB on (LBO). A 64 x 64 tile read so is the
+//     transposed A of a product too (fused K2b's dS from dS^T).
 //
 // Register fragments (per warpgroup of 128 threads; warp w, lane
 // 4 g + t). A 64 x N f32 accumulator holds, in d[4 j + 2 h + e], row
@@ -167,6 +168,32 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) = A B (+ d if accumulate): A (64 x 16) and B (16 x 64)
+// both MN-major bf16 in shared memory (A's 64 rows, not its depth,
+// contiguous: the transposed read wgmma allows for 16-bit types), each
+// addressed as ``desc_mn`` addresses a B
+__device__ __forceinline__ void mma_ss_n64_mn(float (&d)[32], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -365,6 +392,37 @@ __device__ __forceinline__ void a_frag(const float (&s)[32], int kk,
   a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
   a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
   a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// the A fragments of a 64 x 64 accumulator (``a_frag`` of each kk: rows
+// 16 w + g (+ 8), columns 8 j + 2 t (+ 1), j = 2 kk, 2 kk + 1) stored as
+// a bf16 tile at `tile` in the swizzled layout: 64 rows of 128 bytes, so
+// that the tile read MN-major (``desc_mn``) is the accumulator's
+// transpose. Each warp writes its 16 rows, 4 bytes a lane, without bank
+// conflicts (the 8 rows of a store land in 8 different 16-byte chunks)
+__device__ __forceinline__ void store_frags(uint32_t tile,
+                                            const uint32_t (&a)[4][4],
+                                            int warp, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * warp + g + 8 * (i & 1);
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                       tile + swizzled(r, 2 * kk + (i >> 1)) + 4 * t),
+                   "r"(a[kk][i])
+                   : "memory");
+    }
+}
+
+// *p += (x, y, z, w) in device memory (16-byte aligned), one vector
+// reduction (sm_90); no value comes back
+__device__ __forceinline__ void red_add_v4(float* p, float x, float y,
+                                           float z, float w) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
 }
 
 // 2^x by the special-function unit (relative error ~2^-22; -inf gives 0,

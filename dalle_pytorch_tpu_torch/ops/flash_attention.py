@@ -33,10 +33,10 @@ What bounds the kernels on the H100: operations. At the north training
 shapes (b 8, h 8, n 1280, d 64, causal) K1 does ~13.4 GFLOP of tile
 products against ~42 MB moved in bf16, above the ~295 flops per byte
 where the tensor cores, not memory, set the limit; K2a and K2b do 1.5x
-and 2x (2.5x fused) K1's products. In bfloat16, K1, K2a and K2b split
-run on the tensor cores (wgmma over asynchronously staged bf16 tiles,
-``csrc/wgmma.cuh``; above d 128 K1 and K2b split only, at d 192 and
-256); float32, fused K2b and the other wide calls run CUDA-core FMAs
+and 2x (2.5x fused) K1's products. In bfloat16, K1, K2a and K2b (split
+and fused) run on the tensor cores (wgmma over asynchronously staged
+bf16 tiles, ``csrc/wgmma.cuh``; above d 128 K1 and K2b only, at d 192
+and 256); float32 and the other wide calls run CUDA-core FMAs
 (``csrc/flash_attention.cu`` says how). Like the Pallas bodies, every
 version rounds p and ds to the input dtype before the second product of
 each pair.
@@ -44,13 +44,13 @@ each pair.
 Head dims: any d >= 1, as the JAX kernels take. The narrow bodies are
 compiled for d 64 and 128 (``KERNEL_DIM_HEADS``); above 128 the wide
 bodies take any multiple of ``WIDE_DIM_MULTIPLE`` (64). In bfloat16 at d
-192 and 256 (``WIDE_WGMMA_DIM_HEADS``), K1 and K2b split run wide
-tensor-core bodies (``wide_tensor_cores`` chooses, the wrappers tell the
-C entry points): K1 two warpgroups over a 2-tile K + V ring, K2b
-split two warpgroups, one computing dV and one dK over the whole d. Every
-other wide call (float32, d above 256, K2a, fused K2b) runs a CUDA-core
-body in which a block owns a slice of at most 128 output columns and
-streams q.k and dout.v through 64-column chunks. ``kernel_body`` names
+192 and 256 (``WIDE_WGMMA_DIM_HEADS``), K1 and K2b (split and fused) run
+wide tensor-core bodies (``wide_tensor_cores`` chooses, the wrappers tell
+the C entry points): K1 two warpgroups over a 2-tile K + V ring, K2b two
+warpgroups, one computing dV and one dK over the whole d, the first also
+adding dq in fused mode. Every other wide call (float32, d above 256,
+K2a) runs a CUDA-core body in which a block owns a slice of at most 128
+output columns and streams q.k and dout.v through 64-column chunks. ``kernel_body`` names
 the kernel each call runs. Each wrapper runs any other d through
 ``any_dim_head``: q, k, v and dout zero-padded to the next of those
 widths, the kernel launched, out, dq, dk and dv sliced back. That is
@@ -83,8 +83,8 @@ BWD_IMPLS = ("xla", "pallas", "pallas_fused")
 KERNEL_DIM_HEADS = (64, 128)
 NARROW_MAX_DIM_HEAD = KERNEL_DIM_HEADS[-1]
 WIDE_DIM_MULTIPLE = 64
-# the wide widths whose bfloat16 K1 and K2b split run on the tensor cores
-# (wgmma's output width stops at 256)
+# the wide widths whose bfloat16 K1 and K2b (split and fused) run on the
+# tensor cores (wgmma's output width stops at 256)
 WIDE_WGMMA_DIM_HEADS = (192, 256)
 # K1, K2a, K2b split, K2b fused
 KINDS = ("fwd", "dq", "dkv", "fused")
@@ -252,11 +252,11 @@ def kernel_dim_head(d: int) -> int:
 
 def wide_tensor_cores(kind: str, dtype: torch.dtype, d: int) -> bool:
     """Whether a CUDA call of ``kind`` on ``dtype`` tensors at the kernel
-    width ``d`` runs a wide tensor-core body: bfloat16 K1 and K2b split
-    at ``WIDE_WGMMA_DIM_HEADS``. The wrappers pass it to the C entry
-    points (``wide_wgmma``), which run the CUDA-core wide bodies where
-    it is false."""
-    return (dtype == torch.bfloat16 and kind in ("fwd", "dkv")
+    width ``d`` runs a wide tensor-core body: bfloat16 K1 and K2b (split
+    and fused) at ``WIDE_WGMMA_DIM_HEADS``. The wrappers pass it to the C
+    entry points (``wide_wgmma``), which run the CUDA-core wide bodies
+    where it is false."""
+    return (dtype == torch.bfloat16 and kind in ("fwd", "dkv", "fused")
             and d in WIDE_WGMMA_DIM_HEADS)
 
 
@@ -274,11 +274,15 @@ def kernel_body(kind: str, dtype: torch.dtype, d: int) -> str:
     width = kernel_dim_head(d)
     stem = {"fwd": "flash_fwd", "dq": "flash_bwd_dq"}.get(kind,
                                                           "flash_bwd_dkv")
+    # the fused mode's tensor-core bodies have their own names; on the
+    # CUDA cores it is a mode of K2b's body
+    tc_stem = "flash_bwd_fused" if kind == "fused" else stem
     if width <= NARROW_MAX_DIM_HEAD:
-        tensor_cores = dtype == torch.bfloat16 and kind != "fused"
-        return f"{stem}_wgmma_kernel" if tensor_cores else f"{stem}_kernel"
+        if dtype == torch.bfloat16:
+            return f"{tc_stem}_wgmma_kernel"
+        return f"{stem}_kernel"
     if wide_tensor_cores(kind, dtype, width):
-        return f"{stem}_wide_wgmma_kernel"
+        return f"{tc_stem}_wide_wgmma_kernel"
     return f"{stem}_wide_kernel"
 
 
@@ -443,7 +447,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, m, l, dstat, *, scale: float,
                             with_dq: bool = False):
     """K2b: (dk, dv, dq f32 or None). Split mode (``with_dq=False``) or
     fused mode, where every key-tile block adds its share of dq into one
-    f32 buffer with ``atomicAdd`` — so the fused dq's summation order
+    f32 buffer by atomic reductions — so the fused dq's summation order
     changes from run to run. The CUDA kernel for CUDA tensors (any d,
     ``any_dim_head``), the plain version for CPU tensors.
     Counts ``flash_attention_bwd_dkv.launches``."""

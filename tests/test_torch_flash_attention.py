@@ -11,10 +11,12 @@ multiple of the tile), an exact multiple, and n shorter than one tile.
 float32, rtol/atol 1e-5: both sides are f32 CPU math that differs only
 in summation order (observed differences ~1e-6).
 
-bfloat16 (``test_bf16_plain_versions_round_like_the_pallas_kernels``):
-the Pallas kernels round p and ds to the input dtype before the second
-product of each pair; the plain versions must do the same, or a third or
-more of their bf16 outputs come out one rounding away from JAX's.
+bfloat16 (``test_bf16_plain_versions_round_like_the_pallas_kernels``,
+and ``test_bf16_fused_plain_version_rounds_like_the_pallas_kernel`` for
+the fused backward at d 64 and 256): the Pallas kernels round p and ds
+to the input dtype before the second product of each pair; the plain
+versions must do the same, or a third or more of their bf16 outputs come
+out one rounding away from JAX's.
 """
 
 import functools
@@ -220,6 +222,64 @@ def test_bf16_plain_versions_round_like_the_pallas_kernels(kind, masked,
         assert float(diff.max()) <= diff_max, (kind, float(diff.max()))
 
 
+# The fused K2b in bfloat16 (dq, dk and dv in one pass), at the narrow
+# bodies' d 64 and the wide tensor-core bodies' d 256: JAX's
+# ``_bwd_fused_kernel`` rounds ds to bf16 once and takes it into both dK
+# and dQ, sums dq in f32 across key tiles and casts it to q's dtype after
+# the call; the plain version (whose f32 dq the autograd backward casts
+# the same way) must round ds there too. Same products of the same bf16
+# values in f32, in another order: an output may land one bf16 rounding
+# apart (at most 2^-7 of its value; observed in under 1.1 % of them), or
+# 1e-5 off where its sum cancels to about 0 (observed 1.4e-6), in at
+# most BF16_BOUNDS' backward share of them. With ds left in f32 a third
+# or more would differ.
+FUSED_N, FUSED_TILE = 96, 32
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 256])
+def test_bf16_fused_plain_version_rounds_like_the_pallas_kernel(d, causal,
+                                                                masked):
+    rs = np.random.RandomState(d)
+    q, k, v, do = (rs.randn(1, 2, FUSED_N, d).astype(np.float32)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        mask = np.ones((1, FUSED_N), bool)
+        mask[0, :5] = False                  # fully padded query rows
+        mask[0, 70:] = False                 # a padded tail
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    jm = None if mask is None else jnp.asarray(mask)
+    scale = d ** -0.5
+    out, (m, l) = JF._flash_fwd(jq, jk, jv, jm, scale, causal, FUSED_TILE,
+                                FUSED_TILE, True)
+    want = JF._pallas_attention_bwd(
+        jq, jk, jv, jm, jdo, out, (m, l), scale=scale, causal=causal,
+        block_q=FUSED_TILE, block_k=FUSED_TILE, interpret=True, fused=True)
+
+    def f32(x):
+        return np.asarray(jnp.asarray(x, jnp.float32))
+
+    tq, tk, tv, tdo, tout = (torch.tensor(f32(x)).to(torch.bfloat16)
+                             for x in (jq, jk, jv, jdo, out))
+    dstat = (tdo.float() * tout.float()).sum(-1)
+    dk, dv, dq32 = TF.flash_attention_bwd_dkv_plain(
+        tq, tk, tv, tdo, torch.tensor(f32(m)), torch.tensor(f32(l)), dstat,
+        scale=scale, causal=causal,
+        mask=None if mask is None else torch.tensor(mask), with_dq=True)
+    assert dq32.dtype == torch.float32
+    share_max, _ = BF16_BOUNDS["dq"]
+    for got, w in zip((dq32.to(torch.bfloat16), dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        w = f32(w)
+        diff = np.abs(got.float().numpy() - w)
+        share = float((diff > 0).mean())
+        assert share <= share_max, share
+        excess = diff - (2.0 ** -7 * np.abs(w) + 1e-5)
+        assert float(excess.max()) <= 0.0, float(diff.max())
+
+
 # -- head dims other than the kernels' 64 and 128 ----------------------------
 # On the card each wrapper runs such a d through ``at_kernel_dim_head``:
 # q, k, v and dout zero-padded to the next kernel width, the kernel, the
@@ -291,38 +351,44 @@ def test_kernel_dim_head_is_the_next_kernel_width(d, width):
 
 # (dtype, d, kind, the kernel csrc/flash_attention.cu launches for it)
 BODY_ROUTES = [
-    # bfloat16 K1 and K2b split at d 192 and 256: the wide tensor-core
-    # bodies, also for a d the wrappers pad to those widths
+    # bfloat16 K1 and K2b (split and fused) at d 192 and 256: the wide
+    # tensor-core bodies, also for a d the wrappers pad to those widths
     ("bfloat16", 192, "fwd", "flash_fwd_wide_wgmma_kernel"),
     ("bfloat16", 256, "fwd", "flash_fwd_wide_wgmma_kernel"),
     ("bfloat16", 130, "fwd", "flash_fwd_wide_wgmma_kernel"),
     ("bfloat16", 192, "dkv", "flash_bwd_dkv_wide_wgmma_kernel"),
     ("bfloat16", 256, "dkv", "flash_bwd_dkv_wide_wgmma_kernel"),
     ("bfloat16", 255, "dkv", "flash_bwd_dkv_wide_wgmma_kernel"),
-    # ... K2a and fused K2b keep their CUDA-core wide bodies
+    ("bfloat16", 192, "fused", "flash_bwd_fused_wide_wgmma_kernel"),
+    ("bfloat16", 256, "fused", "flash_bwd_fused_wide_wgmma_kernel"),
+    # ... K2a keeps its CUDA-core wide body
     ("bfloat16", 256, "dq", "flash_bwd_dq_wide_kernel"),
-    ("bfloat16", 192, "fused", "flash_bwd_dkv_wide_kernel"),
     # float32 at every wide d, and bfloat16 above 256: CUDA cores
     ("float32", 192, "fwd", "flash_fwd_wide_kernel"),
     ("float32", 256, "dkv", "flash_bwd_dkv_wide_kernel"),
     ("bfloat16", 320, "fwd", "flash_fwd_wide_kernel"),
     ("bfloat16", 320, "dkv", "flash_bwd_dkv_wide_kernel"),
+    ("bfloat16", 320, "fused", "flash_bwd_dkv_wide_kernel"),
+    ("float32", 256, "fused", "flash_bwd_dkv_wide_kernel"),
     ("bfloat16", 257, "fwd", "flash_fwd_wide_kernel"),
-    # up to 128 the narrow bodies
+    # up to 128 the narrow bodies: bfloat16 on the tensor cores (fused
+    # K2b too), float32 on CUDA cores
     ("bfloat16", 64, "fwd", "flash_fwd_wgmma_kernel"),
     ("bfloat16", 16, "dq", "flash_bwd_dq_wgmma_kernel"),
     ("bfloat16", 128, "dkv", "flash_bwd_dkv_wgmma_kernel"),
-    ("bfloat16", 128, "fused", "flash_bwd_dkv_kernel"),
+    ("bfloat16", 128, "fused", "flash_bwd_fused_wgmma_kernel"),
+    ("bfloat16", 64, "fused", "flash_bwd_fused_wgmma_kernel"),
     ("float32", 64, "fwd", "flash_fwd_kernel"),
+    ("float32", 64, "fused", "flash_bwd_dkv_kernel"),
 ]
 
 
 @pytest.mark.parametrize("dtype,d,kind,kernel", BODY_ROUTES)
 def test_kernel_body_routes_each_call(dtype, d, kind, kernel):
     """The dispatch helper names the wide tensor-core bodies for bfloat16
-    K1 and K2b split at d 192 and 256 (and the d padded to them), the
-    CUDA-core wide bodies for float32, d 320 and K2a / fused K2b, and the
-    narrow bodies up to 128."""
+    K1 and K2b (split and fused) at d 192 and 256 (and the d padded to
+    them), the CUDA-core wide bodies for float32, d 320 and K2a, and the
+    narrow bodies up to 128 (bfloat16 fused K2b on the tensor cores)."""
     assert TF.kernel_body(kind, getattr(torch, dtype), d) == kernel
 
 
@@ -331,7 +397,7 @@ def test_wrappers_ask_for_the_wide_tensor_cores_where_kernel_body_names_them(
         dtype, d, kind, kernel):
     """The route the wrappers pass to the C entry points
     (``wide_tensor_cores`` at the padded width) is the one
-    ``kernel_body`` names."""
+    ``kernel_body`` names, fused K2b's wide tensor-core body included."""
     wide = TF.wide_tensor_cores(kind, getattr(torch, dtype),
                                 TF.kernel_dim_head(d))
     assert wide == kernel.endswith("_wide_wgmma_kernel")
@@ -350,6 +416,9 @@ def test_kernel_body_names_kernels_of_the_source():
              for dtype in (torch.float32, torch.bfloat16)
              for d in (16, 64, 128, 192, 256, 320)}
     assert named <= kernels, named - kernels
+    # the fused mode's own tensor-core bodies, narrow and wide
+    assert {"flash_bwd_fused_wgmma_kernel",
+            "flash_bwd_fused_wide_wgmma_kernel"} <= named
     assert TF.WIDE_WGMMA_DIM_HEADS == (192, 256)
 
 

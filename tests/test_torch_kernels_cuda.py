@@ -15,11 +15,11 @@ The flash kernels (K1, K2a, K2b) against their plain versions: float32
 1,280 terms in another order, and the fused dq adds its key-tile shares
 with atomics in an order that changes from run to run; bfloat16 to
 rtol/atol 2e-2, one bf16 rounding of the output (2^-8 relative) on
-either side plus the f32 differences (bfloat16 K1, K2a and K2b split run
-on the tensor cores, and both sides round p and ds to bf16 before the
-second product of each pair; l to 1e-4 in both types), the bfloat16
-gradients dq, dk and dv with their atol tightened to 0.05 x their RMS
-where that is below 2e-2 (``assert_grad_close``).
+either side plus the f32 differences (bfloat16 K1, K2a and K2b, split
+and fused, run on the tensor cores, and both sides round p and ds to
+bf16 before the second product of each pair; l to 1e-4 in both types),
+the bfloat16 gradients dq, dk and dv with their atol tightened to 0.05 x
+their RMS where that is below 2e-2 (``assert_grad_close``).
 
 The block-sparse kernel K3 (bfloat16 on the tensor cores, float32 on
 CUDA cores; both sides round p to the input dtype before the PV product)
@@ -376,6 +376,41 @@ def test_flash_fwd_and_split_dkv_match_plain_over_long_walks(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [300, 1280])
+@pytest.mark.parametrize("d", [16, 64, 96, 128, 160, 192, 256, 320])
+def test_bf16_fused_dkv_matches_plain_over_long_walks(cuda, d, n, masked,
+                                                      causal):
+    """Fused K2b in bfloat16 (dq, dk, dv in one pass): the tensor-core
+    bodies at d 64 and 128 (16 and 96 padded to them) and at d 192 and
+    256 (160 padded to 192), and the CUDA-core wide body at d 320, over
+    a ragged walk of five tiles (n 300) and the north length (n 1280,
+    twenty tiles: every stage of the query ring, and dq's shares from
+    every key tile), each call launching the kernel ``kernel_body``
+    names."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do, mask = flash_inputs(cuda, torch.bfloat16, n, d, masked,
+                                     b=1, h=2)
+    kw = dict(scale=d ** -0.5, causal=causal, mask=mask)
+    out, m, l = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    args = (q, k, v, do, m, l, (do.float() * out.float()).sum(-1))
+    dk_p, dv_p, dq_p = FA.flash_attention_bwd_dkv_plain(*args, with_dq=True,
+                                                        **kw)
+    before = FA.flash_attention_bwd_dkv.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dk, dv, dq = FA.flash_attention_bwd_dkv(*args, with_dq=True, **kw)
+        torch.cuda.synchronize()
+    assert FA.flash_attention_bwd_dkv.launches == before + 1
+    ran = {name for e in prof.key_averages()
+           for name in re.findall(r"(flash_\w+?_kernel)<", e.key)}
+    assert ran <= {FA.kernel_body("fused", torch.bfloat16, d)}, ran
+    assert dq.dtype == torch.float32 and bool(torch.isfinite(dq).all())
+    for got, want in ((dk, dk_p), (dv, dv_p), (dq, dq_p)):
+        assert_grad_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bwd_impl", ["pallas", "pallas_fused"])
 def test_flash_attention_grads_match_blockwise_on_card(cuda, bwd_impl):
     q, k, v, do, mask = flash_inputs(cuda, torch.float32, 150, 64, True)
@@ -391,13 +426,14 @@ def test_flash_attention_grads_match_blockwise_on_card(cuda, bwd_impl):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 160, 192, 256, 320])
+@pytest.mark.parametrize("d", [64, 128, 160, 192, 256, 320])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_calls_launch_the_kernel_body_names(cuda, dtype, d):
     """Each wrapper launches the kernel ``kernel_body`` names, by its
-    name in a torch.profiler trace: bfloat16 K1 and K2b split at d 160
-    (padded to 192), 192 and 256 the wide tensor-core bodies, float32 and
-    d 320 the CUDA-core ones."""
+    name in a torch.profiler trace: bfloat16 K1 and K2b (split and fused)
+    at d 160 (padded to 192), 192 and 256 the wide tensor-core bodies,
+    bfloat16 at d 64 and 128 the narrow ones (fused K2b's own), float32
+    and d 320 the CUDA-core ones."""
     from torch.profiler import ProfilerActivity, profile
     dtype = getattr(torch, dtype)
     q, k, v, do, mask = flash_inputs(cuda, dtype, 130, d, True)
@@ -444,13 +480,14 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
                                           ("bfloat16", 128, "fwd"),
                                           ("float32", 192, "dkv"),
                                           ("bfloat16", 320, "dkv"),
-                                          ("bfloat16", 256, "fused")])
+                                          ("float32", 256, "fused"),
+                                          ("bfloat16", 320, "fused")])
 def test_flash_entries_refuse_a_wide_tensor_core_route_without_a_body(
         cuda, dtype, d, kind):
     """The C entry points run the wide tensor-core bodies only where they
-    are compiled (bfloat16 K1 and K2b split at d 192 and 256): asked for
-    one anywhere else, they launch nothing and return an error rather
-    than run another body."""
+    are compiled (bfloat16 K1 and K2b, split and fused, at d 192 and
+    256): asked for one anywhere else, they launch nothing and return an
+    error rather than run another body."""
     dtype = getattr(torch, dtype)
     b, h, n = 1, 1, 64
     q = torch.zeros((b, h, n, d), device=cuda, dtype=dtype)
