@@ -9,9 +9,11 @@ taken out or changed, and times K1 (forward), K2a (dq) and K2b, split
 torch.profiler, with the all-True mask training passes and with no mask,
 at three shapes (causal): ``north`` (b 8, h 8, n 1,280, d 64: the narrow
 bodies), ``wide`` (b 8, h 2, n 1,280, d 256: the north width split as
-heads=2, dim_head=256, where bfloat16 K1 and K2b run the wide
+heads=2, dim_head=256, where bfloat16 K1, K2a and K2b run the wide
 tensor-core bodies) and ``d128`` (b 8, h 4, n 1,280, d 128: fused K2b
-only, for its two d 128 designs). A copy
+only, for its two d 128 designs). Then edited copies of
+``csrc/block_sparse.cu`` time K3 at the wide shape (block 16, causal),
+beside its bound and SDPA with the layout as a boolean mask. A copy
 without a piece computes wrong values: only the ``CHECKED`` variants are
 held against the plain versions, as ``chip_smoke.py`` holds them
 (``held``: bf16 rtol/atol 2e-2, the gradients dq, dk and dv at
@@ -39,7 +41,12 @@ K1's, instead of its own 3 filled one ahead); wide only:
 ``wide_cuda_cores`` (the source as it is, its bf16 d 192 and 256 calls
 sent back to the CUDA-core wide bodies: the wrappers ask the C entry
 points for them, ``ROUTED_TO_CUDA_CORES``; the "before" of the wide
-redesign), ``wide_fwd_g1`` (wide K1 as
+redesign of K1 and K2b split), ``wide_dq_cuda_cores`` (the same for K2a:
+the "before" of its wide redesign), ``wide_dq_own_scores`` (the wide K2a
+with each warpgroup computing S, P, dP and dS itself, 5 tile products a
+key tile, nothing handed across) and ``wide_dq_g1`` (one warpgroup
+holding the whole dQ, against two sharing the tile's work and splitting
+dQ's columns), ``wide_fwd_g1`` (wide K1 as
 one warpgroup of 64 query rows over a ring of three tiles filled one
 ahead, its O += P V running under the next tile's S, against two
 warpgroups sharing two tiles, each O += P V waited for within its
@@ -48,8 +55,9 @@ V refilled at separate barriers, two a tile, so that O += P V runs
 under the next S), ``wide_dkv_own_scores`` (wide K2b's dK warpgroup
 computes S^T and P^T itself instead of taking P^T from the dV
 warpgroup through shared memory: 5 tile products a query tile instead
-of 4). The last two are designs the source left behind; their edits
-write the code back into the copy. Fused K2b (north and wide unless
+of 4). ``wide_fwd_split_ring``, ``wide_dkv_own_scores``,
+``wide_dq_own_scores`` and ``wide_dq_g1`` are designs the source left
+behind; their edits write the code back into the copy. Fused K2b (north and wide unless
 named): ``fused_cuda_cores`` (its bfloat16 calls sent back to the
 CUDA-core bodies, the narrow ones by an edit of the C entry's dispatch:
 the "before" of the fused redesign), its dQ flush as one scalar
@@ -64,7 +72,16 @@ flushed (``dq_two_accumulators``), or 128 columns wide
 (``dq_block128``), against 64-column blocks one at a time; and at d128
 ``fused128_by_gradient`` (the wide body's split by gradient, one
 warpgroup dV and dQ, one dK, against the narrow body's two warpgroups
-each holding both).
+each holding both). K3 (``BS_VARIANTS``, wide shape): ``k3_wide_tree``
+(the source as it is), ``wide_k3_cuda_cores`` (its CUDA-core wide body,
+``BS_ROUTED_TO_CUDA_CORES``: the "before"), ``k3_no_copies`` (no K or V
+tile copied), ``k3_no_score_products``, ``k3_no_output_products``,
+``k3_no_exp``, and two designs left behind: ``k3_pv_under_next_s``
+(each tile's O += P V run under the next tile's S, P's fragments held
+across it, against waiting for it within its iteration) and
+``k3_one_group`` (at d 256 one warpgroup a query tile
+holding all of O, against two each computing S and P themselves and
+holding half of it).
 """
 
 from __future__ import annotations
@@ -106,6 +123,77 @@ DQ_FLUSH = """  const bool odd = t & 1;
   }
 """
 
+# the wide K2a's warpgroups each computing S, P, dP and dS themselves:
+# every row statistic and the pad flags in both, S and dP issued back to
+# back, dS formed in registers, nothing handed across
+WIDE_DQ_OWN_SCORES = {
+    "    nml2[hh] = ok && !DS_GROUP ? ": "    nml2[hh] = ok ? ",
+    "    cl[hh] = ok && !DS_GROUP ? ": "    cl[hh] = ok ? ",
+    "    drow[hh] = ok && DS_GROUP ? ": "    drow[hh] = ok ? ",
+    "      mask_row && !DS_GROUP ? wg::mask_flags(mask_row, 0, n, lane) : 3u;":
+        "      mask_row ? wg::mask_flags(mask_row, 0, n, lane) : 3u;",
+    "    if constexpr (!DS_GROUP) {\n      const uint64_t kbits":
+        "    {\n      const uint64_t kbits",
+    """      float s[32];
+      zero(s);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(s, wg::desc_k(sQ, kk), wg::desc_k(tK, kk), kk > 0);
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::hold(s);
+""": """      float s[32], dp[32];
+      zero(s);
+      zero(dp);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(s, wg::desc_k(sQ, kk), wg::desc_k(tK, kk), kk > 0);
+      wg::mma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(dp, wg::desc_k(sO, kk), wg::desc_k(tV, kk), kk > 0);
+      wg::mma_commit();
+      wg::mma_wait<1>();
+      wg::hold(s);
+""",
+    """#pragma unroll
+      for (int i = 0; i < 32; ++i) shared_p[i * wg::kThreads + r] = s[i];
+      wg::bar_arrive(1, 2 * wg::kThreads);
+      wg::bar_sync(2, 2 * wg::kThreads);     // warpgroup 1's dS is in
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          da[kk][j] = shared_ds[(4 * kk + j) * wg::kThreads + r];
+    } else {
+      float dp[32];
+      zero(dp);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(dp, wg::desc_k(sO, kk), wg::desc_k(tV, kk), kk > 0);
+      wg::mma_commit();
+      wg::bar_sync(1, 2 * wg::kThreads);     // warpgroup 0's P is in
+      float p[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = shared_p[i * wg::kThreads + r];
+      wg::mma_wait<0>();              // dP
+""": """      float (&p)[32] = s;
+      wg::mma_wait<0>();              // dP
+""",
+    """#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          shared_ds[(4 * kk + j) * wg::kThreads + r] = da[kk][j];
+      wg::bar_arrive(2, 2 * wg::kThreads);
+    }
+""": """    }
+""",
+}
+
 VARIANTS = {
     "tree": {},
     "wide_tree": {},
@@ -132,6 +220,10 @@ VARIANTS = {
         "wg::mma_ss_n64(st, wg::desc_k(sK, kk), wg::desc_k(tQ, kk), kk > 0);":
             ";",
         "wg::mma_ss_n64(dpt, wg::desc_k(sV, kk), wg::desc_k(tO, kk), kk > 0);":
+            ";",
+        "wg::mma_ss_n64(s, wg::desc_k(sQ, kk), wg::desc_k(tK, kk), kk > 0);":
+            ";",
+        "wg::mma_ss_n64(dp, wg::desc_k(sO, kk), wg::desc_k(tV, kk), kk > 0);":
             ";"},
     "no_output_products": {
         "for (int kk = 0; kk < 4; ++kk) mma_rs<D>(o, pa[kk], "
@@ -144,7 +236,10 @@ VARIANTS = {
         "mma_rs<D>(acc, frag[kk], wg::desc_mn(tQ, kk));": ";",
         "      wg::mma_ss_n64_mn(acc, wg::desc_mn(tS, kk),\n"
         "                        wg::desc_mn(tK + c * wg::kBlockBytes, kk), "
-        "kk > 0);": "      ;"},
+        "kk > 0);": "      ;",
+        "      mma_rs<COLS>(acc, da[kk],\n"
+        "                   wg::desc_mn(tK + kCol0 / 64 * wg::kBlockBytes, "
+        "kk));": "      ;"},
     "no_copies": {
         "    if (it < num_k) {": "    if (it < 2) {",
         "    if (iq < num_q) {\n      const int q0 = iq * kTile;":
@@ -414,6 +509,48 @@ VARIANTS = {
 #pragma unroll
   for (int c = 0; c < D / 64; ++c) {
 """},
+    "wide_dq_cuda_cores": {},
+    # the wide K2a with each warpgroup computing S, P, dP and dS itself (5
+    # tile products a key tile instead of 3, nothing handed across)
+    "wide_dq_own_scores": WIDE_DQ_OWN_SCORES,
+    # the wide K2a as one warpgroup of 64 query rows holding the whole dQ
+    # (the own-scores body with one warpgroup: 3 tile products a key tile,
+    # dQ's 128 accumulator registers beside S's and dP's 64)
+    "wide_dq_g1": {**WIDE_DQ_OWN_SCORES, **{
+        "  static_assert(COLS % 64 == 0 && COLS <= 128, "
+        "\"dQ shares of 64 or 128\");":
+            "  static_assert(COLS % 64 == 0, \"dQ columns\");",
+        "  constexpr int kNT = 2 * wg::kThreads;\n"
+        "  // this warpgroup's first dQ column":
+            "  constexpr int kNT = wg::kThreads;\n"
+            "  // this warpgroup's first dQ column",
+        "    // from its own branch); tile it - 1's stage is free\n"
+        "    wg::bar_sync(0, 2 * wg::kThreads);":
+            "    // from its own branch); tile it - 1's stage is free\n"
+            "    wg::bar_sync(0, wg::kThreads);",
+        "__global__ void __launch_bounds__(2 * wg::kThreads)\n"
+        "    flash_bwd_dq_wide_wgmma_kernel(":
+            "__global__ void __launch_bounds__(wg::kThreads)\n"
+            "    flash_bwd_dq_wide_wgmma_kernel(",
+        "  if (threadIdx.x < wg::kThreads)\n"
+        "    dq_wide_wgmma<D, 128, false>(q, k, v, dout, m, l, dstat, mask, "
+        "dq, h, n,\n                                 scale, causal);\n"
+        "  else\n"
+        "    dq_wide_wgmma<D, D - 128, true>(q, k, v, dout, m, l, dstat, "
+        "mask, dq, h,\n                                    n, scale, "
+        "causal);":
+            "  dq_wide_wgmma<D, D, false>(q, k, v, dout, m, l, dstat, mask, "
+            "dq, h, n, scale, causal);",
+        "  auto kernel = flash_bwd_dq_wide_wgmma_kernel<D>;\n"
+        "  cudaError_t err = allow_smem(kernel, smem);\n"
+        "  if (err != cudaSuccess) return err;\n"
+        "  dim3 grid(bh, (n + kTile - 1) / kTile);\n"
+        "  kernel<<<grid, 2 * wg::kThreads, smem, stream>>>(":
+            "  auto kernel = flash_bwd_dq_wide_wgmma_kernel<D>;\n"
+            "  cudaError_t err = allow_smem(kernel, smem);\n"
+            "  if (err != cudaSuccess) return err;\n"
+            "  dim3 grid(bh, (n + kTile - 1) / kTile);\n"
+            "  kernel<<<grid, wg::kThreads, smem, stream>>>("}},
     "dq_drop_tile": {
         "    if (!live_group || (causal && k0 > wq0 + wg::kRows - 1)) {\n"
         "      wg::mma_wait<0>();              // the last dQ += dS K frees":
@@ -422,13 +559,51 @@ VARIANTS = {
         "      wg::mma_wait<0>();              // the last dQ += dS K frees"},
 }
 CHECKED = ("tree", "wide_tree", "stages3", "dq_stages4", "wide_cuda_cores",
+           "wide_dq_cuda_cores", "wide_dq_own_scores", "wide_dq_g1",
            "wide_fwd_g1", "wide_fwd_split_ring", "wide_dkv_own_scores",
            "fused_cuda_cores", "dq_flush_scalar", "dq_flush_v2",
            "dq_two_accumulators", "fused128_by_gradient", "dq_flush_bulk",
            "dq_block128")
 # variants whose wrappers ask the C entry points for the CUDA-core wide
 # bodies where the tree runs the wide tensor-core ones
-ROUTED_TO_CUDA_CORES = ("wide_cuda_cores", "fused_cuda_cores")
+ROUTED_TO_CUDA_CORES = ("wide_cuda_cores", "wide_dq_cuda_cores",
+                        "fused_cuda_cores")
+# K3 (csrc/block_sparse.cu) at the wide shape: edited copies of its
+# source, each timed as the flash copies are; wide_k3_cuda_cores edits
+# nothing and has the wrapper ask for the CUDA-core wide body (the "before"
+# of the wide K3's redesign)
+BS_SOURCE = "block_sparse.cu"
+BS_VARIANTS = {
+    "k3_wide_tree": {},
+    "wide_k3_cuda_cores": {},
+    # no K or V tile copied (Q still is)
+    "k3_no_copies": {
+        "    wg::load_tile<D, kNT>(sK + stage * kT, kh, ik * kTile, n, tid);\n"
+        "    wg::load_tile<D, kNT>(sV + stage * kT, vh, ik * kTile, n, tid);\n":
+            ""},
+    "k3_no_score_products": {
+        "wg::mma_ss_n64(s, wg::desc_k(sQ, kk), wg::desc_k(tK, kk), kk > 0);":
+            ";"},
+    "k3_no_output_products": {
+        "      mma_rs<kCols>(o, pa[kk], wg::desc_mn(tV + grp * (kCols / 64) *\n"
+        "                                                    wg::kBlockBytes, "
+        "kk));": "      ;"},
+    "k3_no_exp": {"x = wg::exp2_approx((x - shift) * kLog2e);":
+                  "x = (x - shift) * kLog2e;"},
+    # each tile's O += P V run under the next tile's S, P's fragments held
+    # across it, as the narrow body runs it, against waiting for it within
+    # its iteration
+    "k3_pv_under_next_s": {"  constexpr bool kWaitPV = D > 128;":
+                           "  constexpr bool kWaitPV = false;"},
+    # at d 256 one warpgroup a query tile holding all of O (m64n256k16
+    # output products, 204 bytes of spill), against two warpgroups each
+    # computing S and P and holding half of it
+    "k3_one_group": {"constexpr int kGroups = D == 256 ? 2 : 1;":
+                     "constexpr int kGroups = 1;"},
+}
+BS_CHECKED = ("k3_wide_tree", "wide_k3_cuda_cores", "k3_pv_under_next_s",
+              "k3_one_group")
+BS_ROUTED_TO_CUDA_CORES = ("wide_k3_cuda_cores",)
 # planted faults K2a's dq check must reject; not timed
 REJECTED = ("dq_drop_tile",)
 # (b, h, n, d) of each shape; d128: the north width as heads=4,
@@ -439,13 +614,16 @@ SHAPES = {"north": (8, 8, 1280, 64), "wide": (8, 2, 1280, 256),
 # shape; at the wide shape K2a runs its CUDA-core body in every variant
 # but wide_cuda_cores, where it stands beside the other two
 DEFAULT_KERNELS = {"north": ("k1", "k2a", "k2b_split", "k2b_fused"),
-                   "wide": ("k1", "k2b_split", "k2b_fused")}
+                   "wide": ("k1", "k2a", "k2b_split", "k2b_fused")}
 FUSED = ("k2b_fused",)
 KERNELS = {"tree": {"north": DEFAULT_KERNELS["north"], "d128": FUSED},
            "wide_tree": {"wide": DEFAULT_KERNELS["wide"]},
            "stages3": {"north": ("k1",)}, "dq_stages4": {"north": ("k2a",)},
            "dq_drop_tile": {"north": ("k2a",)},
-           "wide_cuda_cores": {"wide": ("k1", "k2a", "k2b_split")},
+           "wide_cuda_cores": {"wide": ("k1", "k2b_split")},
+           "wide_dq_cuda_cores": {"wide": ("k2a",)},
+           "wide_dq_own_scores": {"wide": ("k2a",)},
+           "wide_dq_g1": {"wide": ("k2a",)},
            "wide_fwd_g1": {"wide": ("k1",)},
            "wide_fwd_split_ring": {"wide": ("k1",)},
            "wide_dkv_own_scores": {"wide": ("k2b_split",)},
@@ -459,17 +637,20 @@ KERNELS = {"tree": {"north": DEFAULT_KERNELS["north"], "d128": FUSED},
            "dq_block128": {"wide": FUSED, "d128": FUSED}}
 
 
-def build_variants(build) -> dict:
-    """{variant: loaded library}, all nvcc processes started together."""
-    src = (build.CSRC / SOURCE).read_text()
+def build_variants(build, source=SOURCE, variants=None) -> dict:
+    """{variant: loaded library} of the edited copies ``variants`` (by
+    default ``VARIANTS``) of ``source``, all nvcc processes started
+    together."""
+    variants = VARIANTS if variants is None else variants
+    src = (build.CSRC / source).read_text()
     out_dir = build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     running = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = src
         for old, new in edits.items():
             if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} not in {SOURCE}")
+                raise SystemExit(f"variant {name}: {old!r} not in {source}")
             text = text.replace(old, new)
         copy = build.CSRC / f"_variant_{name}.cu"      # includes resolve
         copy.write_text(text)
@@ -483,6 +664,7 @@ def build_variants(build) -> dict:
         copy.unlink()
         if proc.returncode != 0:
             raise SystemExit(f"variant {name}: nvcc failed\n{log}")
+        lib.with_suffix(".log").write_text(log)    # ptxas: registers, spills
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 
@@ -546,6 +728,62 @@ def library_record(chip_smoke, shape, q, k, v, do) -> dict:
     return rec
 
 
+def k3_records(chip_smoke, libs) -> None:
+    """K3's copies at the wide shape (bf16, b 8, h 2, n 1,280, d 256,
+    block 16, causal), all-True mask and none: held against the plain
+    version where ``BS_CHECKED`` (chip_smoke's K3 tolerances), CUDA events
+    and profiler device us a call; first a line with the bound and SDPA
+    with the layout as a boolean mask."""
+    import torch.nn.functional as F
+    from dalle_pytorch_tpu_torch.ops import block_sparse as BS
+    b, h, n, d = SHAPES["wide"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, h, n, d), generator=g,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    layout = chip_smoke.sparse_layout(n)
+    ms, by = chip_smoke.sparse_bound(torch.bfloat16, b, h, n, d,
+                                     int(layout.sum()))
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        q, k, v, attn_mask=layout, scale=512 ** -0.5)
+    print(json.dumps({"shape": "wide", "kernel": "k3", "bound_us": ms * 1e3,
+                      "bound_by": by, "sdpa_layout_us": events_us(sdpa),
+                      "sdpa_layout_device_us":
+                          chip_smoke.all_device_us(sdpa)}), flush=True)
+    from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    entry, wide_tc = BS._entry, FA.wide_tensor_cores
+    try:
+        for mask_name, mask in (("all_true", torch.ones(
+                (b, n), dtype=torch.bool, device="cuda")), ("none", None)):
+            kw = dict(scale=512 ** -0.5, causal=True,
+                      block=chip_smoke.SPARSE_BLOCK, mask=mask)
+            want = BS.block_sparse_attention_fwd_plain(q, k, v, **kw)
+            for name, lib in libs.items():
+                fn = lib.block_sparse_attention_fwd
+                fn.argtypes, fn.restype = BS._ARGTYPES, ctypes.c_int
+                BS._entry = lambda fn=fn: fn
+                FA.wide_tensor_cores = (
+                    (lambda dtype, d: False)
+                    if name in BS_ROUTED_TO_CUDA_CORES else wide_tc)
+                call = lambda: BS.block_sparse_attention_fwd(   # noqa: E731
+                    q, k, v, **kw)
+                record = {"variant": name, "shape": "wide", "kernel": "k3",
+                          "mask": mask_name}
+                if name in BS_CHECKED:
+                    got = call()
+                    rtol, atol = chip_smoke.flash_tolerances(torch.bfloat16)
+                    record["max_abs_err"] = max(
+                        chip_smoke.held(f"{name} K3 {part}", x, y, rtol,
+                                        atol if part != "l" else 1e-4)
+                        for part, x, y in zip(("out", "m", "l"), got, want))
+                    record["body"] = chip_smoke.sparse_bodies(call)
+                record["k3_us"] = events_us(call)
+                record["k3_device_us"] = chip_smoke.all_device_us(call)
+                print(json.dumps(record), flush=True)
+    finally:
+        BS._entry, FA.wide_tensor_cores = entry, wide_tc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_flash_variants: no CUDA device is visible",
@@ -556,6 +794,7 @@ def main() -> int:
     from dalle_pytorch_tpu_torch.ops import build
     from dalle_pytorch_tpu_torch.ops import flash_attention as FA
     libs = build_variants(build)
+    bs_libs = build_variants(build, BS_SOURCE, BS_VARIANTS)
     for name, lib in libs.items():
         for fn in ("flash_attention_fwd", "flash_attention_bwd_dq",
                    "flash_attention_bwd_dkv"):
@@ -586,7 +825,7 @@ def main() -> int:
                         continue
                     FA._entry = lambda fn, lib=lib: getattr(lib, fn)
                     FA.wide_tensor_cores = (
-                        (lambda kind, dtype, d: False)
+                        (lambda dtype, d: False)
                         if name in ROUTED_TO_CUDA_CORES else wide_tc)
                     record = {"variant": name, "shape": shape,
                               "mask": mask_name}
@@ -630,6 +869,7 @@ def main() -> int:
                 del dk_p, dv_p, dq_p, dq32_p, out_p
     finally:
         FA._entry, FA.wide_tensor_cores = entry, wide_tc
+    k3_records(chip_smoke, bs_libs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())

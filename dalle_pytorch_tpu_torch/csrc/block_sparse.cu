@@ -57,10 +57,16 @@
 //   * 42 KB of shared memory and at most 128 registers a thread at d 64,
 //     so 4 blocks share an SM and the 1,280 query tiles of the north
 //     shapes run in 2.4 waves (82 KB at d 128).
-// wide heads, d > 128 (block_sparse_fwd_wide_kernel, f32 and bf16): a
-// block owns a slice of at most 128 output columns and streams S over the
-// whole head in 64-column chunks, as the flash kernels' wide bodies do
-// (tile.cuh); the wrapper pads d to a multiple of 64.
+// wide heads, d > 128, bf16 at d 192 and 256
+// (block_sparse_fwd_wide_wgmma_kernel): the same body, at d 256 in two
+// warpgroups that each compute S and hold half of O (m64n128k16 output
+// products; one warpgroup holding all of O spills), at d 192 in one
+// (m64n192k16); 160 KB of shared memory at d 256, so one block an SM,
+// and the 320 query tiles of b 8, h 2, n 1280 run in 2.4 waves. Every other wide call (block_sparse_fwd_wide_kernel, f32, and
+// bf16 above 256): a block owns a slice of at most 128 output columns and
+// streams S over the whole head in 64-column chunks, as the flash
+// kernels' CUDA-core wide bodies do (tile.cuh); the wrapper pads d to a
+// multiple of 64.
 // float32 (block_sparse_fwd_kernel): CUDA cores, the tile, staging and
 // products of tile.cuh shared with flash_attention.cu (a 16 x 16 thread
 // grid, each thread owning 4 rows and 4 columns of every 64 x 64 score
@@ -233,6 +239,10 @@ static_assert(kLive >= 2, "the copy-group count below needs two stages");
 // accumulators need more registers than 4 blocks leave
 template <int D>
 constexpr int kBlocksPerSM = D == 64 ? 4 : 1;
+// warpgroups a block, splitting O's columns: two at d 256 (the wide
+// kernel says why), one at every other width
+template <int D>
+constexpr int kGroups = D == 256 ? 2 : 1;
 
 // The layout as seen from one 64-row query tile, worked out once per
 // block: the key tokens its rows' windows span, and from them the live
@@ -320,26 +330,35 @@ __device__ __forceinline__ TileMask tile_mask(const Layout& L,
   return tm;
 }
 
-// One warpgroup per (b*h, 64-row query tile): Q resident, the live key
-// tiles through kLive stages issued up front. Each tile's S = Q K^T is
-// issued while the last tile's O += P V still runs.
-template <int D>
-__global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM<D>)
-    block_sparse_fwd_wgmma_kernel(
-        const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-        bf16* __restrict__ out, float* __restrict__ m_out,
-        float* __restrict__ l_out, int h, int n, float scale,
-        Layout layout) {
+// G warpgroups per (b*h, 64-row query tile): Q resident, the live key
+// tiles through kLive stages issued up front. Each warpgroup computes the
+// tile's S = Q K^T and P itself and O += P V for its D / G output columns;
+// each tile's S is issued while the last tile's O += P V still runs. The
+// narrow (d 64, 128; G = 1) and wide (d 192, 256) kernels below run this
+// body.
+template <int D, int G>
+__device__ __forceinline__ void bs_fwd_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+    bf16* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int h, int n, float scale,
+    const Layout& layout) {
   extern __shared__ uint8_t smem_raw[];
   constexpr uint32_t kT = wg::tile_bytes<D>();
-  constexpr int kNT = wg::kThreads;
+  constexpr int kNT = G * wg::kThreads;
+  constexpr int kCols = D / G;                    // this warpgroup's O
+  // the wide body waits for each tile's O += P V within its iteration, so
+  // that P's fragments are not held under the next tile's S: 2-7 % faster
+  // at d 256 on the H100 than running it under the next S, as the narrow
+  // body does (chip_flash_variants.py, k3_pv_under_next_s)
+  constexpr bool kWaitPV = D > 128;
   const uint32_t sQ = aligned_smem(smem_raw);
   const uint32_t sK = sQ + kT;                    // kLive tiles
   const uint32_t sV = sK + kLive * kT;            // kLive tiles
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int grp = tid / wg::kThreads;
+  const int warp = tid % wg::kThreads / 32;
   const int lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int bh = blockIdx.x;
@@ -376,7 +395,7 @@ __global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM<D>)
     row[hh] = q0 + 16 * warp + g + 8 * hh;
     win_lo[hh] = row[hh] / layout.window * layout.window;
   }
-  float o[D / 2];
+  float o[kCols / 2];
   zero(o);
   float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};  // l_i: lane's
   uint32_t pa[4][4];                                   // P of the last tile
@@ -416,7 +435,7 @@ __global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM<D>)
     wg::mma_wait<0>();                // S, and the last tile's O += P V
     wg::hold(s);
     wg::hold(o);
-    hold_frags(pa);
+    if constexpr (!kWaitPV) hold_frags(pa);
     if (it > 0) {                     // live tile it - 1's stage is free
       if (issue < num_k) {
         __syncthreads();              // every warp is past its products
@@ -483,20 +502,27 @@ __global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM<D>)
       l_i[hh] = l_i[hh] * alpha + psum;
       m_i[hh] = m_new;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < kCols / 8; ++j) {
         o[4 * j + 2 * hh] *= alpha;
         o[4 * j + 2 * hh + 1] *= alpha;
       }
     }
 
     // O += P V: P rounded to bf16 in registers as the A operand; waited
-    // for at the next tile's S
+    // for at the next tile's S (wide: here)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wg::a_frag(s, kk, pa[kk]);
     wg::mma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_rs<D>(o, pa[kk], wg::desc_mn(tV, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<kCols>(o, pa[kk], wg::desc_mn(tV + grp * (kCols / 64) *
+                                                    wg::kBlockBytes, kk));
     wg::mma_commit();
+    if constexpr (kWaitPV) {
+      wg::mma_wait<0>();
+      wg::hold(o);
+      hold_frags(pa);
+    }
     ik = ik_next;
     ik_next = ik_after;
   }
@@ -510,17 +536,52 @@ __global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM<D>)
     const float l_safe = l == 0.f ? 1.f : l;
     const float inv = 1.f / l_safe;
     if (row[hh] >= n) continue;
-    bf16* dst = out + base + static_cast<size_t>(row[hh]) * D + 2 * t;
+    bf16* dst = out + base + static_cast<size_t>(row[hh]) * D + grp * kCols +
+                2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < kCols / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
           o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
-    if (t == 0) {
+    if (t == 0 && grp == 0) {
       const size_t at = static_cast<size_t>(bh) * n + row[hh];
       m_out[at] = m_i[hh] == -INFINITY ? 0.f : m_i[hh];
       l_out[at] = l_safe;
     }
   }
+}
+
+// narrow K3 (d 64, 128)
+template <int D>
+__global__ void __launch_bounds__(wg::kThreads, kBlocksPerSM<D>)
+    block_sparse_fwd_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ out, float* __restrict__ m_out,
+        float* __restrict__ l_out, int h, int n, float scale,
+        Layout layout) {
+  bs_fwd_wgmma<D, kGroups<D>>(q, k, v, mask, out, m_out, l_out, h, n,
+                              scale, layout);
+}
+
+// wide K3 (bf16, d 192 and 256): the same body. A 64 x d f32 O is d / 2
+// registers a thread; at d 256 one warpgroup holding it beside S's 32 and
+// P's 16 fragments spills 204 bytes (ptxas), so two warpgroups each
+// compute S and P and hold half of O (m64n128k16 products, 246
+// registers, no spill; 7-14 % faster on the H100 than one warpgroup at
+// 255 registers: chip_flash_variants.py, k3_one_group). At d 192 one
+// warpgroup (m64n192k16; 12 bytes of spill), since 96 columns are not a
+// whole number of the swizzled 64-column blocks (kGroups). Q with two
+// K + V stages take 160 KB at d 256 (120 KB at d 192), so one block an SM
+template <int D>
+__global__ void __launch_bounds__(kGroups<D> * wg::kThreads, 1)
+    block_sparse_fwd_wide_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ out, float* __restrict__ m_out,
+        float* __restrict__ l_out, int h, int n, float scale,
+        Layout layout) {
+  bs_fwd_wgmma<D, kGroups<D>>(q, k, v, mask, out, m_out, l_out, h, n,
+                              scale, layout);
 }
 
 template <typename T, int D>
@@ -544,19 +605,29 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the tensor-core kernel of width D: narrow up to 128, wide above
+template <int D>
+auto wgmma_kernel() {
+  if constexpr (D <= 128)
+    return block_sparse_fwd_wgmma_kernel<D>;
+  else
+    return block_sparse_fwd_wide_wgmma_kernel<D>;
+}
+
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* mask, void* out, void* m, void* l,
                          int bh, int h, int n, float scale,
                          const Layout& layout, cudaStream_t stream) {
   const size_t smem = (1 + 2 * kLive) * wg::tile_bytes<D>() + 1024;
-  auto kernel = block_sparse_fwd_wgmma_kernel<D>;
+  auto kernel = wgmma_kernel<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (n + kTile - 1) / kTile);
-  kernel<<<grid, wg::kThreads, smem, stream>>>(
+  constexpr int kBlockThreads = kGroups<D> * wg::kThreads;
+  kernel<<<grid, kBlockThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),
       static_cast<bf16*>(out), static_cast<float*>(m), static_cast<float*>(l),
@@ -693,22 +764,27 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
 
 // dtype codes shared with ops/block_sparse.py: 0 float32, 1 bfloat16.
 // q, k, v, out: device pointers to contiguous (b, h, n, d) arrays in that
-// dtype, d 64, 128 or a multiple of 64 above 128; m, l: (b, h, n) float32; mask: (b, n) uint8 key-padding mask or
-// null. block and window (= num_local_blocks * block) are in tokens;
-// globals: a host array of num_globals (<= 8) global block ids. Returns the
-// CUDA error of the launch (0 on success); the launch is asynchronous on
-// `stream`.
+// dtype, d 64, 128 or a multiple of 64 above 128; m, l: (b, h, n)
+// float32; mask: (b, n) uint8 key-padding mask or null. block and window
+// (= num_local_blocks * block) are in tokens; globals: a host array of
+// num_globals (<= 8) global block ids. wide_wgmma: 1 runs the call on the
+// wide tensor-core body, compiled for bf16 at d 192 and 256 only (1 with
+// any other dtype or d is refused); 0 runs every d above 128 on the
+// CUDA-core wide body (ops/block_sparse.py::wide_tensor_cores chooses).
+// Returns the CUDA error of the launch (0 on success); the launch is
+// asynchronous on `stream`.
 extern "C" int block_sparse_attention_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* out,
     void* m, void* l, int b, int h, int n, int d, float scale, int causal,
     int block, int window, const int* globals, int num_globals, int dtype,
-    void* stream) {
+    int wide_wgmma, void* stream) {
   if (b <= 0 || h <= 0 || n <= 0 ||
       (d != 64 && d != 128 && (d <= 128 || d % kChunkCols != 0)) ||
       block <= 0 ||
       window <= 0 || num_globals < 0 || num_globals > kMaxGlobals ||
       (num_globals > 0 && globals == nullptr) || (dtype != 0 && dtype != 1) ||
-      (n + kTile - 1) / kTile > 65535)
+      (n + kTile - 1) / kTile > 65535 ||
+      (wide_wgmma && (dtype != 1 || (d != 192 && d != 256))))
     return static_cast<int>(cudaErrorInvalidValue);
   Layout layout{};
   layout.block = block;
@@ -719,7 +795,12 @@ extern "C" int block_sparse_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = b * h;
   cudaError_t err;
-  if (d > 128)
+  if (wide_wgmma)
+    err = d == 192 ? launch_wgmma<192>(q, k, v, mask, out, m, l, bh, h, n,
+                                       scale, layout, s)
+                   : launch_wgmma<256>(q, k, v, mask, out, m, l, bh, h, n,
+                                       scale, layout, s);
+  else if (d > 128)
     err = dtype == 0 ? launch_wide<float>(q, k, v, mask, out, m, l, bh, h, n,
                                           d, scale, layout, s)
                      : launch_wide<bf16>(q, k, v, mask, out, m, l, bh, h, n,

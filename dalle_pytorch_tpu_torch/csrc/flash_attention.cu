@@ -5,7 +5,8 @@
 //   K1  flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32),
 //       flash_fwd_wide_wgmma_kernel (bf16 d 192, 256)
 //       <- _fwd_kernel :88 (launched by _flash_fwd)
-//   K2a flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32)
+//   K2a flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32),
+//       flash_bwd_dq_wide_wgmma_kernel (bf16 d 192, 256)
 //       <- _bwd_dq_kernel :322 (launched by _pallas_attention_bwd :548)
 //   K2b <- _bwd_keygrid_kernel :367, both of its launch sites: split mode
 //       (_bwd_dkv_kernel, dk and dv: flash_bwd_dkv_wgmma_kernel in bf16,
@@ -41,9 +42,9 @@
 //     and scale still comes from the real d.
 //   * wide heads (d > 128): a 64-row bf16 tile of d 256 is 32 KB, so the
 //     narrow rings do not fit in shared memory at such a d. In bf16 at d
-//     192 and 256, K1 and K2b (split and fused) run tensor-core bodies
-//     with shallower rings (below). Every other wide call (f32, d above
-//     256 where wgmma's output width ends, K2a) runs a CUDA-core body in
+//     192 and 256, K1, K2a and K2b (split and fused) run tensor-core
+//     bodies with shallower rings (below). Every other wide call (f32, d
+//     above 256 where wgmma's output width ends) runs a CUDA-core body in
 //     which a block owns a slice of at most 128 output columns and
 //     streams the products over the whole head in 64-column chunks
 //     (tile.cuh), recomputing S (and dP) once a slice.
@@ -120,6 +121,12 @@
 //        (211 KB at d 256). Fused: warpgroup 1 hands dS^T back through a
 //        bf16 tile, and warpgroup 0, done with dV, adds dQ = dS K as the
 //        narrow body does (219 KB).
+//   K2a: one block of two warpgroups per 64 query rows (Q and dO
+//        resident) over a ring of two K + V tiles filled one ahead:
+//        warpgroup 0 computes S and P, warpgroup 1 dP and dS, each handing
+//        its tile to the other through shared memory, and each adds its
+//        share of dQ's columns (128 and d - 128) = dS K[:, share] (216 KB
+//        at d 256).
 //
 // float32 (all three, split and fused): CUDA cores (tile.cuh, shared with
 // block_sparse.cu). The narrow CUDA-core bodies run float32 only (K2b's
@@ -529,6 +536,9 @@ constexpr int kWideFwdStages = 2;
 constexpr int kWideFwdAhead = 1;
 // the wide K2b split's ring: two Q + dO stages filled one ahead
 constexpr int kWideDkvStages = 2;
+// the wide K2a's ring: two K + V stages filled one ahead (Q, dO and the
+// ring take 192 KB at d 256)
+constexpr int kWideDqStages = 2;
 
 // K1: G warpgroups of 64 query rows (Q resident); key tiles through a
 // ring of STAGES tiles filled AHEAD ahead of the products. With
@@ -1513,6 +1523,242 @@ __global__ void __launch_bounds__(2 * wg::kThreads)
                           n, scale, causal);
 }
 
+// K2a, wide (bf16, d 192 and 256): one block of two warpgroups per 64
+// query rows, Q and dO resident, key tiles (K and V) through a ring of
+// kWideDqStages tiles filled one ahead. A 64 x d f32 dQ is d / 2
+// registers a thread, too many beside S, dP and their fragments for one
+// warpgroup at d 256, so the two share the tile's work and split dQ by
+// columns: warpgroup 0 (COLS = 128, columns 0 .. 127) computes S = Q K^T
+// and P scale / l as the narrow body does, and hands it (f32, unrounded)
+// to warpgroup 1 through shared memory under named barrier 1; warpgroup 1
+// (COLS = d - 128, the rest) computes dP = dO V^T under S's product,
+// dS = P scale (dP - D) rounded to bf16 as A fragments, and hands those
+// back under named barrier 2. The accumulators of one 64 x 64 product
+// share their layout thread for thread, so thread i of one warpgroup
+// writes what thread i of the other reads, 4 bytes a lane, without bank
+// conflicts. Each warpgroup then adds dQ[:, its columns] += dS K[:, its
+// columns] (K read MN-major from its first 64-column block of the share),
+// waited for within the iteration, since the next tile's copy refills
+// that stage. 3 tile products a key tile, one S, one dP and one dQ split
+// in two. chip_flash_variants.py times the alternatives, both slower on
+// the H100: wide_dq_own_scores (each warpgroup computing S, P, dP and dS
+// itself: 5 tile products, nothing handed across; 1.16-1.18x the time)
+// and wide_dq_g1 (one warpgroup holding the whole dQ: 255 registers and
+// 172 bytes of spill at d 256; 1.09-1.14x). Shared memory: Q, dO, two K
+// + V stages and the two hand-off buffers, 216 KB at d 256, one block an
+// SM.
+template <int D, int COLS, bool DS_GROUP>
+__device__ __forceinline__ void dq_wide_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l,
+    const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+    bf16* __restrict__ dq, int h, int n, float scale, int causal) {
+  static_assert(COLS % 64 == 0 && COLS <= 128, "dQ shares of 64 or 128");
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t kT = wg::tile_bytes<D>();
+  constexpr int kNT = 2 * wg::kThreads;
+  // this warpgroup's first dQ column, and its 64-column block of K
+  constexpr int kCol0 = DS_GROUP ? 128 : 0;
+  const uint32_t sQ = aligned_smem(smem_raw);
+  const uint32_t sO = sQ + kT;
+  const uint32_t sK = sO + kT;                          // kWideDqStages
+  const uint32_t sV = sK + kWideDqStages * kT;          // tiles each
+  // P scale / l, element i of thread r at [i * 128 + r]; then dS's A
+  // fragments, word 4 kk + j of thread r at [(4 kk + j) * 128 + r]
+  float* shared_p = reinterpret_cast<float*>(
+      smem_raw + (sV + kWideDqStages * kT - wg::smem_addr(smem_raw)));
+  uint32_t* shared_ds =
+      reinterpret_cast<uint32_t*>(shared_p + 32 * wg::kThreads);
+
+  const int tid = threadIdx.x;
+  const int r = tid % wg::kThreads;
+  const int warp = r / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  const int num_blocks = (n + kTile - 1) / kTile;
+  const int q0 = (num_blocks - 1 - blockIdx.y) * kTile;   // heavy first
+  const size_t base = static_cast<size_t>(bh) * n * D;
+  const size_t sbase = static_cast<size_t>(bh) * n;
+  const bf16* kh = k + base;
+  const bf16* vh = v + base;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  const int last_row = min(q0 + kTile, n) - 1;
+  const int num_k = causal ? last_row / kTile + 1 : (n + kTile - 1) / kTile;
+
+  auto load_keys = [&](int it) {            // one copy group, maybe empty
+    if (it < num_k) {
+      const uint32_t at = (it % kWideDqStages) * kT;
+      wg::load_tile<D, kNT>(sK + at, kh, it * kTile, n, tid);
+      wg::load_tile<D, kNT>(sV + at, vh, it * kTile, n, tid);
+    }
+    wg::cp_async_commit();
+  };
+  wg::load_tile<D, kNT>(sQ, q + base, q0, n, tid);
+  wg::load_tile<D, kNT>(sO, dout + base, q0, n, tid);
+  load_keys(0);                       // one group with Q and dO
+
+  // this thread's two rows, as the narrow body keeps them: pad flag,
+  // -m log2(e), scale / l (warpgroup 0) and D (warpgroup 1)
+  const float sl2 = scale * kLog2e;
+  int row[2];
+  bool qm[2];
+  float nml2[2], cl[2], drow[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = q0 + 16 * warp + g + 8 * hh;
+    const bool ok = row[hh] < n;
+    qm[hh] = ok && (mask_row == nullptr || mask_row[row[hh]]);
+    nml2[hh] = ok && !DS_GROUP ? -m[sbase + row[hh]] * kLog2e : 0.f;
+    cl[hh] = ok && !DS_GROUP ? scale / l[sbase + row[hh]] : 1.f;
+    drow[hh] = ok && DS_GROUP ? dstat[sbase + row[hh]] : 0.f;
+  }
+  float acc[COLS / 2];
+  zero(acc);
+  uint32_t da[4][4];                  // dS of this tile as A fragments
+  uint32_t kflags =
+      mask_row && !DS_GROUP ? wg::mask_flags(mask_row, 0, n, lane) : 3u;
+
+  for (int it = 0; it < num_k; ++it) {
+    wg::cp_async_wait<0>();           // key tile `it` has landed
+    wg::fence_async_shared();
+    // ... for all (the block barrier, named: each warpgroup reaches it
+    // from its own branch); tile it - 1's stage is free
+    wg::bar_sync(0, 2 * wg::kThreads);
+    load_keys(it + 1);
+    const int k0 = it * kTile;
+    const uint32_t tK = sK + (it % kWideDqStages) * kT;
+    const uint32_t tV = sV + (it % kWideDqStages) * kT;
+    if constexpr (!DS_GROUP) {
+      const uint64_t kbits = mask_row ? wg::mask_bits(kflags) : ~0ull;
+      if (mask_row) kflags = wg::mask_flags(mask_row, k0 + kTile, n, lane);
+      float s[32];
+      zero(s);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(s, wg::desc_k(sQ, kk), wg::desc_k(tK, kk), kk > 0);
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::hold(s);
+      // P scale / l, with the narrow body's tests: a pair left out or
+      // pad-filled gets 0, hence dS = 0
+      const bool diag = causal && k0 + kTile - 1 > q0;
+      const bool ragged = k0 + kTile > n;
+      const bool pad = mask_row != nullptr &&
+                       __any_sync(0xffffffffu, !(qm[0] && qm[1])) |
+                           (kbits != ~0ull);
+      if (diag || ragged || pad) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + 2 * t + e;
+              float& x = s[4 * j + 2 * hh + e];
+              const bool keep = (!pad || (qm[hh] && (kbits >> c & 1))) &&
+                                k0 + c < n && !(diag && k0 + c > row[hh]);
+              x = keep ? wg::exp2_approx(fmaf(x, sl2, nml2[hh])) * cl[hh]
+                       : 0.f;
+            }
+      } else {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = s[4 * j + 2 * hh + e];
+              x = wg::exp2_approx(fmaf(x, sl2, nml2[hh])) * cl[hh];
+            }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) shared_p[i * wg::kThreads + r] = s[i];
+      wg::bar_arrive(1, 2 * wg::kThreads);
+      wg::bar_sync(2, 2 * wg::kThreads);     // warpgroup 1's dS is in
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          da[kk][j] = shared_ds[(4 * kk + j) * wg::kThreads + r];
+    } else {
+      float dp[32];
+      zero(dp);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(dp, wg::desc_k(sO, kk), wg::desc_k(tV, kk), kk > 0);
+      wg::mma_commit();
+      wg::bar_sync(1, 2 * wg::kThreads);     // warpgroup 0's P is in
+      float p[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = shared_p[i * wg::kThreads + r];
+      wg::mma_wait<0>();              // dP
+      wg::hold(dp);
+      // dS = P scale (dP - D), rounded to bf16 as the A operand of dQ's
+      // product
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * hh + e;
+            dp[i] = p[i] * (dp[i] - drow[hh]);
+          }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wg::a_frag(dp, kk, da[kk]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          shared_ds[(4 * kk + j) * wg::kThreads + r] = da[kk][j];
+      wg::bar_arrive(2, 2 * wg::kThreads);
+    }
+    // dQ[:, kCol0 ..] += dS K[:, kCol0 ..]
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<COLS>(acc, da[kk],
+                   wg::desc_mn(tK + kCol0 / 64 * wg::kBlockBytes, kk));
+    wg::mma_commit();
+    wg::mma_wait<0>();                // frees tile it's K stage
+    wg::hold(acc);
+    hold_frags(da);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (row[hh] >= n) continue;
+    bf16* dst = dq + base + static_cast<size_t>(row[hh]) * D + kCol0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < COLS / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+}
+
+// K2a, wide (d 192, 256): dq, warpgroup 0 its first 128 columns and the
+// scores, warpgroup 1 the rest and dS
+template <int D>
+__global__ void __launch_bounds__(2 * wg::kThreads)
+    flash_bwd_dq_wide_wgmma_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+        const float* __restrict__ m, const float* __restrict__ l,
+        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+        bf16* __restrict__ dq, int h, int n, float scale, int causal) {
+  if (threadIdx.x < wg::kThreads)
+    dq_wide_wgmma<D, 128, false>(q, k, v, dout, m, l, dstat, mask, dq, h, n,
+                                 scale, causal);
+  else
+    dq_wide_wgmma<D, D - 128, true>(q, k, v, dout, m, l, dstat, mask, dq, h,
+                                    n, scale, causal);
+}
+
 // ---------------------------------------------------------------------------
 // wide heads (d > 128, a multiple of 64): CUDA cores, f32 and bf16
 // ---------------------------------------------------------------------------
@@ -2019,6 +2265,29 @@ cudaError_t launch_dkv_wide_wgmma(const void* q, const void* k,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_wide_wgmma(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* m,
+                                 const void* l, const void* dstat,
+                                 const void* mask, void* dq, int bh, int h,
+                                 int n, float scale, int causal,
+                                 cudaStream_t stream) {
+  const size_t smem = (2 + 2 * kWideDqStages) * wg::tile_bytes<D>() +
+                      48 * wg::kThreads * sizeof(float) +    // P, dS
+                      1024;
+  auto kernel = flash_bwd_dq_wide_wgmma_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (n + kTile - 1) / kTile);
+  kernel<<<grid, 2 * wg::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(m), static_cast<const float*>(l),
+      static_cast<const float*>(dstat), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dq), h, n, scale, causal);
+  return cudaGetLastError();
+}
+
 // the wide CUDA-core bodies: grid (b*h, 64-row tiles, 128-column slices)
 dim3 wide_grid(int bh, int n, int d) {
   return dim3(bh, (n + kTile - 1) / kTile, (d + kSliceCols - 1) / kSliceCols);
@@ -2094,10 +2363,10 @@ bool shape_ok(int b, int h, int n, int d, int dtype) {
 // Pointers are device pointers to contiguous arrays: q, k, v, dout, out,
 // dq, dk, dv (b, h, n, d) in that dtype; m, l, dstat (b, h, n) float32;
 // mask (b, n) uint8 or null; the fused dq (b, h, n, d) float32, zeroed by
-// the caller. wide_wgmma (K1 and K2b, split or fused): 1 runs the call on
-// the wide tensor-core body, compiled for bf16 at d 192 and 256 only (1
-// with any other dtype or d is refused); 0 runs every d above 128 on the
-// CUDA-core wide bodies. ops/flash_attention.py::wide_tensor_cores
+// the caller. wide_wgmma (K1, K2a and K2b, split or fused): 1 runs the
+// call on the wide tensor-core body, compiled for bf16 at d 192 and 256
+// only (1 with any other dtype or d is refused); 0 runs every d above 128
+// on the CUDA-core wide bodies. ops/flash_attention.py::wide_tensor_cores
 // chooses. Each returns the CUDA error of its launch (0 on success); the
 // launch is asynchronous on `stream`.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -2140,13 +2409,21 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* dstat, const void* mask,
                                       void* dq, int b, int h, int n, int d,
                                       float scale, int causal, int dtype,
-                                      void* stream) {
-  if (!shape_ok(b, h, n, d, dtype))
+                                      int wide_wgmma, void* stream) {
+  if (!shape_ok(b, h, n, d, dtype) ||
+      (wide_wgmma && (dtype != 1 || (d != 192 && d != 256))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bh = b * h;
   cudaError_t err;
-  if (d > 128)
+  if (wide_wgmma)
+    err = d == 192 ? launch_dq_wide_wgmma<192>(q, k, v, dout, m, l, dstat,
+                                               mask, dq, bh, h, n, scale,
+                                               causal, s)
+                   : launch_dq_wide_wgmma<256>(q, k, v, dout, m, l, dstat,
+                                               mask, dq, bh, h, n, scale,
+                                               causal, s);
+  else if (d > 128)
     err = dtype == 0
               ? launch_dq_wide<float>(q, k, v, dout, m, l, dstat, mask, dq,
                                       bh, h, n, d, scale, causal, s)

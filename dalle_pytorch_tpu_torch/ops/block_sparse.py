@@ -31,6 +31,12 @@ finite; ``l == 0`` becomes 1 and a non-finite ``m`` is written as 0
 (``:169-175``). ``ops/sparse.py::sparse_attention_ref`` keeps its own
 fill (``core.neg_inf``, -finfo.max); the two constants differ on purpose.
 
+In bfloat16, K3 runs on the tensor cores (wgmma) at d 64 and 128 and, on
+its wide body, at d 192 and 256 (the flash kernels'
+``wide_tensor_cores`` decides for it too); float32 and
+bfloat16 heads above 256 run CUDA-core bodies. ``kernel_body`` names the
+kernel each call runs.
+
 What bounds K3 on the H100: bytes. At the north training shapes (b 8,
 h 8, n 1280, d 64, block 16) a query row sees at most 80 keys (its
 64-token window and the 16 global tokens), ~61 k pairs per (b, h): some
@@ -108,9 +114,29 @@ def block_sparse_attention_fwd_plain(q, k, v, *, scale: float,
     return out.to(q.dtype), torch.where(finite, m, 0.0), l
 
 
+def kernel_body(dtype: torch.dtype, d: int) -> str:
+    """The ``__global__`` function of ``csrc/block_sparse.cu`` that a CUDA
+    call on ``dtype`` tensors of head dim ``d`` launches, at the width it
+    runs at (``flash_attention.kernel_dim_head``): bfloat16 on the tensor
+    cores up to d 128 and at 192 and 256, float32 and wider bfloat16
+    heads on CUDA cores. ``chip_smoke.py`` holds it against the kernels'
+    names in its profiles."""
+    if dtype not in flash_ops._DTYPE_CODE:
+        raise ValueError(f"the kernel takes float32 or bfloat16, not "
+                         f"{dtype}")
+    width = flash_ops.kernel_dim_head(d)
+    if width <= flash_ops.NARROW_MAX_DIM_HEAD:
+        return ("block_sparse_fwd_wgmma_kernel" if dtype == torch.bfloat16
+                else "block_sparse_fwd_kernel")
+    if flash_ops.wide_tensor_cores(dtype, width):
+        return "block_sparse_fwd_wide_wgmma_kernel"
+    return "block_sparse_fwd_wide_kernel"
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I,
-                                   ctypes.POINTER(ctypes.c_int), _I, _I, _P]
+                                   ctypes.POINTER(ctypes.c_int), _I, _I, _I,
+                                   _P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,8 +154,8 @@ def block_sparse_attention_fwd(q, k, v, *, scale: float, causal: bool,
                                mask: Optional[torch.Tensor] = None):
     """K3: (out, m, l). The CUDA kernel for CUDA tensors (any d, through
     the flash kernels' ``any_dim_head``: d 64 and 128 on the narrow
-    bodies, wider heads on the wide body), the plain version for CPU
-    tensors. Counts launches in
+    bodies, wider heads on the wide ones, ``kernel_body``), the plain
+    version for CPU tensors. Counts launches in
     ``block_sparse_attention_fwd.launches``."""
     if q.device.type == "cpu":
         return block_sparse_attention_fwd_plain(
@@ -156,7 +182,7 @@ def block_sparse_attention_fwd(q, k, v, *, scale: float, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(),
         m.data_ptr(), l.data_ptr(), b, h, n, d, float(scale), int(causal),
         int(block), int(num_local_blocks * block), gbs, len(global_blocks),
-        code, stream)
+        code, int(flash_ops.wide_tensor_cores(q.dtype, d)), stream)
     flash_ops._check_rc(name, rc)
     block_sparse_attention_fwd.launches += 1
     return out, m, l

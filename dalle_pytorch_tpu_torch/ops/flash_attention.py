@@ -35,8 +35,8 @@ products against ~42 MB moved in bf16, above the ~295 flops per byte
 where the tensor cores, not memory, set the limit; K2a and K2b do 1.5x
 and 2x (2.5x fused) K1's products. In bfloat16, K1, K2a and K2b (split
 and fused) run on the tensor cores (wgmma over asynchronously staged
-bf16 tiles, ``csrc/wgmma.cuh``; above d 128 K1 and K2b only, at d 192
-and 256); float32 and the other wide calls run CUDA-core FMAs
+bf16 tiles, ``csrc/wgmma.cuh``; above d 128 at d 192 and 256); float32
+and the other wide calls run CUDA-core FMAs
 (``csrc/flash_attention.cu`` says how). Like the Pallas bodies, every
 version rounds p and ds to the input dtype before the second product of
 each pair.
@@ -44,13 +44,16 @@ each pair.
 Head dims: any d >= 1, as the JAX kernels take. The narrow bodies are
 compiled for d 64 and 128 (``KERNEL_DIM_HEADS``); above 128 the wide
 bodies take any multiple of ``WIDE_DIM_MULTIPLE`` (64). In bfloat16 at d
-192 and 256 (``WIDE_WGMMA_DIM_HEADS``), K1 and K2b (split and fused) run
-wide tensor-core bodies (``wide_tensor_cores`` chooses, the wrappers tell
-the C entry points): K1 two warpgroups over a 2-tile K + V ring, K2b two
+192 and 256 (``WIDE_WGMMA_DIM_HEADS``), K1, K2a and K2b (split and
+fused) run wide tensor-core bodies (``wide_tensor_cores`` chooses, the
+wrappers tell the C entry points): K1 two warpgroups over a 2-tile K + V
+ring; K2a two warpgroups over the same ring, one computing S and P, the
+other dP and dS, each adding its share of dq's columns; K2b two
 warpgroups, one computing dV and one dK over the whole d, the first also
-adding dq in fused mode. Every other wide call (float32, d above 256,
-K2a) runs a CUDA-core body in which a block owns a slice of at most 128
-output columns and streams q.k and dout.v through 64-column chunks. ``kernel_body`` names
+adding dq in fused mode. Every other wide call (float32, d above 256)
+runs a CUDA-core body in which a block owns a slice of at most 128
+output columns and streams q.k and dout.v through 64-column chunks.
+``kernel_body`` names
 the kernel each call runs. Each wrapper runs any other d through
 ``any_dim_head``: q, k, v and dout zero-padded to the next of those
 widths, the kernel launched, out, dq, dk and dv sliced back. That is
@@ -83,8 +86,8 @@ BWD_IMPLS = ("xla", "pallas", "pallas_fused")
 KERNEL_DIM_HEADS = (64, 128)
 NARROW_MAX_DIM_HEAD = KERNEL_DIM_HEADS[-1]
 WIDE_DIM_MULTIPLE = 64
-# the wide widths whose bfloat16 K1 and K2b (split and fused) run on the
-# tensor cores (wgmma's output width stops at 256)
+# the wide widths whose bfloat16 K1, K2a and K2b (split and fused) run on
+# the tensor cores (wgmma's output width stops at 256)
 WIDE_WGMMA_DIM_HEADS = (192, 256)
 # K1, K2a, K2b split, K2b fused
 KINDS = ("fwd", "dq", "dkv", "fused")
@@ -250,14 +253,14 @@ def kernel_dim_head(d: int) -> int:
     return next(w for w in KERNEL_DIM_HEADS if d <= w)
 
 
-def wide_tensor_cores(kind: str, dtype: torch.dtype, d: int) -> bool:
-    """Whether a CUDA call of ``kind`` on ``dtype`` tensors at the kernel
-    width ``d`` runs a wide tensor-core body: bfloat16 K1 and K2b (split
-    and fused) at ``WIDE_WGMMA_DIM_HEADS``. The wrappers pass it to the C
-    entry points (``wide_wgmma``), which run the CUDA-core wide bodies
-    where it is false."""
-    return (dtype == torch.bfloat16 and kind in ("fwd", "dkv", "fused")
-            and d in WIDE_WGMMA_DIM_HEADS)
+def wide_tensor_cores(dtype: torch.dtype, d: int) -> bool:
+    """Whether a CUDA call on ``dtype`` tensors at the kernel width ``d``
+    runs a wide tensor-core body: bfloat16 at ``WIDE_WGMMA_DIM_HEADS``,
+    for every kernel that has one (K1, K2a, K2b split and fused, and
+    ``block_sparse.py``'s K3). The wrappers pass it to the C entry points
+    (``wide_wgmma``), which run the CUDA-core wide bodies where it is
+    false."""
+    return dtype == torch.bfloat16 and d in WIDE_WGMMA_DIM_HEADS
 
 
 def kernel_body(kind: str, dtype: torch.dtype, d: int) -> str:
@@ -281,7 +284,7 @@ def kernel_body(kind: str, dtype: torch.dtype, d: int) -> str:
         if dtype == torch.bfloat16:
             return f"{tc_stem}_wgmma_kernel"
         return f"{stem}_kernel"
-    if wide_tensor_cores(kind, dtype, width):
+    if wide_tensor_cores(dtype, width):
         return f"{tc_stem}_wide_wgmma_kernel"
     return f"{stem}_wide_kernel"
 
@@ -337,7 +340,7 @@ def any_dim_head(wrapper: Callable) -> Callable:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "flash_attention_fwd": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _P],
-    "flash_attention_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P],
+    "flash_attention_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "flash_attention_bwd_dkv": [_P] * 11 + [_I] * 4 + [_F, _I, _I, _I, _P],
 }
 
@@ -408,7 +411,7 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
         out.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, n, d,
         float(scale), int(causal), code,
-        int(wide_tensor_cores("fwd", q.dtype, d)), stream)
+        int(wide_tensor_cores(q.dtype, d)), stream)
     _check_rc("flash_attention_fwd", rc)
     flash_attention_fwd.launches += 1
     return out, m, l
@@ -434,7 +437,8 @@ def flash_attention_bwd_dq(q, k, v, dout, m, l, dstat, *, scale: float,
     rc = _entry("flash_attention_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         m.data_ptr(), l.data_ptr(), dstat.data_ptr(), mask_ptr,
-        dq.data_ptr(), b, h, n, d, float(scale), int(causal), code, stream)
+        dq.data_ptr(), b, h, n, d, float(scale), int(causal), code,
+        int(wide_tensor_cores(q.dtype, d)), stream)
     _check_rc("flash_attention_bwd_dq", rc)
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -469,8 +473,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, m, l, dstat, *, scale: float,
         m.data_ptr(), l.data_ptr(), dstat.data_ptr(), mask_ptr,
         dk.data_ptr(), dv.data_ptr(), None if dq is None else dq.data_ptr(),
         b, h, n, d, float(scale), int(causal), code,
-        int(wide_tensor_cores("fused" if with_dq else "dkv", q.dtype, d)),
-        stream)
+        int(wide_tensor_cores(q.dtype, d)), stream)
     _check_rc("flash_attention_bwd_dkv", rc)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv, dq

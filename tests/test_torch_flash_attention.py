@@ -351,8 +351,9 @@ def test_kernel_dim_head_is_the_next_kernel_width(d, width):
 
 # (dtype, d, kind, the kernel csrc/flash_attention.cu launches for it)
 BODY_ROUTES = [
-    # bfloat16 K1 and K2b (split and fused) at d 192 and 256: the wide
-    # tensor-core bodies, also for a d the wrappers pad to those widths
+    # bfloat16 K1, K2a and K2b (split and fused) at d 192 and 256: the
+    # wide tensor-core bodies, also for a d the wrappers pad to those
+    # widths
     ("bfloat16", 192, "fwd", "flash_fwd_wide_wgmma_kernel"),
     ("bfloat16", 256, "fwd", "flash_fwd_wide_wgmma_kernel"),
     ("bfloat16", 130, "fwd", "flash_fwd_wide_wgmma_kernel"),
@@ -361,8 +362,9 @@ BODY_ROUTES = [
     ("bfloat16", 255, "dkv", "flash_bwd_dkv_wide_wgmma_kernel"),
     ("bfloat16", 192, "fused", "flash_bwd_fused_wide_wgmma_kernel"),
     ("bfloat16", 256, "fused", "flash_bwd_fused_wide_wgmma_kernel"),
-    # ... K2a keeps its CUDA-core wide body
-    ("bfloat16", 256, "dq", "flash_bwd_dq_wide_kernel"),
+    ("bfloat16", 192, "dq", "flash_bwd_dq_wide_wgmma_kernel"),
+    ("bfloat16", 256, "dq", "flash_bwd_dq_wide_wgmma_kernel"),
+    ("bfloat16", 130, "dq", "flash_bwd_dq_wide_wgmma_kernel"),
     # float32 at every wide d, and bfloat16 above 256: CUDA cores
     ("float32", 192, "fwd", "flash_fwd_wide_kernel"),
     ("float32", 256, "dkv", "flash_bwd_dkv_wide_kernel"),
@@ -371,6 +373,9 @@ BODY_ROUTES = [
     ("bfloat16", 320, "fused", "flash_bwd_dkv_wide_kernel"),
     ("float32", 256, "fused", "flash_bwd_dkv_wide_kernel"),
     ("bfloat16", 257, "fwd", "flash_fwd_wide_kernel"),
+    ("float32", 192, "dq", "flash_bwd_dq_wide_kernel"),
+    ("float32", 256, "dq", "flash_bwd_dq_wide_kernel"),
+    ("bfloat16", 320, "dq", "flash_bwd_dq_wide_kernel"),
     # up to 128 the narrow bodies: bfloat16 on the tensor cores (fused
     # K2b too), float32 on CUDA cores
     ("bfloat16", 64, "fwd", "flash_fwd_wgmma_kernel"),
@@ -386,8 +391,8 @@ BODY_ROUTES = [
 @pytest.mark.parametrize("dtype,d,kind,kernel", BODY_ROUTES)
 def test_kernel_body_routes_each_call(dtype, d, kind, kernel):
     """The dispatch helper names the wide tensor-core bodies for bfloat16
-    K1 and K2b (split and fused) at d 192 and 256 (and the d padded to
-    them), the CUDA-core wide bodies for float32, d 320 and K2a, and the
+    K1, K2a and K2b (split and fused) at d 192 and 256 (and the d padded
+    to them), the CUDA-core wide bodies for float32 and d 320, and the
     narrow bodies up to 128 (bfloat16 fused K2b on the tensor cores)."""
     assert TF.kernel_body(kind, getattr(torch, dtype), d) == kernel
 
@@ -398,7 +403,7 @@ def test_wrappers_ask_for_the_wide_tensor_cores_where_kernel_body_names_them(
     """The route the wrappers pass to the C entry points
     (``wide_tensor_cores`` at the padded width) is the one
     ``kernel_body`` names, fused K2b's wide tensor-core body included."""
-    wide = TF.wide_tensor_cores(kind, getattr(torch, dtype),
+    wide = TF.wide_tensor_cores(getattr(torch, dtype),
                                 TF.kernel_dim_head(d))
     assert wide == kernel.endswith("_wide_wgmma_kernel")
 
@@ -416,9 +421,11 @@ def test_kernel_body_names_kernels_of_the_source():
              for dtype in (torch.float32, torch.bfloat16)
              for d in (16, 64, 128, 192, 256, 320)}
     assert named <= kernels, named - kernels
-    # the fused mode's own tensor-core bodies, narrow and wide
+    # the fused mode's own tensor-core bodies, narrow and wide, and the
+    # wide K2a's
     assert {"flash_bwd_fused_wgmma_kernel",
-            "flash_bwd_fused_wide_wgmma_kernel"} <= named
+            "flash_bwd_fused_wide_wgmma_kernel",
+            "flash_bwd_dq_wide_wgmma_kernel"} <= named
     assert TF.WIDE_WGMMA_DIM_HEADS == (192, 256)
 
 
@@ -486,11 +493,11 @@ def test_wide_padding_is_exact(kind, d, dtype, causal, masked):
 
 @pytest.mark.parametrize("mask_kind", ["none", "pad"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [192, 320])
+@pytest.mark.parametrize("d", [192, 256, 320])
 def test_wide_plain_versions_match_jax_kernels(d, causal, mask_kind):
     """The plain K1, K2a and K2b (split and fused), the wide bodies'
     yardsticks on the card, against JAX's Pallas kernels in interpret
-    mode at d 192 and 320, which they take as they are: float32,
+    mode at d 192, 256 and 320, which they take as they are: float32,
     rtol/atol 1e-5."""
     check_plain_against_jax_kernels(d, causal, mask_kind)
 

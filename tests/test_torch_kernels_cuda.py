@@ -430,10 +430,10 @@ def test_flash_attention_grads_match_blockwise_on_card(cuda, bwd_impl):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_calls_launch_the_kernel_body_names(cuda, dtype, d):
     """Each wrapper launches the kernel ``kernel_body`` names, by its
-    name in a torch.profiler trace: bfloat16 K1 and K2b (split and fused)
-    at d 160 (padded to 192), 192 and 256 the wide tensor-core bodies,
-    bfloat16 at d 64 and 128 the narrow ones (fused K2b's own), float32
-    and d 320 the CUDA-core ones."""
+    name in a torch.profiler trace: bfloat16 K1, K2a and K2b (split and
+    fused) at d 160 (padded to 192), 192 and 256 the wide tensor-core
+    bodies, bfloat16 at d 64 and 128 the narrow ones (fused K2b's own),
+    float32 and d 320 the CUDA-core ones."""
     from torch.profiler import ProfilerActivity, profile
     dtype = getattr(torch, dtype)
     q, k, v, do, mask = flash_inputs(cuda, dtype, 130, d, True)
@@ -481,11 +481,13 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
                                           ("float32", 192, "dkv"),
                                           ("bfloat16", 320, "dkv"),
                                           ("float32", 256, "fused"),
-                                          ("bfloat16", 320, "fused")])
+                                          ("bfloat16", 320, "fused"),
+                                          ("bfloat16", 320, "dq"),
+                                          ("float32", 256, "dq")])
 def test_flash_entries_refuse_a_wide_tensor_core_route_without_a_body(
         cuda, dtype, d, kind):
     """The C entry points run the wide tensor-core bodies only where they
-    are compiled (bfloat16 K1 and K2b, split and fused, at d 192 and
+    are compiled (bfloat16 K1, K2a and K2b, split and fused, at d 192 and
     256): asked for one anywhere else, they launch nothing and return an
     error rather than run another body."""
     dtype = getattr(torch, dtype)
@@ -499,6 +501,10 @@ def test_flash_entries_refuse_a_wide_tensor_core_route_without_a_body(
     if kind == "fwd":
         rc = FA._entry("flash_attention_fwd")(
             p, p, p, None, p, st, st, b, h, n, d, 1.0, 1, code, 1, stream)
+    elif kind == "dq":
+        rc = FA._entry("flash_attention_bwd_dq")(
+            p, p, p, p, st, st, st, None, p, b, h, n, d, 1.0, 1, code, 1,
+            stream)
     else:
         dq = torch.zeros((b, h, n, d), device=cuda) if kind == "fused" \
             else None
@@ -514,13 +520,14 @@ def test_flash_entries_refuse_a_wide_tensor_core_route_without_a_body(
 @pytest.mark.parametrize("mask_kind", ["none", "all_true", "pad"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("n", [37, 64, 65, 200, 1280])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_bf16_dq_kernel_matches_plain(cuda, d, n, causal, mask_kind):
-    """K2a's bfloat16 body on the tensor cores over walks of one tile
-    (n 37, 64), one tile and one row (65), a ragged fourth tile (200) and
-    the north length (1280, twenty tiles: every stage of the key ring);
-    no mask, the all-True mask training builds, and text padding with
-    fully padded query rows, as DALLE batches carry it."""
+    """K2a's bfloat16 bodies on the tensor cores (d 64 and 128 the narrow
+    one, d 192 and 256 the wide one) over walks of one tile (n 37, 64),
+    one tile and one row (65), a ragged fourth tile (200) and the north
+    length (1280, twenty tiles: every stage of the key ring); no mask,
+    the all-True mask training builds, and text padding with fully
+    padded query rows, as DALLE batches carry it."""
     q, k, v, do, _ = flash_inputs(cuda, torch.bfloat16, n, d, False, b=2,
                                   h=2)
     mask = None
@@ -633,12 +640,14 @@ def test_block_sparse_kernel_matches_plain(cuda, dtype, d, n, block, masked,
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("n", [37, 200])
+@pytest.mark.parametrize("n", [37, 200, 1280])
 @pytest.mark.parametrize("d", WIDE_DIM_HEADS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_block_sparse_wide_kernel_matches_plain(cuda, dtype, d, n, masked,
                                                 causal):
-    """Heads wider than 128 through K3's wide body (160 padded to 192)."""
+    """Heads wider than 128 through K3's wide bodies (160 padded to 192;
+    bfloat16 at 192 and 256 on the tensor cores, the rest on CUDA cores),
+    over one tile, a ragged walk and the north length (n 1280)."""
     dtype = getattr(torch, dtype)
     q, k, v, _, mask = flash_inputs(cuda, dtype, n, d, masked)
     kw = dict(scale=d ** -0.5, causal=causal, block=16, mask=mask)
@@ -725,6 +734,77 @@ def test_block_sparse_grads_match_autograd_of_ref(cuda, n, block_qk):
         grads[impl] = [t.grad for t in leaves]
     for got, want in zip(grads["kernel"], grads["ref"]):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block,local,globals_", [
+    (16, 3, (0,)), (16, 5, (0, 7)), (8, 4, (0, 9)), (32, 4, (1,)),
+    (16, 4, (2, 3))])
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_wide_kernel_other_layouts(cuda, dtype, d, block,
+                                                local, globals_, causal):
+    """``test_block_sparse_kernel_other_layouts`` at d 192 and 256: every
+    form of the per-tile layout decision on the wide bodies (bfloat16 on
+    the tensor cores), with pad keys."""
+    dtype = getattr(torch, dtype)
+    q, k, v, _, mask = flash_inputs(cuda, dtype, 300, d, True)
+    kw = dict(scale=d ** -0.5, causal=causal, block=block,
+              num_local_blocks=local, global_blocks=globals_, mask=mask)
+    out, m, l = BS.block_sparse_attention_fwd(q, k, v, **kw)
+    out_p, m_p, l_p = BS.block_sparse_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(out, out_p, dtype)
+    assert_flash_close(m, m_p, dtype)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 160, 192, 256, 320])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sparse_calls_launch_the_kernel_body_names(cuda, dtype, d):
+    """K3's wrapper launches the kernel ``BS.kernel_body`` names, by its
+    name in a torch.profiler trace: bfloat16 at d 64 and 128 the narrow
+    tensor-core body, at 160 (padded to 192), 192 and 256 the wide one,
+    float32 and d 320 the CUDA-core ones."""
+    from torch.profiler import ProfilerActivity, profile
+    dtype = getattr(torch, dtype)
+    q, k, v, _, mask = flash_inputs(cuda, dtype, 130, d, True)
+    kw = dict(scale=d ** -0.5, causal=True, block=16, mask=mask)
+    BS.block_sparse_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            BS.block_sparse_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+    ran = {name for e in prof.key_averages()
+           for name in re.findall(r"(block_sparse_\w+?_kernel)<", e.key)}
+    assert ran == {BS.kernel_body(dtype, d)}, ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 320), ("float32", 256),
+                                     ("bfloat16", 128)])
+def test_block_sparse_entry_refuses_a_wide_tensor_core_route_without_a_body(
+        cuda, dtype, d):
+    """K3's C entry point runs the wide tensor-core body only where it is
+    compiled (bfloat16 at d 192 and 256): asked for it anywhere else, it
+    launches nothing and returns an error rather than run another
+    body."""
+    import ctypes
+    dtype = getattr(torch, dtype)
+    b, h, n = 1, 1, 64
+    q = torch.zeros((b, h, n, d), device=cuda, dtype=dtype)
+    stat = torch.ones((b, h, n), device=cuda)
+    p, st = q.data_ptr(), stat.data_ptr()
+    code = 0 if dtype == torch.float32 else 1
+    gbs = (ctypes.c_int * BS.MAX_GLOBAL_BLOCKS)(0)
+    rc = BS._entry()(p, p, p, None, p, st, st, b, h, n, d, 1.0, 1, 16, 64,
+                     gbs, 1, code, 1,
+                     torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc != 0
 
 
 @pytest.mark.cuda

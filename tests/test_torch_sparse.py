@@ -285,8 +285,8 @@ def test_block_sparse_padded_plain_matches_jax_kernel(d, causal, masked):
 # Heads wider than 128: K3's wrapper hands the wide body a multiple of 64
 # (d 130 zero-padded to 192 and sliced back; 192, 256 and 320 as they
 # are), exact around the plain version (rtol/atol 1e-6); the plain
-# version against JAX's kernel at d 192 and 320 (the module's forward
-# tolerance).
+# version against JAX's kernel at d 192, 256 and 320 (the module's
+# forward tolerance).
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -306,7 +306,7 @@ def test_block_sparse_wide_padding_is_exact(d, causal, masked):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [192, 320])
+@pytest.mark.parametrize("d", [192, 256, 320])
 def test_block_sparse_wide_plain_matches_jax_kernel(d, causal, masked):
     n, block = 48, 16
     q, k, v = qkv(n, d=d, seed=d)
@@ -319,3 +319,51 @@ def test_block_sparse_wide_plain_matches_jax_kernel(d, causal, masked):
     for g, w, what in zip(got, (out, m, l), ("out", "m", "l")):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **FWD,
                                    err_msg=what)
+
+
+# (dtype, d, the kernel csrc/block_sparse.cu launches for it): bfloat16 on
+# the tensor cores up to 128 and at 192 and 256 (and a d padded to them),
+# float32 and bfloat16 above 256 on CUDA cores
+BODY_ROUTES = [
+    ("bfloat16", 64, "block_sparse_fwd_wgmma_kernel"),
+    ("bfloat16", 16, "block_sparse_fwd_wgmma_kernel"),
+    ("bfloat16", 128, "block_sparse_fwd_wgmma_kernel"),
+    ("bfloat16", 192, "block_sparse_fwd_wide_wgmma_kernel"),
+    ("bfloat16", 256, "block_sparse_fwd_wide_wgmma_kernel"),
+    ("bfloat16", 130, "block_sparse_fwd_wide_wgmma_kernel"),
+    ("bfloat16", 320, "block_sparse_fwd_wide_kernel"),
+    ("bfloat16", 257, "block_sparse_fwd_wide_kernel"),
+    ("float32", 64, "block_sparse_fwd_kernel"),
+    ("float32", 192, "block_sparse_fwd_wide_kernel"),
+    ("float32", 256, "block_sparse_fwd_wide_kernel"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,kernel", BODY_ROUTES)
+def test_block_sparse_kernel_body_routes_each_call(dtype, d, kernel):
+    """K3's dispatch helper names the wide tensor-core body for bfloat16
+    at d 192 and 256 (and a d padded to them), and the route the wrapper
+    passes to the C entry point (``wide_tensor_cores`` at the padded
+    width) is the one it names."""
+    dtype = getattr(torch, dtype)
+    assert TB.kernel_body(dtype, d) == kernel
+    assert TF.wide_tensor_cores(dtype, TF.kernel_dim_head(d)) == \
+        (kernel == "block_sparse_fwd_wide_wgmma_kernel")
+
+
+def test_block_sparse_kernel_body_names_kernels_of_the_source():
+    """Every kernel K3's ``kernel_body`` names is a ``__global__`` function
+    of ``csrc/block_sparse.cu``; it refuses a dtype the kernel does not
+    take."""
+    import pathlib
+    import re
+    src = (pathlib.Path(TB.__file__).parent.parent / "csrc" /
+           "block_sparse.cu").read_text()
+    kernels = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\)"
+                             r"\s*(\w+)\(", src))
+    named = {TB.kernel_body(dtype, d)
+             for dtype in (torch.float32, torch.bfloat16)
+             for d in (16, 64, 128, 192, 256, 320)}
+    assert named == kernels, (named, kernels)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TB.kernel_body(torch.float16, 64)

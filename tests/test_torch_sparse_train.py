@@ -65,12 +65,27 @@ def cfgs(**kw):
             TD.DALLEConfig(vae=TV.VAEConfig(**VAE_KW), **fields))
 
 
-@pytest.fixture(scope="module")
-def trees():
+def init_trees(**kw):
     key = jax.random.PRNGKey(0)
-    jcfg, _ = cfgs()
+    jcfg, _ = cfgs(**kw)
     vae = jax.device_get(JV.vae_init(jax.random.fold_in(key, 1), jcfg.vae))
     return jax.device_get(JD.dalle_init(key, jcfg, vae)), vae
+
+
+@pytest.fixture(scope="module")
+def trees():
+    return init_trees()
+
+
+# the tiny DALLE with its heads wider than 128: 2 heads of 192, the width
+# the wide bodies (K3's, and the flash kernels' of the dense layer) take
+# as they are, and their bfloat16 tensor-core bodies run on the card
+WIDE_HEADS = dict(heads=2, dim_head=192)
+
+
+@pytest.fixture(scope="module")
+def wide_trees():
+    return init_trees(**WIDE_HEADS)
 
 
 @pytest.fixture(scope="module")
@@ -100,11 +115,11 @@ def port_of(trees, tcfg):
             from_jax.vae_encoder_from_jax(vae, tcfg.vae, device="cpu"))
 
 
-@pytest.mark.parametrize("impl,block", [("ref", 4), ("windowed", 4),
-                                        ("pallas", 4), ("pallas", 16)])
-def test_sparse_loss_logits_and_gradients_match_jax(trees, batch_np, impl,
-                                                    block):
-    jcfg, tcfg = cfgs(sparse_impl=impl, sparse_block=block)
+def check_loss_logits_and_gradients(trees, batch_np, **kw):
+    """Eval logits, then the train-mode loss and every parameter's
+    gradient of the port's model against JAX's from the same weights, at
+    the module's tolerances; returns (model, its encoder, the batch)."""
+    jcfg, tcfg = cfgs(**kw)
     model, enc = port_of(trees, tcfg)
     dalle, vae = trees
     jb, tb = jbatch(batch_np), tbatch(batch_np)
@@ -131,6 +146,15 @@ def test_sparse_loss_logits_and_gradients_match_jax(trees, batch_np, impl,
                                    atol=2e-5, err_msg=name)
         n += 1
     assert n == len(want) > 20
+    return model, enc, tb
+
+
+@pytest.mark.parametrize("impl,block", [("ref", 4), ("windowed", 4),
+                                        ("pallas", 4), ("pallas", 16)])
+def test_sparse_loss_logits_and_gradients_match_jax(trees, batch_np, impl,
+                                                    block):
+    model, enc, tb = check_loss_logits_and_gradients(
+        trees, batch_np, sparse_impl=impl, sparse_block=block)
     # the sparse layer's attention gradient is not the dense one's
     dense = TD.DALLEConfig(vae=TV.VAEConfig(**VAE_KW),
                            **{**DALLE_KW, "sparse_attn": False})
@@ -141,6 +165,19 @@ def test_sparse_loss_logits_and_gradients_match_jax(trees, batch_np, impl,
         assert float((dict(dmodel.named_parameters())[qkv].grad
                       - dict(model.named_parameters())[qkv].grad)
                      .abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("block", [4, 16])
+def test_wide_head_sparse_loss_logits_and_gradients_match_jax(
+        wide_trees, batch_np, block):
+    """The block-sparse DALLE with 2 heads of 192 under
+    ``sparse_impl='pallas'``: K3's and the dense layer's flash kernels'
+    plain versions at a width above 128 against JAX's Pallas kernels in
+    interpret mode, loss, logits and every gradient at the module's
+    tolerances."""
+    check_loss_logits_and_gradients(wide_trees, batch_np,
+                                    sparse_impl="pallas",
+                                    sparse_block=block, **WIDE_HEADS)
 
 
 @pytest.mark.parametrize("impl", ["ref", "windowed", "pallas"])
