@@ -1,6 +1,8 @@
-"""Where the time of the tensor-core flash bodies goes, on one H100.
+"""Where the time of the tensor-core flash bodies and of K4's wide split
+body goes, on one H100.
 
-    python3 chip_flash_variants.py
+    python3 chip_flash_variants.py          # every kernel below
+    python3 chip_flash_variants.py k4       # K4's copies alone
 
 Builds edited copies of ``dalle_pytorch_tpu_torch/csrc/flash_attention.cu``
 side by side, each with one piece of the bfloat16 tensor-core bodies
@@ -81,7 +83,24 @@ tile copied), ``k3_no_score_products``, ``k3_no_output_products``,
 across it, against waiting for it within its iteration) and
 ``k3_one_group`` (at d 256 one warpgroup a query tile
 holding all of O, against two each computing S and P themselves and
-holding half of it).
+holding half of it). K4 (``K4_VARIANTS``, copies of
+``csrc/paged_attention.cu``, timed by ``k4_records`` at the wide serving
+shape, bf16 pages, 8 slots x 2 heads, dh 256, some at 8 heads and at a
+late serve step too, ``K4_SHAPES``): ``k4_wide_tree`` (the source as it is),
+``k4_wide_cuda_cores`` (bf16 and int8 pages above dh 128 routed back to
+the CUDA-core wide body at its own split size,
+``K4_ROUTED_TO_CUDA_CORES``: the "before" of the wide split body),
+``k4_cp_async_ring`` (each chunk's K and V by 16-byte ``cp.async``
+from every lane, as the narrow bodies copy theirs, instead of one
+lane's ``cp.async.bulk`` against an mbarrier a stage: the copy design
+the source left behind), ``k4_parallel_merge`` (the last block's merge
+with m and l a split a thread and the columns four splits at a time,
+against walking the splits in turn: no faster, left behind),
+``k4_stages4`` (4 stages a warp, one block an SM), ``k4_no_copies``,
+``k4_no_shuffles`` (the score's warp reduction) and ``k4_no_merge``
+(the last block's merge of the splits), each taken out, and the tree at
+other split sizes (``K4_SPLIT_ROWS``: 2, 8 and 16 pages of 16 a split,
+against the shipped 4).
 """
 
 from __future__ import annotations
@@ -604,6 +623,132 @@ BS_VARIANTS = {
 BS_CHECKED = ("k3_wide_tree", "wide_k3_cuda_cores", "k3_pv_under_next_s",
               "k3_one_group")
 BS_ROUTED_TO_CUDA_CORES = ("wide_k3_cuda_cores",)
+# K4 (csrc/paged_attention.cu) at the wide serving shape: edited copies
+# of its source, timed by k4_records; k4_wide_cuda_cores edits nothing
+# and has the wrapper route bf16 and int8 pages back to the CUDA-core wide
+# body (the "before" of the wide split body), the split sizes edit nothing
+# and set the wrapper's WIDE_SPLIT_ROWS
+K4_SOURCE = "paged_attention.cu"
+# the last block's merge with m and l a split a thread, reduced across
+# the block, and each thread's columns four splits at a time, against the
+# source's walk over the splits in turn (no faster: a design left behind)
+K4_PARALLEL_MERGE = {
+    """  const float* all = a.part + static_cast<size_t>(bhid) * splits * (dh + 2);
+  float gbig = kFill;
+  for (int sp = 0; sp < nlive; ++sp)
+    gbig = fmaxf(gbig, __ldcg(all + sp * (dh + 2) + dh));
+  float gacc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) gacc[j] = 0.f;
+  float gl = 0.f;
+  for (int sp = 0; sp < nlive; ++sp) {
+    const float* p = all + sp * (dh + 2);
+    const float fs = expf(__ldcg(p + dh) - gbig);
+    gl += __ldcg(p + dh + 1) * fs;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (tid + kThreads * j < dh)
+        gacc[j] += __ldcg(p + tid + kThreads * j) * fs;
+  }
+""": """  // the splits' m and l, a split a thread, reduced across the block (sM
+  // and sL are free again: every thread read them before the barriers
+  // above); then each thread's columns over the splits, the loads of four
+  // splits in flight
+  const float* all = a.part + static_cast<size_t>(bhid) * splits * (dh + 2);
+  float gbig = kFill;
+  for (int sp = tid; sp < nlive; sp += kThreads)
+    gbig = fmaxf(gbig, __ldcg(all + sp * (dh + 2) + dh));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    gbig = fmaxf(gbig, __shfl_xor_sync(kAll, gbig, o));
+  if (lane == 0) sM[warp] = gbig;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) gbig = fmaxf(gbig, sM[w]);
+  float gl = 0.f;
+  for (int sp = tid; sp < nlive; sp += kThreads) {
+    const float* p = all + sp * (dh + 2);
+    gl += __ldcg(p + dh + 1) * expf(__ldcg(p + dh) - gbig);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) gl += __shfl_xor_sync(kAll, gl, o);
+  if (lane == 0) sL[warp] = gl;
+  float gacc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) gacc[j] = 0.f;
+#pragma unroll 4
+  for (int sp = 0; sp < nlive; ++sp) {
+    const float* p = all + sp * (dh + 2);
+    const float fs = expf(__ldcg(p + dh) - gbig);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (tid + kThreads * j < dh)
+        gacc[j] += __ldcg(p + tid + kThreads * j) * fs;
+  }
+  __syncthreads();
+  gl = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) gl += sL[w];
+"""}
+K4_VARIANTS = {
+    "k4_wide_tree": {},
+    "k4_wide_cuda_cores": {},
+    # a chunk's K and V by 16-byte cp.async from every lane, as the narrow
+    # bodies take theirs, instead of one lane's bulk copies against an
+    # mbarrier a stage: the copy design the source left behind
+    "k4_cp_async_ring": {
+        "  const bool bulk = DH > 128 && kv_bytes % 16 == 0;":
+            "  const bool bulk = false;"},
+    "k4_parallel_merge": K4_PARALLEL_MERGE,
+    # 4 stages a warp at dh 256 (128 KB a block, one block an SM) instead
+    # of 2 (64 KB, three)
+    "k4_stages4": {"  static constexpr int kStages = kKVBytes <= 1024 ? 4 : 2;":
+                   "  static constexpr int kStages = kKVBytes <= 1024 || "
+                   "kKVBytes == 4096 ? 4 : 2;"},
+    # the pieces, each taken out (wrong values; their cost): the K and V
+    # copies (each stage's barrier armed for no bytes, so the wait still
+    # passes), the score's warp reduction, the last block's merge of the
+    # splits (the counter still reset)
+    "k4_no_copies": {
+        "          mbar_expect(bar, 2 * kv_bytes + (QUANT ? 2 * kChunk * 4 : 0));\n"
+        "          bulk_copy(dst, ksrc, kv_bytes, bar);\n"
+        "          bulk_copy(dst + S::kKVBytes, vsrc, kv_bytes, bar);\n"
+        "          if (QUANT) {\n":
+            "          mbar_expect(bar, 0);\n"
+            "          if (false) {\n"},
+    "k4_no_shuffles": {
+        "      for (int o = S::kLanes / 2; o > 0; o >>= 1)\n"
+        "        part += __shfl_xor_sync(kAll, part, o);\n":
+            "      for (int o = S::kLanes / 2; o > S::kLanes; o >>= 1)\n"
+            "        part += __shfl_xor_sync(kAll, part, o);\n"},
+    "k4_no_merge": {
+        "  if (!sLast) return;\n  __threadfence();\n"
+        "  const float* all = a.part + static_cast<size_t>(bhid) * splits * "
+        "(dh + 2);\n":
+            "  if (!sLast) return;\n"
+            "  if (tid == 0) a.counters[bhid] = 0;\n"
+            "  if (tid >= 0) return;\n"
+            "  const float* all = a.part + static_cast<size_t>(bhid) * splits "
+            "* (dh + 2);\n"},
+}
+K4_CHECKED = ("k4_wide_tree", "k4_wide_cuda_cores", "k4_cp_async_ring",
+              "k4_parallel_merge", "k4_stages4", "k4_split2", "k4_split8",
+              "k4_split16")
+K4_ROUTED_TO_CUDA_CORES = ("k4_wide_cuda_cores",)
+# the tree's library at other wide split sizes: rows a split
+K4_SPLIT_ROWS = {"k4_split2": 32, "k4_split8": 128, "k4_split16": 256}
+# (heads, the 8 slots' positions) of each K4 shape: the smoke's timed
+# serving case at 2 heads and at 8, and a late serve step at 2 heads (6
+# live slots near pos 1,100, the case WIDE_SPLIT_ROWS is sized for)
+K4_SHAPES = {"serving": (2, (0, 1, 15, 16, 17, 1279, 640, 1000)),
+             "heads8": (8, (0, 1, 15, 16, 17, 1279, 640, 1000)),
+             "late": (2, (1100, 1101, 1102, 1103, 1104, 1105, 0, 0))}
+# the variants timed at a shape other than "serving" (all of them there)
+K4_SHAPE_VARIANTS = {
+    "heads8": ("k4_wide_tree", "k4_wide_cuda_cores", "k4_cp_async_ring",
+               "k4_parallel_merge"),
+    "late": ("k4_wide_tree", "k4_wide_cuda_cores", "k4_cp_async_ring",
+             "k4_parallel_merge", "k4_split2", "k4_split8", "k4_split16")}
 # planted faults K2a's dq check must reject; not timed
 REJECTED = ("dq_drop_tile",)
 # (b, h, n, d) of each shape; d128: the north width as heads=4,
@@ -784,6 +929,61 @@ def k3_records(chip_smoke, libs) -> None:
         BS._entry, FA.wide_tensor_cores = entry, wide_tc
 
 
+def k4_records(chip_smoke, libs) -> None:
+    """K4's copies at the wide serving shape (bf16 pages, 8 slots x 2
+    heads, dh 256, page 16, L 1,280, ``chip_smoke.kernel_inputs``'
+    positions) and some of them at the other ``K4_SHAPES``
+    (``K4_SHAPE_VARIANTS``): held against the plain version where
+    ``K4_CHECKED`` (chip_smoke's K4 tolerances, bf16 1e-2), CUDA events
+    and profiler device us a launch of the K4 kernel the call ran; first
+    a line with each shape's bound."""
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    entry, wide_split, rows = PA._entry, PA.wide_split, PA.WIDE_SPLIT_ROWS
+    variants = {**{name: name for name in libs},
+                **{name: "k4_wide_tree" for name in K4_SPLIT_ROWS}}
+    try:
+        for shape, (heads, positions) in K4_SHAPES.items():
+            q, kp, vp, bt, pos, allowed, sc = chip_smoke.kernel_inputs(
+                torch.bfloat16, heads=heads, dh=256, positions=positions)
+            kw = dict(scale=512 ** -0.5, **sc)
+            args = (q, kp, vp, bt, pos, allowed)
+            want = PA.paged_decode_attention_plain(*args, **kw)
+            mag = PA.paged_decode_attention_plain(q, kp, vp.abs(), *args[3:],
+                                                  **kw)[0]
+            ms, by = chip_smoke.bound_ms(q, kp, pos, sc)
+            print(json.dumps({"kernel": "k4", "shape": shape,
+                              "heads": heads, "positions": positions,
+                              "bound_us": ms * 1e3, "bound_by": by}),
+                  flush=True)
+            for name, lib_name in variants.items():
+                if name not in K4_SHAPE_VARIANTS.get(shape, variants):
+                    continue
+                fn = libs[lib_name].paged_decode_attention
+                fn.argtypes, fn.restype = PA._ARGTYPES, ctypes.c_int
+                PA._entry = lambda fn=fn: fn
+                PA._COUNTERS.clear()
+                PA.wide_split = ((lambda kv_dtype, dh: False)
+                                 if name in K4_ROUTED_TO_CUDA_CORES
+                                 else wide_split)
+                PA.WIDE_SPLIT_ROWS = K4_SPLIT_ROWS.get(name, rows)
+                call = lambda: PA.paged_decode_attention(   # noqa: E731
+                    *args, **kw)
+                body = chip_smoke.launched_bodies(call, chip_smoke.K4_NAME)
+                record = {"variant": name, "kernel": "k4", "shape": shape,
+                          "body": body, "split_rows": PA.WIDE_SPLIT_ROWS}
+                if name in K4_CHECKED:
+                    record["max_abs_err"] = chip_smoke.partials_held(
+                        f"{name} K4", call(), want, mag, 1e-2, 1e-2)
+                record["k4_us"] = events_us(call, iters=200)
+                record["k4_device_us"] = chip_smoke.named_device_us(
+                    call, body[0] + "<", iters=50) if body else \
+                    "not measured"
+                print(json.dumps(record), flush=True)
+    finally:
+        PA._entry, PA.wide_split, PA.WIDE_SPLIT_ROWS = entry, wide_split, rows
+        PA._COUNTERS.clear()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_flash_variants: no CUDA device is visible",
@@ -793,6 +993,10 @@ def main() -> int:
     import chip_smoke
     from dalle_pytorch_tpu_torch.ops import build
     from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    k4_libs = build_variants(build, K4_SOURCE, K4_VARIANTS)
+    if sys.argv[1:] == ["k4"]:
+        k4_records(chip_smoke, k4_libs)
+        return card_line()
     libs = build_variants(build)
     bs_libs = build_variants(build, BS_SOURCE, BS_VARIANTS)
     for name, lib in libs.items():
@@ -870,6 +1074,11 @@ def main() -> int:
     finally:
         FA._entry, FA.wide_tensor_cores = entry, wide_tc
     k3_records(chip_smoke, bs_libs)
+    k4_records(chip_smoke, k4_libs)
+    return card_line()
+
+
+def card_line() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())

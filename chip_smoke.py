@@ -22,8 +22,11 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    the split walk (one long slot across five blocks beside short ones);
    timed with CUDA events beside the byte bound; then, untimed, dh 48
    (the dh-64 body reading rows at stride 48) in bfloat16 and int8, and
-   dh 192 and 256 (the wide body, slices of 128 acc columns) in bfloat16
-   and int8, bfloat16 dh 256 timed;
+   dh 160, 192 and 256 in bfloat16 and int8 on the wide split body (the
+   narrow body compiled for dh 256, rows at stride dh below it), the
+   profiler naming it for every case; dh 256 timed at 8 slots x 2 heads
+   (the wide serving shape) and 8 heads, beside the bound, the plain
+   version and the CUDA-core wide body it replaced (held first);
 3. decode — one full-width float32 decode step through the kernel
    against the dense gather (``paged_view`` + ``_gather_read``): h_out
    to 1e-4, then 64 greedy steps with identical tokens;
@@ -105,7 +108,9 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    its plain version and against the prefix walk over the same fully
    masked rows at the serving shapes (8 heads, dh 64, page 16, L 1280),
    positions 0, 1, 15, 16, 17, 63, 64, 65 and 1279, in float32, bfloat16
-   and int8 pages, with K4's tolerances; timed beside its byte bound;
+   and int8 pages, with K4's tolerances; timed beside its byte bound; and
+   in bfloat16 and int8 at 2 heads of 256 on the wide split body's
+   visible twin (named by the profiler), beside the CUDA-core wide body;
 10. sparse_train — the block-sparse north config at full depth (BASELINE
    config 4: depth 64, ``sparse_attn=(True, False) * 32``,
    ``sparse_impl='pallas'``, dense layers on the flash kernels with the
@@ -134,7 +139,18 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    requests of the ``engine`` phase: every result ok, K4's visible walk
    and its prefix walk each launched 6 x decode steps times, every page
    freed, and the ``engine`` phase's profile windows;
-13. generate — one-shot generation (``generate_images``) at the north
+13. wide_engine — serving at the north width split as heads=2,
+   dim_head=256 (``WIDE_SERVE``), depth 12: one bfloat16 decode step
+   through K4's wide split body against the gather oracle with bf16 and
+   int8 caches (h_out to 2e-2 of its norm); the bfloat16 engine on the
+   six requests of the ``engine`` phase with profile windows early and
+   late inside the run (ms a step, tokens/s, device ms, K4 ms and us a
+   launch, idle share): every result ok, K4 launched depth x decode
+   steps times, the profiles naming only the wide split body, every page
+   freed, a re-run request with the same tokens; then the sparse pattern
+   at the same width with ``sparse_reads=True`` on three requests: each
+   walk's launches, and the profiles naming the wide split body of both;
+14. generate — one-shot generation (``generate_images``) at the north
    width. A float32 dense-cache decode step against the paged path's
    gather oracle on the same 17-token prompt (h_out to 1e-4, then 64
    greedy steps with identical tokens); the reference CLIP at its
@@ -292,15 +308,15 @@ def phase_build() -> str:
 
 
 def kernel_inputs(dtype, page_size=16, slots=8, heads=8, dh=64,
-                  L=1280, seed=0):
+                  L=1280, seed=0, positions=(0, 1, 15, 16, 17, 1279, 640,
+                                             1000)):
     """North serving shapes: the engine's fully provisioned pool (8 slots
     x 80 pages + trash), one distinct page run per slot, ragged pos."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     mp = L // page_size
     P = slots * mp + 1
     dev = "cuda"
-    pos = torch.tensor([0, 1, 15, 16, 17, 1279, 640, 1000][:slots],
-                       dtype=torch.int32, device=dev)
+    pos = torch.tensor(positions[:slots], dtype=torch.int32, device=dev)
     perm = torch.randperm(P - 1, generator=g, device=dev) + 1
     bt = perm.reshape(slots, mp).to(torch.int32)
     need = (pos.long() + page_size - 1) // page_size
@@ -351,6 +367,46 @@ def bound_ms(q, kp, pos, scales) -> tuple:
     ps = kp.shape[2]
     pages = int(((pos.long() + ps - 1) // ps).sum())
     return walk_bound(q, kp, pages, pos.numel() * 4, scales)
+
+
+# the __global__ of a profiler's kernel name (namespace and template
+# arguments cut): K4's (as PA.kernel_body names them) and K3's
+K4_NAME = r"(paged_decode\w*?_kernel)<"
+K3_NAME = r"(block_sparse_\w+?_kernel)<"
+
+
+def launched_bodies(fn, pattern: str, calls: int = 12,
+                    attempts: int = 3) -> list:
+    """The ``__global__`` functions (``pattern``'s group) that ``calls``
+    profiled calls of ``fn`` ran. A session that records none (one may
+    drop the records of its first milliseconds) is tried again, up to
+    ``attempts``; then []."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({f for k in device_kernels(prof)
+                        for f in re.findall(pattern, k)})
+        if names:
+            return names
+    return []
+
+
+@contextlib.contextmanager
+def k4_cuda_core_route():
+    """K4's bfloat16 and int8 calls above dh 128 sent back to the
+    CUDA-core wide body, at its own split size: the "before" of the wide
+    split body, timed in the same run."""
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    wide_split = PA.wide_split
+    PA.wide_split = lambda kv_dtype, dh: False
+    try:
+        yield
+    finally:
+        PA.wide_split = wide_split
 
 
 def named_device_us(fn, name: str, iters: int = 20, warm: int = 4,
@@ -449,41 +505,75 @@ def phase_kernel() -> dict:
         results[f"{name}/dh48"] = {"max_abs_err": err}
         emit(phase="kernel", case=f"{name}/dh48", ok=True, rtol=rtol,
              atol=atol, max_abs_err=err)
-    # heads above 128: the wide body (slices of 128 acc columns), its
-    # prefix walk split across blocks as the narrow one's is; timed at
-    # bfloat16 dh 256
-    for dh in (192, 256):
+    # heads above 128: bfloat16 and int8 pages on the wide split body
+    # (dh 160 and 192 at stride dh), its prefix walk split into runs of
+    # WIDE_SPLIT_ROWS rows; timed at dh 256 with 2 heads (the wide serving
+    # shape, heads=2, dim_head=256) and 8 (8 slots x 8 heads), beside the
+    # CUDA-core wide body it replaces
+    for dh, heads in ((160, 8), (192, 8), (256, 8), (256, 2)):
         for name in ("bfloat16", "int8"):
             dtype, rtol, atol = cases[name]
-            q, kp, vp, bt, pos, allowed, sc = kernel_inputs(dtype, dh=dh)
-            kw = dict(scale=scale, **sc)
-            got = PA.paged_decode_attention(q, kp, vp, bt, pos, allowed,
-                                            **kw)
-            want = PA.paged_decode_attention_plain(q, kp, vp, bt, pos,
-                                                   allowed, **kw)
-            mag = PA.paged_decode_attention_plain(q, kp, vp.abs(), bt, pos,
-                                                  allowed, **kw)[0]
-            torch.cuda.synchronize()
-            check(got[0].shape == (8, 8, dh), f"K4 {name} dh {dh}: acc "
-                                              f"shape {tuple(got[0].shape)}")
-            err = partials_held(f"K4 {name} dh {dh}", got, want, mag, rtol,
-                                atol)
-            rec = {"max_abs_err": err}
-            if dh == 256 and name == "bfloat16":
-                call = lambda: PA.paged_decode_attention(   # noqa: E731
-                    q, kp, vp, bt, pos, allowed, **kw)
-                bms, by = bound_ms(q, kp, pos, sc)
-                rec.update(
-                    ms=cuda_ms(call, iters=100),
-                    device_us_per_launch=named_device_us(
-                        call, "paged_decode_wide", iters=50),
-                    plain_ms=cuda_ms(lambda: PA.paged_decode_attention_plain(
-                        q, kp, vp, bt, pos, allowed, **kw), iters=20),
-                    bound_ms=bms, bound_by=by)
-            results[f"{name}/dh{dh}"] = rec
-            emit(phase="kernel", case=f"{name}/dh{dh}", ok=True, rtol=rtol,
-                 atol=atol, **rec)
+            key = f"{name}/dh{dh}" + ("" if heads == 8 else f"/h{heads}")
+            rec = wide_case(key, dtype, rtol, atol, dh, heads,
+                            timed=dh == 256)
+            results[key] = rec
+            emit(phase="kernel", case=key, ok=True, rtol=rtol, atol=atol,
+                 **rec)
     return results
+
+
+def wide_case(key, dtype, rtol, atol, dh: int, heads: int,
+              timed: bool) -> dict:
+    """K4's prefix walk at 128 < dh <= 256 on the serving shapes of
+    ``kernel_inputs``, against its plain version with K4's tolerances,
+    the pos-0 slot's (0, FILL, 0) exactly, the kernel the profiler saw
+    the one ``PA.kernel_body`` names (the wide split body); timed: CUDA
+    events and profiler device us a launch beside the bound and the
+    plain version, and the CUDA-core wide body's the same way, held
+    first to the same tolerances."""
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    q, kp, vp, bt, pos, allowed, sc = kernel_inputs(dtype, heads=heads,
+                                                    dh=dh)
+    kw = dict(scale=512 ** -0.5, **sc)
+    call = lambda: PA.paged_decode_attention(   # noqa: E731
+        q, kp, vp, bt, pos, allowed, **kw)
+    plain = lambda: PA.paged_decode_attention_plain(   # noqa: E731
+        q, kp, vp, bt, pos, allowed, **kw)
+    got, want = call(), plain()
+    mag = PA.paged_decode_attention_plain(q, kp, vp.abs(), bt, pos, allowed,
+                                          **kw)[0]
+    torch.cuda.synchronize()
+    check(got[0].shape == (8, heads, dh), f"K4 {key}: acc shape "
+                                          f"{tuple(got[0].shape)}")
+    err = partials_held(f"K4 {key}", got, want, mag, rtol, atol)
+    check(float(got[1][0, 0]) == PA.FILL and float(got[2][0].abs().max())
+          == 0.0 and float(got[0][0].abs().max()) == 0.0,
+          f"K4 {key}: the pos-0 slot must return (0, FILL, 0)")
+    body = PA.kernel_body(kp.dtype, dh)
+    ran = launched_bodies(call, K4_NAME)
+    check(ran == [body] and PA.wide_split(kp.dtype, dh),
+          f"K4 {key}: ran {ran}, not [{body}]")
+    rec = {"max_abs_err": err, "body": body}
+    if not timed:
+        return rec
+    bms, by = bound_ms(q, kp, pos, sc)
+    ms = cuda_ms(call, iters=200)
+    rec.update(ms=ms, us_per_launch=ms * 1e3,
+               device_us_per_launch=named_device_us(call, body + "<",
+                                                    iters=50),
+               plain_ms=cuda_ms(plain, iters=20), bound_ms=bms, bound_by=by,
+               bound_us=bms * 1e3)
+    rec["plain_us"] = rec["plain_ms"] * 1e3
+    with k4_cuda_core_route():
+        old = "paged_decode_wide_kernel"
+        ran = launched_bodies(call, K4_NAME)
+        check(ran == [old], f"K4 {key}: the CUDA-core route ran {ran}")
+        rec["cuda_core_max_abs_err"] = partials_held(
+            f"K4 {key} CUDA-core body", call(), want, mag, rtol, atol)
+        rec["cuda_core_us_per_launch"] = cuda_ms(call, iters=100) * 1e3
+        rec["cuda_core_device_us_per_launch"] = named_device_us(
+            call, old + "<", iters=50)
+    return rec
 
 
 def phase_decode() -> None:
@@ -581,6 +671,8 @@ def profile_window(engine, chunks: int) -> dict:
     vis_us = sum(us for us, _ in vis)
     device_ms = total_us / 1e3 / steps
     out.update(device_ms_per_step=device_ms,
+               k4_bodies=sorted({f for k in kernels
+                                 for f in re.findall(K4_NAME, k)}),
                k4_ms_per_step=k4_us / 1e3 / steps,
                k4_us_per_launch=k4_us / max(1, sum(n for _, n in k4)),
                k4_share_of_device=k4_us / total_us,
@@ -607,6 +699,18 @@ def profile_decode(engine, queue, reqs, want_tokens, chunks: int = 4,
     at a long position), since K4's work grows with the positions. The
     re-run must give every request's tokens again."""
     handles = [queue.submit(r) for r in reqs]
+    prof = profile_run(engine, chunks, late_chunk)
+    for h, want in zip(handles, want_tokens):
+        res = h.result(timeout=0)
+        check(res.ok and list(res.tokens) == list(want),
+              f"re-run request {res.request_id} gave other tokens")
+    return prof
+
+
+def profile_run(engine, chunks: int = 4, late_chunk: int = 110) -> dict:
+    """The engine's submitted requests run to their end, admitted by the
+    first step, with a ``profile_window`` early (after two steady
+    chunks) and late (from chunk ``late_chunk``)."""
     base = engine.decode_steps          # a slot's pos is its prompt length
     for _ in range(3):                  # plus the steps since admission
         engine.step_once()
@@ -617,10 +721,6 @@ def profile_decode(engine, queue, reqs, want_tokens, chunks: int = 4,
     for w in (early, late):
         w["first_step"] -= base
     engine.run_until_idle()
-    for h, want in zip(handles, want_tokens):
-        res = h.result(timeout=0)
-        check(res.ok and list(res.tokens) == list(want),
-              f"re-run request {res.request_id} gave other tokens")
     return {"early": early, "late": late}
 
 
@@ -1414,22 +1514,8 @@ def sparse_case(dtype, masked: bool, timed: bool, causal: bool = True,
 
 def sparse_bodies(fn, calls: int = 12, attempts: int = 3) -> list:
     """The K3 ``__global__`` functions that ``calls`` profiled calls of
-    ``fn`` ran (as ``BS.kernel_body`` names them). A session that records
-    none (one may drop the records of its first milliseconds) is tried
-    again, up to ``attempts``; then []."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(attempts):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        names = sorted({f for k in device_kernels(prof)
-                        for f in re.findall(r"(block_sparse_\w+?_kernel)<",
-                                            k)})
-        if names:
-            return names
-    return []
+    ``fn`` ran (as ``BS.kernel_body`` names them)."""
+    return launched_bodies(fn, K3_NAME, calls, attempts)
 
 
 def sparse_bwd_check() -> dict:
@@ -1516,9 +1602,14 @@ def visible_bound(q, kp, walk, scales) -> tuple:
                       scales)
 
 
-def visible_case(name, dtype, rtol, atol) -> dict:
+def visible_case(name, dtype, rtol, atol, heads=8, dh=64) -> dict:
+    """K4's visible walk at ``visible_inputs``' shapes against its plain
+    version, and the prefix walk over the same rows, with K4's
+    tolerances; timed beside its bound. Above dh 128 the profiler must
+    name the wide split body, and the CUDA-core wide body it replaces is
+    held and timed too."""
     from dalle_pytorch_tpu_torch.ops import paged_attention as PA
-    args, sc, walk = visible_inputs(dtype)
+    args, sc, walk = visible_inputs(dtype, heads=heads, dh=dh)
     kw = dict(scale=FLASH_SCALE, **sc)
     got = PA.paged_decode_attention(*args, **kw, **walk)
     prefix = PA.paged_decode_attention(*args, **kw)
@@ -1534,19 +1625,30 @@ def visible_case(name, dtype, rtol, atol) -> dict:
           and float(got[2][0].abs().max()) == 0.0,
           f"K4 visible {name}: the pos-0 slot must return (0, FILL, 0)")
     bms, by = visible_bound(args[0], args[1], walk, sc)
-    return {"max_abs_err": err, "rtol": rtol, "atol": atol,
-            "pages_walked": int(walk["visible_cnt"].sum()),
-            "ms": cuda_ms(lambda: PA.paged_decode_attention(*args, **kw,
-                                                             **walk),
-                          iters=200),
-            "device_us_per_launch": named_device_us(
-                lambda: PA.paged_decode_attention(*args, **kw, **walk),
-                "paged_decode_visible", iters=50),
-            "prefix_walk_ms": cuda_ms(lambda: PA.paged_decode_attention(
-                *args, **kw), iters=200),
-            "plain_ms": cuda_ms(lambda: PA.paged_decode_attention_plain(
-                *args, **kw, **walk), iters=50),
-            "bound_ms": bms, "bound_by": by}
+    call = lambda: PA.paged_decode_attention(*args, **kw,   # noqa: E731
+                                             **walk)
+    body = PA.kernel_body(args[1].dtype, dh, visible=True)
+    rec = {"max_abs_err": err, "rtol": rtol, "atol": atol,
+           "pages_walked": int(walk["visible_cnt"].sum()),
+           "ms": cuda_ms(call, iters=200),
+           "device_us_per_launch": named_device_us(call, body + "<",
+                                                   iters=50),
+           "prefix_walk_ms": cuda_ms(lambda: PA.paged_decode_attention(
+               *args, **kw), iters=200),
+           "plain_ms": cuda_ms(lambda: PA.paged_decode_attention_plain(
+               *args, **kw, **walk), iters=50),
+           "bound_ms": bms, "bound_by": by}
+    if dh > 128:
+        ran = launched_bodies(call, K4_NAME)
+        check(ran == [body], f"K4 visible {name}: ran {ran}, not [{body}]")
+        rec["body"] = body
+        with k4_cuda_core_route():
+            rec["cuda_core_max_abs_err"] = partials_held(
+                f"K4 visible {name} CUDA-core body", call(), want, mag,
+                rtol, atol)
+            rec["cuda_core_device_us_per_launch"] = named_device_us(
+                call, "paged_decode_wide_kernel<", iters=50)
+    return rec
 
 
 def phase_sparse_kernels() -> dict:
@@ -1591,6 +1693,15 @@ def phase_sparse_kernels() -> dict:
         rec = visible_case(name, dtype, rtol, atol)
         results["k4_visible"][name] = rec
         emit(phase="sparse_kernels", kernel="K4 visible", case=name, ok=True,
+             **rec)
+        if dtype == torch.float32:
+            continue
+        # the wide serving width, heads=2, dim_head=256: the wide split
+        # body's visible twin
+        key = f"{name}/dh256/h2"
+        rec = visible_case(key, dtype, rtol, atol, heads=2, dh=256)
+        results["k4_visible"][key] = rec
+        emit(phase="sparse_kernels", kernel="K4 visible", case=key, ok=True,
              **rec)
     return results
 
@@ -1948,6 +2059,176 @@ def phase_sparse_engine() -> dict:
     return record
 
 
+# -- serving at heads=2, dim_head=256: K4's wide split body -------------------
+
+WIDE_SERVE = dict(heads=2, dim_head=256)
+
+
+def wide_serve_cfg(**kw):
+    import dataclasses
+    return dataclasses.replace(north_cfg(), **WIDE_SERVE, **kw)
+
+
+def wide_decode_check() -> dict:
+    """bfloat16, full width at ``WIDE_SERVE``: one ``decode_step_paged``
+    through K4 (the wide split body) against the gather oracle
+    (``attn_impl='gather'``), with random bf16 pages and with the same
+    rows as an int8 cache (quantized per row as the engine quantizes
+    them), at the ``decode`` phase's positions. h_out is held to 2e-2 of
+    its norm (relative Frobenius error): the oracle's scores and softmax
+    are bf16 (``_gather_read`` computes in q's dtype) where the kernel's
+    are f32, and every layer rounds its activations to bf16 on both
+    sides, so the two differ by a few bf16 roundings (2^-8 relative
+    each) compounded over the 12 layers, not by one. K4 must launch once
+    a layer on the wide split body."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import decode as decode_ops
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    cfg = wide_serve_cfg()
+    tcfg = cfg.transformer
+    model = D.dalle_init(cfg, seed=1, dtype=torch.bfloat16)
+    slots, ps, L = 8, 16, cfg.seq_len
+    mp = -(-L // ps)
+    P = slots * mp + 1
+    g = torch.Generator(device="cuda").manual_seed(2)
+    shape = (tcfg.depth, P, tcfg.heads, ps, tcfg.dim_head)
+    bf16 = {n: torch.randn(shape, generator=g, device="cuda")
+            .to(torch.bfloat16) for n in ("k", "v")}
+    # the same rows quantized as the engine's int8 cache holds them
+    pools = {"bfloat16": bf16,
+             "int8": decode_ops._rows(bf16["k"], bf16["v"], True)}
+    bt = (torch.arange(P - 1, device="cuda") + 1).reshape(slots, mp) \
+        .to(torch.int32)
+    pos = torch.tensor([0, 1, 15, 16, 17, 300, 640, 1000],
+                       dtype=torch.int32, device="cuda")
+    key_mask = torch.ones((slots, L), dtype=torch.bool, device="cuda")
+    active = torch.ones((slots,), dtype=torch.bool, device="cuda")
+    tok = torch.randint(0, cfg.num_text_tokens, (slots,), generator=g,
+                        device="cuda").to(torch.int32)
+    kw = dict(cfg=tcfg, key_mask=key_mask, active=active)
+    out = {}
+    with torch.no_grad():
+        x = D.decode_token_embed(model, tok, pos)
+        for name, pool in pools.items():
+            oracle = {k: v.clone() for k, v in pool.items()}
+            before = PA.paged_decode_attention.launches
+            step = lambda: decode_ops.decode_step_paged(   # noqa: E731
+                model.transformer, x, pos, pool, bt, **kw)
+            h_k = step()
+            launched = PA.paged_decode_attention.launches - before
+            h_g = decode_ops.decode_step_paged(model.transformer, x, pos,
+                                               oracle, bt,
+                                               attn_impl="gather", **kw)
+            torch.cuda.synchronize()
+            rel = float((h_k.float() - h_g.float()).norm()
+                        / h_g.float().norm())
+            check(launched == tcfg.depth and rel <= 2e-2
+                  and bool(torch.isfinite(h_k).all()),
+                  f"wide decode step ({name} cache): K4 launched {launched}"
+                  f" times, h_out off the gather oracle by {rel:.3e} of "
+                  f"its norm")
+            body = PA.kernel_body(pool["k"].dtype, tcfg.dim_head)
+            ran = launched_bodies(step, K4_NAME, calls=2)
+            check(ran == [body], f"wide decode step ({name} cache): K4 "
+                                 f"ran {ran}, not [{body}]")
+            out[name] = {"h_out_rel_err": rel, "rel_tol": 2e-2,
+                         "max_abs_h_diff": float((h_k.float() - h_g.float())
+                                                 .abs().max()),
+                         "body": body}
+    return out
+
+
+def serve_wide(cfg, reqs, sparse_reads: bool) -> dict:
+    """The bfloat16 engine at ``cfg`` on ``reqs`` (8 slots, K = 8, page
+    16), profiled early and late inside its one run: every result ok,
+    each walk's K4 launches (the visible walk in the sparse layers, the
+    prefix walk in the others) = its layers x decode steps, every page
+    freed, and the profiles naming the wide split body of each walk that
+    ran, nothing else of K4."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    from dalle_pytorch_tpu_torch.serve.postprocess import PostProcessor
+    n_sparse = sum(cfg.transformer.sparse_pattern) if sparse_reads else 0
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+    post = PostProcessor(vae, model)
+    queue = S.RequestQueue(max_prompt_len=cfg.text_seq_len)
+    engine = Engine(model, queue, num_slots=8, chunk_steps=8, page_size=16,
+                    sparse_reads=sparse_reads, complete=post)
+    check(engine.num_pages == 1 + 8 * 80, "pool must be 1 + 8*80 pages")
+    handles = [queue.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    PA.paged_decode_attention.launches = 0
+    PA.paged_decode_attention.visible_launches = 0
+    t0 = time.perf_counter()
+    prof = profile_run(engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"visible": PA.paged_decode_attention.visible_launches,
+                "prefix": PA.paged_decode_attention.launches}
+    results = [h.result(timeout=0) for h in handles]
+    check_engine_results(cfg, reqs, results)
+    steps = engine.decode_steps
+    check(launches["visible"] == n_sparse * steps
+          and launches["prefix"] == (cfg.depth - n_sparse) * steps,
+          f"K4 launched {launches} times over {steps} decode steps, "
+          f"expected {n_sparse} visible and {cfg.depth - n_sparse} prefix "
+          f"walks a step")
+    check(engine.alloc.in_use == 0, f"{engine.alloc.in_use} pages leaked")
+    want = sorted(PA.kernel_body(engine.pool["k"].dtype, cfg.dim_head, vis)
+                  for vis, n in ((True, n_sparse),
+                                 (False, cfg.depth - n_sparse)) if n)
+    for name, window in prof.items():
+        check(window.get("k4_bodies") == want,
+              f"{name} window: K4 ran {window.get('k4_bodies')}, not {want}")
+    stats = engine.stats()
+    return dict(requests=len(reqs), wall_s=wall, decode_steps=steps,
+                ms_per_decode_step=wall * 1e3 / steps,
+                tokens_per_s=stats["tokens_decoded"] / wall,
+                image_tokens_per_s=len(reqs) * cfg.image_seq_len / wall,
+                harvests=stats["harvests"], pages_peak=stats["pages_peak"],
+                kv_read_bytes_per_token=stats["kv_read_bytes_per_token"],
+                k4_launches=launches, k4_bodies=want, profile=prof,
+                tokens=[list(r.tokens) for r in results], engine=engine,
+                queue=queue)
+
+
+def phase_wide_engine() -> dict:
+    """Serving at ``WIDE_SERVE`` (the north width as heads=2,
+    dim_head=256), full depth: the bf16 decode check, then the engine on
+    the six requests of the ``engine`` phase (the wall includes its two
+    profile windows), a re-run of the 256-token request alone with the
+    same tokens, every page freed; then with the sparse pattern at depth
+    12 and ``sparse_reads=True`` on three of them (prompts of 1, 17 and
+    256 tokens; no re-run, to keep the smoke's time)."""
+    record = {"decode_bf16": wide_decode_check()}
+    emit(phase="wide_engine", check="decode_bf16", ok=True,
+         **record["decode_bf16"])
+    cfg = wide_serve_cfg()
+    reqs = engine_requests(cfg)
+    dense = serve_wide(cfg, reqs, sparse_reads=False)
+    engine, queue = dense.pop("engine"), dense.pop("queue")
+    again = queue.submit(reqs[2])
+    engine.run_until_idle()
+    check(again.result(timeout=0).ok and list(again.result().tokens)
+          == dense["tokens"][2], "wide engine: re-run request gave other "
+                                 "tokens")
+    check(engine.alloc.in_use == 0, "pages leaked after the re-run")
+    del dense["tokens"], engine, queue
+    record["dense"] = dense
+    emit(phase="wide_engine", engine="dense", ok=True, **dense)
+    scfg = wide_serve_cfg(sparse_attn=(True, False) * 6)
+    sparse = serve_wide(scfg, engine_requests(scfg)[:3], sparse_reads=True)
+    for k in ("engine", "queue", "tokens"):
+        sparse.pop(k)
+    record["sparse_reads"] = sparse
+    emit(phase="wide_engine", engine="sparse_reads", ok=True, **sparse)
+    return record
+
+
 # -- one-shot generation: dense KV decode, guidance, int8, the CLIP rerank ---
 
 def dense_decode_check() -> dict:
@@ -2219,6 +2500,7 @@ def main() -> int:
     sparse_train = phase_sparse_train()
     wide_sparse_train = phase_wide_sparse_train()
     sparse_engine = phase_sparse_engine()
+    wide_engine = phase_wide_engine()
     generate = phase_generate()
     main_case = kernel["bfloat16"]
     rows = [{
@@ -2332,6 +2614,22 @@ def main() -> int:
         "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
         "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
         "library_ms": k3c["sdpa_masked_ms"]})
+    # K4's wide split body at the wide serving shape (bfloat16 pages, 8
+    # slots, heads=2, dim_head=256), both walks, launched by wide_engine
+    for name, rec, walk, engine in (
+            ("paged_decode_attention_wide", kernel["bfloat16/dh256/h2"],
+             "prefix", "dense"),
+            ("paged_decode_attention_visible_wide",
+             sparse["k4_visible"]["bfloat16/dh256/h2"], "visible",
+             "sparse_reads")):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_pytorch_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "dalle_pytorch_tpu/ops/paged_attention.py:88",
+            "launches": wide_engine[engine]["k4_launches"][walk],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

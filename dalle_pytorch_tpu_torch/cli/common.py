@@ -87,7 +87,9 @@ def _warmup_cosine(peak: float, warmup: int, decay_steps: int,
 class Optimizer:
     """Adam under a schedule, with an optional global-norm clip. ``step``
     applies the gradients the parameters hold, advances the schedule and
-    clears the gradients."""
+    clears the gradients. ``step(lr_scale=s)`` scales that one update by
+    ``s``: for Adam, exactly optax's updates times ``s``, as JAX's
+    ``make_train_step`` applies ``batch['lr_scale']``."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  schedule: Callable[[int], float], clip: float = 0.0):
@@ -98,11 +100,11 @@ class Optimizer:
         self.adam = torch.optim.Adam(self.params, lr=schedule(0),
                                      betas=(0.9, 0.999), eps=1e-8)
 
-    def step(self) -> None:
+    def step(self, lr_scale: float = 1.0) -> None:
         if self.clip > 0:
             torch.nn.utils.clip_grad_norm_(self.params, self.clip)
         for group in self.adam.param_groups:
-            group["lr"] = self.schedule(self.count)
+            group["lr"] = self.schedule(self.count) * lr_scale
         self.adam.step()
         self.adam.zero_grad(set_to_none=True)
         self.count += 1

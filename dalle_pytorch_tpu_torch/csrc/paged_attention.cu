@@ -32,8 +32,13 @@
 //     chunk's K (or V) rows are one contiguous run of 8 dh elements, so
 //     they still arrive by 16-byte copies when that run's length is a
 //     multiple of 16 bytes, by 8-byte copies otherwise;
-//   * any dh above 128: the wide body (paged_decode_wide_kernel, below),
-//     on CUDA cores, one slice of 128 acc columns a block.
+//   * dh 129 to 256 with bfloat16 or int8 pages: the same body compiled
+//     for dh 256 (paged_decode_wide_split_kernel and its visible twin,
+//     paged_decode_visible_wide_split_kernel; dh below 256 read at stride
+//     dh, as above), with shorter splits (see "Wide heads" below);
+//   * float32 pages above dh 128, and any dh above 256: the CUDA-core wide
+//     body (paged_decode_wide_kernel, below), one slice of 128 acc columns
+//     a block.
 //
 // Bound: bytes. A launch must read the walked pages of K and V, about
 // sum over slots of ceil(pos/16)*16 * heads * dh * 2 * itemsize (6.2 MB,
@@ -66,6 +71,38 @@
 //     that block resets) merges them with the same two-estimate rescale,
 //     so one launch still does the whole walk. A slot whose walk fits one
 //     split writes its partials directly.
+//
+// Wide heads (128 < dh <= 256, bfloat16 or int8 pages). The TPU kernel's
+// block is one (slot, head) over the whole head; so is this body's: a
+// block owns a (slot, head, split) over all dh columns, so each K row is
+// read once and each score computed once. Decode attention stays one query
+// against the cache, ~2 flops a byte with no K/V shared across heads to
+// batch, so the tensor cores have nothing to do: the design is about bytes
+// in flight and the grid's fill.
+//   * A lane holds 16 bytes of q and of acc: at bfloat16 dh 256, 32 lanes
+//     of 8 elements, one row a pass (8 passes a chunk), its score reduced
+//     over the whole warp; at int8, 16 lanes of 16, two rows a pass. dh
+//     129 to 255 runs the dh-256 body with rows at stride dh (24 lanes at
+//     bfloat16 dh 192 would break the power-of-two reductions); the copies
+//     still move only the real bytes.
+//   * Copies: an 8-row chunk's K and V (4 KB each at bfloat16 dh 256,
+//     one contiguous run of the pool each) arrive by two 1-D bulk copies
+//     (cp.async.bulk, Hopper's TMA without a tensor map) that one lane
+//     issues against the stage's mbarrier, in a ring of 2 stages a warp:
+//     4 warps x 2 x 8 KB = 64 KB, three blocks an SM, every chunk of a
+//     4-page split in flight at once. (Every lane's 16-byte cp.async, as
+//     the narrow bodies copy, was slower in the same run.)
+//   * Split size (ops/paged_attention.py::pages_per_split, WIDE_SPLIT_ROWS
+//     = 64 rows, 4 pages of 16): at 2 heads a serve step has few (slot,
+//     head) pairs. Late in a request, 6 live slots near pos 1,100 (~69
+//     pages each) x 2 heads give 12 x ceil(69 / 16) = 60 blocks at the
+//     narrow 16 pages a split, under half of the 132 SMs, each walking
+//     256 KB; 4 pages a split give 12 x 18 = 216 blocks of 64 KB, more
+//     than one an SM. The merge of the longest slot's splits (20 at pos
+//     1,279) reads 20 x 258 floats in the last block.
+//   * Bound: bytes, the same 6.2 MB as the narrow dh-64 case at the
+//     smoke's 8 slots (2 heads x 256 = 8 x 64): 1.85 us at 3.35 TB/s.
+//   * The merge loops over dh in steps of the block's 128 threads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +125,42 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
+}
+
+// 1-D bulk copies (Hopper's TMA without a tensor map): one thread arms a
+// stage's mbarrier with the bytes it expects and issues the copies, which
+// complete on it; the warp waits on the barrier's phase
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// until the barrier has completed the phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
 }
 
 // the 16 bytes at `p` as 16 / sizeof(T) floats
@@ -120,6 +193,13 @@ __device__ __forceinline__ void row_piece(const uint8_t* row, int sub, int dh,
                                           float (&f)[N]) {
   if constexpr (EXACT) {
     unpack<T>(row + 16 * sub, f);
+  } else if (dh % N == 0) {         // rows start on 16 bytes: whole pieces
+    if (sub * N < dh) {
+      unpack<T>(row + 16 * sub, f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) f[e] = 0.f;
+    }
   } else {
     const T* p = reinterpret_cast<const T*>(row) + sub * N;
 #pragma unroll
@@ -247,8 +327,24 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   const int nchunks = npages * per_page;
   const uint8_t* kp = static_cast<const uint8_t*>(a.k_pages);
   const uint8_t* vp = static_cast<const uint8_t*>(a.v_pages);
+  // the wide split body (DH 256) takes a chunk's K and V runs (and the
+  // int8 scales) by bulk copies, issued by lane 0 against an mbarrier a
+  // stage, where their length allows (a multiple of 16 bytes: every dh at
+  // bfloat16, even dh at int8); the narrow bodies by cp.async from every
+  // lane
+  const bool bulk = DH > 128 && kv_bytes % 16 == 0;
+  __shared__ __align__(8) uint64_t sBar[kWarps][S::kStages];
+  if (bulk) {
+    if (lane == 0) {
+#pragma unroll
+      for (int st = 0; st < S::kStages; ++st)
+        mbar_init(wg::smem_addr(&sBar[warp][st]));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+  }
   // chunk c of the split into stage `stage` of this warp's ring: one copy
-  // group, maybe empty
+  // group, maybe empty, or (bulk) one phase of the stage's barrier
   auto load_chunk = [&](int c, int stage) {
     if (c < nchunks) {
       // first row of the chunk in the pool (P, heads, page_size, dh)
@@ -258,7 +354,23 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
       const uint32_t dst = wg::smem_addr(ring + stage * S::kStageBytes);
       const uint8_t* ksrc = kp + row0 * row_bytes;
       const uint8_t* vsrc = vp + row0 * row_bytes;
-      if (EXACT || kv_bytes % 16 == 0) {
+      if (bulk) {
+        if (lane == 0) {
+          const uint32_t bar = wg::smem_addr(&sBar[warp][stage]);
+          // the warp's reads of the stage's last chunk (generic proxy)
+          // before the copies' writes (async proxy)
+          wg::fence_async_shared();
+          mbar_expect(bar, 2 * kv_bytes + (QUANT ? 2 * kChunk * 4 : 0));
+          bulk_copy(dst, ksrc, kv_bytes, bar);
+          bulk_copy(dst + S::kKVBytes, vsrc, kv_bytes, bar);
+          if (QUANT) {
+            bulk_copy(dst + 2 * S::kKVBytes, a.k_scales + row0, kChunk * 4,
+                      bar);
+            bulk_copy(dst + 2 * S::kKVBytes + kChunk * 4, a.v_scales + row0,
+                      kChunk * 4, bar);
+          }
+        }
+      } else if (EXACT || kv_bytes % 16 == 0) {
         for (int i = lane; i < kv_bytes / 16; i += 32) {
           wg::cp_async16(dst + 16 * i, ksrc + 16 * i, true);
           wg::cp_async16(dst + S::kKVBytes + 16 * i, vsrc + 16 * i, true);
@@ -269,7 +381,7 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
           wg::cp_async8(dst + S::kKVBytes + 8 * i, vsrc + 8 * i);
         }
       }
-      if (QUANT && lane < 4) {
+      if (QUANT && !bulk && lane < 4) {
         const float* src = (lane < 2 ? a.k_scales : a.v_scales) + row0 +
                            4 * (lane % 2);
         wg::cp_async16(dst + 2 * S::kKVBytes + 16 * lane, src, true);
@@ -293,7 +405,11 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   float l = 0.f;     // this lane's rows' share
 
   for (int i = 0, c = warp; c < nchunks; ++i, c += kWarps) {
-    wg::cp_async_wait<S::kStages - 1>();   // chunk c has landed
+    if (bulk)                              // chunk c has landed
+      mbar_wait(wg::smem_addr(&sBar[warp][i % S::kStages]),
+                (i / S::kStages) & 1);
+    else
+      wg::cp_async_wait<S::kStages - 1>();
     __syncwarp();                          // ... for every lane
     const uint8_t* st = ring + (i % S::kStages) * S::kStageBytes;
     const float* ksc = reinterpret_cast<const float*>(st + 2 * S::kKVBytes);
@@ -378,14 +494,23 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
     f[w] = expf(sM[w] - big);
     total += sL[w] * f[w];
   }
-  float out = 0.f;
-  if (tid < DH) {
+  // acc columns a thread merges: column tid + kThreads * j
+  constexpr int kCols = (DH + kThreads - 1) / kThreads;
+  float out[kCols];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) out += sAcc[w][tid] * f[w];
+  for (int j = 0; j < kCols; ++j) {
+    const int col = tid + kThreads * j;
+    out[j] = 0.f;
+    if (col < DH) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) out[j] += sAcc[w][col] * f[w];
+    }
   }
   const size_t so = static_cast<size_t>(slot) * a.heads + h;
   if (nlive == 1) {
-    if (tid < dh) a.acc[qh + tid] = out;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (tid + kThreads * j < dh) a.acc[qh + tid + kThreads * j] = out[j];
     if (tid == 0) {
       a.m[so] = big;
       a.l[so] = total;
@@ -397,7 +522,9 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   // the (slot, head) to finish merges them all
   float* mine = a.part + (static_cast<size_t>(bhid) * splits + split) *
                              (dh + 2);
-  if (tid < dh) mine[tid] = out;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j)
+    if (tid + kThreads * j < dh) mine[tid + kThreads * j] = out[j];
   if (tid == 0) {
     mine[dh] = big;
     mine[dh + 1] = total;
@@ -412,14 +539,22 @@ __device__ __forceinline__ void paged_decode_body(const Args& a) {
   float gbig = kFill;
   for (int sp = 0; sp < nlive; ++sp)
     gbig = fmaxf(gbig, __ldcg(all + sp * (dh + 2) + dh));
-  float gacc = 0.f, gl = 0.f;
+  float gacc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) gacc[j] = 0.f;
+  float gl = 0.f;
   for (int sp = 0; sp < nlive; ++sp) {
     const float* p = all + sp * (dh + 2);
     const float fs = expf(__ldcg(p + dh) - gbig);
     gl += __ldcg(p + dh + 1) * fs;
-    if (tid < dh) gacc += __ldcg(p + tid) * fs;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (tid + kThreads * j < dh)
+        gacc[j] += __ldcg(p + tid + kThreads * j) * fs;
   }
-  if (tid < dh) a.acc[qh + tid] = gacc;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j)
+    if (tid + kThreads * j < dh) a.acc[qh + tid + kThreads * j] = gacc[j];
   if (tid == 0) {
     a.m[so] = gbig;
     a.l[so] = gl;
@@ -440,12 +575,32 @@ __global__ void __launch_bounds__(kThreads)
   paged_decode_body<TQ, TKV, DH, QUANT, true, EXACT>(a);
 }
 
+// the same body for 128 < dh <= 256 (bfloat16 or int8 pages), named apart
+// from the narrow walks and from the CUDA-core wide body
+template <typename TQ, typename TKV, bool QUANT, bool EXACT>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_wide_split_kernel(Args a) {
+  paged_decode_body<TQ, TKV, 256, QUANT, false, EXACT>(a);
+}
+
+template <typename TQ, typename TKV, bool QUANT, bool EXACT>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_visible_wide_split_kernel(Args a) {
+  paged_decode_body<TQ, TKV, 256, QUANT, true, EXACT>(a);
+}
+
 template <typename TQ, typename TKV, int DH, bool QUANT, bool EXACT>
 cudaError_t launch(const Args& a, int b, int splits, cudaStream_t stream) {
   using S = Shape<TKV, DH>;
-  auto kernel =
-      a.visible ? paged_decode_visible_kernel<TQ, TKV, DH, QUANT, EXACT>
-                : paged_decode_kernel<TQ, TKV, DH, QUANT, EXACT>;
+  void (*kernel)(Args);
+  if constexpr (DH > 128) {
+    if (a.visible)
+      kernel = paged_decode_visible_wide_split_kernel<TQ, TKV, QUANT, EXACT>;
+    else
+      kernel = paged_decode_wide_split_kernel<TQ, TKV, QUANT, EXACT>;
+  } else
+    kernel = a.visible ? paged_decode_visible_kernel<TQ, TKV, DH, QUANT, EXACT>
+                       : paged_decode_kernel<TQ, TKV, DH, QUANT, EXACT>;
   const size_t smem = kWarps * S::kStages * S::kStageBytes +
                       2 * sizeof(int) * a.pages_per_split +
                       static_cast<size_t>(a.pages_per_split) * a.page_size;
@@ -460,13 +615,14 @@ cudaError_t launch(const Args& a, int b, int splits, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// wide heads (dh > 128): CUDA cores, any dh
+// wide heads on CUDA cores: float32 pages above dh 128, any dh above 256
 // ---------------------------------------------------------------------------
 //
-// A row wider than 128 elements does not fit the narrow bodies' lanes and
-// merge (one lane's 16 bytes, one thread per output element), and q and
-// acc would grow with dh. So a block owns one (slot x head, split) and a
-// slice of at most kWideSlice acc columns (grid axis z): q waits in shared
+// A float32 row wider than 128 elements, or any row wider than 256, does
+// not fit the split body's lanes (one lane's 16 bytes, at most 32 lanes a
+// row), and q and acc would grow with dh. So a block owns one (slot x
+// head, split) and a slice of at most kWideSlice acc columns (grid axis
+// z): q waits in shared
 // memory as f32; each warp takes the split's rows round-robin, scores a
 // row over the whole head (lanes striding dh, a warp reduction), runs the
 // online softmax in registers and adds its slice of the V row, 4 columns
@@ -643,10 +799,20 @@ cudaError_t launch_wide(const Args& a, int b, int splits,
 
 // dh 16, 32, 64 and 128 run their own bodies; any other dh up to 128 the
 // body of the next of those widths, reading rows at stride dh; a wider dh
-// the wide body
+// the wide split body (dh <= 256, bfloat16 or int8 pages) when the caller
+// asks for it (wide_split), else the CUDA-core wide body
 template <typename TQ, typename TKV, bool QUANT>
-cudaError_t by_dim(int dh, const Args& a, int b, int splits,
+cudaError_t by_dim(int dh, bool wide_split, const Args& a, int b, int splits,
                    cudaStream_t stream) {
+  if (wide_split) {
+    if constexpr (sizeof(TKV) < 4) {
+      if (dh == 256) return launch<TQ, TKV, 256, QUANT, true>(a, b, splits,
+                                                             stream);
+      if (dh > 128 && dh < 256)
+        return launch<TQ, TKV, 256, QUANT, false>(a, b, splits, stream);
+    }
+    return cudaErrorInvalidValue;    // no split body for this dh or dtype
+  }
   switch (dh) {
     case 16: return launch<TQ, TKV, 16, QUANT, true>(a, b, splits, stream);
     case 32: return launch<TQ, TKV, 32, QUANT, true>(a, b, splits, stream);
@@ -675,12 +841,16 @@ cudaError_t by_dim(int dh, const Args& a, int b, int splits,
 // (b, heads) float32. A split covers pages_per_split trips; the walk
 // takes splits = ceil(max_pages (or width) / pages_per_split) of them,
 // and when that is more than one, part is a float32 scratch of
-// (b, heads, splits, dh + 2) for dh <= 128, (b, heads, slices, splits, 130)
-// above (slices = ceil(dh / 128)), and counters an int32 array of zeros,
-// (b, heads) or (b, heads, slices), which
+// (b, heads, splits, dh + 2) for dh <= 128 and for the wide split body,
+// (b, heads, slices, splits, 130) for the CUDA-core wide body (slices =
+// ceil(dh / 128)), and counters an int32 array of zeros, (b, heads) or
+// (b, heads, slices), which
 // the launch leaves zero (launches sharing it must be ordered on one
-// stream). Returns the CUDA error of the launch (0 on success); the launch
-// is asynchronous on `stream`.
+// stream). wide_split 1 asks for the wide split body, which takes 128 < dh
+// <= 256 with bfloat16 or int8 pages and is refused (cudaErrorInvalidValue)
+// for anything else; 0 sends dh above 128 to the CUDA-core wide body.
+// Returns the CUDA error of the launch (0 on success); the launch is
+// asynchronous on `stream`.
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* block_tables,
@@ -688,7 +858,7 @@ extern "C" int paged_decode_attention(
     const void* visible_cnt, void* acc, void* m, void* l, void* part,
     void* counters, int b, int heads, int dh, int page_size, int max_pages,
     int L, int width, int pages_per_split, float scale, int q_dtype,
-    int kv_dtype, void* stream) {
+    int kv_dtype, int wide_split, void* stream) {
   if ((visible == nullptr) != (visible_cnt == nullptr) ||
       (visible != nullptr && (width < 1 || width > max_pages)) ||
       page_size < kChunk || page_size % kChunk != 0 || pages_per_split < 1 ||
@@ -712,13 +882,15 @@ extern "C" int paged_decode_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_dtype == 0 && kv_dtype == 0)
-    err = by_dim<float, float, false>(dh, a, b, splits, s);
+    err = by_dim<float, float, false>(dh, wide_split, a, b, splits, s);
   else if (q_dtype == 1 && kv_dtype == 1)
-    err = by_dim<__nv_bfloat16, __nv_bfloat16, false>(dh, a, b, splits, s);
+    err = by_dim<__nv_bfloat16, __nv_bfloat16, false>(dh, wide_split, a, b,
+                                                        splits, s);
   else if (q_dtype == 0 && kv_dtype == 2)
-    err = by_dim<float, int8_t, true>(dh, a, b, splits, s);
+    err = by_dim<float, int8_t, true>(dh, wide_split, a, b, splits, s);
   else if (q_dtype == 1 && kv_dtype == 2)
-    err = by_dim<__nv_bfloat16, int8_t, true>(dh, a, b, splits, s);
+    err = by_dim<__nv_bfloat16, int8_t, true>(dh, wide_split, a, b, splits,
+                                                s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);

@@ -7,16 +7,20 @@ tensor and runs ``paged_decode_attention_plain``, the same function in
 plain PyTorch, only for tensors that lie on the CPU (the tests' path).
 There is no fallback: on the card the kernel launches or the call
 raises. The kernel splits each slot's walk into runs of
-``pages_per_split`` pages (``SPLIT_ROWS`` rows), one block each, and
-merges the runs' partials in the same launch; ``combine_partials`` is
-that merge in plain PyTorch, for the tests.
+``pages_per_split`` pages (``SPLIT_ROWS`` rows; ``WIDE_SPLIT_ROWS`` on
+the wide split body), one block each, and merges the runs' partials in
+the same launch; ``combine_partials`` is that merge in plain PyTorch,
+for the tests. ``kernel_body`` names the ``__global__`` each call
+launches.
 
 The contract both implement, taken from the TPU kernel:
 
 * q ``(b, heads, dh)`` in the param dtype, any dh >= 1 on the card (dh
-  up to ``NARROW_MAX_DIM_HEAD`` on the narrow bodies, wider heads on the
-  wide body, one slice of ``WIDE_SLICE`` acc columns a block); one
-  layer's pools
+  up to ``NARROW_MAX_DIM_HEAD`` on the narrow bodies; bfloat16 or int8
+  pages up to ``WIDE_SPLIT_MAX_DIM_HEAD`` on the wide split body, the
+  narrow body compiled for dh 256, ``wide_split``; float32 pages above
+  128 and any dh above 256 on the CUDA-core wide body, one slice of
+  ``WIDE_SLICE`` acc columns a block); one layer's pools
   ``(P, heads, page_size, dh)`` in float32 or bfloat16 — or int8 with
   ``(P, heads, page_size)`` float32 ``k_scales``/``v_scales``;
   ``block_tables (b, max_pages)`` int32, ``pos (b,)`` int32 and
@@ -176,17 +180,47 @@ def combine_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor
 
 
 _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 \
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p]
 # rows of the walk one block of the kernel takes (a split): 16 pages of 16
 SPLIT_ROWS = 256
-# acc columns one block of the wide body (dh > 128) owns
+# ... on the wide split body: 4 pages of 16, so that a serve step at 2
+# heads of 256 fills the card (the reckoning is in csrc/paged_attention.cu)
+WIDE_SPLIT_ROWS = 64
+# the widest head of the wide split body (the narrow body at dh 256)
+WIDE_SPLIT_MAX_DIM_HEAD = 256
+# acc columns one block of the CUDA-core wide body owns
 WIDE_SLICE = 128
 _COUNTERS = {}           # device -> the kernel's zeroed split counters
 
 
-def pages_per_split(page_size: int) -> int:
-    """Trips of a walk one block of the kernel takes."""
-    return max(1, SPLIT_ROWS // page_size)
+def wide_split(kv_dtype: torch.dtype, dh: int) -> bool:
+    """Whether pages of ``kv_dtype`` at head dim ``dh`` run the wide split
+    body: bfloat16 or int8 pages at 128 < dh <= 256. float32 pages there
+    and any dh above 256 run the CUDA-core wide body."""
+    return kv_dtype in (torch.bfloat16, torch.int8) \
+        and NARROW_MAX_DIM_HEAD < dh <= WIDE_SPLIT_MAX_DIM_HEAD
+
+
+def pages_per_split(page_size: int, wide: bool = False) -> int:
+    """Trips of a walk one block of the kernel takes; ``wide`` for the
+    wide split body."""
+    return max(1, (WIDE_SPLIT_ROWS if wide else SPLIT_ROWS) // page_size)
+
+
+def kernel_body(kv_dtype: torch.dtype, dh: int, visible: bool = False
+                ) -> str:
+    """The ``__global__`` of ``csrc/paged_attention.cu`` a call with pages
+    of ``kv_dtype`` at head dim ``dh`` launches, on the prefix walk or
+    the ``visible`` one."""
+    if kv_dtype not in _DTYPE_CODE or dh < 1:
+        raise ValueError(f"no K4 body for pages of {kv_dtype} at dh {dh}")
+    walk = "paged_decode_visible" if visible else "paged_decode"
+    if dh <= NARROW_MAX_DIM_HEAD:
+        return f"{walk}_kernel"
+    if wide_split(kv_dtype, dh):
+        return f"{walk}_wide_split_kernel"
+    return "paged_decode_wide_kernel"      # one kernel for both walks
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
@@ -273,12 +307,13 @@ def paged_decode_attention(
     m = torch.empty((b, heads), dtype=torch.float32, device=q.device)
     l = torch.empty((b, heads), dtype=torch.float32, device=q.device)
     # the walk's splits, from the tables' width (never from pos: no sync)
-    pps = pages_per_split(page_size)
+    split_body = wide_split(k_pages.dtype, dh)
+    pps = pages_per_split(page_size, split_body)
     walk = bt.shape[1] if vis is None else vis.shape[1]
     splits = -(-walk // pps)
     part = counters = None
     if splits > 1:
-        if dh > NARROW_MAX_DIM_HEAD:        # the wide body's slices
+        if dh > NARROW_MAX_DIM_HEAD and not split_body:   # the slices
             slices = -(-dh // WIDE_SLICE)
             part = torch.empty((b, heads, slices, splits, WIDE_SLICE + 2),
                                dtype=torch.float32, device=q.device)
@@ -300,7 +335,7 @@ def paged_decode_attention(
         None if counters is None else counters.data_ptr(),
         b, heads, dh, page_size, bt.shape[1], ok.shape[1],
         0 if vis is None else vis.shape[1], pps, float(scale),
-        q_code, kv_code, stream)
+        q_code, kv_code, int(split_body), stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
                            f"with CUDA error {rc}")

@@ -5,8 +5,9 @@ Port of ``dalle_pytorch_tpu/parallel/train.py``'s ``make_train_step``
 (``:257``), the step ``bench.py::setup_train`` and ``time_steps`` drive.
 There is no jit and no sharding: the step runs eagerly on the model's
 device, and the parameters and the optimizer's moments update in place
-(where JAX returns new trees). The ``lr_scale`` batch entry of the
-resilience supervisor is a later slice.
+(where JAX returns new trees). An optional scalar ``batch['lr_scale']``
+(the resilience supervisor's re-warm after a NaN rollback) scales that
+step's update, as JAX's step does; a missing key is a scale of 1.
 """
 
 from __future__ import annotations
@@ -25,15 +26,20 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     """``step(model, batch, rng) -> loss``: gradients of
     ``loss_fn(model, batch, rng)``, one optimizer update, the loss
     detached. ``grad_accum > 1`` averages the gradients of that many
-    microbatches (``accumulate_grads``) before the one update."""
+    microbatches (``accumulate_grads``) before the one update. A scalar
+    ``batch['lr_scale']`` is taken out of (a copy of) the batch before
+    the loss sees it, and multiplies this step's update (for Adam, its
+    learning rate); the schedule still advances by one update."""
 
     def step(model, batch: dict, rng: torch.Tensor) -> torch.Tensor:
+        batch = dict(batch)
+        lr_scale = batch.pop("lr_scale", None)
         if grad_accum <= 1:
             loss = loss_fn(model, batch, rng)
             loss.backward()
         else:
             loss = accumulate_grads(loss_fn, model, batch, rng, grad_accum)
-        optimizer.step()
+        optimizer.step(1.0 if lr_scale is None else float(lr_scale))
         return loss.detach()
 
     return step

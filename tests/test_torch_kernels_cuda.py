@@ -31,7 +31,10 @@ gradients through both backward routes against autograd through
 plain version and against the prefix walk over the same fully masked
 rows, with K4's tolerances. The prefix walk is split across blocks
 (flash-decoding); its splits are held against the plain version with
-K4's tolerances, and its FILL corner cases exactly.
+K4's tolerances, and its FILL corner cases exactly. bfloat16 and int8
+pages at 128 < dh <= 256 run the wide split body on both walks, float32
+pages there and dh 320 the CUDA-core wide body; each call's kernel is
+named by the profiler.
 """
 
 import re
@@ -146,12 +149,53 @@ def test_prefix_walk_across_split_boundaries(cuda, page_size, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_wide_prefix_walk_across_split_boundaries(cuda, page_size, dtype,
                                                   dh):
-    """The same walks through the wide body (dh > 128): its splits merge
-    per slice of acc columns, each slice with its own counter."""
+    """The same walks through the wide bodies (dh > 128): float32 and dh
+    320 on the CUDA-core body, whose splits merge per slice of acc
+    columns, each slice with its own counter; bfloat16 and int8 at dh 192
+    on the wide split body, whose splits are WIDE_SPLIT_ROWS rows."""
     split_walk_case(cuda, page_size, dtype, dh)
 
 
-def split_walk_case(cuda, page_size, dtype, dh):
+@pytest.mark.cuda
+@pytest.mark.parametrize("visible", [False, True])
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dh", [129, 160, 192, 200, 256])
+def test_wide_split_body_across_split_boundaries(cuda, dh, dtype, page_size,
+                                                 visible):
+    """bfloat16 and int8 pages at 128 < dh <= 256 on the wide split body
+    (the narrow body compiled for dh 256; below 256 rows at stride dh,
+    int8 at dh 129 by 8-byte copies), on both walks (the visible walk
+    over a list of every walked page): 20 splits of WIDE_SPLIT_ROWS rows
+    at pos 1279, walks ending on a split boundary and one row past it,
+    pos 0's (0, FILL, 0), an all-masked walk's weight 1 per row, a masked
+    prefix wiped, the same bits from a second launch, and the kernel the
+    profiler saw the one ``kernel_body`` names."""
+    split_walk_case(cuda, page_size, dtype, dh, visible=visible)
+
+
+def k4_bodies(call, attempts: int = 3) -> set:
+    """The K4 kernels a torch.profiler trace of twelve calls names. A
+    session may drop the records of its first milliseconds, which can
+    hold every launch of a kernel this short: one that records none is
+    tried again, up to ``attempts``."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(12):
+                call()
+            torch.cuda.synchronize()
+        names = {name for e in prof.key_averages()
+                 for name in re.findall(r"(paged_decode\w*?_kernel)<",
+                                        e.key)}
+        if names:
+            return names
+    return set()
+
+
+def split_walk_case(cuda, page_size, dtype, dh, visible=False):
     rs = np.random.RandomState(page_size)
     heads, L = 4, 1280
     mp = L // page_size
@@ -184,10 +228,19 @@ def split_walk_case(cuda, page_size, dtype, dh):
                   for _ in range(2))
     args = [t.to(cuda) for t in (q, kp, vp, bt, pos, allowed)]
     kw = {k: v.to(cuda) for k, v in kw.items()}
-    assert -(-mp // PA.pages_per_split(page_size)) == 5
+    wide = PA.wide_split(kp.dtype, dh)
+    assert -(-mp // PA.pages_per_split(page_size, wide)) \
+        == (20 if wide else 5)
+    if visible:                        # every walked page, listed
+        kw.update(visible=torch.arange(mp, dtype=torch.int32, device=cuda)
+                  .expand(slots, mp).contiguous(),
+                  visible_cnt=((pos.long() + page_size - 1) // page_size)
+                  .to(torch.int32).to(cuda))
     got = PA.paged_decode_attention(*args, scale=SCALE, **kw)
     again = PA.paged_decode_attention(*args, scale=SCALE, **kw)
     want = PA.paged_decode_attention_plain(*args, scale=SCALE, **kw)
+    assert k4_bodies(lambda: PA.paged_decode_attention(
+        *args, scale=SCALE, **kw)) == {PA.kernel_body(kp.dtype, dh, visible)}
     mag = PA.paged_decode_attention_plain(args[0], args[1], args[2].abs(),
                                           *args[3:], scale=SCALE, **kw)[0]
     torch.cuda.synchronize()
@@ -203,6 +256,64 @@ def split_walk_case(cuda, page_size, dtype, dh):
     assert float(m[5].max()) == PA.FILL and torch.equal(
         l[5], torch.full_like(l[5], walked))
     assert float(m[6].min()) > PA.FILL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("visible", [False, True])
+@pytest.mark.parametrize("dtype,dh", [("float32", 192), ("float32", 256),
+                                      ("bfloat16", 320), ("int8", 320),
+                                      ("bfloat16", 64), ("int8", 128),
+                                      ("bfloat16", 160), ("int8", 256)])
+def test_k4_calls_launch_the_kernel_body_names(cuda, dtype, dh, visible):
+    """Each call launches the kernel ``kernel_body`` names: float32 pages
+    above dh 128 and any page type at dh 320 still the CUDA-core wide
+    body, bf16 and int8 pages up to 256 the wide split body, dh up to
+    128 the narrow walks."""
+    rs = np.random.RandomState(dh)
+    slots, heads, ps, L = 3, 2, 16, 320
+    mp = L // ps
+    pos = torch.tensor([0, 77, 319], dtype=torch.int32, device=cuda)
+    bt = torch.arange(1, slots * mp + 1, dtype=torch.int32,
+                      device=cuda).reshape(slots, mp)
+    allowed = torch.ones((slots, L), dtype=torch.bool, device=cuda)
+    shape = (slots * mp + 1, heads, ps, dh)
+    kw = {}
+    if dtype == "int8":
+        kp = torch.tensor(rs.randint(-127, 128, shape), dtype=torch.int8,
+                          device=cuda)
+        kw = {n: torch.full(shape[:-1], 0.05, device=cuda)
+              for n in ("k_scales", "v_scales")}
+        q = torch.randn((slots, heads, dh), device=cuda).to(torch.bfloat16)
+    else:
+        kp = torch.randn(shape, device=cuda).to(getattr(torch, dtype))
+        q = torch.randn((slots, heads, dh), device=cuda).to(kp.dtype)
+    if visible:
+        kw.update(visible=torch.arange(mp, dtype=torch.int32, device=cuda)
+                  .expand(slots, mp).contiguous(),
+                  visible_cnt=(pos + ps - 1) // ps)
+    call = lambda: PA.paged_decode_attention(   # noqa: E731
+        q, kp, kp, bt, pos, allowed, scale=dh ** -0.5, **kw)
+    assert k4_bodies(call) == {PA.kernel_body(kp.dtype, dh, visible)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh", [("float32", 192), ("bfloat16", 320),
+                                      ("bfloat16", 128)])
+def test_k4_entry_refuses_the_wide_split_body_where_it_has_none(
+        cuda, dtype, dh, monkeypatch):
+    """The C entry launches the wide split body only for bf16 and int8
+    pages at 128 < dh <= 256: asked for it anywhere else it refuses, and
+    the wrapper raises (nothing falls back)."""
+    monkeypatch.setattr(PA, "wide_split", lambda kv_dtype, d: True)
+    dt = getattr(torch, dtype)
+    q = torch.zeros((1, 1, dh), device=cuda, dtype=dt)
+    pages = torch.zeros((2, 1, 8, dh), device=cuda, dtype=dt)
+    bt = torch.ones((1, 3), dtype=torch.int32, device=cuda)
+    pos = torch.full((1,), 5, dtype=torch.int32, device=cuda)
+    allowed = torch.ones((1, 24), dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        PA.paged_decode_attention(q, pages, pages, bt, pos, allowed,
+                                  scale=1.0)
 
 
 @pytest.mark.cuda
@@ -829,8 +940,21 @@ def test_block_sparse_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_visible_walk_matches_plain_and_prefix_walk(cuda, dtype):
+    visible_walk_case(cuda, dtype, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [192, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_wide_visible_walk_matches_plain_and_prefix_walk(cuda, dtype, dh):
+    """A sparse layer's visible walk on the wide split body, and the
+    prefix walk over the same fully masked rows."""
+    visible_walk_case(cuda, dtype, dh)
+
+
+def visible_walk_case(cuda, dtype, dh):
     rs = np.random.RandomState(5)
-    page_size, heads, dh, L = 16, 3, 64, 1280
+    page_size, heads, L = 16, 3, 1280
     mp = L // page_size
     pos = torch.tensor([0, 1, 15, 16, 17, 63, 64, 65, 1279],
                        dtype=torch.int32)

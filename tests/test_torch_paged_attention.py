@@ -110,13 +110,15 @@ def test_plain_matches_jax_kernel(page_size, quantized):
 
 @pytest.mark.parametrize("page_size", [8, 16])
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("dh", [24, 48, 192, 320])
+@pytest.mark.parametrize("dh", [24, 48, 192, 320, 160, 256])
 def test_plain_matches_jax_kernel_at_other_head_dims(dh, quantized,
                                                      page_size):
     """Head dims the CUDA kernel runs on the next compiled width (24 and
-    48 on 32 and 64, with the real dh at run time) or on its wide body
-    (192 and 320: slices of 128 acc columns, the last one partial): the
-    plain version, its yardstick on the card, against the JAX kernel,
+    48 on 32 and 64, with the real dh at run time), on its wide split
+    body (bf16 and int8 pages at 160, 192 and 256: the dh-256 body, rows
+    at stride dh below 256) or on its CUDA-core wide body (float32 pages
+    there, and 320: slices of 128 acc columns, the last one partial):
+    the plain version, its yardstick on the card, against the JAX kernel,
     which takes any dh."""
     q, kp, vp, bt, pos, allowed, sc = make_inputs(page_size, quantized,
                                                   seed=dh, dh=dh)
@@ -161,7 +163,7 @@ SPLIT_L = 88
 
 
 @functools.lru_cache(maxsize=None)
-def split_case(page_size, quantized):
+def split_case(page_size, quantized, dh=DH):
     """Five slots over SPLIT_L rows: the last row, parked at pos 0, a
     fully masked prefix of 24 rows followed by live rows, every walked
     row masked, and one padded row; and JAX's partials (interpret)."""
@@ -169,7 +171,7 @@ def split_case(page_size, quantized):
     mp = KV.pages_for(SPLIT_L, page_size)
     slots = 5
     P = slots * mp + 1
-    shape = (P, HEADS, page_size, DH)
+    shape = (P, HEADS, page_size, dh)
     pos = np.array([SPLIT_L - 1, 0, 40, 33, 20], np.int32)
     bt = (rs.permutation(P - 1) + 1)[:slots * mp].reshape(slots, mp)
     need = -(-pos // page_size)
@@ -179,7 +181,7 @@ def split_case(page_size, quantized):
     allowed[2, :24] = False
     allowed[3, :] = False
     allowed[4, 7] = False
-    q = rs.randn(slots, HEADS, DH).astype(np.float32)
+    q = rs.randn(slots, HEADS, dh).astype(np.float32)
     sc = {}
     if quantized:
         kp, vp = (rs.randint(-127, 128, shape).astype(np.int8)
@@ -220,7 +222,22 @@ def test_split_walk_merged_by_combine_partials(page_size, quantized,
     give the unsplit walk and JAX's kernel; the pos-0 slot's
     (0, FILL, 0), the wiped masked prefix and the all-masked walk's
     weight 1 per row come through every split size exactly."""
-    raw, want = split_case(page_size, quantized)
+    check_split_walk(page_size, quantized, pages_per_split)
+
+
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_wide_split_walk_merged_by_combine_partials(page_size, quantized):
+    """The same at dh 192 over the wide split body's split size (8 pages
+    of 8 or 4 of 16: 11 and 6 pages walked, so the last split is short),
+    for the bf16 (here float32 on the CPU) and int8 pages it takes."""
+    pps = PA.pages_per_split(page_size, PA.wide_split(torch.bfloat16, 192))
+    assert pps * page_size == PA.WIDE_SPLIT_ROWS
+    check_split_walk(page_size, quantized, pps, dh=192)
+
+
+def check_split_walk(page_size, quantized, pages_per_split, dh=DH):
+    raw, want = split_case(page_size, quantized, dh)
     args, sc = torch_args(*raw)
     got = PA.combine_partials(*split_walk(args, sc, pages_per_split))
     whole = PA.paged_decode_attention_plain(*args, scale=SCALE, **sc)

@@ -10,8 +10,9 @@ gradient of every parameter against ``jax.grad`` of ``dalle_loss_fn``
 for each flash ``bwd_impl``, and the loss and every gradient at heads=2,
 dim_head=192 (the wide kernels' width) under the kernel backwards; three
 steps of ``make_train_step`` with ``make_optimizer`` (warmup-cosine, clip
-1.0) against optax; and ``grad_accum`` 2. JAX's flash path runs its Pallas kernels in interpret
-mode, the port its kernels' plain versions.
+1.0) against optax; ``grad_accum`` 2; and the batch's ``lr_scale`` (0 and
+0.5, also under ``grad_accum`` 2). JAX's flash path runs its Pallas
+kernels in interpret mode, the port its kernels' plain versions.
 
 float32 throughout. Tolerances: losses and logits rtol/atol 1e-5, and
 gradients atol 2e-5 (f32 math in another summation order; dropout's
@@ -327,6 +328,46 @@ def test_grad_accum_2_matches_jax(trees, batch_np):
         np.testing.assert_allclose(p.detach().numpy(),
                                    want[name].detach().numpy(), atol=2e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("lr_scale,grad_accum", [(0.0, 1), (0.5, 1),
+                                                 (0.5, 2)])
+def test_lr_scale_scales_the_step_like_jax(trees, batch_np, lr_scale,
+                                           grad_accum):
+    """``batch['lr_scale']`` (the resilience supervisor's re-warm)
+    multiplies one step's update, as JAX's ``make_train_step`` does, also
+    under ``grad_accum``: at constant lr 3e-3, no clip, 0 moves no
+    parameter and 0.5 moves them by half the unscaled step."""
+    jcfg, tcfg = cfgs()
+    model, enc = port_of(trees, tcfg)
+    dalle, vae = trees
+    args = schedule_args(lr_schedule="constant", warmup_steps=0,
+                         clip_grad_norm=0.0)
+    jopt = JCOM.make_optimizer(args)
+    jstep = JP.make_train_step(JP.dalle_loss_fn(jcfg, vae), jopt,
+                               grad_accum=grad_accum)
+    jb = {**jbatch(batch_np), "lr_scale": jnp.float32(lr_scale)}
+    params, _, jloss = jstep(dalle, jopt.init(dalle), jb,
+                             jax.random.PRNGKey(4))
+    topt = TCOM.make_optimizer(args, model.parameters())
+    tstep = TP.make_train_step(TP.dalle_loss_fn(enc), topt,
+                               grad_accum=grad_accum)
+    tb = {**tbatch(batch_np), "lr_scale": torch.tensor(lr_scale)}
+    tloss = tstep(model, tb, prng.prng_key(4))
+    assert "lr_scale" in tb and topt.count == 1
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
+    want = dict(from_jax.dalle_from_jax(jax.device_get(params), tcfg,
+                                        device="cpu").named_parameters())
+    start = dict(port_of(trees, tcfg)[0].named_parameters())
+    moved = 0.0
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   want[name].detach().numpy(), atol=2e-5,
+                                   err_msg=name)
+        moved = max(moved, float((p - start[name]).detach().abs().max()))
+    # Adam's first update moves a parameter by at most lr x lr_scale
+    assert moved <= 3e-3 * lr_scale * (1 + 1e-3)
+    assert (moved == 0.0) == (lr_scale == 0.0)
 
 
 # -- configuration and devices --------------------------------------------------
