@@ -167,6 +167,44 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    profiler window of 16 guided steps (device ms and kernels a step,
    the device's idle share).
 
+The rest of training, each phase at full width on seeded random weights,
+bfloat16 parameters, batch 8, Adam lr 1e-4, 6 steps of which the first
+is a warm-up (``slice_train``): finite losses, each kernel's launches a
+step checked, wall ms a step, tokens or images a second, peak memory
+and a profile window (device ms a step, the idle share):
+
+15. vae_train — BASELINE config 1 (``bench.py::bench_vae``: the
+   DiscreteVAE at 256 px, 2,048 codes of 256, 3 layers, hidden 128),
+   the training scripts' Huber + mse loss, an EMA at decay 0.999 after
+   every step (float32, moving); no attention kernel; the Gumbel noise's
+   ms a step;
+16. rev_train — BASELINE config 3 (``build_cfg(depth=12,
+   reversible=True)``, flash with the split backward, ``loss_chunk``
+   256): K1 24 launches a step (the backward recomputes each layer's
+   attention), K2a and K2b 12; peak memory beside 2 steps of the same
+   config with ``reversible=False``; at depth 2 with dropout 0.1, the
+   loss and every gradient with the kernels against their plain versions
+   (``kernels_vs_plain``: in float32 to 1e-4 of each gradient's norm; in
+   bfloat16 each gradient's distance from a float32 copy at most twice
+   the plain bf16 path's, or 1e-2 of its norm);
+17. rev_decode — the same config decoding: one float32 step through K4
+   against the gather oracle (h_out to 1e-4) and 64 greedy steps with
+   identical tokens (the two-stream loop), then the bfloat16 engine on
+   one 17-token request to its 1,024 image tokens, K4 launched depth x
+   decode steps times, every page freed;
+18. moe_train — ``bench.py::bench_moe`` (depth 12, every FF a top-2 MoE
+   of 8 experts): K1, K2a and K2b 12 a step; the load-balance loss
+   finite and positive, the loss equal to the CE plus ``moe_aux_coef``
+   times it;
+19. clip_train — ``CLIPConfig()``'s defaults with ``sparse_impl='pallas'``
+   and padded captions: K3 (``causal=False``) 12 launches a step; at 2 +
+   2 layers the kernels against their plain versions, as ``rev_train``;
+20. remat — the ``train`` phase's config at dropout 0 for 2 steps under
+   each of 'none', 'save_ln', 'dots' and 'full': the first loss
+   identical, the second within 1e-3, peak memory per mode, K1 12, 12,
+   24 and 24 launches a step; at depth 2, each mode's gradients against
+   'none''s with the kernels, to 1e-2 of each norm.
+
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result.
@@ -577,9 +615,15 @@ def wide_case(key, dtype, rtol, atol, dh: int, heads: int,
 
 
 def phase_decode() -> None:
+    emit(phase="decode", ok=True, **paged_decode_check(north_cfg()))
+
+
+def paged_decode_check(cfg) -> dict:
+    """One float32 decode step of ``cfg`` at 8 ragged slots through K4
+    against the gather oracle (h_out to 1e-4), then 64 greedy steps with
+    identical tokens, each path writing its own pool."""
     from dalle_pytorch_tpu_torch.models import dalle as D
     from dalle_pytorch_tpu_torch.ops import decode as decode_ops
-    cfg = north_cfg()
     tcfg = cfg.transformer
     model = D.dalle_init(cfg, seed=1, dtype=torch.float32)
     slots, ps, L = 8, 16, cfg.seq_len
@@ -625,8 +669,7 @@ def phase_decode() -> None:
                               t_k - cfg.num_text_tokens, t_k) \
                 .to(torch.int32)
             pos = pos + 1
-    emit(phase="decode", ok=True, steps=64, slots=slots,
-         max_abs_h_diff=worst)
+    return {"steps": 64, "slots": slots, "max_abs_h_diff": worst}
 
 
 def profile_window(engine, chunks: int) -> dict:
@@ -2481,6 +2524,488 @@ def phase_generate() -> dict:
     return record
 
 
+# -- the rest of training: VAE, reversible, MoE, CLIP, remat ------------------
+
+def slice_optimizer(model):
+    """Adam lr 1e-4, constant, no clip: the smoke's optimizer."""
+    import types
+    from dalle_pytorch_tpu_torch.cli.common import make_optimizer
+    args = types.SimpleNamespace(lr=1e-4, lr_schedule="constant",
+                                 warmup_steps=0, decay_steps=0,
+                                 lr_end_ratio=0.1, n_epochs=1,
+                                 clip_grad_norm=0.0)
+    return make_optimizer(args, model.parameters())
+
+
+def slice_train(phase: str, model, loss_fn, batch, want: dict, units: int,
+                steps: int = 6, warmup: int = 1, after=None,
+                profile: bool = True) -> dict:
+    """``steps`` steps of ``make_train_step(loss_fn)`` under Adam lr 1e-4
+    on ``model``, the first ``warmup`` untimed: finite losses, and each
+    kernel's launches a step (K1, K2a, K2b, K3) equal to ``want``. Wall ms
+    a step, ``units`` (tokens or images) a step and a second, peak
+    memory, and a profile window (``train_profile``: device ms a step,
+    the idle share). ``after(model)`` runs after every step (the EMA)."""
+    from dalle_pytorch_tpu_torch.cli.common import step_rng
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import make_train_step
+    train_step = make_train_step(loss_fn, slice_optimizer(model))
+
+    def step(m, b, k):
+        loss = train_step(m, b, k)
+        if after is not None:
+            after(m)
+        return loss
+
+    root = prng.prng_key(0, device="cuda")
+
+    def key(i):
+        return step_rng(root, i)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sparse_counts(reset=True)
+    losses = [step(model, batch, key(i)) for i in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(model, batch, key(i)) for i in range(warmup, steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - warmup)
+    counts = sparse_counts()
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), f"{phase} losses {losses}")
+    per_step = {k: n / steps for k, n in counts.items()}
+    for k, n in want.items():
+        check(per_step[k] == n, f"{phase}: {k} launched {per_step[k]} "
+                                f"times a step, expected {n}")
+    record = dict(phase=phase, ok=True, steps=steps, losses=losses,
+                  ms_per_step=ms, units_per_step=units,
+                  units_per_s=units / ms * 1e3,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  launches=counts, launches_per_step=per_step)
+    if profile:
+        record["profile"] = train_profile(step, model, batch, key)
+    return record
+
+
+def kernels_vs_plain(what: str, make_model, loss_fn, batch, key,
+                     dtype=torch.bfloat16) -> dict:
+    """One step's loss and every gradient of ``make_model(dtype)`` with
+    the kernels against the same weights on the kernels' plain versions
+    (``plain_kernels``). float32: loss to rtol 1e-5, each gradient to
+    1e-4 of its norm (relative Frobenius error). bfloat16: both bf16
+    paths are also held against a float32 copy of the same weights on
+    the plain versions, the truth: the loss to rtol 2e-2 of the plain
+    bf16 loss, and each gradient tensor's error to the truth at most
+    twice the plain bf16 path's own error, or 1e-2 of its norm where
+    that is larger; the same for all gradients together (one vector),
+    which is where a scalar's gradient is held. A fixed share of the
+    norm is no yardstick for every bf16 gradient: CLIP's temperature
+    gradient (the mean diagonal similarity minus its softmax-weighted
+    mean) and its patch-embedding bias (a sum over 512 patch rows) come
+    from terms that nearly cancel, and there the plain bf16 path misses
+    the truth by percents as well; a scalar's error is one draw of that
+    rounding noise (the temperature's: 9.8 % with the kernels, 4.3 % on
+    the plain versions, on the H100), so it is recorded, and float32
+    holds it to 1e-4. The kernel run must launch kernels and the plain
+    ones none."""
+    import copy
+    f32 = dtype == torch.float32
+    base = make_model(dtype)
+    runs = (("plain", dtype), ("kernels", dtype)) + \
+        ((("truth", torch.float32),) if not f32 else ())
+    got = {}
+    for run, dt in runs:
+        model = copy.deepcopy(base).to(dt)
+        b_ = {k: v.to(dt) if v.is_floating_point() else v
+              for k, v in batch.items()}
+        before = sparse_counts()
+        with contextlib.nullcontext() if run == "kernels" else \
+                plain_kernels():
+            loss = loss_fn(model, b_, key)
+            loss.backward()
+        torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in sparse_counts().items()}
+        check((run == "kernels") == (sum(ran.values()) > 0),
+              f"{what}: the {run} run launched {ran}")
+        got[run] = (float(loss.detach()), {n: p.grad.float() for n, p in
+                                           model.named_parameters()}, ran)
+        del model
+    ref_loss, plain, _ = got["plain"]
+    loss, grads, ran = got["kernels"]
+    loss_rtol = 1e-5 if f32 else 2e-2
+    check(math.isfinite(loss)
+          and abs(loss - ref_loss) <= loss_rtol * abs(ref_loss),
+          f"{what}: loss {loss} against the plain versions' {ref_loss}")
+
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    def flat(gs):
+        return torch.cat([g.reshape(-1) for g in gs.values()])
+
+    worst = worst_plain = 0.0
+    scalars = {}
+    for name, g in grads.items():
+        if f32:
+            err, tol = rel(g, plain[name]), 1e-4
+        else:
+            truth = got["truth"][1][name]
+            err, err_plain = rel(g, truth), rel(plain[name], truth)
+            if g.dim() == 0:
+                scalars[name] = {"err": err, "plain_err": err_plain}
+                continue
+            tol = max(2 * err_plain, 1e-2)
+            worst_plain = max(worst_plain, err_plain)
+        check(err <= tol, f"{what}: grad {name} off by {err:.3e} of its "
+                          f"norm (allowed {tol:.3e})")
+        worst = max(worst, err)
+    out = {"dtype": str(dtype).split(".")[-1], "loss": loss,
+           "plain_loss": ref_loss, "kernel_launches": ran}
+    if f32:
+        out.update(max_grad_err_of_norm=worst,
+                   tolerance={"loss_rtol": 1e-5, "grad_of_norm": 1e-4})
+        return out
+    truth = flat(got["truth"][1])
+    err_all, plain_all = rel(flat(grads), truth), rel(flat(plain), truth)
+    check(err_all <= max(2 * plain_all, 1e-2),
+          f"{what}: the gradients off by {err_all:.3e} of their norm "
+          f"(plain {plain_all:.3e})")
+    out.update(truth_loss=got["truth"][0], max_grad_err_to_f32=worst,
+               plain_max_grad_err_to_f32=worst_plain,
+               all_grads_err_to_f32=err_all,
+               plain_all_grads_err_to_f32=plain_all,
+               scalar_grads_err_to_f32=scalars,
+               tolerance={"loss_rtol": 2e-2,
+                          "grad_to_f32": "max(2 x plain's, 1e-2)"})
+    return out
+
+
+def id_batch(cfg, b=8, seed=9) -> dict:
+    """Random text ids with padded tails (rows 1 and 3), the text mask and
+    random image ids, made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.ones((b, cfg.text_seq_len), dtype=torch.bool, device="cuda")
+    mask[1, 200:] = False
+    mask[3, 17:] = False
+    return {"text": torch.randint(1, cfg.num_text_tokens,
+                                  (b, cfg.text_seq_len), generator=g,
+                                  device="cuda"),
+            "mask": mask,
+            "image": torch.randint(0, cfg.num_image_tokens,
+                                   (b, cfg.image_seq_len), generator=g,
+                                   device="cuda")}
+
+
+def no_kernels() -> dict:
+    return {"k1": 0, "k2a": 0, "k2b": 0, "k3": 0}
+
+
+# BASELINE config 1 (``bench.py::bench_vae``)
+VAE_TRAIN = dict(image_size=256, num_tokens=2048, codebook_dim=256,
+                 num_layers=3, hidden_dim=128)
+
+
+def phase_vae_train() -> dict:
+    """BASELINE config 1 (``bench.py::bench_vae``): the DiscreteVAE at 256
+    px, 2,048 codes of 256, 3 layers, hidden 128, bfloat16, batch 8, the
+    training scripts' loss (``vae_loss_fn(smooth_l1=True)``: Huber +
+    mse), Adam lr 1e-4, an EMA at decay 0.999 updated after every step:
+    6 steps with finite losses, no attention kernel, the float32 EMA
+    moving; and the Gumbel noise's ms a step (one (8, 32, 32, 2048)
+    bfloat16 draw through the int64 threefry)."""
+    import types
+    from dalle_pytorch_tpu_torch.cli.common import make_ema
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import vae_loss_fn
+    cfg = V.VAEConfig(**VAE_TRAIN)
+    vae = V.discrete_vae_init(cfg, seed=21, dtype=torch.bfloat16)
+    ema, update = make_ema(types.SimpleNamespace(ema_decay=0.999), vae)
+    start = {n: e.clone() for n, e in ema.items()}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    size = cfg.image_size
+    images = (torch.rand((8, size, size, 3), generator=g, device="cuda") * 2
+              - 1).to(torch.bfloat16)
+    record = slice_train("vae_train", vae, vae_loss_fn(cfg, smooth_l1=True),
+                         {"images": images}, no_kernels(), units=8,
+                         after=lambda m: update(ema, m))
+    moved = max(float((ema[n] - start[n]).abs().max()) for n in ema)
+    check(all(e.dtype == torch.float32 for e in ema.values())
+          and moved > 0, f"vae_train: the EMA did not move ({moved})")
+    shape = (8, cfg.grid_size, cfg.grid_size, cfg.num_tokens)
+    key = prng.prng_key(3, device="cuda")
+    noise_ms = cuda_ms(lambda: prng.gumbel(key, shape, torch.bfloat16),
+                       iters=5, warmup=1)
+    record.update(images_per_s=record["units_per_s"], ema_max_move=moved,
+                  ema_dtype="float32", gumbel_noise_shape=list(shape),
+                  gumbel_noise_ms_per_step=noise_ms,
+                  gumbel_share_of_step=noise_ms / record["ms_per_step"])
+    emit(**record)
+    return record
+
+
+def rev_cfg(**kw):
+    """BASELINE config 3 (``bench.py::build_cfg(depth=12,
+    reversible=True)``) on the flash kernels with the split backward,
+    ``loss_chunk`` 256, dropout 0 (build_cfg's)."""
+    return train_cfg(**{**dict(reversible=True, attn_dropout=0.0,
+                               ff_dropout=0.0), **kw})
+
+
+def phase_rev_train() -> dict:
+    """The reversible DALLE: 6 steps with finite losses, K1 launched 24
+    times a step (the forward and the backward's recompute, 2 x depth),
+    K2a and K2b 12 each; peak memory beside 2 steps of the same config
+    with ``reversible=False``; then at depth 2 with dropout 0.1, the
+    kernels against their plain versions (``kernels_vs_plain``) in
+    bfloat16 and float32."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
+    cfg = rev_cfg()
+    batch = id_batch(cfg)
+    model = D.dalle_init(cfg, seed=31, dtype=torch.bfloat16)
+    d = cfg.depth
+    record = slice_train("rev_train", model, dalle_loss_fn(), batch,
+                         {"k1": 2 * d, "k2a": d, "k2b": d, "k3": 0},
+                         units=8 * cfg.seq_len)
+    del model
+    torch.cuda.empty_cache()
+    seq = D.dalle_init(rev_cfg(reversible=False), seed=31,
+                       dtype=torch.bfloat16)
+    seq_rec = slice_train("rev_train/sequential", seq, dalle_loss_fn(),
+                          batch, {"k1": d, "k2a": d, "k2b": d, "k3": 0},
+                          units=8 * cfg.seq_len, steps=2, profile=False)
+    del seq
+    torch.cuda.empty_cache()
+    key = prng.prng_key(5, device="cuda")
+    depth2 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        c2 = rev_cfg(depth=2, attn_dropout=0.1, ff_dropout=0.1)
+        depth2[str(dtype).split(".")[-1]] = kernels_vs_plain(
+            "rev_train depth 2",
+            lambda dt, c2=c2: D.dalle_init(c2, seed=32, dtype=dt),
+            dalle_loss_fn(), batch, key, dtype=dtype)
+    record.update(tokens_per_s=record["units_per_s"],
+                  sequential={k: seq_rec[k] for k in (
+                      "ms_per_step", "peak_mem_gib", "launches_per_step",
+                      "losses")},
+                  peak_mem_ratio_rev_to_seq=record["peak_mem_gib"]
+                  / seq_rec["peak_mem_gib"],
+                  depth2=depth2)
+    emit(**record)
+    return record
+
+
+def phase_rev_decode() -> dict:
+    """Decoding the reversible config (depth 12): one float32 step
+    through K4 against the gather oracle and 64 greedy steps
+    (``paged_decode_check``: the two-stream layer loop, K/V from x2);
+    then the bfloat16 engine on one request (17-token prompt) to its
+    1,024 image tokens: ok, K4 launched depth x decode steps times, every
+    page freed."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    from dalle_pytorch_tpu_torch.serve.postprocess import PostProcessor
+    import dataclasses
+    cfg = dataclasses.replace(north_cfg(), reversible=True)
+    step = paged_decode_check(cfg)
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=33, vae=vae, dtype=torch.bfloat16)
+    req = engine_requests(cfg)[1]
+    queue = S.RequestQueue(max_prompt_len=cfg.text_seq_len)
+    engine = Engine(model, queue, num_slots=8, chunk_steps=8, page_size=16,
+                    complete=PostProcessor(vae, model))
+    handle = queue.submit(req)
+    torch.cuda.synchronize()
+    PA.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PA.paged_decode_attention.launches
+    res = handle.result(timeout=0)
+    check_engine_results(cfg, [req], [res])
+    check(launches == cfg.depth * engine.decode_steps,
+          f"rev_decode: K4 launched {launches} times, expected depth x "
+          f"decode steps = {cfg.depth * engine.decode_steps}")
+    check(engine.alloc.in_use == 0,
+          f"rev_decode: {engine.alloc.in_use} pages leaked")
+    record = dict(phase="rev_decode", ok=True, f32_step=step,
+                  engine_wall_s=wall, decode_steps=engine.decode_steps,
+                  ms_per_decode_step=wall * 1e3 / engine.decode_steps,
+                  image_tokens=len(res.tokens),
+                  image_tokens_per_s=len(res.tokens) / wall,
+                  k4_launches=launches)
+    emit(**record)
+    return record
+
+
+def phase_moe_train() -> dict:
+    """``bench.py::bench_moe``: the north width at depth 12 with every FF
+    a top-2 MoE of 8 experts, flash with the split backward,
+    ``loss_chunk`` 256, dropout 0: 6 steps with finite losses, K1, K2a
+    and K2b 12 launches a step each; the load-balance loss finite and
+    positive, and the training loss equal to the CE plus
+    ``moe_aux_coef * aux``."""
+    import dataclasses
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.ops import transformer as T
+    from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
+    cfg = dataclasses.replace(train_cfg(attn_dropout=0.0, ff_dropout=0.0),
+                              moe_experts=8)
+    batch = id_batch(cfg)
+    model = D.dalle_init(cfg, seed=41, dtype=torch.bfloat16)
+    d = cfg.depth
+    record = slice_train("moe_train", model, dalle_loss_fn(), batch,
+                         {"k1": d, "k2a": d, "k2b": d, "k3": 0},
+                         units=8 * cfg.seq_len)
+    key = prng.prng_key(7, device="cuda")
+    with torch.no_grad():
+        loss = float(D.dalle_apply(model, batch["text"], batch["image"],
+                                   mask=batch["mask"], rng=key, train=True,
+                                   return_loss=True))
+        tokens = D.embed_prompt(model, batch["text"], batch["image"])
+        mask = torch.cat([batch["mask"], torch.ones_like(batch["image"],
+                                                         dtype=torch.bool)],
+                         dim=1)
+        h, aux = T.transformer_apply(model.transformer, tokens,
+                                     cfg=cfg.transformer, mask=mask, rng=key,
+                                     train=True, with_aux=True)
+        ce = float(D.ce_from_hidden(model, h, batch["text"], batch["image"]))
+    aux = float(aux)
+    check(math.isfinite(aux) and aux > 0, f"moe_train: aux loss {aux}")
+    check(abs(loss - (ce + cfg.moe_aux_coef * aux)) <= 1e-5 * abs(loss),
+          f"moe_train: loss {loss} is not ce {ce} + {cfg.moe_aux_coef} x "
+          f"aux {aux}")
+    del model
+    torch.cuda.empty_cache()
+    record.update(tokens_per_s=record["units_per_s"], aux_loss=aux, ce=ce,
+                  loss_with_aux=loss, moe_aux_coef=cfg.moe_aux_coef,
+                  experts=cfg.moe_experts, k=cfg.moe_k)
+    emit(**record)
+    return record
+
+
+def clip_batch(cfg, b=8, seed=51) -> dict:
+    """Captions with padded tails of several lengths, and images in
+    [-1, 1), made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lengths = torch.tensor([256, 17, 1, 100, 255, 64, 200, 3],
+                           device="cuda")[:b]
+    size = cfg.visual_image_size
+    return {"text": torch.randint(1, cfg.num_text_tokens,
+                                  (b, cfg.text_seq_len), generator=g,
+                                  device="cuda"),
+            "mask": torch.arange(cfg.text_seq_len, device="cuda")[None]
+            < lengths[:, None],
+            "images": torch.rand((b, size, size, 3), generator=g,
+                                 device="cuda") * 2 - 1}
+
+
+# the reference CLIP's published defaults, K3 in every layer
+CLIP_TRAIN = dict(sparse_impl="pallas")
+
+
+def phase_clip_train() -> dict:
+    """CLIP at ``CLIPConfig()``'s defaults (512 wide, 6 + 6 layers of 8
+    heads, text 256, 64 patches of 32 px) with ``sparse_impl='pallas'``,
+    bfloat16, batch 8 with padded captions: 6 steps with finite losses,
+    K3 (``causal=False``) 12 launches a step, the forward of each layer
+    (its backward is the plain blockwise one); then at depth 2 + 2 the
+    kernels against their plain versions in bfloat16 and float32."""
+    import dataclasses
+    from dalle_pytorch_tpu_torch.models import clip as C
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import clip_loss_fn
+    cfg = C.CLIPConfig(**CLIP_TRAIN)
+    batch = clip_batch(cfg)
+    model = C.clip_init(cfg, seed=52, dtype=torch.bfloat16)
+    layers = cfg.text_enc_depth + cfg.visual_enc_depth
+    record = slice_train("clip_train", model, clip_loss_fn(), {
+        **batch, "images": batch["images"].to(torch.bfloat16)},
+        {"k1": 0, "k2a": 0, "k2b": 0, "k3": layers}, units=8)
+    del model
+    torch.cuda.empty_cache()
+    c2 = dataclasses.replace(cfg, text_enc_depth=2, visual_enc_depth=2)
+    key = prng.prng_key(0, device="cuda")
+    depth2 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        depth2[str(dtype).split(".")[-1]] = kernels_vs_plain(
+            "clip_train depth 2",
+            lambda dt: C.clip_init(c2, seed=53, dtype=dt),
+            clip_loss_fn(), {**batch, "images": batch["images"].to(dtype)},
+            key, dtype=dtype)
+    record.update(images_per_s=record["units_per_s"], depth2=depth2)
+    emit(**record)
+    return record
+
+
+# K1 launches a step per layer under each remat mode
+REMAT_K1 = {"none": 1, "save_ln": 1, "dots": 2, "full": 2}
+
+
+def phase_remat() -> dict:
+    """The north ``train_cfg`` at dropout 0 under each remat mode: 2 steps
+    from the same weights, the first step's loss identical across modes
+    and the second's within 1e-3 relative of 'none''s, peak memory per
+    mode, and K1's launches a step (``REMAT_K1``: 'dots' and 'full'
+    recompute it in the backward; K2a and K2b once a layer in every
+    mode); then at depth 2, each mode's gradients with the kernels
+    against 'none''s, each to 1e-2 of its norm."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
+    batch = id_batch(north_cfg())
+    key = prng.prng_key(5, device="cuda")
+    modes, grads2, runs = {}, {}, {}
+    for mode, k1 in REMAT_K1.items():
+        cfg = train_cfg(remat=mode, attn_dropout=0.0, ff_dropout=0.0)
+        model = D.dalle_init(cfg, seed=61, dtype=torch.bfloat16)
+        d = cfg.depth
+        rec = slice_train(f"remat/{mode}", model, dalle_loss_fn(), batch,
+                          {"k1": k1 * d, "k2a": d, "k2b": d, "k3": 0},
+                          units=8 * cfg.seq_len, steps=2, warmup=1,
+                          profile=False)
+        del model
+        torch.cuda.empty_cache()
+        runs[mode] = rec
+        modes[mode] = {k: rec[k] for k in ("losses", "ms_per_step",
+                                           "peak_mem_gib",
+                                           "launches_per_step")}
+        m2 = D.dalle_init(train_cfg(depth=2, remat=mode, attn_dropout=0.0,
+                                    ff_dropout=0.0), seed=62,
+                          dtype=torch.bfloat16)
+        dalle_loss_fn()(m2, batch, key).backward()
+        grads2[mode] = {n: p.grad.float() for n, p in m2.named_parameters()}
+        del m2
+    base = modes["none"]["losses"]
+    worst = {}
+    for mode, rec in modes.items():
+        check(rec["losses"][0] == base[0],
+              f"remat {mode}: first loss {rec['losses'][0]} != {base[0]}")
+        check(abs(rec["losses"][1] - base[1]) <= 1e-3 * abs(base[1]),
+              f"remat {mode}: second loss {rec['losses'][1]} against "
+              f"{base[1]}")
+        err = max(float((g - grads2["none"][n]).norm())
+                  / max(float(grads2["none"][n].norm()), 1e-30)
+                  for n, g in grads2[mode].items())
+        check(err <= 1e-2, f"remat {mode}: depth-2 gradients differ from "
+                           f"'none' by {err:.3e} of a norm")
+        worst[mode] = err
+    launches = {k: sum(rec["launches"][k] for rec in runs.values())
+                for k in ("k1", "k2a", "k2b")}
+    record = dict(phase="remat", ok=True, modes=modes,
+                  depth2_max_grad_err_of_norm=worst, launches=launches)
+    emit(**record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2502,6 +3027,12 @@ def main() -> int:
     sparse_engine = phase_sparse_engine()
     wide_engine = phase_wide_engine()
     generate = phase_generate()
+    phase_vae_train()
+    rev_train = phase_rev_train()
+    rev_decode = phase_rev_decode()
+    moe_train = phase_moe_train()
+    clip_train = phase_clip_train()
+    remat = phase_remat()
     main_case = kernel["bfloat16"]
     rows = [{
         "name": "paged_decode_attention",
@@ -2630,6 +3161,49 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None})
+    # the training slice's paths: the flash kernels at the north training
+    # case (the reversible step, its backward recomputing K1; the MoE
+    # model; the four remat modes), K3 without the causal constraint at
+    # the CLIP text encoder's case (CLIP training), K4 at the serving case
+    # (the reversible model's engine run)
+    for path, rec in (("rev_train", rev_train), ("moe_train", moe_train),
+                      ("remat", remat)):
+        for name, kind, line, count, library_ms in (
+                ("flash_attention_fwd", "fwd", 88, "k1",
+                 lib["sdpa_fwd_ms"]),
+                ("flash_attention_bwd_dq", "dq", 322, "k2a", None),
+                ("flash_attention_bwd_dkv", "dkv", 367, "k2b",
+                 lib["sdpa_bwd_ms"])):
+            rows.append({
+                "name": f"{name}@{path}", "route": "cuda",
+                "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+                "replaces":
+                    f"dalle_pytorch_tpu/ops/flash_attention.py:{line}",
+                "launches": rec["launches"][count],
+                "max_abs_err": fc["max_abs_err"][kind],
+                "ms": fc[kind]["ms"], "plain_ms": fc[kind]["plain_ms"],
+                "bound_ms": fc[kind]["bound_ms"],
+                "bound_by": fc[kind]["bound_by"],
+                "library_ms": library_ms})
+    rows.append({
+        "name": "block_sparse_attention_fwd_noncausal@clip_train",
+        "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": clip_train["launches"]["k3"],
+        "max_abs_err": max(k3c["max_abs_err"].values()),
+        "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
+        "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
+        "library_ms": k3c["sdpa_masked_ms"]})
+    rows.append({
+        "name": "paged_decode_attention@rev_decode", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dalle_pytorch_tpu/ops/paged_attention.py:88",
+        "launches": rev_decode["k4_launches"],
+        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

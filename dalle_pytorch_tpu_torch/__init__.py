@@ -6,11 +6,15 @@ easy to find, and every module names the JAX function it ports. It
 imports ``torch``, numpy and the standard library only — never ``jax``
 and never ``dalle_pytorch_tpu``.
 
-What is ported so far is the serving main path: a paged-KV
-continuous-batching engine (``serve.engine.Engine``) whose per-token KV
-read is a hand-written CUDA kernel (``csrc/paged_attention.cu``), the
-DALLE/VAE modules it drives, a torch threefry so sampled tokens match
-the JAX engine bit for bit, and a bridge from the JAX parameter trees
+What is ported so far: the serving path, a paged-KV continuous-batching
+engine (``serve.engine.Engine``) whose per-token KV read is a
+hand-written CUDA kernel (``csrc/paged_attention.cu``); one-shot
+generation with the CLIP rerank; the training of the three models
+(DiscreteVAE, DALLE in its sequential, reversible, MoE and
+rematerialised forms, CLIP) on the flash and block-sparse kernels
+(``csrc/flash_attention.cu``, ``csrc/block_sparse.cu``) with Adam and an
+EMA; a torch threefry so sampled tokens and dropout masks match JAX's
+bit for bit; and a bridge from the JAX parameter trees
 (``compat.from_jax``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,2 +1,2 @@
 """What the training entry points share: per-step keys, the learning-rate
-schedule and the optimizer."""
+schedule, the optimizer and the EMA."""

@@ -1,8 +1,9 @@
-"""Per-step keys, the learning-rate schedule and the optimizer.
+"""Per-step keys, the learning-rate schedule, the optimizer and the EMA.
 
-Port of three functions of ``dalle_pytorch_tpu/cli/common.py``:
-``step_rng`` (``:266``), ``resolve_schedule`` (``:277``) and
-``make_optimizer`` (``:307``). ``args`` carries the JAX CLI's flag names
+Port of five functions of ``dalle_pytorch_tpu/cli/common.py``:
+``step_rng`` (``:266``), ``resolve_schedule`` (``:277``),
+``make_optimizer`` (``:307``), ``make_ema`` (``:343``) and ``ema_as``
+(``:410``). ``args`` carries the JAX CLI's flag names
 (``lr``, ``lr_schedule`` 'constant' | 'cosine', ``warmup_steps``,
 ``decay_steps``, ``lr_end_ratio``, ``n_epochs``, ``clip_grad_norm``);
 the CLIs themselves are a later slice.
@@ -129,3 +130,38 @@ def make_optimizer(args, params: Iterable[torch.nn.Parameter],
             args.warmup_steps + schedule["decay_steps"],
             args.lr * args.lr_end_ratio)
     return Optimizer(params, sched, getattr(args, "clip_grad_norm", 0.0))
+
+
+def make_ema(args, model: torch.nn.Module, resume_path: str = ""):
+    """(ema, update) for ``args.ema_decay``, or (None, None) when it is
+    <= 0. ``ema`` maps each parameter's name to a float32 copy whatever
+    the parameter's dtype (at decay 0.999 a bfloat16 average cannot move:
+    its ulp swallows the (1 - d) step); ``update(ema, model)`` sets each
+    entry to ``d * e + (1 - d) * p.float()`` in place and returns
+    ``ema``. Resuming an EMA needs the checkpoint slice, not yet ported:
+    a ``resume_path`` raises ``NotImplementedError``."""
+    if resume_path:
+        raise NotImplementedError(
+            "resuming an EMA needs checkpoint.py, which the port does not "
+            "have yet (ROADMAP.md queue 1 item 2)")
+    if getattr(args, "ema_decay", 0.0) <= 0:
+        return None, None
+    d = float(args.ema_decay)
+    ema = {name: p.detach().float().clone()
+           for name, p in model.named_parameters()}
+
+    @torch.no_grad()
+    def update(ema: dict, model: torch.nn.Module) -> dict:
+        for name, p in model.named_parameters():
+            ema[name].mul_(d).add_(p.float() * (1.0 - d))
+        return ema
+
+    return ema, update
+
+
+def ema_as(ema: dict, model: torch.nn.Module) -> dict:
+    """The float32 EMA cast to the dtypes of ``model``'s parameters: a
+    state dict for eval or decode (``model.load_state_dict(...,
+    strict=False)``)."""
+    return {name: ema[name].to(p.dtype)
+            for name, p in model.named_parameters()}

@@ -8,6 +8,9 @@ bfloat16 leaves arrive as ml_dtypes arrays). The conversions, each exact:
 
 * linear ``w (in, out)`` -> ``nn.Linear.weight (out, in)``;
 * the transformer's stacked depth axis -> one ``Layer`` module per layer;
+  a MoE layer's ``ff["moe"]`` subtree -> ``ops/moe.py::MoE``: the router
+  as a linear, the expert stacks ``w1`` (E, d, 2h) and ``w2`` (E, h, d)
+  as they are;
 * conv HWIO -> ``nn.Conv2d`` OIHW;
 * transposed conv HWIO -> ``nn.ConvTranspose2d`` IOHW with no spatial flip
   (the JAX op is the flipped-kernel dilated convolution, which is
@@ -77,6 +80,43 @@ def _dtype_of(tree: Mapping, *path) -> torch.dtype:
     return to_tensor(leaf).dtype
 
 
+def _resblocks(ms: nn.ModuleList, ps) -> None:
+    for m, p in zip(ms, ps, strict=True):
+        _conv(m.c1, p["c1"])
+        _conv(m.c2, p["c2"])
+        _conv(m.c3, p["c3"])
+
+
+def _decoder(vae: nn.Module, params: Mapping) -> None:
+    _set(vae.codebook.weight, params["codebook"]["w"])
+    if vae.dec_stem is not None:
+        _conv(vae.dec_stem, params["dec_stem"])
+    _resblocks(vae.dec_res, params["dec_res"])
+    for m, p in zip(vae.dec_convs, params["dec_convs"], strict=True):
+        _conv_transpose(m, p)
+    _conv(vae.dec_out, params["dec_out"])
+
+
+def _encoder(enc: nn.Module, params: Mapping) -> None:
+    for m, p in zip(enc.enc_convs, params["enc_convs"], strict=True):
+        _conv(m, p)
+    _resblocks(enc.enc_res, params["enc_res"])
+    _conv(enc.enc_out, params["enc_out"])
+
+
+@torch.no_grad()
+def discrete_vae_from_jax(params: Mapping, cfg: vae_mod.VAEConfig, *,
+                          dtype=None, device=None) -> vae_mod.DiscreteVAE:
+    """A whole JAX VAE tree (``vae_init``) into the port's
+    ``DiscreteVAE``."""
+    device = resolve_device(device)
+    dtype = dtype or _dtype_of(params, "codebook", "w")
+    vae = vae_mod.DiscreteVAE(cfg, device=device, dtype=dtype)
+    _encoder(vae, params)
+    _decoder(vae, params)
+    return vae
+
+
 @torch.no_grad()
 def vae_from_jax(params: Mapping, cfg: vae_mod.VAEConfig, *,
                  dtype=None, device=None) -> vae_mod.VAEDecoder:
@@ -84,16 +124,7 @@ def vae_from_jax(params: Mapping, cfg: vae_mod.VAEConfig, *,
     device = resolve_device(device)
     dtype = dtype or _dtype_of(params, "codebook", "w")
     vae = vae_mod.VAEDecoder(cfg, device=device, dtype=dtype)
-    _set(vae.codebook.weight, params["codebook"]["w"])
-    if vae.dec_stem is not None:
-        _conv(vae.dec_stem, params["dec_stem"])
-    for m, p in zip(vae.dec_res, params["dec_res"], strict=True):
-        _conv(m.c1, p["c1"])
-        _conv(m.c2, p["c2"])
-        _conv(m.c3, p["c3"])
-    for m, p in zip(vae.dec_convs, params["dec_convs"], strict=True):
-        _conv_transpose(m, p)
-    _conv(vae.dec_out, params["dec_out"])
+    _decoder(vae, params)
     return vae
 
 
@@ -104,13 +135,7 @@ def vae_encoder_from_jax(params: Mapping, cfg: vae_mod.VAEConfig, *,
     device = resolve_device(device)
     dtype = dtype or _dtype_of(params, "enc_out", "w")
     enc = vae_mod.VAEEncoder(cfg, device=device, dtype=dtype)
-    for m, p in zip(enc.enc_convs, params["enc_convs"], strict=True):
-        _conv(m, p)
-    for m, p in zip(enc.enc_res, params["enc_res"], strict=True):
-        _conv(m.c1, p["c1"])
-        _conv(m.c2, p["c2"])
-        _conv(m.c3, p["c3"])
-    _conv(enc.enc_out, params["enc_out"])
+    _encoder(enc, params)
     return enc
 
 
@@ -143,6 +168,13 @@ def _transformer(model: T.Transformer, stack: Mapping) -> None:
         _linear(layer.attn.qkv, {k: v[i] for k, v in at["qkv"].items()})
         _linear(layer.attn.out, {k: v[i] for k, v in at["out"].items()})
         _layernorm(layer.ff.ln, {k: v[i] for k, v in ff["ln"].items()})
+        if "moe" in ff:
+            moe = ff["moe"]
+            _linear(layer.ff.moe.router,
+                    {k: v[i] for k, v in moe["router"].items()})
+            _set(layer.ff.moe.w1, to_tensor(moe["w1"][i]))
+            _set(layer.ff.moe.w2, to_tensor(moe["w2"][i]))
+            continue
         _linear(layer.ff.w1, {k: v[i] for k, v in ff["w1"].items()})
         _linear(layer.ff.w2, {k: v[i] for k, v in ff["w2"].items()})
 

@@ -4,7 +4,7 @@ Port of ``dalle_pytorch_tpu/models/clip.py`` (``:37-186``): a text
 transformer and a ViT-style patch transformer, each pooled and projected
 to an L2-normalised latent, a learned temperature stored before the exp,
 the paired scores at inference and the one-directional (text -> image)
-InfoNCE loss (its forward; CLIP's training is a later slice).
+InfoNCE loss, which ``parallel/train.py::clip_loss_fn`` trains on.
 
 Both encoders are non-causal, dim_head 64, and by default block-sparse in
 the bidirectional layout in every layer (``sparse_attn=True``, the

@@ -12,6 +12,12 @@ arguments are the engine's, a later slice), ``quantize_for_decode``
 the dense KV cache, classifier-free guidance, int8 caches and the CLIP
 rerank.
 
+``reversible``, ``remat`` and ``moe_experts`` select the stack's engine
+(``ops/transformer.py``): a reversible model's hidden states are the
+mean of its two streams, in training and in every decode path, and a MoE
+model's training loss adds ``moe_aux_coef`` times the load-balance loss
+(JAX ``:331-332``).
+
 Vocabulary layout ``[0, num_text_tokens) text | image | EOS``. The image
 embedding is TIED to the VAE codebook: ``dalle_init(vae=...)`` copies
 the codebook into ``image_emb``, and the serving path decodes images
@@ -57,7 +63,12 @@ class DALLEConfig:
     flash_block_k: int = 128
     # sparse layers: 'ref' | 'windowed' | 'pallas' (kernel K3)
     sparse_impl: str = "ref"
+    # MoE FF: 0 = plain GEGLU; > 0 experts a layer, top moe_k; the
+    # Switch load-balance loss enters the training loss times
+    # moe_aux_coef
     moe_experts: int = 0
+    moe_k: int = 2
+    moe_aux_coef: float = 1e-2
     scale_mode: str = "dim"
     remat: str = "none"
     # 'grid' factorizes over the token grid; 'full_image' reproduces the
@@ -105,8 +116,8 @@ class DALLEConfig:
             attn_bwd_impl=self.attn_bwd_impl,
             flash_block_q=self.flash_block_q,
             flash_block_k=self.flash_block_k, sparse_impl=self.sparse_impl,
-            moe_experts=self.moe_experts, scale_mode=self.scale_mode,
-            remat=self.remat)
+            moe_experts=self.moe_experts, moe_k=self.moe_k,
+            scale_mode=self.scale_mode, remat=self.remat)
 
 
 class DALLE(nn.Module):
@@ -225,7 +236,9 @@ def dalle_apply(model: DALLE, text: torch.Tensor,
     (b, n_img), raw images (b, H, W, C) tokenised through the frozen VAE
     encoder ``vae`` with no gradient, or None (text-only prefix). ``mask``
     (b, t) covers the text; image positions are always kept. Returns the
-    masked logits (b, seq, total_tokens) or the scalar CE loss."""
+    masked logits (b, seq, total_tokens) or the scalar CE loss, plus
+    ``moe_aux_coef`` times the MoE load-balance loss in a MoE model. A
+    reversible model's logits come from the mean of its two streams."""
     cfg = model.cfg
     image_ids = None
     if image is not None:
@@ -242,15 +255,19 @@ def dalle_apply(model: DALLE, text: torch.Tensor,
         pad = torch.ones((mask.shape[0], image_ids.shape[1]),
                          dtype=torch.bool, device=mask.device)
         mask = torch.cat([mask.bool(), pad], dim=1)
-    h = T.transformer_apply(model.transformer, tokens, cfg=cfg.transformer,
-                            mask=mask, rng=rng, train=train)
+    h, aux = T.transformer_apply(model.transformer, tokens,
+                                 cfg=cfg.transformer, mask=mask, rng=rng,
+                                 train=train, with_aux=True)
     if not return_loss:
         logits = to_logits(model, h)
         forbidden = logits_mask(cfg, device=h.device)[:seq_len]
         return logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
     if image_ids is None:
         raise ValueError("when training, image must be supplied")
-    return ce_from_hidden(model, h, text, image_ids)
+    loss = ce_from_hidden(model, h, text, image_ids)
+    if cfg.moe_experts:
+        loss = loss + cfg.moe_aux_coef * aux
+    return loss
 
 
 def ce_from_hidden(model: DALLE, h: torch.Tensor, text: torch.Tensor,

@@ -1,11 +1,16 @@
-"""DiscreteVAE: the conv decoder (image tokens -> images) and the conv
-encoder (images -> token logits -> codebook indices).
+"""DiscreteVAE: the conv encoder (images -> token logits), the Gumbel-
+softmax relaxation over the codebook, and the conv decoder.
 
-Port of ``dalle_pytorch_tpu/models/vae.py`` (``VAEConfig``,
-``encode_logits``, ``decode_embeds``, ``get_codebook_indices`` and
-``decode``, ``:39-66,136-225``). Serving needs the decoder, DALLE
-training the encoder, which tokenises raw images with no gradient. The
-Gumbel relaxation and the VAE's own training loss are a later slice.
+Port of ``dalle_pytorch_tpu/models/vae.py`` (``:38-274``): ``VAEConfig``,
+``encode_logits``, ``decode_embeds``, ``gumbel_softmax``, ``vae_apply``
+(the forward and reconstruction loss the VAE trains on),
+``get_codebook_indices`` and ``decode``. ``DiscreteVAE`` holds the whole
+JAX ``vae_init`` tree (encoder, codebook, decoder) with the OO facade's
+``forward``, ``get_codebook_indices`` and ``decode``; ``VAEEncoder``
+(DALLE training tokenises raw images with it, no gradient) and
+``VAEDecoder`` (serving) hold one half each. The functions take any
+module with the attributes they read, so a ``DiscreteVAE`` goes
+wherever either half does.
 
 The convolutions run NCHW (torch's layout) internally, but the public
 functions keep the JAX package's NHWC images and ``(b, h, w, d)``
@@ -22,7 +27,7 @@ import torch
 from torch import nn
 
 from dalle_pytorch_tpu_torch.device import generator, resolve_device
-from dalle_pytorch_tpu_torch.ops import core
+from dalle_pytorch_tpu_torch.ops import core, prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +39,10 @@ class VAEConfig:
     num_resnet_blocks: int = 0
     hidden_dim: int = 64
     channels: int = 3
+    temperature: float = 0.9
+    # soft relaxation by default (the reference's gumbel_softmax
+    # hard=False); True gives straight-through
+    straight_through: bool = False
 
     def __post_init__(self):
         if not math.log2(self.image_size).is_integer():
@@ -65,21 +74,7 @@ class VAEDecoder(nn.Module):
 
     def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        n = cfg.num_layers
-        self.codebook = nn.Embedding(cfg.num_tokens, cfg.codebook_dim, **kw)
-        has_res = cfg.num_resnet_blocks > 0
-        dec_chans = [cfg.hidden_dim] * n
-        dec_in = dec_chans[0] if has_res else cfg.codebook_dim
-        self.dec_stem = (nn.Conv2d(cfg.codebook_dim, dec_chans[0], 1, **kw)
-                         if has_res else None)
-        self.dec_res = nn.ModuleList(
-            ResBlock(dec_chans[0], **kw)
-            for _ in range(cfg.num_resnet_blocks))
-        self.dec_convs = nn.ModuleList(
-            nn.ConvTranspose2d(cin, cout, 4, **kw)
-            for cin, cout in zip([dec_in] + dec_chans[:-1], dec_chans))
-        self.dec_out = nn.Conv2d(dec_chans[-1], cfg.channels, 1, **kw)
+        _build_decoder(self, cfg, dict(device=device, dtype=dtype))
 
 
 class VAEEncoder(nn.Module):
@@ -89,14 +84,59 @@ class VAEEncoder(nn.Module):
 
     def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
         super().__init__()
+        _build_encoder(self, cfg, dict(device=device, dtype=dtype))
+
+
+class DiscreteVAE(nn.Module):
+    """The whole JAX ``vae_init`` tree: the encoder's ``enc_convs``,
+    ``enc_res`` and ``enc_out``, the ``codebook``, and the decoder's
+    ``dec_stem``, ``dec_res``, ``dec_convs`` and ``dec_out``; with the
+    reference class's ``forward`` (``vae_apply``), ``get_codebook_indices``
+    and ``decode``."""
+
+    def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
-        chans = [cfg.channels] + [cfg.hidden_dim] * cfg.num_layers
-        self.enc_convs = nn.ModuleList(
-            nn.Conv2d(cin, cout, 4, **kw)
-            for cin, cout in zip(chans[:-1], chans[1:]))
-        self.enc_res = nn.ModuleList(
-            ResBlock(chans[-1], **kw) for _ in range(cfg.num_resnet_blocks))
-        self.enc_out = nn.Conv2d(chans[-1], cfg.num_tokens, 1, **kw)
+        _build_encoder(self, cfg, kw)
+        _build_decoder(self, cfg, kw)
+
+    def forward(self, images: torch.Tensor,
+                rng: Optional[torch.Tensor] = None, **kw):
+        return vae_apply(self, images, cfg=self.cfg, rng=rng, **kw)
+
+    def get_codebook_indices(self, images: torch.Tensor) -> torch.Tensor:
+        return get_codebook_indices(self, images)
+
+    def decode(self, img_seq: torch.Tensor,
+               codebook: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return decode(self, img_seq, codebook)
+
+
+def _build_encoder(m: nn.Module, cfg: VAEConfig, kw: dict) -> None:
+    chans = [cfg.channels] + [cfg.hidden_dim] * cfg.num_layers
+    m.enc_convs = nn.ModuleList(
+        nn.Conv2d(cin, cout, 4, **kw)
+        for cin, cout in zip(chans[:-1], chans[1:]))
+    m.enc_res = nn.ModuleList(
+        ResBlock(chans[-1], **kw) for _ in range(cfg.num_resnet_blocks))
+    m.enc_out = nn.Conv2d(chans[-1], cfg.num_tokens, 1, **kw)
+
+
+def _build_decoder(m: nn.Module, cfg: VAEConfig, kw: dict) -> None:
+    n = cfg.num_layers
+    m.codebook = nn.Embedding(cfg.num_tokens, cfg.codebook_dim, **kw)
+    has_res = cfg.num_resnet_blocks > 0
+    dec_chans = [cfg.hidden_dim] * n
+    dec_in = dec_chans[0] if has_res else cfg.codebook_dim
+    m.dec_stem = (nn.Conv2d(cfg.codebook_dim, dec_chans[0], 1, **kw)
+                  if has_res else None)
+    m.dec_res = nn.ModuleList(
+        ResBlock(dec_chans[0], **kw) for _ in range(cfg.num_resnet_blocks))
+    m.dec_convs = nn.ModuleList(
+        nn.ConvTranspose2d(cin, cout, 4, **kw)
+        for cin, cout in zip([dec_in] + dec_chans[:-1], dec_chans))
+    m.dec_out = nn.Conv2d(dec_chans[-1], cfg.channels, 1, **kw)
 
 
 def _resblock(p: ResBlock, x: torch.Tensor) -> torch.Tensor:
@@ -138,6 +178,50 @@ def decode_embeds(vae: VAEDecoder, embeds: torch.Tensor) -> torch.Tensor:
     return core.conv2d(vae.dec_out, x).permute(0, 2, 3, 1)
 
 
+def gumbel_softmax(key: torch.Tensor, logits: torch.Tensor, tau: float,
+                   straight_through: bool = False) -> torch.Tensor:
+    """Relaxed one-hot over the last (token) axis: softmax((logits + g) /
+    tau) with Gumbel noise g drawn under ``key`` in the logits' dtype
+    (``prng.gumbel``, JAX's draw). Straight-through adds
+    ``one_hot(argmax) - soft`` with no gradient."""
+    g = prng.gumbel(key, logits.shape, logits.dtype)
+    # tau divides in the logits' dtype, as JAX's weakly typed scalar does
+    tau = torch.tensor(tau, dtype=logits.dtype, device=logits.device)
+    soft = torch.softmax((logits + g) / tau, dim=-1)
+    if straight_through:
+        hard = torch.nn.functional.one_hot(
+            soft.argmax(dim=-1), logits.shape[-1]).to(soft.dtype)
+        soft = soft + (hard - soft).detach()
+    return soft
+
+
+def vae_apply(vae: "DiscreteVAE", images: torch.Tensor, *, cfg: VAEConfig,
+              rng: Optional[torch.Tensor] = None,
+              temperature: Optional[float] = None,
+              return_logits: bool = False,
+              return_recon_loss: bool = False):
+    """Forward (reference ``DiscreteVAE.forward``): images (b, H, W, C)
+    -> logits -> Gumbel-softmax under ``rng`` at ``temperature`` (by
+    default ``cfg.temperature``) -> codebook mix, one (b*h*w, T) @ (T, d)
+    product -> decoder. Returns the reconstruction, the logits with
+    ``return_logits``, or the mean squared error with
+    ``return_recon_loss``."""
+    logits = encode_logits(vae, images)
+    if return_logits:
+        return logits
+    if rng is None:
+        raise ValueError("vae_apply needs an explicit PRNG key for the "
+                         "Gumbel noise")
+    tau = cfg.temperature if temperature is None else temperature
+    soft = gumbel_softmax(rng, logits, tau, cfg.straight_through)
+    b, h, w, t = soft.shape
+    embeds = soft.reshape(b * h * w, t) @ vae.codebook.weight.to(soft.dtype)
+    recon = decode_embeds(vae, embeds.reshape(b, h, w, -1))
+    if not return_recon_loss:
+        return recon
+    return (images - recon).square().mean()
+
+
 def decode(vae: VAEDecoder, img_seq: torch.Tensor,
            codebook: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token ids (b, n) -> images (b, H, W, C) over a square grid.
@@ -157,6 +241,15 @@ def vae_init(cfg: VAEConfig, seed: int = 0, *, dtype=torch.float32,
     """A seeded random decoder on ``device`` (the card by default)."""
     device = resolve_device(device)
     vae = VAEDecoder(cfg, device=device, dtype=dtype)
+    core.init_params_(vae, generator(seed, device))
+    return vae
+
+
+def discrete_vae_init(cfg: VAEConfig, seed: int = 0, *,
+                      dtype=torch.float32, device=None) -> DiscreteVAE:
+    """A seeded random whole VAE on ``device`` (the card by default)."""
+    device = resolve_device(device)
+    vae = DiscreteVAE(cfg, device=device, dtype=dtype)
     core.init_params_(vae, generator(seed, device))
     return vae
 

@@ -1,2 +1,3 @@
-"""Tensor ops of the port: primitives, attention, the transformer stack,
-the threefry sampler bits, decoding and the paged-attention kernel."""
+"""Tensor ops of the port: primitives, attention, the transformer stack
+(sequential, reversible, Mixture-of-Experts), the threefry sampler bits,
+decoding and the attention kernels."""

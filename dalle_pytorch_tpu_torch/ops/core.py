@@ -11,7 +11,10 @@ package's numerics rather than the modules' own ``forward``:
   branch (``:64-66``): the int8 weight cast to the activation dtype,
   the product, then the per-output-channel scale in that dtype;
 * ``layernorm`` normalises in f32 with eps 1e-5 and casts back
-  (``core.layernorm``), where ``nn.LayerNorm`` would stay in bf16;
+  (``core.layernorm``), where ``nn.LayerNorm`` would stay in bf16; with
+  ``recompute=True`` (remat ``'save_ln'``) its f32 intermediates, the
+  ones JAX tags ``ln_f32_in`` and ``ln_f32_out``, are not kept for the
+  backward but recomputed there from the input;
 * ``gelu`` is the exact erf form (``core.gelu``);
 * ``dropout`` draws its keep mask with the port's threefry, so a key
   drops the same elements as ``core.dropout`` under that key in JAX;
@@ -29,6 +32,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from dalle_pytorch_tpu_torch.ops import prng
@@ -44,14 +48,25 @@ def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return y if b is None else y + b
 
 
-def layernorm(p: nn.LayerNorm, x: torch.Tensor, *,
-              eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+def _layernorm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    xf = x.float()                                 # JAX's 'ln_f32_in'
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * p.weight.float() + p.bias.float()
+    y = y * g.float() + b.float()                  # JAX's 'ln_f32_out'
     return y.to(x.dtype)
+
+
+def layernorm(p: nn.LayerNorm, x: torch.Tensor, *, eps: float = 1e-5,
+              recompute: bool = False) -> torch.Tensor:
+    """``recompute=True`` runs the f32 body under a checkpoint: the
+    backward keeps only x and the affine parameters and recomputes the
+    f32 intermediates, the same numbers."""
+    if recompute and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            _layernorm_f32, x, p.weight, p.bias, eps, use_reentrant=False)
+    return _layernorm_f32(x, p.weight, p.bias, eps)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -97,7 +112,7 @@ def neg_inf(dtype: torch.dtype) -> float:
     return -torch.finfo(dtype).max
 
 
-def _uniform_fan_in_(w: torch.Tensor, fan_in: int, g: torch.Generator):
+def uniform_fan_in_(w: torch.Tensor, fan_in: int, g: torch.Generator):
     bound = 1.0 / math.sqrt(max(fan_in, 1))
     torch.nn.init.uniform_(w, -bound, bound, generator=g)
 
@@ -106,9 +121,13 @@ def _uniform_fan_in_(w: torch.Tensor, fan_in: int, g: torch.Generator):
 def init_params_(module: nn.Module, g: torch.Generator) -> None:
     """Seeded random init in the JAX package's distribution families:
     U(±1/sqrt(fan_in)) for linears and convs, N(0, 1) for embeddings,
-    ones/zeros for layernorms. Bitwise equality with a JAX init is not a
-    goal (weights cross over through ``compat/from_jax.py``)."""
+    ones/zeros for layernorms; a module with other parameters (the MoE
+    experts) inits them in its ``init_experts_``. Bitwise equality with a
+    JAX init is not a goal (weights cross over through
+    ``compat/from_jax.py``)."""
     for m in module.modules():
+        if hasattr(m, "init_experts_"):
+            m.init_experts_(g)
         if isinstance(m, nn.Embedding):
             torch.nn.init.normal_(m.weight, generator=g)
         elif isinstance(m, nn.LayerNorm):
@@ -116,11 +135,11 @@ def init_params_(module: nn.Module, g: torch.Generator) -> None:
             m.bias.fill_(0.0)
         elif isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
-            _uniform_fan_in_(m.weight, fan_in, g)
+            uniform_fan_in_(m.weight, fan_in, g)
             if m.bias is not None:
-                _uniform_fan_in_(m.bias, fan_in, g)
+                uniform_fan_in_(m.bias, fan_in, g)
         elif isinstance(m, nn.ConvTranspose2d):
             # IOHW: the JAX HWIO init's fan-in is in_ch * kh * kw
             fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
-            _uniform_fan_in_(m.weight, fan_in, g)
-            _uniform_fan_in_(m.bias, fan_in, g)
+            uniform_fan_in_(m.weight, fan_in, g)
+            uniform_fan_in_(m.bias, fan_in, g)

@@ -9,7 +9,7 @@ Port of ``dalle_pytorch_tpu/ops/decode.py``:
   ``_store_rows_per_slot``) and ``_full_key_mask`` (``:143``) — the
   dense (depth, b, heads, total_len, dh) cache of one-shot generation,
   int8 rows with per-row f32 scales under ``quantized``;
-* ``prefill`` (``:274``) — the prompt through the sequential stack in one
+* ``prefill`` (``:274``) — the prompt through the stack in one
   batched pass, with ``_attn_with_kv``'s explicit matmul and finite-fill
   softmax (no fused attention call: the reference fill must hold); with
   ``prompt_mask`` pad pairs are left out, and with ``total_len`` it
@@ -37,6 +37,13 @@ Port of ``dalle_pytorch_tpu/ops/decode.py``:
   the trimmed ``kv_pool.visible_table_view`` in ``'gather'`` mode, the
   oracle — while dense layers read as before. Skipped pages carry
   exactly zero weight, so the tokens do not change.
+
+Every layer loop (``prefill`` and ``_run_layers``, which the dense,
+paged and sparse-reads steps share) runs ``_block``: a reversible stack
+in its two-stream form (the cached K/V from x2, the output the streams'
+mean), and each FF through ``ff_or_moe``, so a reversible or MoE model
+decodes the network it was trained as (JAX ``:300-318``, ``:492-510``,
+``:660-685``).
 
 Where JAX returns a new cache or pool from each step, the port updates
 the dense cache and the page pool IN PLACE (``index_put_``): they are the
@@ -183,6 +190,34 @@ def _attn_with_kv(layer: T.Layer, h: torch.Tensor, allowed: torch.Tensor,
     return attn_ops.output_tail(p, out), k, v
 
 
+def _stack_in(x: torch.Tensor, cfg: T.TransformerConfig):
+    """The layer loop's carry: x, or the two streams (x, x) of a
+    reversible stack."""
+    return (x, x) if cfg.reversible else x
+
+
+def _stack_out(carry, cfg: T.TransformerConfig) -> torch.Tensor:
+    """The stack's output: the carry, or the mean of the two streams."""
+    return (carry[0] + carry[1]) * 0.5 if cfg.reversible else carry
+
+
+def _block(layer: T.Layer, carry, cfg: T.TransformerConfig,
+           attend: Callable):
+    """One layer over the carry -> (carry, k, v). ``attend(h)`` gives
+    the attention branch's output and the K/V rows of ``h``. Sequential:
+    h + attention, then + FF; reversible (JAX ``:300-318``): y1 = x1 +
+    attention(x2), y2 = x2 + FF(y1), so the cached K/V come from x2, the
+    stream attention reads. The FF is ``ff_or_moe``'s, in eval mode."""
+    if cfg.reversible:
+        x1, x2 = carry
+        a, k, v = attend(x2)
+        y1 = x1 + a
+        return (y1, x2 + T.ff_or_moe(layer, y1, cfg)[0]), k, v
+    a, k, v = attend(carry)
+    h = carry + a
+    return h + T.ff_or_moe(layer, h, cfg)[0], k, v
+
+
 def prefill(model: T.Transformer, x: torch.Tensor, *,
             cfg: T.TransformerConfig, quantize_cache: bool = False,
             prompt_mask: Optional[torch.Tensor] = None,
@@ -208,14 +243,15 @@ def prefill(model: T.Transformer, x: torch.Tensor, *,
         # sequence's layout: it depends on positions only
         sparse_allowed = dense_allowed & _sparse_layout(cfg, t0, x.device)
     ks, vs = [], []
-    h = x
+    h = _stack_in(x, cfg)
     for layer, is_sparse in zip(model.layers, cfg.sparse_pattern):
         allowed = sparse_allowed if is_sparse else dense_allowed
-        a, k, v = _attn_with_kv(layer, h, allowed, cfg)
-        h = h + a
-        h = h + T.ff_branch(layer, h)
+        h, k, v = _block(layer, h, cfg,
+                         lambda hn, layer=layer, allowed=allowed:
+                         _attn_with_kv(layer, hn, allowed, cfg))
         ks.append(k)
         vs.append(v)
+    h = _stack_out(h, cfg)
     ks, vs = torch.stack(ks), torch.stack(vs)
     if total_len is None:
         return h, _rows(ks, vs, quantize_cache)
@@ -311,16 +347,19 @@ def _run_layers(model: T.Transformer, x_tok: torch.Tensor,
                 cfg: T.TransformerConfig, read: Callable):
     """The decode step's layer loop; ``read(i, q, k, v)`` gives layer i's
     (b, h, 1, dh) attention output over the cached rows plus self."""
-    h = x_tok[:, None, :]
+    h = _stack_in(x_tok[:, None, :], cfg)
     ks, vs = [], []
     for i, layer in enumerate(model.layers):
-        p = layer.attn
-        q, k, v = attn_ops.qkv_project(p, core.layernorm(p.ln, h), cfg.heads)
-        h = h + attn_ops.output_tail(p, read(i, q, k, v))
-        h = h + T.ff_branch(layer, h)
+
+        def attend(hn, i=i, p=layer.attn):
+            q, k, v = attn_ops.qkv_project(p, core.layernorm(p.ln, hn),
+                                           cfg.heads)
+            return attn_ops.output_tail(p, read(i, q, k, v)), k, v
+
+        h, k, v = _block(layer, h, cfg, attend)
         ks.append(k)
         vs.append(v)
-    return h[:, 0, :], torch.stack(ks), torch.stack(vs)
+    return _stack_out(h, cfg)[:, 0, :], torch.stack(ks), torch.stack(vs)
 
 
 def _decode_step_math(model: T.Transformer, x_tok: torch.Tensor,

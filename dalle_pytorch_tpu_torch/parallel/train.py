@@ -1,8 +1,10 @@
 """The training step on one device.
 
 Port of ``dalle_pytorch_tpu/parallel/train.py``'s ``make_train_step``
-(``:32``), ``accumulate_grads`` (``:79``) and ``dalle_loss_fn``
-(``:257``), the step ``bench.py::setup_train`` and ``time_steps`` drive.
+(``:32``), ``accumulate_grads`` (``:79``) and the three models' loss
+closures, ``vae_loss_fn`` (``:235``), ``dalle_loss_fn`` (``:257``) and
+``clip_loss_fn`` (``:270``): the step ``bench.py::setup_train`` and
+``time_steps`` drive.
 There is no jit and no sharding: the step runs eagerly on the model's
 device, and the parameters and the optimizer's moments update in place
 (where JAX returns new trees). An optional scalar ``batch['lr_scale']``
@@ -17,7 +19,9 @@ from typing import Callable
 import torch
 
 from dalle_pytorch_tpu_torch.cli.common import Optimizer
+from dalle_pytorch_tpu_torch.models import clip as C
 from dalle_pytorch_tpu_torch.models import dalle as D
+from dalle_pytorch_tpu_torch.models import vae as V
 from dalle_pytorch_tpu_torch.ops import prng
 
 
@@ -80,6 +84,28 @@ def accumulate_grads(loss_fn: Callable, model: torch.nn.Module, batch: dict,
     return total * inv
 
 
+def vae_loss_fn(cfg, *, smooth_l1: bool = False,
+                temperature=None) -> Callable:
+    """``loss(vae, batch, rng)``: a ``DiscreteVAE``'s reconstruction loss
+    on batch ``{'images': (b, H, W, C)}``, the Gumbel noise under
+    ``rng``: the mean squared error (the model's own loss), or with
+    ``smooth_l1`` the training scripts' Huber (delta 1) plus the mean
+    squared error. ``temperature`` overrides ``cfg.temperature``."""
+
+    def loss(vae, batch: dict, rng: torch.Tensor) -> torch.Tensor:
+        imgs = batch["images"]
+        recon = V.vae_apply(vae, imgs, cfg=cfg, rng=rng,
+                            temperature=temperature)
+        mse = (imgs - recon).square().mean()
+        if not smooth_l1:
+            return mse
+        d = (imgs - recon).abs()
+        huber = torch.where(d < 1.0, 0.5 * d * d, d - 0.5).mean()
+        return huber + mse
+
+    return loss
+
+
 def dalle_loss_fn(vae=None) -> Callable:
     """``loss(model, batch, rng)``: DALLE's training loss on batch
     ``{'text': (b, t), 'image': ids (b, n) or raw images (b, H, W, C),
@@ -90,5 +116,17 @@ def dalle_loss_fn(vae=None) -> Callable:
         return D.dalle_apply(model, batch["text"], batch["image"],
                              mask=batch.get("mask"), vae=vae, rng=rng,
                              train=True, return_loss=True)
+
+    return loss
+
+
+def clip_loss_fn() -> Callable:
+    """``loss(clip, batch, rng)``: CLIP's InfoNCE loss on batch
+    ``{'text': (b, t), 'images': (b, H, W, C), 'mask': optional (b, t)}``
+    (no randomness: ``rng`` is unused)."""
+
+    def loss(model, batch: dict, rng: torch.Tensor) -> torch.Tensor:
+        return C.clip_apply(model, batch["text"], batch["images"],
+                            text_mask=batch.get("mask"), return_loss=True)
 
     return loss

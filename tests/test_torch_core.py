@@ -186,12 +186,18 @@ def test_transformer_stack_matches_jax(jax_trees, port):
     close(got, want)
 
 
-@pytest.mark.parametrize("option", [dict(reversible=True),
-                                    dict(moe_experts=4),
-                                    dict(remat="full")])
-def test_later_slice_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        TD.DALLEConfig(dim=32, depth=2, vae=TVCFG, **option)
+@pytest.mark.parametrize("option, refused", [
+    (dict(reversible=True), dict(reversible=True, moe_experts=4)),
+    (dict(moe_experts=4), dict(moe_experts=4, moe_k=5)),
+    (dict(remat="full"), dict(remat="everything"))])
+def test_later_slice_options_raise(option, refused):
+    """The options of the training slice construct, and what JAX refuses
+    of them (reversible with MoE, k above the experts, an unknown remat
+    mode) raises ValueError, JAX's type."""
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=TVCFG, **option)
+    assert all(getattr(cfg.transformer, k) == v for k, v in option.items())
+    with pytest.raises(ValueError):
+        TD.DALLEConfig(dim=32, depth=2, vae=TVCFG, **refused)
 
 
 # -- VAE decode -----------------------------------------------------------------

@@ -174,11 +174,11 @@ def test_wide_split_body_across_split_boundaries(cuda, dh, dtype, page_size,
     split_walk_case(cuda, page_size, dtype, dh, visible=visible)
 
 
-def k4_bodies(call, attempts: int = 3) -> set:
-    """The K4 kernels a torch.profiler trace of twelve calls names. A
-    session may drop the records of its first milliseconds, which can
-    hold every launch of a kernel this short: one that records none is
-    tried again, up to ``attempts``."""
+def profiled_bodies(call, pattern: str, attempts: int = 3) -> set:
+    """The kernels matching ``pattern`` that a torch.profiler trace of
+    twelve calls names. A session may drop the records of its first
+    milliseconds, which can hold every launch of a kernel this short:
+    one that records none is tried again, up to ``attempts``."""
     from torch.profiler import ProfilerActivity, profile
     call()
     for _ in range(attempts):
@@ -188,11 +188,15 @@ def k4_bodies(call, attempts: int = 3) -> set:
                 call()
             torch.cuda.synchronize()
         names = {name for e in prof.key_averages()
-                 for name in re.findall(r"(paged_decode\w*?_kernel)<",
-                                        e.key)}
+                 for name in re.findall(pattern, e.key)}
         if names:
             return names
     return set()
+
+
+def k4_bodies(call, attempts: int = 3) -> set:
+    """The K4 kernels a profiled run of ``call`` names."""
+    return profiled_bodies(call, r"(paged_decode\w*?_kernel)<", attempts)
 
 
 def split_walk_case(cuda, page_size, dtype, dh, visible=False):
@@ -545,7 +549,6 @@ def test_flash_calls_launch_the_kernel_body_names(cuda, dtype, d):
     fused) at d 160 (padded to 192), 192 and 256 the wide tensor-core
     bodies, bfloat16 at d 64 and 128 the narrow ones (fused K2b's own),
     float32 and d 320 the CUDA-core ones."""
-    from torch.profiler import ProfilerActivity, profile
     dtype = getattr(torch, dtype)
     q, k, v, do, mask = flash_inputs(cuda, dtype, 130, d, True)
     kw = dict(scale=d ** -0.5, causal=True, mask=mask)
@@ -557,14 +560,7 @@ def test_flash_calls_launch_the_kernel_body_names(cuda, dtype, d):
              "fused": lambda: FA.flash_attention_bwd_dkv(*args, with_dq=True,
                                                          **kw)}
     for kind, call in calls.items():
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-        ran = {name for e in prof.key_averages()
-               for name in re.findall(r"(flash_\w+?_kernel)<", e.key)}
+        ran = profiled_bodies(call, r"(flash_\w+?_kernel)<")
         assert ran == {FA.kernel_body(kind, dtype, d)}, (kind, ran)
 
 
@@ -720,6 +716,132 @@ def test_tiny_dalle_train_step_on_card_matches_cpu(cuda, dtype, dim_head):
         largest = float(want.abs().max())
         err = float((grads_g[name] - want).abs().max())
         assert err <= grad_tol * max(largest, 1e-30), (name, err, largest)
+
+
+def _card_against_cpu(cuda, make, loss_fn, batch, dtype, want_launches):
+    """One loss and backward of ``make(dtype)`` on the CPU (the kernels'
+    plain versions) and on the card (the kernels), from the same weights
+    and keys: the card's launches of (K1, K2a, K2b, K3) equal
+    ``want_launches``, the loss within rtol 1e-5 (float32) or 2e-2
+    (bfloat16) and each gradient within 1e-4 or 2e-2 of its largest
+    element, as ``test_tiny_dalle_train_step_on_card_matches_cpu``."""
+    import copy
+    from dalle_pytorch_tpu_torch.ops import prng
+    dt = getattr(torch, dtype)
+    model = make(dt)
+    got = {}
+    for dev in ("cpu", cuda):
+        m_ = copy.deepcopy(model).to(dev)
+        b_ = {k: v.to(dev) for k, v in batch.items()}
+        if "images" in b_:
+            b_["images"] = b_["images"].to(dt)
+        counters = (FA.flash_attention_fwd, FA.flash_attention_bwd_dq,
+                    FA.flash_attention_bwd_dkv, BS.block_sparse_attention_fwd)
+        before = tuple(c.launches for c in counters)
+        loss = loss_fn(m_, b_, prng.prng_key(5, device=dev))
+        loss.backward()
+        ran = tuple(c.launches - b for c, b in zip(counters, before))
+        assert ran == ((0, 0, 0, 0) if dev == "cpu" else want_launches)
+        got[str(dev)] = (float(loss.detach()),
+                         {n: p.grad.float().cpu()
+                          for n, p in m_.named_parameters()})
+    (loss_c, grads_c), (loss_g, grads_g) = got["cpu"], got[str(cuda)]
+    rtol = 1e-5 if dtype == "float32" else 2e-2
+    grad_tol = 1e-4 if dtype == "float32" else 2e-2
+    assert np.isfinite(loss_g) and abs(loss_g - loss_c) <= rtol * abs(loss_c)
+    for name, want in grads_c.items():
+        largest = float(want.abs().max())
+        err = float((grads_g[name] - want).abs().max())
+        assert err <= grad_tol * max(largest, 1e-30), (name, err, largest)
+
+
+def _tiny_dalle(**kw):
+    vcfg = TV.VAEConfig(image_size=16, num_tokens=32, codebook_dim=32,
+                        num_layers=2, hidden_dim=8)
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
+                         text_seq_len=8, heads=2, dim_head=16,
+                         attn_impl="flash", attn_bwd_impl="pallas",
+                         attn_dropout=0.1, ff_dropout=0.1, **kw)
+    rs = np.random.RandomState(3)
+    mask = np.ones((4, 8), bool)
+    mask[1, 5:] = False
+    batch = {"text": torch.tensor(rs.randint(1, 64, (4, 8))),
+             "mask": torch.tensor(mask),
+             "image": torch.tensor(rs.randint(0, 32, (4, 16)))}
+    return cfg, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reversible_dalle_step_on_card_matches_cpu(cuda, dtype):
+    """The tiny reversible DALLE (depth 2, dropout 0.1): the backward
+    inverts each layer and recomputes its attention, so K1 launches
+    twice a layer and K2a and K2b once each; loss and gradients against
+    the same step on the CPU."""
+    from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
+    cfg, batch = _tiny_dalle(reversible=True)
+    _card_against_cpu(
+        cuda, lambda dt: TD.dalle_init(cfg, seed=0, dtype=dt, device="cpu"),
+        dalle_loss_fn(), batch, dtype, (4, 2, 2, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k1", [("full", 4), ("save_ln", 2),
+                                     ("dots", 4)])
+def test_remat_with_kernels_matches_none_on_card(cuda, mode, k1):
+    """Each remat mode's loss and gradients with the kernels equal those
+    of ``remat='none'`` with the kernels, on the card: the recompute of
+    'full' and 'dots' relaunches K1 (the count says so), 'save_ln' keeps
+    its outputs."""
+    import copy
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.train import dalle_loss_fn
+    cfg, batch = _tiny_dalle()
+    model = TD.dalle_init(cfg, seed=0, device="cpu").to(cuda)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    got = {}
+    for m in ("none", mode):
+        m_ = copy.deepcopy(model)
+        m_.cfg = TD.DALLEConfig(**{**{f: getattr(cfg, f) for f in
+                                      cfg.__dataclass_fields__},
+                                   "remat": m})
+        before = FA.flash_attention_fwd.launches
+        loss = dalle_loss_fn()(m_, batch, prng.prng_key(5, device=cuda))
+        loss.backward()
+        torch.cuda.synchronize()
+        assert FA.flash_attention_fwd.launches - before == \
+            (2 if m == "none" else k1)
+        got[m] = (float(loss.detach()), {n: p.grad for n, p in
+                                         m_.named_parameters()})
+    assert got[mode][0] == got["none"][0]
+    for name, g in got[mode][1].items():
+        want = got["none"][1][name]
+        largest = float(want.abs().max())
+        assert float((g - want).abs().max()) <= 1e-4 * max(largest, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_clip_train_step_through_noncausal_k3_matches_cpu(cuda, dtype):
+    """A tiny CLIP with ``sparse_impl='pallas'`` (K3, causal=False, in
+    each of its 1 + 1 layers; its plain blockwise backward) and padded
+    captions: one InfoNCE loss and backward on the card against the CPU."""
+    from dalle_pytorch_tpu_torch.models import clip as TC
+    from dalle_pytorch_tpu_torch.parallel.train import clip_loss_fn
+    cfg = TC.CLIPConfig(dim_text=64, dim_image=64, dim_latent=32,
+                        num_text_tokens=64, text_enc_depth=1,
+                        text_seq_len=40, text_heads=2, visual_enc_depth=1,
+                        visual_heads=2, visual_image_size=32,
+                        visual_patch_size=4, sparse_impl="pallas")
+    rs = np.random.RandomState(4)
+    mask = np.arange(40)[None] < np.array([[40], [17], [1], [33]])
+    batch = {"text": torch.tensor(rs.randint(1, 64, (4, 40))),
+             "mask": torch.tensor(mask),
+             "images": torch.tensor(rs.uniform(-1, 1, (4, 32, 32, 3)),
+                                    dtype=torch.float32)}
+    _card_against_cpu(
+        cuda, lambda dt: TC.clip_init(cfg, seed=0, dtype=dt, device="cpu"),
+        clip_loss_fn(), batch, dtype, (0, 0, 0, 2))
 
 
 # -- block-sparse attention: K3 ---------------------------------------------
@@ -879,18 +1001,12 @@ def test_block_sparse_calls_launch_the_kernel_body_names(cuda, dtype, d):
     name in a torch.profiler trace: bfloat16 at d 64 and 128 the narrow
     tensor-core body, at 160 (padded to 192), 192 and 256 the wide one,
     float32 and d 320 the CUDA-core ones."""
-    from torch.profiler import ProfilerActivity, profile
     dtype = getattr(torch, dtype)
     q, k, v, _, mask = flash_inputs(cuda, dtype, 130, d, True)
     kw = dict(scale=d ** -0.5, causal=True, block=16, mask=mask)
-    BS.block_sparse_attention_fwd(q, k, v, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            BS.block_sparse_attention_fwd(q, k, v, **kw)
-        torch.cuda.synchronize()
-    ran = {name for e in prof.key_averages()
-           for name in re.findall(r"(block_sparse_\w+?_kernel)<", e.key)}
+    ran = profiled_bodies(lambda: BS.block_sparse_attention_fwd(q, k, v,
+                                                                **kw),
+                          r"(block_sparse_\w+?_kernel)<")
     assert ran == {BS.kernel_body(dtype, d)}, ran
 
 

@@ -219,8 +219,11 @@ def test_sparse_config_checks_and_what_still_raises():
         cfgs(sparse_attn=(True, False, True))
     for option in (dict(reversible=True), dict(moe_experts=4),
                    dict(remat="full")):
-        with pytest.raises(NotImplementedError):
-            cfgs(**option)
+        assert cfgs(**option)[1].transformer.sparse_pattern == (True, False)
+    for refused in (dict(reversible=True, moe_experts=4),
+                    dict(moe_experts=2, moe_k=3), dict(remat="all")):
+        with pytest.raises(ValueError):
+            cfgs(**refused)
     assert TT._pattern_period((True, False) * 32) == 2
     assert TT._pattern_period((True, False, False, False, True)) == 5
     assert TT._pattern_period((True,) * 6) == 1

@@ -373,8 +373,8 @@ def test_lr_scale_scales_the_step_like_jax(trees, batch_np, lr_scale,
 # -- configuration and devices --------------------------------------------------
 
 def test_unported_options_raise_and_entry_points_need_a_device():
-    with pytest.raises(NotImplementedError, match="remat"):
-        cfgs(remat="full")
+    with pytest.raises(ValueError, match="remat"):
+        cfgs(remat="fully")
     with pytest.raises(ValueError, match="bwd_impl"):
         TT.TransformerConfig(dim=32, depth=1, seq_len=8,
                              attn_bwd_impl="triton")
