@@ -205,6 +205,22 @@ and a profile window (device ms a step, the idle share):
    24 and 24 launches a step; at depth 2, each mode's gradients against
    'none''s with the kernels, to 1e-2 of each norm.
 
+The entry points a user calls, through ``main(argv)``:
+
+21. cli — 16 PNGs at 256 px written by the port's encoder and read back
+   equal (decode ms an image, and of a file using every row filter);
+   ``train_vae`` one epoch of 2 steps at batch 8 on the north VAE (256
+   px, 2,048 codes of 512, 3 layers, hidden 64); ``train_dalle`` at the
+   north width (``CLI_DALLE``: flash with the split kernel backward,
+   bfloat16, ``loss_chunk`` 256, dropout 0.1, an EMA at 0.999) for 2
+   epochs of 2 steps, K1, K2a and K2b each launched 12 times a step, ms
+   a step from its own metrics beside the ``train`` phase's; the same
+   run in two legs (epoch 0, then ``--auto_resume``) whose checkpoint
+   payloads (parameters, Adam state, EMA) equal the uninterrupted run's
+   byte for byte; the checkpoint's bytes, the msgpack codec's read and
+   write rates; ``gen_dalle`` of 2 images from the epoch-1 checkpoint,
+   its grid PNG 260 x 518 x 3; each CLI's wall seconds and peak memory.
+
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result.
@@ -3006,6 +3022,235 @@ def phase_remat() -> dict:
     return record
 
 
+# -- the CLIs: checkpoints, data and the training and generation entry points -
+
+# the north config's VAE and DALLE as the CLIs' flags (``north_cfg``): codes
+# of 512 so DALLE's image embedding ties to the codebook; bfloat16 params
+# and ``loss_chunk`` 256 as the ``train`` phase's step
+CLI_IMAGES = 16
+CLI_VAE = ["--imageSize", "256", "--num_tokens", "2048", "--codebook_dim",
+           "512", "--num_layers", "3", "--hidden_dim", "64"]
+CLI_DALLE = ["--imageSize", "256", "--dim", "512", "--depth", "12",
+             "--heads", "8", "--dim_head", "64", "--text_seq_len", "256",
+             "--num_text_tokens", "10000", "--attn_impl", "flash",
+             "--attn_bwd_impl", "pallas", "--param_dtype", "bfloat16",
+             "--loss_chunk", "256", "--sample_every", "0"]
+CLI_WORDS = ("red blue green gray small large square circle striped dotted "
+             "bright dark a the on under beside of with and").split()
+
+
+def cli_data(root: str, seed: int = 0) -> dict:
+    """``CLI_IMAGES`` 256 px PNGs written by the port's encoder (smooth
+    ramps plus seeded noise) under ``{root}/imagedata/0``, a captions
+    corpus and its ``name : caption`` pairs; each image read back with
+    the port's decoder must equal what was written. Returns the decode ms
+    an image of these files, and of one written with every row filter
+    (Sub, Average and Paeth chain along each row: the decoder's slow
+    path)."""
+    import numpy as np
+    from dalle_pytorch_tpu_torch.data import images as I
+    rng = np.random.default_rng(seed)
+    folder = os.path.join(root, "imagedata", "0")
+    os.makedirs(folder)
+    ramp = np.linspace(0, 255, 256)
+    written = {}
+    for i in range(CLI_IMAGES):
+        img = np.stack([ramp[None, :].repeat(256, 0),
+                        ramp[:, None].repeat(256, 1),
+                        np.full((256, 256), 16.0 * i)], axis=-1)
+        img = np.clip(img + rng.normal(0, 24, img.shape), 0, 255)
+        written[f"img{i:02d}.png"] = img.astype(np.uint8)
+    for name, img in written.items():
+        with open(os.path.join(folder, name), "wb") as f:
+            f.write(I.encode_png(img))
+    t0 = time.perf_counter()
+    for name, img in written.items():
+        check(np.array_equal(I.read_image(os.path.join(folder, name)), img),
+              f"cli: {name} does not decode to the pixels written")
+    plain_ms = (time.perf_counter() - t0) * 1e3 / len(written)
+    filtered = I.encode_png(written["img00.png"],
+                            filters=[r % 5 for r in range(256)])
+    t0 = time.perf_counter()
+    check(np.array_equal(I.decode_png(filtered), written["img00.png"]),
+          "cli: the every-filter PNG does not decode to its pixels")
+    filtered_ms = (time.perf_counter() - t0) * 1e3
+    captions = [" ".join(rng.choice(CLI_WORDS,
+                                    size=int(rng.integers(4, 12))))
+                for _ in written]
+    written_caption = captions[0]
+    with open(os.path.join(root, "only.txt"), "w") as f:
+        f.write("".join(c + "\n" for c in captions))
+    with open(os.path.join(root, "pairs.txt"), "w") as f:
+        f.write("".join(f"{n} : {c}\n" for n, c in zip(written, captions)))
+    return {"png_decode_ms_per_image": plain_ms,
+            "png_decode_ms_every_filter": filtered_ms,
+            "png_bytes_per_image": os.path.getsize(
+                os.path.join(folder, "img00.png")),
+            "caption": written_caption}
+
+
+def cli_flag(argv: list, name: str) -> int:
+    return int(argv[argv.index(name) + 1])
+
+
+def cli_step_ms(metrics_path: str, tokens_per_step: int) -> list:
+    """ms a step from the CLI's own ``MetricsLogger`` records (tokens a
+    second, one record a step at ``--log_interval 1``)."""
+    out = []
+    with open(metrics_path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("tokens_per_sec"):
+                out.append(tokens_per_step / rec["tokens_per_sec"] * 1e3)
+    return out
+
+
+def cli_codec(path: str) -> dict:
+    """The msgpack codec's write and read rates on a checkpoint's params
+    payload (host memory only: the tree is already on the host)."""
+    from dalle_pytorch_tpu_torch.compat import msgpack
+    with open(os.path.join(path, "params.msgpack"), "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    tree = msgpack.unpackb(data)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = msgpack.packb(tree)
+    write_s = time.perf_counter() - t0
+    check(again == data, "cli: the codec does not write back the bytes it "
+                         "read")
+    mb = len(data) / 1e6
+    return {"params_mb": mb, "read_mb_per_s": mb / read_s,
+            "write_mb_per_s": mb / write_s}
+
+
+def phase_cli(train: dict) -> dict:
+    """The port's CLIs through ``main(argv)`` at the north width, in a
+    temporary directory removed afterwards: ``cli_data``'s 16 PNGs;
+    ``train_vae`` for one epoch of 2 steps at batch 8 (the north VAE);
+    ``train_dalle`` at the north width (``CLI_DALLE``: flash with the
+    split kernel backward, bfloat16, dropout 0.1, an EMA) for 2 epochs of
+    2 steps, K1, K2a and K2b each launched 12 times a step; the same run
+    again in two legs (epoch 0, then ``--auto_resume`` for epoch 1) whose
+    parameters, Adam state and EMA must equal the uninterrupted run's bit
+    for bit; then ``gen_dalle`` from the epoch-1 checkpoint, 2 images,
+    seed 5, its caption from the corpus, whose grid PNG must decode to
+    260 x 518 x 3."""
+    import shutil
+    import tempfile
+    from dalle_pytorch_tpu_torch import checkpoint as C
+    from dalle_pytorch_tpu_torch.cli import gen_dalle, train_dalle, train_vae
+    from dalle_pytorch_tpu_torch.data import images as I
+    root = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    try:
+        record = dict(phase="cli", ok=True, **cli_data(root))
+        common = ["--dataPath", os.path.join(root, "imagedata"),
+                  "--batchSize", "8", "--log_interval", "1", "--seed", "3"]
+
+        def run(name, main, argv):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            main(argv)
+            torch.cuda.synchronize()
+            record.setdefault("wall_s", {})[name] = time.perf_counter() - t0
+
+        def dirs(sub):
+            return ["--models_dir", os.path.join(root, sub, "models"),
+                    "--results_dir", os.path.join(root, sub, "results"),
+                    "--metrics", os.path.join(root, sub, "metrics.jsonl")]
+
+        run("train_vae", train_vae.main, common + CLI_VAE + dirs("a") + [
+            "--n_epochs", "1"])
+        vae_dir = os.path.join(root, "b", "models")
+        shutil.copytree(os.path.join(root, "a", "models"), vae_dir)
+        dalle = common + CLI_DALLE + [
+            "--captions_only", os.path.join(root, "only.txt"),
+            "--captions", os.path.join(root, "pairs.txt"), "--name", "north",
+            "--ema_decay", "0.999"]
+        torch.cuda.reset_peak_memory_stats()
+        flash_counts(reset=True)
+        run("train_dalle", train_dalle.main, dalle + dirs("a") + [
+            "--n_epochs", "2"])
+        launches = flash_counts()
+        steps = 2 * (CLI_IMAGES // 8)
+        depth = cli_flag(CLI_DALLE, "--depth")
+        for k, n in launches.items():
+            check(n == depth * steps, f"cli: {k} launched {n} times in "
+                                      f"{steps} steps, expected "
+                                      f"{depth * steps}")
+        record["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        record["launches"] = launches
+        record["launches_per_step"] = {k: n / steps for k, n in
+                                       launches.items()}
+        size = cli_flag(CLI_VAE, "--imageSize")
+        grid = size // 2 ** cli_flag(CLI_VAE, "--num_layers")
+        tokens = 8 * (cli_flag(CLI_DALLE, "--text_seq_len") + grid * grid)
+        ms = cli_step_ms(os.path.join(root, "a", "metrics.jsonl"), tokens)
+        record["train_dalle_ms_per_step"] = ms
+        record["train_phase_ms_per_step"] = train["ms_per_step"]
+
+        # the same run in two legs: epoch 0, then --auto_resume
+        run("train_dalle_leg0", train_dalle.main, dalle + dirs("b") + [
+            "--n_epochs", "1"])
+        run("train_dalle_leg1", train_dalle.main, dalle + dirs("b") + [
+            "--n_epochs", "1", "--auto_resume"])
+        whole = os.path.join(root, "a", "models", "north_dalle-1")
+        legs = os.path.join(root, "b", "models", "north_dalle-1")
+        same = {}
+        for fname in (C.PARAMS, C.OPT_STATE, C.EMA):
+            with open(os.path.join(whole, fname), "rb") as f, \
+                    open(os.path.join(legs, fname), "rb") as g:
+                same[fname] = f.read() == g.read()
+        if not all(same.values()):
+            from dalle_pytorch_tpu_torch.compat import msgpack
+
+            def leaves(t):
+                if isinstance(t, dict):
+                    for v in t.values():
+                        yield from leaves(v)
+                elif isinstance(t, list):
+                    for v in t:
+                        yield from leaves(v)
+                else:
+                    yield torch.as_tensor(t).float()
+
+            diffs = {}
+            for fname in same:
+                with open(os.path.join(whole, fname), "rb") as f, \
+                        open(os.path.join(legs, fname), "rb") as g:
+                    a = msgpack.unpackb(f.read())
+                    b = msgpack.unpackb(g.read())
+                diffs[fname] = max(float((x - y).abs().max()) for x, y in
+                                   zip(leaves(a), leaves(b)))
+            record["resume_max_abs_diff"] = diffs
+        check(all(same.values()), f"cli: the resumed run's payloads differ "
+                                  f"from the uninterrupted run's: {same}, "
+                                  f"{record.get('resume_max_abs_diff')}")
+        record["resume_bit_equal"] = same
+        manifest = C.load_manifest(whole)
+        record["checkpoint_bytes"] = {k: v["bytes"] for k, v in
+                                      manifest["payloads"].items()}
+        t0 = time.perf_counter()
+        C.restore_params(whole)
+        record["restore_params_s"] = time.perf_counter() - t0
+        record["codec"] = cli_codec(whole)
+
+        run("gen_dalle", gen_dalle.main, [
+            record.pop("caption"), "--name", "north",
+            "--dalle_epoch", "1", "--num_images", "2", "--seed", "5",
+            "--models_dir", os.path.join(root, "a", "models"),
+            "--results_dir", os.path.join(root, "a", "gen")])
+        (png,) = os.listdir(os.path.join(root, "a", "gen"))
+        img = I.read_image(os.path.join(root, "a", "gen", png))
+        want = (size + 4, 2 * size + 6, 3)       # 2 images, padding 2
+        check(img.shape == want, f"cli: the grid is {img.shape}, not {want}")
+        record["gen_grid_shape"] = list(img.shape)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(**record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3033,6 +3278,7 @@ def main() -> int:
     moe_train = phase_moe_train()
     clip_train = phase_clip_train()
     remat = phase_remat()
+    cli = phase_cli(train)
     main_case = kernel["bfloat16"]
     rows = [{
         "name": "paged_decode_attention",
@@ -3167,7 +3413,7 @@ def main() -> int:
     # the CLIP text encoder's case (CLIP training), K4 at the serving case
     # (the reversible model's engine run)
     for path, rec in (("rev_train", rev_train), ("moe_train", moe_train),
-                      ("remat", remat)):
+                      ("remat", remat), ("cli", cli)):
         for name, kind, line, count, library_ms in (
                 ("flash_attention_fwd", "fwd", 88, "k1",
                  lib["sdpa_fwd_ms"]),

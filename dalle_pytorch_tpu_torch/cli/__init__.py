@@ -1,2 +1,3 @@
-"""What the training entry points share: per-step keys, the learning-rate
-schedule, the optimizer and the EMA."""
+"""The command-line entry points (``train_vae``, ``train_dalle``,
+``gen_dalle``, ``train_clip``, ``mix_vae``) and what they share
+(``common``)."""

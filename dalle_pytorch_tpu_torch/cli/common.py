@@ -1,12 +1,19 @@
-"""Per-step keys, the learning-rate schedule, the optimizer and the EMA.
+"""Shared CLI plumbing: flags, run set-up, resume, the supervised loop,
+per-step keys, the learning-rate schedule, the optimizer and the EMA.
 
-Port of five functions of ``dalle_pytorch_tpu/cli/common.py``:
+Port of ``dalle_pytorch_tpu/cli/common.py``: ``say`` (``:27``),
+``resolve_resume`` (``:36``), ``plan_resume`` (``:56``),
+``make_supervisor`` (``:107``), ``restore_rollback`` (``:120``),
+``add_common_args`` (``:144``, the same flags and defaults),
 ``step_rng`` (``:266``), ``resolve_schedule`` (``:277``),
-``make_optimizer`` (``:307``), ``make_ema`` (``:343``) and ``ema_as``
-(``:410``). ``args`` carries the JAX CLI's flag names
-(``lr``, ``lr_schedule`` 'constant' | 'cosine', ``warmup_steps``,
-``decay_steps``, ``lr_end_ratio``, ``n_epochs``, ``clip_grad_norm``);
-the CLIs themselves are a later slice.
+``make_optimizer`` (``:307``), ``make_ema`` (``:343``), ``ema_as``
+(``:410``), ``LoopState`` (``:416``), ``run_supervised_loop``
+(``:441``), ``load_caption_dataset`` (``:554``) and ``setup_run``
+(``:572``). A run is one process on one device: the flags of the
+multi-device paths (``--dp`` above 1, ``--coordinator``,
+``--num_processes``, ``--process_id``, ``--init_deadline_s``, ``--sp``,
+``--pp``) and ``--guard_transfers`` (a JAX transfer guard) end the run
+with ``SystemExit`` naming ``ROADMAP.md`` queue 1 item 6.
 
 The optimizer is Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8
 outside the square root; ``torch.optim.Adam`` computes the same update,
@@ -16,18 +23,198 @@ warm-up from 0 makes the first update zero, as in optax. The optional
 global-norm clip is ``torch.nn.utils.clip_grad_norm_``, which scales by
 ``max_norm / (norm + 1e-6)`` where optax's ``clip_by_global_norm``
 scales by ``max_norm / norm``: a relative difference of ``1e-6 / norm``
-whenever the clip acts.
+whenever the clip acts. ``Optimizer.state_tree`` / ``load_state_tree``
+map its state to and from optax's tree (``checkpoint.py`` writes it).
 """
 
 from __future__ import annotations
 
+import argparse
+import itertools
 import math
+import os
 import sys
 from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
+from dalle_pytorch_tpu_torch import checkpoint as ckpt
 from dalle_pytorch_tpu_torch.ops import prng
+
+QUEUE_6 = "ROADMAP.md queue 1 item 6 (parallel/ on torch.distributed)"
+
+
+def say(*parts, **kw) -> None:
+    """print() for the run's progress lines (one process: always)."""
+    print(*parts, **kw)
+
+
+def resolve_resume(name_or_path: str, models_dir: str, start_epoch: int):
+    """A --loadVAE/--load_dalle value -> (checkpoint path, start_epoch).
+    A directory path is used as-is; a name with ``start_epoch > 0`` maps
+    to ``{models_dir}/{name}-{start_epoch-1}``; a bare name with no
+    start_epoch resumes from the newest checkpoint."""
+    if os.path.isdir(name_or_path):
+        return name_or_path, start_epoch
+    if start_epoch > 0:
+        return ckpt.ckpt_path(models_dir, name_or_path,
+                              start_epoch - 1), start_epoch
+    found = ckpt.latest(models_dir, name_or_path)
+    if found is None:
+        raise FileNotFoundError(
+            f"no checkpoint named {name_or_path!r} under {models_dir!r} "
+            "(give --start_epoch to pick a specific epoch)")
+    path, epoch = found
+    return path, epoch + 1
+
+
+def plan_resume(args, name: str, explicit: str = "",
+                steps_per_epoch: int = 0):
+    """Where should this run continue from? None (fresh start) or
+    ``{path, start_epoch, skip_batches, step_in_epoch, global_step, meta,
+    mid_epoch}``. ``--auto_resume`` wins: the newest valid checkpoint,
+    step or epoch, by training progress; the data stream continues
+    mid-epoch with no step repeated or skipped (``skip_batches`` counts
+    source records, bad ones included). Otherwise an ``explicit``
+    --loadVAE/--load_dalle/--load_clip value resolves through
+    ``resolve_resume``."""
+    if args.auto_resume:
+        from dalle_pytorch_tpu_torch.resilience.supervisor import \
+            find_auto_resume
+        found = find_auto_resume(args.models_dir, name)
+        if found is not None:
+            path, manifest = found
+            meta = manifest.get("meta", {}) or {}
+            if "step_in_epoch" in meta and "epoch" in meta:
+                return {"path": path, "start_epoch": int(meta["epoch"]),
+                        "skip_batches": int(meta.get(
+                            "records_in_epoch", meta["step_in_epoch"])),
+                        "step_in_epoch": int(meta["step_in_epoch"]),
+                        "global_step": int(meta["global_step"]),
+                        "meta": meta, "mid_epoch": True}
+            epoch = int(meta.get("epoch", manifest.get("step", 0)))
+            gs = meta.get("global_step")
+            return {"path": path, "start_epoch": epoch + 1,
+                    "skip_batches": 0, "step_in_epoch": 0,
+                    "global_step": (int(gs) if gs is not None
+                                    else (epoch + 1) * steps_per_epoch),
+                    "meta": meta, "mid_epoch": False}
+    if explicit:
+        path, start_epoch = resolve_resume(explicit, args.models_dir,
+                                           args.start_epoch)
+        return {"path": path, "start_epoch": start_epoch,
+                "skip_batches": 0, "step_in_epoch": 0,
+                "global_step": start_epoch * steps_per_epoch,
+                "meta": {}, "mid_epoch": False}
+    return None
+
+
+def make_supervisor(args, metrics, name: str, save_state):
+    """The fault-tolerance supervisor of a training CLI, its signal
+    handlers installed. ``save_state(path) -> path`` writes the CLI's
+    whole training state."""
+    from dalle_pytorch_tpu_torch.resilience.supervisor import \
+        TrainSupervisor
+    return TrainSupervisor(
+        name=name, models_dir=args.models_dir, save_state=save_state,
+        metrics=metrics, save_every=args.save_every,
+        keep=args.keep_checkpoints, spike_factor=args.spike_factor,
+        spike_window=args.spike_window, max_rollbacks=args.max_rollbacks,
+        rewarm_steps=args.rewarm_steps).install_signal_handlers()
+
+
+def restore_rollback(sup, model: torch.nn.Module, optimizer, ema):
+    """Load the supervisor's newest valid anchor into ``model``,
+    ``optimizer`` and (when the run keeps one) ``ema``, in place, after a
+    NaN or loss-spike verdict."""
+    path = sup.rollback_target()
+    ckpt.restore_train(path, model, optimizer)
+    if ema is not None:
+        tree = ckpt.restore_ema(path)
+        if tree is not None:
+            _load_ema(ema, model, tree)
+
+
+def add_common_args(parser: argparse.ArgumentParser,
+                    default_batch: int = 24) -> None:
+    """The JAX CLIs' common flags, with their defaults."""
+    a = parser.add_argument
+    a("--batchSize", type=int, default=default_batch,
+      help=f"global batch size (default: {default_batch})")
+    a("--n_epochs", type=int, default=500,
+      help="number of epochs (default: 500)")
+    a("--lr", type=float, default=1e-4, help="learning rate (default: 1e-4)")
+    a("--name", type=str, default=None, help="experiment name")
+    a("--start_epoch", type=int, default=0,
+      help="start epoch numbering when resuming")
+    a("--models_dir", type=str, default="./models",
+      help="checkpoint directory (default: ./models)")
+    a("--results_dir", type=str, default="./results",
+      help="sample/recon image directory")
+    a("--log_interval", type=int, default=10)
+    a("--seed", type=int, default=0)
+    a("--dp", type=int, default=0,
+      help="data-parallel devices (0 = all available; the port runs on "
+           "one)")
+    a("--profile_dir", type=str, default="",
+      help="write a torch.profiler trace here")
+    a("--coordinator", type=str, default="",
+      help="multi-host coordinator (not in the port: " + QUEUE_6 + ")")
+    a("--num_processes", type=int, default=0,
+      help="multi-host process count (not in the port)")
+    a("--process_id", type=int, default=-1,
+      help="multi-host process id (not in the port)")
+    a("--nan_checks", action="store_true",
+      help="torch.autograd anomaly detection (slow)")
+    a("--metrics", type=str, default="", help="JSONL metrics file path")
+    a("--lr_schedule", default="constant", choices=["constant", "cosine"],
+      help="learning-rate schedule; 'cosine' decays from --lr to "
+           "--lr*--lr_end_ratio over the requested run")
+    a("--warmup_steps", type=int, default=0,
+      help="linear LR warmup from 0 over this many steps")
+    a("--decay_steps", type=int, default=0,
+      help="cosine decay horizon in steps (0 = the full requested run: "
+           "n_epochs x steps/epoch)")
+    a("--lr_end_ratio", type=float, default=0.1,
+      help="cosine floor as a fraction of --lr")
+    a("--ema_decay", type=float, default=0.0,
+      help="keep an exponential moving average of the params at this "
+           "decay (e.g. 0.999; 0 = off), saved with each checkpoint; "
+           "resuming a checkpoint that carries one needs the flag again "
+           "(-1 discards it on purpose)")
+    a("--clip_grad_norm", type=float, default=0.0,
+      help="clip gradients to this global L2 norm before the update (0 = "
+           "off); changes the optimizer state's shape: pass the same value "
+           "when resuming")
+    a("--auto_resume", action="store_true",
+      help="resume from the newest VALID checkpoint (mid-epoch step "
+           "checkpoints included); --n_epochs still counts the epochs to "
+           "run from the resume point")
+    a("--save_every", type=int, default=0,
+      help="write a mid-epoch checkpoint every N steps (0 = per-epoch "
+           "only)")
+    a("--keep_checkpoints", type=int, default=3,
+      help="retain this many step checkpoints")
+    a("--spike_factor", type=float, default=0.0,
+      help="roll back when the loss exceeds this multiple of the recent "
+           "median (0 = NaN/Inf detection only)")
+    a("--spike_window", type=int, default=16,
+      help="running-median window for --spike_factor")
+    a("--max_rollbacks", type=int, default=2,
+      help="abort (TrainingDiverged) after this many rollbacks")
+    a("--rewarm_steps", type=int, default=0,
+      help="after a rollback, ramp the LR back up linearly over this many "
+           "steps (0 = resume at full LR)")
+    a("--max_bad_records", type=int, default=0,
+      help="skip up to this many unreadable data records per epoch before "
+           "failing the run")
+    a("--init_deadline_s", type=float, default=0.0,
+      help="multi-host bring-up deadline (not in the port)")
+    a("--init_retries", type=int, default=3,
+      help="bring-up attempts under --init_deadline_s")
+    a("--guard_transfers", action="store_true",
+      help="JAX's implicit-transfer guard (not in the port)")
 
 
 def step_rng(key: torch.Tensor, step: int) -> torch.Tensor:
@@ -90,16 +277,70 @@ class Optimizer:
     applies the gradients the parameters hold, advances the schedule and
     clears the gradients. ``step(lr_scale=s)`` scales that one update by
     ``s``: for Adam, exactly optax's updates times ``s``, as JAX's
-    ``make_train_step`` applies ``batch['lr_scale']``."""
+    ``make_train_step`` applies ``batch['lr_scale']``. ``scheduled``
+    says whether optax would hold a schedule's state (a constant
+    learning rate holds none)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
-                 schedule: Callable[[int], float], clip: float = 0.0):
+                 schedule: Callable[[int], float], clip: float = 0.0,
+                 scheduled: bool = True):
         self.params = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.clip = clip
+        self.scheduled = scheduled
         self.count = 0
         self.adam = torch.optim.Adam(self.params, lr=schedule(0),
                                      betas=(0.9, 0.999), eps=1e-8)
+
+    def _chain(self, adam: dict) -> dict:
+        """optax's state around the adam stage, as ``to_bytes`` writes
+        it: ``adam(sched)`` is chain(scale_by_adam, the learning-rate
+        stage: EmptyState for a constant, ScaleByScheduleState(count)
+        for a schedule); ``--clip_grad_norm`` chains clip_by_global_norm
+        (EmptyState) in front."""
+        lr_stage = {"count": adam["count"]} if self.scheduled else {}
+        chain = {"0": adam, "1": lr_stage}
+        return {"0": {}, "1": chain} if self.clip > 0 else chain
+
+    def state_tree(self, model: torch.nn.Module) -> dict:
+        """optax's state for ``model``'s parameters (this optimizer's):
+        ``mu`` and ``nu`` are torch's ``exp_avg`` and ``exp_avg_sq`` (zero
+        before the first step) as JAX parameter trees, ``count`` the
+        update count."""
+        from dalle_pytorch_tpu_torch.compat import to_jax
+
+        def moment(key):
+            return {n: self.adam.state[p][key] if key in self.adam.state.get(
+                p, {}) else torch.zeros_like(p)
+                for n, p in model.named_parameters()}
+
+        return self._chain({"count": np.asarray(self.count, np.int32),
+                            "mu": to_jax.tree(model, moment("exp_avg")),
+                            "nu": to_jax.tree(model, moment("exp_avg_sq"))})
+
+    def load_state_tree(self, model: torch.nn.Module, state: dict) -> None:
+        """Take optax's state (``state_tree``'s layout, as a checkpoint
+        restores it) for ``model``'s parameters; ``ValueError`` when its
+        tree is another optimizer's."""
+        from dalle_pytorch_tpu_torch.compat import msgpack, to_jax
+        params = to_jax.tree(model)
+        state = msgpack.from_state_dict(
+            self._chain({"count": 0, "mu": params, "nu": params}), state)
+        if self.clip > 0:
+            state = state["1"]
+        adam = state["0"]
+        count = int(np.asarray(adam["count"]))
+        mu = to_jax.named(model, adam["mu"])
+        nu = to_jax.named(model, adam["nu"])
+        self.adam.state.clear()
+        if count > 0:
+            for n, p in model.named_parameters():
+                if p.requires_grad:
+                    self.adam.state[p] = {
+                        "step": torch.tensor(float(count)),
+                        "exp_avg": mu[n].to(p.device, p.dtype).clone(),
+                        "exp_avg_sq": nu[n].to(p.device, p.dtype).clone()}
+        self.count = count
 
     def step(self, lr_scale: float = 1.0) -> None:
         if self.clip > 0:
@@ -120,7 +361,8 @@ def make_optimizer(args, params: Iterable[torch.nn.Parameter],
     None."""
     if schedule is None:
         schedule = resolve_schedule(args, steps_per_epoch, start_epoch)
-    if args.lr_schedule == "constant" and not args.warmup_steps:
+    constant = args.lr_schedule == "constant" and not args.warmup_steps
+    if constant:
         sched = lambda count: args.lr                       # noqa: E731
     elif args.lr_schedule == "constant":
         sched = _linear(0.0, args.lr, args.warmup_steps)
@@ -129,7 +371,17 @@ def make_optimizer(args, params: Iterable[torch.nn.Parameter],
             args.lr, args.warmup_steps,
             args.warmup_steps + schedule["decay_steps"],
             args.lr * args.lr_end_ratio)
-    return Optimizer(params, sched, getattr(args, "clip_grad_norm", 0.0))
+    return Optimizer(params, sched, getattr(args, "clip_grad_norm", 0.0),
+                     scheduled=not constant)
+
+
+def _load_ema(ema: dict, model: torch.nn.Module, tree) -> dict:
+    """Copy a checkpoint's EMA tree into ``ema`` (float32, on ``model``'s
+    devices) in place."""
+    from dalle_pytorch_tpu_torch.compat import to_jax
+    for name, t in to_jax.named(model, tree, dtype=torch.float32).items():
+        ema[name] = t.to(ema[name].device)
+    return ema
 
 
 def make_ema(args, model: torch.nn.Module, resume_path: str = ""):
@@ -138,17 +390,40 @@ def make_ema(args, model: torch.nn.Module, resume_path: str = ""):
     the parameter's dtype (at decay 0.999 a bfloat16 average cannot move:
     its ulp swallows the (1 - d) step); ``update(ema, model)`` sets each
     entry to ``d * e + (1 - d) * p.float()`` in place and returns
-    ``ema``. Resuming an EMA needs the checkpoint slice, not yet ported:
-    a ``resume_path`` raises ``NotImplementedError``."""
-    if resume_path:
-        raise NotImplementedError(
-            "resuming an EMA needs checkpoint.py, which the port does not "
-            "have yet (ROADMAP.md queue 1 item 2)")
-    if getattr(args, "ema_decay", 0.0) <= 0:
+    ``ema``. With a ``resume_path`` the checkpoint's ``ema.msgpack``
+    continues (a checkpoint without one starts from the parameters);
+    resuming a checkpoint that has one with ``ema_decay`` 0 is refused
+    (the average would be dropped), -1 discards it on purpose."""
+    decay = getattr(args, "ema_decay", 0.0)
+    if decay <= 0:
+        if resume_path and os.path.exists(os.path.join(resume_path,
+                                                       ckpt.EMA)):
+            if decay < 0:
+                say(f"warning: discarding the EMA in {resume_path!r} "
+                    "(--ema_decay < 0)")
+            else:
+                raise SystemExit(
+                    f"checkpoint {resume_path!r} carries an EMA but "
+                    "--ema_decay was not given — resuming would silently "
+                    "drop the accumulated average. Pass the original "
+                    "--ema_decay to continue it, or --ema_decay -1 to "
+                    "discard it on purpose.")
         return None, None
-    d = float(args.ema_decay)
+    d = float(decay)
     ema = {name: p.detach().float().clone()
            for name, p in model.named_parameters()}
+    if resume_path:
+        tree = ckpt.restore_ema(resume_path)
+        if tree is not None:
+            _load_ema(ema, model, tree)
+        try:
+            prev = ckpt.load_manifest(resume_path).get(
+                "meta", {}).get("ema_decay")
+        except Exception:
+            prev = None
+        if prev is not None and abs(prev - d) > 1e-12:
+            say(f"warning: resume checkpoint was written with --ema_decay "
+                f"{prev}; continuing with {d}")
 
     @torch.no_grad()
     def update(ema: dict, model: torch.nn.Module) -> dict:
@@ -165,3 +440,166 @@ def ema_as(ema: dict, model: torch.nn.Module) -> dict:
     strict=False)``)."""
     return {name: ema[name].to(p.dtype)
             for name, p in model.named_parameters()}
+
+
+class LoopState:
+    """The loop's position, shared by ``run_supervised_loop`` (which
+    advances it) and the CLIs' ``save_state`` closures (which read it
+    live for mid-epoch checkpoints)."""
+
+    def __init__(self, epoch: int = 0, global_step: int = 0):
+        self.epoch = epoch
+        self.global_step = global_step
+        self.epoch_i = 0          # TRAINED steps completed in this epoch
+        self.train_loss = 0.0     # epoch-summary accumulators
+        self.n_batches = 0
+        self.rec_base = 0         # SOURCE records consumed before this
+        self.pf = None            # epoch's prefetcher was built
+        self.last = None          # payload of the last GOOD step
+
+    @property
+    def records_in_epoch(self) -> int:
+        """SOURCE records consumed this epoch (bad skipped records
+        included); differs from ``epoch_i`` under --max_bad_records."""
+        return self.rec_base + (self.pf.source_pos
+                                if self.pf is not None else 0)
+
+
+def run_supervised_loop(args, *, sup, metrics, profiler, dataset, plan,
+                        state: LoopState, train_step, on_rollback,
+                        on_epoch_end, device=None, transform=None,
+                        units_of=None, unit_name: str = "tokens",
+                        avg_fmt: str = ".4f"):
+    """The supervised epoch loop of the training CLIs: mid-epoch skip and
+    accumulator restore, prefetched iteration (``data/prefetch.py``, the
+    batches copied to ``device``), the supervisor's per-step protocol
+    (fault hooks, NaN or spike rollback, cadence and preemption
+    checkpoints), metrics, epoch summaries and the clean ``Preempted``
+    exit. The CLIs keep what differs as callbacks:
+
+      * ``train_step(item, state) -> (loss, payload)`` runs one step
+        (routing its batch through ``sup.pre_step``); the payload of the
+        last good step is kept on ``state.last``;
+      * ``on_rollback(state)`` restores from the supervisor's anchor;
+      * ``on_epoch_end(state, avg) -> checkpoint path`` is the epoch's
+        tail;
+      * ``units_of(item)`` sizes the throughput counter; ``transform``
+        runs on the prefetch thread."""
+    from dalle_pytorch_tpu_torch.data.prefetch import prefetch
+    from dalle_pytorch_tpu_torch.resilience.supervisor import Preempted
+
+    start_epoch = state.epoch
+    skip0 = plan["skip_batches"] if plan else 0
+    mid_meta = plan["meta"] if (plan and plan["mid_epoch"]) else {}
+    try:
+        for epoch in range(start_epoch, start_epoch + args.n_epochs):
+            state.epoch = epoch
+            skip = skip0 if epoch == start_epoch else 0
+            state.train_loss = float(mid_meta.get("train_loss", 0.0)) \
+                if skip else 0.0
+            state.n_batches = int(mid_meta.get("n_batches", 0)) \
+                if skip else 0
+            state.epoch_i = int(mid_meta.get("step_in_epoch", skip)) \
+                if skip else 0
+            state.rec_base, state.pf = skip, None
+            it = dataset.epoch(epoch)
+            if skip:
+                # the per-epoch order is a seeded function of the epoch:
+                # skipping the completed prefix replays nothing
+                it = itertools.islice(it, skip, None)
+            state.pf = prefetch(it, depth=2, transform=transform,
+                                device=device,
+                                max_bad_records=args.max_bad_records,
+                                on_event=lambda r: metrics.event(**r))
+            for item in state.pf:
+                gs = state.global_step
+                profiler.maybe_start(gs)
+                loss, payload = train_step(item, state)
+                profiler.maybe_stop(gs)
+                lv = float(loss)
+                if sup.check_step(gs, lv) == sup.ROLLBACK:
+                    on_rollback(state)
+                    state.global_step += 1
+                    state.epoch_i += 1
+                    continue
+                metrics.step(gs, lv, epoch=epoch,
+                             units=units_of(item) if units_of else 0,
+                             unit_name=unit_name)
+                state.train_loss += lv
+                state.n_batches += 1
+                state.global_step += 1
+                state.epoch_i += 1
+                state.last = payload
+                sup.end_step(state.global_step)
+            if state.n_batches == 0:
+                raise RuntimeError("empty dataset epoch")
+
+            avg = state.train_loss / state.n_batches
+            say(f"====> Epoch: {epoch} Average loss: {avg:{avg_fmt}}")
+            state.epoch_i = 0  # epoch complete: saved meta must say so
+            path = on_epoch_end(state, avg)
+            if path:
+                sup.register_checkpoint(path)
+            mid_meta = {}
+            skip0 = 0
+    except Preempted as p:
+        say(f"preempted — state saved to {p.path}; restart with "
+            "--auto_resume to continue")
+        return
+    finally:
+        sup.close()
+        profiler.close()
+        metrics.close()
+
+
+def load_caption_dataset(args):
+    """(vocab, CaptionDataset) from the --captions* flags, shared by
+    train_dalle and train_clip; the vocabulary is saved beside the
+    checkpoints as ``{name}-vocab.json``."""
+    from dalle_pytorch_tpu_torch.data.captions import (CaptionDataset,
+                                                       load_caption_data)
+    vocab, data = load_caption_data(args.captions_only, args.captions,
+                                    args.text_seq_len)
+    vocab.save(os.path.join(args.models_dir, f"{args.name}-vocab.json"))
+    say(f"{len(data)} caption/image pairs on this host")
+    return vocab, CaptionDataset(data, batch_size=args.batchSize,
+                                 shuffle=True, seed=args.seed)
+
+
+def refuse_unported(args) -> None:
+    """``SystemExit`` for flags whose paths the port does not have yet."""
+    bad = [flag for flag, on in (
+        ("--dp", args.dp > 1),
+        ("--coordinator", bool(args.coordinator)),
+        ("--num_processes", args.num_processes > 0),
+        ("--process_id", args.process_id >= 0),
+        ("--init_deadline_s", args.init_deadline_s > 0),
+        ("--sp", (getattr(args, "sp", 0) or 0) > 1),
+        ("--pp", (getattr(args, "pp", 0) or 0) > 1),
+        ("--guard_transfers", args.guard_transfers)) if on]
+    if bad:
+        raise SystemExit(
+            f"{', '.join(bad)}: not in the PyTorch port yet — it trains in "
+            f"one process on one device; see {QUEUE_6}")
+
+
+def setup_run(args, unit_name: str = "tokens", device=None):
+    """-> (device, MetricsLogger, StepProfiler). Refuses the flags of
+    paths not yet ported, activates a ``DALLE_FAULTS`` plan, seeds numpy
+    and makes the output directories. ``device`` is the card unless the
+    caller passes another (``device.resolve_device``)."""
+    from dalle_pytorch_tpu_torch.device import resolve_device
+    from dalle_pytorch_tpu_torch.resilience import faults
+    from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
+    from dalle_pytorch_tpu_torch.utils.profiling import StepProfiler
+    refuse_unported(args)
+    device = resolve_device(device)
+    faults.maybe_activate_from_env()
+    torch.autograd.set_detect_anomaly(bool(args.nan_checks))
+    np.random.seed(args.seed)
+    metrics = MetricsLogger(args.metrics or None,
+                            log_interval=args.log_interval)
+    profiler = StepProfiler(args.profile_dir or None)
+    os.makedirs(args.models_dir, exist_ok=True)
+    os.makedirs(args.results_dir, exist_ok=True)
+    return device, metrics, profiler

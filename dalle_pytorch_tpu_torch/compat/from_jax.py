@@ -36,7 +36,10 @@ from dalle_pytorch_tpu_torch.ops import transformer as T
 
 
 def to_tensor(a) -> torch.Tensor:
-    """numpy (including ml_dtypes bfloat16) -> CPU tensor, bit-exact."""
+    """numpy (including ml_dtypes bfloat16) or a tensor (the bfloat16
+    leaves ``compat/msgpack.py`` restores) -> tensor, bit-exact."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)

@@ -1,0 +1,364 @@
+"""Image IO: decode and resize training images, write sample grids.
+
+Port of ``dalle_pytorch_tpu/data/images.py``, which reads and writes
+through PIL (``:25-70``, ``:185``); the port has neither PIL nor the
+native loader, so it carries its own codec, from ``zlib`` and numpy:
+
+* ``decode_png`` reads 8-bit PNGs of colour types 0 (grey), 2 (RGB),
+  3 (palette), 4 (grey + alpha) and 6 (RGBA), every row filter, and
+  converts them to RGB as PIL's ``.convert("RGB")`` does (alpha dropped,
+  grey repeated, palette looked up). 16-bit, sub-byte, interlaced and
+  JPEG files raise ``UnsupportedImage``, naming what is missing.
+* ``resize_bilinear`` is PIL's ``Image.resize(..., BILINEAR)`` for 8-bit
+  images: the same separable passes (horizontal, then vertical, each
+  rounded to 8 bits), the triangle filter's support widened by the scale
+  when downscaling, and its coefficients in PIL's 22-bit fixed point.
+* ``encode_png`` writes 8-bit grey or RGB PNGs (``save_image_grid``).
+
+The rest follows the JAX module: ``load_image`` (resized only when the
+size differs), ``load_image_batch``, ``list_image_folder``,
+``ImageFolderDataset`` (the same batches, in the same order),
+``to_uint8`` and ``save_image_grid``.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import struct
+import zlib
+from typing import Iterable, List, Optional, Sequence
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PRECISION_BITS = 32 - 8 - 2          # PIL's Resample.c
+
+
+class UnsupportedImage(ValueError):
+    """An image file the port's decoder does not read."""
+
+
+# ---------------------------------------------------------------------------
+# PNG
+# ---------------------------------------------------------------------------
+
+def _chunks(data: bytes):
+    pos = len(PNG_SIGNATURE)
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(body) != n or len(crc) != 4:
+            raise ValueError("truncated PNG chunk")
+        if zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+            raise ValueError(f"broken PNG file (bad {kind!r} crc)")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+    raise ValueError("truncated PNG file (no IEND)")
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo PNG's row filters (None, Sub, Up, Average, Paeth) on the
+    inflated scanlines. Sub, Average and Paeth chain along a row and Up,
+    Average and Paeth down the columns, so the pixels are reconstructed
+    one anti-diagonal at a time, each diagonal vectorised across all the
+    rows: in the skewed layout ``sk[d, 1 + r] = pixel (r, d - r)`` a
+    diagonal's left neighbours are diagonal d - 1 at the same row, its
+    upper ones diagonal d - 1 a row up, its upper-left ones diagonal
+    d - 2 a row up (index 0 is the zero row above the image; entries off
+    the image stay zero, the zero column left of it)."""
+    rows = raw.reshape(h, 1 + w * bpp)
+    ftype = rows[:, 0]
+    if (ftype > 4).any():
+        raise ValueError(f"bad PNG filter type {int(ftype.max())}")
+    data = rows[:, 1:].reshape(h, w, bpp)
+    if not ftype.any():
+        return data
+    r = np.arange(h)[:, None]
+    ndiag = h + w - 1
+    diag = r + np.arange(w)[None, :]                  # (h, w): r + c
+    src = np.zeros((ndiag, h, bpp), np.int32)
+    src[diag, np.broadcast_to(r, (h, w))] = data
+    sk = np.zeros((ndiag + 2, h + 1, bpp), np.int32)  # two zero diagonals
+    f = ftype.astype(np.int32)[:, None]
+    sel = [np.broadcast_to(f == k, (h, bpp)) for k in (1, 2, 3, 4)]
+    paeth_rows = bool(sel[3].any())
+    for d in range(ndiag):
+        a = sk[d + 1, 1:]
+        b = sk[d + 1, :-1]
+        pred = np.where(sel[0], a, 0)
+        pred = np.where(sel[1], b, pred)
+        pred = np.where(sel[2], (a + b) >> 1, pred)
+        if paeth_rows:
+            ul = sk[d, :-1]
+            p = a + b - ul
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+            pred = np.where(sel[3], np.where((pa <= pb) & (pa <= pc), a,
+                                             np.where(pb <= pc, b, ul)),
+                            pred)
+        lo, hi = max(0, d - w + 1), min(h - 1, d) + 1  # rows on the image
+        sk[d + 2, 1 + lo:1 + hi] = (src[d, lo:hi] + pred[lo:hi]) & 0xFF
+    return sk[diag + 2, np.broadcast_to(r + 1, (h, w))].astype(np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8, as PIL's ``.convert("RGB")``."""
+    if data[:3] == b"\xff\xd8\xff":
+        raise UnsupportedImage(
+            "JPEG decoding is not in the PyTorch port yet (ROADMAP.md "
+            "queue 1): convert the images to PNG")
+    if data[:8] != PNG_SIGNATURE:
+        raise UnsupportedImage("not a PNG file: the port decodes PNG only")
+    header, palette, idat = None, None, []
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("PNG file without IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if ctype not in _CHANNELS:
+        raise ValueError(f"bad PNG colour type {ctype}")
+    if depth != 8:
+        raise UnsupportedImage(
+            f"{depth}-bit PNG: the port decodes 8-bit channels only")
+    if interlace:
+        raise UnsupportedImage(
+            "interlaced (Adam7) PNG: the port decodes non-interlaced PNG "
+            "only")
+    bpp = _CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError(f"PNG image data of {raw.size} bytes, expected "
+                         f"{h * (1 + w * bpp)}")
+    px = _unfilter(raw, h, w, bpp)
+    if ctype == 2:
+        return px
+    if ctype == 6:
+        return np.ascontiguousarray(px[..., :3])
+    if ctype == 3:
+        if palette is None or int(px.max()) >= len(palette):
+            raise ValueError("PNG palette index out of range")
+        return palette[px[..., 0]]
+    return np.repeat(px[..., :1], 3, axis=-1)            # grey (+ alpha)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(img: np.ndarray,
+               filters: Optional[Iterable[int]] = None) -> bytes:
+    """(H, W) grey or (H, W, 3) RGB uint8 -> PNG bytes, every row with
+    filter None unless ``filters`` gives each row's type (0-4)."""
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 3 and img.shape[-1] == 1:
+        img = img[..., 0]
+    ctype = {2: 0, 3: 2}[img.ndim]
+    h, w = img.shape[:2]
+    bpp = 1 if ctype == 0 else 3
+    rows = img.reshape(h, w * bpp).astype(np.int32)
+    ftypes = np.zeros(h, np.uint8) if filters is None else \
+        np.asarray(list(filters), np.uint8)
+    lines = []
+    prev = np.zeros(w * bpp, np.int32)
+    for r in range(h):
+        x = rows[r]
+        a = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        p = a + prev - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, c))
+        pred = (0, a, prev, (a + prev) >> 1, paeth)[int(ftypes[r])]
+        lines.append(bytes([ftypes[r]]) + ((x - pred) & 0xFF).astype(
+            np.uint8).tobytes())
+        prev = x
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(b"".join(lines), 6))
+            + _chunk(b"IEND", b""))
+
+
+# ---------------------------------------------------------------------------
+# PIL's bilinear resize
+# ---------------------------------------------------------------------------
+
+def _coeffs(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` for the bilinear filter and
+    ``normalize_coeffs_8bpc``: (first input index, fixed-point weights
+    (out_size, ksize)) of each output position."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.float64)
+    ss = 1.0 / filterscale
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        ww = 0.0
+        for x in range(xmax):
+            t = abs((x + xmin - center + 0.5) * ss)
+            kk[xx, x] = 1.0 - t if t < 1.0 else 0.0
+            ww += kk[xx, x]
+        if ww != 0.0:
+            kk[xx, :xmax] /= ww
+        first[xx] = xmin
+    fixed = np.where(kk < 0, -0.5 + kk * (1 << _PRECISION_BITS),
+                     0.5 + kk * (1 << _PRECISION_BITS))
+    return first, np.trunc(fixed).astype(np.int64)
+
+
+def _resample(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit pass of PIL's resampling along ``axis`` (0 rows, 1
+    columns) of an (H, W, C) uint8 image."""
+    first, k = _coeffs(img.shape[axis], out_size)
+    idx = np.minimum(first[:, None] + np.arange(k.shape[1]),
+                     img.shape[axis] - 1)             # zero weights past
+    src = np.moveaxis(img, axis, 0).astype(np.int64)  # (n, ..., C)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int64)
+    for t in range(k.shape[1]):
+        acc += src[idx[:, t]] * k[:, t].reshape((-1,) + (1,) *
+                                                (src.ndim - 1))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W, C) uint8 -> (height, width, C), as PIL's
+    ``Image.resize((width, height), Image.BILINEAR)``."""
+    if img.shape[1] != width:
+        img = _resample(img, width, axis=1)
+    if img.shape[0] != height:
+        img = _resample(img, height, axis=0)
+    return img
+
+
+# ---------------------------------------------------------------------------
+# the JAX module's interface
+# ---------------------------------------------------------------------------
+
+def read_image(path: str) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB."""
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def load_image(path: str, image_size: Optional[int] = None) -> np.ndarray:
+    """-> (H, W, 3) float32 in [-1, 1]."""
+    img = read_image(path)
+    if image_size is not None and img.shape[:2] != (image_size, image_size):
+        img = resize_bilinear(img, image_size, image_size)
+    arr = np.asarray(img, dtype=np.float32) / 255.0
+    return arr * 2.0 - 1.0
+
+
+def load_image_batch(paths: Sequence[str], data_path: str = "",
+                     image_size: Optional[int] = None,
+                     subdir: str = "0") -> np.ndarray:
+    """A minibatch of images by file name -> (b, H, W, 3) in [-1, 1].
+    Names resolve under ``{data_path}/{subdir}/{name}``; absolute paths
+    and paths that exist are used as they are."""
+    full_paths = []
+    for p in paths:
+        full = p
+        if not os.path.isabs(p) and not os.path.exists(p):
+            full = os.path.join(data_path, subdir, p)
+        full_paths.append(full)
+    return np.stack([load_image(p, image_size) for p in full_paths])
+
+
+def list_image_folder(root: str) -> List[str]:
+    """All image files under an ImageFolder-style root (class subdirs, or
+    a flat dir), sorted — the JAX package's walk."""
+    exts = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
+    files = []
+    for dirpath, _, names in os.walk(root):
+        for n in sorted(names):
+            if os.path.splitext(n)[1].lower() in exts:
+                files.append(os.path.join(dirpath, n))
+    return sorted(files)
+
+
+class ImageFolderDataset:
+    """Fixed-size shuffled batches of normalised NHWC images, the batches
+    and order of the JAX package's (``default_rng((seed, epoch))``)."""
+
+    def __init__(self, root: str, image_size: int, batch_size: int,
+                 shuffle: bool = True, seed: int = 0,
+                 drop_last: bool = True):
+        self.files = list_image_folder(root)
+        if not self.files:
+            raise FileNotFoundError(f"no images under {root!r}")
+        self.image_size = image_size
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+
+    def __len__(self) -> int:
+        n = len(self.files)
+        if self.drop_last and n >= self.batch_size:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def epoch(self, epoch: int = 0):
+        order = np.arange(len(self.files))
+        if self.shuffle:
+            np.random.default_rng((self.seed, epoch)).shuffle(order)
+        for b in range(len(self)):
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            if len(idx) < self.batch_size:  # wrap the ragged tail
+                idx = np.concatenate([idx, order[:self.batch_size - len(idx)]])
+            yield np.stack([load_image(self.files[i], self.image_size)
+                            for i in idx])
+
+    def __iter__(self):
+        return self.epoch(0)
+
+
+def to_uint8(images, normalize: bool = True) -> np.ndarray:
+    """(..., H, W, C) float -> uint8. ``normalize=True`` rescales by the
+    batch min/max like torchvision's save_image(normalize=True);
+    otherwise assumes [-1, 1]."""
+    if hasattr(images, "detach"):
+        images = images.detach().float().cpu().numpy()
+    x = np.asarray(images, dtype=np.float32)
+    if normalize:
+        lo, hi = float(x.min()), float(x.max())
+        x = (x - lo) / max(hi - lo, 1e-8)
+    else:
+        x = (x + 1.0) / 2.0
+    return (np.clip(x, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+def save_image_grid(images, path: str, nrow: int = 8,
+                    normalize: bool = True, padding: int = 2) -> None:
+    """Tile (b, H, W, C) into a row-major grid PNG, the JAX package's
+    layout."""
+    x = to_uint8(images, normalize=normalize)
+    b, h, w, c = x.shape
+    ncol = min(nrow, b)
+    nrows = math.ceil(b / ncol)
+    grid = np.zeros((nrows * (h + padding) + padding,
+                     ncol * (w + padding) + padding, c), np.uint8)
+    for i in range(b):
+        r, col = divmod(i, ncol)
+        y0 = r * (h + padding) + padding
+        x0 = col * (w + padding) + padding
+        grid[y0:y0 + h, x0:x0 + w] = x[i]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_png(grid))

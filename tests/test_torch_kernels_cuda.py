@@ -1151,3 +1151,47 @@ def test_sparse_reads_step_kernel_matches_gather_on_card(cuda):
                                           attn_impl="gather", **kw)
     assert PA.paged_decode_attention.visible_launches == before + 1
     torch.testing.assert_close(hk, hg, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_from_card_tensors_restores_on_the_card_bit_for_bit(
+        cuda, tmp_path, dtype):
+    """``checkpoint.save`` of a DALLE, its Adam state and its EMA living on
+    the card, then ``restore_train`` into a fresh model and optimizer on
+    the card: every parameter, moment and EMA entry bit-equal."""
+    from dalle_pytorch_tpu_torch import checkpoint as TC
+    from dalle_pytorch_tpu_torch.cli import common as TCOM
+    import types
+    dt = getattr(torch, dtype)
+    vcfg = TV.VAEConfig(image_size=32, num_tokens=24, codebook_dim=32,
+                        num_layers=2, hidden_dim=8)
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=50,
+                         text_seq_len=8, heads=2, dim_head=16)
+    args = types.SimpleNamespace(lr=1e-3, lr_schedule="constant",
+                                 warmup_steps=0, decay_steps=0,
+                                 lr_end_ratio=0.1, n_epochs=1,
+                                 clip_grad_norm=1.0, ema_decay=0.9)
+    model = TD.dalle_init(cfg, seed=1, dtype=dt, device=cuda)
+    opt = TCOM.make_optimizer(args, model.parameters())
+    ema, update = TCOM.make_ema(args, model)
+    for _ in range(2):
+        sum((p.float() ** 2).sum() for p in model.parameters()).backward()
+        opt.step()
+        update(ema, model)
+    path = str(tmp_path / "ck")
+    TC.save(path, model, opt_state=opt, ema=ema, config=cfg, kind="dalle")
+    fresh = TD.dalle_init(cfg, seed=2, dtype=dt, device=cuda)
+    fopt = TCOM.make_optimizer(args, fresh.parameters())
+    TC.restore_train(path, fresh, fopt)
+    fema, _ = TCOM.make_ema(args, fresh, path)
+    assert fopt.count == opt.count == 2
+    old = dict(model.named_parameters())
+    for n, p in fresh.named_parameters():
+        assert p.device.type == "cuda" and p.dtype == dt
+        assert torch.equal(p, old[n]), n
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(fopt.adam.state[p][key],
+                               opt.adam.state[old[n]][key]), (n, key)
+        assert fema[n].device.type == "cuda"
+        assert torch.equal(fema[n], ema[n]), n

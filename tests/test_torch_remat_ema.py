@@ -13,7 +13,7 @@ and 'full', whose backward recomputes it); and that 'save_ln' and
 EMA: the float32 accumulator moves under bfloat16 parameters (JAX
 ``tests/test_ema.py:24``), equals JAX's update, ``ema_decay <= 0``
 gives (None, None), ``ema_as`` casts to the parameters' dtypes, and a
-resume path is refused until the checkpoint slice is ported.
+resume path without an EMA starts from the parameters.
 
 float32. Tolerances: losses rtol/atol 1e-5; gradients rtol 1e-4 / atol
 2e-5 against JAX, as ``test_torch_train``; against the port's own
@@ -211,10 +211,22 @@ def test_ema_updates_equal_jax():
                                rtol=1e-6, atol=1e-7)
 
 
-def test_ema_off_is_none_and_resume_waits_for_checkpoints():
+def test_ema_off_is_none_and_resume_waits_for_checkpoints(tmp_path):
+    """Off for decay <= 0; a resume path whose checkpoint has no EMA
+    starts from the parameters, as JAX's does (``ema.msgpack`` restores
+    are covered in ``test_torch_checkpoint.py``); resuming a checkpoint
+    that carries an EMA with decay 0 is refused, -1 discards it."""
     model = torch.nn.Linear(2, 2)
     assert TCOM.make_ema(_args(0.0), model) == (None, None)
     assert TCOM.make_ema(_args(-1.0), model) == (None, None)
     assert TCOM.make_ema(argparse.Namespace(), model) == (None, None)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TCOM.make_ema(_args(0.999), model, resume_path="models/m-0")
+    ema, _ = TCOM.make_ema(_args(0.999), model,
+                           resume_path=str(tmp_path / "m-0"))
+    np.testing.assert_array_equal(ema["weight"].numpy(),
+                                  model.weight.detach().numpy())
+    (tmp_path / "m-1").mkdir()
+    (tmp_path / "m-1" / "ema.msgpack").write_bytes(b"")
+    with pytest.raises(SystemExit, match="carries an EMA"):
+        TCOM.make_ema(_args(0.0), model, resume_path=str(tmp_path / "m-1"))
+    assert TCOM.make_ema(_args(-1.0), model,
+                         resume_path=str(tmp_path / "m-1")) == (None, None)
