@@ -30,7 +30,11 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
 3. decode — one full-width float32 decode step through the kernel
    against the dense gather (``paged_view`` + ``_gather_read``): h_out
    to 1e-4, then 64 greedy steps with identical tokens;
-4. engine — the bfloat16 serving engine end to end on 6 requests
+4. engine — the bfloat16 serving engine end to end at ``SERVE_DEPTH``
+   (2: the ``engine``, ``sparse_engine``, ``wide_engine`` and
+   ``rev_decode`` engines and ``import``'s model are cut from depth 12
+   to keep the smoke's time, their float32 step checks are not) on 6
+   requests
    (prompt lengths 1, 17 and 256; top-k, top-p 0.9 and one greedy):
    every result ok with 1024 image tokens in [0, 2048) and a finite
    (256, 256, 3) image; K4 launched depth x decode steps times; every
@@ -142,7 +146,8 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
 13. wide_engine — serving at the north width split as heads=2,
    dim_head=256 (``WIDE_SERVE``), depth 12: one bfloat16 decode step
    through K4's wide split body against the gather oracle with bf16 and
-   int8 caches (h_out to 2e-2 of its norm); the bfloat16 engine on the
+   int8 caches (h_out to 2e-2 of its norm); at ``SERVE_DEPTH`` the
+   bfloat16 engine on the
    six requests of the ``engine`` phase with profile windows early and
    late inside the run (ms a step, tokens/s, device ms, K4 ms and us a
    launch, idle share): every result ok, K4 launched depth x decode
@@ -158,8 +163,9 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    px in 32 px patches, ``sparse_impl='pallas'``: K3 with causal=False
    in every layer) against ``'ref'`` on the same captions and images,
    float32 to 1e-4 and bfloat16 to atol 1e-2, K3 launched 12 times a
-   call; then, in bfloat16, 4 full 256-token prompts with guidance 3.0,
-   and int8 weights (``quantize_for_decode``) with an int8 cache on
+   call; then, in bfloat16 at depth 2 (``GENERATE_DEPTH``, cut from 12
+   for the smoke's time), 4 full 256-token prompts with
+   guidance 3.0, and int8 weights (``quantize_for_decode``) with an int8 cache on
    17-token prompts with top-p 0.9: 1024 image ids each in [0, 2048),
    finite (256, 256, 3) images, finite CLIP rerank scores with K3
    launched 12 times, the same tokens from a re-run with the same key;
@@ -221,6 +227,33 @@ The entry points a user calls, through ``main(argv)``:
    write rates; ``gen_dalle`` of 2 images from the epoch-1 checkpoint,
    its grid PNG 260 x 518 x 3; each CLI's wall seconds and peak memory.
 
+The single engine's serving features and reference weights:
+
+22. serve_features — 8 requests (prompts of 1, 17 and 256 tokens, two
+   pairs sharing a prompt, two guided at cfg_scale 3.0, priorities 0 and
+   1, top-k, top-p 0.9 and greedy) at the north width in bfloat16 on 8
+   slots, K = 8, page 16, through three engines: A, the paged kernel
+   engine with the prefix cache on a pool cut to four sequences
+   (``FEATURE_PAGES``), so eviction fires, and the postprocess worker
+   scoring every image through a seeded ``CLIPConfig()`` CLIP (K3
+   non-causal); B, the same with ``speculative=4``, ``draft_layers=6``
+   (K4 once per draft and verify offset: rounds x (6 x 6 + 12 x 4)
+   launches, and K4 held against its plain version at a verify offset's
+   row mask on the run's live state); C, ``kv='dense'`` through the
+   gather (no K4). The checks: evicted >= 1, prefix_hits >= 2,
+   cfg_pairs == 2, no page leaks, the index's clear() returning every
+   page, K4's launch counts, the worker's scores against ``clip_apply``,
+   an injected failure as ``status='error'``; then A, B and C in float32
+   at depth 4 must give identical tokens (at bfloat16 depth 12 the share
+   of identical tokens and the first divergences are printed). ms a step
+   or round, image tokens/s, acceptance, the prefill ms warm admission
+   saves, the pool's peak, the pages a guided pair holds over an
+   unguided request's, evictions and a profiled window's idle share;
+23. import — a seeded reference-layout DALLE ``state_dict`` at the north
+   width through ``import_torch dalle``, ``gen_dalle`` (one image on the
+   card) and ``import_torch export-dalle``: every tensor back bit for
+   bit; the seconds of each.
+
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
 failed check raises, so the script exits non-zero and prints no result.
@@ -257,6 +290,17 @@ def check(cond: bool, what: str) -> None:
 
 def emit(**record) -> None:
     print(json.dumps(record), flush=True)
+
+
+PHASE_SECONDS: dict = {}
+
+
+def timed(phase, *args):
+    """Run ``phase(*args)`` and keep its wall seconds under its name."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[phase.__name__] = time.perf_counter() - t0
+    return out
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -317,6 +361,15 @@ def kernel_classes(kernels: dict, steps: int) -> dict:
                      if any(key in k for key in keys)), "other")
         out[kind] += us / 1e3 / steps
     return out
+
+
+# depth of the earlier serving phases' engines (``engine``,
+# ``sparse_engine``, ``wide_engine``, ``rev_decode``; their float32 step
+# checks keep full depth) and of ``import``'s model, cut from 12 to keep
+# the smoke's time with the ``serve_features`` phase, which serves at
+# depth 12; their steps are host-bound, a fixed cost plus a share per
+# layer
+SERVE_DEPTH = 2
 
 
 def north_cfg():
@@ -821,6 +874,7 @@ def check_engine_results(cfg, reqs, results) -> None:
 
 
 def phase_engine() -> dict:
+    import dataclasses
     from dalle_pytorch_tpu_torch.models import dalle as D
     from dalle_pytorch_tpu_torch.models import vae as V
     from dalle_pytorch_tpu_torch.ops import decode as decode_ops
@@ -828,14 +882,14 @@ def phase_engine() -> dict:
     from dalle_pytorch_tpu_torch.serve import scheduler as S
     from dalle_pytorch_tpu_torch.serve.engine import Engine
     from dalle_pytorch_tpu_torch.serve.postprocess import PostProcessor
-    cfg = north_cfg()
+    cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
     vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
     model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
     reqs = engine_requests(cfg)
     post = PostProcessor(vae, model)
     queue = S.RequestQueue(max_prompt_len=cfg.text_seq_len)
-    engine = Engine(model, queue, num_slots=8, chunk_steps=8,
-                    page_size=16, complete=post)
+    engine = Engine(model, queue, num_slots=8, chunk_steps=8, kv="paged",
+                    page_size=16, paged_attn="kernel", complete=post)
     check(engine.num_pages == 1 + 8 * 80, "pool must be 1 + 8*80 pages")
     handles = [queue.submit(r) for r in reqs]
     torch.cuda.synchronize()
@@ -1998,9 +2052,10 @@ def phase_wide_sparse_train() -> dict:
     return record
 
 
-def sparse_serve_cfg():
+def sparse_serve_cfg(depth: int = 12):
     import dataclasses
-    return dataclasses.replace(north_cfg(), sparse_attn=(True, False) * 6)
+    return dataclasses.replace(north_cfg(), depth=depth,
+                               sparse_attn=(True, False) * (depth // 2))
 
 
 def sparse_decode_check() -> dict:
@@ -2072,15 +2127,16 @@ def phase_sparse_engine() -> dict:
     from dalle_pytorch_tpu_torch.serve.engine import Engine
     from dalle_pytorch_tpu_torch.serve.postprocess import PostProcessor
     decode = sparse_decode_check()
-    cfg = sparse_serve_cfg()
+    cfg = sparse_serve_cfg(SERVE_DEPTH)
     n_sparse = sum(cfg.transformer.sparse_pattern)
     vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
     model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
     reqs = engine_requests(cfg)
     post = PostProcessor(vae, model)
     queue = S.RequestQueue(max_prompt_len=cfg.text_seq_len)
-    engine = Engine(model, queue, num_slots=8, chunk_steps=8, page_size=16,
-                    sparse_reads=True, complete=post)
+    engine = Engine(model, queue, num_slots=8, chunk_steps=8, kv="paged",
+                    page_size=16, paged_attn="kernel", sparse_reads=True,
+                    complete=post)
     handles = [queue.submit(r) for r in reqs]
     torch.cuda.synchronize()
     PA.paged_decode_attention.launches = 0
@@ -2215,7 +2271,8 @@ def serve_wide(cfg, reqs, sparse_reads: bool) -> dict:
     model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
     post = PostProcessor(vae, model)
     queue = S.RequestQueue(max_prompt_len=cfg.text_seq_len)
-    engine = Engine(model, queue, num_slots=8, chunk_steps=8, page_size=16,
+    engine = Engine(model, queue, num_slots=8, chunk_steps=8, kv="paged",
+                    page_size=16, paged_attn="kernel",
                     sparse_reads=sparse_reads, complete=post)
     check(engine.num_pages == 1 + 8 * 80, "pool must be 1 + 8*80 pages")
     handles = [queue.submit(r) for r in reqs]
@@ -2257,16 +2314,17 @@ def serve_wide(cfg, reqs, sparse_reads: bool) -> dict:
 
 def phase_wide_engine() -> dict:
     """Serving at ``WIDE_SERVE`` (the north width as heads=2,
-    dim_head=256), full depth: the bf16 decode check, then the engine on
-    the six requests of the ``engine`` phase (the wall includes its two
-    profile windows), a re-run of the 256-token request alone with the
-    same tokens, every page freed; then with the sparse pattern at depth
-    12 and ``sparse_reads=True`` on three of them (prompts of 1, 17 and
-    256 tokens; no re-run, to keep the smoke's time)."""
+    dim_head=256): the bf16 decode check at full depth, then, at
+    ``SERVE_DEPTH``, the engine on the six requests of the
+    ``engine`` phase (the wall includes its two profile windows), a
+    re-run of the 256-token request alone with the same tokens, every
+    page freed; then with the sparse pattern and ``sparse_reads=True`` on
+    three of them (prompts of 1, 17 and 256 tokens; no re-run, to keep
+    the smoke's time)."""
     record = {"decode_bf16": wide_decode_check()}
     emit(phase="wide_engine", check="decode_bf16", ok=True,
          **record["decode_bf16"])
-    cfg = wide_serve_cfg()
+    cfg = wide_serve_cfg(depth=SERVE_DEPTH)
     reqs = engine_requests(cfg)
     dense = serve_wide(cfg, reqs, sparse_reads=False)
     engine, queue = dense.pop("engine"), dense.pop("queue")
@@ -2279,7 +2337,8 @@ def phase_wide_engine() -> dict:
     del dense["tokens"], engine, queue
     record["dense"] = dense
     emit(phase="wide_engine", engine="dense", ok=True, **dense)
-    scfg = wide_serve_cfg(sparse_attn=(True, False) * 6)
+    scfg = wide_serve_cfg(depth=SERVE_DEPTH,
+                          sparse_attn=(True, False) * (SERVE_DEPTH // 2))
     sparse = serve_wide(scfg, engine_requests(scfg)[:3], sparse_reads=True)
     for k in ("engine", "queue", "tokens"):
         sparse.pop(k)
@@ -2446,9 +2505,16 @@ def generate_profile(model, text, key, opts, window=(300, 16)) -> tuple:
     return torch.stack(toks, dim=1), rec
 
 
+# depth of the ``generate`` phase's sampling model, cut from 12 to keep
+# the smoke's time with the ``serve_features`` phase (the step is
+# host-bound, about linear in depth)
+GENERATE_DEPTH = 2
+
+
 def phase_generate() -> dict:
-    """One-shot generation at the north width: the dense decode check,
-    the CLIP check, then ``generate_images`` twice: 4 full 256-token
+    """One-shot generation at the north width (its sampling model at
+    ``GENERATE_DEPTH``): the dense decode check, the CLIP check, then
+    ``generate_images`` twice: 4 full 256-token
     prompts with guidance 3.0, and int8 weights with an int8 cache on 17
     tokens with top-p 0.9. Each: a run returning the image ids (ids in
     [0, 2048), finite images), a run with the CLIP rerank (K3 12 times,
@@ -2457,12 +2523,13 @@ def phase_generate() -> dict:
     from dalle_pytorch_tpu_torch.models import clip as C
     from dalle_pytorch_tpu_torch.models import dalle as D
     from dalle_pytorch_tpu_torch.models import vae as V
+    import dataclasses
     from dalle_pytorch_tpu_torch.ops import block_sparse as BS
     from dalle_pytorch_tpu_torch.ops import prng
     record = {"dense_decode": dense_decode_check()}
     emit(phase="generate", check="dense_decode", ok=True,
          **record["dense_decode"])
-    cfg = north_cfg()
+    cfg = dataclasses.replace(north_cfg(), depth=GENERATE_DEPTH)
     vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
     model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
     # the reference CLIP at its published defaults, K3 in every layer
@@ -2815,10 +2882,11 @@ def phase_rev_train() -> dict:
 
 
 def phase_rev_decode() -> dict:
-    """Decoding the reversible config (depth 12): one float32 step
+    """Decoding the reversible config: one float32 step at depth 12
     through K4 against the gather oracle and 64 greedy steps
     (``paged_decode_check``: the two-stream layer loop, K/V from x2);
-    then the bfloat16 engine on one request (17-token prompt) to its
+    then the bfloat16 engine at ``SERVE_DEPTH`` on one request (17-token
+    prompt) to its
     1,024 image tokens: ok, K4 launched depth x decode steps times, every
     page freed."""
     from dalle_pytorch_tpu_torch.models import dalle as D
@@ -2828,13 +2896,16 @@ def phase_rev_decode() -> dict:
     from dalle_pytorch_tpu_torch.serve.engine import Engine
     from dalle_pytorch_tpu_torch.serve.postprocess import PostProcessor
     import dataclasses
-    cfg = dataclasses.replace(north_cfg(), reversible=True)
-    step = paged_decode_check(cfg)
+    step = paged_decode_check(dataclasses.replace(north_cfg(),
+                                                  reversible=True))
+    cfg = dataclasses.replace(north_cfg(), reversible=True,
+                              depth=SERVE_DEPTH)
     vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
     model = D.dalle_init(cfg, seed=33, vae=vae, dtype=torch.bfloat16)
     req = engine_requests(cfg)[1]
     queue = S.RequestQueue(max_prompt_len=cfg.text_seq_len)
-    engine = Engine(model, queue, num_slots=8, chunk_steps=8, page_size=16,
+    engine = Engine(model, queue, num_slots=8, chunk_steps=8, kv="paged",
+                    page_size=16, paged_attn="kernel",
                     complete=PostProcessor(vae, model))
     handle = queue.submit(req)
     torch.cuda.synchronize()
@@ -3251,6 +3322,499 @@ def phase_cli(train: dict) -> dict:
     return record
 
 
+# -- the single engine's serving features ------------------------------------
+
+# a pool of four full sequences (80 pages of 16) and the trash page, under
+# the 8 slots' 640: the growing slots run it dry and eviction must fire
+FEATURE_PAGES = 1 + 4 * 80
+FEATURE_ENGINE = dict(num_slots=8, chunk_steps=8, kv="paged", page_size=16,
+                      paged_attn="kernel", prefix_cache=True,
+                      num_pages=FEATURE_PAGES)
+SPEC_K, SPEC_DRAFT = 4, 6
+# the float32 runs that must give identical tokens: depth 4, a 2-layer draft
+IDENTITY_DEPTH, IDENTITY_DRAFT = 4, 2
+
+
+def feature_requests(cfg) -> list:
+    """Eight requests: prompts of 1, 17 and 256 tokens; two pairs that
+    share a prompt (17 and 256 tokens: prefix hits); two guided at
+    cfg_scale 3.0 at priority 0, both of 17 tokens (their null captions
+    are one prefix entry), one sharing its prompt with an unguided
+    request; the rest at priority 1 (eviction takes them first); top-k,
+    top-p 0.9 and greedy sampling."""
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    g = torch.Generator().manual_seed(6)
+
+    def prompt(n):
+        return tuple(int(t) for t in torch.randint(
+            1, cfg.num_text_tokens, (n,), generator=g))
+
+    p1, p17a, p17b, p17c, p256 = (prompt(1), prompt(17), prompt(17),
+                                  prompt(17), prompt(256))
+    top_p = S.SamplingParams(top_p=0.9)
+    greedy = S.SamplingParams(filter_thres=1.0)
+    return [S.Request(p17b, seed=30, cfg_scale=3.0),
+            S.Request(p17c, seed=31, cfg_scale=3.0, sampling=top_p),
+            S.Request(p17b, seed=32, priority=1, sampling=greedy),
+            S.Request(p17a, seed=33, priority=1),
+            S.Request(p17a, seed=34, priority=1, sampling=top_p),
+            S.Request(p256, seed=35, priority=1),
+            S.Request(p256, seed=36, priority=1, sampling=greedy),
+            S.Request(prompt(1), seed=37, priority=1)]
+
+
+def pair_page_ratio(engine, samples: list):
+    """Wrap ``engine._complete`` to record, as each request completes, the
+    pages its slots hold (both slots of a guided pair), a page mapped by
+    r owners counting 1/r: its share of the pool's residency."""
+    orig = engine._complete
+
+    def complete(i, slot, now):
+        slots = [i] + ([slot.pair] if slot.pair is not None else [])
+        own = sum(1 / engine.alloc.refcount(p) for j in slots
+                  for p in engine._slot_pages[j])
+        samples.append((slot.pair is not None, len(slot.handle.request.codes),
+                        own))
+        orig(i, slot, now)
+
+    engine._complete = complete
+
+
+def idle_window(engine, chunks: int = 2) -> dict:
+    """``chunks`` engine steps under torch.profiler (synchronised at both
+    ends): device kernel ms a step, and the idle share against the
+    window's own wall (an upper bound: the profiler's host cost is in
+    that wall; ``run_summary`` takes it against the run's)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(chunks):
+            engine.step_once()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = chunks * engine.chunk_steps
+    kernels = device_kernels(prof)
+    total_us = sum(us for us, _ in kernels.values())
+    if total_us <= 0:
+        return {"steps": steps, "device_ms_per_step": "not measured"}
+    k4_us = sum(us for k, (us, _) in kernels.items() if "paged_decode" in k)
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": total_us / 1e3 / steps,
+            "k4_ms_per_step": k4_us / 1e3 / steps,
+            "device_idle_share_profiled": max(0.0,
+                                              1 - total_us / 1e3 / wall_ms),
+            "kernels_launched_per_step": sum(
+                n for _, n in kernels.values()) / steps}
+
+
+def feature_run(model, reqs, window: int = 0, post=None, probe=None,
+                time_admissions: bool = False, **kw) -> dict:
+    """One engine over ``reqs`` to the end: the results, wall seconds, K4
+    launches (counted from 0 here), stats and counters; with ``window``
+    a profiled window from that many steps in, after which ``probe(engine)``
+    runs on the live state (its time left out of the wall, its launches
+    out of the count). ``time_admissions`` synchronises the card around
+    each admission to time it, so a run that gives a wall leaves it off."""
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    queue = S.RequestQueue(max_prompt_len=model.cfg.text_seq_len)
+    engine = Engine(model, queue, complete=None if post is None
+                    else post.submit, time_admissions=time_admissions,
+                    **kw)
+    pairs = []
+    if engine.kv == "paged":
+        pair_page_ratio(engine, pairs)
+    handles = [queue.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    PA.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    prof = probed = None
+    probe_s = 0.0
+    if window:
+        for _ in range(window):
+            engine.step_once()
+        prof = idle_window(engine)
+        if probe is not None:
+            t_probe = time.perf_counter()
+            launches = PA.paged_decode_attention.launches
+            probed = probe(engine)
+            PA.paged_decode_attention.launches = launches
+            probe_s = time.perf_counter() - t_probe
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - probe_s
+    launches = PA.paged_decode_attention.launches
+    if post is not None:
+        post.close()
+    results = [h.result(timeout=60) for h in handles]
+    for r in results:
+        check(r.ok, f"request {r.request_id}: {r.status} {r.reason}")
+    return {"engine": engine, "results": results, "wall_s": wall,
+            "k4_launches": launches, "stats": engine.stats(),
+            "counters": engine.counters(), "profile": prof,
+            "pair_pages": pairs, "probe": probed}
+
+
+def token_agreement(a: list, b: list) -> dict:
+    """Share of equal image tokens between two runs' results, and each
+    request's first diverging position (None where identical)."""
+    same = total = 0
+    first = []
+    for x, y in zip(a, b):
+        x, y = list(x.tokens), list(y.tokens)
+        same += sum(u == v for u, v in zip(x, y))
+        total += len(x)
+        diff = [i for i, (u, v) in enumerate(zip(x, y)) if u != v]
+        first.append(diff[0] if diff else None)
+    return {"identical_share": same / total, "first_divergence": first}
+
+
+def run_summary(cfg, run: dict) -> dict:
+    steps = run["stats"]["decode_steps"]
+    image_tokens = len(run["results"]) * cfg.image_seq_len
+    st = run["stats"]
+    out = {"wall_s": run["wall_s"], "decode_steps": steps,
+           "ms_per_decode_step": run["wall_s"] * 1e3 / steps,
+           "image_tokens_per_s": image_tokens / run["wall_s"],
+           "k4_launches": run["k4_launches"], "profile": run["profile"],
+           "counters": run["counters"]}
+    for key in ("pages_peak", "evicted", "prefix_hits", "prefill_p50_ms",
+                "warm_admit_p50_ms", "spec_acceptance_rate",
+                "spec_tokens_per_round", "spec_rounds"):
+        if key in st:
+            out[key] = st[key]
+    prof = run["profile"]
+    if prof and isinstance(prof.get("device_ms_per_step"), float):
+        # against the run's own wall a step: the profiled window's wall
+        # carries the profiler's host cost
+        out["device_idle_share"] = max(
+            0.0, 1 - prof["device_ms_per_step"] / out["ms_per_decode_step"])
+    if "prefill_p50_ms" in st:
+        out["prefill_ms_saved_by_warm_admission"] = \
+            st["prefill_p50_ms"] - st["warm_admit_p50_ms"]
+    pairs = run["pair_pages"]
+    guided = [own for pair, _, own in pairs if pair]
+    plain = [own for pair, _, own in pairs if not pair]
+    if guided and plain:
+        out["pair_pages_over_unguided"] = (sum(guided) / len(guided)) / (
+            sum(plain) / len(plain))
+    return out
+
+
+def check_feature_run(cfg, name: str, run: dict, reqs) -> None:
+    """Every result ok, ``image_seq_len`` ids in range, every page back
+    except what the prefix index holds, and the index's ``clear()``
+    returns those."""
+    for r, res in zip(reqs, run["results"]):
+        toks = torch.as_tensor(res.tokens)
+        check(toks.shape == (cfg.image_seq_len,) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.num_image_tokens,
+              f"{name}: request {res.request_id}: bad image tokens")
+        check(list(res.text_tokens[:len(r.codes)]) == list(r.codes),
+              f"{name}: request {res.request_id}: text lost its prompt")
+    engine = run["engine"]
+    if engine.kv != "paged":
+        return
+    held = engine.prefix.pages_held if engine.prefix is not None else 0
+    check(engine.alloc.in_use == held, f"{name}: {engine.alloc.in_use} "
+          f"pages in use, the index holds {held}: pages leaked")
+    if engine.prefix is not None:
+        engine.prefix.clear()
+        check(engine.alloc.in_use == 0, f"{name}: the index's clear() left "
+              f"{engine.alloc.in_use} pages")
+
+
+def spec_k4_case(engine, dtype=torch.bfloat16, offset: int = 2) -> dict:
+    """K4 as the verify launches it, on the run's live state: the pool's
+    layer 0, the block tables and chunk-start positions of the engine
+    mid-run, the row mask of offset ``offset`` (``_chunk_masks``), random
+    queries; held against the plain version with the ``kernel`` phase's
+    bfloat16 tolerances, timed beside it and the byte bound."""
+    from dalle_pytorch_tpu_torch.ops import decode as decode_ops
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    cfg = engine.cfg.transformer
+    pool = engine.pool
+    kp, vp = pool["k"][0], pool["v"][0]
+    pos = engine.pos.clone()
+    bt = engine.block_tables
+    allowed = decode_ops._chunk_masks(cfg, pos, engine.key_mask,
+                                      SPEC_K)[0][:, offset].contiguous()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((pos.numel(), cfg.heads, cfg.dim_head), generator=g,
+                    device="cuda").to(dtype)
+    args = (q, kp, vp, bt, pos, allowed)
+    scale = cfg.scale
+    got = PA.paged_decode_attention(*args, scale=scale)
+    want = PA.paged_decode_attention_plain(*args, scale=scale)
+    mag = PA.paged_decode_attention_plain(q, kp, vp.abs(), bt, pos, allowed,
+                                          scale=scale)[0]
+    err = partials_held("spec K4", got, want, mag, 1e-2, 1e-2)
+    ms = cuda_ms(lambda: PA.paged_decode_attention(*args, scale=scale),
+                 iters=50)
+    plain_ms = cuda_ms(lambda: PA.paged_decode_attention_plain(
+        *args, scale=scale), iters=10, warmup=2)
+    bound, by = bound_ms(q, kp, pos, None)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by,
+            "positions": [int(p) for p in pos.tolist()]}
+
+
+def phase_serve_features() -> dict:
+    """The single engine's serving features at the north width (bfloat16,
+    depth 12, seeded weights; 8 slots, K = 8, page 16) on
+    ``feature_requests``:
+
+    A. ``kv='paged'``, ``paged_attn='kernel'``, ``prefix_cache=True``, the
+       pool cut to ``FEATURE_PAGES`` so that eviction fires, with the
+       postprocess worker scoring every image through a seeded
+       ``CLIPConfig()`` CLIP (K3 without the causal constraint, 12
+       launches an image): every handle completes, evicted >= 1,
+       prefix_hits >= 2, cfg_pairs == 2, no page leaks and the index's
+       clear() returns every page it held, K4 launched depth x decode
+       steps; each score equals a synchronous ``clip_apply`` of the same
+       image and caption to rtol/atol 1e-2 (bfloat16: a few roundings of
+       2^-8 relative on scores bounded by exp(1)); an injected failure
+       comes back as ``status='error'``;
+    B. the same with ``speculative=4``, ``draft_layers=6``: K4 launched
+       rounds x (6 x 6 + 12 x 4), the acceptance, K4 held against its
+       plain version at one verify offset's row mask on the run's state;
+    C. ``kv='dense'`` (gather reads, no K4).
+    A's wall includes the worker's VAE decode and CLIP scoring on the same
+    card; its profiled window (after 40 chunks, 320 decode steps) comes
+    before any request completes, so that window is the engine's alone.
+    Then A, B (2-layer draft) and C again in float32 at depth 4, whose
+    tokens must be identical; the float32 A alone times its admissions
+    (cold prefill against warm admission), so no bfloat16 wall carries
+    their synchronisations; at bfloat16 depth 12 the share of identical
+    tokens and the first diverging positions of B and C against A are
+    printed, not checked."""
+    import dataclasses
+    from dalle_pytorch_tpu_torch.models import clip as CL
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import block_sparse as BS
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.postprocess import PostProcessor
+    cfg = north_cfg()
+    reqs = feature_requests(cfg)
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+    clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
+                        dtype=torch.bfloat16)
+    record = dict(phase="serve_features", ok=True, requests=len(reqs),
+                  num_pages=FEATURE_PAGES)
+
+    # A: the eager engine with the prefix cache, eviction and the worker
+    post = PostProcessor(vae, model, clip=clip).start()
+    BS.block_sparse_attention_fwd.launches = 0
+    a = feature_run(model, reqs, window=40, post=post, **FEATURE_ENGINE)
+    k3 = BS.block_sparse_attention_fwd.launches
+    check_feature_run(cfg, "A", a, reqs)
+    st = a["stats"]
+    check(st["evicted"] >= 1, f"A: no eviction ({st['evicted']})")
+    check(st["prefix_hits"] >= 2, f"A: {st['prefix_hits']} prefix hits")
+    check(st["cfg_pairs"] == 2, f"A: cfg_pairs {st['cfg_pairs']}, not 2")
+    check(a["k4_launches"] == cfg.depth * st["decode_steps"],
+          f"A: K4 launched {a['k4_launches']} times, not depth x "
+          f"{st['decode_steps']} decode steps")
+    check(k3 == 12 * len(reqs), f"A: K3 launched {k3} times for "
+          f"{len(reqs)} CLIP scores, not 12 each")
+    score_err = 0.0
+    with torch.no_grad():
+        for res in a["results"]:
+            check(res.clip_score is not None and math.isfinite(res.clip_score)
+                  and res.image.shape == (256, 256, 3),
+                  f"A: request {res.request_id} has no image or score")
+            img = torch.as_tensor(res.image, device="cuda")
+            text = torch.as_tensor(res.text_tokens, device="cuda").long()
+            want = float(CL.clip_apply(clip, text[None],
+                                       img.to(torch.bfloat16)[None])[0])
+            score_err = max(score_err, abs(res.clip_score - want))
+            check(abs(res.clip_score - want) <= 1e-2 + 1e-2 * abs(want),
+                  f"A: worker score {res.clip_score} != clip_apply {want}")
+    post = PostProcessor(vae, model, clip=clip).start()
+    bad = S.RequestHandle(reqs[0])
+    post.submit(bad, S.Result(status=S.OK, request_id=99, tokens=None))
+    post.close()
+    check(bad.result(timeout=30).status == S.ERROR,
+          "an injected postprocess failure did not come back as an error")
+    record["A"] = run_summary(cfg, a)
+    record["A"].update(k3_launches=k3, clip_score_max_abs_err=score_err,
+                       clip_scores=[r.clip_score for r in a["results"]])
+
+    # B: speculation through K4, one walk per draft and verify offset
+    b = feature_run(model, reqs, window=20, probe=spec_k4_case,
+                    speculative=SPEC_K, draft_layers=SPEC_DRAFT,
+                    **FEATURE_ENGINE)
+    check_feature_run(cfg, "B", b, reqs)
+    rounds = b["stats"]["decode_steps"]
+    per_round = SPEC_DRAFT * SPEC_K * (SPEC_K - 1) // 2 + cfg.depth * SPEC_K
+    check(b["k4_launches"] == rounds * per_round,
+          f"B: K4 launched {b['k4_launches']} times, not {rounds} rounds x "
+          f"{per_round}")
+    record["B"] = run_summary(cfg, b)
+    record["B"].update(k4_launches_per_round=per_round,
+                       k4_at_verify_offset=b["probe"])
+    record["B_vs_A"] = token_agreement(b["results"], a["results"])
+
+    # C: the dense slot cache through the gather read
+    c = feature_run(model, reqs, window=40, num_slots=8, chunk_steps=8,
+                    kv="dense")
+    check_feature_run(cfg, "C", c, reqs)
+    check(c["k4_launches"] == 0, "C: the dense engine launched K4")
+    record["C"] = run_summary(cfg, c)
+    record["C_vs_A"] = token_agreement(c["results"], a["results"])
+
+    # float32 at depth 4: tokens identical across A, B and C
+    del model, a, b, c
+    fcfg = dataclasses.replace(cfg, depth=IDENTITY_DEPTH)
+    fvae = V.vae_init(fcfg.vae, seed=3)
+    fmodel = D.dalle_init(fcfg, seed=4, vae=fvae)
+    fa = feature_run(fmodel, reqs, time_admissions=True, **FEATURE_ENGINE)
+    fb = feature_run(fmodel, reqs, speculative=SPEC_K,
+                     draft_layers=IDENTITY_DRAFT, **FEATURE_ENGINE)
+    fc = feature_run(fmodel, reqs, num_slots=8, chunk_steps=8, kv="dense")
+    ident = {}
+    for name, run in (("B", fb), ("C", fc)):
+        agree = token_agreement(run["results"], fa["results"])
+        ident[name] = agree
+        check(agree["identical_share"] == 1.0,
+              f"float32 depth {IDENTITY_DEPTH}: {name}'s tokens differ from "
+              f"A's: {agree}")
+    record["float32_identity"] = {
+        "depth": IDENTITY_DEPTH, "draft_layers": IDENTITY_DRAFT,
+        "evicted": fa["stats"]["evicted"],
+        "prefill_p50_ms": fa["stats"]["prefill_p50_ms"],
+        "warm_admit_p50_ms": fa["stats"]["warm_admit_p50_ms"],
+        "prefill_ms_saved_by_warm_admission":
+            fa["stats"]["prefill_p50_ms"] - fa["stats"]["warm_admit_p50_ms"],
+        "spec_tokens_per_round": fb["stats"]["spec_tokens_per_round"],
+        "wall_s": {"A": fa["wall_s"], "B": fb["wall_s"], "C": fc["wall_s"]},
+        **ident}
+    emit(**record)
+    return record
+
+
+def reference_state_dict(cfg, seed: int = 11) -> dict:
+    """A reference-layout DALLE ``state_dict`` (the reference's key names
+    and torch layouts: ``transformer.layers.layers.{i}.{0,1}``, the
+    summed axial table over (image_size, image_size), the embedded VAE
+    with its codebook tied to ``image_emb``) at ``cfg``'s widths, float32,
+    seeded."""
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*shape, std=0.02):
+        return torch.randn(shape, generator=g) * std
+
+    d, inner, v = cfg.dim, cfg.heads * cfg.dim_head, cfg.vae
+    sd = {"vae.codebook.weight": w(v.num_tokens, v.codebook_dim, std=1.0)}
+    ch = [v.channels] + [v.hidden_dim] * v.num_layers
+    for i in range(v.num_layers):
+        sd[f"vae.encoder.{i}.0.weight"] = w(ch[i + 1], ch[i], 4, 4)
+        sd[f"vae.encoder.{i}.0.bias"] = w(ch[i + 1])
+    sd[f"vae.encoder.{v.num_layers}.weight"] = w(v.num_tokens, ch[-1], 1, 1)
+    sd[f"vae.encoder.{v.num_layers}.bias"] = w(v.num_tokens)
+    dec = [v.codebook_dim] + [v.hidden_dim] * v.num_layers
+    for i in range(v.num_layers):
+        sd[f"vae.decoder.{i}.0.weight"] = w(dec[i], dec[i + 1], 4, 4)
+        sd[f"vae.decoder.{i}.0.bias"] = w(dec[i + 1])
+    sd[f"vae.decoder.{v.num_layers}.weight"] = w(v.channels, dec[-1], 1, 1)
+    sd[f"vae.decoder.{v.num_layers}.bias"] = w(v.channels)
+    for i in range(cfg.depth):
+        a, f = f"transformer.layers.layers.{i}.0.", \
+            f"transformer.layers.layers.{i}.1."
+        sd.update({a + "norm.weight": 1 + w(d), a + "norm.bias": w(d),
+                   a + "fn.to_qkv.weight": w(3 * inner, d),
+                   a + "fn.to_out.0.weight": w(d, inner),
+                   a + "fn.to_out.0.bias": w(d),
+                   f + "norm.weight": 1 + w(d), f + "norm.bias": w(d),
+                   f + "fn.net.0.weight": w(8 * d, d),
+                   f + "fn.net.0.bias": w(8 * d),
+                   f + "fn.net.3.weight": w(d, 4 * d),
+                   f + "fn.net.3.bias": w(d)})
+    size = v.image_size
+    sd.update({"text_emb.weight": w(cfg.num_text_tokens, d, std=1.0),
+               "image_emb.weight": sd["vae.codebook.weight"],
+               "text_pos_emb.weight": w(cfg.text_seq_len, d, std=1.0),
+               "image_pos_emb.weights.0": w(1, size, 1, d, std=1.0),
+               "image_pos_emb.weights.1": w(1, 1, size, d, std=1.0),
+               "to_logits.0.weight": 1 + w(d), "to_logits.0.bias": w(d),
+               "to_logits.1.weight": w(cfg.total_tokens, d),
+               "to_logits.1.bias": w(cfg.total_tokens)})
+    return sd
+
+
+def phase_import() -> dict:
+    """Reference weights in and out through the entry points' ``main``:
+    a seeded reference-layout DALLE ``state_dict`` at the north width
+    (depth ``SERVE_DEPTH``) is
+    saved as a ``.pth``; ``import_torch dalle`` turns it into a DALLE and
+    a VAE checkpoint; ``gen_dalle`` samples one image from them on the
+    card (its grid PNG 260 x 260 x 3); ``export-dalle`` writes the
+    checkpoint back, and every tensor must equal the input bit for bit.
+    The JAX package's import CLI records no ``meta.vae_checkpoint``, which
+    gen_dalle and export-dalle read, so the manifest gains it here, as a
+    user would add it."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from dalle_pytorch_tpu_torch import checkpoint as C
+    from dalle_pytorch_tpu_torch.cli import gen_dalle, import_torch
+    from dalle_pytorch_tpu_torch.data import images as I
+    cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
+    root = tempfile.mkdtemp(prefix="chip-smoke-import-")
+    try:
+        sd = reference_state_dict(cfg)
+        pth = os.path.join(root, "dalle.pth")
+        torch.save(sd, pth)
+        models = os.path.join(root, "models")
+        dalle_dir = os.path.join(models, "imported_dalle-0")
+        vae_dir = os.path.join(models, "imported_vae-0")
+        t0 = time.perf_counter()
+        import_torch.main(["dalle", pth, "--out", dalle_dir, "--vae_out",
+                           vae_dir, "--heads", str(cfg.heads)])
+        import_s = time.perf_counter() - t0
+        manifest = C.load_manifest(dalle_dir)
+        manifest["meta"]["vae_checkpoint"] = vae_dir
+        with open(os.path.join(dalle_dir, C.MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+        with open(os.path.join(root, "only.txt"), "w") as f:
+            f.write("a red square\na small blue circle\n")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_dalle.main(["a red square", "--name", "imported",
+                        "--dalle_epoch", "0", "--num_images", "1",
+                        "--seed", "5", "--models_dir", models,
+                        "--results_dir", os.path.join(root, "gen"),
+                        "--captions_only", os.path.join(root, "only.txt")])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        (png,) = os.listdir(os.path.join(root, "gen"))
+        img = I.read_image(os.path.join(root, "gen", png))
+        check(img.shape == (260, 260, 3), f"import: the grid is {img.shape}")
+        back = os.path.join(root, "back.pth")
+        t0 = time.perf_counter()
+        import_torch.main(["export-dalle", back, "--out", dalle_dir])
+        export_s = time.perf_counter() - t0
+        out = torch.load(back, weights_only=True)
+        check(set(out) == set(sd), f"import: export keys differ: "
+              f"{sorted(set(out) ^ set(sd))[:8]}")
+        unequal = [k for k in sd if not torch.equal(out[k], sd[k])]
+        check(not unequal, f"import: {len(unequal)} tensors changed, e.g. "
+                           f"{unequal[:4]}")
+        record = dict(phase="import", ok=True, tensors=len(sd),
+                      pth_bytes=os.path.getsize(pth), import_s=import_s,
+                      gen_dalle_s=gen_s, export_s=export_s,
+                      round_trip_bit_equal=True,
+                      gen_grid_shape=list(img.shape))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(**record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3258,27 +3822,30 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = phase_build()
-    kernel = phase_kernel()
-    phase_decode()
-    engine = phase_engine()
-    flash = phase_flash()
-    train = phase_train()
-    wide_train = phase_wide_train()
-    fused_train = phase_fused_train()
-    sparse = phase_sparse_kernels()
-    sparse_train = phase_sparse_train()
-    wide_sparse_train = phase_wide_sparse_train()
-    sparse_engine = phase_sparse_engine()
-    wide_engine = phase_wide_engine()
-    generate = phase_generate()
-    phase_vae_train()
-    rev_train = phase_rev_train()
-    rev_decode = phase_rev_decode()
-    moe_train = phase_moe_train()
-    clip_train = phase_clip_train()
-    remat = phase_remat()
-    cli = phase_cli(train)
+    card = timed(phase_build)
+    kernel = timed(phase_kernel)
+    timed(phase_decode)
+    engine = timed(phase_engine)
+    flash = timed(phase_flash)
+    train = timed(phase_train)
+    wide_train = timed(phase_wide_train)
+    fused_train = timed(phase_fused_train)
+    sparse = timed(phase_sparse_kernels)
+    sparse_train = timed(phase_sparse_train)
+    wide_sparse_train = timed(phase_wide_sparse_train)
+    sparse_engine = timed(phase_sparse_engine)
+    wide_engine = timed(phase_wide_engine)
+    generate = timed(phase_generate)
+    timed(phase_vae_train)
+    rev_train = timed(phase_rev_train)
+    rev_decode = timed(phase_rev_decode)
+    moe_train = timed(phase_moe_train)
+    clip_train = timed(phase_clip_train)
+    remat = timed(phase_remat)
+    cli = timed(phase_cli, train)
+    features = timed(phase_serve_features)
+    timed(phase_import)
+    emit(phase_seconds=PHASE_SECONDS)
     main_case = kernel["bfloat16"]
     rows = [{
         "name": "paged_decode_attention",
@@ -3450,6 +4017,27 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": None})
+    # the single engine's features: K4 once per draft and verify offset
+    # (run B, at one verify offset's row mask on the run's state), and K3
+    # without the causal constraint in the postprocess worker's CLIP
+    spec = features["B"]["k4_at_verify_offset"]
+    rows += [{
+        "name": "paged_decode_attention@serve_spec", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dalle_pytorch_tpu/ops/paged_attention.py:88",
+        "launches": features["B"]["k4_launches"],
+        "max_abs_err": spec["max_abs_err"], "ms": spec["ms"],
+        "plain_ms": spec["plain_ms"], "bound_ms": spec["bound_ms"],
+        "bound_by": spec["bound_by"], "library_ms": None}, {
+        "name": "block_sparse_attention_fwd_noncausal@postprocess",
+        "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": features["A"]["k3_launches"],
+        "max_abs_err": max(k3c["max_abs_err"].values()),
+        "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
+        "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
+        "library_ms": k3c["sdpa_masked_ms"]}]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

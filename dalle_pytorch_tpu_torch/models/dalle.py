@@ -6,11 +6,12 @@ embeddings (``embed_prompt``, ``decode_token_embed``, the summed-axial
 ``to_logits`` (``:47-244``), the forward and training loss
 (``dalle_apply``, ``ce_from_hidden``, ``_nll``, ``_chunked_ce``,
 ``:290-401``), the samplers ``top_k_filter``, ``top_p_filter`` and
-``sample_per_slot`` (``:408-514``; its classifier-free-guidance pair
-arguments are the engine's, a later slice), ``quantize_for_decode``
-(``:271``) and one-shot generation, ``generate_images`` (``:517-664``):
-the dense KV cache, classifier-free guidance, int8 caches and the CLIP
-rerank.
+``sample_per_slot`` (``:408-514``, with the engine's guided-pair
+arguments ``partner``, ``cfg_scale`` and ``uncond``), the speculative
+draft head ``draft_transformer_config`` / ``draft_transformer_params``
+(``:247-268``), ``quantize_for_decode`` (``:271``) and one-shot
+generation, ``generate_images`` (``:517-664``): the dense KV cache,
+classifier-free guidance, int8 caches and the CLIP rerank.
 
 ``reversible``, ``remat`` and ``moe_experts`` select the stack's engine
 (``ops/transformer.py``): a reversible model's hidden states are the
@@ -222,6 +223,29 @@ def to_logits(model: DALLE, h: torch.Tensor) -> torch.Tensor:
     return core.linear(model.logits_proj, core.layernorm(model.logits_ln, h))
 
 
+def draft_transformer_config(tcfg: T.TransformerConfig,
+                             d: int) -> T.TransformerConfig:
+    """The speculative draft's config: the first ``d`` layers of the
+    target stack, all else unchanged (``sparse_attn`` re-sliced, since
+    ``sparse_pattern`` derives from depth)."""
+    if not 1 <= d <= tcfg.depth:
+        raise ValueError(
+            f"draft depth must be in [1, {tcfg.depth}], got {d}")
+    return dataclasses.replace(
+        tcfg, depth=d, sparse_attn=tuple(tcfg.sparse_pattern[:d]))
+
+
+def draft_transformer_params(transformer: T.Transformer,
+                             d: int) -> T.Transformer:
+    """The draft head's weights: the target stack's first ``d`` layers,
+    shared, not copied (an early exit through the same logit head and
+    sampler, so no extra memory)."""
+    out = copy.copy(transformer)
+    out._modules = dict(transformer._modules)
+    out.layers = transformer.layers[:d]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # forward / loss
 # ---------------------------------------------------------------------------
@@ -351,14 +375,34 @@ def top_p_filter(logits: torch.Tensor, p: float) -> torch.Tensor:
 def sample_per_slot(logits: torch.Tensor, pred_pos: torch.Tensor,
                     keys: torch.Tensor, temp: torch.Tensor,
                     topk_k: torch.Tensor, top_p: torch.Tensor,
-                    cfg: DALLEConfig) -> torch.Tensor:
+                    cfg: DALLEConfig, *,
+                    partner: Optional[torch.Tensor] = None,
+                    cfg_scale: Optional[torch.Tensor] = None,
+                    uncond: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-slot sampling, every knob a (slots,) tensor: forbidden-position
     mask, temperature, top-k OR nucleus (``top_p > 0`` selects nucleus),
     then ``categorical`` under ``fold_in(key, pred_pos)``. Returns ids
     with the text-vocab offset removed at image positions. Both filters
-    come off one descending sort, as in the JAX program."""
+    come off one descending sort, as in the JAX program.
+
+    ``partner``, ``cfg_scale`` and ``uncond`` (each (slots,), together or
+    not at all) fold classifier-free guidance in: a guided request holds
+    a cond/uncond slot pair, each the other's ``partner`` (self
+    elsewhere). A cond slot with ``cfg_scale > 0`` samples image
+    positions from ``l_u + cfg_scale * (l_c - l_u)``, mixed in float32
+    on the masked logits before the temperature, as ``generate_images``
+    mixes; its uncond partner takes the cond slot's drawn token, so the
+    pair's caches stay in step. With every scale 0 both are identities."""
     forbidden = logits_mask(cfg, pred_pos - 1)
     lg = logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
+    if partner is not None:
+        l_self = lg.float()
+        l_pair = lg[partner.long()].float()
+        # on a cond slot the partner IS the uncond stream
+        mix = (l_pair + cfg_scale[:, None] * (l_self - l_pair)).to(lg.dtype)
+        guided_img = ((cfg_scale > 0) & ~uncond
+                      & (pred_pos >= cfg.text_seq_len))
+        lg = torch.where(guided_img[:, None], mix, lg)
     lg = lg / temp[:, None]         # f32 temp promotes bf16 logits, as JAX
 
     sorted_desc = torch.sort(lg, dim=-1, descending=True).values
@@ -374,6 +418,9 @@ def sample_per_slot(logits: torch.Tensor, pred_pos: torch.Tensor,
 
     lg = torch.where((top_p > 0)[:, None], by_p, by_k)
     raw = prng.categorical(prng.fold_in(keys, pred_pos), lg)
+    if partner is not None:
+        # the uncond slot takes its cond partner's drawn token
+        raw = torch.where((cfg_scale > 0) & uncond, raw[partner.long()], raw)
     return torch.where(pred_pos >= cfg.text_seq_len,
                        raw - cfg.num_text_tokens, raw)
 

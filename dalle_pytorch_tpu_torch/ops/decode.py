@@ -28,6 +28,15 @@ Port of ``dalle_pytorch_tpu/ops/decode.py``:
   and the K-step loop that fills a device-side ``(slots, K)`` emit ring;
 * ``paged_view`` (``:720``) and ``_gather_read`` (``:216``), the dense-view
   oracle the kernel is held against (tests and ``chip_smoke.py``);
+* ``decode_loop`` (``:325``) — the K-step loop over the dense slot cache,
+  the engine's ``kv='dense'`` read;
+* speculative decode (``:876-1342``): the W-wide chunk math
+  ``_decode_chunk_math`` with its reads ``_gather_read_wide`` and
+  ``_kernel_read_wide`` (one K4 prefix walk per offset, at the chunk-start
+  pos with that offset's row mask), the writers ``_store_rows_wide`` and
+  ``_store_rows_paged_wide``, ``speculative_draft``,
+  ``speculative_verify``, ``_draft_cache_view`` and the loops
+  ``decode_loop_spec`` and ``decode_loop_spec_paged``;
 * block-sparse layers: ``_sparse_layout`` (``:154``) in ``prefill`` and in
   the step's per-slot ``sparse_allowed`` (``:434-472``), so a sparse
   model computes the model it was trained as; and the sparse reads,
@@ -38,8 +47,8 @@ Port of ``dalle_pytorch_tpu/ops/decode.py``:
   oracle — while dense layers read as before. Skipped pages carry
   exactly zero weight, so the tokens do not change.
 
-Every layer loop (``prefill`` and ``_run_layers``, which the dense,
-paged and sparse-reads steps share) runs ``_block``: a reversible stack
+Every layer loop (``prefill`` and ``_layer_loop``, which the dense,
+paged, sparse-reads and speculative steps share) runs ``_block``: a reversible stack
 in its two-stream form (the cached K/V from x2, the output the streams'
 mean), and each FF through ``ff_or_moe``, so a reversible or MoE model
 decodes the network it was trained as (JAX ``:300-318``, ``:492-510``,
@@ -343,11 +352,13 @@ def _step_masks(cfg: T.TransformerConfig, pos: torch.Tensor,
     return dense, dense & layout[pos.long()]
 
 
-def _run_layers(model: T.Transformer, x_tok: torch.Tensor,
+def _layer_loop(model: T.Transformer, x: torch.Tensor,
                 cfg: T.TransformerConfig, read: Callable):
-    """The decode step's layer loop; ``read(i, q, k, v)`` gives layer i's
-    (b, h, 1, dh) attention output over the cached rows plus self."""
-    h = _stack_in(x_tok[:, None, :], cfg)
+    """The decode layer loop over W fresh rows a slot, x (b, W, dim);
+    ``read(i, q, k, v)`` gives layer i's (b, h, W, dh) attention output
+    over the cached rows plus the fresh ones. Returns (h_out (b, W,
+    dim), ks, vs (depth, b, heads, W, dh))."""
+    h = _stack_in(x, cfg)
     ks, vs = [], []
     for i, layer in enumerate(model.layers):
 
@@ -359,7 +370,14 @@ def _run_layers(model: T.Transformer, x_tok: torch.Tensor,
         h, k, v = _block(layer, h, cfg, attend)
         ks.append(k)
         vs.append(v)
-    return _stack_out(h, cfg)[:, 0, :], torch.stack(ks), torch.stack(vs)
+    return _stack_out(h, cfg), torch.stack(ks), torch.stack(vs)
+
+
+def _run_layers(model: T.Transformer, x_tok: torch.Tensor,
+                cfg: T.TransformerConfig, read: Callable):
+    """The one-token step's layer loop: x_tok (b, dim), h_out (b, dim)."""
+    h, ks, vs = _layer_loop(model, x_tok[:, None, :], cfg, read)
+    return h[:, 0, :], ks, vs
 
 
 def _decode_step_math(model: T.Transformer, x_tok: torch.Tensor,
@@ -565,6 +583,7 @@ def decode_loop_paged(model: T.Transformer, cur_tok: torch.Tensor,
                                          torch.Tensor],
                       sample_fn: Callable[[torch.Tensor, torch.Tensor],
                                           torch.Tensor],
+                      attn_impl: str = "kernel",
                       sparse_reads: bool = False):
     """``steps`` decode steps for every slot, with no host sync: each
     step's emitted token goes into a device-side (b, steps) ring that
@@ -572,8 +591,10 @@ def decode_loop_paged(model: T.Transformer, cur_tok: torch.Tensor,
     position reaches the sequence end deactivates itself and parks at
     (tok 0, pos 0), writing the trash page, until the host notices.
     ``embed_fn(cur_tok, pos) -> (b, dim)`` and ``sample_fn(h, pred_pos)
-    -> (b,)`` are the model-level halves. ``sparse_reads`` makes the
-    sparse layers read only their visible pages (K4's visible walk).
+    -> (b,)`` are the model-level halves. ``attn_impl`` is the read:
+    K4 in place (``'kernel'``) or the ``paged_view`` gather.
+    ``sparse_reads`` makes the sparse layers read only their visible
+    pages (K4's visible walk).
 
     Returns (cur_tok, pos, active, ring); ring holds -1 where a slot was
     inactive. The pool is updated in place."""
@@ -587,10 +608,384 @@ def decode_loop_paged(model: T.Transformer, cur_tok: torch.Tensor,
         x = embed_fn(cur_tok, pos)
         h = _decode_step_paged(model, x, pos, pool, block_tables, cfg=cfg,
                                key_mask=key_mask, active=active,
+                               attn_impl=attn_impl,
                                sparse_reads=sparse_reads)
         nxt = sample_fn(h, pos + 1)
         pos = pos + 1
         active = active & (pos < total_len)
         cur_tok = torch.where(active, nxt, 0).to(cur_tok.dtype)
         pos = torch.where(active, pos, 0)
+    return cur_tok, pos, active, ring
+
+
+def decode_loop(model: T.Transformer, cur_tok: torch.Tensor,
+                pos: torch.Tensor, active: torch.Tensor, cache: Pool, *,
+                cfg: T.TransformerConfig, key_mask: torch.Tensor, steps: int,
+                embed_fn: Callable, sample_fn: Callable):
+    """``decode_loop_paged`` over the dense slot cache (depth, slots,
+    heads, total_len, dh), read by the gather (``_gather_read``): the
+    engine's ``kv='dense'`` loop (JAX ``:325``). A dead slot parks at
+    (tok 0, pos 0) and rewrites row 0 of its own slot, which admission's
+    prefill overwrites before any read. Returns (cur_tok, pos, active,
+    ring); the cache is updated in place."""
+    total_len = cache["k"].shape[3]
+    ring = torch.empty((cur_tok.shape[0], steps), dtype=torch.int32,
+                       device=cur_tok.device)
+    for t in range(steps):
+        ring[:, t] = torch.where(active, cur_tok, -1)
+        x = embed_fn(cur_tok, pos)
+        h, ks, vs = _decode_step_math(model, x, pos, cache, cfg=cfg,
+                                      key_mask=key_mask, attn_impl="gather")
+        _store_rows(cache, ks, vs, pos)
+        nxt = sample_fn(h, pos + 1)
+        pos = pos + 1
+        active = active & (pos < total_len)
+        cur_tok = torch.where(active, nxt, 0).to(cur_tok.dtype)
+        pos = torch.where(active, pos, 0)
+    return cur_tok, pos, active, ring
+
+
+# ---------------------------------------------------------------------------
+# speculative decode: draft and verify inside the fused serving loop
+# ---------------------------------------------------------------------------
+#
+# Each round drafts k-1 tokens with the first d layers of the stack and the
+# same logit head and sampler (an early exit, JAX ``:876-906``), then runs
+# the full stack over all k tokens in one k-wide pass. Sampling is a
+# function of (logits, fold_in(key, position)) only, so the verify's
+# sample at offset i IS the token the eager loop emits there: the longest
+# matching prefix is accepted, and the sample at the first mismatch is the
+# (always right) continuation. Rows written past the accepted prefix are
+# stale and never read (reads stop at the chunk-start pos, and the next
+# round rewrites them first), so a rejection neither rewinds pos nor
+# unmaps a page. The wide chunk math is the one-token math with W query
+# rows a slot: query i attends the cached rows below the chunk start and
+# the chunk's own fresh rows 0..i.
+
+
+def _chunk_masks(cfg: T.TransformerConfig, pos: torch.Tensor,
+                 key_mask: torch.Tensor, W: int):
+    """(dense_cached, dense_intra, sparse_cached, sparse_intra): (b, W, L)
+    cached-row masks (rows strictly below the chunk start, not padding)
+    and (b, W, W) intra-chunk masks (key kk visible to query i iff
+    kk <= i); a sparse layer's also take the layout row of each query's
+    own position, intra keys included, self always attended (JAX
+    ``:1013-1036``)."""
+    b, L = key_mask.shape
+    dev = pos.device
+    offs = torch.arange(W, device=dev)
+    causal = torch.arange(L, device=dev)[None, :] < pos[:, None]
+    dense_cached = (causal & key_mask)[:, None, :].expand(b, W, L)
+    dense_intra = (offs[:, None] >= offs[None, :])[None].expand(b, W, W)
+    if not any(cfg.sparse_pattern):
+        return dense_cached, dense_intra, dense_cached, dense_intra
+    layout = _sparse_layout(cfg, L, dev)
+    qrows = (pos.long()[:, None] + offs[None, :]).clamp(max=L - 1)  # (b, W)
+    lrows = layout[qrows]                                           # (b, W, L)
+    intra_lay = torch.gather(lrows, 2, qrows[:, None, :].expand(b, W, W))
+    eye = torch.eye(W, dtype=torch.bool, device=dev)[None]
+    return (dense_cached, dense_intra, dense_cached & lrows,
+            dense_intra & (intra_lay | eye))
+
+
+def _gather_read_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      ck: torch.Tensor, cv: torch.Tensor,
+                      allowed_cached: torch.Tensor,
+                      allowed_intra: torch.Tensor, *, scale: float,
+                      ksc: Optional[torch.Tensor] = None,
+                      vsc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W-wide ``_gather_read`` (JAX ``:908``): q/k/v (b, h, W, dh) fresh
+    rows, ck/cv (b, h, L, dh) cached rows, allowed_cached (b, W, L) and
+    allowed_intra (b, W, W). One softmax over [cached, intra] logits a
+    query; int8 scales applied outside the contractions in the score
+    dtype. Returns (b, h, W, dh)."""
+    quantized = ksc is not None
+    ckc = ck.to(q.dtype) if quantized else ck
+    scores = torch.einsum("bhqd,bhjd->bhqj", q, ckc) * scale
+    if quantized:
+        scores = scores * ksc[:, :, None, :].to(scores.dtype)
+    scores = scores.masked_fill(~allowed_cached[:, None],
+                                core.neg_inf(scores.dtype))
+    intra = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    intra = intra.masked_fill(~allowed_intra[:, None],
+                              core.neg_inf(intra.dtype))
+    w = torch.softmax(torch.cat([scores, intra], dim=-1), dim=-1)
+    L = ck.shape[2]
+    wj, wi = w[..., :L], w[..., L:]
+    if quantized:
+        wj = wj * vsc[:, :, None, :].to(wj.dtype)
+        cv = cv.to(q.dtype)
+    return (torch.einsum("bhqj,bhjd->bhqd", wj, cv)
+            + torch.einsum("bhqk,bhkd->bhqd", wi, v))
+
+
+def _kernel_read_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pool_k: torch.Tensor, pool_v: torch.Tensor,
+                      block_tables: torch.Tensor, pos: torch.Tensor,
+                      allowed_cached: torch.Tensor,
+                      allowed_intra: torch.Tensor, *, scale: float,
+                      ksc: Optional[torch.Tensor] = None,
+                      vsc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """W-wide ``_kernel_read`` (JAX ``:942``): one K4 prefix walk per
+    offset i, each up to the CHUNK-START ``pos`` with that offset's row
+    mask ``allowed_cached[:, i]``, then the two-estimate merge folds in
+    the offset's intra-chunk logits (keys 0..i, self included) in plain
+    float32. W = 1 is exactly the one-token merge."""
+    W = q.shape[2]
+    outs = []
+    for i in range(W):
+        acc, m, l = PA.paged_decode_attention(
+            q[:, :, i, :].contiguous(), pool_k, pool_v, block_tables, pos,
+            allowed_cached[:, i, :], scale=scale, k_scales=ksc,
+            v_scales=vsc)
+        s = torch.einsum("bhd,bhkd->bhk", q[:, :, i, :],
+                         k[:, :, :i + 1, :]).float() * scale
+        s = s.masked_fill(~allowed_intra[:, None, i, :i + 1], PA.FILL)
+        m2 = s.amax(dim=-1)                   # self is finite: m2 too
+        m_t = torch.maximum(m, m2)
+        alpha = torch.exp(m - m_t)
+        wk = torch.exp(s - m_t[..., None])
+        denom = l * alpha + wk.sum(dim=-1)
+        out = (acc * alpha[..., None]
+               + torch.einsum("bhk,bhkd->bhd", wk,
+                              v[:, :, :i + 1, :].float())) / denom[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.stack(outs, dim=2)
+
+
+def _decode_chunk_math(model: T.Transformer, x_toks: torch.Tensor,
+                       pos: torch.Tensor, cache: Pool, *,
+                       cfg: T.TransformerConfig, key_mask: torch.Tensor,
+                       attn_impl: str = "gather",
+                       block_tables: Optional[torch.Tensor] = None):
+    """W-wide ``_decode_step_math`` (JAX ``:979``), the core of the
+    speculative draft and verify: x_toks (b, W, dim) embeds the tokens
+    at pos..pos+W-1 (pos (b,) the chunk start); the cache holds valid
+    rows strictly below pos only. Runs ``_block`` over every layer, so a
+    reversible or MoE model speculates as it decodes. ``'kernel'`` reads
+    ``cache`` as the raw page pool through ``block_tables`` (one K4 walk
+    per offset); ``'gather'`` as a dense view. Returns (h_out (b, W,
+    dim), ks, vs (depth, b, heads, W, dh)); the caller writes them."""
+    if attn_impl not in ("gather", "kernel"):
+        raise ValueError(f"attn_impl must be 'gather' or 'kernel', got "
+                         f"{attn_impl!r}")
+    if attn_impl == "kernel" and block_tables is None:
+        raise ValueError("attn_impl='kernel' requires block_tables")
+    if pos.dim() != 1:
+        raise ValueError("the wide chunk math requires per-slot (b,) "
+                         "positions (the serving decode shape)")
+    dense_c, dense_i, sparse_c, sparse_i = _chunk_masks(
+        cfg, pos, key_mask, x_toks.shape[1])
+    quantized = "k_scale" in cache
+
+    def read(i, q, k, v):
+        a_c, a_i = (sparse_c, sparse_i) if cfg.sparse_pattern[i] \
+            else (dense_c, dense_i)
+        ksc = cache["k_scale"][i] if quantized else None
+        vsc = cache["v_scale"][i] if quantized else None
+        if attn_impl == "kernel":
+            return _kernel_read_wide(q, k, v, cache["k"][i], cache["v"][i],
+                                     block_tables, pos, a_c, a_i,
+                                     scale=cfg.scale, ksc=ksc, vsc=vsc)
+        return _gather_read_wide(q, k, v, cache["k"][i], cache["v"][i],
+                                 a_c, a_i, scale=cfg.scale, ksc=ksc, vsc=vsc)
+
+    return _layer_loop(model, x_toks, cfg, read)
+
+
+def _slot_rows_first(t: torch.Tensor) -> torch.Tensor:
+    """(depth, b, heads, W[, dh]) -> (b, W, depth, heads[, dh]): the value
+    layout of a scatter whose advanced indices sit at dims 1 and 3."""
+    return t.permute(1, 3, 0, 2, *range(4, t.dim()))
+
+
+def _store_rows_wide(cache: Pool, ks: torch.Tensor, vs: torch.Tensor,
+                     pos: torch.Tensor) -> None:
+    """W-wide ``_store_rows`` per slot (JAX ``:1088``): slot b's row i
+    lands at cache row pos[b]+i, in place. JAX drops rows past the cache
+    end; here they are clamped onto the last row, whose K/V no position
+    ever reads (only queries after it would), so that write is dead as
+    well, with no host sync for a boolean index."""
+    L = cache["k"].shape[3]
+    b, W = pos.shape[0], ks.shape[3]
+    bidx = torch.arange(b, device=pos.device)[:, None]
+    rows = (pos.long()[:, None]
+            + torch.arange(W, device=pos.device)[None, :]).clamp(max=L - 1)
+    vals = _rows(ks, vs, "k_scale" in cache)
+    for name, buf in cache.items():
+        # advanced indices at dims 1 and 3 are apart: the value is
+        # (b, W, depth, heads[, dh])
+        buf[:, bidx, :, rows] = _slot_rows_first(vals[name]).to(buf.dtype)
+
+
+def _store_rows_paged_wide(pool: Pool, ks: torch.Tensor, vs: torch.Tensor,
+                           pos: torch.Tensor, block_tables: torch.Tensor,
+                           active: torch.Tensor, total_len: int) -> None:
+    """W-wide ``_store_rows_paged`` (JAX ``:1124``): slot b's row i lands
+    in physical page ``block_tables[b, (pos[b]+i) // ps]`` at offset
+    ``(pos[b]+i) % ps``, in place. Rows past ``total_len`` and every row
+    of an inactive slot go to the trash page 0. The engine maps the full
+    speculative horizon before dispatch, so every other row finds its
+    page mapped."""
+    ps = pool["k"].shape[3]
+    b, W = pos.shape[0], ks.shape[3]
+    dev = pos.device
+    bidx = torch.arange(b, device=dev)[:, None]
+    rows = pos.long()[:, None] + torch.arange(W, device=dev)[None, :]
+    valid = active[:, None] & (rows < total_len)
+    safe = rows.clamp(max=total_len - 1)
+    page = torch.where(valid, block_tables.long()[bidx, safe // ps], 0)
+    off = torch.where(valid, safe % ps, 0)
+    vals = _rows(ks, vs, "k_scale" in pool)
+    for name, buf in pool.items():
+        buf[:, page, :, off] = _slot_rows_first(vals[name]).to(buf.dtype)
+
+
+def speculative_draft(draft_model: T.Transformer, cur_tok: torch.Tensor,
+                      pos: torch.Tensor, read_cache: Pool, *,
+                      cfg: T.TransformerConfig, key_mask: torch.Tensor,
+                      k: int, embed_fn: Callable, sample_fn: Callable,
+                      attn_impl: str = "gather",
+                      block_tables: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """k-1 draft tokens from the early exit (JAX ``:1166``):
+    ``draft_model`` holds the stack's first d layers
+    (``models.dalle.draft_transformer_params``), ``cfg`` its depth-d
+    config, through the same logit head and per-slot sampler. No cache
+    write: draft step t reruns the t-wide chunk math over the tokens so
+    far. Returns (b, k-1) (empty when k == 1)."""
+    toks = [cur_tok]
+    for t in range(1, k):
+        xs = torch.stack([embed_fn(tok, pos + i)
+                          for i, tok in enumerate(toks)], dim=1)
+        h, _, _ = _decode_chunk_math(draft_model, xs, pos, read_cache,
+                                     cfg=cfg, key_mask=key_mask,
+                                     attn_impl=attn_impl,
+                                     block_tables=block_tables)
+        toks.append(sample_fn(h[:, -1, :], pos + t).to(cur_tok.dtype))
+    if k == 1:
+        return cur_tok.new_zeros((cur_tok.shape[0], 0))
+    return torch.stack(toks[1:], dim=1)
+
+
+def speculative_verify(model: T.Transformer, cur_tok: torch.Tensor,
+                       drafts: torch.Tensor, pos: torch.Tensor,
+                       act: torch.Tensor, read_cache: Pool, *,
+                       cfg: T.TransformerConfig, key_mask: torch.Tensor,
+                       total_len: int, embed_fn: Callable,
+                       sample_fn: Callable, attn_impl: str = "gather",
+                       block_tables: Optional[torch.Tensor] = None):
+    """One full-stack pass over [cur_tok, drafts] (k wide) that accepts
+    the longest matching prefix (JAX ``:1196``): the sample at offset i,
+    ``sample_fn(h_i, pos+i+1)``, is the eager loop's token there, so
+    acceptance is equality and the first rejected offset's sample is
+    the continuation. The accepted end is clamped so no emitted position
+    reaches ``total_len``.
+
+    Returns (emit (b, k), cur_new, pos_new, act_new, ks, vs): emit[i] is
+    the token at pos+i or the -1 sentinel; ks/vs are all k fresh rows
+    (depth, b, heads, k, dh) for the caller's write."""
+    k = drafts.shape[1] + 1
+    toks = [cur_tok] + [drafts[:, t] for t in range(k - 1)]
+    xv = torch.stack([embed_fn(tok, pos + i)
+                      for i, tok in enumerate(toks)], dim=1)
+    h, ks, vs = _decode_chunk_math(model, xv, pos, read_cache, cfg=cfg,
+                                   key_mask=key_mask, attn_impl=attn_impl,
+                                   block_tables=block_tables)
+    s = torch.stack([sample_fn(h[:, i, :], pos + i + 1).to(cur_tok.dtype)
+                     for i in range(k)], dim=1)                 # (b, k)
+    if k > 1:
+        match = (s[:, :k - 1] == drafts).to(torch.int32)
+        jm = torch.cumprod(match, dim=1).sum(dim=1)             # [0, k-1]
+    else:
+        jm = torch.zeros_like(pos)
+    # accepted END offset: pos..pos+e emit (e+1 tokens), clamped so the
+    # last emitted position stays below total_len
+    e = torch.minimum(jm.to(pos.dtype), total_len - 1 - pos)
+    offs = torch.arange(k, device=pos.device)
+    emit_vals = torch.cat([cur_tok[:, None], s[:, :k - 1]], dim=1)
+    emit = torch.where(act[:, None] & (offs[None, :] <= e[:, None]),
+                       emit_vals, -1).to(torch.int32)
+    cur_new = torch.gather(s, 1, e.long()[:, None])[:, 0]
+    pos_new = pos + e + 1
+    act_new = act & (pos_new < total_len)
+    # dead slots park at (tok 0, pos 0), as in the eager loop
+    cur_new = torch.where(act_new, cur_new, 0).to(cur_tok.dtype)
+    pos_new = torch.where(act_new, pos_new, 0)
+    return emit, cur_new, pos_new, act_new, ks, vs
+
+
+def _draft_cache_view(read_cache: Pool, depth: int) -> Pool:
+    """The draft's read view: the first ``depth`` layers of the cache,
+    the view or the pool (int8 scales included)."""
+    return {key: buf[:depth] for key, buf in read_cache.items()}
+
+
+def decode_loop_spec(model: T.Transformer, draft_model: T.Transformer,
+                     cur_tok: torch.Tensor, pos: torch.Tensor,
+                     active: torch.Tensor, cache: Pool, *,
+                     cfg: T.TransformerConfig,
+                     draft_cfg: T.TransformerConfig,
+                     key_mask: torch.Tensor, steps: int, k: int,
+                     embed_fn: Callable, sample_fn: Callable):
+    """``decode_loop`` with draft-and-verify (JAX ``:1260``): ``steps``
+    rounds, each emitting 1 to k tokens, all the eager loop's. The ring
+    is (b, steps*k) with the -1 sentinel at rejected offsets and
+    finished slots. Returns (cur_tok, pos, active, ring); the dense cache
+    is updated in place."""
+    total_len = cache["k"].shape[3]
+    ring = torch.empty((cur_tok.shape[0], steps * k), dtype=torch.int32,
+                       device=cur_tok.device)
+    for t in range(steps):
+        drafts = speculative_draft(
+            draft_model, cur_tok, pos,
+            _draft_cache_view(cache, draft_cfg.depth), cfg=draft_cfg,
+            key_mask=key_mask, k=k, embed_fn=embed_fn, sample_fn=sample_fn)
+        emit, cur_tok, pos_new, active, ks, vs = speculative_verify(
+            model, cur_tok, drafts, pos, active, cache, cfg=cfg,
+            key_mask=key_mask, total_len=total_len, embed_fn=embed_fn,
+            sample_fn=sample_fn)
+        _store_rows_wide(cache, ks, vs, pos)
+        ring[:, t * k:(t + 1) * k] = emit
+        pos = pos_new
+    return cur_tok, pos, active, ring
+
+
+def decode_loop_spec_paged(model: T.Transformer, draft_model: T.Transformer,
+                           cur_tok: torch.Tensor, pos: torch.Tensor,
+                           active: torch.Tensor, pool: Pool,
+                           block_tables: torch.Tensor, *,
+                           cfg: T.TransformerConfig,
+                           draft_cfg: T.TransformerConfig,
+                           key_mask: torch.Tensor, steps: int, k: int,
+                           embed_fn: Callable, sample_fn: Callable,
+                           attn_impl: str = "kernel"):
+    """``decode_loop_paged`` with draft-and-verify (JAX ``:1297``): the
+    draft and the k-wide verify read the pool through the block tables —
+    one K4 prefix walk per offset a layer under ``'kernel'``, the
+    ``paged_view`` gather otherwise — and all k fresh rows scatter back
+    through ``_store_rows_paged_wide``. The host maps the whole
+    ``steps * k`` horizon before dispatch; a rejection unmaps nothing.
+    Returns (cur_tok, pos, active, ring); the pool is updated in
+    place."""
+    total_len = key_mask.shape[1]
+    kernel = attn_impl == "kernel"
+    bt = block_tables if kernel else None
+    ring = torch.empty((cur_tok.shape[0], steps * k), dtype=torch.int32,
+                       device=cur_tok.device)
+    for t in range(steps):
+        read = pool if kernel else paged_view(pool, block_tables, total_len)
+        drafts = speculative_draft(
+            draft_model, cur_tok, pos,
+            _draft_cache_view(read, draft_cfg.depth), cfg=draft_cfg,
+            key_mask=key_mask, k=k, embed_fn=embed_fn, sample_fn=sample_fn,
+            attn_impl=attn_impl, block_tables=bt)
+        emit, cur_tok, pos_new, active, ks, vs = speculative_verify(
+            model, cur_tok, drafts, pos, active, read, cfg=cfg,
+            key_mask=key_mask, total_len=total_len, embed_fn=embed_fn,
+            sample_fn=sample_fn, attn_impl=attn_impl, block_tables=bt)
+        _store_rows_paged_wide(pool, ks, vs, pos, block_tables, active,
+                               total_len)
+        ring[:, t * k:(t + 1) * k] = emit
+        pos = pos_new
     return cur_tok, pos, active, ring

@@ -1,1 +1,2 @@
-"""The serving tier of the port: page pool, queue, engine, postprocess."""
+"""The serving tier of the port: page pool, prefix cache, queue, engine,
+postprocess."""

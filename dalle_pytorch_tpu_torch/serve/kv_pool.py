@@ -3,8 +3,9 @@
 Port of ``dalle_pytorch_tpu/serve/kv_pool.py``: ``pages_for``
 (``:141``), ``init_page_pool`` (``:146``), the kernel's page-size gate
 ``validate_page_size`` with ``PageSizeError`` (``:74-106``),
-``visible_table_view`` (``:165``) and the refcounted ``PageAllocator``
-(``:232``).
+``visible_table_view`` (``:165``), the page copy pair of the prefix
+cache's copy-on-write fork ``snapshot_page`` / ``restore_page``
+(``:180-198``) and the refcounted ``PageAllocator`` (``:232``).
 
 The device side is a pool ``(depth, num_pages, heads, page_size,
 dim_head)`` per K and V (int8 plus per-row float32 scale pages when
@@ -113,6 +114,23 @@ def visible_table_view(block_tables: torch.Tensor,
     the padding entries map (logical page 0): consumers mask those
     columns — the view narrows the read, the mask decides attendance."""
     return torch.take_along_dim(block_tables, visible.long(), dim=1)
+
+
+def snapshot_page(pool: Dict[str, torch.Tensor],
+                  page: int) -> Dict[str, torch.Tensor]:
+    """A copy of ONE physical page across every layer (and the int8
+    pool's scale pages): ``{k: (depth, heads, page_size[, dh])}`` — the
+    prefix cache's copy-on-write source, taken before the inserting
+    request's decode can write past its prompt into the same page."""
+    return {k: buf[:, page].clone() for k, buf in pool.items()}
+
+
+def restore_page(pool: Dict[str, torch.Tensor], page: int,
+                 snap: Dict[str, torch.Tensor]) -> None:
+    """Write a ``snapshot_page`` copy into physical page ``page``, in
+    place — the copy-on-write FORK of a warm hit's boundary page."""
+    for k, buf in pool.items():
+        buf[:, page] = snap[k]
 
 
 class PageAllocator:

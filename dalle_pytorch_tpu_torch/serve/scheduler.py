@@ -1,11 +1,13 @@
 """Requests, results and the priority queue the engine pulls from.
 
 Port of ``dalle_pytorch_tpu/serve/scheduler.py`` (``:41-80,113-520``),
-with only the fields this slice reads: ``SamplingParams``, ``Request``,
-``Result``, ``RequestHandle`` (a first-write-wins future),
-``RequestQueue`` (bounded, (priority, arrival) order, deadline reaping)
-and the prompt-length buckets. Wire formats, tenants, guidance, streams
-and sample groups come with later slices.
+with only the fields the engine reads: ``SamplingParams``, ``Request``
+(with ``cfg_scale``, per-request classifier-free guidance), ``Result``
+(with the postprocess stage's ``clip_score``), ``RequestHandle`` (a
+first-write-wins future), ``RequestQueue`` (bounded, (priority, arrival)
+order, deadline reaping, ``requeue`` at the original position) and the
+prompt-length buckets. Wire formats, tenants, streams, sample groups and
+short grids come with the HTTP server's slice.
 """
 
 from __future__ import annotations
@@ -91,14 +93,24 @@ class SamplingParams:
 
 @dataclasses.dataclass(frozen=True)
 class Request:
-    """One generation request: ``codes`` is the unpadded prompt."""
+    """One generation request: ``codes`` is the unpadded prompt.
+    ``cfg_scale > 0`` asks for classifier-free guidance: the engine
+    admits a cond/uncond slot pair and image tokens sample from
+    ``l_u + cfg_scale * (l_c - l_u)``, ``generate_images``' ``guidance``
+    (0, the default, is off)."""
     codes: Tuple[int, ...]
     seed: int = 0
     sampling: SamplingParams = SamplingParams()
     priority: int = 0                    # lower runs first
     deadline_s: Optional[float] = None   # relative to submit time
+    cfg_scale: float = 0.0               # classifier-free guidance
     request_id: int = -1                 # assigned by the queue
     submit_t: float = 0.0                # perf_counter, set by the queue
+
+    def __post_init__(self):
+        if self.cfg_scale < 0:
+            raise ValueError(f"cfg_scale must be >= 0, got "
+                             f"{self.cfg_scale}")
 
     @property
     def deadline_t(self) -> Optional[float]:
@@ -111,12 +123,14 @@ class Request:
 class Result:
     """Terminal state of a request: ``tokens`` are the image ids (no
     text offset), ``text_tokens`` the completed text span, ``image`` the
-    decoded (H, W, C) image when postprocessing ran."""
+    decoded (H, W, C) image and ``clip_score`` its CLIP score against
+    ``text_tokens`` when postprocessing ran them."""
     status: str
     request_id: int
     tokens: object = None
     text_tokens: object = None
     image: object = None
+    clip_score: Optional[float] = None
     reason: str = ""
     queued_s: float = 0.0
     decode_s: float = 0.0
@@ -201,13 +215,17 @@ class RequestQueue:
                                         handle))
             return handle
 
-    def requeue(self, handle: RequestHandle) -> None:
+    def requeue(self, handle: RequestHandle, count: bool = True) -> None:
         """Put an admitted request back at its ORIGINAL arrival position
-        (page backpressure); not subject to ``max_depth``."""
+        (``(priority, queue_seq)``): page backpressure and eviction. Not
+        subject to ``max_depth``; a handle already in line is not added
+        twice. ``count=False`` leaves it out of ``requeued`` (a plain
+        hand-off, not backpressure)."""
         with self._lock:
             if any(entry[2] is handle for entry in self._heap):
                 return
-            self.requeued += 1
+            if count:
+                self.requeued += 1
             heapq.heappush(self._heap, (handle.request.priority,
                                         handle.queue_seq, handle))
 

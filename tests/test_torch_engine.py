@@ -83,7 +83,8 @@ def run(bundle, reqs, **kw):
     _, _, model, vae = bundle
     queue = S.RequestQueue(max_depth=16, max_prompt_len=TCFG.text_seq_len)
     post = PostProcessor(vae, model)
-    engine = Engine(model, queue, complete=post, device="cpu", **kw)
+    engine = Engine(model, queue, complete=post, device="cpu", kv="paged",
+                    paged_attn="kernel", **kw)
     handles = [queue.submit(r) for r in reqs]
     engine.run_until_idle()
     return engine, [h.result(timeout=5) for h in handles]
@@ -136,12 +137,19 @@ def test_engine_without_device_raises_when_cuda_is_absent(bundle):
 
 
 def test_undersized_pool_is_a_typed_error_naming_eviction(bundle):
+    """Below one full sequence (3 pages of 8) plus the trash page the pool
+    is refused; at that floor it serves by eviction. The kernel's page
+    size check applies under paged_attn='kernel' only."""
     _, _, model, _ = bundle
+    kw = dict(kv="paged", paged_attn="kernel", device="cpu")
     with pytest.raises(PoolTooSmall, match="eviction"):
         Engine(model, S.RequestQueue(), num_slots=2, page_size=8,
-               num_pages=4, device="cpu")
+               num_pages=3, **kw)
+    Engine(model, S.RequestQueue(), num_slots=2, page_size=8, num_pages=4,
+           **kw)
     with pytest.raises(ValueError, match="page_size"):
-        Engine(model, S.RequestQueue(), page_size=4, device="cpu")
+        Engine(model, S.RequestQueue(), page_size=4, **kw)
+    Engine(model, S.RequestQueue(), page_size=4, kv="paged", device="cpu")
 
 
 def test_invalid_and_expired_requests_get_typed_results(bundle):
@@ -149,7 +157,7 @@ def test_invalid_and_expired_requests_get_typed_results(bundle):
     now = [0.0]
     queue = S.RequestQueue(clock=lambda: now[0])
     engine = Engine(model, queue, num_slots=1, page_size=8, device="cpu",
-                    clock=lambda: now[0])
+                    kv="paged", paged_attn="kernel", clock=lambda: now[0])
     late = queue.submit(S.Request(codes=(1,), deadline_s=0.5))
     long_prompt = queue.submit(S.Request(codes=tuple(range(1, 10))))
     now[0] = 1.0

@@ -369,6 +369,105 @@ def test_decode_step_kernel_matches_gather_oracle(cuda):
     torch.testing.assert_close(hk, hg, rtol=1e-4, atol=1e-4)
 
 
+def spec_inputs(cuda, dtype, seed=3):
+    """The speculative verify's K4 inputs at the serving shape (8 slots,
+    8 heads, dh 64, page 16, L 1280): chunk starts from 0 to the last
+    row, and the W = 4 per-offset row masks ``_chunk_masks`` gives a
+    block-sparse layer (each offset its own layout row)."""
+    rs = np.random.RandomState(seed)
+    slots, heads, dh, ps, L, W = 8, 8, 64, 16, 1280, 4
+    mp = L // ps
+    P = slots * mp + 1
+    bt = torch.tensor(rs.permutation(P - 1) + 1).reshape(slots, mp) \
+        .to(torch.int32)
+    pos = torch.tensor([0, 1, 15, 16, 17, 640, 1276, 1279],
+                       dtype=torch.int32)
+    vcfg = TV.VAEConfig(image_size=256, num_tokens=2048, codebook_dim=512,
+                        num_layers=3, hidden_dim=64)
+    cfg = TD.DALLEConfig(dim=512, depth=2, vae=vcfg, num_text_tokens=10000,
+                         sparse_attn=(True, False), heads=heads,
+                         dim_head=dh).transformer
+    key_mask = torch.ones((slots, L), dtype=torch.bool)
+    key_mask[3, :5] = False                    # a padded prompt
+    dense_c, _, sparse_c, _ = TDEC._chunk_masks(cfg, pos, key_mask, W)
+    shape = (P, heads, ps, dh)
+    kw = {}
+    if dtype == "int8":
+        kp = torch.tensor(rs.randint(-127, 128, shape), dtype=torch.int8)
+        vp = torch.tensor(rs.randint(-127, 128, shape), dtype=torch.int8)
+        kw = {"k_scales": torch.tensor(rs.uniform(0.01, 0.1, shape[:-1]),
+                                       dtype=torch.float32).to(cuda),
+              "v_scales": torch.tensor(rs.uniform(0.01, 0.1, shape[:-1]),
+                                       dtype=torch.float32).to(cuda)}
+    else:
+        kp = torch.tensor(rs.randn(*shape)).to(torch.bfloat16)
+        vp = torch.tensor(rs.randn(*shape)).to(torch.bfloat16)
+    q = torch.tensor(rs.randn(slots, heads, W, dh)).to(torch.bfloat16)
+    return ([t.to(cuda) for t in (q, kp, vp, bt, pos)], kw,
+            dense_c.to(cuda), sparse_c.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_k4_at_each_speculative_offsets_row_mask(cuda, dtype):
+    """Every offset's walk of the verify (to the chunk-start pos, with
+    that offset's row mask, sparse rows not all True below pos) against
+    the plain version, with K4's tolerances."""
+    (q, kp, vp, bt, pos), kw, dense_c, sparse_c = spec_inputs(cuda, dtype)
+    rtol, atol = (1e-2, 1e-2) if dtype == "bfloat16" else (1e-5, 1e-4)
+    for masks in (dense_c, sparse_c):
+        for i in range(q.shape[2]):
+            args = (q[:, :, i].contiguous(), kp, vp, bt, pos, masks[:, i])
+            before = PA.paged_decode_attention.launches
+            got = PA.paged_decode_attention(*args, scale=SCALE, **kw)
+            assert PA.paged_decode_attention.launches == before + 1
+            want = PA.paged_decode_attention_plain(*args, scale=SCALE, **kw)
+            mag = PA.paged_decode_attention_plain(
+                args[0], kp, vp.abs(), bt, pos, masks[:, i], scale=SCALE,
+                **kw)[0]
+            torch.cuda.synchronize()
+            check_partials(got, want, mag, rtol, atol)
+            assert float(got[1][0].max()) == PA.FILL   # pos 0 walks none
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_kernel_read_wide_matches_plain_and_gather_on_card(cuda, dtype):
+    """The whole wide read through K4 (one walk per offset plus the
+    intra-chunk merge) against the same read on CPU tensors (K4's plain
+    version), to 1e-2; in bfloat16 also against the gather over
+    ``paged_view``, to 2e-2 (the int8 gather applies its scales in the
+    bfloat16 score dtype, the int8 pool's accuracy contract, so it is
+    held to the plain version only)."""
+    (q, kp, vp, bt, pos), kw, _, sparse_c = spec_inputs(cuda, dtype, seed=4)
+    W = q.shape[2]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    k = torch.randn(q.shape, generator=g, device=cuda).to(q.dtype)
+    v = torch.randn(q.shape, generator=g, device=cuda).to(q.dtype)
+    intra = torch.ones((q.shape[0], W, W), dtype=torch.bool,
+                       device=cuda).tril()
+    args = (q, k, v, kp, vp, bt, pos, sparse_c, intra)
+    with torch.no_grad():
+        got = TDEC._kernel_read_wide(*args, scale=SCALE,
+                                     ksc=kw.get("k_scales"),
+                                     vsc=kw.get("v_scales"))
+        plain = TDEC._kernel_read_wide(
+            *(t.cpu() for t in args), scale=SCALE,
+            **{n: t.cpu() for n, t in (("ksc", kw.get("k_scales")),
+                                       ("vsc", kw.get("v_scales")))
+               if t is not None})
+        torch.testing.assert_close(got.float().cpu(), plain.float(),
+                                   rtol=1e-2, atol=1e-2)
+        if dtype == "bfloat16":
+            view = TDEC.paged_view({"k": kp[None], "v": vp[None]}, bt,
+                                   sparse_c.shape[2])
+            want = TDEC._gather_read_wide(q, k, v, view["k"][0],
+                                          view["v"][0], sparse_c, intra,
+                                          scale=SCALE)
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+
 # -- flash attention: K1, K2a, K2b ------------------------------------------
 
 def flash_inputs(cuda, dtype, n, d, masked, seed=0, b=2, h=3):

@@ -353,7 +353,7 @@ def test_generate_and_engine_tokens_identical_to_jax(trees):
                                  return_img_seq=True)
     queue = S.RequestQueue(max_depth=4, max_prompt_len=tcfg.text_seq_len)
     engine = Engine(model, queue, num_slots=2, chunk_steps=4, page_size=8,
-                    device="cpu")
+                    device="cpu", kv="paged", paged_attn="kernel")
     handle = queue.submit(S.Request(codes=codes, seed=11))
     engine.run_until_idle()
     res = handle.result(timeout=5)

@@ -311,7 +311,7 @@ def jax_engine_tokens(params):
 def port_tokens(model, **kw):
     queue = S.RequestQueue(max_depth=8, max_prompt_len=TCFG.text_seq_len)
     engine = Engine(model, queue, num_slots=2, page_size=PS, device="cpu",
-                    **kw)
+                    kv="paged", paged_attn="kernel", **kw)
     handles = [queue.submit(S.Request(codes=c, seed=s,
                                       sampling=S.SamplingParams(**sp)))
                for c, s, sp in REQS]
@@ -345,14 +345,16 @@ def test_engine_rejects_sparse_reads_it_cannot_serve(bundle):
     dense = TD.dalle_init(dense_cfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match="no sparse layers"):
         Engine(dense, S.RequestQueue(), num_slots=1, page_size=PS,
-               device="cpu", sparse_reads=True)
+               device="cpu", kv="paged", paged_attn="kernel",
+               sparse_reads=True)
     _, cfg5 = cfgs(depth=5, sparse_attn=(True, False, False, False, True))
     model5 = TD.dalle_init(cfg5, seed=0, device="cpu")
     with pytest.raises(ValueError, match="periodic"):
         Engine(model5, S.RequestQueue(), num_slots=1, page_size=PS,
-               device="cpu", sparse_reads=True)
+               device="cpu", kv="paged", paged_attn="kernel",
+               sparse_reads=True)
     engine = Engine(model, S.RequestQueue(), num_slots=1, page_size=PS,
-                    device="cpu")
+                    device="cpu", kv="paged", paged_attn="kernel")
     stats = engine.stats()
     assert stats["sparse_reads"] is False
     assert stats["kv_read_bytes_per_token"] \

@@ -90,7 +90,7 @@ def port_run(model, vae=None, **kw):
     queue = S.RequestQueue(max_depth=8, max_prompt_len=WIDE["text_seq_len"])
     post = None if vae is None else PostProcessor(vae, model)
     engine = Engine(model, queue, num_slots=2, device="cpu", complete=post,
-                    **kw)
+                    kv="paged", paged_attn="kernel", **kw)
     handles = [queue.submit(r) for r in requests()]
     engine.run_until_idle()
     results = [h.result(timeout=5) for h in handles]
