@@ -31,9 +31,10 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    against the dense gather (``paged_view`` + ``_gather_read``): h_out
    to 1e-4, then 64 greedy steps with identical tokens;
 4. engine — the bfloat16 serving engine end to end at ``SERVE_DEPTH``
-   (2: the ``engine``, ``sparse_engine``, ``wide_engine`` and
-   ``rev_decode`` engines and ``import``'s model are cut from depth 12
-   to keep the smoke's time, their float32 step checks are not) on 6
+   (2: the ``engine``, ``sparse_engine``, ``wide_engine``,
+   ``rev_decode`` and ``serve_features``' bfloat16 engines and
+   ``import``'s model are cut from depth 12 to keep the smoke's time,
+   their float32 step checks are not) on 6
    requests
    (prompt lengths 1, 17 and 256; top-k, top-p 0.9 and one greedy):
    every result ok with 1024 image tokens in [0, 2048) and a finite
@@ -231,20 +232,22 @@ The single engine's serving features and reference weights:
 
 22. serve_features — 8 requests (prompts of 1, 17 and 256 tokens, two
    pairs sharing a prompt, two guided at cfg_scale 3.0, priorities 0 and
-   1, top-k, top-p 0.9 and greedy) at the north width in bfloat16 on 8
-   slots, K = 8, page 16, through three engines: A, the paged kernel
+   1, top-k, top-p 0.9 and greedy) at the north width in bfloat16
+   (depth ``SERVE_DEPTH``, cut from 12 for the ``http`` phase's
+   time) on 8 slots, K = 8, page 16, through three engines: A,
+   the paged kernel
    engine with the prefix cache on a pool cut to four sequences
    (``FEATURE_PAGES``), so eviction fires, and the postprocess worker
    scoring every image through a seeded ``CLIPConfig()`` CLIP (K3
-   non-causal); B, the same with ``speculative=4``, ``draft_layers=6``
-   (K4 once per draft and verify offset: rounds x (6 x 6 + 12 x 4)
+   non-causal); B, the same with ``speculative=4``, ``draft_layers=1``
+   (K4 once per draft and verify offset: rounds x (1 x 6 + 2 x 4)
    launches, and K4 held against its plain version at a verify offset's
    row mask on the run's live state); C, ``kv='dense'`` through the
    gather (no K4). The checks: evicted >= 1, prefix_hits >= 2,
    cfg_pairs == 2, no page leaks, the index's clear() returning every
    page, K4's launch counts, the worker's scores against ``clip_apply``,
    an injected failure as ``status='error'``; then A, B and C in float32
-   at depth 4 must give identical tokens (at bfloat16 depth 12 the share
+   at depth 4 must give identical tokens (in bfloat16 the share
    of identical tokens and the first divergences are printed). ms a step
    or round, image tokens/s, acceptance, the prefill ms warm admission
    saves, the pool's peak, the pages a guided pair holds over an
@@ -253,6 +256,22 @@ The single engine's serving features and reference weights:
    width through ``import_torch dalle``, ``gen_dalle`` (one image on the
    card) and ``import_torch export-dalle``: every tensor back bit for
    bit; the seconds of each.
+
+The HTTP server:
+
+24. http — the port's ``InferenceServer`` behind ``make_http_server`` at
+   the north width (bfloat16, depth 12; 8 slots, K = 8, page 16, the
+   kernel read, the prefix cache, a preview every 32 chunks,
+   ``serve_features``' CLIP): six concurrent clients with one 17-token
+   prompt and seed (plain; a stream; ``n_samples=2``;
+   ``image_seq_len_override=256``; a stream torn after 3 token events;
+   ``cfg_scale=3.0``), one wave of the 8 slots; a mid-decode
+   ``/admin/profile`` capture naming K4's body; the error answers (400,
+   404, 401, 409); the streamed tokens A's, the group's sample 0 A's, the
+   short grid A's prefix, the torn stream reaped, K4 and K3's launches,
+   pages, ``/metrics``, ``/healthz``; e2e and queue-wait percentiles, the
+   first streamed token's seconds, ms a step and image tokens a second
+   under the server.
 
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
@@ -364,11 +383,11 @@ def kernel_classes(kernels: dict, steps: int) -> dict:
 
 
 # depth of the earlier serving phases' engines (``engine``,
-# ``sparse_engine``, ``wide_engine``, ``rev_decode``; their float32 step
-# checks keep full depth) and of ``import``'s model, cut from 12 to keep
-# the smoke's time with the ``serve_features`` phase, which serves at
-# depth 12; their steps are host-bound, a fixed cost plus a share per
-# layer
+# ``sparse_engine``, ``wide_engine``, ``rev_decode`` and
+# ``serve_features``' bfloat16 engines; their float32 step and identity
+# checks keep their depths) and of ``import``'s model, cut from 12 to keep
+# the smoke's time with the ``http`` phase, which serves at depth 12;
+# their steps are host-bound, a fixed cost plus a share per layer
 SERVE_DEPTH = 2
 
 
@@ -3330,7 +3349,10 @@ FEATURE_PAGES = 1 + 4 * 80
 FEATURE_ENGINE = dict(num_slots=8, chunk_steps=8, kv="paged", page_size=16,
                       paged_attn="kernel", prefix_cache=True,
                       num_pages=FEATURE_PAGES)
-SPEC_K, SPEC_DRAFT = 4, 6
+# the bfloat16 engines A, B and C run at SERVE_DEPTH (cut from 12 to keep
+# the smoke's time with the ``http`` phase, which serves at 12):
+# B's draft is one layer of the two
+SPEC_K, SPEC_DRAFT = 4, 1
 # the float32 runs that must give identical tokens: depth 4, a 2-layer draft
 IDENTITY_DEPTH, IDENTITY_DRAFT = 4, 2
 
@@ -3563,7 +3585,7 @@ def spec_k4_case(engine, dtype=torch.bfloat16, offset: int = 2) -> dict:
 
 def phase_serve_features() -> dict:
     """The single engine's serving features at the north width (bfloat16,
-    depth 12, seeded weights; 8 slots, K = 8, page 16) on
+    depth ``SERVE_DEPTH``, seeded weights; 8 slots, K = 8, page 16) on
     ``feature_requests``:
 
     A. ``kv='paged'``, ``paged_attn='kernel'``, ``prefix_cache=True``, the
@@ -3577,8 +3599,8 @@ def phase_serve_features() -> dict:
        image and caption to rtol/atol 1e-2 (bfloat16: a few roundings of
        2^-8 relative on scores bounded by exp(1)); an injected failure
        comes back as ``status='error'``;
-    B. the same with ``speculative=4``, ``draft_layers=6``: K4 launched
-       rounds x (6 x 6 + 12 x 4), the acceptance, K4 held against its
+    B. the same with ``speculative=4``, ``draft_layers=1``: K4 launched
+       rounds x (1 x 6 + depth x 4), the acceptance, K4 held against its
        plain version at one verify offset's row mask on the run's state;
     C. ``kv='dense'`` (gather reads, no K4).
     A's wall includes the worker's VAE decode and CLIP scoring on the same
@@ -3587,7 +3609,7 @@ def phase_serve_features() -> dict:
     Then A, B (2-layer draft) and C again in float32 at depth 4, whose
     tokens must be identical; the float32 A alone times its admissions
     (cold prefill against warm admission), so no bfloat16 wall carries
-    their synchronisations; at bfloat16 depth 12 the share of identical
+    their synchronisations; at bfloat16 the share of identical
     tokens and the first diverging positions of B and C against A are
     printed, not checked."""
     import dataclasses
@@ -3597,14 +3619,14 @@ def phase_serve_features() -> dict:
     from dalle_pytorch_tpu_torch.ops import block_sparse as BS
     from dalle_pytorch_tpu_torch.serve import scheduler as S
     from dalle_pytorch_tpu_torch.serve.postprocess import PostProcessor
-    cfg = north_cfg()
+    cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
     reqs = feature_requests(cfg)
     vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
     model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
     clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
                         dtype=torch.bfloat16)
     record = dict(phase="serve_features", ok=True, requests=len(reqs),
-                  num_pages=FEATURE_PAGES)
+                  num_pages=FEATURE_PAGES, depth=cfg.depth)
 
     # A: the eager engine with the prefix cache, eviction and the worker
     post = PostProcessor(vae, model, clip=clip).start()
@@ -3815,6 +3837,350 @@ def phase_import() -> dict:
     return record
 
 
+# -- the HTTP server ----------------------------------------------------------
+
+HTTP_SERVER = dict(num_slots=8, chunk_steps=8, kv="paged", page_size=16,
+                   paged_attn="kernel", prefix_cache=True, preview_every=32)
+HTTP_PROMPT_LEN = 17
+HTTP_SHORT_GRID = 256
+HTTP_TOKEN = "smoke-admin"
+
+
+class HttpClient:
+    """Blocking calls to the server on ``127.0.0.1:port``."""
+
+    def __init__(self, port: int):
+        self.port = port
+
+    def _conn(self, method, path, body, token):
+        import http.client
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=600)
+        headers = {"Content-Type": "application/json"}
+        if token:
+            headers["Authorization"] = f"Bearer {token}"
+        data = None if body is None else (
+            body if isinstance(body, bytes) else json.dumps(body).encode())
+        conn.request(method, path, body=data, headers=headers)
+        return conn
+
+    def call(self, method, path, body=None, token=None):
+        """(status, raw body bytes)."""
+        conn = self._conn(method, path, body, token)
+        resp = conn.getresponse()
+        raw = resp.read()
+        conn.close()
+        return resp.status, raw
+
+    def json(self, method, path, body=None, token=None):
+        code, raw = self.call(method, path, body, token)
+        return code, json.loads(raw)
+
+    def sse(self, body, t0: float, first=None, tear_after: int = 0):
+        """POST a streamed request and read its events to the end, or,
+        with ``tear_after``, tear the connection (an RST) after that many
+        token events. Returns (events, seconds to the first token event);
+        ``first`` (an Event) is set at the first token event."""
+        import socket
+        import struct
+        conn = self._conn("POST", "/generate", body, None)
+        sock = conn.sock
+        resp = conn.getresponse()
+        check(resp.status == 200, f"http: stream answered {resp.status}")
+        events, kind, first_s, n_tok = [], None, None, 0
+        while True:
+            line = resp.fp.readline()
+            if not line:
+                break
+            line = line.decode().rstrip("\n")
+            if line.startswith("event: "):
+                kind = line[len("event: "):]
+            elif line.startswith("data: "):
+                events.append({"event": kind,
+                               **json.loads(line[len("data: "):])})
+                if kind != "tokens":
+                    continue
+                n_tok += 1
+                if first_s is None:
+                    first_s = time.perf_counter() - t0
+                    if first is not None:
+                        first.set()
+                if tear_after and n_tok >= tear_after:
+                    # linger 0: the close resets the connection
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                    struct.pack("ii", 1, 0))
+                    resp.close()
+                    sock.close()
+                    return events, first_s
+        resp.close()
+        return events, first_s
+
+
+def wait_for(what: str, cond, timeout_s: float = 120.0, every=0.05):
+    """Poll ``cond()`` until it is true, at most ``timeout_s``."""
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        check(time.perf_counter() < deadline,
+              f"http: {what} not seen in {timeout_s:g} s")
+        time.sleep(every)
+
+
+def phase_http() -> dict:
+    """The port's ``InferenceServer`` over HTTP at the north width
+    (bfloat16, depth 12, seeded weights, ``serve_features``' CLIP scoring
+    every image through K3): 8 slots, K = 8, page 16, the kernel read
+    (K4), the prefix cache, a preview every 32 chunks, served by
+    ``make_http_server`` on 127.0.0.1 in a thread. Six client threads send
+    at once, with one 17-token prompt and one seed, filling the 8 slots in
+    one wave: A plain; B a stream; C ``n_samples=2``; D
+    ``image_seq_len_override=256``; E a stream the client tears (an RST)
+    after 3 token events; F ``cfg_scale=3.0`` (a slot pair). Mid-decode,
+    ``POST /admin/profile {"chunks": 4}`` (then 409 while it runs), and
+    the error answers: 400 for an empty and a 257-token prompt, 404, 401
+    and 409 ``not_a_replica_set`` from ``/admin/scale``.
+
+    Held: A's 1,024 ids in [0, 2048), its (256, 256, 3) image, finite
+    CLIP score and a trace with ``prefill_admit``; B's token events cover
+    each position once and end in A's tokens, at least 3 mid-stream
+    previews, its final frame the VAE decode of its tokens (to 1e-2, bf16
+    pixels; the difference is printed); C ranked by CLIP score, its sample
+    0 (the user's seed) A's tokens; D A's first 256; E reaped (``/stats``
+    polled), ``serve_slot_reaped`` in ``/debug/events``; F ok; K4
+    launched depth x decode steps times, K3 12 times a scored image; the
+    profile's trace naming K4's body; then ``/healthz`` 200, no stream or
+    group in flight, one group completed, every page free but the prefix
+    cache's, ``/metrics``' e2e count the delivered results, and
+    ``close()`` joining the engine thread. Printed: e2e and queue-wait
+    percentiles, the client's seconds to B's first token, ms a decode step
+    and image tokens a second under the server (the wave's wall over its
+    steps), preview frames and drops."""
+    import glob
+    import shutil
+    import tempfile
+    import threading
+    from dalle_pytorch_tpu_torch.models import clip as CL
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import block_sparse as BS
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    from dalle_pytorch_tpu_torch.serve import stream as ST
+    from dalle_pytorch_tpu_torch.serve.server import (InferenceServer,
+                                                      make_http_server)
+    cfg = north_cfg()
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+    clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
+                        dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(15)
+    prompt = [int(t) for t in torch.randint(1, cfg.num_text_tokens,
+                                            (HTTP_PROMPT_LEN,),
+                                            generator=g)]
+    seed = 21
+    prof_dir = tempfile.mkdtemp(prefix="chip-smoke-http-profile-")
+    srv = InferenceServer(model, vae, clip=clip, admin_token=HTTP_TOKEN,
+                          profile_dir=prof_dir, **HTTP_SERVER).start()
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    client = HttpClient(httpd.server_address[1])
+    record = dict(phase="http", ok=True, server=HTTP_SERVER,
+                  prompt_len=HTTP_PROMPT_LEN, depth=cfg.depth)
+    try:
+        base = {"codes": prompt, "seed": seed}
+        bodies = {"A": base, "C": {**base, "n_samples": 2},
+                  "D": {**base, "image_seq_len_override": HTTP_SHORT_GRID},
+                  "F": {**base, "cfg_scale": 3.0}}
+        out: dict = {}
+        errors: list = []
+        first = threading.Event()
+
+        def run(name, fn):
+            try:
+                out[name] = fn()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append((name, e))
+
+        torch.cuda.synchronize()
+        PA.paged_decode_attention.launches = 0
+        BS.block_sparse_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(
+            name, lambda b=body: client.json("POST", "/generate", b)))
+            for name, body in bodies.items()]
+        threads.append(threading.Thread(target=run, args=(
+            "B", lambda: client.sse({**base, "stream": True}, t0, first))))
+        threads.append(threading.Thread(target=run, args=(
+            "E", lambda: client.sse({**base, "stream": True}, t0,
+                                    tear_after=3))))
+        for t in threads:
+            t.start()
+        check(first.wait(600), "http: no token event on the stream")
+        prof = client.json("POST", "/admin/profile", {"chunks": 4},
+                           token=HTTP_TOKEN)
+        again = client.json("POST", "/admin/profile", {"chunks": 1},
+                             token=HTTP_TOKEN)
+        answers = {
+            "empty_prompt": client.json("POST", "/generate", {"codes": []}),
+            "prompt_257": client.json(
+                "POST", "/generate",
+                {"codes": [1] * (cfg.text_seq_len + 1)}),
+            "get_nope": client.json("GET", "/nope"),
+            "scale_no_token": client.json("POST", "/admin/scale",
+                                          {"op": "status"}),
+            "scale_token": client.json("POST", "/admin/scale",
+                                       {"op": "status"}, token=HTTP_TOKEN)}
+        wait_for("the torn stream's reap",
+                 lambda: client.json("GET", "/stats")[1]["reaped"] >= 1)
+        debug = client.json("GET", "/debug/events")[1]["server"]
+        check(any(e.get("kind") == "serve_slot_reaped" for e in debug),
+              "http: no serve_slot_reaped in /debug/events")
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        check(not errors, f"http: client failures {errors}")
+        check(all(not t.is_alive() for t in threads),
+              "http: a client thread did not finish")
+        wait_for("the profile's end", lambda: not client.json(
+            "GET", "/stats")[1]["profile_active"])
+        k4 = PA.paged_decode_attention.launches
+        k3 = BS.block_sparse_attention_fwd.launches
+        stats = client.json("GET", "/stats")[1]
+        code, metrics = client.call("GET", "/metrics")
+        health = client.json("GET", "/healthz")
+
+        # the answers
+        expect = {"empty_prompt": 400, "prompt_257": 400, "get_nope": 404,
+                  "scale_no_token": 401, "scale_token": 409}
+        for name, (code_, body) in answers.items():
+            check(code_ == expect[name], f"http: {name} answered {code_} "
+                  f"{body}, not {expect[name]}")
+        check(answers["prompt_257"][1]["reason"] == "invalid_prompt"
+              and answers["scale_token"][1]["reason"]
+              == "not_a_replica_set", f"http: bodies {answers}")
+        check(prof[0] == 200 and prof[1]["kind"] == "serve_profile_armed",
+              f"http: /admin/profile answered {prof}")
+        check(again[0] == 409 and again[1]["reason"] == "capture_active",
+              f"http: a second capture answered {again}")
+
+        # the results
+        code_a, a = out["A"]
+        check(code_a == 200 and a["status"] == "ok", f"http: A {a}")
+        toks = a["tokens"]
+        check(len(toks) == cfg.image_seq_len and min(toks) >= 0
+              and max(toks) < cfg.num_image_tokens,
+              "http: A's image tokens")
+        size = cfg.vae.image_size
+        check(a["image_shape"] == [size, size, 3]
+              and math.isfinite(a["clip_score"]),
+              f"http: A's image {a.get('image_shape')} or score")
+        check("prefill_admit" in [s["name"] for s in a["trace"]["spans"]],
+              "http: A's trace has no prefill_admit span")
+        events, first_s = out["B"]
+        pos = HTTP_PROMPT_LEN
+        streamed = []
+        for ev in events:
+            if ev["event"] == "tokens":
+                check(ev["pos"] == pos, f"http: B's event at {ev['pos']}, "
+                      f"not {pos}")
+                pos += len(ev["tokens"])
+                streamed += ev["tokens"]
+        check(pos == cfg.seq_len, f"http: B's events end at {pos}")
+        check(streamed[-cfg.image_seq_len:] == toks,
+              "http: B's streamed tokens differ from A's")
+        frames = [e for e in events if e["event"] == "preview"]
+        mid = [f for f in frames if not f["final"]]
+        check(len(mid) >= 3 and frames[-1]["final"],
+              f"http: B got {len(mid)} mid-stream previews")
+        b_res = events[-1]
+        check(b_res["event"] == "result" and b_res["tokens"] == toks,
+              "http: B's result frame")
+        with torch.no_grad():
+            want = srv.post.decode(b_res["tokens"]).float().cpu().numpy()
+        got = ST.unpack_image(frames[-1]["image"])
+        frame_err = float(abs(got - want).max())
+        check(frame_err <= 1e-2, f"http: B's final frame is {frame_err} "
+              f"from the VAE decode of its tokens")
+        code_c, c = out["C"]
+        check(code_c == 200 and c["status"] == "ok" and
+              len(c["samples"]) == 2, f"http: C {c.get('status')}")
+        scores = [s["clip_score"] for s in c["samples"]]
+        check(scores == sorted(scores, reverse=True),
+              f"http: C's samples not ranked: {scores}")
+        (s0,) = [s for s in c["samples"]
+                 if s["request_id"] == c["request_id"]]
+        check(s0["tokens"] == toks, "http: C's sample 0 differs from A")
+        code_d, d = out["D"]
+        check(code_d == 200 and d["tokens"] == toks[:HTTP_SHORT_GRID],
+              "http: D's tokens are not A's first 256")
+        code_f, f = out["F"]
+        check(code_f == 200 and f["status"] == "ok"
+              and len(f["tokens"]) == cfg.image_seq_len, "http: F")
+        e_events, _ = out["E"]
+        check(sum(e["event"] == "tokens" for e in e_events) == 3,
+              "http: E was not torn after 3 token events")
+
+        # the path went through the kernels
+        steps = stats["decode_steps"]
+        check(k4 == cfg.depth * steps, f"http: K4 launched {k4} times, "
+              f"not depth x {steps} decode steps")
+        scored = 6          # A, B, C's two, D, F (E was reaped)
+        per_score = clip.cfg.text_enc_depth + clip.cfg.visual_enc_depth
+        check(k3 == per_score * scored, f"http: K3 launched {k3} times "
+              f"for {scored} CLIP scores, not {per_score} each")
+        (trace,) = glob.glob(os.path.join(prof_dir, "trace-steps*.json"))
+        with open(trace) as fh:
+            names = {e.get("name", "") for e in json.load(fh).get(
+                "traceEvents", []) if e.get("cat") == "kernel"}
+        body = PA.kernel_body(torch.bfloat16, cfg.dim_head)
+        check(any(body in n for n in names),
+              f"http: the /admin/profile trace names no {body}")
+
+        # afterwards
+        check(health == (200, {"ok": True, "devices_per_replica": 1,
+                               "mesh_shape": None}),
+              f"http: /healthz {health}")
+        check(stats["streams_active"] == 0
+              and stats["groups_in_flight"] == 0
+              and stats["groups_completed"] == 1 and stats["reaped"] >= 1,
+              f"http: stats {stats}")
+        check(stats["pages_in_use"] == stats["prefix_pages_held"],
+              f"http: {stats['pages_in_use']} pages in use, the prefix "
+              f"cache holds {stats['prefix_pages_held']}")
+        count = sum(int(ln.split()[-1]) for ln in metrics.decode()
+                    .splitlines() if ln.startswith(
+                        "dalle_serve_e2e_latency_seconds_count"))
+        check(code == 200 and count == scored,
+              f"http: /metrics counts {count} delivered, not {scored}")
+        image_tokens = cfg.image_seq_len * 5 + HTTP_SHORT_GRID
+        record.update(
+            wall_s=wall, decode_steps=steps,
+            ms_per_decode_step=wall * 1e3 / steps,
+            image_tokens_per_s=image_tokens / wall,
+            first_token_s=first_s,
+            latency_ms=stats["latency_ms"],
+            p50_latency_s=stats["p50_latency_s"],
+            p95_latency_s=stats["p95_latency_s"],
+            preview_frames=stats["preview_frames"],
+            preview_drops=stats["preview_drops"],
+            previews_requested=stats["previews_requested"],
+            mid_stream_previews=len(mid), final_frame_max_abs_err=frame_err,
+            k4_launches=k4, k3_launches=k3, reaped=stats["reaped"],
+            prefix_hits=stats["prefix_hits"], cfg_pairs=stats["cfg_pairs"],
+            pages_peak=stats["pages_peak"],
+            clip_scores={"A": a["clip_score"], "C": scores,
+                         "D": d["clip_score"], "F": f["clip_score"]},
+            profile_kernels=len(names),
+            answers={k: v[0] for k, v in answers.items()})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    check(not srv._thread.is_alive(), "http: close() left the engine "
+          "thread running")
+    emit(**record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3845,6 +4211,7 @@ def main() -> int:
     cli = timed(phase_cli, train)
     features = timed(phase_serve_features)
     timed(phase_import)
+    served = timed(phase_http)
     emit(phase_seconds=PHASE_SECONDS)
     main_case = kernel["bfloat16"]
     rows = [{
@@ -4034,6 +4401,26 @@ def main() -> int:
         "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
         "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
         "launches": features["A"]["k3_launches"],
+        "max_abs_err": max(k3c["max_abs_err"].values()),
+        "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
+        "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
+        "library_ms": k3c["sdpa_masked_ms"]}]
+    # the HTTP server: K4 in every decode step of the wave, K3 in the
+    # postprocess worker's CLIP scores
+    rows += [{
+        "name": "paged_decode_attention@http", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dalle_pytorch_tpu/ops/paged_attention.py:88",
+        "launches": served["k4_launches"],
+        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"], "library_ms": None}, {
+        "name": "block_sparse_attention_fwd_noncausal@http",
+        "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": served["k3_launches"],
         "max_abs_err": max(k3c["max_abs_err"].values()),
         "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
         "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],

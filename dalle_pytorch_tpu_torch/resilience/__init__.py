@@ -1,8 +1,10 @@
-"""Training resilience: fault injection and the supervisor.
+"""Resilience: fault injection, the training supervisor and bring-up.
 
-Port of the training half of ``dalle_pytorch_tpu/resilience/``:
-``faults`` (the training hooks under the ``DALLE_FAULTS`` plan) and
+Port of ``dalle_pytorch_tpu/resilience/``: ``faults`` (the training
+hooks and the backend-claim hook under the ``DALLE_FAULTS`` plan),
 ``supervisor`` (preemption checkpoints, auto-resume, NaN and loss-spike
-rollback with the learning-rate re-warm). ``retry.py`` (multi-host
-bring-up) and the serving faults are not ported yet (ROADMAP.md queue 1).
+rollback with the learning-rate re-warm) and ``retry`` (the deadline,
+backoff and jitter of the serving front end's device claim). The
+serving faults of the fleet tier are not ported yet (ROADMAP.md queue
+1).
 """

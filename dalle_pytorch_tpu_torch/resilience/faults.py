@@ -1,12 +1,13 @@
-"""Deterministic fault injection for the training loop.
+"""Deterministic fault injection for bring-up and the training loop.
 
 Port of the training hooks of ``dalle_pytorch_tpu/resilience/faults.py``
-(``maybe_activate_from_env`` ``:227``, ``maybe_signal``,
-``corrupt_batch`` and ``corrupt_loss`` ``:271-310``). A ``FaultPlan``
-names the faults to fire; the hooks are no-ops unless a plan is active
-(set by ``activate``/``injected``, or from the ``DALLE_FAULTS`` JSON
-environment variable in a CLI run), and each fires at most once per
-activation. The serving faults of the JAX plan are not ported: a plan
+(``maybe_activate_from_env`` ``:227``, ``on_backend_init`` ``:259-270``,
+``maybe_signal``, ``corrupt_batch`` and ``corrupt_loss`` ``:271-310``).
+A ``FaultPlan`` names the faults to fire; the hooks are no-ops unless a
+plan is active (set by ``activate``/``injected``, or from the
+``DALLE_FAULTS`` JSON environment variable in a CLI run), and each
+training fault fires at most once per activation. The serving faults of
+the JAX plan (replicas, workers, transports) are not ported: a plan
 naming one is refused (``TypeError``).
 """
 
@@ -18,6 +19,7 @@ import json
 import math
 import os
 import signal
+import time
 from typing import Optional
 
 import torch
@@ -29,6 +31,10 @@ class FaultInjected(RuntimeError):
 
 @dataclasses.dataclass
 class FaultPlan:
+    # backend bring-up: sleep (wedge) this long per claim attempt, and/or
+    # raise on the first N attempts (0-indexed attempts < fail_attempts)
+    backend_init_hang_s: float = 0.0
+    backend_init_fail_attempts: int = 0
     # deliver SIGTERM to this process just before this step
     sigterm_at_step: int = -1
     # replace the batch's float leaves with NaN at this step
@@ -83,6 +89,18 @@ def _once(key: str) -> bool:
         return False
     _fired.add(key)
     return True
+
+
+def on_backend_init(attempt: int = 0) -> None:
+    """Inside the deadline-bounded device claim: wedge and/or fail."""
+    p = _active
+    if p is None:
+        return
+    if p.backend_init_hang_s > 0:
+        time.sleep(p.backend_init_hang_s)
+    if attempt < p.backend_init_fail_attempts:
+        raise FaultInjected(
+            f"injected backend init failure (attempt {attempt})")
 
 
 def maybe_signal(step: int) -> None:

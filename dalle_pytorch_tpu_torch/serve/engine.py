@@ -38,6 +38,27 @@ read in place by kernel K4 (``paged_attn='kernel'``) or through the
 * ``sparse_reads=True`` makes each sparse layer read only its visible
   pages through K4's visible walk.
 
+For the HTTP tier (``serve/server.py``):
+
+* short grids: ``Request.image_seq_len_override`` caps a slot's emit
+  budget on the HOST (``_slot_need``); the card decodes the full grid
+  and harvest stops delivering at the cap, at most one chunk of device
+  steps late;
+* streams: a handle's ``sink`` gets every harvested chunk's tokens at
+  their absolute positions, and every ``preview_every`` chunks the
+  image-token prefix goes to ``on_preview`` (the postprocess worker's
+  ``submit_preview``);
+* reaping: a slot whose handle was fulfilled from outside (a torn
+  stream, a cancelled group) is freed at the next step, its pages
+  returned (``reaped``);
+* ``run(stop)`` is the serving thread's loop: a step that raises fails
+  the in-slot requests with typed ``error`` results and serving goes on
+  (``fail_active``; ``cancel_active`` at shutdown);
+* observability: every span and structured event lands in ``flight``,
+  the always-on ring behind ``/debug/events`` (``metrics`` is wrapped
+  through ``obs.flight.wrap_metrics``), and ``request_profile`` arms a
+  torch.profiler capture over the next K chunks, one at a time.
+
 Per-request guidance (``Request.cfg_scale > 0``) admits a cond/uncond
 slot PAIR, the uncond member a shadow slot on the all-PAD null caption;
 ``sample_per_slot``'s ``partner``/``cfg_scale``/``uncond`` mix the
@@ -52,9 +73,8 @@ for the same weights, prompt, seed and knobs, a slot's tokens equal the
 JAX engine's and ``generate_images``' at batch 1, for every K, layout,
 guidance pair and speculation depth.
 
-Left for later slices (see ROADMAP.md): streams and previews, short
-grids, tenants, live migration, the flight recorder and profile
-requests, fencing, meshes.
+Left for later slices (see ROADMAP.md): live migration, fencing and
+meshes.
 """
 
 from __future__ import annotations
@@ -69,6 +89,7 @@ import torch
 
 from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as D
+from dalle_pytorch_tpu_torch.obs import flight as oflight
 from dalle_pytorch_tpu_torch.ops import decode as decode_ops
 from dalle_pytorch_tpu_torch.ops import paged_attention as PA
 from dalle_pytorch_tpu_torch.ops import prng
@@ -77,10 +98,21 @@ from dalle_pytorch_tpu_torch.serve import prefix_cache as PC
 from dalle_pytorch_tpu_torch.serve import scheduler as S
 
 # the engine's lifetime counters (JAX ``COUNTERS``, less its compile
-# counters, the port tracing nothing, and ``reaped``, which the HTTP
-# tier's cancellations feed)
+# counters: the port traces nothing)
 COUNTERS = ("tokens_decoded", "decode_steps", "harvests", "occupancy_sum",
-            "completed", "expired", "evicted", "prefix_hits", "cfg_pairs")
+            "completed", "expired", "evicted", "prefix_hits", "cfg_pairs",
+            "reaped")
+
+
+class ProfileError(RuntimeError):
+    """Typed refusal of a profiler capture (``request_profile``, ``POST
+    /admin/profile``): one is already armed or running (torch.profiler
+    traces one capture a process at a time). ``record`` is the
+    structured event, the HTTP 409 body."""
+
+    def __init__(self, record: dict):
+        super().__init__(f"{record.get('reason', 'profile rejected')}")
+        self.record = record
 
 
 class PoolTooSmall(ValueError):
@@ -93,19 +125,26 @@ class _Slot:
     """Host bookkeeping of one slot. A guided pair is two slots: the cond
     slot carries ``pair`` (its shadow's index), the uncond SHADOW
     ``shadow_of`` (the cond index); the shadow holds the same handle but
-    is never credited, completed or evicted on its own."""
+    is never credited, completed or evicted on its own. ``need`` is the
+    emit budget of a short-grid request (text fill + capped image span,
+    None for the full grid); ``since_preview`` counts harvested chunks
+    since the last preview."""
 
-    __slots__ = ("handle", "t0", "emitted", "t_admit", "pair", "shadow_of")
+    __slots__ = ("handle", "t0", "emitted", "t_admit", "pair", "shadow_of",
+                 "need", "since_preview")
 
     def __init__(self, handle: S.RequestHandle, t0: int, t_admit: float,
                  pair: Optional[int] = None,
-                 shadow_of: Optional[int] = None):
+                 shadow_of: Optional[int] = None,
+                 need: Optional[int] = None):
         self.handle = handle
         self.t0 = t0
         self.emitted: List[int] = []
         self.t_admit = t_admit
         self.pair = pair
         self.shadow_of = shadow_of
+        self.need = need
+        self.since_preview = 0
 
 
 class _Chunk:
@@ -168,6 +207,8 @@ class Engine:
                  chunk_steps: int = 8,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  complete: Optional[Callable] = None,
+                 metrics=None,
+                 log_every: int = 50,
                  quantize_cache: bool = False,
                  kv: str = "dense",
                  page_size: int = 0,
@@ -178,8 +219,11 @@ class Engine:
                  draft_layers: int = 0,
                  prefix_cache: bool = False,
                  prefix_entries: int = 256,
+                 preview_every: int = 0,
                  model_version: str = "0",
+                 weights_version: str = "0",
                  time_admissions: bool = False,
+                 flight_events: int = 256,
                  clock: Callable[[], float] = time.perf_counter,
                  device=None):
         self.device = resolve_device(device)
@@ -198,6 +242,12 @@ class Engine:
         if self.chunk_steps < 1:
             raise ValueError(f"chunk_steps must be >= 1, got {chunk_steps}")
         self.complete = complete
+        # the flight recorder: every span and structured event this
+        # engine emits lands in the ring, and in ``metrics`` when given
+        self.flight = oflight.FlightRecorder(capacity=int(flight_events))
+        self.metrics = oflight.wrap_metrics(self.flight, metrics)
+        self.log_every = int(log_every)
+        self._last_log = 0
         self.clock = clock
         self.quantize_cache = bool(quantize_cache)
         self.kv = str(kv)
@@ -322,10 +372,29 @@ class Engine:
                 quantized=self.quantize_cache, device=self.device)
         self.evicted = 0
         self.model_version = str(model_version)
+        self.weights_version = str(weights_version)
         self.time_admissions = bool(time_admissions)
         self.prefill_times: List[float] = []
         self.warm_admit_times: List[float] = []
         self._prefilled: set = set()       # buckets prefilled at least once
+        # progressive previews: every preview_every harvested chunks of a
+        # streaming slot, its image-token prefix goes to on_preview (set
+        # by the server after construction, like ``complete``)
+        self.preview_every = int(preview_every)
+        if self.preview_every < 0:
+            raise ValueError(f"preview_every must be >= 0, got "
+                             f"{preview_every}")
+        self.on_preview: Optional[Callable] = None
+        self.previews_requested = 0
+        # a profiler capture: armed by request_profile (any thread) as a
+        # request the engine thread takes at its next dispatch, stopped
+        # after a countdown of harvests, so it covers the chunks' device
+        # work and not only their launches
+        self._profile_req = None
+        self._profiler = None
+        self._profile_left = 0
+        self._profile_lock = threading.Lock()
+        self.profiles_taken = 0
 
         dev = self.device
         self.key_mask = torch.ones((S_, self.total_len), dtype=torch.bool,
@@ -359,6 +428,8 @@ class Engine:
         self.occupancy_sum = 0
         self.completed = 0
         self.expired = 0
+        self.reaped = 0              # slots freed after an outside cancel
+        self._t_start: Optional[float] = None
         # speculative accounting over DELIVERED tokens: rounds that
         # emitted, the tokens they emitted, and the positions they could
         # have emitted (k, clamped at the sequence end)
@@ -538,7 +609,15 @@ class Engine:
 
     # -- request lifecycle ---------------------------------------------------
 
+    def _span(self, handle: S.RequestHandle, name: str, now: float,
+              **meta) -> None:
+        """Stamp one trace span and land its record in the flight ring."""
+        tr = handle.trace
+        if tr is not None:
+            self.flight.record(tr.span(name, now, **meta))
+
     def _finish(self, handle: S.RequestHandle, result: S.Result) -> None:
+        result.weights_version = self.weights_version
         if result.status == S.OK and self.complete is not None:
             self.complete(handle, result)
         else:
@@ -554,10 +633,21 @@ class Engine:
 
     def _expire(self, handle: S.RequestHandle, now: float,
                 where: str) -> None:
+        req = handle.request
         self.expired += 1
+        self.metrics.event(**S.structured_event(
+            "serve_deadline", request_id=req.request_id, where=where,
+            deadline_s=req.deadline_s,
+            waited_s=round(now - req.submit_t, 4)))
         self._terminal(handle, now, S.DEADLINE_EXCEEDED,
-                       f"deadline_s={handle.request.deadline_s:g} exceeded "
-                       f"({where})")
+                       f"deadline_s={req.deadline_s:g} exceeded ({where})")
+
+    def _error(self, handle: S.RequestHandle, now: float,
+               reason: str) -> None:
+        self.metrics.event(**S.structured_event(
+            "serve_error", request_id=handle.request.request_id,
+            error=reason))
+        self._terminal(handle, now, S.ERROR, reason)
 
     def _cfg_wire(self, i: int, j: int, scale: float) -> None:
         """Pair cond slot i with uncond shadow j (host side)."""
@@ -626,13 +716,17 @@ class Engine:
                 continue
             n = len(h.request.codes)
             if not 1 <= n <= self.cfg.text_seq_len:
-                self._terminal(h, now, S.ERROR, f"invalid prompt length "
-                               f"{n} (need 1..{self.cfg.text_seq_len})")
+                self._error(h, now, f"invalid prompt length {n} "
+                            f"(need 1..{self.cfg.text_seq_len})")
                 continue
             if h.request.cfg_scale > 0 and self.num_slots < 2:
-                self._terminal(h, now, S.ERROR, "cfg_scale needs a "
-                               "cond/uncond slot pair: num_slots must be "
-                               ">= 2")
+                self._error(h, now, "cfg_scale needs a cond/uncond slot "
+                            "pair: num_slots must be >= 2")
+                continue
+            L = int(h.request.image_seq_len_override)
+            if L and not 1 <= L <= self.cfg.image_seq_len:
+                self._error(h, now, f"image_seq_len_override {L} out of "
+                            f"range (need 1..{self.cfg.image_seq_len})")
                 continue
             valid.append(h)
         # slot budget in arrival order: a guided request takes TWO slots,
@@ -695,6 +789,16 @@ class Engine:
         free = self._admit_cold(rows, free, now)
         self._admit_warm(rows, free, now)
 
+    def _slot_need(self, req: S.Request, t0: int) -> Optional[int]:
+        """A short-grid request's emit budget (text fill + the capped
+        image span), None for the full grid. Harvest stops delivering at
+        it and completes the slot, so one program serves every cap, at
+        the cost of at most one chunk of device steps past it."""
+        L = int(req.image_seq_len_override)
+        if not L:
+            return None
+        return (self.cfg.text_seq_len - t0) + L
+
     def _admit_cold(self, rows: List[_Row], free: List[int],
                     now: float) -> List[int]:
         """Bucket-grouped prefill admission of the plan's cold rows.
@@ -717,12 +821,18 @@ class Engine:
             if timed:
                 self._sync()
                 self.prefill_times.append(self.clock() - t_pre)
+            t_slotted = self.clock()
             for p in group:
-                self.slots[p.slot] = _Slot(p.handle, p.t0, now)
+                self.slots[p.slot] = _Slot(
+                    p.handle, p.t0, now,
+                    need=self._slot_need(p.handle.request, p.t0))
                 if self.kv == "paged":
                     self._slot_pages[p.slot] = list(p.grants)
                     self._pos_est[p.slot] = p.t0
                     self._bt_dirty = True
+                if not p.uncond:    # one span a request, not a slot
+                    self._span(p.handle, "prefill_admit", t_slotted,
+                               bucket=bucket, mode="cold", slot=p.slot)
             self._wire_pairs(group)
             if self.prefix is not None:
                 for p in group:
@@ -815,14 +925,24 @@ class Engine:
         if timed:
             self._sync()
             self.warm_admit_times.append(self.clock() - t_warm)
+        t_slotted = self.clock()
         for p in warm:
             i = p.slot
-            self.slots[i] = _Slot(p.handle, p.t0, now)
+            self.slots[i] = _Slot(p.handle, p.t0, now,
+                                  need=self._slot_need(p.handle.request,
+                                                       p.t0))
             self._slot_pages[i] = list(p.entry.full_pages) + list(p.grants)
             self._pos_est[i] = p.t0
             self._bt_dirty = True
             self.prefix_hits += 1
             self.warm_admits += 1
+            if not p.uncond:
+                self._span(p.handle, "prefill_admit", t_slotted,
+                           mode="warm", slot=i, pages_shared=p.shared_n)
+            self.metrics.event(**S.structured_event(
+                "serve_prefix_hit", request_id=p.handle.request.request_id,
+                uncond=p.uncond, pages_shared=p.shared_n,
+                pages_private=len(p.grants)))
         self._wire_pairs(warm)
 
     # -- page-pool lifecycle (kv='paged') ------------------------------------
@@ -878,11 +998,24 @@ class Engine:
             return False
         _, _, i = max(cand)
         slot = self.slots[i]
+        free_before = self.alloc.free
         self._kill(self._free_slot(i))
+        freed = self.alloc.free - free_before
         self.evicted += 1
         self.tokens_decoded -= len(slot.emitted)
         self.occupancy_sum -= len(slot.emitted)
+        # a visible timeline marker: the re-queue wait and the replay
+        # follow it. Stamped at the clock, not at the step's start: a
+        # request evicted in the step that admitted it would otherwise
+        # step the trace back over its prefill_admit span
+        self._span(slot.handle, "evict", self.clock(), pages_freed=freed)
         self.queue.requeue(slot.handle)
+        req = slot.handle.request
+        self.metrics.event(**S.structured_event(
+            "serve_evict", request_id=req.request_id,
+            priority=req.priority, pages_freed=freed,
+            pages_free=self.alloc.free,
+            waited_s=round(now - req.submit_t, 4)))
         return True
 
     def _map_ahead(self, now: float) -> None:
@@ -915,7 +1048,28 @@ class Engine:
 
     def _dispatch_chunk(self, now: float) -> None:
         """Enqueue one chunk and the copy of its emit ring; no host wait
-        here."""
+        here. An armed profile request starts here, on the engine thread,
+        never at the first dispatch (whose kernels may still be
+        building)."""
+        if self._profile_req is not None and self._profiler is None \
+                and self.decode_steps > 0:
+            with self._profile_lock:
+                req, self._profile_req = self._profile_req, None
+            if req is not None:
+                from dalle_pytorch_tpu_torch.utils.profiling import \
+                    StepProfiler
+                log_dir, chunks = req
+                start = self.decode_steps // self.chunk_steps
+                prof = StepProfiler(log_dir, start=start, steps=chunks)
+                # stop once the chunks in flight (they harvest first)
+                # and ours have all been harvested
+                self._profile_left = len(self._pending) + chunks
+                self._profiler = prof
+                try:
+                    prof.maybe_start(start)
+                except BaseException:
+                    self._profiler = None
+                    raise
         if self.kv == "paged":
             self._map_ahead(now)
             if self._bt_dirty:
@@ -941,8 +1095,15 @@ class Engine:
             rec.ready.synchronize()
         ring, active_after = rec.ring.numpy(), rec.active.numpy()
         self.harvests += 1
+        if self._profiler is not None:
+            # chunks harvest in order: the countdown reaches 0 once the
+            # last captured chunk has run on the card
+            self._profile_left -= 1
+            if self._profile_left <= 0:
+                self._finish_profile()
         now = self.clock()
         emitted = 0
+        kill: List[int] = []
         for i, slot in rec.owners:
             if slot.shadow_of is not None:
                 continue            # mirrors its cond slot; never credited
@@ -952,8 +1113,34 @@ class Engine:
                 continue
             row = ring[i]
             toks = row[row >= 0]
+            capped = False
+            if slot.need is not None:
+                # a short grid: the card decodes the full grid, the host
+                # stops delivering at the budget and completes early
+                left = slot.need - len(slot.emitted)
+                if len(toks) >= left:
+                    toks = toks[:left]
+                    capped = True
             slot.emitted.extend(int(t) for t in toks)
             emitted += len(toks)
+            sink = slot.handle.sink
+            if sink is not None and len(toks):
+                # absolute positions: the sink drops what a replay
+                # re-delivers; it never blocks (its ring sheds instead)
+                sink.push_tokens(slot.t0 + len(slot.emitted) - len(toks),
+                                 [int(t) for t in toks])
+                if (self.on_preview is not None and self.preview_every
+                        and not capped):
+                    slot.since_preview += 1
+                    img_done = len(slot.emitted) \
+                        - (self.cfg.text_seq_len - slot.t0)
+                    if slot.since_preview >= self.preview_every \
+                            and img_done > 0:
+                        slot.since_preview = 0
+                        self.previews_requested += 1
+                        self.on_preview(slot.handle, np.asarray(
+                            slot.emitted[self.cfg.text_seq_len - slot.t0:],
+                            np.int32))
             if self.speculative:
                 # acceptance over delivered tokens; each round's
                 # potential is k clamped at the sequence end
@@ -978,23 +1165,36 @@ class Engine:
                     if slot.pair is not None:
                         self._pos_est[slot.pair] = \
                             min(self._pos_est[slot.pair], bound)
-            if not bool(active_after[i]):
+            if len(toks):
+                self._span(slot.handle, "decode_chunk", now,
+                           tokens=int(len(toks)))
+            if capped:
+                # the budget is met mid-sequence: the slot (and its
+                # shadow) must also leave the device mask
+                kill.extend(self._complete(i, slot, now))
+            elif not bool(active_after[i]):
                 self._complete(i, slot, now)
+        if kill:
+            self._kill(kill)
         self.tokens_decoded += emitted
         self.occupancy_sum += emitted
 
-    def _complete(self, i: int, slot: _Slot, now: float) -> None:
+    def _complete(self, i: int, slot: _Slot, now: float) -> List[int]:
+        """Free the slot and hand its result on; a short grid delivers
+        its capped span. Returns the freed slot indices."""
         req = slot.handle.request
         full = list(req.codes) + slot.emitted
+        L = int(req.image_seq_len_override) or self.cfg.image_seq_len
         self.completed += 1
-        self._free_slot(i)
+        freed = self._free_slot(i)
         self._finish(slot.handle, S.Result(
             status=S.OK, request_id=req.request_id,
-            tokens=np.asarray(full[-self.cfg.image_seq_len:], np.int32),
+            tokens=np.asarray(full[-L:], np.int32),
             text_tokens=np.asarray(full[:self.cfg.text_seq_len], np.int32),
             queued_s=round(slot.t_admit - req.submit_t, 6),
             decode_s=round(now - slot.t_admit, 6),
             total_s=round(now - req.submit_t, 6)))
+        return freed
 
     # -- the loop --------------------------------------------------------------
 
@@ -1006,11 +1206,23 @@ class Engine:
         the previous one. Returns True when any work happened."""
         with self._lock:
             now = self.clock()
+            if self._t_start is None:
+                self._t_start = now
             did = False
             kill = []
             for i, slot in enumerate(self.slots):
                 if slot is None or slot.shadow_of is not None:
                     continue        # a shadow goes with its cond slot
+                if slot.handle.done():
+                    # fulfilled from outside mid-decode (a torn stream, a
+                    # cancelled group): free the slot and its pages now
+                    self.reaped += 1
+                    self.metrics.event(**S.structured_event(
+                        "serve_slot_reaped",
+                        request_id=slot.handle.request.request_id,
+                        tokens_done=len(slot.emitted)))
+                    kill.extend(self._free_slot(i))
+                    continue
                 dt = slot.handle.request.deadline_t
                 if dt is not None and now > dt:
                     self._expire(slot.handle, now, "decoding")
@@ -1036,6 +1248,12 @@ class Engine:
                     if h.request.request_id == self._hol_rid:
                         self._hol_rid = None
                         self._hol_need = 0
+            for h in ready:
+                # the queue wait ends at the first pop of an attempt; a
+                # page-deferred re-pop folds into its prefill_admit span
+                if h.trace is not None \
+                        and not h.trace.has_in_attempt("queue_wait"):
+                    self._span(h, "queue_wait", now)
             if ready:
                 self._admit(ready, now)
             did = did or bool(ready or expired)
@@ -1049,6 +1267,15 @@ class Engine:
             while len(self._pending) > (1 if dispatched else 0):
                 self._harvest_chunk()
                 did = True
+            if self._profiler is not None and not dispatched \
+                    and not self._pending:
+                # drained before the capture's chunks ran: close it with
+                # what it has
+                self._finish_profile(partial=True)
+            if self.log_every and \
+                    self.decode_steps - self._last_log >= self.log_every:
+                self._last_log = self.decode_steps
+                self.metrics.event(event="serve", **self.stats())
             return did
 
     def idle(self) -> bool:
@@ -1064,13 +1291,143 @@ class Engine:
                 return
         raise RuntimeError(f"engine did not go idle in {max_steps} steps")
 
+    def run(self, stop: threading.Event, idle_sleep_s: float = 0.002):
+        """The serving thread's loop: step while there is work, nap when
+        idle. A step that raises does not end the loop: the in-slot
+        requests get typed ``error`` results, the pool is reset and
+        serving goes on."""
+        while not stop.is_set():
+            try:
+                busy = self.step_once()
+            except Exception as e:  # noqa: BLE001 — typed results, below
+                # recovery first: a raising metrics sink must not stop the
+                # in-slot handles from being fulfilled
+                n = self.fail_active(f"engine step failed: {e!r}")
+                try:
+                    self.metrics.event(**S.structured_event(
+                        "serve_engine_error", error=repr(e), failed=n))
+                except Exception:   # noqa: BLE001
+                    pass
+                stop.wait(idle_sleep_s)     # never hot-spin on a fault
+                continue
+            if not busy and self.idle():
+                stop.wait(idle_sleep_s)
+        if self._profiler is not None:
+            self._profiler.close()
+            self._profiler = None
+
+    def _terminate_active(self, status: str, reason: str) -> int:
+        """Fulfil every in-slot request with a typed terminal result and
+        reset the pool to idle (after a failed step the slot state may be
+        half-updated and the chunks in flight unusable). Returns the
+        number terminated."""
+        n = 0
+        with self._lock:
+            now = self.clock()
+            for i, slot in enumerate(self.slots):
+                if slot is None or slot.shadow_of is not None:
+                    continue        # a shadow dies with its cond slot
+                req = slot.handle.request
+                slot.handle.fulfill(S.Result(
+                    status=status, request_id=req.request_id,
+                    reason=reason, weights_version=self.weights_version,
+                    queued_s=round(slot.t_admit - req.submit_t, 6),
+                    total_s=round(now - req.submit_t, 6)))
+                self._free_slot(i)
+                n += 1
+            self._pending.clear()
+            if self._profiler is not None:
+                self._profiler.close()
+                self._profiler = None
+            self.cur_tok = torch.zeros_like(self.cur_tok)
+            self.pos = torch.zeros_like(self.pos)
+            self.active = torch.zeros_like(self.active)
+            self._sync_cfg()
+            if self.kv == "paged" and self._bt_dirty:
+                self.block_tables = self._put(self._bt_host)
+                self._bt_dirty = False
+        return n
+
+    def fail_active(self, reason: str) -> int:
+        """Typed ``error`` results for every in-slot request: the run
+        loop's recovery after a step failed."""
+        return self._terminate_active(S.ERROR, reason)
+
+    def cancel_active(self, reason: str = "server shutdown") -> int:
+        """Typed ``cancelled`` results for every in-slot request: the
+        shutdown path."""
+        return self._terminate_active(S.CANCELLED, reason)
+
+    # -- profile requests ------------------------------------------------------
+
+    def _finish_profile(self, partial: bool = False) -> None:
+        """Stop the capture and record ``serve_profile_done`` (engine
+        thread only)."""
+        prof = self._profiler
+        if prof is None:
+            return
+        # close before clearing: profile_active() stays true while the
+        # trace is written
+        prof.close()
+        self._profiler = None
+        self.profiles_taken += 1
+        rec = S.structured_event(
+            "serve_profile_done", dir=prof.log_dir,
+            chunks=prof.stop_at - prof.start, trace=prof.trace_path)
+        if partial:
+            rec["partial"] = True
+        self.metrics.event(**rec)
+
+    def request_profile(self, log_dir: str, chunks: int = 8) -> dict:
+        """Arm a torch.profiler capture over the NEXT ``chunks`` decode
+        chunks (``POST /admin/profile``, ``utils.profiling.StepProfiler``):
+        it starts at the engine thread's next dispatch and stops once
+        those chunks are harvested, its Chrome trace written under
+        ``log_dir``. ``ProfileError`` (``capture_active``) while one is
+        armed or running."""
+        chunks = int(chunks)
+        if chunks < 1:
+            raise ValueError(f"chunks must be >= 1, got {chunks}")
+        if not log_dir:
+            raise ValueError("request_profile needs a log_dir")
+        with self._profile_lock:
+            prof = self._profiler
+            if prof is not None:
+                raise ProfileError(S.structured_event(
+                    "serve_profile_reject", reason="capture_active",
+                    dir=prof.log_dir, start_chunk=prof.start,
+                    chunks=prof.stop_at - prof.start))
+            if self._profile_req is not None:
+                raise ProfileError(S.structured_event(
+                    "serve_profile_reject", reason="capture_active",
+                    dir=self._profile_req[0],
+                    chunks=self._profile_req[1]))
+            self._profile_req = (str(log_dir), chunks)
+        rec = S.structured_event(
+            "serve_profile_armed", dir=str(log_dir), chunks=chunks,
+            # advisory: the engine thread takes the real start index
+            start_chunk=self.decode_steps // self.chunk_steps)
+        self.metrics.event(**rec)
+        return rec
+
+    def profile_active(self) -> bool:
+        """A capture is armed or running."""
+        return self._profiler is not None or self._profile_req is not None
+
     # -- observability -----------------------------------------------------------
 
     def counters(self) -> Dict[str, int]:
         """The ``COUNTERS`` block as a dict."""
         return {k: int(getattr(self, k)) for k in COUNTERS}
 
+    def kv_hbm_bytes(self) -> int:
+        """Resident bytes of the KV store on the card: the page pool, or
+        the dense slot cache."""
+        return sum(t.numel() * t.element_size() for t in self.pool.values())
+
     def stats(self) -> dict:
+        elapsed = None if self._t_start is None \
+            else max(self.clock() - self._t_start, 1e-9)
         paged = {}
         if self.kv == "paged":
             paged = {
@@ -1085,6 +1442,8 @@ class Engine:
                 "pages_in_use": self.alloc.in_use,
                 "pages_free": self.alloc.free,
                 "pages_peak": self.alloc.peak_in_use,
+                "pages_shared": self.alloc.pages_shared,
+                "pages_shared_saved": self.alloc.refs_saved,
                 "evicted": self.evicted,
                 "requeued": self.queue.requeued,
             }
@@ -1116,6 +1475,7 @@ class Engine:
             }
         return {
             "kv": self.kv,
+            "kv_hbm_bytes": self.kv_hbm_bytes(),
             **paged,
             **spec,
             "queue_depth": self.queue.depth(),
@@ -1123,12 +1483,23 @@ class Engine:
             "num_slots": self.num_slots,
             "chunk_steps": self.chunk_steps,
             "decode_steps": self.decode_steps,
-            "harvests": self.harvests,
             "prefill_runs": self.prefill_runs,
             "tokens_decoded": self.tokens_decoded,
+            "tokens_per_s": (round(self.tokens_decoded / elapsed, 2)
+                             if elapsed else 0.0),
             "mean_occupancy": round(self.occupancy_sum
                                     / max(self.decode_steps, 1), 3),
             "completed": self.completed,
             "expired": self.expired,
             "cfg_pairs": self.cfg_pairs,
+            "reaped": self.reaped,
+            "previews_requested": self.previews_requested,
+            "rejected": self.queue.rejected,
+            "prefill_buckets": list(self.buckets),
+            "harvests": self.harvests,
+            "host_round_trips_per_token": round(
+                self.harvests / max(self.tokens_decoded, 1), 6),
+            "flight_events": len(self.flight),
+            "profile_active": self.profile_active(),
+            "profiles_taken": self.profiles_taken,
         }

@@ -163,6 +163,19 @@ class PageAllocator:
     def in_use(self) -> int:
         return self.capacity - self.free
 
+    # the two gauges below are read by stats() on other threads: they
+    # sum a snapshot of the refcounts, taken in one step
+
+    @property
+    def pages_shared(self) -> int:
+        """Live pages with more than one owner."""
+        return sum(1 for r in list(self._refs.values()) if r >= 2)
+
+    @property
+    def refs_saved(self) -> int:
+        """Pages sharing saves now: the sum of (refcount - 1)."""
+        return sum(r - 1 for r in list(self._refs.values()))
+
     def refcount(self, page: int) -> int:
         return self._refs.get(int(page), 0)
 

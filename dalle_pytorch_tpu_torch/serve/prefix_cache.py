@@ -118,7 +118,8 @@ class PrefixIndex:
     def pages_held(self) -> int:
         """References the index currently holds (full pages across all
         entries) — NOT extra HBM: shared pages are physical once."""
-        return sum(len(e.full_pages) for e in self._entries.values())
+        # a snapshot: stats() reads this from other threads
+        return sum(len(e.full_pages) for e in list(self._entries.values()))
 
     def lookup(self, key: str,
                codes: Sequence[int]) -> Optional[PrefixEntry]:

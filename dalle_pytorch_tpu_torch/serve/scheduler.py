@@ -1,13 +1,22 @@
 """Requests, results and the priority queue the engine pulls from.
 
-Port of ``dalle_pytorch_tpu/serve/scheduler.py`` (``:41-80,113-520``),
-with only the fields the engine reads: ``SamplingParams``, ``Request``
-(with ``cfg_scale``, per-request classifier-free guidance), ``Result``
-(with the postprocess stage's ``clip_score``), ``RequestHandle`` (a
-first-write-wins future), ``RequestQueue`` (bounded, (priority, arrival)
-order, deadline reaping, ``requeue`` at the original position) and the
-prompt-length buckets. Wire formats, tenants, streams, sample groups and
-short grids come with the HTTP server's slice.
+Port of ``dalle_pytorch_tpu/serve/scheduler.py`` (``:33-635``):
+``SamplingParams``, ``Request`` (``cfg_scale``, per-request
+classifier-free guidance; ``tenant``, carried but not yet weighted;
+``stream``, a live token sink; ``n_samples``, a best-of-N group;
+``image_seq_len_override``, a short grid), ``Result`` (the postprocess
+stage's ``clip_score``, ``weights_version``, the trace summary and a
+group's ranked ``samples``), ``RequestHandle`` (a first-write-wins
+future with its trace and sink), ``RequestQueue`` (bounded, (priority,
+arrival) order, deadline reaping, ``requeue`` at the original position,
+typed ``serve_reject`` records, ``close``/``drain`` for shutdown) and the
+prompt-length buckets. The wire formats and ``WeightedFairQueue`` come
+with the fleet tier.
+
+Overload is structured: a reject raises a ``ServeRejected`` whose
+``record`` is a ``structured_event("serve_reject", ...)`` (the HTTP
+400/429/503 body), and every terminal state is one of ``Result.status``'s
+strings.
 """
 
 from __future__ import annotations
@@ -20,8 +29,14 @@ import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from dalle_pytorch_tpu_torch.obs import trace as otrace
+from dalle_pytorch_tpu_torch.utils.metrics import structured_event
+
+# Result.status values: the full set of terminal request states
 OK = "ok"
+REJECTED = "rejected"
 DEADLINE_EXCEEDED = "deadline_exceeded"
+CANCELLED = "cancelled"
 ERROR = "error"
 
 
@@ -77,6 +92,11 @@ class InvalidRequest(ServeRejected):
     """Empty prompt, or longer than the model's text span."""
 
 
+class QueueClosed(ServeRejected):
+    """The server is shutting down: a submit racing ``close()`` gets this
+    instead of landing in a queue nobody drains."""
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     temperature: float = 1.0
@@ -97,13 +117,20 @@ class Request:
     ``cfg_scale > 0`` asks for classifier-free guidance: the engine
     admits a cond/uncond slot pair and image tokens sample from
     ``l_u + cfg_scale * (l_c - l_u)``, ``generate_images``' ``guidance``
-    (0, the default, is off)."""
+    (0, the default, is off). ``stream`` asks for a live token sink
+    (``serve/stream.py``), ``n_samples > 1`` for a best-of-N group
+    (``serve/fanout.py``), ``image_seq_len_override`` (0 = off) for a
+    short grid: decode stops once that many image tokens are sampled."""
     codes: Tuple[int, ...]
     seed: int = 0
     sampling: SamplingParams = SamplingParams()
     priority: int = 0                    # lower runs first
     deadline_s: Optional[float] = None   # relative to submit time
     cfg_scale: float = 0.0               # classifier-free guidance
+    tenant: str = ""                     # admitting tenant
+    stream: bool = False                 # live token sink wanted
+    n_samples: int = 1                   # best-of-N group size
+    image_seq_len_override: int = 0      # 0 = full grid
     request_id: int = -1                 # assigned by the queue
     submit_t: float = 0.0                # perf_counter, set by the queue
 
@@ -111,6 +138,12 @@ class Request:
         if self.cfg_scale < 0:
             raise ValueError(f"cfg_scale must be >= 0, got "
                              f"{self.cfg_scale}")
+        if self.n_samples < 1:
+            raise ValueError(f"n_samples must be >= 1, got "
+                             f"{self.n_samples}")
+        if self.image_seq_len_override < 0:
+            raise ValueError(f"image_seq_len_override must be >= 0, "
+                             f"got {self.image_seq_len_override}")
 
     @property
     def deadline_t(self) -> Optional[float]:
@@ -124,7 +157,10 @@ class Result:
     """Terminal state of a request: ``tokens`` are the image ids (no
     text offset), ``text_tokens`` the completed text span, ``image`` the
     decoded (H, W, C) image and ``clip_score`` its CLIP score against
-    ``text_tokens`` when postprocessing ran them."""
+    ``text_tokens`` when postprocessing ran them. ``weights_version``
+    names the weights that decoded the tokens, ``trace`` is the handle's
+    trace summary (``obs/trace.py``) and ``samples`` a group's member
+    results, best first."""
     status: str
     request_id: int
     tokens: object = None
@@ -132,9 +168,12 @@ class Result:
     image: object = None
     clip_score: Optional[float] = None
     reason: str = ""
+    weights_version: str = ""
     queued_s: float = 0.0
     decode_s: float = 0.0
     total_s: float = 0.0
+    trace: Optional[dict] = None
+    samples: Optional[list] = None
 
     @property
     def ok(self) -> bool:
@@ -142,15 +181,23 @@ class Result:
 
 
 class RequestHandle:
-    """Future for one request. ``fulfill`` is first-write-wins."""
+    """Future for one request. ``fulfill`` is first-write-wins, attaches
+    the trace summary and closes the sink: every terminal path
+    (completion, postprocess, expiry, error, cancel) goes through it, so
+    a stream ends exactly once."""
 
     def __init__(self, request: Request):
         self.request = request
         self._done = threading.Event()
         self._result: Optional[Result] = None
         self._lock = threading.Lock()
+        # the request's span timeline, attached at submit (None for
+        # hand-built handles, which trace nothing)
+        self.trace: Optional[otrace.Trace] = None
         # arrival order within the priority class; a requeue keeps it
         self.queue_seq: int = -1
+        # the live TokenSink of a streamed request (serve/stream.py)
+        self.sink = None
 
     def done(self) -> bool:
         return self._done.is_set()
@@ -159,8 +206,18 @@ class RequestHandle:
         with self._lock:
             if self._done.is_set():
                 return False
+            if self.trace is not None and result.trace is None:
+                result.trace = self.trace.summary()
             self._result = result
             self._done.set()
+        # outside the lock: closing the sink can wake a consumer that
+        # calls back into the handle; a sink failure must not lose the
+        # result
+        if self.sink is not None:
+            try:
+                self.sink.close(result)
+            except Exception:   # noqa: BLE001
+                pass
         return True
 
     def result(self, timeout: Optional[float] = None) -> Result:
@@ -173,44 +230,82 @@ class RequestHandle:
 
 class RequestQueue:
     """Bounded, thread-safe priority queue: ``submit`` raises
-    ``QueueFull``/``InvalidRequest``; ``pop_ready`` hands out up to ``n``
-    requests in (priority, arrival) order and separates those whose
-    deadline already passed."""
+    ``QueueFull``, ``InvalidRequest`` (empty, or longer than
+    ``max_prompt_len``) or, after ``close()``, ``QueueClosed``, each with
+    its ``serve_reject`` record (also handed to ``on_event``), and counts
+    ``rejected``; ``pop_ready`` hands out up to ``n`` requests in
+    (priority, arrival) order and separates those whose deadline already
+    passed."""
 
     def __init__(self, max_depth: int = 64,
                  max_prompt_len: Optional[int] = None,
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 on_event=None):
         self.max_depth = int(max_depth)
         self.max_prompt_len = max_prompt_len
         self.clock = clock
+        self.on_event = on_event
         self._heap: list = []
         self._seq = itertools.count()
         self._lock = threading.Lock()
+        self._closed = False
+        self._drained = False
         self.submitted = 0
+        self.rejected = 0
         self.requeued = 0
 
     def depth(self) -> int:
         with self._lock:
             return len(self._heap)
 
-    def submit(self, request: Request) -> RequestHandle:
+    def close(self) -> None:
+        """Refuse further submits (``QueueClosed``); set before the
+        shutdown drain so no submit lands after it."""
+        with self._lock:
+            self._closed = True
+
+    def _reject(self, exc_type, **fields):
+        self.rejected += 1
+        record = structured_event("serve_reject", **fields)
+        if self.on_event is not None:
+            self.on_event(record)
+        raise exc_type(record)
+
+    def submit(self, request: Request, sink=None) -> RequestHandle:
+        """``sink`` (a ``TokenSink``) is attached HERE, under the lock
+        that publishes the handle: attached after, the engine thread
+        could pop, prefill and harvest the first chunk before it."""
         now = self.clock()
         with self._lock:
+            if self._closed:
+                self._reject(QueueClosed, reason="queue_closed",
+                             queue_depth=len(self._heap),
+                             priority=request.priority)
             n = len(request.codes)
             if n == 0 or (self.max_prompt_len is not None
                           and n > self.max_prompt_len):
-                raise InvalidRequest({"reason": "invalid_prompt",
-                                      "prompt_len": n,
-                                      "queue_depth": len(self._heap)})
+                self._reject(InvalidRequest, reason="invalid_prompt",
+                             prompt_len=n,
+                             max_prompt_len=self.max_prompt_len,
+                             queue_depth=len(self._heap),
+                             priority=request.priority)
             if len(self._heap) >= self.max_depth:
-                raise QueueFull({"reason": "queue_full",
-                                 "queue_depth": len(self._heap)})
-            request = dataclasses.replace(request,
-                                          request_id=self.submitted,
-                                          submit_t=now)
+                self._reject(QueueFull, reason="queue_full",
+                             queue_depth=len(self._heap),
+                             max_depth=self.max_depth,
+                             priority=request.priority)
+            rid = self.submitted
             self.submitted += 1
+            request = dataclasses.replace(request, request_id=rid,
+                                          submit_t=now)
             handle = RequestHandle(request)
             handle.queue_seq = next(self._seq)
+            handle.sink = sink
+            # every submitted request is traced: the zero-length submit
+            # span anchors the timeline where the caller's clock starts
+            otrace.attach(handle, rid, now).span(
+                "submit", now, priority=int(request.priority),
+                prompt_len=n)
             heapq.heappush(self._heap, (request.priority, handle.queue_seq,
                                         handle))
             return handle
@@ -218,10 +313,17 @@ class RequestQueue:
     def requeue(self, handle: RequestHandle, count: bool = True) -> None:
         """Put an admitted request back at its ORIGINAL arrival position
         (``(priority, queue_seq)``): page backpressure and eviction. Not
-        subject to ``max_depth``; a handle already in line is not added
-        twice. ``count=False`` leaves it out of ``requeued`` (a plain
+        subject to ``max_depth`` or ``close()``; a handle already in line
+        is not added twice, and one arriving after ``drain()`` is
+        fulfilled ``cancelled`` on the spot (nobody pops a drained
+        queue). ``count=False`` leaves it out of ``requeued`` (a plain
         hand-off, not backpressure)."""
         with self._lock:
+            if self._drained:
+                handle.fulfill(Result(
+                    status=CANCELLED, request_id=handle.request.request_id,
+                    reason="server shutdown"))
+                return
             if any(entry[2] is handle for entry in self._heap):
                 return
             if count:
@@ -246,3 +348,12 @@ class RequestQueue:
             while self._heap and len(ready) < n:
                 ready.append(heapq.heappop(self._heap)[2])
         return ready, [e[2] for e in dead]
+
+    def drain(self) -> List[RequestHandle]:
+        """Remove and return everything still queued (shutdown: the
+        server fulfils them ``cancelled``); the queue is dead after."""
+        with self._lock:
+            self._drained = True
+            out = [h for _, _, h in self._heap]
+            self._heap.clear()
+        return out

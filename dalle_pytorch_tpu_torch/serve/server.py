@@ -1,0 +1,728 @@
+"""Serving front end: the threaded Python API and the standard-library
+HTTP server.
+
+Port of the single-engine path of ``dalle_pytorch_tpu/serve/server.py``
+(``InferenceServer`` ``:34-896``, ``make_http_server`` and ``serve_http``
+``:898-1152``). ``InferenceServer`` wires ``scheduler.RequestQueue``
+(admission) -> ``engine.Engine`` (slot-batched decode, its own thread) ->
+``postprocess.PostProcessor`` (VAE and CLIP, its own thread) and owns
+their lifecycle; ``start()`` claims the device under the deadline,
+backoff and jitter of ``resilience.retry``, so a claim that hangs or
+fails surfaces as a ``BringupError``.
+
+The device work stays on the default stream of two threads, the
+engine's and the postprocess worker's (K4's split merge shares one
+counter buffer per device and relies on launch order, see
+``ops/paged_attention.py::_counters``); an HTTP thread only reads host
+state and host copies.
+
+Two call surfaces:
+
+* Python: ``submit(codes, ...) -> RequestHandle`` (a ``GroupFuture`` for
+  ``n_samples > 1``), ``generate``, ``stats()``, ``health()``;
+* HTTP (``make_http_server`` / ``serve_http``): ``POST /generate``
+  ``{"codes": [...] | "caption": "...", knobs...}`` answers the result's
+  JSON body, or an SSE stream with ``"stream": true``; ``GET /healthz``,
+  ``/stats``, ``/metrics`` (Prometheus text) and ``/debug/events`` (the
+  flight recorder); ``POST /admin/scale`` and ``/admin/profile`` behind
+  the admin token. Status codes and bodies are the JAX server's.
+
+The replica set, process isolation, transports, the autoscaler and the
+gateway are the fleet tier (ROADMAP.md queue 1 item 5): their keywords
+are not taken here (``TypeError``), and ``scale()`` answers the typed
+``not_a_replica_set`` refusal.
+"""
+
+from __future__ import annotations
+
+import json
+import secrets
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, List, Optional
+
+import torch
+
+from dalle_pytorch_tpu_torch.device import resolve_device
+from dalle_pytorch_tpu_torch.obs import registry as obs_registry
+from dalle_pytorch_tpu_torch.serve import auth
+from dalle_pytorch_tpu_torch.serve import engine as engine_mod
+from dalle_pytorch_tpu_torch.serve import fanout
+from dalle_pytorch_tpu_torch.serve import postprocess as post_mod
+from dalle_pytorch_tpu_torch.serve import scheduler as S
+from dalle_pytorch_tpu_torch.serve import stream as stream_mod
+from dalle_pytorch_tpu_torch.serve.engine import ProfileError
+
+
+class ScaleError(RuntimeError):
+    """Typed refusal of an operator reshape (``POST /admin/scale``):
+    ``record`` is the ``serve_scale_reject`` event, the HTTP 409 body. A
+    single engine has no replica set to reshape."""
+
+    def __init__(self, record: dict):
+        super().__init__(f"{record.get('reason', 'scale rejected')} "
+                         f"(op={record.get('op')})")
+        self.record = record
+
+
+class InferenceServer:
+    """Continuous-batching text -> image service on one engine, its own
+    thread, and a postprocess worker.
+
+    ``model`` and ``vae`` are the port's ``DALLE`` and ``VAEDecoder`` on
+    the server's device (the card unless ``device`` says otherwise);
+    ``clip`` scores every image. The other keywords are the JAX
+    server's single-engine ones."""
+
+    def __init__(self, model, vae, *, clip=None,
+                 num_slots: int = 4, queue_depth: int = 64,
+                 chunk_steps: int = 8,
+                 prefill_buckets=None,
+                 quantize_cache: bool = False,
+                 kv: str = "dense",
+                 page_size: int = 0,
+                 num_pages: int = 0,
+                 paged_attn: str = "gather",
+                 sparse_reads: bool = False,
+                 speculative: int = 0,
+                 draft_layers: int = 0,
+                 prefix_cache: bool = False,
+                 preview_every: int = 0,
+                 stream_max_events: int = 256,
+                 default_cfg_scale: float = 0.0,
+                 weights_version: str = "0",
+                 admin_token: Optional[str] = None,
+                 decode_images: bool = True,
+                 metrics=None, log_every: int = 50,
+                 profile_dir: Optional[str] = None,
+                 encode: Optional[Callable[[str], List[int]]] = None,
+                 init_deadline_s: float = 0.0, init_retries: int = 3,
+                 device=None):
+        self.device = resolve_device(device)
+        cfg = self.cfg = model.cfg
+        self.metrics = metrics
+        self.encode = encode
+        # the default directory of POST /admin/profile captures
+        self.profile_dir = profile_dir or None
+        # guidance for a request that does not carry its own cfg_scale
+        self.default_cfg_scale = float(default_cfg_scale)
+        if self.default_cfg_scale < 0:
+            raise ValueError(f"default_cfg_scale must be >= 0, got "
+                             f"{default_cfg_scale}")
+        self.init_deadline_s = init_deadline_s
+        self.init_retries = init_retries
+        # /admin/* authenticate against this (generated when not given)
+        self.admin_token = admin_token or secrets.token_hex(16)
+        self.weights_version = str(weights_version)
+
+        self.queue = S.RequestQueue(
+            max_depth=queue_depth,
+            # a prompt the slots cannot hold is refused here (HTTP 400)
+            max_prompt_len=cfg.text_seq_len,
+            on_event=self._queue_event)
+        self.engine = engine_mod.Engine(
+            model, self.queue, num_slots=num_slots,
+            chunk_steps=chunk_steps, prefill_buckets=prefill_buckets,
+            complete=self._on_decoded, metrics=metrics,
+            log_every=log_every, quantize_cache=quantize_cache,
+            kv=kv, page_size=page_size, num_pages=num_pages,
+            paged_attn=paged_attn, sparse_reads=sparse_reads,
+            speculative=speculative, draft_layers=draft_layers,
+            prefix_cache=prefix_cache, preview_every=preview_every,
+            weights_version=self.weights_version,
+            model_version=self.weights_version, device=self.device)
+
+        # after the engine, so its events tee into the engine's ring
+        self.post = None
+        if decode_images:
+            self.post = post_mod.PostProcessor(
+                vae, model, clip=clip, metrics=self.engine.metrics,
+                on_fulfill=self._record_latency)
+
+        # streams and groups
+        self.stream_max_events = int(stream_max_events)
+        self.preview_every = int(preview_every)
+        if self.post is not None and preview_every:
+            self.engine.on_preview = self.post.submit_preview
+        # live registries, swept at stats() time: sinks whose channel has
+        # not ended (streams_active) and groups not yet assembled
+        # (groups_in_flight); a completed group under paged + prefix
+        # banks the pages its siblings' prompts shared
+        self._streams: list = []
+        self._groups: list = []
+        self._stream_lock = threading.Lock()
+        self.fanout_pages_saved = 0
+        self.groups_completed = 0
+        self._page_size = self.engine.page_size if kv == "paged" else 0
+        self._cow_sharing = (kv == "paged" and prefix_cache)
+
+        # /metrics: the sliding-window latency histograms, labelled by
+        # weights_version; counters and gauges are read from stats() at
+        # each scrape
+        self.registry = obs_registry.Registry()
+        self.hist_e2e = self.registry.histogram(
+            "dalle_serve_e2e_latency_seconds",
+            "End-to-end latency of successful requests "
+            "(submit -> caller-visible fulfilment)")
+        self.hist_queue_wait = self.registry.histogram(
+            "dalle_serve_queue_wait_seconds",
+            "Queue wait of successful requests (submit -> admission)")
+        self.hist_prefill = self.registry.histogram(
+            "dalle_serve_prefill_seconds",
+            "Prefill/admission span per successful request "
+            "(pop -> slotted; trace span prefill_admit)",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0, 2.5, 5.0))
+        self.hist_ms_per_token = self.registry.histogram(
+            "dalle_serve_decode_ms_per_token",
+            "Decode milliseconds per generated token, per successful "
+            "request",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0,
+                     50.0, 100.0, 250.0, 1000.0))
+        self._profile_arm_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- stage glue ---------------------------------------------------------
+
+    def _queue_event(self, rec: dict) -> None:
+        # submit-time rejects: the flight ring, and the JSONL sink if any
+        self.engine.flight.record(rec)
+        if self.metrics is not None:
+            self.metrics.event(**rec)
+
+    def _record_latency(self, result: S.Result) -> None:
+        """The histogram feed, once per DELIVERED request (it runs at the
+        one fulfilment funnel): successes only, so a failing dependency
+        cannot deflate the percentiles."""
+        if not result.ok:
+            return
+        v = result.weights_version or ""
+        self.hist_e2e.observe(result.total_s, weights_version=v)
+        self.hist_queue_wait.observe(result.queued_s, weights_version=v)
+        if result.tokens is not None and result.decode_s > 0:
+            self.hist_ms_per_token.observe(
+                1e3 * result.decode_s / max(len(result.tokens), 1),
+                weights_version=v)
+        tr = result.trace
+        if tr is not None:
+            prefill = sum(s["total_s"] for s in tr.get("spans", ())
+                          if s.get("name") == "prefill_admit")
+            if prefill > 0:
+                self.hist_prefill.observe(prefill, weights_version=v)
+
+    def _on_decoded(self, handle: S.RequestHandle,
+                    result: S.Result) -> None:
+        if self.post is not None:
+            # latency is recorded by the worker's on_fulfill, after the
+            # VAE and CLIP time is in total_s
+            self.post.submit(handle, result)
+            return
+        tr = handle.trace
+        if tr is not None and result.trace is None:
+            result.trace = tr.summary()
+        self._record_latency(result)
+        handle.fulfill(result)
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def _claim(self, attempt: int) -> str:
+        """One claim of the server's device: ``torch.cuda.init()`` and
+        one allocation there. Raises where there is no card."""
+        from dalle_pytorch_tpu_torch.resilience import faults
+        faults.maybe_activate_from_env()
+        faults.on_backend_init(attempt)
+        if self.device.type == "cuda":
+            torch.cuda.init()
+        torch.empty((1,), device=self.device).zero_()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return str(self.device)
+
+    def start(self) -> "InferenceServer":
+        """Claim the device (deadline-bounded, retried with backoff) and
+        start the postprocess and engine threads."""
+        from dalle_pytorch_tpu_torch.resilience import retry as rretry
+        policy = rretry.RetryPolicy(
+            max_attempts=max(self.init_retries, 1),
+            deadline_s=self.init_deadline_s or None)
+        rretry.retry_with_backoff(
+            self._claim, policy, label="serve_backend_init",
+            on_event=(lambda rec: self.metrics.resilience(
+                rec.get("kind", "bringup_retry"),
+                **{k: v for k, v in rec.items()
+                   if k not in ("time", "event", "kind")})
+            ) if self.metrics is not None else None)
+        if self.post is not None:
+            self.post.start()
+        self._thread = threading.Thread(
+            target=self.engine.run, args=(self._stop,), daemon=True,
+            name="serve-engine")
+        self._thread.start()
+        return self
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Close the queue (a racing submit gets ``QueueClosed``), stop
+        and join the engine thread, cancel everything queued and every
+        in-slot request (typed results), then drain the postprocess
+        stage. The drain comes after the engine stops, so a late requeue
+        is cancelled on the spot."""
+        self.queue.close()
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+        for handle in self.queue.drain():
+            handle.fulfill(S.Result(
+                status=S.CANCELLED, request_id=handle.request.request_id,
+                reason="server shutdown"))
+        self.engine.cancel_active("server shutdown")
+        if self.post is not None:
+            self.post.close(timeout)
+
+    # -- the Python API -----------------------------------------------------
+
+    def submit(self, codes, *, seed: int = 0, temperature: float = 1.0,
+               filter_thres: float = 0.5, top_p: float = 0.0,
+               priority: int = 0,
+               deadline_s: Optional[float] = None,
+               cfg_scale: Optional[float] = None,
+               tenant: str = "",
+               stream: bool = False,
+               n_samples: int = 1,
+               image_seq_len_override: int = 0):
+        """Enqueue one request. Raises a ``scheduler.ServeRejected``:
+        ``QueueFull``, ``InvalidRequest`` (empty or over-long prompt),
+        ``QueueClosed`` after ``close()``. ``stream=True`` attaches a
+        ``TokenSink`` (the handle's ``.sink``); ``n_samples > 1`` admits a
+        best-of-N group and returns its ``GroupFuture``;
+        ``image_seq_len_override`` caps the image span."""
+        if cfg_scale is None:
+            cfg_scale = self.default_cfg_scale
+        request = S.Request(
+            codes=tuple(int(c) for c in codes), seed=seed,
+            sampling=S.SamplingParams(temperature=temperature,
+                                      filter_thres=filter_thres,
+                                      top_p=top_p),
+            priority=priority, deadline_s=deadline_s,
+            cfg_scale=float(cfg_scale), tenant=str(tenant),
+            stream=bool(stream), n_samples=int(n_samples),
+            image_seq_len_override=int(image_seq_len_override))
+        if request.n_samples > 1:
+            group = fanout.submit_group(
+                self.queue, request, metrics=self.metrics,
+                max_events=self.stream_max_events)
+            with self._stream_lock:
+                self._groups.append(group)
+                if group.sink is not None:
+                    self._streams.append(group.sink)
+            return group
+        sink = None
+        if request.stream:
+            sink = stream_mod.TokenSink(max_events=self.stream_max_events,
+                                        metrics=self.metrics)
+        handle = self.queue.submit(request, sink=sink)
+        if sink is not None:
+            sink.request_id = handle.request.request_id
+            with self._stream_lock:
+                self._streams.append(sink)
+        return handle
+
+    def _sweep_streams(self) -> None:
+        """Retire finished streams and groups and bank each completed
+        group's shared prompt pages (called by ``stats()``)."""
+        with self._stream_lock:
+            self._streams = [s for s in self._streams if not s.done]
+            still = []
+            for g in self._groups:
+                if not g.done():
+                    still.append(g)
+                    continue
+                self.groups_completed += 1
+                if self._cow_sharing:
+                    self.fanout_pages_saved += fanout.group_pages_saved(
+                        g.request.n_samples, len(g.request.codes),
+                        self._page_size)
+            self._groups = still
+
+    def generate(self, codes, timeout: Optional[float] = None,
+                 **kwargs) -> S.Result:
+        """Submit and wait."""
+        return self.submit(codes, **kwargs).result(timeout)
+
+    def engine_alive(self) -> bool:
+        """True while the serving loop runs (or before start)."""
+        return self._thread is None or self._thread.is_alive()
+
+    def health(self) -> dict:
+        """The /healthz body; ``ok`` False (HTTP 503) once the engine
+        thread has died."""
+        return {"ok": self.engine_alive(), "devices_per_replica": 1,
+                "mesh_shape": None}
+
+    def scale(self, op: str, **kwargs) -> dict:
+        """``POST /admin/scale``: a single engine is no replica set."""
+        raise ScaleError(S.structured_event(
+            "serve_scale_reject", op=op, reason="not_a_replica_set"))
+
+    def stats(self) -> dict:
+        out = self.engine.stats()
+        e2e_ps = self.hist_e2e.percentiles((0.50, 0.95, 0.99))
+        out.update({
+            "requests_submitted": self.queue.submitted,
+            # the histogram windows are the one latency source (the same
+            # samples /metrics exposes)
+            "p50_latency_s": round(e2e_ps[0.50], 4),
+            "p95_latency_s": round(e2e_ps[0.95], 4),
+            "latency_ms": {
+                "e2e": {f"p{int(q * 100)}": round(1e3 * e2e_ps[q], 3)
+                        for q in (0.50, 0.95, 0.99)},
+                "queue_wait": self.hist_queue_wait.percentiles_ms(),
+            },
+            "postprocess_pending": (self.post.pending()
+                                    if self.post is not None else 0),
+        })
+        self._sweep_streams()
+        with self._stream_lock:
+            out.update({
+                "streams_active": len(self._streams),
+                "groups_in_flight": len(self._groups),
+                "groups_completed": self.groups_completed,
+                "fanout_pages_saved": self.fanout_pages_saved,
+            })
+        out["preview_frames"] = (self.post.preview_frames
+                                 if self.post is not None else 0)
+        out["preview_drops"] = (self.post.preview_drops
+                                if self.post is not None else 0)
+        return out
+
+    # -- /metrics (Prometheus text exposition) ------------------------------
+
+    # (stats key, metric name, help): counters are lifetime totals, gauges
+    # point-in-time; a key absent from stats() renders nothing
+    _COUNTER_METRICS = (
+        ("requests_submitted", "dalle_serve_requests_submitted_total",
+         "Requests accepted by the admission queue"),
+        ("completed", "dalle_serve_requests_completed_total",
+         "Requests decoded to completion"),
+        ("expired", "dalle_serve_requests_expired_total",
+         "Requests that exceeded their deadline (queued or decoding)"),
+        ("rejected", "dalle_serve_requests_rejected_total",
+         "Typed submit-time rejections (queue full / invalid / closed)"),
+        ("tokens_decoded", "dalle_serve_tokens_decoded_total",
+         "Distinct delivered image tokens (replay-safe accounting)"),
+        ("decode_steps", "dalle_serve_decode_steps_total",
+         "Fused decode steps dispatched (chunks x K)"),
+        ("harvests", "dalle_serve_harvests_total",
+         "Emit-ring host reads (the only steady-state host waits)"),
+        ("evicted", "dalle_serve_evicted_total",
+         "Paged-pool evictions (victims replay token-exact)"),
+        ("requeued", "dalle_serve_requeued_total",
+         "Requeues from eviction/page-defer/failover"),
+        ("prefix_hits", "dalle_serve_prefix_hits_total",
+         "Warm prefix-cache admissions (zero prefill FLOPs)"),
+        ("profiles_taken", "dalle_serve_profiles_taken_total",
+         "Completed POST /admin/profile captures"),
+        ("reaped", "dalle_serve_reaped_total",
+         "Slots freed because the handle terminated externally "
+         "(stream disconnect, group cancel, hedge loser)"),
+        ("preview_frames", "dalle_serve_preview_frames_total",
+         "Progressive preview frames decoded and delivered"),
+        ("groups_completed", "dalle_serve_groups_completed_total",
+         "Best-of-N sample groups assembled to a ranked result"),
+        ("fanout_pages_saved", "dalle_serve_fanout_pages_saved_total",
+         "KV pages COW prompt sharing saved across completed groups"),
+    )
+    _GAUGE_METRICS = (
+        ("queue_depth", "dalle_serve_queue_depth",
+         "Requests waiting in the admission queue(s)"),
+        ("active_slots", "dalle_serve_active_slots",
+         "Slots currently decoding"),
+        ("num_slots", "dalle_serve_num_slots",
+         "Total decode slots across live replicas"),
+        ("pages_in_use", "dalle_serve_pages_in_use",
+         "Physical KV pages mapped (shared pages counted once)"),
+        ("pages_free", "dalle_serve_pages_free",
+         "KV pages on the free list"),
+        ("kv_hbm_bytes", "dalle_serve_kv_hbm_bytes",
+         "Resident HBM bytes of the KV store"),
+        ("postprocess_pending", "dalle_serve_postprocess_pending",
+         "Completions queued for VAE/CLIP postprocess"),
+        ("flight_events", "dalle_serve_flight_events",
+         "Records currently retained in the flight ring(s)"),
+        ("mean_occupancy", "dalle_serve_mean_occupancy",
+         "Mean busy slots per dispatched decode step"),
+        ("profile_active", "dalle_serve_profile_active",
+         "1 while a torch.profiler capture is in flight"),
+        ("streams_active", "dalle_serve_streams_active",
+         "SSE/token streams currently open (a group counts once)"),
+        ("groups_in_flight", "dalle_serve_groups_in_flight",
+         "Best-of-N sample groups still decoding"),
+    )
+
+    def metrics_text(self) -> str:
+        """The ``GET /metrics`` page: counters and gauges from
+        ``stats()``, the serving identity, the latency histograms."""
+        stats = self.stats()
+        counters = [(name, help_text, [(None, stats[key])])
+                    for key, name, help_text in self._COUNTER_METRICS
+                    if stats.get(key) is not None]
+        gauges = [(name, help_text, [(None, stats[key])])
+                  for key, name, help_text in self._GAUGE_METRICS
+                  if stats.get(key) is not None]
+        gauges.append(("dalle_serve_info",
+                       "Serving identity (labels carry the facts)",
+                       [({"weights_version": self.weights_version,
+                          "kv": str(stats.get("kv", "")),
+                          "isolation": "thread"}, 1)]))
+        return self.registry.render(counters=counters, gauges=gauges)
+
+    # -- /debug/events and /admin/profile -----------------------------------
+
+    def debug_events(self) -> dict:
+        """What the flight recorder holds."""
+        return {"server": self.engine.flight.dump(), "replicas": {},
+                "fenced": {}}
+
+    def profile(self, log_dir: Optional[str] = None, chunks: int = 8,
+                replica: int = 0) -> dict:
+        """Arm a torch.profiler capture over the engine's next ``chunks``
+        decode chunks (``Engine.request_profile``), written under
+        ``log_dir`` or the server's ``profile_dir``; neither is a typed
+        refusal, and so is a capture already armed or running."""
+        log_dir = log_dir or self.profile_dir
+        if not log_dir:
+            raise ProfileError(S.structured_event(
+                "serve_profile_reject", reason="no_profile_dir",
+                detail="pass 'dir' in the request body or start the "
+                       "server with --profile_dir"))
+        with self._profile_arm_lock:
+            rec = dict(self.engine.request_profile(str(log_dir),
+                                                   chunks=chunks))
+        rec["replica"] = 0
+        return rec
+
+
+# ---------------------------------------------------------------------------
+# HTTP front end
+# ---------------------------------------------------------------------------
+
+_HTTP_STATUS = {S.OK: 200, S.REJECTED: 429, S.DEADLINE_EXCEEDED: 504,
+                S.CANCELLED: 503, S.ERROR: 500}
+
+
+def _result_body(result: S.Result) -> dict:
+    body = {"status": result.status, "request_id": result.request_id,
+            "reason": result.reason, "queued_s": result.queued_s,
+            "decode_s": result.decode_s, "total_s": result.total_s}
+    if result.weights_version:
+        body["weights_version"] = result.weights_version
+    if result.trace is not None:
+        body["trace"] = result.trace
+    if result.tokens is not None:
+        body["tokens"] = [int(t) for t in result.tokens]
+    if result.image is not None:
+        # pixels are bulky as JSON: the shape here, the bytes on a
+        # stream's final preview frame
+        body["image_shape"] = list(result.image.shape)
+    if result.clip_score is not None:
+        body["clip_score"] = result.clip_score
+    if result.samples is not None:
+        # best-of-N: the ranked members, best first (the fields above
+        # describe the best)
+        body["samples"] = [_result_body(r) for r in result.samples]
+    return body
+
+
+def make_http_server(server: InferenceServer, host: str = "127.0.0.1",
+                     port: int = 8000,
+                     request_timeout_s: float = 600.0) -> ThreadingHTTPServer:
+    """An HTTP facade over ``server``: one thread a connection; POST
+    /generate holds its connection until the request completes (the
+    engine's slots set the concurrency, not the HTTP layer)."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):    # quiet: metrics are the record
+            pass
+
+        def _send(self, code: int, body: dict) -> None:
+            data = json.dumps(body).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _send_text(self, code: int, text: str, ctype: str) -> None:
+            data = text.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _json_body(self) -> dict:
+            n = int(self.headers.get("Content-Length", "0"))
+            req = json.loads(self.rfile.read(n) or b"{}")
+            if not isinstance(req, dict):
+                raise ValueError(f"body must be a JSON object, "
+                                 f"got {type(req).__name__}")
+            return req
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                body = server.health()
+                self._send(200 if body["ok"] else 503, body)
+            elif self.path == "/stats":
+                self._send(200, server.stats())
+            elif self.path == "/metrics":
+                self._send_text(
+                    200, server.metrics_text(),
+                    "text/plain; version=0.0.4; charset=utf-8")
+            elif self.path == "/debug/events":
+                self._send(200, server.debug_events())
+            else:
+                self._send(404, {"error": f"no route {self.path}"})
+
+        def _admin_scale(self):
+            """401 without the admin token (Bearer or X-Admin-Token),
+            400 without an 'op', 409 with the typed refusal."""
+            if not auth.check_http(self.headers, server.admin_token):
+                self._send(401, {"error": "bad admin token"})
+                return
+            try:
+                req = self._json_body()
+                op = str(req.pop("op"))
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, {"error": f"need a JSON body with "
+                                          f"'op': {e}"})
+                return
+            try:
+                self._send(200, server.scale(op, **req))
+            except ScaleError as e:
+                self._send(409, e.record)
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, {"error": str(e)})
+
+        def _admin_profile(self):
+            """{"dir": ..., "chunks": K, "replica": i}, all optional; 401
+            without the admin token, 409 while a capture is active."""
+            if not auth.check_http(self.headers, server.admin_token):
+                self._send(401, {"error": "bad admin token"})
+                return
+            try:
+                req = self._json_body()
+                rec = server.profile(
+                    log_dir=req.get("dir"),
+                    chunks=int(req.get("chunks", 8)),
+                    replica=int(req.get("replica", 0)))
+            except ProfileError as e:
+                self._send(409, e.record)
+                return
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, {"error": str(e)})
+                return
+            self._send(200, rec)
+
+        def do_POST(self):
+            if self.path == "/admin/scale":
+                self._admin_scale()
+                return
+            if self.path == "/admin/profile":
+                self._admin_profile()
+                return
+            if self.path != "/generate":
+                self._send(404, {"error": f"no route {self.path}"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", "0"))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                codes = req.get("codes")
+                if codes is None and "caption" in req:
+                    if server.encode is None:
+                        raise ValueError("server has no vocab; send "
+                                         "'codes', not 'caption'")
+                    codes = server.encode(req["caption"])
+                if not codes:
+                    raise ValueError("need non-empty 'codes' or 'caption'")
+                kwargs = {k: req[k] for k in
+                          ("seed", "temperature", "filter_thres", "top_p",
+                           "priority", "deadline_s", "cfg_scale",
+                           "stream", "n_samples",
+                           "image_seq_len_override")
+                          if k in req}
+                handle = server.submit(codes, **kwargs)
+            except S.InvalidRequest as e:
+                self._send(400, e.record)       # caller error, not load
+                return
+            except S.QueueClosed as e:
+                self._send(503, e.record)       # shutting down
+                return
+            except S.ServeRejected as e:
+                self._send(429, e.record)       # backpressure
+                return
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, {"error": str(e)})
+                return
+            sink = getattr(handle, "sink", None)
+            if sink is not None:
+                self._stream_sse(handle, sink)
+                return
+            try:
+                result = handle.result(timeout=request_timeout_s)
+            except TimeoutError as e:
+                self._send(504, {"error": str(e)})
+                return
+            self._send(_HTTP_STATUS.get(result.status, 500),
+                       _result_body(result))
+
+        def _stream_sse(self, handle, sink) -> None:
+            """Server-sent events with no Content-Length (the closed
+            connection ends the stream); a heartbeat every 5 s of quiet;
+            the terminal ``result`` frame carries the result body. A torn
+            connection cancels the request (or the group): the engine
+            then reaps its slots and pages, and the stream's undelivered
+            events are dropped (the JAX server keeps them, and with them
+            the stream in ``streams_active``)."""
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            self.close_connection = True
+            try:
+                for ev in sink.events(heartbeat_s=5.0):
+                    self.wfile.write(stream_mod.sse_bytes(ev))
+                    self.wfile.flush()
+                result = handle.result(timeout=request_timeout_s)
+                self.wfile.write(stream_mod.sse_bytes(
+                    {"event": "result", **_result_body(result)}))
+                self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError, OSError):
+                handle.fulfill(S.Result(
+                    status=S.CANCELLED,
+                    request_id=handle.request.request_id,
+                    reason="client disconnected mid-stream"))
+                # nobody reads this stream any more: drop what it holds,
+                # so the sweep retires it (streams_active)
+                while sink.get(timeout=0) is not None:
+                    pass
+            except TimeoutError:
+                pass    # the stream already delivered what it had
+
+    httpd = ThreadingHTTPServer((host, port), Handler)
+    httpd.daemon_threads = True
+    return httpd
+
+
+def serve_http(server: InferenceServer, host: str = "127.0.0.1",
+               port: int = 8000) -> None:
+    """Blocking HTTP loop (``cli/serve.py``'s main); Ctrl-C shuts the
+    pipeline down cleanly."""
+    httpd = make_http_server(server, host, port)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        server.close()

@@ -195,8 +195,8 @@ def test_pool_floor_and_page_size_gates(bundle):
         Engine(model, q, prefix_cache=True, device="cpu")
     with pytest.raises(ValueError, match="kv must be"):
         Engine(model, q, kv="ragged", device="cpu")
-    with pytest.raises(TypeError):
-        Engine(model, q, preview_every=2, device="cpu")
+    with pytest.raises(ValueError, match="preview_every"):
+        Engine(model, q, preview_every=-1, device="cpu")
 
 
 def test_prefix_cache_matches_jax_and_returns_every_page(bundle):

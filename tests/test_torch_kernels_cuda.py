@@ -1294,3 +1294,52 @@ def test_checkpoint_from_card_tensors_restores_on_the_card_bit_for_bit(
                                opt.adam.state[old[n]][key]), (n, key)
         assert fema[n].device.type == "cuda"
         assert torch.equal(fema[n], ema[n]), n
+
+
+@pytest.mark.cuda
+def test_tiny_server_on_card_gives_the_cpu_tokens(cuda):
+    """The tiny ``InferenceServer`` (paged, page 8, the kernel read, the
+    prefix cache, previews) in float32 on the card, through K4, against
+    the same server on the CPU (K4's plain version): identical tokens for
+    a plain request, a stream (its token events end in the plain tokens,
+    its last preview frame is its image) and a best-of-2 group."""
+    import copy
+    from dalle_pytorch_tpu_torch.serve import server as SRV
+    from dalle_pytorch_tpu_torch.serve import stream as ST
+    vcfg = TV.VAEConfig(image_size=16, num_tokens=32, codebook_dim=32,
+                        num_layers=2, hidden_dim=8)
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
+                         text_seq_len=8, heads=2, dim_head=16)
+    vae = TV.vae_init(vcfg, seed=1, device="cpu")
+    model = TD.dalle_init(cfg, seed=2, vae=vae, device="cpu")
+    got = {}
+    for dev in ("cpu", cuda):
+        srv = SRV.InferenceServer(
+            copy.deepcopy(model).to(dev), copy.deepcopy(vae).to(dev),
+            num_slots=4, chunk_steps=2, kv="paged", page_size=8,
+            paged_attn="kernel", prefix_cache=True, preview_every=2,
+            device=dev).start()
+        launches = PA.paged_decode_attention.launches
+        try:
+            plain = srv.submit([3, 7, 9], seed=11).result(timeout=120)
+            streamed = srv.submit([3, 7, 9], seed=11, stream=True)
+            events = list(streamed.sink.events())
+            sres = streamed.result(timeout=120)
+            group = srv.submit([5, 2, 8], seed=4, n_samples=2)
+            gres = group.result(timeout=120)
+        finally:
+            srv.close()
+        ran = PA.paged_decode_attention.launches - launches
+        assert plain.ok and sres.ok and gres.ok
+        toks = [t for e in events if e["event"] == "tokens"
+                for t in e["tokens"]]
+        assert toks[-cfg.image_seq_len:] == list(plain.tokens)
+        frames = [e for e in events if e["event"] == "preview"]
+        assert frames[-1]["final"]
+        np.testing.assert_array_equal(ST.unpack_image(frames[-1]["image"]),
+                                      sres.image)
+        if dev != "cpu":
+            assert ran == cfg.depth * srv.engine.decode_steps
+        got[str(dev)] = (list(plain.tokens), list(sres.tokens),
+                         [list(s.tokens) for s in gres.samples])
+    assert got["cuda"] == got["cpu"]
