@@ -1,6 +1,9 @@
 """Chip smoke of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only images,replicas   # build, then these
+                                                   # (images, generate,
+                                                   # replicas)
 
 Drives the port (``dalle_pytorch_tpu_torch``) and nothing of JAX, at the
 full width of the repo's north DALLE configuration (``bench.py``
@@ -172,7 +175,10 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    launched 12 times, the same tokens from a re-run with the same key;
    wall seconds a call, ms a decode step, images a second, and a
    profiler window of 16 guided steps (device ms and kernels a step,
-   the device's idle share).
+   the device's idle share). Its models are built through the package
+   root's reference facades (``DiscreteVAE(**cfg)``, ``DALLE(dim=,
+   vae=, depth=, ...)``, ``CLIP(**cfg)``), and the guided run's rerank
+   is the facade's ``DALLE.generate_images(text, clip=clip)``.
 
 The rest of training, each phase at full width on seeded random weights,
 bfloat16 parameters, batch 8, Adam lr 1e-4, 6 steps of which the first
@@ -272,6 +278,33 @@ The HTTP server:
    pages, ``/metrics``, ``/healthz``; e2e and queue-wait percentiles, the
    first streamed token's seconds, ms a step and image tokens a second
    under the server.
+
+Image files and the fleet:
+
+25. images — the committed JPEG fixture (``tests/fixtures/images/``,
+   40 x 48, 4:2:0) through ``data/images.py``'s libjpeg loader
+   (``native/``, built with g++ here) against PIL's decode stored beside
+   it, bit for bit, and the 256 px fixture against the SHA-256 of PIL's
+   decode, its decode ms an image; where the machine has no libjpeg,
+   the typed ``UnsupportedImage`` naming it instead (the record says
+   which happened);
+26. replicas — A: a ``ReplicaSet`` of 2 thread replicas under the sync
+   driver, float32 at depth 4 and the north width (4 slots each, K = 8,
+   page 16, the kernel read), 256-token prompts capped at 128 image
+   tokens: a wave of 8 through a crash of replica 1 at its 2nd chunk,
+   a wave of 4 through a drain of replica 0 with live migration (then
+   undrained), a wave of 4 through a rolling upgrade to a second seeded
+   model (``v2``, one canary a replica), and a wave of 2 on ``v2``.
+   Every request's tokens equal a single engine's of its version (4
+   slots, the replicas' shapes); failovers, reclaimed requests and
+   migrations equal ``REPLICA_EXPECT``, which the same schedule gives on
+   the CPU (``tests/test_torch_replica.py``); K4 launched in both
+   replicas. B: ``InferenceServer`` over HTTP in bfloat16 at
+   ``SERVE_DEPTH``, 256-token prompts capped at 256 image tokens: six
+   clients in one wave against a set of 1 replica
+   and then of 2 (4 slots each: image tokens a second and ms a step of
+   each), then a wave during which ``POST /admin/scale`` adds a replica
+   and removes replica 0 with a drain; every result ok, K4 launched.
 
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
@@ -2548,12 +2581,19 @@ def phase_generate() -> dict:
     record = {"dense_decode": dense_decode_check()}
     emit(phase="generate", check="dense_decode", ok=True,
          **record["dense_decode"])
+    import dalle_pytorch_tpu_torch as facades
     cfg = dataclasses.replace(north_cfg(), depth=GENERATE_DEPTH)
-    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
-    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+    # the models through the package root's reference facades
+    vae = facades.DiscreteVAE(**dataclasses.asdict(cfg.vae), seed=3,
+                              dtype=torch.bfloat16)
+    model = facades.DALLE(
+        dim=cfg.dim, vae=vae, depth=cfg.depth, seed=4,
+        dtype=torch.bfloat16, num_text_tokens=cfg.num_text_tokens,
+        text_seq_len=cfg.text_seq_len, heads=cfg.heads,
+        dim_head=cfg.dim_head)
+    check(model.cfg == cfg, "generate: the facade built another config")
     # the reference CLIP at its published defaults, K3 in every layer
-    clip = C.clip_init(C.CLIPConfig(sparse_impl="pallas"), seed=7,
-                       dtype=torch.bfloat16)
+    clip = facades.CLIP(sparse_impl="pallas", seed=7, dtype=torch.bfloat16)
     g = torch.Generator(device="cuda").manual_seed(8)
     record["clip"] = clip_check(clip, g)
     emit(phase="generate", check="clip", ok=True, **record["clip"])
@@ -2584,11 +2624,16 @@ def phase_generate() -> dict:
         check(images.shape == (b, size, size, 3)
               and bool(torch.isfinite(images).all()),
               f"generate {name}: bad images {tuple(images.shape)}")
-        # the main path with the rerank: K3's count from 0
+        # the main path with the rerank: K3's count from 0; the guided
+        # run through the facade's own generate_images
         BS.block_sparse_attention_fwd.launches = 0
         t_start = time.perf_counter()
-        images_r, scores = D.generate_images(m, vae, text, rng=key,
-                                             clip=clip, **opts)
+        if name == "guided":
+            images_r, scores = m.generate_images(text, rng=key, clip=clip,
+                                                 **opts)
+        else:
+            images_r, scores = D.generate_images(m, vae, text, rng=key,
+                                                 clip=clip, **opts)
         torch.cuda.synchronize()
         wall_rerank = time.perf_counter() - t_start
         launched = BS.block_sparse_attention_fwd.launches
@@ -4180,6 +4225,418 @@ def phase_http() -> dict:
     emit(**record)
     return record
 
+# -- image files --------------------------------------------------------------
+
+IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "images")
+
+
+def phase_images() -> dict:
+    """The JPEG fixtures through the port's libjpeg loader against PIL's
+    decodes, or the typed refusal where libjpeg is missing."""
+    import hashlib
+    import numpy as np
+    from dalle_pytorch_tpu_torch.data import images as IMG
+    with open(os.path.join(IMAGE_FIXTURES, "smoke.jpg"), "rb") as fh:
+        data = fh.read()
+    with open(os.path.join(IMAGE_FIXTURES, "north_256.jpg"), "rb") as fh:
+        big = fh.read()
+    with open(os.path.join(IMAGE_FIXTURES, "north_256.json")) as fh:
+        big_want = json.load(fh)
+    try:
+        got = IMG.decode_image(data)
+    except IMG.UnsupportedImage as e:
+        check("libjpeg" in str(e), f"images: the refusal names no "
+                                   f"libjpeg: {e}")
+        record = {"phase": "images", "ok": True, "jpeg": "refused",
+                  "reason": str(e)[-400:]}
+        emit(**record)
+        return record
+    want = np.load(os.path.join(IMAGE_FIXTURES, "smoke_pil_rgb.npy"))
+    check(got.shape == want.shape and bool((got == want).all()),
+          "images: the JPEG fixture's decode differs from PIL's")
+    t0 = time.perf_counter()
+    n = 20
+    for _ in range(n):
+        big_got = IMG.decode_image(big)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    check(list(big_got.shape) == big_want["shape"]
+          and hashlib.sha256(big_got.tobytes()).hexdigest()
+          == big_want["pil_rgb_sha256"],
+          "images: the 256 px JPEG's decode differs from PIL's")
+    record = {"phase": "images", "ok": True, "jpeg": "decoded",
+              "shape": list(got.shape), "max_abs_err": 0,
+              "decode_ms_256px": ms}
+    emit(**record)
+    return record
+
+
+# -- the replica set ----------------------------------------------------------
+
+REPLICA_SET = dict(num_slots=4, chunk_steps=8, kv="paged", page_size=16,
+                   paged_attn="kernel")
+REPLICA_HTTP_GRID = 256     # image tokens of B's requests (a short grid)
+REPLICA_GRID = 128          # image tokens a request (a short grid)
+REPLICA_DEPTH = 4
+# what the sync schedule gives (``replica_schedule``; the CPU test runs
+# the same schedule at a tiny width and holds it to these)
+REPLICA_EXPECT = {"failovers": 1, "reclaimed": 4, "migrations": 4,
+                  "migrate_fallbacks": 0, "upgrades": 1,
+                  # 18 requests and one canary a replica
+                  "completed": 20, "scale_ins": 0, "scale_outs": 0}
+# the set's structured events of the schedule, by kind
+REPLICA_EVENTS = {"serve_replica_crash": 1, "serve_replica_fenced": 4,
+                  "serve_replica_up": 6, "serve_migrated": 4,
+                  "serve_upgrade_begin": 1, "serve_upgrade_replica": 2,
+                  "serve_upgrade_done": 1}
+
+
+def replica_requests(cfg, n: int, seed: int) -> list:
+    """``n`` requests with full-span prompts, capped at REPLICA_GRID
+    image tokens, seeds from ``seed``."""
+    import numpy as np
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    rng = np.random.default_rng(seed)
+    return [S.Request(codes=tuple(int(c) for c in rng.integers(
+        1, cfg.num_text_tokens, cfg.text_seq_len)), seed=seed + i,
+        image_seq_len_override=REPLICA_GRID) for i in range(n)]
+
+
+REPLICA_STEPS: list = []     # (decode steps, wall s) of each reference
+
+
+def replica_reference(model, reqs, device) -> list:
+    """Each request's tokens from ONE engine with the replicas' shapes;
+    its decode steps and wall go to REPLICA_STEPS."""
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    q = S.RequestQueue(max_depth=64)
+    eng = Engine(model, q, device=device, **REPLICA_SET)
+    handles = [q.submit(r) for r in reqs]
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    REPLICA_STEPS.append((eng.decode_steps, time.perf_counter() - t0))
+    out = []
+    for h in handles:
+        res = h.result(timeout=0)
+        check(res.ok, f"replicas: reference request {res.request_id}: "
+                      f"{res.status} {res.reason}")
+        out.append([int(t) for t in res.tokens])
+    return out
+
+
+def replica_schedule(model_v1, model_v2, device) -> dict:
+    """The sync-driver schedule of ``phase_replicas`` A on any device:
+    four waves through a crash, a drain with live migration, a rolling
+    upgrade and the promoted version. Returns each wave's results
+    (status, weights_version, tokens), the set's counters and events, and
+    the K4 launches each replica's engine made (attributed step by
+    step: under the sync driver one thread steps them in turn)."""
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    from dalle_pytorch_tpu_torch.resilience import faults
+    from dalle_pytorch_tpu_torch.resilience import retry
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    from dalle_pytorch_tpu_torch.serve.replica import DRAINED, ReplicaSet
+    cfg = model_v1.cfg
+    events = []
+
+    times = []
+
+    class Sink:
+        def event(self, **rec):
+            events.append(rec.get("kind"))
+            times.append((rec.get("kind"), time.perf_counter()))
+
+    fast = retry.RetryPolicy(max_attempts=1, deadline_s=None,
+                             base_backoff_s=0.01, backoff_multiplier=2.0,
+                             max_backoff_s=0.1, jitter=0.0)
+    q = S.RequestQueue(max_depth=64)
+    rs = ReplicaSet(model_v1, q, replicas=2, weights_version="v1",
+                    bringup_policy=fast, metrics=Sink(), device=device,
+                    **REPLICA_SET)
+    k4 = {}
+    step = Engine.step_once
+
+    def counted(engine):
+        before = PA.paged_decode_attention.launches
+        try:
+            return step(engine)
+        finally:
+            idx = next((r.index for r in rs.replicas
+                        if r.engine is engine), -1)
+            k4[idx] = k4.get(idx, 0) + \
+                PA.paged_decode_attention.launches - before
+
+    def pump_until(pred, what, limit=100_000):
+        for _ in range(limit):
+            if pred():
+                return
+            rs.step_once()
+        check(False, f"replicas: {what} never happened")
+
+    def mid_stream(need):
+        """Every replica has ``need`` requests decoding, each at least two
+        chunks in."""
+        live = [r for r in rs.replicas if r.engine is not None]
+        return all(len(r.engine.progress_snapshot()) == need and all(
+            v >= 16 for v in r.engine.progress_snapshot().values())
+            for r in live)
+
+    Engine.step_once = counted
+    try:
+        waves = {"crash": replica_requests(cfg, 8, 100),
+                 "drain": replica_requests(cfg, 4, 200),
+                 "upgrade": replica_requests(cfg, 4, 300),
+                 "v2": replica_requests(cfg, 2, 400)}
+        handles = {}
+        handles["crash"] = [q.submit(r) for r in waves["crash"]]
+        with faults.injected(fault_replica=1, replica_crash_at_chunk=2):
+            rs.run_until_idle()
+        handles["drain"] = [q.submit(r) for r in waves["drain"]]
+        pump_until(lambda: mid_stream(2), "two requests mid-stream on "
+                                          "each replica")
+        t0 = time.perf_counter()
+        drained = rs.drain_replica(0)
+        drain_s = time.perf_counter() - t0
+        check(rs.replicas[0].state == DRAINED, "replicas: not drained")
+        rs.run_until_idle()
+        check(rs.undrain_replica(0), "replicas: undrain failed")
+        handles["upgrade"] = [q.submit(r) for r in waves["upgrade"]]
+        pump_until(lambda: mid_stream(2), "the upgrade wave mid-stream")
+        t0 = time.perf_counter()
+        upgrade = rs.rolling_upgrade(
+            version="v2", params=model_v2, canaries=1,
+            canary_codes=[waves["v2"][0].codes], replica_timeout_s=600.0)
+        upgrade_s = time.perf_counter() - t0
+        rs.run_until_idle()
+        handles["v2"] = [q.submit(r) for r in waves["v2"]]
+        rs.run_until_idle()
+    finally:
+        Engine.step_once = step
+    # the crash's cost: from the crash to the replacement engine's up
+    t_crash = next(t for k, t in times if k == "serve_replica_crash")
+    failover_s = next(t for k, t in times if k == "serve_replica_up"
+                      and t > t_crash) - t_crash
+    results = {w: [(h.result(timeout=0).status,
+                    h.result(timeout=0).weights_version,
+                    [int(t) for t in h.result(timeout=0).tokens]
+                    if h.result(timeout=0).tokens is not None else None)
+                   for h in hs] for w, hs in handles.items()}
+    stats = rs.stats()
+    counters = {k: stats[k] for k in REPLICA_EXPECT}
+    return {"waves": waves, "results": results, "counters": counters,
+            "events": events, "k4_by_replica": k4, "drained": drained,
+            "drain_s": drain_s, "upgrade_s": upgrade_s,
+            "failover_s": failover_s,
+            "migration_s": list(rs.migration_seconds),
+            "upgrade": upgrade, "stats": stats,
+            "pages_in_use": [r.engine.alloc.in_use for r in rs.replicas
+                             if r.engine is not None]}
+
+
+def check_replica_schedule(run: dict, want: dict) -> None:
+    """Each wave's results ok with the single engine's tokens of the
+    version that stamped them; the counters as predicted; no page
+    leaked."""
+    for wave, res in run["results"].items():
+        for i, (status, version, toks) in enumerate(res):
+            check(status == "ok", f"replicas: {wave} #{i} {status}")
+            check(toks == want[version][wave][i],
+                  f"replicas: {wave} #{i} ({version}) differs from the "
+                  f"single engine's tokens")
+    check(run["counters"] == REPLICA_EXPECT,
+          f"replicas: counters {run['counters']}, the CPU schedule gives "
+          f"{REPLICA_EXPECT}")
+    events = {k: run["events"].count(k) for k in set(run["events"])}
+    check(events == REPLICA_EVENTS,
+          f"replicas: events {events}, the CPU schedule gives "
+          f"{REPLICA_EVENTS}")
+    check(all(n == 0 for n in run["pages_in_use"]),
+          f"replicas: pages left mapped {run['pages_in_use']}")
+
+
+def replica_http_wave(srv, client, prompt, n: int, events=None,
+                      grid: int = 0) -> dict:
+    """``n`` clients at once, one request each (``grid``: a short grid
+    of that many image tokens); ``events(client)`` runs mid-wave.
+    Returns the wall, the results and the events' answers."""
+    import threading
+    out, errors = {}, []
+    extra = {"image_seq_len_override": grid} if grid else {}
+
+    def run(i):
+        try:
+            out[i] = client.json("POST", "/generate",
+                                 {"codes": prompt, "seed": 40 + i, **extra})
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    answers = events(client) if events is not None else None
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    check(not errors and len(out) == n, f"replicas: client failures "
+                                        f"{errors}")
+    return {"wall": wall, "results": [out[i] for i in range(n)],
+            "answers": answers}
+
+
+def replica_serving(model, vae, device) -> dict:
+    """Phase B on any device: the HTTP server over a set of 1 replica and
+    of 2 (six clients each, one wave), then a wave through ``POST
+    /admin/scale`` add and remove-with-drain. Returns the record."""
+    import threading
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    from dalle_pytorch_tpu_torch.serve.server import (InferenceServer,
+                                                      make_http_server)
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(16)
+    # full-span prompts: REPLICA_HTTP_GRID decode steps a request
+    prompt = [int(t) for t in torch.randint(1, cfg.num_text_tokens,
+                                            (cfg.text_seq_len,),
+                                            generator=g)]
+    server_kw = dict(num_slots=4, chunk_steps=8, kv="paged", page_size=16,
+                     paged_attn="kernel", admin_token=HTTP_TOKEN,
+                     max_replicas=3)
+    size = cfg.vae.image_size
+    PA.paged_decode_attention.launches = 0
+    timing = {}
+    for n in (1, 2):
+        srv = InferenceServer(model, vae, replicas=n, device=device,
+                              **server_kw).start()
+        httpd = make_http_server(srv, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        client = HttpClient(httpd.server_address[1])
+        try:
+            wave = replica_http_wave(srv, client, prompt, 6,
+                                     grid=REPLICA_HTTP_GRID)
+            steps = max(r.engine.decode_steps for r in srv.engine.replicas
+                        if r.engine is not None)
+            timing[n] = {"wall_s": wave["wall"], "decode_steps": steps,
+                         "ms_per_decode_step": wave["wall"] * 1e3 / steps,
+                         "image_tokens_per_s":
+                             6 * REPLICA_HTTP_GRID / wave["wall"]}
+            waves = [wave]
+            if n == 2:
+                base = client.json("GET", "/stats")[1]["decode_steps"]
+
+                def reshape(c):
+                    # eight chunks into the wave: requests mid-stream
+                    wait_for("a decoding wave", lambda: c.json(
+                        "GET", "/stats")[1]["decode_steps"] >= base + 64)
+                    add = c.json("POST", "/admin/scale", {"op": "add"},
+                                 token=HTTP_TOKEN)
+                    remove = c.json("POST", "/admin/scale",
+                                    {"op": "remove", "replica": 0},
+                                    token=HTTP_TOKEN)
+                    return {"add": add, "remove": remove}
+                scaled = replica_http_wave(srv, client, prompt, 6,
+                                           events=reshape,
+                                           grid=REPLICA_HTTP_GRID)
+                waves.append(scaled)
+                stats = client.json("GET", "/stats")[1]
+                health = client.json("GET", "/healthz")
+            for w in waves:
+                for code, body in w["results"]:
+                    check(code == 200 and body["status"] == "ok"
+                          and len(body["tokens"]) == REPLICA_HTTP_GRID
+                          and 0 <= min(body["tokens"])
+                          and max(body["tokens"]) < cfg.num_image_tokens
+                          and body["image_shape"] == [size, size, 3],
+                          f"replicas: B result {code} "
+                          f"{body.get('status')}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            srv.close()
+    k4 = PA.paged_decode_attention.launches
+    answers = scaled["answers"]
+    check(answers["add"][0] == 200 and answers["add"][1]["replicas"] == 3,
+          f"replicas: /admin/scale add answered {answers['add']}")
+    check(answers["remove"][0] == 200
+          and answers["remove"][1]["replicas"] == 2,
+          f"replicas: /admin/scale remove answered {answers['remove']}")
+    check(stats["scale_outs"] == 1 and stats["scale_ins"] == 1
+          and stats["completed"] == 12 and stats["failovers"] == 0,
+          f"replicas: B stats {stats}")
+    check(health[0] == 200 and len(health[1]["replicas"]) == 3,
+          f"replicas: /healthz {health}")
+    return {
+        "depth": cfg.depth, "dtype": str(model.text_emb.weight.dtype),
+        **server_kw, "prompt_len": cfg.text_seq_len, "clients": 6,
+        "one_replica": timing[1], "two_replicas": timing[2],
+        "speedup": timing[2]["image_tokens_per_s"]
+        / timing[1]["image_tokens_per_s"],
+        "scaled_wave_s": scaled["wall"],
+        "migrations": stats["migrations"],
+        "migrated_tokens_saved": stats["migrated_tokens_saved"],
+        "reclaimed": stats["reclaimed"], "k4_launches": k4}
+
+
+
+def phase_replicas() -> dict:
+    """A: the sync schedule (``replica_schedule``) in float32 at depth 4;
+    B: the HTTP server over a replica set in bfloat16 at SERVE_DEPTH
+    (``replica_serving``)."""
+    import dataclasses
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    record = {"phase": "replicas", "ok": True}
+    # A
+    cfg = dataclasses.replace(north_cfg(), depth=REPLICA_DEPTH)
+    v1 = D.dalle_init(cfg, seed=4, dtype=torch.float32)
+    v2 = D.dalle_init(cfg, seed=5, dtype=torch.float32)
+    t0 = time.perf_counter()
+    run = replica_schedule(v1, v2, "cuda")
+    set_s = time.perf_counter() - t0
+    waves = run["waves"]
+    t0 = time.perf_counter()
+    want = {"v1": {w: replica_reference(v1, waves[w], "cuda")
+                   for w in ("crash", "drain", "upgrade")},
+            "v2": {"v2": replica_reference(v2, waves["v2"], "cuda")}}
+    reference_s = time.perf_counter() - t0
+    steps, wall = map(sum, zip(*REPLICA_STEPS))
+    check_replica_schedule(run, want)
+    k4 = run["k4_by_replica"]
+    check(k4.get(0, 0) > 0 and k4.get(1, 0) > 0,
+          f"replicas: K4 did not run in both replicas: {k4}")
+    record["A"] = {
+        "depth": cfg.depth, "dtype": "float32", **REPLICA_SET,
+        "grid": REPLICA_GRID, "counters": run["counters"],
+        "k4_by_replica": {str(k): v for k, v in k4.items()},
+        "set_s": set_s, "reference_s": reference_s,
+        "ms_per_engine_step": wall * 1e3 / steps,
+        "drain_s": run["drain_s"], "drained": run["drained"],
+        "failover_s": run["failover_s"],
+        "migration_s": run["migration_s"],
+        "upgrade_s": run["upgrade_s"],
+        "upgrade_replicas": run["upgrade"]["replicas"],
+        "events": {k: run["events"].count(k) for k in sorted(
+            set(run["events"]))}}
+    emit(**record["A"], phase="replicas", part="A", ok=True)
+    del v1, v2
+    torch.cuda.empty_cache()
+
+    # B
+    cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+    record["B"] = replica_serving(model, vae, "cuda")
+    check(record["B"]["k4_launches"] > 0,
+          "replicas: K4 never launched under the server")
+    record["k4_launches"] = record["B"]["k4_launches"]
+    emit(**record["B"], phase="replicas", part="B", ok=True)
+    return record
+
+
+
+ONLY = {"images": phase_images, "generate": phase_generate,
+        "replicas": phase_replicas}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4188,7 +4645,24 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if len(sys.argv) > 1:
+        # ``--only a,b``: build, then those phases alone (no kernel table)
+        if len(sys.argv) != 3 or sys.argv[1] != "--only" or not set(
+                sys.argv[2].split(",")) <= set(ONLY):
+            print(f"usage: chip_smoke.py [--only {','.join(ONLY)}]",
+                  file=sys.stderr)
+            return 2
+        card = timed(phase_build)
+        for name in sys.argv[2].split(","):
+            timed(ONLY[name])
+        emit(phase_seconds=PHASE_SECONDS)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     card = timed(phase_build)
+    timed(phase_images)
     kernel = timed(phase_kernel)
     timed(phase_decode)
     engine = timed(phase_engine)
@@ -4212,7 +4686,9 @@ def main() -> int:
     features = timed(phase_serve_features)
     timed(phase_import)
     served = timed(phase_http)
-    emit(phase_seconds=PHASE_SECONDS)
+    fleet = timed(phase_replicas)
+    emit(phase_seconds=PHASE_SECONDS,
+         total_seconds=sum(PHASE_SECONDS.values()))
     main_case = kernel["bfloat16"]
     rows = [{
         "name": "paged_decode_attention",
@@ -4425,6 +4901,16 @@ def main() -> int:
         "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
         "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
         "library_ms": k3c["sdpa_masked_ms"]}]
+    # the replica set behind the HTTP server: K4 in every replica's steps
+    rows.append({
+        "name": "paged_decode_attention@replicas", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dalle_pytorch_tpu/ops/paged_attention.py:88",
+        "launches": fleet["k4_launches"],
+        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -590,12 +590,13 @@ def setup_run(args, unit_name: str = "tokens", device=None):
     caller passes another (``device.resolve_device``)."""
     from dalle_pytorch_tpu_torch.device import resolve_device
     from dalle_pytorch_tpu_torch.resilience import faults
+    from dalle_pytorch_tpu_torch.utils.debug import enable_nan_checks
     from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
     from dalle_pytorch_tpu_torch.utils.profiling import StepProfiler
     refuse_unported(args)
     device = resolve_device(device)
     faults.maybe_activate_from_env()
-    torch.autograd.set_detect_anomaly(bool(args.nan_checks))
+    enable_nan_checks(bool(args.nan_checks))
     np.random.seed(args.seed)
     metrics = MetricsLogger(args.metrics or None,
                             log_interval=args.log_interval)

@@ -8,16 +8,22 @@ checkpoints load as ``gen_dalle`` loads them: the DALLE checkpoint
 VAE its ``meta.vae_checkpoint`` names, ``--use_ema``, ``--quantize
 int8|int8_kv``, the vocabulary (``{name}-vocab.json`` or
 ``--captions_only``) and an optional ``--clip_name`` CLIP that scores
-every image. Then ``serve/server.py``'s ``InferenceServer`` starts on one
-engine and ``serve_http`` answers until Ctrl-C.
+every image. Then ``serve/server.py``'s ``InferenceServer`` starts, on
+one engine or, with ``--replicas N`` (or ``--autoscale``, or
+``--max_replicas`` room to grow), on a replica set of thread replicas on
+the one card (``--replica_roles``, ``--heartbeat_s``, ``--min_replicas``,
+``--autoscale_*``), and ``serve_http`` answers until Ctrl-C. ``POST
+/admin/scale`` reshapes a set; its ``upgrade`` op loads a checkpoint path
+the way startup loaded the first (``--use_ema``, ``--quantize``).
 
-The fleet flags (more than one replica, replica roles, a device mesh,
-process isolation, the socket transport and its workers, the autoscaler,
-the gateway, its cells and tenants) end in ``SystemExit``: the port
-serves one engine on one device (ROADMAP.md queue 1 items 5 and 6).
+The flags of the slices still to come end in ``SystemExit`` naming their
+ROADMAP.md queue 1 item: process isolation, the socket transport and its
+workers (item 2b), the gateway, its cells and tenants (item 2c), a
+device mesh (item 3).
 
 Run: python -m dalle_pytorch_tpu_torch.cli.serve --name test \\
-        --dalle_epoch 99 --kv paged --paged_attn kernel --port 8000
+        --dalle_epoch 99 --kv paged --paged_attn kernel --replicas 2 \\
+        --port 8000
 Then: curl -s localhost:8000/generate -d '{"caption": "a flower"}'
       curl -s localhost:8000/stats
 ``main(argv, device="cpu")`` serves from the CPU; the card is the default.
@@ -38,8 +44,9 @@ from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
 
-FLEET = ("ROADMAP.md queue 1 items 5 (the fleet tier) and 6 "
-         "(parallel/ on torch.distributed)")
+PROCESS_ITEM = "ROADMAP.md queue 1 item 2b (process isolation)"
+GATEWAY_ITEM = "ROADMAP.md queue 1 item 2c (tenants and the gateway)"
+MESH_ITEM = "ROADMAP.md queue 1 item 3 (parallel/ on torch.distributed)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,27 +106,31 @@ def build_parser() -> argparse.ArgumentParser:
       help="pages in the pool incl. the trash page (paged; 0 = num_slots "
            "x ceil(seq_len/page_size) + 1); fewer evict")
     a("--replicas", type=int, default=1,
-      help="engine replicas (not in the port: one engine)")
+      help="engine replicas: thread replicas on the one card, behind "
+           "one queue, with failover, drain and live migration")
     a("--replica_roles", type=str, default="",
-      help="per-replica roles (not in the port)")
+      help="comma list of per-replica roles (prefill, decode, both; "
+           "--kv paged)")
     a("--mesh_devices", type=int, default=1,
-      help="devices per engine (not in the port: one device)")
+      help="devices per engine (not in the port yet: one device)")
     a("--worker_ckpt", type=str, default=None,
-      help="socket-transport workers' checkpoint (not in the port)")
+      help="socket-transport workers' checkpoint (not in the port yet)")
     a("--isolation", choices=("thread", "process"), default="thread",
-      help="replica isolation ('process' is not in the port)")
+      help="replica isolation ('process' is not in the port yet)")
     a("--transport", choices=("pipe", "socket"), default="pipe",
-      help="process-isolation transport ('socket' is not in the port)")
+      help="process-isolation transport ('socket' is not in the port "
+           "yet)")
     a("--worker_endpoint", type=str, default="127.0.0.1:0",
-      help="socket-transport listener (not in the port)")
+      help="socket-transport listener (not in the port yet)")
     a("--worker_cmd", type=str, default=None,
-      help="socket-transport worker launcher (not in the port)")
+      help="socket-transport worker launcher (not in the port yet)")
     a("--attach_token", type=str, default=None,
-      help="socket-transport HELLO token (not in the port)")
+      help="socket-transport HELLO token (not in the port yet)")
     a("--child_rss_limit_mb", type=int, default=0,
-      help="process-isolation child RSS limit (not in the port)")
+      help="process-isolation child RSS limit (not in the port yet)")
     a("--heartbeat_s", type=float, default=5.0,
-      help="replica hang detection (replicas > 1 only)")
+      help="replica hang detection: a replica whose loop is silent this "
+           "long is fenced and its requests replay (replica sets only)")
     a("--queue_depth", type=int, default=64,
       help="bounded admission queue; submissions past it get a "
            "structured 429")
@@ -135,11 +146,13 @@ def build_parser() -> argparse.ArgumentParser:
       help="bearer token of POST /admin/scale and /admin/profile "
            "(default: generated and printed)")
     a("--max_replicas", type=int, default=0,
-      help="runtime scale-out cap (not in the port)")
+      help="runtime scale-out cap of POST /admin/scale and the "
+           "autoscaler (0 = --replicas)")
     a("--min_replicas", type=int, default=0,
-      help="autoscaler floor (not in the port)")
+      help="autoscaler floor (0 = --replicas)")
     a("--autoscale", action="store_true",
-      help="the load-driven autoscaler (not in the port)")
+      help="the load-driven autoscaler (needs --max_replicas > "
+           "--replicas)")
     a("--autoscale_high", type=float, default=0.85,
       help="autoscaler: occupancy that scales out")
     a("--autoscale_low", type=float, default=0.25,
@@ -149,11 +162,11 @@ def build_parser() -> argparse.ArgumentParser:
     a("--autoscale_interval_s", type=float, default=1.0,
       help="autoscaler: seconds between ticks")
     a("--gateway", action="store_true",
-      help="the multi-cell gateway (not in the port)")
+      help="the multi-cell gateway (not in the port yet)")
     a("--cells", type=int, default=2,
-      help="gateway cells (not in the port)")
+      help="gateway cells (not in the port yet)")
     a("--tenants", type=str, default="",
-      help="gateway tenant JSON (not in the port)")
+      help="gateway tenant JSON (not in the port yet)")
     a("--host", type=str, default="127.0.0.1")
     a("--port", type=int, default=8000)
     a("--metrics", type=str, default="",
@@ -172,30 +185,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_fleet(args) -> None:
-    """``SystemExit`` naming every fleet flag given."""
+    """``SystemExit`` naming every flag of a slice still to come, and its
+    ROADMAP.md item."""
     defaults = build_parser().parse_args([])
-    bad = [flag for flag, on in (
-        ("--replicas", args.replicas > 1),
-        ("--replica_roles", bool(args.replica_roles)),
-        ("--mesh_devices", args.mesh_devices > 1),
-        ("--isolation process", args.isolation == "process"),
-        ("--transport socket", args.transport == "socket"),
-        ("--worker_ckpt", args.worker_ckpt is not None),
+    bad = [(flag, item) for flag, on, item in (
+        ("--mesh_devices", args.mesh_devices > 1, MESH_ITEM),
+        ("--isolation process", args.isolation == "process",
+         PROCESS_ITEM),
+        ("--transport socket", args.transport == "socket", PROCESS_ITEM),
+        ("--worker_ckpt", args.worker_ckpt is not None, PROCESS_ITEM),
         ("--worker_endpoint",
-         args.worker_endpoint != defaults.worker_endpoint),
-        ("--worker_cmd", args.worker_cmd is not None),
-        ("--attach_token", args.attach_token is not None),
-        ("--child_rss_limit_mb", args.child_rss_limit_mb > 0),
-        ("--autoscale", args.autoscale),
-        ("--max_replicas", args.max_replicas > 1),
-        ("--min_replicas", args.min_replicas > 0),
-        ("--gateway", args.gateway),
-        ("--cells", args.cells != defaults.cells),
-        ("--tenants", bool(args.tenants))) if on]
+         args.worker_endpoint != defaults.worker_endpoint, PROCESS_ITEM),
+        ("--worker_cmd", args.worker_cmd is not None, PROCESS_ITEM),
+        ("--attach_token", args.attach_token is not None, PROCESS_ITEM),
+        ("--child_rss_limit_mb", args.child_rss_limit_mb > 0,
+         PROCESS_ITEM),
+        ("--gateway", args.gateway, GATEWAY_ITEM),
+        ("--cells", args.cells != defaults.cells, GATEWAY_ITEM),
+        ("--tenants", bool(args.tenants), GATEWAY_ITEM)) if on]
     if bad:
+        items = sorted({item for _, item in bad})
         raise SystemExit(
-            f"{', '.join(bad)}: not in the PyTorch port yet — it serves "
-            f"one engine on one device; see {FLEET}")
+            f"{', '.join(flag for flag, _ in bad)}: not in the PyTorch "
+            f"port yet — it serves thread replicas on one card; see "
+            f"{'; '.join(items)}")
 
 
 def load_vocab(args) -> Vocabulary:
@@ -207,15 +220,47 @@ def load_vocab(args) -> Vocabulary:
     return Vocabulary.load(path)
 
 
+def load_dalle(path: str, args, device):
+    """A DALLE checkpoint (either package's) as the served model: its
+    EMA with ``--use_ema``, int8 weights with ``--quantize``. Startup
+    loads with it, and so does ``POST /admin/scale``'s upgrade."""
+    params, manifest = ckpt.restore_params(path)
+    model = from_jax.dalle_from_jax(
+        params, ckpt.dalle_config_from_manifest(manifest), device=device)
+    if args.use_ema and not _ema_weights(model, path):
+        raise FileNotFoundError(
+            f"{path} has no EMA weights — train with --ema_decay to serve "
+            "an EMA")
+    if args.quantize in ("int8", "int8_kv"):
+        model = D.quantize_for_decode(model)
+    return model, manifest
+
+
 def main(argv=None, *, device=None):
     args = build_parser().parse_args(argv)
     refuse_fleet(args)
+    autoscale = None
+    if args.autoscale:
+        from dalle_pytorch_tpu_torch.serve.autoscale import AutoscalePolicy
+        if args.max_replicas <= args.replicas:
+            raise SystemExit(
+                "--autoscale needs --max_replicas > --replicas "
+                "(headroom for the scaler to grow into)")
+        autoscale = AutoscalePolicy(
+            min_replicas=args.min_replicas or args.replicas,
+            max_replicas=args.max_replicas,
+            high_occupancy=args.autoscale_high,
+            low_occupancy=args.autoscale_low,
+            cooldown_s=args.autoscale_cooldown_s,
+            interval_s=args.autoscale_interval_s)
     device = resolve_device(device)
 
     dalle_path = ckpt.ckpt_path(args.models_dir, f"{args.name}_dalle",
                                 args.dalle_epoch)
-    params, manifest = ckpt.restore_params(dalle_path)
-    cfg = ckpt.dalle_config_from_manifest(manifest)
+    model, manifest = load_dalle(dalle_path, args, device)
+    cfg = model.cfg
+    if args.use_ema:
+        say("serving EMA weights")
     vae_path = manifest["meta"].get("vae_checkpoint")
     if not vae_path or not os.path.isdir(vae_path):
         raise FileNotFoundError(
@@ -225,15 +270,6 @@ def main(argv=None, *, device=None):
     vae = from_jax.vae_from_jax(vae_params,
                                 ckpt.vae_config_from_manifest(vae_manifest),
                                 device=device)
-    model = from_jax.dalle_from_jax(params, cfg, device=device)
-    if args.use_ema:
-        if not _ema_weights(model, dalle_path):
-            raise FileNotFoundError(
-                f"{dalle_path} has no EMA weights — train with --ema_decay "
-                "to serve an EMA")
-        say("serving EMA weights")
-    if args.quantize in ("int8", "int8_kv"):
-        model = D.quantize_for_decode(model)
 
     clip = None
     if args.clip_name:
@@ -268,7 +304,16 @@ def main(argv=None, *, device=None):
         default_cfg_scale=args.cfg_scale,
         preview_every=args.preview_every,
         stream_max_events=args.stream_max_events,
+        replicas=args.replicas,
+        replica_roles=(args.replica_roles.split(",")
+                       if args.replica_roles else None),
         weights_version=f"{args.name}_dalle@{args.dalle_epoch}",
+        # 0 means no growth past --replicas, never "uncapped": every
+        # replica holds its own KV pool
+        max_replicas=args.max_replicas or args.replicas,
+        autoscale=autoscale,
+        load_weights=lambda path: load_dalle(path, args, device)[0],
+        heartbeat_s=args.heartbeat_s,
         admin_token=args.admin_token or None,
         metrics=metrics, log_every=args.log_every, encode=vocab.encode,
         profile_dir=args.profile_dir or None,
@@ -284,15 +329,24 @@ def main(argv=None, *, device=None):
                     f"/d={args.draft_layers or 'depth/2'}")
     if args.cfg_scale > 0:
         kv_desc += f", cfg_scale={args.cfg_scale:g}"
+    roles = f" [{args.replica_roles}]" if args.replica_roles else ""
     say(f"serving {dalle_path} on http://{args.host}:{args.port} "
-        f"({device}, {args.num_slots} slots, K={args.chunk_steps}, "
-        f"kv={kv_desc}, queue {args.queue_depth})")
+        f"({device}, {args.replicas} thread replica(s){roles} x "
+        f"{args.num_slots} slots, K={args.chunk_steps}, kv={kv_desc}, "
+        f"queue {args.queue_depth})")
     prof_desc = (f"; POST /admin/profile -> {args.profile_dir}"
                  if args.profile_dir else "")
     say(f"observability: GET /metrics (Prometheus exposition), "
         f"GET /debug/events (flight recorder), per-request trace "
         f"summaries on every result{prof_desc}; admin token "
         f"{server.admin_token}")
+    if server._is_set:
+        auto_desc = "" if autoscale is None \
+            else (f", autoscaler {autoscale.min_replicas}.."
+                  f"{autoscale.max_replicas}")
+        say(f"admin: POST /admin/scale (add, remove, drain, undrain, "
+            f"upgrade, status), max_replicas "
+            f"{server.engine.max_replicas}{auto_desc}")
     serve_http(server, args.host, args.port)
     return server
 

@@ -115,9 +115,15 @@ def discrete_vae_from_jax(params: Mapping, cfg: vae_mod.VAEConfig, *,
     device = resolve_device(device)
     dtype = dtype or _dtype_of(params, "codebook", "w")
     vae = vae_mod.DiscreteVAE(cfg, device=device, dtype=dtype)
+    fill_discrete_vae(vae, params)
+    return vae
+
+
+@torch.no_grad()
+def fill_discrete_vae(vae: nn.Module, params: Mapping) -> None:
+    """A whole JAX VAE tree into a built ``DiscreteVAE``, in place."""
     _encoder(vae, params)
     _decoder(vae, params)
-    return vae
 
 
 @torch.no_grad()
@@ -148,6 +154,13 @@ def dalle_from_jax(params: Mapping, cfg: D.DALLEConfig, *,
     device = resolve_device(device)
     dtype = dtype or _dtype_of(params, "text_emb", "w")
     model = D.DALLE(cfg, device=device, dtype=dtype)
+    fill_dalle(model, params)
+    return model
+
+
+@torch.no_grad()
+def fill_dalle(model: D.DALLE, params: Mapping) -> None:
+    """A JAX DALLE tree into a built ``DALLE``, in place."""
     _set(model.text_emb.weight, params["text_emb"]["w"])
     _set(model.image_emb.weight, params["image_emb"]["w"])
     _set(model.text_pos_emb.weight, params["text_pos_emb"]["w"])
@@ -156,7 +169,6 @@ def dalle_from_jax(params: Mapping, cfg: D.DALLEConfig, *,
     _transformer(model.transformer, params["transformer"])
     _layernorm(model.logits_ln, params["to_logits"]["ln"])
     _linear(model.logits_proj, params["to_logits"]["proj"])
-    return model
 
 
 def _transformer(model: T.Transformer, stack: Mapping) -> None:
@@ -189,6 +201,13 @@ def clip_from_jax(params: Mapping, cfg: clip_mod.CLIPConfig, *,
     device = resolve_device(device)
     dtype = dtype or _dtype_of(params, "text_emb", "w")
     model = clip_mod.CLIP(cfg, device=device, dtype=dtype)
+    fill_clip(model, params)
+    return model
+
+
+@torch.no_grad()
+def fill_clip(model: clip_mod.CLIP, params: Mapping) -> None:
+    """A JAX CLIP tree into a built ``CLIP``, in place."""
     _set(model.text_emb.weight, params["text_emb"]["w"])
     _set(model.text_pos_emb.weight, params["text_pos_emb"]["w"])
     _transformer(model.text_transformer, params["text_transformer"])
@@ -198,4 +217,3 @@ def clip_from_jax(params: Mapping, cfg: clip_mod.CLIPConfig, *,
     _transformer(model.visual_transformer, params["visual_transformer"])
     _linear(model.to_visual_latent, params["to_visual_latent"])
     _set(model.temperature, params["temperature"])
-    return model

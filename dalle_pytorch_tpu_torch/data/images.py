@@ -1,24 +1,34 @@
 """Image IO: decode and resize training images, write sample grids.
 
-Port of ``dalle_pytorch_tpu/data/images.py``, which reads and writes
-through PIL (``:25-70``, ``:185``); the port has neither PIL nor the
-native loader, so it carries its own codec, from ``zlib`` and numpy:
+Port of ``dalle_pytorch_tpu/data/images.py``, which reads through PIL
+(``Image.open(path).convert("RGB")``, ``:68``) and its native loader;
+the port has no PIL, so it carries its own codecs and holds them to
+PIL's pixels, quirks included:
 
-* ``decode_png`` reads 8-bit PNGs of colour types 0 (grey), 2 (RGB),
-  3 (palette), 4 (grey + alpha) and 6 (RGBA), every row filter, and
-  converts them to RGB as PIL's ``.convert("RGB")`` does (alpha dropped,
-  grey repeated, palette looked up). 16-bit, sub-byte, interlaced and
-  JPEG files raise ``UnsupportedImage``, naming what is missing.
+* ``decode_png`` reads every PNG: colour types 0 (grey), 2 (RGB), 3
+  (palette), 4 (grey + alpha) and 6 (RGBA) at every bit depth the format
+  allows (1, 2, 4, 8 and 16), every row filter, plain or Adam7
+  interlaced, and converts as PIL's ``.convert("RGB")`` does: alpha
+  dropped, grey repeated, palettes looked up, 1-, 2- and 4-bit grey
+  scaled to 8 bits, 16-bit grey (PIL's ``I;16``) CLIPPED to 255 and
+  16-bit colour reduced to its HIGH byte;
+* ``decode_bmp`` reads 24- and 32-bit BMPs, bottom-up or top-down (the
+  fourth byte of a 32-bit pixel is dropped, as PIL's ``BGRX`` does);
+* JPEG goes through libjpeg in ``native`` (built with g++ on first use):
+  the same library and defaults as PIL's decoder, so the same pixels.
+  Where g++ or libjpeg is missing a JPEG raises ``UnsupportedImage``
+  naming it;
 * ``resize_bilinear`` is PIL's ``Image.resize(..., BILINEAR)`` for 8-bit
   images: the same separable passes (horizontal, then vertical, each
   rounded to 8 bits), the triangle filter's support widened by the scale
-  when downscaling, and its coefficients in PIL's 22-bit fixed point.
+  when downscaling, and its coefficients in PIL's 22-bit fixed point;
 * ``encode_png`` writes 8-bit grey or RGB PNGs (``save_image_grid``).
 
-The rest follows the JAX module: ``load_image`` (resized only when the
-size differs), ``load_image_batch``, ``list_image_folder``,
-``ImageFolderDataset`` (the same batches, in the same order),
-``to_uint8`` and ``save_image_grid``.
+WebP (which would need libwebp) and the rarer BMP depths raise
+``UnsupportedImage``. The rest follows the JAX module: ``load_image``
+(resized only when the size differs), ``load_image_batch``,
+``list_image_folder``, ``ImageFolderDataset`` (the same batches, in the
+same order), ``to_uint8`` and ``save_image_grid``.
 """
 
 from __future__ import annotations
@@ -105,14 +115,58 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     return sk[diag + 2, np.broadcast_to(r + 1, (h, w))].astype(np.uint8)
 
 
+# Adam7: (first row, first column, row step, column step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+
+
+def _samples(raw: np.ndarray, h: int, w: int, depth: int,
+             ch: int) -> np.ndarray:
+    """One (sub)image's filtered scanlines -> (h, w, ch) integer samples
+    (uint16 at depth 16)."""
+    if depth >= 8:
+        bpp = ch * depth // 8
+        px = _unfilter(raw, h, w, bpp)                    # (h, w, bpp)
+        if depth == 16:
+            px = px.reshape(h, w, ch, 2).astype(np.uint16)
+            return (px[..., 0] << 8) | px[..., 1]
+        return px
+    # sub-byte: the filters work on whole bytes, one byte apart
+    rowbytes = (w * depth + 7) // 8
+    packed = _unfilter(raw, h, rowbytes, 1).reshape(h, rowbytes)
+    bits = np.unpackbits(packed, axis=1)[:, :w * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(h, w, depth) * weights).sum(
+        -1, dtype=np.uint8)[..., None]
+
+
+def _deinterlace(raw: np.ndarray, h: int, w: int, depth: int,
+                 ch: int) -> np.ndarray:
+    """Adam7: each pass's scanlines are a small image of their own,
+    filtered on their own; scatter them into the full grid."""
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for r0, c0, dr, dc in _ADAM7:
+        ph, pw = (h - r0 + dr - 1) // dr, (w - c0 + dc - 1) // dc
+        if ph <= 0 or pw <= 0:
+            continue
+        n = ph * (1 + (pw * depth * ch + 7) // 8)
+        if pos + n > raw.size:
+            raise ValueError("truncated interlaced PNG image data")
+        out[r0::dr, c0::dc] = _samples(raw[pos:pos + n], ph, pw, depth, ch)
+        pos += n
+    if pos != raw.size:
+        raise ValueError(f"PNG image data of {raw.size} bytes, expected "
+                         f"{pos}")
+    return out
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> (H, W, 3) uint8, as PIL's ``.convert("RGB")``."""
-    if data[:3] == b"\xff\xd8\xff":
-        raise UnsupportedImage(
-            "JPEG decoding is not in the PyTorch port yet (ROADMAP.md "
-            "queue 1): convert the images to PNG")
     if data[:8] != PNG_SIGNATURE:
-        raise UnsupportedImage("not a PNG file: the port decodes PNG only")
+        raise UnsupportedImage("not a PNG file")
     header, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -126,28 +180,103 @@ def decode_png(data: bytes) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if ctype not in _CHANNELS:
         raise ValueError(f"bad PNG colour type {ctype}")
-    if depth != 8:
-        raise UnsupportedImage(
-            f"{depth}-bit PNG: the port decodes 8-bit channels only")
-    if interlace:
-        raise UnsupportedImage(
-            "interlaced (Adam7) PNG: the port decodes non-interlaced PNG "
-            "only")
-    bpp = _CHANNELS[ctype]
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"bad PNG bit depth {depth} for colour type "
+                         f"{ctype}")
+    if interlace not in (0, 1):
+        raise ValueError(f"bad PNG interlace method {interlace}")
+    ch = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
-        raise ValueError(f"PNG image data of {raw.size} bytes, expected "
-                         f"{h * (1 + w * bpp)}")
-    px = _unfilter(raw, h, w, bpp)
-    if ctype == 2:
-        return px
-    if ctype == 6:
-        return np.ascontiguousarray(px[..., :3])
+    if interlace:
+        px = _deinterlace(raw, h, w, depth, ch)
+    else:
+        n = h * (1 + (w * depth * ch + 7) // 8)
+        if raw.size != n:
+            raise ValueError(f"PNG image data of {raw.size} bytes, "
+                             f"expected {n}")
+        px = _samples(raw, h, w, depth, ch)
     if ctype == 3:
         if palette is None or int(px.max()) >= len(palette):
             raise ValueError("PNG palette index out of range")
         return palette[px[..., 0]]
+    if depth == 16:
+        # PIL opens 16-bit grey as I;16, which converts to RGB clipped at
+        # 255; every other 16-bit type unpacks to its high bytes
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8
+        px = px.astype(np.uint8)
+    elif depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))    # 1-, 2-, 4-bit grey
+    if ctype in (2, 6):
+        return np.ascontiguousarray(px[..., :3])
     return np.repeat(px[..., :1], 3, axis=-1)            # grey (+ alpha)
+
+
+# ---------------------------------------------------------------------------
+# BMP
+# ---------------------------------------------------------------------------
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """24- and 32-bit BMP bytes, bottom-up or top-down -> (H, W, 3) uint8,
+    as PIL's ``.convert("RGB")``."""
+    if data[:2] != b"BM" or len(data) < 26:
+        raise UnsupportedImage("not a BMP file")
+    offset, hsize = struct.unpack("<II", data[10:18])
+    if hsize < 40:
+        raise UnsupportedImage(f"BMP with a {hsize}-byte (OS/2) header: "
+                               "the port reads Windows BMP headers only")
+    w, h, _, bits, comp = struct.unpack("<iiHHI", data[18:34])
+    if bits not in (24, 32):
+        raise UnsupportedImage(f"{bits}-bit BMP: the port reads 24- and "
+                               "32-bit BMPs only")
+    if comp == 3 and bits == 32 and hsize >= 52:
+        masks = struct.unpack("<III", data[54:66])
+        if masks != (0xFF0000, 0xFF00, 0xFF):
+            raise UnsupportedImage(f"BMP bit fields {masks}: the port "
+                                   "reads BGR(X) order only")
+    elif comp != 0:
+        raise UnsupportedImage(f"compressed BMP (compression {comp}): "
+                               "the port reads uncompressed BMPs only")
+    if w <= 0 or h == 0:
+        raise ValueError(f"bad BMP size {w}x{h}")
+    rows, stride = abs(h), ((bits * w + 31) // 32) * 4
+    body = np.frombuffer(data, np.uint8, count=rows * stride, offset=offset)
+    px = body.reshape(rows, stride)[:, :w * bits // 8].reshape(
+        rows, w, bits // 8)
+    if h > 0:
+        px = px[::-1]                                     # bottom-up
+    return np.ascontiguousarray(px[..., 2::-1])           # BGR(X) -> RGB
+
+
+# ---------------------------------------------------------------------------
+# any image file
+# ---------------------------------------------------------------------------
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 through libjpeg (``native``);
+    ``UnsupportedImage`` naming g++ or libjpeg where the loader cannot be
+    built."""
+    from dalle_pytorch_tpu_torch import native
+    from dalle_pytorch_tpu_torch.native.build import BuildError
+    try:
+        return native.decode_jpeg(data)
+    except BuildError as e:
+        raise UnsupportedImage(f"JPEG decoding needs the native loader, "
+                               f"built with g++ against libjpeg: {e}") from e
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Image bytes (PNG, JPEG or BMP, told apart by their magic) ->
+    (H, W, 3) uint8, as PIL's ``Image.open(...).convert("RGB")``."""
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png(data)
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data)
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        raise UnsupportedImage("WebP is not in the PyTorch port yet (it "
+                               "would need libwebp; ROADMAP.md queue 1)")
+    raise UnsupportedImage("not a PNG, JPEG or BMP file")
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -253,7 +382,7 @@ def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
 def read_image(path: str) -> np.ndarray:
     """An image file -> (H, W, 3) uint8 RGB."""
     with open(path, "rb") as f:
-        return decode_png(f.read())
+        return decode_image(f.read())
 
 
 def load_image(path: str, image_size: Optional[int] = None) -> np.ndarray:

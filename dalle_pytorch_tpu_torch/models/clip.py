@@ -80,9 +80,27 @@ class CLIPConfig:
 
 
 class CLIP(nn.Module):
-    """Parameters of the JAX ``clip_init`` tree, as modules."""
+    """Parameters of the JAX ``clip_init`` tree, as modules, and the JAX
+    facade (``models/clip.py:167-186``): ``forward`` is ``clip_apply``.
 
-    def __init__(self, cfg: CLIPConfig, *, device=None, dtype=None):
+    ``CLIP(cfg, device=, dtype=)`` builds the parameters uninitialised
+    (``clip_init`` and ``compat/from_jax.py`` fill them);
+    ``CLIP(**cfg_kwargs, params=, seed=, dtype=, device=)`` takes the
+    config from the keywords and the weights from ``params`` (a JAX
+    ``clip_init`` tree as numpy arrays) or seeds them, on the card unless
+    ``device`` says otherwise."""
+
+    def __init__(self, cfg: Optional[CLIPConfig] = None, *, device=None,
+                 dtype=None, params=None, seed: Optional[int] = None,
+                 **cfg_kwargs):
+        facade = cfg is None
+        if facade:
+            cfg = CLIPConfig(**cfg_kwargs)
+            device = resolve_device(device)
+            dtype = dtype or torch.float32
+        elif cfg_kwargs or params is not None or seed is not None:
+            raise TypeError("CLIP takes a CLIPConfig or the reference's "
+                            "keywords, not both")
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -99,6 +117,22 @@ class CLIP(nn.Module):
                                           bias=False, **kw)
         # stored before the exp, 1.0 at init (reference :195, :228)
         self.temperature = nn.Parameter(torch.ones((), **kw))
+        if facade:
+            if params is None:
+                core.init_params_(self, generator(seed or 0, device))
+            else:
+                from dalle_pytorch_tpu_torch.compat import from_jax
+                from_jax.fill_clip(self, params)
+
+    @property
+    def config(self) -> CLIPConfig:
+        return self.cfg
+
+    def forward(self, text: torch.Tensor, images: torch.Tensor,
+                text_mask: Optional[torch.Tensor] = None,
+                return_loss: bool = False) -> torch.Tensor:
+        return clip_apply(self, text, images, text_mask=text_mask,
+                          return_loss=return_loss)
 
 
 def clip_init(cfg: CLIPConfig, seed: int = 0, *, dtype=torch.float32,

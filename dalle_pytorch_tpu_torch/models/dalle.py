@@ -122,9 +122,38 @@ class DALLEConfig:
 
 
 class DALLE(nn.Module):
-    """Parameters of the JAX ``dalle_init`` tree, as modules."""
+    """Parameters of the JAX ``dalle_init`` tree, as modules, and the JAX
+    facade (``models/dalle.py:668-709``).
 
-    def __init__(self, cfg: DALLEConfig, *, device=None, dtype=None):
+    Two ways in, one module: ``DALLE(cfg, device=, dtype=)`` builds the
+    parameters uninitialised (``dalle_init``, ``compat/from_jax.py``, the
+    engine and the CLIs); ``DALLE(dim=, vae=, depth=, params=, seed=,
+    dtype=, device=, **cfg_kwargs)`` is the reference's constructor: the
+    config from the keywords and ``vae.cfg``, the weights from ``params``
+    (a JAX ``dalle_init`` tree as numpy arrays) or seeded with the image
+    embedding tied to ``vae``'s codebook, on the card unless ``device``
+    says otherwise. Such a model holds its ``DiscreteVAE`` (not as a
+    submodule: its weights stay out of this module's state) and offers
+    ``forward`` (``dalle_apply``, raw images tokenised through the VAE)
+    and ``generate_images``."""
+
+    def __init__(self, cfg: Optional[DALLEConfig] = None, *, device=None,
+                 dtype=None, dim: Optional[int] = None, vae=None,
+                 depth: Optional[int] = None, params=None,
+                 seed: Optional[int] = None, **cfg_kwargs):
+        facade = cfg is None
+        if facade:
+            if not isinstance(vae, vae_mod.DiscreteVAE):
+                raise TypeError("vae must be a DiscreteVAE")
+            cfg = DALLEConfig(dim=dim, depth=depth, vae=vae.cfg,
+                              **cfg_kwargs)
+            device = resolve_device(device)
+            dtype = dtype or torch.float32
+        elif (cfg_kwargs or dim is not None or vae is not None
+              or depth is not None or params is not None
+              or seed is not None):
+            raise TypeError("DALLE takes a DALLEConfig or the reference's "
+                            "keywords, not both")
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -140,6 +169,49 @@ class DALLE(nn.Module):
         self.transformer = T.Transformer(cfg.transformer, **kw)
         self.logits_ln = nn.LayerNorm(cfg.dim, **kw)
         self.logits_proj = nn.Linear(cfg.dim, cfg.total_tokens, **kw)
+        # set past nn.Module's registration: the facade's VAE is held,
+        # not owned
+        object.__setattr__(self, "vae", vae)
+        if facade:
+            if params is None:
+                core.init_params_(self, generator(seed or 0, device))
+                if cfg.vae.codebook_dim != cfg.dim:
+                    raise ValueError(
+                        "tied codebook requires vae.codebook_dim == dalle "
+                        f"dim ({cfg.vae.codebook_dim} != {cfg.dim})")
+                with torch.no_grad():
+                    self.image_emb.weight.copy_(vae.codebook.weight)
+            else:
+                from dalle_pytorch_tpu_torch.compat import from_jax
+                from_jax.fill_dalle(self, params)
+
+    @property
+    def config(self) -> DALLEConfig:
+        return self.cfg
+
+    def forward(self, text: torch.Tensor, image=None,
+                mask: Optional[torch.Tensor] = None,
+                return_loss: bool = False,
+                rng: Optional[torch.Tensor] = None, train: bool = False):
+        return dalle_apply(self, text, image, mask=mask, vae=self.vae,
+                           rng=rng, train=train, return_loss=return_loss)
+
+    def generate_images(self, text: torch.Tensor, *,
+                        rng: Optional[torch.Tensor] = None, clip=None,
+                        mask: Optional[torch.Tensor] = None,
+                        filter_thres: float = 0.5, top_p: float = 0.0,
+                        guidance: float = 0.0, temperature: float = 1.0):
+        """Images for ``text`` through the held VAE (``rng`` defaults
+        to ``PRNGKey(0)``); with ``clip``, (images, CLIP scores)."""
+        if self.vae is None:
+            raise ValueError("generate_images needs the facade's VAE: "
+                             "build DALLE(dim=..., vae=..., depth=...)")
+        if rng is None:
+            rng = prng.prng_key(0, device=text.device)
+        return generate_images(self, self.vae, text, rng=rng, mask=mask,
+                               filter_thres=filter_thres, top_p=top_p,
+                               guidance=guidance, temperature=temperature,
+                               clip=clip)
 
 
 def dalle_init(cfg: DALLEConfig, seed: int = 0, *,

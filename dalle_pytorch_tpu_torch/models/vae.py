@@ -5,8 +5,10 @@ Port of ``dalle_pytorch_tpu/models/vae.py`` (``:38-274``): ``VAEConfig``,
 ``encode_logits``, ``decode_embeds``, ``gumbel_softmax``, ``vae_apply``
 (the forward and reconstruction loss the VAE trains on),
 ``get_codebook_indices`` and ``decode``. ``DiscreteVAE`` holds the whole
-JAX ``vae_init`` tree (encoder, codebook, decoder) with the OO facade's
-``forward``, ``get_codebook_indices`` and ``decode``; ``VAEEncoder``
+JAX ``vae_init`` tree (encoder, codebook, decoder) and is also the JAX OO
+facade (``DiscreteVAE(image_size=..., ...)``, ``forward``,
+``get_codebook_indices``, ``decode``, the reference's properties);
+``VAEEncoder``
 (DALLE training tokenises raw images with it, no gradient) and
 ``VAEDecoder`` (serving) hold one half each. The functions take any
 module with the attributes they read, so a ``DiscreteVAE`` goes
@@ -91,15 +93,60 @@ class DiscreteVAE(nn.Module):
     """The whole JAX ``vae_init`` tree: the encoder's ``enc_convs``,
     ``enc_res`` and ``enc_out``, the ``codebook``, and the decoder's
     ``dec_stem``, ``dec_res``, ``dec_convs`` and ``dec_out``; with the
-    reference class's ``forward`` (``vae_apply``), ``get_codebook_indices``
-    and ``decode``."""
+    reference class's ``forward`` (``vae_apply``), ``get_codebook_indices``,
+    ``decode`` and its properties (JAX ``:232-274``).
 
-    def __init__(self, cfg: VAEConfig, *, device=None, dtype=None):
+    Two ways in, one module: ``DiscreteVAE(cfg, device=, dtype=)`` builds
+    the parameters uninitialised (``vae_init``, ``compat/from_jax.py``
+    fill them); ``DiscreteVAE(**cfg_kwargs, params=, seed=, dtype=,
+    device=)`` is the JAX facade's constructor: the config from the
+    keywords, then the weights from ``params`` (a JAX ``vae_init`` tree
+    as numpy arrays) or seeded at random, on the card unless ``device``
+    says otherwise."""
+
+    def __init__(self, cfg: Optional[VAEConfig] = None, *, device=None,
+                 dtype=None, params=None, seed: Optional[int] = None,
+                 **cfg_kwargs):
+        facade = cfg is None
+        if facade:
+            cfg = VAEConfig(**cfg_kwargs)
+            device = resolve_device(device)
+            dtype = dtype or torch.float32
+        elif cfg_kwargs or params is not None or seed is not None:
+            raise TypeError("DiscreteVAE takes a VAEConfig or the "
+                            "reference's keywords, not both")
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         _build_encoder(self, cfg, kw)
         _build_decoder(self, cfg, kw)
+        if facade:
+            if params is None:
+                core.init_params_(self, generator(seed or 0, device))
+            else:
+                from dalle_pytorch_tpu_torch.compat import from_jax
+                from_jax.fill_discrete_vae(self, params)
+
+    # the reference class's properties
+    @property
+    def config(self) -> VAEConfig:
+        return self.cfg
+
+    @property
+    def image_size(self) -> int:
+        return self.cfg.image_size
+
+    @property
+    def num_tokens(self) -> int:
+        return self.cfg.num_tokens
+
+    @property
+    def num_layers(self) -> int:
+        return self.cfg.num_layers
+
+    @property
+    def temperature(self) -> float:
+        return self.cfg.temperature
 
     def forward(self, images: torch.Tensor,
                 rng: Optional[torch.Tensor] = None, **kw):

@@ -2,7 +2,9 @@
 events and span records, served at ``GET /debug/events``.
 
 Port of ``dalle_pytorch_tpu/obs/flight.py`` (``:41-125``, less the
-fleet's sequence numbers, ``since`` and ``tail``). ``RecordingMetrics`` quacks like
+process workers' sequence numbers and ``since``). ``tail`` gives the
+replica set's typed refusals their recent context. ``RecordingMetrics``
+quacks like
 ``utils.metrics.MetricsLogger`` (``event``/``resilience``/``step``): it
 lands every record in the ring and forwards it to the real sink when one
 is configured, so the ring is on with no JSONL file.
@@ -42,6 +44,12 @@ class FlightRecorder:
         """Everything retained, oldest first."""
         with self._lock:
             return [dict(rec) for rec in self._ring]
+
+    def tail(self, n: int) -> List[dict]:
+        """The newest ``n`` records, oldest of them first."""
+        with self._lock:
+            items = list(self._ring)[-max(int(n), 0):] if n > 0 else []
+        return [dict(rec) for rec in items]
 
 
 

@@ -1,7 +1,7 @@
 """Per-request tracing: where did a request's milliseconds go?
 
 Port of ``dalle_pytorch_tpu/obs/trace.py`` (``:41-197``, less the
-fleet's replay links, wire merge and span listing). One ``Trace`` per submitted
+process workers' wire merge and span listing). One ``Trace`` per submitted
 request, carried on its ``RequestHandle``: a TILING sequence of spans,
 each starting where the previous one ended (``span(name, now)`` records
 ``[last_t, now)``), so the span durations sum to the latency the caller
@@ -13,6 +13,11 @@ saw. The single engine stamps
   ``decode_chunk``   one harvested chunk's tokens
   ``evict``          a paged-pool eviction (the request replays)
   ``postprocess``    VAE decode and CLIP score
+
+and a replica set adds ``route`` (the replica chosen), ``migrate_out``
+/ ``migrate_in`` / ``migrate`` (a live slot migration) and
+``replayed_from`` (``replay``: a failover's gap, opening the next
+attempt).
 
 Timestamps are ``perf_counter`` values from the caller; spans are dicts
 of JSON scalars.
@@ -76,6 +81,27 @@ class Trace:
                 if rec["span"] == name:
                     return True
             return False
+
+    def replay(self, now: float, reason: str = "", **meta) -> dict:
+        """Mark a failover or migration-fallback replay: the gap since
+        the last span goes under ``replayed_from`` (labelled, never
+        credited to decode) and the next attempt opens. Returns the
+        marker record."""
+        with self._lock:
+            prev = self.attempt
+            self.attempt = prev + 1
+            rec = {"event": "span", "span": "replayed_from",
+                   "trace_id": self.trace_id,
+                   "request_id": self.request_id,
+                   "attempt": self.attempt,
+                   "from_attempt": prev,
+                   "t0": self._last_t,
+                   "dur_s": max(float(now) - self._last_t, 0.0),
+                   "reason": str(reason)}
+            rec.update(meta)
+            self._spans.append(rec)
+            self._last_t = float(now)
+            return rec
 
     def summary(self) -> dict:
         """What ``Result.trace`` (and the HTTP body) carries: spans

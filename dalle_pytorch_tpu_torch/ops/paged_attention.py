@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -192,6 +193,9 @@ WIDE_SPLIT_MAX_DIM_HEAD = 256
 # acc columns one block of the CUDA-core wide body owns
 WIDE_SLICE = 128
 _COUNTERS = {}           # device -> the kernel's zeroed split counters
+# guards _COUNTERS' check-then-replace and the launch counts: replica
+# threads of one set launch K4 concurrently (serve/replica.py)
+_LOCK = threading.Lock()
 
 
 def wide_split(kv_dtype: torch.dtype, dh: int) -> bool:
@@ -226,12 +230,28 @@ def kernel_body(kv_dtype: torch.dtype, dh: int, visible: bool = False
 def _counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` int32 zeros on ``device``, kept for every launch:
     the kernel's last block of a (slot, head) sets its counter back to
-    zero, so launches ordered on one stream can share them."""
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(n, dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
+    zero, so launches ordered on one stream can share them.
+
+    Under threads (replicas of one set): every launch of the port goes
+    to the legacy default stream, so two threads' launches run one after
+    the other and each finds the counters at zero. A thread that holds
+    an old, smaller buffer while another grows the dict keeps a valid
+    buffer of its own (zeros at rest as well): two buffers never break
+    the invariant, and the lock makes the check-then-replace atomic so
+    no launch reads a buffer half-published."""
+    with _LOCK:
+        buf = _COUNTERS.get(device)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(n, dtype=torch.int32, device=device)
+            _COUNTERS[device] = buf
+        return buf
+
+
+def load_kernel() -> None:
+    """Build (if needed) and load K4's library now: a replica set calls it
+    before its threads exist, so no two threads run nvcc or dlopen at
+    once."""
+    _entry()
 
 
 @functools.lru_cache(maxsize=None)
@@ -339,10 +359,11 @@ def paged_decode_attention(
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
                            f"with CUDA error {rc}")
-    if vis is None:
-        paged_decode_attention.launches += 1
-    else:
-        paged_decode_attention.visible_launches += 1
+    with _LOCK:
+        if vis is None:
+            paged_decode_attention.launches += 1
+        else:
+            paged_decode_attention.visible_launches += 1
     return acc, m, l
 
 

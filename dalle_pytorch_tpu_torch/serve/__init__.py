@@ -1,2 +1,2 @@
 """The serving tier of the port: page pool, prefix cache, queue, engine,
-postprocess."""
+postprocess, the replica set and its autoscaler, the HTTP server."""

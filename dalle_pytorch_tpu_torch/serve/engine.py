@@ -73,8 +73,29 @@ for the same weights, prompt, seed and knobs, a slot's tokens equal the
 JAX engine's and ``generate_images``' at batch 1, for every K, layout,
 guidance pair and speculation depth.
 
-Left for later slices (see ROADMAP.md): live migration, fencing and
-meshes.
+For the replica set (``serve/replica.py``, JAX ``:637-654``,
+``:999-1118``, ``:2095-2357``):
+
+* ``last_heartbeat`` is stamped at every step and every harvest (the
+  harvest's wait is where a wedged card stalls the thread), and
+  ``compiling`` marks the first dispatch, which may load the kernels;
+* ``fence()`` is the one-way switch the supervisor flips before it
+  reclaims this engine's requests: a fenced engine fulfils, completes
+  and requeues nothing, and every admission bail-out hands the handles
+  it popped to ``on_fenced_orphan`` (they are in neither its queue nor
+  its slots, so the reclaim sweep cannot see them; ``_admitting``
+  publishes them while admission runs). It never stops the thread: a
+  step already inside a CUDA call runs on, and its results are void;
+* ``export_slot`` / ``import_slot`` move a decoding request between
+  engines MID-STREAM: its pages (to the host in the payload, JAX's
+  JSON-safe keys, and back onto the target's card), its device rows
+  (position, current token, key, sampling knobs) and its emitted
+  tokens; a guided pair moves whole. Sampling is deterministic in (key,
+  position), so the continuation is the undisturbed run's. Every
+  refusal is a typed ``MigrationError``, the source or target left as
+  it was.
+
+Left for later slices (see ROADMAP.md): meshes.
 """
 
 from __future__ import annotations
@@ -113,6 +134,45 @@ class ProfileError(RuntimeError):
     def __init__(self, record: dict):
         super().__init__(f"{record.get('reason', 'profile rejected')}")
         self.record = record
+
+
+class MigrationError(RuntimeError):
+    """Typed failure of a live slot migration (export or import): the
+    replica set falls back to replay, never drops the request.
+    ``reason`` is a short slug (``kv_dense``, ``not_found``, ``fenced``,
+    ``weights_version``, ``page_size``, ``layout``, ``target_slots``,
+    ``target_pages``, ``source_dead``, ``transfer``), carried by the
+    ``serve_migrate_fallback`` event."""
+
+    def __init__(self, reason: str, detail: str = ""):
+        super().__init__(f"migration failed ({reason})"
+                         + (f": {detail}" if detail else ""))
+        self.reason = reason
+
+
+def _pack_array(t: torch.Tensor) -> dict:
+    """One tensor as a JSON-safe dict (dtype name, shape, base64 of its
+    bytes): the page snapshot's wire form, JAX's ``_pack_array``."""
+    import base64
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:     # numpy has no bfloat16: its name
+        name, raw = "bfloat16", t.view(torch.int16).numpy()
+    else:
+        raw = t.numpy()
+        name = raw.dtype.str
+    return {"dtype": name, "shape": list(t.shape),
+            "data": base64.b64encode(raw.tobytes()).decode("ascii")}
+
+
+def _unpack_array(d: dict) -> torch.Tensor:
+    import base64
+    raw = base64.b64decode(d["data"])
+    shape = [int(x) for x in d["shape"]]
+    if d["dtype"] == "bfloat16":
+        return torch.from_numpy(np.frombuffer(raw, np.int16).reshape(
+            shape).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.frombuffer(raw, np.dtype(d["dtype"]))
+                            .reshape(shape).copy())
 
 
 class PoolTooSmall(ValueError):
@@ -437,6 +497,13 @@ class Engine:
         self.spec_delivered = 0
         self.spec_proposed = 0
 
+        # the replica supervisor's surface (module docstring)
+        self.fenced = False
+        self.last_heartbeat = self.clock()
+        self.compiling = False
+        self.on_fenced_orphan: Optional[Callable] = None
+        self._admitting: List[S.RequestHandle] = []
+
     # -- host <-> card -------------------------------------------------------
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -466,7 +533,7 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # -- the device programs ---------------------------------------------------
+    # -- the device programs --------------------------------------------------
 
     def _cfg_closures(self):
         """The embed/sample closures every decode loop shares, with the
@@ -617,6 +684,8 @@ class Engine:
             self.flight.record(tr.span(name, now, **meta))
 
     def _finish(self, handle: S.RequestHandle, result: S.Result) -> None:
+        if self.fenced:
+            return          # the request belongs to whoever fenced us
         result.weights_version = self.weights_version
         if result.status == S.OK and self.complete is not None:
             self.complete(handle, result)
@@ -708,7 +777,65 @@ class Engine:
             p.mode = "warm_pending"
             p.shared_n = p.t0 // self.page_size
 
+    # -- fencing --------------------------------------------------------------
+
+    def fence(self) -> None:
+        """One-way: from now on this engine fulfils, completes and
+        requeues nothing, and ``step_once`` returns on entry. The
+        supervisor sets it BEFORE it reclaims the requests."""
+        self.fenced = True
+
+    def inflight_handles(self) -> List[S.RequestHandle]:
+        """Every request this engine holds: the in-slot handles and the
+        ones mid-admission (``_admitting``). Host bookkeeping only, so it
+        can be read while the engine thread is stuck in a step."""
+        out: List[S.RequestHandle] = []
+        seen: set = set()
+        for h in [s.handle for s in list(self.slots) if s is not None] \
+                + list(self._admitting):
+            rid = h.request.request_id
+            if rid not in seen:
+                seen.add(rid)
+                out.append(h)
+        return out
+
+    def progress_snapshot(self) -> Dict[int, int]:
+        """``{request_id: tokens emitted}`` of every in-slot request."""
+        return {s.handle.request.request_id: len(s.emitted)
+                for s in list(self.slots)
+                if s is not None and s.shadow_of is None}
+
+    def _orphan_handles(self, handles) -> None:
+        """Hand handles popped by a step the fence landed in back to the
+        supervisor (``on_fenced_orphan``)."""
+        for h in handles:
+            if not h.done() and self.on_fenced_orphan is not None:
+                self.on_fenced_orphan(h)
+
+    def _requeue_or_orphan(self, handle: S.RequestHandle) -> None:
+        """Back in line: this engine's queue, or once fenced the
+        supervisor's hook (by then the private queue is drained, and its
+        requeue would cancel the handle under the replay)."""
+        if self.fenced:
+            self._orphan_handles([handle])
+            return
+        self.queue.requeue(handle)
+
+    @staticmethod
+    def _unique_handles(group: List[_Row]) -> List[S.RequestHandle]:
+        out, seen = [], set()
+        for p in group:
+            rid = p.handle.request.request_id
+            if rid not in seen:
+                seen.add(rid)
+                out.append(p.handle)
+        return out
+
     def _admit(self, handles: List[S.RequestHandle], now: float) -> None:
+        if self.fenced:
+            # fenced after the pop: nobody else can see these handles
+            self._orphan_handles(handles)
+            return
         free = [i for i, s in enumerate(self.slots) if s is None]
         valid = []
         for h in handles:
@@ -737,7 +864,7 @@ class Engine:
             width = 2 if h.request.cfg_scale > 0 else 1
             if width > budget:
                 for hh in valid[k:]:
-                    self.queue.requeue(hh)
+                    self._requeue_or_orphan(hh)
                 break
             budget -= width
             take.append(h)
@@ -772,7 +899,7 @@ class Engine:
                     self.prefix.shrink(need)
                 if self.alloc.free < need:
                     for hh in take[k:]:
-                        self.queue.requeue(hh)
+                        self._requeue_or_orphan(hh)
                     self._hol_rid = rid
                     self._hol_need = need
                     break
@@ -808,6 +935,10 @@ class Engine:
             if p.mode == "cold":
                 groups.setdefault(p.bucket, []).append(p)
         for bucket, group in groups.items():
+            if self.fenced:
+                # fenced between groups: the rest is step locals
+                self._orphan_handles(self._unique_handles(group))
+                continue
             idx, free = free[:len(group)], free[len(group):]
             for j, p in enumerate(group):
                 p.slot, p.group_idx = idx[j], j
@@ -821,6 +952,10 @@ class Engine:
             if timed:
                 self._sync()
                 self.prefill_times.append(self.clock() - t_pre)
+            if self.fenced:
+                # fenced during the prefill: not slotted, so orphaned
+                self._orphan_handles(self._unique_handles(group))
+                continue
             t_slotted = self.clock()
             for p in group:
                 self.slots[p.slot] = _Slot(
@@ -886,14 +1021,14 @@ class Engine:
                 if q.entry is None \
                         or len(q.entry.full_pages) != q.shared_n:
                     resolved = False
-            if not resolved:
-                # the cold sibling's insert never landed: give the pages
-                # back and retry next pop
+            if not resolved or self.fenced:
+                # the cold sibling's insert never landed (or we are
+                # fenced): give the pages back and retry next pop
                 for q in hrows:
                     if q.grants:
                         self.alloc.release(q.grants)
                         q.grants = []
-                self.queue.requeue(p.handle)
+                self._requeue_or_orphan(p.handle)
                 continue
             warm.extend(hrows)
         if not warm:
@@ -925,6 +1060,9 @@ class Engine:
         if timed:
             self._sync()
             self.warm_admit_times.append(self.clock() - t_warm)
+        if self.fenced:
+            self._orphan_handles(self._unique_handles(warm))
+            return
         t_slotted = self.clock()
         for p in warm:
             i = p.slot
@@ -991,6 +1129,8 @@ class Engine:
         harvested tokens un-credited (re-admission replays them, to the
         same tokens). A guided pair goes whole. False when no slot is
         live."""
+        if self.fenced:
+            return False    # the reclaim sweep owns every in-slot handle
         cand = [(s.handle.request.priority, s.t_admit, i)
                 for i, s in enumerate(self.slots)
                 if s is not None and s.shadow_of is None]
@@ -1009,7 +1149,7 @@ class Engine:
         # request evicted in the step that admitted it would otherwise
         # step the trace back over its prefill_admit span
         self._span(slot.handle, "evict", self.clock(), pages_freed=freed)
-        self.queue.requeue(slot.handle)
+        self._requeue_or_orphan(slot.handle)
         req = slot.handle.request
         self.metrics.event(**S.structured_event(
             "serve_evict", request_id=req.request_id,
@@ -1044,7 +1184,7 @@ class Engine:
                 if not self._evict_lowest_priority(now):
                     break
 
-    # -- the chunk pipeline ----------------------------------------------------
+    # -- the chunk pipeline ---------------------------------------------------
 
     def _dispatch_chunk(self, now: float) -> None:
         """Enqueue one chunk and the copy of its emit ring; no host wait
@@ -1095,6 +1235,8 @@ class Engine:
             rec.ready.synchronize()
         ring, active_after = rec.ring.numpy(), rec.active.numpy()
         self.harvests += 1
+        # the wait above is where a wedged card stalls this thread
+        self.last_heartbeat = self.clock()
         if self._profiler is not None:
             # chunks harvest in order: the countdown reaches 0 once the
             # last captured chunk has run on the card
@@ -1196,7 +1338,193 @@ class Engine:
             total_s=round(now - req.submit_t, 6)))
         return freed
 
-    # -- the loop --------------------------------------------------------------
+    # -- live slot migration --------------------------------------------------
+
+    def find_slot(self, request_id: int) -> Optional[int]:
+        """The cond slot holding ``request_id``, None when it is not in a
+        slot (queued, mid-admission or gone)."""
+        for i, s in enumerate(self.slots):
+            if s is not None and s.shadow_of is None \
+                    and s.handle.request.request_id == int(request_id):
+                return i
+        return None
+
+    def export_slot(self, i: int):
+        """Snapshot slot ``i``'s whole decode state into a JSON-safe
+        payload (JAX's keys) and VACATE the slot: pages released, device
+        row killed, the handle neither fulfilled nor requeued — the
+        caller owns it now. A guided pair's shadow rides in the same
+        payload. Returns ``(payload, handle)``; a ``MigrationError``
+        leaves the slot as it was."""
+        with self._lock:
+            if self.fenced:
+                raise MigrationError("fenced")
+            if self.kv != "paged":
+                raise MigrationError(
+                    "kv_dense", "migration moves KV pages; the dense "
+                    "slot cache has none")
+            # the device rows and the host's emitted list must describe
+            # the same point of the stream: flush the pipeline first
+            while self._pending:
+                self._harvest_chunk()
+            slot = self.slots[i] if 0 <= i < self.num_slots else None
+            if slot is None or slot.shadow_of is not None:
+                raise MigrationError("not_found", f"slot {i}")
+            if slot.handle.done():
+                raise MigrationError("not_found",
+                                     "request completed during export")
+            now = self.clock()
+            host = [t.cpu() for t in (self.pos, self.cur_tok, self.rng,
+                                      self.temp, self.topk_k, self.top_p)]
+            pos_h, tok_h, rng_h, temp_h, topk_h, topp_h = host
+
+            def rows(j):
+                return {"pos": int(pos_h[j]), "cur_tok": int(tok_h[j]),
+                        "rng": [int(x) for x in rng_h[j]],
+                        "temp": float(temp_h[j]),
+                        "topk_k": int(topk_h[j]),
+                        "top_p": float(topp_h[j]),
+                        "pages": [{k: _pack_array(v) for k, v in
+                                   KV.snapshot_page(self.pool, pid).items()}
+                                  for pid in self._slot_pages[j]]}
+
+            payload = {
+                "format": 1,
+                "request_id": int(slot.handle.request.request_id),
+                "handle": slot.handle.to_wire(now),
+                "emitted": [int(t) for t in slot.emitted],
+                "t0": int(slot.t0),
+                "weights_version": self.weights_version,
+                "page_size": int(self.page_size),
+                "quantized": bool(self.quantize_cache),
+                "cond": rows(i),
+                "uncond": None,
+            }
+            j = slot.pair
+            if j is not None and self.slots[j] is not None \
+                    and self.slots[j].shadow_of == i:
+                payload["uncond"] = rows(j)
+                payload["uncond"]["cfg_scale"] = float(
+                    slot.handle.request.cfg_scale)
+            handle = slot.handle
+            self._span(handle, "migrate_out", now, slot=i,
+                       pos=int(pos_h[i]), tokens_done=len(slot.emitted))
+            self._kill(self._free_slot(i))
+            return payload, handle
+
+    def export_request(self, request_id: int):
+        """``export_slot`` addressed by request id."""
+        i = self.find_slot(request_id)
+        if i is None:
+            raise MigrationError("not_found", f"request {request_id} "
+                                 "is not in a slot on this engine")
+        return self.export_slot(i)
+
+    @torch.no_grad()
+    def import_slot(self, payload: dict,
+                    handle: Optional[S.RequestHandle] = None) -> int:
+        """Install an exported slot here: fresh pages filled from the
+        snapshot (host -> card), the exported device rows in free slots,
+        harvesting resumed where the source stopped. ``handle`` is the
+        live handle (None rebuilds a stand-in from the payload). Returns
+        the cond slot; a ``MigrationError`` leaves this engine as it
+        was (a torn snapshot is discarded whole)."""
+        with self._lock:
+            if self.fenced:
+                raise MigrationError("fenced")
+            if self.kv != "paged":
+                raise MigrationError("kv_dense")
+            if str(payload.get("weights_version")) != self.weights_version:
+                raise MigrationError(
+                    "weights_version",
+                    f"snapshot from {payload.get('weights_version')!r}, "
+                    f"target serves {self.weights_version!r} — tokens "
+                    "are byte-identical PER weight generation only")
+            if int(payload.get("page_size", 0)) != self.page_size:
+                raise MigrationError(
+                    "page_size", f"snapshot pages hold "
+                    f"{payload.get('page_size')} rows, target pool "
+                    f"holds {self.page_size}")
+            if bool(payload.get("quantized")) != self.quantize_cache:
+                raise MigrationError(
+                    "layout", "int8-KV snapshot into a float pool (or "
+                    "the reverse)")
+            now = self.clock()
+            if handle is None:
+                handle = S.RequestHandle.from_wire(payload["handle"], now)
+            parts = [payload["cond"]]
+            if payload.get("uncond") is not None:
+                parts.append(payload["uncond"])
+            free = [k for k, s in enumerate(self.slots) if s is None]
+            if len(free) < len(parts):
+                raise MigrationError(
+                    "target_slots", f"need {len(parts)} free slots, "
+                    f"have {len(free)}")
+            need = sum(len(p["pages"]) for p in parts)
+            if self.alloc.free < need and self.prefix is not None:
+                self.prefix.shrink(need)
+            try:
+                grants = self.alloc.alloc(need)
+            except Exception as e:
+                raise MigrationError(
+                    "target_pages", f"need {need} pages: {e}") from e
+            idx = free[:len(parts)]
+            try:
+                # decode every page before touching the pool: a torn
+                # snapshot fails here with nothing written
+                snaps = [[{k: _unpack_array(v).to(self.device)
+                           for k, v in packed.items()}
+                          for packed in part["pages"]] for part in parts]
+                taken = 0
+                for k, part, part_snaps in zip(idx, parts, snaps):
+                    pages = grants[taken:taken + len(part_snaps)]
+                    taken += len(part_snaps)
+                    for pid, snap in zip(pages, part_snaps):
+                        KV.restore_page(self.pool, pid, snap)
+                    self._bt_host[k, :] = 0
+                    self._bt_host[k, :len(pages)] = pages
+                    self._slot_pages[k] = list(pages)
+                    self._pos_est[k] = int(part["pos"])
+            except Exception as e:  # noqa: BLE001 — discard, never wedge
+                self.alloc.release(grants)
+                for k in idx:
+                    self._bt_host[k, :] = 0
+                    self._slot_pages[k] = []
+                    self._pos_est[k] = 0
+                self._bt_dirty = True
+                raise MigrationError("transfer", repr(e)) from e
+            self._bt_dirty = True
+            put = self._put
+            rows = put(np.asarray(idx, np.int64))
+            self.cur_tok[rows] = put(np.asarray(
+                [p["cur_tok"] for p in parts], np.int32))
+            self.pos[rows] = put(np.asarray([p["pos"] for p in parts],
+                                            np.int32))
+            self.active[rows] = True
+            self.rng[rows] = put(np.asarray([p["rng"] for p in parts],
+                                            np.int64))
+            self.temp[rows] = put(np.asarray([p["temp"] for p in parts],
+                                             np.float32))
+            self.topk_k[rows] = put(np.asarray(
+                [p["topk_k"] for p in parts], np.int32))
+            self.top_p[rows] = put(np.asarray([p["top_p"] for p in parts],
+                                              np.float32))
+            i = idx[0]
+            t0 = int(payload["t0"])
+            self.slots[i] = _Slot(handle, t0, now,
+                                  need=self._slot_need(handle.request, t0))
+            self.slots[i].emitted = [int(t) for t in payload["emitted"]]
+            if len(parts) == 2:
+                j = idx[1]
+                self.slots[j] = _Slot(handle, t0, now, shadow_of=i)
+                self.slots[i].pair = j
+                self._cfg_wire(i, j, payload["uncond"]["cfg_scale"])
+            self._span(handle, "migrate_in", now, slot=i,
+                       pos=int(payload["cond"]["pos"]),
+                       tokens_done=len(payload["emitted"]))
+            return i
+
+    # -- the loop -------------------------------------------------------------
 
     def active_slots(self) -> int:
         return sum(s is not None for s in self.slots)
@@ -1205,7 +1533,13 @@ class Engine:
         """One iteration: expire, admit, dispatch ONE chunk, and harvest
         the previous one. Returns True when any work happened."""
         with self._lock:
+            if self.fenced:
+                if self._profiler is not None:
+                    self._profiler.close()      # a capture the fence cut
+                    self._profiler = None
+                return False        # reclaimed: this pool is dead weight
             now = self.clock()
+            self.last_heartbeat = now
             if self._t_start is None:
                 self._t_start = now
             did = False
@@ -1255,12 +1589,23 @@ class Engine:
                         and not h.trace.has_in_attempt("queue_wait"):
                     self._span(h, "queue_wait", now)
             if ready:
-                self._admit(ready, now)
+                # published for the reclaim sweep while admission runs
+                self._admitting = list(ready)
+                try:
+                    self._admit(ready, now)
+                finally:
+                    self._admitting = []
             did = did or bool(ready or expired)
 
             dispatched = self.active_slots() > 0
             if dispatched:
-                self._dispatch_chunk(now)
+                # the first dispatch may load (or build) the kernels:
+                # the supervisor must not read that as a hang
+                self.compiling = self.decode_steps == 0
+                try:
+                    self._dispatch_chunk(now)
+                finally:
+                    self.compiling = False
                 did = True
             # double buffer: keep one chunk in flight while dispatching,
             # drain the pipeline once nothing new is dispatched
@@ -1358,7 +1703,7 @@ class Engine:
         shutdown path."""
         return self._terminate_active(S.CANCELLED, reason)
 
-    # -- profile requests ------------------------------------------------------
+    # -- profile requests -----------------------------------------------------
 
     def _finish_profile(self, partial: bool = False) -> None:
         """Stop the capture and record ``serve_profile_done`` (engine
@@ -1414,7 +1759,12 @@ class Engine:
         """A capture is armed or running."""
         return self._profiler is not None or self._profile_req is not None
 
-    # -- observability -----------------------------------------------------------
+    def capturing(self) -> bool:
+        """A capture is running (armed is not enough: a stuck replica
+        that never dispatches again must not dodge its hang deadline)."""
+        return self._profiler is not None
+
+    # -- observability --------------------------------------------------------
 
     def counters(self) -> Dict[str, int]:
         """The ``COUNTERS`` block as a dict."""

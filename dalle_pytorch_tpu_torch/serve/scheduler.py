@@ -10,8 +10,12 @@ group's ranked ``samples``), ``RequestHandle`` (a first-write-wins
 future with its trace and sink), ``RequestQueue`` (bounded, (priority,
 arrival) order, deadline reaping, ``requeue`` at the original position,
 typed ``serve_reject`` records, ``close``/``drain`` for shutdown) and the
-prompt-length buckets. The wire formats and ``WeightedFairQueue`` come
-with the fleet tier.
+prompt-length buckets. For the replica set: ``RequestHandle
+.replay_version`` (the weights generation a request is pinned to) and
+the wire form of ``Request`` and ``RequestHandle`` (``to_wire`` /
+``from_wire``), which a live migration's payload carries. ``Result``'s
+wire form and ``WeightedFairQueue`` come with process isolation and the
+gateway (ROADMAP.md queue 1 items 2b and 2c).
 
 Overload is structured: a reject raises a ``ServeRejected`` whose
 ``record`` is a ``structured_event("serve_reject", ...)`` (the HTTP
@@ -151,6 +155,50 @@ class Request:
             return None
         return self.submit_t + self.deadline_s
 
+    def to_wire(self, now: float) -> dict:
+        """A flat dict of JSON scalars and lists (exact round trip). The
+        deadline ships as the budget LEFT at ``now``: the receiver
+        re-anchors it on its own clock."""
+        return {
+            "id": int(self.request_id),
+            "codes": [int(c) for c in self.codes],
+            "seed": int(self.seed),
+            "priority": int(self.priority),
+            "temperature": float(self.sampling.temperature),
+            "filter_thres": float(self.sampling.filter_thres),
+            "top_p": float(self.sampling.top_p),
+            "deadline_left_s": (None if self.deadline_s is None
+                                else max(self.deadline_t - now, 0.0)),
+            "cfg_scale": float(self.cfg_scale),
+            "tenant": str(self.tenant),
+            "stream": bool(self.stream),
+            "n_samples": int(self.n_samples),
+            "image_seq_len_override": int(self.image_seq_len_override),
+        }
+
+    @classmethod
+    def from_wire(cls, d: dict, now: float) -> "Request":
+        """Inverse of ``to_wire``, validated by construction; ``submit_t``
+        is ``now``. A field a peer did not send takes its default."""
+        deadline = d["deadline_left_s"]
+        return cls(
+            codes=tuple(int(c) for c in d["codes"]),
+            seed=int(d["seed"]),
+            sampling=SamplingParams(
+                temperature=float(d["temperature"]),
+                filter_thres=float(d["filter_thres"]),
+                top_p=float(d["top_p"])),
+            priority=int(d["priority"]),
+            deadline_s=None if deadline is None else float(deadline),
+            cfg_scale=float(d.get("cfg_scale", 0.0)),
+            tenant=str(d.get("tenant", "")),
+            stream=bool(d.get("stream", False)),
+            n_samples=int(d.get("n_samples", 1)),
+            image_seq_len_override=int(
+                d.get("image_seq_len_override", 0)),
+            request_id=int(d["id"]),
+            submit_t=float(now))
+
 
 @dataclasses.dataclass
 class Result:
@@ -184,7 +232,8 @@ class RequestHandle:
     """Future for one request. ``fulfill`` is first-write-wins, attaches
     the trace summary and closes the sink: every terminal path
     (completion, postprocess, expiry, error, cancel) goes through it, so
-    a stream ends exactly once."""
+    a stream ends exactly once, and a fenced replica waking late cannot
+    overwrite the result of the replay that reclaimed its request."""
 
     def __init__(self, request: Request):
         self.request = request
@@ -198,6 +247,11 @@ class RequestHandle:
         self.queue_seq: int = -1
         # the live TokenSink of a streamed request (serve/stream.py)
         self.sink = None
+        # the weights generation this request first routed to (the
+        # replica set's router sets it); while pinned, a failover replay
+        # goes only to a replica of that generation: tokens are
+        # byte-identical per generation, not across them. None: unpinned
+        self.replay_version: Optional[str] = None
 
     def done(self) -> bool:
         return self._done.is_set()
@@ -226,6 +280,28 @@ class RequestHandle:
                 f"request {self.request.request_id} not done after "
                 f"{timeout}s (still queued or decoding)")
         return self._result
+
+    def to_wire(self, now: float) -> dict:
+        """The request's wire form, its arrival position (``seq``) and
+        its trace identity."""
+        d = {**self.request.to_wire(now), "seq": int(self.queue_seq)}
+        if self.trace is not None:
+            d["trace_id"] = self.trace.trace_id
+            d["attempt"] = int(self.trace.attempt)
+        return d
+
+    @classmethod
+    def from_wire(cls, d: dict, now: float) -> "RequestHandle":
+        """A stand-in handle rebuilt from ``to_wire``'s form, with a trace
+        under the wire's trace id and attempt."""
+        handle = cls(Request.from_wire(d, now))
+        handle.queue_seq = int(d["seq"])
+        tid = d.get("trace_id")
+        if tid is not None:
+            otrace.attach(handle, handle.request.request_id, now,
+                          trace_id=str(tid),
+                          attempt=int(d.get("attempt", 0)))
+        return handle
 
 
 class RequestQueue:

@@ -1,25 +1,29 @@
 """Serving front end: the threaded Python API and the standard-library
 HTTP server.
 
-Port of the single-engine path of ``dalle_pytorch_tpu/serve/server.py``
-(``InferenceServer`` ``:34-896``, ``make_http_server`` and ``serve_http``
-``:898-1152``). ``InferenceServer`` wires ``scheduler.RequestQueue``
-(admission) -> ``engine.Engine`` (slot-batched decode, its own thread) ->
-``postprocess.PostProcessor`` (VAE and CLIP, its own thread) and owns
-their lifecycle; ``start()`` claims the device under the deadline,
-backoff and jitter of ``resilience.retry``, so a claim that hangs or
-fails surfaces as a ``BringupError``.
+Port of ``dalle_pytorch_tpu/serve/server.py`` (``InferenceServer``
+``:34-896``, ``make_http_server`` and ``serve_http`` ``:898-1152``) with
+thread replicas. ``InferenceServer`` wires ``scheduler.RequestQueue``
+(admission) -> ``engine.Engine`` (slot-batched decode, its own thread)
+or, with ``replicas > 1`` (or an autoscaler, or ``max_replicas`` room to
+grow), ``replica.ReplicaSet`` (supervised engines, a thread each, one
+card) -> ``postprocess.PostProcessor`` (VAE and CLIP, its own thread)
+and owns their lifecycle; ``start()`` claims the device under the
+deadline, backoff and jitter of ``resilience.retry``, so a claim that
+hangs or fails surfaces as a ``BringupError``.
 
-The device work stays on the default stream of two threads, the
-engine's and the postprocess worker's (K4's split merge shares one
-counter buffer per device and relies on launch order, see
+The device work stays on the default stream of the engine threads and
+the postprocess worker's (K4's split merge shares one counter buffer
+per device and relies on launch order, see
 ``ops/paged_attention.py::_counters``); an HTTP thread only reads host
 state and host copies.
 
 Two call surfaces:
 
 * Python: ``submit(codes, ...) -> RequestHandle`` (a ``GroupFuture`` for
-  ``n_samples > 1``), ``generate``, ``stats()``, ``health()``;
+  ``n_samples > 1``), ``generate``, ``stats()``, ``health()``,
+  ``scale(op, ...)`` (add / remove / drain / undrain / upgrade / status on
+  a replica set);
 * HTTP (``make_http_server`` / ``serve_http``): ``POST /generate``
   ``{"codes": [...] | "caption": "...", knobs...}`` answers the result's
   JSON body, or an SSE stream with ``"stream": true``; ``GET /healthz``,
@@ -27,10 +31,11 @@ Two call surfaces:
   flight recorder); ``POST /admin/scale`` and ``/admin/profile`` behind
   the admin token. Status codes and bodies are the JAX server's.
 
-The replica set, process isolation, transports, the autoscaler and the
-gateway are the fleet tier (ROADMAP.md queue 1 item 5): their keywords
-are not taken here (``TypeError``), and ``scale()`` answers the typed
-``not_a_replica_set`` refusal.
+A single engine answers ``scale()`` with the typed
+``not_a_replica_set`` refusal. Process isolation and its transports
+(ROADMAP.md queue 1 item 2b), a device mesh (item 3) and the gateway
+(item 2c) are not taken here: their keywords raise ``TypeError`` naming
+the item.
 """
 
 from __future__ import annotations
@@ -49,30 +54,33 @@ from dalle_pytorch_tpu_torch.serve import auth
 from dalle_pytorch_tpu_torch.serve import engine as engine_mod
 from dalle_pytorch_tpu_torch.serve import fanout
 from dalle_pytorch_tpu_torch.serve import postprocess as post_mod
+from dalle_pytorch_tpu_torch.serve import replica as replica_mod
 from dalle_pytorch_tpu_torch.serve import scheduler as S
 from dalle_pytorch_tpu_torch.serve import stream as stream_mod
 from dalle_pytorch_tpu_torch.serve.engine import ProfileError
+from dalle_pytorch_tpu_torch.serve.replica import ScaleError, UpgradeAborted
 
-
-class ScaleError(RuntimeError):
-    """Typed refusal of an operator reshape (``POST /admin/scale``):
-    ``record`` is the ``serve_scale_reject`` event, the HTTP 409 body. A
-    single engine has no replica set to reshape."""
-
-    def __init__(self, record: dict):
-        super().__init__(f"{record.get('reason', 'scale rejected')} "
-                         f"(op={record.get('op')})")
-        self.record = record
+# the JAX server's keywords of the slices still to come, and the
+# ROADMAP.md item each waits for
+UNPORTED = {**{k: replica_mod.PROCESS_ITEM for k in (
+    "isolation", "child_rss_limit_mb", "transport", "worker_endpoint",
+    "worker_cmd", "attach_token", "worker_ckpt", "worker_use_ema",
+    "worker_quantize")},
+    "mesh_devices": replica_mod.MESH_ITEM}
 
 
 class InferenceServer:
-    """Continuous-batching text -> image service on one engine, its own
-    thread, and a postprocess worker.
+    """Continuous-batching text -> image service on one engine (its own
+    thread) or a replica set, and a postprocess worker.
 
     ``model`` and ``vae`` are the port's ``DALLE`` and ``VAEDecoder`` on
     the server's device (the card unless ``device`` says otherwise);
-    ``clip`` scores every image. The other keywords are the JAX
-    server's single-engine ones."""
+    ``clip`` scores every image. ``replicas``, ``replica_roles``,
+    ``max_replicas``, ``autoscale`` (a ``serve.autoscale
+    .AutoscalePolicy``), ``heartbeat_s`` and ``load_weights`` (a
+    checkpoint path -> ``DALLE`` on the device, for ``POST /admin/scale``
+    upgrades) shape the replica set; the other keywords are the JAX
+    server's."""
 
     def __init__(self, model, vae, *, clip=None,
                  num_slots: int = 4, queue_depth: int = 64,
@@ -90,14 +98,26 @@ class InferenceServer:
                  preview_every: int = 0,
                  stream_max_events: int = 256,
                  default_cfg_scale: float = 0.0,
+                 replicas: int = 1,
+                 replica_roles=None,
                  weights_version: str = "0",
+                 max_replicas: int = 0,
+                 autoscale=None,
                  admin_token: Optional[str] = None,
+                 load_weights: Optional[Callable] = None,
+                 heartbeat_s: float = 5.0,
                  decode_images: bool = True,
                  metrics=None, log_every: int = 50,
                  profile_dir: Optional[str] = None,
                  encode: Optional[Callable[[str], List[int]]] = None,
                  init_deadline_s: float = 0.0, init_retries: int = 3,
-                 device=None):
+                 device=None, **unported):
+        for name in sorted(unported):
+            if name not in UNPORTED:
+                raise TypeError(f"InferenceServer() got an unexpected "
+                                f"keyword argument {name!r}")
+            raise TypeError(f"{name}: not in the PyTorch port yet; see "
+                            f"{UNPORTED[name]}")
         self.device = resolve_device(device)
         cfg = self.cfg = model.cfg
         self.metrics = metrics
@@ -114,23 +134,58 @@ class InferenceServer:
         # /admin/* authenticate against this (generated when not given)
         self.admin_token = admin_token or secrets.token_hex(16)
         self.weights_version = str(weights_version)
+        self.replicas = int(replicas)
+        self.autoscale_policy = autoscale
+        self.autoscaler = None
+        self.load_weights = load_weights
+        self.max_replicas = int(max_replicas)
+        # a single-replica server with an autoscaler or a max_replicas
+        # headroom still fronts a set: elasticity needs slots to grow into
+        self._is_set = (self.replicas > 1 or autoscale is not None
+                        or self.max_replicas > 1)
+        self.replica_roles = tuple(replica_roles) if replica_roles \
+            else None
+        if self.replica_roles and not self._is_set:
+            raise ValueError("replica_roles requires a replica set "
+                             "(replicas >= 2)")
+        if autoscale is not None:
+            # the policy's cap and the set's must agree, or the scaler
+            # would ask for replicas the set refuses
+            self.max_replicas = max(self.max_replicas,
+                                    autoscale.max_replicas)
 
         self.queue = S.RequestQueue(
             max_depth=queue_depth,
             # a prompt the slots cannot hold is refused here (HTTP 400)
             max_prompt_len=cfg.text_seq_len,
             on_event=self._queue_event)
-        self.engine = engine_mod.Engine(
-            model, self.queue, num_slots=num_slots,
-            chunk_steps=chunk_steps, prefill_buckets=prefill_buckets,
-            complete=self._on_decoded, metrics=metrics,
-            log_every=log_every, quantize_cache=quantize_cache,
-            kv=kv, page_size=page_size, num_pages=num_pages,
-            paged_attn=paged_attn, sparse_reads=sparse_reads,
-            speculative=speculative, draft_layers=draft_layers,
-            prefix_cache=prefix_cache, preview_every=preview_every,
-            weights_version=self.weights_version,
-            model_version=self.weights_version, device=self.device)
+        engine_kw = dict(
+            num_slots=num_slots, chunk_steps=chunk_steps,
+            prefill_buckets=prefill_buckets, complete=self._on_decoded,
+            metrics=metrics, log_every=log_every,
+            quantize_cache=quantize_cache, kv=kv, page_size=page_size,
+            num_pages=num_pages, paged_attn=paged_attn,
+            sparse_reads=sparse_reads, speculative=speculative,
+            draft_layers=draft_layers, prefix_cache=prefix_cache,
+            preview_every=preview_every, device=self.device)
+        if self._is_set:
+            self.engine = replica_mod.ReplicaSet(
+                model, self.queue, replicas=self.replicas,
+                heartbeat_s=heartbeat_s,
+                weights_version=self.weights_version,
+                max_replicas=self.max_replicas, roles=self.replica_roles,
+                **engine_kw)
+            if self.autoscale_policy is not None:
+                from dalle_pytorch_tpu_torch.serve.autoscale import \
+                    Autoscaler
+                # decisions land in the set's flight ring
+                self.autoscaler = Autoscaler(
+                    self.engine, self.autoscale_policy,
+                    metrics=self.engine.metrics)
+        else:
+            self.engine = engine_mod.Engine(
+                model, self.queue, weights_version=self.weights_version,
+                model_version=self.weights_version, **engine_kw)
 
         # after the engine, so its events tee into the engine's ring
         self.post = None
@@ -153,7 +208,8 @@ class InferenceServer:
         self._stream_lock = threading.Lock()
         self.fanout_pages_saved = 0
         self.groups_completed = 0
-        self._page_size = self.engine.page_size if kv == "paged" else 0
+        self._page_size = (int(page_size) or min(16, cfg.seq_len)) \
+            if kv == "paged" else 0
         self._cow_sharing = (kv == "paged" and prefix_cache)
 
         # /metrics: the sliding-window latency histograms, labelled by
@@ -179,6 +235,12 @@ class InferenceServer:
             "request",
             buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0,
                      50.0, 100.0, 250.0, 1000.0))
+        self.hist_migration = self.registry.histogram(
+            "dalle_serve_migration_seconds",
+            "Wall seconds per successful live slot migration "
+            "(export -> installed on the target)",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
         self._profile_arm_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -255,10 +317,15 @@ class InferenceServer:
             ) if self.metrics is not None else None)
         if self.post is not None:
             self.post.start()
-        self._thread = threading.Thread(
-            target=self.engine.run, args=(self._stop,), daemon=True,
-            name="serve-engine")
-        self._thread.start()
+        if self._is_set:
+            self.engine.start()     # per-replica threads + supervisor
+            if self.autoscaler is not None:
+                self.autoscaler.start()
+        else:
+            self._thread = threading.Thread(
+                target=self.engine.run, args=(self._stop,), daemon=True,
+                name="serve-engine")
+            self._thread.start()
         return self
 
     def close(self, timeout: float = 30.0) -> None:
@@ -266,16 +333,22 @@ class InferenceServer:
         and join the engine thread, cancel everything queued and every
         in-slot request (typed results), then drain the postprocess
         stage. The drain comes after the engine stops, so a late requeue
-        is cancelled on the spot."""
+        is cancelled on the spot. A replica set joins every replica thread
+        with its share of the deadline and fences one that outlives it."""
         self.queue.close()
         self._stop.set()
-        if self._thread is not None:
+        if self.autoscaler is not None:
+            self.autoscaler.close()     # no reshapes during teardown
+        if self._is_set:
+            self.engine.close(timeout)
+        elif self._thread is not None:
             self._thread.join(timeout)
         for handle in self.queue.drain():
             handle.fulfill(S.Result(
                 status=S.CANCELLED, request_id=handle.request.request_id,
                 reason="server shutdown"))
-        self.engine.cancel_active("server shutdown")
+        if not self._is_set:
+            self.engine.cancel_active("server shutdown")
         if self.post is not None:
             self.post.close(timeout)
 
@@ -350,22 +423,96 @@ class InferenceServer:
         return self.submit(codes, **kwargs).result(timeout)
 
     def engine_alive(self) -> bool:
-        """True while the serving loop runs (or before start)."""
+        """True while the serving loop runs (or before start); for a set,
+        while at least one replica serves."""
+        if self._is_set:
+            return self.engine.alive()
         return self._thread is None or self._thread.is_alive()
 
     def health(self) -> dict:
         """The /healthz body; ``ok`` False (HTTP 503) once the engine
-        thread has died."""
-        return {"ok": self.engine_alive(), "devices_per_replica": 1,
-                "mesh_shape": None}
+        thread has died, or every replica of a set is down. A set adds
+        each replica's state and heartbeat age."""
+        out = {"ok": self.engine_alive(), "devices_per_replica": 1,
+               "mesh_shape": None}
+        if self._is_set:
+            out["replicas"] = self.engine.replica_states()
+            out["weights_version"] = self.engine.weights_version
+            out["upgrading"] = self.engine._upgrading
+        return out
 
     def scale(self, op: str, **kwargs) -> dict:
-        """``POST /admin/scale``: a single engine is no replica set."""
+        """One operator reshape (``POST /admin/scale``): ``add``,
+        ``remove``, ``drain``, ``undrain``, ``upgrade`` (a checkpoint
+        path through ``load_weights``) or ``status``, on the replica set.
+        Raises its typed errors (``ScaleError``, ``UpgradeAborted``); a
+        single engine is no replica set."""
+        if not self._is_set:
+            raise ScaleError(S.structured_event(
+                "serve_scale_reject", op=op, reason="not_a_replica_set"))
+        rs = self.engine
+        if op == "add":
+            index = rs.add_replica(role=str(kwargs.get("role", "both")))
+            return {"op": op, "replica": index, "replicas": rs.n_replicas}
+        if op == "remove":
+            index = int(kwargs["replica"])
+            n = rs.remove_replica(index,
+                                  drain=bool(kwargs.get("drain", True)))
+            return {"op": op, "replica": index, "reclaimed": n,
+                    "replicas": rs.n_replicas}
+        if op == "drain":
+            index = int(kwargs["replica"])
+            return {"op": op, "replica": index,
+                    "reclaimed": rs.drain_replica(index)}
+        if op == "undrain":
+            index = int(kwargs["replica"])
+            return {"op": op, "replica": index,
+                    "ok": rs.undrain_replica(index)}
+        if op == "upgrade":
+            ckpt = kwargs.get("ckpt")
+            version = kwargs.get("version") or str(ckpt)
+            if ckpt is None:
+                raise ScaleError(S.structured_event(
+                    "serve_scale_reject", op=op,
+                    reason="upgrade_needs_ckpt"))
+            if self.load_weights is None:
+                raise ScaleError(S.structured_event(
+                    "serve_scale_reject", op=op,
+                    reason="no_weight_loader",
+                    detail="server built without load_weights; pass "
+                           "params via the Python API"))
+            try:
+                params = self.load_weights(str(ckpt))
+            except Exception as e:  # noqa: BLE001 — a bad path is the
+                # likeliest operator mistake: a typed refusal, the fleet
+                # untouched
+                raise ScaleError(S.structured_event(
+                    "serve_scale_reject", op=op,
+                    reason="weight_load_failed", ckpt=str(ckpt),
+                    error=repr(e))) from e
+            record = rs.rolling_upgrade(
+                version=str(version), params=params,
+                canaries=int(kwargs.get("canaries", 2)))
+            self.weights_version = rs.weights_version
+            return {"op": op, **record}
+        if op == "status":
+            return {"op": op, "replicas": rs.replica_states(),
+                    "weights_version": rs.weights_version,
+                    "upgrading": rs._upgrading,
+                    "max_replicas": rs.max_replicas,
+                    "scale_outs": rs.scale_outs,
+                    "scale_ins": rs.scale_ins,
+                    "upgrades": rs.upgrades}
         raise ScaleError(S.structured_event(
-            "serve_scale_reject", op=op, reason="not_a_replica_set"))
+            "serve_scale_reject", op=op, reason="unknown_op"))
 
     def stats(self) -> dict:
         out = self.engine.stats()
+        if self._is_set:
+            # the set records migration wall times, the server exposes
+            samples = self.engine.migration_seconds
+            while samples:
+                self.hist_migration.observe(samples.pop(0))
         e2e_ps = self.hist_e2e.percentiles((0.50, 0.95, 0.99))
         out.update({
             "requests_submitted": self.queue.submitted,
@@ -420,6 +567,25 @@ class InferenceServer:
          "Requeues from eviction/page-defer/failover"),
         ("prefix_hits", "dalle_serve_prefix_hits_total",
          "Warm prefix-cache admissions (zero prefill FLOPs)"),
+        ("failovers", "dalle_serve_failovers_total",
+         "Replica fence+reclaim+replay cycles"),
+        ("reclaimed", "dalle_serve_reclaimed_total",
+         "Requests reclaimed from fenced replicas for replay"),
+        ("bringup_failures", "dalle_serve_bringup_failures_total",
+         "Replica bring-up attempts that failed (circuit breaker)"),
+        ("scale_outs", "dalle_serve_scale_outs_total",
+         "Elastic scale-out actions"),
+        ("scale_ins", "dalle_serve_scale_ins_total",
+         "Elastic scale-in actions"),
+        ("upgrades", "dalle_serve_upgrades_total",
+         "Completed rolling weight upgrades"),
+        ("migrations", "dalle_serve_migrations_total",
+         "Live slot migrations completed (drain/scale-in/upgrade/roles)"),
+        ("migrate_fallbacks", "dalle_serve_migrate_fallbacks_total",
+         "Migrations that fell back to deterministic replay"),
+        ("migrated_tokens_saved",
+         "dalle_serve_migrated_tokens_saved_total",
+         "Tokens live migration avoided re-decoding"),
         ("profiles_taken", "dalle_serve_profiles_taken_total",
          "Completed POST /admin/profile captures"),
         ("reaped", "dalle_serve_reaped_total",
@@ -439,6 +605,10 @@ class InferenceServer:
          "Slots currently decoding"),
         ("num_slots", "dalle_serve_num_slots",
          "Total decode slots across live replicas"),
+        ("alive_replicas", "dalle_serve_alive_replicas",
+         "Replicas currently serving"),
+        ("replicas", "dalle_serve_replicas",
+         "Replicas in the set (retired excluded)"),
         ("pages_in_use", "dalle_serve_pages_in_use",
          "Physical KV pages mapped (shared pages counted once)"),
         ("pages_free", "dalle_serve_pages_free",
@@ -451,6 +621,8 @@ class InferenceServer:
          "Records currently retained in the flight ring(s)"),
         ("mean_occupancy", "dalle_serve_mean_occupancy",
          "Mean busy slots per dispatched decode step"),
+        ("upgrading", "dalle_serve_upgrading",
+         "1 while a rolling upgrade owns the fleet"),
         ("profile_active", "dalle_serve_profile_active",
          "1 while a torch.profiler capture is in flight"),
         ("streams_active", "dalle_serve_streams_active",
@@ -469,17 +641,51 @@ class InferenceServer:
         gauges = [(name, help_text, [(None, stats[key])])
                   for key, name, help_text in self._GAUGE_METRICS
                   if stats.get(key) is not None]
+        version = stats.get("weights_version", self.weights_version)
         gauges.append(("dalle_serve_info",
                        "Serving identity (labels carry the facts)",
-                       [({"weights_version": self.weights_version,
+                       [({"weights_version": version,
                           "kv": str(stats.get("kv", "")),
                           "isolation": "thread"}, 1)]))
+        per = stats.get("per_replica") or ()
+        if per:
+            def rep_samples(key):
+                return [({"replica": rec["replica"],
+                          "weights_version": rec.get("weights_version",
+                                                     ""),
+                          "state": rec.get("state", "")}, rec.get(key))
+                        for rec in per]
+            counters.append((
+                "dalle_serve_replica_tokens_decoded_total",
+                "Per-replica tokens decoded (live engines only)",
+                rep_samples("tokens_decoded")))
+            counters.append((
+                "dalle_serve_replica_completed_total",
+                "Per-replica completed requests",
+                rep_samples("completed")))
+            gauges.append((
+                "dalle_serve_replica_active_slots",
+                "Per-replica busy slots", rep_samples("active_slots")))
+            gauges.append((
+                "dalle_serve_replica_queued",
+                "Per-replica routed-but-not-decoding requests",
+                rep_samples("queued")))
+            gauges.append((
+                "dalle_serve_replica_up",
+                "1 while the replica is in the running state",
+                [({"replica": rec["replica"],
+                   "weights_version": rec.get("weights_version", "")},
+                  1 if rec.get("state") == "running" else 0)
+                 for rec in per]))
         return self.registry.render(counters=counters, gauges=gauges)
 
     # -- /debug/events and /admin/profile -----------------------------------
 
     def debug_events(self) -> dict:
-        """What the flight recorder holds."""
+        """What the flight recorders hold: the engine's, or the set's with
+        every replica's and the fenced replicas' last dumps."""
+        if self._is_set:
+            return self.engine.debug_events()
         return {"server": self.engine.flight.dump(), "replicas": {},
                 "fenced": {}}
 
@@ -495,10 +701,28 @@ class InferenceServer:
                 "serve_profile_reject", reason="no_profile_dir",
                 detail="pass 'dir' in the request body or start the "
                        "server with --profile_dir"))
+        eng = self.engine
+        if self._is_set:
+            replica = int(replica)
+            if not 0 <= replica < len(self.engine.replicas) \
+                    or self.engine.replicas[replica].engine is None:
+                raise ProfileError(S.structured_event(
+                    "serve_profile_reject", reason="no_such_replica",
+                    replica=replica))
+            eng = self.engine.replicas[replica].engine
         with self._profile_arm_lock:
-            rec = dict(self.engine.request_profile(str(log_dir),
-                                                   chunks=chunks))
-        rec["replica"] = 0
+            if self._is_set:
+                # torch.profiler is one capture a process: a sibling's
+                # capture refuses this one
+                for i, r in enumerate(self.engine.replicas):
+                    e = r.engine
+                    if e is not None and e is not eng \
+                            and e.profile_active():
+                        raise ProfileError(S.structured_event(
+                            "serve_profile_reject",
+                            reason="capture_active", replica=i))
+            rec = dict(eng.request_profile(str(log_dir), chunks=chunks))
+        rec["replica"] = int(replica) if self._is_set else 0
         return rec
 
 
@@ -598,7 +822,7 @@ def make_http_server(server: InferenceServer, host: str = "127.0.0.1",
                 return
             try:
                 self._send(200, server.scale(op, **req))
-            except ScaleError as e:
+            except (ScaleError, UpgradeAborted) as e:
                 self._send(409, e.record)
             except (ValueError, KeyError, TypeError) as e:
                 self._send(400, {"error": str(e)})

@@ -1,1 +1,2 @@
-"""Training metrics and the profiler hook (``dalle_pytorch_tpu/utils/``)."""
+"""Training metrics, the profiler hook and the debug guards
+(``dalle_pytorch_tpu/utils/``)."""

@@ -259,9 +259,17 @@ def test_unported_flags_refused_by_every_trainer(data, tmp_path, cli):
         main(argv + ["--dp", "4"], device="cpu")
 
 
-def test_a_jpeg_in_the_folder_fails_with_the_typed_error(data, tmp_path):
+def test_a_jpeg_in_the_folder_fails_with_the_typed_error(data, tmp_path,
+                                                        monkeypatch):
+    """Where libjpeg is missing, a JPEG folder fails with the typed error
+    naming it (with libjpeg the folder trains:
+    ``tests/test_torch_images.py``)."""
+    from dalle_pytorch_tpu_torch import native
     from dalle_pytorch_tpu_torch.cli import train_vae
     from dalle_pytorch_tpu_torch.data.images import UnsupportedImage
+    from dalle_pytorch_tpu_torch.native import build as NB
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(NB, "LIBS", ("-ljpeg_not_on_this_machine",))
     folder = tmp_path / "imagedata" / "0"
     folder.mkdir(parents=True)
     for i in range(4):
@@ -269,7 +277,7 @@ def test_a_jpeg_in_the_folder_fails_with_the_typed_error(data, tmp_path):
             folder / f"im{i}.jpg")
     argv = vae_argv(data, tmp_path)
     argv[argv.index("--dataPath") + 1] = str(tmp_path / "imagedata")
-    with pytest.raises(UnsupportedImage, match="JPEG"):
+    with pytest.raises(UnsupportedImage, match="JPEG.*libjpeg"):
         train_vae.main(argv, device="cpu")
 
 

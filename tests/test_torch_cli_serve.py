@@ -1,7 +1,12 @@
 """The port's serving CLI (``cli/serve.py``) on the CPU, beside the JAX
 package's: ``build_parser()`` has JAX's flags, choices and defaults; each
-fleet flag ends in ``SystemExit`` naming ROADMAP queue items 5 and 6;
-and ``main(argv)`` on a tiny checkpoint directory written by the port's
+flag of a slice still to come (process isolation and its transport, the
+gateway, a mesh) ends in ``SystemExit`` naming its ROADMAP queue item,
+while the replica-set flags (``--replicas``, ``--replica_roles``,
+``--max_replicas``, ``--min_replicas``, ``--autoscale``) serve, a set
+answering JAX's tokens and ``POST /admin/scale``'s upgrade loading a
+checkpoint path; and ``main(argv)`` on a tiny checkpoint directory
+written by the port's
 ``checkpoint.py`` (DALLE with an EMA, its VAE, a CLIP, the vocabulary),
 with ``serve_http`` replaced by one caption request over HTTP, serves the
 JAX CLI's tokens and CLIP score for the same checkpoint, with
@@ -53,22 +58,38 @@ def test_parser_matches_jax():
         vars(JCLI.build_parser().parse_args([]))
 
 
-FLEET_ARGV = [["--replicas", "2"], ["--replica_roles", "prefill,decode"],
-              ["--mesh_devices", "2"], ["--isolation", "process"],
-              ["--transport", "socket"], ["--worker_ckpt", "x"],
-              ["--worker_endpoint", "0.0.0.0:9"], ["--worker_cmd", ""],
-              ["--attach_token", "t"], ["--child_rss_limit_mb", "10"],
-              ["--autoscale"], ["--max_replicas", "4"],
-              ["--min_replicas", "2"], ["--gateway"], ["--cells", "3"],
-              ["--tenants", "t.json"]]
+# the flags still refused, and the ROADMAP.md queue 1 item each names
+FLEET_ARGV = [(["--mesh_devices", "2"], "item 3"),
+              (["--isolation", "process"], "item 2b"),
+              (["--transport", "socket"], "item 2b"),
+              (["--worker_ckpt", "x"], "item 2b"),
+              (["--worker_endpoint", "0.0.0.0:9"], "item 2b"),
+              (["--worker_cmd", ""], "item 2b"),
+              (["--attach_token", "t"], "item 2b"),
+              (["--child_rss_limit_mb", "10"], "item 2b"),
+              (["--gateway"], "item 2c"), (["--cells", "3"], "item 2c"),
+              (["--tenants", "t.json"], "item 2c")]
 
 
-@pytest.mark.parametrize("argv", FLEET_ARGV, ids=lambda a: a[0])
-def test_fleet_flags_exit_naming_queue_items_5_and_6(argv):
+@pytest.mark.parametrize("argv,item", FLEET_ARGV, ids=lambda a: a[0]
+                         if isinstance(a, list) else "")
+def test_fleet_flags_exit_naming_queue_items_5_and_6(argv, item):
+    """(Named for the queue numbering of its first version.) Each flag
+    of a slice still to come ends in ``SystemExit`` naming its current
+    ROADMAP.md queue 1 item."""
     with pytest.raises(SystemExit) as ei:
         CLI.main(argv, device="cpu")
     msg = str(ei.value)
-    assert argv[0] in msg and "items 5" in msg and "6" in msg
+    assert argv[0] in msg and f"ROADMAP.md queue 1 {item}" in msg
+
+
+def test_autoscale_without_headroom_exits_as_jax_does(models_dir):
+    argv = ["--name", "toy", "--models_dir", str(models_dir),
+            "--autoscale", "--replicas", "2"]
+    for mod, kw in ((CLI, {"device": "cpu"}), (JCLI, {})):
+        with pytest.raises(SystemExit, match="--max_replicas > "
+                                             "--replicas"):
+            mod.main(argv, **kw)
 
 
 # -- main(argv) on one checkpoint, both packages -----------------------------
@@ -159,3 +180,94 @@ def test_main_serves_the_jax_cli_tokens(models_dir, monkeypatch, extra):
     if "--clip_name" in extra:
         np.testing.assert_allclose(port["clip_score"], jax_["clip_score"],
                                    rtol=1e-5, atol=1e-5)
+
+
+# -- the replica-set flags ----------------------------------------------------
+
+def capture_server(mod, monkeypatch):
+    """Replace ``mod.serve_http`` with a hook that keeps the started
+    server and closes it."""
+    got = []
+
+    def keep(server, host, port):
+        got.append(server)
+        server.close()
+
+    monkeypatch.setattr(mod, "serve_http", keep)
+    return got
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--replicas", "2"], (2, 2, None, ("both", "both"))),
+    (["--replicas", "2", "--kv", "paged", "--page_size", "8",
+      "--replica_roles", "prefill,decode"],
+     (2, 2, None, ("prefill", "decode"))),
+    (["--max_replicas", "4"], (1, 4, None, ("both",))),
+    (["--autoscale", "--max_replicas", "3"], (1, 3, (1, 3), ("both",))),
+    (["--autoscale", "--replicas", "2", "--max_replicas", "3",
+      "--min_replicas", "2"], (2, 3, (2, 3), ("both", "both")))],
+    ids=["replicas", "replica_roles", "max_replicas", "autoscale",
+         "min_replicas"])
+def test_replica_set_flags_now_serve(models_dir, monkeypatch, argv, want):
+    base = ["--name", "toy", "--models_dir", str(models_dir), "--port",
+            "0", "--init_deadline_s", "0", "--heartbeat_s", "30"]
+    got = capture_server(SRV, monkeypatch)
+    CLI.main(base + argv, device="cpu")
+    server = got[0]
+    rs = server.engine
+    n, cap, auto, roles = want
+    assert server._is_set and rs.n_replicas == n and rs.max_replicas == cap
+    assert tuple(r.role for r in rs.replicas) == roles
+    assert rs.heartbeat_s == 30.0
+    if auto is None:
+        assert server.autoscaler is None
+    else:
+        p = server.autoscaler.policy
+        assert (p.min_replicas, p.max_replicas) == auto
+
+
+def test_replica_set_serves_the_jax_cli_tokens(models_dir, monkeypatch):
+    argv = ["--name", "toy", "--models_dir", str(models_dir),
+            "--port", "0", "--init_deadline_s", "0", "--replicas", "2",
+            "--num_slots", "2", "--chunk_steps", "4"]
+    body = {"caption": "a red square", "seed": 3}
+    port_got = serve_once(SRV, monkeypatch, body)
+    CLI.main(argv, device="cpu")
+    jax_got = serve_once(JSRV, monkeypatch, body)
+    JCLI.main(argv)
+    (port,), (jax_,) = port_got, jax_got
+    assert port["status"] == jax_["status"] == "ok"
+    assert port["tokens"] == jax_["tokens"]
+    assert port["weights_version"] == jax_["weights_version"] \
+        == "toy_dalle@0"
+
+
+def test_admin_upgrade_loads_a_checkpoint_path(models_dir, monkeypatch):
+    """``POST /admin/scale`` ``upgrade``: the server's ``load_weights``
+    restores the path as startup did, every replica cycles and the
+    fleet serves the new version."""
+    argv = ["--name", "toy", "--models_dir", str(models_dir), "--port",
+            "0", "--init_deadline_s", "0", "--replicas", "2",
+            "--num_slots", "2", "--chunk_steps", "4", "--use_ema"]
+    got = []
+
+    def upgrade(server, host, port):
+        try:
+            got.append(server.scale(
+                "upgrade", ckpt=str(models_dir / "toy_dalle-0"),
+                version="toy_dalle@0-again", canaries=1))
+            got.append(server.generate([3, 7, 9], seed=2, timeout=120))
+            with pytest.raises(SRV.ScaleError) as ei:
+                server.scale("upgrade", ckpt=str(models_dir / "nope"),
+                             version="v9")
+            got.append(ei.value.record["reason"])
+        finally:
+            server.close()
+
+    monkeypatch.setattr(SRV, "serve_http", upgrade)
+    CLI.main(argv, device="cpu")
+    record, result, reason = got
+    assert [r["replica"] for r in record["replicas"]] == [0, 1]
+    assert result.status == "ok"
+    assert result.weights_version == "toy_dalle@0-again"
+    assert reason == "weight_load_failed"

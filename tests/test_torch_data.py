@@ -6,7 +6,9 @@ Covered: vocabulary and caption encodings and the vocabulary JSON file,
 identical; the PNG decoder against PIL's ``.convert("RGB")`` on files
 PIL wrote in modes L, LA, P, RGB and RGBA and on files with every row
 filter (None, Sub, Up, Average, Paeth; PIL reads them as written); the
-typed refusals of 16-bit, interlaced, sub-byte and JPEG files;
+JPEG, 16-bit, interlaced and 1-bit files it once refused, now decoded
+as PIL decodes them (``tests/test_torch_images.py`` covers every
+format), and the typed refusal of a file that is no image;
 ``resize_bilinear`` against PIL's ``BILINEAR`` (up, down, uneven, one
 axis), measured bit-equal (the bound held is 1 of 255);
 ``ImageFolderDataset`` batches and ``load_image_batch`` equal to JAX's
@@ -141,21 +143,50 @@ def _with_ihdr(data: bytes, depth: int = 8, interlace: int = 0) -> bytes:
         data[33:]
 
 
-@pytest.mark.parametrize("case,match", [
-    ("jpeg", "JPEG"), ("sixteen", "16-bit"), ("interlaced", "interlaced"),
-    ("one_bit", "1-bit"), ("gif", "not a PNG")])
+def _adam7_png(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG, Adam7 interlaced, every row filter None (PIL
+    reads interlaced PNGs but does not write them)."""
+    h, w, _ = img.shape
+    raw = b""
+    for r0, c0, dr, dc in ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4),
+                           (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+                           (1, 0, 2, 1)):
+        sub = img[r0::dr, c0::dc]
+        raw += b"".join(b"\x00" + row.tobytes() for row in sub
+                        if sub.size)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("case,match", [("gif", "not a PNG")])
 def test_unsupported_images_raise_a_typed_error(case, match):
-    arr = np.zeros((8, 8, 3), np.uint8)
-    png = png_bytes(Image.fromarray(arr))
-    jpeg = io.BytesIO()
-    Image.fromarray(arr).save(jpeg, "JPEG")
-    data = {"jpeg": jpeg.getvalue,
-            "sixteen": lambda: _with_ihdr(png, depth=16),
-            "interlaced": lambda: _with_ihdr(png, interlace=1),
-            "one_bit": lambda: png_bytes(Image.fromarray(arr).convert("1")),
-            "gif": lambda: b"GIF89a" + b"\x00" * 20}[case]()
+    data = {"gif": lambda: b"GIF89a" + b"\x00" * 20}[case]()
     with pytest.raises(TIMG.UnsupportedImage, match=match):
         TIMG.decode_png(data)
+
+
+@pytest.mark.parametrize("case", ["jpeg", "sixteen", "interlaced",
+                                  "one_bit"])
+def test_formats_once_refused_now_decode_as_pil(case):
+    """The JPEG, 16-bit, interlaced and 1-bit files the port used to
+    refuse: each decodes to PIL's ``.convert("RGB")`` exactly."""
+    rng = np.random.default_rng(5)
+    arr = rng.integers(0, 256, (11, 13, 3), dtype=np.uint8)
+    jpeg = io.BytesIO()
+    Image.fromarray(arr).save(jpeg, "JPEG")
+    grey16 = rng.integers(0, 900, (11, 13)).astype(np.uint16)
+    data = {"jpeg": jpeg.getvalue,
+            "sixteen": lambda: png_bytes(Image.fromarray(grey16)),
+            "interlaced": lambda: _adam7_png(arr),
+            "one_bit": lambda: png_bytes(Image.fromarray(arr).convert("1")),
+            }[case]()
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    np.testing.assert_array_equal(TIMG.decode_image(data), want)
 
 
 def test_corrupt_png_is_refused():

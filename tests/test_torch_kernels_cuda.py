@@ -1343,3 +1343,114 @@ def test_tiny_server_on_card_gives_the_cpu_tokens(cuda):
         got[str(dev)] = (list(plain.tokens), list(sres.tokens),
                          [list(s.tokens) for s in gres.samples])
     assert got["cuda"] == got["cpu"]
+
+
+def _k4_case(seed, slots, cuda, heads=8, dh=64, page_size=16, L=1280):
+    """The ``kernel`` phase's shapes (bfloat16 pages, 8 heads of 64, page
+    16, L 1,280), ragged positions, one distinct page run a slot."""
+    rs = np.random.RandomState(seed)
+    mp = L // page_size
+    P = slots * mp + 1
+    pos = torch.tensor(rs.randint(0, L, slots), dtype=torch.int32)
+    pos[0] = 1279
+    bt = torch.tensor(rs.permutation(P - 1) + 1).reshape(slots, mp)
+    need = (pos.long() + page_size - 1) // page_size
+    bt = torch.where(torch.arange(mp)[None] < need[:, None], bt, 0) \
+        .to(torch.int32)
+    allowed = torch.arange(L)[None] < pos[:, None]
+    shape = (P, heads, page_size, dh)
+    q = torch.tensor(rs.randn(slots, heads, dh)).to(torch.bfloat16)
+    kp = torch.tensor(rs.randn(*shape)).to(torch.bfloat16)
+    vp = torch.tensor(rs.randn(*shape)).to(torch.bfloat16)
+    return [t.to(cuda) for t in (q, kp, vp, bt, pos, allowed)]
+
+
+@pytest.mark.cuda
+def test_k4_from_two_threads_at_once_matches_plain(cuda):
+    """Two threads launch K4 at the same time on ``cuda:0``, as two
+    replica threads of a set do: one at 8 slots, one at 16, so the
+    second grows the shared split-counter buffer while the first may be
+    using the old one. Every output equals the plain version, and the
+    launch count loses no increment."""
+    import sys
+    import threading
+    PA._COUNTERS.clear()
+    cases = {8: _k4_case(1, 8, cuda), 16: _k4_case(2, 16, cuda)}
+    want = {n: PA.paged_decode_attention_plain(*args, scale=SCALE)
+            for n, args in cases.items()}
+    mags = {n: PA.paged_decode_attention_plain(
+        args[0], args[1], args[2].abs(), *args[3:], scale=SCALE)[0]
+        for n, args in cases.items()}
+    iters = 64
+    outs = {n: [] for n in cases}
+    errors = []
+    start = threading.Barrier(len(cases))
+
+    def run(n):
+        try:
+            start.wait(timeout=60)
+            for _ in range(iters):
+                outs[n].append(PA.paged_decode_attention(*cases[n],
+                                                         scale=SCALE))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    before = PA.paged_decode_attention.launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(n,)) for n in cases]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and all(not t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert PA.paged_decode_attention.launches == before + iters * len(cases)
+    for n in cases:
+        assert len(outs[n]) == iters
+        for got in outs[n]:
+            check_partials(got, want[n], mags[n], 1e-2, 1e-2)
+
+
+@pytest.mark.cuda
+def test_tiny_replica_set_on_card_gives_the_cpu_tokens(cuda):
+    """A threaded set of 2 tiny replicas (paged, the kernel read) in
+    float32 on the card against the same set on the CPU: identical
+    tokens for 6 requests, through a drain of replica 0 with live
+    migration mid-wave; K4 launched on the card."""
+    import copy
+    import time
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.replica import ReplicaSet
+    vcfg = TV.VAEConfig(image_size=32, num_tokens=32, codebook_dim=32,
+                        num_layers=2, hidden_dim=8)
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
+                         text_seq_len=8, heads=2, dim_head=16)
+    model = TD.dalle_init(cfg, seed=2, device="cpu")
+    got = {}
+    for dev in ("cpu", cuda):
+        q = S.RequestQueue(max_depth=16)
+        rs = ReplicaSet(copy.deepcopy(model).to(dev), q, replicas=2,
+                        num_slots=4, chunk_steps=2, kv="paged",
+                        page_size=8, paged_attn="kernel", device=dev)
+        launches = PA.paged_decode_attention.launches
+        rs.start()
+        try:
+            handles = [q.submit(S.Request(codes=(3, 7, i + 1), seed=i))
+                       for i in range(6)]
+            deadline = time.perf_counter() + 60
+            while rs.replicas[0].engine.active_slots() == 0:
+                assert time.perf_counter() < deadline
+                time.sleep(0.001)
+            rs.drain_replica(0)
+            results = [h.result(timeout=120) for h in handles]
+        finally:
+            rs.close()
+        assert all(r.ok for r in results)
+        if dev != "cpu":
+            assert PA.paged_decode_attention.launches > launches
+        got[str(dev)] = [list(r.tokens) for r in results]
+    assert got["cuda"] == got["cpu"]

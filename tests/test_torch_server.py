@@ -90,13 +90,17 @@ ERRORS = [
     ("profile_401", "POST", "/admin/profile", {}, None),
     ("profile_no_dir", "POST", "/admin/profile", {}, "tok"),
 ]
-FLEET_KW = {"replicas": 2, "replica_roles": ("prefill", "decode"),
-            "mesh_devices": 2, "max_replicas": 2, "autoscale": object(),
-            "load_weights": print, "heartbeat_s": 1.0,
+# the keywords of the slices still to come: process isolation and its
+# transport (ROADMAP.md queue 1 item 2b), a device mesh (item 3)
+FLEET_KW = {"mesh_devices": 2,
             "isolation": "process", "child_rss_limit_mb": 100,
             "transport": "socket", "worker_endpoint": "127.0.0.1:1",
             "worker_cmd": "", "worker_ckpt": "x", "worker_use_ema": True,
             "worker_quantize": "int8", "attach_token": "t"}
+# the replica-set keywords the port now takes, as JAX's server does
+SET_KW = {"replicas": 2, "replica_roles": ("prefill", "decode"),
+          "max_replicas": 2, "autoscale": "policy",
+          "load_weights": print, "heartbeat_s": 1.0}
 # the timing fields of a result body
 TIMES = ("queued_s", "decode_s", "total_s")
 # stats() keys of the JAX single engine the port has no counterpart of:
@@ -105,10 +109,11 @@ TIMES = ("queued_s", "decode_s", "total_s")
 JAX_ONLY_STATS = {"decode_compiles", "prefill_compiles",
                   "devices_per_replica", "mesh_shape",
                   "kv_hbm_bytes_per_shard", "pages_in_use_p95", "deferred"}
-# /metrics: the JAX server registers the replica set's migration
-# histogram on a single engine too (headers only); two HELP texts name
-# the port's own mechanism (torch.profiler, the emit ring's host read)
-JAX_ONLY_FAMILIES = {"dalle_serve_migration_seconds"}
+# /metrics: both servers register the replica set's migration histogram
+# on a single engine too (headers only), so no family is JAX's alone;
+# two HELP texts name the port's own mechanism (torch.profiler, the emit
+# ring's host read)
+JAX_ONLY_FAMILIES = set()
 OWN_HELP = {"dalle_serve_profile_active", "dalle_serve_harvests_total"}
 
 
@@ -337,7 +342,7 @@ def test_queue_full_and_closed_answer_like_jax(weights):
     assert got["port"][4] == S.CANCELLED
 
 
-# -- the read-only routes --------------------------------------------------------
+# -- the read-only routes -----------------------------------------------------
 
 def help_lines(text: str) -> dict:
     return dict(line[len("# HELP "):].split(" ", 1)
@@ -388,7 +393,7 @@ def test_healthz_and_debug_events_match_jax(runs):
     assert "decode_chunk" in kinds
 
 
-# -- failures and shutdown ---------------------------------------------------------
+# -- failures and shutdown ----------------------------------------------------
 
 class EngineDeath(BaseException):
     """Not an ``Exception``: the run loop does not catch it."""
@@ -460,8 +465,37 @@ def test_close_cancels_queued_and_in_slot_requests_like_jax(weights):
 
 @pytest.mark.parametrize("kw", sorted(FLEET_KW))
 def test_fleet_keywords_raise_type_error(weights, kw):
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="ROADMAP.md queue 1 item"):
         port_server(weights, **{kw: FLEET_KW[kw]})
+
+
+@pytest.mark.parametrize("kw", sorted(SET_KW))
+def test_replica_set_keywords_are_taken_as_jax_takes_them(weights, kw):
+    """Each replica-set keyword alone: a set (or a single engine) of the
+    same shape as JAX's server builds, or JAX's ``ValueError``."""
+    from dalle_pytorch_tpu.serve.autoscale import AutoscalePolicy as JAP
+    from dalle_pytorch_tpu_torch.serve.autoscale import AutoscalePolicy
+    got = {}
+    for name, make, policy in (("jax", jax_server, JAP),
+                               ("port", port_server, AutoscalePolicy)):
+        value = policy(max_replicas=3) if kw == "autoscale" \
+            else SET_KW[kw]
+        try:
+            srv = make(weights, num_slots=2, decode_images=False,
+                       **{kw: value})
+        except ValueError as e:
+            got[name] = ("ValueError", str(e))
+            continue
+        try:
+            got[name] = (srv._is_set,
+                         getattr(srv.engine, "n_replicas", 1),
+                         getattr(srv.engine, "max_replicas", 0),
+                         srv.autoscaler is not None,
+                         srv.load_weights is print,
+                         getattr(srv.engine, "heartbeat_s", None))
+        finally:
+            srv.close()
+    assert got["port"] == got["jax"]
 
 
 def test_entry_point_runs_on_the_card_by_default(weights, monkeypatch):
@@ -471,7 +505,7 @@ def test_entry_point_runs_on_the_card_by_default(weights, monkeypatch):
         SRV.InferenceServer(model, vae)
 
 
-# -- the queue's reject records ------------------------------------------------------
+# -- the queue's reject records -----------------------------------------------
 
 @pytest.mark.parametrize("case", ["empty", "over_long", "full", "closed"])
 def test_queue_reject_records_match_jax(case):
