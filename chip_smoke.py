@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only images,replicas   # build, then these
                                                    # (images, generate,
-                                                   # replicas)
+                                                   # replicas, processes)
 
 Drives the port (``dalle_pytorch_tpu_torch``) and nothing of JAX, at the
 full width of the repo's north DALLE configuration (``bench.py``
@@ -304,7 +304,29 @@ Image files and the fleet:
    clients in one wave against a set of 1 replica
    and then of 2 (4 slots each: image tokens a second and ms a step of
    each), then a wave during which ``POST /admin/scale`` adds a replica
-   and removes replica 0 with a drain; every result ok, K4 launched.
+   and removes replica 0 with a drain; every result ok, K4 launched;
+27. processes — replicas as child processes (``isolation='process'``),
+   each with its own CUDA context; K4's library built here before the
+   first child spawns, the children only load it. A: ``replicas`` A's
+   shapes and driver over 2 children, f32 at depth 4, on the socket
+   transport (dial-back to 127.0.0.1 with a token): a wave of 8 through
+   a real SIGKILL of child 1 at its 2nd chunk, then 4 through a garbage
+   frame and 4 through the RSS watchdog (exit 137; limit the READY RSS +
+   4 GiB) of its replacements, each spawned under the next plan; 4
+   through a rolling upgrade (one canary a replica), 2 on the new
+   version, 4 through a drain of child 0 that live-migrates between
+   processes; every request's f32 tokens a single engine's, three
+   failovers with their deaths decoded, ``completed`` and
+   ``tokens_decoded`` exactly every request once, K4 in every child (its
+   launches through its frames); each child's bring-up (READY's
+   stamps), failover s (fence -> replacement READY) and migration s. B:
+   ``replicas`` B's server, prompts and grid over 2 children (pipes) in
+   bf16 at depth 2 with CLIP scoring in the parent (K3): an untimed
+   warm-up wave on both children, six clients with both children, then
+   six with child 1 drained; image tokens a second, each child's ms a
+   step (its own clock over its steps, from its frames) and K4
+   launches, the ratio of 2 over 1 and of the pair over ``replicas``
+   B's thread pair of the same call.
 
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
@@ -4276,6 +4298,7 @@ REPLICA_SET = dict(num_slots=4, chunk_steps=8, kv="paged", page_size=16,
                    paged_attn="kernel")
 REPLICA_HTTP_GRID = 256     # image tokens of B's requests (a short grid)
 REPLICA_GRID = 128          # image tokens a request (a short grid)
+PROCESS_WARM_GRID = 16      # image tokens of B's untimed warm-up wave
 REPLICA_DEPTH = 4
 # what the sync schedule gives (``replica_schedule``; the CPU test runs
 # the same schedule at a tiny width and holds it to these)
@@ -4634,8 +4657,407 @@ def phase_replicas() -> dict:
 
 
 
+# process replicas (``isolation='process'``): A's schedule, B's server, C's
+# socket worker; f32 A at REPLICA_DEPTH, B at SERVE_DEPTH in bfloat16
+PROCESS_WAIT_S = 600.0
+# the RSS watchdog's limit: the children's READY resident size plus this
+PROCESS_RSS_MARGIN_MB = 4096
+
+
+def process_drive(rs, pred, what: str, timeout_s: float = PROCESS_WAIT_S):
+    """Step the set's sync driver until ``pred()``, at most
+    ``timeout_s``."""
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        check(time.perf_counter() < deadline,
+              f"processes: {what} not seen in {timeout_s:g} s")
+        rs.step_once()
+
+
+def process_ready(rs) -> bool:
+    from dalle_pytorch_tpu_torch.serve.replica import DRAINED, RUNNING
+    return all(r.state == RUNNING and r.engine is not None
+               and r.engine.ready for r in rs.replicas
+               if r.state != DRAINED)
+
+
+def process_idle(rs) -> None:
+    process_drive(rs, lambda: rs.idle() and not rs.step_once(),
+                  "an idle set")
+
+
+def process_schedule(model_v1, model_v2) -> dict:
+    """A: the sync driver over 2 child replicas on the card, dialing back
+    over the socket transport (127.0.0.1, a token). Child 1 dies three
+    ways, each replacement spawned under the next plan (a plan crosses
+    at spawn, once): a real SIGKILL at its 2nd chunk, a garbage frame,
+    its RSS watchdog (limit: READY's RSS + ``PROCESS_RSS_MARGIN_MB``), a
+    wave each; then a rolling upgrade to ``model_v2`` (one canary a
+    replica, each replica's decoding requests live-migrated before it is
+    fenced), a wave on v2, and a drain of child 0 that live-migrates its
+    decoding requests to child 1 (left drained). Returns each wave's
+    results, the set's stats and events, failover and migration seconds,
+    and the children's bring-up records and RSS."""
+    from dalle_pytorch_tpu_torch.resilience import faults
+    from dalle_pytorch_tpu_torch.resilience import retry
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.replica import DRAINED, ReplicaSet
+    cfg = model_v1.cfg
+    events = []
+
+    class Sink:
+        def event(self, **rec):
+            events.append((rec.get("kind"), rec.get("replica"),
+                           time.perf_counter(),
+                           {k: rec.get(k) for k in ("reason", "exit",
+                                                    "pid")}))
+
+    fast = retry.RetryPolicy(max_attempts=1, deadline_s=None,
+                             base_backoff_s=0.01, backoff_multiplier=2.0,
+                             max_backoff_s=0.1, jitter=0.0)
+    waves = {"sigkill": replica_requests(cfg, 8, 500),
+             "garbage": replica_requests(cfg, 4, 600),
+             "watchdog": replica_requests(cfg, 4, 700),
+             "upgrade": replica_requests(cfg, 4, 900),
+             "v2": replica_requests(cfg, 2, 1000),
+             "drain": replica_requests(cfg, 4, 800)}
+    handles, exits, rss, boots = {}, {}, {}, {}
+    q = S.RequestQueue(max_depth=64)
+    t0 = time.perf_counter()
+    faults.activate(faults.FaultPlan(fault_replica=1,
+                                     replica_sigkill_at_chunk=2))
+    rs = ReplicaSet(model_v1, q, replicas=2, weights_version="v1",
+                    bringup_policy=fast, metrics=Sink(), device="cuda",
+                    isolation="process", transport="socket",
+                    attach_token="smoke-worker", spawn_timeout_s=300.0,
+                    compile_grace_s=300.0, **REPLICA_SET)
+    try:
+        process_drive(rs, lambda: process_ready(rs), "both READY")
+        bringup_s = time.perf_counter() - t0
+        rss["ready"] = [r.engine.rss_mb for r in rs.replicas]
+        boots["initial"] = [r.engine.boot_s for r in rs.replicas]
+        for n, (wave, plan) in enumerate((
+                ("sigkill", {"replica_garbage_frame_at_chunk": 2}),
+                ("garbage", {"replica_oom_at_chunk": 2}),
+                ("watchdog", None)), start=1):
+            handles[wave] = [q.submit(r) for r in waves[wave]]
+            process_drive(rs, lambda: rs.failovers >= n,
+                          f"the {wave} fence")
+            exits[wave] = rs.replicas[1].last_exit
+            # the replacement spawns on the next sweep: under this plan
+            if plan is None:
+                faults.deactivate()
+                rs.child_rss_limit_mb = 0
+            else:
+                faults.activate(faults.FaultPlan(fault_replica=1, **plan))
+                if "replica_oom_at_chunk" in plan:
+                    rs.child_rss_limit_mb = max(rss["ready"]) \
+                        + PROCESS_RSS_MARGIN_MB
+            process_idle(rs)
+            process_drive(rs, lambda: process_ready(rs),
+                          f"the replacement after {wave}")
+            if wave == "sigkill":
+                boots["replacement"] = rs.replicas[1].engine.boot_s
+
+        handles["upgrade"] = [q.submit(r) for r in waves["upgrade"]]
+        process_drive(rs, lambda: any(
+            v >= 16 for r in rs.replicas
+            for v in r.engine.progress.values()),
+            "the upgrade wave mid-stream")
+        t1 = time.perf_counter()
+        upgrade = rs.rolling_upgrade(
+            version="v2", params=model_v2, canaries=1,
+            canary_codes=[waves["v2"][0].codes], replica_timeout_s=600.0)
+        upgrade_s = time.perf_counter() - t1
+        process_idle(rs)
+        handles["v2"] = [q.submit(r) for r in waves["v2"]]
+        process_idle(rs)
+
+        handles["drain"] = [q.submit(r) for r in waves["drain"]]
+        process_drive(rs, lambda: any(
+            v >= 16 for v in rs.replicas[0].engine.progress.values()),
+            "a request two chunks into decode on child 0")
+        t1 = time.perf_counter()
+        drained = rs.drain_replica(0)
+        drain_s = time.perf_counter() - t1
+        check(rs.replicas[0].state == DRAINED, "processes: not drained")
+        process_idle(rs)
+        stats = rs.stats()
+        rss["end"] = [r.engine.rss_mb for r in rs.replicas
+                      if r.engine is not None]
+    finally:
+        faults.deactivate()
+        rs.close()
+    # failover: child 1's fence after the SIGKILL -> its replacement's READY
+    t_fence = next(t for k, i, t, _ in events
+                   if k == "serve_replica_fenced" and i == 1)
+    failover_s = next(t for k, i, t, _ in events
+                      if k == "serve_replica_up" and i == 1
+                      and t > t_fence) - t_fence
+    results = {w: [(h.result(timeout=0).status,
+                    h.result(timeout=0).weights_version,
+                    [int(t) for t in h.result(timeout=0).tokens]
+                    if h.result(timeout=0).tokens is not None else None)
+                   for h in hs] for w, hs in handles.items()}
+    return {"waves": waves, "results": results, "stats": stats,
+            "events": [e[:2] + (e[3],) for e in events], "exits": exits,
+            "rss_mb": rss, "bringup_s": bringup_s, "boot_s": boots,
+            "failover_s": failover_s,
+            "drain_s": drain_s, "drained": drained, "upgrade_s": upgrade_s,
+            "upgrade": upgrade, "migration_s": list(rs.migration_seconds)}
+
+
+def check_process_schedule(run: dict, want: dict) -> None:
+    """Every result ok with the single engine's f32 tokens of its version;
+    three failovers (SIGKILL, garbage, watchdog) each with its death;
+    no request lost and every delivered token counted once; K4 in every
+    child."""
+    for wave, res in run["results"].items():
+        for i, (status, version, toks) in enumerate(res):
+            check(status == "ok", f"processes: {wave} #{i} {status}")
+            check(toks == want[version][wave][i],
+                  f"processes: {wave} #{i} ({version}) differs from the "
+                  f"single engine's tokens")
+    st, ex = run["stats"], run["exits"]
+    n = sum(len(r) for r in run["results"].values())
+    check(st["failovers"] == 3, f"processes: failovers {st['failovers']}")
+    check("killed by SIGKILL" in ex["sigkill"]
+          and "oom-killed (exit 137" in ex["watchdog"],
+          f"processes: exits {ex}")
+    fenced = [e for k, i, e in run["events"]
+              if k == "serve_replica_fenced"]
+    check(any("protocol error" in (e["reason"] or "") for e in fenced),
+          f"processes: no fence on the garbage frame: {fenced}")
+    # every request once, plus one canary a replica (a full grid each)
+    check(st["completed"] == n + 2, f"processes: completed "
+                                    f"{st['completed']}, not {n} + 2")
+    check(st["tokens_decoded"] == n * REPLICA_GRID + 2
+          * run["upgrade_canary_tokens"],
+          f"processes: tokens_decoded {st['tokens_decoded']}: a replayed "
+          f"request counted twice or not at all")
+    check(st["migrations"] >= 1 and st["migrate_fallbacks"] == 0,
+          f"processes: migrations {st['migrations']}, fallbacks "
+          f"{st['migrate_fallbacks']}")
+    check(st["transport"] == "socket" and st["attach_rejected"] == 0
+          and all(p["peer"].startswith("127.0.0.1:")
+                  for p in st["per_replica"] if "peer" in p),
+          f"processes: the socket workers {st['per_replica']}")
+    for p in st["per_replica"]:
+        check(p["state"] != "running"
+              or p.get("paged_decode_launches", 0) > 0,
+              f"processes: K4 did not run in child {p['replica']}: {p}")
+    check(st["paged_decode_launches"] > 0,
+          f"processes: K4 never ran in A's children: {st}")
+
+
+def child_step_ms(live, wave) -> tuple:
+    """Run ``wave()`` while sampling each child's ``step_clock`` (its own
+    clock at its last frame and its decode steps then). Returns the
+    wave's result and each child's ms a step: its clock from the first
+    frame of the wave that counted a step to its last frame, over the
+    steps between them (the child's own time, not the wave's wall)."""
+    import threading
+    before = {r.index: r.engine.step_clock[1] for r in live}
+    seen = {r.index: [] for r in live}
+    stop = threading.Event()
+
+    def sample():
+        while True:
+            for r in live:
+                t, steps = r.engine.step_clock
+                if steps > before[r.index] and (
+                        not seen[r.index] or seen[r.index][-1][1] != steps):
+                    seen[r.index].append((t, steps))
+            if stop.is_set():
+                return
+            stop.wait(0.002)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out = wave()
+        # the last frames carry the wave's steps
+        wait_for("the children's last frames",
+                 lambda: all(r.engine.active_slots() == 0 for r in live), 60)
+    finally:
+        stop.set()
+        sampler.join(10)
+    ms = {i: (s[-1][0] - s[0][0]) * 1e3 / (s[-1][1] - s[0][1])
+          for i, s in seen.items() if len(s) > 1}
+    return out, ms
+
+
+def process_serving(model, vae, clip, thread_pair) -> dict:
+    """B: the HTTP server over 2 child replicas in bfloat16 (4 slots
+    each), CLIP scoring in the parent's postprocess worker: an untimed
+    warm-up wave on both children (a child's first requests pay its
+    context's first dispatches), six clients with both children, then
+    six with child 1 drained (one serves; no respawn). Image tokens a
+    second, each child's ms a step (``child_step_ms``) and K4 launches
+    from its frames, the ratio of 2 over 1 and of this pair over
+    ``thread_pair`` (the ``replicas`` phase's B, the same call)."""
+    import threading
+    from dalle_pytorch_tpu_torch.ops import block_sparse as BS
+    from dalle_pytorch_tpu_torch.serve.server import (InferenceServer,
+                                                      make_http_server)
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(16)
+    prompt = [int(t) for t in torch.randint(1, cfg.num_text_tokens,
+                                            (cfg.text_seq_len,),
+                                            generator=g)]
+    server_kw = dict(num_slots=4, chunk_steps=8, kv="paged", page_size=16,
+                     paged_attn="kernel", admin_token=HTTP_TOKEN)
+    size = cfg.vae.image_size
+    srv = InferenceServer(model, vae, clip=clip, replicas=2,
+                          isolation="process", device="cuda",
+                          **server_kw).start()
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    client = HttpClient(httpd.server_address[1])
+    rs = srv.engine
+    timing = {}
+    try:
+        wait_for("both children READY", lambda: process_ready(rs), 600)
+        warm = replica_http_wave(srv, client, prompt, 6,
+                                 grid=PROCESS_WARM_GRID)
+        check(all(code == 200 and body["status"] == "ok"
+                  for code, body in warm["results"]),
+              f"processes: B warm-up {warm['results']}")
+        wait_for("the warm-up's last frames",
+                 lambda: all(r.engine.active_slots() == 0
+                             for r in rs.replicas), 60)
+        check(all(r.engine.decode_steps > 0 for r in rs.replicas),
+              "processes: the warm-up wave missed a child")
+        BS.block_sparse_attention_fwd.launches = 0
+        for n in (2, 1):
+            if n == 1:
+                # one child serves: drain the other (no respawn)
+                code, body = client.json("POST", "/admin/scale",
+                                         {"op": "drain", "replica": 1},
+                                         token=HTTP_TOKEN)
+                check(code == 200, f"processes: drain answered {code}")
+            live = [r for r in rs.replicas if r.engine is not None]
+            before = {r.index: r.engine.decode_steps for r in live}
+            wave, step_ms = child_step_ms(live, lambda: replica_http_wave(
+                srv, client, prompt, 6, grid=REPLICA_HTTP_GRID))
+            steps = {r.index: r.engine.decode_steps - before[r.index]
+                     for r in live}
+            for code, body in wave["results"]:
+                check(code == 200 and body["status"] == "ok"
+                      and len(body["tokens"]) == REPLICA_HTTP_GRID
+                      and body["image_shape"] == [size, size, 3]
+                      and body.get("clip_score") is not None,
+                      f"processes: B result {code} {body.get('status')}")
+            timing[n] = {
+                "wall_s": wave["wall"], "decode_steps": steps,
+                "k4_by_child": {r.index: r.engine.paged_decode_launches
+                                for r in live},
+                "ms_per_decode_step": step_ms,
+                "image_tokens_per_s": 6 * REPLICA_HTTP_GRID / wave["wall"]}
+        k3 = BS.block_sparse_attention_fwd.launches
+        stats = client.json("GET", "/stats")[1]
+        health = client.json("GET", "/healthz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    per_score = clip.cfg.text_enc_depth + clip.cfg.visual_enc_depth
+    check(k3 == per_score * 12, f"processes: K3 launched {k3} times for "
+                                f"12 CLIP scores, not {per_score} each")
+    reps = health[1]["replicas"]
+    check(health[0] == 200 and reps[1]["state"] == "drained"
+          and reps[0]["alive"] and reps[0]["pid"] > 0
+          and reps[0]["transport"] == "pipe", f"processes: /healthz "
+                                              f"{health}")
+    per = [p for p in stats["per_replica"] if "pid" in p]
+    check(all(n > 0 for n in timing[2]["k4_by_child"].values()),
+          f"processes: K4 did not run in every child: {timing[2]}")
+    check(all(len(timing[n]["ms_per_decode_step"]) == n for n in (1, 2)),
+          f"processes: a child's ms a step is missing: {timing}")
+    check(stats["completed"] == 18 and stats["failovers"] == 0,
+          f"processes: B stats {stats}")
+    speed = timing[2]["image_tokens_per_s"] / \
+        timing[1]["image_tokens_per_s"]
+    return {"depth": cfg.depth, "dtype": str(model.text_emb.weight.dtype),
+            **server_kw, "prompt_len": cfg.text_seq_len, "clients": 6,
+            "grid": REPLICA_HTTP_GRID, "one_child": timing[1],
+            "two_children": timing[2], "speedup": speed,
+            "over_thread_pair": (
+                None if thread_pair is None
+                else timing[2]["image_tokens_per_s"] / thread_pair),
+            "thread_pair_image_tokens_per_s": thread_pair,
+            "rss_mb": [p["rss_mb"] for p in per],
+            "ipc_lag_p50_ms": [p.get("ipc_lag_p50_ms") for p in per],
+            "k4_launches": stats["paged_decode_launches"],
+            "k3_launches": k3}
+
+
+def phase_processes(fleet=None) -> dict:
+    """A (``process_schedule``, f32 at REPLICA_DEPTH, socket workers)
+    against single engines of each version; B (``process_serving``, bf16
+    at SERVE_DEPTH, pipes) beside the ``replicas`` phase's thread pair of
+    this call (``fleet``)."""
+    import dataclasses
+    from dalle_pytorch_tpu_torch.models import clip as CL
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    record = {"phase": "processes", "ok": True}
+    # A
+    cfg = dataclasses.replace(north_cfg(), depth=REPLICA_DEPTH)
+    v1 = D.dalle_init(cfg, seed=4, dtype=torch.float32)
+    v2 = D.dalle_init(cfg, seed=5, dtype=torch.float32)
+    t0 = time.perf_counter()
+    run = process_schedule(v1, v2)
+    set_s = time.perf_counter() - t0
+    waves = run["waves"]
+    want = {"v1": {w: replica_reference(v1, waves[w], "cuda")
+                   for w in ("sigkill", "garbage", "watchdog", "upgrade")},
+            "v2": {w: replica_reference(v2, waves[w], "cuda")
+                   for w in ("v2", "drain")}}
+    # a canary decodes the full grid
+    run["upgrade_canary_tokens"] = cfg.image_seq_len
+    check_process_schedule(run, want)
+    st = run["stats"]
+    record["A"] = {
+        "depth": cfg.depth, "dtype": "float32", **REPLICA_SET,
+        "grid": REPLICA_GRID, "set_s": set_s,
+        "bringup_s": run["bringup_s"], "boot_s": run["boot_s"],
+        "failover_s": run["failover_s"],
+        "migration_s": run["migration_s"], "drain_s": run["drain_s"],
+        "drained": run["drained"], "upgrade_s": run["upgrade_s"],
+        "upgrade_replicas": run["upgrade"]["replicas"],
+        "exits": run["exits"], "rss_mb": run["rss_mb"],
+        "counters": {k: st[k] for k in (
+            "completed", "tokens_decoded", "failovers", "reclaimed",
+            "migrations", "migrate_fallbacks", "migrated_tokens_saved",
+            "upgrades", "bringup_failures")},
+        "children": [{k: p.get(k) for k in (
+            "state", "transport", "peer", "paged_decode_launches",
+            "ipc_lag_p50_ms", "restarts", "last_exit")}
+            for p in st["per_replica"]],
+        "attach_rejected": st["attach_rejected"],
+        "k4_launches": st["paged_decode_launches"]}
+    emit(**record["A"], phase="processes", part="A", ok=True)
+    del v1, v2
+    torch.cuda.empty_cache()
+
+    # B
+    cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+    clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
+                        dtype=torch.bfloat16)
+    pair = None if fleet is None \
+        else fleet["B"]["two_replicas"]["image_tokens_per_s"]
+    record["B"] = process_serving(model, vae, clip, pair)
+    record["k4_launches"] = record["B"]["k4_launches"]
+    record["k3_launches"] = record["B"]["k3_launches"]
+    emit(**record["B"], phase="processes", part="B", ok=True)
+    return record
+
+
 ONLY = {"images": phase_images, "generate": phase_generate,
-        "replicas": phase_replicas}
+        "replicas": phase_replicas, "processes": phase_processes}
 
 
 def main() -> int:
@@ -4653,8 +5075,11 @@ def main() -> int:
                   file=sys.stderr)
             return 2
         card = timed(phase_build)
+        done = {}
         for name in sys.argv[2].split(","):
-            timed(ONLY[name])
+            # processes compares its pair with replicas' of this call
+            args = (done.get("replicas"),) if name == "processes" else ()
+            done[name] = timed(ONLY[name], *args)
         emit(phase_seconds=PHASE_SECONDS)
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -4687,6 +5112,7 @@ def main() -> int:
     timed(phase_import)
     served = timed(phase_http)
     fleet = timed(phase_replicas)
+    procs = timed(phase_processes, fleet)
     emit(phase_seconds=PHASE_SECONDS,
          total_seconds=sum(PHASE_SECONDS.values()))
     main_case = kernel["bfloat16"]
@@ -4911,6 +5337,27 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"], "library_ms": None})
+    # process replicas behind the HTTP server: K4 in every child's steps
+    # (the children's own counts, through their frames), K3 in the
+    # parent's postprocess worker's CLIP scores
+    rows += [{
+        "name": "paged_decode_attention@process_replicas", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dalle_pytorch_tpu/ops/paged_attention.py:88",
+        "launches": procs["k4_launches"],
+        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"], "library_ms": None}, {
+        "name": "block_sparse_attention_fwd_noncausal@process_replicas",
+        "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": procs["k3_launches"],
+        "max_abs_err": max(k3c["max_abs_err"].values()),
+        "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
+        "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
+        "library_ms": k3c["sdpa_masked_ms"]}]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,22 +10,29 @@ int8|int8_kv``, the vocabulary (``{name}-vocab.json`` or
 ``--captions_only``) and an optional ``--clip_name`` CLIP that scores
 every image. Then ``serve/server.py``'s ``InferenceServer`` starts, on
 one engine or, with ``--replicas N`` (or ``--autoscale``, or
-``--max_replicas`` room to grow), on a replica set of thread replicas on
-the one card (``--replica_roles``, ``--heartbeat_s``, ``--min_replicas``,
-``--autoscale_*``), and ``serve_http`` answers until Ctrl-C. ``POST
-/admin/scale`` reshapes a set; its ``upgrade`` op loads a checkpoint path
-the way startup loaded the first (``--use_ema``, ``--quantize``).
+``--max_replicas`` room to grow), on a replica set (``--replica_roles``,
+``--heartbeat_s``, ``--min_replicas``, ``--autoscale_*``) of thread
+replicas on the one card or, with ``--isolation process``, of child
+processes (``--child_rss_limit_mb``): over pipes, or with ``--transport
+socket`` dialing back to ``--worker_endpoint`` with ``--attach_token``,
+spawned, started by ``--worker_cmd`` or by hand (``--worker_cmd ''``),
+optionally loading ``--worker_ckpt`` themselves. ``serve_http`` answers
+until Ctrl-C. ``POST /admin/scale`` reshapes a set; its ``upgrade`` op
+loads a checkpoint path the way startup loaded the first (``--use_ema``,
+``--quantize``), or hands the path to ``--worker_ckpt`` workers.
 
 The flags of the slices still to come end in ``SystemExit`` naming their
-ROADMAP.md queue 1 item: process isolation, the socket transport and its
-workers (item 2b), the gateway, its cells and tenants (item 2c), a
+ROADMAP.md queue 1 item: the gateway, its cells and tenants (item 2c), a
 device mesh (item 3).
 
 Run: python -m dalle_pytorch_tpu_torch.cli.serve --name test \\
         --dalle_epoch 99 --kv paged --paged_attn kernel --replicas 2 \\
-        --port 8000
+        --isolation process --port 8000
 Then: curl -s localhost:8000/generate -d '{"caption": "a flower"}'
       curl -s localhost:8000/stats
+A worker started by hand on a ``--transport socket`` server (it prints
+the endpoint and token): DALLE_WORKER_TOKEN=<token> python -m \\
+dalle_pytorch_tpu_torch.serve.worker --connect HOST:PORT --index N.
 ``main(argv, device="cpu")`` serves from the CPU; the card is the default.
 """
 
@@ -44,7 +51,6 @@ from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
 
-PROCESS_ITEM = "ROADMAP.md queue 1 item 2b (process isolation)"
 GATEWAY_ITEM = "ROADMAP.md queue 1 item 2c (tenants and the gateway)"
 MESH_ITEM = "ROADMAP.md queue 1 item 3 (parallel/ on torch.distributed)"
 
@@ -106,28 +112,45 @@ def build_parser() -> argparse.ArgumentParser:
       help="pages in the pool incl. the trash page (paged; 0 = num_slots "
            "x ceil(seq_len/page_size) + 1); fewer evict")
     a("--replicas", type=int, default=1,
-      help="engine replicas: thread replicas on the one card, behind "
-           "one queue, with failover, drain and live migration")
+      help="engine replicas behind one queue, with failover, drain and "
+           "live migration: threads on the one card, or child processes "
+           "(--isolation process)")
     a("--replica_roles", type=str, default="",
       help="comma list of per-replica roles (prefill, decode, both; "
            "--kv paged)")
     a("--mesh_devices", type=int, default=1,
       help="devices per engine (not in the port yet: one device)")
     a("--worker_ckpt", type=str, default=None,
-      help="socket-transport workers' checkpoint (not in the port yet)")
+      help="socket transport: the workers' spec carries this checkpoint "
+           "path ('latest:<models_dir>:<name>' for the newest valid "
+           "epoch) instead of the weights; each worker validates and "
+           "loads it, then applies --use_ema/--quantize (a bad one: "
+           "exit 5 on /healthz)")
     a("--isolation", choices=("thread", "process"), default="thread",
-      help="replica isolation ('process' is not in the port yet)")
+      help="replica isolation (--replicas > 1): 'thread' = replicas in "
+           "this process; 'process' = each replica's engine in a spawned "
+           "child with its own CUDA context, so a segfault, an OOM kill "
+           "or kill -9 of one costs latency on the requests it held "
+           "(replayed on a survivor, same tokens), never the server")
     a("--transport", choices=("pipe", "socket"), default="pipe",
-      help="process-isolation transport ('socket' is not in the port "
-           "yet)")
+      help="process replicas' frames: 'pipe' to spawned children; "
+           "'socket' = workers dial back to this server's listener with "
+           "an authenticated HELLO (remote workers)")
     a("--worker_endpoint", type=str, default="127.0.0.1:0",
-      help="socket-transport listener (not in the port yet)")
+      help="socket transport: HOST:PORT the worker listener binds (port "
+           "0 = ephemeral; printed at startup)")
     a("--worker_cmd", type=str, default=None,
-      help="socket-transport worker launcher (not in the port yet)")
+      help="socket transport: launcher command a replica, with "
+           "{endpoint}, {index} and {token} (the token is also in "
+           "DALLE_WORKER_TOKEN); '' launches nothing and waits for "
+           "workers started by hand; default: spawn local children "
+           "that dial back")
     a("--attach_token", type=str, default=None,
-      help="socket-transport HELLO token (not in the port yet)")
+      help="socket transport: the HELLO token (default: generated and "
+           "printed)")
     a("--child_rss_limit_mb", type=int, default=0,
-      help="process-isolation child RSS limit (not in the port yet)")
+      help="process isolation: a child past this RSS exits 137 and is "
+           "fenced and replayed like any child death (0 = no limit)")
     a("--heartbeat_s", type=float, default=5.0,
       help="replica hang detection: a replica whose loop is silent this "
            "long is fenced and its requests replay (replica sets only)")
@@ -190,16 +213,6 @@ def refuse_fleet(args) -> None:
     defaults = build_parser().parse_args([])
     bad = [(flag, item) for flag, on, item in (
         ("--mesh_devices", args.mesh_devices > 1, MESH_ITEM),
-        ("--isolation process", args.isolation == "process",
-         PROCESS_ITEM),
-        ("--transport socket", args.transport == "socket", PROCESS_ITEM),
-        ("--worker_ckpt", args.worker_ckpt is not None, PROCESS_ITEM),
-        ("--worker_endpoint",
-         args.worker_endpoint != defaults.worker_endpoint, PROCESS_ITEM),
-        ("--worker_cmd", args.worker_cmd is not None, PROCESS_ITEM),
-        ("--attach_token", args.attach_token is not None, PROCESS_ITEM),
-        ("--child_rss_limit_mb", args.child_rss_limit_mb > 0,
-         PROCESS_ITEM),
         ("--gateway", args.gateway, GATEWAY_ITEM),
         ("--cells", args.cells != defaults.cells, GATEWAY_ITEM),
         ("--tenants", bool(args.tenants), GATEWAY_ITEM)) if on]
@@ -207,7 +220,7 @@ def refuse_fleet(args) -> None:
         items = sorted({item for _, item in bad})
         raise SystemExit(
             f"{', '.join(flag for flag, _ in bad)}: not in the PyTorch "
-            f"port yet — it serves thread replicas on one card; see "
+            f"port yet — it serves one replica set on one card; see "
             f"{'; '.join(items)}")
 
 
@@ -314,6 +327,15 @@ def main(argv=None, *, device=None):
         autoscale=autoscale,
         load_weights=lambda path: load_dalle(path, args, device)[0],
         heartbeat_s=args.heartbeat_s,
+        isolation=args.isolation,
+        child_rss_limit_mb=args.child_rss_limit_mb,
+        transport=args.transport, worker_endpoint=args.worker_endpoint,
+        worker_cmd=args.worker_cmd, attach_token=args.attach_token,
+        worker_ckpt=args.worker_ckpt,
+        # checkpoint-path workers re-apply the parent's transforms after
+        # their own load, so every replica serves the same weights
+        worker_use_ema=bool(args.worker_ckpt) and args.use_ema,
+        worker_quantize=args.quantize if args.worker_ckpt else "none",
         admin_token=args.admin_token or None,
         metrics=metrics, log_every=args.log_every, encode=vocab.encode,
         profile_dir=args.profile_dir or None,
@@ -329,11 +351,20 @@ def main(argv=None, *, device=None):
                     f"/d={args.draft_layers or 'depth/2'}")
     if args.cfg_scale > 0:
         kv_desc += f", cfg_scale={args.cfg_scale:g}"
-    roles = f" [{args.replica_roles}]" if args.replica_roles else ""
+    iso_desc = args.isolation if args.transport == "pipe" \
+        else f"{args.isolation}/{args.transport}"
+    if args.replica_roles:
+        iso_desc += f" [{args.replica_roles}]"
     say(f"serving {dalle_path} on http://{args.host}:{args.port} "
-        f"({device}, {args.replicas} thread replica(s){roles} x "
+        f"({device}, {args.replicas} {iso_desc} replica(s) x "
         f"{args.num_slots} slots, K={args.chunk_steps}, kv={kv_desc}, "
         f"queue {args.queue_depth})")
+    if args.transport == "socket" and server._is_set:
+        listener = server.engine.listener
+        say(f"worker endpoint {listener.advertise_endpoint} — attach a "
+            f"worker with: DALLE_WORKER_TOKEN={listener.token} python -m "
+            f"dalle_pytorch_tpu_torch.serve.worker --connect "
+            f"{listener.advertise_endpoint} --index N")
     prof_desc = (f"; POST /admin/profile -> {args.profile_dir}"
                  if args.profile_dir else "")
     say(f"observability: GET /metrics (Prometheus exposition), "

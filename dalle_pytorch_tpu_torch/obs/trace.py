@@ -1,11 +1,10 @@
 """Per-request tracing: where did a request's milliseconds go?
 
-Port of ``dalle_pytorch_tpu/obs/trace.py`` (``:41-197``, less the
-process workers' wire merge and span listing). One ``Trace`` per submitted
-request, carried on its ``RequestHandle``: a TILING sequence of spans,
-each starting where the previous one ended (``span(name, now)`` records
-``[last_t, now)``), so the span durations sum to the latency the caller
-saw. The single engine stamps
+Port of ``dalle_pytorch_tpu/obs/trace.py`` (``:41-197``). One ``Trace``
+per submitted request, carried on its ``RequestHandle``: a TILING
+sequence of spans, each starting where the previous one ended
+(``span(name, now)`` records ``[last_t, now)``), so the span durations
+sum to the latency the caller saw. The single engine stamps
 
   ``submit``         zero-length marker at queue admission
   ``queue_wait``     the queue wait, closed at the engine's pop
@@ -17,7 +16,9 @@ saw. The single engine stamps
 and a replica set adds ``route`` (the replica chosen), ``migrate_out``
 / ``migrate_in`` / ``migrate`` (a live slot migration) and
 ``replayed_from`` (``replay``: a failover's gap, opening the next
-attempt).
+attempt). A process worker's stand-in handle traces in the child; its
+spans ride the result frame home (``wire_spans``) and join the caller's
+trace (``merge_wire``).
 
 Timestamps are ``perf_counter`` values from the caller; spans are dicts
 of JSON scalars.
@@ -102,6 +103,32 @@ class Trace:
             self._spans.append(rec)
             self._last_t = float(now)
             return rec
+
+    def wire_spans(self) -> List[dict]:
+        """A copy of the spans (JSON-scalar dicts): what a process worker
+        attaches to a result frame."""
+        with self._lock:
+            return [dict(rec) for rec in self._spans]
+
+    def merge_wire(self, spans, now: float) -> int:
+        """Absorb a worker's spans into this trace and re-anchor the
+        tiling pointer at ``now`` (the absorb time), where the next
+        span (postprocess) starts. Malformed entries are skipped (an
+        advisory field never fences a replica); returns how many
+        merged."""
+        merged = 0
+        with self._lock:
+            for rec in spans or ():
+                if not isinstance(rec, dict) or "span" not in rec \
+                        or "dur_s" not in rec:
+                    continue
+                rec = dict(rec)
+                rec.setdefault("event", "span")
+                rec["trace_id"] = self.trace_id
+                self._spans.append(rec)
+                merged += 1
+            self._last_t = float(now)
+        return merged
 
     def summary(self) -> dict:
         """What ``Result.trace`` (and the HTTP body) carries: spans

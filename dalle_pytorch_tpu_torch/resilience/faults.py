@@ -3,22 +3,26 @@ the replica set.
 
 Port of ``dalle_pytorch_tpu/resilience/faults.py``: the training hooks
 (``maybe_activate_from_env`` ``:227``, ``on_backend_init`` ``:259-270``,
-``maybe_signal``, ``corrupt_batch`` and ``corrupt_loss`` ``:271-310``)
-and the serving hooks thread replicas reach (``on_replica_chunk``
-``:324``, ``on_scale_add_bringup`` ``:493``, ``on_upgrade_drain``
-``:509``, ``on_migrate_transfer`` ``:535``, ``on_migrate_import``
-``:561``, ``on_canary_gate`` ``:577``, ``on_replica_bringup`` ``:619``).
-A ``FaultPlan`` names the faults to fire; the hooks are no-ops unless a
-plan is active (set by ``activate``/``injected``, or from the
-``DALLE_FAULTS`` JSON environment variable in a CLI run), and each fault
-fires at most once per activation. A thread replica has no process to
-kill, so the two SIGKILL rows (``upgrade_drain_sigkill_replica``,
-``migrate_crash_source_at_transfer``) raise ``FaultInjected`` there, as
-JAX's hooks do on a thread set. The faults of child workers, transports
-and the gateway come with process isolation (ROADMAP.md queue 1 item
-2b): a plan naming one is refused (``TypeError``).
-"""
+``maybe_signal``, ``corrupt_batch`` and ``corrupt_loss`` ``:271-310``),
+the replica set's (``on_replica_chunk`` ``:324``, ``on_scale_add_bringup``
+``:493``, ``on_upgrade_drain`` ``:509``, ``on_migrate_transfer``
+``:535``, ``on_migrate_import`` ``:561``, ``on_canary_gate`` ``:577``,
+``on_replica_bringup`` ``:619``) and the process workers' hard and
+network rows (``child_plan_for`` ``:347``, ``on_worker_chunk``
+``:370-490``). A ``FaultPlan`` names the faults to fire; the hooks are
+no-ops unless a plan is active (set by ``activate``/``injected``, or from
+the ``DALLE_FAULTS`` JSON environment variable in a CLI run), and each
+fault fires at most once per activation.
 
+A worker process gets its plan from the parent at spawn, once per
+activation per replica (``child_plan_for``): the hard rows kill the child
+for real, and fire-once must live in the process that survives them.
+The two SIGKILL rows of the set (``upgrade_drain_sigkill_replica``,
+``migrate_crash_source_at_transfer``) kill a child process; a thread
+replica has none, and there they raise ``FaultInjected``. The gateway's
+rows come with the gateway (ROADMAP.md queue 1 item 2c): a plan naming
+one is refused (``TypeError``).
+"""
 from __future__ import annotations
 
 import contextlib
@@ -69,6 +73,23 @@ class FaultPlan:
     # asked for; the TARGET replica reports page exhaustion at import
     migrate_crash_source_at_transfer: int = -1
     migrate_reject_target: int = -1
+    # process workers (serve/worker.py), fault_replica only: the worker
+    # kills itself with a real SIGKILL or SIGSEGV once it has dispatched
+    # this many chunks; allocates real memory until its RSS watchdog
+    # exits 137 (needs the set's child_rss_limit_mb); emits one corrupt
+    # frame
+    replica_sigkill_at_chunk: int = -1
+    replica_segv_at_chunk: int = -1
+    replica_oom_at_chunk: int = -1
+    replica_garbage_frame_at_chunk: int = -1
+    # the network rows: half a frame then an RST (socket), half a frame
+    # then a FIN (socket), silent for replica_hang_s with the connection
+    # open, one frame delivered twice, two frames swapped
+    replica_conn_reset_at_chunk: int = -1
+    replica_torn_frame_at_chunk: int = -1
+    replica_stall_socket_at_chunk: int = -1
+    replica_dup_frame_at_chunk: int = -1
+    replica_reorder_frames_at_chunk: int = -1
 
 
 _active: Optional[FaultPlan] = None
@@ -199,6 +220,114 @@ def on_replica_chunk(replica: int, chunk: int) -> None:
         time.sleep(p.replica_hang_s)
 
 
+def child_plan_for(replica: int) -> Optional[dict]:
+    """The active plan as a dict for ``replica``'s worker spawn, at most
+    once per activation per replica: a restarted child must come up
+    clean, or a hard kill would fire forever."""
+    p = _active
+    if p is None or replica != p.fault_replica:
+        return None
+    if not _once(f"child_plan_{replica}"):
+        return None
+    return dataclasses.asdict(p)
+
+
+# held at module level: the injected OOM's allocations must outlive the
+# hook until the watchdog (or the kernel) ends the process
+_oom_ballast: list = []
+
+
+def on_worker_chunk(replica: int, chunk: int, *, emit_frame=None,
+                    rss_limit_mb: int = 0, rss_mb=None, transport=None,
+                    sender=None) -> None:
+    """In a process worker's loop before each step: the rows only a
+    process survives being injected with. A real ``os.kill`` (SIGKILL or
+    SIGSEGV) of the worker; 64 MiB allocations, touched, until ``rss_mb()``
+    passes ``rss_limit_mb`` (at most 256 of them); one garbage frame
+    through ``emit_frame``; and the network rows through ``transport``
+    (``send_partial_frame``, ``reset_hard``) and ``sender`` (its sequence
+    number). ``fault_replica`` only, once each."""
+    p = _active
+    if p is None or replica != p.fault_replica:
+        return
+    if p.replica_sigkill_at_chunk >= 0 \
+            and chunk >= p.replica_sigkill_at_chunk \
+            and _once("worker_sigkill"):
+        os.kill(os.getpid(), signal.SIGKILL)
+    if p.replica_segv_at_chunk >= 0 \
+            and chunk >= p.replica_segv_at_chunk \
+            and _once("worker_segv"):
+        os.kill(os.getpid(), signal.SIGSEGV)
+    if p.replica_oom_at_chunk >= 0 \
+            and chunk >= p.replica_oom_at_chunk \
+            and _once("worker_oom"):
+        if not rss_limit_mb or rss_mb is None:
+            raise FaultInjected(
+                "replica_oom_at_chunk fired but the worker has no RSS "
+                "limit to exhaust — run the replica set with "
+                "child_rss_limit_mb set, or this fault proves nothing")
+        import numpy as np
+        for _ in range(256):            # a hard cap: never OOM the host
+            if rss_mb() > rss_limit_mb:
+                return                  # the watchdog kills next
+            _oom_ballast.append(np.ones((64, 1024, 1024), np.uint8))
+        raise FaultInjected(
+            f"allocated {len(_oom_ballast) * 64} MiB without crossing "
+            f"rss_limit_mb={rss_limit_mb} — limit too high to exercise")
+    if p.replica_garbage_frame_at_chunk >= 0 \
+            and chunk >= p.replica_garbage_frame_at_chunk \
+            and emit_frame is not None and _once("worker_garbage"):
+        emit_frame(b"\xde\xad\xbe\xef not a frame")
+
+    def heartbeat_frame(seq: int) -> bytes:
+        from dalle_pytorch_tpu_torch.serve import ipc
+        return ipc.encode_frame(ipc.HEARTBEAT, {"snap": None}, seq)
+
+    def need_socket(fault: str) -> None:
+        if getattr(transport, "kind", "") != "socket":
+            raise FaultInjected(
+                f"{fault} fired but the worker is not on a socket "
+                f"transport — a pipe has no stream tearing to inject; "
+                f"run with transport='socket', or this fault proves "
+                f"nothing")
+
+    if p.replica_conn_reset_at_chunk >= 0 \
+            and chunk >= p.replica_conn_reset_at_chunk \
+            and sender is not None and _once("worker_conn_reset"):
+        need_socket("replica_conn_reset_at_chunk")
+        frame = heartbeat_frame(sender.seq)
+        transport.send_partial_frame(frame, len(frame) // 2)
+        transport.reset_hard()
+    if p.replica_torn_frame_at_chunk >= 0 \
+            and chunk >= p.replica_torn_frame_at_chunk \
+            and sender is not None and _once("worker_torn_frame"):
+        need_socket("replica_torn_frame_at_chunk")
+        # the split lands inside the ipc header
+        frame = heartbeat_frame(sender.seq)
+        transport.send_partial_frame(frame, 3)
+        transport.close()
+    if p.replica_stall_socket_at_chunk >= 0 \
+            and chunk >= p.replica_stall_socket_at_chunk \
+            and _once("worker_stall"):
+        time.sleep(p.replica_hang_s)
+    if p.replica_dup_frame_at_chunk >= 0 \
+            and chunk >= p.replica_dup_frame_at_chunk \
+            and emit_frame is not None and sender is not None \
+            and _once("worker_dup"):
+        frame = heartbeat_frame(sender.seq)
+        sender.seq += 1
+        emit_frame(frame)
+        emit_frame(frame)
+    if p.replica_reorder_frames_at_chunk >= 0 \
+            and chunk >= p.replica_reorder_frames_at_chunk \
+            and emit_frame is not None and sender is not None \
+            and _once("worker_reorder"):
+        a = sender.seq
+        sender.seq += 2
+        emit_frame(heartbeat_frame(a + 1))
+        emit_frame(heartbeat_frame(a))
+
+
 def on_scale_add_bringup(replica: int, attempt: int) -> None:
     """In the bring-up of a replica born from ``add_replica``: fail its
     first ``scale_add_bringup_crash`` attempts."""
@@ -212,9 +341,11 @@ def on_scale_add_bringup(replica: int, attempt: int) -> None:
 
 
 def on_upgrade_drain(replica: int, pid: Optional[int]) -> None:
-    """Just before ``rolling_upgrade`` drains ``replica``: SIGKILL its
-    child process. A thread replica has none (``pid`` None), and a fault
-    that cannot fire must not pass vacuously: it raises instead."""
+    """Just before ``rolling_upgrade`` drains ``replica``: a real SIGKILL
+    of its child process, and a pause for the death to become visible
+    (the drain finds a corpse). A thread replica has none (``pid``
+    None), and a fault that cannot fire must not pass vacuously: it
+    raises instead."""
     p = _active
     if p is None or replica != p.upgrade_drain_sigkill_replica \
             or not _once("upgrade_drain_sigkill"):

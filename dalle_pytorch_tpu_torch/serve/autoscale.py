@@ -118,7 +118,10 @@ class Autoscaler:
         if rs.kv == "paged":
             for r in live:
                 e = r.engine
-                page_frac = min(page_frac, e.alloc.free / e.num_pages)
+                # a process replica's count is its child's last frame:
+                # -1 before the first
+                if e.pages_free >= 0:
+                    page_frac = min(page_frac, e.pages_free / e.num_pages)
         return {
             "live_replicas": len(live),
             "occupancy": active / slots if slots else 1.0,

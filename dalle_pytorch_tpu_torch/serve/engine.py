@@ -78,7 +78,8 @@ For the replica set (``serve/replica.py``, JAX ``:637-654``,
 
 * ``last_heartbeat`` is stamped at every step and every harvest (the
   harvest's wait is where a wedged card stalls the thread), and
-  ``compiling`` marks the first dispatch, which may load the kernels;
+  ``compiling`` marks the first dispatch, which may load the kernels
+  (``compile_pending`` asks ahead of it, for a process worker);
 * ``fence()`` is the one-way switch the supervisor flips before it
   reclaims this engine's requests: a fenced engine fulfils, completes
   and requeues nothing, and every admission bail-out hands the handles
@@ -1526,6 +1527,12 @@ class Engine:
 
     # -- the loop -------------------------------------------------------------
 
+    @property
+    def pages_free(self) -> int:
+        """The paged pool's free pages (a process replica's client shows
+        its child's under the same name)."""
+        return self.alloc.free
+
     def active_slots(self) -> int:
         return sum(s is not None for s in self.slots)
 
@@ -1626,6 +1633,16 @@ class Engine:
     def idle(self) -> bool:
         return self.queue.depth() == 0 and self.active_slots() == 0 \
             and not self._pending
+
+    def compile_pending(self) -> bool:
+        """True when the next ``step_once`` may run the engine's first
+        admission and dispatch (kernel loads, library warm-up: seconds on
+        a cold process). A process worker cannot stamp a heartbeat inside
+        a step, so it asks this first and sends a ``compiling`` heartbeat
+        (JAX ``Engine.compile_pending``; the port has no per-bucket
+        programs to compile)."""
+        return self.decode_steps == 0 and (self.active_slots() > 0
+                                           or self.queue.depth() > 0)
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> None:
         """Drive until the queue is empty, every slot is free and every

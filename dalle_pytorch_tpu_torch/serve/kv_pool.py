@@ -5,7 +5,9 @@ Port of ``dalle_pytorch_tpu/serve/kv_pool.py``: ``pages_for``
 ``validate_page_size`` with ``PageSizeError`` (``:74-106``),
 ``visible_table_view`` (``:165``), the page copy pair of the prefix
 cache's copy-on-write fork ``snapshot_page`` / ``restore_page``
-(``:180-198``) and the refcounted ``PageAllocator`` (``:232``).
+(``:180-198``), ``modeled_kv_bytes`` (``:207``: a process replica's
+pool lives in another interpreter) and the refcounted ``PageAllocator``
+(``:232``).
 
 The device side is a pool ``(depth, num_pages, heads, page_size,
 dim_head)`` per K and V (int8 plus per-row float32 scale pages when
@@ -131,6 +133,24 @@ def restore_page(pool: Dict[str, torch.Tensor], page: int,
     place — the copy-on-write FORK of a warm hit's boundary page."""
     for k, buf in pool.items():
         buf[:, page] = snap[k]
+
+
+def modeled_kv_bytes(cfg, *, kv: str, num_slots: int, total_len: int,
+                     page_size: int = 0, num_pages: int = 0,
+                     quantized: bool = False, dtype_bytes: int = 4) -> int:
+    """KV-store bytes from the config alone (the engine's defaults:
+    ``page_size`` 0 -> min(16, total_len), ``num_pages`` 0 -> fully
+    provisioned); int8 rows count one byte an element plus one float32
+    scale a row."""
+    depth, heads, dh = cfg.depth, cfg.heads, cfg.dim_head
+    if kv == "paged":
+        ps = int(page_size) or min(16, total_len)
+        pages = int(num_pages) or num_slots * pages_for(total_len, ps) + 1
+        rows = pages * ps
+    else:
+        rows = num_slots * total_len
+    per_row = (1 + 4 / dh) if quantized else dtype_bytes
+    return int(2 * depth * heads * rows * dh * per_row)
 
 
 class PageAllocator:

@@ -1,62 +1,87 @@
 """Replica-set serving: N supervised engines behind ONE queue, with
 zero-loss failover through deterministic replay.
 
-Port of ``dalle_pytorch_tpu/serve/replica.py`` with ``isolation='thread'``:
-every replica is an ``Engine`` in this process, on the one card, driven
-by a thread of its own (or, under the sync driver, by ``step_once``).
-Sampling is deterministic in (seed, position), so a request in flight
-can move: killed mid-stream, re-queued at its ORIGINAL arrival position
+Port of ``dalle_pytorch_tpu/serve/replica.py``. Sampling is deterministic
+in (seed, position), so a request in flight can move: killed
+mid-stream, re-queued at its ORIGINAL arrival position
 (``RequestQueue.requeue`` keeps ``queue_seq``) and admitted on a
 survivor, it replays to the same tokens.
 
+Two isolation shapes:
+
+* ``isolation='thread'``: every replica is an ``Engine`` in this
+  process, on the one card, driven by a thread of its own (or, under the
+  sync driver, by ``step_once``);
+* ``isolation='process'``: every replica's engine runs in a SPAWNED
+  child process (``serve/worker.py``: its own interpreter, its own CUDA
+  context, its own copy of the weights) behind the typed frames of
+  ``serve/ipc.py``. The parent keeps a SHADOW of every handle routed to a
+  child and reclaims from it, never from the child: a SIGKILLed process
+  answers nothing. Liveness is the child's PID (with its exit decoded:
+  SIGKILL, SIGSEGV, the watchdog's 137) over the same heartbeat deadline,
+  the heartbeats being frames. ``transport='socket'`` makes the workers
+  dial back to a ``WorkerListener`` (``worker_endpoint``) with an
+  authenticated HELLO: spawned children, a launcher command a replica
+  (``worker_cmd``) or workers started by hand (``worker_cmd=''``), all
+  supervised alike; a worker with no local PID is declared dead off its
+  socket. ``worker_ckpt`` hands socket workers a checkpoint path instead
+  of weights (``worker_use_ema``, ``worker_quantize``).
+
 Supervision (one supervisor per set):
 
-* every replica's loop stamps ``Engine.last_heartbeat`` at each step and
-  each harvest; CRASH is a loop that recorded an exception, HANG a
+* a thread replica's loop stamps ``Engine.last_heartbeat`` at each step
+  and each harvest; CRASH is a loop that recorded an exception, HANG a
   heartbeat older than ``heartbeat_s`` while the thread still runs (a
   first dispatch, ``Engine.compiling``, and a running profiler capture
-  are exempt). Either way the replica is FENCED (``Engine.fence()``: the
-  engine fulfils and requeues nothing from then on; its thread, maybe
-  still inside a CUDA call, is abandoned, never killed) and RECLAIMED:
-  its private queue and its in-slot and mid-admission handles go back to
-  the shared queue at their arrival positions. ``fulfill`` is
-  first-write-wins, so a fenced thread waking late cannot race the
-  replay;
-* BRING-UP builds a fresh engine and private queue; repeated failure
-  circuit-breaks the replica with exponential backoff
+  are exempt). A process replica's CRASH is a CRASH frame, a protocol
+  error or a dead PID, its HANG a frame stream silent past the deadline
+  (``compile_grace_s`` while it says it is compiling). Either way the
+  replica is FENCED and RECLAIMED: its queued, in-slot and mid-admission
+  handles go back to the shared queue at their arrival positions
+  (``fulfill`` is first-write-wins, so a late waker cannot race the
+  replay). A thread stuck inside a CUDA call is abandoned; a child is
+  SIGKILLed first and its transport drained of the frames it wrote
+  before dying (those results stand);
+* BRING-UP builds a fresh engine (or spawns a fresh child, which joins
+  routing at its READY frame, within ``spawn_timeout_s``); repeated
+  failure circuit-breaks the replica with exponential backoff
   (``resilience.retry.RetryPolicy``) while the survivors serve;
 * DRAIN (``drain_replica``) LIVE-MIGRATES the replica's decoding
-  requests to survivors (``Engine.export_slot``/``import_slot``: pages,
-  device rows and emitted tokens move; replay is the fallback at every
-  rung), then fences and reclaims the rest and holds the replica down
-  until ``undrain_replica``.
+  requests to survivors (``Engine.export_slot``/``import_slot``, between
+  processes over MIGRATE_OUT / MIGRATE_IN / MIGRATE_ACK: pages, device
+  rows and emitted tokens move; replay is the fallback at every rung),
+  then fences and reclaims the rest and holds the replica down until
+  ``undrain_replica``.
 
 The elastic fleet: ``add_replica`` and ``remove_replica`` (typed
 ``ScaleError`` for an illegal reshape: past ``max_replicas``, the last
 live replica, a retired slot, mid-upgrade); ``rolling_upgrade`` swaps
-the weights replica by replica, each new engine gated by canary requests
-that must give the first upgraded replica's tokens, an abort rolling the
-whole fleet back (``UpgradeAborted``). Every result is stamped with the
+the weights replica by replica (a new model, or with ``worker_ckpt`` a
+new checkpoint path), each new engine gated by canary requests that must
+give the first upgraded replica's tokens, an abort rolling the whole
+fleet back (``UpgradeAborted``). Every result is stamped with the
 ``weights_version`` that decoded it, and a failover replay is PINNED to
 its generation (``RequestHandle.replay_version``), released only when
 that generation has left the fleet. Roles: a ``prefill`` replica hands
 warm requests to a ``decode`` replica (live migration, paged KV only).
-Routing is least-loaded with page awareness. ``serve/autoscale.py``
-drives ``add_replica``/``remove_replica`` off the load signals.
+Routing is least-loaded with page awareness (for a child, off its last
+frame). ``serve/autoscale.py`` drives ``add_replica``/``remove_replica``
+off the load signals.
 
-On the card. Replicas on one weights version share ONE read-only
+On the card. Thread replicas on one weights version share ONE read-only
 ``DALLE`` module (a rolling upgrade brings the new version's module
-once). Every launch stays on the legacy default stream, which orders
-the replicas' kernels: K4's split merge shares one counter buffer per
-device and relies on that order (``ops/paged_attention.py::_counters``),
-so no replica takes a stream of its own. ``start`` loads K4's library
-before the first replica thread exists, so no two threads build or
-``dlopen`` it at once.
+once). Every launch stays on the legacy default stream, which orders the
+replicas' kernels: K4's split merge shares one counter buffer per device
+and relies on that order (``ops/paged_attention.py::_counters``), so no
+replica takes a stream of its own. Process replicas each hold their own
+CUDA context, counter buffer and launch count; the card time-slices the
+contexts. K4's library is built (and loaded) in the parent before the
+first replica thread or child exists, so no two build it at once and a
+child only loads it.
 
-Left for later slices: ``isolation='process'`` and the socket transport
-with its workers (ROADMAP.md queue 1 item 2b), replicas spanning a
-device mesh (item 3). Their keywords raise ``TypeError`` naming the
-item.
+Left for later slices: replicas spanning a device mesh (ROADMAP.md queue
+1 item 3): ``devices_per_replica`` above 1 raises ``TypeError`` naming
+the item.
 """
 
 from __future__ import annotations
@@ -67,13 +92,16 @@ import time
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.obs import flight as oflight
 from dalle_pytorch_tpu_torch.resilience import faults
 from dalle_pytorch_tpu_torch.resilience import retry as rretry
+from dalle_pytorch_tpu_torch.serve import ipc
 from dalle_pytorch_tpu_torch.serve import kv_pool as KV
 from dalle_pytorch_tpu_torch.serve import scheduler as S
+from dalle_pytorch_tpu_torch.serve import transport as T
 from dalle_pytorch_tpu_torch.serve.engine import COUNTERS as _COUNTERS
 from dalle_pytorch_tpu_torch.serve.engine import Engine, MigrationError
 
@@ -91,12 +119,6 @@ TRANSPORT_MODES = ("pipe", "socket")
 # preference, never a capability
 REPLICA_ROLES = ("prefill", "decode", "both")
 
-PROCESS_ITEM = "ROADMAP.md queue 1 item 2b (process isolation)"
-# the JAX set's keywords of process isolation and its transports
-PROCESS_KWARGS = ("child_rss_limit_mb", "spawn_timeout_s",
-                  "compile_grace_s", "worker_endpoint", "worker_cmd",
-                  "attach_token", "worker_ckpt", "worker_use_ema",
-                  "worker_quantize", "place_on_devices")
 MESH_ITEM = "ROADMAP.md queue 1 item 3 (parallel/ on torch.distributed)"
 
 
@@ -138,29 +160,36 @@ class ReplayVersionMismatch(RuntimeError):
 
 
 class _Replica:
-    """One supervised slot of the set: its engine and private queue, its
-    loop thread, and the supervisor's bookkeeping."""
+    """One supervised slot of the set: its engine (or child client) and
+    private queue, its loop thread, and the supervisor's bookkeeping."""
 
     __slots__ = ("index", "state", "engine", "queue", "thread", "stop",
-                 "attempt", "bringups", "next_bringup_t", "last_error",
-                 "dead", "version", "canary", "params_override",
+                 "device", "attempt", "bringups", "next_bringup_t",
+                 "last_error", "dead", "await_ready", "last_exit", "conns",
+                 "version", "canary", "params_override", "ckpt_override",
                  "born_scaled", "role")
 
-    def __init__(self, index: int, version: str = "0", role: str = "both"):
+    def __init__(self, index: int, device=None, version: str = "0",
+                 role: str = "both"):
         self.index = index
         self.state = BROKEN          # until the first bring-up succeeds
-        self.engine: Optional[Engine] = None
+        self.engine = None           # Engine, or ipc.ChildEngineClient
         self.queue: Optional[S.RequestQueue] = None
         self.thread: Optional[threading.Thread] = None
         self.stop: Optional[threading.Event] = None
+        self.device = device         # a child's device
         self.attempt = 0             # consecutive bring-up failures
         self.bringups = 0            # lifetime bring-up calls
         self.next_bringup_t = 0.0
         self.last_error = ""
         self.dead = False            # the loop thread recorded a crash
+        self.await_ready = False     # a child spawned, its READY due
+        self.last_exit = ""          # the last child's decoded exit
+        self.conns = 0               # workers that reached READY here
         self.version = str(version)  # weights generation it serves
         self.canary = False          # upgrading: canaries only, unrouted
         self.params_override = None  # upgrade: bring up on this model
+        self.ckpt_override = None    # ... or on this checkpoint path
         self.born_scaled = False     # created by add_replica
         self.role = str(role)
 
@@ -170,7 +199,8 @@ class ReplicaSet:
     ``scheduler.RequestQueue``, with a single engine's drive surface
     (``step_once``, ``run_until_idle``, ``idle``, ``stats`` and the
     counters). ``model`` is the port's ``DALLE`` on ``device`` (the card
-    unless told otherwise); every replica serves it."""
+    unless told otherwise); every replica serves it (a process replica
+    a copy of it on its own device)."""
 
     def __init__(self, model, queue: S.RequestQueue, *,
                  replicas: int = 2,
@@ -192,19 +222,24 @@ class ReplicaSet:
                  clock: Callable[[], float] = time.perf_counter,
                  heartbeat_s: float = 5.0,
                  bringup_policy=None,
+                 place_on_devices: bool = True,
                  idle_sleep_s: float = 0.002,
                  isolation: str = "thread",
+                 child_rss_limit_mb: int = 0,
+                 spawn_timeout_s: float = 120.0,
+                 compile_grace_s: float = 120.0,
                  transport: str = "pipe",
+                 worker_endpoint: str = "127.0.0.1:0",
+                 worker_cmd: Optional[str] = None,
+                 attach_token: Optional[str] = None,
+                 worker_ckpt: Optional[str] = None,
+                 worker_use_ema: bool = False,
+                 worker_quantize: str = "none",
                  devices_per_replica: int = 1,
                  weights_version: str = "0",
                  max_replicas: int = 0,
                  roles=None,
-                 device=None,
-                 **process_kwargs):
-        for name in sorted(process_kwargs):
-            if name not in PROCESS_KWARGS:
-                raise TypeError(f"ReplicaSet() got an unexpected keyword "
-                                f"argument {name!r}")
+                 device=None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         if isolation not in ISOLATION_MODES:
@@ -213,13 +248,31 @@ class ReplicaSet:
         if transport not in TRANSPORT_MODES:
             raise ValueError(f"transport must be one of "
                              f"{TRANSPORT_MODES}, got {transport!r}")
-        refused = sorted(process_kwargs) + (
-            [f"isolation={isolation!r}"] if isolation != "thread" else []) \
-            + ([f"transport={transport!r}"] if transport != "pipe" else [])
-        if refused:
-            raise TypeError(f"{', '.join(refused)}: not in the PyTorch "
-                            f"port yet — replicas are threads on one "
-                            f"card; see {PROCESS_ITEM}")
+        if transport == "socket" and isolation != "process":
+            raise ValueError("transport='socket' requires "
+                             "isolation='process' (threads share a "
+                             "heap; there is nothing to socket)")
+        if worker_cmd is not None and transport != "socket":
+            raise ValueError("worker_cmd needs transport='socket' — a "
+                             "pipe cannot cross a launcher boundary")
+        if worker_ckpt is not None and transport != "socket":
+            raise ValueError(
+                "worker_ckpt needs transport='socket': its point is "
+                "that a worker on ANOTHER host loads weights from its "
+                "local checkpoint store instead of receiving them over "
+                "the wire")
+        self.worker_use_ema = bool(worker_use_ema)
+        self.worker_quantize = str(worker_quantize)
+        if self.worker_quantize not in ("none", "int8", "int8_kv"):
+            raise ValueError(f"worker_quantize must be 'none', 'int8' "
+                             f"or 'int8_kv', got {worker_quantize!r}")
+        if (self.worker_use_ema or self.worker_quantize != "none") \
+                and worker_ckpt is None:
+            raise ValueError(
+                "worker_use_ema/worker_quantize transform the "
+                "checkpoint a worker loads locally — they need "
+                "worker_ckpt (without it, pass a model you transformed "
+                "yourself)")
         if int(devices_per_replica) != 1:
             raise TypeError(f"devices_per_replica={devices_per_replica}: "
                             f"not in the PyTorch port yet — a replica "
@@ -245,7 +298,7 @@ class ReplicaSet:
                 f"max_replicas={max_replicas} is below the initial "
                 f"replica count {replicas}")
         # the CLI's fault path (DALLE_FAULTS) must be live before the
-        # first bring-up
+        # first bring-up (child plans are cut at spawn)
         faults.maybe_activate_from_env()
         self.device = resolve_device(device)
         self.params = model
@@ -261,7 +314,13 @@ class ReplicaSet:
         self.clock = clock
         self.heartbeat_s = float(heartbeat_s)
         self.kv = str(kv)
-        self.isolation = "thread"
+        self.isolation = str(isolation)
+        self.transport = str(transport)
+        self.worker_cmd = worker_cmd
+        self.child_rss_limit_mb = int(child_rss_limit_mb)
+        self.spawn_timeout_s = float(spawn_timeout_s)
+        self.compile_grace_s = float(compile_grace_s)
+        self.worker_ckpt = worker_ckpt
         self._engine_kwargs = dict(
             num_slots=num_slots, chunk_steps=chunk_steps,
             prefill_buckets=prefill_buckets, metrics=metrics,
@@ -272,14 +331,60 @@ class ReplicaSet:
             prefix_cache=prefix_cache, preview_every=preview_every)
         # the progressive-preview hook, set by the server after
         # construction (the property hands it to the live engines) and
-        # copied onto every engine brought up later
+        # copied onto every thread engine brought up later; a child's
+        # stand-in handles have no sink, so process replicas preview
+        # nothing
         self._on_preview: Optional[Callable] = None
+        self.listener: Optional[T.WorkerListener] = None
+        self._blobs: dict = {}       # id(model) -> (model, host state)
+        if self.isolation == "process":
+            if self.device.type == "cuda" and paged_attn == "kernel":
+                # built here, before any child spawns: children load it
+                from dalle_pytorch_tpu_torch.ops import paged_attention \
+                    as PA
+                PA.load_kernel()
+            # what crosses the spawn boundary: the model as host state
+            # (or nothing, with worker_ckpt: each worker loads the path)
+            # and the engine keywords that pickle (the metrics sink and
+            # the preview hook stay here)
+            self._child_kwargs = dict(
+                num_slots=num_slots, chunk_steps=chunk_steps,
+                prefill_buckets=prefill_buckets,
+                quantize_cache=quantize_cache,
+                kv=kv, page_size=page_size, num_pages=num_pages,
+                paged_attn=paged_attn, sparse_reads=sparse_reads,
+                speculative=speculative, draft_layers=draft_layers,
+                prefix_cache=prefix_cache)
+            # routing's page arithmetic without an engine here: the
+            # engine's own bucket and page-size defaults
+            self._buckets = (S.prefill_buckets(self.cfg.text_seq_len)
+                             if prefill_buckets is None
+                             else tuple(sorted(set(
+                                 int(b) for b in prefill_buckets))))
+            self._page_size = (int(page_size) or min(16, self.cfg.seq_len)
+                               ) if kv == "paged" else 0
+            self._num_pages = (int(num_pages) or num_slots * KV.pages_for(
+                self.cfg.seq_len, self._page_size) + 1) \
+                if kv == "paged" else 0
+            if self.transport == "socket":
+                host, port = T.parse_endpoint(worker_endpoint)
+                self.listener = T.WorkerListener(
+                    host, port, token=attach_token,
+                    on_event=(lambda rec: self._event(rec.pop("kind"),
+                                                      **rec)))
         self.bringup_policy = bringup_policy or rretry.RetryPolicy(
             max_attempts=1, deadline_s=None, base_backoff_s=0.5,
             backoff_multiplier=2.0, max_backoff_s=30.0, jitter=0.0)
         self._idle_sleep_s = float(idle_sleep_s)
+        # a child on a host with several cards takes card i % n (thread
+        # replicas share the one module on ``device``)
+        self._placed = (place_on_devices and self.isolation == "process"
+                        and self.device.type == "cuda"
+                        and self.device.index is None
+                        and torch.cuda.device_count() > 1)
         self.replicas: List[_Replica] = [
-            _Replica(i, version=self.weights_version,
+            _Replica(i, device=self._device_for(i),
+                     version=self.weights_version,
                      role=self.roles[i] if self.roles else "both")
             for i in range(self.n_replicas)]
 
@@ -288,6 +393,7 @@ class ReplicaSet:
         # reclaimed requests' harvested prefixes, which replay
         # re-credits), so the aggregates count distinct delivered tokens
         self._retired = {k: 0 for k in _COUNTERS}
+        self._retired_k4 = 0         # fenced children's K4 launches
         self.failovers = 0
         self.reclaimed = 0
         self.expired = 0             # router-side queued-deadline reaps
@@ -319,6 +425,23 @@ class ReplicaSet:
             for r in self.replicas:
                 self._bring_up(r, now)
 
+    def _device_for(self, i: int) -> str:
+        """Replica ``i``'s device (a child's spec carries it as text)."""
+        if self._placed:
+            return f"cuda:{i % torch.cuda.device_count()}"
+        return str(self.device)
+
+    def _host_blob(self, model) -> bytes:
+        """``ipc.host_model(model)``, made once a model (the set's and an
+        upgrade's at most)."""
+        hit = self._blobs.get(id(model))
+        if hit is None or hit[0] is not model:
+            self._blobs = {k: v for k, v in self._blobs.items()
+                           if v[0] is self.params}
+            hit = (model, ipc.host_model(model))
+            self._blobs[id(model)] = hit
+        return hit[1]
+
     @property
     def on_preview(self) -> Optional[Callable]:
         return self._on_preview
@@ -328,9 +451,10 @@ class ReplicaSet:
         # the JAX set only copies the hook at bring-up, so the replicas
         # up at construction never preview; here they all do
         self._on_preview = hook
-        for r in self.replicas:
-            if r.engine is not None:
-                r.engine.on_preview = hook
+        if self.isolation == "thread":
+            for r in self.replicas:
+                if r.engine is not None:
+                    r.engine.on_preview = hook
 
     # -- events ---------------------------------------------------------------
 
@@ -356,8 +480,9 @@ class ReplicaSet:
             flight=self.flight.tail(32)))
 
     def debug_events(self) -> dict:
-        """``GET /debug/events``: the set ring, each live replica's ring,
-        and each fenced replica's last dump."""
+        """``GET /debug/events``: the set ring, each live replica's ring (a
+        child's parent-side mirror), and each fenced replica's last
+        dump."""
         out = {"server": self.flight.dump(), "replicas": {},
                "fenced": {str(i): d for i, d in self.fence_dumps.items()}}
         for r in self.replicas:
@@ -367,13 +492,25 @@ class ReplicaSet:
 
     def _on_complete(self, handle: S.RequestHandle,
                      result: S.Result) -> None:
-        """Every engine's ``complete`` hook: a canary is fulfilled here
-        (it never reaches postprocess or the latency accounting), the
-        rest flows downstream."""
+        """Every thread engine's ``complete`` hook: a canary is fulfilled
+        here (it never reaches postprocess or the latency accounting),
+        the rest flows downstream."""
         if getattr(handle, "canary", False) or self.complete is None:
             handle.fulfill(result)
         else:
             self.complete(handle, result)
+
+    def _child_done(self, handle: S.RequestHandle,
+                    result: S.Result) -> None:
+        """A child's results (the client's ``on_done``), as
+        ``Engine._finish`` hands them on: OK results flow downstream
+        (postprocess), anything else and every canary fulfils the
+        handle."""
+        if result.status == S.OK and self.complete is not None \
+                and not getattr(handle, "canary", False):
+            self.complete(handle, result)
+        else:
+            handle.fulfill(result)
 
     # -- bring-up / circuit breaker -------------------------------------------
 
@@ -387,19 +524,46 @@ class ReplicaSet:
         r.bringups += 1
         model = self.params if r.params_override is None \
             else r.params_override
+        ckpt = self.worker_ckpt if r.ckpt_override is None \
+            else r.ckpt_override
         try:
             faults.on_replica_bringup(r.index, attempt)
             if r.born_scaled:
                 faults.on_scale_add_bringup(r.index, attempt)
-            queue = S.RequestQueue(
-                max_depth=4 * self._engine_kwargs["num_slots"] + 8,
-                clock=self.clock)
-            engine = Engine(model, queue, complete=self._on_complete,
-                            clock=self.clock, device=self.device,
-                            weights_version=r.version,
-                            model_version=r.version,
-                            **self._engine_kwargs)
-            engine.on_preview = self.on_preview
+            if self.isolation == "process":
+                client = ipc.ChildEngineClient(
+                    None if ckpt is not None else self._host_blob(model),
+                    index=r.index,
+                    engine_kwargs={**self._child_kwargs,
+                                   "weights_version": r.version,
+                                   "model_version": r.version},
+                    device=r.device,
+                    ckpt_path=ckpt,
+                    ckpt_use_ema=self.worker_use_ema,
+                    ckpt_quantize=self.worker_quantize,
+                    heartbeat_interval_s=min(
+                        max(self.heartbeat_s / 5, 0.01), 0.25),
+                    rss_limit_mb=self.child_rss_limit_mb,
+                    # a hard-fault plan crosses once per activation per
+                    # replica (faults.child_plan_for)
+                    fault_plan=faults.child_plan_for(r.index),
+                    idle_sleep_s=self._idle_sleep_s,
+                    clock=self.clock,
+                    on_done=self._child_done,
+                    transport=self.transport,
+                    listener=self.listener,
+                    worker_cmd=self.worker_cmd,
+                    num_pages=self._num_pages)
+            else:
+                queue = S.RequestQueue(
+                    max_depth=4 * self._engine_kwargs["num_slots"] + 8,
+                    clock=self.clock)
+                engine = Engine(model, queue, complete=self._on_complete,
+                                clock=self.clock, device=self.device,
+                                weights_version=r.version,
+                                model_version=r.version,
+                                **self._engine_kwargs)
+                engine.on_preview = self.on_preview
         except Exception as e:  # noqa: BLE001 — circuit-break, don't die
             r.attempt += 1
             self.bringup_failures += 1
@@ -411,6 +575,16 @@ class ReplicaSet:
                         attempt=attempt, consecutive=r.attempt,
                         backoff_s=round(delay, 3), error=repr(e))
             return False
+        if self.isolation == "process":
+            # the spawn is asynchronous: RUNNING means spawned, routing
+            # waits for READY, and a child that dies or stalls before it
+            # is a bring-up failure (nothing to reclaim), not a failover
+            r.engine, r.queue = client, None
+            r.dead = False
+            r.await_ready = True
+            r.stop = None
+            r.state = RUNNING
+            return True
         # an orphan is a handle the fenced engine popped but never
         # admitted: back to the shared queue
         engine.on_fenced_orphan = lambda h: self.queue.requeue(h)
@@ -433,7 +607,10 @@ class ReplicaSet:
         """Fence the replica's engine, then reclaim every request it held
         (private queue first, then the in-slot and mid-admission handles)
         into the shared queue at their arrival positions. Fencing comes
-        first, so from here on this sweep alone owns those handles."""
+        first, so from here on this sweep alone owns those handles. A
+        child goes another way (``_fence_and_reclaim_child``)."""
+        if self.isolation == "process":
+            return self._fence_and_reclaim_child(r, now, reason)
         eng, q = r.engine, r.queue
         r.engine, r.queue, r.thread = None, None, None
         if r.stop is not None:
@@ -489,6 +666,61 @@ class ReplicaSet:
                     reason=reason, reclaimed=reclaimed, flight=dump)
         return reclaimed
 
+    def _fence_and_reclaim_child(self, r: _Replica, now: float,
+                                 reason: str) -> int:
+        """Kill, salvage, fence, reclaim from the shadow. The child is
+        SIGKILLed first, so its transport stops growing while the frames
+        it wrote before dying are read (their results stand, never
+        replayed; the last snapshot is the last consistent counter
+        state)."""
+        client = r.engine
+        r.engine, r.queue, r.thread = None, None, None
+        r.await_ready = False
+        reclaimed = 0
+        if client is not None:
+            # a child dead before we came died on its own (its decoded
+            # exit is the story); one we kill must not read as an OS kill
+            died_on_its_own = not client.alive_proc()
+            client.hard_kill()
+            r.last_exit = (client.exit_desc() if died_on_its_own
+                           else f"hard-killed by supervisor ({reason})")
+            client.salvage()
+            client.fence()
+            handles = client.reclaim()
+            retire = client.retire_counters(handles)
+            for k in _COUNTERS:
+                self._retired[k] += retire.get(k, 0)
+            self._retired_k4 += client.paged_decode_launches
+            rids = set()
+            for h in handles:
+                rid = h.request.request_id
+                if getattr(h, "canary", False):
+                    h.fulfill(S.Result(
+                        status=S.CANCELLED, request_id=rid,
+                        reason="canary cancelled (replica fenced)"))
+                    continue
+                rids.add(rid)
+                self._mark_replay(h, reason, r.index)
+                self.queue.requeue(h)
+                reclaimed += 1
+            # the last frame's head-of-line reservation hands back as a
+            # thread engine's does: the mirror answers for the corpse
+            if client.hol is not None and client.hol[0] in rids:
+                self._hol_handoff[client.hol[0]] = client.hol[1]
+                self.hol_handoffs += 1
+                self._event("serve_hol_handoff", replica=r.index,
+                            request_id=client.hol[0],
+                            pages_needed=client.hol[1])
+        # the parent-side mirror of the child's ring: what the victim
+        # told us before dying, a consistent prefix
+        dump = client.flight.dump() if client is not None else []
+        self.fence_dumps[r.index] = dump
+        self.reclaimed += reclaimed
+        self._event("serve_replica_fenced", replica=r.index,
+                    reason=reason, reclaimed=reclaimed,
+                    exit=r.last_exit, flight=dump)
+        return reclaimed
+
     def _failover(self, r: _Replica, now: float, reason: str) -> None:
         self.failovers += 1
         self._fence_and_reclaim(r, now, reason)
@@ -511,6 +743,8 @@ class ReplicaSet:
                 continue
             if exclude_prefill and x.role == "prefill":
                 continue
+            if not self._replica_serving(x):
+                continue
             if self._capacity(x) <= 0:
                 continue
             out.append(x)
@@ -520,7 +754,12 @@ class ReplicaSet:
 
     def _inslot_requests(self, r: _Replica):
         """``(request_id, handle)`` of every request decoding on ``r``
-        (canaries never migrate)."""
+        (canaries never migrate). A child's is its whole shadow: the
+        parent cannot see which entries hold a slot, and the export of a
+        queued one answers ``not_found``."""
+        if self.isolation == "process":
+            return [(rid, h) for rid, h in list(r.engine.shadow.items())
+                    if not h.done() and not getattr(h, "canary", False)]
         eng = r.engine
         out = []
         with eng._lock:
@@ -553,8 +792,9 @@ class ReplicaSet:
         a refused export leaves the request for the fence's reclaim, a
         refused import requeues it here. Returns the number moved."""
         if self.kv != "paged" or src.engine is None \
-                or src.state != RUNNING:
-            return 0
+                or not self._replica_serving(src):
+            return 0            # a corpse answers nothing: replay does
+        proc = self.isolation == "process"
         moved = 0
         for rid, pre in self._inslot_requests(src):
             pin = pre.replay_version or pin_version or src.version
@@ -564,12 +804,23 @@ class ReplicaSet:
             t0 = time.perf_counter()
             handle: Optional[S.RequestHandle] = None
             try:
-                faults.on_migrate_transfer(src.index, None)
-                snap, handle = src.engine.export_request(rid)
+                faults.on_migrate_transfer(
+                    src.index, src.engine.pid if proc else None)
+                if proc:
+                    snap = src.engine.export_request(rid)
+                    handle = src.engine.shadow.pop(rid, None)
+                    if handle is None:
+                        raise MigrationError(
+                            "not_found", "no shadow handle for the "
+                            "exported request")
+                else:
+                    snap, handle = src.engine.export_request(rid)
             except MigrationError as e:
                 if e.reason == "not_found":
                     continue    # finished or not slotted: nothing to move
                 self._migrate_fallback(src, rid, handle, e.reason, str(e))
+                if not self._replica_serving(src):
+                    break       # the source died: the fence replays
                 continue
             except faults.FaultInjected as e:
                 self._migrate_fallback(src, rid, handle, "source_dead",
@@ -581,7 +832,10 @@ class ReplicaSet:
             for tgt in targets:
                 try:
                     faults.on_migrate_import(tgt.index)
-                    tgt.engine.import_slot(snap, handle)
+                    if proc:
+                        tgt.engine.import_request(snap, handle)
+                    else:
+                        tgt.engine.import_slot(snap, handle)
                     dst = tgt
                     break
                 except MigrationError as e:
@@ -691,7 +945,8 @@ class ReplicaSet:
                     "add", reason="scale_out_past_cap",
                     replicas=len(active), max_replicas=self.max_replicas)
             index = len(self.replicas)
-            r = _Replica(index, version=self.weights_version, role=role)
+            r = _Replica(index, device=self._device_for(index),
+                         version=self.weights_version, role=role)
             r.born_scaled = True
             self.replicas.append(r)
             self.n_replicas = len(active) + 1
@@ -722,6 +977,7 @@ class ReplicaSet:
             n = self._fence_and_reclaim(r, self.clock(), reason)
             r.state = RETIRED
             r.params_override = None
+            r.ckpt_override = None
             self.n_replicas = len(survivors)
             self.scale_ins += 1
             self._event("serve_scale_in", replica=index, drain=drain,
@@ -746,12 +1002,21 @@ class ReplicaSet:
         return pred()
 
     def _replica_serving(self, r: _Replica) -> bool:
-        return r.state == RUNNING and r.engine is not None
+        """The replica can decode a request now (a child: READY landed
+        and the process is believable)."""
+        if r.state != RUNNING or r.engine is None:
+            return False
+        if self.isolation == "process":
+            c = r.engine
+            return c.ready and not c.crashed and not c.poisoned \
+                and not c.fenced and c.alive_proc()
+        return True
 
     def _submit_canaries(self, r: _Replica, version: str,
                          canary_codes, n: int) -> List[S.RequestHandle]:
-        """``n`` canary requests straight into replica ``r``'s private
-        queue (through the shared one a survivor would answer them)."""
+        """``n`` canary requests straight into replica ``r`` (its private
+        queue, or its child): through the shared one a survivor would
+        answer them."""
         now = self.clock()
         handles = []
         for k in range(n):
@@ -765,8 +1030,11 @@ class ReplicaSet:
             h.replay_version = version
             handles.append(h)
         with self._ctl_lock:
-            for h in handles:
-                r.queue.requeue(h, count=False)
+            if self.isolation == "process":
+                r.engine.route(handles)
+            else:
+                for h in handles:
+                    r.queue.requeue(h, count=False)
         return handles
 
     def _abort_upgrade(self, r: _Replica, version: str,
@@ -786,6 +1054,7 @@ class ReplicaSet:
                 x.canary = False
                 x.version = old_version
                 x.params_override = None
+                x.ckpt_override = None
                 self._bring_up(x, self.clock())
             self._drive_until(lambda x=x: self._replica_serving(x),
                               timeout_s)
@@ -801,17 +1070,17 @@ class ReplicaSet:
                         ckpt: Optional[str] = None,
                         canary_codes=None, canaries: int = 2,
                         replica_timeout_s: float = 300.0) -> dict:
-        """Swap the fleet's weights (``params``: the new version's
-        ``DALLE`` module, on the set's device) replica by replica with
-        zero dropped requests. Per replica, in index order: live-migrate
-        its work to survivors of ITS generation and fence the rest
-        (they replay on the old weights); bring it up on the new model;
-        gate it behind ``canaries`` requests decoded by it alone, whose
-        tokens must equal the first upgraded replica's; rejoin routing.
-        A failed gate, bring-up or canary aborts and rolls the fleet back
-        (``UpgradeAborted``). Then the set's weights and version are the
-        new ones. ``ckpt`` (checkpoint-path attach) needs process
-        workers and is refused. Returns the upgrade record."""
+        """Swap the fleet's weights replica by replica with zero dropped
+        requests: ``params`` (the new version's ``DALLE`` module, on the
+        set's device), or with ``worker_ckpt`` workers ``ckpt`` (the new
+        checkpoint path each worker loads itself). Per replica, in index
+        order: live-migrate its work to survivors of ITS generation and
+        fence the rest (they replay on the old weights); bring it up on
+        the new weights; gate it behind ``canaries`` requests decoded by
+        it alone, whose tokens must equal the first upgraded replica's;
+        rejoin routing. A failed gate, bring-up or canary aborts and
+        rolls the fleet back (``UpgradeAborted``). Then the set's weights
+        and version are the new ones. Returns the upgrade record."""
         with self._ctl_lock:
             self._reject_mid_upgrade("upgrade")
             if not version or version == self.weights_version:
@@ -821,9 +1090,12 @@ class ReplicaSet:
             if (params is None) == (ckpt is None):
                 raise self._scale_error(
                     "upgrade", reason="need_exactly_one_of_params_or_ckpt")
-            if ckpt is not None:
+            if ckpt is not None and self.worker_ckpt is None:
                 raise self._scale_error(
                     "upgrade", reason="ckpt_upgrade_needs_worker_ckpt_set")
+            if params is not None and self.worker_ckpt is not None:
+                raise self._scale_error(
+                    "upgrade", reason="params_upgrade_on_worker_ckpt_set")
             self._upgrading = True
         try:
             old_version = self.weights_version
@@ -846,7 +1118,11 @@ class ReplicaSet:
                         {"replica": r.index, "skipped": "drained"})
                     continue
                 t0 = time.perf_counter()
-                faults.on_upgrade_drain(r.index, None)
+                # the drain-race row: a real SIGKILL of the child as the
+                # planned drain begins (a thread replica raises)
+                faults.on_upgrade_drain(
+                    r.index, getattr(r.engine, "pid", None)
+                    if self.isolation == "process" else None)
                 with self._ctl_lock:
                     migrated = self._migrate_from(
                         r, self.clock(),
@@ -857,6 +1133,7 @@ class ReplicaSet:
                         reason=f"rolling upgrade to {version}")
                     r.version = version
                     r.params_override = params
+                    r.ckpt_override = ckpt
                     r.canary = True
                     self._bring_up(r, self.clock())
                 if not self._drive_until(lambda: self._replica_serving(r),
@@ -926,9 +1203,13 @@ class ReplicaSet:
                 # promote: future bring-ups, scale-outs and stats speak
                 # the new generation
                 self.weights_version = version
-                self.params = params
+                if params is not None:
+                    self.params = params
+                if ckpt is not None:
+                    self.worker_ckpt = ckpt
                 for r in self.replicas:
                     r.params_override = None
+                    r.ckpt_override = None
                     if r.state == DRAINED:
                         r.version = version
                 self.upgrades += 1
@@ -949,12 +1230,15 @@ class ReplicaSet:
         sync driver the caller is the loop, and crashes surface in
         ``step_once``."""
         did = False
-        # a profiler capture slows every replica of the process (its
-        # stop writes the trace): exempt them all while one runs
-        capturing = any(r.engine is not None and r.engine.capturing()
-                        for r in self.replicas if r.state == RUNNING)
+        # a profiler capture slows every thread replica of the process
+        # (its stop writes the trace): exempt them all while one runs
+        capturing = self.isolation == "thread" and any(
+            r.engine is not None and r.engine.capturing()
+            for r in self.replicas if r.state == RUNNING)
         for r in self.replicas:
-            if r.state == RUNNING:
+            if r.state == RUNNING and self.isolation == "process":
+                did = self._check_child(r, now) or did
+            elif r.state == RUNNING:
                 if r.dead:
                     self._failover(r, now,
                                    reason=f"crash: {r.last_error}")
@@ -975,6 +1259,112 @@ class ReplicaSet:
                 did = self._bring_up(r, now) or did
         return did
 
+    def _check_child(self, r: _Replica, now: float) -> bool:
+        """One check of a RUNNING child: PID liveness with the exit
+        decoded, then the frame stream's heartbeat deadline (alive but
+        silent is wedged: hard-killed and fenced like a hang). A child
+        that dies before READY never held work: a bring-up failure."""
+        c = r.engine
+        if c is None:
+            return False
+        if not c.ready:
+            if c.crashed or c.poisoned or not c.alive_proc():
+                c.hard_kill()
+                self._bringup_fail_async(
+                    r, now, f"child died in bring-up: "
+                            f"{c.last_error or c.exit_desc()}")
+                return True
+            if now - c.started_t > self.spawn_timeout_s \
+                    and not c.awaiting_operator:
+                # a worker an operator starts has no spawn to time out
+                c.hard_kill()
+                self._bringup_fail_async(
+                    r, now, f"child bring-up exceeded "
+                            f"{self.spawn_timeout_s:g}s")
+                return True
+            return False
+        if c.crashed:
+            r.last_error = f"crash: {c.last_error}"
+            self._failover(r, now, reason=r.last_error)
+        elif c.poisoned:
+            r.last_error = c.last_error
+            self._failover(r, now, reason=r.last_error)
+        elif not c.alive_proc():
+            r.last_error = f"child exited: {c.exit_desc()}"
+            self._failover(r, now, reason=r.last_error)
+        else:
+            # compiling stretches the deadline to compile_grace_s, not
+            # forever; the reason names the deadline that expired
+            if c.compiling:
+                deadline, which = (max(self.heartbeat_s,
+                                       self.compile_grace_s),
+                                   "compile grace")
+            else:
+                deadline, which = self.heartbeat_s, "heartbeat"
+            if now - c.last_heartbeat <= deadline:
+                return False
+            self._failover(
+                r, now, reason=f"missed {which} deadline (> "
+                               f"{deadline:g}s: hang)")
+        return True
+
+    def _bringup_fail_async(self, r: _Replica, now: float,
+                            msg: str) -> None:
+        """A child that died or stalled before READY counts against the
+        circuit breaker as a failed constructor does."""
+        c = r.engine
+        r.engine, r.queue = None, None
+        r.await_ready = False
+        if c is not None:
+            r.last_exit = c.exit_desc()
+            c.fence()               # releases the dead child's transport
+            # routing waits for READY, so the shadow is empty, but a
+            # handle is never dropped on principle
+            for h in c.reclaim():
+                self.queue.requeue(h)
+        r.attempt += 1
+        self.bringup_failures += 1
+        delay = self.bringup_policy.backoff(min(r.attempt - 1, 20))
+        r.next_bringup_t = now + delay
+        r.last_error = msg
+        r.state = BROKEN
+        self._event("serve_replica_bringup_fail", replica=r.index,
+                    attempt=r.bringups - 1, consecutive=r.attempt,
+                    backoff_s=round(delay, 3), error=msg,
+                    exit=r.last_exit)
+
+    def _pump_children(self, now: float) -> bool:
+        """Drain every live child's transport: snapshots, harvested
+        results, READY. The one place a child's results enter the
+        parent (the control loop, or ``step_once``)."""
+        did = False
+        for r in self.replicas:
+            c = r.engine
+            if r.state != RUNNING or c is None:
+                continue
+            did = c.pump() or did
+            if r.await_ready and c.ready:
+                announced = c.worker_weights_version
+                if announced and announced != r.version:
+                    # a worker on the wrong generation never joins
+                    # routing (a stale dialer during an upgrade)
+                    self._bringup_fail_async(
+                        r, now, f"worker announced weights "
+                                f"{announced!r}, replica expects "
+                                f"{r.version!r}")
+                    did = True
+                    continue
+                r.await_ready = False
+                r.attempt = 0
+                r.last_error = ""
+                r.conns += 1
+                self._event("serve_replica_up", replica=r.index,
+                            bringups=r.bringups, pid=c.pid,
+                            transport=c.transport_kind, peer=c.peer,
+                            weights_version=r.version)
+                did = True
+        return did
+
     # -- routing --------------------------------------------------------------
 
     def _expire(self, h: S.RequestHandle, now: float) -> None:
@@ -993,6 +1383,11 @@ class ReplicaSet:
             total_s=round(now - req.submit_t, 6)))
 
     def _capacity(self, r: _Replica) -> int:
+        if self.isolation == "process":
+            # the shadow is the parent's truth (the child's reports lag a
+            # frame); one queued wave beyond the slots lets the child
+            # prefill its next group while it decodes this one
+            return max(0, 2 * r.engine.num_slots - len(r.engine.shadow))
         return max(0, r.engine.num_slots - r.engine.active_slots()
                    - r.queue.depth())
 
@@ -1014,12 +1409,21 @@ class ReplicaSet:
             eng = r.engine
             fits, free_pages = True, 0
             if eng.kv == "paged":
-                free_pages = eng.alloc.free
+                # a process replica's count is its child's last frame
+                # (-1: no frame yet, stay optimistic); the child's
+                # admission is the authority
+                free_pages = eng.pages_free
+                if free_pages < 0:
+                    return (True, caps[r.index], 0, -r.index)
+                if self.isolation == "process":
+                    buckets, page_size = self._buckets, self._page_size
+                else:
+                    buckets, page_size = eng.buckets, eng.page_size
                 try:
                     need = handoff if handoff is not None \
                         else KV.pages_for(
-                            S.bucket_for(len(h.request.codes),
-                                         eng.buckets), eng.page_size)
+                            S.bucket_for(len(h.request.codes), buckets),
+                            page_size)
                     fits = free_pages >= need
                 except ValueError:
                     fits = True     # over-long: admission answers typed
@@ -1035,10 +1439,15 @@ class ReplicaSet:
         live = [r for r in self.replicas
                 if r.state == RUNNING and r.engine is not None
                 and not r.canary]
+        if self.isolation == "process":
+            # READY and believable now: never route into a corpse before
+            # the next sweep fences it
+            live = [r for r in live if self._replica_serving(r)]
         caps = {r.index: self._capacity(r) for r in live}
         ready, expired = self.queue.pop_ready(sum(caps.values()), now)
         for h in expired:
             self._expire(h, now)
+        assigned: dict = {}
         for h in ready:
             pin = h.replay_version
             cands = [r for r in live if caps[r.index] > 0
@@ -1063,7 +1472,12 @@ class ReplicaSet:
             self._hol_handoff.pop(h.request.request_id, None)
             self._version_holds.discard(h.request.request_id)
             caps[r.index] -= 1
-            r.queue.requeue(h, count=False)
+            if self.isolation == "process":
+                assigned.setdefault(r.index, (r, []))[1].append(h)
+            else:
+                r.queue.requeue(h, count=False)
+        for r, batch in assigned.values():
+            r.engine.route(batch)       # one ADMIT frame a replica
         return bool(ready or expired)
 
     def _route_hold(self, h: S.RequestHandle,
@@ -1116,11 +1530,16 @@ class ReplicaSet:
                 stop.wait(self._idle_sleep_s)
 
     def _run_control(self, stop: threading.Event) -> None:
-        """Routing and supervision (threaded mode)."""
+        """Routing and supervision (threaded mode); with process replicas
+        the only loop of the parent: the children step themselves, this
+        thread pumps their transports."""
         while not stop.is_set():
             now = self.clock()
             with self._ctl_lock:
-                busy = self._check_replicas(now)
+                busy = False
+                if self.isolation == "process":
+                    busy = self._pump_children(now)
+                busy = self._check_replicas(now) or busy
                 busy = self._route(now) or busy
                 busy = self._role_handoff(now) or busy
             stop.wait(0.0005 if busy else self._idle_sleep_s)
@@ -1128,18 +1547,19 @@ class ReplicaSet:
     # -- lifecycle ------------------------------------------------------------
 
     def start(self) -> "ReplicaSet":
-        """Threaded mode: one loop thread per live replica and the
-        control thread. K4's library is loaded first, on this thread."""
-        if self.device.type == "cuda" \
+        """Threaded mode: one loop thread per live thread replica (K4's
+        library loaded first, on this thread) and the control thread."""
+        if self.isolation == "thread" and self.device.type == "cuda" \
                 and self._engine_kwargs["paged_attn"] == "kernel":
             from dalle_pytorch_tpu_torch.ops import paged_attention as PA
             PA.load_kernel()
         self._started = True
         if self._t_start is None:
             self._t_start = self.clock()
-        for r in self.replicas:
-            if r.state == RUNNING and r.thread is None:
-                self._spawn(r)
+        if self.isolation == "thread":      # children are their own loops
+            for r in self.replicas:
+                if r.state == RUNNING and r.thread is None:
+                    self._spawn(r)
         self._ctl_stop = threading.Event()
         self._ctl_thread = threading.Thread(
             target=self._run_control, args=(self._ctl_stop,),
@@ -1156,6 +1576,24 @@ class ReplicaSet:
         self._ctl_stop.set()
         if self._ctl_thread is not None:
             self._ctl_thread.join(timeout)
+        if self.isolation == "process":
+            with self._ctl_lock:
+                for r in self.replicas:
+                    c = r.engine
+                    if c is None:
+                        continue
+                    left = max(0.5, timeout - (time.perf_counter() - t0))
+                    # SHUTDOWN, join, SIGKILL a straggler; close()
+                    # salvages and fences, so nothing is fulfilled late
+                    c.close(left / max(self.n_replicas, 1))
+                    for h in c.reclaim():
+                        h.fulfill(S.Result(
+                            status=S.CANCELLED,
+                            request_id=h.request.request_id,
+                            reason="server shutdown"))
+                if self.listener is not None:
+                    self.listener.close()
+            return
         with self._ctl_lock:
             for r in self.replicas:
                 if r.stop is not None:
@@ -1190,9 +1628,18 @@ class ReplicaSet:
         if self._t_start is None:
             self._t_start = now
         with self._ctl_lock:
-            did = self._check_replicas(now)
+            did = False
+            if self.isolation == "process":
+                did = self._pump_children(now)
+            did = self._check_replicas(now) or did
             did = self._route(now) or did
             did = self._role_handoff(now) or did
+        if self.isolation == "process":
+            # the children step themselves: nap when nothing moved, so
+            # run_until_idle does not spin while they decode
+            if not did:
+                time.sleep(0.001)
+            return did
         for r in list(self.replicas):
             if r.state != RUNNING or r.engine is None:
                 continue
@@ -1214,6 +1661,11 @@ class ReplicaSet:
     def idle(self) -> bool:
         if self.queue.depth() > 0:
             return False
+        if self.isolation == "process":
+            # the shadow is the parent's truth: routed and unresolved is
+            # in flight somewhere
+            return all(not r.engine.shadow for r in self.replicas
+                       if r.engine is not None)
         for r in self.replicas:
             if r.queue is not None and r.queue.depth() > 0:
                 return False
@@ -1259,21 +1711,49 @@ class ReplicaSet:
 
     # -- observability --------------------------------------------------------
 
+    def _replica_alive(self, r: _Replica) -> bool:
+        if r.state != RUNNING or r.engine is None:
+            return False
+        if self.isolation == "process":
+            return r.engine.alive_proc()
+        return r.thread is None or r.thread.is_alive()
+
     def alive(self) -> bool:
         """True while at least one replica serves (``/healthz`` answers
         503 only when every replica is down)."""
-        return any(r.state == RUNNING and r.engine is not None
-                   and (r.thread is None or r.thread.is_alive())
-                   for r in self.replicas)
+        return any(self._replica_alive(r) for r in self.replicas)
+
+    def _child_fields(self, r: _Replica, now: float) -> dict:
+        """A process replica's fields of /healthz and /stats: pid, RSS,
+        restarts, reconnects, the decoded last exit, the transport
+        block, the IPC lag, the child's K4 launches and its bring-up
+        (seconds from the launch to each stage and to READY)."""
+        rec = {"restarts": max(r.bringups - 1, 0),
+               "reconnects": max(r.conns - 1, 0)}
+        c = r.engine
+        if c is not None:
+            rec.update({"pid": c.pid, "rss_mb": c.rss_mb,
+                        "ready": c.ready,
+                        "paged_decode_launches": c.paged_decode_launches})
+            if c.boot_s:
+                rec["bringup_s"] = c.boot_s
+            rec.update(c.transport_info(now))
+            if c.ipc_lag_s:
+                lags = sorted(c.ipc_lag_s)
+                rec["ipc_lag_p50_ms"] = round(
+                    1e3 * lags[len(lags) // 2], 4)
+        if r.last_exit:
+            rec["last_exit"] = r.last_exit
+        return rec
 
     def replica_states(self) -> List[dict]:
-        """The per-replica ``/healthz`` body."""
+        """The per-replica ``/healthz`` body; a process replica adds its
+        child's fields (``_child_fields``)."""
         now = self.clock()
         out = []
         for r in self.replicas:
-            alive = r.state == RUNNING and r.engine is not None and \
-                (r.thread is None or r.thread.is_alive())
-            rec = {"replica": r.index, "state": r.state, "alive": alive,
+            rec = {"replica": r.index, "state": r.state,
+                   "alive": self._replica_alive(r),
                    "bringups": r.bringups,
                    "weights_version": r.version, "role": r.role}
             if r.canary:
@@ -1281,17 +1761,44 @@ class ReplicaSet:
             if r.engine is not None:
                 rec["heartbeat_age_s"] = round(
                     max(now - r.engine.last_heartbeat, 0.0), 4)
+            if self.isolation == "process":
+                rec.update(self._child_fields(r, now))
             if r.last_error:
                 rec["last_error"] = r.last_error
             out.append(rec)
         return out
 
+    def paged_decode_launches(self) -> int:
+        """Every child's K4 launches, the fenced ones' included (process
+        replicas; a thread replica launches in this process, where
+        ``PA.paged_decode_attention.launches`` counts it)."""
+        return self._retired_k4 + sum(
+            r.engine.paged_decode_launches for r in self.replicas
+            if r.engine is not None and self.isolation == "process")
+
+    def _kv_bytes_per_shard(self) -> int:
+        """A live thread engine's pool bytes; a child's pool lives in
+        another interpreter: modelled from the config."""
+        if self.isolation == "thread":
+            live = [r for r in self.replicas if r.engine is not None]
+            return live[0].engine.kv_hbm_bytes() if live else 0
+        kw = self._engine_kwargs
+        return KV.modeled_kv_bytes(
+            self.cfg.transformer, kv=self.kv, num_slots=kw["num_slots"],
+            total_len=self.cfg.seq_len, page_size=kw["page_size"],
+            num_pages=kw["num_pages"], quantized=kw["quantize_cache"],
+            dtype_bytes=self.params.text_emb.weight.element_size())
+
     def stats(self) -> dict:
         """JAX's keys, less its compile counters (the port traces
-        nothing)."""
+        nothing); with process replicas, each child's fields and K4
+        launches (``paged_decode_launches``), the transport and the
+        listener's."""
+        now = self.clock()
         elapsed = None if self._t_start is None \
-            else max(self.clock() - self._t_start, 1e-9)
+            else max(now - self._t_start, 1e-9)
         live = [r for r in self.replicas if r.engine is not None]
+        proc = self.isolation == "process"
         per = []
         for r in self.replicas:
             rec = {"replica": r.index, "state": r.state,
@@ -1300,22 +1807,27 @@ class ReplicaSet:
                 e = r.engine
                 rec.update({
                     "active_slots": e.active_slots(),
-                    "queued": r.queue.depth() if r.queue else 0,
+                    # a child's shadow holds every outstanding request,
+                    # the decoding ones included
+                    "queued": (max(len(e.shadow) - e.active_slots(), 0)
+                               if proc
+                               else (r.queue.depth() if r.queue else 0)),
                     "completed": e.completed,
                     "tokens_decoded": e.tokens_decoded,
                 })
-                if e.kv == "paged":
-                    rec["pages_free"] = e.alloc.free
+                if e.kv == "paged" and e.pages_free >= 0:
+                    rec["pages_free"] = e.pages_free
+            if proc:
+                rec.update(self._child_fields(r, now))
             per.append(rec)
         tokens = self.tokens_decoded
         steps = self.decode_steps
-        return {
+        out = {
             "replicas": self.n_replicas,
             "isolation": self.isolation,
             "devices_per_replica": 1,
             "mesh_shape": None,
-            "kv_hbm_bytes_per_shard": (live[0].engine.kv_hbm_bytes()
-                                       if live else 0),
+            "kv_hbm_bytes_per_shard": self._kv_bytes_per_shard(),
             "alive_replicas": sum(1 for r in self.replicas
                                   if r.state == RUNNING
                                   and r.engine is not None),
@@ -1345,7 +1857,7 @@ class ReplicaSet:
             "prefix_hits": self._agg("prefix_hits"),
             "prefix_entries": sum(
                 len(r.engine.prefix) for r in live
-                if r.engine.prefix is not None),
+                if getattr(r.engine, "prefix", None) is not None),
             "weights_version": self.weights_version,
             "max_replicas": self.max_replicas,
             "scale_outs": self.scale_outs,
@@ -1359,3 +1871,13 @@ class ReplicaSet:
             "flight_events": len(self.flight),
             "per_replica": per,
         }
+        if proc:
+            out["transport"] = self.transport
+            out["paged_decode_launches"] = self.paged_decode_launches()
+            if self.listener is not None:
+                # where a remote worker dials, how many the HELLO gate
+                # refused, and which indices may attach now
+                out["worker_endpoint"] = self.listener.endpoint
+                out["attach_rejected"] = self.listener.rejected
+                out["attach_expected"] = self.listener.expected_indices()
+        return out

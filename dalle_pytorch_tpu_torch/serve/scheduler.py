@@ -12,10 +12,10 @@ arrival) order, deadline reaping, ``requeue`` at the original position,
 typed ``serve_reject`` records, ``close``/``drain`` for shutdown) and the
 prompt-length buckets. For the replica set: ``RequestHandle
 .replay_version`` (the weights generation a request is pinned to) and
-the wire form of ``Request`` and ``RequestHandle`` (``to_wire`` /
-``from_wire``), which a live migration's payload carries. ``Result``'s
-wire form and ``WeightedFairQueue`` come with process isolation and the
-gateway (ROADMAP.md queue 1 items 2b and 2c).
+the wire forms of ``Request``, ``RequestHandle`` and ``Result``
+(``to_wire`` / ``from_wire``), which a live migration's payload and a
+process worker's frames (``serve/ipc.py``) carry. ``WeightedFairQueue``
+comes with the gateway (ROADMAP.md queue 1 item 2c).
 
 Overload is structured: a reject raises a ``ServeRejected`` whose
 ``record`` is a ``structured_event("serve_reject", ...)`` (the HTTP
@@ -32,6 +32,8 @@ import threading
 import time
 from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from dalle_pytorch_tpu_torch.obs import trace as otrace
 from dalle_pytorch_tpu_torch.utils.metrics import structured_event
@@ -226,6 +228,46 @@ class Result:
     @property
     def ok(self) -> bool:
         return self.status == OK
+
+    def to_wire(self) -> dict:
+        """JAX's flat-dict form: token arrays as int lists; ``image``,
+        ``clip_score``, ``trace`` and ``samples`` never cross the process
+        boundary (postprocess and group assembly stay in the parent)."""
+        return {
+            "id": int(self.request_id),
+            "status": str(self.status),
+            "tokens": (None if self.tokens is None
+                       else [int(t) for t in self.tokens]),
+            "text_tokens": (None if self.text_tokens is None
+                            else [int(t) for t in self.text_tokens]),
+            "reason": str(self.reason),
+            "weights_version": str(self.weights_version),
+            "queued_s": float(self.queued_s),
+            "decode_s": float(self.decode_s),
+            "total_s": float(self.total_s),
+        }
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "Result":
+        """Inverse of ``to_wire``: int32 token arrays; an unknown status
+        raises ``ValueError``."""
+        status = str(d["status"])
+        if status not in (OK, REJECTED, DEADLINE_EXCEEDED, CANCELLED,
+                          ERROR):
+            raise ValueError(f"unknown Result.status {status!r}")
+        toks, text = d["tokens"], d["text_tokens"]
+        return cls(
+            status=status, request_id=int(d["id"]),
+            tokens=None if toks is None else np.asarray(
+                [int(t) for t in toks], np.int32),
+            text_tokens=None if text is None else np.asarray(
+                [int(t) for t in text], np.int32),
+            reason=str(d["reason"]),
+            # .get: a peer that stamps no version decodes as unversioned
+            weights_version=str(d.get("weights_version", "")),
+            queued_s=float(d["queued_s"]),
+            decode_s=float(d["decode_s"]),
+            total_s=float(d["total_s"]))
 
 
 class RequestHandle:

@@ -2,12 +2,14 @@
 HTTP server.
 
 Port of ``dalle_pytorch_tpu/serve/server.py`` (``InferenceServer``
-``:34-896``, ``make_http_server`` and ``serve_http`` ``:898-1152``) with
-thread replicas. ``InferenceServer`` wires ``scheduler.RequestQueue``
-(admission) -> ``engine.Engine`` (slot-batched decode, its own thread)
-or, with ``replicas > 1`` (or an autoscaler, or ``max_replicas`` room to
-grow), ``replica.ReplicaSet`` (supervised engines, a thread each, one
-card) -> ``postprocess.PostProcessor`` (VAE and CLIP, its own thread)
+``:34-896``, ``make_http_server`` and ``serve_http`` ``:898-1152``).
+``InferenceServer`` wires ``scheduler.RequestQueue`` (admission) ->
+``engine.Engine`` (slot-batched decode, its own thread) or, with
+``replicas > 1`` (or an autoscaler, or ``max_replicas`` room to grow),
+``replica.ReplicaSet`` (supervised engines: a thread each, or with
+``isolation='process'`` a child process each, over a pipe or a
+dial-back socket) -> ``postprocess.PostProcessor`` (VAE and CLIP, its
+own thread)
 and owns their lifecycle; ``start()`` claims the device under the
 deadline, backoff and jitter of ``resilience.retry``, so a claim that
 hangs or fails surfaces as a ``BringupError``.
@@ -32,10 +34,13 @@ Two call surfaces:
   the admin token. Status codes and bodies are the JAX server's.
 
 A single engine answers ``scale()`` with the typed
-``not_a_replica_set`` refusal. Process isolation and its transports
-(ROADMAP.md queue 1 item 2b), a device mesh (item 3) and the gateway
-(item 2c) are not taken here: their keywords raise ``TypeError`` naming
-the item.
+``not_a_replica_set`` refusal. Process replicas refuse streams and
+in-server profiles typed (a child's engine runs in another interpreter,
+out of this process's sinks and profiler), and ``/healthz`` and
+``/stats`` carry each child's pid, RSS, restarts, last exit, transport
+block and K4 launches. A device mesh (ROADMAP.md queue 1 item 3) and
+the gateway (item 2c) are not taken here: their keywords raise
+``TypeError`` naming the item.
 """
 
 from __future__ import annotations
@@ -62,11 +67,7 @@ from dalle_pytorch_tpu_torch.serve.replica import ScaleError, UpgradeAborted
 
 # the JAX server's keywords of the slices still to come, and the
 # ROADMAP.md item each waits for
-UNPORTED = {**{k: replica_mod.PROCESS_ITEM for k in (
-    "isolation", "child_rss_limit_mb", "transport", "worker_endpoint",
-    "worker_cmd", "attach_token", "worker_ckpt", "worker_use_ema",
-    "worker_quantize")},
-    "mesh_devices": replica_mod.MESH_ITEM}
+UNPORTED = {"mesh_devices": replica_mod.MESH_ITEM}
 
 
 class InferenceServer:
@@ -79,8 +80,11 @@ class InferenceServer:
     ``max_replicas``, ``autoscale`` (a ``serve.autoscale
     .AutoscalePolicy``), ``heartbeat_s`` and ``load_weights`` (a
     checkpoint path -> ``DALLE`` on the device, for ``POST /admin/scale``
-    upgrades) shape the replica set; the other keywords are the JAX
-    server's."""
+    upgrades) shape the replica set, and ``isolation``,
+    ``child_rss_limit_mb``, ``transport``, ``worker_endpoint``,
+    ``worker_cmd``, ``attach_token``, ``worker_ckpt``,
+    ``worker_use_ema`` and ``worker_quantize`` its process replicas; the
+    other keywords are the JAX server's."""
 
     def __init__(self, model, vae, *, clip=None,
                  num_slots: int = 4, queue_depth: int = 64,
@@ -106,6 +110,15 @@ class InferenceServer:
                  admin_token: Optional[str] = None,
                  load_weights: Optional[Callable] = None,
                  heartbeat_s: float = 5.0,
+                 isolation: str = "thread",
+                 child_rss_limit_mb: int = 0,
+                 transport: str = "pipe",
+                 worker_endpoint: str = "127.0.0.1:0",
+                 worker_cmd: Optional[str] = None,
+                 attach_token: Optional[str] = None,
+                 worker_ckpt: Optional[str] = None,
+                 worker_use_ema: bool = False,
+                 worker_quantize: str = "none",
                  decode_images: bool = True,
                  metrics=None, log_every: int = 50,
                  profile_dir: Optional[str] = None,
@@ -153,6 +166,22 @@ class InferenceServer:
             # would ask for replicas the set refuses
             self.max_replicas = max(self.max_replicas,
                                     autoscale.max_replicas)
+        # JAX's checks: each would otherwise drop a flag on the floor
+        if worker_ckpt is not None and transport != "socket":
+            raise ValueError(
+                "worker_ckpt requires transport='socket' — its point "
+                "is that a worker loads the checkpoint from its OWN "
+                "host's store instead of receiving params over a pipe")
+        if isolation == "process" and self.replicas < 2:
+            raise ValueError("isolation='process' requires replicas >= 2")
+        if transport != "pipe" and isolation != "process":
+            raise ValueError(
+                f"transport={transport!r} requires isolation='process'")
+        if worker_cmd is not None and self.replicas < 2:
+            raise ValueError("worker_cmd requires replicas >= 2 with "
+                             "isolation='process' and "
+                             "transport='socket'")
+        self.isolation = str(isolation)
 
         self.queue = S.RequestQueue(
             max_depth=queue_depth,
@@ -171,7 +200,12 @@ class InferenceServer:
         if self._is_set:
             self.engine = replica_mod.ReplicaSet(
                 model, self.queue, replicas=self.replicas,
-                heartbeat_s=heartbeat_s,
+                heartbeat_s=heartbeat_s, isolation=isolation,
+                child_rss_limit_mb=child_rss_limit_mb,
+                transport=transport, worker_endpoint=worker_endpoint,
+                worker_cmd=worker_cmd, attach_token=attach_token,
+                worker_ckpt=worker_ckpt, worker_use_ema=worker_use_ema,
+                worker_quantize=worker_quantize,
                 weights_version=self.weights_version,
                 max_replicas=self.max_replicas, roles=self.replica_roles,
                 **engine_kw)
@@ -371,6 +405,16 @@ class InferenceServer:
         ``image_seq_len_override`` caps the image span."""
         if cfg_scale is None:
             cfg_scale = self.default_cfg_scale
+        if stream and self.isolation == "process":
+            # a child's stand-in handle has no sink: a "stream" would be
+            # a lie, so a typed refusal rather than a silent one-shot
+            record = S.structured_event(
+                "serve_reject", reason="stream_process_isolation",
+                detail="token streaming requires isolation='thread' — "
+                       "a child-process engine's harvest loop cannot "
+                       "reach this process's sinks")
+            self._queue_event(record)
+            raise S.InvalidRequest(record)
         request = S.Request(
             codes=tuple(int(c) for c in codes), seed=seed,
             sampling=S.SamplingParams(temperature=temperature,
@@ -444,7 +488,8 @@ class InferenceServer:
     def scale(self, op: str, **kwargs) -> dict:
         """One operator reshape (``POST /admin/scale``): ``add``,
         ``remove``, ``drain``, ``undrain``, ``upgrade`` (a checkpoint
-        path through ``load_weights``) or ``status``, on the replica set.
+        path through ``load_weights``, or the path itself to
+        ``worker_ckpt`` workers) or ``status``, on the replica set.
         Raises its typed errors (``ScaleError``, ``UpgradeAborted``); a
         single engine is no replica set."""
         if not self._is_set:
@@ -475,24 +520,29 @@ class InferenceServer:
                 raise ScaleError(S.structured_event(
                     "serve_scale_reject", op=op,
                     reason="upgrade_needs_ckpt"))
-            if self.load_weights is None:
-                raise ScaleError(S.structured_event(
-                    "serve_scale_reject", op=op,
-                    reason="no_weight_loader",
-                    detail="server built without load_weights; pass "
-                           "params via the Python API"))
-            try:
-                params = self.load_weights(str(ckpt))
-            except Exception as e:  # noqa: BLE001 — a bad path is the
-                # likeliest operator mistake: a typed refusal, the fleet
-                # untouched
-                raise ScaleError(S.structured_event(
-                    "serve_scale_reject", op=op,
-                    reason="weight_load_failed", ckpt=str(ckpt),
-                    error=repr(e))) from e
-            record = rs.rolling_upgrade(
-                version=str(version), params=params,
-                canaries=int(kwargs.get("canaries", 2)))
+            up = dict(version=str(version),
+                      canaries=int(kwargs.get("canaries", 2)))
+            if rs.worker_ckpt is not None:
+                # checkpoint-path workers: the path is the upgrade, each
+                # worker loads and validates it itself
+                up["ckpt"] = str(ckpt)
+            else:
+                if self.load_weights is None:
+                    raise ScaleError(S.structured_event(
+                        "serve_scale_reject", op=op,
+                        reason="no_weight_loader",
+                        detail="server built without load_weights; "
+                               "pass params via the Python API"))
+                try:
+                    up["params"] = self.load_weights(str(ckpt))
+                except Exception as e:  # noqa: BLE001 — a bad path is
+                    # the likeliest operator mistake: a typed refusal,
+                    # the fleet untouched
+                    raise ScaleError(S.structured_event(
+                        "serve_scale_reject", op=op,
+                        reason="weight_load_failed", ckpt=str(ckpt),
+                        error=repr(e))) from e
+            record = rs.rolling_upgrade(**up)
             self.weights_version = rs.weights_version
             return {"op": op, **record}
         if op == "status":
@@ -646,7 +696,8 @@ class InferenceServer:
                        "Serving identity (labels carry the facts)",
                        [({"weights_version": version,
                           "kv": str(stats.get("kv", "")),
-                          "isolation": "thread"}, 1)]))
+                          "isolation": str(stats.get("isolation",
+                                                     "thread"))}, 1)]))
         per = stats.get("per_replica") or ()
         if per:
             def rep_samples(key):
@@ -702,6 +753,12 @@ class InferenceServer:
                 detail="pass 'dir' in the request body or start the "
                        "server with --profile_dir"))
         eng = self.engine
+        if self._is_set and self.isolation == "process":
+            raise ProfileError(S.structured_event(
+                "serve_profile_reject", reason="process_isolation",
+                detail="a child-process engine runs in another "
+                       "interpreter; profile it from the worker "
+                       "(isolation=thread supports in-server capture)"))
         if self._is_set:
             replica = int(replica)
             if not 0 <= replica < len(self.engine.replicas) \

@@ -1,9 +1,10 @@
 """The port's serving CLI (``cli/serve.py``) on the CPU, beside the JAX
-package's: ``build_parser()`` has JAX's flags, choices and defaults; each
-flag of a slice still to come (process isolation and its transport, the
-gateway, a mesh) ends in ``SystemExit`` naming its ROADMAP queue item,
-while the replica-set flags (``--replicas``, ``--replica_roles``,
-``--max_replicas``, ``--min_replicas``, ``--autoscale``) serve, a set
+package's: ``build_parser()`` has JAX's flags, choices and defaults; the
+process-isolation flags reach a process replica set, each flag of a
+slice still to come (the gateway, a mesh) ends in ``SystemExit`` naming
+its ROADMAP queue item, while the replica-set flags (``--replicas``,
+``--replica_roles``, ``--max_replicas``, ``--min_replicas``,
+``--autoscale``) serve, a set
 answering JAX's tokens and ``POST /admin/scale``'s upgrade loading a
 checkpoint path; and ``main(argv)`` on a tiny checkpoint directory
 written by the port's
@@ -58,25 +59,60 @@ def test_parser_matches_jax():
         vars(JCLI.build_parser().parse_args([]))
 
 
-# the flags still refused, and the ROADMAP.md queue 1 item each names
+# the fleet flags and the ROADMAP.md queue 1 item each belongs to: item
+# 2b (process isolation) is in the port, the others still refused
 FLEET_ARGV = [(["--mesh_devices", "2"], "item 3"),
               (["--isolation", "process"], "item 2b"),
               (["--transport", "socket"], "item 2b"),
               (["--worker_ckpt", "x"], "item 2b"),
-              (["--worker_endpoint", "0.0.0.0:9"], "item 2b"),
+              (["--worker_endpoint", "127.0.0.2:0"], "item 2b"),
               (["--worker_cmd", ""], "item 2b"),
               (["--attach_token", "t"], "item 2b"),
               (["--child_rss_limit_mb", "10"], "item 2b"),
               (["--gateway"], "item 2c"), (["--cells", "3"], "item 2c"),
               (["--tenants", "t.json"], "item 2c")]
+SOCKET = ["--replicas", "2", "--isolation", "process", "--transport",
+          "socket"]
+# each item-2b flag: what it needs beside it, and how it shows on the set
+PROCESS_FLAGS = {
+    "--isolation": (["--replicas", "2"],
+                    lambda rs: all(r.engine.pid > 0 for r in rs.replicas)),
+    "--transport": (["--replicas", "2", "--isolation", "process"],
+                    lambda rs: rs.listener is not None),
+    "--worker_ckpt": (SOCKET, lambda rs: rs.worker_ckpt == "x"),
+    "--worker_endpoint": (SOCKET,
+                          lambda rs: rs.listener.host == "127.0.0.2"),
+    "--worker_cmd": (SOCKET, lambda rs: all(r.engine.awaiting_operator
+                                            for r in rs.replicas)),
+    "--attach_token": (SOCKET, lambda rs: rs.listener.token == "t"),
+    "--child_rss_limit_mb": (["--replicas", "2", "--isolation", "process"],
+                             lambda rs: rs.child_rss_limit_mb == 10),
+}
 
 
 @pytest.mark.parametrize("argv,item", FLEET_ARGV, ids=lambda a: a[0]
                          if isinstance(a, list) else "")
-def test_fleet_flags_exit_naming_queue_items_5_and_6(argv, item):
-    """(Named for the queue numbering of its first version.) Each flag
-    of a slice still to come ends in ``SystemExit`` naming its current
-    ROADMAP.md queue 1 item."""
+def test_fleet_flags_exit_naming_queue_items_5_and_6(argv, item, models_dir,
+                                                     monkeypatch):
+    """(Named for the queue numbering of its first version.) A flag of
+    ROADMAP.md queue 1 item 2b reaches a process ``ReplicaSet`` (served
+    from the toy checkpoint on the CPU, closed at once); each flag of a
+    slice still to come ends in ``SystemExit`` naming its item."""
+    if item == "item 2b":
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
+        extra, shows = PROCESS_FLAGS[argv[0]]
+        got = []
+        monkeypatch.setattr(SRV, "serve_http",
+                            lambda server, host, port: got.append(server))
+        CLI.main(["--name", "toy", "--models_dir", str(models_dir),
+                  "--init_deadline_s", "0"] + extra + argv, device="cpu")
+        (server,) = got
+        try:
+            assert server.engine.isolation == "process"
+            assert shows(server.engine)
+        finally:
+            server.close(timeout=5.0)
+        return
     with pytest.raises(SystemExit) as ei:
         CLI.main(argv, device="cpu")
     msg = str(ei.value)

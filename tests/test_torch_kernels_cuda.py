@@ -1454,3 +1454,49 @@ def test_tiny_replica_set_on_card_gives_the_cpu_tokens(cuda):
             assert PA.paged_decode_attention.launches > launches
         got[str(dev)] = [list(r.tokens) for r in results]
     assert got["cuda"] == got["cpu"]
+
+
+@pytest.mark.cuda
+def test_two_child_processes_decode_through_k4_at_once(cuda):
+    """A process set of 2 tiny replicas (paged, the kernel read) in
+    float32: two children, each with its own CUDA context, decode the
+    same requests at once through K4; every result equals an in-process
+    engine's on the card, and each child reports K4 launches of its own
+    (``stats()``'s ``paged_decode_launches``, carried by its frames)."""
+    import time
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    from dalle_pytorch_tpu_torch.serve.replica import ReplicaSet
+    vcfg = TV.VAEConfig(image_size=32, num_tokens=32, codebook_dim=32,
+                        num_layers=2, hidden_dim=8)
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
+                         text_seq_len=8, heads=2, dim_head=16)
+    model = TD.dalle_init(cfg, seed=2, device=cuda)
+    kw = dict(num_slots=4, chunk_steps=2, kv="paged", page_size=8,
+              paged_attn="kernel")
+    reqs = [dict(codes=(3, 7, i + 1), seed=i) for i in range(4)] * 2
+    q = S.RequestQueue(max_depth=16)
+    eng = Engine(model, q, device=cuda, **kw)
+    hs = [q.submit(S.Request(**r)) for r in reqs[:4]]
+    eng.run_until_idle()
+    want = [list(map(int, h.result(0).tokens)) for h in hs] * 2
+    q = S.RequestQueue(max_depth=16)
+    rs = ReplicaSet(model, q, replicas=2, isolation="process", device=cuda,
+                    **kw)
+    try:
+        deadline = time.perf_counter() + 300
+        while not all(r.engine.ready for r in rs.replicas):
+            assert time.perf_counter() < deadline, "children not READY"
+            rs.step_once()
+        handles = [q.submit(S.Request(**r)) for r in reqs]
+        deadline = time.perf_counter() + 300
+        while not (all(h.done() for h in handles) and rs.idle()):
+            assert time.perf_counter() < deadline, "the set did not finish"
+            rs.step_once()
+        got = [list(map(int, h.result(0).tokens)) for h in handles]
+        per = rs.stats()["per_replica"]
+    finally:
+        rs.close()
+    assert got == want
+    assert all(p["completed"] > 0 and p["paged_decode_launches"] > 0
+               for p in per), per

@@ -12,12 +12,13 @@ driver with the same fault plan the set's counters and its
 ``serve_replica_crash``, ``serve_scale_reject`` and
 ``autoscale_decision`` records equal the JAX ``ReplicaSet``'s (``time``
 and the embedded flight-ring tails left out). The hang tests run the
-threaded loops with a short ``replica_hang_s``. Also: the options of the
-slices still to come are refused naming their ROADMAP.md item, the
-replicas up at construction get the preview hook, the split-counter
-buffer of K4 survives threads racing to grow it, and the chip smoke's
-sync schedule gives, on the CPU, the counters and events it holds the
-card to (``chip_smoke.py::REPLICA_EXPECT``).
+threaded loops with a short ``replica_hang_s``. Also: the process
+options reach a process set (``test_torch_process_*.py`` hold it to
+JAX), a mesh is refused naming its ROADMAP.md item, the replicas up at
+construction get the preview hook, the split-counter buffer of K4
+survives threads racing to grow it, and the chip smoke's sync schedule
+gives, on the CPU, the counters and events it holds the card to
+(``chip_smoke.py::REPLICA_EXPECT``).
 """
 
 import sys
@@ -826,17 +827,49 @@ class TestAdminScaleEndpoint:
 # -- what the port adds or refuses --------------------------------------------
 
 
+# what each process option needs beside it, and how it shows on the set
+PROCESS_OPTIONS = {
+    "isolation": ({}, lambda rs: all(r.engine.pid > 0
+                                     for r in rs.replicas)),
+    "transport": ({"isolation": "process"},
+                  lambda rs: rs.stats()["transport"] == "socket"
+                  and rs.listener is not None),
+    "worker_cmd": ({"isolation": "process", "transport": "socket"},
+                   lambda rs: all(r.engine.awaiting_operator
+                                  for r in rs.replicas)),
+    "attach_token": ({"isolation": "process", "transport": "socket"},
+                     lambda rs: rs.listener.token == "t"),
+    "child_rss_limit_mb": ({"isolation": "process"},
+                           lambda rs: rs.child_rss_limit_mb == 64),
+}
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"isolation": "process"}, "item 2b"),
     ({"transport": "socket"}, "item 2b"),
-    ({"worker_cmd": "ssh x"}, "item 2b"),
+    ({"worker_cmd": ""}, "item 2b"),
     ({"attach_token": "t"}, "item 2b"),
     ({"child_rss_limit_mb": 64}, "item 2b"),
     ({"devices_per_replica": 2}, "item 3")],
     ids=lambda x: next(iter(x)) if isinstance(x, dict) else "")
-def test_unported_options_are_refused_naming_their_item(bundle, kw, item):
-    with pytest.raises(TypeError, match=f"ROADMAP.md queue 1 {item}"):
-        port_set(bundle, replicas=2, **kw)
+def test_unported_options_are_refused_naming_their_item(bundle, kw, item,
+                                                         monkeypatch):
+    """(Named for its first version, when process isolation was still to
+    come.) The options of ROADMAP.md queue 1 item 2b now reach a process
+    set, built on the CPU and closed at once; a mesh (item 3) is still
+    refused naming its item, and an unknown keyword is a TypeError."""
+    if item == "item 2b":
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
+        extra, shows = PROCESS_OPTIONS[next(iter(kw))]
+        rs, _ = port_set(bundle, replicas=2, num_slots=2, **extra, **kw)
+        try:
+            assert rs.isolation == "process"
+            assert shows(rs)
+        finally:
+            rs.close(timeout=5.0)
+    else:
+        with pytest.raises(TypeError, match=f"ROADMAP.md queue 1 {item}"):
+            port_set(bundle, replicas=2, **kw)
     with pytest.raises(TypeError, match="unexpected keyword"):
         port_set(bundle, replicas=2, num_slot=2)
 
