@@ -3,7 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only images,replicas   # build, then these
                                                    # (images, generate,
-                                                   # replicas, processes)
+                                                   # replicas, processes,
+                                                   # gateway)
 
 Drives the port (``dalle_pytorch_tpu_torch``) and nothing of JAX, at the
 full width of the repo's north DALLE configuration (``bench.py``
@@ -253,7 +254,9 @@ The single engine's serving features and reference weights:
    cfg_pairs == 2, no page leaks, the index's clear() returning every
    page, K4's launch counts, the worker's scores against ``clip_apply``,
    an injected failure as ``status='error'``; then A, B and C in float32
-   at depth 4 must give identical tokens (in bfloat16 the share
+   (depth 2, a 1-layer draft) must give identical tokens on six of the
+   requests capped at 256 image tokens, eviction firing on a pool of
+   ``IDENTITY_PAGES`` (in bfloat16 the share
    of identical tokens and the first divergences are printed). ms a step
    or round, image tokens/s, acceptance, the prefill ms warm admission
    saves, the pool's peak, the pages a guided pair holds over an
@@ -288,8 +291,9 @@ Image files and the fleet:
    decode, its decode ms an image; where the machine has no libjpeg,
    the typed ``UnsupportedImage`` naming it instead (the record says
    which happened);
-26. replicas — A: a ``ReplicaSet`` of 2 thread replicas under the sync
-   driver, float32 at depth 4 and the north width (4 slots each, K = 8,
+26. replicas — A: a ``ReplicaSet`` of 2 thread replicas stepped from one
+   thread (``step_once``), float32 at depth 2 and the north width (4
+   slots each, K = 8,
    page 16, the kernel read), 256-token prompts capped at 128 image
    tokens: a wave of 8 through a crash of replica 1 at its 2nd chunk,
    a wave of 4 through a drain of replica 0 with live migration (then
@@ -308,7 +312,7 @@ Image files and the fleet:
 27. processes — replicas as child processes (``isolation='process'``),
    each with its own CUDA context; K4's library built here before the
    first child spawns, the children only load it. A: ``replicas`` A's
-   shapes and driver over 2 children, f32 at depth 4, on the socket
+   shapes and stepping over 2 children, f32 at depth 2, on the socket
    transport (dial-back to 127.0.0.1 with a token): a wave of 8 through
    a real SIGKILL of child 1 at its 2nd chunk, then 4 through a garbage
    frame and 4 through the RSS watchdog (exit 137; limit the READY RSS +
@@ -326,7 +330,30 @@ Image files and the fleet:
    six with child 1 drained; image tokens a second, each child's ms a
    step (its own clock over its steps, from its frames) and K4
    launches, the ratio of 2 over 1 and of the pair over ``replicas``
-   B's thread pair of the same call.
+   B's thread pair of the same call;
+28. gateway — ``serve/gateway.py``'s ``Gateway`` over cells of 4 slots
+   (paged, page 16, the kernel read, the prefix cache) at
+   ``SERVE_DEPTH``. A, float32, thread cells: 2 prompts x 5 waves in
+   rotated order through a fresh 2-cell fleet with prefix affinity and
+   one without (affinity's fleet prefix-hit rate strictly higher); on
+   the affinity fleet 8 requests (256-token prompts capped at 128 image
+   tokens), 2 as a ``gold`` tenant with ``hedge_s`` 0 (hedges >= 1) and
+   8 through ``gateway_cell_down_at_request`` (the busiest cell killed
+   with two requests mid-stream: one cell down, replays, no loss, the
+   seconds from the death to the last replayed result), every token a
+   lone 4-slot engine's. B, bfloat16, the HTTP surface over 2 process
+   cells (each server spawns 2 children, one removed: the server takes
+   process isolation only from 2 replicas), CLIP in each cell's parent:
+   a ``victim`` tenant (weight 2) and an ``abuser`` (weight 1, rps 2) on
+   one cell; an untimed warm-up, 6 victim requests alone and 6 under the
+   ``tenant_flood`` row (24 abuser submits over HTTP: typed 429s with
+   ``Retry-After``, every admitted request ok, the victim's p95 within
+   1.5 x alone + 0.25 s); ``/metrics``' fleet samples the cells' stats;
+   ``/admin/tenants`` 401 without the token, 200 with; image tokens a
+   second of 8 clients over both cells and over one (the other closed),
+   each child's ms a step from its frames, the gateway's added latency
+   (submit -> dispatch) p50 and p99 over the victim's requests; K4 in
+   every cell, K3 12 an image.
 
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
@@ -3420,8 +3447,15 @@ FEATURE_ENGINE = dict(num_slots=8, chunk_steps=8, kv="paged", page_size=16,
 # the smoke's time with the ``http`` phase, which serves at 12):
 # B's draft is one layer of the two
 SPEC_K, SPEC_DRAFT = 4, 1
-# the float32 runs that must give identical tokens: depth 4, a 2-layer draft
-IDENTITY_DEPTH, IDENTITY_DRAFT = 4, 2
+# the float32 runs that must give identical tokens, cut to fit the
+# smoke's time: SERVE_DEPTH with a 1-layer draft, six of the eight
+# requests (one guided pair and both shared prompts: seven slots of
+# eight) capped at 256 image tokens, on a pool of four such sequences
+# (32 pages each) and the trash page, so eviction still fires
+IDENTITY_DEPTH, IDENTITY_DRAFT = SERVE_DEPTH, SPEC_DRAFT
+IDENTITY_REQUESTS = (0, 2, 3, 4, 5, 6)
+IDENTITY_GRID = 256
+IDENTITY_PAGES = 1 + 4 * 32
 
 
 def feature_requests(cfg) -> list:
@@ -3464,7 +3498,7 @@ def pair_page_ratio(engine, samples: list):
                   for p in engine._slot_pages[j])
         samples.append((slot.pair is not None, len(slot.handle.request.codes),
                         own))
-        orig(i, slot, now)
+        return orig(i, slot, now)
 
     engine._complete = complete
 
@@ -3673,8 +3707,10 @@ def phase_serve_features() -> dict:
     A's wall includes the worker's VAE decode and CLIP scoring on the same
     card; its profiled window (after 40 chunks, 320 decode steps) comes
     before any request completes, so that window is the engine's alone.
-    Then A, B (2-layer draft) and C again in float32 at depth 4, whose
-    tokens must be identical; the float32 A alone times its admissions
+    Then A, B (1-layer draft) and C again in float32 on
+    ``IDENTITY_REQUESTS`` capped at ``IDENTITY_GRID`` image tokens (a
+    pool of ``IDENTITY_PAGES``), whose tokens must be identical; the
+    phase's seconds run by run are in ``seconds``; the float32 A alone times its admissions
     (cold prefill against warm admission), so no bfloat16 wall carries
     their synchronisations; at bfloat16 the share of identical
     tokens and the first diverging positions of B and C against A are
@@ -3688,6 +3724,15 @@ def phase_serve_features() -> dict:
     from dalle_pytorch_tpu_torch.serve.postprocess import PostProcessor
     cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
     reqs = feature_requests(cfg)
+    seconds = {}
+    t_run = time.perf_counter()
+
+    def lap(name):
+        # where the phase's seconds go, run by run
+        nonlocal t_run
+        now = time.perf_counter()
+        seconds[name] = now - t_run
+        t_run = now
     vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
     model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
     clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
@@ -3732,6 +3777,7 @@ def phase_serve_features() -> dict:
     record["A"] = run_summary(cfg, a)
     record["A"].update(k3_launches=k3, clip_score_max_abs_err=score_err,
                        clip_scores=[r.clip_score for r in a["results"]])
+    lap("A")
 
     # B: speculation through K4, one walk per draft and verify offset
     b = feature_run(model, reqs, window=20, probe=spec_k4_case,
@@ -3747,6 +3793,7 @@ def phase_serve_features() -> dict:
     record["B"].update(k4_launches_per_round=per_round,
                        k4_at_verify_offset=b["probe"])
     record["B_vs_A"] = token_agreement(b["results"], a["results"])
+    lap("B")
 
     # C: the dense slot cache through the gather read
     c = feature_run(model, reqs, window=40, num_slots=8, chunk_steps=8,
@@ -3755,16 +3802,23 @@ def phase_serve_features() -> dict:
     check(c["k4_launches"] == 0, "C: the dense engine launched K4")
     record["C"] = run_summary(cfg, c)
     record["C_vs_A"] = token_agreement(c["results"], a["results"])
+    lap("C")
 
-    # float32 at depth 4: tokens identical across A, B and C
+    # float32: tokens identical across A, B and C
     del model, a, b, c
     fcfg = dataclasses.replace(cfg, depth=IDENTITY_DEPTH)
     fvae = V.vae_init(fcfg.vae, seed=3)
     fmodel = D.dalle_init(fcfg, seed=4, vae=fvae)
-    fa = feature_run(fmodel, reqs, time_admissions=True, **FEATURE_ENGINE)
-    fb = feature_run(fmodel, reqs, speculative=SPEC_K,
-                     draft_layers=IDENTITY_DRAFT, **FEATURE_ENGINE)
-    fc = feature_run(fmodel, reqs, num_slots=8, chunk_steps=8, kv="dense")
+    freqs = [dataclasses.replace(reqs[i], image_seq_len_override=IDENTITY_GRID)
+             for i in IDENTITY_REQUESTS]
+    fengine = {**FEATURE_ENGINE, "num_pages": IDENTITY_PAGES}
+    fa = feature_run(fmodel, freqs, time_admissions=True, **fengine)
+    lap("float32_A")
+    fb = feature_run(fmodel, freqs, speculative=SPEC_K,
+                     draft_layers=IDENTITY_DRAFT, **fengine)
+    lap("float32_B")
+    fc = feature_run(fmodel, freqs, num_slots=8, chunk_steps=8, kv="dense")
+    lap("float32_C")
     ident = {}
     for name, run in (("B", fb), ("C", fc)):
         agree = token_agreement(run["results"], fa["results"])
@@ -3772,8 +3826,11 @@ def phase_serve_features() -> dict:
         check(agree["identical_share"] == 1.0,
               f"float32 depth {IDENTITY_DEPTH}: {name}'s tokens differ from "
               f"A's: {agree}")
+    record["seconds"] = seconds
     record["float32_identity"] = {
         "depth": IDENTITY_DEPTH, "draft_layers": IDENTITY_DRAFT,
+        "requests": len(freqs), "grid": IDENTITY_GRID,
+        "num_pages": IDENTITY_PAGES,
         "evicted": fa["stats"]["evicted"],
         "prefill_p50_ms": fa["stats"]["prefill_p50_ms"],
         "warm_admit_p50_ms": fa["stats"]["warm_admit_p50_ms"],
@@ -4299,7 +4356,8 @@ REPLICA_SET = dict(num_slots=4, chunk_steps=8, kv="paged", page_size=16,
 REPLICA_HTTP_GRID = 256     # image tokens of B's requests (a short grid)
 REPLICA_GRID = 128          # image tokens a request (a short grid)
 PROCESS_WARM_GRID = 16      # image tokens of B's untimed warm-up wave
-REPLICA_DEPTH = 4
+# A's float32 schedules, cut from 4 to SERVE_DEPTH for the smoke's time
+REPLICA_DEPTH = SERVE_DEPTH
 # what the sync schedule gives (``replica_schedule``; the CPU test runs
 # the same schedule at a tiny width and holds it to these)
 REPLICA_EXPECT = {"failovers": 1, "reclaimed": 4, "migrations": 4,
@@ -4602,7 +4660,8 @@ def replica_serving(model, vae, device) -> dict:
 
 
 def phase_replicas() -> dict:
-    """A: the sync schedule (``replica_schedule``) in float32 at depth 4;
+    """A: the sync schedule (``replica_schedule``) in float32 at
+    REPLICA_DEPTH;
     B: the HTTP server over a replica set in bfloat16 at SERVE_DEPTH
     (``replica_serving``)."""
     import dataclasses
@@ -4850,24 +4909,26 @@ def check_process_schedule(run: dict, want: dict) -> None:
           f"processes: K4 never ran in A's children: {st}")
 
 
-def child_step_ms(live, wave) -> tuple:
+def child_step_ms(live, wave, keys=None) -> tuple:
     """Run ``wave()`` while sampling each child's ``step_clock`` (its own
     clock at its last frame and its decode steps then). Returns the
-    wave's result and each child's ms a step: its clock from the first
-    frame of the wave that counted a step to its last frame, over the
-    steps between them (the child's own time, not the wave's wall)."""
+    wave's result and each child's ms a step, under its replica index
+    or its entry of ``keys``: its clock from the first frame of the wave
+    that counted a step to its last frame, over the steps between them
+    (the child's own time, not the wave's wall)."""
     import threading
-    before = {r.index: r.engine.step_clock[1] for r in live}
-    seen = {r.index: [] for r in live}
+    keys = [r.index for r in live] if keys is None else list(keys)
+    before = {k: r.engine.step_clock[1] for k, r in zip(keys, live)}
+    seen = {k: [] for k in keys}
     stop = threading.Event()
 
     def sample():
         while True:
-            for r in live:
+            for k, r in zip(keys, live):
                 t, steps = r.engine.step_clock
-                if steps > before[r.index] and (
-                        not seen[r.index] or seen[r.index][-1][1] != steps):
-                    seen[r.index].append((t, steps))
+                if steps > before[k] and (
+                        not seen[k] or seen[k][-1][1] != steps):
+                    seen[k].append((t, steps))
             if stop.is_set():
                 return
             stop.wait(0.002)
@@ -5056,8 +5117,534 @@ def phase_processes(fleet=None) -> dict:
     return record
 
 
+
+# the gateway (``serve/gateway.py``) over cells of servers: A's thread
+# cells in float32, B's process cells in bfloat16, both at SERVE_DEPTH
+GATEWAY_CELL = dict(num_slots=4, chunk_steps=8, kv="paged", page_size=16,
+                    paged_attn="kernel", prefix_cache=True)
+GATEWAY_VERSION = "smoke"
+GATEWAY_ROUTE_GRID = 16     # the routing waves' (only their prompts count)
+GATEWAY_VICTIM_GRID = 128   # B's victim requests
+GATEWAY_FLOOD = 24          # the tenant_flood row's abuser submits
+GATEWAY_WAIT_S = 300.0
+GATEWAY_TENANTS_A = [{"name": "std", "key": "ks"},
+                     {"name": "gold", "key": "kg", "tier": "gold",
+                      "hedge_s": 0.0}]
+GATEWAY_TENANTS_B = [{"name": "victim", "key": "kv", "weight": 2.0},
+                     {"name": "abuser", "key": "ka", "weight": 1.0,
+                      "rps": 2.0}]
+
+
+def gateway_over(cells, cfg, tenants=None, **kw):
+    """A started ``Gateway`` over started ``cells``, keyed as the cells'
+    engines key their prefix caches."""
+    from dalle_pytorch_tpu_torch.serve import TenantTable
+    from dalle_pytorch_tpu_torch.serve.gateway import Gateway
+    from dalle_pytorch_tpu_torch.serve.kv_pool import pages_for
+    return Gateway(
+        cells, cfg=cfg, model_version=GATEWAY_VERSION,
+        tenants=None if tenants is None else TenantTable.from_json(tenants),
+        max_prompt_len=cfg.text_seq_len,
+        pages_per_request=pages_for(cfg.seq_len,
+                                    GATEWAY_CELL["page_size"]),
+        **kw).start()
+
+
+def thread_cells(model, n: int = 2) -> list:
+    from dalle_pytorch_tpu_torch.serve.server import InferenceServer
+    return [InferenceServer(model, None, decode_images=False,
+                            weights_version=GATEWAY_VERSION, device="cuda",
+                            **GATEWAY_CELL).start() for _ in range(n)]
+
+
+def affine_cell(gw, codes) -> int:
+    """The cell index ``codes`` routes to while every cell has room."""
+    from dalle_pytorch_tpu_torch.serve import prefix_cache as PC
+    return gw._rank(PC.content_key(codes, cfg=gw.cfg,
+                                   model_version=gw.model_version))[0]
+
+
+def gateway_routing(model, affinity: bool) -> dict:
+    """2 prompts x 5 waves, the order rotated each wave, through a fresh
+    fleet of 2 thread cells: the fleet's prefix hits over completions."""
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(21)
+    prompts = [tuple(int(t) for t in torch.randint(
+        1, cfg.num_text_tokens, (cfg.text_seq_len,), generator=g))
+        for _ in range(2)]
+    gw = gateway_over(thread_cells(model), cfg, GATEWAY_TENANTS_A,
+                      affinity=affinity)
+    try:
+        for w in range(5):
+            order = prompts if w % 2 == 0 else prompts[::-1]
+            hs = [gw.submit(p, api_key="ks", seed=w,
+                            image_seq_len_override=GATEWAY_ROUTE_GRID)
+                  for p in order]
+            for h in hs:
+                res = h.result(timeout=GATEWAY_WAIT_S)
+                check(res.ok, f"gateway: routing wave {w}: {res.status} "
+                              f"{res.reason}")
+        st = gw.stats()
+        return {"hit_rate": st["fleet_prefix_hit_rate"],
+                "prefix_hits": st["fleet"]["prefix_hits"],
+                "completed": st["fleet"]["completed"],
+                "routed": st["routed"], "spills": st["spills"]}, gw
+    except BaseException:
+        gw.close()
+        raise
+
+
+def gateway_reference(model, reqs) -> list:
+    """Each request's tokens from ONE engine of a cell's shapes."""
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    q = S.RequestQueue(max_depth=64)
+    eng = Engine(model, q, device="cuda", **GATEWAY_CELL)
+    handles = [q.submit(r) for r in reqs]
+    eng.run_until_idle()
+    out = []
+    for h in handles:
+        res = h.result(timeout=0)
+        check(res.ok, f"gateway: reference {res.status} {res.reason}")
+        out.append([int(t) for t in res.tokens])
+    return out
+
+
+def gateway_wave(gw, reqs, key: str) -> list:
+    hs = [gw.submit(r.codes, api_key=key, seed=r.seed,
+                    image_seq_len_override=r.image_seq_len_override)
+          for r in reqs]
+    return [h.result(timeout=GATEWAY_WAIT_S) for h in hs]
+
+
+def tokens_of(results) -> list:
+    return [[int(t) for t in r.tokens] if r.ok else r.status
+            for r in results]
+
+
+def gateway_cell_down(gw, reqs, want) -> dict:
+    """Two requests of the busiest cell (and up to two of the other)
+    decode first; then, armed by ``gateway_cell_down_at_request``, the
+    next routed request kills the busiest cell, which holds them
+    mid-stream; every flight it held replays on the survivor. Returns
+    the counts and the seconds from the cell's death to the last
+    replayed result."""
+    from dalle_pytorch_tpu_torch.resilience import faults
+    by_cell = {}
+    for r, w in zip(reqs, want):
+        by_cell.setdefault(affine_cell(gw, r.codes), []).append((r, w))
+    order = sorted(by_cell, key=lambda c: -len(by_cell[c]))
+    doomed = order[0]
+    early = by_cell[doomed][:2] + (by_cell[order[1]][:2]
+                                   if len(order) > 1 else [])
+    late = by_cell[doomed][2:] + (by_cell[order[1]][2:]
+                                  if len(order) > 1 else [])
+    check(len(by_cell[doomed]) >= 3, f"gateway: {by_cell.keys()}")
+    cell = gw.cells[doomed]
+    base = cell.server.stats()["decode_steps"]
+    downs, replays = gw.cell_downs, gw.replays
+    done_at = {}
+    with faults.injected(gateway_cell_down_at_request=gw.routed
+                         + len(early) + 1):
+        hs = [gw.submit(r.codes, api_key="ks", seed=r.seed,
+                        image_seq_len_override=r.image_seq_len_override)
+              for r, _ in early]
+        wait_for("the doomed cell mid-stream", lambda: cell.server.stats()[
+            "decode_steps"] >= base + 32, GATEWAY_WAIT_S, every=0.002)
+        hs += [gw.submit(r.codes, api_key="ks", seed=r.seed,
+                         image_seq_len_override=r.image_seq_len_override)
+               for r, _ in late]
+        deadline = time.perf_counter() + GATEWAY_WAIT_S
+        while len(done_at) < len(hs):
+            check(time.perf_counter() < deadline,
+                  "gateway: the cell-down wave did not finish")
+            for h in hs:
+                if h.done() and h not in done_at:
+                    done_at[h] = time.time()
+            time.sleep(0.002)
+    results = [h.result(timeout=0) for h in hs]
+    check(tokens_of(results) == [w for _, w in early + late],
+          "gateway: tokens through the cell down differ from the lone "
+          "engine's")
+    down = gw.events("gateway_cell_down")[-1]
+    replayed = {e["request"] for e in gw.events("gateway_replay")}
+    back = [t for h, t in done_at.items()
+            if h.request.request_id in replayed]
+    check(gw.cell_downs - downs == 1 and gw.replays - replays >= 1
+          and back, f"gateway: cell_downs {gw.cell_downs}, replays "
+                    f"{gw.replays}")
+    return {"cell": down["cell"], "held": down["inflight"],
+            "replays": gw.replays - replays,
+            "cell_down_to_result_s": max(back) - down["time"]}
+
+
+def gateway_thread_cells(model) -> dict:
+    """A: routing with and without affinity; then, on the affinity
+    fleet, 8 requests (256-token prompts, REPLICA_GRID image tokens),
+    2 of them as a ``gold`` tenant with ``hedge_s`` 0, and 8 again
+    through a cell down, each against a lone engine's tokens."""
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    cfg = model.cfg
+    reqs = replica_requests(cfg, 8, seed=60)
+    t0 = time.perf_counter()
+    want = gateway_reference(model, reqs)
+    reference_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    PA.paged_decode_attention.launches = 0
+    blind, gw = gateway_routing(model, affinity=False)
+    gw.close()
+    affine, gw = gateway_routing(model, affinity=True)
+    try:
+        check(affine["hit_rate"] > blind["hit_rate"],
+              f"gateway: affinity's prefix-hit rate {affine['hit_rate']} "
+              f"does not beat hash-blind's {blind['hit_rate']}")
+        t0 = time.perf_counter()
+        plain = gateway_wave(gw, reqs, "ks")
+        wave_s = time.perf_counter() - t0
+        check(tokens_of(plain) == want, "gateway: A's tokens differ from "
+                                        "the lone engine's")
+        hedged = gateway_wave(gw, reqs[:2], "kg")
+        check(tokens_of(hedged) == want[:2] and gw.hedges >= 1,
+              f"gateway: hedges {gw.hedges}, tokens "
+              f"{tokens_of(hedged) == want[:2]}")
+        down = gateway_cell_down(gw, reqs, want)
+        st = gw.stats()
+    finally:
+        gw.close()
+    k4 = PA.paged_decode_attention.launches
+    check(k4 > 0, "gateway: K4 never launched in A's cells")
+    return {"depth": cfg.depth, "dtype": "float32", **GATEWAY_CELL,
+            "cells": 2, "grid": REPLICA_GRID, "affinity": affine,
+            "hash_blind": blind, "wave_s": wave_s,
+            "image_tokens_per_s": len(reqs) * REPLICA_GRID / wave_s,
+            "reference_s": reference_s, "hedges": st["hedges"],
+            "hedge_wins": st["hedge_wins"], "spills": st["spills"],
+            "cell_down": down,
+            "routed_by_cell": [c["routed"] for c in st["cells"]],
+            "completed": st["completed"], "k4_launches": k4}
+
+
+def gateway_call(port: int, path: str, body=None, token=None,
+                 ready=None) -> tuple:
+    """(status, JSON body, headers) of one call to the gateway's HTTP
+    surface (``token`` as ``Authorization: Bearer``: an API key on
+    /generate, the admin token on /admin/tenants). With ``ready`` (a
+    barrier) the connection is opened first and the request sent once
+    every party has reached it."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    if ready is not None:
+        conn.connect()
+        ready.wait(60)
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    conn.request("GET" if body is None else "POST", path,
+                 body=None if body is None else json.dumps(body).encode(),
+                 headers=headers)
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    ctype = resp.getheader("Content-Type", "")
+    return (resp.status, json.loads(raw) if "json" in ctype
+            else raw.decode(), dict(resp.getheaders()))
+
+
+def nearest_rank(xs, q: float) -> float:
+    s = sorted(xs)
+    return s[min(int(q * (len(s) - 1) + 0.5), len(s) - 1)]
+
+
+def fleet_samples(text: str) -> dict:
+    """The unlabeled sample of each federated family in /metrics."""
+    from dalle_pytorch_tpu_torch.serve.gateway import _FEDERATED_COUNTERS
+    out = {}
+    for key, family in _FEDERATED_COUNTERS:
+        for line in text.splitlines():
+            if line.startswith(family + " "):
+                out[key] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def gateway_process_cells(model, vae, clip) -> dict:
+    """B: the gateway's HTTP surface over 2 process cells (each a set of
+    one child: the server spawns 2, one is removed), CLIP in each cell's
+    parent worker. Warm-up, the victim alone, the victim under the
+    ``tenant_flood`` row over HTTP (typed 429s), /metrics against the
+    cells' stats, the admin reload; then image tokens/s over both cells
+    and over one (the other closed), each child's ms a step."""
+    import threading
+    from dalle_pytorch_tpu_torch.ops import block_sparse as BS
+    from dalle_pytorch_tpu_torch.resilience import faults
+    from dalle_pytorch_tpu_torch.serve.gateway import make_gateway_http_server
+    from dalle_pytorch_tpu_torch.serve.server import InferenceServer
+    cfg = model.cfg
+    size = cfg.vae.image_size
+    t0 = time.perf_counter()
+    cells = [InferenceServer(model, vae, clip=clip, replicas=2,
+                             isolation="process", device="cuda",
+                             weights_version=GATEWAY_VERSION,
+                             **GATEWAY_CELL).start() for _ in range(2)]
+    try:
+        for srv in cells:
+            wait_for("a cell's children READY",
+                     lambda: process_ready(srv.engine), 600)
+            srv.scale("remove", replica=1)
+        check(all(srv.stats()["num_slots"] == GATEWAY_CELL["num_slots"]
+                  for srv in cells), "gateway: a cell kept 2 children")
+    except BaseException:
+        for srv in cells:
+            srv.close()
+        raise
+    bringup_s = time.perf_counter() - t0
+    waits = {}
+    holder = []
+
+    def on_event(rec):
+        # the gateway's added latency: submit -> dispatch, on its clock
+        if rec.get("kind") == "gateway_route" and holder:
+            fl = holder[0]._flights.get(rec["request"])
+            if fl is not None:
+                waits[rec["request"]] = \
+                    fl.dispatch_t - fl.handle.request.submit_t
+    gw = gateway_over(cells, cfg, GATEWAY_TENANTS_B, on_event=on_event,
+                      admin_token=HTTP_TOKEN)
+    holder.append(gw)
+    httpd = make_gateway_http_server(gw, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    g = torch.Generator().manual_seed(23)
+    # prompts by the cell they route to: 2 warm-up and 4 timed a cell
+    by_cell = {0: [], 1: []}
+    while len(by_cell[0]) < 6 or len(by_cell[1]) < 4:
+        p = [int(t) for t in torch.randint(1, cfg.num_text_tokens,
+                                           (cfg.text_seq_len,), generator=g)]
+        by_cell[affine_cell(gw, p)].append(p)
+    # the victim and the abuser share cell 0
+    victim, abuser = by_cell[0][5], by_cell[0][4]
+    answers = []
+
+    def post(body, key, out=None, ready=None):
+        ans = gateway_call(port, "/generate", body, key, ready)
+        (answers if out is None else out).append(ans)
+        return ans
+
+    def ok(ans, grid) -> bool:
+        code, body, _ = ans
+        return (code == 200 and body["status"] == "ok"
+                and len(body["tokens"]) == grid
+                and body.get("clip_score") is not None
+                and body["image_shape"] == [size, size, 3])
+
+    def wave(prompts, key, grid):
+        # every client connects first and all send at once, timed from
+        # then (a connect past the listen backlog waits a SYN retransmit)
+        out, sent = [], []
+        go = threading.Barrier(len(prompts), action=lambda: sent.append(
+            time.perf_counter()))
+        threads = [threading.Thread(target=post, args=(
+            {"codes": p, "seed": 50 + i, "image_seq_len_override": grid},
+            key, out, go)) for i, p in enumerate(prompts)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(GATEWAY_WAIT_S)
+        wall = time.perf_counter() - sent[0]
+        check(len(out) == len(prompts) and all(ok(a, grid) for a in out),
+              f"gateway: B wave {[a[0] for a in out]}")
+        answers.extend(out)
+        return wall
+
+    def victim_round(tag, ready=None):
+        lats, ids = [], []
+        for i in range(6):
+            t = time.perf_counter()
+            ans = post({"codes": victim, "seed": i,
+                        "image_seq_len_override": GATEWAY_VICTIM_GRID}, "kv",
+                       ready=ready if i == 0 else None)
+            if i == 0 and ready is not None:
+                t = ready_t[-1]      # from the burst's release
+            lats.append(time.perf_counter() - t)
+            check(ok(ans, GATEWAY_VICTIM_GRID),
+                  f"gateway: victim request dropped {tag}: {ans[:2]}")
+            ids.append(ans[1]["request_id"])
+            # the cell's own account of the request (admission to result)
+            cell_s.setdefault(tag, []).append(ans[1]["total_s"])
+        return lats, ids
+
+    serving = [srv.engine.replicas[0] for srv in cells]
+    cell_s, ready_t = {}, []
+    BS.block_sparse_attention_fwd.launches = 0
+    rec = {"bringup_s": bringup_s}
+    try:
+        wave(by_cell[0][:2] + by_cell[1][:2], "kv", PROCESS_WARM_GRID)
+        check(ok(post({"codes": abuser, "seed": 0,
+                       "image_seq_len_override": PROCESS_WARM_GRID}, "ka"),
+                 PROCESS_WARM_GRID), "gateway: the abuser's warm-up failed")
+        wait_for("the warm-up's last frames",
+                 lambda: all(r.engine.active_slots() == 0 for r in serving),
+                 60)
+        alone, alone_ids = victim_round("alone")
+        flood_out = []
+        with faults.injected(tenant_flood="abuser",
+                             tenant_flood_requests=GATEWAY_FLOOD):
+            flood = faults.gateway_flood()
+            check(flood == {"tenant": "abuser",
+                            "requests": GATEWAY_FLOOD}, f"flood {flood}")
+            # one burst: every abuser connection, and the victim's first,
+            # is open before any sends, so the rps bucket (2 a second,
+            # burst 2) admits its burst and no refill a slow start adds,
+            # and no victim connect meets the burst's (the server listens
+            # with a backlog of 5: a connect that finds it full waits out
+            # a 1 s SYN retransmit)
+            burst = threading.Barrier(flood["requests"] + 1, action=lambda:
+                                      ready_t.append(time.perf_counter()))
+            threads = [threading.Thread(target=post, args=(
+                {"codes": abuser, "seed": 100 + i,
+                 "image_seq_len_override": GATEWAY_VICTIM_GRID}, "ka",
+                flood_out, burst)) for i in range(flood["requests"])]
+            for th in threads:
+                th.start()
+            flooded, flooded_ids = victim_round("under the flood", burst)
+            for th in threads:
+                th.join(GATEWAY_WAIT_S)
+        throttled = [a for a in flood_out if a[0] == 429]
+        admitted = [a for a in flood_out if a[0] != 429]
+        check(len(flood_out) == GATEWAY_FLOOD and throttled and all(
+            a[1]["kind"] == "tenant_throttled" and a[1]["quota"] == "rps"
+            and int(a[2]["Retry-After"]) >= 1 for a in throttled),
+            f"gateway: the flood's answers {[a[0] for a in flood_out]}")
+        check(all(ok(a, GATEWAY_VICTIM_GRID) for a in admitted),
+              "gateway: an admitted abuser request did not complete")
+        answers.extend(admitted)
+        base_p95, flood_p95 = nearest_rank(alone, .95), \
+            nearest_rank(flooded, .95)
+        check(flood_p95 <= 1.5 * base_p95 + 0.25,
+              f"gateway: the victim's p95 {flood_p95:.3f} s under the flood "
+              f"over 1.5 x {base_p95:.3f} + 0.25 s; alone {alone}, "
+              f"flooded {flooded}, in the cell {cell_s}")
+        rec["flood"] = {
+            "victim_alone_s": alone, "victim_flooded_s": flooded,
+            "victim_cell_s": cell_s,
+            "victim_alone_p50_s": nearest_rank(alone, .5),
+            "victim_alone_p95_s": base_p95,
+            "victim_flooded_p50_s": nearest_rank(flooded, .5),
+            "victim_flooded_p95_s": flood_p95,
+            "abuser_admitted": len(admitted),
+            "abuser_throttled": len(throttled),
+            "retry_after": sorted({a[2]["Retry-After"] for a in throttled}),
+            "tenant_throttled": {k: v for k, v in throttled[0][1].items()
+                                 if k != "time"}}
+        victim_waits = [waits[i] * 1e3 for i in alone_ids + flooded_ids]
+        rec["added_latency_ms"] = {"p50": nearest_rank(victim_waits, .5),
+                                   "p99": nearest_rank(victim_waits, .99)}
+
+        # image tokens/s over both cells, then over one
+        timing = {}
+        wait_for("the flood's last frames",
+                 lambda: all(r.engine.active_slots() == 0 for r in serving),
+                 60)
+        four = by_cell[0][:4] + by_cell[1][:4]    # 4 clients a cell
+        for n in (2, 1):
+            live = serving[:n]
+            before = [r.engine.decode_steps for r in live]
+            wall, step_ms = child_step_ms(
+                live, lambda: wave(four, "kv", REPLICA_HTTP_GRID),
+                keys=[f"cell{i}" for i in range(n)])
+            timing[n] = {
+                "wall_s": wall,
+                "decode_steps": [r.engine.decode_steps - b
+                                 for r, b in zip(live, before)],
+                "ms_per_decode_step": step_ms,
+                "image_tokens_per_s": len(four) * REPLICA_HTTP_GRID / wall}
+            if n == 2:
+                code, text, _ = gateway_call(port, "/metrics")
+                sums = {k: sum(int(srv.stats()[k]) for srv in cells)
+                        for k in fleet_samples(text)}
+                check(code == 200 and len(sums) == 4 and all(
+                    fleet_samples(text)[k] == v for k, v in sums.items()),
+                    f"gateway: /metrics {fleet_samples(text)} against the "
+                    f"cells' stats {sums}")
+                rec["fleet"] = sums
+                reload = [dict(t) for t in GATEWAY_TENANTS_B]
+                no_token = gateway_call(port, "/admin/tenants", reload)
+                with_token = gateway_call(port, "/admin/tenants", reload,
+                                          HTTP_TOKEN)
+                check(no_token[0] == 401 and with_token[0] == 200
+                      and with_token[1]["tenants"] == ["abuser", "victim"],
+                      f"gateway: /admin/tenants {no_token[:2]} "
+                      f"{with_token[:2]}")
+                health = gateway_call(port, "/healthz")
+                check(health[0] == 200
+                      and health[1]["alive_cells"] == ["cell0", "cell1"],
+                      f"gateway: /healthz {health[:2]}")
+                k4 = {"cell1": cells[1].stats()["paged_decode_launches"]}
+                cells[1].close()
+                wait_for("the gateway to fence the closed cell",
+                         lambda: gw.cell_downs == 1, 60)
+        k4["cell0"] = cells[0].stats()["paged_decode_launches"]
+        k3 = BS.block_sparse_attention_fwd.launches
+        st = gw.stats()
+        tenants = gw.tenants.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        gw.close()
+    per_score = clip.cfg.text_enc_depth + clip.cfg.visual_enc_depth
+    check(k3 == per_score * len(answers), f"gateway: K3 launched {k3} "
+          f"times for {len(answers)} CLIP scores, not {per_score} each")
+    check(all(v > 0 for v in k4.values()), f"gateway: K4 {k4}")
+    check(st["completed"] == len(answers) and st["cell_downs"] == 1,
+          f"gateway: B stats completed {st['completed']}, answers "
+          f"{len(answers)}, cell_downs {st['cell_downs']}")
+    rec.update({
+        "depth": cfg.depth, "dtype": str(model.text_emb.weight.dtype),
+        **GATEWAY_CELL, "prompt_len": cfg.text_seq_len,
+        "grid": REPLICA_HTTP_GRID, "clients": 8, "two_cells": timing[2],
+        "one_cell": timing[1],
+        "speedup": timing[2]["image_tokens_per_s"]
+        / timing[1]["image_tokens_per_s"],
+        "tenants": tenants, "completed": st["completed"],
+        "k4_by_cell": k4, "k4_launches": sum(k4.values()),
+        "k3_launches": k3})
+    return rec
+
+
+def phase_gateway() -> dict:
+    """A (``gateway_thread_cells``, float32 thread cells) and B
+    (``gateway_process_cells``, bfloat16 process cells, over HTTP), both
+    at SERVE_DEPTH: K4 in every decode step of every cell, K3 in B's
+    CLIP scores."""
+    import dataclasses
+    from dalle_pytorch_tpu_torch.models import clip as CL
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
+    record = {"phase": "gateway", "ok": True}
+    t0 = time.perf_counter()
+    model = D.dalle_init(cfg, seed=4, dtype=torch.float32)
+    record["A"] = gateway_thread_cells(model)
+    record["A"]["seconds"] = time.perf_counter() - t0
+    emit(**record["A"], phase="gateway", part="A", ok=True)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+    clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
+                        dtype=torch.bfloat16)
+    record["B"] = gateway_process_cells(model, vae, clip)
+    record["B"]["seconds"] = time.perf_counter() - t0
+    emit(**record["B"], phase="gateway", part="B", ok=True)
+    record["k4_launches"] = record["A"]["k4_launches"] \
+        + record["B"]["k4_launches"]
+    record["k3_launches"] = record["B"]["k3_launches"]
+    return record
+
+
 ONLY = {"images": phase_images, "generate": phase_generate,
-        "replicas": phase_replicas, "processes": phase_processes}
+        "replicas": phase_replicas, "processes": phase_processes,
+        "gateway": phase_gateway}
 
 
 def main() -> int:
@@ -5113,6 +5700,7 @@ def main() -> int:
     served = timed(phase_http)
     fleet = timed(phase_replicas)
     procs = timed(phase_processes, fleet)
+    gateway = timed(phase_gateway)
     emit(phase_seconds=PHASE_SECONDS,
          total_seconds=sum(PHASE_SECONDS.values()))
     main_case = kernel["bfloat16"]
@@ -5354,6 +5942,27 @@ def main() -> int:
         "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
         "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
         "launches": procs["k3_launches"],
+        "max_abs_err": max(k3c["max_abs_err"].values()),
+        "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
+        "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
+        "library_ms": k3c["sdpa_masked_ms"]}]
+    # the gateway over cells: K4 in every cell's steps (A's thread cells
+    # by the module count, B's children by their frames), K3 in B's
+    # parents' CLIP scores
+    rows += [{
+        "name": "paged_decode_attention@gateway", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "dalle_pytorch_tpu/ops/paged_attention.py:88",
+        "launches": gateway["k4_launches"],
+        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"], "library_ms": None}, {
+        "name": "block_sparse_attention_fwd_noncausal@gateway",
+        "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": gateway["k3_launches"],
         "max_abs_err": max(k3c["max_abs_err"].values()),
         "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
         "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],

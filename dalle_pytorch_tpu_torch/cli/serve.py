@@ -21,15 +21,23 @@ until Ctrl-C. ``POST /admin/scale`` reshapes a set; its ``upgrade`` op
 loads a checkpoint path the way startup loaded the first (``--use_ema``,
 ``--quantize``), or hands the path to ``--worker_ckpt`` workers.
 
-The flags of the slices still to come end in ``SystemExit`` naming their
-ROADMAP.md queue 1 item: the gateway, its cells and tenants (item 2c), a
-device mesh (item 3).
+``--gateway`` builds ``--cells`` such servers (each with the
+``--replicas``, ``--isolation`` and ``--transport`` given) behind one
+``serve/gateway.py::Gateway``: prefix-affine routing, the tenants of the
+``--tenants`` JSON (API keys, rate and page quotas, weighted-fair
+queueing, hedge tiers; reloaded by ``POST /admin/tenants``), hedged sends
+and cell-down replay; ``serve_gateway_http`` answers. It does not take
+``--autoscale``. ``--mesh_devices`` (a device mesh, ROADMAP.md queue 1
+item 3) ends in ``SystemExit`` naming the item.
 
 Run: python -m dalle_pytorch_tpu_torch.cli.serve --name test \\
         --dalle_epoch 99 --kv paged --paged_attn kernel --replicas 2 \\
         --isolation process --port 8000
 Then: curl -s localhost:8000/generate -d '{"caption": "a flower"}'
       curl -s localhost:8000/stats
+A gateway: ... --gateway --cells 2 --tenants tenants.json, then
+      curl -s localhost:8000/generate -H 'X-API-Key: KEY' \
+           -d '{"codes": [1, 2, 3], "seed": 7}'
 A worker started by hand on a ``--transport socket`` server (it prints
 the endpoint and token): DALLE_WORKER_TOKEN=<token> python -m \\
 dalle_pytorch_tpu_torch.serve.worker --connect HOST:PORT --index N.
@@ -51,7 +59,6 @@ from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
 
-GATEWAY_ITEM = "ROADMAP.md queue 1 item 2c (tenants and the gateway)"
 MESH_ITEM = "ROADMAP.md queue 1 item 3 (parallel/ on torch.distributed)"
 
 
@@ -185,11 +192,17 @@ def build_parser() -> argparse.ArgumentParser:
     a("--autoscale_interval_s", type=float, default=1.0,
       help="autoscaler: seconds between ticks")
     a("--gateway", action="store_true",
-      help="the multi-cell gateway (not in the port yet)")
+      help="the multi-cell gateway: --cells servers (each with the "
+           "--replicas/--isolation/--kv/... given here) behind one HTTP "
+           "surface with prefix-affine routing, per-tenant quotas, "
+           "weighted-fair queueing, hedged sends and cell-down replay")
     a("--cells", type=int, default=2,
-      help="gateway cells (not in the port yet)")
+      help="gateway mode: the number of cells (each a full server)")
     a("--tenants", type=str, default="",
-      help="gateway tenant JSON (not in the port yet)")
+      help="gateway mode: the tenant JSON (a list of {name, key, weight, "
+           "rps, image_tokens_per_s, max_pages, tier, hedge_s}), "
+           "reloaded by the authenticated POST /admin/tenants; empty = "
+           "the anonymous tenant (no keys, no quotas)")
     a("--host", type=str, default="127.0.0.1")
     a("--port", type=int, default=8000)
     a("--metrics", type=str, default="",
@@ -208,20 +221,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse_fleet(args) -> None:
-    """``SystemExit`` naming every flag of a slice still to come, and its
-    ROADMAP.md item."""
-    defaults = build_parser().parse_args([])
-    bad = [(flag, item) for flag, on, item in (
-        ("--mesh_devices", args.mesh_devices > 1, MESH_ITEM),
-        ("--gateway", args.gateway, GATEWAY_ITEM),
-        ("--cells", args.cells != defaults.cells, GATEWAY_ITEM),
-        ("--tenants", bool(args.tenants), GATEWAY_ITEM)) if on]
-    if bad:
-        items = sorted({item for _, item in bad})
+    """``SystemExit`` for ``--mesh_devices`` (a slice still to come),
+    naming its ROADMAP.md item."""
+    if args.mesh_devices > 1:
         raise SystemExit(
-            f"{', '.join(flag for flag, _ in bad)}: not in the PyTorch "
-            f"port yet — it serves one replica set on one card; see "
-            f"{'; '.join(items)}")
+            f"--mesh_devices: not in the PyTorch port yet — an engine "
+            f"runs on one card; see {MESH_ITEM}")
 
 
 def load_vocab(args) -> Vocabulary:
@@ -266,6 +271,10 @@ def main(argv=None, *, device=None):
             low_occupancy=args.autoscale_low,
             cooldown_s=args.autoscale_cooldown_s,
             interval_s=args.autoscale_interval_s)
+    if args.gateway and args.autoscale:
+        raise SystemExit(
+            "--gateway does not compose with --autoscale: each cell would "
+            "need its own policy; run cells directly to autoscale them")
     device = resolve_device(device)
 
     dalle_path = ckpt.ckpt_path(args.models_dir, f"{args.name}_dalle",
@@ -305,43 +314,47 @@ def main(argv=None, *, device=None):
         except ValueError:
             raise SystemExit(f"--prefill_buckets must be comma-separated "
                              f"ints, got {args.prefill_buckets!r}")
-    server = InferenceServer(
-        model, vae, clip=clip, num_slots=args.num_slots,
-        queue_depth=args.queue_depth, chunk_steps=args.chunk_steps,
-        prefill_buckets=buckets,
-        quantize_cache=args.quantize == "int8_kv",
-        kv=args.kv, page_size=args.page_size, num_pages=args.num_pages,
-        paged_attn=args.paged_attn, sparse_reads=args.sparse_reads,
-        speculative=args.speculative, draft_layers=args.draft_layers,
-        prefix_cache=args.prefix_cache,
-        default_cfg_scale=args.cfg_scale,
-        preview_every=args.preview_every,
-        stream_max_events=args.stream_max_events,
-        replicas=args.replicas,
-        replica_roles=(args.replica_roles.split(",")
-                       if args.replica_roles else None),
-        weights_version=f"{args.name}_dalle@{args.dalle_epoch}",
-        # 0 means no growth past --replicas, never "uncapped": every
-        # replica holds its own KV pool
-        max_replicas=args.max_replicas or args.replicas,
-        autoscale=autoscale,
-        load_weights=lambda path: load_dalle(path, args, device)[0],
-        heartbeat_s=args.heartbeat_s,
-        isolation=args.isolation,
-        child_rss_limit_mb=args.child_rss_limit_mb,
-        transport=args.transport, worker_endpoint=args.worker_endpoint,
-        worker_cmd=args.worker_cmd, attach_token=args.attach_token,
-        worker_ckpt=args.worker_ckpt,
-        # checkpoint-path workers re-apply the parent's transforms after
-        # their own load, so every replica serves the same weights
-        worker_use_ema=bool(args.worker_ckpt) and args.use_ema,
-        worker_quantize=args.quantize if args.worker_ckpt else "none",
-        admin_token=args.admin_token or None,
-        metrics=metrics, log_every=args.log_every, encode=vocab.encode,
-        profile_dir=args.profile_dir or None,
-        init_deadline_s=args.init_deadline_s,
-        init_retries=args.init_retries, device=device).start()
+    def build_server():
+        return InferenceServer(
+            model, vae, clip=clip, num_slots=args.num_slots,
+            queue_depth=args.queue_depth, chunk_steps=args.chunk_steps,
+            prefill_buckets=buckets,
+            quantize_cache=args.quantize == "int8_kv",
+            kv=args.kv, page_size=args.page_size, num_pages=args.num_pages,
+            paged_attn=args.paged_attn, sparse_reads=args.sparse_reads,
+            speculative=args.speculative, draft_layers=args.draft_layers,
+            prefix_cache=args.prefix_cache,
+            default_cfg_scale=args.cfg_scale,
+            preview_every=args.preview_every,
+            stream_max_events=args.stream_max_events,
+            replicas=args.replicas,
+            replica_roles=(args.replica_roles.split(",")
+                           if args.replica_roles else None),
+            weights_version=f"{args.name}_dalle@{args.dalle_epoch}",
+            # 0 means no growth past --replicas, never "uncapped": every
+            # replica holds its own KV pool
+            max_replicas=args.max_replicas or args.replicas,
+            autoscale=autoscale,
+            load_weights=lambda path: load_dalle(path, args, device)[0],
+            heartbeat_s=args.heartbeat_s,
+            isolation=args.isolation,
+            child_rss_limit_mb=args.child_rss_limit_mb,
+            transport=args.transport, worker_endpoint=args.worker_endpoint,
+            worker_cmd=args.worker_cmd, attach_token=args.attach_token,
+            worker_ckpt=args.worker_ckpt,
+            # checkpoint-path workers re-apply the parent's transforms after
+            # their own load, so every replica serves the same weights
+            worker_use_ema=bool(args.worker_ckpt) and args.use_ema,
+            worker_quantize=args.quantize if args.worker_ckpt else "none",
+            admin_token=args.admin_token or None,
+            metrics=metrics, log_every=args.log_every, encode=vocab.encode,
+            profile_dir=args.profile_dir or None,
+            init_deadline_s=args.init_deadline_s,
+            init_retries=args.init_retries, device=device).start()
 
+    if args.gateway:
+        return serve_gateway(args, build_server, cfg)
+    server = build_server()
     kv_desc = args.kv if args.kv == "dense" \
         else f"{args.kv}/{args.paged_attn}" \
         + ("/sparse_reads" if args.sparse_reads else "") \
@@ -380,6 +393,41 @@ def main(argv=None, *, device=None):
             f"{server.engine.max_replicas}{auto_desc}")
     serve_http(server, args.host, args.port)
     return server
+
+
+def serve_gateway(args, build_server, cfg):
+    """``--gateway``: ``--cells`` servers from ``build_server`` behind one
+    ``Gateway`` over HTTP (``serve_gateway_http``, until Ctrl-C); returns
+    the gateway."""
+    from dalle_pytorch_tpu_torch.serve.gateway import (Gateway,
+                                                       serve_gateway_http)
+    from dalle_pytorch_tpu_torch.serve.kv_pool import pages_for
+    from dalle_pytorch_tpu_torch.serve.tenancy import TenantTable
+    n_cells = max(args.cells, 1)
+    cells = [build_server() for _ in range(n_cells)]
+    tenants = TenantTable.from_file(args.tenants) if args.tenants else None
+    gw = Gateway(
+        cells, tenants=tenants, cfg=cfg,
+        model_version=f"{args.name}_dalle@{args.dalle_epoch}",
+        quantized=args.quantize == "int8_kv",
+        queue_depth=args.queue_depth,
+        max_prompt_len=cfg.text_seq_len,
+        # a request's worst-case page residency, its whole sequence: the
+        # unit the tenants' page budgets meter (dense cells alike)
+        pages_per_request=pages_for(cfg.seq_len, args.page_size or 16),
+        admin_token=args.admin_token or None).start()
+    tenant_desc = (f", tenants {tenants.names()}" if tenants is not None
+                   else ", anonymous tenant")
+    iso_desc = args.isolation if args.transport == "pipe" \
+        else f"{args.isolation}/{args.transport}"
+    say(f"gateway over {n_cells} cells ({args.replicas} {iso_desc} "
+        f"replica(s) x {args.num_slots} slots each) on "
+        f"http://{args.host}:{args.port}{tenant_desc}")
+    say(f"admin: POST /admin/tenants with Authorization: Bearer "
+        f"{gw.admin_token} reloads the tenant table; GET /stats /metrics "
+        f"/tenants /healthz for the fleet")
+    serve_gateway_http(gw, args.host, args.port)
+    return gw
 
 
 if __name__ == "__main__":

@@ -6,6 +6,6 @@ hooks and the backend-claim hook under the ``DALLE_FAULTS`` plan),
 rollback with the learning-rate re-warm) and ``retry`` (the deadline,
 backoff and jitter of the serving front end's device claim). ``faults``
 also carries the replica set's hooks (crash, hang, flaky bring-up,
-scale-out, upgrade and migration rows); those of process workers,
-transports and the gateway wait for ROADMAP.md queue 1 items 2b-2c.
+scale-out, upgrade and migration rows), those of process workers and
+their transports, and the gateway's (cell down, tenant flood).
 """

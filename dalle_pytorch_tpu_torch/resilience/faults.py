@@ -7,9 +7,10 @@ Port of ``dalle_pytorch_tpu/resilience/faults.py``: the training hooks
 the replica set's (``on_replica_chunk`` ``:324``, ``on_scale_add_bringup``
 ``:493``, ``on_upgrade_drain`` ``:509``, ``on_migrate_transfer``
 ``:535``, ``on_migrate_import`` ``:561``, ``on_canary_gate`` ``:577``,
-``on_replica_bringup`` ``:619``) and the process workers' hard and
+``on_replica_bringup`` ``:619``), the process workers' hard and
 network rows (``child_plan_for`` ``:347``, ``on_worker_chunk``
-``:370-490``). A ``FaultPlan`` names the faults to fire; the hooks are
+``:370-490``) and the gateway's (``on_gateway_dispatch`` and
+``gateway_flood`` ``:592-615``). A ``FaultPlan`` names the faults to fire; the hooks are
 no-ops unless a plan is active (set by ``activate``/``injected``, or from
 the ``DALLE_FAULTS`` JSON environment variable in a CLI run), and each
 fault fires at most once per activation.
@@ -19,9 +20,7 @@ activation per replica (``child_plan_for``): the hard rows kill the child
 for real, and fire-once must live in the process that survives them.
 The two SIGKILL rows of the set (``upgrade_drain_sigkill_replica``,
 ``migrate_crash_source_at_transfer``) kill a child process; a thread
-replica has none, and there they raise ``FaultInjected``. The gateway's
-rows come with the gateway (ROADMAP.md queue 1 item 2c): a plan naming
-one is refused (``TypeError``).
+replica has none, and there they raise ``FaultInjected``.
 """
 from __future__ import annotations
 
@@ -90,6 +89,15 @@ class FaultPlan:
     replica_stall_socket_at_chunk: int = -1
     replica_dup_frame_at_chunk: int = -1
     replica_reorder_frames_at_chunk: int = -1
+    # the gateway (serve/gateway.py): once it has routed this many
+    # requests, the cell that took the latest one dies whole, and the
+    # gateway must fence it and replay what it held on a survivor;
+    # tenant_flood names an abusive tenant and its burst, which the
+    # isolation check reads through gateway_flood() and sends itself.
+    # -1/"" = off; each fires at most once per activation
+    gateway_cell_down_at_request: int = -1
+    tenant_flood: str = ""
+    tenant_flood_requests: int = 0
 
 
 _active: Optional[FaultPlan] = None
@@ -401,6 +409,30 @@ def on_canary_gate(replica: int, version: str) -> None:
     raise FaultInjected(
         f"injected canary health-gate failure (replica {replica}, "
         f"version {version!r})")
+
+
+def on_gateway_dispatch(dispatched: int) -> bool:
+    """Called by the gateway after each routing decision with the count
+    of requests routed so far: True exactly once, when
+    ``gateway_cell_down_at_request`` is reached (the gateway then kills
+    the cell the latest request landed on)."""
+    p = _active
+    if p is None or p.gateway_cell_down_at_request < 0:
+        return False
+    return dispatched >= p.gateway_cell_down_at_request \
+        and _once("gateway_cell_down")
+
+
+def gateway_flood() -> Optional[dict]:
+    """``{"tenant": name, "requests": burst}`` once when
+    ``tenant_flood`` is set, else None: the caller sends the flood (the
+    gateway submits nothing on its own); the plan records who flooded
+    and how hard."""
+    p = _active
+    if p is None or not p.tenant_flood or not _once("tenant_flood"):
+        return None
+    return {"tenant": str(p.tenant_flood),
+            "requests": int(p.tenant_flood_requests)}
 
 
 def on_replica_bringup(replica: int, attempt: int) -> None:

@@ -1,7 +1,6 @@
 """Best-of-N sample groups.
 
-Port of ``dalle_pytorch_tpu/serve/fanout.py`` (``:36-223``, less the
-gateway's pre-built sinks).
+Port of ``dalle_pytorch_tpu/serve/fanout.py`` (``:36-223``).
 ``Request.n_samples = N`` admits N member requests that share the prompt,
 member ``i`` seeded ``sample_seed(seed, i)`` (member 0 with the user's
 seed), and returns a ``GroupFuture`` whose result is the set ranked by
@@ -164,16 +163,25 @@ class GroupFuture:
 
 
 def submit_group(queue: S.RequestQueue, request: S.Request, *,
-                 metrics=None, max_events: int = 256) -> GroupFuture:
+                 metrics=None, max_events: int = 256,
+                 sinks: Optional[List[TokenSink]] = None
+                 ) -> GroupFuture:
     """Admit one best-of-N group: N member requests (per-sample seeds,
     ``n_samples`` reset to 1 so a member is indistinguishable from a
     standalone request) submitted back-to-back so the prefix cache's
     pending-share window covers the whole set. Admission is atomic —
     if member k is rejected (queue full, closed), the k already-
     admitted members are cancelled before the typed reject propagates,
-    so a failed group never leaks half its samples into the engine."""
+    so a failed group never leaks half its samples into the engine.
+    ``sinks`` are an upstream tier's (the gateway's), one per member
+    over one shared channel, used as given."""
     n = int(request.n_samples)
-    if request.stream:
+    if sinks is not None:
+        if len(sinks) != n:
+            raise ValueError(f"sinks must match n_samples: "
+                             f"{len(sinks)} != {n}")
+        sinks = list(sinks)
+    elif request.stream:
         sinks = list(TokenSink.group(n, max_events=max_events,
                                      metrics=metrics))
     else:

@@ -2,7 +2,7 @@
 
 Port of ``dalle_pytorch_tpu/serve/scheduler.py`` (``:33-635``):
 ``SamplingParams``, ``Request`` (``cfg_scale``, per-request
-classifier-free guidance; ``tenant``, carried but not yet weighted;
+classifier-free guidance; ``tenant``, the admitting tenant;
 ``stream``, a live token sink; ``n_samples``, a best-of-N group;
 ``image_seq_len_override``, a short grid), ``Result`` (the postprocess
 stage's ``clip_score``, ``weights_version``, the trace summary and a
@@ -14,8 +14,10 @@ prompt-length buckets. For the replica set: ``RequestHandle
 .replay_version`` (the weights generation a request is pinned to) and
 the wire forms of ``Request``, ``RequestHandle`` and ``Result``
 (``to_wire`` / ``from_wire``), which a live migration's payload and a
-process worker's frames (``serve/ipc.py``) carry. ``WeightedFairQueue``
-comes with the gateway (ROADMAP.md queue 1 item 2c).
+process worker's frames (``serve/ipc.py``) carry. For the gateway
+(``serve/gateway.py``, JAX ``:637-706``): ``WeightedFairQueue``, the
+base queue's ``_order_key``/``_on_pop`` hooks it overrides, and the
+virtual tags ``RequestHandle.vstart``/``vfinish`` it stamps once.
 
 Overload is structured: a reject raises a ``ServeRejected`` whose
 ``record`` is a ``structured_event("serve_reject", ...)`` (the HTTP
@@ -294,6 +296,10 @@ class RequestHandle:
         # goes only to a replica of that generation: tokens are
         # byte-identical per generation, not across them. None: unpinned
         self.replay_version: Optional[str] = None
+        # the WeightedFairQueue's virtual start/finish tags, stamped once
+        # at the first insert: a requeue keeps its place in the fair order
+        self.vstart: Optional[float] = None
+        self.vfinish: Optional[float] = None
 
     def done(self) -> bool:
         return self._done.is_set()
@@ -376,6 +382,17 @@ class RequestQueue:
         with self._lock:
             return len(self._heap)
 
+    def _order_key(self, handle: RequestHandle):
+        """The heap's primary sort key for one handle (under ``_lock``):
+        the priority here, FIFO within a class through ``queue_seq``;
+        ``WeightedFairQueue`` orders by (priority, virtual finish). The
+        key must not change across requeues of a handle."""
+        return handle.request.priority
+
+    def _on_pop(self, handle: RequestHandle) -> None:
+        """Called under ``_lock`` for each handle ``pop_ready`` hands out
+        (``WeightedFairQueue`` advances its virtual clock); a no-op here."""
+
     def close(self) -> None:
         """Refuse further submits (``QueueClosed``); set before the
         shutdown drain so no submit lands after it."""
@@ -424,8 +441,8 @@ class RequestQueue:
             otrace.attach(handle, rid, now).span(
                 "submit", now, priority=int(request.priority),
                 prompt_len=n)
-            heapq.heappush(self._heap, (request.priority, handle.queue_seq,
-                                        handle))
+            heapq.heappush(self._heap, (self._order_key(handle),
+                                        handle.queue_seq, handle))
             return handle
 
     def requeue(self, handle: RequestHandle, count: bool = True) -> None:
@@ -446,7 +463,7 @@ class RequestQueue:
                 return
             if count:
                 self.requeued += 1
-            heapq.heappush(self._heap, (handle.request.priority,
+            heapq.heappush(self._heap, (self._order_key(handle),
                                         handle.queue_seq, handle))
 
     def pop_ready(self, n: int, now: Optional[float] = None
@@ -464,7 +481,9 @@ class RequestQueue:
                 heapq.heapify(keep)
                 self._heap = keep
             while self._heap and len(ready) < n:
-                ready.append(heapq.heappop(self._heap)[2])
+                popped = heapq.heappop(self._heap)[2]
+                self._on_pop(popped)
+                ready.append(popped)
         return ready, [e[2] for e in dead]
 
     def drain(self) -> List[RequestHandle]:
@@ -475,3 +494,62 @@ class RequestQueue:
             out = [h for _, _, h in self._heap]
             self._heap.clear()
         return out
+
+
+class WeightedFairQueue(RequestQueue):
+    """Start-time fair queueing across tenants. A request of tenant ``i``
+    (weight ``w_i``, cost ``c`` from ``cost_fn``, 1.0 by default) is
+    stamped at its first insert with
+
+        vstart  = max(V, F_i)          # V: the system virtual time
+        vfinish = vstart + c / w_i     # F_i := vfinish
+
+    and the heap drains by (priority, vfinish, queue_seq): priority
+    classes still come first, and within one tenants share the work in
+    proportion to their weights. ``V`` advances to each popped request's
+    vstart, so an idle tenant resumes at ``V`` (no banked credit) and a
+    drained backlog owes nothing. The tags are stamped once, so a
+    requeue (eviction, failover, a gateway replay) re-enters at the
+    request's original virtual position, as ``queue_seq`` keeps arrival
+    order in the base queue."""
+
+    def __init__(self, max_depth: int = 64,
+                 max_prompt_len: Optional[int] = None,
+                 clock: Callable[[], float] = time.perf_counter,
+                 on_event=None,
+                 weight_of: Optional[Callable[[str], float]] = None,
+                 cost_fn: Optional[Callable[[Request], float]] = None):
+        super().__init__(max_depth=max_depth,
+                         max_prompt_len=max_prompt_len,
+                         clock=clock, on_event=on_event)
+        self.weight_of = weight_of if weight_of is not None \
+            else (lambda tenant: 1.0)
+        self.cost_fn = cost_fn if cost_fn is not None \
+            else (lambda request: 1.0)
+        self._vtime = 0.0
+        self._ftime: Dict[str, float] = {}
+
+    def _order_key(self, handle: RequestHandle):
+        if handle.vfinish is None:
+            tenant = handle.request.tenant
+            weight = max(float(self.weight_of(tenant)), 1e-9)
+            vstart = max(self._vtime, self._ftime.get(tenant, 0.0))
+            handle.vstart = vstart
+            handle.vfinish = vstart + \
+                float(self.cost_fn(handle.request)) / weight
+            self._ftime[tenant] = handle.vfinish
+        return (handle.request.priority, handle.vfinish)
+
+    def _on_pop(self, handle: RequestHandle) -> None:
+        if handle.vstart is not None:
+            self._vtime = max(self._vtime, handle.vstart)
+
+    def virtual_time(self) -> float:
+        with self._lock:
+            return self._vtime
+
+    def finish_tag(self, tenant: str) -> float:
+        """The tenant's last virtual finish tag (0.0 if never seen): at
+        or below ``virtual_time()`` the tenant carries no debt."""
+        with self._lock:
+            return self._ftime.get(tenant, 0.0)

@@ -38,9 +38,10 @@ A single engine answers ``scale()`` with the typed
 in-server profiles typed (a child's engine runs in another interpreter,
 out of this process's sinks and profiler), and ``/healthz`` and
 ``/stats`` carry each child's pid, RSS, restarts, last exit, transport
-block and K4 launches. A device mesh (ROADMAP.md queue 1 item 3) and
-the gateway (item 2c) are not taken here: their keywords raise
-``TypeError`` naming the item.
+block and K4 launches. A cell of the gateway (``serve/gateway.py``) is
+an ``InferenceServer``: the gateway submits with its own replayable
+``sinks``. A device mesh (ROADMAP.md queue 1 item 3) is not taken here:
+its keyword raises ``TypeError`` naming the item.
 """
 
 from __future__ import annotations
@@ -396,13 +397,18 @@ class InferenceServer:
                tenant: str = "",
                stream: bool = False,
                n_samples: int = 1,
-               image_seq_len_override: int = 0):
+               image_seq_len_override: int = 0,
+               sinks: Optional[list] = None):
         """Enqueue one request. Raises a ``scheduler.ServeRejected``:
         ``QueueFull``, ``InvalidRequest`` (empty or over-long prompt),
         ``QueueClosed`` after ``close()``. ``stream=True`` attaches a
         ``TokenSink`` (the handle's ``.sink``); ``n_samples > 1`` admits a
         best-of-N group and returns its ``GroupFuture``;
-        ``image_seq_len_override`` caps the image span."""
+        ``image_seq_len_override`` caps the image span. ``sinks`` are an
+        upstream tier's (the gateway's) pre-built sinks, one a sample,
+        used instead of fresh ones: a replayed dispatch feeds the same
+        client-facing sinks, whose high-water marks drop what was
+        already sent."""
         if cfg_scale is None:
             cfg_scale = self.default_cfg_scale
         if stream and self.isolation == "process":
@@ -427,14 +433,14 @@ class InferenceServer:
         if request.n_samples > 1:
             group = fanout.submit_group(
                 self.queue, request, metrics=self.metrics,
-                max_events=self.stream_max_events)
+                max_events=self.stream_max_events, sinks=sinks)
             with self._stream_lock:
                 self._groups.append(group)
                 if group.sink is not None:
                     self._streams.append(group.sink)
             return group
-        sink = None
-        if request.stream:
+        sink = sinks[0] if sinks else None
+        if request.stream and sink is None:
             sink = stream_mod.TokenSink(max_events=self.stream_max_events,
                                         metrics=self.metrics)
         handle = self.queue.submit(request, sink=sink)

@@ -1,8 +1,7 @@
 """Live token streams: the channel between the engine thread and one
 SSE writer.
 
-Port of ``dalle_pytorch_tpu/serve/stream.py`` (``:37-317``, less the
-gateway's replayable sinks). ``TokenSink``
+Port of ``dalle_pytorch_tpu/serve/stream.py`` (``:37-317``). ``TokenSink``
 is a bounded, thread-safe event channel: the engine's harvest pushes each
 chunk's tokens at their ABSOLUTE sequence positions, the postprocess
 worker pushes preview frames, ``RequestHandle.fulfill`` closes it. Three
@@ -16,7 +15,11 @@ rules:
   position once;
 * terminal events are never dropped; a best-of-N group shares one
   channel across its sinks (``TokenSink.group``), which ends once every
-  member has closed.
+  member has closed;
+* a gateway's sinks are ``replayable``: a cell's cancelled close (the
+  request is about to be replayed on another cell into the same sink)
+  is ignored, and only the gateway's ``close(result, force=True)`` or a
+  real completion ends the sample.
 
 ``sse_bytes`` frames an event for the wire; ``pack_image`` /
 ``unpack_image`` carry a pixel grid as base64 bytes, bit-exact.
@@ -189,6 +192,9 @@ class TokenSink:
         self._closed = False
         self._close_lock = threading.Lock()
         self.result = None          # this sample's terminal Result
+        # set by the tier above the engine (the gateway): a non-forced
+        # cancelled close is then a failover artifact, not the end
+        self.replayable = False
 
     @classmethod
     def group(cls, n: int, *, max_events: int = 256,
@@ -231,10 +237,15 @@ class TokenSink:
                        "final": bool(final),
                        "image": pack_image(image)})
 
-    def close(self, result) -> None:
+    def close(self, result, force: bool = False) -> None:
         """Terminal: called from ``RequestHandle.fulfill`` (the one
         funnel every terminal path goes through). Idempotent — the
-        first close wins, matching fulfill's first-write-wins."""
+        first close wins, matching fulfill's first-write-wins. On a
+        replayable sink a non-forced CANCELLED close is a no-op; the
+        owner passes ``force=True`` at its own terminal."""
+        if self.replayable and not force \
+                and getattr(result, "status", None) == "cancelled":
+            return
         with self._close_lock:
             if self._closed:
                 return

@@ -1,8 +1,10 @@
 """The port's serving CLI (``cli/serve.py``) on the CPU, beside the JAX
 package's: ``build_parser()`` has JAX's flags, choices and defaults; the
-process-isolation flags reach a process replica set, each flag of a
-slice still to come (the gateway, a mesh) ends in ``SystemExit`` naming
-its ROADMAP queue item, while the replica-set flags (``--replicas``,
+process-isolation flags reach a process replica set, the gateway flags
+(``--gateway``, ``--cells``, ``--tenants``) build a gateway over thread
+cells that answers a request over HTTP, ``--mesh_devices`` (a slice
+still to come) ends in ``SystemExit`` naming its ROADMAP queue item,
+while the replica-set flags (``--replicas``,
 ``--replica_roles``, ``--max_replicas``, ``--min_replicas``,
 ``--autoscale``) serve, a set
 answering JAX's tokens and ``POST /admin/scale``'s upgrade loading a
@@ -35,6 +37,7 @@ from dalle_pytorch_tpu_torch.data.vocabulary import Vocabulary
 from dalle_pytorch_tpu_torch.models import clip as TC
 from dalle_pytorch_tpu_torch.models import dalle as TD
 from dalle_pytorch_tpu_torch.models import vae as TV
+from dalle_pytorch_tpu_torch.serve import gateway as GW
 from dalle_pytorch_tpu_torch.serve import server as SRV
 
 
@@ -59,8 +62,9 @@ def test_parser_matches_jax():
         vars(JCLI.build_parser().parse_args([]))
 
 
-# the fleet flags and the ROADMAP.md queue 1 item each belongs to: item
-# 2b (process isolation) is in the port, the others still refused
+# the fleet flags and the ROADMAP.md queue 1 item each belongs to: items
+# 2b (process isolation) and 2c (the gateway) are in the port, item 3
+# (a mesh) still refused
 FLEET_ARGV = [(["--mesh_devices", "2"], "item 3"),
               (["--isolation", "process"], "item 2b"),
               (["--transport", "socket"], "item 2b"),
@@ -88,16 +92,61 @@ PROCESS_FLAGS = {
     "--child_rss_limit_mb": (["--replicas", "2", "--isolation", "process"],
                              lambda rs: rs.child_rss_limit_mb == 10),
 }
+# each item-2c flag: what it needs beside it, and how it shows on the
+# built gateway (its cells are thread servers of 2 slots)
+GATEWAY_FLAGS = {
+    "--gateway": ([], lambda gw: len(gw.cells) == 2
+                  and gw.tenants is None),
+    "--cells": (["--gateway"], lambda gw: len(gw.cells) == 3),
+    "--tenants": (["--gateway"],
+                  lambda gw: gw.tenants.names() == ["acme"]
+                  and gw.tenants.spec("acme").weight == 2.0),
+}
+TENANTS_JSON = {"tenants": [{"name": "acme", "key": "ka", "weight": 2}]}
 
 
 @pytest.mark.parametrize("argv,item", FLEET_ARGV, ids=lambda a: a[0]
                          if isinstance(a, list) else "")
 def test_fleet_flags_exit_naming_queue_items_5_and_6(argv, item, models_dir,
-                                                     monkeypatch):
+                                                     monkeypatch, tmp_path):
     """(Named for the queue numbering of its first version.) A flag of
     ROADMAP.md queue 1 item 2b reaches a process ``ReplicaSet`` (served
-    from the toy checkpoint on the CPU, closed at once); each flag of a
+    from the toy checkpoint on the CPU, closed at once); a flag of item
+    2c builds a ``Gateway`` over thread cells, which answers one request
+    over HTTP (with the tenant's key under ``--tenants``); a flag of a
     slice still to come ends in ``SystemExit`` naming its item."""
+    if item == "item 2c":
+        extra, shows = GATEWAY_FLAGS[argv[0]]
+        if argv[0] == "--tenants":
+            path = tmp_path / "t.json"
+            path.write_text(json.dumps(TENANTS_JSON))
+            argv = ["--tenants", str(path)]
+        got = []
+        monkeypatch.setattr(GW, "serve_gateway_http",
+                            lambda gw, host, port: got.append(gw))
+        CLI.main(["--name", "toy", "--models_dir", str(models_dir),
+                  "--num_slots", "2", "--init_deadline_s", "0"]
+                 + extra + argv, device="cpu")
+        (gw,) = got
+        httpd = GW.make_gateway_http_server(gw, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            assert shows(gw)
+            assert all(c.capacity == 2 for c in gw.cells)
+            assert gw.model_version == "toy_dalle@0"
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/generate",
+                data=json.dumps({"codes": [3, 4], "seed": 1}).encode(),
+                headers={"X-API-Key": "ka"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                body = json.loads(r.read())
+            assert body["status"] == "ok"
+            assert len(body["tokens"]) == TCFG.image_seq_len
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            gw.close(timeout=5.0)
+        return
     if item == "item 2b":
         monkeypatch.setenv("OMP_NUM_THREADS", "1")
         extra, shows = PROCESS_FLAGS[argv[0]]
@@ -125,6 +174,15 @@ def test_autoscale_without_headroom_exits_as_jax_does(models_dir):
     for mod, kw in ((CLI, {"device": "cpu"}), (JCLI, {})):
         with pytest.raises(SystemExit, match="--max_replicas > "
                                              "--replicas"):
+            mod.main(argv, **kw)
+
+
+def test_gateway_with_autoscale_exits_as_jax_does(models_dir):
+    argv = ["--name", "toy", "--models_dir", str(models_dir), "--gateway",
+            "--autoscale", "--replicas", "1", "--max_replicas", "2"]
+    for mod, kw in ((CLI, {"device": "cpu"}), (JCLI, {})):
+        with pytest.raises(SystemExit, match="--gateway does not compose "
+                                             "with --autoscale"):
             mod.main(argv, **kw)
 
 

@@ -1500,3 +1500,48 @@ def test_two_child_processes_decode_through_k4_at_once(cuda):
     assert got == want
     assert all(p["completed"] > 0 and p["paged_decode_launches"] > 0
                for p in per), per
+
+
+@pytest.mark.cuda
+def test_tiny_gateway_on_card_gives_a_lone_engines_tokens_through_a_cell_down(
+        cuda):
+    """A started gateway over two tiny thread cells (paged, the kernel
+    read, the prefix cache) in float32 on the card: the cell that takes
+    the second routed request is killed (``gateway_cell_down_at_request``),
+    its flights replay on the survivor, and every request's tokens equal
+    a lone engine's on the card; K4 launched."""
+    from dalle_pytorch_tpu_torch.resilience import faults
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve import server as SRV
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    from dalle_pytorch_tpu_torch.serve.gateway import Gateway
+    vcfg = TV.VAEConfig(image_size=32, num_tokens=32, codebook_dim=32,
+                        num_layers=2, hidden_dim=8)
+    cfg = TD.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
+                         text_seq_len=8, heads=2, dim_head=16)
+    vae = TV.vae_init(vcfg, seed=1, device=cuda)
+    model = TD.dalle_init(cfg, seed=2, vae=vae, device=cuda)
+    kw = dict(num_slots=4, chunk_steps=2, kv="paged", page_size=8,
+              paged_attn="kernel", prefix_cache=True)
+    reqs = [dict(codes=(3, 7, i % 3 + 1), seed=i) for i in range(6)]
+    q = S.RequestQueue(max_depth=16)
+    eng = Engine(model, q, device=cuda, **kw)
+    hs = [q.submit(S.Request(**r)) for r in reqs]
+    eng.run_until_idle()
+    want = [list(map(int, h.result(0).tokens)) for h in hs]
+    cells = [SRV.InferenceServer(model, vae, decode_images=False,
+                                 weights_version="v0", device=cuda,
+                                 **kw).start() for _ in range(2)]
+    gw = Gateway(cells, cfg=cfg, model_version="v0",
+                 max_prompt_len=cfg.text_seq_len).start()
+    launches = PA.paged_decode_attention.launches
+    try:
+        with faults.injected(gateway_cell_down_at_request=2):
+            handles = [gw.submit(r["codes"], seed=r["seed"]) for r in reqs]
+            results = [h.result(timeout=120) for h in handles]
+    finally:
+        gw.close(timeout=30.0)
+    assert all(r.ok for r in results), [r.status for r in results]
+    assert [list(map(int, r.tokens)) for r in results] == want
+    assert gw.cell_downs == 1 and gw.replays >= 1
+    assert PA.paged_decode_attention.launches > launches

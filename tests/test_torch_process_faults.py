@@ -17,6 +17,7 @@ child here. Every wait has a deadline; a fixture kills any child a test
 leaves.
 """
 
+import json
 import multiprocessing as mp
 import time
 
@@ -28,6 +29,7 @@ import torch
 
 from dalle_pytorch_tpu.models import dalle as JD
 from dalle_pytorch_tpu.models import vae as JV
+from dalle_pytorch_tpu.resilience import faults as JF
 from dalle_pytorch_tpu_torch.compat import from_jax
 from dalle_pytorch_tpu_torch.models import dalle as TD
 from dalle_pytorch_tpu_torch.models import vae as TV
@@ -236,5 +238,30 @@ def test_child_plan_crosses_once_per_activation():
         assert plan["replica_sigkill_at_chunk"] == 2
         assert faults.FaultPlan(**plan).fault_replica == 1
         assert faults.child_plan_for(1) is None     # the restart is clean
-    with pytest.raises(TypeError):
-        faults.FaultPlan(gateway_cell_down_at_request=3)
+
+
+def test_fault_plan_env_round_trip():
+    """The gateway's rows ride the plan's JSON form (``DALLE_FAULTS``)
+    as JAX's do."""
+    plan = faults.FaultPlan(gateway_cell_down_at_request=3,
+                            tenant_flood="t", tenant_flood_requests=5)
+    blob = json.dumps({"gateway_cell_down_at_request": 3,
+                       "tenant_flood": "t", "tenant_flood_requests": 5})
+    assert faults.FaultPlan(**json.loads(blob)) == plan
+    for name in ("gateway_cell_down_at_request", "tenant_flood",
+                 "tenant_flood_requests"):
+        assert getattr(faults.FaultPlan(), name) == \
+            getattr(JF.FaultPlan(), name)
+
+
+def test_gateway_fault_rows_fire_once():
+    with faults.injected(gateway_cell_down_at_request=2):
+        assert not faults.on_gateway_dispatch(1)
+        assert faults.on_gateway_dispatch(2)
+        assert not faults.on_gateway_dispatch(3)   # fire-once
+    assert not faults.on_gateway_dispatch(99)      # no plan
+    with faults.injected(tenant_flood="abuser", tenant_flood_requests=7):
+        assert faults.gateway_flood() == {"tenant": "abuser",
+                                          "requests": 7}
+        assert faults.gateway_flood() is None      # fire-once
+    assert faults.gateway_flood() is None
