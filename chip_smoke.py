@@ -4,7 +4,8 @@
     python3 chip_smoke.py --only images,replicas   # build, then these
                                                    # (images, generate,
                                                    # replicas, processes,
-                                                   # gateway)
+                                                   # gateway, cli,
+                                                   # parallel)
 
 Drives the port (``dalle_pytorch_tpu_torch``) and nothing of JAX, at the
 full width of the repo's north DALLE configuration (``bench.py``
@@ -234,6 +235,35 @@ The entry points a user calls, through ``main(argv)``:
    byte for byte; the checkpoint's bytes, the msgpack codec's read and
    write rates; ``gen_dalle`` of 2 images from the epoch-1 checkpoint,
    its grid PNG 260 x 518 x 3; each CLI's wall seconds and peak memory.
+   Its data and VAE stay for ``parallel``'s CLI run;
+21b. parallel — training across ranks at the north width, depth 4
+   (``PARALLEL_DEPTH``, cut from 12 for the phase's time), bfloat16,
+   ``train_cfg``'s flash kernels (split backward) and dropout 0.1,
+   batch 8 global (``id_batch``): this process computes the one-process
+   step (loss and every gradient) of each run from the seeded weights
+   and key: dp (the whole batch), sp (sp 1: the masks are drawn per
+   global position), pp (``sequential_pp_loss``: 2 stages of 2 layers,
+   4 microbatches, keys per stage); then two spawned rank processes over
+   gloo on the one card (each its own CUDA context) check the
+   collectives' values on CUDA tensors (gloo runs all-reduce,
+   broadcast, all-gather, reduce-scatter and all-to-all on them;
+   ppermute is staged through pinned host memory), and hold each run
+   (dp 2, sp 2 ring, sp 2 Ulysses, pp 2, pp 2 with the pattern
+   ``(True, False) x 2``: K3) against the one-process step: bf16 loss to
+   2e-2 relative and each gradient to 2e-2 of its largest entry (the
+   image's axial position embeddings', ``BF16_SCATTERED``, to relative
+   L2 2e-2), and a depth-2
+   float32 copy to 1e-5 on the loss and 1e-4 of each gradient's largest
+   entry; then 2 steps of each (the first a warm-up) with each rank's
+   K1/K2a/K2b/K3 launches (dp: depth x steps; pp: depth/2 x 4 x steps,
+   the sparse run half K3; sp: none, as in JAX), ms a step beside the
+   one process's, host ms and bytes a step inside ``collectives.py``,
+   peak and parameter GiB; then ``train_dalle --sp 2`` as two processes
+   (``--coordinator``/``--num_processes``/``--process_id``) for one
+   epoch over ``cli``'s PNGs and VAE (``CLI_DALLE`` at depth 4): rank 0 writes the
+   checkpoint once, rank 1 nothing, and this process resumes it; beside
+   it a one-rank NCCL group (the dp comparison, each NCCL collective)
+   and two NCCL ranks on the one card (NCCL refuses: recorded).
 
 The single engine's serving features and reference weights:
 
@@ -363,6 +393,7 @@ It needs a CUDA card: without one it exits 2 before doing anything.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -3308,7 +3339,7 @@ def cli_codec(path: str) -> dict:
             "write_mb_per_s": mb / write_s}
 
 
-def phase_cli(train: dict) -> dict:
+def phase_cli(train: dict, keep: bool = False) -> dict:
     """The port's CLIs through ``main(argv)`` at the north width, in a
     temporary directory removed afterwards: ``cli_data``'s 16 PNGs;
     ``train_vae`` for one epoch of 2 steps at batch 8 (the north VAE);
@@ -3371,7 +3402,7 @@ def phase_cli(train: dict) -> dict:
         tokens = 8 * (cli_flag(CLI_DALLE, "--text_seq_len") + grid * grid)
         ms = cli_step_ms(os.path.join(root, "a", "metrics.jsonl"), tokens)
         record["train_dalle_ms_per_step"] = ms
-        record["train_phase_ms_per_step"] = train["ms_per_step"]
+        record["train_phase_ms_per_step"] = (train or {}).get("ms_per_step")
 
         # the same run in two legs: epoch 0, then --auto_resume
         run("train_dalle_leg0", train_dalle.main, dalle + dirs("b") + [
@@ -3430,9 +3461,12 @@ def phase_cli(train: dict) -> dict:
         check(img.shape == want, f"cli: the grid is {img.shape}, not {want}")
         record["gen_grid_shape"] = list(img.shape)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
     emit(**record)
-    return record
+    # ``keep``: the data and the VAE stay for the ``parallel`` phase's CLI
+    # run, which removes them
+    return {**record, "root": root} if keep else record
 
 
 # -- the single engine's serving features ------------------------------------
@@ -5642,9 +5676,577 @@ def phase_gateway() -> dict:
     return record
 
 
+
+# -- training across ranks ----------------------------------------------------
+
+# the parallel phase's runs: name, mesh, dense/sparse; all at the north
+# width with ``train_cfg``'s kernels and dropout, depth cut to
+# PARALLEL_DEPTH (pp: 2 stages of 2 layers, 4 microbatches)
+PARALLEL_DEPTH = 4
+PARALLEL_MICROBATCHES = 4
+PARALLEL_RUNS = (("dp", {"dp": 2}, False), ("sp_ring", {"dp": 1, "sp": 2},
+                                            False),
+                 ("sp_ulysses", {"dp": 1, "sp": 2}, False),
+                 ("pp", {"dp": 1, "pp": 2}, False),
+                 ("pp_sparse", {"dp": 1, "pp": 2}, True))
+PARALLEL_WAIT_S = 240.0
+
+
+def parallel_cfg(depth: int, sparse: bool):
+    """``train_cfg`` at ``depth``; ``sparse`` alternates K3 layers with
+    flash ones, (True, False) a stage at depth 4 (both layers sparse at
+    depth 2, where (True, False) is not the same on both stages)."""
+    if not sparse:
+        return train_cfg(depth=depth)
+    pattern = (True, False) * (depth // 2) if depth >= 4 else (True,) * depth
+    return train_cfg(depth=depth, sparse_attn=pattern, sparse_impl="pallas")
+
+
+def sequential_pp_loss(num_stages: int):
+    """The loss ``pp_dalle_loss_fn`` computes over ``num_stages`` stages,
+    in one process: the prompt embedded, the text mask extended over the
+    image, then microbatch by microbatch (``PARALLEL_MICROBATCHES``)
+    stage by stage, each stage's layers under ``fold_in(fold_in(rng,
+    stage), m)``, and the loss of the hidden states. The one-process
+    reference of a pipeline step (with dropout its keys are per stage,
+    so it is not ``transformer_apply``); no MoE aux, which these runs'
+    dense models do not have."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.ops import transformer as T
+    from dalle_pytorch_tpu_torch.parallel.pipeline import stage_layers
+
+    def loss(model, batch, rng):
+        cfg = model.cfg.transformer
+        text, ids = batch["text"], batch["image"]
+        tokens = D.embed_prompt(model, text, ids)
+        mask = torch.cat([batch["mask"].bool(),
+                          torch.ones(ids.shape, dtype=torch.bool,
+                                     device=ids.device)], dim=1)
+        outs = []
+        for m, (h, mk) in enumerate(zip(
+                tokens.chunk(PARALLEL_MICROBATCHES),
+                mask.chunk(PARALLEL_MICROBATCHES))):
+            for s in range(num_stages):
+                stage, stage_cfg = stage_layers(model.transformer, cfg,
+                                                num_stages, s)
+                h = T.transformer_apply(
+                    stage, h, cfg=stage_cfg, mask=mk,
+                    rng=prng.fold_in(prng.fold_in(rng, s), m), train=True)
+            outs.append(h)
+        return D.ce_from_hidden(model, torch.cat(outs), text, ids)
+
+    return loss
+
+
+def parallel_loss(kind: str, mesh, stages: int = 0):
+    """The run's loss function and parameter placement on ``mesh``; on a
+    one-rank mesh (the parent's reference) the same function in one
+    process: ``sp`` at sp 1 (the masks are drawn per global position, the
+    same at every degree), ``pp`` through ``sequential_pp_loss``."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.parallel.pipeline import (pp_dalle_loss_fn,
+                                                           pp_param_specs)
+    from dalle_pytorch_tpu_torch.parallel.sequence import sp_dalle_loss_fn
+    if kind == "dp":
+        def loss(model, batch, rng):
+            return D.dalle_apply(model, batch["text"], batch["image"],
+                                 mask=batch["mask"], rng=rng, train=True,
+                                 return_loss=True)
+        return loss, None
+    if kind.startswith("sp_"):
+        return sp_dalle_loss_fn(mesh, impl=kind[3:]), None
+    if stages:
+        return sequential_pp_loss(stages), None
+    return (pp_dalle_loss_fn(mesh, num_microbatches=PARALLEL_MICROBATCHES),
+            pp_param_specs)
+
+
+class GradCapture:
+    """An optimizer for ``make_train_step`` that takes the step's reduced
+    gradients instead of applying them (no clip)."""
+    clip = 0.0
+
+    def __init__(self, model):
+        self.model, self.grads = model, {}
+
+    def step(self, lr_scale=1.0, grad_norm=None):
+        self.grads = {n: p.grad.detach().clone() for n, p in
+                      self.model.named_parameters()
+                      if not p.is_meta and p.grad is not None}
+        for p in self.model.parameters():
+            p.grad = None
+
+
+def parallel_grads(kind, depth, sparse, dtype, mesh, stages=0) -> tuple:
+    """(loss, {name: gradient}) of one step of the run from the seeded
+    weights and key, through ``make_train_step`` (its reduction across the
+    mesh), on this rank's rows of ``id_batch``."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.mesh import shard_batch
+    from dalle_pytorch_tpu_torch.parallel.train import (make_train_step,
+                                                         setup_sharded)
+    cfg = parallel_cfg(depth, sparse)
+    model = D.dalle_init(cfg, seed=6, dtype=dtype)
+    loss_fn, specs = parallel_loss(kind, mesh, stages)
+    specs = specs(model) if specs else None
+    cap = GradCapture(model)
+    setup_sharded(model, cap_opt(model), mesh, specs)
+    step = make_train_step(loss_fn, cap, mesh=mesh, param_specs=specs)
+    batch = shard_batch(mesh, id_batch(cfg), "dp", local=False)
+    loss = float(step(model, batch, prng.prng_key(5, device="cuda")))
+    return loss, cap.grads
+
+
+def cap_opt(model):
+    """A throwaway optimizer for ``setup_sharded``'s placement."""
+    import types
+    from dalle_pytorch_tpu_torch.cli.common import make_optimizer
+    return make_optimizer(types.SimpleNamespace(
+        lr=1e-4, lr_schedule="constant", warmup_steps=0, decay_steps=0,
+        lr_end_ratio=0.1, n_epochs=1, clip_grad_norm=0.0),
+        model.parameters())
+
+
+def parallel_checks() -> list:
+    """(name, kind, mesh, depth, sparse, dtype) of every comparison: each
+    run at ``PARALLEL_DEPTH`` in bfloat16 and a depth-2 float32 copy."""
+    out = []
+    for kind, axes, sparse in PARALLEL_RUNS:
+        loss_kind = "pp" if kind.startswith("pp") else kind
+        out.append((kind, loss_kind, axes, PARALLEL_DEPTH, sparse,
+                    "bfloat16"))
+        out.append((f"{kind}/f32/depth2", loss_kind, axes, 2, sparse,
+                    "float32"))
+    return out
+
+
+# the bf16 gradients held by their relative L2 error (2e-2) instead of
+# their largest entry: the image's axial position embeddings, whose rows
+# sum what the batch's positions scatter into them (each row from 32
+# positions of every batch row), so their entries are differences of large
+# partial sums and the bf16 rounding of each rank's sum shows against a
+# small largest entry. dp 2 on an NVIDIA H100 80GB HBM3, 700.00 W, against
+# the 2 % limit: rows 2.06 % of its largest entry, cols 2.09 % (every other
+# gradient within it; relative L2 at most 0.0104)
+BF16_SCATTERED = ("image_pos_rows.weight", "image_pos_cols.weight")
+
+
+def grads_against(name, loss, grads, ref, dtype) -> dict:
+    """The run's loss and every gradient it holds against the one-process
+    reference: the loss relative, each gradient's largest error against
+    its largest entry, float32 to 1e-5 and 1e-4, bfloat16 to
+    ``train_grads_agree``'s 2e-2 and 2e-2 (``BF16_SCATTERED`` to their
+    relative L2 error at 2e-2, both readings of each reported). Returns
+    the record with ``failures`` (empty when every check holds)."""
+    f32 = dtype == "float32"
+    loss_rtol, grad_rtol = (1e-5, 1e-4) if f32 else (2e-2, 2e-2)
+    failures = []
+    if not (math.isfinite(loss) and abs(loss - ref["loss"])
+            <= loss_rtol * abs(ref["loss"])):
+        failures.append(f"parallel {name}: loss {loss} against one "
+                        f"process {ref['loss']}")
+    worst, worst_name, scattered = 0.0, None, {}
+    for n, g in grads.items():
+        want = ref["grads"][n].to(g.device).float()
+        diff = g.float() - want
+        of_largest = float(diff.abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if not f32 and n in BF16_SCATTERED:
+            l2 = float(diff.norm() / want.norm().clamp_min(1e-30))
+            scattered[n] = {"of_largest": of_largest, "rel_l2": l2}
+            ok, what = l2 <= grad_rtol, f"relative L2 {l2:.3e}"
+        else:
+            ok, what = of_largest <= grad_rtol, \
+                f"{of_largest:.3e} of its largest entry"
+            if of_largest >= worst:
+                worst, worst_name = of_largest, n
+        if not ok:
+            failures.append(f"parallel {name}: grad {n} differs from one "
+                            f"process by {what}")
+    tolerance = {"loss_rtol": loss_rtol, "grad_of_largest": grad_rtol}
+    if scattered:
+        tolerance["rel_l2_of"] = {n: grad_rtol for n in scattered}
+    return {"loss": loss, "one_process_loss": ref["loss"],
+            "grads_held": len(grads), "max_grad_err_of_largest": worst,
+            "worst_grad": worst_name, "scattered": scattered,
+            "failures": failures, "tolerance": tolerance}
+
+
+def parallel_rank(rank: int, plan: dict) -> dict:
+    """One rank of the gloo pair on the card: every comparison against
+    the parent's references, then each run's 2 steps (the first a
+    warm-up) with its launches, ms, collectives and peak memory, then
+    which gloo operations take CUDA tensors as they are."""
+    import types
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dalle_pytorch_tpu_torch.cli.common import make_optimizer
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel import collectives as col
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from dalle_pytorch_tpu_torch.parallel.train import (make_train_step,
+                                                         setup_sharded)
+    out = {"compare": {}, "runs": {}, "gloo_cuda": gloo_cuda_check()}
+    for name, kind, axes, depth, sparse, dtype in parallel_checks():
+        mesh = make_mesh(axes)
+        ref = torch.load(os.path.join(plan["refs"], name.replace("/", "_")
+                                      + ".pt"))
+        loss, grads = parallel_grads(kind, depth, sparse,
+                                     getattr(torch, dtype), mesh)
+        out["compare"][name] = grads_against(name, loss, grads, ref, dtype)
+        del ref, grads
+        torch.cuda.empty_cache()
+    for kind, axes, sparse in PARALLEL_RUNS:
+        mesh = make_mesh(axes)
+        cfg = parallel_cfg(PARALLEL_DEPTH, sparse)
+        model = D.dalle_init(cfg, seed=6, dtype=torch.bfloat16)
+        loss_fn, specs = parallel_loss(kind, mesh)
+        specs = specs(model) if specs else None
+        opt = make_optimizer(types.SimpleNamespace(
+            lr=1e-4, lr_schedule="constant", warmup_steps=0, decay_steps=0,
+            lr_end_ratio=0.1, n_epochs=1, clip_grad_norm=0.0),
+            model.parameters())
+        setup_sharded(model, opt, mesh, specs)
+        step = make_train_step(loss_fn, opt, mesh=mesh, param_specs=specs)
+        batch = shard_batch(mesh, id_batch(cfg), "dp", local=False)
+        root = prng.prng_key(0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sparse_counts(reset=True)
+        losses = [float(step(model, batch, prng.fold_in(root, 0)))]
+        torch.cuda.synchronize()
+        col.reset_stats()
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch, prng.fold_in(root, 1))))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out["runs"][kind] = {
+            "losses": losses, "ms_per_step": ms,
+            "launches": sparse_counts(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "param_gib": sum(p.numel() * p.element_size() for p in
+                             model.parameters() if not p.is_meta) / 2 ** 30,
+            "collectives": {"host_ms_per_step": col.STATS["host_ms"],
+                            "bytes_per_step": col.STATS["bytes"],
+                            "calls_per_step": dict(col.STATS["calls"]),
+                            "staged_through_host":
+                                sorted(col.STATS["staged"])}}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_check() -> dict:
+    """The collectives on CUDA tensors over the gloo pair, each against the
+    values it must give: those gloo runs on the device pointers
+    (``collectives.GLOO_CUDA``: psum, broadcast, all_gather and its
+    reduce_scatter transpose, all_to_all, a bfloat16 gather) and the
+    ppermute it stages through the host (gloo's send and receive of a
+    device pointer end the process with ``writev: Bad address``, PR 19
+    call 3). Returns {operation: held} and the staged operations."""
+    from dalle_pytorch_tpu_torch.parallel import collectives as col
+    g = col.world()
+    n, r = g.size, g.index
+    base = torch.arange(6.0, device="cuda").reshape(2, 3)
+    x = base + 10 * r
+    held = {"all_reduce": bool((col.psum(x, g) == n * base + 10 * sum(
+        range(n))).all()),
+        "broadcast": bool((col.broadcast(x, g, 0) == base).all())}
+    xg = x.clone().requires_grad_()
+    y = col.all_gather(xg, g, dim=0)
+    (y * (r + 1)).sum().backward()
+    held["all_gather"] = bool((y == torch.cat(
+        [base + 10 * i for i in range(n)])).all())
+    held["reduce_scatter"] = bool((xg.grad == sum(range(1, n + 1))).all())
+    z = torch.arange(n * 2 * 3.0, device="cuda").reshape(n * 2, 3) + 100 * r
+    want = torch.cat([(torch.arange(n * 2 * 3.0, device="cuda").reshape(
+        n * 2, 3) + 100 * i)[r * 2:(r + 1) * 2] for i in range(n)], dim=1)
+    held["all_to_all"] = bool((col.all_to_all(z, g, 0, 1) == want).all())
+    held["ppermute"] = bool((col.ppermute(x, g) == base + 10 * (
+        (r - 1) % n)).all())
+    b16 = torch.tensor([1.5, -2.25, r], dtype=torch.bfloat16, device="cuda")
+    held["bfloat16_gather"] = bool((col.all_gather(b16, g).float().cpu() ==
+                                    torch.tensor([v for i in range(n) for v
+                                                  in (1.5, -2.25, i)])
+                                    ).all())
+    return {"held": held, "staged": sorted(col.STATS["staged"])}
+
+
+def nccl_rank(rank: int, plan: dict) -> dict:
+    """The one-rank NCCL group: the dp step of the bfloat16 run (a mesh of
+    one), then each collective the port uses, on CUDA tensors through
+    NCCL itself."""
+    import torch.distributed as dist
+    from dalle_pytorch_tpu_torch.parallel import multihost
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    check(multihost.backend() == "nccl", "nccl rank: backend "
+                                         f"{multihost.backend()}")
+    mesh = make_mesh({"dp": 1})
+    ref = torch.load(os.path.join(plan["refs"], "dp.pt"))
+    sparse_counts(reset=True)
+    loss, grads = parallel_grads("dp", PARALLEL_DEPTH, False,
+                                 torch.bfloat16, mesh)
+    out = {"compare": grads_against("nccl/dp", loss, grads, ref,
+                                    "bfloat16"),
+           "launches": sparse_counts()}
+    check(not out["compare"]["failures"], str(out["compare"]["failures"]))
+    x = torch.arange(8.0, device="cuda")
+    ops = {}
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty_like(x), x)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                torch.empty_like(x), x)),
+            ("all_to_all_single", lambda: dist.all_to_all_single(
+                torch.empty_like(x), x)),
+            ("broadcast", lambda: dist.broadcast(x.clone(), src=0))):
+        fn()
+        torch.cuda.synchronize()
+        ops[name] = "ok"
+    out["ops"] = ops
+    return out
+
+
+def nccl_pair_rank(rank: int) -> str:
+    """Two NCCL ranks on the one card: the first collective's outcome."""
+    import torch.distributed as dist
+    try:
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return f"ran: {float(x[0])}"
+    except Exception as e:                      # noqa: BLE001 — reported
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def parallel_references(root: str) -> dict:
+    """The one-process step of every comparison, in this process on the
+    card, saved under ``root`` for the ranks; returns its losses."""
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    one = make_mesh({"dp": 1, "sp": 1})
+    losses = {}
+    for name, kind, _, depth, sparse, dtype in parallel_checks():
+        loss, grads = parallel_grads(kind, depth, sparse,
+                                     getattr(torch, dtype), one, stages=2)
+        torch.save({"loss": loss, "grads": {n: g.cpu() for n, g in
+                                            grads.items()}},
+                   os.path.join(root, name.replace("/", "_") + ".pt"))
+        losses[name] = loss
+        del grads
+        torch.cuda.empty_cache()
+    return losses
+
+
+def parallel_cli(root: str) -> dict:
+    """``train_dalle --sp 2`` as two processes on the card for one epoch
+    over the ``cli`` phase's 16 PNGs and VAE (``CLI_DALLE`` at
+    ``PARALLEL_DEPTH``): rank 0 writes the checkpoint once (no staging
+    residue) and rank 1 writes nothing; then this process resumes it for
+    one more epoch."""
+    from dalle_pytorch_tpu_torch.cli import train_dalle
+    from dalle_pytorch_tpu_torch.parallel.launch import free_port
+    dalle = list(CLI_DALLE)
+    dalle[dalle.index("--depth") + 1] = str(PARALLEL_DEPTH)
+    base = ["--dataPath", os.path.join(root, "imagedata"), "--batchSize",
+            "8", "--log_interval", "1", "--seed", "3"] + dalle + [
+        "--captions_only",
+        os.path.join(root, "only.txt"), "--captions",
+        os.path.join(root, "pairs.txt"), "--name", "spcli",
+        "--models_dir", os.path.join(root, "b", "models")]
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for i in range(2):
+        log = open(os.path.join(root, f"sp_rank{i}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dalle_pytorch_tpu_torch.cli.train_dalle"]
+            + base + ["--n_epochs", "1", "--sp", "2", "--sp_impl", "ring",
+                      "--num_processes", "2", "--process_id", str(i),
+                      "--coordinator", f"127.0.0.1:{port}",
+                      "--results_dir", os.path.join(root, f"sp{i}", "res"),
+                      "--metrics", os.path.join(root, f"sp{i}", "m.jsonl")],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        rcs = [p.wait(timeout=PARALLEL_WAIT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    tails = {}
+    for i in range(2):
+        with open(os.path.join(root, f"sp_rank{i}.log")) as f:
+            tails[i] = f.read()[-1500:]
+    check(rcs == [0, 0], f"parallel cli: ranks exited {rcs}: {tails}")
+    models = os.path.join(root, "b", "models")
+    check(os.path.isdir(os.path.join(models, "spcli_dalle-0")),
+          f"parallel cli: no checkpoint in {sorted(os.listdir(models))}")
+    residue = [d for d in os.listdir(models) if d.startswith(".ckpt-")]
+    check(not residue, f"parallel cli: staging residue {residue}")
+    check(not os.path.exists(os.path.join(root, "sp1")),
+          "parallel cli: rank 1 wrote its results or metrics")
+    with open(os.path.join(root, "sp0", "m.jsonl")) as f:
+        sp_losses = [json.loads(x)["loss"] for x in f if '"loss"' in x]
+    t1 = time.perf_counter()
+    train_dalle.main(base + ["--n_epochs", "1", "--load_dalle", "spcli",
+                             "--results_dir", os.path.join(root, "r"),
+                             "--metrics", os.path.join(root, "r.jsonl")])
+    resume_s = time.perf_counter() - t1
+    with open(os.path.join(root, "r.jsonl")) as f:
+        resumed = [json.loads(x)["loss"] for x in f if '"loss"' in x]
+    check(os.path.isdir(os.path.join(models, "spcli_dalle-1")) and resumed
+          and all(math.isfinite(x) for x in resumed),
+          f"parallel cli: the one-process resume gave {resumed}")
+    return {"two_rank_wall_s": wall, "sp_losses": sp_losses,
+            "resumed_losses": resumed, "resume_wall_s": resume_s}
+
+
+def parallel_single_ms() -> dict:
+    """ms a step of each run's one-process step in this process (Adam, 2
+    steps on the whole batch, the first a warm-up)."""
+    import types
+    from dalle_pytorch_tpu_torch.cli.common import make_optimizer
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    from dalle_pytorch_tpu_torch.parallel.train import make_train_step
+    one = make_mesh({"dp": 1, "sp": 1})
+    out = {}
+    for kind, _, sparse in PARALLEL_RUNS:
+        cfg = parallel_cfg(PARALLEL_DEPTH, sparse)
+        model = D.dalle_init(cfg, seed=6, dtype=torch.bfloat16)
+        loss_fn, specs = parallel_loss(
+            "pp" if kind.startswith("pp") else kind, one, stages=2)
+        opt = make_optimizer(types.SimpleNamespace(
+            lr=1e-4, lr_schedule="constant", warmup_steps=0, decay_steps=0,
+            lr_end_ratio=0.1, n_epochs=1, clip_grad_norm=0.0),
+            model.parameters())
+        step = make_train_step(loss_fn, opt, mesh=one,
+                               param_specs=specs(model) if specs else None)
+        batch = id_batch(cfg)
+        root = prng.prng_key(0, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        step(model, batch, prng.fold_in(root, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, batch, prng.fold_in(root, 1))
+        torch.cuda.synchronize()
+        out[kind] = {"ms_per_step": (time.perf_counter() - t0) * 1e3,
+                     "peak_mem_gib":
+                         torch.cuda.max_memory_allocated() / 2 ** 30}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(cli_root: str = "") -> dict:
+    """Training across ranks on the one card: K1-K3 were built by
+    ``build``, here, before any rank spawns. The one-process reference of
+    every comparison and each run's one-process ms a step first (this
+    process), then two spawned rank processes over gloo (each its own CUDA
+    context on the same card: the collectives' values on CUDA tensors,
+    every comparison, each run's 2 steps), then ``parallel_cli`` with,
+    beside it, a one-rank NCCL group (the dp comparison and each NCCL
+    collective) and two NCCL ranks on the one card (NCCL's answer
+    recorded)."""
+    import shutil
+    import tempfile
+    from dalle_pytorch_tpu_torch.parallel.launch import spawn
+    refs = tempfile.mkdtemp(prefix="chip-smoke-par-")
+    record = dict(phase="parallel", ok=True, depth=PARALLEL_DEPTH,
+                  microbatches=PARALLEL_MICROBATCHES)
+    try:
+        t0 = time.perf_counter()
+        record["one_process_losses"] = parallel_references(refs)
+        record["references_s"] = time.perf_counter() - t0
+        # the one-process step's ms at the same shapes: the two ranks
+        # share the one card, so their ratio is no speedup
+        t0 = time.perf_counter()
+        record["one_process"] = parallel_single_ms()
+        record["one_process_s"] = time.perf_counter() - t0
+        plan = {"refs": refs}
+        t0 = time.perf_counter()
+        ranks = spawn(parallel_rank, 2, (plan,), device=None,
+                      backend="gloo", timeout_s=PARALLEL_WAIT_S,
+                      group_timeout_s=120.0, threads=4)
+        record["gloo_pair_s"] = time.perf_counter() - t0
+        record["compare"] = {r: ranks[r]["compare"] for r in range(2)}
+        failures = [f for r in range(2) for c in ranks[r]["compare"].values()
+                    for f in c["failures"]]
+        record["runs"] = {r: ranks[r]["runs"] for r in range(2)}
+        steps = 2
+        launches = {}
+        for kind, axes, sparse in PARALLEL_RUNS:
+            got = [ranks[r]["runs"][kind]["launches"] for r in range(2)]
+            if kind.startswith("sp"):
+                want_dense, want_sparse = 0, 0
+            elif kind == "dp":
+                want_dense, want_sparse = PARALLEL_DEPTH * steps, 0
+            else:
+                per = PARALLEL_DEPTH // 2
+                n_sparse = per // 2 if sparse else 0
+                want_dense = (per - n_sparse) * PARALLEL_MICROBATCHES * steps
+                want_sparse = n_sparse * PARALLEL_MICROBATCHES * steps
+            for r, counts in enumerate(got):
+                check(counts["k3"] == want_sparse and all(
+                    counts[k] == want_dense for k in ("k1", "k2a", "k2b")),
+                    f"parallel {kind}: rank {r} launched {counts}, expected "
+                    f"K1/K2a/K2b {want_dense} and K3 {want_sparse} each")
+            launches[kind] = got
+        record["launches"] = launches
+        if failures:
+            emit(**record)
+        check(not failures, "; ".join(failures))
+        gloo = ranks[0]["gloo_cuda"]
+        record["gloo_cuda"] = gloo
+        check(all(gloo["held"].values()) and gloo["staged"] == ["ppermute"],
+              f"parallel: gloo on CUDA tensors {gloo}")
+        # the NCCL checks start no timing of their own: they run beside the
+        # CLI's two ranks, in threads that each wait on their spawn
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        t0 = time.perf_counter()
+        one = pool.submit(spawn, nccl_rank, 1, (plan,), device=None,
+                          backend="nccl", timeout_s=150.0,
+                          group_timeout_s=60.0, threads=4)
+
+        def pair():
+            try:
+                return spawn(nccl_pair_rank, 2, device=None, backend="nccl",
+                             timeout_s=90.0, group_timeout_s=30.0)
+            except (RuntimeError, TimeoutError) as e:
+                return f"{type(e).__name__}: {str(e)[-400:]}"
+
+        two = pool.submit(pair)
+        if cli_root:
+            record["cli"] = parallel_cli(cli_root)
+        (nccl,) = one.result()
+        record["nccl_one_rank"] = nccl
+        record["nccl_two_ranks_one_card"] = two.result()
+        record["nccl_and_cli_s"] = time.perf_counter() - t0
+        pool.shutdown()
+        check(nccl["launches"]["k1"] == PARALLEL_DEPTH,
+              f"parallel nccl: launches {nccl['launches']}")
+    finally:
+        shutil.rmtree(refs, ignore_errors=True)
+        if cli_root:
+            shutil.rmtree(cli_root, ignore_errors=True)
+    emit(**record)
+    return record
+
 ONLY = {"images": phase_images, "generate": phase_generate,
         "replicas": phase_replicas, "processes": phase_processes,
-        "gateway": phase_gateway}
+        "gateway": phase_gateway, "cli": phase_cli,
+        "parallel": phase_parallel}
 
 
 def main() -> int:
@@ -5664,8 +6266,13 @@ def main() -> int:
         card = timed(phase_build)
         done = {}
         for name in sys.argv[2].split(","):
-            # processes compares its pair with replicas' of this call
+            # processes compares its pair with replicas' of this call;
+            # cli keeps its data and VAE for parallel's CLI run
             args = (done.get("replicas"),) if name == "processes" else ()
+            if name == "cli":
+                args = (None, "parallel" in sys.argv[2].split(","))
+            if name == "parallel":
+                args = ((done.get("cli") or {}).get("root", ""),)
             done[name] = timed(ONLY[name], *args)
         emit(phase_seconds=PHASE_SECONDS)
         print(card)
@@ -5694,7 +6301,8 @@ def main() -> int:
     moe_train = timed(phase_moe_train)
     clip_train = timed(phase_clip_train)
     remat = timed(phase_remat)
-    cli = timed(phase_cli, train)
+    cli = timed(phase_cli, train, True)
+    parallel = timed(phase_parallel, cli["root"])
     features = timed(phase_serve_features)
     timed(phase_import)
     served = timed(phase_http)
@@ -5855,6 +6463,32 @@ def main() -> int:
                 "bound_ms": fc[kind]["bound_ms"],
                 "bound_by": fc[kind]["bound_by"],
                 "library_ms": library_ms})
+    # training across ranks: each rank's launches in its 2 steps, summed
+    # over the ranks and the runs (dp and pp; none under sp, as in JAX)
+    for name, kind, line, count, library_ms in (
+            ("flash_attention_fwd", "fwd", 88, "k1", lib["sdpa_fwd_ms"]),
+            ("flash_attention_bwd_dq", "dq", 322, "k2a", None),
+            ("flash_attention_bwd_dkv", "dkv", 367, "k2b",
+             lib["sdpa_bwd_ms"])):
+        rows.append({
+            "name": f"{name}@parallel", "route": "cuda",
+            "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"dalle_pytorch_tpu/ops/flash_attention.py:{line}",
+            "launches": sum(c[count] for runs in
+                            parallel["launches"].values() for c in runs),
+            "max_abs_err": fc["max_abs_err"][kind],
+            "ms": fc[kind]["ms"], "plain_ms": fc[kind]["plain_ms"],
+            "bound_ms": fc[kind]["bound_ms"],
+            "bound_by": fc[kind]["bound_by"], "library_ms": library_ms})
+    rows.append({
+        "name": "block_sparse_attention_fwd@parallel", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": sum(c["k3"] for c in parallel["launches"]["pp_sparse"]),
+        "max_abs_err": max(k3["max_abs_err"].values()),
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": k3["sdpa_masked_ms"]})
     rows.append({
         "name": "block_sparse_attention_fwd_noncausal@clip_train",
         "route": "cuda",

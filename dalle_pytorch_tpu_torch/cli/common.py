@@ -9,11 +9,13 @@ Port of ``dalle_pytorch_tpu/cli/common.py``: ``say`` (``:27``),
 ``make_optimizer`` (``:307``), ``make_ema`` (``:343``), ``ema_as``
 (``:410``), ``LoopState`` (``:416``), ``run_supervised_loop``
 (``:441``), ``load_caption_dataset`` (``:554``) and ``setup_run``
-(``:572``). A run is one process on one device: the flags of the
-multi-device paths (``--dp`` above 1, ``--coordinator``,
-``--num_processes``, ``--process_id``, ``--init_deadline_s``, ``--sp``,
-``--pp``) and ``--guard_transfers`` (a JAX transfer guard) end the run
-with ``SystemExit`` naming ``ROADMAP.md`` queue 1 item 6.
+(``:572``). A rank is one process on one device: ``setup_run`` joins the
+processes named by ``--coordinator``/``--num_processes``/``--process_id``
+(or the environment) and lays them out as JAX's mesh ``{dp, sp}``,
+``{dp, pp}`` or ``{dp}`` with JAX's refusals; ``say``, the vocabulary
+and ``save_checkpoint`` act on the primary rank only, the others waiting
+at a barrier. ``--guard_transfers`` (a JAX transfer guard) ends the run
+with ``SystemExit`` naming its ``ROADMAP.md`` item.
 
 The optimizer is Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8
 outside the square root; ``torch.optim.Adam`` computes the same update,
@@ -42,12 +44,16 @@ import torch
 from dalle_pytorch_tpu_torch import checkpoint as ckpt
 from dalle_pytorch_tpu_torch.ops import prng
 
-QUEUE_6 = "ROADMAP.md queue 1 item 6 (parallel/ on torch.distributed)"
+GUARD_ITEM = ("ROADMAP.md queue 1 item 4 (JAX's implicit-transfer guard, "
+              "--guard_transfers)")
 
 
 def say(*parts, **kw) -> None:
-    """print() for the run's progress lines (one process: always)."""
-    print(*parts, **kw)
+    """print() on the primary rank only (every rank of a multi-process
+    run would echo each line once)."""
+    from dalle_pytorch_tpu_torch.parallel.multihost import is_primary
+    if is_primary():
+        print(*parts, **kw)
 
 
 def resolve_resume(name_or_path: str, models_dir: str, start_epoch: int):
@@ -124,16 +130,23 @@ def make_supervisor(args, metrics, name: str, save_state):
         rewarm_steps=args.rewarm_steps).install_signal_handlers()
 
 
-def restore_rollback(sup, model: torch.nn.Module, optimizer, ema):
+def restore_rollback(sup, model: torch.nn.Module, optimizer, ema,
+                     mesh=None, param_specs=None):
     """Load the supervisor's newest valid anchor into ``model``,
     ``optimizer`` and (when the run keeps one) ``ema``, in place, after a
-    NaN or loss-spike verdict."""
+    NaN or loss-spike verdict, placed as the run was set up: a pipeline
+    stage keeps only its layers (``param_specs``), and every replica the
+    same values."""
+    from dalle_pytorch_tpu_torch.parallel.train import setup_sharded
     path = sup.rollback_target()
     ckpt.restore_train(path, model, optimizer)
     if ema is not None:
         tree = ckpt.restore_ema(path)
         if tree is not None:
             _load_ema(ema, model, tree)
+    if mesh is not None:
+        optimizer.retain(model)
+        setup_sharded(model, optimizer, mesh, param_specs)
 
 
 def add_common_args(parser: argparse.ArgumentParser,
@@ -155,16 +168,18 @@ def add_common_args(parser: argparse.ArgumentParser,
     a("--log_interval", type=int, default=10)
     a("--seed", type=int, default=0)
     a("--dp", type=int, default=0,
-      help="data-parallel devices (0 = all available; the port runs on "
-           "one)")
+      help="devices in the mesh (0 = every rank; one rank is one process "
+           "on one device, so it must equal the world size)")
     a("--profile_dir", type=str, default="",
       help="write a torch.profiler trace here")
     a("--coordinator", type=str, default="",
-      help="multi-host coordinator (not in the port: " + QUEUE_6 + ")")
+      help="multi-process coordinator host:port (or JAX_COORDINATOR_"
+           "ADDRESS / torchrun's MASTER_ADDR and MASTER_PORT)")
     a("--num_processes", type=int, default=0,
-      help="multi-host process count (not in the port)")
+      help="multi-process process count (or JAX_NUM_PROCESSES / "
+           "WORLD_SIZE)")
     a("--process_id", type=int, default=-1,
-      help="multi-host process id (not in the port)")
+      help="this process's rank (or JAX_PROCESS_ID / RANK)")
     a("--nan_checks", action="store_true",
       help="torch.autograd anomaly detection (slow)")
     a("--metrics", type=str, default="", help="JSONL metrics file path")
@@ -210,11 +225,13 @@ def add_common_args(parser: argparse.ArgumentParser,
       help="skip up to this many unreadable data records per epoch before "
            "failing the run")
     a("--init_deadline_s", type=float, default=0.0,
-      help="multi-host bring-up deadline (not in the port)")
+      help="deadline of each attempt to join the process group (0 = "
+           "none); exhausted attempts exit with the failure record")
     a("--init_retries", type=int, default=3,
       help="bring-up attempts under --init_deadline_s")
     a("--guard_transfers", action="store_true",
-      help="JAX's implicit-transfer guard (not in the port)")
+      help="JAX's implicit-transfer guard (not in the port: "
+           + GUARD_ITEM + ")")
 
 
 def step_rng(key: torch.Tensor, step: int) -> torch.Tensor:
@@ -302,11 +319,12 @@ class Optimizer:
         chain = {"0": adam, "1": lr_stage}
         return {"0": {}, "1": chain} if self.clip > 0 else chain
 
-    def state_tree(self, model: torch.nn.Module) -> dict:
+    def state_tree(self, model: torch.nn.Module, moments=None) -> dict:
         """optax's state for ``model``'s parameters (this optimizer's):
         ``mu`` and ``nu`` are torch's ``exp_avg`` and ``exp_avg_sq`` (zero
         before the first step) as JAX parameter trees, ``count`` the
-        update count."""
+        update count. ``moments`` ({name: exp_avg}, {name: exp_avg_sq})
+        gives them instead (a pipeline's, gathered from its stages)."""
         from dalle_pytorch_tpu_torch.compat import to_jax
 
         def moment(key):
@@ -314,16 +332,33 @@ class Optimizer:
                 p, {}) else torch.zeros_like(p)
                 for n, p in model.named_parameters()}
 
+        mu, nu = moments if moments is not None else (
+            moment("exp_avg"), moment("exp_avg_sq"))
         return self._chain({"count": np.asarray(self.count, np.int32),
-                            "mu": to_jax.tree(model, moment("exp_avg")),
-                            "nu": to_jax.tree(model, moment("exp_avg_sq"))})
+                            "mu": to_jax.tree(model, mu),
+                            "nu": to_jax.tree(model, nu)})
+
+    def retain(self, model: torch.nn.Module) -> None:
+        """Keep only ``model``'s parameters that hold values (not on the
+        meta device): a pipeline stage's, after the others left."""
+        keep = {id(p) for p in model.parameters() if not p.is_meta}
+        for p in self.params:
+            if id(p) not in keep:
+                self.adam.state.pop(p, None)
+        self.params = [p for p in model.parameters()
+                       if id(p) in keep and p.requires_grad]
+        self.adam.param_groups[0]["params"] = self.params
 
     def load_state_tree(self, model: torch.nn.Module, state: dict) -> None:
         """Take optax's state (``state_tree``'s layout, as a checkpoint
         restores it) for ``model``'s parameters; ``ValueError`` when its
         tree is another optimizer's."""
         from dalle_pytorch_tpu_torch.compat import msgpack, to_jax
-        params = to_jax.tree(model)
+        # the tree's layout only: a pipeline stage's other layers are on
+        # the meta device and have no values to copy
+        params = to_jax.tree(model, {
+            n: torch.empty(p.shape, dtype=p.dtype) if p.is_meta else p
+            for n, p in model.named_parameters()})
         state = msgpack.from_state_dict(
             self._chain({"count": 0, "mu": params, "nu": params}), state)
         if self.clip > 0:
@@ -335,15 +370,25 @@ class Optimizer:
         self.adam.state.clear()
         if count > 0:
             for n, p in model.named_parameters():
-                if p.requires_grad:
+                if p.requires_grad and not p.is_meta:
                     self.adam.state[p] = {
                         "step": torch.tensor(float(count)),
                         "exp_avg": mu[n].to(p.device, p.dtype).clone(),
                         "exp_avg_sq": nu[n].to(p.device, p.dtype).clone()}
         self.count = count
 
-    def step(self, lr_scale: float = 1.0) -> None:
-        if self.clip > 0:
+    def step(self, lr_scale: float = 1.0,
+             grad_norm: Optional[torch.Tensor] = None) -> None:
+        """``grad_norm``: the global gradient norm where this optimizer's
+        parameters are only part of the model (a pipeline stage); the
+        clip scales by ``clip / (norm + 1e-6)`` at most 1, as
+        ``clip_grad_norm_`` does."""
+        if self.clip > 0 and grad_norm is not None:
+            coef = torch.clamp(self.clip / (grad_norm + 1e-6), max=1.0)
+            for p in self.params:
+                if p.grad is not None:
+                    p.grad.mul_(coef.to(p.grad.dtype))
+        elif self.clip > 0:
             torch.nn.utils.clip_grad_norm_(self.params, self.clip)
         for group in self.adam.param_groups:
             group["lr"] = self.schedule(self.count) * lr_scale
@@ -552,55 +597,124 @@ def run_supervised_loop(args, *, sup, metrics, profiler, dataset, plan,
         metrics.close()
 
 
-def load_caption_dataset(args):
+def load_caption_dataset(args, mesh=None):
     """(vocab, CaptionDataset) from the --captions* flags, shared by
     train_dalle and train_clip; the vocabulary is saved beside the
-    checkpoints as ``{name}-vocab.json``."""
+    checkpoints as ``{name}-vocab.json`` by the primary rank. Each rank
+    reads the pairs of its ``dp`` coordinate (``shard_for_host``): the
+    ranks of one sp or pp group read the same rows."""
     from dalle_pytorch_tpu_torch.data.captions import (CaptionDataset,
                                                        load_caption_data)
+    from dalle_pytorch_tpu_torch.data.prefetch import shard_for_host
+    from dalle_pytorch_tpu_torch.parallel.multihost import is_primary
     vocab, data = load_caption_data(args.captions_only, args.captions,
                                     args.text_seq_len)
-    vocab.save(os.path.join(args.models_dir, f"{args.name}-vocab.json"))
+    if is_primary():
+        vocab.save(os.path.join(args.models_dir, f"{args.name}-vocab.json"))
+    data = list(shard_for_host(data, mesh=mesh))
     say(f"{len(data)} caption/image pairs on this host")
     return vocab, CaptionDataset(data, batch_size=args.batchSize,
                                  shuffle=True, seed=args.seed)
 
 
 def refuse_unported(args) -> None:
-    """``SystemExit`` for flags whose paths the port does not have yet."""
-    bad = [flag for flag, on in (
-        ("--dp", args.dp > 1),
-        ("--coordinator", bool(args.coordinator)),
-        ("--num_processes", args.num_processes > 0),
-        ("--process_id", args.process_id >= 0),
-        ("--init_deadline_s", args.init_deadline_s > 0),
-        ("--sp", (getattr(args, "sp", 0) or 0) > 1),
-        ("--pp", (getattr(args, "pp", 0) or 0) > 1),
-        ("--guard_transfers", args.guard_transfers)) if on]
-    if bad:
+    """``SystemExit`` for the flag whose path the port does not have."""
+    if args.guard_transfers:
+        raise SystemExit(f"--guard_transfers: not in the PyTorch port yet; "
+                         f"see {GUARD_ITEM}")
+
+
+def make_run_mesh(args, world: int):
+    """JAX's checks of the mesh flags (``setup_run``), then the mesh
+    ``{dp, sp}``, ``{dp, pp}`` or ``{dp}`` over the ``world`` ranks."""
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    n = args.dp or world
+    if n != world:
+        # one rank is one process on one device: the mesh is the world
         raise SystemExit(
-            f"{', '.join(bad)}: not in the PyTorch port yet — it trains in "
-            f"one process on one device; see {QUEUE_6}")
+            f"--dp {args.dp} does not match the world size ({world} "
+            f"process{'es' if world != 1 else ''}): each process is one "
+            "device, so start --dp processes (--num_processes, or "
+            "torchrun's WORLD_SIZE)")
+    sp = getattr(args, "sp", 0) or 1
+    pp = getattr(args, "pp", 0) or 1
+    if sp > 1 and pp > 1:
+        raise SystemExit("--sp and --pp cannot be combined (pick one "
+                         "model-parallel axis per run)")
+    if sp > 1 and n % sp:
+        raise SystemExit(f"--sp {sp} must divide the device count ({n})")
+    if pp > 1 and n % pp:
+        raise SystemExit(f"--pp {pp} must divide the device count ({n})")
+    if sp > 1:
+        axes = {"dp": n // sp, "sp": sp}
+    elif pp > 1:
+        axes = {"dp": n // pp, "pp": pp}
+    else:
+        axes = {"dp": n}
+    return make_mesh(axes)
 
 
 def setup_run(args, unit_name: str = "tokens", device=None):
-    """-> (device, MetricsLogger, StepProfiler). Refuses the flags of
-    paths not yet ported, activates a ``DALLE_FAULTS`` plan, seeds numpy
-    and makes the output directories. ``device`` is the card unless the
-    caller passes another (``device.resolve_device``)."""
-    from dalle_pytorch_tpu_torch.device import resolve_device
+    """-> (device, mesh, MetricsLogger, StepProfiler). Refuses
+    ``--guard_transfers``, activates a ``DALLE_FAULTS`` plan, joins the
+    process group when the flags or the environment name one
+    (``parallel/multihost.py``; with --init_deadline_s each attempt is
+    bounded and exhausted attempts exit with the bring-up record), makes
+    the mesh (``make_run_mesh``), seeds numpy and makes the output
+    directories. ``device`` is the rank's card unless the caller passes
+    another (``device.resolve_device``)."""
+    import json
+    from dalle_pytorch_tpu_torch.parallel import multihost
     from dalle_pytorch_tpu_torch.resilience import faults
+    from dalle_pytorch_tpu_torch.resilience.retry import BringupError
     from dalle_pytorch_tpu_torch.utils.debug import enable_nan_checks
     from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
     from dalle_pytorch_tpu_torch.utils.profiling import StepProfiler
     refuse_unported(args)
-    device = resolve_device(device)
     faults.maybe_activate_from_env()
+    try:
+        multihost.initialize(
+            coordinator_address=args.coordinator or None,
+            num_processes=args.num_processes or None,
+            process_id=args.process_id if args.process_id >= 0 else None,
+            deadline_s=args.init_deadline_s or None,
+            max_attempts=args.init_retries,
+            on_event=lambda rec: say(f"[resilience] {rec}"),
+            device=device)
+    except BringupError as e:
+        raise SystemExit(
+            "backend bring-up failed: " + json.dumps(e.record)) from e
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    device = multihost.local_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = make_run_mesh(args, multihost.process_count())
     enable_nan_checks(bool(args.nan_checks))
     np.random.seed(args.seed)
     metrics = MetricsLogger(args.metrics or None,
-                            log_interval=args.log_interval)
+                            log_interval=args.log_interval,
+                            n_devices=multihost.process_count(),
+                            data_parallel=mesh.size("dp"))
     profiler = StepProfiler(args.profile_dir or None)
-    os.makedirs(args.models_dir, exist_ok=True)
-    os.makedirs(args.results_dir, exist_ok=True)
-    return device, metrics, profiler
+    if multihost.is_primary():
+        os.makedirs(args.models_dir, exist_ok=True)
+        os.makedirs(args.results_dir, exist_ok=True)
+    multihost.barrier()
+    return device, mesh, metrics, profiler
+
+
+def save_checkpoint(path: str, model, optimizer, ema, *, mesh=None,
+                    param_specs=None, **kw) -> str:
+    """``checkpoint.save`` of the run's state, written once: every rank
+    calls it (a pipeline's stages gather their layers to the first
+    rank's), the primary writes, and the others wait at a barrier before
+    anything reads what it wrote. Returns ``path``."""
+    from dalle_pytorch_tpu_torch.parallel import multihost
+    from dalle_pytorch_tpu_torch.parallel.train import checkpoint_state
+    state = checkpoint_state(model, optimizer, ema, mesh, param_specs)
+    if multihost.is_primary():
+        params, opt, ema_ = state
+        ckpt.save(path, params, opt_state=opt, ema=ema_, **kw)
+    multihost.barrier()
+    return path

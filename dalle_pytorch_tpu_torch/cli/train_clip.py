@@ -8,7 +8,10 @@ defaults: the data contract of ``train_dalle`` (captions corpus,
 the EMA and per-epoch checkpoints ``{name}-{epoch}`` that ``gen_dalle
 --clip_name`` reranks with. ``--sparse_impl``'s default is the model
 config's, ``'ref'``, as in JAX (the CLI has no flag for it); the sparse
-encoders run K3 when a config asks for ``'pallas'``.
+encoders run K3 when a config asks for ``'pallas'``. Across processes
+(``cli/common.py::setup_run``) each rank reads the pairs of its ``dp``
+coordinate and the step is data parallel over the whole batch's
+similarity matrix; the primary rank writes the checkpoints.
 
 Run: python -m dalle_pytorch_tpu_torch.cli.train_clip --dataPath ./imagedata
 ``main(argv, device="cpu")`` runs on the CPU; the card is the default.
@@ -28,14 +31,16 @@ from dalle_pytorch_tpu_torch.cli.common import (LoopState, add_common_args,
                                                 make_supervisor, plan_resume,
                                                 resolve_schedule,
                                                 restore_rollback,
-                                                run_supervised_loop, say,
+                                                run_supervised_loop,
+                                                save_checkpoint, say,
                                                 setup_run, step_rng)
 from dalle_pytorch_tpu_torch.compat import from_jax
 from dalle_pytorch_tpu_torch.data.images import load_image_batch
 from dalle_pytorch_tpu_torch.models import clip as C
 from dalle_pytorch_tpu_torch.ops import prng
 from dalle_pytorch_tpu_torch.parallel.train import (clip_loss_fn,
-                                                    make_train_step)
+                                                    make_train_step,
+                                                    setup_sharded)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,8 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, *, device=None):
     args = build_parser().parse_args(argv)
-    device, metrics, profiler = setup_run(args, unit_name="pairs",
-                                          device=device)
+    device, mesh, metrics, profiler = setup_run(args, unit_name="pairs",
+                                                device=device)
 
     cfg = C.CLIPConfig(
         dim_text=args.dim_text, dim_image=args.dim_image,
@@ -83,7 +88,7 @@ def main(argv=None, *, device=None):
         visual_patch_size=args.visual_patch_size,
         sparse_attn=not args.dense)
 
-    vocab, dataset = load_caption_dataset(args)
+    vocab, dataset = load_caption_dataset(args, mesh)
     key = prng.prng_key(args.seed, device=device)
 
     plan = plan_resume(args, args.name, explicit=args.load_clip,
@@ -110,8 +115,9 @@ def main(argv=None, *, device=None):
     optimizer = make_optimizer(args, model.parameters(), schedule=sched)
     if resume_path:
         ckpt.restore_opt_state(resume_path, optimizer, model)
-    step = make_train_step(clip_loss_fn(), optimizer,
-                           grad_accum=args.grad_accum)
+    setup_sharded(model, optimizer, mesh)
+    step = make_train_step(clip_loss_fn(mesh), optimizer,
+                           grad_accum=args.grad_accum, mesh=mesh)
     ema, ema_update = make_ema(args, model, resume_path or "")
 
     def load_batch(item):
@@ -127,15 +133,15 @@ def main(argv=None, *, device=None):
         return {"ema_decay": args.ema_decay} if ema is not None else {}
 
     def save_state(path):
-        return ckpt.save(
-            path, model, step=state.global_step, config=cfg,
-            opt_state=optimizer, kind="clip",
+        return save_checkpoint(
+            path, model, optimizer, ema, mesh=mesh, step=state.global_step,
+            config=cfg, kind="clip",
             meta={"epoch": state.epoch, "step_in_epoch": state.epoch_i,
                   "global_step": state.global_step,
                   "records_in_epoch": state.records_in_epoch,
                   "train_loss": state.train_loss,
                   "n_batches": state.n_batches, "lr_schedule": sched,
-                  **ema_meta()}, ema=ema)
+                  **ema_meta()})
 
     sup = make_supervisor(args, metrics, args.name, save_state)
     if resume_path:
@@ -149,16 +155,16 @@ def main(argv=None, *, device=None):
         return loss, None
 
     def on_rollback(state):
-        restore_rollback(sup, model, optimizer, ema)
+        restore_rollback(sup, model, optimizer, ema, mesh)
 
     def on_epoch_end(state, avg):
         epoch = state.epoch
-        path = ckpt.save(
+        path = save_checkpoint(
             ckpt.ckpt_path(args.models_dir, args.name, epoch), model,
-            step=epoch, config=cfg, opt_state=optimizer, kind="clip",
+            optimizer, ema, mesh=mesh, step=epoch, config=cfg, kind="clip",
             meta={"epoch": epoch, "avg_loss": avg,
                   "global_step": state.global_step, "lr_schedule": sched,
-                  **ema_meta()}, ema=ema)
+                  **ema_meta()})
         metrics.event(event="checkpoint", path=path, epoch=epoch,
                       avg_loss=avg)
         return path

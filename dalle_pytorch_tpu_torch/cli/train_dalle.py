@@ -15,8 +15,17 @@ every ``--sample_every`` epochs through ``generate_images``.
 ``--attn_impl flash`` runs the flash forward kernel (K1) and
 ``--attn_bwd_impl pallas`` / ``pallas_fused`` its split (K2a, K2b) or
 fused backward kernels; ``--sparse_attn --sparse_impl pallas`` the
-block-sparse kernel (K3). ``--sp`` and ``--pp`` are refused
-(``cli/common.py::refuse_unported``).
+block-sparse kernel (K3).
+
+Across processes (``--coordinator``/``--num_processes``/``--process_id``
+or torchrun's environment; ``cli/common.py::setup_run``) each rank reads
+the caption pairs of its ``dp`` coordinate and trains on the mesh:
+``--sp`` splits the sequence (``parallel/sequence.py``, ring or Ulysses
+by ``--sp_impl``), ``--pp`` the layers into stages
+(``parallel/pipeline.py``, ``--pp_microbatches``), the rest is data
+parallel; the primary rank writes the checkpoints, the vocabulary and
+the samples. ``--caption_drop`` is refused with ``--sp``/``--pp``, as in
+JAX.
 
 Run: python -m dalle_pytorch_tpu_torch.cli.train_dalle --dataPath \
         ./imagedata --captions_only od-captionsonly.txt --captions \
@@ -39,7 +48,8 @@ from dalle_pytorch_tpu_torch.cli.common import (LoopState, add_common_args,
                                                 make_supervisor, plan_resume,
                                                 resolve_schedule,
                                                 restore_rollback,
-                                                run_supervised_loop, say,
+                                                run_supervised_loop,
+                                                save_checkpoint, say,
                                                 setup_run, step_rng)
 from dalle_pytorch_tpu_torch.compat import from_jax
 from dalle_pytorch_tpu_torch.data.images import (load_image_batch,
@@ -47,7 +57,13 @@ from dalle_pytorch_tpu_torch.data.images import (load_image_batch,
 from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.models import vae as V
 from dalle_pytorch_tpu_torch.ops import prng
-from dalle_pytorch_tpu_torch.parallel.train import make_train_step
+from dalle_pytorch_tpu_torch.parallel.mesh import shard_batch
+from dalle_pytorch_tpu_torch.parallel.multihost import fetch_local, is_primary
+from dalle_pytorch_tpu_torch.parallel.pipeline import (pp_dalle_loss_fn,
+                                                       pp_param_specs)
+from dalle_pytorch_tpu_torch.parallel.sequence import sp_dalle_loss_fn
+from dalle_pytorch_tpu_torch.parallel.train import (make_train_step,
+                                                    setup_sharded)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -112,11 +128,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accumulate gradients over this many microbatches "
                         "per optimizer step (batchSize must divide)")
     p.add_argument("--sp", type=int, default=0,
-                   help="sequence-parallel axis size (not in the port)")
+                   help="sequence-parallel mesh axis size (ranks split "
+                        "dp x sp; the token axis shards over sp with ring "
+                        "or Ulysses attention; dropout uses per-position "
+                        "keys)")
     p.add_argument("--sp_impl", default="ring", choices=["ring", "ulysses"])
     p.add_argument("--pp", type=int, default=0,
-                   help="pipeline-parallel stage count (not in the port)")
-    p.add_argument("--pp_microbatches", type=int, default=0)
+                   help="pipeline-parallel stage count (ranks split dp x "
+                        "pp; depth/pp consecutive layers per stage, GPipe "
+                        "microbatching)")
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="microbatches per pipeline step (default = --pp)")
     p.add_argument("--param_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="dtype for NEW runs' params (resumed runs keep "
@@ -136,13 +158,18 @@ def caption_dropped(text: torch.Tensor, rng: torch.Tensor,
                     p: float) -> torch.Tensor:
     """``text`` with each row replaced by the all-PAD null caption with
     probability ``p``, drawn as JAX's step draws it."""
-    drop = prng.bernoulli(prng.fold_in(rng, 0x0CFD), p, (text.shape[0], 1))
+    shape = (text.shape[0], 1)
+    drop = prng.bernoulli(prng.fold_in(rng, 0x0CFD), p, shape,
+                          prng.row_offset(shape))
     return torch.where(drop, torch.zeros_like(text), text)
 
 
 def main(argv=None, *, device=None):
     args = build_parser().parse_args(argv)
-    device, metrics, profiler = setup_run(args, device=device)
+    if args.caption_drop > 0 and (args.sp > 1 or args.pp > 1):
+        raise SystemExit("--caption_drop is supported on the dense path "
+                         "only (not --sp/--pp)")
+    device, mesh, metrics, profiler = setup_run(args, device=device)
 
     # the VAE (frozen tokenizer and decoder): the cross-CLI contract
     vae_path = ckpt.ckpt_path(args.models_dir, args.vaename, args.vae_epoch)
@@ -167,7 +194,7 @@ def main(argv=None, *, device=None):
 
     # data first: the cosine schedule's default horizon is the requested
     # run length, n_epochs x steps/epoch
-    vocab, dataset = load_caption_dataset(args)
+    vocab, dataset = load_caption_dataset(args, mesh)
     key = prng.prng_key(args.seed, device=device)
 
     ckpt_name = f"{args.name}_dalle"
@@ -203,6 +230,14 @@ def main(argv=None, *, device=None):
     optimizer = make_optimizer(args, model.parameters(), schedule=sched)
     if resume_path:
         ckpt.restore_opt_state(resume_path, optimizer, model)
+    param_specs = None
+    if args.pp > 1:
+        # each stage stores only its depth/pp layers (plus the embeddings
+        # and the head, held on every stage)
+        if cfg.depth % args.pp:
+            raise SystemExit(f"--pp {args.pp} must divide depth {cfg.depth}")
+        param_specs = pp_param_specs(model)
+    setup_sharded(model, optimizer, mesh, param_specs)
 
     def load_batch(item):
         paths, toks = item
@@ -221,7 +256,13 @@ def main(argv=None, *, device=None):
                              mask=torch.ones_like(text, dtype=torch.bool),
                              rng=rng, train=True, return_loss=True)
 
-    step = make_train_step(loss_fn, optimizer, grad_accum=args.grad_accum)
+    if args.sp > 1:
+        loss_fn = sp_dalle_loss_fn(mesh, impl=args.sp_impl)
+    elif args.pp > 1:
+        loss_fn = pp_dalle_loss_fn(
+            mesh, num_microbatches=args.pp_microbatches or None)
+    step = make_train_step(loss_fn, optimizer, grad_accum=args.grad_accum,
+                           mesh=mesh, param_specs=param_specs)
     ema, ema_update = make_ema(args, model, resume_path or "")
 
     state = LoopState(epoch=start_epoch,
@@ -231,16 +272,16 @@ def main(argv=None, *, device=None):
         return {"ema_decay": args.ema_decay} if ema is not None else {}
 
     def save_state(path):
-        return ckpt.save(
-            path, model, step=state.global_step, config=cfg,
-            opt_state=optimizer, kind="dalle",
+        return save_checkpoint(
+            path, model, optimizer, ema, mesh=mesh, param_specs=param_specs,
+            step=state.global_step, config=cfg, kind="dalle",
             meta={"epoch": state.epoch, "step_in_epoch": state.epoch_i,
                   "global_step": state.global_step,
                   "records_in_epoch": state.records_in_epoch,
                   "train_loss": state.train_loss,
                   "n_batches": state.n_batches, "vae_checkpoint": vae_path,
                   "vocab_words": len(vocab), "lr_schedule": sched,
-                  **ema_meta()}, ema=ema)
+                  **ema_meta()})
 
     sup = make_supervisor(args, metrics, ckpt_name, save_state)
     if resume_path:
@@ -248,40 +289,48 @@ def main(argv=None, *, device=None):
 
     def train_step(hosted, state):
         image_ids = V.get_codebook_indices(vae, hosted["images"])
-        batch = sup.pre_step(state.global_step, {"text": hosted["text"],
-                                                 "image": image_ids})
+        # each rank read its own rows (load_caption_dataset)
+        batch = shard_batch(mesh, {"text": hosted["text"],
+                                   "image": image_ids}, local=True)
+        batch = sup.pre_step(state.global_step, batch)
         loss = step(model, batch, step_rng(key, state.global_step))
         if ema is not None:
             ema_update(ema, model)
         return loss, batch["text"]
 
     def on_rollback(state):
-        restore_rollback(sup, model, optimizer, ema)
+        restore_rollback(sup, model, optimizer, ema, mesh, param_specs)
 
     def on_epoch_end(state, avg):
         epoch = state.epoch
-        path = ckpt.save(
+        path = save_checkpoint(
             ckpt.ckpt_path(args.models_dir, ckpt_name, epoch), model,
-            step=epoch, config=cfg, opt_state=optimizer, kind="dalle",
+            optimizer, ema, mesh=mesh, param_specs=param_specs, step=epoch,
+            config=cfg, kind="dalle",
             meta={"epoch": epoch, "avg_loss": avg,
                   "global_step": state.global_step,
                   "vae_checkpoint": vae_path, "vocab_words": len(vocab),
-                  "lr_schedule": sched, **ema_meta()}, ema=ema)
+                  "lr_schedule": sched, **ema_meta()})
         metrics.event(event="checkpoint", path=path, epoch=epoch,
                       avg_loss=avg)
 
         if args.sample_every and (epoch + 1) % args.sample_every == 0 \
                 and state.last is not None:
-            # sample from the last minibatch's captions; a resume landing
-            # on the epoch boundary has no batch in hand
-            texts = state.last
-            k = min(4, texts.shape[0])
-            images = D.generate_images(
-                model, vae, texts[:k], rng=prng.fold_in(key, 10_000 + epoch))
-            out = os.path.join(args.results_dir,
-                               f"{args.name}_dalle_epoch_{epoch}.png")
-            save_image_grid(images, out, nrow=k)
-            metrics.event(event="sample", path=out, epoch=epoch)
+            # sample from the last minibatch's captions, gathered over dp;
+            # a resume landing on the epoch boundary has no batch in hand.
+            # A pipeline's stages hold part of the stack: the samples need
+            # it whole, so they are skipped under --pp
+            texts = torch.as_tensor(fetch_local(state.last,
+                                                mesh.group("dp")))
+            if is_primary() and args.pp <= 1:
+                k = min(4, texts.shape[0])
+                images = D.generate_images(
+                    model, vae, texts[:k].to(device),
+                    rng=prng.fold_in(key, 10_000 + epoch))
+                out = os.path.join(args.results_dir,
+                                   f"{args.name}_dalle_epoch_{epoch}.png")
+                save_image_grid(images, out, nrow=k)
+                metrics.event(event="sample", path=out, epoch=epoch)
         return path
 
     run_supervised_loop(

@@ -8,7 +8,9 @@ vae_loss_fn(smooth_l1=True)``), the optional per-step weight clamp
 per-epoch [input | recon | decode(argmax codes)] grids, and per-epoch
 checkpoints under ``{models_dir}/{name}-{epoch}`` that the JAX package
 reads as its own. Batches are decoded on the prefetch thread and copied
-to the device there.
+to the device there. Across processes (``cli/common.py::setup_run``)
+each rank reads the image files of its ``dp`` coordinate and the step
+is data parallel; the primary rank writes the grids and checkpoints.
 
 Run: python -m dalle_pytorch_tpu_torch.cli.train_vae --dataPath ./imagedata
 ``main(argv, device="cpu")`` runs on the CPU; the card is the default.
@@ -27,14 +29,18 @@ from dalle_pytorch_tpu_torch.cli.common import (LoopState, add_common_args,
                                                 make_supervisor, plan_resume,
                                                 resolve_schedule,
                                                 restore_rollback,
-                                                run_supervised_loop, say,
+                                                run_supervised_loop,
+                                                save_checkpoint, say,
                                                 setup_run, step_rng)
 from dalle_pytorch_tpu_torch.compat import from_jax
 from dalle_pytorch_tpu_torch.data.images import (ImageFolderDataset,
                                                  save_image_grid)
 from dalle_pytorch_tpu_torch.models import vae as V
 from dalle_pytorch_tpu_torch.ops import prng
+from dalle_pytorch_tpu_torch.data.prefetch import shard_for_host
+from dalle_pytorch_tpu_torch.parallel.multihost import is_primary
 from dalle_pytorch_tpu_torch.parallel.train import (make_train_step,
+                                                    setup_sharded,
                                                     vae_loss_fn)
 
 
@@ -71,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_step(cfg: V.VAEConfig, optimizer, clip: float,
-              grad_accum: int = 1):
+              grad_accum: int = 1, mesh=None):
     """``step(vae, batch{'images', 'temperature'}, rng) -> loss``: the
     training scripts' loss at the batch's temperature, one Adam update
     (scaled by an optional ``batch['lr_scale']``), then the optional
@@ -81,7 +87,8 @@ def make_step(cfg: V.VAEConfig, optimizer, clip: float,
         return vae_loss_fn(cfg, smooth_l1=True,
                            temperature=batch["temperature"])(vae, batch, rng)
 
-    train_step = make_train_step(loss_fn, optimizer, grad_accum=grad_accum)
+    train_step = make_train_step(loss_fn, optimizer, grad_accum=grad_accum,
+                                 mesh=mesh)
 
     def step(vae, batch, rng):
         loss = train_step(vae, batch, rng)
@@ -96,8 +103,8 @@ def make_step(cfg: V.VAEConfig, optimizer, clip: float,
 
 def main(argv=None, *, device=None):
     args = build_parser().parse_args(argv)
-    device, metrics, profiler = setup_run(args, unit_name="images",
-                                          device=device)
+    device, mesh, metrics, profiler = setup_run(args, unit_name="images",
+                                                device=device)
 
     cfg = V.VAEConfig(
         image_size=args.imageSize, num_tokens=args.num_tokens,
@@ -109,6 +116,8 @@ def main(argv=None, *, device=None):
     dataset = ImageFolderDataset(args.dataPath, args.imageSize,
                                  args.batchSize, shuffle=True,
                                  seed=args.seed)
+    # each rank reads its dp coordinate's slice of the files
+    dataset.files = list(shard_for_host(dataset.files, mesh=mesh))
     key = prng.prng_key(args.seed, device=device)
 
     temperature = args.temperature
@@ -139,7 +148,9 @@ def main(argv=None, *, device=None):
     optimizer = make_optimizer(args, vae.parameters(), schedule=sched)
     if resume_path:
         ckpt.restore_opt_state(resume_path, optimizer, vae)
-    step = make_step(cfg, optimizer, args.clip, grad_accum=args.grad_accum)
+    setup_sharded(vae, optimizer, mesh)
+    step = make_step(cfg, optimizer, args.clip, grad_accum=args.grad_accum,
+                     mesh=mesh)
     ema, ema_update = make_ema(args, vae, resume_path or "")
 
     dk = 0.7 ** (1.0 / max(len(dataset), 1))
@@ -155,16 +166,16 @@ def main(argv=None, *, device=None):
     def save_state(path):
         """The whole mid-epoch training state: weights, optimizer, EMA,
         schedule and the loop's position and accumulators."""
-        return ckpt.save(
-            path, vae, step=state.global_step, config=cfg,
-            opt_state=optimizer, kind="vae",
+        return save_checkpoint(
+            path, vae, optimizer, ema, mesh=mesh, step=state.global_step,
+            config=cfg, kind="vae",
             meta={"temperature": temperature, "epoch": state.epoch,
                   "step_in_epoch": state.epoch_i,
                   "global_step": state.global_step,
                   "records_in_epoch": state.records_in_epoch,
                   "train_loss": state.train_loss,
                   "n_batches": state.n_batches, "lr_schedule": sched,
-                  **ema_meta()}, ema=ema)
+                  **ema_meta()})
 
     sup = make_supervisor(args, metrics, args.name, save_state)
     if resume_path:
@@ -180,7 +191,7 @@ def main(argv=None, *, device=None):
         return loss, batch
 
     def on_rollback(state):
-        restore_rollback(sup, vae, optimizer, ema)
+        restore_rollback(sup, vae, optimizer, ema, mesh)
 
     def on_epoch_end(state, avg):
         nonlocal temperature
@@ -191,7 +202,7 @@ def main(argv=None, *, device=None):
 
         # the epoch's recon grid (input | recon | argmax decode), first 8;
         # a resume landing on the epoch boundary has no batch in hand
-        if state.last is not None:
+        if state.last is not None and is_primary():
             k = min(8, args.batchSize)
             imgs = state.last["images"][:k]
             with torch.no_grad():
@@ -205,12 +216,12 @@ def main(argv=None, *, device=None):
                 args.results_dir, f"{args.name}_epoch_{epoch}.png"),
                 nrow=k)
 
-        path = ckpt.save(
+        path = save_checkpoint(
             ckpt.ckpt_path(args.models_dir, args.name, epoch), vae,
-            step=epoch, config=cfg, opt_state=optimizer, kind="vae",
+            optimizer, ema, mesh=mesh, step=epoch, config=cfg, kind="vae",
             meta={"temperature": temperature, "epoch": epoch,
                   "avg_loss": avg, "global_step": state.global_step,
-                  "lr_schedule": sched, **ema_meta()}, ema=ema)
+                  "lr_schedule": sched, **ema_meta()})
         metrics.event(event="checkpoint", path=path, epoch=epoch,
                       avg_loss=avg, temperature=temperature)
         return path

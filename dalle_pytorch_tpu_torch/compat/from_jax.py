@@ -171,6 +171,18 @@ def fill_dalle(model: D.DALLE, params: Mapping) -> None:
     _linear(model.logits_proj, params["to_logits"]["proj"])
 
 
+@torch.no_grad()
+def transformer_from_jax(stack: Mapping, cfg: T.TransformerConfig, *,
+                         dtype=None, device=None) -> T.Transformer:
+    """A bare depth-stacked JAX transformer tree (``transformer_init``)
+    into the port's ``Transformer``."""
+    device = resolve_device(device)
+    dtype = dtype or to_tensor(stack["attn"]["ln"]["g"]).dtype
+    model = T.Transformer(cfg, device=device, dtype=dtype)
+    _transformer(model, stack)
+    return model
+
+
 def _transformer(model: T.Transformer, stack: Mapping) -> None:
     """A depth-stacked JAX transformer tree into one module per layer."""
     depth = to_tensor(stack["attn"]["ln"]["g"]).shape[0]

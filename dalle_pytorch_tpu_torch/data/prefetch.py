@@ -24,10 +24,23 @@ import numpy as np
 import torch
 
 
-def shard_for_host(items: Sequence[Any], process_index: int = 0,
-                   process_count: int = 1) -> Sequence[Any]:
-    """Contiguous per-process slice of a dataset (equal lengths, trailing
-    remainder dropped); a port run is one process, which takes all."""
+def shard_for_host(items: Sequence[Any],
+                   process_index: Optional[int] = None,
+                   process_count: Optional[int] = None, *,
+                   mesh=None, axis: str = "dp") -> Sequence[Any]:
+    """Contiguous slice of a dataset for this rank (equal lengths,
+    trailing remainder dropped, so every rank steps in lockstep). The
+    defaults come from the group: the rank's coordinate on ``mesh``'s
+    ``axis`` of its size, not its rank, so the ranks of one sp or pp
+    group read the same rows (without a mesh, the rank of the world)."""
+    if process_index is None or process_count is None:
+        if mesh is not None:
+            pi, pc = mesh.index(axis), mesh.size(axis)
+        else:
+            from dalle_pytorch_tpu_torch.parallel import multihost
+            pi, pc = multihost.process_index(), multihost.process_count()
+        process_index = pi if process_index is None else process_index
+        process_count = pc if process_count is None else process_count
     per = len(items) // process_count
     if per == 0:
         raise ValueError(f"{len(items)} items cannot feed {process_count} "

@@ -197,9 +197,20 @@ def clip_apply(model: CLIP, text: torch.Tensor, images: torch.Tensor, *,
     (its log-softmax in float32)."""
     tl = encode_text(model, text, text_mask)
     il = encode_image(model, images)
-    temp = torch.exp(model.temperature)
     if not return_loss:
-        return torch.einsum("nd,nd->n", tl, il) * temp
-    sim = torch.einsum("id,jd->ij", tl, il) * temp
+        return torch.einsum("nd,nd->n", tl, il) * torch.exp(
+            model.temperature)
+    return info_nce(model, tl, il)
+
+
+def info_nce(model: CLIP, text_latents: torch.Tensor,
+             image_latents: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """The one-directional InfoNCE loss of text rows against image
+    columns, text row ``i`` paired with image ``offset + i`` (a rank's
+    rows against every rank's images under dp), over the similarity
+    matrix's log-softmax in float32."""
+    sim = torch.einsum("id,jd->ij", text_latents, image_latents) * torch.exp(
+        model.temperature)
     logp = torch.log_softmax(sim.float(), dim=-1)
-    return -logp.diagonal().mean()
+    rows = torch.arange(text_latents.shape[0], device=text_latents.device)
+    return -logp[rows, offset + rows].mean()

@@ -231,7 +231,8 @@ def gumbel_softmax(key: torch.Tensor, logits: torch.Tensor, tau: float,
     tau) with Gumbel noise g drawn under ``key`` in the logits' dtype
     (``prng.gumbel``, JAX's draw). Straight-through adds
     ``one_hot(argmax) - soft`` with no gradient."""
-    g = prng.gumbel(key, logits.shape, logits.dtype)
+    g = prng.gumbel(key, logits.shape, logits.dtype,
+                    prng.row_offset(logits.shape))
     # tau divides in the logits' dtype, as JAX's weakly typed scalar does
     tau = torch.tensor(tau, dtype=logits.dtype, device=logits.device)
     soft = torch.softmax((logits + g) / tau, dim=-1)

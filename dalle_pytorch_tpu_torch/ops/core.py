@@ -17,7 +17,10 @@ package's numerics rather than the modules' own ``forward``:
   backward but recomputed there from the input;
 * ``gelu`` is the exact erf form (``core.gelu``);
 * ``dropout`` draws its keep mask with the port's threefry, so a key
-  drops the same elements as ``core.dropout`` under that key in JAX;
+  drops the same elements as ``core.dropout`` under that key in JAX
+  (under ``prng.batch_rows`` a data-parallel rank draws its rows of the
+  whole batch's mask); ``positional_dropout`` keys each token's mask by
+  its global position, as the sequence-parallel stack needs;
 * the convolutions run NCHW; callers keep NHWC at their public
   functions (``models/vae.py``). ``conv2d_transpose`` with an IOHW
   weight equals the JAX flipped-kernel input-dilated convolution over
@@ -81,7 +84,26 @@ def dropout(key, x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
     if not train or rate == 0.0 or key is None:
         return x
     keep = 1.0 - rate
-    mask = prng.bernoulli(key, keep, x.shape)
+    mask = prng.bernoulli(key, keep, x.shape, prng.row_offset(x.shape))
+    div = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / div, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+
+
+def positional_dropout(key, x: torch.Tensor, rate: float, train: bool, *,
+                       offset: int = 0) -> torch.Tensor:
+    """Dropout whose mask for token ``i`` (axis 1 of ``x``) is drawn
+    under ``fold_in(key, offset + i)`` for the shape of one position
+    (``core.positional_dropout``): the same mask whichever way the
+    sequence is split, each shard passing its first global position as
+    ``offset``. All positions draw in one batched call."""
+    if not train or rate == 0.0 or key is None:
+        return x
+    keep = 1.0 - rate
+    pos = offset + torch.arange(x.shape[1], device=key.device)
+    keys = prng.fold_in(key, pos)                        # (n, 2)
+    per_pos = (x.shape[0],) + tuple(x.shape[2:])
+    mask = prng.bernoulli(keys, keep, per_pos).movedim(0, 1)
     div = torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, x / div, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))

@@ -40,7 +40,9 @@ axes and stays on the keys' device — no host sync per token.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
@@ -86,12 +88,17 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def _hash_counters(key: torch.Tensor, shape: Sequence[int]):
+def _hash_counters(key: torch.Tensor, shape: Sequence[int],
+                   offset: int = 0):
     """Both threefry output words for the flat counters of ``shape``,
-    for every key in ``key``'s leading axes: (..., *shape) each."""
+    for every key in ``key``'s leading axes: (..., *shape) each. The
+    counters are ``offset + arange(prod(shape))``: a draw of a slice of
+    rows of a larger array starts at the slice's first flat index, and
+    equals that slice of the whole array's draw."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=key.device).reshape(shape)
     lead = key.shape[:-1]
     k0 = key[..., 0].reshape(lead + (1,) * len(shape))
     k1 = key[..., 1].reshape(lead + (1,) * len(shape))
@@ -99,13 +106,14 @@ def _hash_counters(key: torch.Tensor, shape: Sequence[int]):
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],
-                bit_width: int = 32) -> torch.Tensor:
+                bit_width: int = 32, offset: int = 0) -> torch.Tensor:
     """``bit_width``-bit random words (8, 16 or 32) of ``shape`` for every
     key in ``key``'s leading axes: (..., *shape) int64 in
-    [0, 2**bit_width), the low bits of the 32-bit word."""
+    [0, 2**bit_width), the low bits of the 32-bit word. ``offset`` is the
+    first flat counter (``_hash_counters``)."""
     if bit_width not in (8, 16, 32):
         raise ValueError(f"bit_width must be 8, 16 or 32, got {bit_width}")
-    b0, b1 = _hash_counters(key, shape)
+    b0, b1 = _hash_counters(key, shape, offset)
     return (b0 ^ b1) & ((1 << bit_width) - 1)
 
 
@@ -122,14 +130,15 @@ _UNIFORM = {torch.float32: (32, 23, 0x3F800000, torch.int32),
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+            maxval: float = 1.0, dtype=torch.float32,
+            offset: int = 0) -> torch.Tensor:
     """Uniform in [minval, maxval) in float32 or bfloat16
     (``random._uniform``): the top mantissa-width bits of the draw become
     the mantissa of a float in [1, 2), minus 1, all in ``dtype``."""
     if dtype not in _UNIFORM:
         raise TypeError(f"uniform takes float32 or bfloat16, got {dtype}")
     width, nmant, one, view = _UNIFORM[dtype]
-    bits = random_bits(key, shape, width)
+    bits = random_bits(key, shape, width, offset)
     fbits = ((bits >> (width - nmant)) | one).to(view)
     floats = fbits.view(dtype) - 1.0
     lo = torch.tensor(minval, dtype=dtype, device=key.device)
@@ -137,20 +146,49 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
-def bernoulli(key: torch.Tensor, p: float,
-              shape: Sequence[int]) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int],
+              offset: int = 0) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: bool, True with
     probability ``p`` (a float32 uniform below float32 ``p``)."""
     pf = torch.tensor(p, dtype=torch.float32, device=key.device)
-    return uniform(key, shape) < pf
+    return uniform(key, shape, offset=offset) < pf
 
 
-def gumbel(key: torch.Tensor, shape: Sequence[int],
-           dtype=torch.float32) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape: Sequence[int], dtype=torch.float32,
+           offset: int = 0) -> torch.Tensor:
     """Standard Gumbel noise in float32 or bfloat16 (``random._gumbel``,
     mode 'low'), every step in ``dtype``."""
     tiny = torch.finfo(dtype).tiny
-    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, dtype)))
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, dtype,
+                                         offset)))
+
+
+# the first global batch row of the rows this thread's batch draws hold
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def batch_rows(start: int):
+    """Inside, a draw of a batch-leading shape made through
+    ``row_offset`` (dropout, the VAE's Gumbel noise, the caption drop)
+    is rows ``start ..`` of the draw for the whole batch: a data-parallel
+    rank holding those rows draws exactly its part of the one-device
+    draw, as JAX's data-parallel step does (it draws for the global
+    shape and shards it)."""
+    prev = getattr(_ROWS, "start", 0)
+    _ROWS.start = int(start)
+    try:
+        yield
+    finally:
+        _ROWS.start = prev
+
+
+def row_offset(shape: Sequence[int]) -> int:
+    """The first flat counter of a batch-leading ``shape`` under
+    ``batch_rows`` (0 outside it)."""
+    start = getattr(_ROWS, "start", 0)
+    return start * math.prod(int(s) for s in tuple(shape)[1:]) if start \
+        else 0
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -182,14 +182,18 @@ class Transformer(nn.Module):
 def ff_branch(layer: Layer, x: torch.Tensor,
               cfg: Optional[TransformerConfig] = None,
               key: Optional[torch.Tensor] = None,
-              train: bool = False) -> torch.Tensor:
+              train: bool = False, dropout_fn=None) -> torch.Tensor:
     """PreNorm GEGLU feed-forward (``transformer.ff_branch``), with
-    ``cfg.ff_dropout`` on the gated hidden in train mode."""
+    ``cfg.ff_dropout`` on the gated hidden in train mode;
+    ``dropout_fn(key, h)`` replaces that dropout (the sequence-parallel
+    stack passes ``core.positional_dropout``)."""
     p = layer.ff
     h = core.linear(p.w1, core.layernorm(p.ln, x, recompute=_save_ln(cfg)))
     h, gates = h.chunk(2, dim=-1)
     h = h * core.gelu(gates)
-    if train:
+    if dropout_fn is not None:
+        h = dropout_fn(key, h)
+    elif train:
         h = core.dropout(key, h, cfg.ff_dropout, train)
     return core.linear(p.w2, h)
 

@@ -1,1 +1,2 @@
-"""The training step (single device so far)."""
+"""Training across devices: the process group, the mesh, collectives,
+data, sequence and pipeline parallelism, and the training step."""

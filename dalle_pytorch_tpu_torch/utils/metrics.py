@@ -3,8 +3,12 @@
 Port of ``dalle_pytorch_tpu/utils/metrics.py``: ``structured_event`` (the
 resilience records) and ``MetricsLogger`` (per-step loss and units a
 second, echoed to stdout every ``log_interval`` steps and appended as
-JSONL). A port run is one process on one device, so the rate per chip
-is the rate.
+JSONL). As in JAX, only the primary rank prints and writes (every rank
+holds the same global loss), and the rate scales to the run: a rank
+counts the units of its own batch, ``data_parallel`` ranks each read
+different rows (the ranks of one sp or pp group the same ones), so the
+run's rate is the rank's times ``data_parallel``, and the rate per chip
+divides that by the ``n_devices`` ranks of the mesh.
 """
 
 from __future__ import annotations
@@ -27,8 +31,13 @@ class MetricsLogger:
     """Per-step metrics with wall-clock throughput, echoed to stdout and
     appended as JSONL (one object per record)."""
 
-    def __init__(self, path: Optional[str] = None, log_interval: int = 10):
-        self.path = path
+    def __init__(self, path: Optional[str] = None, log_interval: int = 10,
+                 n_devices: int = 1, data_parallel: int = 1):
+        from dalle_pytorch_tpu_torch.parallel.multihost import is_primary
+        self.primary = is_primary()
+        self.path = path if self.primary else None
+        self.n_devices = max(int(n_devices), 1)
+        self.data_parallel = max(int(data_parallel), 1)
         self.log_interval = log_interval
         self._t_last = time.perf_counter()
         self._units_since = 0
@@ -62,11 +71,12 @@ class MetricsLogger:
             return
         now = time.perf_counter()
         dt = max(now - self._t_last, 1e-9)
-        rate = self._units_since / dt
+        rate = self._units_since / dt * self.data_parallel
         rec = {
             "step": step, "loss": float(loss),
             f"{unit_name}_per_sec": round(rate, 2),
-            f"{unit_name}_per_sec_per_chip": round(rate, 2),
+            f"{unit_name}_per_sec_per_chip": round(rate / self.n_devices,
+                                                   2),
             "time": time.time(),
         }
         if epoch is not None:
@@ -75,6 +85,8 @@ class MetricsLogger:
         self._t_last = now
         self._units_since = 0
         head = f"epoch {epoch} " if epoch is not None else ""
+        if not self.primary:
+            return
         print(f"{head}step {step}  loss {rec['loss']:.6f}  "
               f"{rec[f'{unit_name}_per_sec_per_chip']:.1f} "
               f"{unit_name}/s/chip", flush=True)
@@ -89,5 +101,7 @@ class MetricsLogger:
         appended like any other event."""
         rec = structured_event(kind, **fields)
         detail = {k: v for k, v in rec.items() if k not in ("time", "event")}
+        if not self.primary:
+            return
         print(f"[resilience] {json.dumps(detail)}", flush=True)
         self._write(rec)

@@ -11,8 +11,9 @@ meta keys, the vocabulary, the grids), and the JAX package validates
 and reads every checkpoint the port wrote; ``gen_dalle`` of both
 packages on one JAX-written checkpoint and seed: the tokens
 ``generate_images`` samples are identical and the grid PNGs agree
-within 1 of 255; every flag of a path not yet ported ends in
-``SystemExit``; a JPEG in the image folder fails with the typed error.
+within 1 of 255; each multi-process flag alone in one process, and
+``--guard_transfers``, ends in ``SystemExit`` as JAX's setup refuses it;
+a JPEG in the image folder fails with the typed error.
 """
 
 import json
@@ -239,14 +240,33 @@ def test_gen_dalle_samples_jax_tokens_from_one_checkpoint(runs, tmp_path):
     assert np.abs(grids["port"] - grids["jax"]).max() <= 1
 
 
-@pytest.mark.parametrize("flag", [
-    ["--dp", "2"], ["--coordinator", "localhost:1234"],
-    ["--num_processes", "2"], ["--process_id", "0"],
-    ["--init_deadline_s", "5"], ["--sp", "2"], ["--pp", "2"],
-    ["--guard_transfers"]])
-def test_unported_flags_end_in_system_exit(data, tmp_path, flag):
+def _unreachable():
+    """A localhost coordinator nobody listens on."""
+    from dalle_pytorch_tpu_torch.parallel.launch import free_port
+    return f"127.0.0.1:{free_port()}"
+
+
+# each multi-process flag alone in one process ends as JAX's setup does:
+# the mesh flags against the world size, the join flags without their
+# partners, a join with a deadline against a coordinator nobody runs
+# (rank 1 of 2), and the transfer guard, still not in the port
+@pytest.mark.parametrize("flag, match", [
+    (["--dp", "2"], "world size"),
+    (["--coordinator", "localhost:1234"], "process count"),
+    (["--num_processes", "2"], "coordinator address"),
+    (["--process_id", "1", "--num_processes", "2", "--coordinator",
+      "UNREACHABLE", "--init_retries", "1", "--init_deadline_s", "1"],
+     "bring-up failed"),
+    (["--init_deadline_s", "1", "--init_retries", "1", "--coordinator",
+      "UNREACHABLE", "--num_processes", "2", "--process_id", "1"],
+     "bring-up failed"),
+    (["--sp", "2"], "must divide the device count"),
+    (["--pp", "2"], "must divide the device count"),
+    (["--guard_transfers"], "queue 1 item 4")])
+def test_unported_flags_end_in_system_exit(data, tmp_path, flag, match):
     from dalle_pytorch_tpu_torch.cli import train_dalle
-    with pytest.raises(SystemExit, match="queue 1 item 6"):
+    flag = [_unreachable() if f == "UNREACHABLE" else f for f in flag]
+    with pytest.raises(SystemExit, match=match):
         train_dalle.main(dalle_argv(data, tmp_path, flag), device="cpu")
 
 

@@ -871,6 +871,31 @@ def _tiny_dalle(**kw):
 
 
 @pytest.mark.cuda
+def test_two_ranks_on_the_card_match_the_one_process_dp_step(cuda):
+    """Two rank processes on the one card over gloo (each its own CUDA
+    context): the tiny DALLE's dp step (flash attention, the split kernel
+    backward, dropout 0.1 drawn as rows of the whole batch's masks) from
+    the same seeded weights and key as this process's one-process step on
+    the whole batch. float32: the loss to 1e-5 relative and each reduced
+    gradient to 1e-4 of its largest element; each rank launched K1, K2a
+    and K2b once a layer (depth 2), the one process the same."""
+    import torch_parallel_ranks as R
+    from dalle_pytorch_tpu_torch.parallel.launch import spawn
+    loss, grads, ran = R.tiny_dp_grads({"dp": 1}, cuda)
+    assert ran == (2, 2, 2)
+    ranks = spawn(R.card_dp_case, 2, device=None, backend="gloo",
+                  timeout_s=300)
+    for r_loss, r_grads, r_ran in ranks:
+        assert r_ran == (2, 2, 2)
+        assert abs(r_loss - loss) <= 1e-5 * abs(loss)
+        assert set(r_grads) == set(grads)
+        for name, want in grads.items():
+            largest = float(np.abs(want).max())
+            err = float(np.abs(r_grads[name] - want).max())
+            assert err <= 1e-4 * max(largest, 1e-30), (name, err, largest)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reversible_dalle_step_on_card_matches_cpu(cuda, dtype):
     """The tiny reversible DALLE (depth 2, dropout 0.1): the backward
