@@ -5,7 +5,8 @@
                                                    # (images, generate,
                                                    # replicas, processes,
                                                    # gateway, cli,
-                                                   # parallel)
+                                                   # parallel, http,
+                                                   # serve_features)
 
 Drives the port (``dalle_pytorch_tpu_torch``) and nothing of JAX, at the
 full width of the repo's north DALLE configuration (``bench.py``
@@ -37,7 +38,7 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    to 1e-4, then 64 greedy steps with identical tokens;
 4. engine — the bfloat16 serving engine end to end at ``SERVE_DEPTH``
    (2: the ``engine``, ``sparse_engine``, ``wide_engine``,
-   ``rev_decode`` and ``serve_features``' bfloat16 engines and
+   ``rev_decode``, ``http`` and ``serve_features``' bfloat16 engines and
    ``import``'s model are cut from depth 12 to keep the smoke's time,
    their float32 step checks are not) on 6
    requests
@@ -241,24 +242,38 @@ The entry points a user calls, through ``main(argv)``:
    ``train_cfg``'s flash kernels (split backward) and dropout 0.1,
    batch 8 global (``id_batch``): this process computes the one-process
    step (loss and every gradient) of each run from the seeded weights
-   and key: dp (the whole batch), sp (sp 1: the masks are drawn per
-   global position), pp (``sequential_pp_loss``: 2 stages of 2 layers,
-   4 microbatches, keys per stage); then two spawned rank processes over
+   and key: dp, tp, fsdp and ep (the whole batch; ep's model a top-2
+   MoE of 4 experts), sp (sp 1: the masks are drawn per global
+   position), pp (``sequential_pp_loss``: 2 stages of 2 layers, 4
+   microbatches, keys per stage); K1, K2a, K2b and K3 at a tp rank's 4
+   heads against their plain versions (timed, with their bounds and
+   SDPA); then two spawned rank processes over
    gloo on the one card (each its own CUDA context) check the
    collectives' values on CUDA tensors (gloo runs all-reduce,
    broadcast, all-gather, reduce-scatter and all-to-all on them;
    ppermute is staged through pinned host memory), and hold each run
    (dp 2, sp 2 ring, sp 2 Ulysses, pp 2, pp 2 with the pattern
-   ``(True, False) x 2``: K3) against the one-process step: bf16 loss to
+   ``(True, False) x 2``: K3; tp 2, tp 2 sparse, fsdp 2, ep 2 under
+   ``dalle_param_specs(mesh=)`` / ``dalle_moe_param_specs``, their
+   gradients gathered whole) against the one-process step: bf16 loss to
    2e-2 relative and each gradient to 2e-2 of its largest entry (the
    image's axial position embeddings', ``BF16_SCATTERED``, to relative
    L2 2e-2), and a depth-2
    float32 copy to 1e-5 on the loss and 1e-4 of each gradient's largest
    entry; then 2 steps of each (the first a warm-up) with each rank's
-   K1/K2a/K2b/K3 launches (dp: depth x steps; pp: depth/2 x 4 x steps,
-   the sparse run half K3; sp: none, as in JAX), ms a step beside the
+   K1/K2a/K2b/K3 launches (dp, tp, fsdp, ep: depth x steps, tp at 4
+   heads a rank; tp sparse half K3; pp: depth/2 x 4 x steps, the sparse
+   run half K3; sp: none, as in JAX), ms a step beside the
    one process's, host ms and bytes a step inside ``collectives.py``,
-   peak and parameter GiB; then ``train_dalle --sp 2`` as two processes
+   peak and parameter GiB, each rank's parameter bytes against the
+   replicated model's and the reckoned share (``reckoned_bytes``); then
+   generate_dp: 4 candidates over dp 2 (float32, depth 2) through
+   ``generate_images(clip=, mesh=)``, each rank sampling and scoring its
+   rows (K3 non-causal, launched as often as in this process's call),
+   the images and the CLIP rerank's scores to 1e-4 of this process's
+   ``generate_images(clip=)``, the same order, then the image ids of a
+   ``return_img_seq`` call identical;
+   then ``train_dalle --sp 2`` as two processes
    (``--coordinator``/``--num_processes``/``--process_id``) for one
    epoch over ``cli``'s PNGs and VAE (``CLI_DALLE`` at depth 4): rank 0 writes the
    checkpoint once, rank 1 nothing, and this process resumes it; beside
@@ -270,17 +285,18 @@ The single engine's serving features and reference weights:
 22. serve_features — 8 requests (prompts of 1, 17 and 256 tokens, two
    pairs sharing a prompt, two guided at cfg_scale 3.0, priorities 0 and
    1, top-k, top-p 0.9 and greedy) at the north width in bfloat16
-   (depth ``SERVE_DEPTH``, cut from 12 for the ``http`` phase's
-   time) on 8 slots, K = 8, page 16, through three engines: A,
+   (depth ``SERVE_DEPTH``, cut from 12 for the smoke's time) on 8
+   slots, K = 8, page 16, through three engines: A,
    the paged kernel
    engine with the prefix cache on a pool cut to four sequences
    (``FEATURE_PAGES``), so eviction fires, and the postprocess worker
    scoring every image through a seeded ``CLIPConfig()`` CLIP (K3
-   non-causal); B, the same with ``speculative=4``, ``draft_layers=1``
-   (K4 once per draft and verify offset: rounds x (1 x 6 + 2 x 4)
+   non-causal); B, the same with ``speculative=4``,
+   ``draft_layers=1``, each request capped at 256 image tokens (K4 once
+   per draft and verify offset: rounds x (1 x 6 + 2 x 4)
    launches, and K4 held against its plain version at a verify offset's
    row mask on the run's live state); C, ``kv='dense'`` through the
-   gather (no K4). The checks: evicted >= 1, prefix_hits >= 2,
+   gather (no K4), capped as B. The checks: evicted >= 1, prefix_hits >= 2,
    cfg_pairs == 2, no page leaks, the index's clear() returning every
    page, K4's launch counts, the worker's scores against ``clip_apply``,
    an injected failure as ``status='error'``; then A, B and C in float32
@@ -299,7 +315,8 @@ The single engine's serving features and reference weights:
 The HTTP server:
 
 24. http — the port's ``InferenceServer`` behind ``make_http_server`` at
-   the north width (bfloat16, depth 12; 8 slots, K = 8, page 16, the
+   the north width (bfloat16, depth ``SERVE_DEPTH``; 8 slots, K = 8,
+   page 16, the
    kernel read, the prefix cache, a preview every 32 chunks,
    ``serve_features``' CLIP): six concurrent clients with one 17-token
    prompt and seed (plain; a stream; ``n_samples=2``;
@@ -495,12 +512,11 @@ def kernel_classes(kernels: dict, steps: int) -> dict:
     return out
 
 
-# depth of the earlier serving phases' engines (``engine``,
-# ``sparse_engine``, ``wide_engine``, ``rev_decode`` and
-# ``serve_features``' bfloat16 engines; their float32 step and identity
-# checks keep their depths) and of ``import``'s model, cut from 12 to keep
-# the smoke's time with the ``http`` phase, which serves at depth 12;
-# their steps are host-bound, a fixed cost plus a share per layer
+# depth of the serving phases' engines (``engine``, ``sparse_engine``,
+# ``wide_engine``, ``rev_decode``, ``http`` and ``serve_features``'
+# bfloat16 engines; their float32 step and identity checks keep their
+# depths) and of ``import``'s model, cut from 12 to keep the smoke's
+# time; their steps are host-bound, a fixed cost plus a share per layer
 SERVE_DEPTH = 2
 
 
@@ -3630,7 +3646,7 @@ def token_agreement(a: list, b: list) -> dict:
 
 def run_summary(cfg, run: dict) -> dict:
     steps = run["stats"]["decode_steps"]
-    image_tokens = len(run["results"]) * cfg.image_seq_len
+    image_tokens = sum(len(res.tokens) for res in run["results"])
     st = run["stats"]
     out = {"wall_s": run["wall_s"], "decode_steps": steps,
            "ms_per_decode_step": run["wall_s"] * 1e3 / steps,
@@ -3661,12 +3677,13 @@ def run_summary(cfg, run: dict) -> dict:
 
 
 def check_feature_run(cfg, name: str, run: dict, reqs) -> None:
-    """Every result ok, ``image_seq_len`` ids in range, every page back
-    except what the prefix index holds, and the index's ``clear()``
-    returns those."""
+    """Every result ok, its grid's ids (``image_seq_len``, or the
+    request's override) in range, every page back except what the prefix
+    index holds, and the index's ``clear()`` returns those."""
     for r, res in zip(reqs, run["results"]):
         toks = torch.as_tensor(res.tokens)
-        check(toks.shape == (cfg.image_seq_len,) and int(toks.min()) >= 0
+        grid = r.image_seq_len_override or cfg.image_seq_len
+        check(toks.shape == (grid,) and int(toks.min()) >= 0
               and int(toks.max()) < cfg.num_image_tokens,
               f"{name}: request {res.request_id}: bad image tokens")
         check(list(res.text_tokens[:len(r.codes)]) == list(r.codes),
@@ -3734,10 +3751,11 @@ def phase_serve_features() -> dict:
        image and caption to rtol/atol 1e-2 (bfloat16: a few roundings of
        2^-8 relative on scores bounded by exp(1)); an injected failure
        comes back as ``status='error'``;
-    B. the same with ``speculative=4``, ``draft_layers=1``: K4 launched
+    B. the same with ``speculative=4``, ``draft_layers=1``, each request
+       capped at ``IDENTITY_GRID`` image tokens: K4 launched
        rounds x (1 x 6 + depth x 4), the acceptance, K4 held against its
        plain version at one verify offset's row mask on the run's state;
-    C. ``kv='dense'`` (gather reads, no K4).
+    C. ``kv='dense'`` (gather reads, no K4), capped as B.
     A's wall includes the worker's VAE decode and CLIP scoring on the same
     card; its profiled window (after 40 chunks, 320 decode steps) comes
     before any request completes, so that window is the engine's alone.
@@ -3813,11 +3831,15 @@ def phase_serve_features() -> dict:
                        clip_scores=[r.clip_score for r in a["results"]])
     lap("A")
 
-    # B: speculation through K4, one walk per draft and verify offset
-    b = feature_run(model, reqs, window=20, probe=spec_k4_case,
+    # B: speculation through K4, one walk per draft and verify offset, on
+    # the requests capped at ``IDENTITY_GRID`` image tokens (B and C: their
+    # steps are host-bound, and the whole grid cost the smoke 120-160 s)
+    breqs = [dataclasses.replace(r, image_seq_len_override=IDENTITY_GRID)
+             for r in reqs]
+    b = feature_run(model, breqs, window=20, probe=spec_k4_case,
                     speculative=SPEC_K, draft_layers=SPEC_DRAFT,
                     **FEATURE_ENGINE)
-    check_feature_run(cfg, "B", b, reqs)
+    check_feature_run(cfg, "B", b, breqs)
     rounds = b["stats"]["decode_steps"]
     per_round = SPEC_DRAFT * SPEC_K * (SPEC_K - 1) // 2 + cfg.depth * SPEC_K
     check(b["k4_launches"] == rounds * per_round,
@@ -3829,10 +3851,10 @@ def phase_serve_features() -> dict:
     record["B_vs_A"] = token_agreement(b["results"], a["results"])
     lap("B")
 
-    # C: the dense slot cache through the gather read
-    c = feature_run(model, reqs, window=40, num_slots=8, chunk_steps=8,
+    # C: the dense slot cache through the gather read, on B's requests
+    c = feature_run(model, breqs, window=20, num_slots=8, chunk_steps=8,
                     kv="dense")
-    check_feature_run(cfg, "C", c, reqs)
+    check_feature_run(cfg, "C", c, breqs)
     check(c["k4_launches"] == 0, "C: the dense engine launched K4")
     record["C"] = run_summary(cfg, c)
     record["C_vs_A"] = token_agreement(c["results"], a["results"])
@@ -4085,8 +4107,9 @@ def wait_for(what: str, cond, timeout_s: float = 120.0, every=0.05):
 
 def phase_http() -> dict:
     """The port's ``InferenceServer`` over HTTP at the north width
-    (bfloat16, depth 12, seeded weights, ``serve_features``' CLIP scoring
-    every image through K3): 8 slots, K = 8, page 16, the kernel read
+    (bfloat16, depth ``SERVE_DEPTH``, seeded weights, ``serve_features``'
+    CLIP scoring every image through K3): 8 slots, K = 8, page 16, the
+    kernel read
     (K4), the prefix cache, a preview every 32 chunks, served by
     ``make_http_server`` on 127.0.0.1 in a thread. Six client threads send
     at once, with one 17-token prompt and one seed, filling the 8 slots in
@@ -4112,6 +4135,7 @@ def phase_http() -> dict:
     percentiles, the client's seconds to B's first token, ms a decode step
     and image tokens a second under the server (the wave's wall over its
     steps), preview frames and drops."""
+    import dataclasses
     import glob
     import shutil
     import tempfile
@@ -4124,7 +4148,7 @@ def phase_http() -> dict:
     from dalle_pytorch_tpu_torch.serve import stream as ST
     from dalle_pytorch_tpu_torch.serve.server import (InferenceServer,
                                                       make_http_server)
-    cfg = north_cfg()
+    cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
     vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
     model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
     clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
@@ -5679,6 +5703,9 @@ def phase_gateway() -> dict:
 
 # -- training across ranks ----------------------------------------------------
 
+# the north config's heads; a tp 2 rank runs half of them
+PARALLEL_CFG_HEADS = 8
+
 # the parallel phase's runs: name, mesh, dense/sparse; all at the north
 # width with ``train_cfg``'s kernels and dropout, depth cut to
 # PARALLEL_DEPTH (pp: 2 stages of 2 layers, 4 microbatches)
@@ -5688,18 +5715,63 @@ PARALLEL_RUNS = (("dp", {"dp": 2}, False), ("sp_ring", {"dp": 1, "sp": 2},
                                             False),
                  ("sp_ulysses", {"dp": 1, "sp": 2}, False),
                  ("pp", {"dp": 1, "pp": 2}, False),
-                 ("pp_sparse", {"dp": 1, "pp": 2}, True))
-PARALLEL_WAIT_S = 240.0
+                 ("pp_sparse", {"dp": 1, "pp": 2}, True),
+                 ("tp", {"tp": 2}, False), ("tp_sparse", {"tp": 2}, True),
+                 ("fsdp", {"fsdp": 2}, False), ("ep", {"ep": 2}, False))
+# the placement of the runs whose parameters are split
+# (``dalle_param_specs`` with ``mesh=``: the north vocabulary, 12,049
+# tokens, is odd, so the head stays whole; ``dalle_moe_param_specs``)
+PARALLEL_PLACE = {"tp": {"tp": "tp"}, "tp_sparse": {"tp": "tp"},
+                  "fsdp": {"fsdp": "fsdp"}, "ep": {"ep": "ep"}}
+# the ep run's MoE: every FF a top-2 MoE of 4 experts, 2 a rank
+PARALLEL_MOE = dict(moe_experts=4, moe_k=2)
+# generation over a dp-sharded candidate batch: 4 candidates of one
+# caption over dp 2 at depth 2, float32 (the sampled tokens must be the
+# one-process call's), then the CLIP rerank
+GENERATE_DP = dict(dp=2, depth=2, candidates=4)
+PARALLEL_WAIT_S = 300.0
 
 
-def parallel_cfg(depth: int, sparse: bool):
+def parallel_cfg(depth: int, sparse: bool, kind: str = ""):
     """``train_cfg`` at ``depth``; ``sparse`` alternates K3 layers with
     flash ones, (True, False) a stage at depth 4 (both layers sparse at
-    depth 2, where (True, False) is not the same on both stages)."""
+    depth 2, where (True, False) is not the same on both stages); the ep
+    run's layers are MoE (``PARALLEL_MOE``)."""
+    moe = PARALLEL_MOE if kind == "ep" else {}
     if not sparse:
-        return train_cfg(depth=depth)
+        return train_cfg(depth=depth, **moe)
     pattern = (True, False) * (depth // 2) if depth >= 4 else (True,) * depth
-    return train_cfg(depth=depth, sparse_attn=pattern, sparse_impl="pallas")
+    return train_cfg(depth=depth, sparse_attn=pattern, sparse_impl="pallas",
+                     **moe)
+
+
+def placement_specs(kind: str, model, mesh):
+    """The run's ``param_specs`` on ``mesh``."""
+    from dalle_pytorch_tpu_torch.parallel.train import (
+        dalle_moe_param_specs, dalle_param_specs)
+    place = PARALLEL_PLACE[kind]
+    if "ep" in place:
+        return dalle_moe_param_specs(model, place["ep"])
+    return dalle_param_specs(model, mesh=mesh, **place)
+
+
+def reckoned_bytes(kind: str, model) -> int:
+    """The parameter bytes a rank of the run stores, reckoned from the
+    whole model: tp 2 halves qkv, out, w1 (with its bias) and w2; fsdp 2
+    half the layers; ep 2 half of each expert stack."""
+    whole = split = 0
+    for n, p in model.named_parameters():
+        b = p.numel() * p.element_size()
+        whole += b
+        if kind.startswith("tp") and n.endswith((
+                "qkv.weight", "out.weight", "ff.w1.weight", "ff.w1.bias",
+                "ff.w2.weight")):
+            split += b
+        elif kind == "fsdp" and n.startswith("transformer.layers."):
+            split += b
+        elif kind == "ep" and n.endswith((".moe.w1", ".moe.w2")):
+            split += b
+    return whole - split // 2
 
 
 def sequential_pp_loss(num_stages: int):
@@ -5748,12 +5820,14 @@ def parallel_loss(kind: str, mesh, stages: int = 0):
     from dalle_pytorch_tpu_torch.parallel.pipeline import (pp_dalle_loss_fn,
                                                            pp_param_specs)
     from dalle_pytorch_tpu_torch.parallel.sequence import sp_dalle_loss_fn
-    if kind == "dp":
+    if kind == "dp" or kind in PARALLEL_PLACE:
         def loss(model, batch, rng):
             return D.dalle_apply(model, batch["text"], batch["image"],
                                  mask=batch["mask"], rng=rng, train=True,
                                  return_loss=True)
-        return loss, None
+        if kind == "dp":
+            return loss, None
+        return loss, lambda model: placement_specs(kind, model, mesh)
     if kind.startswith("sp_"):
         return sp_dalle_loss_fn(mesh, impl=kind[3:]), None
     if stages:
@@ -5764,16 +5838,30 @@ def parallel_loss(kind: str, mesh, stages: int = 0):
 
 class GradCapture:
     """An optimizer for ``make_train_step`` that takes the step's reduced
-    gradients instead of applying them (no clip)."""
+    gradients instead of applying them (no clip). Under a placement that
+    splits parameters (``mesh``, ``specs``) each gradient is gathered
+    whole from the ranks' pieces, on every rank of the pieces' groups."""
     clip = 0.0
 
-    def __init__(self, model):
+    def __init__(self, model, mesh=None, specs=None):
         self.model, self.grads = model, {}
+        self.mesh, self.specs = mesh, specs
 
     def step(self, lr_scale=1.0, grad_norm=None):
-        self.grads = {n: p.grad.detach().clone() for n, p in
-                      self.model.named_parameters()
-                      if not p.is_meta and p.grad is not None}
+        from dalle_pytorch_tpu_torch.parallel import placement as PL
+        if self.specs and self.mesh is not None:
+            depth = len(self.model.transformer.layers)
+            self.grads = {}
+            for n, p in self.model.named_parameters():
+                spec = PL.spec_of(self.specs, n)
+                g = p.grad if p.grad is not None and not p.is_meta else \
+                    torch.zeros(p.shape, dtype=p.dtype, device="cuda")
+                self.grads[n] = PL.gather(g, n, spec, self.mesh,
+                                          PL.owner(n, spec, self.mesh, depth))
+        else:
+            self.grads = {n: p.grad.detach().clone() for n, p in
+                          self.model.named_parameters()
+                          if not p.is_meta and p.grad is not None}
         for p in self.model.parameters():
             p.grad = None
 
@@ -5787,11 +5875,11 @@ def parallel_grads(kind, depth, sparse, dtype, mesh, stages=0) -> tuple:
     from dalle_pytorch_tpu_torch.parallel.mesh import shard_batch
     from dalle_pytorch_tpu_torch.parallel.train import (make_train_step,
                                                          setup_sharded)
-    cfg = parallel_cfg(depth, sparse)
+    cfg = parallel_cfg(depth, sparse, kind)
     model = D.dalle_init(cfg, seed=6, dtype=dtype)
     loss_fn, specs = parallel_loss(kind, mesh, stages)
     specs = specs(model) if specs else None
-    cap = GradCapture(model)
+    cap = GradCapture(model, mesh, specs if kind in PARALLEL_PLACE else None)
     setup_sharded(model, cap_opt(model), mesh, specs)
     step = make_train_step(loss_fn, cap, mesh=mesh, param_specs=specs)
     batch = shard_batch(mesh, id_batch(cfg), "dp", local=False)
@@ -5901,8 +5989,11 @@ def parallel_rank(rank: int, plan: dict) -> dict:
         torch.cuda.empty_cache()
     for kind, axes, sparse in PARALLEL_RUNS:
         mesh = make_mesh(axes)
-        cfg = parallel_cfg(PARALLEL_DEPTH, sparse)
+        cfg = parallel_cfg(PARALLEL_DEPTH, sparse, kind)
         model = D.dalle_init(cfg, seed=6, dtype=torch.bfloat16)
+        whole_bytes = resident_bytes(model)
+        reckoned = reckoned_bytes(kind, model) if kind in PARALLEL_PLACE \
+            else None
         loss_fn, specs = parallel_loss(kind, mesh)
         specs = specs(model) if specs else None
         opt = make_optimizer(types.SimpleNamespace(
@@ -5927,8 +6018,12 @@ def parallel_rank(rank: int, plan: dict) -> dict:
             "losses": losses, "ms_per_step": ms,
             "launches": sparse_counts(),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "param_gib": sum(p.numel() * p.element_size() for p in
-                             model.parameters() if not p.is_meta) / 2 ** 30,
+            "param_gib": resident_bytes(model) / 2 ** 30,
+            "param_bytes": resident_bytes(model),
+            "replicated_param_bytes": whole_bytes,
+            "reckoned_param_bytes": reckoned,
+            "heads_per_rank": model.transformer.layers[0].attn.qkv.weight
+                                   .shape[0] // (3 * cfg.dim_head),
             "collectives": {"host_ms_per_step": col.STATS["host_ms"],
                             "bytes_per_step": col.STATS["bytes"],
                             "calls_per_step": dict(col.STATS["calls"]),
@@ -5936,7 +6031,88 @@ def parallel_rank(rank: int, plan: dict) -> dict:
                                 sorted(col.STATS["staged"])}}
         del model, opt, step
         torch.cuda.empty_cache()
+    out["generate_dp"] = generate_dp_rank(plan)
     return out
+
+
+def resident_bytes(model) -> int:
+    """The bytes of the parameters this rank stores (not on meta)."""
+    return sum(p.numel() * p.element_size() for p in model.parameters()
+               if not p.is_meta)
+
+
+def generate_dp_setup():
+    """The generate_dp run's float32 DALLE (``GENERATE_DP``'s depth), VAE,
+    CLIP (K3 non-causal) and candidate batch (one caption, its rows),
+    from seeds."""
+    from dalle_pytorch_tpu_torch.models import clip as CL
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    cfg = parallel_cfg(GENERATE_DP["depth"], False)
+    vae = V.vae_init(cfg.vae, seed=3, dtype=torch.float32)
+    model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.float32)
+    clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
+                        dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    caption = torch.randint(1, cfg.num_text_tokens, (1, cfg.text_seq_len),
+                            generator=g, device="cuda")
+    text = caption.repeat(GENERATE_DP["candidates"], 1)
+    return model, vae, clip, text
+
+
+def generate_dp_run(mesh=None) -> dict:
+    """``generate_images`` of the candidates on ``mesh`` (one process:
+    None), twice: with ``clip=`` (the images and the CLIP rerank's
+    scores, gathered; on a mesh each rank scores its own rows), its K3
+    launches counted from just before the call, then with
+    ``return_img_seq=True`` for the image ids."""
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    model, vae, clip, text = generate_dp_setup()
+    key = prng.prng_key(13, device="cuda")
+    t0 = time.perf_counter()
+    sparse_counts(reset=True)
+    images, scores = D.generate_images(model, vae, text, rng=key, clip=clip,
+                                       mesh=mesh)
+    torch.cuda.synchronize()
+    k3 = sparse_counts()["k3"]
+    seconds = time.perf_counter() - t0
+    _, ids = D.generate_images(model, vae, text, rng=key,
+                               return_img_seq=True, mesh=mesh)
+    return {"ids": ids.cpu(), "images": images.cpu(), "scores": scores.cpu(),
+            "k3": k3, "seconds": seconds}
+
+
+def generate_dp_rank(plan: dict) -> dict:
+    """This rank's part of generate_dp: the candidates over dp 2, held
+    against the one-process calls: the image ids identical, the images
+    and the rerank's scores to 1e-4, its order the same. The rank's
+    rerank is one ``clip_apply`` over its rows, so it launches K3 as
+    often as the one process's over all of them (each sparse layer
+    once)."""
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    ref = torch.load(os.path.join(plan["refs"], "generate_dp.pt"))
+    got = generate_dp_run(make_mesh({"dp": GENERATE_DP["dp"]}))
+    diff = int((got["ids"] != ref["ids"]).sum())
+    img_err = float((got["images"] - ref["images"]).abs().max())
+    score_err = float((got["scores"] - ref["scores"]).abs().max())
+    order = torch.argsort(got["scores"], descending=True).tolist()
+    want_order = torch.argsort(ref["scores"], descending=True).tolist()
+    failures = []
+    if diff:
+        failures.append(f"generate_dp: {diff} image ids differ from one "
+                        "process")
+    if not img_err <= 1e-4 or not score_err <= 1e-4 or order != want_order:
+        failures.append(f"generate_dp: images {img_err:.3e}, scores "
+                        f"{score_err:.3e} from one process, order {order} "
+                        f"against {want_order}")
+    return {"ids_differing": diff, "images_max_abs_err": img_err,
+            "scores_max_abs_err": score_err, "order": order,
+            "k3_launches": got["k3"], "one_process_k3": ref["k3"],
+            "seconds": got["seconds"], "one_process_seconds": ref["seconds"],
+            "failures": failures,
+            "tolerance": {"ids": "identical", "images_atol": 1e-4,
+                          "scores_atol": 1e-4}}
 
 
 def gloo_cuda_check() -> dict:
@@ -6038,6 +6214,8 @@ def parallel_references(root: str) -> dict:
         losses[name] = loss
         del grads
         torch.cuda.empty_cache()
+    torch.save(generate_dp_run(), os.path.join(root, "generate_dp.pt"))
+    torch.cuda.empty_cache()
     return losses
 
 
@@ -6123,7 +6301,7 @@ def parallel_single_ms() -> dict:
     one = make_mesh({"dp": 1, "sp": 1})
     out = {}
     for kind, _, sparse in PARALLEL_RUNS:
-        cfg = parallel_cfg(PARALLEL_DEPTH, sparse)
+        cfg = parallel_cfg(PARALLEL_DEPTH, sparse, kind)
         model = D.dalle_init(cfg, seed=6, dtype=torch.bfloat16)
         loss_fn, specs = parallel_loss(
             "pp" if kind.startswith("pp") else kind, one, stages=2)
@@ -6152,10 +6330,11 @@ def parallel_single_ms() -> dict:
 def phase_parallel(cli_root: str = "") -> dict:
     """Training across ranks on the one card: K1-K3 were built by
     ``build``, here, before any rank spawns. The one-process reference of
-    every comparison and each run's one-process ms a step first (this
-    process), then two spawned rank processes over gloo (each its own CUDA
-    context on the same card: the collectives' values on CUDA tensors,
-    every comparison, each run's 2 steps), then ``parallel_cli`` with,
+    every comparison (generate_dp's too) and each run's one-process ms a
+    step first, then K1-K3 at a tp rank's shapes (this process), then two
+    spawned rank processes over gloo (each its own CUDA context on the
+    same card: the collectives' values on CUDA tensors, every comparison,
+    each run's 2 steps, generate_dp), then ``parallel_cli`` with,
     beside it, a one-rank NCCL group (the dp comparison and each NCCL
     collective) and two NCCL ranks on the one card (NCCL's answer
     recorded)."""
@@ -6174,6 +6353,22 @@ def phase_parallel(cli_root: str = "") -> dict:
         t0 = time.perf_counter()
         record["one_process"] = parallel_single_ms()
         record["one_process_s"] = time.perf_counter() - t0
+        # K1, K2a, K2b and K3 at the shapes a tp 2 rank gives them (its 4
+        # of the 8 heads, the whole batch), and K3 without the causal
+        # constraint at the shape of a generate_dp rank's rerank (float32,
+        # its rows, the CLIP text encoder's 8 heads of 64 over 256
+        # positions), against their plain versions
+        t0 = time.perf_counter()
+        record["tp_kernels"] = {
+            "flash": flash_case(torch.bfloat16, False, timed=True,
+                                h=PARALLEL_CFG_HEADS // 2),
+            "k3": sparse_case(torch.bfloat16, False, timed=True,
+                              h=PARALLEL_CFG_HEADS // 2),
+            "k3_rerank": sparse_case(
+                torch.float32, False, timed=True, causal=False,
+                b=GENERATE_DP["candidates"] // GENERATE_DP["dp"], h=8,
+                n=256, d=64)}
+        record["tp_kernels_s"] = time.perf_counter() - t0
         plan = {"refs": refs}
         t0 = time.perf_counter()
         ranks = spawn(parallel_rank, 2, (plan,), device=None,
@@ -6190,8 +6385,12 @@ def phase_parallel(cli_root: str = "") -> dict:
             got = [ranks[r]["runs"][kind]["launches"] for r in range(2)]
             if kind.startswith("sp"):
                 want_dense, want_sparse = 0, 0
-            elif kind == "dp":
+            elif kind in ("dp", "tp", "fsdp", "ep"):
                 want_dense, want_sparse = PARALLEL_DEPTH * steps, 0
+            elif kind == "tp_sparse":
+                n_sparse = PARALLEL_DEPTH // 2
+                want_dense = (PARALLEL_DEPTH - n_sparse) * steps
+                want_sparse = n_sparse * steps
             else:
                 per = PARALLEL_DEPTH // 2
                 n_sparse = per // 2 if sparse else 0
@@ -6203,7 +6402,35 @@ def phase_parallel(cli_root: str = "") -> dict:
                     f"parallel {kind}: rank {r} launched {counts}, expected "
                     f"K1/K2a/K2b {want_dense} and K3 {want_sparse} each")
             launches[kind] = got
+            if kind in PARALLEL_PLACE:
+                for r in range(2):
+                    run = ranks[r]["runs"][kind]
+                    heads = run["heads_per_rank"]
+                    check(heads == (PARALLEL_CFG_HEADS // 2 if
+                                    kind.startswith("tp")
+                                    else PARALLEL_CFG_HEADS),
+                          f"parallel {kind}: rank {r} ran {heads} heads")
+                    check(run["param_bytes"] == run["reckoned_param_bytes"]
+                          < run["replicated_param_bytes"],
+                          f"parallel {kind}: rank {r} stores "
+                          f"{run['param_bytes']} parameter bytes, reckoned "
+                          f"{run['reckoned_param_bytes']} of "
+                          f"{run['replicated_param_bytes']}")
         record["launches"] = launches
+        record["param_bytes"] = {
+            kind: {"ranks": [ranks[r]["runs"][kind]["param_bytes"]
+                             for r in range(2)],
+                   "replicated": ranks[0]["runs"][kind][
+                       "replicated_param_bytes"]}
+            for kind, _, _ in PARALLEL_RUNS}
+        gen = [ranks[r]["generate_dp"] for r in range(2)]
+        record["generate_dp"] = gen
+        failures += [f for g in gen for f in g["failures"]]
+        for r, g in enumerate(gen):
+            check(g["k3_launches"] == g["one_process_k3"] > 0,
+                  f"parallel generate_dp: rank {r} launched K3 "
+                  f"{g['k3_launches']} times, one process "
+                  f"{g['one_process_k3']}")
         if failures:
             emit(**record)
         check(not failures, "; ".join(failures))
@@ -6246,7 +6473,8 @@ def phase_parallel(cli_root: str = "") -> dict:
 ONLY = {"images": phase_images, "generate": phase_generate,
         "replicas": phase_replicas, "processes": phase_processes,
         "gateway": phase_gateway, "cli": phase_cli,
-        "parallel": phase_parallel}
+        "parallel": phase_parallel, "http": phase_http,
+        "serve_features": phase_serve_features}
 
 
 def main() -> int:
@@ -6464,7 +6692,10 @@ def main() -> int:
                 "bound_by": fc[kind]["bound_by"],
                 "library_ms": library_ms})
     # training across ranks: each rank's launches in its 2 steps, summed
-    # over the ranks and the runs (dp and pp; none under sp, as in JAX)
+    # over the ranks and the runs at all 8 heads (dp, pp, fsdp, ep; none
+    # under sp, as in JAX), then over the tp runs, whose ranks run 4 heads
+    # each: those rows carry the kernels' numbers at that shape
+    tpk = parallel["tp_kernels"]
     for name, kind, line, count, library_ms in (
             ("flash_attention_fwd", "fwd", 88, "k1", lib["sdpa_fwd_ms"]),
             ("flash_attention_bwd_dq", "dq", 322, "k2a", None),
@@ -6474,12 +6705,51 @@ def main() -> int:
             "name": f"{name}@parallel", "route": "cuda",
             "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"dalle_pytorch_tpu/ops/flash_attention.py:{line}",
-            "launches": sum(c[count] for runs in
-                            parallel["launches"].values() for c in runs),
+            "launches": sum(c[count] for run, runs in
+                            parallel["launches"].items()
+                            if not run.startswith("tp") for c in runs),
             "max_abs_err": fc["max_abs_err"][kind],
             "ms": fc[kind]["ms"], "plain_ms": fc[kind]["plain_ms"],
             "bound_ms": fc[kind]["bound_ms"],
             "bound_by": fc[kind]["bound_by"], "library_ms": library_ms})
+        tf = tpk["flash"]
+        rows.append({
+            "name": f"{name}@parallel_tp", "route": "cuda",
+            "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"dalle_pytorch_tpu/ops/flash_attention.py:{line}",
+            "launches": sum(c[count] for run, runs in
+                            parallel["launches"].items()
+                            if run.startswith("tp") for c in runs),
+            "max_abs_err": tf["max_abs_err"][kind],
+            "ms": tf[kind]["ms"], "plain_ms": tf[kind]["plain_ms"],
+            "bound_ms": tf[kind]["bound_ms"],
+            "bound_by": tf[kind]["bound_by"],
+            "library_ms": tf["library"]["sdpa_fwd_ms" if kind == "fwd"
+                                        else "sdpa_bwd_ms"]
+            if library_ms is not None else None})
+    tk3 = tpk["k3"]
+    # generate_dp's row: float32, a rank's rerank rows, the text encoder's
+    # shape
+    rk3 = tpk["k3_rerank"]
+    rows.append({
+        "name": "block_sparse_attention_fwd@parallel_tp", "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": sum(c["k3"] for c in parallel["launches"]["tp_sparse"]),
+        "max_abs_err": max(tk3["max_abs_err"].values()),
+        "ms": tk3["ms"], "plain_ms": tk3["plain_ms"],
+        "bound_ms": tk3["bound_ms"], "bound_by": tk3["bound_by"],
+        "library_ms": tk3["sdpa_masked_ms"]})
+    rows.append({
+        "name": "block_sparse_attention_fwd_noncausal@generate_dp",
+        "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": sum(g["k3_launches"] for g in parallel["generate_dp"]),
+        "max_abs_err": max(rk3["max_abs_err"].values()),
+        "ms": rk3["ms"], "plain_ms": rk3["plain_ms"],
+        "bound_ms": rk3["bound_ms"], "bound_by": rk3["bound_by"],
+        "library_ms": rk3["sdpa_masked_ms"]})
     rows.append({
         "name": "block_sparse_attention_fwd@parallel", "route": "cuda",
         "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",

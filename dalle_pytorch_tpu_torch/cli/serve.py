@@ -59,7 +59,7 @@ from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
 
-MESH_ITEM = "ROADMAP.md queue 1 item 3 (parallel/ on torch.distributed)"
+MESH_ITEM = "ROADMAP.md queue 1 item 3c (the serving mesh)"
 
 
 def build_parser() -> argparse.ArgumentParser:

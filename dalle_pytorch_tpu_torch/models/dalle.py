@@ -19,6 +19,16 @@ mean of its two streams, in training and in every decode path, and a MoE
 model's training loss adds ``moe_aux_coef`` times the load-balance loss
 (JAX ``:331-332``).
 
+Across ranks: under ``dalle_param_specs(tp=)`` the vocabulary head is
+column-parallel (``logits_proj.tp``): a rank holds its contiguous
+``1/tp`` of the vocabulary, and the cross-entropy (``nll_rows``, also
+under ``loss_chunk`` and in the sequence-parallel loss) takes the max and
+the sum of the softmax over the tp group and the target's logit from the
+rank that holds it; the logits ``dalle_apply`` returns are gathered.
+``generate_images(mesh=)`` samples a candidate batch split over ``dp``:
+each rank its rows, their noise its rows of the one-process draw
+(``prng.batch_rows``), the images (and CLIP scores) gathered in order.
+
 Vocabulary layout ``[0, num_text_tokens) text | image | EOS``. The image
 embedding is TIED to the VAE codebook: ``dalle_init(vae=...)`` copies
 the codebook into ``image_emb``, and the serving path decodes images
@@ -41,6 +51,7 @@ from dalle_pytorch_tpu_torch.models import vae as vae_mod
 from dalle_pytorch_tpu_torch.ops import core, prng, quant
 from dalle_pytorch_tpu_torch.ops import decode as decode_ops
 from dalle_pytorch_tpu_torch.ops import transformer as T
+from dalle_pytorch_tpu_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,7 +303,15 @@ def decode_token_embed(model: DALLE, cur_tok: torch.Tensor,
 
 
 def to_logits(model: DALLE, h: torch.Tensor) -> torch.Tensor:
+    """The head's logits: this rank's columns of the vocabulary under a
+    column-parallel head (``head_group``)."""
     return core.linear(model.logits_proj, core.layernorm(model.logits_ln, h))
+
+
+def head_group(model: DALLE) -> col.Group:
+    """The tp group the vocabulary head is split over (one rank when
+    whole)."""
+    return getattr(model.logits_proj, "tp", None) or col.SELF
 
 
 def draft_transformer_config(tcfg: T.TransformerConfig,
@@ -355,7 +374,8 @@ def dalle_apply(model: DALLE, text: torch.Tensor,
                                  cfg=cfg.transformer, mask=mask, rng=rng,
                                  train=train, with_aux=True)
     if not return_loss:
-        logits = to_logits(model, h)
+        logits = col.all_gather(to_logits(model, h), head_group(model),
+                                dim=-1)
         forbidden = logits_mask(cfg, device=h.device)[:seq_len]
         return logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
     if image_ids is None:
@@ -378,10 +398,8 @@ def ce_from_hidden(model: DALLE, h: torch.Tensor, text: torch.Tensor,
     targets = labels[:, 1:]                      # predict token i+1 at row i
     if cfg.loss_chunk > 0:
         return _chunked_ce(model, h, targets)
-    logits = to_logits(model, h)
-    forbidden = logits_mask(cfg, device=h.device)[:h.shape[1]]
-    logits = logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
-    return _nll(logits, targets).mean()
+    rows = torch.arange(h.shape[1], device=h.device)
+    return nll_rows(model, h, targets, rows).mean()
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -390,6 +408,42 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits.float(), dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None])[..., 0].float()
     return lse - tgt
+
+
+def _nll_split(logits: torch.Tensor, targets: torch.Tensor, tp: col.Group,
+               v0: int) -> torch.Tensor:
+    """``_nll`` over a vocabulary split over ``tp``, this rank holding
+    columns ``v0 ..``: the max (no gradient: the logsumexp's does not
+    depend on it) and the sum of the exponentials over the group, the
+    target's logit from the rank that holds it."""
+    lf = logits.float()
+    m = col.pmax(lf.detach().amax(dim=-1), tp)
+    lse = m + torch.log(col.psum(torch.exp(lf - m[..., None]).sum(dim=-1),
+                                 tp))
+    local = targets - v0
+    here = (local >= 0) & (local < logits.shape[-1])
+    tgt = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)[
+        ..., None])[..., 0].float()
+    return lse - col.psum(torch.where(here, tgt, torch.zeros_like(tgt)), tp)
+
+
+def nll_rows(model: DALLE, h: torch.Tensor, targets: torch.Tensor,
+             rows: torch.Tensor) -> torch.Tensor:
+    """The next-token CE (b, n) f32 of the hidden states ``h`` (b, n, dim)
+    at sequence positions ``rows`` against ``targets`` (b, n): the head,
+    the forbidden-logit mask, the log-softmax at the target; over a
+    column-parallel head the softmax spans the tp group."""
+    cfg = model.cfg
+    logits = to_logits(model, h)
+    forbidden = logits_mask(cfg, rows)
+    tp = head_group(model)
+    if tp.size > 1:
+        v0 = tp.index * logits.shape[-1]
+        forbidden = forbidden[:, v0:v0 + logits.shape[-1]]
+    logits = logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
+    if tp.size == 1:
+        return _nll(logits, targets)
+    return _nll_split(logits, targets, tp, v0)
 
 
 def _chunked_ce(model: DALLE, h: torch.Tensor,
@@ -405,10 +459,7 @@ def _chunked_ce(model: DALLE, h: torch.Tensor,
     chunk = min(cfg.loss_chunk, n)
 
     def body(hc, tc, rows):
-        logits = to_logits(model, hc)
-        forbidden = logits_mask(cfg, rows)
-        logits = logits.masked_fill(forbidden, core.neg_inf(logits.dtype))
-        return _nll(logits, tc).sum()
+        return nll_rows(model, hc, tc, rows).sum()
 
     total = h.new_zeros((), dtype=torch.float32)
     for c0 in range(0, n, chunk):
@@ -583,7 +634,7 @@ def generate_images(model: DALLE, vae: vae_mod.VAEDecoder,
                     filter_thres: float = 0.5, top_p: float = 0.0,
                     temperature: float = 1.0, guidance: float = 0.0,
                     clip=None, return_img_seq: bool = False,
-                    quantize_cache: bool = False):
+                    quantize_cache: bool = False, mesh=None):
     """Sample the image tokens of ``text`` (b, t0) autoregressively over a
     dense KV cache and decode them through the VAE with DALLE's tied
     codebook (``images`` (b, H, W, C)). ``rng`` is a (2,) key; position
@@ -601,8 +652,33 @@ def generate_images(model: DALLE, vae: vae_mod.VAEDecoder,
     stream keeps PAD at text positions. ``quantize_cache`` stores the
     cache int8. With ``clip`` (a ``models/clip.py::CLIP``) returns
     (images, CLIP scores of the sampled captions against the images);
-    with ``return_img_seq`` (images, image token ids)."""
+    with ``return_img_seq`` (images, image token ids).
+
+    With ``mesh`` the candidate batch ``text`` (the same on every rank)
+    is split over its ``dp`` axis: each rank samples its rows, its noise its
+    rows of the one-process draw, and decodes and scores them; every
+    output comes back gathered in row order on every rank, the tokens
+    the one-process call's."""
     cfg = model.cfg
+    group = mesh.group("dp") if mesh is not None else col.SELF
+    if group.size > 1:
+        b = text.shape[0]
+        if b % group.size:
+            raise ValueError(f"{b} candidates do not split over dp "
+                             f"{group.size}")
+        per = b // group.size
+        mine = slice(group.index * per, (group.index + 1) * per)
+        with prng.batch_rows(group.index * per):
+            out = generate_images(
+                model, vae, text[mine], rng=rng,
+                mask=mask[mine] if mask is not None else None,
+                filter_thres=filter_thres, top_p=top_p,
+                temperature=temperature, guidance=guidance, clip=clip,
+                return_img_seq=return_img_seq,
+                quantize_cache=quantize_cache)
+        if isinstance(out, tuple):
+            return tuple(col.all_gather(t, group, dim=0) for t in out)
+        return col.all_gather(out, group, dim=0)
     if clip is not None and clip.cfg.num_text_tokens < cfg.num_text_tokens:
         # the rerank would gather out-of-range text ids: fail before the
         # sampling loop

@@ -11,6 +11,15 @@ flash kernels take no random numbers).
 ``impl`` selects the attention: ``'xla'`` the dense einsum here,
 ``'flash'`` the flash kernels (``ops/flash_attention.py``, K1 forward
 and the backward ``bwd_impl`` names).
+
+Under tensor parallelism (``Attention.tp``, set by
+``parallel/train.py::setup_sharded``) a rank holds heads ``[r h/tp,
+(r+1) h/tp)``: its rows of each third of ``qkv`` and the matching
+columns of ``out``. ``qkv_project`` then yields the rank's heads, the
+attention (K1-K3 included) runs on them alone, and ``output_tail`` sums
+the row-parallel product over ``tp`` before it adds the bias, once.
+Dropout acts after that sum, on the whole output, drawn alike on every
+rank.
 """
 
 from __future__ import annotations
@@ -18,15 +27,20 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dalle_pytorch_tpu_torch.ops import core
 from dalle_pytorch_tpu_torch.ops import flash_attention as flash_ops
+from dalle_pytorch_tpu_torch.parallel import collectives as col
 
 
 class Attention(nn.Module):
     """PreNorm attention parameters: ``ln``, fused ``qkv`` (no bias) and
-    ``out`` (with bias) — the JAX ``layer_params["attn"]`` subtree."""
+    ``out`` (with bias) — the JAX ``layer_params["attn"]`` subtree;
+    ``tp`` the group its heads are split over (None: all heads here)."""
+
+    tp = None
 
     def __init__(self, dim: int, heads: int, dim_head: int, *,
                  device=None, dtype=None):
@@ -50,7 +64,18 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
+def local_heads(p: Attention, heads: int) -> int:
+    """The heads this rank runs: ``heads / tp``."""
+    tp = p.tp or col.SELF
+    if heads % tp.size:
+        raise ValueError(f"{heads} heads do not split over tensor "
+                         f"parallelism {tp.size}")
+    return heads // tp.size
+
+
 def qkv_project(p: Attention, x: torch.Tensor, heads: int):
+    """(q, k, v), each (b, h, n, d) for this rank's heads."""
+    heads = local_heads(p, heads)
     q, k, v = core.linear(p.qkv, x).chunk(3, dim=-1)
     return split_heads(q, heads), split_heads(k, heads), split_heads(v, heads)
 
@@ -78,9 +103,24 @@ def output_tail(p: Attention, out: torch.Tensor, *,
                 dropout_rate: float = 0.0,
                 dropout_key: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
-    """merge heads -> out projection -> dropout (train mode only)."""
-    out = core.linear(p.out, merge_heads(out))
+    """merge heads -> out projection -> dropout (train mode only). Over a
+    ``tp`` group the product of this rank's heads is summed over the
+    group (``row_parallel``), then the bias is added."""
+    tp = p.tp or col.SELF
+    if tp.size == 1:
+        out = core.linear(p.out, merge_heads(out))
+    else:
+        out = row_parallel(p.out, merge_heads(out), tp)
     return core.dropout(dropout_key, out, dropout_rate, train)
+
+
+def row_parallel(p: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """``core.linear`` of a row-parallel linear over ``tp``: this rank's
+    columns of the product, summed over the group in float32, plus the
+    bias, rounded to x's dtype once (as the one-process product rounds
+    once)."""
+    y = col.psum(F.linear(x, p.weight.to(x.dtype)).float(), tp)
+    return (y + p.bias.float()).to(x.dtype)
 
 
 def attention_apply(p: Attention, x: torch.Tensor, *, heads: int,

@@ -76,34 +76,40 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
-def dropout(key, x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
+def dropout(key, x: torch.Tensor, rate: float, train: bool,
+            cols=None) -> torch.Tensor:
     """Inverted dropout (``core.dropout``): keep each element with
     probability ``1 - rate`` (``prng.bernoulli`` under ``key``) and scale
     the kept ones by ``1 / (1 - rate)``. The divisor is rounded to x's
-    dtype first, as JAX rounds the weakly typed Python float."""
+    dtype first, as JAX rounds the weakly typed Python float.
+    ``cols=(c0, width)``: x's last axis is columns ``c0 ..`` of a
+    ``width``-wide one, and the mask is those columns of its mask (a
+    tensor-parallel rank's part of the hidden layer)."""
     if not train or rate == 0.0 or key is None:
         return x
     keep = 1.0 - rate
-    mask = prng.bernoulli(key, keep, x.shape, prng.row_offset(x.shape))
+    whole = x.shape if cols is None else (*x.shape[:-1], cols[1])
+    mask = prng.bernoulli(key, keep, x.shape, prng.row_offset(whole), cols)
     div = torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, x / div, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))
 
 
 def positional_dropout(key, x: torch.Tensor, rate: float, train: bool, *,
-                       offset: int = 0) -> torch.Tensor:
+                       offset: int = 0, cols=None) -> torch.Tensor:
     """Dropout whose mask for token ``i`` (axis 1 of ``x``) is drawn
     under ``fold_in(key, offset + i)`` for the shape of one position
     (``core.positional_dropout``): the same mask whichever way the
     sequence is split, each shard passing its first global position as
-    ``offset``. All positions draw in one batched call."""
+    ``offset``. All positions draw in one batched call. ``cols`` as
+    ``dropout``'s."""
     if not train or rate == 0.0 or key is None:
         return x
     keep = 1.0 - rate
     pos = offset + torch.arange(x.shape[1], device=key.device)
     keys = prng.fold_in(key, pos)                        # (n, 2)
     per_pos = (x.shape[0],) + tuple(x.shape[2:])
-    mask = prng.bernoulli(keys, keep, per_pos).movedim(0, 1)
+    mask = prng.bernoulli(keys, keep, per_pos, cols=cols).movedim(0, 1)
     div = torch.tensor(keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, x / div, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))

@@ -14,7 +14,18 @@ capacity dropped (the residual still carries them). The Switch aux loss
 ``E * sum_e(top1_frac_e * mean_prob_e)`` is averaged over rows in f32.
 The dispatch and combine tensors are (b, n, E, C): the k axis is summed
 out before the queue positions are applied, so no (b, n, k, E, C)
-tensor is built. ``moe_param_specs`` (sharding) is not ported.
+tensor is built.
+
+Expert parallelism (``moe_param_specs``, ``parallel/placement.py``): a
+rank of the ``ep`` group stores experts ``[r E/ep, (r+1) E/ep)`` of each
+stack (``MoE.ep`` names the group). Every rank holds the same tokens
+and the same router, so the routing, the capacity and the aux are the
+same on every rank; a rank runs its experts on their queues and the
+combine is one ``psum`` over ``ep``. Under the training step's
+convention (``parallel/collectives.py``) the input's cotangent from the
+local experts is a partial sum that the replicated parameters' gradient
+sum over ``ep`` completes, and the aux, computed alike on every rank,
+enters each rank's share of the loss once.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import torch
 from torch import nn
 
 from dalle_pytorch_tpu_torch.ops import core
+from dalle_pytorch_tpu_torch.parallel import collectives as col
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +57,10 @@ class MoEConfig:
 
 class MoE(nn.Module):
     """The JAX ``moe_init`` tree: ``router`` (an ``nn.Linear`` without
-    bias), ``w1`` (E, d, 2h) and ``w2`` (E, h, d)."""
+    bias), ``w1`` (E, d, 2h) and ``w2`` (E, h, d); ``ep`` the group its
+    expert stacks are split over (None: all experts here)."""
+
+    ep = None
 
     def __init__(self, cfg: MoEConfig, *, device=None, dtype=None):
         super().__init__()
@@ -107,13 +122,34 @@ def route(p: MoE, x: torch.Tensor, cfg: MoEConfig):
 
 def moe_apply(p: MoE, x: torch.Tensor, *,
               cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (b, n, d) -> (out (b, n, d), aux load-balance loss, f32)."""
+    """x (b, n, d) -> (out (b, n, d), aux load-balance loss, f32). Over
+    an ``ep`` group this rank's experts run and their outputs are summed
+    over the group."""
     cdt = x.dtype
     dispatch, combine, aux = route(p, x, cfg)
+    ep = p.ep or col.SELF
+    if ep.size > 1:
+        e = cfg.num_experts // ep.size
+        mine = slice(ep.index * e, (ep.index + 1) * e)
+        dispatch, combine = dispatch[:, :, mine], combine[:, :, mine]
     xin = torch.einsum("btec,btd->becd", dispatch.to(cdt), x)  # (b,E,C,d)
     h = torch.einsum("becd,edf->becf", xin, p.w1.to(cdt))
     h, gates = h.chunk(2, dim=-1)
     h = h * core.gelu(gates)
     eout = torch.einsum("becf,efd->becd", h, p.w2.to(cdt))
-    out = torch.einsum("btec,becd->btd", combine.to(cdt), eout)
-    return out, aux
+    if ep.size == 1:
+        return torch.einsum("btec,becd->btd", combine.to(cdt), eout), aux
+    # the ranks' partial combines of the same cdt operands as the one
+    # process's, accumulated and summed in float32, rounded once
+    out = torch.einsum("btec,becd->btd", combine.to(cdt).float(),
+                       eout.float())
+    return col.psum(out, ep).to(cdt), aux
+
+
+def moe_param_specs(axis: str = "ep") -> dict:
+    """{parameter name within an ``MoE``: ``placement.Spec``}: the expert
+    stacks split over ``axis`` on their expert dimension, the router
+    whole (JAX's ``moe_param_specs``, ``ops/moe.py:127-132``)."""
+    from dalle_pytorch_tpu_torch.parallel.placement import Spec
+    return {"router.weight": Spec(), "w1": Spec(None, (axis, None, None)),
+            "w2": Spec(None, (axis, None, None))}

@@ -89,16 +89,27 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 
 def _hash_counters(key: torch.Tensor, shape: Sequence[int],
-                   offset: int = 0):
+                   offset: int = 0, cols=None):
     """Both threefry output words for the flat counters of ``shape``,
     for every key in ``key``'s leading axes: (..., *shape) each. The
     counters are ``offset + arange(prod(shape))``: a draw of a slice of
     rows of a larger array starts at the slice's first flat index, and
-    equals that slice of the whole array's draw."""
+    equals that slice of the whole array's draw. ``cols=(c0, width)``
+    says the last axis is columns ``c0 ..`` of a ``width``-wide last
+    axis (a tensor-parallel rank's columns of a hidden layer): each
+    row's counters then step by ``width``, and the draw is those columns
+    of the whole draw."""
     shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    idx = torch.arange(offset, offset + n, dtype=torch.int64,
-                       device=key.device).reshape(shape)
+    if cols is None:
+        n = math.prod(shape)
+        idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                           device=key.device).reshape(shape)
+    else:
+        c0, width = (int(c) for c in cols)
+        rows = torch.arange(math.prod(shape[:-1]), dtype=torch.int64,
+                            device=key.device)[:, None]
+        idx = (offset + c0 + rows * width + torch.arange(
+            shape[-1], dtype=torch.int64, device=key.device)).reshape(shape)
     lead = key.shape[:-1]
     k0 = key[..., 0].reshape(lead + (1,) * len(shape))
     k1 = key[..., 1].reshape(lead + (1,) * len(shape))
@@ -106,14 +117,16 @@ def _hash_counters(key: torch.Tensor, shape: Sequence[int],
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int],
-                bit_width: int = 32, offset: int = 0) -> torch.Tensor:
+                bit_width: int = 32, offset: int = 0,
+                cols=None) -> torch.Tensor:
     """``bit_width``-bit random words (8, 16 or 32) of ``shape`` for every
     key in ``key``'s leading axes: (..., *shape) int64 in
     [0, 2**bit_width), the low bits of the 32-bit word. ``offset`` is the
-    first flat counter (``_hash_counters``)."""
+    first flat counter and ``cols`` a column window
+    (``_hash_counters``)."""
     if bit_width not in (8, 16, 32):
         raise ValueError(f"bit_width must be 8, 16 or 32, got {bit_width}")
-    b0, b1 = _hash_counters(key, shape, offset)
+    b0, b1 = _hash_counters(key, shape, offset, cols)
     return (b0 ^ b1) & ((1 << bit_width) - 1)
 
 
@@ -131,14 +144,14 @@ _UNIFORM = {torch.float32: (32, 23, 0x3F800000, torch.int32),
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0, dtype=torch.float32,
-            offset: int = 0) -> torch.Tensor:
+            offset: int = 0, cols=None) -> torch.Tensor:
     """Uniform in [minval, maxval) in float32 or bfloat16
     (``random._uniform``): the top mantissa-width bits of the draw become
     the mantissa of a float in [1, 2), minus 1, all in ``dtype``."""
     if dtype not in _UNIFORM:
         raise TypeError(f"uniform takes float32 or bfloat16, got {dtype}")
     width, nmant, one, view = _UNIFORM[dtype]
-    bits = random_bits(key, shape, width, offset)
+    bits = random_bits(key, shape, width, offset, cols)
     fbits = ((bits >> (width - nmant)) | one).to(view)
     floats = fbits.view(dtype) - 1.0
     lo = torch.tensor(minval, dtype=dtype, device=key.device)
@@ -147,11 +160,11 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int],
-              offset: int = 0) -> torch.Tensor:
+              offset: int = 0, cols=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: bool, True with
     probability ``p`` (a float32 uniform below float32 ``p``)."""
     pf = torch.tensor(p, dtype=torch.float32, device=key.device)
-    return uniform(key, shape, offset=offset) < pf
+    return uniform(key, shape, offset=offset, cols=cols) < pf
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int], dtype=torch.float32,
@@ -170,11 +183,12 @@ _ROWS = threading.local()
 @contextlib.contextmanager
 def batch_rows(start: int):
     """Inside, a draw of a batch-leading shape made through
-    ``row_offset`` (dropout, the VAE's Gumbel noise, the caption drop)
-    is rows ``start ..`` of the draw for the whole batch: a data-parallel
-    rank holding those rows draws exactly its part of the one-device
-    draw, as JAX's data-parallel step does (it draws for the global
-    shape and shards it)."""
+    ``row_offset`` (dropout, the VAE's Gumbel noise, the caption drop,
+    ``categorical`` under one key) is rows ``start ..`` of the draw for
+    the whole batch: a data-parallel rank holding those rows draws
+    exactly its part of the one-device draw, as JAX's data-parallel step
+    (and its sampler over a dp-sharded candidate batch) does: it draws
+    for the global shape and shards it."""
     prev = getattr(_ROWS, "start", 0)
     _ROWS.start = int(start)
     try:
@@ -197,12 +211,15 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     the logits' dtype. ``key``'s leading axes are batch axes over the
     logits' leading axes, each key drawing noise of the rest of the
     shape: one key (2,) draws noise of the logits' full shape, as one
-    JAX call over a (rows, V) batch does (``generate_images``); keys
+    JAX call over a (rows, V) batch does (``generate_images``; under
+    ``batch_rows`` these rows of the whole batch's draw); keys
     (b, 2) over (b, V) logits draw a (V,) row each, as ``vmap`` of the
     call does (the engine's per-slot sampling)."""
     lead = key.dim() - 1
     if logits.shape[:lead] != key.shape[:-1]:
         raise ValueError(f"keys {tuple(key.shape)} do not lead logits "
                          f"{tuple(logits.shape)}")
-    g = gumbel(key, logits.shape[lead:], logits.dtype)
+    shape = logits.shape[lead:]
+    g = gumbel(key, shape, logits.dtype,
+               offset=row_offset(shape) if lead == 0 else 0)
     return torch.argmax(g + logits, dim=-1)

@@ -21,7 +21,11 @@ and its backward returns their gradients, so ``loss.backward()``,
 them. On the flash path each layer's backward recomputes ``f``'s
 forward: a step launches K1 twice a layer and K2a and K2b once each.
 Dense and sparse layers go by the per-layer Python bool of
-``cfg.sparse_pattern``, as the sequential loop does. In bfloat16 the
+``cfg.sparse_pattern``, as the sequential loop does. Under fsdp each
+layer's weights are fetched from their owner in the forward and again
+in the backward's recompute (``placement.fetch_leaves``), and their
+gradients summed over the group into the owner's parameters; under tp
+the branches' sums over the group run in both. In bfloat16 the
 inversion loses bits (``x2 = y2 - g(y1)`` rounds), as JAX's does.
 """
 
@@ -31,10 +35,12 @@ from typing import Optional
 
 import torch
 
+from dalle_pytorch_tpu_torch.parallel import placement as PL
 
-def _branches(model, cfg, keys, mask, train):
-    """f(i, h) and g(i, h): layer i's attention and feed-forward
-    branches under its dropout keys."""
+
+def _branches(cfg, keys, mask, train):
+    """f(layer, i, h) and g(layer, i, h): layer i's attention and
+    feed-forward branches under its dropout keys."""
     # ops/transformer.py imports this module
     from dalle_pytorch_tpu_torch.ops import transformer as T
     pattern = cfg.sparse_pattern
@@ -42,12 +48,12 @@ def _branches(model, cfg, keys, mask, train):
     def key(i, j):
         return keys[i][j] if train else None
 
-    def f(i, h):
-        return T.attn_branch(model.layers[i], h, mask, cfg, key(i, 0), train,
+    def f(layer, i, h):
+        return T.attn_branch(layer, h, mask, cfg, key(i, 0), train,
                              is_sparse=pattern[i])
 
-    def g(i, h):
-        return T.ff_branch(model.layers[i], h, cfg, key(i, 1), train)
+    def g(layer, i, h):
+        return T.ff_branch(layer, h, cfg, key(i, 1), train)
 
     return f, g
 
@@ -56,53 +62,65 @@ def _grad_params(module: torch.nn.Module) -> list:
     return [p for p in module.parameters() if p.requires_grad]
 
 
+def _branch_grads(layer, view, sub: str, fn, h, dy):
+    """(dh, {id(param): gradient}) of branch ``fn`` of ``view`` (layer
+    ``layer``'s weights, fetched) at ``h`` against ``dy``. Under fsdp the
+    view's weights are leaves fetched from their owner: their gradients
+    are summed over the group into the owner's parameters."""
+    with torch.enable_grad():
+        h = h.detach().requires_grad_()
+        ps = _grad_params(getattr(view, sub))
+        out = fn(view, h)
+        dh, *dps = torch.autograd.grad(out, [h] + ps, dy, allow_unused=True)
+    owned = _grad_params(getattr(layer, sub))
+    if view is not layer:
+        dps = PL.owner_grads(layer, ps, dps)
+    return dh, out.detach(), dict(zip(map(id, owned), dps or []))
+
+
 class _RevSequence(torch.autograd.Function):
     """x -> mean of the two streams after every layer; the parameters
-    follow as inputs so their gradients come back from ``backward``."""
+    this rank stores follow as inputs so their gradients come back from
+    ``backward``."""
 
     @staticmethod
     def forward(ctx, x, model, cfg, keys, mask, train, *params):
-        f, g = _branches(model, cfg, keys, mask, train)
+        f, g = _branches(cfg, keys, mask, train)
         x1 = x2 = x
         for i in range(cfg.depth):
-            x1 = x1 + f(i, x2)
-            x2 = x2 + g(i, x1)
+            view = PL.fetch_layer(model.layers[i])
+            x1 = x1 + f(view, i, x2)
+            x2 = x2 + g(view, i, x1)
         ctx.save_for_backward(x1, x2, keys, mask)
         ctx.model, ctx.cfg, ctx.train = model, cfg, train
+        ctx.params = params
         return (x1 + x2) * 0.5
 
     @staticmethod
     def backward(ctx, dout):
         y1, y2, keys, mask = ctx.saved_tensors
         model, cfg = ctx.model, ctx.cfg
-        f, g = _branches(model, cfg, keys, mask, ctx.train)
+        f, g = _branches(cfg, keys, mask, ctx.train)
         dy1 = dy2 = dout * 0.5
         grads = {}
         for i in reversed(range(cfg.depth)):
             layer = model.layers[i]
+            view = PL.fetch_leaves(layer)
             # invert g: x2 = y2 - g(y1); cotangents into (y1, ff params)
-            with torch.enable_grad():
-                h = y1.detach().requires_grad_()
-                ps = _grad_params(layer.ff)
-                out = g(i, h)
-                dh, *dps = torch.autograd.grad(out, [h] + ps, dy2,
-                                               allow_unused=True)
-            x2 = y2 - out.detach()
+            dh, out, dps = _branch_grads(
+                layer, view, "ff", lambda v, h: g(v, i, h), y1, dy2)
+            x2 = y2 - out
             dy1 = dy1 + dh
-            grads.update(zip(map(id, ps), dps))
+            grads.update(dps)
             # invert f: x1 = y1 - f(x2); cotangents into (x2, attn params)
-            with torch.enable_grad():
-                h = x2.detach().requires_grad_()
-                ps = _grad_params(layer.attn)
-                out = f(i, h)
-                dh, *dps = torch.autograd.grad(out, [h] + ps, dy1,
-                                               allow_unused=True)
-            x1 = y1 - out.detach()
+            dh, out, dps = _branch_grads(
+                layer, view, "attn", lambda v, h: f(v, i, h), x2, dy1)
+            x1 = y1 - out
             dy2 = dy2 + dh
-            grads.update(zip(map(id, ps), dps))
+            grads.update(dps)
             y1, y2 = x1, x2
         return (dy1 + dy2, None, None, None, None, None,
-                *(grads.get(id(p)) for p in model.layers.parameters()))
+                *(grads.get(id(p)) for p in ctx.params))
 
 
 def reversible_apply(model, x: torch.Tensor, *, cfg,
@@ -116,4 +134,5 @@ def reversible_apply(model, x: torch.Tensor, *, cfg,
     from dalle_pytorch_tpu_torch.ops import transformer as T
     keys = T._layer_keys(rng, cfg.depth, x.device)
     return _RevSequence.apply(x, model, cfg, keys, mask, train,
-                              *model.layers.parameters())
+                              *[p for p in model.layers.parameters()
+                                if not p.is_meta])

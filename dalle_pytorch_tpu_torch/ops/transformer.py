@@ -37,6 +37,15 @@ JAX ``:139-165``) trades memory for recompute per layer:
   (``core.layernorm(recompute=True)``, JAX's ``ln_f32_in`` and
   ``ln_f32_out``). Everything else, K1's outputs included, stays saved:
   K1 runs once a layer.
+
+Across ranks (``parallel/placement.py``): under tensor parallelism
+(``FeedForward.tp``) a rank holds its slice of GEGLU's hidden half and
+of its gates half (``w1``'s rows and bias) and the matching columns of
+``w2``; ``ff_dropout`` draws the rank's columns of the one-process mask
+(``core.dropout(cols=)``), and ``w2``'s product is summed over ``tp``
+before its bias. Under fsdp (``Layer.fsdp``) each layer's weights reach
+the ranks from their owner inside the (rematerialised) layer body, so a
+recompute fetches them again.
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ from dalle_pytorch_tpu_torch.ops import flash_attention as flash_ops
 from dalle_pytorch_tpu_torch.ops import moe as moe_ops
 from dalle_pytorch_tpu_torch.ops import reversible as rev_ops
 from dalle_pytorch_tpu_torch.ops import sparse as sparse_ops
+from dalle_pytorch_tpu_torch.parallel import collectives as col
+from dalle_pytorch_tpu_torch.parallel import placement as PL
 
 SPARSE_IMPLS = ("ref", "windowed", "pallas")
 REMAT_MODES = ("none", "save_ln", "dots", "full")
@@ -140,7 +151,10 @@ class TransformerConfig:
 
 class FeedForward(nn.Module):
     """PreNorm GEGLU parameters: ``ln``, ``w1`` (dim -> 2*hidden),
-    ``w2`` (hidden -> dim) — the JAX ``layer_params["ff"]`` subtree."""
+    ``w2`` (hidden -> dim) — the JAX ``layer_params["ff"]`` subtree;
+    ``tp`` the group its hidden units are split over (None: all here)."""
+
+    tp = None
 
     def __init__(self, dim: int, mult: int, *, device=None, dtype=None):
         super().__init__()
@@ -161,6 +175,11 @@ class MoEFeedForward(nn.Module):
 
 
 class Layer(nn.Module):
+    """One layer's ``attn`` and ``ff``; ``fsdp`` (a ``placement.Owner``)
+    when one rank of a group stores it for all of them."""
+
+    fsdp = None
+
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
         self.attn = attn_ops.Attention(cfg.dim, cfg.heads, cfg.dim_head,
@@ -185,17 +204,25 @@ def ff_branch(layer: Layer, x: torch.Tensor,
               train: bool = False, dropout_fn=None) -> torch.Tensor:
     """PreNorm GEGLU feed-forward (``transformer.ff_branch``), with
     ``cfg.ff_dropout`` on the gated hidden in train mode;
-    ``dropout_fn(key, h)`` replaces that dropout (the sequence-parallel
-    stack passes ``core.positional_dropout``)."""
+    ``dropout_fn(key, h, cols=)`` replaces that dropout (the
+    sequence-parallel stack passes ``core.positional_dropout``). Over a
+    ``tp`` group: this rank's hidden columns, their dropout mask drawn
+    as those columns of the whole one, and ``w2``'s product summed over
+    the group before its bias."""
     p = layer.ff
+    tp = p.tp or col.SELF
     h = core.linear(p.w1, core.layernorm(p.ln, x, recompute=_save_ln(cfg)))
     h, gates = h.chunk(2, dim=-1)
     h = h * core.gelu(gates)
+    cols = None if tp.size == 1 else (tp.index * h.shape[-1],
+                                      tp.size * h.shape[-1])
     if dropout_fn is not None:
-        h = dropout_fn(key, h)
+        h = dropout_fn(key, h, cols=cols)
     elif train:
-        h = core.dropout(key, h, cfg.ff_dropout, train)
-    return core.linear(p.w2, h)
+        h = core.dropout(key, h, cfg.ff_dropout, train, cols)
+    if tp.size == 1:
+        return core.linear(p.w2, h)
+    return attn_ops.row_parallel(p.w2, h, tp)
 
 
 def ff_or_moe(layer: Layer, x: torch.Tensor, cfg: TransformerConfig,
@@ -347,6 +374,7 @@ def transformer_apply(model: Transformer, x: torch.Tensor, *,
                                        cfg.sparse_pattern):
 
         def body(h, mask, ka, kf, layer=layer, is_sparse=is_sparse):
+            layer = PL.fetch_layer(layer)
             h = h + attn_branch(layer, h, mask, cfg, ka, train,
                                 is_sparse=is_sparse)
             f, a = ff_or_moe(layer, h, cfg, kf, train)

@@ -10,7 +10,10 @@ collective:
 * ``all_gather``'s (tiled) is the summing ``reduce_scatter``;
 * ``all_to_all``'s is the reverse all-to-all (split and concat axes
   swapped);
-* ``ppermute``'s is the reverse rotation.
+* ``ppermute``'s is the reverse rotation;
+* ``broadcast_from``'s (the owner's value on every rank: a layer's
+  weights reaching its fsdp group) is ``psum`` of the cotangents, kept
+  by the owner alone.
 
 These are the transposes under the convention the training step keeps:
 the loss of a step is the SUM over a group's ranks of what each rank's
@@ -18,7 +21,10 @@ backward starts from, and a replicated parameter's gradient is the sum of
 its ranks' gradients. A value that every rank of a group computes alike
 (a pipeline's loss on every stage) therefore enters each rank's backward
 divided by the group's size, so no gradient is counted once for each rank
-(``parallel/pipeline.py``).
+(``parallel/pipeline.py``). Only the sum of the ranks' cotangents of such
+a value is defined, so ``replicated`` may average them: every rank then
+holds the same share, and the gradients of the parameters upstream are
+the same on every rank, each rounded once.
 
 A ``Group`` is a list of global ranks and this rank's place among them;
 a group of one needs no process group, and every collective over it is
@@ -239,6 +245,20 @@ def broadcast(t: torch.Tensor, group: Group, src_index: int = 0
     return _run("broadcast", t, group, fn)
 
 
+def pmax(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise maximum over the group (no gradient): the sharded
+    softmax's shift, which its gradient does not depend on."""
+    if group.size == 1:
+        return t
+
+    def fn(w):
+        w = w.clone()
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group.pg)
+        return w
+
+    return _run("all_reduce", t, group, fn, reduce=True)
+
+
 def psum_(t: torch.Tensor, group: Group) -> torch.Tensor:
     """In-place sum over the group (no gradient): the step's gradient
     reduction."""
@@ -295,6 +315,20 @@ class _PPermute(torch.autograd.Function):
         return _ppermute(g, ctx.group, -ctx.shift), None, None
 
 
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.group, ctx.src = group, src
+        return broadcast(x, group, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _psum(g, ctx.group)
+        if ctx.group.index != ctx.src:
+            g = torch.zeros_like(g)
+        return g, None, None
+
+
 def _differentiable(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -336,3 +370,16 @@ def ppermute(x: torch.Tensor, group: Group, shift: int = 1) -> torch.Tensor:
         return x
     return _PPermute.apply(x, group, shift) if _differentiable(x) \
         else _ppermute(x, group, shift)
+
+
+def broadcast_from(x: torch.Tensor, group: Group, src: int) -> torch.Tensor:
+    """The value of the group's rank ``src`` on every rank, its gradient
+    the sum of the ranks' cotangents on ``src`` (zeros elsewhere). Every
+    rank passes a tensor of the same shape and dtype (a placeholder where
+    it holds no value) that requires a gradient whenever the owner's
+    does, so the backward's ``psum`` runs on every rank."""
+    if group.size == 1:
+        return x
+    return _BroadcastFrom.apply(x, group, src) if _differentiable(x) \
+        else broadcast(x, group, src)
+

@@ -8,7 +8,11 @@ order. ``fn`` must be a module-level function and its arguments and
 result picklable. Every wait has a deadline: a rank that raises fails
 the call with its traceback, and one that outlives ``timeout_s`` is
 killed with the others, so no caller waits forever on a dead peer.
-Each rank's collectives wait at most ``group_timeout_s`` on a peer.
+Each rank's collectives wait at most ``group_timeout_s`` on a peer. A
+group whose join fails (the rendezvous on the chosen port: another
+process may take the port between its choice and the store's bind)
+is stopped and started again on a fresh port, up to ``_JOIN_ATTEMPTS``
+times; ``fn`` runs only in a group that joined.
 
 By default each rank runs on its card, ``cuda:(local_rank % cards)``;
 ``device='cpu'`` runs it on the CPU over ``gloo``, which is how the
@@ -44,6 +48,10 @@ def _rank_main(rank: int, n: int, port: int, fn, args, out, device,
                              num_processes=n, process_id=rank,
                              backend=backend, device=device,
                              timeout_s=group_timeout_s)
+    except Exception:                       # noqa: BLE001 — sent home
+        out.put((rank, None, traceback.format_exc()))
+        return
+    try:
         if device is None or str(device).startswith("cuda"):
             torch.cuda.set_device(multihost.local_device(device))
         out.put((rank, True, fn(rank, *args)))
@@ -56,15 +64,34 @@ def _rank_main(rank: int, n: int, port: int, fn, args, out, device,
             pass
 
 
+_JOIN_ATTEMPTS = 3
+
+
+class _JoinFailed(RuntimeError):
+    """A rank of the group could not join it."""
+
+
 def spawn(fn: Callable, n: int, args: Sequence = (), *,
           device: Optional[str] = None, backend: Optional[str] = None,
           timeout_s: float = 300.0, group_timeout_s: float = 120.0,
           threads: int = 1) -> list:
     """``[fn(0, *args), ..., fn(n - 1, *args)]``, each in its own rank
     process on ``device`` (None: the rank's card). Raises
-    ``RuntimeError`` with the failing ranks' tracebacks, or
-    ``TimeoutError`` after ``timeout_s``; every process started is
-    stopped before it returns."""
+    ``RuntimeError`` with the failing ranks' tracebacks (after
+    ``_JOIN_ATTEMPTS`` groups that could not join, the last one's), or
+    ``TimeoutError`` after ``timeout_s`` an attempt; every process
+    started is stopped before it returns."""
+    for attempt in range(_JOIN_ATTEMPTS):
+        try:
+            return _spawn_once(fn, n, args, device, backend, timeout_s,
+                               group_timeout_s, threads)
+        except _JoinFailed as e:
+            if attempt == _JOIN_ATTEMPTS - 1:
+                raise RuntimeError(str(e)) from None
+
+
+def _spawn_once(fn, n, args, device, backend, timeout_s, group_timeout_s,
+                threads) -> list:
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     port = free_port()
@@ -97,6 +124,9 @@ def spawn(fn: Callable, n: int, args: Sequence = (), *,
                             f"rank(s) {dead} died with exit codes "
                             f"{[procs[r].exitcode for r in dead]}")
                 continue
+            if ok is None:
+                errors[rank] = value
+                raise _JoinFailed(f"rank {rank} could not join:\n{value}")
             (results if ok else errors)[rank] = value
             if errors:
                 raise RuntimeError("".join(

@@ -2,8 +2,11 @@
 
 Port of ``dalle_pytorch_tpu/parallel/mesh.py`` (``:28-74``), with the
 same axis names: ``dp`` (data parallel: the batch split, gradients
-averaged), ``sp`` (the sequence split, ``parallel/sequence.py``) and
-``pp`` (pipeline stages, ``parallel/pipeline.py``). ``make_mesh`` lays
+averaged), ``sp`` (the sequence split, ``parallel/sequence.py``), ``pp``
+(pipeline stages, ``parallel/pipeline.py``), and the axes that split
+parameters but not the batch (``parallel/placement.py``): ``tp``
+(Megatron tensor parallelism), ``fsdp`` (layers stored in blocks) and
+``ep`` (MoE experts). ``make_mesh`` lays
 the world's ranks out row-major over the axes, as JAX reshapes its
 device list, and gives each axis a group: for every slice along an axis
 one ``dist.new_group``, created in the same order on every rank (the

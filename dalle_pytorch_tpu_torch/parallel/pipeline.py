@@ -4,7 +4,8 @@ axis.
 Port of ``dalle_pytorch_tpu/parallel/pipeline.py`` (``:44-278``). Stage
 ``s`` of P holds layers ``s * depth/P ..`` (``pp_param_specs``: a rank
 stores only those; ``parallel/train.py::setup_sharded`` drops the rest to
-the meta device), the batch splits into M microbatches, and the schedule
+the meta device; ``ep=`` splits each stage's experts further), the batch
+splits into M microbatches, and the schedule
 runs M + P - 1 ticks: at tick t stage s runs microbatch ``t - s`` when it
 is in range, then every stage hands its output to the next through
 ``collectives.ppermute``. An idle tick skips the layers but still
@@ -169,13 +170,31 @@ def pipeline_transformer(model: T.Transformer, x: torch.Tensor, *, cfg,
     return (out, aux) if with_aux else out
 
 
-def pp_param_specs(model: D.DALLE, axis: str = "pp") -> dict:
-    """{parameter name: ``axis`` for the transformer stack's layers (each
-    stage stores only its own ``depth/P``), None for everything else
-    (embeddings and head, held on every stage)}; for
-    ``parallel/train.py::setup_sharded``."""
-    return {name: (axis if name.startswith("transformer.layers.") else None)
-            for name, _ in model.named_parameters()}
+def pp_param_specs(model: D.DALLE, axis: str = "pp",
+                   ep: Optional[str] = None) -> dict:
+    """{parameter name: ``placement.Spec``}: the transformer stack's
+    layers split over ``axis`` by depth (each stage stores only its own
+    ``depth/P``), everything else (embeddings and head) whole on every
+    stage; for ``parallel/train.py::setup_sharded``. ``ep`` also splits
+    each stage's MoE expert stacks over that axis (dp x pp x ep; the
+    experts' sum over ep runs inside the stage, ``ops/moe.py``), and
+    raises JAX's ``ValueError`` for a model without MoE."""
+    from dalle_pytorch_tpu_torch.parallel.placement import Spec
+    specs = {name: Spec(axis, staged=True)
+             if name.startswith("transformer.layers.")
+             else Spec() for name, _ in model.named_parameters()}
+    if ep is not None:
+        moe = [n for n in specs if n.startswith("transformer.layers.")
+               and n.endswith((".ff.moe.w1", ".ff.moe.w2"))]
+        if not moe:
+            raise ValueError(
+                f"ep={ep!r} requested but the param tree has no "
+                "['transformer']['ff']['moe'] subtree — the model was "
+                "built without MoE (moe_experts=0) or the MoE param "
+                "layout moved; update pp_param_specs' path to match")
+        for n in moe:
+            specs[n] = Spec(axis, (ep, None, None), staged=True)
+    return specs
 
 
 def pp_dalle_loss_fn(mesh, *, axis: str = "pp",

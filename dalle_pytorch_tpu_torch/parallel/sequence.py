@@ -10,6 +10,11 @@ key gives the same masks at every sp degree, and ``cfg.remat`` wraps
 each layer (``ops/transformer.py::_maybe_remat``): the recompute re-runs
 the layer's collectives in the backward, in the same order on every
 rank. Refused, as in JAX: sparse layers, the reversible engine and MoE.
+Tensor parallelism composes inside (JAX's dp x tp x sp): under
+``dalle_param_specs(tp=)`` the ring and Ulysses bodies run on the rank's
+``h/tp`` heads, the GEGLU on its hidden slice (its positional dropout
+drawn for those columns), and the head's softmax spans the tp group
+(``models/dalle.py``).
 
 ``sp_dalle_loss_fn`` embeds the batch, keeps this rank's positions and
 returns this rank's share of the loss: the CE summed over its rows,
@@ -30,6 +35,7 @@ from dalle_pytorch_tpu_torch.ops import attention as attn_ops
 from dalle_pytorch_tpu_torch.ops import core
 from dalle_pytorch_tpu_torch.ops import transformer as T
 from dalle_pytorch_tpu_torch.parallel import collectives as col
+from dalle_pytorch_tpu_torch.parallel import placement as PL
 from dalle_pytorch_tpu_torch.parallel.ring import (ring_attention_local,
                                                    ulysses_attention_local)
 
@@ -64,12 +70,13 @@ def _stack_local(model: T.Transformer, x: torch.Tensor, mask, *, cfg,
                                        mask=mb)
 
     def drop(rate):
-        return lambda k, t: core.positional_dropout(k, t, rate, train,
-                                                    offset=offset)
+        return lambda k, t, cols=None: core.positional_dropout(
+            k, t, rate, train, offset=offset, cols=cols)
 
     for layer, lkeys in zip(model.layers, keys):
 
         def body(h, mb, ka, kf, layer=layer):
+            layer = PL.fetch_layer(layer)
             p = layer.attn
             a_in = core.layernorm(p.ln, h, recompute=T._save_ln(cfg))
             q, k, v = attn_ops.qkv_project(p, a_in, cfg.heads)
@@ -132,10 +139,7 @@ def _ce_sum(model: D.DALLE, h: torch.Tensor, targets: torch.Tensor,
     chunk = min(cfg.loss_chunk, n) if cfg.loss_chunk > 0 else n
 
     def body(hc, tc, rows):
-        logits = D.to_logits(model, hc)
-        logits = logits.masked_fill(D.logits_mask(cfg, rows),
-                                    core.neg_inf(logits.dtype))
-        return D._nll(logits, tc).sum()
+        return D.nll_rows(model, hc, tc, rows).sum()
 
     total = h.new_zeros((), dtype=torch.float32)
     for c0 in range(0, n, chunk):

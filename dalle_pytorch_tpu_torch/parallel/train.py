@@ -1,10 +1,11 @@
 """The training step, on one device or across the ranks of a mesh.
 
 Port of ``dalle_pytorch_tpu/parallel/train.py``'s ``make_train_step``
-(``:32``), ``accumulate_grads`` (``:79``), ``setup_sharded`` (``:117``)
-for the replicated placement and the pipeline's stage placement, and the
-three models' loss closures, ``vae_loss_fn`` (``:235``), ``dalle_loss_fn``
-(``:257``) and ``clip_loss_fn`` (``:270``). There is no jit: the step
+(``:32``), ``accumulate_grads`` (``:79``), ``setup_sharded`` (``:117``),
+the placement rules ``dalle_param_specs`` (``:164-215``) and
+``dalle_moe_param_specs`` (``:218-228``), and the three models' loss
+closures, ``vae_loss_fn`` (``:235``), ``dalle_loss_fn`` (``:257``) and
+``clip_loss_fn`` (``:270``). There is no jit: the step
 runs eagerly on the rank's device, and the parameters and the
 optimizer's moments update in place (where JAX returns new trees). An
 optional scalar ``batch['lr_scale']`` (the resilience supervisor's
@@ -22,8 +23,16 @@ everything over ``dp``; stage-local parameters (``pp``) are averaged
 over ``dp`` only. All of it travels in one float32 buffer per group.
 The loss returned is the global batch's, and every parameter's gradient
 is that loss's gradient, whatever axis split the work, so the
-global-norm clip and ``lr_scale`` act on the global gradient (under
-``pp`` the norm adds the stages' squared norms over the pp group). A
+global-norm clip and ``lr_scale`` act on the global gradient (the norm
+adds each piece's squares over the axes that split its parameter).
+
+Under a placement that splits parameters (``parallel/placement.py``:
+tp, fsdp and ep see the same rows, as JAX splits the batch over dp
+only) every rank of such an axis computes the same loss, and its
+backward starts from its share, the loss / the axis' size. A piece of a
+parameter (a tp or ep slice, a layer an fsdp or pp rank stores) then
+holds the whole loss's gradient of that piece; a parameter whole on the
+axis sums its ranks' gradients over it. A
 plain data-parallel step draws its dropout and Gumbel noise as rows of
 the global batch's draw (``prng.batch_rows``), as JAX's dp step does;
 the ``sp`` and ``pp`` bodies draw for their own shard, as JAX's
@@ -32,7 +41,8 @@ the ``sp`` and ``pp`` bodies draw for their own shard, as JAX's
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -42,6 +52,7 @@ from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.models import vae as V
 from dalle_pytorch_tpu_torch.ops import prng
 from dalle_pytorch_tpu_torch.parallel import collectives as col
+from dalle_pytorch_tpu_torch.parallel import placement as PL
 from dalle_pytorch_tpu_torch.parallel.mesh import replicate
 
 
@@ -52,71 +63,99 @@ def _rows(batch: dict) -> int:
     return 0
 
 
-def _stage_local(param_specs: Optional[dict], name: str,
-                 axis: Optional[str]) -> bool:
-    return bool(param_specs) and axis is not None \
-        and param_specs.get(name) == axis
+def _sum_axes(mesh, model_axis: Optional[str], param_specs: Optional[dict],
+              dp_axis: str) -> Tuple[str, ...]:
+    """The axes whose ranks' gradients add up to the loss's: the model
+    axis (the loss's shares) and the axes that split parameters but not
+    the rows (every rank's backward starts from its share of the loss)."""
+    rep = PL.replica_axes(param_specs, mesh, (model_axis, dp_axis))
+    return tuple(a for a in mesh.axis_names
+                 if (a == model_axis and mesh.size(a) > 1) or a in rep)
 
 
 def reduce_grads(model: torch.nn.Module, loss: torch.Tensor, mesh,
                  model_axis: Optional[str] = None,
                  param_specs: Optional[dict] = None,
                  dp_axis: str = "dp") -> torch.Tensor:
-    """Sum the loss shares and the replicated parameters' gradients over
-    ``model_axis``, then average them and the stage-local ones over
-    ``dp_axis``; returns the global loss. A parameter with no gradient
-    (an embedding a pipeline stage never reads) counts as zeros, so every
-    rank's buffer has the same layout."""
-    mp, dp = mesh.group(model_axis), mesh.group(dp_axis)
-    if mp.size == 1 and dp.size == 1:
+    """Sum each parameter's gradient over the summed axes (the loss's
+    model axis, and the tp, fsdp and ep axes) that do not split it, and
+    the loss shares over the model axis; then average everything over
+    ``dp_axis``. Returns the global loss. A piece of a parameter (a tp
+    or ep slice, an fsdp or pipeline layer) already holds the whole
+    loss's gradient of that piece and is not summed over its axis. A
+    parameter with no gradient (an embedding a pipeline stage never
+    reads) counts as zeros, so every rank's buffers have the same
+    layout."""
+    axes = _sum_axes(mesh, model_axis, param_specs, dp_axis)
+    dp = mesh.group(dp_axis)
+    if not axes and dp.size == 1:
         return loss.detach()
-    params = [(n, p) for n, p in model.named_parameters()
-              if p.requires_grad and not p.is_meta]
-    local = [p for n, p in params if _stage_local(param_specs, n,
-                                                  model_axis)]
-    shared = [p for n, p in params if not _stage_local(param_specs, n,
-                                                       model_axis)]
+    buckets: dict = {}
+    for n, p in model.named_parameters():
+        if not p.requires_grad or p.is_meta:
+            continue
+        spec = PL.spec_of(param_specs, n)
+        key = tuple(a for a in axes if a not in spec.axes())
+        buckets.setdefault(key, []).append(p)
+    loss_key = (model_axis,) if model_axis in axes else ()
+    loss = loss.detach().float().reshape(1)
 
     def flat(ps):
         return [(p.grad if p.grad is not None else torch.zeros_like(p))
                 .reshape(-1).float() for p in ps]
 
-    loss = loss.detach().float().reshape(1)
-    buf = torch.cat(flat(shared) + [loss])
-    col.psum_(buf, mp)
-    buf = torch.cat([buf] + flat(local))
+    order = sorted(set(buckets) | {loss_key}, key=lambda k: (len(k), k))
+    bufs = []
+    for key in order:
+        parts = flat(buckets.get(key, [])) + ([loss] if key == loss_key
+                                              else [])
+        buf = torch.cat(parts) if parts else None
+        for a in key:
+            col.psum_(buf, mesh.group(a))
+        bufs.append(buf)
     if dp.size > 1:
-        col.psum_(buf, dp)
-        buf /= dp.size
-    off = 0
-    for p in shared + [None] + local:
-        if p is None:
+        whole = torch.cat(bufs)
+        col.psum_(whole, dp)
+        whole /= dp.size
+        bufs = list(whole.split([b.numel() for b in bufs]))
+    for key, buf in zip(order, bufs):
+        off = 0
+        for p in buckets.get(key, []):
+            n = p.numel()
+            p.grad = buf[off:off + n].view(p.shape).to(p.dtype)
+            off += n
+        if key == loss_key:
             loss = buf[off]
-            off += 1
-            continue
-        n = p.numel()
-        p.grad = buf[off:off + n].view(p.shape).to(p.dtype)
-        off += n
     return loss
 
 
-def _global_norm(model: torch.nn.Module, mesh, model_axis: Optional[str],
+def _global_norm(model: torch.nn.Module, mesh,
                  param_specs: Optional[dict]) -> torch.Tensor:
-    """The L2 norm of every parameter's gradient across the stages: the
-    stage-local squares summed over ``model_axis``."""
-    local = shared = None
+    """The L2 norm of the whole model's gradient: each piece's squares
+    summed over the axes that split its parameter, so every element
+    counts once. Every rank sums the same buckets in the same order (a
+    bucket it holds nothing of counts zero)."""
+    live = tuple(a for a in mesh.axis_names if mesh.size(a) > 1)
+
+    def key(spec):
+        return tuple(a for a in live if a in spec.axes())
+
+    dev = next(p for p in model.parameters() if not p.is_meta).device
+    sq = {key(s): torch.zeros((), device=dev)
+          for s in list((param_specs or {}).values()) + [PL.REPLICATED]
+          if s is not None}
     for n, p in model.named_parameters():
         if p.grad is None or p.is_meta:
             continue
-        sq = p.grad.float().square().sum()
-        if _stage_local(param_specs, n, model_axis):
-            local = sq if local is None else local + sq
-        else:
-            shared = sq if shared is None else shared + sq
-    dev = next(p for p in model.parameters() if not p.is_meta).device
-    local = local if local is not None else torch.zeros((), device=dev)
-    shared = shared if shared is not None else torch.zeros((), device=dev)
-    return (col.psum(local, mesh.group(model_axis)) + shared).sqrt()
+        k = key(PL.spec_of(param_specs, n))
+        sq[k] = sq[k] + p.grad.float().square().sum()
+    total = torch.zeros((), device=dev)
+    for k in sorted(sq, key=lambda k: (len(k), k)):
+        v = sq[k]
+        for a in k:
+            v = col.psum(v, mesh.group(a))
+        total = total + v
+    return total.sqrt()
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
@@ -133,15 +172,25 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
     With a ``mesh`` the batch is this rank's rows and the step is the
     global batch's (module docstring), its microbatches the global
-    batch's (``microbatch_rows``); ``param_specs`` marks the pipeline's
-    stage-local parameters (``pp_param_specs``)."""
+    batch's (``microbatch_rows``); ``param_specs`` is the placement
+    ``setup_sharded`` made (``dalle_param_specs``,
+    ``dalle_moe_param_specs``, ``pp_param_specs``). The ranks of an axis
+    that splits parameters but not the rows (tp, fsdp, ep) compute the
+    same loss, and each one's backward starts from its share of it."""
     model_axis = getattr(loss_fn, "model_axis", None)
     dp = mesh.group(dp_axis) if mesh is not None else col.SELF
-    fn = loss_fn
-    if model_axis is None and dp.size > 1:
-        def fn(model, batch, rng):
+    shares = 1
+    if mesh is not None:
+        for a in PL.replica_axes(param_specs, mesh, (model_axis, dp_axis)):
+            shares *= mesh.size(a)
+
+    def fn(model, batch, rng):
+        if model_axis is None and dp.size > 1:
             with prng.batch_rows(dp.index * _rows(batch)):
-                return loss_fn(model, batch, rng)
+                value = loss_fn(model, batch, rng)
+        else:
+            value = loss_fn(model, batch, rng)
+        return value / shares if shares > 1 else value
 
     def step(model, batch: dict, rng: torch.Tensor) -> torch.Tensor:
         batch = dict(batch)
@@ -153,13 +202,14 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
             loss = accumulate_grads(fn, model,
                                     microbatch_rows(batch, dp, grad_accum),
                                     rng, grad_accum)
+        if shares > 1:
+            loss = loss.detach() * shares
         norm = None
         if mesh is not None:
             loss = reduce_grads(model, loss, mesh, model_axis, param_specs,
                                 dp_axis)
-            if optimizer.clip > 0 and model_axis is not None and any(
-                    v == model_axis for v in (param_specs or {}).values()):
-                norm = _global_norm(model, mesh, model_axis, param_specs)
+            if optimizer.clip > 0 and PL.splits(param_specs, mesh):
+                norm = _global_norm(model, mesh, param_specs)
         optimizer.step(1.0 if lr_scale is None else float(lr_scale),
                        grad_norm=norm)
         return loss.detach()
@@ -285,77 +335,165 @@ def clip_loss_fn(mesh=None, dp_axis: str = "dp") -> Callable:
 
 # -- placement ---------------------------------------------------------------
 
-def _owner(param_specs: Optional[dict], name: str, model: torch.nn.Module,
-           axis: str, stages: int) -> Optional[int]:
-    """The stage holding a stage-local parameter (None: on every
-    stage)."""
-    if not param_specs or param_specs.get(name) != axis:
-        return None
-    depth = len(model.transformer.layers)
-    return int(name.split(".")[2]) // (depth // stages)
+def _layer_spec(name: str, tp: Optional[str],
+                fsdp: Optional[str]) -> PL.Spec:
+    """JAX's ``_dalle_rule`` (``train.py:164-198``) for one parameter of
+    a stack layer, in the torch layout (``nn.Linear.weight`` is (out,
+    in)): qkv and w1 column-parallel (rows split), with w1's bias; out
+    and w2 row-parallel (columns split), their biases whole; layer norms
+    and MoE weights whole; every one split over the depth by ``fsdp``."""
+    sub = name.rsplit(".", 2)
+    leaf, mod = sub[-1], sub[-2]
+    if ".attn." in name or ".ff." in name:
+        if leaf == "weight" and mod in ("qkv", "w1") and ".moe." not in name:
+            return PL.Spec(fsdp, (tp, None))
+        if leaf == "weight" and mod in ("out", "w2") and ".moe." not in name:
+            return PL.Spec(fsdp, (None, tp))
+        if leaf == "bias" and mod == "w1":
+            return PL.Spec(fsdp, (tp,))
+    return PL.Spec(fsdp)
 
 
-def _spec_axis(param_specs: Optional[dict]) -> Optional[str]:
-    axes = {v for v in (param_specs or {}).values() if v}
-    if len(axes) > 1:
-        raise ValueError(f"param specs over several axes {sorted(axes)}")
-    return next(iter(axes), None)
+def _fit(spec: PL.Spec, shape, depth: Optional[int], mesh) -> PL.Spec:
+    """``spec`` with each axis that does not divide its dimension (or the
+    depth) dropped to whole (JAX's ``mesh=`` fallback, ``:206-213``)."""
+    dims = tuple(a if a is None or shape[i] % mesh.size(a) == 0 else None
+                 for i, a in enumerate(spec.dims))
+    layers = spec.layers
+    if layers is not None and depth % mesh.size(layers):
+        layers = None
+    return dataclasses.replace(spec, layers=layers, dims=dims)
+
+
+def dalle_param_specs(model: torch.nn.Module, tp: Optional[str] = None,
+                      fsdp: Optional[str] = None, mesh=None) -> dict:
+    """{parameter name: ``placement.Spec``} for a DALLE (or a bare
+    ``Transformer``): JAX's ``dalle_param_specs`` (``train.py:201-215``).
+    Megatron over ``tp`` (qkv and w1 column-parallel, out and w2
+    row-parallel, one psum after each), the vocabulary head
+    column-parallel, the embeddings and layer norms whole, and every
+    layer parameter stored over ``fsdp`` in contiguous blocks of layers.
+    With ``mesh``, an axis that does not divide its dimension falls back
+    to whole; without it, ``setup_sharded`` refuses such a spec."""
+    depth = len(PL.stack_of(model))
+    out = {}
+    for name, p in model.named_parameters():
+        if PL.layer_of(name) is not None:
+            spec = _layer_spec(name, tp, fsdp)
+        elif name == "logits_proj.weight":
+            spec = PL.Spec(None, (tp, None))
+        elif name == "logits_proj.bias":
+            spec = PL.Spec(None, (tp,))
+        else:
+            spec = PL.REPLICATED
+        out[name] = _fit(spec, p.shape, depth, mesh) if mesh is not None \
+            else spec
+    return out
+
+
+def dalle_moe_param_specs(model: torch.nn.Module, axis: str = "ep") -> dict:
+    """{parameter name: ``placement.Spec``}: the MoE expert stacks split
+    over ``axis`` on their expert dimension, the router and everything
+    else whole (JAX's ``dalle_moe_param_specs``, ``train.py:218-228``).
+    Every rank holds the same tokens, so routing and capacity are the
+    same on every rank; each runs its E/ep experts and the combine is one
+    psum over ``axis`` (``ops/moe.py``)."""
+    from dalle_pytorch_tpu_torch.ops.moe import moe_param_specs
+    out = {name: PL.REPLICATED for name, _ in model.named_parameters()}
+    found = False
+    for name in list(out):
+        head, _, leaf = name.rpartition(".ff.moe.")
+        if head and PL.layer_of(name) is not None:
+            out[name] = moe_param_specs(axis)[leaf]
+            found = True
+    if not found:
+        raise KeyError("moe")
+    return out
 
 
 def setup_sharded(model: torch.nn.Module, optimizer: Optimizer, mesh,
                   param_specs: Optional[dict] = None):
     """Place ``model``'s parameters and ``optimizer``'s moments on the
-    mesh, in place; returns (model, optimizer). Replicated (no specs):
-    every rank gets the values of the world's first rank, so the
-    replicas start identical (the moments too when the optimizer already
-    holds some: a restored state is placed, not re-initialised). With
-    ``pp_param_specs`` each stage keeps only its layers (the others move
-    to the meta device and leave the optimizer), which are made equal
-    over ``dp``, and everything else is replicated."""
-    axis = _spec_axis(param_specs)
-    stages = mesh.size(axis)
-    here = mesh.index(axis)
-    if axis is not None:
-        depth = len(model.transformer.layers)
-        if depth % stages:
-            raise ValueError(f"depth {depth} not divisible by pipeline "
-                             f"stages {stages}")
-        per = depth // stages
-        for i, layer in enumerate(model.transformer.layers):
-            if i // per != here:
+    mesh, in place; returns (model, optimizer).
+
+    Every tensor takes the values of the root of each mesh axis that
+    does not split the depth of its parameter, so replicas start
+    identical (a restored optimizer state is placed, not
+    re-initialised). Under ``param_specs`` (``dalle_param_specs``,
+    ``dalle_moe_param_specs``, ``pp_param_specs``) a rank then keeps
+    only its pieces: the layers of other depth blocks go to the meta
+    device and leave the optimizer, and each split dimension keeps this
+    rank's slice, the moments following their parameter by name (never
+    by shape). The modules learn their groups (``placement.attach``). A
+    spec the mesh cannot place raises ``ValueError``."""
+    specs = param_specs or {}
+    PL.check(model, specs, mesh)
+    moved = False
+    if specs:
+        stack = PL.stack_of(model)
+        base = "transformer." if hasattr(model, "transformer") else ""
+        for i, layer in enumerate(stack):
+            # a layer's parameters share its depth split (placement.attach)
+            name = f"{base}layers.{i}." + next(iter(
+                dict(layer.named_parameters())))
+            spec = PL.spec_of(specs, name)
+            own = PL.owner(name, spec, mesh, len(stack))
+            if own is not None and own != mesh.index(spec.layers):
                 layer.to("meta")
+                moved = True
+    if moved:
         optimizer.retain(model)
-    shared, local = [], []
+    groups: dict = {}
     for name, p in model.named_parameters():
         if p.is_meta:
             continue
+        spec = PL.spec_of(specs, name)
+        axes = tuple(a for a in mesh.axis_names if a != spec.layers)
         state = optimizer.adam.state.get(p, {})
-        tensors = [p] + [state[k] for k in ("exp_avg", "exp_avg_sq")
-                         if k in state]
-        own = _owner(param_specs, name, model, axis, stages)
-        (shared if own is None else local).extend(tensors)
-    replicate(mesh, shared)
-    replicate(mesh, local, [a for a in mesh.axis_names if a != axis])
+        groups.setdefault(axes, []).extend(
+            [p] + [state[k] for k in ("exp_avg", "exp_avg_sq")
+                   if k in state])
+    for axes in sorted(groups, key=lambda k: (len(k), k), reverse=True):
+        replicate(mesh, groups[axes], axes)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            spec = PL.spec_of(specs, name)
+            if not any(mesh.size(a) > 1 for a in spec.dims if a):
+                continue
+            if p.is_meta:
+                p.data = torch.empty(PL.local_shape(p.shape, spec, mesh),
+                                     dtype=p.dtype, device="meta")
+                continue
+            state = optimizer.adam.state.get(p, {})
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in state:
+                    state[k] = PL.shard(state[k], name, spec, mesh)
+            p.data = PL.shard(p.data, name, spec, mesh)
+    if specs:
+        PL.attach(model, specs, mesh)
     return model, optimizer
 
 
 def checkpoint_state(model: torch.nn.Module, optimizer: Optimizer, ema,
                      mesh=None, param_specs: Optional[dict] = None):
     """What ``checkpoint.save`` writes: (model, optimizer, ema) as they
-    are, or under a stage placement the whole trees, gathered from the
-    stages of the first data-parallel rank's pipeline (every rank of that
-    pipeline must call it; the others get None back)."""
-    axis = _spec_axis(param_specs)
-    if mesh is None or axis is None:
+    are, or under a placement that splits parameters the whole trees,
+    gathered in JAX's layout on the ranks of the first data-parallel
+    rank (every one of them must call it; the others get None back). A
+    checkpoint saved under tp, fsdp, ep or pp therefore resumes a
+    one-process run, and the other way round."""
+    specs = param_specs or {}
+    if mesh is None or not PL.splits(specs, mesh):
         return model, optimizer, ema
     if mesh.index("dp") != 0:
         return None
     from dalle_pytorch_tpu_torch.compat import to_jax
-    g, stages = mesh.group(axis), mesh.size(axis)
+    depth = len(PL.stack_of(model))
     full, mu, nu, em = {}, {}, {}, {}
     dev = next(q for q in model.parameters() if not q.is_meta).device
     for name, p in model.named_parameters():
-        own = _owner(param_specs, name, model, axis, stages)
+        spec = PL.spec_of(specs, name)
+        own = PL.owner(name, spec, mesh, depth)
         state = optimizer.adam.state.get(p, {}) if not p.is_meta else {}
         for out, t, dtype in (
                 (full, p, p.dtype),
@@ -367,9 +505,7 @@ def checkpoint_state(model: torch.nn.Module, optimizer: Optimizer, ema,
                 continue
             if p.is_meta or t is None:
                 t = torch.zeros(p.shape, dtype=dtype, device=dev)
-            if own is not None:
-                t = col.broadcast(t.detach(), g, own)
-            out[name] = t.detach()
+            out[name] = PL.gather(t, name, spec, mesh, own)
     trees = (to_jax.tree(model, full),
              optimizer.state_tree(model, (mu, nu)),
              to_jax.tree(model, em) if ema is not None else None)

@@ -119,7 +119,7 @@ TRANSPORT_MODES = ("pipe", "socket")
 # preference, never a capability
 REPLICA_ROLES = ("prefill", "decode", "both")
 
-MESH_ITEM = "ROADMAP.md queue 1 item 3 (parallel/ on torch.distributed)"
+MESH_ITEM = "ROADMAP.md queue 1 item 3c (the serving mesh)"
 
 
 class ScaleError(RuntimeError):

@@ -896,6 +896,64 @@ def test_two_ranks_on_the_card_match_the_one_process_dp_step(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_at_a_tp_ranks_heads(cuda, dtype, masked):
+    """K1, K2a and K2b (split) at the shapes a tensor-parallel rank of two
+    gives them at the north width: its 4 of the 8 heads of 64 over the
+    whole batch's 1,280 positions (b 2 here), against their plain
+    versions, one launch each."""
+    dtype = getattr(torch, dtype)
+    q, k, v, do, mask = flash_inputs(cuda, dtype, 1280, 64, masked, b=2,
+                                     h=4)
+    kw = dict(scale=SCALE, causal=True, mask=mask)
+    before = (FA.flash_attention_fwd.launches,
+              FA.flash_attention_bwd_dq.launches,
+              FA.flash_attention_bwd_dkv.launches)
+    out, m, l = FA.flash_attention_fwd(q, k, v, **kw)
+    out_p, m_p, l_p = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    assert_flash_close(out, out_p, dtype)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+    dstat = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, m_p, l_p, dstat)
+    dq = FA.flash_attention_bwd_dq(*args, **kw)
+    dk, dv, _ = FA.flash_attention_bwd_dkv(*args, **kw)
+    dq_p = FA.flash_attention_bwd_dq_plain(*args, **kw)
+    dk_p, dv_p, _ = FA.flash_attention_bwd_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention_fwd.launches,
+            FA.flash_attention_bwd_dq.launches,
+            FA.flash_attention_bwd_dkv.launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 1)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert_grad_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_two_tp_ranks_on_the_card_match_the_one_process_step(cuda):
+    """Two tensor-parallel rank processes on the one card over gloo: the
+    tiny DALLE (4 heads; each rank 2) under ``dalle_param_specs(tp=)``,
+    its step's gradients gathered whole, against this process's
+    one-process step from the same seeded weights and key. float32: the
+    loss to 1e-5 relative, each gradient to 1e-4 of its largest element;
+    each rank launched K1, K2a and K2b once a layer (depth 2)."""
+    import torch_parallel_ranks as R
+    from dalle_pytorch_tpu_torch.parallel.launch import spawn
+    loss, grads, ran = R.tiny_dp_grads({"dp": 1}, cuda, heads=4)
+    assert ran == (2, 2, 2)
+    ranks = spawn(R.card_tp_case, 2, device=None, backend="gloo",
+                  timeout_s=300)
+    for r_loss, r_grads, r_ran in ranks:
+        assert r_ran == (2, 2, 2)
+        assert abs(r_loss - loss) <= 1e-5 * abs(loss)
+        assert set(r_grads) == set(grads)
+        for name, want in grads.items():
+            largest = float(np.abs(want).max())
+            err = float(np.abs(r_grads[name] - want).max())
+            assert err <= 1e-4 * max(largest, 1e-30), (name, err, largest)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reversible_dalle_step_on_card_matches_cpu(cuda, dtype):
     """The tiny reversible DALLE (depth 2, dropout 0.1): the backward

@@ -13,10 +13,12 @@ JAX's record (label, attempts, errors); an injected bring-up failure
 (``faults.on_backend_init``) is retried and the join then succeeds; the
 backend choice; and the launcher's deadline and failure reporting (a
 rank that raises fails the call with its traceback, one that hangs is
-killed at the deadline).
+killed at the deadline; a group whose join fails, its store's port
+taken, starts again on a fresh port).
 """
 
 import os
+import socket
 import time
 
 import pytest
@@ -155,6 +157,25 @@ def test_launcher_puts_each_rank_on_its_card_by_default():
     no card each rank fails as every entry point of the port does."""
     with pytest.raises(RuntimeError, match="no CUDA device is visible"):
         launch.spawn(_raises, 2, timeout_s=120)
+
+
+def test_launcher_joins_again_on_a_fresh_port(monkeypatch):
+    """The port chosen for the group's store is taken before rank 0 binds
+    it (another process may take it in between): that group cannot join,
+    and the launcher starts it again on a fresh port."""
+    taken = socket.socket()
+    taken.bind(("127.0.0.1", 0))
+    taken.listen()
+    ports = iter([taken.getsockname()[1]])
+    real = launch.free_port
+    monkeypatch.setattr(launch, "free_port", lambda: next(ports, None)
+                        or real())
+    try:
+        assert launch.spawn(_raises, 1, device="cpu", timeout_s=120,
+                            group_timeout_s=20) == [0]
+        assert next(ports, None) is None        # the taken port was tried
+    finally:
+        taken.close()
 
 
 def test_launcher_kills_ranks_past_the_deadline():

@@ -182,8 +182,9 @@ def _params_of(model, mesh=None, opt=None, specs=None):
 def step_case(rank: int, spec: dict) -> dict:
     """``steps`` steps of ``make_train_step`` on ``spec['axes']`` from the
     JAX tree: the DALLE (plain, ``sp`` or ``pp`` loss), the VAE or CLIP.
-    Returns the losses, the parameters after, the stage's parameter count
-    and the step's collectives."""
+    Returns the losses, the parameters after, the stage's parameter count,
+    each layer's fsdp owner (None: fetched from no one) and the step's
+    collectives."""
     from dalle_pytorch_tpu_torch.cli.common import make_optimizer
     from dalle_pytorch_tpu_torch.compat import from_jax
     from dalle_pytorch_tpu_torch.models import clip as C
@@ -212,13 +213,20 @@ def step_case(rank: int, spec: dict) -> dict:
     else:
         cfg = _dalle_cfg(spec["cfg"])
         model = from_jax.dalle_from_jax(spec["params"], cfg, device="cpu")
+        place = spec.get("place", {})
         if kind == "sp":
             loss_fn = sp_dalle_loss_fn(mesh, impl=spec.get("impl", "ring"))
         elif kind == "pp":
             loss_fn = pp_dalle_loss_fn(
                 mesh, num_microbatches=spec.get("microbatches"))
-            specs = pp_param_specs(model)
-        else:
+            specs = pp_param_specs(model, ep=place.get("ep"))
+        if kind != "pp" and "ep" in place:
+            specs = TP.dalle_moe_param_specs(model, place["ep"])
+        elif kind != "pp" and place:
+            specs = TP.dalle_param_specs(
+                model, tp=place.get("tp"), fsdp=place.get("fsdp"),
+                mesh=mesh if spec.get("fit") else None)
+        if kind not in ("sp", "pp"):
             def loss_fn(model, batch, rng):
                 return D.dalle_apply(model, batch["text"], batch["image"],
                                      mask=batch.get("mask"), rng=rng,
@@ -237,15 +245,192 @@ def step_case(rank: int, spec: dict) -> dict:
     for i in range(spec.get("steps", 1)):
         losses.append(float(step(model, batch, prng.prng_key(spec["seed"]
                                                               + i))))
+    stack = model.transformer.layers if kind not in ("vae", "clip") else []
+    owners = [getattr(layer, "fsdp", None) for layer in stack]
     return {"losses": losses, "params": _params_of(model, mesh, opt, specs),
             "stage_params": sum(p.numel() for p in model.parameters()
                                 if not p.is_meta),
-            "calls": dict(col.STATS["calls"])}
+            "owners": [o if o is None else o.index for o in owners],
+            "calls": dict(col.STATS["calls"]), "coords": dict(mesh.coords)}
 
 
 def step_cases(rank: int, specs: list) -> list:
     """``step_case`` of each spec in turn, in one spawn."""
     return [step_case(rank, spec) for spec in specs]
+
+
+# -- placement: tp, fsdp, ep ------------------------------------------------------
+
+def place_case(rank: int, spec: dict) -> dict:
+    """A one-process step of the JAX weights (dropout keys
+    ``spec['seed']``), its checkpoint's payload bytes, then that
+    checkpoint restored into a second model that ``setup_sharded``
+    places under ``spec['place']`` on ``spec['axes']`` (the moments by
+    parameter name), and ``checkpoint_state``'s gathered trees as payload
+    bytes: whether they are the same bytes, and the rank's stored
+    parameter count."""
+    from dalle_pytorch_tpu_torch import checkpoint as ckpt
+    from dalle_pytorch_tpu_torch.cli.common import make_optimizer
+    from dalle_pytorch_tpu_torch.compat import from_jax
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel import train as TP
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(spec["axes"])
+    cfg = _dalle_cfg(spec["cfg"])
+    one = from_jax.dalle_from_jax(spec["params"], cfg, device="cpu")
+    opt = make_optimizer(_args(**spec.get("opt", {})), one.parameters())
+    b = {k: _t(v) for k, v in spec["batch"].items()}
+    loss = D.dalle_apply(one, b["text"].long(), b["image"].long(),
+                         mask=b["mask"], rng=prng.prng_key(spec["seed"]),
+                         train=True, return_loss=True)
+    loss.backward()
+    opt.step()
+    path = ckpt.save(os.path.join(spec["dir"], f"one-{rank}"), one,
+                     opt_state=opt)
+    want = ckpt._payloads(one, opt, None)
+    model = from_jax.dalle_from_jax(spec["params"], cfg, device="cpu")
+    opt = make_optimizer(_args(**spec.get("opt", {})), model.parameters())
+    ckpt.restore_train(path, model, opt)
+    place = spec["place"]
+    specs = (TP.dalle_moe_param_specs(model, place["ep"]) if "ep" in place
+             else TP.dalle_param_specs(model, tp=place.get("tp"),
+                                       fsdp=place.get("fsdp")))
+    TP.setup_sharded(model, opt, mesh, specs)
+    out = {"stored": sum(p.numel() for p in model.parameters()
+                         if not p.is_meta),
+           "moments": sum(t.numel() for st in opt.adam.state.values()
+                          for k, t in st.items() if k != "step")}
+    state = TP.checkpoint_state(model, opt, None, mesh, specs)
+    if state is not None:
+        got = ckpt._payloads(state[0], state[1], None)
+        out["same_bytes"] = {f: got.get(f) == data for f, data in
+                             want.items()}
+        out["files"] = sorted(got)
+    return out
+
+
+def place_cases(rank: int, specs: list) -> list:
+    return [place_case(rank, spec) for spec in specs]
+
+
+def tp_branches_case(rank: int, spec: dict) -> dict:
+    """One layer's feed-forward and attention branches in train mode over
+    ``tp`` = the world (dropout keys ``spec['seed']``): their outputs,
+    which the row-parallel sums make whole on every rank."""
+    from dalle_pytorch_tpu_torch.compat import from_jax
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.ops import transformer as T
+    from dalle_pytorch_tpu_torch.parallel import train as TP
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh({"tp": 2})
+    cfg = _tcfg(spec["cfg"])
+    model = from_jax.transformer_from_jax(spec["params"], cfg, device="cpu")
+    specs = TP.dalle_param_specs(model, tp="tp")
+    TP.setup_sharded(model, _Nothing(), mesh, specs)
+    x = _t(spec["x"])
+    key = prng.prng_key(spec["seed"])
+    keys = prng.split(key, 2)
+    with torch.no_grad():
+        ff = T.ff_branch(model.layers[0], x, cfg, keys[1], True)
+        attn = T.attn_branch(model.layers[0], x, None, cfg, keys[0], True)
+        y = T.transformer_apply(model, x, cfg=cfg, rng=key, train=True)
+    return {"ff": _np(ff), "attn": _np(attn), "stack": _np(y),
+            "w1_rows": model.layers[0].ff.w1.weight.shape[0]}
+
+
+def tp_logits_case(rank: int, spec: dict):
+    """``dalle_apply``'s masked logits (eval) of the JAX weights placed
+    by ``spec['place']`` on ``spec['axes']``."""
+    from dalle_pytorch_tpu_torch.compat import from_jax
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.parallel import train as TP
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(spec["axes"])
+    model = from_jax.dalle_from_jax(spec["params"], _dalle_cfg(spec["cfg"]),
+                                    device="cpu")
+    specs = TP.dalle_param_specs(model, tp=spec["place"]["tp"])
+    TP.setup_sharded(model, _Nothing(), mesh, specs)
+    b = spec["batch"]
+    with torch.no_grad():
+        return _np(D.dalle_apply(model, _t(b["text"]).long(),
+                                 _t(b["image"]).long(), mask=_t(b["mask"])))
+
+
+class _Nothing:
+    """An optimizer with no state, for placement alone."""
+    clip = 0.0
+
+    class adam:
+        state: dict = {}
+
+    @staticmethod
+    def retain(model):
+        pass
+
+
+def moe_ep_case(rank: int, spec: dict) -> dict:
+    """``moe_apply`` over ``ep`` = the world on JAX's MoE weights: its
+    output and aux, and the gradients of sum(out^2) + aux gathered."""
+    from dalle_pytorch_tpu_torch.ops import moe as M
+    from dalle_pytorch_tpu_torch.parallel import collectives as col
+    from dalle_pytorch_tpu_torch.parallel import placement as PL
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh({"ep": 2})
+    cfg = M.MoEConfig(**spec["cfg"])
+    layer = M.MoE(cfg, device="cpu")
+    with torch.no_grad():
+        layer.router.weight.copy_(_t(spec["params"]["router"]["w"]).T)
+        for k in ("w1", "w2"):
+            getattr(layer, k).copy_(_t(spec["params"][k]))
+    specs = M.moe_param_specs("ep")
+    for name, p in layer.named_parameters():
+        p.data = PL.shard(p.data, name, specs[name], mesh)
+    layer.ep = mesh.group("ep")
+    x = _t(spec["x"]).requires_grad_()
+    out, aux = M.moe_apply(layer, x, cfg=cfg)
+    # every rank computes the same value: its share is 1 / ep
+    ((out.square().sum() + aux) / 2).backward()
+    grads = {name: _np(PL.gather(p.grad, name, specs[name], mesh, None))
+             for name, p in layer.named_parameters()}
+    grads["router.weight"] = _np(col.psum(layer.router.weight.grad,
+                                          mesh.group("ep")))
+    return {"out": _np(out), "aux": float(aux),
+            "dx": _np(col.psum(x.grad, mesh.group("ep"))), "grads": grads,
+            "experts": layer.w1.shape[0]}
+
+
+def generate_case(rank: int, spec: dict) -> dict:
+    """``generate_images`` of JAX's weights over ``dp`` = the world: the
+    gathered image ids and images, and with a CLIP the scores."""
+    from dalle_pytorch_tpu_torch.compat import from_jax
+    from dalle_pytorch_tpu_torch.models import clip as C
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import prng
+    from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh({"dp": spec["dp"]})
+    cfg = _dalle_cfg(spec["cfg"])
+    model = from_jax.dalle_from_jax(spec["params"], cfg, device="cpu")
+    vae = from_jax.vae_from_jax(spec["vae"], cfg.vae, device="cpu")
+    out = {}
+    for name, kw in spec["cases"]:
+        text = _t(spec["text"]).long()
+        clip = None
+        if kw.get("clip"):
+            clip = from_jax.clip_from_jax(spec["clip"],
+                                          C.CLIPConfig(**spec["clip_cfg"]),
+                                          device="cpu")
+            images, scores = D.generate_images(
+                model, vae, text, rng=prng.prng_key(spec["seed"]),
+                clip=clip, mesh=mesh, **kw.get("opts", {}))
+            out[name] = {"images": _np(images), "scores": _np(scores)}
+        else:
+            images, ids = D.generate_images(
+                model, vae, text, rng=prng.prng_key(spec["seed"]),
+                return_img_seq=True, mesh=mesh, **kw.get("opts", {}))
+            out[name] = {"images": _np(images), "ids": _np(ids)}
+    return out
 
 
 # -- the pipeline ---------------------------------------------------------------
@@ -361,15 +546,16 @@ def cli_case(rank: int, spec: dict) -> int:
 
 # -- the card ---------------------------------------------------------------------
 
-def tiny_dalle_cfg(dtype: str = "float32"):
-    """The card tests' tiny DALLE (dim 32, depth 2, 2 heads of 16, text 8,
-    a 16 px VAE of 32 codes) with the flash kernels and dropout 0.1."""
+def tiny_dalle_cfg(dtype: str = "float32", heads: int = 2):
+    """The card tests' tiny DALLE (dim 32, depth 2, 2 heads of 16 or 4 of
+    8, text 8, a 16 px VAE of 32 codes) with the flash kernels and
+    dropout 0.1."""
     from dalle_pytorch_tpu_torch.models import dalle as D
     from dalle_pytorch_tpu_torch.models import vae as V
     vcfg = V.VAEConfig(image_size=16, num_tokens=32, codebook_dim=32,
                        num_layers=2, hidden_dim=8)
     return D.DALLEConfig(dim=32, depth=2, vae=vcfg, num_text_tokens=64,
-                         text_seq_len=8, heads=2, dim_head=16,
+                         text_seq_len=8, heads=heads, dim_head=32 // heads,
                          attn_impl="flash", attn_bwd_impl="pallas",
                          attn_dropout=0.1, ff_dropout=0.1)
 
@@ -385,31 +571,44 @@ def tiny_batch(device, b: int = 4) -> dict:
 
 class GradCapture:
     """An optimizer for ``make_train_step`` that keeps the step's reduced
-    gradients instead of applying them."""
+    gradients instead of applying them (gathered whole from the ranks'
+    pieces under a placement that splits them: ``mesh``, ``specs``)."""
     clip = 0.0
 
-    def __init__(self, model):
+    def __init__(self, model, mesh=None, specs=None):
         self.model, self.grads = model, {}
+        self.mesh, self.specs = mesh, specs
 
     def step(self, lr_scale=1.0, grad_norm=None):
-        self.grads = {n: _np(p.grad.float()) for n, p in
-                      self.model.named_parameters() if p.grad is not None}
+        from dalle_pytorch_tpu_torch.parallel import placement as PL
+        self.grads = {}
+        for n, p in self.model.named_parameters():
+            if p.grad is None:
+                continue
+            g = p.grad
+            if self.specs:
+                g = PL.gather(g, n, PL.spec_of(self.specs, n), self.mesh,
+                              None)
+            self.grads[n] = _np(g.float())
         for p in self.model.parameters():
             p.grad = None
 
 
-def tiny_dp_grads(axes, device) -> tuple:
+def tiny_dp_grads(axes, device, heads: int = 2, tp: bool = False) -> tuple:
     """(loss, {name: gradient}, (K1, K2a, K2b launches)) of one step of the
-    tiny DALLE on ``axes`` (this rank's rows), seeded weights and key."""
+    tiny DALLE on ``axes`` (this rank's rows), seeded weights and key;
+    ``tp`` places it by ``dalle_param_specs(tp='tp')``."""
     from dalle_pytorch_tpu_torch.models import dalle as D
     from dalle_pytorch_tpu_torch.ops import flash_attention as FA
     from dalle_pytorch_tpu_torch.ops import prng
     from dalle_pytorch_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from dalle_pytorch_tpu_torch.parallel.train import (make_train_step,
                                                          setup_sharded)
+    from dalle_pytorch_tpu_torch.parallel.train import dalle_param_specs
     mesh = make_mesh(axes)
-    model = D.dalle_init(tiny_dalle_cfg(), seed=0, device=device)
-    cap = GradCapture(model)
+    model = D.dalle_init(tiny_dalle_cfg(heads=heads), seed=0, device=device)
+    specs = dalle_param_specs(model, tp="tp", mesh=mesh) if tp else None
+    cap = GradCapture(model, mesh, specs)
 
     def loss_fn(model, batch, rng):
         return D.dalle_apply(model, batch["text"], batch["image"],
@@ -417,8 +616,9 @@ def tiny_dp_grads(axes, device) -> tuple:
                              return_loss=True)
 
     from dalle_pytorch_tpu_torch.cli.common import make_optimizer
-    setup_sharded(model, make_optimizer(_args(), model.parameters()), mesh)
-    step = make_train_step(loss_fn, cap, mesh=mesh)
+    setup_sharded(model, make_optimizer(_args(), model.parameters()), mesh,
+                  specs)
+    step = make_train_step(loss_fn, cap, mesh=mesh, param_specs=specs)
     counters = (FA.flash_attention_fwd, FA.flash_attention_bwd_dq,
                 FA.flash_attention_bwd_dkv)
     before = [c.launches for c in counters]
@@ -434,3 +634,17 @@ def card_dp_case(rank: int) -> tuple:
     and its own kernel launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     return tiny_dp_grads({"dp": 2}, torch.device("cuda"))
+
+
+def run_cases(rank: int, items: list) -> list:
+    """Each ``(function name, spec)`` of ``items`` in turn on this rank,
+    in one spawn (one group per case group of a test file)."""
+    return [globals()[fn](rank, spec) for fn, spec in items]
+
+
+
+def card_tp_case(rank: int) -> tuple:
+    """A tp rank of the card test: its step's loss, the reduced gradients
+    gathered whole and its own kernel launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return tiny_dp_grads({"tp": 2}, torch.device("cuda"), heads=4, tp=True)
