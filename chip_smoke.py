@@ -6,7 +6,9 @@
                                                    # replicas, processes,
                                                    # gateway, cli,
                                                    # parallel, http,
-                                                   # serve_features)
+                                                   # serve_features,
+                                                   # import, mesh,
+                                                   # rev_decode)
 
 Drives the port (``dalle_pytorch_tpu_torch``) and nothing of JAX, at the
 full width of the repo's north DALLE configuration (``bench.py``
@@ -226,14 +228,20 @@ The entry points a user calls, through ``main(argv)``:
 21. cli — 16 PNGs at 256 px written by the port's encoder and read back
    equal (decode ms an image, and of a file using every row filter);
    ``train_vae`` one epoch of 2 steps at batch 8 on the north VAE (256
-   px, 2,048 codes of 512, 3 layers, hidden 64); ``train_dalle`` at the
+   px, 2,048 codes of 512, 3 layers, hidden 64) under
+   ``--guard_transfers``; ``train_dalle`` at the
    north width (``CLI_DALLE``: flash with the split kernel backward,
    bfloat16, ``loss_chunk`` 256, dropout 0.1, an EMA at 0.999) for 2
    epochs of 2 steps, K1, K2a and K2b each launched 12 times a step, ms
    a step from its own metrics beside the ``train`` phase's; the same
-   run in two legs (epoch 0, then ``--auto_resume``) whose checkpoint
-   payloads (parameters, Adam state, EMA) equal the uninterrupted run's
-   byte for byte; the checkpoint's bytes, the msgpack codec's read and
+   run in two legs (epoch 0, then ``--auto_resume``), each under
+   ``--guard_transfers``, whose checkpoint payloads (parameters, Adam
+   state, EMA) equal the uninterrupted run's byte for byte; a guarded
+   depth-2 run with a ``.item()`` seeded into its step body raising
+   ``RuntimeError`` at it, the sync debug mode restored; ``train_clip``
+   (``CLI_CLIP``, its sparse 'ref' layers) for 2 steps under
+   ``--guard_transfers``, each step body under the "error" mode; the
+   checkpoint's bytes, the msgpack codec's read and
    write rates; ``gen_dalle`` of 2 images from the epoch-1 checkpoint,
    its grid PNG 260 x 518 x 3; each CLI's wall seconds and peak memory.
    Its data and VAE stay for ``parallel``'s CLI run;
@@ -337,7 +345,25 @@ Image files and the fleet:
    it, bit for bit, and the 256 px fixture against the SHA-256 of PIL's
    decode, its decode ms an image; where the machine has no libjpeg,
    the typed ``UnsupportedImage`` naming it instead (the record says
-   which happened);
+   which happened); then the lossless WebP fixture (40 x 56 RGBA)
+   through libwebp (``ctypes``) against PIL's decode stored beside it,
+   bit for bit, or the typed refusal naming libwebp;
+25b. mesh — the serving mesh (``serve/mesh_engine.py``) at the north
+   width and ``SERVE_DEPTH`` over two entries of ``cuda:0`` (one card:
+   ``serve_specs.visible_devices`` substituted): float32 tokens of 4
+   requests (prompts of 208, 239 and 256 tokens) capped at 256 image
+   tokens equal the single engine's,
+   dense, paged (the gather) and paged int8, and again over ``cuda:0``
+   and the CPU (two distinct devices) at 32 image tokens; the paged
+   pool's bytes a shard equal the reckoning from its shapes, half the
+   pool's; a mesh built from a host copy adds the model to the card
+   once; the bytes a decode step joins, reckoned here and at depth 12;
+   the kernel read refused typed; ``InferenceServer(mesh_devices=2)`` with
+   CLIP answering 2 requests, ``/healthz`` naming the mesh, K3 12 an
+   image; a thread ``ReplicaSet`` of two mesh slices replaying a crash
+   of slice 1 with the single engine's tokens; bfloat16 ms a decode
+   step, mesh against single (recorded); whether a product over half
+   the heads gives the whole product's bits, on the card and the CPU;
 26. replicas — A: a ``ReplicaSet`` of 2 thread replicas stepped from one
    thread (``step_once``), float32 at depth 2 and the north width (4
    slots each, K = 8,
@@ -401,6 +427,17 @@ Image files and the fleet:
    each child's ms a step from its frames, the gateway's added latency
    (submit -> dispatch) p50 and p99 over the victim's requests; K4 in
    every cell, K3 12 an image.
+
+The default run takes the phases in two streams to stay well inside its
+time limit. This process builds, checks and times the kernels (phases
+1-3, 5, ``sparse_kernels`` and the tp shapes of ``parallel``) and runs
+the training phases alone. Then a second process (``--stream``) runs the
+phases in ``STREAM`` (``cli``, ``parallel``, ``replicas``,
+``processes``, ``import``, ``mesh``, ``rev_decode``) while this one runs
+the other serving phases. Both streams share the card, so the wall times and ms a step of
+the phases after that point are taken beside the other stream; the
+kernel rows are not. ``--only`` runs the phases it names one after
+another in this process, for numbers taken alone.
 
 Each phase prints one JSON line; the kernel table and the card line
 follow, and the last line is ``{"ok": true, "device": {...}}``. Any
@@ -631,16 +668,17 @@ K3_NAME = r"(block_sparse_\w+?_kernel)<"
 
 
 def launched_bodies(fn, pattern: str, calls: int = 12,
-                    attempts: int = 3) -> list:
+                    attempts: int = 4) -> list:
     """The ``__global__`` functions (``pattern``'s group) that ``calls``
     profiled calls of ``fn`` ran. A session that records none (one may
-    drop the records of its first milliseconds) is tried again, up to
-    ``attempts``; then []."""
+    drop the records of its first milliseconds, and 12 calls of a short
+    kernel last less than one) is tried again with four times the calls,
+    up to ``attempts``; then []."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(attempts):
+    for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(calls * 4 ** attempt):
                 fn()
             torch.cuda.synchronize()
         names = sorted({f for k in device_kernels(prof)
@@ -3266,6 +3304,13 @@ CLI_DALLE = ["--imageSize", "256", "--dim", "512", "--depth", "12",
              "--num_text_tokens", "10000", "--attn_impl", "flash",
              "--attn_bwd_impl", "pallas", "--param_dtype", "bfloat16",
              "--loss_chunk", "256", "--sample_every", "0"]
+# CLIP at the north widths (``CLIPConfig``'s defaults) with two layers a
+# tower, its sparse layers on the default 'ref' path
+CLI_CLIP = ["--imageSize", "256", "--dim_text", "512", "--dim_image", "512",
+            "--dim_latent", "512", "--num_text_tokens", "10000",
+            "--text_seq_len", "256", "--text_enc_depth", "2",
+            "--text_heads", "8", "--visual_enc_depth", "2",
+            "--visual_heads", "8", "--visual_patch_size", "32"]
 CLI_WORDS = ("red blue green gray small large square circle striped dotted "
              "bright dark a the on under beside of with and").split()
 
@@ -3355,22 +3400,97 @@ def cli_codec(path: str) -> dict:
             "write_mb_per_s": mb / write_s}
 
 
+def cli_seeded_sync(train_dalle, dalle: list, dirs, vae_models: str,
+                    root: str) -> dict:
+    """``train_dalle --guard_transfers`` at depth 2 with a ``.item()``
+    seeded into its step body (a wrapper of the ``train_step`` the CLI
+    hands its loop): the guard must raise ``RuntimeError`` at that call
+    on the first step, and restore the sync debug mode after."""
+    import shutil
+    shutil.copytree(vae_models, os.path.join(root, "s", "models"))
+    real = train_dalle.run_supervised_loop
+    calls = []
+
+    def seeded(args, **kw):
+        step = kw["train_step"]
+
+        def with_sync(item, state):
+            loss, payload = step(item, state)
+            calls.append(state.global_step)
+            loss.item()                 # an implicit device-to-host sync
+            return loss, payload
+
+        return real(args, **{**kw, "train_step": with_sync})
+
+    argv = list(dalle)
+    argv[argv.index("--depth") + 1] = "2"
+    train_dalle.run_supervised_loop = seeded
+    try:
+        train_dalle.main(argv + dirs("s") + ["--n_epochs", "1",
+                                             "--guard_transfers"])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        train_dalle.run_supervised_loop = real
+    mode = torch.cuda.get_sync_debug_mode()
+    check(raised is not None and "synchroniz" in raised and calls == [0],
+          f"cli: the seeded sync under --guard_transfers gave {raised!r} "
+          f"after steps {calls}")
+    check(mode == 0, f"cli: the sync debug mode is {mode} after the guard")
+    return {"seeded_sync_raised": raised[-300:], "mode_after": mode}
+
+
+def cli_guarded_clip(train_clip, argv: list) -> dict:
+    """``train_clip --guard_transfers`` (``CLI_CLIP``) for one epoch of 2
+    steps: each step body must run with the sync debug mode at "error"
+    (2) and raise nothing, and the mode must be back at 0 after."""
+    from dalle_pytorch_tpu_torch.cli import common as CC
+    real = CC.transfer_guard
+    modes = []
+
+    @contextlib.contextmanager
+    def recording(device):
+        with real(device):
+            modes.append(torch.cuda.get_sync_debug_mode())
+            yield
+
+    CC.transfer_guard = recording
+    try:
+        train_clip.main(argv + ["--guard_transfers"])
+    finally:
+        CC.transfer_guard = real
+    after = torch.cuda.get_sync_debug_mode()
+    check(modes == [2] * (CLI_IMAGES // 8) and after == 0,
+          f"cli: train_clip's step bodies ran under modes {modes}, "
+          f"{after} after")
+    return {"step_modes": modes, "mode_after": after}
+
+
 def phase_cli(train: dict, keep: bool = False) -> dict:
     """The port's CLIs through ``main(argv)`` at the north width, in a
     temporary directory removed afterwards: ``cli_data``'s 16 PNGs;
-    ``train_vae`` for one epoch of 2 steps at batch 8 (the north VAE);
+    ``train_vae`` for one epoch of 2 steps at batch 8 (the north VAE)
+    under ``--guard_transfers``;
     ``train_dalle`` at the north width (``CLI_DALLE``: flash with the
     split kernel backward, bfloat16, dropout 0.1, an EMA) for 2 epochs of
     2 steps, K1, K2a and K2b each launched 12 times a step; the same run
-    again in two legs (epoch 0, then ``--auto_resume`` for epoch 1) whose
-    parameters, Adam state and EMA must equal the uninterrupted run's bit
-    for bit; then ``gen_dalle`` from the epoch-1 checkpoint, 2 images,
-    seed 5, its caption from the corpus, whose grid PNG must decode to
-    260 x 518 x 3."""
+    again in two legs (epoch 0, then ``--auto_resume`` for epoch 1), each
+    under ``--guard_transfers`` (every step body under
+    ``set_sync_debug_mode("error")``), whose parameters, Adam state and
+    EMA must equal the uninterrupted run's bit for bit; a guarded run at
+    depth 2 whose step body a wrapper here seeds with a ``.item()`` must
+    raise ``RuntimeError`` naming the synchronizing call, the mode
+    restored after; ``train_clip`` (``CLI_CLIP``: its sparse 'ref'
+    layers) for 2 steps under ``--guard_transfers``, each step body
+    under the "error" mode (``cli_guarded_clip``); then ``gen_dalle`` from the epoch-1 checkpoint, 2
+    images, seed 5, its caption from the corpus, whose grid PNG must
+    decode to 260 x 518 x 3."""
     import shutil
     import tempfile
     from dalle_pytorch_tpu_torch import checkpoint as C
-    from dalle_pytorch_tpu_torch.cli import gen_dalle, train_dalle, train_vae
+    from dalle_pytorch_tpu_torch.cli import (gen_dalle, train_clip,
+                                             train_dalle, train_vae)
     from dalle_pytorch_tpu_torch.data import images as I
     root = tempfile.mkdtemp(prefix="chip-smoke-cli-")
     try:
@@ -3391,7 +3511,7 @@ def phase_cli(train: dict, keep: bool = False) -> dict:
                     "--metrics", os.path.join(root, sub, "metrics.jsonl")]
 
         run("train_vae", train_vae.main, common + CLI_VAE + dirs("a") + [
-            "--n_epochs", "1"])
+            "--n_epochs", "1", "--guard_transfers"])
         vae_dir = os.path.join(root, "b", "models")
         shutil.copytree(os.path.join(root, "a", "models"), vae_dir)
         dalle = common + CLI_DALLE + [
@@ -3420,11 +3540,23 @@ def phase_cli(train: dict, keep: bool = False) -> dict:
         record["train_dalle_ms_per_step"] = ms
         record["train_phase_ms_per_step"] = (train or {}).get("ms_per_step")
 
-        # the same run in two legs: epoch 0, then --auto_resume
+        # the same run in two legs: epoch 0, then --auto_resume, each
+        # with every step body under the transfer guard
         run("train_dalle_leg0", train_dalle.main, dalle + dirs("b") + [
-            "--n_epochs", "1"])
+            "--n_epochs", "1", "--guard_transfers"])
         run("train_dalle_leg1", train_dalle.main, dalle + dirs("b") + [
-            "--n_epochs", "1", "--auto_resume"])
+            "--n_epochs", "1", "--auto_resume", "--guard_transfers"])
+        record["guard"] = cli_seeded_sync(train_dalle, dalle, dirs,
+                                          os.path.join(root, "a", "models"),
+                                          root)
+        t0 = time.perf_counter()
+        record["guard"]["train_clip"] = cli_guarded_clip(
+            train_clip, common + CLI_CLIP + [
+                "--captions_only", os.path.join(root, "only.txt"),
+                "--captions", os.path.join(root, "pairs.txt"),
+                "--name", "clip"] + dirs("c") + ["--n_epochs", "1"])
+        record.setdefault("wall_s", {})["train_clip"] = \
+            time.perf_counter() - t0
         whole = os.path.join(root, "a", "models", "north_dalle-1")
         legs = os.path.join(root, "b", "models", "north_dalle-1")
         same = {}
@@ -4362,6 +4494,381 @@ def phase_http() -> dict:
     emit(**record)
     return record
 
+# -- the serving mesh ----------------------------------------------------------
+
+# the mesh phase's engines: 8 slots, K = 8, page 16; its requests capped
+# at MESH_GRID image tokens (serve_features B and C's grid), the bfloat16
+# timing runs at MESH_TIMED_GRID
+MESH_ENGINE = dict(num_slots=8, chunk_steps=8, page_size=16)
+MESH_GRID = 256
+MESH_TIMED_GRID = 64
+# the runs over cuda:0 and the CPU: 17 text steps and 32 image tokens
+MESH_SPLIT_GRID = 32
+MESH_DEVICES = 2
+
+
+def mesh_requests(cfg, grid: int, n: int = 4, seed: int = 40,
+                  short: int = 48) -> list:
+    """``n`` requests (prompts of ``text_seq_len`` less ``short``, 17 and
+    0 tokens, so that every run decodes text positions and its steps
+    stay few; top-k, top-p 0.9 and greedy, one guided pair) capped at
+    ``grid`` image tokens."""
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    g = torch.Generator().manual_seed(seed)
+    t = cfg.text_seq_len
+    lens = (max(t - short, 1), t - 17, t, t - 17)
+    samplings = (S.SamplingParams(), S.SamplingParams(top_p=0.9),
+                 S.SamplingParams(filter_thres=1.0), S.SamplingParams())
+    return [S.Request(tuple(int(t) for t in torch.randint(
+        1, cfg.num_text_tokens, (lens[i % 4],), generator=g)),
+        seed=seed + i, sampling=samplings[i % 4],
+        cfg_scale=3.0 if i % 4 == 3 else 0.0,
+        image_seq_len_override=grid) for i in range(n)]
+
+
+def mesh_run(model, reqs, devices=None, **kw) -> dict:
+    """One engine (a ``MeshEngine`` over ``devices``, else the single
+    ``Engine`` on the card) over ``reqs`` to the end: tokens, wall,
+    decode steps, stats and the engine."""
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    from dalle_pytorch_tpu_torch.serve.mesh_engine import MeshEngine
+    queue = S.RequestQueue(max_prompt_len=model.cfg.text_seq_len)
+    engine = (MeshEngine(model, queue, devices=devices, **kw)
+              if devices is not None
+              else Engine(model, queue, device="cuda", **kw))
+    handles = [queue.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = []
+    for h in handles:
+        res = h.result(timeout=0)
+        check(res.ok, f"mesh: request {res.request_id}: {res.status} "
+                      f"{res.reason}")
+        toks.append([int(t) for t in res.tokens])
+    return {"tokens": toks, "wall_s": wall, "engine": engine,
+            "decode_steps": engine.decode_steps, "stats": engine.stats()}
+
+
+def head_split_bits() -> dict:
+    """Whether a product over half the heads gives the whole product's
+    bits, at the decode read's shape (8 slots, 8 heads, one query, 1,280
+    cached rows, dh 64, float32) on the card and on the CPU: the reason
+    the mesh joins K/V before attending (``ops/decode.py``)."""
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(8, 8, 1, 64, generator=g)
+    k = torch.randn(8, 8, 1280, 64, generator=g)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        qd, kd = q.to(dev), k.to(dev)
+        whole = torch.einsum("bhqd,bhjd->bhqj", qd, kd)
+        halves = torch.cat([torch.einsum("bhqd,bhjd->bhqj", qd[:, s], kd[:, s])
+                            for s in (slice(0, 4), slice(4, 8))], dim=1)
+        out[dev] = {"bit_equal": bool(torch.equal(whole, halves)),
+                    "max_abs_diff": float((whole - halves).abs().max())}
+    return out
+
+
+def phase_mesh() -> dict:
+    """The serving mesh (``serve/mesh_engine.py``) at the north width and
+    ``SERVE_DEPTH`` over ``MESH_DEVICES`` entries of ``cuda:0`` (the
+    machine has one card: ``serve_specs.visible_devices`` is substituted
+    where the server and the replica set list devices):
+
+    * float32, ``mesh_requests`` capped at ``MESH_GRID``: the mesh's
+      tokens equal the single engine's, dense, paged (the gather read)
+      and paged with int8 KV; K4 never launched;
+    * the paged pool's bytes a shard equal the reckoning from its shapes
+      (pages x 16 rows x 4 heads x 64 x K and V x depth x 4 bytes), half
+      the pool's; the weights a shard lie between half and all; the
+      bytes a decode step joins (``step_join_bytes``), here and at the
+      north depth (meshes built on the CPU: shapes only);
+    * a mesh built from a host copy adds to the card the whole model
+      once (its held tensors) over what the single engine adds, in the
+      bytes asked of the allocator (within 1 MiB);
+    * float32 over ``[cuda:0, cpu]`` (two distinct devices: every
+      cross-device fetch, join and write): dense, paged and int8 tokens
+      equal the single engine's, at ``MESH_SPLIT_GRID``;
+    * ``paged_attn='kernel'`` raises ``MeshPagedAttnError``;
+    * ``InferenceServer(mesh_devices=2)`` in bfloat16 with CLIP answers
+      2 requests; ``/healthz`` carries ``mesh_shape {"mp": 2}``; its
+      postprocess worker launches K3 (counted from 0);
+    * a thread ``ReplicaSet`` of two mesh slices over four entries of
+      ``cuda:0``, float32: slice 1 crashes at chunk 2, its requests
+      replay on slice 0 with the single engine's tokens;
+    * bfloat16 ms a decode step, mesh against single, twice each
+      alternating (recorded, not checked); and ``head_split_bits``."""
+    import dataclasses
+    import gc
+    from dalle_pytorch_tpu_torch.models import clip as CL
+    from dalle_pytorch_tpu_torch.models import dalle as D
+    from dalle_pytorch_tpu_torch.models import vae as V
+    from dalle_pytorch_tpu_torch.ops import block_sparse as BS
+    from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+    from dalle_pytorch_tpu_torch.parallel import serve_specs as SS
+    from dalle_pytorch_tpu_torch.resilience import faults
+    from dalle_pytorch_tpu_torch.resilience.retry import RetryPolicy
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.engine import Engine
+    from dalle_pytorch_tpu_torch.serve.mesh_engine import (
+        MeshEngine, MeshPagedAttnError, hbm_report)
+    from dalle_pytorch_tpu_torch.serve.replica import ReplicaSet
+    from dalle_pytorch_tpu_torch.serve.server import InferenceServer
+    cfg = dataclasses.replace(north_cfg(), depth=SERVE_DEPTH)
+    devices = [torch.device("cuda", 0)] * MESH_DEVICES
+    listed = SS.visible_devices
+    record = dict(phase="mesh", ok=True, depth=cfg.depth,
+                  devices=[str(d) for d in devices], grid=MESH_GRID)
+    seconds = {}
+    t_run = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_run
+        now = time.perf_counter()
+        seconds[name] = now - t_run
+        t_run = now
+
+    try:
+        # float32: the mesh's tokens against the single engine's
+        vae32 = V.vae_init(cfg.vae, seed=3)
+        model32 = D.dalle_init(cfg, seed=4, vae=vae32)
+        reqs = mesh_requests(cfg, MESH_GRID)
+        PA.paged_decode_attention.launches = 0
+        ref = mesh_run(model32, reqs, kv="dense", **MESH_ENGINE)
+        lap("single_dense")
+        runs = {}
+        for name, kw in (("dense", dict(kv="dense")),
+                         ("paged", dict(kv="paged")),
+                         ("int8", dict(kv="paged", quantize_cache=True))):
+            runs[name] = mesh_run(model32, reqs, devices, **kw,
+                                  **MESH_ENGINE)
+            lap(f"mesh_{name}")
+        ref8 = mesh_run(model32, reqs, kv="paged", quantize_cache=True,
+                        **MESH_ENGINE)
+        lap("single_int8")
+        check(PA.paged_decode_attention.launches == 0,
+              "mesh: K4 launched on the gather read")
+        ident = {}
+        for name, run in runs.items():
+            want = ref8 if name == "int8" else ref
+            agree = token_agreement_lists(run["tokens"], want["tokens"])
+            ident[name] = agree
+            check(agree["identical_share"] == 1.0,
+                  f"mesh: float32 {name} tokens differ from the single "
+                  f"engine's: {agree}")
+            check(run["engine"].kv_sharded and run["engine"].params_sharded,
+                  f"mesh: {name} did not split its store")
+        record["float32_identity"] = ident
+        paged = runs["paged"]["engine"]
+        st = paged.stats()
+        tcfg = cfg.transformer
+        reckoned = (paged.num_pages * paged.page_size
+                    * (tcfg.heads // MESH_DEVICES) * tcfg.dim_head
+                    * 2 * tcfg.depth * 4)
+        check(st["kv_hbm_bytes_per_shard"] == reckoned
+              and 2 * reckoned == st["kv_hbm_bytes"],
+              f"mesh: {st['kv_hbm_bytes_per_shard']} KV bytes a shard of "
+              f"{st['kv_hbm_bytes']}, reckoned {reckoned}")
+        rep = hbm_report(paged)
+        check(rep["param_bytes"] / 2 < rep["param_bytes_per_shard"]
+              < rep["param_bytes"], f"mesh: weights a shard {rep}")
+        check(st["mesh_shape"] == {"mp": MESH_DEVICES}
+              and st["devices_per_replica"] == MESH_DEVICES,
+              f"mesh: stats {st['mesh_shape']}")
+        record.update(num_pages=paged.num_pages, kv_bytes_reckoned=reckoned,
+                      hbm=rep, mesh_decode_steps=runs["paged"]["decode_steps"],
+                      step_join_bytes={n: r["engine"].step_join_bytes()
+                                       for n, r in runs.items()},
+                      join_bytes={n: r["stats"]["join_bytes"]
+                                  for n, r in runs.items()})
+
+        # the card holds what the mesh placed and nothing more: built from
+        # a host copy of the model, the mesh adds the held tensors (the
+        # whole model, once) over what the single engine adds beside its
+        # resident model, in the bytes the allocator was asked for (its
+        # blocks round up, by as much as 1 MiB where a cached one is
+        # reused whole); a second copy of the model would add 84 MB
+        host = D.DALLE(cfg, device="cpu")
+        host.load_state_dict(model32.state_dict())
+        added, held = {}, None
+        for name in ("single", "mesh"):
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+            eng = (MeshEngine(host, S.RequestQueue(), devices=devices,
+                              kv="paged", **MESH_ENGINE) if name == "mesh"
+                   else Engine(model32, S.RequestQueue(), device="cuda",
+                               kv="paged", **MESH_ENGINE))
+            torch.cuda.synchronize()
+            added[name] = (torch.cuda.memory_stats()[
+                "requested_bytes.all.current"] - before)
+            if name == "mesh":
+                held = SS.tensor_bytes(t for shard in eng.held
+                                       for t in shard.values())
+            del eng
+        del host
+        over = added["mesh"] - added["single"] - held
+        check(held == rep["param_bytes"] and 0 <= over < 2 ** 20,
+              f"mesh: a mesh from a host copy added {added['mesh']} bytes "
+              f"to the card, the single engine {added['single']}; held "
+              f"{held} of {rep['param_bytes']}")
+        record["card_bytes_added"] = {**added, "held": held, "over": over}
+        lap("card_bytes")
+
+        # two distinct devices, shard 1 on the CPU: its layer fetched to
+        # the card when it runs, its rows and heads joined from the CPU,
+        # every K/V write and page copy reaching it; float32 tokens equal
+        # the single engine's
+        card_cpu = [torch.device("cuda", 0), torch.device("cpu")]
+        split_reqs = mesh_requests(cfg, MESH_SPLIT_GRID, seed=70, short=17)
+        cross = {}
+        for name, kw in (("dense", dict(kv="dense")),
+                         ("paged", dict(kv="paged")),
+                         ("int8", dict(kv="paged", quantize_cache=True))):
+            want = mesh_run(model32, split_reqs, **kw, **MESH_ENGINE)
+            got = mesh_run(model32, split_reqs, card_cpu, **kw,
+                           **MESH_ENGINE)
+            agree = token_agreement_lists(got["tokens"], want["tokens"])
+            eng = got["engine"]
+            check(agree["identical_share"] == 1.0,
+                  f"mesh: float32 {name} tokens over cuda:0 and the CPU "
+                  f"differ from the single engine's: {agree}")
+            check(eng.kv_sharded and eng.pool.parts[1]["k"].is_cpu
+                  and all(t.is_cpu for t in eng.held[1].values()),
+                  f"mesh: {name} over cuda:0 and the CPU left shard 1 "
+                  f"off the CPU")
+            cross[name] = {
+                "identical_share": agree["identical_share"],
+                "decode_steps": got["decode_steps"],
+                "ms_per_step": got["wall_s"] * 1e3 / got["decode_steps"],
+                "single_ms_per_step": (want["wall_s"] * 1e3
+                                       / want["decode_steps"])}
+        record["card_cpu"] = cross
+        del got, want, eng
+        lap("card_cpu")
+
+        # the bytes a decode step joins onto devices[0] at the north
+        # depth, reckoned from the shapes of meshes built on the CPU
+        north = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            big = D.DALLE(north_cfg(), device="cpu", dtype=dtype)
+            for name, kw in (("dense", dict(kv="dense")),
+                             ("paged", dict(kv="paged")),
+                             ("int8", dict(kv="paged",
+                                           quantize_cache=True))):
+                eng = MeshEngine(big, S.RequestQueue(),
+                                 devices=["cpu", "cpu"], **kw, **MESH_ENGINE)
+                north[f"{name}_{str(dtype)[6:]}"] = eng.step_join_bytes()
+                del eng
+            del big
+        record["north_step_join_bytes"] = north
+        lap("north_join_reckoning")
+        try:
+            MeshEngine(model32, S.RequestQueue(), devices=devices,
+                       kv="paged", paged_attn="kernel", **MESH_ENGINE)
+            check(False, "mesh: paged_attn='kernel' was not refused")
+        except MeshPagedAttnError as e:
+            record["kernel_gate"] = e.record["kind"]
+
+        # a replica set of two mesh slices over four entries of the card
+        SS.visible_devices = lambda: [torch.device("cuda", 0)] * 4
+        q = S.RequestQueue(max_depth=64,
+                           max_prompt_len=cfg.text_seq_len)
+        rs = ReplicaSet(model32, q, replicas=2, devices_per_replica=2,
+                        kv="paged", bringup_policy=RetryPolicy(
+                            max_attempts=1, deadline_s=None,
+                            base_backoff_s=0.01, backoff_multiplier=2.0,
+                            max_backoff_s=0.1, jitter=0.0),
+                        **{**MESH_ENGINE, "chunk_steps": 4})
+        try:
+            check(all(isinstance(r.engine, MeshEngine) and len(r.device) == 2
+                      for r in rs.replicas), "mesh: the set's slices")
+            handles = [q.submit(r) for r in reqs]
+            with faults.injected(fault_replica=1, replica_crash_at_chunk=2):
+                rs.run_until_idle()
+            got = [[int(t) for t in h.result(timeout=0).tokens]
+                   for h in handles]
+            rstats = rs.stats()
+            check(rs.failovers == 1 and rs.reclaimed >= 1,
+                  f"mesh: failovers {rs.failovers}, reclaimed "
+                  f"{rs.reclaimed}")
+            check(got == ref["tokens"], "mesh: the replayed tokens differ "
+                                        "from the single engine's")
+            check(rstats["mesh_shape"] == {"mp": 2}, "mesh: the set's stats")
+            record["failover"] = {"failovers": rs.failovers,
+                                  "reclaimed": rs.reclaimed,
+                                  "completed": rstats["completed"]}
+        finally:
+            rs.close(timeout=5.0)
+        lap("replica_failover")
+        del model32, vae32, runs, ref, ref8, paged, rs
+
+        # bfloat16: the server with CLIP, then ms a step
+        SS.visible_devices = lambda: devices
+        vae = V.vae_init(cfg.vae, seed=3, dtype=torch.bfloat16)
+        model = D.dalle_init(cfg, seed=4, vae=vae, dtype=torch.bfloat16)
+        clip = CL.clip_init(CL.CLIPConfig(sparse_impl="pallas"), seed=7,
+                            dtype=torch.bfloat16)
+        srv = InferenceServer(model, vae, clip=clip, mesh_devices=2,
+                              kv="paged", **MESH_ENGINE).start()
+        try:
+            torch.cuda.synchronize()
+            BS.block_sparse_attention_fwd.launches = 0
+            handles = [srv.submit(r.codes, seed=r.seed,
+                                  image_seq_len_override=MESH_GRID)
+                       for r in reqs[:2]]
+            answers = [h.result(600) for h in handles]
+            k3 = BS.block_sparse_attention_fwd.launches
+            health = srv.health()
+        finally:
+            srv.close()
+        per_score = clip.cfg.text_enc_depth + clip.cfg.visual_enc_depth
+        check(all(a.ok and math.isfinite(a.clip_score) for a in answers),
+              f"mesh: the server's answers "
+              f"{[(a.status, a.reason) for a in answers]}")
+        check(health["ok"] and health["mesh_shape"] == {"mp": 2}
+              and health["devices_per_replica"] == 2,
+              f"mesh: /healthz {health}")
+        check(k3 == per_score * 2, f"mesh: K3 launched {k3} times for 2 "
+                                   f"CLIP scores, not {per_score} each")
+        record.update(server_health=health, k3_launches=k3)
+        lap("server")
+
+        timed_reqs = mesh_requests(cfg, MESH_TIMED_GRID, n=8, seed=60)
+        ms = {"single": [], "mesh": []}
+        for name in ("single", "mesh", "single", "mesh"):
+            run = mesh_run(model, timed_reqs,
+                           devices if name == "mesh" else None,
+                           kv="paged", **MESH_ENGINE)
+            ms[name].append(run["wall_s"] * 1e3 / run["decode_steps"])
+        record["bf16_ms_per_decode_step"] = ms
+        record["bf16_mesh_over_single"] = min(ms["mesh"]) / min(
+            ms["single"])
+        lap("bf16_timing")
+        record["head_split_bits"] = head_split_bits()
+    finally:
+        SS.visible_devices = listed
+    record["seconds"] = seconds
+    emit(**record)
+    return record
+
+
+def token_agreement_lists(a: list, b: list) -> dict:
+    """``token_agreement`` over lists of token lists."""
+    same = total = 0
+    first = []
+    for x, y in zip(a, b):
+        same += sum(u == v for u, v in zip(x, y))
+        total += len(x)
+        diff = [i for i, (u, v) in enumerate(zip(x, y)) if u != v]
+        first.append(diff[0] if diff else None)
+    return {"identical_share": same / max(total, 1),
+            "first_divergence": first}
+
+
 # -- image files --------------------------------------------------------------
 
 IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "images")
@@ -4369,7 +4876,10 @@ IMAGE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "images")
 
 def phase_images() -> dict:
     """The JPEG fixtures through the port's libjpeg loader against PIL's
-    decodes, or the typed refusal where libjpeg is missing."""
+    decodes, or the typed refusal where libjpeg is missing; then the
+    lossless WebP fixture through libwebp (``ctypes``) against its PIL
+    decode stored beside it, or the typed refusal where libwebp is
+    missing."""
     import hashlib
     import numpy as np
     from dalle_pytorch_tpu_torch.data import images as IMG
@@ -4379,30 +4889,45 @@ def phase_images() -> dict:
         big = fh.read()
     with open(os.path.join(IMAGE_FIXTURES, "north_256.json")) as fh:
         big_want = json.load(fh)
+    record = {"phase": "images", "ok": True}
     try:
         got = IMG.decode_image(data)
     except IMG.UnsupportedImage as e:
         check("libjpeg" in str(e), f"images: the refusal names no "
                                    f"libjpeg: {e}")
-        record = {"phase": "images", "ok": True, "jpeg": "refused",
-                  "reason": str(e)[-400:]}
-        emit(**record)
-        return record
-    want = np.load(os.path.join(IMAGE_FIXTURES, "smoke_pil_rgb.npy"))
-    check(got.shape == want.shape and bool((got == want).all()),
-          "images: the JPEG fixture's decode differs from PIL's")
-    t0 = time.perf_counter()
-    n = 20
-    for _ in range(n):
-        big_got = IMG.decode_image(big)
-    ms = (time.perf_counter() - t0) * 1e3 / n
-    check(list(big_got.shape) == big_want["shape"]
-          and hashlib.sha256(big_got.tobytes()).hexdigest()
-          == big_want["pil_rgb_sha256"],
-          "images: the 256 px JPEG's decode differs from PIL's")
-    record = {"phase": "images", "ok": True, "jpeg": "decoded",
-              "shape": list(got.shape), "max_abs_err": 0,
-              "decode_ms_256px": ms}
+        record.update(jpeg="refused", reason=str(e)[-400:])
+    else:
+        want = np.load(os.path.join(IMAGE_FIXTURES, "smoke_pil_rgb.npy"))
+        check(got.shape == want.shape and bool((got == want).all()),
+              "images: the JPEG fixture's decode differs from PIL's")
+        t0 = time.perf_counter()
+        n = 20
+        for _ in range(n):
+            big_got = IMG.decode_image(big)
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        check(list(big_got.shape) == big_want["shape"]
+              and hashlib.sha256(big_got.tobytes()).hexdigest()
+              == big_want["pil_rgb_sha256"],
+              "images: the 256 px JPEG's decode differs from PIL's")
+        record.update(jpeg="decoded", shape=list(got.shape), max_abs_err=0,
+                      decode_ms_256px=ms)
+    with open(os.path.join(IMAGE_FIXTURES, "smoke.webp"), "rb") as fh:
+        webp = fh.read()
+    try:
+        got = IMG.decode_image(webp)
+    except IMG.UnsupportedImage as e:
+        check("libwebp" in str(e), f"images: the WebP refusal names no "
+                                   f"libwebp: {e}")
+        record.update(webp="refused", webp_reason=str(e)[-400:])
+    else:
+        want = np.load(os.path.join(IMAGE_FIXTURES, "smoke_webp_rgb.npy"))
+        check(got.shape == want.shape and bool((got == want).all()),
+              "images: the WebP fixture's decode differs from PIL's")
+        lib = IMG._libwebp()
+        v = lib.WebPGetDecoderVersion()
+        record.update(webp="decoded", webp_shape=list(got.shape),
+                      webp_max_abs_err=0,
+                      libwebp=f"{v >> 16}.{(v >> 8) & 255}.{v & 255}")
     emit(**record)
     return record
 
@@ -6327,11 +6852,29 @@ def parallel_single_ms() -> dict:
     return out
 
 
-def phase_parallel(cli_root: str = "") -> dict:
+def parallel_tp_kernels() -> dict:
+    """K1, K2a, K2b and K3 at the shapes a tp 2 rank gives them (its 4 of
+    the 8 heads, the whole batch), and K3 without the causal constraint at
+    the shape of a generate_dp rank's rerank (float32, its rows, the CLIP
+    text encoder's 8 heads of 64 over 256 positions), against their plain
+    versions, timed."""
+    return {
+        "flash": flash_case(torch.bfloat16, False, timed=True,
+                            h=PARALLEL_CFG_HEADS // 2),
+        "k3": sparse_case(torch.bfloat16, False, timed=True,
+                          h=PARALLEL_CFG_HEADS // 2),
+        "k3_rerank": sparse_case(
+            torch.float32, False, timed=True, causal=False,
+            b=GENERATE_DP["candidates"] // GENERATE_DP["dp"], h=8,
+            n=256, d=64)}
+
+
+def phase_parallel(cli_root: str = "", tp_kernels: dict = None) -> dict:
     """Training across ranks on the one card: K1-K3 were built by
     ``build``, here, before any rank spawns. The one-process reference of
     every comparison (generate_dp's too) and each run's one-process ms a
-    step first, then K1-K3 at a tp rank's shapes (this process), then two
+    step first, then K1-K3 at a tp rank's shapes (``parallel_tp_kernels``,
+    in this process, or taken from ``tp_kernels``), then two
     spawned rank processes over gloo (each its own CUDA context on the
     same card: the collectives' values on CUDA tensors, every comparison,
     each run's 2 steps, generate_dp), then ``parallel_cli`` with,
@@ -6353,21 +6896,10 @@ def phase_parallel(cli_root: str = "") -> dict:
         t0 = time.perf_counter()
         record["one_process"] = parallel_single_ms()
         record["one_process_s"] = time.perf_counter() - t0
-        # K1, K2a, K2b and K3 at the shapes a tp 2 rank gives them (its 4
-        # of the 8 heads, the whole batch), and K3 without the causal
-        # constraint at the shape of a generate_dp rank's rerank (float32,
-        # its rows, the CLIP text encoder's 8 heads of 64 over 256
-        # positions), against their plain versions
+        # the kernels at a tp rank's shapes: timed here unless the caller
+        # timed them alone (``tp_kernels``, the default run's first stream)
         t0 = time.perf_counter()
-        record["tp_kernels"] = {
-            "flash": flash_case(torch.bfloat16, False, timed=True,
-                                h=PARALLEL_CFG_HEADS // 2),
-            "k3": sparse_case(torch.bfloat16, False, timed=True,
-                              h=PARALLEL_CFG_HEADS // 2),
-            "k3_rerank": sparse_case(
-                torch.float32, False, timed=True, causal=False,
-                b=GENERATE_DP["candidates"] // GENERATE_DP["dp"], h=8,
-                n=256, d=64)}
+        record["tp_kernels"] = tp_kernels or parallel_tp_kernels()
         record["tp_kernels_s"] = time.perf_counter() - t0
         plan = {"refs": refs}
         t0 = time.perf_counter()
@@ -6474,7 +7006,119 @@ ONLY = {"images": phase_images, "generate": phase_generate,
         "replicas": phase_replicas, "processes": phase_processes,
         "gateway": phase_gateway, "cli": phase_cli,
         "parallel": phase_parallel, "http": phase_http,
-        "serve_features": phase_serve_features}
+        "serve_features": phase_serve_features, "import": phase_import,
+        "mesh": phase_mesh, "rev_decode": phase_rev_decode}
+
+# the phases that the default run's second process (``--stream``) runs,
+# in this order, beside the first process's serving phases: each starts
+# processes of its own or gates no time; ``STREAM_WAIT_S`` is how long
+# the first process waits for it once its own phases are done
+STREAM = ("cli", "parallel", "replicas", "processes", "import", "mesh",
+          "rev_decode")
+STREAM_WAIT_S = 900.0
+
+
+def run_phases(names, train: dict = None, tp_kernels: dict = None) -> dict:
+    """The ``ONLY`` phases ``names``, one after another in this process:
+    cli keeps its data and VAE for parallel's CLI run where both run,
+    and processes compares its pair with replicas' of the same call."""
+    done = {}
+    for name in names:
+        args = ()
+        if name == "processes":
+            args = (done.get("replicas"),)
+        elif name == "cli":
+            args = (train, "parallel" in names)
+        elif name == "parallel":
+            args = ((done.get("cli") or {}).get("root", ""), tp_kernels)
+        done[name] = timed(ONLY[name], *args)
+    return done
+
+
+class Stream:
+    """The default run's second stream: ``chip_smoke.py --stream DIR`` in
+    a session of its own, its records and phase seconds back through
+    DIR/records.json and its printed records through DIR/stdout."""
+
+    def __init__(self, context: dict):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-stream-")
+        with open(os.path.join(self.dir, "context.json"), "w") as f:
+            json.dump({**context, "parent": os.getpid()}, f)
+        self.log = open(os.path.join(self.dir, "stdout"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--stream",
+             self.dir], cwd=ROOT, stdout=self.log, start_new_session=True)
+
+    def echo(self) -> None:
+        """Print what the stream printed (once)."""
+        if self.log.closed:
+            return
+        self.log.close()
+        with open(os.path.join(self.dir, "stdout")) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+
+    def poll(self) -> None:
+        """Fail now where the stream has already failed."""
+        rc = self.proc.poll()
+        if rc not in (None, 0):
+            self.echo()
+            check(False, f"stream: {' '.join(STREAM)} exited {rc}")
+
+    def join(self) -> dict:
+        """Wait for the stream: {"records": {phase: record},
+        "phase_seconds": ...}."""
+        try:
+            rc = self.proc.wait(timeout=STREAM_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = f"nothing: still running after {STREAM_WAIT_S} s"
+        self.echo()
+        check(rc == 0, f"stream: {' '.join(STREAM)} exited {rc}")
+        with open(os.path.join(self.dir, "records.json")) as f:
+            return json.load(f)
+
+    def close(self) -> None:
+        """Stop the stream, then every process left in its session."""
+        import shutil
+        import signal
+        if self.proc.poll() is None:
+            # SIGTERM: its phases' finally blocks close their children
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        self.proc.wait()
+        self.echo()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def stream_main(path: str) -> int:
+    """``--stream DIR``: ``STREAM`` for the default run's first process,
+    which wrote DIR/context.json (its pid, the train phase's ms a step,
+    the kernels timed at a tp rank's shapes); the records go to
+    DIR/records.json. The stream ends with the first process: SIGTERM
+    when it dies, and SIGTERM exits through the phases' finally
+    blocks."""
+    import ctypes
+    import signal
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    ctypes.CDLL(None).prctl(1, int(signal.SIGTERM))     # PR_SET_PDEATHSIG
+    with open(os.path.join(path, "context.json")) as f:
+        ctx = json.load(f)
+    if os.getppid() != ctx["parent"]:
+        return 1
+    done = run_phases(STREAM, train=ctx["train"],
+                      tp_kernels=ctx["tp_kernels"])
+    with open(os.path.join(path, "records.json"), "w") as f:
+        json.dump({"records": done, "phase_seconds": PHASE_SECONDS}, f,
+                  default=str)
+    return 0
 
 
 def main() -> int:
@@ -6484,6 +7128,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if len(sys.argv) == 3 and sys.argv[1] == "--stream":
+        return stream_main(sys.argv[2])
     if len(sys.argv) > 1:
         # ``--only a,b``: build, then those phases alone (no kernel table)
         if len(sys.argv) != 3 or sys.argv[1] != "--only" or not set(
@@ -6492,27 +7138,19 @@ def main() -> int:
                   file=sys.stderr)
             return 2
         card = timed(phase_build)
-        done = {}
-        for name in sys.argv[2].split(","):
-            # processes compares its pair with replicas' of this call;
-            # cli keeps its data and VAE for parallel's CLI run
-            args = (done.get("replicas"),) if name == "processes" else ()
-            if name == "cli":
-                args = (None, "parallel" in sys.argv[2].split(","))
-            if name == "parallel":
-                args = ((done.get("cli") or {}).get("root", ""),)
-            done[name] = timed(ONLY[name], *args)
+        run_phases(sys.argv[2].split(","))
         emit(phase_seconds=PHASE_SECONDS)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    t_start = time.perf_counter()
+    # the kernels and the training steps, alone on the card
     card = timed(phase_build)
     timed(phase_images)
     kernel = timed(phase_kernel)
     timed(phase_decode)
-    engine = timed(phase_engine)
     flash = timed(phase_flash)
     train = timed(phase_train)
     wide_train = timed(phase_wide_train)
@@ -6520,25 +7158,39 @@ def main() -> int:
     sparse = timed(phase_sparse_kernels)
     sparse_train = timed(phase_sparse_train)
     wide_sparse_train = timed(phase_wide_sparse_train)
-    sparse_engine = timed(phase_sparse_engine)
-    wide_engine = timed(phase_wide_engine)
-    generate = timed(phase_generate)
     timed(phase_vae_train)
     rev_train = timed(phase_rev_train)
-    rev_decode = timed(phase_rev_decode)
     moe_train = timed(phase_moe_train)
     clip_train = timed(phase_clip_train)
     remat = timed(phase_remat)
-    cli = timed(phase_cli, train, True)
-    parallel = timed(phase_parallel, cli["root"])
-    features = timed(phase_serve_features)
-    timed(phase_import)
-    served = timed(phase_http)
-    fleet = timed(phase_replicas)
-    procs = timed(phase_processes, fleet)
-    gateway = timed(phase_gateway)
+    tp_kernels = timed(parallel_tp_kernels)
+    # then the serving phases here, beside ``STREAM`` in a second process
+    stream = Stream({"train": {"ms_per_step": train["ms_per_step"]},
+                     "tp_kernels": tp_kernels})
+    t_streams = time.perf_counter()
+    try:
+        serving = []
+        for phase in (phase_engine, phase_sparse_engine, phase_wide_engine,
+                      phase_generate, phase_serve_features, phase_http,
+                      phase_gateway):
+            serving.append(timed(phase))
+            stream.poll()
+        first_done = time.perf_counter() - t_streams
+        got = stream.join()
+    finally:
+        stream.close()
+    engine, sparse_engine, wide_engine, generate, features, served, \
+        gateway = serving
+    cli, parallel, fleet, procs, mesh, rev_decode = (
+        got["records"][name] for name in ("cli", "parallel", "replicas",
+                                          "processes", "mesh", "rev_decode"))
     emit(phase_seconds=PHASE_SECONDS,
-         total_seconds=sum(PHASE_SECONDS.values()))
+         stream_phase_seconds=got["phase_seconds"],
+         total_seconds=sum(PHASE_SECONDS.values())
+         + sum(got["phase_seconds"].values()),
+         streams_s={"first": first_done,
+                    "both": time.perf_counter() - t_streams},
+         wall_seconds=time.perf_counter() - t_start)
     main_case = kernel["bfloat16"]
     rows = [{
         "name": "paged_decode_attention",
@@ -6819,6 +7471,18 @@ def main() -> int:
         "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
         "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
         "library_ms": k3c["sdpa_masked_ms"]}]
+    # the serving mesh's server: K3 in its postprocess worker's CLIP
+    # scores (its decode reads through the gather: K4 is refused there)
+    rows.append({
+        "name": "block_sparse_attention_fwd_noncausal@mesh",
+        "route": "cuda",
+        "source": "dalle_pytorch_tpu_torch/csrc/block_sparse.cu",
+        "replaces": "dalle_pytorch_tpu/ops/block_sparse.py:80",
+        "launches": mesh["k3_launches"],
+        "max_abs_err": max(k3c["max_abs_err"].values()),
+        "ms": k3c["ms"], "plain_ms": k3c["plain_ms"],
+        "bound_ms": k3c["bound_ms"], "bound_by": k3c["bound_by"],
+        "library_ms": k3c["sdpa_masked_ms"]})
     # the replica set behind the HTTP server: K4 in every replica's steps
     rows.append({
         "name": "paged_decode_attention@replicas", "route": "cuda",

@@ -14,8 +14,12 @@ processes named by ``--coordinator``/``--num_processes``/``--process_id``
 (or the environment) and lays them out as JAX's mesh ``{dp, sp}``,
 ``{dp, pp}`` or ``{dp}`` with JAX's refusals; ``say``, the vocabulary
 and ``save_checkpoint`` act on the primary rank only, the others waiting
-at a barrier. ``--guard_transfers`` (a JAX transfer guard) ends the run
-with ``SystemExit`` naming its ``ROADMAP.md`` item.
+at a barrier. ``--guard_transfers`` runs each step body under
+``transfer_guard`` (JAX's ``guards.no_transfers``, ``:472-514``): on the
+card every synchronizing call in the body raises at the call, and the
+body's one deliberate host-to-card copy, the step counter of
+``step_rng``, goes through ``ops.core.device_put`` (pinned and
+asynchronous), as JAX spells its ``device_put``. The loss read stays outside the guard.
 
 The optimizer is Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8
 outside the square root; ``torch.optim.Adam`` computes the same update,
@@ -32,6 +36,7 @@ map its state to and from optax's tree (``checkpoint.py`` writes it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import math
 import os
@@ -42,10 +47,7 @@ import numpy as np
 import torch
 
 from dalle_pytorch_tpu_torch import checkpoint as ckpt
-from dalle_pytorch_tpu_torch.ops import prng
-
-GUARD_ITEM = ("ROADMAP.md queue 1 item 4 (JAX's implicit-transfer guard, "
-              "--guard_transfers)")
+from dalle_pytorch_tpu_torch.ops import core, prng
 
 
 def say(*parts, **kw) -> None:
@@ -230,13 +232,36 @@ def add_common_args(parser: argparse.ArgumentParser,
     a("--init_retries", type=int, default=3,
       help="bring-up attempts under --init_deadline_s")
     a("--guard_transfers", action="store_true",
-      help="JAX's implicit-transfer guard (not in the port: "
-           + GUARD_ITEM + ")")
+      help="run every train-step body under torch.cuda."
+           "set_sync_debug_mode('error'): an implicit device-to-host "
+           "read or a copy from pageable host memory in the step raises "
+           "at the call instead of stalling the card each step "
+           "(deliberate copies go through pinned memory, asynchronously)")
+
+
+@contextlib.contextmanager
+def transfer_guard(device):
+    """``--guard_transfers`` around one step body: on a CUDA ``device``,
+    ``torch.cuda.set_sync_debug_mode("error")``, so every synchronizing
+    CUDA call in the body (``.item()``, a device-to-host copy, a copy
+    from pageable host memory, a stream sync) raises ``RuntimeError`` at
+    the call; the previous mode is restored after, raise or not. On the
+    CPU it does nothing."""
+    if device is None or torch.device(device).type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
 def step_rng(key: torch.Tensor, step: int) -> torch.Tensor:
-    """``fold_in(key, step)``: the key of training step ``step``."""
-    return prng.fold_in(key, step)
+    """``fold_in(key, step)``: the key of training step ``step``, its
+    counter shipped through ``core.device_put``."""
+    return prng.fold_in(key, core.device_put(np.int64(step), key.device))
 
 
 def resolve_schedule(args, steps_per_epoch: int = 0, start_epoch: int = 0,
@@ -559,7 +584,13 @@ def run_supervised_loop(args, *, sup, metrics, profiler, dataset, plan,
             for item in state.pf:
                 gs = state.global_step
                 profiler.maybe_start(gs)
-                loss, payload = train_step(item, state)
+                if getattr(args, "guard_transfers", False):
+                    # the loss read below stays outside: it is the loop's
+                    # one intentional host read a step
+                    with transfer_guard(device):
+                        loss, payload = train_step(item, state)
+                else:
+                    loss, payload = train_step(item, state)
                 profiler.maybe_stop(gs)
                 lv = float(loss)
                 if sup.check_step(gs, lv) == sup.ROLLBACK:
@@ -617,13 +648,6 @@ def load_caption_dataset(args, mesh=None):
                                  shuffle=True, seed=args.seed)
 
 
-def refuse_unported(args) -> None:
-    """``SystemExit`` for the flag whose path the port does not have."""
-    if args.guard_transfers:
-        raise SystemExit(f"--guard_transfers: not in the PyTorch port yet; "
-                         f"see {GUARD_ITEM}")
-
-
 def make_run_mesh(args, world: int):
     """JAX's checks of the mesh flags (``setup_run``), then the mesh
     ``{dp, sp}``, ``{dp, pp}`` or ``{dp}`` over the ``world`` ranks."""
@@ -655,8 +679,8 @@ def make_run_mesh(args, world: int):
 
 
 def setup_run(args, unit_name: str = "tokens", device=None):
-    """-> (device, mesh, MetricsLogger, StepProfiler). Refuses
-    ``--guard_transfers``, activates a ``DALLE_FAULTS`` plan, joins the
+    """-> (device, mesh, MetricsLogger, StepProfiler). Activates a
+    ``DALLE_FAULTS`` plan, joins the
     process group when the flags or the environment name one
     (``parallel/multihost.py``; with --init_deadline_s each attempt is
     bounded and exhausted attempts exit with the bring-up record), makes
@@ -670,7 +694,6 @@ def setup_run(args, unit_name: str = "tokens", device=None):
     from dalle_pytorch_tpu_torch.utils.debug import enable_nan_checks
     from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
     from dalle_pytorch_tpu_torch.utils.profiling import StepProfiler
-    refuse_unported(args)
     faults.maybe_activate_from_env()
     try:
         multihost.initialize(

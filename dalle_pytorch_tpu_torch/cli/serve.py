@@ -27,8 +27,10 @@ loads a checkpoint path the way startup loaded the first (``--use_ema``,
 ``--tenants`` JSON (API keys, rate and page quotas, weighted-fair
 queueing, hedge tiers; reloaded by ``POST /admin/tenants``), hedged sends
 and cell-down replay; ``serve_gateway_http`` answers. It does not take
-``--autoscale``. ``--mesh_devices`` (a device mesh, ROADMAP.md queue 1
-item 3) ends in ``SystemExit`` naming the item.
+``--autoscale``. ``--mesh_devices m`` serves each engine from a mesh of
+m devices (``serve/mesh_engine.py``): one engine over the first m cards,
+or, with ``--replicas``, each replica a slice of m cards; the DALLE then
+loads on the CPU, and each card holds only its shards.
 
 Run: python -m dalle_pytorch_tpu_torch.cli.serve --name test \\
         --dalle_epoch 99 --kv paged --paged_attn kernel --replicas 2 \\
@@ -58,8 +60,6 @@ from dalle_pytorch_tpu_torch.data.vocabulary import Vocabulary
 from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.models import dalle as D
 from dalle_pytorch_tpu_torch.utils.metrics import MetricsLogger
-
-MESH_ITEM = "ROADMAP.md queue 1 item 3c (the serving mesh)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,7 +126,11 @@ def build_parser() -> argparse.ArgumentParser:
       help="comma list of per-replica roles (prefill, decode, both; "
            "--kv paged)")
     a("--mesh_devices", type=int, default=1,
-      help="devices per engine (not in the port yet: one device)")
+      help="devices per engine: above 1 one engine spans that many "
+           "cards (layers split by depth, the KV pool by heads, tokens "
+           "byte-identical to one card's); with --replicas each replica "
+           "is a slice of that many cards (replica i gets cards "
+           "[i*m, (i+1)*m)); --paged_attn kernel is refused")
     a("--worker_ckpt", type=str, default=None,
       help="socket transport: the workers' spec carries this checkpoint "
            "path ('latest:<models_dir>:<name>' for the newest valid "
@@ -220,15 +224,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_fleet(args) -> None:
-    """``SystemExit`` for ``--mesh_devices`` (a slice still to come),
-    naming its ROADMAP.md item."""
-    if args.mesh_devices > 1:
-        raise SystemExit(
-            f"--mesh_devices: not in the PyTorch port yet — an engine "
-            f"runs on one card; see {MESH_ITEM}")
-
-
 def load_vocab(args) -> Vocabulary:
     if args.captions_only:
         return Vocabulary.from_captions(read_captions_only(
@@ -256,7 +251,6 @@ def load_dalle(path: str, args, device):
 
 def main(argv=None, *, device=None):
     args = build_parser().parse_args(argv)
-    refuse_fleet(args)
     autoscale = None
     if args.autoscale:
         from dalle_pytorch_tpu_torch.serve.autoscale import AutoscalePolicy
@@ -279,7 +273,9 @@ def main(argv=None, *, device=None):
 
     dalle_path = ckpt.ckpt_path(args.models_dir, f"{args.name}_dalle",
                                 args.dalle_epoch)
-    model, manifest = load_dalle(dalle_path, args, device)
+    # a mesh places its shards from a host copy: no card holds it whole
+    model_device = "cpu" if args.mesh_devices > 1 else device
+    model, manifest = load_dalle(dalle_path, args, model_device)
     cfg = model.cfg
     if args.use_ema:
         say("serving EMA weights")
@@ -327,7 +323,7 @@ def main(argv=None, *, device=None):
             default_cfg_scale=args.cfg_scale,
             preview_every=args.preview_every,
             stream_max_events=args.stream_max_events,
-            replicas=args.replicas,
+            replicas=args.replicas, mesh_devices=args.mesh_devices,
             replica_roles=(args.replica_roles.split(",")
                            if args.replica_roles else None),
             weights_version=f"{args.name}_dalle@{args.dalle_epoch}",
@@ -335,7 +331,8 @@ def main(argv=None, *, device=None):
             # replica holds its own KV pool
             max_replicas=args.max_replicas or args.replicas,
             autoscale=autoscale,
-            load_weights=lambda path: load_dalle(path, args, device)[0],
+            load_weights=lambda path: load_dalle(path, args,
+                                                 model_device)[0],
             heartbeat_s=args.heartbeat_s,
             isolation=args.isolation,
             child_rss_limit_mb=args.child_rss_limit_mb,
@@ -368,8 +365,10 @@ def main(argv=None, *, device=None):
         else f"{args.isolation}/{args.transport}"
     if args.replica_roles:
         iso_desc += f" [{args.replica_roles}]"
+    mesh_desc = "" if args.mesh_devices <= 1 \
+        else f" x {args.mesh_devices}-device mesh"
     say(f"serving {dalle_path} on http://{args.host}:{args.port} "
-        f"({device}, {args.replicas} {iso_desc} replica(s) x "
+        f"({device}, {args.replicas} {iso_desc} replica(s){mesh_desc} x "
         f"{args.num_slots} slots, K={args.chunk_steps}, kv={kv_desc}, "
         f"queue {args.queue_depth})")
     if args.transport == "socket" and server._is_set:

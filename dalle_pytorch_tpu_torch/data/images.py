@@ -18,14 +18,21 @@ PIL's pixels, quirks included:
   the same library and defaults as PIL's decoder, so the same pixels.
   Where g++ or libjpeg is missing a JPEG raises ``UnsupportedImage``
   naming it;
+* ``decode_webp`` calls libwebp's ``WebPGetInfo``, ``WebPDecodeRGB`` and
+  ``WebPFree`` through ``ctypes`` (nothing is built): a lossless file
+  gives PIL's pixels bit for bit (alpha dropped, as ``.convert("RGB")``
+  drops it), a lossy one whatever the host's libwebp decodes. Where
+  libwebp is missing it raises ``UnsupportedImage`` naming it; an
+  animated WebP (which PIL reads as its first frame) is refused the
+  same way;
 * ``resize_bilinear`` is PIL's ``Image.resize(..., BILINEAR)`` for 8-bit
   images: the same separable passes (horizontal, then vertical, each
   rounded to 8 bits), the triangle filter's support widened by the scale
   when downscaling, and its coefficients in PIL's 22-bit fixed point;
 * ``encode_png`` writes 8-bit grey or RGB PNGs (``save_image_grid``).
 
-WebP (which would need libwebp) and the rarer BMP depths raise
-``UnsupportedImage``. The rest follows the JAX module: ``load_image``
+The rarer BMP depths raise ``UnsupportedImage``. The rest follows the
+JAX module: ``load_image``
 (resized only when the size differs), ``load_image_batch``,
 ``list_image_folder``, ``ImageFolderDataset`` (the same batches, in the
 same order), ``to_uint8`` and ``save_image_grid``.
@@ -33,6 +40,9 @@ same order), ``to_uint8`` and ``save_image_grid``.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
 import os
 import struct
@@ -264,8 +274,63 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                                f"built with g++ against libjpeg: {e}") from e
 
 
+@functools.lru_cache(maxsize=1)
+def _libwebp():
+    """libwebp through ``ctypes``, its three entry points typed; None
+    where the host has no libwebp."""
+    name = ctypes.util.find_library("webp")
+    if name is None:
+        return None
+    try:
+        lib = ctypes.CDLL(name)
+    except OSError:
+        return None
+    size, ptr, intp = ctypes.c_size_t, ctypes.c_char_p, ctypes.POINTER(
+        ctypes.c_int)
+    lib.WebPGetInfo.argtypes = [ptr, size, intp, intp]
+    lib.WebPGetInfo.restype = ctypes.c_int
+    lib.WebPDecodeRGB.argtypes = [ptr, size, intp, intp]
+    lib.WebPDecodeRGB.restype = ctypes.POINTER(ctypes.c_uint8)
+    lib.WebPFree.argtypes = [ctypes.c_void_p]
+    lib.WebPFree.restype = None
+    return lib
+
+
+def _webp_animated(data: bytes) -> bool:
+    """Whether the file's extended header (``VP8X``) sets the animation
+    flag."""
+    return data[12:16] == b"VP8X" and len(data) > 20 \
+        and bool(data[20] & 0x02)
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """WebP bytes -> (H, W, 3) uint8 through libwebp's ``WebPDecodeRGB``
+    (alpha dropped). ``UnsupportedImage`` where libwebp is missing, for
+    an animated file, and for bytes libwebp cannot decode."""
+    lib = _libwebp()
+    if lib is None:
+        raise UnsupportedImage("WebP decoding needs libwebp "
+                               "(libwebp.so), which this host lacks")
+    if _webp_animated(data):
+        raise UnsupportedImage("an animated WebP is not read (PIL would "
+                               "take its first frame)")
+    w, h = ctypes.c_int(), ctypes.c_int()
+    if not lib.WebPGetInfo(data, len(data), ctypes.byref(w),
+                           ctypes.byref(h)):
+        raise UnsupportedImage("libwebp does not read this WebP header")
+    out = lib.WebPDecodeRGB(data, len(data), ctypes.byref(w),
+                            ctypes.byref(h))
+    if not out:
+        raise UnsupportedImage("libwebp could not decode this WebP")
+    try:
+        px = np.ctypeslib.as_array(out, shape=(h.value, w.value, 3)).copy()
+    finally:
+        lib.WebPFree(out)
+    return px
+
+
 def decode_image(data: bytes) -> np.ndarray:
-    """Image bytes (PNG, JPEG or BMP, told apart by their magic) ->
+    """Image bytes (PNG, JPEG, BMP or WebP, told apart by their magic) ->
     (H, W, 3) uint8, as PIL's ``Image.open(...).convert("RGB")``."""
     if data[:8] == PNG_SIGNATURE:
         return decode_png(data)
@@ -274,9 +339,8 @@ def decode_image(data: bytes) -> np.ndarray:
     if data[:2] == b"BM":
         return decode_bmp(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise UnsupportedImage("WebP is not in the PyTorch port yet (it "
-                               "would need libwebp; ROADMAP.md queue 1)")
-    raise UnsupportedImage("not a PNG, JPEG or BMP file")
+        return decode_webp(data)
+    raise UnsupportedImage("not a PNG, JPEG, BMP or WebP file")
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

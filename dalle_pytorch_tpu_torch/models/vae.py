@@ -234,7 +234,7 @@ def gumbel_softmax(key: torch.Tensor, logits: torch.Tensor, tau: float,
     g = prng.gumbel(key, logits.shape, logits.dtype,
                     prng.row_offset(logits.shape))
     # tau divides in the logits' dtype, as JAX's weakly typed scalar does
-    tau = torch.tensor(tau, dtype=logits.dtype, device=logits.device)
+    tau = torch.full((), tau, dtype=logits.dtype, device=logits.device)
     soft = torch.softmax((logits + g) / tau, dim=-1)
     if straight_through:
         hard = torch.nn.functional.one_hot(

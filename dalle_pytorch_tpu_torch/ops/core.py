@@ -41,6 +41,19 @@ from torch import nn
 from dalle_pytorch_tpu_torch.ops import prng
 
 
+def device_put(value, device) -> torch.Tensor:
+    """A host value (array, scalar) on ``device``: on a card staged in
+    pinned memory and copied asynchronously, so it synchronizes nothing
+    (``--guard_transfers`` lets it pass, as JAX's guard lets an explicit
+    ``device_put`` pass); as it is where ``device`` is None."""
+    t = torch.as_tensor(value)
+    if device is None:
+        return t
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def linear(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """y = x @ w.T (+ b), in the activation dtype; ``p`` an ``nn.Linear``
     or an int8 ``QuantLinear`` (y = (x @ w_q.T) * scale (+ b))."""
@@ -90,7 +103,7 @@ def dropout(key, x: torch.Tensor, rate: float, train: bool,
     keep = 1.0 - rate
     whole = x.shape if cols is None else (*x.shape[:-1], cols[1])
     mask = prng.bernoulli(key, keep, x.shape, prng.row_offset(whole), cols)
-    div = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    div = torch.full((), keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, x / div, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))
 
@@ -110,7 +123,7 @@ def positional_dropout(key, x: torch.Tensor, rate: float, train: bool, *,
     keys = prng.fold_in(key, pos)                        # (n, 2)
     per_pos = (x.shape[0],) + tuple(x.shape[2:])
     mask = prng.bernoulli(keys, keep, per_pos, cols=cols).movedim(0, 1)
-    div = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    div = torch.full((), keep, dtype=x.dtype, device=x.device)
     return torch.where(mask, x / div, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))
 

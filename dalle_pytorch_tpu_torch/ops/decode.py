@@ -54,6 +54,18 @@ mean), and each FF through ``ff_or_moe``, so a reversible or MoE model
 decodes the network it was trained as (JAX ``:300-318``, ``:492-510``,
 ``:660-685``).
 
+A serving mesh (``serve/mesh_engine.py``) holds its KV store as
+``HeadShards``: each device a slice of the heads of every buffer. The
+writers split their rows by heads and write each shard on its own device;
+the reads (``_layer``) take each shard's slice of a layer, through
+``paged_view`` or the sparse reads' trimmed view where the pool is
+paged, and join them along the heads onto the first device, where the
+single engine's attention runs on them unchanged. JAX's mesh attends per
+head shard and gathers the attention output instead (its ``out_sync``);
+the port does not, because a head-sliced score product is not bit-equal
+to the whole one in PyTorch (the batched matmul picks its kernel by the
+batch count), and the mesh's tokens must equal the single engine's.
+
 Where JAX returns a new cache or pool from each step, the port updates
 the dense cache and the page pool IN PLACE (``index_put_``): they are the
 largest buffers on the card, and a copy per step would move them once
@@ -78,6 +90,85 @@ from dalle_pytorch_tpu_torch.ops import sparse
 from dalle_pytorch_tpu_torch.ops import transformer as T
 
 Pool = Dict[str, torch.Tensor]
+
+_KV_NAMES = ("k", "v", "k_scale", "v_scale")
+
+
+class HeadShards:
+    """A KV store split along its heads over devices: ``parts[s]`` is
+    shard s's pool (every buffer its slice of dim 2, the heads) on
+    ``devices[s]``, which may repeat one device. Shard 0's device is the
+    one the engine computes on; ``join(pieces)`` joins the shards'
+    pieces of one layer's tensor (heads at dim 1) there, in shard order
+    (data movement only)."""
+
+    def __init__(self, parts, devices, join: Callable):
+        if len(parts) != len(devices) or not parts:
+            raise ValueError("one pool per device, at least one")
+        self.parts = list(parts)
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.join = join
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.parts[0]
+
+    def slices(self):
+        """(pool, heads slice, device) of each shard."""
+        lo = 0
+        for part, dev in zip(self.parts, self.devices):
+            n = part["k"].shape[2]
+            yield part, slice(lo, lo + n), dev
+            lo += n
+
+    def map(self, fn: Callable) -> "HeadShards":
+        """``fn(pool, device)`` on each shard: a store of views."""
+        return HeadShards([fn(part, dev) for part, dev
+                           in zip(self.parts, self.devices)], self.devices,
+                          self.join)
+
+
+def pool_shards(cache):
+    """``(pool, heads slice, device)`` of each shard of a KV store; a
+    plain pool is its own one shard."""
+    if isinstance(cache, HeadShards):
+        return list(cache.slices())
+    return [(cache, slice(None), cache["k"].device)]
+
+
+def _part0(cache) -> Pool:
+    """A pool whose buffers give the store's shapes but the heads."""
+    return cache.parts[0] if isinstance(cache, HeadShards) else cache
+
+
+def _layer(cache, i: int, view: Optional[Callable] = None):
+    """Layer i's ``[k, v, k_scale, v_scale]`` of ``cache`` (None for a
+    scale a float store has not), each through ``view(buf)`` when given;
+    a ``HeadShards`` store's are joined whole on the first device."""
+    def one(part):
+        return [None if n not in part
+                else part[n][i] if view is None else view(part[n][i])
+                for n in _KV_NAMES]
+
+    if not isinstance(cache, HeadShards):
+        return one(cache)
+    per = [one(part) for part in cache.parts]
+    return [None if col[0] is None else cache.join(col)
+            for col in zip(*per)]
+
+
+def _per_shard(store: Callable) -> Callable:
+    """A writer of K/V rows ``(depth, b, heads, W, dh)`` that also takes
+    a ``HeadShards`` store: each shard gets its heads' rows, and every
+    tensor argument, on its own device."""
+    @functools.wraps(store)
+    def run(cache, ks, vs, *args):
+        if not isinstance(cache, HeadShards):
+            return store(cache, ks, vs, *args)
+        for part, hs, dev in pool_shards(cache):
+            store(part, ks[:, :, hs].to(dev), vs[:, :, hs].to(dev),
+                  *[a.to(dev) if isinstance(a, torch.Tensor) else a
+                    for a in args])
+    return run
 
 
 def _quantize_rows(x: torch.Tensor):
@@ -112,6 +203,7 @@ def init_cache(cfg: T.TransformerConfig, batch: int, total_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+@_per_shard
 def _store_rows(cache: Pool, ks: torch.Tensor, vs: torch.Tensor,
                 pos) -> None:
     """Write K/V rows (depth, b, heads, rows, dh) into the dense cache
@@ -326,7 +418,11 @@ def paged_view(pool: Pool, block_tables: torch.Tensor,
     """Dense per-slot view of the pool (depth, P, heads, ps, dh) through
     block_tables (b, max_pages): (depth, b, heads, total_len, dh), row j
     from page ``block_tables[i, j // ps]`` at offset ``j % ps``. The
-    table is trimmed to ``ceil(total_len / ps)`` columns first."""
+    table is trimmed to ``ceil(total_len / ps)`` columns first. A
+    ``HeadShards`` pool gives its shards' views, each on its device."""
+    if isinstance(pool, HeadShards):
+        return pool.map(lambda part, dev: paged_view(
+            part, block_tables.to(dev), total_len))
     page_size = pool["k"].shape[3]
     bt = block_tables[:, :-(-total_len // page_size)].long()
 
@@ -407,18 +503,15 @@ def _decode_step_math(model: T.Transformer, x_tok: torch.Tensor,
             model, x_tok, pos, cache, cfg=cfg, key_mask=key_mask,
             attn_impl=attn_impl, block_tables=block_tables)
     dense_allowed, sparse_allowed = _step_masks(cfg, pos, key_mask)
-    quantized = "k_scale" in cache
 
     def read(i, q, k, v):
-        ksc = cache["k_scale"][i] if quantized else None
-        vsc = cache["v_scale"][i] if quantized else None
+        ck, cv, ksc, vsc = _layer(cache, i)
         allowed = sparse_allowed if cfg.sparse_pattern[i] else dense_allowed
         if attn_impl == "kernel":
-            return _kernel_read(q, k, v, cache["k"][i], cache["v"][i],
-                                block_tables, pos, allowed, scale=cfg.scale,
-                                ksc=ksc, vsc=vsc)
-        return _gather_read(q, k, v, cache["k"][i], cache["v"][i], allowed,
-                            scale=cfg.scale, ksc=ksc, vsc=vsc)
+            return _kernel_read(q, k, v, ck, cv, block_tables, pos, allowed,
+                                scale=cfg.scale, ksc=ksc, vsc=vsc)
+        return _gather_read(q, k, v, ck, cv, allowed, scale=cfg.scale,
+                            ksc=ksc, vsc=vsc)
 
     return _run_layers(model, x_tok, cfg, read)
 
@@ -463,8 +556,7 @@ def _decode_step_math_sparse_reads(
     from dalle_pytorch_tpu_torch.serve import kv_pool as KV
     b = x_tok.shape[0]
     total_len = key_mask.shape[1]
-    ps = pool["k"].shape[3]
-    quantized = "k_scale" in pool
+    ps = _part0(pool)["k"].shape[3]
     dev = pos.device
     pos_l = pos.long()
     dense_allowed, sparse_allowed = _step_masks(cfg, pos, key_mask)
@@ -489,18 +581,17 @@ def _decode_step_math_sparse_reads(
 
     def layer_view(buf, tables, rows_out):
         """One layer's (P, heads, ps[, dh]) pool gathered through tables
-        (b, w) into (b, heads, rows_out[, dh])."""
-        g = buf[tables].transpose(1, 2)          # (b, heads, w, ps[, dh])
+        (b, w) into (b, heads, rows_out[, dh]), on the pool's device."""
+        g = buf[tables.to(buf.device)].transpose(1, 2)  # (b, h, w, ps[, dh])
         g = g.reshape(b, g.shape[1], -1, *g.shape[4:])
         return g[:, :, :rows_out]
 
     def read(i, q, k, v):
         is_sparse = cfg.sparse_pattern[i]
-        ksc = pool["k_scale"][i] if quantized else None
-        vsc = pool["v_scale"][i] if quantized else None
         if attn_impl == "kernel":
+            ck, cv, ksc, vsc = _layer(pool, i)
             return _kernel_read(
-                q, k, v, pool["k"][i], pool["v"][i], block_tables, pos,
+                q, k, v, ck, cv, block_tables, pos,
                 sparse_allowed if is_sparse else dense_allowed,
                 scale=cfg.scale, ksc=ksc, vsc=vsc,
                 visible=vis_rows if is_sparse else None,
@@ -508,14 +599,15 @@ def _decode_step_math_sparse_reads(
         tables, rows_out, allowed = (
             (vis_bt, width * ps, vis_allowed) if is_sparse
             else (bt, total_len, dense_allowed))
-        views = [None if buf is None else layer_view(buf, tables, rows_out)
-                 for buf in (pool["k"][i], pool["v"][i], ksc, vsc)]
-        return _gather_read(q, k, v, views[0], views[1], allowed,
-                            scale=cfg.scale, ksc=views[2], vsc=views[3])
+        ck, cv, ksc, vsc = _layer(
+            pool, i, lambda buf: layer_view(buf, tables, rows_out))
+        return _gather_read(q, k, v, ck, cv, allowed, scale=cfg.scale,
+                            ksc=ksc, vsc=vsc)
 
     return _run_layers(model, x_tok, cfg, read)
 
 
+@_per_shard
 def _store_rows_paged(pool: Pool, ks: torch.Tensor, vs: torch.Tensor,
                       pos: torch.Tensor, block_tables: torch.Tensor,
                       active: torch.Tensor) -> None:
@@ -628,7 +720,7 @@ def decode_loop(model: T.Transformer, cur_tok: torch.Tensor,
     (tok 0, pos 0) and rewrites row 0 of its own slot, which admission's
     prefill overwrites before any read. Returns (cur_tok, pos, active,
     ring); the cache is updated in place."""
-    total_len = cache["k"].shape[3]
+    total_len = _part0(cache)["k"].shape[3]
     ring = torch.empty((cur_tok.shape[0], steps), dtype=torch.int32,
                        device=cur_tok.device)
     for t in range(steps):
@@ -776,19 +868,17 @@ def _decode_chunk_math(model: T.Transformer, x_toks: torch.Tensor,
                          "positions (the serving decode shape)")
     dense_c, dense_i, sparse_c, sparse_i = _chunk_masks(
         cfg, pos, key_mask, x_toks.shape[1])
-    quantized = "k_scale" in cache
 
     def read(i, q, k, v):
         a_c, a_i = (sparse_c, sparse_i) if cfg.sparse_pattern[i] \
             else (dense_c, dense_i)
-        ksc = cache["k_scale"][i] if quantized else None
-        vsc = cache["v_scale"][i] if quantized else None
+        ck, cv, ksc, vsc = _layer(cache, i)
         if attn_impl == "kernel":
-            return _kernel_read_wide(q, k, v, cache["k"][i], cache["v"][i],
-                                     block_tables, pos, a_c, a_i,
-                                     scale=cfg.scale, ksc=ksc, vsc=vsc)
-        return _gather_read_wide(q, k, v, cache["k"][i], cache["v"][i],
-                                 a_c, a_i, scale=cfg.scale, ksc=ksc, vsc=vsc)
+            return _kernel_read_wide(q, k, v, ck, cv, block_tables, pos,
+                                     a_c, a_i, scale=cfg.scale, ksc=ksc,
+                                     vsc=vsc)
+        return _gather_read_wide(q, k, v, ck, cv, a_c, a_i, scale=cfg.scale,
+                                 ksc=ksc, vsc=vsc)
 
     return _layer_loop(model, x_toks, cfg, read)
 
@@ -799,6 +889,7 @@ def _slot_rows_first(t: torch.Tensor) -> torch.Tensor:
     return t.permute(1, 3, 0, 2, *range(4, t.dim()))
 
 
+@_per_shard
 def _store_rows_wide(cache: Pool, ks: torch.Tensor, vs: torch.Tensor,
                      pos: torch.Tensor) -> None:
     """W-wide ``_store_rows`` per slot (JAX ``:1088``): slot b's row i
@@ -818,6 +909,7 @@ def _store_rows_wide(cache: Pool, ks: torch.Tensor, vs: torch.Tensor,
         buf[:, bidx, :, rows] = _slot_rows_first(vals[name]).to(buf.dtype)
 
 
+@_per_shard
 def _store_rows_paged_wide(pool: Pool, ks: torch.Tensor, vs: torch.Tensor,
                            pos: torch.Tensor, block_tables: torch.Tensor,
                            active: torch.Tensor, total_len: int) -> None:
@@ -917,7 +1009,10 @@ def speculative_verify(model: T.Transformer, cur_tok: torch.Tensor,
 
 def _draft_cache_view(read_cache: Pool, depth: int) -> Pool:
     """The draft's read view: the first ``depth`` layers of the cache,
-    the view or the pool (int8 scales included)."""
+    the view or the pool (int8 scales included), shard by shard."""
+    if isinstance(read_cache, HeadShards):
+        return read_cache.map(
+            lambda part, _dev: _draft_cache_view(part, depth))
     return {key: buf[:depth] for key, buf in read_cache.items()}
 
 
@@ -933,7 +1028,7 @@ def decode_loop_spec(model: T.Transformer, draft_model: T.Transformer,
     is (b, steps*k) with the -1 sentinel at rejected offsets and
     finished slots. Returns (cur_tok, pos, active, ring); the dense cache
     is updated in place."""
-    total_len = cache["k"].shape[3]
+    total_len = _part0(cache)["k"].shape[3]
     ring = torch.empty((cur_tok.shape[0], steps * k), dtype=torch.int32,
                        device=cur_tok.device)
     for t in range(steps):

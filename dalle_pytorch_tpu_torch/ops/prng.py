@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import numbers
 import threading
 from typing import Sequence
 
@@ -75,12 +76,19 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
 def prng_key(seed, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a Python int or an int tensor of
     seeds: ``(..., 2)`` int64 ``[0, seed & 0xffffffff]``."""
+    if isinstance(seed, numbers.Integral):      # a fill, no host copy
+        seed = torch.full((), int(seed), dtype=torch.int64, device=device)
     seed = torch.as_tensor(seed, dtype=torch.int64, device=device) & _MASK
     return torch.stack([torch.zeros_like(seed), seed], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in``, batched: key (..., 2), data (...) ints."""
+    """``jax.random.fold_in``, batched: key (..., 2), data (...) ints. A
+    Python int is filled on the key's device (a kernel argument, no host
+    copy)."""
+    if isinstance(data, numbers.Integral):
+        data = torch.full((), int(data), dtype=torch.int64,
+                          device=key.device)
     data = torch.as_tensor(data, dtype=torch.int64,
                            device=key.device) & _MASK
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
@@ -154,8 +162,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     bits = random_bits(key, shape, width, offset, cols)
     fbits = ((bits >> (width - nmant)) | one).to(view)
     floats = fbits.view(dtype) - 1.0
-    lo = torch.tensor(minval, dtype=dtype, device=key.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
+    lo = torch.full((), minval, dtype=dtype, device=key.device)
+    hi = torch.full((), maxval, dtype=dtype, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -163,7 +171,7 @@ def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int],
               offset: int = 0, cols=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: bool, True with
     probability ``p`` (a float32 uniform below float32 ``p``)."""
-    pf = torch.tensor(p, dtype=torch.float32, device=key.device)
+    pf = torch.full((), p, dtype=torch.float32, device=key.device)
     return uniform(key, shape, offset=offset, cols=cols) < pf
 
 

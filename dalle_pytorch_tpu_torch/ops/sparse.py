@@ -127,9 +127,9 @@ def structural_mask(n: int, block: int, *, num_local_blocks: int = 4,
                     causal: bool = True, device=None) -> torch.Tensor:
     """(n, n) bool: the token layout and, when causal, the token-level
     triangle — every pair the -inf fill leaves out is False."""
-    layout = torch.from_numpy(token_layout_mask(
+    layout = core.device_put(token_layout_mask(
         n, block, num_local_blocks=num_local_blocks,
-        global_blocks=global_blocks, causal=causal)).to(device)
+        global_blocks=global_blocks, causal=causal), device)
     if causal:
         layout = layout & torch.ones((n, n), dtype=torch.bool,
                                      device=device).tril()
@@ -202,11 +202,11 @@ def sparse_attention_windowed(q: torch.Tensor, k: torch.Tensor,
     allow_w = np.broadcast_to(colidx < n, (nw, W, W))
     if causal:
         allow_w = allow_w & (cols_w <= rows_w)[None]
-    s_w = torch.where(torch.from_numpy(np.ascontiguousarray(allow_w))
-                      .to(dev), s_w, float("-inf"))
+    s_w = torch.where(core.device_put(np.ascontiguousarray(allow_w), dev),
+                      s_w, float("-inf"))
 
     # global strip: every row against the G global columns
-    gidx = torch.from_numpy(gcols).to(dev)
+    gidx = core.device_put(gcols, dev)
     kg, vg = k[:, :, gidx], v[:, :, gidx]
     s_g = torch.einsum("bhid,bhgd->bhig", q.float(), kg.float()) * scale
     if mask is not None:
@@ -216,8 +216,7 @@ def sparse_attention_windowed(q: torch.Tensor, k: torch.Tensor,
     allow_g = (gcols[None, :] // W) != (rows // W)
     if causal:
         allow_g = allow_g & (gcols[None, :] <= rows)
-    s_g = torch.where(torch.from_numpy(allow_g).to(dev), s_g,
-                      float("-inf"))
+    s_g = torch.where(core.device_put(allow_g, dev), s_g, float("-inf"))
 
     # one safe softmax over the union of both pieces' columns
     s_cat = torch.cat([s_w, s_g.reshape(b, h, nw, W, G)], dim=-1)

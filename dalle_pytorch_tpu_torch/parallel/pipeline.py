@@ -89,7 +89,7 @@ def _schedule(model, xm, maskm, *, cfg, group: col.Group, rng, train):
         rng = prng.prng_key(0, device=xm.device)     # dead (dropout off)
     rng_stage = prng.fold_in(rng, idx)
     grad = torch.is_grad_enabled()
-    first = torch.tensor(idx == 0, device=xm.device)
+    first = torch.full((), idx == 0, device=xm.device)
 
     def zeros():
         return torch.zeros(xm.shape[1:], dtype=xm.dtype, device=xm.device,
@@ -115,7 +115,7 @@ def _schedule(model, xm, maskm, *, cfg, group: col.Group, rng, train):
     # stage s finishes microbatch m at tick m + s: the last stage's outputs
     # at ticks P-1 .. M+P-2 are the result, in order
     final = torch.cat(outs[P_ - 1:], dim=0)
-    last = torch.tensor(idx == P_ - 1, device=xm.device)
+    last = torch.full((), idx == P_ - 1, device=xm.device)
     final = col.psum(torch.where(last, final, torch.zeros_like(final)),
                      group)
     return final, col.psum(aux, group) / M

@@ -158,12 +158,16 @@ def owner(name: str, spec: Spec, mesh, depth: int) -> Optional[int]:
     return layer_of(name) // (depth // mesh.size(spec.layers))
 
 
-def shard(t: torch.Tensor, name: str, spec: Spec, mesh) -> torch.Tensor:
-    """This rank's piece of the whole ``t`` (every split dimension)."""
+def shard(t: torch.Tensor, name: str, spec: Spec, mesh,
+          index: Optional[int] = None) -> torch.Tensor:
+    """This rank's piece of the whole ``t`` (every split dimension); on a
+    one-axis mesh of devices in one process (``parallel/serve_specs.py``)
+    the piece of the device at ``index``."""
     for i in range(t.dim()):
         a = spec.dim(i)
         if a and mesh.size(a) > 1:
-            t = split(t, i, fused_parts(name), mesh.size(a), mesh.index(a))
+            t = split(t, i, fused_parts(name), mesh.size(a),
+                      mesh.index(a) if index is None else index)
     return t.contiguous()
 
 
@@ -259,13 +263,16 @@ def attach(model: nn.Module, specs: dict, mesh) -> None:
 
 def bind(module: nn.Module, tensors: Dict[str, torch.Tensor],
          prefix: str = "") -> nn.Module:
-    """A view of ``module`` whose parameters are ``tensors`` (by name):
-    a shallow copy of each submodule, attributes kept, the module's own
-    parameters untouched."""
+    """A view of ``module`` whose parameters are ``tensors`` (by name),
+    and whose buffers are too where ``tensors`` names them (an int8
+    layer's weights are buffers): a shallow copy of each submodule,
+    attributes kept, the module's own tensors untouched."""
     out = copy.copy(module)
     out.__dict__ = dict(module.__dict__)
     out._parameters = {n: None if v is None else tensors[prefix + n]
                        for n, v in module._parameters.items()}
+    out._buffers = {n: tensors.get(prefix + n, v)
+                    for n, v in module._buffers.items()}
     out._modules = {n: bind(m, tensors, f"{prefix}{n}.")
                     for n, m in module._modules.items()}
     return out

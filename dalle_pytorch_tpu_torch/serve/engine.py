@@ -96,7 +96,13 @@ For the replica set (``serve/replica.py``, JAX ``:637-654``,
   refusal is a typed ``MigrationError``, the source or target left as
   it was.
 
-Left for later slices (see ROADMAP.md): meshes.
+A serving mesh (``serve/mesh_engine.py``) is this engine with its
+weights and KV store split over a list of devices. Its seams here:
+``_place_model`` (the model as the engine computes with it),
+``_place_kv`` (the KV store, made by a factory per device), the shard
+loops of the prompt scatter and the page copies, and ``_mesh_stats``
+(the /stats mesh block). The single engine's versions hold everything
+on ``device`` and report ``devices_per_replica: 1``.
 """
 
 from __future__ import annotations
@@ -288,13 +294,8 @@ class Engine:
                  clock: Callable[[], float] = time.perf_counter,
                  device=None):
         self.device = resolve_device(device)
-        param = model.text_emb.weight
-        if param.device.type != self.device.type or (
-                self.device.index is not None
-                and param.device.index != self.device.index):
-            raise ValueError(f"model lies on {param.device}, engine on "
-                             f"{self.device}")
-        self.model = model
+        dtype = model.text_emb.weight.dtype
+        self.model = model = self._place_model(model)
         self.cfg = cfg = model.cfg
         tcfg = cfg.transformer
         self.queue = queue
@@ -367,7 +368,6 @@ class Engine:
                     f"text_seq_len ({cfg.text_seq_len}), got {buckets}")
         self.buckets = buckets
         self.total_len = cfg.seq_len
-        dtype = param.dtype
         self.prefix = None
         if self.kv == "paged":
             self.page_size = int(page_size) or min(16, self.total_len)
@@ -389,9 +389,10 @@ class Engine:
                     f"sequence ({self.slot_max_pages} pages of "
                     f"{self.page_size} rows + the reserved trash page): "
                     f"eviction needs one request to run alone")
-            self.pool = KV.init_page_pool(
-                tcfg, self.num_pages, self.page_size, dtype=dtype,
-                quantized=self.quantize_cache, device=self.device)
+            self.pool = self._place_kv(
+                lambda c, dev: KV.init_page_pool(
+                    c, self.num_pages, self.page_size, dtype=dtype,
+                    quantized=self.quantize_cache, device=dev))
             self.alloc = KV.PageAllocator(self.num_pages)
             self._bt_host = np.zeros((S_, self.slot_max_pages), np.int32)
             self.block_tables = self._put(self._bt_host)
@@ -415,7 +416,8 @@ class Engine:
                 depth=tcfg.depth, heads=tcfg.heads, dim_head=tcfg.dim_head,
                 total_len=self.total_len, page_size=self.page_size,
                 prompt_len=min(self.buckets),
-                itemsize=self.pool["k"].element_size(),
+                itemsize=(torch.int8 if self.quantize_cache
+                          else dtype).itemsize,
                 impl=self.paged_attn, quantized=self.quantize_cache,
                 sparse_reads=sr,
                 sparse_pattern=tcfg.sparse_pattern if sr else None,
@@ -428,9 +430,10 @@ class Engine:
                     "sharing lives in the page pool's block-table "
                     "indirection; the dense slot cache has neither "
                     "pages nor refcounts")
-            self.pool = decode_ops.init_cache(
-                tcfg, S_, self.total_len, dtype=dtype,
-                quantized=self.quantize_cache, device=self.device)
+            self.pool = self._place_kv(
+                lambda c, dev: decode_ops.init_cache(
+                    c, S_, self.total_len, dtype=dtype,
+                    quantized=self.quantize_cache, device=dev))
         self.evicted = 0
         self.model_version = str(model_version)
         self.weights_version = str(weights_version)
@@ -504,6 +507,30 @@ class Engine:
         self.compiling = False
         self.on_fenced_orphan: Optional[Callable] = None
         self._admitting: List[S.RequestHandle] = []
+
+    # -- placement (the serving mesh overrides these) -------------------------
+
+    def _place_model(self, model: D.DALLE) -> D.DALLE:
+        """The model the engine computes with: ``model`` itself, which
+        must lie on the engine's device."""
+        param = model.text_emb.weight
+        if param.device.type != self.device.type or (
+                self.device.index is not None
+                and param.device.index != self.device.index):
+            raise ValueError(f"model lies on {param.device}, engine on "
+                             f"{self.device}")
+        return model
+
+    def _place_kv(self, make: Callable) -> decode_ops.Pool:
+        """The KV store: ``make(transformer config, device)`` on the
+        engine's device."""
+        return make(self.cfg.transformer, self.device)
+
+    def _mesh_stats(self) -> dict:
+        """The /stats mesh block: one device holds the whole store."""
+        return {"devices_per_replica": 1,
+                "mesh_shape": None,
+                "kv_hbm_bytes_per_shard": self.kv_hbm_bytes()}
 
     # -- host <-> card -------------------------------------------------------
 
@@ -660,15 +687,20 @@ class Engine:
             page_rows = self._put(page_rows).long()
             off = (torch.arange(bucket, device=self.device)
                    % self.page_size)[None, :]
-            for name, buf in self.pool.items():
-                # advanced indices at dims 1 and 3 are apart, so the value
-                # is (n, bucket, depth, heads[, dh])
-                buf[:, page_rows, :, off] = kv[name][:, :n].movedim(1, 0) \
-                    .movedim(3, 1).to(buf.dtype)
+            for part, hs, dev in decode_ops.pool_shards(self.pool):
+                pr, of = page_rows.to(dev), off.to(dev)
+                for name, buf in part.items():
+                    # advanced indices at dims 1 and 3 are apart, so the
+                    # value is (n, bucket, depth, heads[, dh])
+                    buf[:, pr, :, of] = kv[name][:, :n, hs].movedim(1, 0) \
+                        .movedim(3, 1).to(dev, buf.dtype)
         else:
             slots = self._put(np.asarray([p.slot for p in rows], np.int64))
-            for name, buf in self.pool.items():
-                buf[:, slots, :, :bucket] = kv[name][:, :n].to(buf.dtype)
+            for part, hs, dev in decode_ops.pool_shards(self.pool):
+                sl = slots.to(dev)
+                for name, buf in part.items():
+                    buf[:, sl, :, :bucket] = kv[name][:, :n, hs].to(
+                        dev, buf.dtype)
         g = torch.arange(G, device=self.device)
         h_last = h[g, self._put(a["lens"]).long() - 1]
         self._first_tokens(h_last, rows, a)
@@ -1790,7 +1822,9 @@ class Engine:
     def kv_hbm_bytes(self) -> int:
         """Resident bytes of the KV store on the card: the page pool, or
         the dense slot cache."""
-        return sum(t.numel() * t.element_size() for t in self.pool.values())
+        return sum(t.numel() * t.element_size()
+                   for part, _, _ in decode_ops.pool_shards(self.pool)
+                   for t in part.values())
 
     def stats(self) -> dict:
         elapsed = None if self._t_start is None \
@@ -1843,6 +1877,7 @@ class Engine:
         return {
             "kv": self.kv,
             "kv_hbm_bytes": self.kv_hbm_bytes(),
+            **self._mesh_stats(),
             **paged,
             **spec,
             "queue_depth": self.queue.depth(),

@@ -296,7 +296,8 @@ class ChildEngineClient:
                  transport: str = "pipe",
                  listener: Optional[T.WorkerListener] = None,
                  worker_cmd: Optional[str] = None,
-                 num_pages: int = 0):
+                 num_pages: int = 0,
+                 devices_per_replica: int = 1):
         from dalle_pytorch_tpu_torch.serve import worker as worker_mod
 
         self._launch_pc = time.perf_counter()
@@ -323,6 +324,8 @@ class ChildEngineClient:
             "ckpt_quantize": str(ckpt_quantize),
             "engine_kwargs": dict(engine_kwargs),
             "device": str(device),
+            # above 1 the child builds a mesh over its own host's devices
+            "devices_per_replica": int(devices_per_replica),
             "heartbeat_interval_s": float(heartbeat_interval_s),
             "rss_limit_mb": int(rss_limit_mb),
             "faults": fault_plan,

@@ -24,6 +24,8 @@ from typing import Dict, List
 
 import torch
 
+from dalle_pytorch_tpu_torch.ops.decode import HeadShards
+
 TRASH_PAGE = 0
 
 # the paged-attention kernel walks pages in tiles of 8 or more rows
@@ -123,14 +125,25 @@ def snapshot_page(pool: Dict[str, torch.Tensor],
     """A copy of ONE physical page across every layer (and the int8
     pool's scale pages): ``{k: (depth, heads, page_size[, dh])}`` — the
     prefix cache's copy-on-write source, taken before the inserting
-    request's decode can write past its prompt into the same page."""
+    request's decode can write past its prompt into the same page. A
+    mesh's ``HeadShards`` pool gives the page whole: its shards' heads
+    joined on the first device."""
+    if isinstance(pool, HeadShards):
+        per = [snapshot_page(part, page) for part in pool.parts]
+        return {k: pool.join([snap[k] for snap in per]) for k in per[0]}
     return {k: buf[:, page].clone() for k, buf in pool.items()}
 
 
 def restore_page(pool: Dict[str, torch.Tensor], page: int,
                  snap: Dict[str, torch.Tensor]) -> None:
     """Write a ``snapshot_page`` copy into physical page ``page``, in
-    place — the copy-on-write FORK of a warm hit's boundary page."""
+    place — the copy-on-write FORK of a warm hit's boundary page (each
+    shard of a ``HeadShards`` pool its heads, on its device)."""
+    if isinstance(pool, HeadShards):
+        for part, hs, dev in pool.slices():
+            restore_page(part, page, {k: v[:, hs].to(dev)
+                                      for k, v in snap.items()})
+        return
     for k, buf in pool.items():
         buf[:, page] = snap[k]
 

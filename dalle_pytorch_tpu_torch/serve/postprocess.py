@@ -54,6 +54,9 @@ class PostProcessor:
                  max_pending: int = 64, on_fulfill=None):
         self.vae = vae
         self.dalle = dalle
+        # the tied codebook on the VAE's device (a mesh's DALLE may lie
+        # on the CPU)
+        self.codebook = dalle.image_emb.weight.to(vae.codebook.weight.device)
         self.clip = clip
         self.metrics = metrics
         self.on_fulfill = on_fulfill
@@ -113,7 +116,7 @@ class PostProcessor:
     def decode(self, tokens) -> torch.Tensor:
         """Image tokens -> one (H, W, C) image on the card."""
         img = vae_mod.decode(self.vae, self._img_batch(tokens),
-                             codebook=self.dalle.image_emb.weight)
+                             codebook=self.codebook)
         return img[0]
 
     @torch.no_grad()

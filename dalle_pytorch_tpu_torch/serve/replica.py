@@ -79,9 +79,13 @@ contexts. K4's library is built (and loaded) in the parent before the
 first replica thread or child exists, so no two build it at once and a
 child only loads it.
 
-Left for later slices: replicas spanning a device mesh (ROADMAP.md queue
-1 item 3): ``devices_per_replica`` above 1 raises ``TypeError`` naming
-the item.
+A replica may span a device mesh (``devices_per_replica`` m above 1): a
+thread replica i is a ``serve/mesh_engine.py::MeshEngine`` over
+``serve_specs.slice_devices(visible_devices(), i, m)``; a process parent
+computes no slice, and each child builds its mesh over its own host's
+devices (``serve/worker.py``). The supervision, failover and replay are
+unchanged. ``paged_attn='kernel'`` with m above 1 is refused at
+construction with the typed ``MeshPagedAttnError``.
 """
 
 from __future__ import annotations
@@ -96,6 +100,7 @@ import torch
 
 from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.obs import flight as oflight
+from dalle_pytorch_tpu_torch.parallel import serve_specs as SS
 from dalle_pytorch_tpu_torch.resilience import faults
 from dalle_pytorch_tpu_torch.resilience import retry as rretry
 from dalle_pytorch_tpu_torch.serve import ipc
@@ -104,6 +109,8 @@ from dalle_pytorch_tpu_torch.serve import scheduler as S
 from dalle_pytorch_tpu_torch.serve import transport as T
 from dalle_pytorch_tpu_torch.serve.engine import COUNTERS as _COUNTERS
 from dalle_pytorch_tpu_torch.serve.engine import Engine, MigrationError
+from dalle_pytorch_tpu_torch.serve.mesh_engine import (MeshEngine,
+                                                       MeshPagedAttnError)
 
 # replica lifecycle states (``replica_states()`` / ``stats()``)
 RUNNING = "running"
@@ -118,8 +125,6 @@ TRANSPORT_MODES = ("pipe", "socket")
 # fresh admissions only when no prefill-capable one has room. A
 # preference, never a capability
 REPLICA_ROLES = ("prefill", "decode", "both")
-
-MESH_ITEM = "ROADMAP.md queue 1 item 3c (the serving mesh)"
 
 
 class ScaleError(RuntimeError):
@@ -177,7 +182,7 @@ class _Replica:
         self.queue: Optional[S.RequestQueue] = None
         self.thread: Optional[threading.Thread] = None
         self.stop: Optional[threading.Event] = None
-        self.device = device         # a child's device
+        self.device = device         # a child's device, or a mesh slice
         self.attempt = 0             # consecutive bring-up failures
         self.bringups = 0            # lifetime bring-up calls
         self.next_bringup_t = 0.0
@@ -273,10 +278,14 @@ class ReplicaSet:
                 "checkpoint a worker loads locally — they need "
                 "worker_ckpt (without it, pass a model you transformed "
                 "yourself)")
-        if int(devices_per_replica) != 1:
-            raise TypeError(f"devices_per_replica={devices_per_replica}: "
-                            f"not in the PyTorch port yet — a replica "
-                            f"is one engine on one card; see {MESH_ITEM}")
+        self.devices_per_replica = int(devices_per_replica)
+        if self.devices_per_replica < 1:
+            raise ValueError(f"devices_per_replica must be >= 1, got "
+                             f"{devices_per_replica}")
+        if self.devices_per_replica > 1 and paged_attn == "kernel":
+            # at construction, not once per circuit-broken bring-up
+            raise MeshPagedAttnError(S.structured_event(
+                "serve_mesh_paged_attn_unsupported", paged_attn="kernel"))
         self.roles = tuple(str(x) for x in roles) if roles else ()
         for role in self.roles:
             if role not in REPLICA_ROLES:
@@ -425,8 +434,14 @@ class ReplicaSet:
             for r in self.replicas:
                 self._bring_up(r, now)
 
-    def _device_for(self, i: int) -> str:
-        """Replica ``i``'s device (a child's spec carries it as text)."""
+    def _device_for(self, i: int):
+        """Replica ``i``'s device (a child's spec carries it as text), or
+        a thread mesh replica's slice of the visible devices. A process
+        parent computes no slice: each child takes its own from its own
+        host's devices, and the parent may hold none."""
+        if self.devices_per_replica > 1 and self.isolation != "process":
+            return SS.slice_devices(SS.visible_devices(), i,
+                                    self.devices_per_replica)
         if self._placed:
             return f"cuda:{i % torch.cuda.device_count()}"
         return str(self.device)
@@ -553,16 +568,25 @@ class ReplicaSet:
                     transport=self.transport,
                     listener=self.listener,
                     worker_cmd=self.worker_cmd,
-                    num_pages=self._num_pages)
+                    num_pages=self._num_pages,
+                    devices_per_replica=self.devices_per_replica)
             else:
                 queue = S.RequestQueue(
                     max_depth=4 * self._engine_kwargs["num_slots"] + 8,
                     clock=self.clock)
-                engine = Engine(model, queue, complete=self._on_complete,
-                                clock=self.clock, device=self.device,
-                                weights_version=r.version,
-                                model_version=r.version,
-                                **self._engine_kwargs)
+                versioned = dict(weights_version=r.version,
+                                 model_version=r.version)
+                if self.devices_per_replica > 1:
+                    # replica = mesh slice: the same engine surface
+                    engine = MeshEngine(model, queue,
+                                        complete=self._on_complete,
+                                        clock=self.clock, devices=r.device,
+                                        **versioned, **self._engine_kwargs)
+                else:
+                    engine = Engine(model, queue,
+                                    complete=self._on_complete,
+                                    clock=self.clock, device=self.device,
+                                    **versioned, **self._engine_kwargs)
                 engine.on_preview = self.on_preview
         except Exception as e:  # noqa: BLE001 — circuit-break, don't die
             r.attempt += 1
@@ -595,7 +619,10 @@ class ReplicaSet:
         r.stop = threading.Event()
         r.state = RUNNING
         self._event("serve_replica_up", replica=r.index,
-                    bringups=r.bringups, device=str(self.device))
+                    bringups=r.bringups,
+                    device=(str(self.device)
+                            if self.devices_per_replica == 1
+                            else [str(d) for d in r.device]))
         if self._started:
             self._spawn(r)
         return True
@@ -1777,17 +1804,24 @@ class ReplicaSet:
             if r.engine is not None and self.isolation == "process")
 
     def _kv_bytes_per_shard(self) -> int:
-        """A live thread engine's pool bytes; a child's pool lives in
-        another interpreter: modelled from the config."""
+        """The KV bytes one device of a replica holds: a live thread
+        engine's; a child's pool lives in another interpreter, so it is
+        modelled from the config (divided over a mesh slice where its
+        heads split, ``serve_specs.kv_heads_shard``)."""
         if self.isolation == "thread":
             live = [r for r in self.replicas if r.engine is not None]
-            return live[0].engine.kv_hbm_bytes() if live else 0
+            return live[0].engine._mesh_stats()[
+                "kv_hbm_bytes_per_shard"] if live else 0
         kw = self._engine_kwargs
-        return KV.modeled_kv_bytes(
+        total = KV.modeled_kv_bytes(
             self.cfg.transformer, kv=self.kv, num_slots=kw["num_slots"],
             total_len=self.cfg.seq_len, page_size=kw["page_size"],
             num_pages=kw["num_pages"], quantized=kw["quantize_cache"],
             dtype_bytes=self.params.text_emb.weight.element_size())
+        m = self.devices_per_replica
+        if m > 1 and SS.kv_heads_shard(self.cfg.transformer.heads, m):
+            return total // m
+        return total
 
     def stats(self) -> dict:
         """JAX's keys, less its compile counters (the port traces
@@ -1825,8 +1859,9 @@ class ReplicaSet:
         out = {
             "replicas": self.n_replicas,
             "isolation": self.isolation,
-            "devices_per_replica": 1,
-            "mesh_shape": None,
+            "devices_per_replica": self.devices_per_replica,
+            "mesh_shape": ({SS.SERVE_AXIS: self.devices_per_replica}
+                           if self.devices_per_replica > 1 else None),
             "kv_hbm_bytes_per_shard": self._kv_bytes_per_shard(),
             "alive_replicas": sum(1 for r in self.replicas
                                   if r.state == RUNNING

@@ -40,8 +40,11 @@ out of this process's sinks and profiler), and ``/healthz`` and
 ``/stats`` carry each child's pid, RSS, restarts, last exit, transport
 block and K4 launches. A cell of the gateway (``serve/gateway.py``) is
 an ``InferenceServer``: the gateway submits with its own replayable
-``sinks``. A device mesh (ROADMAP.md queue 1 item 3) is not taken here:
-its keyword raises ``TypeError`` naming the item.
+``sinks``. ``mesh_devices`` m above 1 serves from a
+``serve/mesh_engine.py::MeshEngine`` over the first m visible devices
+(``serve_specs.visible_devices``), or makes each replica of a set a
+mesh slice; ``/healthz`` and ``/stats`` carry ``devices_per_replica``
+and ``mesh_shape``.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ import torch
 
 from dalle_pytorch_tpu_torch.device import resolve_device
 from dalle_pytorch_tpu_torch.obs import registry as obs_registry
+from dalle_pytorch_tpu_torch.parallel import serve_specs as SS
 from dalle_pytorch_tpu_torch.serve import auth
 from dalle_pytorch_tpu_torch.serve import engine as engine_mod
 from dalle_pytorch_tpu_torch.serve import fanout
@@ -64,11 +68,8 @@ from dalle_pytorch_tpu_torch.serve import replica as replica_mod
 from dalle_pytorch_tpu_torch.serve import scheduler as S
 from dalle_pytorch_tpu_torch.serve import stream as stream_mod
 from dalle_pytorch_tpu_torch.serve.engine import ProfileError
+from dalle_pytorch_tpu_torch.serve.mesh_engine import MeshEngine
 from dalle_pytorch_tpu_torch.serve.replica import ScaleError, UpgradeAborted
-
-# the JAX server's keywords of the slices still to come, and the
-# ROADMAP.md item each waits for
-UNPORTED = {"mesh_devices": replica_mod.MESH_ITEM}
 
 
 class InferenceServer:
@@ -76,7 +77,9 @@ class InferenceServer:
     thread) or a replica set, and a postprocess worker.
 
     ``model`` and ``vae`` are the port's ``DALLE`` and ``VAEDecoder`` on
-    the server's device (the card unless ``device`` says otherwise);
+    the server's device (the card unless ``device`` says otherwise; with
+    ``mesh_devices`` above 1 the DALLE may lie on the CPU, from where
+    each mesh places its shards);
     ``clip`` scores every image. ``replicas``, ``replica_roles``,
     ``max_replicas``, ``autoscale`` (a ``serve.autoscale
     .AutoscalePolicy``), ``heartbeat_s`` and ``load_weights`` (a
@@ -84,8 +87,9 @@ class InferenceServer:
     upgrades) shape the replica set, and ``isolation``,
     ``child_rss_limit_mb``, ``transport``, ``worker_endpoint``,
     ``worker_cmd``, ``attach_token``, ``worker_ckpt``,
-    ``worker_use_ema`` and ``worker_quantize`` its process replicas; the
-    other keywords are the JAX server's."""
+    ``worker_use_ema`` and ``worker_quantize`` its process replicas;
+    ``mesh_devices`` the devices each engine spans; the other keywords
+    are the JAX server's."""
 
     def __init__(self, model, vae, *, clip=None,
                  num_slots: int = 4, queue_depth: int = 64,
@@ -104,6 +108,7 @@ class InferenceServer:
                  stream_max_events: int = 256,
                  default_cfg_scale: float = 0.0,
                  replicas: int = 1,
+                 mesh_devices: int = 1,
                  replica_roles=None,
                  weights_version: str = "0",
                  max_replicas: int = 0,
@@ -125,13 +130,7 @@ class InferenceServer:
                  profile_dir: Optional[str] = None,
                  encode: Optional[Callable[[str], List[int]]] = None,
                  init_deadline_s: float = 0.0, init_retries: int = 3,
-                 device=None, **unported):
-        for name in sorted(unported):
-            if name not in UNPORTED:
-                raise TypeError(f"InferenceServer() got an unexpected "
-                                f"keyword argument {name!r}")
-            raise TypeError(f"{name}: not in the PyTorch port yet; see "
-                            f"{UNPORTED[name]}")
+                 device=None):
         self.device = resolve_device(device)
         cfg = self.cfg = model.cfg
         self.metrics = metrics
@@ -149,6 +148,10 @@ class InferenceServer:
         self.admin_token = admin_token or secrets.token_hex(16)
         self.weights_version = str(weights_version)
         self.replicas = int(replicas)
+        self.mesh_devices = int(mesh_devices)
+        if self.mesh_devices < 1:
+            raise ValueError(f"mesh_devices must be >= 1, got "
+                             f"{mesh_devices}")
         self.autoscale_policy = autoscale
         self.autoscaler = None
         self.load_weights = load_weights
@@ -209,7 +212,7 @@ class InferenceServer:
                 worker_quantize=worker_quantize,
                 weights_version=self.weights_version,
                 max_replicas=self.max_replicas, roles=self.replica_roles,
-                **engine_kw)
+                devices_per_replica=self.mesh_devices, **engine_kw)
             if self.autoscale_policy is not None:
                 from dalle_pytorch_tpu_torch.serve.autoscale import \
                     Autoscaler
@@ -217,6 +220,16 @@ class InferenceServer:
                 self.autoscaler = Autoscaler(
                     self.engine, self.autoscale_policy,
                     metrics=self.engine.metrics)
+        elif self.mesh_devices > 1:
+            # one engine over a device mesh: the single-engine thread
+            # loop drives it unchanged
+            engine_kw.pop("device")
+            self.engine = MeshEngine(
+                model, self.queue,
+                devices=SS.slice_devices(SS.visible_devices(), 0,
+                                         self.mesh_devices),
+                weights_version=self.weights_version,
+                model_version=self.weights_version, **engine_kw)
         else:
             self.engine = engine_mod.Engine(
                 model, self.queue, weights_version=self.weights_version,
@@ -483,8 +496,10 @@ class InferenceServer:
         """The /healthz body; ``ok`` False (HTTP 503) once the engine
         thread has died, or every replica of a set is down. A set adds
         each replica's state and heartbeat age."""
-        out = {"ok": self.engine_alive(), "devices_per_replica": 1,
-               "mesh_shape": None}
+        out = {"ok": self.engine_alive(),
+               "devices_per_replica": self.mesh_devices,
+               "mesh_shape": ({SS.SERVE_AXIS: self.mesh_devices}
+                              if self.mesh_devices > 1 else None)}
         if self._is_set:
             out["replicas"] = self.engine.replica_states()
             out["weights_version"] = self.engine.weights_version

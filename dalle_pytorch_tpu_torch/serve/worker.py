@@ -4,7 +4,9 @@ Port of ``dalle_pytorch_tpu/serve/worker.py``. ``worker_main`` is what a
 spawned process replica runs: resolve its device (the card unless the
 spec says otherwise; a spec that asks for the card where none is visible
 dies with a CRASH frame and exit 1, it never serves from the CPU), build
-a private ``Engine`` on its own copy of the weights, then loop: drain the
+a private ``Engine`` on its own copy of the weights (a ``MeshEngine``
+over its slice of its own host's devices where the spec's
+``devices_per_replica`` is above 1), then loop: drain the
 parent's frames, step the engine, ship completed results and heartbeat
 snapshots back. The worker holds no authority: every request it runs
 also lives in the parent's shadow, so it may die at any instruction and
@@ -259,18 +261,30 @@ def _run(spec: dict, conn, sender: _FrameSender, rx_seq: int) -> None:
     # READY: where a child's seconds to READY go
     boot = {"imported": _IMPORTED_T, "run": time.perf_counter()}
     device = worker_device(spec)
+    mesh_m = int(spec.get("devices_per_replica") or 1)
+    # a mesh places its shards from a host copy: no card holds it whole
+    model_device = "cpu" if mesh_m > 1 else device
     if spec.get("model") is not None:
-        model = ipc.model_from_host(spec["model"], device)
+        model = ipc.model_from_host(spec["model"], model_device)
     else:
-        model = load_ckpt_params(spec, device)
+        model = load_ckpt_params(spec, model_device)
     boot["model"] = time.perf_counter()
     kw = spec["engine_kwargs"]
     if device.type == "cuda" and kw.get("paged_attn") == "kernel":
         from dalle_pytorch_tpu_torch.ops import paged_attention as PA
         PA.load_kernel()        # the parent built it: this only loads
     queue = S.RequestQueue(max_depth=1 << 30, clock=time.perf_counter)
-    engine = Engine(model, queue, complete=None, clock=time.perf_counter,
-                    device=device, **kw)
+    if mesh_m > 1:
+        # replica = mesh slice, in the child: its own host's devices
+        from dalle_pytorch_tpu_torch.parallel import serve_specs as SS
+        from dalle_pytorch_tpu_torch.serve.mesh_engine import MeshEngine
+        engine = MeshEngine(model, queue, complete=None,
+                            clock=time.perf_counter,
+                            devices=SS.slice_devices(SS.visible_devices(),
+                                                     index, mesh_m), **kw)
+    else:
+        engine = Engine(model, queue, complete=None,
+                        clock=time.perf_counter, device=device, **kw)
     boot["engine"] = time.perf_counter()
 
     open_handles: Dict[int, S.RequestHandle] = {}

@@ -11,9 +11,10 @@ meta keys, the vocabulary, the grids), and the JAX package validates
 and reads every checkpoint the port wrote; ``gen_dalle`` of both
 packages on one JAX-written checkpoint and seed: the tokens
 ``generate_images`` samples are identical and the grid PNGs agree
-within 1 of 255; each multi-process flag alone in one process, and
-``--guard_transfers``, ends in ``SystemExit`` as JAX's setup refuses it;
-a JPEG in the image folder fails with the typed error.
+within 1 of 255; each multi-process flag alone in one process ends in
+``SystemExit`` as JAX's setup refuses it, while ``--guard_transfers``
+trains (``tests/test_torch_guard.py`` runs it in every trainer); a JPEG
+in the image folder fails with the typed error.
 """
 
 import json
@@ -249,7 +250,8 @@ def _unreachable():
 # each multi-process flag alone in one process ends as JAX's setup does:
 # the mesh flags against the world size, the join flags without their
 # partners, a join with a deadline against a coordinator nobody runs
-# (rank 1 of 2), and the transfer guard, still not in the port
+# (rank 1 of 2); and the transfer guard (ROADMAP.md queue 1 item 4),
+# refused until the port took it, which now trains
 @pytest.mark.parametrize("flag, match", [
     (["--dp", "2"], "world size"),
     (["--coordinator", "localhost:1234"], "process count"),
@@ -265,6 +267,11 @@ def _unreachable():
     (["--guard_transfers"], "queue 1 item 4")])
 def test_unported_flags_end_in_system_exit(data, tmp_path, flag, match):
     from dalle_pytorch_tpu_torch.cli import train_dalle
+    if flag == ["--guard_transfers"]:
+        from dalle_pytorch_tpu_torch.cli import train_vae
+        train_vae.main(vae_argv(data, tmp_path) + flag, device="cpu")
+        assert (tmp_path / "models" / "vae-1").is_dir()
+        return
     flag = [_unreachable() if f == "UNREACHABLE" else f for f in flag]
     with pytest.raises(SystemExit, match=match):
         train_dalle.main(dalle_argv(data, tmp_path, flag), device="cpu")

@@ -2,9 +2,9 @@
 package's: ``build_parser()`` has JAX's flags, choices and defaults; the
 process-isolation flags reach a process replica set, the gateway flags
 (``--gateway``, ``--cells``, ``--tenants``) build a gateway over thread
-cells that answers a request over HTTP, ``--mesh_devices`` (a slice
-still to come) ends in ``SystemExit`` naming its ROADMAP queue item,
-while the replica-set flags (``--replicas``,
+cells that answers a request over HTTP, ``--mesh_devices 2`` builds a
+server on a ``MeshEngine`` over two CPU devices (``serve_specs
+.visible_devices`` substituted), while the replica-set flags (``--replicas``,
 ``--replica_roles``, ``--max_replicas``, ``--min_replicas``,
 ``--autoscale``) serve, a set
 answering JAX's tokens and ``POST /admin/scale``'s upgrade loading a
@@ -62,10 +62,9 @@ def test_parser_matches_jax():
         vars(JCLI.build_parser().parse_args([]))
 
 
-# the fleet flags and the ROADMAP.md queue 1 item each belongs to: items
-# 2b (process isolation) and 2c (the gateway) are in the port, item 3
-# (a mesh) still refused
-FLEET_ARGV = [(["--mesh_devices", "2"], "item 3"),
+# the fleet flags and the ROADMAP.md queue 1 item each belonged to:
+# items 2b (process isolation), 2c (the gateway) and 3c (the mesh)
+FLEET_ARGV = [(["--mesh_devices", "2"], "item 3c"),
               (["--isolation", "process"], "item 2b"),
               (["--transport", "socket"], "item 2b"),
               (["--worker_ckpt", "x"], "item 2b"),
@@ -113,8 +112,9 @@ def test_fleet_flags_exit_naming_queue_items_5_and_6(argv, item, models_dir,
     ROADMAP.md queue 1 item 2b reaches a process ``ReplicaSet`` (served
     from the toy checkpoint on the CPU, closed at once); a flag of item
     2c builds a ``Gateway`` over thread cells, which answers one request
-    over HTTP (with the tenant's key under ``--tenants``); a flag of a
-    slice still to come ends in ``SystemExit`` naming its item."""
+    over HTTP (with the tenant's key under ``--tenants``); item 3c's
+    ``--mesh_devices 2`` serves from a ``MeshEngine`` over two devices
+    (two CPU devices here) whose health names the mesh."""
     if item == "item 2c":
         extra, shows = GATEWAY_FLAGS[argv[0]]
         if argv[0] == "--tenants":
@@ -162,10 +162,26 @@ def test_fleet_flags_exit_naming_queue_items_5_and_6(argv, item, models_dir,
         finally:
             server.close(timeout=5.0)
         return
-    with pytest.raises(SystemExit) as ei:
-        CLI.main(argv, device="cpu")
-    msg = str(ei.value)
-    assert argv[0] in msg and f"ROADMAP.md queue 1 {item}" in msg
+    from dalle_pytorch_tpu_torch.parallel import serve_specs as SS
+    from dalle_pytorch_tpu_torch.serve.mesh_engine import MeshEngine
+    monkeypatch.setattr(SS, "visible_devices",
+                        lambda: [torch.device("cpu")] * 2)
+    got = []
+    monkeypatch.setattr(SRV, "serve_http",
+                        lambda server, host, port: got.append(server))
+    CLI.main(["--name", "toy", "--models_dir", str(models_dir),
+              "--num_slots", "2", "--init_deadline_s", "0"] + argv,
+             device="cpu")
+    (server,) = got
+    try:
+        assert isinstance(server.engine, MeshEngine)
+        assert server.engine.kv_sharded
+        assert server.health()["mesh_shape"] == {"mp": 2}
+        res = server.generate([3, 4], seed=1, timeout=120)
+        assert res.status == "ok"
+        assert len(res.tokens) == TCFG.image_seq_len
+    finally:
+        server.close()
 
 
 def test_autoscale_without_headroom_exits_as_jax_does(models_dir):

@@ -11,7 +11,8 @@ every depth; BMP at 24 and 32 bits, bottom-up and top-down. Then a folder
 of mixed JPEG, PNG and BMP through ``load_image_batch`` and
 ``ImageFolderDataset`` equal to JAX's, a folder of JPEGs through
 ``train_vae``, the committed JPEG fixture the chip smoke decodes, and the
-typed refusals: WebP, and a JPEG where libjpeg or g++ is missing.
+typed refusals: a file of no format the port reads, and a JPEG where
+libjpeg or g++ is missing. WebP: ``tests/test_torch_webp.py``.
 """
 
 import io
@@ -232,8 +233,8 @@ def test_committed_fixture_equals_its_stored_pil_decode():
 
 
 def test_webp_and_unknown_files_are_refused_typed():
-    with pytest.raises(TIMG.UnsupportedImage, match="WebP"):
-        TIMG.decode_image(b"RIFF\x00\x00\x00\x00WEBPVP8 " + b"\x00" * 16)
+    """(Named for its first version: WebP now decodes,
+    ``tests/test_torch_webp.py``.)"""
     with pytest.raises(TIMG.UnsupportedImage, match="not a PNG, JPEG"):
         TIMG.decode_image(b"GIF89a" + b"\x00" * 20)
 

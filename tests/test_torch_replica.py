@@ -14,7 +14,7 @@ driver with the same fault plan the set's counters and its
 and the embedded flight-ring tails left out). The hang tests run the
 threaded loops with a short ``replica_hang_s``. Also: the process
 options reach a process set (``test_torch_process_*.py`` hold it to
-JAX), a mesh is refused naming its ROADMAP.md item, the replicas up at
+JAX), a mesh builds a set of mesh slices, the replicas up at
 construction get the preview hook, the split-counter buffer of K4
 survives threads racing to grow it, and the chip smoke's sync schedule
 gives, on the CPU, the counters and events it holds the card to
@@ -850,14 +850,16 @@ PROCESS_OPTIONS = {
     ({"worker_cmd": ""}, "item 2b"),
     ({"attach_token": "t"}, "item 2b"),
     ({"child_rss_limit_mb": 64}, "item 2b"),
-    ({"devices_per_replica": 2}, "item 3")],
+    ({"devices_per_replica": 2}, "item 3c")],
     ids=lambda x: next(iter(x)) if isinstance(x, dict) else "")
 def test_unported_options_are_refused_naming_their_item(bundle, kw, item,
                                                          monkeypatch):
     """(Named for its first version, when process isolation was still to
     come.) The options of ROADMAP.md queue 1 item 2b now reach a process
-    set, built on the CPU and closed at once; a mesh (item 3) is still
-    refused naming its item, and an unknown keyword is a TypeError."""
+    set, built on the CPU and closed at once; a mesh (item 3c) builds a
+    thread set of mesh slices (over four CPU devices: ``serve_specs
+    .visible_devices`` substituted), and an unknown keyword is a
+    TypeError."""
     if item == "item 2b":
         monkeypatch.setenv("OMP_NUM_THREADS", "1")
         extra, shows = PROCESS_OPTIONS[next(iter(kw))]
@@ -868,8 +870,17 @@ def test_unported_options_are_refused_naming_their_item(bundle, kw, item,
         finally:
             rs.close(timeout=5.0)
     else:
-        with pytest.raises(TypeError, match=f"ROADMAP.md queue 1 {item}"):
-            port_set(bundle, replicas=2, **kw)
+        from dalle_pytorch_tpu_torch.parallel import serve_specs as SS
+        from dalle_pytorch_tpu_torch.serve.mesh_engine import MeshEngine
+        monkeypatch.setattr(SS, "visible_devices",
+                            lambda: [torch.device("cpu")] * 4)
+        rs, _ = port_set(bundle, replicas=2, num_slots=2, **kw)
+        try:
+            assert all(isinstance(r.engine, MeshEngine)
+                       and len(r.device) == 2 for r in rs.replicas)
+            assert rs.stats()["mesh_shape"] == {"mp": 2}
+        finally:
+            rs.close(timeout=5.0)
     with pytest.raises(TypeError, match="unexpected keyword"):
         port_set(bundle, replicas=2, num_slot=2)
 

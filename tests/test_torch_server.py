@@ -91,7 +91,7 @@ ERRORS = [
     ("profile_no_dir", "POST", "/admin/profile", {}, "tok"),
 ]
 # the keywords of process isolation and its transport (ROADMAP.md queue
-# 1 item 2b, in the port) and of a device mesh (item 3, still to come)
+# 1 item 2b) and of a device mesh (item 3c)
 FLEET_KW = {"mesh_devices": 2,
             "isolation": "process", "child_rss_limit_mb": 100,
             "transport": "socket", "worker_endpoint": "127.0.0.1:1",
@@ -104,11 +104,10 @@ SET_KW = {"replicas": 2, "replica_roles": ("prefill", "decode"),
 # the timing fields of a result body
 TIMES = ("queued_s", "decode_s", "total_s")
 # stats() keys of the JAX single engine the port has no counterpart of:
-# its compile counters (the port traces nothing), its mesh fields, the
-# pages-in-use p95 and page-deferral count of its paged admission
+# its compile counters (the port traces nothing), the pages-in-use p95
+# and page-deferral count of its paged admission
 JAX_ONLY_STATS = {"decode_compiles", "prefill_compiles",
-                  "devices_per_replica", "mesh_shape",
-                  "kv_hbm_bytes_per_shard", "pages_in_use_p95", "deferred"}
+                  "pages_in_use_p95", "deferred"}
 # /metrics: both servers register the replica set's migration histogram
 # on a single engine too (headers only), so no family is JAX's alone;
 # two HELP texts name the port's own mechanism (torch.profiler, the emit
@@ -464,17 +463,18 @@ def test_close_cancels_queued_and_in_slot_requests_like_jax(weights):
 
 
 @pytest.mark.parametrize("kw", sorted(FLEET_KW))
-def test_fleet_keywords_raise_type_error(weights, kw):
-    """(Named for its first version.) A mesh is still refused naming its
-    ROADMAP.md item; each process-isolation keyword alone is taken as
+def test_fleet_keywords_raise_type_error(weights, kw, monkeypatch):
+    """(Named for its first version.) Each keyword alone is taken as
     JAX's server takes it: the same ``ValueError`` (process isolation
     needs replicas, a transport needs process isolation, ...) or a
-    single-engine server that holds it. ``test_torch_process_replica.py``
-    serves from process replicas."""
-    if kw == "mesh_devices":
-        with pytest.raises(TypeError, match="ROADMAP.md queue 1 item 3"):
-            port_server(weights, **{kw: FLEET_KW[kw]})
-        return
+    single-engine server that holds it, a mesh's over two devices (two
+    CPU devices: ``serve_specs.visible_devices`` substituted, as JAX's
+    conftest forces host devices). ``test_torch_process_replica.py``
+    serves from process replicas, ``test_torch_mesh_engine.py`` from a
+    mesh."""
+    from dalle_pytorch_tpu_torch.parallel import serve_specs as SS
+    monkeypatch.setattr(SS, "visible_devices",
+                        lambda: [torch.device("cpu")] * 2)
     got = {}
     for name, make in (("jax", jax_server), ("port", port_server)):
         try:
@@ -484,7 +484,8 @@ def test_fleet_keywords_raise_type_error(weights, kw):
             got[name] = ("ValueError", str(e))
             continue
         try:
-            got[name] = (srv._is_set, srv.isolation)
+            got[name] = (srv._is_set, srv.isolation,
+                         srv.health()["mesh_shape"])
         finally:
             srv.close()
     assert got["port"] == got["jax"]
