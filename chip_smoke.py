@@ -4505,6 +4505,11 @@ MESH_TIMED_GRID = 64
 # the runs over cuda:0 and the CPU: 17 text steps and 32 image tokens
 MESH_SPLIT_GRID = 32
 MESH_DEVICES = 2
+# the most a decode step may join onto devices[0] at the north width,
+# depth 12, 8 slots, two shards: the other shard's layers (100,835,328
+# bytes in f32) and a few hundred KB of attention outputs, logits'
+# columns and table rows
+MESH_NORTH_JOIN_LIMITS = {"float32": 102_000_000, "bfloat16": 51_000_000}
 
 
 def mesh_requests(cfg, grid: int, n: int = 4, seed: int = 40,
@@ -4553,11 +4558,37 @@ def mesh_run(model, reqs, devices=None, **kw) -> dict:
             "decode_steps": engine.decode_steps, "stats": engine.stats()}
 
 
+def mesh_join_per_step(model, devices, reqs, **kw) -> dict:
+    """A ``MeshEngine`` over ``devices`` with ``reqs`` admitted and
+    decoding: the bytes its join counted a decode step over one chunk
+    with no admission, beside ``step_join_bytes()`` and its terms."""
+    from dalle_pytorch_tpu_torch.serve import scheduler as S
+    from dalle_pytorch_tpu_torch.serve.mesh_engine import MeshEngine
+    queue = S.RequestQueue(max_prompt_len=model.cfg.text_seq_len)
+    engine = MeshEngine(model, queue, devices=devices, **kw)
+    for r in reqs:
+        queue.submit(r)
+    engine.step_once()
+    check(engine.active_slots() > 0 and queue.depth() == 0,
+          "mesh: the join count's requests were not all admitted")
+    moved, steps = engine.stats()["join_bytes"], engine.decode_steps
+    engine.step_once()
+    torch.cuda.synchronize()
+    per_step = ((engine.stats()["join_bytes"] - moved)
+                / (engine.decode_steps - steps))
+    return {"per_step": per_step, "reckoned": engine.step_join_bytes(),
+            "terms": engine.step_join_terms(),
+            "shard1_kv_on_cpu": all(
+                b.is_cpu for b in engine.pool.parts[1].values())}
+
+
 def head_split_bits() -> dict:
     """Whether a product over half the heads gives the whole product's
     bits, at the decode read's shape (8 slots, 8 heads, one query, 1,280
-    cached rows, dh 64, float32) on the card and on the CPU: the reason
-    the mesh joins K/V before attending (``ops/decode.py``)."""
+    cached rows, dh 64, float32) on the card and on the CPU: the mesh
+    attends per head shard (``ops/decode.py::_read_layer``), so its
+    attention outputs may differ from the single engine's by this much,
+    and its tokens are held to the single engine's."""
     g = torch.Generator().manual_seed(2)
     q = torch.randn(8, 8, 1, 64, generator=g)
     k = torch.randn(8, 8, 1280, 64, generator=g)
@@ -4584,14 +4615,20 @@ def phase_mesh() -> dict:
     * the paged pool's bytes a shard equal the reckoning from its shapes
       (pages x 16 rows x 4 heads x 64 x K and V x depth x 4 bytes), half
       the pool's; the weights a shard lie between half and all; the
-      bytes a decode step joins (``step_join_bytes``), here and at the
-      north depth (meshes built on the CPU: shapes only);
+      bytes a decode step joins: counted over a chunk with no admission
+      and equal to ``step_join_bytes()`` (dense, paged, int8, here and
+      over ``[cuda:0, cpu]``), and reckoned at the north depth (meshes
+      built on the CPU: shapes only), within the limits below and with
+      an attention term that does not grow with ``total_len`` (each
+      shard attends over its own heads; only the attention outputs, the
+      logits' columns and the looked-up table rows are joined);
     * a mesh built from a host copy adds to the card the whole model
       once (its held tensors) over what the single engine adds, in the
       bytes asked of the allocator (within 1 MiB);
     * float32 over ``[cuda:0, cpu]`` (two distinct devices: every
-      cross-device fetch, join and write): dense, paged and int8 tokens
-      equal the single engine's, at ``MESH_SPLIT_GRID``;
+      cross-device fetch, join and write; shard 1 attends on the CPU
+      over its K/V there): dense, paged and int8 tokens equal the single
+      engine's, at ``MESH_SPLIT_GRID``, ms a step recorded;
     * ``paged_attn='kernel'`` raises ``MeshPagedAttnError``;
     * ``InferenceServer(mesh_devices=2)`` in bfloat16 with CLIP answers
       2 requests; ``/healthz`` carries ``mesh_shape {"mp": 2}``; its
@@ -4684,6 +4721,30 @@ def phase_mesh() -> dict:
                                        for n, r in runs.items()},
                       join_bytes={n: r["stats"]["join_bytes"]
                                   for n, r in runs.items()})
+        lap("surface")
+
+        # the bytes a decode step joins, counted on the card against the
+        # reckoning: over two entries of cuda:0 and over cuda:0 and the
+        # CPU (where shard 1's K/V stay on the CPU)
+        card_cpu = [torch.device("cuda", 0), torch.device("cpu")]
+        join_reqs = mesh_requests(cfg, MESH_TIMED_GRID, seed=80)
+        counted = {}
+        for where, devs in (("card", devices), ("card_cpu", card_cpu)):
+            for name, kw in (("dense", dict(kv="dense")),
+                             ("paged", dict(kv="paged")),
+                             ("int8", dict(kv="paged",
+                                           quantize_cache=True))):
+                got = mesh_join_per_step(model32, devs, join_reqs, **kw,
+                                         **MESH_ENGINE)
+                counted[f"{where}_{name}"] = got
+                check(got["per_step"] == got["reckoned"],
+                      f"mesh: {where} {name} joined {got['per_step']} "
+                      f"bytes a step, reckoned {got['reckoned']}")
+                check(where == "card" or got["shard1_kv_on_cpu"],
+                      f"mesh: {name} over cuda:0 and the CPU left shard "
+                      f"1's K/V off the CPU")
+        record["join_bytes_per_step"] = counted
+        lap("join_count")
 
         # the card holds what the mesh placed and nothing more: built from
         # a host copy of the model, the mesh adds the held tensors (the
@@ -4722,7 +4783,6 @@ def phase_mesh() -> dict:
         # the card when it runs, its rows and heads joined from the CPU,
         # every K/V write and page copy reaching it; float32 tokens equal
         # the single engine's
-        card_cpu = [torch.device("cuda", 0), torch.device("cpu")]
         split_reqs = mesh_requests(cfg, MESH_SPLIT_GRID, seed=70, short=17)
         cross = {}
         for name, kw in (("dense", dict(kv="dense")),
@@ -4752,7 +4812,7 @@ def phase_mesh() -> dict:
 
         # the bytes a decode step joins onto devices[0] at the north
         # depth, reckoned from the shapes of meshes built on the CPU
-        north = {}
+        north, terms = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             big = D.DALLE(north_cfg(), device="cpu", dtype=dtype)
             for name, kw in (("dense", dict(kv="dense")),
@@ -4761,10 +4821,24 @@ def phase_mesh() -> dict:
                                            quantize_cache=True))):
                 eng = MeshEngine(big, S.RequestQueue(),
                                  devices=["cpu", "cpu"], **kw, **MESH_ENGINE)
-                north[f"{name}_{str(dtype)[6:]}"] = eng.step_join_bytes()
+                key = f"{name}_{str(dtype)[6:]}"
+                north[key] = eng.step_join_bytes()
+                terms[key] = eng.step_join_terms()
                 del eng
             del big
         record["north_step_join_bytes"] = north
+        record["north_step_join_terms"] = terms
+        tcfg_n = north_cfg().transformer
+        for key, t in terms.items():
+            limit = MESH_NORTH_JOIN_LIMITS[key.split("_")[1]]
+            act = 4 if key.endswith("float32") else 2
+            check(north[key] <= limit, f"mesh: {north[key]} bytes joined "
+                                       f"a step at the north width ({key}), "
+                                       f"over {limit}")
+            check(t["attention"] == tcfg_n.depth * MESH_ENGINE["num_slots"]
+                  * (tcfg_n.heads // MESH_DEVICES) * tcfg_n.dim_head * act,
+                  f"mesh: the north attention term {t} is not one row a "
+                  f"slot a layer")
         lap("north_join_reckoning")
         try:
             MeshEngine(model32, S.RequestQueue(), devices=devices,

@@ -56,15 +56,18 @@ decodes the network it was trained as (JAX ``:300-318``, ``:492-510``,
 
 A serving mesh (``serve/mesh_engine.py``) holds its KV store as
 ``HeadShards``: each device a slice of the heads of every buffer. The
-writers split their rows by heads and write each shard on its own device;
-the reads (``_layer``) take each shard's slice of a layer, through
-``paged_view`` or the sparse reads' trimmed view where the pool is
-paged, and join them along the heads onto the first device, where the
-single engine's attention runs on them unchanged. JAX's mesh attends per
-head shard and gathers the attention output instead (its ``out_sync``);
-the port does not, because a head-sliced score product is not bit-equal
-to the whole one in PyTorch (the batched matmul picks its kernel by the
-batch count), and the mesh's tokens must equal the single engine's.
+writers split their rows by heads and write each shard on its own
+device. Each gather read (``_read_layer``: the dense step, the paged and
+sparse reads through each shard's own ``paged_view`` or trimmed view,
+the wide read of speculation) runs once a shard, on the shard's device,
+over that shard's heads of q, k and v and its own buffers, with the
+single engine's read function; the shards' attention outputs are joined
+along the heads on the first device before the out projection (JAX's
+``out_sync``). No cached K/V row leaves its device. A product over a
+slice of the heads may round in the last bit where the whole one does
+not (a batched matmul can pick its kernel by the batch count), so the
+mesh is held to the single engine by its tokens, as the port is held
+to JAX.
 
 Where JAX returns a new cache or pool from each step, the port updates
 the dense cache and the page pool IN PLACE (``index_put_``): they are the
@@ -99,8 +102,8 @@ class HeadShards:
     shard s's pool (every buffer its slice of dim 2, the heads) on
     ``devices[s]``, which may repeat one device. Shard 0's device is the
     one the engine computes on; ``join(pieces)`` joins the shards'
-    pieces of one layer's tensor (heads at dim 1) there, in shard order
-    (data movement only)."""
+    pieces of one tensor (heads at dim 1) there, in shard order (data
+    movement only): a read's attention outputs, a page's copy."""
 
     def __init__(self, parts, devices, join: Callable):
         if len(parts) != len(devices) or not parts:
@@ -140,20 +143,29 @@ def _part0(cache) -> Pool:
     return cache.parts[0] if isinstance(cache, HeadShards) else cache
 
 
-def _layer(cache, i: int, view: Optional[Callable] = None):
-    """Layer i's ``[k, v, k_scale, v_scale]`` of ``cache`` (None for a
-    scale a float store has not), each through ``view(buf)`` when given;
-    a ``HeadShards`` store's are joined whole on the first device."""
-    def one(part):
-        return [None if n not in part
-                else part[n][i] if view is None else view(part[n][i])
-                for n in _KV_NAMES]
+def _layer(pool: Pool, i: int, view: Optional[Callable] = None):
+    """Layer i's ``[k, v, k_scale, v_scale]`` of one pool (None for a
+    scale a float store has not), each through ``view(buf)`` when
+    given."""
+    return [None if n not in pool
+            else pool[n][i] if view is None else view(pool[n][i])
+            for n in _KV_NAMES]
 
+
+def _read_layer(cache, i: int, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, read: Callable,
+                view: Optional[Callable] = None) -> torch.Tensor:
+    """Layer i's attention output (b, heads, W, dh) on q's device:
+    ``read(q, k, v, ck, cv, ksc, vsc)`` over the layer's ``_layer`` of
+    the store. A ``HeadShards`` store runs it once a shard, on the
+    shard's device, over that shard's heads of q, k and v (moved there)
+    and its own buffers, and joins the outputs along the heads on the
+    first device (JAX's ``out_sync``)."""
     if not isinstance(cache, HeadShards):
-        return one(cache)
-    per = [one(part) for part in cache.parts]
-    return [None if col[0] is None else cache.join(col)
-            for col in zip(*per)]
+        return read(q, k, v, *_layer(cache, i, view))
+    return cache.join([read(q[:, hs].to(dev), k[:, hs].to(dev),
+                            v[:, hs].to(dev), *_layer(part, i, view))
+                       for part, hs, dev in cache.slices()])
 
 
 def _per_shard(store: Callable) -> Callable:
@@ -505,13 +517,16 @@ def _decode_step_math(model: T.Transformer, x_tok: torch.Tensor,
     dense_allowed, sparse_allowed = _step_masks(cfg, pos, key_mask)
 
     def read(i, q, k, v):
-        ck, cv, ksc, vsc = _layer(cache, i)
         allowed = sparse_allowed if cfg.sparse_pattern[i] else dense_allowed
         if attn_impl == "kernel":
+            ck, cv, ksc, vsc = _layer(cache, i)
             return _kernel_read(q, k, v, ck, cv, block_tables, pos, allowed,
                                 scale=cfg.scale, ksc=ksc, vsc=vsc)
-        return _gather_read(q, k, v, ck, cv, allowed, scale=cfg.scale,
-                            ksc=ksc, vsc=vsc)
+        return _read_layer(
+            cache, i, q, k, v,
+            lambda q, k, v, ck, cv, ksc, vsc: _gather_read(
+                q, k, v, ck, cv, allowed.to(q.device), scale=cfg.scale,
+                ksc=ksc, vsc=vsc))
 
     return _run_layers(model, x_tok, cfg, read)
 
@@ -599,10 +614,12 @@ def _decode_step_math_sparse_reads(
         tables, rows_out, allowed = (
             (vis_bt, width * ps, vis_allowed) if is_sparse
             else (bt, total_len, dense_allowed))
-        ck, cv, ksc, vsc = _layer(
-            pool, i, lambda buf: layer_view(buf, tables, rows_out))
-        return _gather_read(q, k, v, ck, cv, allowed, scale=cfg.scale,
-                            ksc=ksc, vsc=vsc)
+        return _read_layer(
+            pool, i, q, k, v,
+            lambda q, k, v, ck, cv, ksc, vsc: _gather_read(
+                q, k, v, ck, cv, allowed.to(q.device), scale=cfg.scale,
+                ksc=ksc, vsc=vsc),
+            view=lambda buf: layer_view(buf, tables, rows_out))
 
     return _run_layers(model, x_tok, cfg, read)
 
@@ -872,13 +889,16 @@ def _decode_chunk_math(model: T.Transformer, x_toks: torch.Tensor,
     def read(i, q, k, v):
         a_c, a_i = (sparse_c, sparse_i) if cfg.sparse_pattern[i] \
             else (dense_c, dense_i)
-        ck, cv, ksc, vsc = _layer(cache, i)
         if attn_impl == "kernel":
+            ck, cv, ksc, vsc = _layer(cache, i)
             return _kernel_read_wide(q, k, v, ck, cv, block_tables, pos,
                                      a_c, a_i, scale=cfg.scale, ksc=ksc,
                                      vsc=vsc)
-        return _gather_read_wide(q, k, v, ck, cv, a_c, a_i, scale=cfg.scale,
-                                 ksc=ksc, vsc=vsc)
+        return _read_layer(
+            cache, i, q, k, v,
+            lambda q, k, v, ck, cv, ksc, vsc: _gather_read_wide(
+                q, k, v, ck, cv, a_c.to(q.device), a_i.to(q.device),
+                scale=cfg.scale, ksc=ksc, vsc=vsc))
 
     return _layer_loop(model, x_toks, cfg, read)
 

@@ -78,8 +78,11 @@ For the replica set (``serve/replica.py``, JAX ``:637-654``,
 
 * ``last_heartbeat`` is stamped at every step and every harvest (the
   harvest's wait is where a wedged card stalls the thread), and
-  ``compiling`` marks the first dispatch, which may load the kernels
-  (``compile_pending`` asks ahead of it, for a process worker);
+  ``compiling`` marks the first calls (a bucket's first prefill, the
+  first warm admission, the first dispatch), which may load the kernels
+  and warm the libraries up, each followed by a heartbeat
+  (``compile_pending`` asks ahead of the first step, for a process
+  worker);
 * ``fence()`` is the one-way switch the supervisor flips before it
   reclaims this engine's requests: a fenced engine fulfils, completes
   and requeues nothing, and every admission bail-out hands the handles
@@ -99,14 +102,17 @@ For the replica set (``serve/replica.py``, JAX ``:637-654``,
 A serving mesh (``serve/mesh_engine.py``) is this engine with its
 weights and KV store split over a list of devices. Its seams here:
 ``_place_model`` (the model as the engine computes with it),
-``_place_kv`` (the KV store, made by a factory per device), the shard
-loops of the prompt scatter and the page copies, and ``_mesh_stats``
-(the /stats mesh block). The single engine's versions hold everything
-on ``device`` and report ``devices_per_replica: 1``.
+``_place_kv`` (the KV store, made by a factory per device), ``_logits``
+(the head's product, which a mesh runs shard by shard on the head's
+split columns), the shard loops of the prompt scatter and the page
+copies, and ``_mesh_stats`` (the /stats mesh block). The single
+engine's versions hold everything on ``device`` and report
+``devices_per_replica: 1``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -526,6 +532,11 @@ class Engine:
         engine's device."""
         return make(self.cfg.transformer, self.device)
 
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The head's logits (rows, total_tokens) of hidden rows h, on
+        the engine's device: every sampler's input."""
+        return D.to_logits(self.model, h)
+
     def _mesh_stats(self) -> dict:
         """The /stats mesh block: one device holds the whole store."""
         return {"devices_per_replica": 1,
@@ -578,7 +589,7 @@ class Engine:
             return D.decode_token_embed(model, tok, p)
 
         def sample_fn(h, pred_pos):
-            return D.sample_per_slot(D.to_logits(model, h), pred_pos,
+            return D.sample_per_slot(self._logits(h), pred_pos,
                                      self.rng, self.temp, self.topk_k,
                                      self.top_p, cfg, partner=partner,
                                      cfg_scale=scale, uncond=uncond)
@@ -648,7 +659,7 @@ class Engine:
         lens = put(a["lens"])
         keys = prng.prng_key(put(a["seeds"]))
         temps, topk, top_p = put(a["temps"]), put(a["topk"]), put(a["top_p"])
-        first = D.sample_per_slot(D.to_logits(self.model, h_last), lens,
+        first = D.sample_per_slot(self._logits(h_last), lens,
                                   keys, temps, topk, top_p, self.cfg,
                                   partner=put(a["partner"]),
                                   cfg_scale=put(a["cfgs"]),
@@ -980,7 +991,8 @@ class Engine:
                     self._bt_host[p.slot, :len(p.grants)] = p.grants
             timed = self.time_admissions and bucket in self._prefilled
             t_pre = self.clock()
-            h_last = self._prefill_group(bucket, group)
+            with self._first_call(bucket not in self._prefilled):
+                h_last = self._prefill_group(bucket, group)
             self._prefilled.add(bucket)
             if timed:
                 self._sync()
@@ -1088,8 +1100,9 @@ class Engine:
         h_rows += [h_rows[0]] * (self.num_slots - len(h_rows))
         timed = self.time_admissions and self.warm_admits > 0
         t_warm = self.clock()
-        self._first_tokens(torch.stack(h_rows), warm,
-                           self._admit_arrays(warm))
+        with self._first_call(self.warm_admits == 0):
+            self._first_tokens(torch.stack(h_rows), warm,
+                               self._admit_arrays(warm))
         if timed:
             self._sync()
             self.warm_admit_times.append(self.clock() - t_warm)
@@ -1638,13 +1651,8 @@ class Engine:
 
             dispatched = self.active_slots() > 0
             if dispatched:
-                # the first dispatch may load (or build) the kernels:
-                # the supervisor must not read that as a hang
-                self.compiling = self.decode_steps == 0
-                try:
+                with self._first_call(self.decode_steps == 0):
                     self._dispatch_chunk(now)
-                finally:
-                    self.compiling = False
                 did = True
             # double buffer: keep one chunk in flight while dispatching,
             # drain the pipeline once nothing new is dispatched
@@ -1661,6 +1669,24 @@ class Engine:
                 self._last_log = self.decode_steps
                 self.metrics.event(event="serve", **self.stats())
             return did
+
+    @contextlib.contextmanager
+    def _first_call(self, first: bool):
+        """Around a first call of the engine's programs (a bucket's first
+        prefill, the first warm admission, the first dispatch), which
+        may load or build kernels and warm the libraries up, seconds on
+        a cold card: ``compiling`` while it runs, so the supervisor does
+        not read its silence as a hang, and a heartbeat when it ends (JAX
+        ``:1414-1433``, ``:1600-1656``, ``:1889-1911``)."""
+        if not first:
+            yield
+            return
+        self.compiling = True
+        try:
+            yield
+        finally:
+            self.compiling = False
+            self.last_heartbeat = self.clock()
 
     def idle(self) -> bool:
         return self.queue.depth() == 0 and self.active_slots() == 0 \

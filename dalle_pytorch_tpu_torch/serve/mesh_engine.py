@@ -12,33 +12,41 @@ its worker and the server drive it unchanged:
 * layer i's weights are stored on the device that owns its block of the
   depth and fetched onto ``devices[0]`` when the layer runs (a copy only
   where the two devices differ: JAX's per-layer all-gather);
-* the embedding tables' rows and the logits head's output columns are
-  split, and each of their tensors is read whole on ``devices[0]`` (a
-  concatenation) before the lookup or the product;
 * the KV store is split along its heads (``ops.decode.HeadShards``):
-  each shard's rows are written on its device, and a layer's read joins
-  the shards' views on ``devices[0]``;
+  each shard's rows are written on its device, and each shard attends
+  over its own heads there; only the attention outputs are joined on
+  ``devices[0]``, before the out projection (JAX's ``out_sync``);
+* the logits head's output columns are split: each shard computes its
+  columns' logits on its device, and they are joined along the
+  vocabulary on ``devices[0]`` before sampling (JAX's ``_logits_sync``,
+  the engine's ``_logits`` seam);
+* the embedding tables' rows are split: each shard looks up the ids on
+  its device (its own rows, the others' clamped into range), and the
+  looked-up rows are gathered on ``devices[0]``, each id's from its
+  owner (data movement: a whole-table lookup's values);
 * the per-slot state, the block tables and the emit ring stay on
-  ``devices[0]``, where all the arithmetic runs, and so does every
-  tensor the rules leave whole.
+  ``devices[0]``, where the rest of the arithmetic runs, and so does
+  every tensor the rules leave whole.
 
 The engine keeps only what it placed (``held``), never the caller's
 tensors. The serving entry points (``cli/serve.py``, the worker) load a
 mesh's model on the CPU, so that no card holds it whole.
 
-What the joins move grows with the KV store: each decode step brings
-every layer's K/V of the other shards' heads (each slot's ``total_len``
-rows), their layers and their pieces of the tables onto ``devices[0]``
-(``step_join_bytes`` reckons it, ``stats()['join_bytes']`` counts it),
-where JAX's mesh moves only the attention output.
+What reaches ``devices[0]`` in a decode step is the other shards'
+layers, their heads' attention outputs (each slot's W fresh rows, not
+its ``total_len`` cached ones), their logits' columns and their
+looked-up embedding rows (``step_join_bytes`` reckons it,
+``stats()['join_bytes']`` counts it). No cached K/V row leaves its
+device in a decode step; a page's copy (the prefix cache's snapshot)
+is joined whole at admission.
 
-Every sync is data movement, and the arithmetic is the single engine's
-on the same shapes, so the tokens are BYTE-IDENTICAL to the single
-engine's (``tests/test_torch_mesh_engine.py``). JAX shards the attention
-and the head's product and gathers their outputs; in PyTorch a product
-over a slice of the heads or of the columns may take another kernel
-than the whole one (a batched matmul picks its kernel by the batch
-count) and round differently, so the port gathers the inputs instead.
+Every sync is data movement, and no summed dimension is ever split, so
+the mesh computes the single engine's arithmetic; a product over a
+slice of the heads or of the columns may still round in the last bit
+where the whole one does not (PyTorch's batched matmul can pick its
+kernel by the batch count), so the mesh is held to the single engine by
+its tokens (``tests/test_torch_mesh_engine.py``), as the port is held
+to JAX.
 
 ``devices`` may repeat a device: ``["cpu", "cpu"]`` in the CPU tests,
 ``[cuda:0, cuda:0]`` on a host with one card. ``per_shard_bytes`` counts
@@ -58,6 +66,7 @@ import torch
 from torch import nn
 
 from dalle_pytorch_tpu_torch.models import dalle as D
+from dalle_pytorch_tpu_torch.ops import core
 from dalle_pytorch_tpu_torch.ops import decode as decode_ops
 from dalle_pytorch_tpu_torch.parallel import placement as PL
 from dalle_pytorch_tpu_torch.parallel import serve_specs as SS
@@ -82,21 +91,21 @@ class MeshPagedAttnError(ValueError):
 
 
 class _Join:
-    """The pieces of one tensor joined whole on the compute device, in
-    shard order (``serve_specs.replicate_sync``): data movement only.
+    """The pieces of one tensor joined on the compute device, in shard
+    order (``serve_specs.replicate_sync``): data movement only.
     ``moved`` counts the bytes of the pieces past shard 0's, which a
     mesh of distinct cards carries between them (counted also where two
     shards share a card and nothing moves)."""
 
     def __init__(self, mesh: SS.ServeMesh):
-        self.syncs = {d: SS.replicate_sync(mesh, dim=d) for d in (0, 1)}
+        self.mesh = mesh
         self.home = mesh.devices[0]
         self.moved = 0
 
     def __call__(self, pieces: Sequence[torch.Tensor],
                  dim: int = 0) -> torch.Tensor:
         self.moved += SS.tensor_bytes(pieces[1:])
-        return self.syncs[dim](pieces)
+        return SS.replicate_sync(self.mesh, dim)(pieces)
 
 
 class _Stack(nn.Module):
@@ -134,25 +143,53 @@ class _Stack(nn.Module):
         return (self[i] for i in range(len(self)))
 
 
-class _Split(nn.Module):
-    """A module whose tensors are split (an embedding's rows, the logits
-    head's output columns): each of them (``weight``, or int8 ``w_q``
-    and ``scale``; ``bias``) reads whole on the compute device, its
-    pieces joined in order, so the model computes the single engine's
-    lookup or product."""
+class _Rows:
+    """An embedding table split by rows, as the models read it:
+    ``rows[ids]`` looks the ids up on every shard's device (each shard
+    its own rows, the ids it does not hold clamped into range) and
+    gathers on the compute device the row of each id from the shard
+    that holds it: the values of a lookup in the whole table."""
 
-    def __init__(self, pieces: Dict[str, Optional[List[torch.Tensor]]],
-                 join: _Join):
+    def __init__(self, pieces: List[torch.Tensor], join: _Join):
+        self.pieces = pieces
+        self.join = join
+
+    def __getitem__(self, ids: torch.Tensor) -> torch.Tensor:
+        n = self.pieces[0].shape[0]
+        flat = ids.reshape(-1)
+        looked = self.join([piece[(flat.to(piece.device) - s * n)
+                                  .clamp(0, piece.shape[0] - 1)]
+                            for s, piece in enumerate(self.pieces)])
+        owner = (flat // n).clamp(max=len(self.pieces) - 1)
+        rows = looked.view(len(self.pieces), flat.shape[0], -1)[
+            owner, torch.arange(flat.shape[0], device=flat.device)]
+        return rows.view(*ids.shape, -1)
+
+
+class _SplitRows(nn.Module):
+    """An embedding whose table's rows are split: ``weight`` is the
+    table as ``_Rows`` reads it."""
+
+    def __init__(self, pieces: List[torch.Tensor], join: _Join):
         super().__init__()
-        self.__dict__["_pieces"] = pieces
-        self.__dict__["_join"] = join
+        self.__dict__["weight"] = _Rows(pieces, join)
 
-    def __getattr__(self, name: str):
-        pieces = self.__dict__.get("_pieces", {})
-        if name in pieces:
-            ps = pieces[name]
-            return None if ps is None else self.__dict__["_join"](ps)
-        return super().__getattr__(name)
+
+class _SplitColumns(nn.Module):
+    """The logits head with its output columns split: called on x (rows,
+    dim), each shard computes its columns on its device from x moved
+    there (``parts``: each shard's head bound to its pieces), and the
+    columns are joined along the vocabulary on the compute device."""
+
+    def __init__(self, parts: List[nn.Module],
+                 devices: Sequence[torch.device], join: _Join):
+        super().__init__()
+        self.__dict__["parts"] = list(zip(parts, devices))
+        self.__dict__["join"] = join
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.join([core.linear(p, x.to(dev))
+                          for p, dev in self.parts], dim=-1)
 
 
 class MeshEngine(Engine):
@@ -221,17 +258,32 @@ class MeshEngine(Engine):
                for i in range(depth)]
         view.transformer._modules["layers"] = _Stack(
             list(view.transformer.layers), per, owners, join)
-        self._split = {}
+        # the split tables (the serve specs split only these, each of
+        # their tensors along dim 0)
         for child, module in model._modules.items():
-            own = {**module._parameters, **module._buffers}
-            if any(len(where[f"{child}.{n}"]) > 1 for n in own
-                   if own[n] is not None):
-                self._split[child] = {
-                    n: None if v is None
-                    else [held[s][f"{child}.{n}"] for s in where[
-                        f"{child}.{n}"]] for n, v in own.items()}
-                view._modules[child] = _Split(self._split[child], join)
+            names = [f"{child}.{n}" for n, t in {
+                **module._parameters, **module._buffers}.items()
+                if t is not None]
+            if not any(len(where[n]) > 1 for n in names):
+                continue
+            if child == "logits_proj":
+                view._modules[child] = _SplitColumns(
+                    [PL.bind(module, {n[len(child) + 1:]: held[s][n]
+                                      for n in names})
+                     for s in range(self.n_shards)], self.devices, join)
+            else:
+                view._modules[child] = _SplitRows(
+                    [held[s][f"{child}.weight"]
+                     for s in range(self.n_shards)], join)
         return view
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The head's logits on ``devices[0]``: where its columns are
+        split, each shard's computed on its own device."""
+        head = self.model.logits_proj
+        if not isinstance(head, _SplitColumns):
+            return super()._logits(h)
+        return head(core.layernorm(self.model.logits_ln, h))
 
     def _place_kv(self, make):
         """The KV store split along its heads, one part per device, as
@@ -248,25 +300,43 @@ class MeshEngine(Engine):
             [make(part, d) for d in self.devices], self.devices,
             join=lambda pieces: self._join(pieces, dim=1))
 
-    def step_join_bytes(self) -> int:
+    def step_join_terms(self) -> Dict[str, int]:
         """The bytes one decode step (the gather read, no speculation)
         joins onto ``devices[0]`` from the other shards, reckoned from
-        the shapes: the layers they own, their heads of every layer's
-        K/V as the read takes it (each slot's ``total_len`` rows), and
-        their pieces of the split tables and head, each read once a
-        step. ``join_bytes`` in ``stats()`` counts what was joined."""
+        the shapes, by what they are: ``layers``, the layers they own;
+        ``attention``, their heads' attention outputs, one row a slot a
+        layer (no cached row: it does not grow with ``total_len``);
+        ``logits``, their columns of the logits, a row a slot; and
+        ``rows``, their looked-up rows of the two embedding tables, one
+        a slot each."""
         _, tensors, owners, _, _ = self.model.transformer.layers._items
-        layers = sum(SS.tensor_bytes(ts.values())
-                     for ts, own in zip(tensors, owners) if own != 0)
-        split = sum(SS.tensor_bytes(ps[1:]) for pieces in self._split.values()
-                    for ps in pieces.values() if ps is not None)
-        kv = 0
-        for part, _, _ in decode_ops.pool_shards(self.pool)[1:]:
-            for buf in part.values():
-                row = buf.shape[4] if buf.dim() == 5 else 1
-                kv += (buf.shape[0] * self.num_slots * buf.shape[2]
-                       * self.total_len * row * buf.element_size())
-        return layers + split + kv
+        act = self.model.logits_ln.weight.element_size()
+        tcfg = self.cfg.transformer
+        terms = {
+            "layers": sum(SS.tensor_bytes(ts.values())
+                          for ts, own in zip(tensors, owners) if own != 0),
+            "attention": sum(
+                tcfg.depth * self.num_slots * part["k"].shape[2]
+                * tcfg.dim_head * act
+                for part, _, _ in decode_ops.pool_shards(self.pool)[1:]),
+            "logits": 0, "rows": 0}
+        for module in self.model._modules.values():
+            if isinstance(module, _SplitColumns):
+                # every tensor of a shard's head has its columns at dim 0
+                terms["logits"] += sum(
+                    self.num_slots * act
+                    * next(iter(SS.model_tensors(p).values())).shape[0]
+                    for p, _ in module.parts[1:])
+            elif isinstance(module, _SplitRows):
+                terms["rows"] += sum(
+                    self.num_slots * SS.tensor_bytes([piece[0]])
+                    for piece in module.weight.pieces[1:])
+        return terms
+
+    def step_join_bytes(self) -> int:
+        """The sum of ``step_join_terms``: what ``stats()['join_bytes']``
+        counts in a decode step."""
+        return sum(self.step_join_terms().values())
 
     def kv_bytes_per_shard(self) -> int:
         """The KV bytes one device of the mesh holds."""

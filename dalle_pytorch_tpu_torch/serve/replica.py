@@ -1530,6 +1530,9 @@ class ReplicaSet:
     # -- the threaded loops ---------------------------------------------------
 
     def _spawn(self, r: _Replica) -> None:
+        # the hang deadline runs from the loop's start, not from the
+        # engine's construction: ``start`` may build K4 in between
+        r.engine.last_heartbeat = r.engine.clock()
         r.thread = threading.Thread(
             target=self._run_replica, args=(r, r.engine, r.stop),
             daemon=True, name=f"serve-replica-{r.index}")

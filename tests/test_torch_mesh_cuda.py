@@ -2,8 +2,9 @@
 ``cuda:0`` and the CPU, against the single ``Engine`` on the card.
 
 Shard 1 lies on the CPU: its layer is fetched to the card when it runs,
-its rows of the embedding tables and its heads of the KV store are
-joined from the CPU, and every K/V write, prompt scatter and page copy
+its heads attend on the CPU over its K/V there and only their attention
+outputs are joined on the card, as are the rows it looks up in the
+embedding tables, and every K/V write, prompt scatter and page copy
 reaches it. These are the paths a mesh of several cards runs, and a
 mesh over repeated entries of one device never does. Every test here
 is marked ``cuda`` and skips where no CUDA device is visible. This file
@@ -13,7 +14,8 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_mesh_cuda.py
 
 Tolerance: none. Tokens are compared for equality, in float32 (TF32
-off), at the tiny config of ``test_torch_mesh_engine.py``.
+off), at the tiny config of ``test_torch_mesh_engine.py``, and the bytes
+a decode step joins equal their reckoning.
 """
 
 import pytest
@@ -82,3 +84,34 @@ def test_card_and_cpu_mesh_tokens_equal_the_single_engine(cuda, kw):
     assert all(t.is_cuda for t in mesh.held[0].values())
     if kw["kv"] == "paged":
         assert mesh.prefix_hits >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(kv="dense"),
+    dict(kv="paged", page_size=8, num_pages=16),
+    dict(kv="paged", page_size=8, num_pages=16, quantize_cache=True)],
+    ids=["dense", "paged", "int8"])
+def test_card_and_cpu_mesh_joins_no_kv(cuda, kw):
+    """A chunk of decode steps with both slots decoding joins onto the
+    card ``step_join_bytes`` a step: shard 1's layer, its head's
+    attention output (one row a slot a layer), its looked-up table rows;
+    no byte of its K/V, which stays on the CPU."""
+    model = D.dalle_init(CFG, seed=3, device=cuda)
+    queue = S.RequestQueue(max_depth=16)
+    mesh = MeshEngine(model, queue, num_slots=2, chunk_steps=4,
+                      devices=[cuda, torch.device("cpu")], **kw)
+    for r in REQS[:2]:
+        queue.submit(r)
+    mesh.step_once()
+    assert mesh.active_slots() == 2
+    moved, steps = mesh.stats()["join_bytes"], mesh.decode_steps
+    mesh.step_once()
+    torch.cuda.synchronize()
+    per_step = ((mesh.stats()["join_bytes"] - moved)
+                / (mesh.decode_steps - steps))
+    tcfg = CFG.transformer
+    assert all(b.is_cpu for b in mesh.pool.parts[1].values())
+    assert per_step == mesh.step_join_bytes()
+    assert mesh.step_join_terms()["attention"] == \
+        tcfg.depth * 2 * 1 * tcfg.dim_head * 4

@@ -15,10 +15,16 @@ the specs split only dimensions that are not summed over; the server's
 on slice 0. Beside them: speculation, a head whose columns split, a
 slot migrated from a mesh to one engine, an engine that keeps none of
 its caller's tensors, and the bytes a decode step joins against their
-reckoning. A mesh over a card and the CPU (two distinct devices) is
-held to the single engine on the card in ``test_torch_mesh_cuda.py``.
+reckoning, at two sequence lengths; each shard attends over its own
+heads, so no piece of a K/V buffer is joined in a decode step (a spy on
+the join, seven paths). A mesh over a card and the CPU (two distinct
+devices) is held to the single engine on the card in
+``test_torch_mesh_cuda.py``.
 
-Tolerance: none. Tokens are compared for equality, in float32.
+Tolerance: none for tokens, compared for equality in float32. Each
+layer's attention output, mesh against single engine, within 5e-5 of
+its largest magnitude: a product over half the heads may round in the
+last bit where the whole one does not.
 
 The devices are two (or four) entries of the CPU device: PyTorch has no
 forced host device count, so ``serve_specs.visible_devices`` is
@@ -220,8 +226,8 @@ class TestMeshByteIdentity:
 
     def test_split_head_columns_byte_identical(self):
         """A vocabulary the mesh size divides (51 text tokens: 84 in
-        all) splits the head's output columns; its product runs on the
-        columns joined whole."""
+        all) splits the head's output columns; each shard computes its
+        columns' logits, joined along the vocabulary before sampling."""
         cfg = TD.DALLEConfig(vae=TV.VAEConfig(**VK),
                              **{**DK, "num_text_tokens": 51})
         model = TD.DALLE(cfg, device="cpu")
@@ -537,33 +543,206 @@ class TestMeshHoldsOnlyItsShards:
     @pytest.mark.parametrize("kw", [
         dict(kv="dense"),
         dict(kv="paged", page_size=8),
-        dict(kv="paged", page_size=8, quantize_cache=True)],
-        ids=["dense", "paged", "int8"])
+        dict(kv="paged", page_size=8, quantize_cache=True),
+        dict(kv="paged", page_size=8, num_text_tokens=51)],
+        ids=["dense", "paged", "int8", "split_head"])
     def test_join_bytes_per_step_match_the_reckoning(self, bundle, kw):
         """A chunk of decode steps with every slot admitted joins
-        ``step_join_bytes`` a step: shard 1's layer, its heads of both
-        layers' K/V at ``total_len`` rows a slot, and its rows of the two
-        tables (the 83-column head stays whole)."""
+        ``step_join_bytes`` a step: shard 1's layer, its head's
+        attention output of both layers (one row a slot), its rows of
+        the split tables looked up for each slot, and, where the head's
+        columns split (84 tokens; the 83-column head stays whole), its
+        columns of the logits. No cached K/V row is joined."""
+        model = bundle[1]
+        if "num_text_tokens" in kw:
+            model = seeded_model(num_text_tokens=kw.pop("num_text_tokens"))
+        engine, per_step = join_per_step(model, **kw)
+        assert per_step == engine.step_join_bytes()
+        tcfg, cfg = model.cfg.transformer, model.cfg
+        layer1 = SS.tensor_bytes(t for n, t in engine.held[1].items()
+                                 if PL.layer_of(n) == 1)
+        # float32 activations, int8 KV or not
+        attn = tcfg.depth * 2 * 1 * tcfg.dim_head * 4
+        tables = sum(2 * cfg.dim * 4 for n in ("text_emb.weight",
+                                               "image_emb.weight")
+                     if n in engine.held[1])
+        logits = 2 * (cfg.total_tokens // 2) * 4 \
+            if "logits_proj.weight" in engine.held[1] else 0
+        assert tables > 0 and (logits > 0) == (cfg.total_tokens == 84)
+        assert per_step == layer1 + attn + tables + logits
+        assert engine.step_join_terms() == dict(
+            layers=layer1, attention=attn, logits=logits, rows=tables)
+
+    def test_attention_term_does_not_grow_with_total_len(self):
+        """Two sequence lengths (total_len 24 and 40): the attention
+        outputs a step joins are the same bytes, reckoned and counted."""
+        got = {}
+        for text in (8, 24):
+            cfg = TD.DALLEConfig(vae=TV.VAEConfig(**VK),
+                                 **{**DK, "text_seq_len": text})
+            model = TD.dalle_init(cfg, seed=1, device="cpu")
+            engine, per_step = join_per_step(model, kv="paged", page_size=8)
+            assert per_step == engine.step_join_bytes()
+            got[engine.total_len] = engine.step_join_terms()
+        assert sorted(got) == [24, 40]
+        assert got[24]["attention"] == got[40]["attention"] \
+            == DK["depth"] * 2 * 1 * DK["dim_head"] * 4
+        assert got[24] == got[40]
+
+
+def join_per_step(model, **kw):
+    """A mesh over ``CPU2`` with both slots decoding: the bytes its join
+    counted a decode step, over one chunk with no admission."""
+    queue = S.RequestQueue(max_depth=16)
+    engine = MeshEngine(model, queue, num_slots=2, chunk_steps=4,
+                        devices=CPU2, **kw)
+    for r in REQS[:2]:
+        queue.submit(req(S.Request, S.SamplingParams, r))
+    engine.step_once()
+    assert engine.active_slots() == 2
+    moved, steps = engine.stats()["join_bytes"], engine.decode_steps
+    engine.step_once()
+    return engine, ((engine.stats()["join_bytes"] - moved)
+                    / (engine.decode_steps - steps))
+
+
+def seeded_model(**kw):
+    """A tiny DALLE with ``DK`` changed by ``kw`` and seeded weights."""
+    cfg = TD.DALLEConfig(vae=TV.VAEConfig(**VK), **{**DK, **kw})
+    model = TD.DALLE(cfg, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    return model
+
+
+def spy_joins(monkeypatch, engine):
+    """Every piece the mesh's join gathers while a decode chunk runs,
+    with the dim it was joined along."""
+    seen, decoding = [], []
+    sync = SS.replicate_sync
+
+    def spying(mesh, dim):
+        def run(pieces):
+            if decoding:
+                seen.extend((dim, p) for p in pieces)
+            return sync(mesh, dim)(pieces)
+        return run
+
+    monkeypatch.setattr(SS, "replicate_sync", spying)
+    chunk = engine._decode_chunk
+
+    def decode_chunk():
+        decoding.append(True)
+        try:
+            return chunk()
+        finally:
+            decoding.pop()
+
+    engine._decode_chunk = decode_chunk
+    return seen
+
+
+class TestMeshAttendsPerShard:
+    @pytest.mark.parametrize("case", [
+        "dense", "paged", "int8", "sparse_reads", "speculative",
+        "prefix_warm_hit", "mid_stream_join"])
+    def test_no_kv_reaches_the_first_device_in_decode(self, bundle,
+                                                      monkeypatch, case):
+        """What the join gathers in a decode chunk is the shards'
+        attention outputs (slots, 1 head, W <= k fresh rows, dh), their
+        logits' columns and looked-up table rows, never a piece of a K/V
+        buffer (no shared storage, no cached-row shape), and the tokens
+        stay the single engine's."""
         _, model = bundle
+        kw = dict(kv="paged", page_size=8)
+        reqs, width = REQS, 1
+        if case == "dense":
+            kw = dict(kv="dense")
+        elif case == "int8":
+            kw["quantize_cache"] = True
+        elif case == "sparse_reads":
+            model = seeded_model(sparse_attn=(False, True), sparse_block=8)
+            kw["sparse_reads"] = True
+        elif case == "speculative":
+            kw.update(speculative=2, draft_layers=1)
+            width = 2
+        elif case == "prefix_warm_hit":
+            kw["prefix_cache"] = True
+            reqs = PREFIX_REQS
         queue = S.RequestQueue(max_depth=16)
         engine = MeshEngine(model, queue, num_slots=2, chunk_steps=4,
                             devices=CPU2, **kw)
-        for r in REQS[:2]:
-            queue.submit(req(S.Request, S.SamplingParams, r))
-        engine.step_once()
-        assert engine.active_slots() == 2
-        moved, steps = engine.stats()["join_bytes"], engine.decode_steps
-        engine.step_once()
-        per_step = ((engine.stats()["join_bytes"] - moved)
-                    / (engine.decode_steps - steps))
-        assert per_step == engine.step_join_bytes()
-        tcfg = TCFG.transformer
-        layer1 = SS.tensor_bytes(t for n, t in engine.held[1].items()
-                                 if PL.layer_of(n) == 1)
-        row = tcfg.dim_head * (1 if kw.get("quantize_cache") else 4) \
-            + (4 if kw.get("quantize_cache") else 0)
-        kv = tcfg.depth * 2 * 1 * TCFG.seq_len * 2 * row
-        tables = SS.tensor_bytes([engine.held[1]["text_emb.weight"],
-                                  engine.held[1]["image_emb.weight"]])
-        assert per_step == layer1 + kv + tables
+        seen = spy_joins(monkeypatch, engine)
+        if case == "mid_stream_join":
+            handles = [queue.submit(req(S.Request, S.SamplingParams,
+                                        reqs[0]))]
+            engine.step_once()
+            engine.step_once()
+            assert engine.active_slots() == 1
+            handles.append(queue.submit(req(S.Request, S.SamplingParams,
+                                            reqs[2])))
+        else:
+            handles = [queue.submit(req(S.Request, S.SamplingParams, r))
+                       for r in reqs]
+        engine.run_until_idle()
+        got = [[int(t) for t in h.result(timeout=60).tokens]
+               for h in handles]
+        single = port_tokens(model, Engine, K=4, reqs=reqs,
+                             **{k: v for k, v in kw.items()
+                                if k != "prefix_cache"})[1]
+        if case == "mid_stream_join":
+            single = [single[0], single[2]]
+        assert got == single
+        if case == "prefix_warm_hit":
+            assert engine.prefix_hits >= 1
+        cfg = model.cfg
+        buffers = {b.untyped_storage().data_ptr()
+                   for part, _, _ in engine.pool.slices()
+                   for b in part.values()}
+        outputs = 0
+        for dim, piece in seen:
+            assert piece.untyped_storage().data_ptr() not in buffers
+            if dim == 1:
+                b, h, w, dh = piece.shape
+                assert (b, h, dh) == (2, 1, cfg.dim_head) and w <= width, \
+                    f"{case}: a joined piece of shape {tuple(piece.shape)}"
+                outputs += 1
+            else:
+                assert piece.shape in ((2, cfg.dim),
+                                       (2, cfg.total_tokens // 2)), \
+                    f"{case}: a joined piece of shape {tuple(piece.shape)}"
+        assert outputs > 0
 
+    @pytest.mark.parametrize("kw", [
+        dict(kv="dense"),
+        dict(kv="paged", page_size=8),
+        dict(kv="paged", page_size=8, quantize_cache=True)],
+        ids=["dense", "paged", "int8"])
+    def test_attention_outputs_per_layer_within_tolerance(self, bundle,
+                                                          monkeypatch, kw):
+        """Each layer's attention output of every decode step, mesh
+        against single engine in float32: the largest absolute
+        difference is at most 5e-5 times the output's largest
+        magnitude (the shards' products over half the heads may round
+        in the last bit)."""
+        from dalle_pytorch_tpu_torch.ops import decode as DO
+        _, model = bundle
+        outs = []
+        read = DO._read_layer
+
+        def recording(*args, **kwargs):
+            out = read(*args, **kwargs)
+            outs[-1].append(out.clone())
+            return out
+
+        monkeypatch.setattr(DO, "_read_layer", recording)
+        for cls in (Engine, MeshEngine):
+            outs.append([])
+            port_tokens(model, cls, K=4, **kw)
+        single, mesh = outs
+        assert len(single) == len(mesh) > 0
+        for a, b in zip(single, mesh):
+            assert a.shape == b.shape
+            assert (a - b).abs().max() <= 5e-5 * a.abs().max()

@@ -250,6 +250,60 @@ class TestHangFailover:
         finally:
             rs.close()
 
+    @pytest.mark.parametrize("slow", ["first_prefill", "first_dispatch",
+                                      "late_loop"])
+    def test_slow_first_calls_are_not_fenced(self, bundle, monkeypatch,
+                                             slow):
+        """A replica whose first prefill or first dispatch outlasts the
+        hang deadline (not the compile grace), or whose loop starts a
+        deadline after its engine was built (``start`` builds K4 in
+        between), is not fenced: the engine marks its first calls
+        ``compiling`` and stamps a heartbeat after them, and the
+        deadline runs from the loop's start."""
+        from dalle_pytorch_tpu_torch.serve.engine import Engine
+        stall_s, firsts = 1.0, set()
+
+        def stalling(cls_method, key):
+            def run(self, *args, **kwargs):
+                if (id(self), key) not in firsts:
+                    firsts.add((id(self), key))
+                    time.sleep(stall_s)
+                return cls_method(self, *args, **kwargs)
+            return run
+
+        if slow == "first_prefill":
+            monkeypatch.setattr(Engine, "_prefill_group", stalling(
+                Engine._prefill_group, "prefill"))
+        elif slow == "first_dispatch":
+            monkeypatch.setattr(Engine, "_dispatch_chunk", stalling(
+                Engine._dispatch_chunk, "dispatch"))
+        sink = Sink()
+        rs, q = port_set(bundle, replicas=2, num_slots=2, chunk_steps=4,
+                         heartbeat_s=0.25, compile_grace_s=30.0,
+                         metrics=sink)
+        if slow == "late_loop":
+            # the set built a deadline ago, and each loop slow to reach
+            # its first step
+            time.sleep(stall_s)
+            first_chunk = faults.on_replica_chunk
+
+            def late(index, chunk):
+                if (index, "loop") not in firsts:
+                    firsts.add((index, "loop"))
+                    time.sleep(0.1)
+                return first_chunk(index, chunk)
+
+            monkeypatch.setattr(faults, "on_replica_chunk", late)
+        rs.start()
+        try:
+            handles = [q.submit(req(S, r)) for r in REQS[:4]]
+            assert_token_exact(bundle, handles, REQS[:4])
+        finally:
+            rs.close()
+        assert rs.failovers == 0, sink.of("serve_replica_fenced")
+        assert not sink.of("serve_replica_fenced")
+        assert len(firsts) >= 2
+
     def test_close_with_hung_replica_never_strands_callers(self, bundle):
         from dalle_pytorch_tpu_torch.serve.server import InferenceServer
         server = InferenceServer(bundle[2], None, num_slots=2,
