@@ -376,9 +376,12 @@ Image files and the fleet:
    slots, the replicas' shapes); failovers, reclaimed requests and
    migrations equal ``REPLICA_EXPECT``, which the same schedule gives on
    the CPU (``tests/test_torch_replica.py``); K4 launched in both
-   replicas. B: ``InferenceServer`` over HTTP in bfloat16 at
-   ``SERVE_DEPTH``, 256-token prompts capped at 256 image tokens: six
-   clients in one wave against a set of 1 replica
+   replicas; the set's, the engines', the queue's, the handles' and
+   K4's locks watched by the lock-order sanitizer (``LockWatch``): no
+   inversion, and every order seen (``lock_edges``) one that the port's
+   racelint predicts over its package. B: ``InferenceServer`` over HTTP
+   in bfloat16 at ``SERVE_DEPTH``, 256-token prompts capped at 256
+   image tokens: six clients in one wave against a set of 1 replica
    and then of 2 (4 slots each: image tokens a second and ms a step of
    each), then a wave during which ``POST /admin/scale`` adds a replica
    and removes replica 0 with a drain; every result ok, K4 launched;
@@ -449,6 +452,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import json
 import math
 import os
@@ -5062,13 +5066,77 @@ def replica_reference(model, reqs, device) -> list:
     return out
 
 
+class LockWatch:
+    """The lock-order sanitizer (``analysis/guards.py``) over a replica
+    set: its control lock and flight ring, its queue, each engine's
+    locks (``_lock``, ``_profile_lock``) and flight ring, the engines it
+    brings up later too, the handles and traces submitted through
+    ``submit``, and K4's module lock (``ops/paged_attention.py::_LOCK``).
+    ``stop`` puts every lock back as it was. An inversion raised
+    in a replica's step, which the set takes for a replica fault, stays
+    in ``rec.errors``."""
+
+    def __init__(self, rs, q):
+        from dalle_pytorch_tpu_torch.analysis import guards as G
+        from dalle_pytorch_tpu_torch.ops import paged_attention as PA
+        from dalle_pytorch_tpu_torch.serve.engine import Engine
+        self.G, self.PA, self.Engine = G, PA, Engine
+        self.rec = G.LockOrderRecorder()
+        self.rs, self.q = rs, q
+        self.objs = []
+        self.init = Engine.__init__
+
+    def watch(self, *objs) -> None:
+        for obj in objs:
+            if obj is not None:
+                self.G.instrument_locks(obj, self.rec)
+                self.objs.append(obj)
+
+    def start(self) -> None:
+        init, watch = self.init, self.watch
+
+        def watched_init(engine, *args, **kwargs):
+            init(engine, *args, **kwargs)
+            watch(engine, engine.flight)
+
+        self.Engine.__init__ = watched_init
+        self.G.instrument_module_lock(self.PA, "_LOCK", self.rec)
+        self.watch(self.rs, self.rs.flight, self.q)
+        for r in self.rs.replicas:
+            if r.engine is not None:
+                self.watch(r.engine, r.engine.flight)
+
+    def submit(self, request):
+        h = self.q.submit(request)
+        self.watch(h, h.trace)
+        return h
+
+    def stop(self) -> None:
+        self.Engine.__init__ = self.init
+        self.G.restore_locks(self.PA)
+        for obj in self.objs:
+            self.G.restore_locks(obj)
+
+
+@functools.lru_cache(maxsize=None)
+def port_lock_edges() -> frozenset:
+    """The port's static lock-order graph: its racelint's
+    ``lock_order_edges`` over the package."""
+    import dalle_pytorch_tpu_torch
+    from dalle_pytorch_tpu_torch.analysis import racelint
+    pkg = os.path.dirname(dalle_pytorch_tpu_torch.__file__)
+    return frozenset(racelint.lock_order_edges(
+        racelint.iter_py_files([pkg])))
+
+
 def replica_schedule(model_v1, model_v2, device) -> dict:
     """The sync-driver schedule of ``phase_replicas`` A on any device:
     four waves through a crash, a drain with live migration, a rolling
     upgrade and the promoted version. Returns each wave's results
-    (status, weights_version, tokens), the set's counters and events, and
+    (status, weights_version, tokens), the set's counters and events,
     the K4 launches each replica's engine made (attributed step by
-    step: under the sync driver one thread steps them in turn)."""
+    step: under the sync driver one thread steps them in turn), and the
+    lock-order edges and inversions ``LockWatch`` saw."""
     from dalle_pytorch_tpu_torch.ops import paged_attention as PA
     from dalle_pytorch_tpu_torch.resilience import faults
     from dalle_pytorch_tpu_torch.resilience import retry
@@ -5121,16 +5189,18 @@ def replica_schedule(model_v1, model_v2, device) -> dict:
             for r in live)
 
     Engine.step_once = counted
+    locks = LockWatch(rs, q)
+    locks.start()
     try:
         waves = {"crash": replica_requests(cfg, 8, 100),
                  "drain": replica_requests(cfg, 4, 200),
                  "upgrade": replica_requests(cfg, 4, 300),
                  "v2": replica_requests(cfg, 2, 400)}
         handles = {}
-        handles["crash"] = [q.submit(r) for r in waves["crash"]]
+        handles["crash"] = [locks.submit(r) for r in waves["crash"]]
         with faults.injected(fault_replica=1, replica_crash_at_chunk=2):
             rs.run_until_idle()
-        handles["drain"] = [q.submit(r) for r in waves["drain"]]
+        handles["drain"] = [locks.submit(r) for r in waves["drain"]]
         pump_until(lambda: mid_stream(2), "two requests mid-stream on "
                                           "each replica")
         t0 = time.perf_counter()
@@ -5139,7 +5209,7 @@ def replica_schedule(model_v1, model_v2, device) -> dict:
         check(rs.replicas[0].state == DRAINED, "replicas: not drained")
         rs.run_until_idle()
         check(rs.undrain_replica(0), "replicas: undrain failed")
-        handles["upgrade"] = [q.submit(r) for r in waves["upgrade"]]
+        handles["upgrade"] = [locks.submit(r) for r in waves["upgrade"]]
         pump_until(lambda: mid_stream(2), "the upgrade wave mid-stream")
         t0 = time.perf_counter()
         upgrade = rs.rolling_upgrade(
@@ -5147,10 +5217,11 @@ def replica_schedule(model_v1, model_v2, device) -> dict:
             canary_codes=[waves["v2"][0].codes], replica_timeout_s=600.0)
         upgrade_s = time.perf_counter() - t0
         rs.run_until_idle()
-        handles["v2"] = [q.submit(r) for r in waves["v2"]]
+        handles["v2"] = [locks.submit(r) for r in waves["v2"]]
         rs.run_until_idle()
     finally:
         Engine.step_once = step
+        locks.stop()
     # the crash's cost: from the crash to the replacement engine's up
     t_crash = next(t for k, t in times if k == "serve_replica_crash")
     failover_s = next(t for k, t in times if k == "serve_replica_up"
@@ -5169,13 +5240,16 @@ def replica_schedule(model_v1, model_v2, device) -> dict:
             "migration_s": list(rs.migration_seconds),
             "upgrade": upgrade, "stats": stats,
             "pages_in_use": [r.engine.alloc.in_use for r in rs.replicas
-                             if r.engine is not None]}
+                             if r.engine is not None],
+            "lock_edges": sorted(locks.rec.edges()),
+            "lock_errors": [str(e) for e in locks.rec.errors]}
 
 
 def check_replica_schedule(run: dict, want: dict) -> None:
     """Each wave's results ok with the single engine's tokens of the
     version that stamped them; the counters as predicted; no page
-    leaked."""
+    leaked; no lock-order inversion, and every lock order seen one that
+    the port's racelint predicts."""
     for wave, res in run["results"].items():
         for i, (status, version, toks) in enumerate(res):
             check(status == "ok", f"replicas: {wave} #{i} {status}")
@@ -5191,6 +5265,12 @@ def check_replica_schedule(run: dict, want: dict) -> None:
           f"{REPLICA_EVENTS}")
     check(all(n == 0 for n in run["pages_in_use"]),
           f"replicas: pages left mapped {run['pages_in_use']}")
+    check(not run["lock_errors"],
+          f"replicas: lock-order inversions {run['lock_errors']}")
+    unpredicted = sorted(set(map(tuple, run["lock_edges"]))
+                         - port_lock_edges())
+    check(not unpredicted,
+          f"replicas: lock orders racelint does not predict {unpredicted}")
 
 
 def replica_http_wave(srv, client, prompt, n: int, events=None,
@@ -5355,7 +5435,9 @@ def phase_replicas() -> dict:
         "upgrade_s": run["upgrade_s"],
         "upgrade_replicas": run["upgrade"]["replicas"],
         "events": {k: run["events"].count(k) for k in sorted(
-            set(run["events"]))}}
+            set(run["events"]))},
+        "lock_edges": [f"{a} -> {b}" for a, b in run["lock_edges"]],
+        "lock_edges_static": len(port_lock_edges())}
     emit(**record["A"], phase="replicas", part="A", ok=True)
     del v1, v2
     torch.cuda.empty_cache()

@@ -35,11 +35,16 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None and _lib_path == path:
             return _lib
         try:
+            # racelint: disable=RL003 — the lock exists precisely to
+            # serialize this one-time compile (double-checked dlopen);
+            # nothing else contends on it during a build
             lib = ctypes.CDLL(str(build.build()))
         except OSError:
             # a library copied from another machine may name a libjpeg
             # this one lacks: build it here, once
             try:
+                # racelint: disable=RL003 — the same one-time compile,
+                # serialized by the same lock
                 lib = ctypes.CDLL(str(build.build(force=True)))
             except OSError as e:
                 raise build.BuildError(

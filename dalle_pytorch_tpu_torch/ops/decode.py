@@ -152,6 +152,17 @@ def _layer(pool: Pool, i: int, view: Optional[Callable] = None):
             for n in _KV_NAMES]
 
 
+def _step_counters(cache, b: int, attn_impl: str):
+    """K4's split counters for every launch of one step over ``b`` slots
+    (``PA.split_counters``), fetched once for all its layers; None but
+    for ``attn_impl='kernel'`` on the card."""
+    if attn_impl != "kernel":
+        return None
+    ck = _part0(cache)["k"]         # (depth, P, heads, ps, dh)
+    return PA.split_counters(ck.device, b, ck.shape[2], ck.shape[-1],
+                             ck.dtype)
+
+
 def _read_layer(cache, i: int, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor, read: Callable,
                 view: Optional[Callable] = None) -> torch.Tensor:
@@ -381,17 +392,19 @@ def _kernel_read(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ksc: Optional[torch.Tensor] = None,
                  vsc: Optional[torch.Tensor] = None,
                  visible: Optional[torch.Tensor] = None,
-                 visible_cnt: Optional[torch.Tensor] = None
+                 visible_cnt: Optional[torch.Tensor] = None,
+                 counters: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Kernel K4's partials over the raw pool, completed with the current
     token's self-logit by the two-estimate softmax merge — exactly
     ``softmax(concat([scores, self]))`` up to summation order. q/k/v are
     (b, h, 1, dh); returns the (b, h, 1, dh) output before the out
-    projection. ``visible``/``visible_cnt`` select K4's visible walk."""
+    projection. ``visible``/``visible_cnt`` select K4's visible walk;
+    ``counters`` are the step's (``_step_counters``)."""
     acc, m, l = PA.paged_decode_attention(
         q[:, :, 0, :].contiguous(), pool_k, pool_v, block_tables, pos,
         allowed, scale=scale, k_scales=ksc, v_scales=vsc, visible=visible,
-        visible_cnt=visible_cnt)
+        visible_cnt=visible_cnt, counters=counters)
     self_s = torch.einsum("bhqd,bhqd->bhq", q, k)[:, :, 0].float() * scale
     m_t = torch.maximum(m, self_s)          # self is finite: m_t too
     alpha = torch.exp(m - m_t)
@@ -515,13 +528,15 @@ def _decode_step_math(model: T.Transformer, x_tok: torch.Tensor,
             model, x_tok, pos, cache, cfg=cfg, key_mask=key_mask,
             attn_impl=attn_impl, block_tables=block_tables)
     dense_allowed, sparse_allowed = _step_masks(cfg, pos, key_mask)
+    counters = _step_counters(cache, x_tok.shape[0], attn_impl)
 
     def read(i, q, k, v):
         allowed = sparse_allowed if cfg.sparse_pattern[i] else dense_allowed
         if attn_impl == "kernel":
             ck, cv, ksc, vsc = _layer(cache, i)
             return _kernel_read(q, k, v, ck, cv, block_tables, pos, allowed,
-                                scale=cfg.scale, ksc=ksc, vsc=vsc)
+                                scale=cfg.scale, ksc=ksc, vsc=vsc,
+                                counters=counters)
         return _read_layer(
             cache, i, q, k, v,
             lambda q, k, v, ck, cv, ksc, vsc: _gather_read(
@@ -580,6 +595,7 @@ def _decode_step_math_sparse_reads(
     vis_rows = vis[pos_l]                                       # (b, W)
     if attn_impl == "kernel":
         vis_ccnt = ccnt[pos_l]                                  # (b,)
+        counters = _step_counters(pool, b, attn_impl)
     else:
         bt = block_tables[:, :-(-total_len // ps)].long()  # the view's trim
         vis_bt = KV.visible_table_view(bt, vis_rows)            # (b, W)
@@ -610,7 +626,8 @@ def _decode_step_math_sparse_reads(
                 sparse_allowed if is_sparse else dense_allowed,
                 scale=cfg.scale, ksc=ksc, vsc=vsc,
                 visible=vis_rows if is_sparse else None,
-                visible_cnt=vis_ccnt if is_sparse else None)
+                visible_cnt=vis_ccnt if is_sparse else None,
+                counters=counters)
         tables, rows_out, allowed = (
             (vis_bt, width * ps, vis_allowed) if is_sparse
             else (bt, total_len, dense_allowed))
@@ -834,7 +851,9 @@ def _kernel_read_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       allowed_cached: torch.Tensor,
                       allowed_intra: torch.Tensor, *, scale: float,
                       ksc: Optional[torch.Tensor] = None,
-                      vsc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      vsc: Optional[torch.Tensor] = None,
+                      counters: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """W-wide ``_kernel_read`` (JAX ``:942``): one K4 prefix walk per
     offset i, each up to the CHUNK-START ``pos`` with that offset's row
     mask ``allowed_cached[:, i]``, then the two-estimate merge folds in
@@ -846,7 +865,7 @@ def _kernel_read_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc, m, l = PA.paged_decode_attention(
             q[:, :, i, :].contiguous(), pool_k, pool_v, block_tables, pos,
             allowed_cached[:, i, :], scale=scale, k_scales=ksc,
-            v_scales=vsc)
+            v_scales=vsc, counters=counters)
         s = torch.einsum("bhd,bhkd->bhk", q[:, :, i, :],
                          k[:, :, :i + 1, :]).float() * scale
         s = s.masked_fill(~allowed_intra[:, None, i, :i + 1], PA.FILL)
@@ -885,6 +904,7 @@ def _decode_chunk_math(model: T.Transformer, x_toks: torch.Tensor,
                          "positions (the serving decode shape)")
     dense_c, dense_i, sparse_c, sparse_i = _chunk_masks(
         cfg, pos, key_mask, x_toks.shape[1])
+    counters = _step_counters(cache, x_toks.shape[0], attn_impl)
 
     def read(i, q, k, v):
         a_c, a_i = (sparse_c, sparse_i) if cfg.sparse_pattern[i] \
@@ -893,7 +913,7 @@ def _decode_chunk_math(model: T.Transformer, x_toks: torch.Tensor,
             ck, cv, ksc, vsc = _layer(cache, i)
             return _kernel_read_wide(q, k, v, ck, cv, block_tables, pos,
                                      a_c, a_i, scale=cfg.scale, ksc=ksc,
-                                     vsc=vsc)
+                                     vsc=vsc, counters=counters)
         return _read_layer(
             cache, i, q, k, v,
             lambda q, k, v, ck, cv, ksc, vsc: _gather_read_wide(

@@ -247,6 +247,29 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
         return buf
 
 
+def _slices(kv_dtype: torch.dtype, dh: int) -> int:
+    """The acc slices of ``WIDE_SLICE`` columns each (slot, head) of a
+    launch owns: several on the CUDA-core wide body, one elsewhere."""
+    if dh > NARROW_MAX_DIM_HEAD and not wide_split(kv_dtype, dh):
+        return -(-dh // WIDE_SLICE)
+    return 1
+
+
+def split_counters(device, b: int, heads: int, dh: int,
+                   kv_dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """The split counters any launch over ``b`` slots x ``heads`` at head
+    dim ``dh`` with pages of ``kv_dtype`` may take (``counters=`` of
+    ``paged_decode_attention``), or None off the card. A decode step
+    fetches them once for all its layers' launches, so K4's lock is
+    taken once a step for them, not once a launch; the step's caller
+    holds the engine's lock, and ``analysis/racelint.py`` sees this
+    call where it cannot follow a step's per-layer read callback."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return _counters(device, b * heads * _slices(kv_dtype, dh))
+
+
 def load_kernel() -> None:
     """Build (if needed) and load K4's library now: a replica set calls it
     before its threads exist, so no two threads run nvcc or dlopen at
@@ -270,12 +293,15 @@ def paged_decode_attention(
         v_scales: Optional[torch.Tensor] = None,
         visible: Optional[torch.Tensor] = None,
         visible_cnt: Optional[torch.Tensor] = None,
+        counters: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Online-softmax partials over one layer's paged K/V, on the prefix
     walk or, given ``visible``/``visible_cnt``, the visible walk: the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    Counts its launches in ``paged_decode_attention.launches`` (prefix)
-    and ``paged_decode_attention.visible_launches`` (visible)."""
+    ``counters``: this launch's split counters from ``split_counters``
+    (fetched here when None). Counts its launches in
+    ``paged_decode_attention.launches`` (prefix) and
+    ``paged_decode_attention.visible_launches`` (visible)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, block_tables, pos, allowed, scale=scale,
@@ -331,17 +357,23 @@ def paged_decode_attention(
     pps = pages_per_split(page_size, split_body)
     walk = bt.shape[1] if vis is None else vis.shape[1]
     splits = -(-walk // pps)
-    part = counters = None
+    part = None
     if splits > 1:
-        if dh > NARROW_MAX_DIM_HEAD and not split_body:   # the slices
-            slices = -(-dh // WIDE_SLICE)
+        slices = _slices(k_pages.dtype, dh)
+        if slices > 1:
             part = torch.empty((b, heads, slices, splits, WIDE_SLICE + 2),
                                dtype=torch.float32, device=q.device)
-            counters = _counters(q.device, b * heads * slices)
         else:
             part = torch.empty((b, heads, splits, dh + 2),
                                dtype=torch.float32, device=q.device)
-            counters = _counters(q.device, b * heads)
+        if counters is None:
+            counters = _counters(q.device, b * heads * slices)
+        elif counters.dtype != torch.int32 or counters.device != q.device \
+                or counters.numel() < b * heads * slices:
+            raise ValueError(f"counters must be at least {b * heads * slices}"
+                             f" int32 on {q.device} (split_counters)")
+    else:
+        counters = None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -482,8 +482,11 @@ class Engine:
         self._cfg_partner_host = np.arange(S_, dtype=np.int32)
         self._cfg_scale_host = np.zeros((S_,), np.float32)
         self._cfg_uncond_host = np.zeros((S_,), bool)
-        self._cfg_dirty = True
-        self._sync_cfg()
+        # pushed here, not through _sync_cfg, which runs under _lock
+        self.cfg_partner = self._put(self._cfg_partner_host).long()
+        self.cfg_scale = self._put(self._cfg_scale_host)
+        self.cfg_uncond = self._put(self._cfg_uncond_host)
+        self._cfg_dirty = False
         self.slots: List[Optional[_Slot]] = [None] * S_
         self._pending: deque = deque()
         self._lock = threading.Lock()          # step_once is not reentrant
@@ -1733,7 +1736,12 @@ class Engine:
             if not busy and self.idle():
                 stop.wait(idle_sleep_s)
         if self._profiler is not None:
+            # clean shutdown with a capture in flight: stop the
+            # process-global trace (partial but valid) on the way out
             self._profiler.close()
+            # racelint: disable=RL001 — _profiler is run-loop-thread-
+            # private (armed via the _profile_req handoff); this is the
+            # loop's own epilogue, no other thread ever writes it
             self._profiler = None
 
     def _terminate_active(self, status: str, reason: str) -> int:

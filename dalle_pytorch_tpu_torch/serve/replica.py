@@ -921,6 +921,11 @@ class ReplicaSet:
             self._reject_mid_upgrade("drain")
             r = self._replica_or_reject("drain", index)
             now = self.clock()
+            # racelint: disable=RL003 — deliberate: reshapes are
+            # serialized by _ctl_lock end-to-end; migration transfers
+            # (and the fault hooks that delay them in tests) run under
+            # it so no second reshape can observe a half-moved slot.
+            # The data plane (engine/queue locks) is not held here.
             moved = self._migrate_from(r, now, reason=reason)
             n = self._fence_and_reclaim(r, self.clock(), reason)
             r.state = DRAINED
@@ -999,6 +1004,9 @@ class ReplicaSet:
                 raise self._scale_error("remove", replica=index,
                                         reason="remove_last_replica")
             now = self.clock()
+            # racelint: disable=RL003 — deliberate: scale-in migrates
+            # under _ctl_lock so the reshape is atomic against other
+            # control-plane ops; the data plane stays unlocked
             moved = self._migrate_from(r, now, reason=reason) \
                 if drain else 0
             n = self._fence_and_reclaim(r, self.clock(), reason)
@@ -1151,6 +1159,9 @@ class ReplicaSet:
                     r.index, getattr(r.engine, "pid", None)
                     if self.isolation == "process" else None)
                 with self._ctl_lock:
+                    # racelint: disable=RL003 — deliberate: upgrade
+                    # migration runs under _ctl_lock like every other
+                    # reshape; see drain_replica() for the full rationale
                     migrated = self._migrate_from(
                         r, self.clock(),
                         reason=f"rolling upgrade to {version}",
@@ -1571,6 +1582,9 @@ class ReplicaSet:
                     busy = self._pump_children(now)
                 busy = self._check_replicas(now) or busy
                 busy = self._route(now) or busy
+                # racelint: disable=RL003 — deliberate: role handoff is
+                # a reshape (warm prefill→decode migration) and runs
+                # under _ctl_lock like drain/scale-in/upgrade
                 busy = self._role_handoff(now) or busy
             stop.wait(0.0005 if busy else self._idle_sleep_s)
 
@@ -1663,6 +1677,8 @@ class ReplicaSet:
                 did = self._pump_children(now)
             did = self._check_replicas(now) or did
             did = self._route(now) or did
+            # racelint: disable=RL003 — deliberate: same reshape-under-
+            # _ctl_lock discipline as the driver loop above
             did = self._role_handoff(now) or did
         if self.isolation == "process":
             # the children step themselves: nap when nothing moved, so
