@@ -3,6 +3,7 @@ body goes, on one H100.
 
     python3 chip_flash_variants.py          # every kernel below
     python3 chip_flash_variants.py k4       # K4's copies alone
+    python3 chip_flash_variants.py f32      # float32 K1, K2b alone
 
 Builds edited copies of ``dalle_pytorch_tpu_torch/csrc/flash_attention.cu``
 side by side, each with one piece of the bfloat16 tensor-core bodies
@@ -213,9 +214,42 @@ WIDE_DQ_OWN_SCORES = {
 """,
 }
 
+# float32 fused K2b's dQ^T flush as the tree has it (dkv_tf32's atomics),
+# and the staged flush ``f32_staged_flush`` writes after it
+F32_ATOMIC_FLUSH = '          // dqt[4 j + 2 hh + e]: row of d 64 mh + 16 warp + g + 8 hh,\n          // query q0 + 8 j + 2 t + e\n#pragma unroll\n          for (int j = 0; j < QT / 8; ++j)\n#pragma unroll\n            for (int e = 0; e < 2; ++e) {\n              const int qr = q0 + 8 * j + 2 * t + e;\n              if (qr >= n) continue;\n#pragma unroll\n              for (int hh = 0; hh < 2; ++hh)\n                atomicAdd(dq + base + static_cast<size_t>(qr) * D + 64 * mh +\n                              16 * warp + g + 8 * hh,\n                          dqt[4 * j + 2 * hh + e]);\n            }\n        }\n      }\n'
+F32_STAGED_FLUSH = '          // dqt[4 j + 2 hh + e]: row of d 64 mh + 16 warp + g + 8 hh,\n          // query q0 + 8 j + 2 t + e\n#pragma unroll\n          for (int j = 0; j < QT / 8; ++j)\n#pragma unroll\n            for (int e = 0; e < 2; ++e) {\n              const int qr = q0 + 8 * j + 2 * t + e;\n              if (qr >= n) continue;\n#pragma unroll\n              for (int hh = 0; hh < 2; ++hh)\n                atomicAdd(dq + base + static_cast<size_t>(qr) * D + 64 * mh +\n                              16 * warp + g + 8 * hh,\n                          dqt[4 * j + 2 * hh + e]);\n            }\n        }\n      }\n#pragma unroll\n      for (int mh = 0; mh < D / 64; ++mh) {\n        float dqt[QT / 2];\n        zero(dqt);\n        if (active) {\n#pragma unroll\n            for (int half = 0; half < 2; ++half) {\n              uint32_t ah[4][4], al[4][4];\n#pragma unroll\n              for (int s4 = 0; s4 < 4; ++s4) {\n                const int kk = 4 * half + s4;\n#pragma unroll\n                for (int f = 0; f < 4; ++f) {\n                  const int key = 8 * kk + t + 4 * (f >> 1);\n                  const int col = 64 * mh + 16 * warp + g + 8 * (f & 1);\n                  const uint32_t at =\n                      wg::swz32<wg::kRows>(key, col >> 2) + (col & 3) * 4;\n                  asm volatile("ld.shared.b32 %0, [%1];\\n"\n                               : "=r"(ah[s4][f])\n                               : "r"(tKhi + at)\n                               : "memory");\n                  asm volatile("ld.shared.b32 %0, [%1];\\n"\n                               : "=r"(al[s4][f])\n                               : "r"(tKlo + at)\n                               : "memory");\n                }\n              }\n              wg::mma_fence();\n#pragma unroll\n              for (int s4 = 0; s4 < 4; ++s4)\n                wg::mma3_rs<QT>(dqt, ah[s4], al[s4],\n                                wg::desc_k32<QT>(aShi, 4 * half + s4),\n                                wg::desc_k32<QT>(aSlo, 4 * half + s4));\n              wg::mma_commit();\n              wg::mma_wait<0>();\n              wg::hold(dqt);\n              wg::hold_u(ah);\n              wg::hold_u(al);\n            }\n        }\n        __syncthreads();\n        float* stage = reinterpret_cast<float*>(\n            smem_raw + (sStage + grp * kStage - wg::smem_addr(smem_raw)));\n#pragma unroll\n        for (int j = 0; j < QT / 8; ++j)\n#pragma unroll\n          for (int e = 0; e < 2; ++e)\n#pragma unroll\n            for (int hh = 0; hh < 2; ++hh)\n              stage[(8 * j + 2 * t + e) * kStageRow + 16 * warp + g +\n                    8 * hh] = dqt[4 * j + 2 * hh + e];\n        __syncthreads();\n        const float* st0 = reinterpret_cast<const float*>(\n            smem_raw + (sStage - wg::smem_addr(smem_raw)));\n        for (int i = tid; i < QT * 16; i += kNT) {\n          const int qr = i / 16, c4 = i % 16;\n          float4 x = *reinterpret_cast<const float4*>(\n              st0 + qr * kStageRow + 4 * c4);\n#pragma unroll\n          for (int gi = 1; gi < G; ++gi) {\n            const float4 y = *reinterpret_cast<const float4*>(\n                st0 + gi * (kStage / 4) + qr * kStageRow + 4 * c4);\n            x.x += y.x;\n            x.y += y.y;\n            x.z += y.z;\n            x.w += y.w;\n          }\n          if (q0 + qr < n)\n            wg::red_add_v4(dq + base + static_cast<size_t>(q0 + qr) * D +\n                               64 * mh + 4 * c4,\n                           x.x, x.y, x.z, x.w);\n        }\n      }\n'
+
 VARIANTS = {
     "tree": {},
     "wide_tree": {},
+    # float32 K1 and K2b (split and fused) at d 64 and 128 back on their
+    # CUDA-core bodies (flash_fwd_kernel, flash_bwd_dkv_kernel<float>), by
+    # an edit of the C entries' dispatch: the "before" of the TF32
+    # tensor-core bodies (timed by ``f32_records``)
+    "f32_cuda_cores": {
+        "launch_fwd_tf32<": "launch_fwd<",
+        "FA_DKV_TF32(64, ": "FA_DKV(float, 64, ",
+        "FA_DKV_TF32(128, ": "FA_DKV(float, 128, "},
+    # float32 fused K2b's dQ^T flush as the design the tree left behind:
+    # each group's dQ^T staged as query rows in shared memory,
+    # the groups' shares summed there and added by 16-byte vector
+    # reductions (an eighth of the atomic operations at d 64), against
+    # one f32 atomic an element a group. The edit turns the tree's loop
+    # off and writes the staged one after it
+    "f32_staged_flush": {
+        F32_ATOMIC_FLUSH: F32_STAGED_FLUSH,
+        "      if (active) {\n        // dQ^T (64 rows of d at a time x QT "
+        "queries) = K^T dS^T: K^T's A":
+            "      if (false) {\n        // dQ^T (64 rows of d at a time x "
+            "QT queries) = K^T dS^T: K^T's A",
+        '  static_assert(2 * G * kS <= 4 * kQT, "dS fits in the area");':
+            '  static_assert(2 * G * kS <= 4 * kQT, "dS fits in the area");\n'
+            '  constexpr int kStageRow = wg::kRows + 4;\n'
+            '  constexpr uint32_t kStage = QT * kStageRow * sizeof(float);\n'
+            '  constexpr bool kStagePast = 2 * G * kS + G * kStage <= 4 * kQT;',
+        "  const uint32_t aShi = sA + grp * 2 * kS, aSlo = aShi + kS;":
+            "  const uint32_t aShi = sA + grp * 2 * kS, aSlo = aShi + kS;\n"
+            "  const uint32_t sStage = sA + (kStagePast ? 2 * G * kS : 0);"},
     "no_exp": {
         "x = wg::exp2_approx((x - m_new) * kLog2e);":
             "x = (x - m_new) * kLog2e;",
@@ -351,10 +385,10 @@ VARIANTS = {
         "FA_DKV_WGMMA(launch_dkv_wgmma, 64)":
             "  } else if (dtype == 1 && dq == nullptr) {\n    err = d == 64 ? "
             "FA_DKV_WGMMA(launch_dkv_wgmma, 64)",
-        "    err = d == 64 ? FA_DKV(float, 64, true) : "
-        "FA_DKV(float, 128, true);":
-            "    err = dtype == 0 ? (d == 64 ? FA_DKV(float, 64, true) : "
-            "FA_DKV(float, 128, true)) : (d == 64 ? FA_DKV(bf16, 64, true) "
+        "    err = d == 64 ? FA_DKV_TF32(64, true) : "
+        "FA_DKV_TF32(128, true);":
+            "    err = dtype == 0 ? (d == 64 ? FA_DKV_TF32(64, true) : "
+            "FA_DKV_TF32(128, true)) : (d == 64 ? FA_DKV(bf16, 64, true) "
             ": FA_DKV(bf16, 128, true));"},
     # fused K2b's dQ flush: one scalar atomicAdd an element, or one
     # red.global.add.v2.f32 a pair without the lanes' trade, against the
@@ -762,6 +796,7 @@ DEFAULT_KERNELS = {"north": ("k1", "k2a", "k2b_split", "k2b_fused"),
                    "wide": ("k1", "k2a", "k2b_split", "k2b_fused")}
 FUSED = ("k2b_fused",)
 KERNELS = {"tree": {"north": DEFAULT_KERNELS["north"], "d128": FUSED},
+           "f32_cuda_cores": {},
            "wide_tree": {"wide": DEFAULT_KERNELS["wide"]},
            "stages3": {"north": ("k1",)}, "dq_stages4": {"north": ("k2a",)},
            "dq_drop_tile": {"north": ("k2a",)},
@@ -848,17 +883,24 @@ def rejected_by_dq_check(chip_smoke, dq, dq_p) -> dict:
 
 
 def library_record(chip_smoke, shape, q, k, v, do) -> dict:
-    """The bounds of the three kernels and SDPA's forward and backward
-    alone (causal, no padding) at one shape: CUDA events us per call and
-    profiler device us per call."""
+    """The bounds of the three kernels in q's dtype (float32 at three TF32
+    products a product and at the CUDA cores' rate) and SDPA's forward
+    and backward alone (causal, no padding) at one shape: CUDA events us
+    per call and profiler device us per call."""
     import torch.nn.functional as F
     b, h, n, d = q.shape
-    rec = {"shape": shape, "b": b, "h": h, "n": n, "d": d}
+    rec = {"shape": shape, "dtype": str(q.dtype).split(".")[-1], "b": b,
+           "h": h, "n": n, "d": d}
     for kernel, kind in (("k1", "fwd"), ("k2a", "dq"), ("k2b_split", "dkv"),
                          ("k2b_fused", "fused")):
-        ms, by = chip_smoke.flash_bound(kind, torch.bfloat16, b, h, n, d)
+        ms, by = chip_smoke.flash_bound(kind, q.dtype, b, h, n, d)
         rec[f"{kernel}_bound_us"] = ms * 1e3
         rec[f"{kernel}_bound_by"] = by
+        if q.dtype == torch.float32:
+            ms, by = chip_smoke.flash_bound(kind, q.dtype, b, h, n, d,
+                                            f32_rate=chip_smoke.FP32_FLOPS)
+            rec[f"{kernel}_bound_cuda_cores_us"] = ms * 1e3
+            rec[f"{kernel}_bound_cuda_cores_by"] = by
     sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
         q, k, v, is_causal=True, scale=512 ** -0.5)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -984,6 +1026,76 @@ def k4_records(chip_smoke, libs) -> None:
         PA._COUNTERS.clear()
 
 
+# float32: the TF32 tensor-core bodies of K1 and K2b (split and fused)
+# against their CUDA-core bodies (``f32_cuda_cores``) and fused K2b's
+# staged dq flush (``f32_staged_flush``), in turns, at the north shape
+# and at d 128 (the north width as heads=4, dim_head=128)
+F32_SHAPES = {"north": SHAPES["north"], "d128": SHAPES["d128"]}
+F32_TURNS = ("tree", "f32_cuda_cores", "f32_staged_flush",
+             "f32_staged_flush", "f32_cuda_cores", "tree")
+
+
+def bind(lib) -> None:
+    from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    for fn in ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv"):
+        getattr(lib, fn).argtypes = FA._ARGTYPES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+
+
+def f32_records(chip_smoke, libs) -> None:
+    """float32 K1, K2b split and K2b fused of the tree and of
+    ``f32_cuda_cores`` in the turns ``F32_TURNS`` at ``F32_SHAPES``, the
+    all-True mask training passes: each held against the plain versions
+    at the smoke's float32 tolerances (2e-4), timed with CUDA events and
+    with the profiler (device us a launch of the flash kernel, and its
+    name); first each shape's bounds (both float32 rates) and float32
+    SDPA's forward and backward alone."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    entry = FA._entry
+    try:
+        for shape, (b, h, n, d) in F32_SHAPES.items():
+            g = torch.Generator(device="cuda").manual_seed(0)
+            q, k, v, do = (torch.randn((b, h, n, d), generator=g,
+                                       device="cuda") for _ in range(4))
+            print(json.dumps(library_record(chip_smoke, shape, q, k, v, do)),
+                  flush=True)
+            mask = torch.ones((b, n), dtype=torch.bool, device="cuda")
+            kw = dict(scale=512 ** -0.5, causal=True, mask=mask)
+            out_p, m_p, l_p = FA.flash_attention_fwd_plain(q, k, v, **kw)
+            args = (q, k, v, do, m_p, l_p,
+                    (do.float() * out_p.float()).sum(-1))
+            dk_p, dv_p, dq_p = FA.flash_attention_bwd_dkv_plain(
+                *args, with_dq=True, **kw)
+            calls = {
+                "fwd": (lambda: FA.flash_attention_fwd(q, k, v, **kw)[:1],
+                        (out_p,)),
+                "dkv": (lambda: FA.flash_attention_bwd_dkv(*args,
+                                                           **kw)[:2],
+                        (dk_p, dv_p)),
+                "fused": (lambda: FA.flash_attention_bwd_dkv(
+                    *args, with_dq=True, **kw), (dk_p, dv_p, dq_p))}
+            for turn, name in enumerate(F32_TURNS):
+                FA._entry = lambda fn, lib=libs[name]: getattr(lib, fn)
+                record = {"variant": name, "turn": turn, "shape": shape,
+                          "dtype": "float32", "mask": "all_true"}
+                record["max_abs_err"] = {
+                    kind: max(chip_smoke.held(
+                        f"{name} {shape} f32 {kind}", got, want, 2e-4, 2e-4)
+                        for got, want in zip(fn(), wants))
+                    for kind, (fn, wants) in calls.items()}
+                device_us, names = chip_smoke.flash_device_us(calls)
+                record["device_us"] = device_us
+                record["bodies"] = {kind: chip_smoke.flash_body(k)
+                                    for kind, k in names.items()}
+                record["events_us"] = {kind: events_us(fn)
+                                       for kind, (fn, _) in calls.items()}
+                print(json.dumps(record), flush=True)
+            del dk_p, dv_p, dq_p, out_p
+    finally:
+        FA._entry = entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_flash_variants: no CUDA device is visible",
@@ -993,17 +1105,21 @@ def main() -> int:
     import chip_smoke
     from dalle_pytorch_tpu_torch.ops import build
     from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    if sys.argv[1:] == ["f32"]:
+        libs = build_variants(build, variants={
+            name: VARIANTS[name] for name in set(F32_TURNS)})
+        for lib in libs.values():
+            bind(lib)
+        f32_records(chip_smoke, libs)
+        return card_line()
     k4_libs = build_variants(build, K4_SOURCE, K4_VARIANTS)
     if sys.argv[1:] == ["k4"]:
         k4_records(chip_smoke, k4_libs)
         return card_line()
     libs = build_variants(build)
     bs_libs = build_variants(build, BS_SOURCE, BS_VARIANTS)
-    for name, lib in libs.items():
-        for fn in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                   "flash_attention_bwd_dkv"):
-            getattr(lib, fn).argtypes = FA._ARGTYPES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
+    for lib in libs.values():
+        bind(lib)
     entry, wide_tc = FA._entry, FA.wide_tensor_cores
     try:
         for shape, (b, h, n, d) in SHAPES.items():
@@ -1073,6 +1189,7 @@ def main() -> int:
                 del dk_p, dv_p, dq_p, dq32_p, out_p
     finally:
         FA._entry, FA.wide_tensor_cores = entry, wide_tc
+    f32_records(chip_smoke, libs)
     k3_records(chip_smoke, bs_libs)
     k4_records(chip_smoke, k4_libs)
     return card_line()

@@ -3,6 +3,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only images,replicas   # build, then these
                                                    # (images, generate,
+                                                   # kernel, flash,
+                                                   # f32_train,
+                                                   # sparse_kernels,
                                                    # replicas, processes,
                                                    # gateway, cli,
                                                    # parallel, http,
@@ -55,7 +58,10 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
 5. flash  — the flash kernels K1 (forward: out, m, l), K2a (dq) and K2b
    (dk, dv; split and fused mode) against their plain PyTorch versions
    at the north training shapes (b 8, h 8, n 1280, d 64, causal,
-   scale 512 ** -0.5), in bfloat16 and float32 (TF32 off), with the
+   scale 512 ** -0.5), in bfloat16 and float32 (TF32 off in the plain
+   versions; float32 K1 and K2b on their TF32 tensor-core bodies, three
+   TF32 products a product; their records carry the bound at that rate
+   and at the CUDA cores' 67 TFLOP/s, ``bound_cuda_cores_ms``), with the
    all-True mask training uses and with a text-padding mask (fully padded
    query rows included): float32 to rtol/atol 2e-4, bfloat16 to 2e-2,
    the bfloat16 gradients dq, dk and dv to atol 0.05 x their RMS where
@@ -103,6 +109,14 @@ image 1024 tokens, VAE 256 px / 2048 codes) with seeded random weights:
    depth-2 copy in bfloat16 at each width: loss and every gradient with
    'pallas_fused' against 'xla', to 2e-2 (of each gradient's largest
    element);
+8b. f32_train — the ``train`` phase's step in float32 (the training
+   CLIs' default ``--param_dtype``), dropout 0, under the split and the
+   fused backward: 6 steps each with finite losses, K1 and K2b launched
+   depth x steps = 72 times (K2a as often under the split backward,
+   never under the fused one), the profile naming K1 and K2b's TF32
+   tensor-core bodies and K2a's CUDA-core body; ms per step and each
+   flash kernel's device ms per step (``--only flash,f32_train`` runs
+   it with the flash phase after the build);
 9. sparse_kernels — the block-sparse kernel K3 (out, m, l) against its
    plain version at the north training shapes (b 8, h 8, n 1280, d 64,
    block 16, causal, scale 512 ** -0.5), bfloat16 (tensor cores) and
@@ -467,6 +481,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM, float32 outside tensor cores
 BF16_FLOPS = 989e12              # H100 SXM, bf16 tensor cores, dense
+TF32_FLOPS = 495e12              # H100 SXM, TF32 tensor cores, dense
+# a float32 product as three TF32 products (a_hi b_hi + a_hi b_lo +
+# a_lo b_hi): the narrow float32 bodies of K1 and K2b
+TF32X3_FLOPS = TF32_FLOPS / 3
 
 
 class SmokeFailure(AssertionError):
@@ -1199,11 +1217,16 @@ def flash_inputs(dtype, masked: bool, b=8, h=8, n=1280, d=64, seed=0):
     return q, k, v, do, mask
 
 
-def flash_bound(kind: str, dtype, b, h, n, d) -> tuple:
+def flash_bound(kind: str, dtype, b, h, n, d,
+                f32_rate: float = TF32X3_FLOPS) -> tuple:
     """(least ms, 'bytes' | 'operations') of one causal call: the tile
     products over the causal pairs only (what this data needs) at the
     peak rate of the inputs' type, against each input read once and each
-    output written once at the HBM rate."""
+    output written once at the HBM rate. float32 products at
+    ``f32_rate``: by default three TF32 products a product at 495
+    TFLOP/s (the least time for f32-accurate products on this card, the
+    route of the narrow float32 K1 and K2b), or ``FP32_FLOPS`` (67
+    TFLOP/s, CUDA-core FMAs)."""
     pairs = n * (n + 1) // 2 * b * h
     products = {"fwd": 2, "dq": 3, "dkv": 4, "fused": 5}[kind]
     flops = 2 * d * pairs * products
@@ -1215,7 +1238,7 @@ def flash_bound(kind: str, dtype, b, h, n, d) -> tuple:
               "dkv": 6 * elems * isz + 3 * rows,
               "fused": 6 * elems * isz + 3 * rows + 4 * elems}[kind]
     nbytes += b * n                            # the mask
-    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else f32_rate
     t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -1224,6 +1247,7 @@ def flash_bound(kind: str, dtype, b, h, n, d) -> tuple:
 # which device kernels each flash call may launch, as (name part,
 # template part); ``FA.kernel_body`` names the one each call runs
 FLASH_KERNELS = {"fwd": (("flash_fwd_wgmma_kernel", ""),
+                         ("flash_fwd_tf32_kernel", ""),
                          ("flash_fwd_kernel", ""),
                          ("flash_fwd_wide_wgmma_kernel", ""),
                          ("flash_fwd_wide_kernel", "")),
@@ -1232,10 +1256,12 @@ FLASH_KERNELS = {"fwd": (("flash_fwd_wgmma_kernel", ""),
                         ("flash_bwd_dq_wide_wgmma_kernel", ""),
                         ("flash_bwd_dq_wide_kernel", "")),
                  "dkv": (("flash_bwd_dkv_wgmma_kernel", ""),
+                         ("flash_bwd_dkv_tf32_kernel", ""),
                          ("flash_bwd_dkv_kernel", "false>"),
                          ("flash_bwd_dkv_wide_wgmma_kernel", ""),
                          ("flash_bwd_dkv_wide_kernel", "false>")),
                  "fused": (("flash_bwd_fused_wgmma_kernel", ""),
+                           ("flash_bwd_fused_tf32_kernel", ""),
                            ("flash_bwd_dkv_kernel", "true>"),
                            ("flash_bwd_fused_wide_wgmma_kernel", ""),
                            ("flash_bwd_dkv_wide_kernel", "true>"))}
@@ -1392,8 +1418,9 @@ def flash_case(dtype, masked: bool, timed: bool, **shape) -> dict:
     record["bodies"] = {kind: flash_body(k) for kind, k in names.items()}
     # every call runs the body the dispatch names: bfloat16 K1, K2a and
     # K2b (split and fused) on the tensor cores up to d 128, K1 and K2b at
-    # d 192 and 256 (the wide tensor-core bodies); the rest on CUDA cores
-    # ([]: the profiler recorded none of the call's launches)
+    # d 192 and 256 (the wide tensor-core bodies); float32 K1 and K2b
+    # (split and fused) up to d 128 on their TF32 bodies; the rest on CUDA
+    # cores ([]: the profiler recorded none of the call's launches)
     for kind in calls:
         want = FA.kernel_body(kind, dtype, d)
         check(record["bodies"][kind] in ([want], []),
@@ -1407,6 +1434,12 @@ def flash_case(dtype, masked: bool, timed: bool, **shape) -> dict:
             "device_us_per_launch": device_us[kind],
             "plain_ms": cuda_ms(plain, iters=3, warmup=1),
             "bound_ms": bms, "bound_by": by}
+        if dtype == torch.float32:
+            # the same work at the CUDA cores' f32 rate
+            cms, cby = flash_bound(kind, dtype, b, h, n, d,
+                                   f32_rate=FP32_FLOPS)
+            record[kind].update(bound_cuda_cores_ms=cms,
+                                bound_cuda_cores_by=cby)
     # the library yardstick: one PyTorch call computing the same function
     # (causal, no padding) — timed here, used nowhere in the port. Its
     # backward is timed alone: one forward kept with its graph, then only
@@ -1602,9 +1635,11 @@ def train_grads_agree(batch, dtype=torch.float32,
     return worst
 
 
-def train_run(cfg, phase: str, steps: int = 6, warmup: int = 1) -> tuple:
-    """``steps`` training steps of ``cfg`` (bfloat16 params, the smoke's
-    batch, Adam lr 1e-4 through ``make_train_step``), the first a
+def train_run(cfg, phase: str, steps: int = 6, warmup: int = 1,
+              dtype=torch.bfloat16) -> tuple:
+    """``steps`` training steps of ``cfg`` (``dtype`` params, bfloat16
+    by default; the smoke's batch, Adam lr 1e-4 through
+    ``make_train_step``), the first a
     warm-up: finite losses, K1 and K2b each launched depth x steps times,
     K2a as often under the split backward and never under the fused one
     (``attn_bwd_impl='pallas_fused'``, where K2b's count is of fused
@@ -1616,8 +1651,8 @@ def train_run(cfg, phase: str, steps: int = 6, warmup: int = 1) -> tuple:
     from dalle_pytorch_tpu_torch.ops import prng
     from dalle_pytorch_tpu_torch.parallel.train import (dalle_loss_fn,
                                                          make_train_step)
-    enc = V.vae_encoder_init(cfg.vae, seed=7, dtype=torch.bfloat16)
-    model = D.dalle_init(cfg, seed=6, dtype=torch.bfloat16)
+    enc = V.vae_encoder_init(cfg.vae, seed=7, dtype=dtype)
+    model = D.dalle_init(cfg, seed=6, dtype=dtype)
     args = types.SimpleNamespace(lr=1e-4, lr_schedule="constant",
                                  warmup_steps=0, decay_steps=0,
                                  lr_end_ratio=0.1, n_epochs=1,
@@ -1736,6 +1771,39 @@ def phase_fused_train() -> dict:
     return records
 
 
+# float32 parameters (the training CLIs' default ``--param_dtype``) at the
+# north width and depth, dropout 0 (the JAX DALLEConfig default), under
+# the split and the fused backward
+F32_TRAIN = dict(attn_dropout=0.0, ff_dropout=0.0)
+
+
+def phase_f32_train() -> dict:
+    """The ``train`` phase's step in float32 (``F32_TRAIN``) under
+    ``attn_bwd_impl='pallas'`` and ``'pallas_fused'``: 6 steps each with
+    finite losses, K1 and K2b launched depth x steps times (K2a as often
+    under the split backward, never under the fused one), the profile
+    naming the kernels that ran: K1 and K2b (split or fused) on their
+    TF32 tensor-core bodies, K2a on its CUDA-core body; ms per step and
+    each flash kernel's device ms per step."""
+    from dalle_pytorch_tpu_torch.ops import flash_attention as FA
+    records = {}
+    for impl, kinds in (("pallas", ("fwd", "dq", "dkv")),
+                        ("pallas_fused", ("fwd", "fused"))):
+        cfg = train_cfg(attn_bwd_impl=impl, **F32_TRAIN)
+        record, _, _ = train_run(cfg, f"f32_train/{impl}",
+                                 dtype=torch.float32)
+        bodies = record["profile"].get("flash_bodies", {})
+        for kind in ("fwd", "dq", "dkv", "fused"):
+            want = ([FA.kernel_body(kind, torch.float32, cfg.dim_head)]
+                    if kind in kinds else [])
+            check(bodies.get(kind, []) == want,
+                  f"f32_train/{impl}: {kind} ran {bodies.get(kind)}, not "
+                  f"{want}")
+        emit(**record)
+        records[impl] = record
+    return records
+
+
 # -- block-sparse attention: K3, and K4's visible walk ------------------------
 
 SPARSE_BLOCK = 16
@@ -1747,15 +1815,18 @@ def sparse_layout(n, device="cuda", causal=True):
     return SP.structural_mask(n, SPARSE_BLOCK, causal=causal, device=device)
 
 
-def sparse_bound(dtype, b, h, n, d, pairs) -> tuple:
+def sparse_bound(dtype, b, h, n, d, pairs,
+                 f32_rate: float = FP32_FLOPS) -> tuple:
     """(least ms, 'bytes' | 'operations') of one K3 call: the products
     over the layout's allowed pairs (what this data needs) at the peak
-    rate of the inputs' type, against q, k, v and the key mask read once
-    and out, m and l written once at the HBM rate."""
+    rate of the inputs' type (float32 at ``f32_rate``: CUDA-core FMAs,
+    K3's float32 route, unless ``TF32X3_FLOPS`` is given), against q, k,
+    v and the key mask read once and out, m and l written once at the
+    HBM rate."""
     flops = 4 * d * pairs * b * h
     isz = torch.tensor([], dtype=dtype).element_size()
     nbytes = 4 * b * h * n * d * isz + 2 * b * h * n * 4 + b * n
-    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else f32_rate
     t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -1812,6 +1883,11 @@ def sparse_case(dtype, masked: bool, timed: bool, causal: bool = True,
         sdpa_masked_ms=cuda_ms(sdpa, iters=20, warmup=2),
         sdpa_masked_device_us=all_device_us(sdpa),
         sdpa_max_abs_diff=float((sdpa().float() - out.float()).abs().max()))
+    if dtype == torch.float32:
+        # the same work as three TF32 products a product
+        tms, tby = sparse_bound(dtype, b, h, n, d, pairs,
+                                f32_rate=TF32X3_FLOPS)
+        record.update(bound_tf32x3_ms=tms, bound_tf32x3_by=tby)
     return record
 
 
@@ -7159,6 +7235,8 @@ def phase_parallel(cli_root: str = "", tp_kernels: dict = None) -> dict:
     return record
 
 ONLY = {"images": phase_images, "generate": phase_generate,
+        "kernel": phase_kernel, "flash": phase_flash,
+        "f32_train": phase_f32_train, "sparse_kernels": phase_sparse_kernels,
         "replicas": phase_replicas, "processes": phase_processes,
         "gateway": phase_gateway, "cli": phase_cli,
         "parallel": phase_parallel, "http": phase_http,
@@ -7311,6 +7389,7 @@ def main() -> int:
     train = timed(phase_train)
     wide_train = timed(phase_wide_train)
     fused_train = timed(phase_fused_train)
+    f32_train = timed(phase_f32_train)
     sparse = timed(phase_sparse_kernels)
     sparse_train = timed(phase_sparse_train)
     wide_sparse_train = timed(phase_wide_sparse_train)
@@ -7413,6 +7492,30 @@ def main() -> int:
             "bound_ms": fc_["fused"]["bound_ms"],
             "bound_by": fc_["fused"]["bound_by"],
             "library_ms": fc_["library"]["sdpa_bwd_ms"]})
+    # float32 K1, K2a and K2b (split and fused) at the float32 training
+    # path's case (all-True mask, the north shape; launches from
+    # f32_train): K1 and K2b on their TF32 tensor-core bodies, K2a on CUDA
+    # cores; the library: float32 SDPA
+    f32c = flash["float32/all_true"]
+    flib = f32c["library"]
+    for name, kind, line, count, impl, library_ms in (
+            ("flash_attention_fwd_tf32", "fwd", 88, "k1", "pallas",
+             flib["sdpa_fwd_ms"]),
+            ("flash_attention_bwd_dq_f32", "dq", 322, "k2a", "pallas",
+             None),
+            ("flash_attention_bwd_dkv_tf32", "dkv", 367, "k2b", "pallas",
+             flib["sdpa_bwd_ms"]),
+            ("flash_attention_bwd_fused_tf32", "fused", 367, "k2b",
+             "pallas_fused", flib["sdpa_bwd_ms"])):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "dalle_pytorch_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"dalle_pytorch_tpu/ops/flash_attention.py:{line}",
+            "launches": f32_train[impl]["launches"][count],
+            "max_abs_err": f32c["max_abs_err"][kind],
+            "ms": f32c[kind]["ms"], "plain_ms": f32c[kind]["plain_ms"],
+            "bound_ms": f32c[kind]["bound_ms"],
+            "bound_by": f32c[kind]["bound_by"], "library_ms": library_ms})
     # K3 at the sparse training path's case (bfloat16, all-True mask), and
     # K4's visible walk at the serving case (bfloat16 pages)
     k3 = sparse["k3"]["bfloat16/all_true"]

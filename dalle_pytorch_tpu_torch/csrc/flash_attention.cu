@@ -2,7 +2,7 @@
 // for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of dalle_pytorch_tpu/ops/flash_attention.py:
-//   K1  flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32),
+//   K1  flash_fwd_wgmma_kernel (bf16), flash_fwd_tf32_kernel (f32),
 //       flash_fwd_wide_wgmma_kernel (bf16 d 192, 256)
 //       <- _fwd_kernel :88 (launched by _flash_fwd)
 //   K2a flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32),
@@ -11,12 +11,15 @@
 //   K2b <- _bwd_keygrid_kernel :367, both of its launch sites: split mode
 //       (_bwd_dkv_kernel, dk and dv: flash_bwd_dkv_wgmma_kernel in bf16,
 //       flash_bwd_dkv_wide_wgmma_kernel in bf16 at d 192 and 256,
-//       flash_bwd_dkv_kernel<float, D, false> in f32) and fused mode
+//       flash_bwd_dkv_tf32_kernel in f32) and fused mode
 //       (_bwd_fused_kernel, dq too: flash_bwd_fused_wgmma_kernel in bf16,
 //       flash_bwd_fused_wide_wgmma_kernel in bf16 at d 192 and 256,
-//       flash_bwd_dkv_kernel<float, D, true> in f32).
+//       flash_bwd_fused_tf32_kernel in f32).
 //   Above d 128 every other call runs a CUDA-core wide body
-//   (*_wide_kernel, end of this file).
+//   (*_wide_kernel, end of this file). The f32 CUDA-core bodies of K1
+//   and K2b at d 64 and 128 (flash_fwd_kernel, flash_bwd_dkv_kernel<float,
+//   D, WITH_DQ>) stay in this file, launched by no entry:
+//   chip_flash_variants.py's f32_cuda_cores routes f32 back to them.
 //
 // What they compute, with the TPU kernels' masking contract:
 //   * s = (q . k) * scale in f32; a pad pair (mask[i] & mask[j] false)
@@ -33,7 +36,8 @@
 //     of each pair (out = p v, dq, dk, dv), as the Pallas bodies round
 //     them (p.astype(v.dtype), ds.astype(k.dtype)); a no-op in f32.
 //   * inputs f32 or bf16, every product accumulated in f32 (the Pallas
-//     bodies' preferred_element_type=f32); mask optional.
+//     bodies' preferred_element_type=f32; f32 products on the tensor
+//     cores as three TF32 products); mask optional.
 //   * the narrow bodies are compiled for d = 64 and d = 128, the wide
 //     bodies (end of this file) take any multiple of 64 above 128; the
 //     wrappers (ops/flash_attention.py::at_kernel_dim_head) run any other
@@ -128,18 +132,62 @@
 //        share of dQ's columns (128 and d - 128) = dS K[:, share] (216 KB
 //        at d 256).
 //
-// float32 (all three, split and fused): CUDA cores (tile.cuh, shared with
-// block_sparse.cu). The narrow CUDA-core bodies run float32 only (K2b's
-// bf16 instantiation is chip_flash_variants.py's fused_cuda_cores, the
-// fused mode's body before the tensor cores). 256 threads as a 16 x 16
-// grid; thread (ty, tx)
-// owns rows ty + 16 i (i < 4) and columns tx + 16 j of every 64 x 64
-// score tile and every 64 x d accumulator. Tiles are staged through
-// shared memory as f32 with a padded row stride (d + 1); products are
-// CUDA-core FMAs, so float32 keeps full f32 products (TF32 would break
-// its contracts). P and dS go through shared memory, rounded to the
-// input type first (a no-op in f32), as the tensor-core bodies and JAX
-// round them.
+// float32 K1 and K2b (split and fused), d 64 and 128: tensor cores, three
+// TF32 products a tile product (wgmma.cuh's TF32 section). One TF32
+// product keeps 10 mantissa bits (2^-11 relative), which would break the
+// f32 contracts (the smoke's and the card tests' 2e-4); a_hi b_hi + a_hi
+// b_lo + a_lo b_hi with hi = tf32(x), lo = tf32(x - hi), each summed in
+// f32, is a few f32 ulps (tests/test_torch_tf32x3.py emulates it on the
+// CPU against JAX's f32 attention). What held the CUDA-core bodies below
+// a third of even their 67 TFLOP/s bound (8 shared-memory loads a 16
+// FMAs, synchronous tiles, two block barriers a tile), and what these do:
+//   1. products: m64nNk8 TF32 wgmma, three a step (lo hi, hi lo, hi hi),
+//      f32 accumulators in registers. The tensor core's sums truncate, so
+//      K2b's score products (S^T, dP^T: they feed exp and every gradient)
+//      keep the two small products in an accumulator of their own
+//      (mma3_ss2): at d 128 one TF32 accumulator put a P error of ~1e-4
+//      into dv under a peaked softmax, past the f32 tolerance;
+//   2. layouts: TF32 wgmma reads A and B K-major only (no transposed
+//      read below 16 bits), so an output product whose depth runs over a
+//      stored tile's rows takes that tile transposed: V^T (K1), Q^T and
+//      dO^T (K2b), split as they are staged. P and dS stay in registers
+//      as the A of the next product: the accumulator holds columns
+//      (2 t, 2 t + 1) a thread where a TF32 A fragment wants (t, t + 4),
+//      so the transposed tiles permute each 8-row group to match
+//      (split_tile_t), free at staging time, rather than pass P through
+//      shared memory (another store, fence and barrier a tile);
+//   3. staging: tiles land by 16-byte cp.async as they are and are split
+//      into hi and lo once a tile (not once a product), while the next
+//      tile's copies fly; resident tiles (K1's Q, K2b's K and V) are
+//      split once, from device memory;
+//   4. shared memory: a 64 x 64 f32 tile is 16 KB, 32 with its hi and lo
+//      parts, so the tiles have one stage and each product is waited for
+//      within its iteration. K1 (flash_fwd_tf32_kernel): at d 64 two
+//      warpgroups of 64 query rows over 64-key tiles (Q hi/lo 64 KB, the
+//      landed K and V 32, K hi/lo 32, V^T hi/lo 32: 160 KB); at d 128 one
+//      warpgroup over 32-key tiles (64 + 32 + 32 + 32 = 160 KB). K2b
+//      (flash_bwd_dkv_tf32_kernel, flash_bwd_fused_tf32_kernel): K and V
+//      hi/lo resident (two warpgroups of 64 keys at d 64, one at d 128:
+//      128 KB either way), 32-row query tiles landed as they are (16 or
+//      32 KB), and one area (32 or 64 KB) that holds Q and dO split for
+//      S^T = K Q^T and dP^T = V dO^T, then Q^T and dO^T for dK += dS^T Q
+//      and dV += P^T dO once those are done, then (fused) each
+//      warpgroup's dS tile for dQ^T = K^T dS^T, whose A fragments each
+//      thread reads from K's tiles (K^T is no stored tile): 177 KB at d
+//      64, 226 KB at d 128. The fused dq is added by f32 atomics into the
+//      caller-zeroed buffer (chip_flash_variants.py's f32_staged_flush
+//      sums the groups' shares in shared memory and adds them by 16-byte
+//      vector reductions, an eighth of the atomic operations: no faster at
+//      d 64, slower at d 128 on the H100).
+// float32 K2a, and the f32 K1 and K2b bodies they replaced: CUDA cores
+// (tile.cuh, shared with block_sparse.cu). 256 threads as a 16 x 16
+// grid; thread (ty, tx) owns rows ty + 16 i (i < 4) and columns tx + 16 j
+// of every 64 x 64 score tile and every 64 x d accumulator. Tiles are
+// staged through shared memory as f32 with a padded row stride (d + 1);
+// products are CUDA-core FMAs. P and dS go through shared memory, rounded
+// to the input type first (a no-op in f32), as the tensor-core bodies and
+// JAX round them. K2b's bf16 instantiation is chip_flash_variants.py's
+// fused_cuda_cores, the fused mode's body before the tensor cores.
 //
 // The TPU's sequential grid becomes a loop inside each block:
 //   K1, K2a: one block per (b*h, query tile), walking key tiles up to
@@ -150,9 +198,10 @@
 //            every key-tile block, and those run in parallel, in no order
 //            (the TPU kernel relied on its grid running in order to
 //            revisit one VMEM block): they add into an f32 buffer the
-//            caller zeroed and casts afterwards (atomicAdd on CUDA cores,
-//            red.global.add.v4.f32 on the tensor cores), so the fused dq's
-//            summation order changes from run to run.
+//            caller zeroed and casts afterwards (atomicAdd on CUDA cores
+//            and in the f32 TF32 body, red.global.add.v4.f32 in the bf16
+//            tensor-core bodies), so the fused dq's summation order
+//            changes from run to run.
 // Heavy tiles are scheduled first: under causal masking the last query
 // tiles (K1, K2a) and the first key tiles (K2b) walk the most.
 
@@ -2047,6 +2096,585 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_wide_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// float32 bodies on the tensor cores (wgmma.cuh, TF32 section): K1 and K2b
+// (split and fused) at d 64 and 128, every tile product three TF32 wgmma
+// products (hi hi, hi lo, lo hi) accumulated in f32
+// ---------------------------------------------------------------------------
+
+// warpgroups a block and rows of a staged key tile (K1) at each width,
+// from the shared memory a block may take (227 KB): f32 tiles are twice
+// the bf16 ones and each is held as its hi and lo parts. K1 at d 64: Q
+// (hi, lo) of two warpgroups 64 KB, the landed K and V 32, K's hi and lo
+// 32 and V^T's 32: 160 KB. At d 128 the same at one warpgroup and 32-row
+// key tiles: Q 64 KB, landing 32, K 32, V^T 32: 160 KB.
+template <int D>
+constexpr int tf32_groups() { return D == 64 ? 2 : 1; }
+template <int D>
+constexpr int tf32_key_rows() { return D == 64 ? 64 : 32; }
+// K2b's staged query tiles: 32 rows (its S^T and dP^T are m64n32). K, V
+// (hi, lo) of the block's G warpgroups 128 KB either way, the landed Q
+// and dO 16 (d 64) or 32 KB (d 128), one area for Q and dO split (hi,
+// lo) and then for Q^T and dO^T (and fused, for dS) 32 or 64 KB, and m,
+// l, D: 177 KB at d 64 (G 2), 226 KB at d 128 (G 1)
+constexpr int kTf32QueryRows = 32;
+
+template <int D, int G, int KT>
+constexpr size_t fwd_tf32_smem() {
+  return (2 * G * wg::kRows * D + 6 * KT * D) * sizeof(float) + 1024;
+}
+template <int D, int G>
+constexpr size_t dkv_tf32_smem() {
+  return (4 * G * wg::kRows * D + 6 * kTf32QueryRows * D +
+          6 * kTf32QueryRows) * sizeof(float) + 1024;
+}
+
+// float32 K1: G warpgroups of 64 query rows, Q split into its hi and lo
+// tiles once; key tiles of KT rows land by cp.async (K and V as they are)
+// and are split once each: K into hi and lo tiles (the B of S = Q K^T),
+// V into the hi and lo tiles of V^T (the B of O += P V: tf32 wgmma reads
+// K-major only), while the next tile's copies fly. S = Q K^T as three
+// products a step from shared memory; the online softmax in registers as
+// the bf16 body's; P split in registers into the A fragments of O += P V
+// (a_frag32). Each product is waited for within its iteration: the tiles
+// have one stage.
+template <int D, int G, int KT>
+__global__ void __launch_bounds__(G * wg::kThreads) flash_fwd_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const uint8_t* __restrict__ mask,
+    float* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int h, int n, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kNT = G * wg::kThreads;
+  constexpr int kBlockRows = G * wg::kRows;
+  constexpr uint32_t kQ = wg::kRows * D * sizeof(float);   // 64 rows
+  constexpr uint32_t kK = KT * D * sizeof(float);          // a key tile
+  const uint32_t sQhi = aligned_smem(smem_raw);   // G tiles
+  const uint32_t sQlo = sQhi + G * kQ;            // G tiles
+  const uint32_t sKraw = sQlo + G * kQ;           // landing: K
+  const uint32_t sVraw = sKraw + kK;              // landing: V
+  const uint32_t sKhi = sVraw + kK;               // K (KT x D)
+  const uint32_t sKlo = sKhi + kK;
+  const uint32_t sVhi = sKlo + kK;                // V^T (D x KT), permuted
+  const uint32_t sVlo = sVhi + kK;
+
+  const int tid = threadIdx.x;
+  const int grp = tid / wg::kThreads;
+  const int warp = tid % wg::kThreads / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  const int num_blocks = (n + kBlockRows - 1) / kBlockRows;
+  const int q0 = (num_blocks - 1 - blockIdx.y) * kBlockRows;  // heavy first
+  const int wq0 = q0 + grp * wg::kRows;
+  const size_t base = static_cast<size_t>(bh) * n * D;
+  const float* kh = k + base;
+  const float* vh = v + base;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  const int last_row = min(q0 + kBlockRows, n) - 1;
+  const int num_k = causal ? last_row / KT + 1 : (n + KT - 1) / KT;
+
+  auto load_keys = [&](int it) {       // one copy group, maybe empty
+    if (it < num_k) {
+      wg::load_tile32<KT, D, kNT>(sKraw, kh, it * KT, n, tid);
+      wg::load_tile32<KT, D, kNT>(sVraw, vh, it * KT, n, tid);
+    }
+    wg::cp_async_commit();
+  };
+  load_keys(0);
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    wg::split_global<wg::kRows, D, kNT>(sQhi + i * kQ, sQlo + i * kQ,
+                                        q + base, q0 + i * wg::kRows, n, tid);
+
+  int row[2];
+  bool qm[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = wq0 + 16 * warp + g + 8 * hh;
+    qm[hh] = row[hh] < n && (mask_row == nullptr || mask_row[row[hh]]);
+  }
+  const bool live_group = wq0 < n;
+  const uint32_t tQhi = sQhi + grp * kQ;
+  const uint32_t tQlo = sQlo + grp * kQ;
+  float o[D / 2];
+  zero(o);
+  float m_i[2] = {kFill, kFill}, l_i[2] = {0.f, 0.f};   // l_i: this lane's
+
+  for (int it = 0; it < num_k; ++it) {
+    wg::cp_async_wait<0>();           // key tile `it` has landed
+    __syncthreads();                  // ... for all; tile it - 1 is spent
+    wg::split_tile<KT, D, kNT>(sKhi, sKlo, sKraw, tid);
+    wg::split_tile_t<KT, D, kNT>(sVhi, sVlo, sVraw, tid);
+    wg::fence_async_shared();
+    __syncthreads();                  // the split tiles are visible, the
+    load_keys(it + 1);                // landing is free
+    const int k0 = it * KT;
+    if (!live_group || (causal && k0 > wq0 + wg::kRows - 1)) continue;
+
+    float s[KT / 2];
+    zero(s);
+    wg::mma_fence();
+    wg::mma3_ss<KT>(s, tQhi, tQlo, sKhi, sKlo, D / 8, false);
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::hold(s);
+
+    // masks as the bf16 body tests them: only the diagonal tile is
+    // causal-tested, only the last tile ragged-tested, and pad pairs only
+    // where a pad is in view (warp-uniform)
+    const uint64_t kbits =
+        mask_row ? wg::row_bits<KT>(mask_row, k0, n, lane) : ~0ull;
+    const bool diag = causal && k0 + KT - 1 > wq0;
+    const bool ragged = k0 + KT > n;
+    const bool pad = mask_row != nullptr &&
+                     (__any_sync(0xffffffffu, !(qm[0] && qm[1])) ||
+                      kbits != wg::all_rows<KT>());
+    if (diag || ragged || pad) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            float& x = s[4 * j + 2 * hh + e];
+            x *= scale;
+            if (pad && !(qm[hh] && (kbits >> c & 1))) x = kFill;
+            if (k0 + c >= n || (diag && k0 + c > row[hh])) x = -INFINITY;
+          }
+    } else {
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) s[i] *= scale;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float rmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+        rmax = fmaxf(rmax, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      const float m_new = fmaxf(m_i[hh], wg::quad_max(rmax));
+      const float alpha = wg::exp2_approx((m_i[hh] - m_new) * kLog2e);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * hh + e];
+          x = wg::exp2_approx((x - m_new) * kLog2e);
+          psum += x;
+        }
+      l_i[hh] = l_i[hh] * alpha + psum;
+      m_i[hh] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * hh] *= alpha;
+        o[4 * j + 2 * hh + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P split in registers (a_frag32), V^T's rows permuted to
+    // match
+    uint32_t ph[KT / 8][4], pl[KT / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) wg::a_frag32(s, kk, ph[kk], pl[kk]);
+    wg::mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk)
+      wg::mma3_rs<D>(o, ph[kk], pl[kk], wg::desc_k32<D>(sVhi, kk),
+                     wg::desc_k32<D>(sVlo, kk));
+    wg::mma_commit();
+    wg::mma_wait<0>();                // frees V^T for the next split
+    wg::hold(o);
+    wg::hold_u(ph);
+    wg::hold_u(pl);
+  }
+
+  if (!live_group) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float l = wg::quad_sum(l_i[hh]);
+    const float l_safe = l == 0.f ? 1.f : l;
+    const float inv = 1.f / l_safe;
+    if (row[hh] >= n) continue;
+    float* dst = out + base + static_cast<size_t>(row[hh]) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(
+          o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    if (t == 0) {
+      m_out[static_cast<size_t>(bh) * n + row[hh]] = m_i[hh];
+      l_out[static_cast<size_t>(bh) * n + row[hh]] = l_safe;
+    }
+  }
+}
+
+// float32 K2b: G warpgroups of 64 key rows, K and V split into hi and lo
+// tiles once (the A operands of S^T = K Q^T and dP^T = V dO^T); query
+// tiles of 32 rows (Q, dO and their rows' m, l, D) land by cp.async and
+// are split twice into one area: first as they are (the B operands of
+// S^T and dP^T), then, once those products are done, as Q^T and dO^T
+// (the B operands of dK += dS^T Q and dV += P^T dO, rows permuted for the
+// register A fragments of P^T and dS^T), after which the next tile's
+// copies fly. P^T and dS^T are computed in registers as the bf16 body
+// computes them. Fused (flash_bwd_fused_tf32_kernel): once dV and dK are
+// done, each warpgroup stores its dS (query rows, its 64 keys contiguous;
+// hi and lo) over the area and takes dQ^T = K^T dS^T for its keys, K^T's
+// A fragments read from the K tiles by each thread (K^T is K-major only
+// as K's transpose), 64 rows of d at a time, and adds it into the
+// caller-zeroed f32 dq (atomics).
+template <int D, int G, bool WITH_DQ>
+__device__ __forceinline__ void dkv_tf32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l,
+    const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq,
+    int h, int n, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int QT = kTf32QueryRows;
+  constexpr int kNT = G * wg::kThreads;
+  constexpr int kBlockRows = G * wg::kRows;
+  constexpr uint32_t kT = wg::kRows * D * sizeof(float);   // K or V rows
+  constexpr uint32_t kQT = QT * D * sizeof(float);         // a query tile
+  constexpr uint32_t kS = QT * wg::kRows * sizeof(float);  // fused: dS
+  static_assert(2 * G * kS <= 4 * kQT, "dS fits in the area");
+  const uint32_t sKhi = aligned_smem(smem_raw);   // G tiles each
+  const uint32_t sKlo = sKhi + G * kT;
+  const uint32_t sVhi = sKlo + G * kT;
+  const uint32_t sVlo = sVhi + G * kT;
+  const uint32_t sQraw = sVlo + G * kT;           // landing: Q, dO
+  const uint32_t sOraw = sQraw + kQT;
+  const uint32_t sA = sOraw + kQT;                // the area: 4 tiles
+  const uint32_t sStatRaw = sA + 4 * kQT;         // landing: m, l, D
+  const uint32_t sStat = sStatRaw + 3 * QT * sizeof(float);  // m, 1 / l, D
+  float* stat = reinterpret_cast<float*>(
+      smem_raw + (sStat - wg::smem_addr(smem_raw)));
+  const float* stat_raw = stat - 3 * QT;
+
+  const int tid = threadIdx.x;
+  const int grp = tid / wg::kThreads;
+  const int warp = tid % wg::kThreads / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x;
+  const int kv0 = blockIdx.y * kBlockRows;        // heavy (causal) first
+  const int wk0 = kv0 + grp * wg::kRows;
+  const size_t base = static_cast<size_t>(bh) * n * D;
+  const size_t sbase = static_cast<size_t>(bh) * n;
+  const float* qh = q + base;
+  const float* oh = dout + base;
+  const uint8_t* mask_row = mask ? mask + static_cast<size_t>(bh / h) * n
+                                 : nullptr;
+  const int num_q = (n + QT - 1) / QT;
+  const int iq0 = causal ? kv0 / QT : 0;
+
+  auto load_queries = [&](int iq) {         // one copy group, maybe empty
+    if (iq < num_q) {
+      const int q0 = iq * QT;
+      wg::load_tile32<QT, D, kNT>(sQraw, qh, q0, n, tid);
+      wg::load_tile32<QT, D, kNT>(sOraw, oh, q0, n, tid);
+      for (int i = tid; i < 3 * QT; i += kNT) {
+        const float* src = i < QT ? m : i < 2 * QT ? l : dstat;
+        const int r = q0 + i % QT;
+        wg::cp_async4(sStatRaw + 4 * i, src + sbase + (r < n ? r : 0),
+                      r < n);
+      }
+    }
+    wg::cp_async_commit();
+  };
+  load_queries(iq0);
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    wg::split_global<wg::kRows, D, kNT>(sKhi + i * kT, sKlo + i * kT,
+                                        k + base, kv0 + i * wg::kRows, n,
+                                        tid);
+    wg::split_global<wg::kRows, D, kNT>(sVhi + i * kT, sVlo + i * kT,
+                                        v + base, kv0 + i * wg::kRows, n,
+                                        tid);
+  }
+
+  int krow[2];
+  bool km[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    krow[hh] = wk0 + 16 * warp + g + 8 * hh;
+    km[hh] = krow[hh] < n && (mask_row == nullptr || mask_row[krow[hh]]);
+  }
+  const bool live_group = wk0 < n;
+  const uint32_t tKhi = sKhi + grp * kT, tKlo = sKlo + grp * kT;
+  const uint32_t tVhi = sVhi + grp * kT, tVlo = sVlo + grp * kT;
+  // the area: Q, dO as they are (hi, lo), then Q^T, dO^T, then dS
+  const uint32_t aQhi = sA, aQlo = sA + kQT;
+  const uint32_t aOhi = sA + 2 * kQT, aOlo = sA + 3 * kQT;
+  const uint32_t aShi = sA + grp * 2 * kS, aSlo = aShi + kS;
+  float dk_acc[D / 2], dv_acc[D / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int iq = iq0; iq < num_q; ++iq) {
+    const int q0 = iq * QT;
+    wg::cp_async_wait<0>();           // query tile `iq` has landed
+    __syncthreads();                  // ... for all; the area is free
+    wg::split_tile<QT, D, kNT>(aQhi, aQlo, sQraw, tid);
+    wg::split_tile<QT, D, kNT>(aOhi, aOlo, sOraw, tid);
+    if (tid < QT) {
+      const bool ok = q0 + tid < n;
+      stat[tid] = ok ? stat_raw[tid] : 0.f;
+      stat[QT + tid] = ok ? 1.f / stat_raw[QT + tid] : 1.f;
+      stat[2 * QT + tid] = ok ? stat_raw[2 * QT + tid] : 0.f;
+    }
+    wg::fence_async_shared();
+    __syncthreads();
+    const uint64_t qbits =
+        mask_row ? wg::row_bits<QT>(mask_row, q0, n, lane) : ~0ull;
+    // causal: a query tile wholly before this group's keys sees none
+    const bool active = live_group && !(causal && q0 + QT - 1 < wk0);
+
+    float st[QT / 2], dpt[QT / 2];    // S^T, dP^T: rows keys, columns queries
+    uint32_t keep = ~0u;
+    bool edge = false;
+    if (active) {
+      float stc[QT / 2], dptc[QT / 2];  // their small products (mma3_ss2)
+      zero(st);
+      zero(stc);
+      zero(dpt);
+      zero(dptc);
+      wg::mma_fence();
+      wg::mma3_ss2(st, stc, tKhi, tKlo, aQhi, aQlo, D / 8);
+      wg::mma_commit();
+      wg::mma3_ss2(dpt, dptc, tVhi, tVlo, aOhi, aOlo, D / 8);
+      wg::mma_commit();
+      wg::mma_wait<1>();              // S^T (dP^T may still run)
+      wg::hold(st);
+      wg::hold(stc);
+#pragma unroll
+      for (int i = 0; i < QT / 2; ++i) st[i] += stc[i];
+      const float* sm = stat;
+      // P^T (sm[QT + c] holds 1 / l); pairs are tested only in a tile
+      // that has some left out or pad-filled (warp-uniform); `keep` bit
+      // i: pair i is neither
+      edge = (causal && q0 < wk0 + wg::kRows - 1) || q0 + QT > n ||
+             wk0 + wg::kRows > n ||
+             (mask_row != nullptr &&
+              (__any_sync(0xffffffffu, !(km[0] && km[1])) ||
+               qbits != wg::all_rows<QT>()));
+      if (edge) {
+        keep = 0;
+#pragma unroll
+        for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            const bool qlive = qbits >> c & 1;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int i = 4 * j + 2 * hh + e;
+              const bool live = mask_row == nullptr || (km[hh] && qlive);
+              const bool excl = q0 + c >= n || krow[hh] >= n ||
+                                (causal && q0 + c < krow[hh]);
+              const float x = live ? st[i] * scale : kFill;
+              st[i] = excl ? 0.f
+                           : wg::exp2_approx((x - sm[c]) * kLog2e) *
+                                 sm[QT + c];
+              keep |= static_cast<uint32_t>(live && !excl) << i;
+            }
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            const float mq = sm[c], inv_l = sm[QT + c];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float& x = st[4 * j + 2 * hh + e];
+              x = wg::exp2_approx((x * scale - mq) * kLog2e) * inv_l;
+            }
+          }
+      }
+      wg::mma_wait<0>();              // dP^T
+      wg::hold(dpt);
+      wg::hold(dptc);
+#pragma unroll
+      for (int i = 0; i < QT / 2; ++i) dpt[i] += dptc[i];
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float drow = sm[2 * QT + 8 * j + 2 * t + e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = 4 * j + 2 * hh + e;
+            const float ds = st[i] * (dpt[i] - drow) * scale;
+            dpt[i] = !edge || keep >> i & 1 ? ds : 0.f;
+          }
+        }
+    }
+    __syncthreads();                  // every group's S^T and dP^T read
+    wg::split_tile_t<QT, D, kNT>(aQhi, aQlo, sQraw, tid);   // Q^T
+    wg::split_tile_t<QT, D, kNT>(aOhi, aOlo, sOraw, tid);   // dO^T
+    wg::fence_async_shared();
+    __syncthreads();                  // the landing is free
+    load_queries(iq + 1);
+    // the A fragments of P^T, then of dS^T (one set live at a time: dV
+    // is waited for before dS^T's are built); fused, dS^T's also give
+    // the dS tile
+    uint32_t fh[QT / 8][4], fl[QT / 8][4];
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < QT / 8; ++kk) wg::a_frag32(st, kk, fh[kk], fl[kk]);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 8; ++kk)        // dV += P^T dO
+        wg::mma3_rs<D>(dv_acc, fh[kk], fl[kk], wg::desc_k32<D>(aOhi, kk),
+                       wg::desc_k32<D>(aOlo, kk));
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::hold(dv_acc);
+      wg::hold_u(fh);
+      wg::hold_u(fl);
+#pragma unroll
+      for (int kk = 0; kk < QT / 8; ++kk)
+        wg::a_frag32(dpt, kk, fh[kk], fl[kk]);
+      wg::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 8; ++kk)        // dK += dS^T Q
+        wg::mma3_rs<D>(dk_acc, fh[kk], fl[kk], wg::desc_k32<D>(aQhi, kk),
+                       wg::desc_k32<D>(aQlo, kk));
+      wg::mma_commit();
+      wg::mma_wait<0>();
+      wg::hold(dk_acc);
+      wg::hold_u(fh);
+      wg::hold_u(fl);
+    }
+    if constexpr (WITH_DQ) {
+      __syncthreads();                // Q^T and dO^T are spent: dS takes
+      if (active) {                   // the area, (query, key) rows:
+#pragma unroll                        // fragment f of step kk is dS^T's
+        for (int kk = 0; kk < QT / 8; ++kk)   // key row 16 warp + g +
+#pragma unroll                        // 8 (f & 1), query 8 kk + 2 t + f / 2
+          for (int f = 0; f < 4; ++f) {
+            const int c = 8 * kk + 2 * t + (f >> 1);  // query
+            const int r = 16 * warp + g + 8 * (f & 1);  // key of this group
+            const uint32_t at = wg::swz32<QT>(c, r >> 2) + (r & 3) * 4;
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(aShi + at),
+                         "r"(fh[kk][f])
+                         : "memory");
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(aSlo + at),
+                         "r"(fl[kk][f])
+                         : "memory");
+          }
+      }
+      wg::fence_async_shared();
+      __syncthreads();
+      if (active) {
+        // dQ^T (64 rows of d at a time x QT queries) = K^T dS^T: K^T's A
+        // fragment of step kk (keys 8 kk ..) holds K[8 kk + t (+ 4)]
+        // [64 mh + 16 warp + g (+ 8)], hi and lo from K's tiles
+#pragma unroll
+        for (int mh = 0; mh < D / 64; ++mh) {
+          float dqt[QT / 2];
+          zero(dqt);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            uint32_t ah[4][4], al[4][4];
+#pragma unroll
+            for (int s4 = 0; s4 < 4; ++s4) {
+              const int kk = 4 * half + s4;
+#pragma unroll
+              for (int f = 0; f < 4; ++f) {
+                const int key = 8 * kk + t + 4 * (f >> 1);
+                const int col = 64 * mh + 16 * warp + g + 8 * (f & 1);
+                const uint32_t at =
+                    wg::swz32<wg::kRows>(key, col >> 2) + (col & 3) * 4;
+                asm volatile("ld.shared.b32 %0, [%1];\n"
+                             : "=r"(ah[s4][f])
+                             : "r"(tKhi + at)
+                             : "memory");
+                asm volatile("ld.shared.b32 %0, [%1];\n"
+                             : "=r"(al[s4][f])
+                             : "r"(tKlo + at)
+                             : "memory");
+              }
+            }
+            wg::mma_fence();
+#pragma unroll
+            for (int s4 = 0; s4 < 4; ++s4)
+              wg::mma3_rs<QT>(dqt, ah[s4], al[s4],
+                              wg::desc_k32<QT>(aShi, 4 * half + s4),
+                              wg::desc_k32<QT>(aSlo, 4 * half + s4));
+            wg::mma_commit();
+            wg::mma_wait<0>();
+            wg::hold(dqt);
+            wg::hold_u(ah);
+            wg::hold_u(al);
+          }
+          // dqt[4 j + 2 hh + e]: row of d 64 mh + 16 warp + g + 8 hh,
+          // query q0 + 8 j + 2 t + e
+#pragma unroll
+          for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int qr = q0 + 8 * j + 2 * t + e;
+              if (qr >= n) continue;
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh)
+                atomicAdd(dq + base + static_cast<size_t>(qr) * D + 64 * mh +
+                              16 * warp + g + 8 * hh,
+                          dqt[4 * j + 2 * hh + e]);
+            }
+        }
+      }
+    }
+  }
+
+  if (!live_group) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (krow[hh] >= n) continue;
+    const size_t at = base + static_cast<size_t>(krow[hh]) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * hh;
+      *reinterpret_cast<float2*>(dk + at + 8 * j) =
+          make_float2(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * j) =
+          make_float2(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+// float32 K2b split (d 64, 128): dk and dv
+template <int D, int G>
+__global__ void __launch_bounds__(G * wg::kThreads)
+    flash_bwd_dkv_tf32_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ m, const float* __restrict__ l,
+        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+        float* __restrict__ dk, float* __restrict__ dv, int h, int n,
+        float scale, int causal) {
+  dkv_tf32<D, G, false>(q, k, v, dout, m, l, dstat, mask, dk, dv, nullptr,
+                        h, n, scale, causal);
+}
+
+// float32 K2b fused (d 64, 128): dk, dv and the f32 dq
+template <int D, int G>
+__global__ void __launch_bounds__(G * wg::kThreads)
+    flash_bwd_fused_tf32_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ m, const float* __restrict__ l,
+        const float* __restrict__ dstat, const uint8_t* __restrict__ mask,
+        float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq,
+        int h, int n, float scale, int causal) {
+  dkv_tf32<D, G, true>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, h, n,
+                       scale, causal);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -2288,6 +2916,64 @@ cudaError_t launch_dq_wide_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// float32 K1 on the tensor cores, d 64 and 128
+template <int D>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v,
+                            const void* mask, void* out, void* m, void* l,
+                            int bh, int h, int n, float scale, int causal,
+                            cudaStream_t stream) {
+  constexpr int G = tf32_groups<D>();
+  constexpr int KT = tf32_key_rows<D>();
+  const size_t smem = fwd_tf32_smem<D, G, KT>();
+  auto kernel = flash_fwd_tf32_kernel<D, G, KT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (n + G * wg::kRows - 1) / (G * wg::kRows));
+  kernel<<<grid, G * wg::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(l),
+      h, n, scale, causal);
+  return cudaGetLastError();
+}
+
+// float32 K2b on the tensor cores, d 64 and 128: split mode, or fused
+// (WITH_DQ: flash_bwd_fused_tf32_kernel)
+template <int D, bool WITH_DQ>
+cudaError_t launch_dkv_tf32(const void* q, const void* k, const void* v,
+                            const void* dout, const void* m, const void* l,
+                            const void* dstat, const void* mask, void* dk,
+                            void* dv, void* dq, int bh, int h, int n,
+                            float scale, int causal, cudaStream_t stream) {
+  constexpr int G = tf32_groups<D>();
+  const size_t smem = dkv_tf32_smem<D, G>();
+  dim3 grid(bh, (n + G * wg::kRows - 1) / (G * wg::kRows));
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* of = static_cast<const float*>(dout);
+  const auto* ms = static_cast<const float*>(m);
+  const auto* ls = static_cast<const float*>(l);
+  const auto* ds = static_cast<const float*>(dstat);
+  const auto* mk = static_cast<const uint8_t*>(mask);
+  cudaError_t err;
+  if constexpr (WITH_DQ) {
+    auto kernel = flash_bwd_fused_tf32_kernel<D, G>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, G * wg::kThreads, smem, stream>>>(
+        qf, kf, vf, of, ms, ls, ds, mk, static_cast<float*>(dk),
+        static_cast<float*>(dv), static_cast<float*>(dq), h, n, scale,
+        causal);
+  } else {
+    auto kernel = flash_bwd_dkv_tf32_kernel<D, G>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, G * wg::kThreads, smem, stream>>>(
+        qf, kf, vf, of, ms, ls, ds, mk, static_cast<float*>(dk),
+        static_cast<float*>(dv), h, n, scale, causal);
+  }
+  return cudaGetLastError();
+}
+
 // the wide CUDA-core bodies: grid (b*h, 64-row tiles, 128-column slices)
 dim3 wide_grid(int bh, int n, int d) {
   return dim3(bh, (n + kTile - 1) / kTile, (d + kSliceCols - 1) / kSliceCols);
@@ -2391,10 +3077,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                      : launch_fwd_wide<bf16>(q, k, v, mask, out, m, l, bh, h,
                                              n, d, scale, causal, s);
   else if (dtype == 0)
-    err = d == 64 ? launch_fwd<64>(q, k, v, mask, out, m, l, bh, h, n, scale,
-                                   causal, s)
-                  : launch_fwd<128>(q, k, v, mask, out, m, l, bh, h, n, scale,
-                                    causal, s);
+    err = d == 64 ? launch_fwd_tf32<64>(q, k, v, mask, out, m, l, bh, h, n,
+                                        scale, causal, s)
+                  : launch_fwd_tf32<128>(q, k, v, mask, out, m, l, bh, h, n,
+                                         scale, causal, s);
   else
     err = d == 64 ? launch_fwd_wgmma<64>(q, k, v, mask, out, m, l, bh, h, n,
                                          scale, causal, s)
@@ -2464,6 +3150,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 #define FA_DKV_WIDE(T, F)                                                   \
   launch_dkv_wide<T, F>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, bh, h, \
                         n, d, scale, causal, s)
+#define FA_DKV_TF32(D, F)                                                   \
+  launch_dkv_tf32<D, F>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, bh, h, \
+                        n, scale, causal, s)
 #define FA_DKV_WGMMA(LAUNCH, D)                                             \
   LAUNCH<D>(q, k, v, dout, m, l, dstat, mask, dk, dv, dq, bh, h, n, scale,  \
             causal, s)
@@ -2479,11 +3168,12 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
     err = d == 64 ? FA_DKV_WGMMA(launch_dkv_wgmma, 64)
                   : FA_DKV_WGMMA(launch_dkv_wgmma, 128);
   } else if (dq == nullptr) {
-    err = d == 64 ? FA_DKV(float, 64, false) : FA_DKV(float, 128, false);
+    err = d == 64 ? FA_DKV_TF32(64, false) : FA_DKV_TF32(128, false);
   } else {
-    err = d == 64 ? FA_DKV(float, 64, true) : FA_DKV(float, 128, true);
+    err = d == 64 ? FA_DKV_TF32(64, true) : FA_DKV_TF32(128, true);
   }
 #undef FA_DKV
+#undef FA_DKV_TF32
 #undef FA_DKV_WIDE
 #undef FA_DKV_WGMMA
   return static_cast<int>(err);

@@ -35,11 +35,16 @@ products against ~42 MB moved in bf16, above the ~295 flops per byte
 where the tensor cores, not memory, set the limit; K2a and K2b do 1.5x
 and 2x (2.5x fused) K1's products. In bfloat16, K1, K2a and K2b (split
 and fused) run on the tensor cores (wgmma over asynchronously staged
-bf16 tiles, ``csrc/wgmma.cuh``; above d 128 at d 192 and 256); float32
-and the other wide calls run CUDA-core FMAs
-(``csrc/flash_attention.cu`` says how). Like the Pallas bodies, every
-version rounds p and ds to the input dtype before the second product of
-each pair.
+bf16 tiles, ``csrc/wgmma.cuh``; above d 128 at d 192 and 256). In
+float32 at d 64 and 128, K1 and K2b (split and fused) run on the tensor
+cores too, each f32 tile product as three TF32 products (a_hi b_hi +
+a_hi b_lo + a_lo b_hi, hi = tf32(x), lo = tf32(x - hi), accumulated in
+f32: a few f32 ulps, where one TF32 product is 2^-11 relative);
+float32 K2a, float32 above d 128 and the other wide calls run CUDA-core
+FMAs (``csrc/flash_attention.cu`` says how; ``chip_flash_variants.py``
+keeps the float32 CUDA-core K1 and K2b as its ``f32_cuda_cores``
+variant). Like the Pallas bodies, every version rounds p and ds to the
+input dtype before the second product of each pair.
 
 Head dims: any d >= 1, as the JAX kernels take. The narrow bodies are
 compiled for d 64 and 128 (``KERNEL_DIM_HEADS``); above 128 the wide
@@ -283,6 +288,10 @@ def kernel_body(kind: str, dtype: torch.dtype, d: int) -> str:
     if width <= NARROW_MAX_DIM_HEAD:
         if dtype == torch.bfloat16:
             return f"{tc_stem}_wgmma_kernel"
+        # float32 K1 and K2b (split and fused) on the tensor cores, in
+        # three TF32 products a tile product; K2a on the CUDA cores
+        if kind != "dq":
+            return f"{tc_stem}_tf32_kernel"
         return f"{stem}_kernel"
     if wide_tensor_cores(dtype, width):
         return f"{tc_stem}_wide_wgmma_kernel"

@@ -377,14 +377,19 @@ BODY_ROUTES = [
     ("float32", 256, "dq", "flash_bwd_dq_wide_kernel"),
     ("bfloat16", 320, "dq", "flash_bwd_dq_wide_kernel"),
     # up to 128 the narrow bodies: bfloat16 on the tensor cores (fused
-    # K2b too), float32 on CUDA cores
+    # K2b too); float32 K1 and K2b (split and fused) on the tensor cores
+    # in three TF32 products, float32 K2a on CUDA cores
     ("bfloat16", 64, "fwd", "flash_fwd_wgmma_kernel"),
     ("bfloat16", 16, "dq", "flash_bwd_dq_wgmma_kernel"),
     ("bfloat16", 128, "dkv", "flash_bwd_dkv_wgmma_kernel"),
     ("bfloat16", 128, "fused", "flash_bwd_fused_wgmma_kernel"),
     ("bfloat16", 64, "fused", "flash_bwd_fused_wgmma_kernel"),
-    ("float32", 64, "fwd", "flash_fwd_kernel"),
-    ("float32", 64, "fused", "flash_bwd_dkv_kernel"),
+    ("float32", 64, "fwd", "flash_fwd_tf32_kernel"),
+    ("float32", 64, "fused", "flash_bwd_fused_tf32_kernel"),
+    ("float32", 128, "fwd", "flash_fwd_tf32_kernel"),
+    ("float32", 48, "dkv", "flash_bwd_dkv_tf32_kernel"),
+    ("float32", 128, "fused", "flash_bwd_fused_tf32_kernel"),
+    ("float32", 64, "dq", "flash_bwd_dq_kernel"),
 ]
 
 
@@ -393,7 +398,8 @@ def test_kernel_body_routes_each_call(dtype, d, kind, kernel):
     """The dispatch helper names the wide tensor-core bodies for bfloat16
     K1, K2a and K2b (split and fused) at d 192 and 256 (and the d padded
     to them), the CUDA-core wide bodies for float32 and d 320, and the
-    narrow bodies up to 128 (bfloat16 fused K2b on the tensor cores)."""
+    narrow bodies up to 128 (bfloat16 fused K2b on the tensor cores;
+    float32 K1 and K2b, split and fused, on their TF32 bodies)."""
     assert TF.kernel_body(kind, getattr(torch, dtype), d) == kernel
 
 
@@ -421,11 +427,13 @@ def test_kernel_body_names_kernels_of_the_source():
              for dtype in (torch.float32, torch.bfloat16)
              for d in (16, 64, 128, 192, 256, 320)}
     assert named <= kernels, named - kernels
-    # the fused mode's own tensor-core bodies, narrow and wide, and the
-    # wide K2a's
+    # the fused mode's own tensor-core bodies, narrow and wide, the wide
+    # K2a's, and float32 K1 and K2b's TF32 bodies
     assert {"flash_bwd_fused_wgmma_kernel",
             "flash_bwd_fused_wide_wgmma_kernel",
-            "flash_bwd_dq_wide_wgmma_kernel"} <= named
+            "flash_bwd_dq_wide_wgmma_kernel", "flash_fwd_tf32_kernel",
+            "flash_bwd_dkv_tf32_kernel",
+            "flash_bwd_fused_tf32_kernel"} <= named
     assert TF.WIDE_WGMMA_DIM_HEADS == (192, 256)
 
 

@@ -11,9 +11,13 @@ of its summands' magnitude (sum_j p_j |v_j|), because the kernel sums
 up to 1279 signed terms in another order than the plain version.
 
 The flash kernels (K1, K2a, K2b) against their plain versions: float32
-(TF32 off) to rtol/atol 2e-4 — both sides accumulate in f32, over up to
-1,280 terms in another order, and the fused dq adds its key-tile shares
-with atomics in an order that changes from run to run; bfloat16 to
+(TF32 off in the plain versions) to rtol/atol 2e-4 — both sides
+accumulate in f32, over up to 1,280 terms in another order, and the
+fused dq adds its key-tile shares with atomics in an order that changes
+from run to run; float32 K1 and K2b (split and fused) at d 64 and 128
+run on the tensor cores as three TF32 products a product (a few f32
+ulps; ``test_f32_tensor_core_bodies_hold_a_wide_dynamic_range`` holds
+them where one TF32 product would fail), K2a on CUDA cores; bfloat16 to
 rtol/atol 2e-2, one bf16 rounding of the output (2^-8 relative) on
 either side plus the f32 differences (bfloat16 K1, K2a and K2b, split
 and fused, run on the tensor cores, and both sides round p and ds to
@@ -564,7 +568,8 @@ def test_flash_kernels_match_plain(cuda, dtype, d, n, masked, causal):
 def test_flash_fwd_and_split_dkv_match_plain_over_long_walks(
         cuda, dtype, d, n, masked, causal):
     """K1 and K2b split, whose bfloat16 bodies run on the tensor cores
-    (float32 on CUDA cores; d 192 and 256 the wide bodies), over walks of
+    (float32 too at d 64 and 128, three TF32 products a product; d 192
+    and 256 the wide bodies), over walks of
     one tile (n 37), of 16 tiles with a ragged last one (n 1000) and of
     20 full tiles (n 1280, the north length): every stage of the key and
     query rings, and the whole causal walk."""
@@ -625,6 +630,164 @@ def test_bf16_fused_dkv_matches_plain_over_long_walks(cuda, d, n, masked,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [300, 1280])
+@pytest.mark.parametrize("d", [16, 64, 96, 128])
+def test_f32_fused_dkv_matches_plain_over_long_walks(cuda, d, n, masked,
+                                                     causal):
+    """Fused K2b in float32 on its TF32 tensor-core body at d 64 and 128
+    (16 and 96 padded to them) over a ragged walk (n 300) and the north
+    length (n 1280: forty 32-row query tiles, and dq's shares from every
+    key block), each call launching the kernel ``kernel_body`` names."""
+    q, k, v, do, mask = flash_inputs(cuda, torch.float32, n, d, masked,
+                                     b=1, h=2)
+    kw = dict(scale=d ** -0.5, causal=causal, mask=mask)
+    out, m, l = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    args = (q, k, v, do, m, l, (do.float() * out.float()).sum(-1))
+    dk_p, dv_p, dq_p = FA.flash_attention_bwd_dkv_plain(*args, with_dq=True,
+                                                        **kw)
+    call = lambda: FA.flash_attention_bwd_dkv(  # noqa: E731
+        *args, with_dq=True, **kw)
+    before = FA.flash_attention_bwd_dkv.launches
+    dk, dv, dq = call()
+    torch.cuda.synchronize()
+    assert FA.flash_attention_bwd_dkv.launches == before + 1
+    assert profiled_bodies(call, r"(flash_\w+?_kernel)<") == {
+        FA.kernel_body("fused", torch.float32, d)}
+    for got, want in ((dk, dk_p), (dv, dv_p), (dq, dq_p)):
+        assert_grad_close(got, want, torch.float32)
+
+
+def f64_attention(q, k, v, do, mask, scale, causal):
+    """out, dq, dk and dv in float64 under the kernels' masking contract:
+    the yardstick that says whether float32 itself resolves a case."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    n = q.shape[2]
+    s = torch.einsum("bhid,bhjd->bhij", q, k) * scale
+    live = None
+    if mask is not None:
+        live = (mask[:, :, None] & mask[:, None, :])[:, None]
+        s = torch.where(live, s, FA.FILL)
+    if causal:
+        future = torch.ones((n, n), dtype=torch.bool,
+                            device=q.device).triu(1)
+        s = s.masked_fill(future, float("-inf"))
+    m = torch.clamp(s.amax(-1), min=FA.FILL)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    l = torch.where(l == 0, 1.0, l)
+    out = torch.einsum("bhij,bhjd->bhid", p, v) / l[..., None]
+    p = p / l[..., None]
+    dp = torch.einsum("bhid,bhjd->bhij", do, v)
+    ds = p * (dp - (do * out).sum(-1)[..., None]) * scale
+    if live is not None:
+        ds = torch.where(live, ds, 0.0)
+    return {"out": out, "dq": torch.einsum("bhij,bhjd->bhid", ds, k),
+            "dk": torch.einsum("bhij,bhid->bhjd", ds, q),
+            "dv": torch.einsum("bhij,bhid->bhjd", p, do)}
+
+
+# the wide-range cases of the float32 TF32 bodies, and the outputs each
+# holds: "peaked_v_mix" (q scaled by 30, a peaked softmax, and v's
+# entries of order 1e4 beside 1e-3, positive so that out, a weighted
+# average, does not cancel) holds out, m, l and dv; its dq and dk run
+# through dP - D, two values of order 1e4 that cancel under the peaked
+# softmax, where float32 itself is off by more than 2e-4 (the plain f32
+# version against float64: thousands of elements), so "q_mix" (q's
+# entries of order 10 beside 1e-3, v as drawn; at 30 beside 1e-3 the
+# plain f32 dk misses float64 on one element at d 128) holds every output
+WIDE_RANGE_CASES = {"peaked_v_mix": ("out", "dv"),
+                    "q_mix": ("out", "dq", "dk", "dv")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", list(WIDE_RANGE_CASES))
+def test_f32_tensor_core_bodies_hold_a_wide_dynamic_range(cuda, case, d,
+                                                          masked, causal):
+    """float32 K1 and K2b (split and fused) on their TF32 bodies where a
+    hi/lo split goes wrong: operands whose entries span seven orders of
+    magnitude (``WIDE_RANGE_CASES``). One TF32 product (2^-11 relative)
+    puts tens of thousands of these outputs past the f32 tolerance of
+    2e-4 (tests/test_torch_tf32x3.py emulates it); three hold them
+    against the plain versions at 2e-4 unchanged. Each held output is
+    first checked to be one float32 resolves: the plain version holds a
+    float64 reference at the same tolerance."""
+    q, k, v, do, mask = flash_inputs(cuda, torch.float32, 300, d, masked,
+                                     b=1, h=2)
+    rs = np.random.RandomState(d + 7)
+    big = torch.tensor(rs.rand(*v.shape) < 0.5, device=cuda)
+    if case == "peaked_v_mix":
+        q = q * 30
+        v = torch.where(big, v.abs() * 1e4, v.abs() * 1e-3).contiguous()
+    else:
+        q = torch.where(big, q * 10, q * 1e-3).contiguous()
+    held = WIDE_RANGE_CASES[case]
+    kw = dict(scale=d ** -0.5, causal=causal, mask=mask)
+    out, m, l = FA.flash_attention_fwd(q, k, v, **kw)
+    out_p, m_p, l_p = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    dstat = (do.float() * out_p.float()).sum(-1)
+    args = (q, k, v, do, m_p, l_p, dstat)
+    dk, dv, _ = FA.flash_attention_bwd_dkv(*args, **kw)
+    dk_f, dv_f, dq_f = FA.flash_attention_bwd_dkv(*args, with_dq=True, **kw)
+    dk_p, dv_p, dq_p = FA.flash_attention_bwd_dkv_plain(*args, with_dq=True,
+                                                        **kw)
+    torch.cuda.synchronize()
+    plain = {"out": out_p, "dq": dq_p, "dk": dk_p, "dv": dv_p}
+    exact = f64_attention(q, k, v, do, mask, d ** -0.5, causal)
+    for name in held:                 # float32 resolves what is held
+        assert_flash_close(plain[name], exact[name], torch.float32)
+    if case == "peaked_v_mix":
+        assert float(out_p.abs().max()) > 1e3
+    assert_flash_close(out, out_p, torch.float32)
+    assert_flash_close(m, m_p, torch.float32)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=1e-4)
+    got = {"dk": (dk, dk_f), "dv": (dv, dv_f), "dq": (dq_f,)}
+    for name in held[1:]:
+        for x in got[name]:
+            assert_grad_close(x, plain[name], torch.float32)
+    for kind, call in (
+            ("fwd", lambda: FA.flash_attention_fwd(q, k, v, **kw)),
+            ("dkv", lambda: FA.flash_attention_bwd_dkv(*args, **kw)),
+            ("fused", lambda: FA.flash_attention_bwd_dkv(
+                *args, with_dq=True, **kw))):
+        assert profiled_bodies(call, r"(flash_\w+?_kernel)<") == {
+            FA.kernel_body(kind, torch.float32, d)}, kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["fwd", "dkv", "fused"])
+def test_f32_tensor_core_calls_raise_rather_than_run_another_body(
+        cuda, monkeypatch, kind, d):
+    """No fallback: a float32 K1 or K2b call that its C entry refuses
+    (here the wrappers are made to ask for a wide tensor-core route,
+    which no float32 body has) raises and counts no launch, rather than
+    returning a result from the CUDA-core bodies or the plain version."""
+    q, k, v, do, mask = flash_inputs(cuda, torch.float32, 64, d, True)
+    kw = dict(scale=d ** -0.5, causal=True, mask=mask)
+    out, m, l = FA.flash_attention_fwd_plain(q, k, v, **kw)
+    args = (q, k, v, do, m, l, (do.float() * out.float()).sum(-1))
+    call, fn = {
+        "fwd": (lambda: FA.flash_attention_fwd(q, k, v, **kw),
+                FA.flash_attention_fwd),
+        "dkv": (lambda: FA.flash_attention_bwd_dkv(*args, **kw),
+                FA.flash_attention_bwd_dkv),
+        "fused": (lambda: FA.flash_attention_bwd_dkv(*args, with_dq=True,
+                                                     **kw),
+                  FA.flash_attention_bwd_dkv)}[kind]
+    monkeypatch.setattr(FA, "wide_tensor_cores", lambda dtype, d: True)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        call()
+    torch.cuda.synchronize()
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bwd_impl", ["pallas", "pallas_fused"])
 def test_flash_attention_grads_match_blockwise_on_card(cuda, bwd_impl):
     q, k, v, do, mask = flash_inputs(cuda, torch.float32, 150, 64, True)
@@ -647,7 +810,9 @@ def test_flash_calls_launch_the_kernel_body_names(cuda, dtype, d):
     name in a torch.profiler trace: bfloat16 K1, K2a and K2b (split and
     fused) at d 160 (padded to 192), 192 and 256 the wide tensor-core
     bodies, bfloat16 at d 64 and 128 the narrow ones (fused K2b's own),
-    float32 and d 320 the CUDA-core ones."""
+    float32 K1 and K2b (split and fused) at d 64 and 128 their TF32
+    tensor-core bodies, float32 K2a, float32 above 128 and d 320 the
+    CUDA-core ones."""
     dtype = getattr(torch, dtype)
     q, k, v, do, mask = flash_inputs(cuda, dtype, 130, d, True)
     kw = dict(scale=d ** -0.5, causal=True, mask=mask)
